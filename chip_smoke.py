@@ -5,12 +5,22 @@
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``src/repro_torch/csrc``, holds each kernel against its plain PyTorch
-version at the shapes of the serving path and times both, then serves
-ragged requests through ``IVectorExtractor`` at the paper's full width
-(D=72, C=2048, R=400, K=20) on a synthetic, well-conditioned UBM and TVM
-made from ``--seed``: first on the default sparse rung, then on the dense
-rung, and checks the i-vectors against the same path run on the CPU with
-the plain versions. Every phase that fails exits non-zero.
+version at the shapes of the serving and training paths and times both,
+then, at the paper's full width (D=72, C=2048, R=400, K=20) on a
+synthetic, well-conditioned UBM and TVM made from ``--seed``:
+
+* serves ragged requests through ``IVectorExtractor`` on the default
+  sparse rung, then on the dense and fused rungs, and checks the
+  i-vectors against the same path run on the CPU with the plain versions;
+* trains on synthetic frames drawn from that UBM (640 utterances x 512
+  frames): ``ubm.train_ubm``, then ``trainer.train`` for 3 iterations on
+  ``CONFIG`` (statistics once, then EM) and for 3 fused iterations with
+  realignment and the full UBM refresh, twice (bitwise repeatable), then
+  ``trainer.extract``; and checks one iteration on three corpora of 64
+  utterances against the CPU plain path on quantities the eigenvector
+  signs of ``min_divergence`` leave alone.
+
+Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -39,9 +49,32 @@ PEAK_BYTES = 3.35e12
 # |kernel - plain| <= TOL * max|plain|: both sum f32 products of the same
 # inputs, in another order (reductions of 5256, 2048 or 512 terms)
 TOL = 2e-5
-# served i-vectors are unit vectors; sparse and dense rungs, and the card
-# and the CPU, differ only by f32 rounding of the same statistics
+# served i-vectors are unit vectors; sparse, dense and fused rungs, and the
+# card and the CPU, differ only by f32 rounding of the same statistics
 IVEC_TOL = 1e-3
+# gmm_align scores its diag preselection inside the kernel: a frame whose
+# K-th and (K+1)-th scores differ by less than f32 rounding may select
+# another set than the plain version's matmul; at least this share agrees
+ALIGN_AGREE = 0.999
+# training, card against the CPU plain path after one iteration, on
+# CPU_CHECK_RUNS corpora. The alignment: POST_AGREE of the frames select
+# the same components with posteriors within POST_TOL (f32 scores summed
+# in another order move a posterior by under 3e-4). The EM iteration, from
+# the same statistics: each invariant to its limit x its largest |value|.
+# Sigma and the diagnostics are well posed (INV_TOL: f32 sums in another
+# order). T_c T_c^T, T[:,:,0] p and |prior| are not: at 64 x 256 frames
+# each component's A_c sums the i-vector moments of a few dozen utterances
+# against R = 400, and |prior| = sqrt(h^T G^-1 h) goes through the
+# i-vectors' covariance G, whose offset direction barely varies; f32
+# rounding reaches them through those solves. They are held to T_INV_TOL,
+# about eight times the largest reading over three corpora (1.3e-3 of
+# |prior|, NVIDIA H100 80GB HBM3, 700 W).
+POST_TOL = 1e-3
+POST_AGREE = 0.999
+INV_TOL = 1e-3
+T_INV_TOL = 1e-2
+ILL_POSED = ("T_c T_c^T", "T[:,:,0] p", "|prior|")
+CPU_CHECK_RUNS = 3
 
 
 def fail(msg: str) -> None:
@@ -227,6 +260,8 @@ def kernel_checks(ex, utts, g):
         del got, want
     del PP, n512
     torch.cuda.empty_cache()
+    rows.append(check_bw_stats(ex, frames, K))
+    rows.append(check_gmm_align(ex, frames, K))
     for r in rows:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
@@ -234,25 +269,125 @@ def kernel_checks(ex, utts, g):
     return rows
 
 
+def check_bw_stats(ex, frames, K: int):
+    """bw_stats at a train_ubm chunk's shape: Γ [32768, 2048] from the
+    alignment of real frames (top-20, no floor, as in the full UBM phase),
+    x [32768, 72]. The library column is one ``torch.matmul(Γᵀ, X₂)`` with
+    X₂ = vec(xxᵀ) built beforehand: the expansion is excluded from it."""
+    from repro_torch.core import alignment as AL
+    from repro_torch.kernels import bw_stats as BW
+    from repro_torch.kernels import ref
+    pack = ex._pack
+    C, D = pack.pre[1].shape
+    x = frames[:32768].contiguous()
+    F = x.shape[0]
+    post = AL.align_frames(x, pack.full, pack.diag, top_k=K, floor=0.0,
+                           precomp=pack.pre, rescore="sparse",
+                           rescore_pack=pack.rescore_A)
+    gamma = torch.zeros((F, C), device=x.device)
+    for k in range(K):
+        gamma.scatter_add_(1, post.indices[:, k:k + 1],
+                           post.values[:, k:k + 1])
+    got = BW.bw_stats(gamma, x)
+    want = ref.bw_stats(gamma, x)
+    err = max(compare(f"bw_stats {name} [{F}x{C}]ᵀ [{F}x{D}]", g, w)
+              for name, g, w in zip(("n", "f", "S"), got, want))
+    del got, want
+    x2 = (x[:, :, None] * x[:, None, :]).reshape(F, D * D)
+    gT = gamma.T
+    # S_c is symmetric: the function needs D(D+1)/2 products per (frame,
+    # component) for S, D for f and 1 for n; it writes all of S
+    b_ms, b_by = bound(2.0 * F * C * (D * (D + 1) // 2 + D + 1),
+                       4.0 * (F * C + F * D + C * (D * D + D + 1)))
+    row = dict(
+        name="bw_stats", route="cuda", source="src/repro_torch/csrc/bw_stats.cu",
+        replaces="src/repro/kernels/bw_stats.py:54", max_abs_err=err,
+        ms=cuda_ms(lambda: BW.bw_stats(gamma, x), 5),
+        plain_ms=cuda_ms(lambda: ref.bw_stats(gamma, x), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.matmul(gT, x2), 5))
+    del gamma, gT, x2, post
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_gmm_align(ex, frames, K: int):
+    """gmm_align at F=16384 frames against the plain preselect + packed
+    rescore. The selected sets are compared frame by frame (the share that
+    agrees is printed and held to ALIGN_AGREE) and sel_ll is held to TOL
+    on the frames that agree. The rescore alone (``gmm_rescore_fused``,
+    the same kernel given the selection) is held on every frame."""
+    from repro_torch.core import ubm as U
+    from repro_torch.kernels import gmm_align as GA
+    from repro_torch.kernels import ref
+    pack = ex._pack
+    dconst, dlin, dquad = (t.contiguous() for t in U.diag_coeffs(pack.diag))
+    A2 = pack.align_A
+    C, E2 = A2.shape
+    x = frames[:16384].contiguous()
+    F, D = x.shape
+    ll, sel = GA.gmm_align(x, dconst, dlin, dquad, A2, K)
+    want_ll, want_sel = ref.gmm_align(x, dconst, dlin, dquad, A2, K)
+    s_got, o_got = torch.sort(sel, dim=1)
+    s_want, o_want = torch.sort(want_sel, dim=1)
+    agree = (s_got == s_want).all(dim=1)
+    share = agree.float().mean().item()
+    print(f"  gmm_align: selected sets agree on {agree.sum().item()} of {F} "
+          f"frames ({100 * share:.3f}%, at least {100 * ALIGN_AGREE:g}% "
+          "required)")
+    if share < ALIGN_AGREE:
+        fail("gmm_align selects other components than its plain version")
+    err = compare(f"gmm_align sel_ll [{F}x{K}] on agreeing frames",
+                  torch.gather(ll, 1, o_got)[agree],
+                  torch.gather(want_ll, 1, o_want)[agree])
+    compare(f"gmm_rescore_fused [{F}x{K}] on the kernel's selection",
+            GA.gmm_rescore_fused(x, sel, A2),
+            ref.gmm_rescore_fused(x, sel, A2))
+    rows_touched = torch.unique(sel).numel()
+    b_ms, b_by = bound(2.0 * F * C * (2 * D + 1) + 2.0 * F * K * E2,
+                       4.0 * (F * D + C * (2 * D + 1) + rows_touched * E2)
+                       + 12.0 * F * K)
+    return dict(
+        name="gmm_align", route="cuda",
+        source="src/repro_torch/csrc/gmm_align.cu",
+        replaces="src/repro/kernels/gmm_align.py:162", max_abs_err=err,
+        ms=cuda_ms(lambda: GA.gmm_align(x, dconst, dlin, dquad, A2, K), 20),
+        plain_ms=cuda_ms(
+            lambda: ref.gmm_align(x, dconst, dlin, dquad, A2, K), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def counters():
+    from repro_torch.kernels import bw_stats as BW
+    from repro_torch.kernels import gmm_align as GA
     from repro_torch.kernels import gmm_loglik as GL
     from repro_torch.kernels import gmm_rescore as GR
     from repro_torch.kernels import tvm_estep as TE
     return {"gmm_loglik": GL.gmm_loglik, "gmm_rescore": GR.gmm_rescore,
-            "tvm_estep_l": TE.tvm_estep_l, "tvm_estep_a": TE.tvm_estep_a}
+            "tvm_estep_l": TE.tvm_estep_l, "tvm_estep_a": TE.tvm_estep_a,
+            "bw_stats": BW.bw_stats, "gmm_align": GA.gmm_align,
+            "gmm_rescore_fused": GA.gmm_rescore_fused}
+
+
+def reset_counts() -> None:
+    for w in counters().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: w.launches for k, w in counters().items()}
 
 
 def drive(ex, utts, label: str):
     """Serve ``utts`` once with every launch count set to 0 just before;
     returns (i-vectors, launches by kernel, wall seconds)."""
-    for w in counters().values():
-        w.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     iv = ex.extract(utts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in counters().items()}
+    launches = read_counts()
     frames = sum(u.shape[0] for u in utts)
     audio_s = frames / 100.0      # 10 ms frame shift
     print(f"  {label}: {len(utts)} requests, {frames} frames in "
@@ -262,16 +397,17 @@ def drive(ex, utts, label: str):
     return iv, launches, wall
 
 
-def profile_path(ex, utts):
-    """One sparse pass under ``torch.profiler``: its wall time (inflated by
-    the profiler), the device's busy time (the sum of device-side events,
-    kernels and copies, all on one stream) and device time by kernel."""
+def profile_path(fn):
+    """One call of ``fn`` under ``torch.profiler``: its wall time (inflated
+    by the profiler), the device's busy time (the sum of device-side
+    events, kernels and copies, all on one stream) and device time by
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ex.extract(utts)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -293,6 +429,310 @@ def check_ivectors(iv, n: int, R: int, label: str) -> None:
     if np.abs(norms - 1.0).max() > 1e-4:
         fail(f"{label}: i-vectors not unit-norm ({norms.min()}, "
              f"{norms.max()})")
+
+
+def synthetic_corpus(ubm, n_utts: int, n_frames: int, g,
+                     every_component: bool = False):
+    """[n_utts, n_frames, D] frames drawn from the UBM, each utterance with
+    its own offset. ``every_component`` deals the components out evenly
+    (each generates n_utts*n_frames/C frames, in shuffled order), so that
+    no component goes without frames."""
+    C, D = ubm.means.shape
+    dev = ubm.means.device
+    N = n_utts * n_frames
+    if every_component:
+        comp = (torch.arange(N, device=dev) % C)[
+            torch.randperm(N, generator=g, device=dev)]
+    else:
+        comp = torch.multinomial(ubm.weights, N, replacement=True,
+                                 generator=g)
+    chol = torch.linalg.cholesky(ubm.covs)
+    x = torch.empty((N, D), device=dev)
+    for s in range(0, N, 32768):
+        c = comp[s:s + 32768]
+        z = torch.randn(c.shape[0], D, 1, generator=g, device=dev)
+        x[s:s + 32768] = ubm.means[c] + (chol[c] @ z)[..., 0]
+    shift = 0.2 * torch.randn(n_utts, 1, D, generator=g, device=dev)
+    return x.reshape(n_utts, n_frames, D) + shift
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def check_finite(label: str, *tensors) -> None:
+    for t in tensors:
+        if not torch.isfinite(t).all():
+            fail(f"{label}: non-finite values")
+
+
+def timed_train(cfg, ubm, feats, n_iters: int, seed: int, dev):
+    """``trainer.train`` with the launch counts set to 0 just before; returns
+    (state, seconds to each iteration's end, diagnostics, launches)."""
+    from repro_torch.core import trainer as TR
+    ends, diags = [], []
+
+    def cb(state, diag):
+        _sync(dev)
+        ends.append(time.perf_counter())
+        diags.append({k: float(v) for k, v in diag.items()})
+
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    state = TR.train(cfg, ubm, feats, n_iters=n_iters,
+                     generator=torch.Generator().manual_seed(seed),
+                     callback=cb, device=dev)
+    secs = [e - s for s, e in zip([t0] + ends[:-1], ends)]
+    check_finite("training", state.model.T, state.model.Sigma,
+                 state.model.prior, state.ubm.covs)
+    return state, secs, diags, read_counts()
+
+
+def require_launches(label: str, launches: dict, names) -> None:
+    for k in names:
+        if launches[k] == 0:
+            fail(f"{label} never launched {k}")
+
+
+def training_phase(cfg, ubm, g, seed: int, dev, n_utts: int = 640,
+                   n_frames: int = 512):
+    """UBM training, both trainer branches, the repeat run and extraction on
+    [n_utts, n_frames, D] frames drawn from ``ubm``; returns a record."""
+    from repro_torch.core import trainer as TR
+    from repro_torch.core import ubm as U
+    C, D = ubm.means.shape
+    feats = synthetic_corpus(ubm, n_utts, n_frames, g)
+    rec = {"utterances": n_utts, "frames_per_utt": n_frames,
+           "audio_s": n_utts * n_frames / 100.0, "launches": {}}
+    print(f"  corpus: {n_utts} utterances x {n_frames} frames "
+          f"({rec['audio_s'] / 60:.1f} min of audio at 10 ms)")
+
+    # train_ubm on the flat frames: 4096-frame pseudo-utterances, chunks
+    # of 8 (32,768 frames), Kaldi's top-20 gselect
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    ubm_t = U.train_ubm(feats.reshape(-1, D), C,
+                        torch.Generator(device=dev).manual_seed(seed),
+                        diag_iters=2, full_iters=2, top_k=cfg.posterior_top_k,
+                        device=dev)
+    _sync(dev)
+    rec["train_ubm_s"] = time.perf_counter() - t0
+    rec["launches"]["train_ubm"] = read_counts()
+    check_finite("train_ubm", ubm_t.weights, ubm_t.means, ubm_t.covs)
+    if torch.linalg.cholesky_ex(ubm_t.covs).info.any():
+        fail("train_ubm: a covariance is not positive definite")
+    require_launches("train_ubm", rec["launches"]["train_ubm"],
+                     ("gmm_loglik", "bw_stats"))
+    print(f"  train_ubm (2 diag + 2 full iterations, top-20): "
+          f"{rec['train_ubm_s']:.2f} s; launches "
+          f"{rec['launches']['train_ubm']}")
+
+    # the stats pass alone (the trainer's no-realignment branch runs it
+    # once, before its first iteration)
+    _sync(dev)
+    t0 = time.perf_counter()
+    st, _ = TR.stats_ll(cfg, ubm_t, feats)
+    _sync(dev)
+    rec["stats_pass_s"] = time.perf_counter() - t0
+    del st
+    state, secs, diags, launches = timed_train(cfg, ubm_t, feats, 3, seed,
+                                               dev)
+    rec.update(train_iter_s=secs, train_diag=diags)
+    rec["launches"]["train"] = launches
+    require_launches("train", launches, ("gmm_rescore", "bw_stats",
+                                         "tvm_estep_l", "tvm_estep_a"))
+    print(f"  train, CONFIG (sparse, statistics once): stats pass "
+          f"{rec['stats_pass_s']:.2f} s; iterations "
+          f"{', '.join(f'{t:.2f}' for t in secs)} s (the first includes "
+          f"the stats pass); launches {launches}")
+    del state
+
+    cfg_f = cfg.with_overrides(rescore="fused", realign_interval=1,
+                               ubm_update="full")
+    state_f, secs_f, diags_f, launches = timed_train(cfg_f, ubm_t, feats, 3,
+                                                     seed, dev)
+    rec.update(fused_iter_s=secs_f, fused_diag=diags_f)
+    rec["launches"]["train_fused"] = launches
+    require_launches("train, fused", launches, ("gmm_align", "bw_stats",
+                                                "tvm_estep_l",
+                                                "tvm_estep_a"))
+    print(f"  train, fused + realignment every iteration + full UBM "
+          f"refresh: iterations {', '.join(f'{t:.2f}' for t in secs_f)} s; "
+          f"launches {launches}")
+    for d in diags_f:
+        print(f"    avg loglik {d['avg_loglik']:.4f}, mean |phi| "
+              f"{d['mean_phi_norm']:.4f}")
+    again, _, _, _ = timed_train(cfg_f, ubm_t, feats, 3, seed, dev)
+    for a, b in zip((state_f.model.T, state_f.model.Sigma,
+                     state_f.model.prior, state_f.ubm.weights,
+                     state_f.ubm.means, state_f.ubm.covs),
+                    (again.model.T, again.model.Sigma, again.model.prior,
+                     again.ubm.weights, again.ubm.means, again.ubm.covs)):
+        if not torch.equal(a, b):
+            fail("the same training run twice is not bitwise equal")
+    print("  repeat training run is bitwise equal")
+    del again
+
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    iv = TR.extract(cfg_f, state_f, feats, device=dev)
+    _sync(dev)
+    rec["extract_s"] = time.perf_counter() - t0
+    rec["launches"]["extract"] = read_counts()
+    require_launches("extract", rec["launches"]["extract"], ("gmm_align",
+                                                             "tvm_estep_l"))
+    iv_s = TR.extract(cfg, state_f, feats, device=dev)
+    check_finite("extract", iv)
+    if iv.shape != (n_utts, cfg.ivector_dim):
+        fail(f"extract: shape {tuple(iv.shape)}")
+    d_fs = ((iv - iv_s).abs().max() / iv_s.abs().max()).item()
+    print(f"  extract: {n_utts} i-vectors in {rec['extract_s']:.2f} s; "
+          f"fused vs sparse rung max |diff| / max|i-vector| {d_fs:.3e} "
+          f"(tolerance {IVEC_TOL})")
+    if d_fs > IVEC_TOL:
+        fail("extract: fused and sparse rungs disagree")
+    rec["extract_fused_vs_sparse"] = d_fs
+    del iv, iv_s
+
+    out = []
+    prof = profile_path(lambda: out.append(TR.iteration(
+        cfg_f, state_f.model, state_f.ubm, feats)))
+    print_profile("fused iteration", prof, 10)
+    rec["profile_fused_iteration"] = prof
+    # the realignment write-back between iterations, alone, and the
+    # PSD floor inside it; the profiler sees the floor on 64 covariances
+    # only (on all 2,048 it records some 300,000 device events)
+    tot = out[0][1]
+    rec["refresh_ubm_s"] = host_seconds(dev, lambda: TR.refresh_ubm(
+        cfg_f, state_f.model, state_f.ubm, tot))
+    covs = state_f.ubm.covs
+    rec["psd_floor_s"] = host_seconds(dev, lambda: U.psd_floor(covs))
+    print(f"  UBM refresh ('full'): {rec['refresh_ubm_s']:.3f} s, of which "
+          f"psd_floor of {covs.shape[0]} covariances "
+          f"{rec['psd_floor_s']:.3f} s")
+    prof = profile_path(lambda: U.psd_floor(covs[:64]))
+    print_profile("psd_floor of 64 covariances", prof, 5)
+    rec["profile_psd_floor_64"] = prof
+    return rec
+
+
+def host_seconds(dev, fn) -> float:
+    """Host-clock seconds of one call of ``fn``, synchronised on both ends."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    fn()
+    _sync(dev)
+    return time.perf_counter() - t0
+
+
+def print_profile(label: str, prof, n: int) -> None:
+    print(f"  profiled {label}: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_ms']:.1f} ms "
+          f"({100 * prof['device_ms'] / prof['wall_ms']:.0f}%); top device "
+          "time by kernel (ms):")
+    for name, ms, calls in prof["top"][:n]:
+        print(f"    {ms:9.3f}  x{calls:<5d} {name[:90]}")
+
+
+def model_invariants(model, mean_phi_norm, avg_loglik):
+    """Quantities of a trained TV model that min_divergence's eigenvector
+    signs leave alone, in float64, computed on the model's device and
+    returned on the CPU."""
+    T = model.T.double()
+    prior = model.prior.double()
+    inv = {"T_c T_c^T": torch.einsum("cdr,cer->cde", T, T),
+           "T[:,:,0] p": T[:, :, 0] * prior[0],
+           "|prior|": torch.linalg.norm(prior),
+           "Sigma": model.Sigma.double(),
+           "mean_phi_norm": torch.tensor(float(mean_phi_norm)),
+           "avg_loglik": torch.tensor(float(avg_loglik))}
+    return {k: v.cpu() for k, v in inv.items()}
+
+
+def training_vs_cpu(cfg, ubm, seed: int, dev):
+    """One fused training iteration on 64 utterances x 256 frames at full
+    width, on the card and on the CPU plain path, for CPU_CHECK_RUNS
+    corpora and initial Ts; every component generates 8 of the frames, so
+    no M-step solve is starved.
+
+    The alignment (``alignment.align_frames``, as the statistics pass runs
+    it) is held frame by frame: a posterior within f32 rounding of the
+    0.025 floor, or a component tied at the K-th place, is kept on one side
+    and not on the other, so POST_AGREE of the frames must select the same
+    components with posteriors within POST_TOL. The EM iteration
+    (``trainer.em_iter``, which ``train`` runs) then runs on each side from
+    the same statistics, the card's, so its invariants differ by f32
+    rounding alone."""
+    from repro_torch.core import alignment as AL
+    from repro_torch.core import engine as EN
+    from repro_torch.core import trainer as TR
+    from repro_torch.core import tvm as TV
+    cfg1 = cfg.with_overrides(rescore="fused")
+    cpu = torch.device("cpu")
+    runs = []
+    for r in range(CPU_CHECK_RUNS):
+        g = torch.Generator(device=dev).manual_seed(seed + 1 + r)
+        feats = synthetic_corpus(ubm, 64, 256, g, every_component=True)
+        x = feats.reshape(-1, feats.shape[-1])
+        post, avg_ll, secs = {}, {}, {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            pack = EN.pack_ubm(ubm, d)
+            _sync(d)
+            t0 = time.perf_counter()
+            post[where], lse = AL.align_frames(
+                x.to(d), pack.full, pack.diag, top_k=cfg1.posterior_top_k,
+                floor=cfg1.posterior_floor, precomp=pack.pre,
+                with_loglik=True, rescore="fused", align_pack=pack.align_A)
+            avg_ll[where] = lse.mean().item()
+            _sync(d)
+            secs[where] = time.perf_counter() - t0
+        pc, pp = post["card"], post["cpu"]
+        agree = ((pc.indices.cpu() == pp.indices).all(dim=1)
+                 & ((pc.values.cpu() - pp.values).abs() <= POST_TOL)
+                 .all(dim=1))
+        share = agree.float().mean().item()
+        print(f"  alignment, 64 x 256 frames, run {r}: {int(agree.sum())} of "
+              f"{agree.numel()} frames agree ({100 * share:.3f}%, at least "
+              f"{100 * POST_AGREE:g}% required)")
+        if share < POST_AGREE:
+            fail("the alignments on the card and on the CPU disagree")
+        st, _ = TR.stats_ll(cfg1, ubm, feats)
+        inv = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            u = ubm.to(d)
+            model = TV.init_model(torch.Generator().manual_seed(seed + r),
+                                  u.means, u.covs, cfg1.ivector_dim,
+                                  cfg1.formulation, cfg1.prior_offset)
+            _sync(d)
+            t0 = time.perf_counter()
+            model, diag = TR.em_iter(cfg1, model, st.n.to(d), st.f.to(d),
+                                     st.S.to(d))
+            _sync(d)
+            secs[where] += time.perf_counter() - t0
+            check_finite("training vs CPU", model.T, model.Sigma)
+            inv[where] = model_invariants(model, diag["mean_phi_norm"],
+                                          avg_ll[where])
+        print(f"  alignment + one EM iteration, run {r}: card "
+              f"{secs['card']:.2f} s, CPU plain path {secs['cpu']:.2f} s")
+        rel = {}
+        for k, want in inv["cpu"].items():
+            diff = (inv["card"][k] - want).abs().max().item()
+            scale = max(want.abs().max().item(), 1e-30)
+            rel[k] = diff / scale
+            tol = T_INV_TOL if k in ILL_POSED else INV_TOL
+            ok = diff <= tol * scale
+            print(f"    {k}: max |card - CPU| {diff:.3e}, max |value| "
+                  f"{scale:.3e} (tolerance {tol:g} x max|value|) "
+                  f"{'ok' if ok else 'DISAGREES'}")
+            if not ok:
+                fail(f"training on the card and on the CPU disagree on {k}")
+        runs.append({"seconds": secs, "frames_agree": share,
+                     "rel_diff": rel})
+    return runs
 
 
 def main() -> int:
@@ -357,13 +797,8 @@ def main() -> int:
         fail("the same requests served twice are not bitwise equal")
     print("  repeat run is bitwise equal")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    profile = profile_path(ex, utts)
-    print(f"  profiled sparse pass: wall {profile['wall_ms']:.1f} ms, device "
-          f"busy {profile['device_ms']:.1f} ms "
-          f"({100 * profile['device_ms'] / profile['wall_ms']:.0f}%); top "
-          "device time by kernel (ms):")
-    for name, ms, calls in profile["top"][:8]:
-        print(f"    {ms:9.3f}  x{calls:<5d} {name[:90]}")
+    profile = profile_path(lambda: ex.extract(utts))
+    print_profile("sparse pass", profile, 8)
     del ex
     torch.cuda.empty_cache()
 
@@ -383,6 +818,21 @@ def main() -> int:
     del ex_d
     torch.cuda.empty_cache()
 
+    ex_f = IVectorExtractor(cfg.with_overrides(rescore="fused"), model, ubm,
+                            ServingConfig(), device=dev)
+    iv_f, launches_fused, wall_f = drive(ex_f, utts, "fused")
+    check_ivectors(iv_f, len(utts), cfg.ivector_dim, "fused")
+    if ex_f.mode != "fused" or ex_f.stats["degradations"] != 0:
+        fail(f"fused session degraded: {ex_f.stats}")
+    require_launches("fused path", launches_fused, ("gmm_align",
+                                                    "tvm_estep_l"))
+    d_sf = float(np.abs(iv - iv_f).max())
+    print(f"  sparse vs fused: max |diff| {d_sf:.3e} (tolerance {IVEC_TOL})")
+    if d_sf > IVEC_TOL:
+        fail("sparse and fused rungs disagree")
+    del ex_f
+    torch.cuda.empty_cache()
+
     # reference: the shortest requests through the same path on the CPU,
     # on the plain versions (max_batch 4 keeps the CPU gathers small)
     pick = np.argsort([u.shape[0] for u in utts])[:4]
@@ -395,25 +845,44 @@ def main() -> int:
     if d_cpu > IVEC_TOL:
         fail("card and CPU plain path disagree")
 
-    # 5. kernels line, card line, contract line
-    # tvm_estep_a (and its bf16 form) is the training contraction: held
-    # and timed here, off the serving path, so its launches stay 0
-    on_path = {"gmm_loglik", "gmm_rescore", "tvm_estep_l"}
+    # 5. training at full width
+    print("[5] training")
+    del ex_c
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train = training_phase(cfg, ubm, g, args.seed, dev)
+    train["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    train["phase_s"] = time.perf_counter() - t0
+    print(f"  peak device memory {train['peak_mem_gb']:.2f} GB; training "
+          f"phase {train['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    train["vs_cpu"] = training_vs_cpu(cfg, ubm, args.seed, dev)
+
+    # 6. kernels line, card line, contract line. Launches are summed over
+    # the main-path runs, each counted from 0: the three serving rungs and
+    # the training runs (the repeat run and the CPU check not included).
+    # The bf16 form of tvm_estep_a is held and timed here but no path of
+    # this script trains with bf16 E-step inputs.
+    paths = {"sparse": launches_sparse, "dense": launches_dense,
+             "fused": launches_fused, **train["launches"]}
     for r in rows:
-        r["launches"] = (launches_sparse.get(r["name"], 0)
-                         + launches_dense.get(r["name"], 0))
-        r["on_path"] = r["name"] in on_path
+        r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
+        r["on_path"] = r["name"] != "tvm_estep_a_bf16"
+        if r["on_path"] and r["launches"] == 0:
+            fail(f"no main-path run launched {r['name']}")
     frames = sum(u.shape[0] for u in utts)
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "seed": args.seed,
               "build_s": build_s, "setup_s": setup_s,
               "requests": len(utts), "frames": frames,
               "sparse_wall_s": [wall, wall2], "dense_wall_s": wall_d,
-              "launches": {"sparse": launches_sparse,
-                           "dense": launches_dense},
+              "fused_wall_s": wall_f, "launches": paths,
               "peak_mem_gb_sparse": peak_gb, "profile_sparse": profile,
               "sparse_vs_dense_max_diff": d_sd,
-              "card_vs_cpu_max_diff": d_cpu, "kernels": rows}
+              "sparse_vs_fused_max_diff": d_sf,
+              "card_vs_cpu_max_diff": d_cpu, "training": train,
+              "kernels": rows}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

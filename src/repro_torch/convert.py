@@ -1,8 +1,8 @@
 """Carry trained parameters across from the JAX package.
 
 The arguments are numpy arrays: ``np.asarray`` of the leaves of a JAX
-``FullGMM`` (weights, means, covs) or ``TVModel`` (T, Sigma, prior,
-means, formulation). The port then computes the same function as the
+``FullGMM`` (weights, means, covs), ``DiagGMM`` (weights, means, vars) or
+``TVModel`` (T, Sigma, prior, means, formulation). The port then computes the same function as the
 JAX package on the same parameters. Tensors go to ``device``: CUDA unless
 the caller names another.
 """
@@ -13,7 +13,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.tvm import TVModel
-from repro_torch.core.ubm import FullGMM
+from repro_torch.core.ubm import DiagGMM, FullGMM
 
 
 def _tensor(a, dev) -> torch.Tensor:
@@ -25,6 +25,13 @@ def ubm_from_numpy(weights, means, covs, device=None) -> FullGMM:
     dev = resolve_device(device)
     return FullGMM(_tensor(weights, dev), _tensor(means, dev),
                    _tensor(covs, dev))
+
+
+def diag_from_numpy(weights, means, vars_, device=None) -> DiagGMM:
+    """weights [C], means [C, D], vars [C, D] -> the port's DiagGMM."""
+    dev = resolve_device(device)
+    return DiagGMM(_tensor(weights, dev), _tensor(means, dev),
+                   _tensor(vars_, dev))
 
 
 def tvm_from_numpy(T, Sigma, prior, means, formulation: str,

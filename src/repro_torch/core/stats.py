@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import ops
+
 f32 = torch.float32
 
 
@@ -42,7 +44,9 @@ def scatter_accumulate(x, values, indices, n_utts: int, C: int,
     most one value in each row, so no two additions ever meet), and the
     moments are reductions and matrix products over it, whose order is
     fixed. The same request therefore gives the same statistics bit for
-    bit on every run.
+    bit on every run. The full second moment comes from ``ops.bw_stats``
+    (the ``bw_stats`` kernel on the card), which forms vec(x x^T) on chip
+    instead of an [N, D*D] expansion in device memory.
     """
     N, D = x.shape
     if N % n_utts:
@@ -67,7 +71,7 @@ def scatter_accumulate(x, values, indices, n_utts: int, C: int,
     if second_order == "diag":
         S = gamma.T @ (x * x)
     elif second_order == "full":
-        S = gamma.T @ (x[:, :, None] * x[:, None, :]).reshape(N, D * D)
+        S = ops.bw_stats(gamma, x)[2]
     return n, f, S
 
 

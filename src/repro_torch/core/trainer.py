@@ -1,0 +1,236 @@
+"""The TVM trainer on one device (the port of ``repro/core/trainer.py``): the
+paper's §3.2 training loop, with its variants switchable by the config:
+
+  formulation   'standard' | 'augmented'
+  min_divergence / update_sigma / realign_interval / ubm_update
+
+Without realignment the UBM is static, so the frames are aligned once and
+the Baum-Welch statistics are reused by every EM iteration (``em_iter``).
+With realignment each iteration is one streamed pass through the engine
+(``iteration``): utterance chunks go through alignment -> Baum-Welch
+statistics -> TVM E-step accumulation, then M-step and min-divergence;
+between iterations ``refresh_ubm`` writes the model back into the UBM
+('means': the paper's step 5; 'full' also refreshes weights and
+covariances from the same streamed statistics).
+
+Entry points run on ``device`` (CUDA unless the caller names another). A
+kernel failure during training raises: the trainer has no demotion ladder.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.ivector_tvm import IVectorConfig
+from repro_torch.core import engine as EN
+from repro_torch.core import stats as ST
+from repro_torch.core import tvm as TV
+from repro_torch.core import ubm as U
+
+f32 = torch.float32
+
+
+@dataclass
+class TrainState:
+    model: TV.TVModel
+    ubm: U.FullGMM
+    iteration: int = 0
+
+
+def _spec(cfg: IVectorConfig, second_order: bool) -> EN.EngineSpec:
+    return EN.EngineSpec(
+        n_components=cfg.n_components, top_k=cfg.posterior_top_k,
+        floor=cfg.posterior_floor,
+        second_order="full" if second_order else None,
+        chunk=cfg.estep_chunk, rescore=cfg.rescore)
+
+
+def stats_ll(cfg: IVectorConfig, ubm: U.FullGMM, feats, mask=None,
+             second_order: Optional[bool] = None):
+    """feats [U, F, D] -> (BWStats, (loglik, frames)) through the engine
+    (the body of the JAX ``make_stats_ll_fn``; with ``second_order=False``
+    that of ``make_stats_fn``). S is tracked when the config updates Σ."""
+    so = cfg.update_sigma if second_order is None else second_order
+    return EN.stream_bw(_spec(cfg, so), EN.pack_ubm(ubm, feats.device),
+                        feats, mask)
+
+
+def _finish_iteration(cfg: IVectorConfig, model: TV.TVModel,
+                      tot: EN.UBMStats, acc: TV.EMAccum):
+    """M-step + min-divergence from one pass's merged accumulators."""
+    S_m = None
+    if cfg.update_sigma:
+        S_m = tot.ss
+        if model.formulation == "standard":
+            S_m = ST.center(ST.BWStats(tot.n[None], tot.f[None], tot.ss),
+                            model.means).S
+    model = TV.m_step(model, acc, S_m, cfg.update_sigma)
+    if cfg.min_divergence:
+        model = TV.min_divergence(model, acc)
+    diag = {"mean_phi_norm": torch.linalg.norm(acc.h / acc.n_utts),
+            "avg_loglik": tot.loglik / torch.clamp(tot.frames, min=1.0)}
+    return model, diag
+
+
+def em_iter(cfg: IVectorConfig, model: TV.TVModel, n, f, S_tot):
+    """One EM iteration from precomputed Baum-Welch statistics (the body of
+    the JAX ``make_em_fn``) -> (new model, diagnostics)."""
+    if model.formulation == "standard":
+        st = ST.center(ST.BWStats(n, f, S_tot), model.means)
+        n_, f_, S_ = st.n, st.f, st.S
+    else:
+        n_, f_, S_ = n, f, S_tot
+    pre = TV.precompute(model, estep=cfg.estep, device=n.device)
+    acc = TV.em_accumulate_scan(model, pre, n_, f_, chunk=cfg.estep_chunk,
+                                estep_dtype=cfg.estep_dtype)
+    model = TV.m_step(model, acc, S_ if cfg.update_sigma else None,
+                      cfg.update_sigma)
+    if cfg.min_divergence:
+        model = TV.min_divergence(model, acc)
+    return model, {"mean_phi_norm": torch.linalg.norm(acc.h / acc.n_utts)}
+
+
+def _iter_accums(cfg: IVectorConfig, spec: EN.EngineSpec,
+                 model: TV.TVModel, feat_dim: int):
+    pre = TV.precompute(model, estep=cfg.estep, device=model.T.device)
+    center = model.means if model.formulation == "standard" else None
+    return (EN.TotalsAccum(spec, feat_dim),
+            EN.TVMAccum(model, pre, center_means=center,
+                        estep_dtype=cfg.estep_dtype))
+
+
+def iteration(cfg: IVectorConfig, model: TV.TVModel, ubm: U.FullGMM, feats,
+              mask=None):
+    """One fused streamed EM iteration (the body of the JAX
+    ``make_iter_fn``) -> (new model, totals, diagnostics): the engine feeds
+    the global sufficient statistics (``TotalsAccum``: the Σ update and
+    the UBM refresh) and the TVM E-step (``TVMAccum``) from one pass."""
+    track_S = cfg.update_sigma or cfg.ubm_update == "full"
+    spec = _spec(cfg, track_S)
+    pack = EN.pack_ubm(ubm, feats.device)
+    accums = _iter_accums(cfg, spec, model, feats.shape[-1])
+    (tot, acc), _ = EN.stream(spec, pack, feats, mask, accums)
+    model, diag = _finish_iteration(cfg, model, tot, acc)
+    return model, tot, diag
+
+
+def merge_totals(a: EN.UBMStats, b: EN.UBMStats) -> EN.UBMStats:
+    """Associative merge of finalized sufficient statistics (None ss
+    merges with None)."""
+    return EN.UBMStats(*(None if x is None else x + y
+                         for x, y in zip(a, b)))
+
+
+# ---------------------------------------------------------------------------
+# Realignment write-back (§3.2 step 5, generalized)
+# ---------------------------------------------------------------------------
+
+
+def refresh_ubm(cfg: IVectorConfig, model: TV.TVModel, ubm: U.FullGMM,
+                totals: Optional[EN.UBMStats], *,
+                update_weights: Optional[bool] = None,
+                update_covs: Optional[bool] = None) -> U.FullGMM:
+    """UBM write-back for realignment. 'means' rewrites only the means from
+    the T column; 'full' also refreshes the weights and the (PSD-floored)
+    covariances from the previous iteration's streamed statistics. With
+    both refresh flags off, 'full' is exactly 'means'."""
+    full = cfg.ubm_update == "full"
+    update_weights = full if update_weights is None else update_weights
+    update_covs = full if update_covs is None else update_covs
+    means = TV.updated_ubm_means(model)
+    weights, covs = ubm.weights, ubm.covs
+    if update_weights:
+        weights = U.renormalised_weights(totals.n)
+    if update_covs:
+        n_safe = torch.clamp(totals.n, min=1e-6)
+        fbar = totals.f / n_safe[:, None]
+        covs = (totals.ss / n_safe[:, None, None]
+                - means[:, :, None] * fbar[:, None, :]
+                - fbar[:, :, None] * means[:, None, :]
+                + means[:, :, None] * means[:, None, :])
+        covs = U.psd_floor(covs)
+    return U.FullGMM(weights, means, covs)
+
+
+def _realign_due(cfg: IVectorConfig, it: int, model: TV.TVModel) -> bool:
+    return (cfg.realign_interval > 0 and it > 0
+            and it % cfg.realign_interval == 0
+            and model.formulation == "augmented"
+            and cfg.ubm_update != "none")
+
+
+# ---------------------------------------------------------------------------
+# Training loop + extraction
+# ---------------------------------------------------------------------------
+
+
+def train(cfg: IVectorConfig, ubm: U.FullGMM, feats,
+          n_iters: Optional[int] = None,
+          generator: Optional[torch.Generator] = None, callback=None,
+          mask=None, device=None) -> TrainState:
+    """The training loop on in-memory features [U, F, D] (``mask`` [U, F]
+    marks valid frames, so ragged batches train exactly).
+
+    T is initialised from ``generator`` (a CPU generator seeded 0 when
+    none is given, so a run is reproducible on any device). ``callback``
+    gets (state, diagnostics) after every iteration.
+    """
+    dev = resolve_device(device)
+    feats = torch.as_tensor(feats).to(dev, f32)
+    mask = None if mask is None else torch.as_tensor(mask).to(dev)
+    generator = (generator if generator is not None
+                 else torch.Generator().manual_seed(0))
+    ubm = ubm.to(dev)
+    model = TV.init_model(generator, ubm.means, ubm.covs, cfg.ivector_dim,
+                          cfg.formulation, cfg.prior_offset)
+    state = TrainState(model=model, ubm=ubm)
+    n_iters = n_iters or cfg.n_iters
+
+    # When realignment can never fire the UBM is static: align once and
+    # reuse the statistics; the streamed per-iteration pass runs only
+    # when a write-back can change the alignments.
+    if (cfg.realign_interval > 0 and cfg.ubm_update != "none"
+            and cfg.formulation == "augmented"):
+        prev: Optional[EN.UBMStats] = None
+        for it in range(n_iters):
+            if _realign_due(cfg, it, state.model):
+                state.ubm = refresh_ubm(cfg, state.model, state.ubm, prev)
+            state.model, prev, diag = iteration(cfg, state.model,
+                                                state.ubm, feats, mask)
+            state.iteration = it + 1
+            if callback is not None:
+                callback(state, diag)
+        return state
+
+    st, (ll, frames) = stats_ll(cfg, state.ubm, feats, mask)
+    avg_ll = ll / torch.clamp(frames, min=1.0)
+    for it in range(n_iters):
+        state.model, diag = em_iter(cfg, state.model, st.n, st.f, st.S)
+        state.iteration = it + 1
+        if callback is not None:
+            callback(state, {**diag, "avg_loglik": avg_ll})
+    return state
+
+
+def extract(cfg: IVectorConfig, state: TrainState, feats, mask=None,
+            device=None) -> torch.Tensor:
+    """i-vectors [U, R] for [U, F, D] features with the trained model and
+    UBM (``mask`` [U, F] marks valid frames). The statistics pass skips
+    the second moment, which extraction does not use."""
+    dev = resolve_device(device)
+    feats = torch.as_tensor(feats).to(dev, f32)
+    mask = None if mask is None else torch.as_tensor(mask).to(dev)
+    st, _ = stats_ll(cfg, state.ubm.to(dev), feats, mask,
+                     second_order=False)
+    model = state.model.to(dev)
+    if model.formulation == "standard":
+        stc = ST.center(ST.BWStats(st.n, st.f, None), model.means)
+        n_, f_ = stc.n, stc.f
+    else:
+        n_, f_ = st.n, st.f
+    pre = TV.precompute(model, estep=cfg.estep, device=dev)
+    return TV.extract_ivectors(model, pre, n_, f_,
+                               estep_dtype=cfg.estep_dtype)

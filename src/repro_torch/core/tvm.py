@@ -1,10 +1,15 @@
 """Total-variability model, standard and augmented (Kaldi) formulations: the
-port of ``repro/core/tvm.py`` as far as extraction needs it (the E-step
-accumulation, M-step and minimum-divergence updates come with training).
+port of ``repro/core/tvm.py``.
+
+  * E-step posteriors (paper eqs. 3-4), with prior offset p (augmented)
+  * E-step accumulation and the M-step: T update, residual covariance Σ_c
+  * minimum-divergence re-estimation: whitening; for the augmented
+    formulation also the Householder reflection and the prior-offset update
+  * UBM-mean write-back for realignment (paper §3.2 step 5)
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -13,6 +18,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels import ops
 
 f32 = torch.float32
+COV_FLOOR = 1e-4
 
 
 @dataclass
@@ -120,6 +126,149 @@ def posterior(model: TVModel, pre: Precomp, n, f, mean_only: bool = False,
         return phi, None
     Phi = torch.cholesky_solve(eye.expand(u, R, R), chol)
     return phi, Phi
+
+
+class EMAccum(NamedTuple):
+    A: torch.Tensor       # [C, R, R] Σ_u n_uc (Phi_u + phi phi^T);
+    #                       packed mode: [C, P] upper triangle
+    B: torch.Tensor       # [C, D, R] Σ_u f_uc ⊗ phi_u
+    h: torch.Tensor       # [R]       Σ_u phi_u
+    H: torch.Tensor       # [R, R]    Σ_u (Phi_u + phi phi^T)
+    n_tot: torch.Tensor   # [C]
+    n_utts: torch.Tensor  # []
+
+    @staticmethod
+    def zeros(C: int, D: int, R: int, estep: str = "dense",
+              device=None) -> "EMAccum":
+        """Identity element of ``merge_accums`` on ``device``.
+        ``estep='packed'`` sizes A as the packed triangle [C, P]."""
+        def z(*shape):
+            return torch.zeros(shape, dtype=f32, device=device)
+        A0 = z(C, R * (R + 1) // 2) if estep == "packed" else z(C, R, R)
+        return EMAccum(A=A0, B=z(C, D, R), h=z(R), H=z(R, R), n_tot=z(C),
+                       n_utts=z())
+
+
+def em_accumulate(model: TVModel, pre: Precomp, n, f,
+                  estep_dtype: str = "float32") -> EMAccum:
+    """One minibatch of utterance stats -> E-step accumulators.
+
+    A packed ``pre`` keeps the symmetric operands packed end to end: the
+    per-utterance second moment Phi + φφᵀ is packed once [U, P], the
+    A-accumulation runs on it (``ops.tvm_estep_a``: the packed matmul
+    kernel on CUDA) and A stays packed until the M-step solve.
+    """
+    phi, Phi = posterior(model, pre, n, f, estep_dtype=estep_dtype)
+    if pre.packed:
+        i0, i1 = torch.triu_indices(model.rank, model.rank, device=n.device)
+        PPp = ops.pack_symmetric(Phi) + phi[:, i0] * phi[:, i1]
+        A = ops.tvm_estep_a(n, PPp, dtype=estep_dtype)         # [C, P]
+        H = ops.unpack_symmetric(PPp.sum(dim=0), model.rank)
+    else:
+        PP = Phi + phi[:, :, None] * phi[:, None, :]
+        A = torch.einsum("uc,urs->crs", n.to(f32), PP)
+        H = PP.sum(dim=0)
+    B = torch.einsum("ucd,ur->cdr", f.to(f32), phi)
+    return EMAccum(A=A, B=B, h=phi.sum(dim=0), H=H,
+                   n_tot=n.to(f32).sum(dim=0),
+                   n_utts=torch.tensor(float(n.shape[0]), dtype=f32,
+                                       device=n.device))
+
+
+def merge_accums(a: EMAccum, b: EMAccum) -> EMAccum:
+    return EMAccum(*(x + y for x, y in zip(a, b)))
+
+
+def em_accumulate_scan(model: TVModel, pre: Precomp, n, f,
+                       chunk: int = 512,
+                       estep_dtype: str = "float32") -> EMAccum:
+    """Chunked E-step: utterance sub-batches of ``chunk`` in order, then the
+    ragged tail as one remainder chunk, merged in that order (the JAX
+    ``lax.scan`` and its tail), so the per-utterance posterior covariances
+    exist only [chunk, R, R] at a time."""
+    U_, C = n.shape
+    chunk = min(chunk, U_)
+    R, D = model.rank, model.T.shape[1]
+    acc = EMAccum.zeros(C, D, R, estep="packed" if pre.packed else "dense",
+                        device=n.device)
+    for s in range(0, U_, chunk):
+        acc = merge_accums(acc, em_accumulate(
+            model, pre, n[s:s + chunk], f[s:s + chunk],
+            estep_dtype=estep_dtype))
+    return acc
+
+
+def m_step(model: TVModel, acc: EMAccum, S_tot: Optional[torch.Tensor],
+           update_sigma: bool) -> TVModel:
+    """T update (and Σ update) from accumulated statistics [Kenny 2005].
+
+    A packed accumulator ([C, P]) is unpacked here, at the solve. T_c =
+    B_c A_c^{-1} comes from a batched solve against the regularised A_c,
+    never from an explicit inverse.
+    """
+    R = model.rank
+    A = ops.unpack_symmetric(acc.A, R) if acc.A.ndim == 2 else acc.A
+    eye_r = torch.eye(R, dtype=f32, device=A.device)
+    T_new = torch.linalg.solve(A + 1e-6 * eye_r[None],
+                               acc.B.transpose(1, 2)).transpose(1, 2)
+    Sigma = model.Sigma
+    if update_sigma and S_tot is not None:
+        n_safe = torch.clamp(acc.n_tot, min=1e-6)[:, None, None]
+        TB = torch.einsum("cdr,cer->cde", T_new, acc.B)
+        Sigma = (S_tot - 0.5 * (TB + TB.transpose(1, 2))) / n_safe
+        D = Sigma.shape[1]
+        eye_d = torch.eye(D, dtype=f32, device=A.device)
+        Sigma = 0.5 * (Sigma + Sigma.transpose(1, 2)) + COV_FLOOR * eye_d[None]
+    return replace(model, T=T_new.contiguous().to(f32),
+                   Sigma=Sigma.to(f32))
+
+
+def min_divergence(model: TVModel, acc: EMAccum,
+                   update_means: bool = False) -> TVModel:
+    """Minimum-divergence re-estimation (paper §3.1). The eigenvectors of
+    G are defined up to sign, so T's columns 2..R (and their signs) may
+    differ between LAPACK, cuSOLVER and JAX; the quantities the model
+    computes (T_c T_c^T, the i-vector Gram matrix) do not."""
+    nu = torch.clamp(acc.n_utts, min=1.0)
+    h = acc.h / nu
+    R = model.rank
+    eye = torch.eye(R, dtype=f32, device=h.device)
+    G = acc.H / nu - h[:, None] * h[None, :] + 1e-8 * eye
+    lam, Q = torch.linalg.eigh(G)
+    lam = torch.clamp(lam, min=1e-10)
+    P1 = (Q * (lam ** -0.5)[None, :]).T            # Λ^{-1/2} Q^T
+    P1_inv = Q * (lam ** 0.5)[None, :]             # Q Λ^{1/2}
+
+    if model.formulation == "standard":
+        T_new = torch.einsum("cdr,rs->cds", model.T, P1_inv)
+        means = model.means
+        if update_means:
+            # paper §5: m_c^upd = m_c + T_c h  (old T)
+            means = means + torch.einsum("cdr,r->cd", model.T, h)
+        return replace(model, T=T_new.to(f32), means=means)
+
+    # augmented: also require P2 P1 h = b e1 (Householder, eqs. 8-11)
+    p1h = P1 @ h
+    h_t = p1h / torch.clamp(torch.linalg.norm(p1h), min=1e-10)
+    e1 = torch.zeros((R,), dtype=f32, device=h.device)
+    e1[0] = 1.0
+    denom = torch.clamp(2.0 * (1.0 - h_t[0]), min=1e-10)
+    alpha = denom ** -0.5
+    a = alpha * h_t - alpha * e1
+    # degenerate case: h already along e1 -> P2 = I
+    degenerate = (1.0 - h_t[0]) < 1e-8
+    P2 = torch.where(degenerate, eye, eye - 2.0 * a[:, None] * a[None, :])
+    # T <- T P1^{-1} P2^{-1}; P2 is a reflection: P2^{-1} = P2
+    T_new = torch.einsum("cdr,rs,st->cdt", model.T, P1_inv, P2)
+    prior = torch.where(degenerate, p1h, P2 @ p1h)
+    return replace(model, T=T_new.to(f32), prior=prior.to(f32))
+
+
+def updated_ubm_means(model: TVModel) -> torch.Tensor:
+    """New UBM means: augmented = first column of T times p; standard = m_c."""
+    if model.formulation == "augmented":
+        return model.T[:, :, 0] * model.prior[0]
+    return model.means
 
 
 def extract_ivectors(model: TVModel, pre: Precomp, n, f,

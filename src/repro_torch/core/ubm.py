@@ -1,5 +1,5 @@
-"""Universal background models: diagonal- and full-covariance GMMs (the port
-of ``repro/core/ubm.py``; the M-steps and ``train_ubm`` come later).
+"""Universal background models: diagonal- and full-covariance GMMs with EM
+(the port of ``repro/core/ubm.py``).
 
 The full-covariance log-likelihood is evaluated densely through the
 quadratic-form vec-trick:
@@ -15,6 +15,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops, ref
 
 f32 = torch.float32
@@ -123,3 +124,155 @@ def full_rescore(gmm, x, sel, precomp=None, pack=None) -> torch.Tensor:
     D = x.shape[1]
     return ops.gmm_rescore(x, sel, const, lin.T, P.reshape(-1, D * D),
                            pack=pack)
+
+
+def align_pack(precomp) -> torch.Tensor:
+    """``full_precisions`` output -> [C, 1 + D + D(D+1)/2] packed-symmetric
+    rows A2[c] = [const_c | lin_c | -0.5 triu(P_c)]: the operand of the
+    fused alignment kernel, built once per UBM and cached in
+    ``engine.UBMPack.align_A``."""
+    const, lin, P = precomp
+    C, D = lin.shape
+    return ref.align_pack(const, lin.T, P.reshape(C, D * D))
+
+
+def full_rescore_fused(gmm, x, sel, precomp=None, pack=None) -> torch.Tensor:
+    """x: [F, D], sel: [F, K] -> [F, K] selected log-likelihoods through the
+    packed-symmetric rows (``ops.gmm_rescore_fused``). ``gmm`` may be None
+    when ``precomp`` or ``pack`` is given."""
+    if pack is None:
+        pack = align_pack(
+            precomp if precomp is not None else full_precisions(gmm))
+    return ops.gmm_rescore_fused(x, sel, pack)
+
+
+# ---------------------------------------------------------------------------
+# EM training (E-side streamed through core/engine.py; M-steps here)
+# ---------------------------------------------------------------------------
+
+VAR_FLOOR = 1e-3
+WEIGHT_FLOOR = 1e-8
+
+
+def init_diag_from_data(x, C: int, generator: torch.Generator,
+                        mask=None) -> DiagGMM:
+    """Random-frame means, global variance init.
+
+    ``x`` may be flat [F, D] or batched [U, F, D]; with ``mask`` the means
+    are drawn from (and the variance computed over) valid frames only. The
+    C distinct frames are drawn by ``generator`` on its own device.
+    """
+    D = x.shape[-1]
+    xf = x.reshape(-1, D).to(f32)
+    gdev = generator.device
+    if mask is None:
+        idx = torch.randperm(xf.shape[0], generator=generator,
+                             device=gdev)[:C]
+        gvar = torch.var(xf, dim=0, unbiased=False) + VAR_FLOOR
+    else:
+        m = mask.reshape(-1).to(f32)
+        tot = torch.clamp(m.sum(), min=1.0)
+        xm = torch.where(m[:, None] > 0, xf, torch.zeros((), dtype=f32,
+                                                          device=xf.device))
+        mean = xm.sum(dim=0) / tot
+        gvar = (xm * xm).sum(dim=0) / tot - mean ** 2 + VAR_FLOOR
+        idx = torch.multinomial((m / m.sum()).to(gdev), C,
+                                replacement=False, generator=generator)
+    idx = idx.to(xf.device)
+    return DiagGMM(torch.full((C,), 1.0 / C, dtype=f32, device=xf.device),
+                   xf[idx], gvar.expand(C, D).contiguous())
+
+
+def renormalised_weights(n) -> torch.Tensor:
+    """Occupancies -> mixture weights: normalise, floor, renormalise (the
+    floor alone would leave them summing to more than 1)."""
+    w = torch.clamp(n / torch.clamp(n.sum(), min=1e-10), min=WEIGHT_FLOOR)
+    return w / w.sum()
+
+
+def diag_m_step(n, f, ss) -> DiagGMM:
+    """M-step from streamed sufficient stats (n [C], f [C, D], ss [C, D])."""
+    n_safe = torch.clamp(n, min=1e-6)
+    means = f / n_safe[:, None]
+    vars_ = torch.clamp(ss / n_safe[:, None] - means ** 2, min=VAR_FLOOR)
+    return DiagGMM(renormalised_weights(n), means, vars_)
+
+
+def full_m_step(n, f, ss) -> FullGMM:
+    """M-step from streamed sufficient stats (ss [C, D, D])."""
+    n_safe = torch.clamp(n, min=1e-6)
+    means = f / n_safe[:, None]
+    covs = (ss / n_safe[:, None, None]
+            - means[:, :, None] * means[:, None, :])
+    D = covs.shape[1]
+    eye = torch.eye(D, dtype=covs.dtype, device=covs.device)
+    covs = 0.5 * (covs + covs.transpose(1, 2)) + VAR_FLOOR * eye[None]
+    return FullGMM(renormalised_weights(n), means, covs)
+
+
+def psd_floor(covs, floor: float = VAR_FLOOR) -> torch.Tensor:
+    """Eigenvalue-clipped covariance floor ([..., D, D]): every covariance
+    comes back symmetric with spectrum >= floor."""
+    covs = 0.5 * (covs + covs.transpose(-1, -2))
+    lam, Q = torch.linalg.eigh(covs)
+    lam = torch.clamp(lam, min=floor)
+    return torch.einsum("...ir,...r,...jr->...ij", Q, lam, Q)
+
+
+def full_from_diag(gmm: DiagGMM) -> FullGMM:
+    return FullGMM(gmm.weights, gmm.means, torch.diag_embed(gmm.vars))
+
+
+def _as_utterances(x, mask, frame_chunk: int):
+    """Flat [F, D] frames (+ optional [F] mask) -> pseudo-utterances
+    [U, frame_chunk, D] with the mask carried through (padded tail marked
+    invalid); batched [U, F, D] input passes through."""
+    if x.ndim == 3:
+        return x, mask
+    F, D = x.shape
+    fc = min(int(frame_chunk), F)
+    n_utts = -(-F // fc)
+    pad = n_utts * fc - F
+    feats = torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(n_utts, fc, D)
+    if pad == 0 and mask is None:
+        return feats, None
+    m = (torch.ones((F,), dtype=f32, device=x.device) if mask is None
+         else mask.reshape(F).to(f32))
+    return feats, torch.nn.functional.pad(m, (0, pad)).reshape(n_utts, fc)
+
+
+def train_ubm(x, C: int, generator: torch.Generator, diag_iters: int = 8,
+              full_iters: int = 4, top_k: int = 0, chunk: int = 8,
+              frame_chunk: int = 4096, mask=None, rescore: str = "dense",
+              device=None) -> FullGMM:
+    """The Kaldi-style recipe: diagonal EM, then full-covariance EM, with the
+    E-side streamed chunk by chunk through the engine, so nothing
+    frame-resident outlives one chunk.
+
+    ``x``: flat frames [F, D] (re-chunked into ``frame_chunk``-frame
+    pseudo-utterances) or padded utterances [U, F, D] with ``mask``
+    [U, F]. ``top_k`` prunes the responsibilities (Kaldi's gselect); 0
+    keeps all C components, which is exact EM but scatters C slots per
+    chunk. ``rescore`` picks how the full phase scores the selected set.
+    Runs on ``device`` (CUDA unless the caller names another).
+    """
+    from repro_torch.core import engine as EN   # engine imports ubm
+    dev = resolve_device(device)
+    x = torch.as_tensor(x).to(dev, f32)
+    mask = None if mask is None else torch.as_tensor(mask).to(dev)
+    feats, mask = _as_utterances(x, mask, frame_chunk)
+    gmm = init_diag_from_data(feats, C, generator, mask=mask)
+    K = int(top_k) if top_k else C
+    spec_d = EN.EngineSpec(n_components=C, top_k=K, floor=0.0,
+                           second_order="diag", chunk=chunk)
+    for _ in range(diag_iters):
+        st = EN.stream_ubm(spec_d, EN.pack_diag(gmm), feats, mask)
+        gmm = diag_m_step(st.n, st.f, st.ss)
+    full = full_from_diag(gmm)
+    spec_f = EN.EngineSpec(n_components=C, top_k=K, floor=0.0,
+                           second_order="full", chunk=chunk,
+                           rescore=rescore)
+    for _ in range(full_iters):
+        st = EN.stream_ubm(spec_f, EN.pack_ubm(full, dev), feats, mask)
+        full = full_m_step(st.n, st.f, st.ss)
+    return full

@@ -36,6 +36,18 @@ I64 = ctypes.c_longlong
 
 # C signature of every entry point, by source file
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
+    "bw_stats": {
+        # gamma, x, n, f, S, F, C, D, device, stream
+        "bw_stats_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR),
+    },
+    "gmm_align": {
+        # x, dconst, dlin, dquad, A2, ll, sel, F, C, D, K, E2, device, stream
+        "gmm_align_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+                          INT, INT, INT, PTR),
+        # x, sel, A2, ll, F, C, D, K, E2, device, stream
+        "gmm_rescore_fused_f32": (PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+                                  INT, INT, PTR),
+    },
     "gmm_loglik": {
         # x, const, lin, P_flat, out, F, C, D, device, stream
         "gmm_loglik_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bw_stats as _bw
+from repro_torch.kernels import gmm_align as _ga
 from repro_torch.kernels import gmm_loglik as _gl
 from repro_torch.kernels import gmm_rescore as _gr
 from repro_torch.kernels import ref
@@ -47,6 +49,38 @@ def gmm_rescore(x, sel, const, lin, P_flat, pack=None):
         return _gr.gmm_rescore(x.to(f32).contiguous(), sel.contiguous(),
                                A.contiguous())
     return ref.gmm_rescore(x, sel, const, lin, P_flat)
+
+
+def gmm_rescore_fused(x, sel, A2):
+    """Selected-set log-likelihoods through the packed-symmetric
+    ``ref.align_pack`` rows A2 [C, E2]: x [F, D], sel [F, K] -> [F, K].
+    Ids are clipped into [0, C), as in ``gmm_rescore``."""
+    sel = sel.long().clamp(0, A2.shape[0] - 1)
+    if _on_cuda(x):
+        return _ga.gmm_rescore_fused(x.to(f32).contiguous(),
+                                     sel.contiguous(), A2.contiguous())
+    return ref.gmm_rescore_fused(x, sel, A2)
+
+
+def gmm_align(x, dconst, dlin, dquad, A2, *, top_k: int):
+    """The fused alignment front half: diag preselect + top-K + packed
+    rescore -> (sel_ll [F, K] f32, sel [F, K] int64). dconst: [C]; dlin,
+    dquad: [D, C] (``ubm.diag_coeffs``); A2: [C, E2] (``ref.align_pack``).
+    Ties in the diag scores go to the lowest id on both paths."""
+    if _on_cuda(x):
+        return _ga.gmm_align(x.to(f32).contiguous(), dconst.contiguous(),
+                             dlin.contiguous(), dquad.contiguous(),
+                             A2.contiguous(), top_k)
+    return ref.gmm_align(x, dconst, dlin, dquad, A2, top_k)
+
+
+def bw_stats(gamma, x):
+    """Dense Baum-Welch moments: gamma [F, C], x [F, D] ->
+    (n [C], f [C, D], S [C, D*D]), all f32."""
+    if _on_cuda(x):
+        return _bw.bw_stats(gamma.to(f32).contiguous(),
+                            x.to(f32).contiguous())
+    return ref.bw_stats(gamma, x)
 
 
 tri_inverse = ref.tri_inverse

@@ -54,6 +54,70 @@ def rescore_pack(const, lin, P_flat):
     return torch.cat([const[:, None], lin.T, P_flat], dim=1).to(f32)
 
 
+def _quad_pairs(D: int, device=None):
+    """Upper-triangle pair indices and off-diagonal doubling weights of the
+    packed quadratic form: (i0, i1, w) with w = 2 off the diagonal and 1 on
+    it, so that vec(x x^T) . vec(P) == sum_p w_p x_{i0_p} x_{i1_p} P_{i0 i1}."""
+    i0, i1 = torch.triu_indices(D, D, device=device)
+    w = torch.where(i0 == i1, 1.0, 2.0).to(f32)
+    return i0, i1, w
+
+
+def align_pack(const, lin, P_flat):
+    """Packed-symmetric rows of the fused alignment path:
+    A2[c] = [const_c | lin[:, c] | -0.5 triu(P_c)], shape [C, E2] with
+    E2 = 1 + D + D(D+1)/2 (the -0.5 of the quadratic term folded in)."""
+    D = lin.shape[0]
+    i0, i1, _ = _quad_pairs(D, P_flat.device)
+    Pp = P_flat[:, i0 * D + i1]                              # [C, D(D+1)/2]
+    return torch.cat([const[:, None], lin.T, -0.5 * Pp], dim=1).to(f32)
+
+
+def expand_quadratic(x):
+    """[F, D] -> [F, E2] packed-symmetric frame expansion
+    xe[f] = [1 | x_f | w ⊙ (x_{i0} x_{i1})], so that ``xe @ align_pack^T``
+    is the full-covariance log-likelihood."""
+    F, D = x.shape
+    x = x.to(f32)
+    i0, i1, w = _quad_pairs(D, x.device)
+    x2p = x[:, i0] * x[:, i1] * w[None]
+    return torch.cat([torch.ones((F, 1), dtype=f32, device=x.device), x,
+                      x2p], dim=1)
+
+
+def gmm_rescore_fused(x, sel, A2):
+    """Selected-set log-likelihoods [F, K] through the packed-symmetric
+    rows: one [F, E2] @ [E2, C] product and a gather (the JAX oracle's
+    ``strategy='full'``). sel: [F, K] ids in [0, C); A2: [C, E2]."""
+    ll = expand_quadratic(x) @ A2.T                          # [F, C]
+    return torch.gather(ll, 1, sel.long())
+
+
+def diag_topk(x, dconst, dlin, dquad, top_k: int):
+    """Diagonal preselection: scores const + x.lin + x².quad [F, C] and the
+    top-K ids [F, K] (int64), ties toward the lowest id as ``lax.top_k``
+    breaks them: a stable descending sort keeps equal scores in id order
+    (``torch.topk`` promises no order among equal scores)."""
+    x = x.to(f32)
+    scores = dconst[None] + x @ dlin + (x * x) @ dquad
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    return scores, order[:, :top_k]
+
+
+def gmm_align(x, dconst, dlin, dquad, A2, top_k: int):
+    """The fused alignment front half, plainly: diag preselect + top-K, then
+    the packed rescore of the selected set -> (sel_ll [F, K], sel [F, K])."""
+    _, sel = diag_topk(x, dconst, dlin, dquad, top_k)
+    return gmm_rescore_fused(x, sel, A2), sel
+
+
+def bw_stats(gamma, x):
+    """Dense Baum-Welch moments: gamma [F, C] posteriors, x [F, D] ->
+    (n [C], f [C, D], S [C, D*D]) with S_c = sum_f gamma_fc vec(x_f x_f^T)."""
+    gamma, x = gamma.to(f32), x.to(f32)
+    return gamma.sum(dim=0), gamma.T @ x, gamma.T @ _expand(x)
+
+
 def tri_inverse(G, block: int = 16):
     """Inverse of a batched lower-triangular matrix by blocked matmuls
     (no triangular solve): G [..., R, R] lower-triangular -> G^{-1}.

@@ -5,7 +5,8 @@ Production traffic is ragged: one utterance per request, each a different
 number of frames. The session
 
   * **caches the precompute** once: ``engine.pack_ubm`` (full-covariance
-    precisions, the diag preselection GMM and the packed rescoring rows)
+    precisions, the diag preselection GMM and the packed rows of the sparse
+    and fused rescoring kernels)
     and ``tvm.precompute`` (T^T Σ^{-1} T, packed);
   * **buckets** each utterance into the next power-of-two frame count,
     zero-padded with a frame mask, and **micro-batches** requests that
@@ -17,9 +18,10 @@ number of frames. The session
 Guardrails: non-finite frames are masked out and counted, over-long
 utterances are truncated with an explicit ``truncated`` flag, empty ones
 come back as flagged zero vectors. A runtime failure of the rescoring
-kernel demotes the session down ``engine.RESCORE_LADDER`` (sparse ->
-dense) and keeps serving; ``health_check`` runs a canary through the same
-path as real traffic.
+kernel demotes the session down ``engine.RESCORE_LADDER`` (fused ->
+sparse -> dense), counted in ``stats["degradations"]``, and keeps
+serving; ``health_check`` runs a canary through the same path as real
+traffic.
 """
 from __future__ import annotations
 
@@ -89,12 +91,6 @@ class IVectorExtractor:
     def __init__(self, cfg: IVectorConfig, model: TV.TVModel,
                  ubm: U.FullGMM, serving: ServingConfig = ServingConfig(),
                  device=None):
-        if cfg.rescore == "fused":
-            # refused, not demoted: a silent fused->sparse demotion would
-            # hide that the fused kernel does not exist in the port yet
-            raise NotImplementedError(
-                "rescore='fused' needs the gmm_align kernel, which the "
-                "port brings in its second slice; use 'sparse' or 'dense'")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device)

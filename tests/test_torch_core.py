@@ -89,7 +89,7 @@ def test_full_precisions_and_diag_loglik_match_jax():
     assert torch.equal(P, P.transpose(1, 2))
 
 
-@pytest.mark.parametrize("rescore", ["dense", "sparse"])
+@pytest.mark.parametrize("rescore", ["dense", "sparse", "fused"])
 def test_align_frames_matches_jax_with_garbage_mask(rescore):
     """Masked NaN/inf/overflow frames get all-zero posteriors (where, not
     multiply); valid frames match JAX's selected ids and posteriors."""
@@ -112,12 +112,26 @@ def test_align_frames_matches_jax_with_garbage_mask(rescore):
     assert (tp.values.numpy()[~valid] == 0).all()
 
 
-def test_fused_rescore_is_refused():
+@pytest.mark.parametrize("rescore", ["dense", "sparse", "fused"])
+def test_rescore_selected_matches_jax(rescore):
+    """Each rung's selected-set scores against JAX's ``rescore_selected``
+    on the same selection. The port runs 'fused' only inside
+    ``align_frames`` (one ``gmm_align`` call), so ``rescore_selected``
+    refuses it and the packed-row scorer is ``ubm.full_rescore_fused``."""
     jubm, tubm = _both_ubms()
-    x, _ = _frames(5, 8)
-    with pytest.raises(NotImplementedError, match="gmm_align"):
-        TAL.align_frames(torch.from_numpy(x), tubm, tubm.to_diag(),
-                         top_k=4, rescore="fused")
+    x, _ = _frames(5, 40)
+    jdiag, jsel = JAL.preselect(jubm.to_diag(), jnp.asarray(x), 4)
+    want = JAL.rescore_selected(jnp.asarray(x), jsel, jubm, jdiag,
+                                rescore=rescore)
+    xt = torch.from_numpy(x)
+    sel = torch.from_numpy(np.array(jsel)).long()
+    if rescore == "fused":
+        got = TU.full_rescore_fused(tubm, xt, sel)
+        with pytest.raises(ValueError, match="'dense' or 'sparse'"):
+            TAL.rescore_selected(xt, sel, tubm, None, rescore="fused")
+    else:
+        got = TAL.rescore_selected(xt, sel, tubm, None, rescore=rescore)
+    _close(got, want, 1e-4)
 
 
 def test_tied_topk_breaks_toward_lowest_id():
@@ -224,7 +238,7 @@ def test_posterior_matches_jax(formulation, estep, mean_only):
                                 jnp.asarray(n), jnp.asarray(f)), 1e-4)
 
 
-@pytest.mark.parametrize("rescore", ["dense", "sparse"])
+@pytest.mark.parametrize("rescore", ["dense", "sparse", "fused"])
 def test_chunk_body_and_session_stats_match_jax(rescore):
     jubm, tubm = _both_ubms(13)
     x, mask = _frames(14, 2 * 16, garbage=3)

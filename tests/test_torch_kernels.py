@@ -14,9 +14,12 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import gmm_align as jga  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import bw_stats as tbw  # noqa: E402
+from repro_torch.kernels import gmm_align as tga  # noqa: E402
 from repro_torch.kernels import gmm_loglik as tgl  # noqa: E402
 from repro_torch.kernels import gmm_rescore as tgr  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -86,6 +89,89 @@ def test_gmm_rescore_matches_pallas(F, D, C, K):
     pack = tref.rescore_pack(_t(const), _t(lin), _t(P))
     _close(pack, jref.rescore_pack(jnp.asarray(const), jnp.asarray(lin),
                                    jnp.asarray(P)))
+
+
+@pytest.mark.parametrize("F,D,C,bf,bc", [
+    (256, 5, 8, 128, 8),
+    (300, 6, 23, 100, 23),    # F and C off the CUDA kernel's 128-tiles
+])
+def test_bw_stats_matches_pallas(F, D, C, bf, bc):
+    rng = np.random.default_rng(F + C)
+    x = rng.standard_normal((F, D)).astype(np.float32)
+    gamma = rng.dirichlet(np.ones(C), size=F).astype(np.float32)
+    gamma[rng.uniform(size=(F, C)) < 0.5] = 0.0      # sparse, as after top-K
+    with jops.use_pallas(True):
+        want = jops.bw_stats(jnp.asarray(gamma), jnp.asarray(x),
+                             block_f=bf, block_c=bc)
+    got = tops.bw_stats(_t(gamma), _t(x))
+    assert [tuple(g.shape) for g in got] == [(C,), (C, D), (C, D * D)]
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def _diag_coeffs(rng, C, D, ties=()):
+    """Diag preselection coefficients; each (dst, src) in ``ties`` copies a
+    component, so its scores tie exactly with the source's."""
+    dconst = rng.standard_normal(C).astype(np.float32)
+    dlin = rng.standard_normal((D, C)).astype(np.float32)
+    dquad = -rng.uniform(0.2, 1.0, (D, C)).astype(np.float32)
+    for dst, src in ties:
+        dconst[dst], dlin[:, dst], dquad[:, dst] = (
+            dconst[src], dlin[:, src], dquad[:, src])
+    return dconst, dlin, dquad
+
+
+@pytest.mark.parametrize("F,D,C,K,bf,ties", [
+    (32, 5, 8, 4, 8, ()),
+    (37, 6, 23, 5, 37, ((4, 2), (9, 2), (7, 20))),  # ragged F, C; ties
+])
+def test_gmm_align_matches_pallas(F, D, C, K, bf, ties):
+    """Same selected ids (ties toward the lowest id) and scores as the
+    Pallas kernel, whose quadratic expansion is ``align_expand_operand``."""
+    rng = np.random.default_rng(F * K)
+    x = rng.standard_normal((F, D)).astype(np.float32)
+    dconst, dlin, dquad = _diag_coeffs(rng, C, D, ties)
+    const, lin, P = _precisions(rng, C, D)
+    A2 = tref.align_pack(_t(const), _t(lin), _t(P))
+    E2 = A2.shape[1]
+    want_ll, want_sel = jga.gmm_align(
+        jnp.asarray(x), jnp.asarray(dconst)[None], jnp.asarray(dlin),
+        jnp.asarray(dquad), jops.align_expand_operand(D, E2),
+        jnp.asarray(A2.numpy()), top_k=K, block_f=bf, dma_depth=2)
+    got_ll, got_sel = tops.gmm_align(_t(x), _t(dconst), _t(dlin),
+                                     _t(dquad), A2, top_k=K)
+    assert got_sel.dtype == torch.int64 and got_ll.shape == (F, K)
+    np.testing.assert_array_equal(got_sel.numpy(), np.asarray(want_sel))
+    _close(got_ll, want_ll)
+    if ties:
+        # copies 4 and 9 of component 2 follow it, in id order
+        rows = [list(r) for r in got_sel.numpy() if 2 in r[:K - 2]]
+        assert rows
+        for r in rows:
+            assert r.index(2) + 1 == r.index(4) and r.index(4) + 1 == r.index(9)
+
+
+def test_align_pack_expand_and_fused_rescore_match_jax():
+    """The packed-symmetric rows, the frame expansion and the fused rescore
+    (both JAX strategies compute the same function) agree with JAX, and
+    the fused rescore agrees with the full-row sparse rescore."""
+    rng = np.random.default_rng(5)
+    F, D, C, K = 24, 5, 8, 4
+    x = rng.standard_normal((F, D)).astype(np.float32)
+    const, lin, P = _precisions(rng, C, D)
+    sel = rng.integers(0, C, size=(F, K))
+    A2 = tref.align_pack(_t(const), _t(lin), _t(P))
+    jA2 = jref.align_pack(jnp.asarray(const), jnp.asarray(lin),
+                          jnp.asarray(P))
+    _close(A2, jA2)
+    _close(tref.expand_quadratic(_t(x)), jref.expand_quadratic(jnp.asarray(x)))
+    got = tops.gmm_rescore_fused(_t(x), _t(sel), A2)
+    for strategy in ("full", "union"):
+        _close(got, jref.gmm_rescore_fused(
+            jnp.asarray(x), jnp.asarray(sel.astype(np.int32)), jA2,
+            strategy=strategy, block_f=8), 1e-4)
+    _close(got, tops.gmm_rescore(_t(x), _t(sel), _t(const), _t(lin),
+                                 _t(P)), 1e-4)
 
 
 def _estep_operands(rng, U, C, R):
@@ -177,8 +263,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                         torch.zeros(2, 13))
     with pytest.raises(ValueError, match="CUDA"):
         tte.tvm_estep_l(torch.zeros(2, 3), torch.zeros(3, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        tbw.bw_stats(torch.zeros(4, 2), x)
+    A2 = torch.zeros(2, 1 + 3 + 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        tga.gmm_align(x, torch.zeros(2), torch.zeros(3, 2),
+                      torch.zeros(3, 2), A2, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tga.gmm_rescore_fused(x, torch.zeros(4, 1, dtype=torch.int64), A2)
     assert (tgl.gmm_loglik.launches, tgr.gmm_rescore.launches,
-            tte.tvm_estep_l.launches) == (0, 0, 0)
+            tte.tvm_estep_l.launches, tbw.bw_stats.launches,
+            tga.gmm_align.launches,
+            tga.gmm_rescore_fused.launches) == (0, 0, 0, 0, 0, 0)
 
 
 def test_build_names_every_source():

@@ -90,6 +90,7 @@ def _both(formulation, **kw):
     ("augmented", "dense", "packed"),
     ("augmented", "dense", "dense"),
     ("standard", "sparse", "packed"),
+    ("augmented", "fused", "packed"),
 ])
 def test_extractor_matches_jax(formulation, rescore, estep):
     jex, tex = _both(formulation, rescore=rescore, estep=estep)
@@ -124,19 +125,28 @@ def test_demotion_through_chaos_hook_matches_jax():
         tex.extract(utts[:1])
 
 
+def test_fused_session_demotes_down_the_ladder_like_jax():
+    """A fused session starts on 'fused'; failing fused and sparse kernels
+    demote it to dense, two steps counted, serving what JAX's demoted
+    session serves."""
+    jex, tex = _both("augmented", rescore="fused")
+    assert tex.mode == "fused" and tex.health_check()["mode"] == "fused"
+    for ex in (jex, tex):
+        ex._chaos_fail_modes.update({"fused", "sparse"})
+    utts = _requests(2)
+    want = jex.extract(utts)
+    got = tex.extract(utts)
+    assert tex.mode == "dense" and tex.stats["degradations"] == 2
+    assert tex.stats == jex.stats
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
 def test_health_check_restores_request_counters():
     _, tex = _both("augmented")
     h = tex.health_check()
     assert h["ok"] and h["mode"] == "sparse" and h["error"] is None
     assert h["canary_norm"] == pytest.approx(1.0, rel=1e-5)
     assert tex.stats["requests"] == 0 and tex.stats["batches"] == 0
-
-
-def test_fused_session_is_refused_not_demoted():
-    jcfg, tcfg = _cfgs("augmented", rescore="fused")
-    _, tstate = _toy_state("augmented")
-    with pytest.raises(NotImplementedError, match="gmm_align"):
-        TEx.from_state(tcfg, tstate, TSC(**SERVING), device="cpu")
 
 
 def test_port_imports_neither_jax_nor_repro():
