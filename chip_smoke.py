@@ -18,7 +18,16 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   realignment and the full UBM refresh, twice (bitwise repeatable), then
   ``trainer.extract``; and checks one iteration on three corpora of 64
   utterances against the CPU plain path on quantities the eigenvector
-  signs of ``min_divergence`` leave alone.
+  signs of ``min_divergence`` leave alone;
+* on the LM side, holds ``flash_attention`` and ``selective_scan`` against
+  their plain versions at Jamba's and StableLM's shapes, then runs at
+  the published widths in bf16 with random params from ``--seed``:
+  StableLM-2 1.6B served through ``repro_torch.launch.serve`` (batch 8,
+  prompt 1024, 32 tokens) and Jamba v0.1 without its experts (32 layers;
+  prefill of 4 x 2048 tokens, then 16 decode steps from a zero cache, as
+  its prefill returns no cache); and checks, at
+  depth 8 in f32, Jamba's prefill on the kernels against the same path on
+  the plain versions, and decode against prefill for both models.
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -105,13 +114,13 @@ def bound(flops: float, nbytes: float, dtype: str = "float32"):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def compare(name, got, want):
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    ok = err <= TOL * scale
+def compare(name, got, want, tol=TOL):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    ok = err <= tol * scale
     print(f"  {name}: max_abs_err {err:.3e}  max_rel_err "
-          f"{err / scale:.3e}  (tolerance {TOL:g} x max|plain| = "
-          f"{TOL * scale:.3e})  {'ok' if ok else 'DISAGREES'}")
+          f"{err / scale:.3e}  (tolerance {tol:g} x max|plain| = "
+          f"{tol * scale:.3e})  {'ok' if ok else 'DISAGREES'}")
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return err
@@ -181,14 +190,23 @@ def kernel_checks(ex, utts, g):
     F = x.shape[0]
     b_ms, b_by = bound(2.0 * F * C * (D * D + D),
                        4.0 * (F * D + C + D * C + C * D * D + F * C))
+    # library yardstick: one torch.addmm over the operand [x | vec(xxᵀ)]
+    # and the weights [lin; -½ P_flatᵀ], both built beforehand (as the
+    # bw_stats row's X₂), const as the bias
+    xe = torch.cat([x, (x[:, :, None] * x[:, None, :]).reshape(F, D * D)],
+                   dim=1)
+    we = torch.cat([linT, -0.5 * Pf.T], dim=0).contiguous()
+    compare("torch.addmm yardstick of gmm_loglik",
+            torch.addmm(const, xe, we), want)
     rows.append(dict(
         name="gmm_loglik", route="cuda",
         source="src/repro_torch/csrc/gmm_loglik.cu",
         replaces="src/repro/kernels/gmm_loglik.py:49", max_abs_err=err,
         ms=cuda_ms(lambda: GL.gmm_loglik(x, const, linT, Pf), 20),
         plain_ms=cuda_ms(lambda: ref.gmm_loglik(x, const, linT, Pf), 20),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    del got, want
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.addmm(const, xe, we), 20)))
+    del got, want, xe, we
 
     # gmm_rescore: F=16384, K=20, ids from the real diag preselection
     x = frames[:16384].contiguous()
@@ -359,14 +377,18 @@ def check_gmm_align(ex, frames, K: int):
 
 def counters():
     from repro_torch.kernels import bw_stats as BW
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gmm_align as GA
     from repro_torch.kernels import gmm_loglik as GL
     from repro_torch.kernels import gmm_rescore as GR
+    from repro_torch.kernels import selective_scan as SS
     from repro_torch.kernels import tvm_estep as TE
     return {"gmm_loglik": GL.gmm_loglik, "gmm_rescore": GR.gmm_rescore,
             "tvm_estep_l": TE.tvm_estep_l, "tvm_estep_a": TE.tvm_estep_a,
             "bw_stats": BW.bw_stats, "gmm_align": GA.gmm_align,
-            "gmm_rescore_fused": GA.gmm_rescore_fused}
+            "gmm_rescore_fused": GA.gmm_rescore_fused,
+            "flash_attention": FA.flash_attention,
+            "selective_scan": SS.selective_scan}
 
 
 def reset_counts() -> None:
@@ -735,6 +757,365 @@ def training_vs_cpu(cfg, ubm, seed: int, dev):
     return runs
 
 
+# LM kernels. f32 attention, |kernel - plain| <= 1e-5 x max|plain|: the
+# same f32 products summed in another order. bf16 attention, elementwise
+# against the plain version in f32 on the same (exactly widened) inputs:
+# |kernel - plain| <= 2^-8 |plain| + 1e-3 rms(plain). The kernel works in
+# f32 and rounds its output to bf16 once, which moves a value by at most
+# half an ulp, 2^-8 of it; the second term takes the f32 reordering (near
+# 1e-6 of the scale). The scan, |kernel - plain| <= 1e-4 x max|plain|: up
+# to 2048 f32 steps in another order of operations
+ATT_F32_TOL = 1e-5
+BF16_HALF_ULP = 2.0 ** -8
+BF16_RMS_FLOOR = 1e-3
+SCAN_TOL = 1e-4
+# LM paths at f32, full width, depth 8: the kernels against the plain
+# versions on the whole prefill (1e-3 x max|logits|), and decode against
+# prefill elementwise within 2e-3 + 2e-3 |prefill|, as the JAX package's
+# tests/test_models.py holds them
+LOGIT_TOL = 1e-3
+DECODE_TOL = 2e-3
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def compare_bf16(name, got, want):
+    """A bf16 result held elementwise against the f32 plain result:
+    |got - want| <= 2^-8 |want| + 1e-3 rms(want). Returns max|got - want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    rms = want.square().mean().sqrt().item()
+    ratio = (diff / (BF16_HALF_ULP * want.abs() + BF16_RMS_FLOOR * rms)
+             ).max().item()
+    err = diff.max().item()
+    ok = ratio <= 1
+    print(f"  {name}: max_abs_err {err:.3e}  max |diff| / (2^-8 |plain| + "
+          f"1e-3 rms(plain) = {BF16_RMS_FLOOR * rms:.3e}) {ratio:.3f}  "
+          f"{'ok' if ok else 'DISAGREES'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def check_flash_attention(g, dev):
+    """flash_attention against its plain version: Jamba's shapes (the
+    serving path's, bf16, and f32), StableLM's (bf16) and a ragged S. The
+    row is the first case, the Jamba prefill of the serving path."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = (("Jamba", 4, 2048, 32, 8, 128, torch.bfloat16),
+             ("Jamba", 4, 2048, 32, 8, 128, torch.float32),
+             ("StableLM", 8, 1024, 32, 32, 64, torch.bfloat16),
+             ("ragged S", 2, 1000, 32, 8, 128, torch.float32))
+    recs = []
+    for label, B, S, H, KVH, hd, dtype in cases:
+        q, k, v = (torch.randn(B, S, n, hd, generator=g, device=dev)
+                   .to(dtype) for n in (H, KVH, KVH))
+        tag = _dtype_name(dtype)
+        name = f"flash_attention {label} B={B} S={S} H={H} KVH={KVH} " \
+               f"hd={hd} {tag}"
+        if dtype == torch.float32:
+            err = compare(name, FA.flash_attention(q, k, v),
+                          ref.flash_attention(q, k, v), ATT_F32_TOL)
+        else:
+            err = compare_bf16(name, FA.flash_attention(q, k, v),
+                               ref.flash_attention(q.float(), k.float(),
+                                                   v.float()))
+        b_ms, b_by = bound(4.0 * B * H * hd * S * S / 2,
+                           q.element_size() * hd * (2 * B * S * H
+                                                    + 2 * B * S * KVH), tag)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        recs.append(dict(
+            case=f"{label} B={B} S={S} H={H} KVH={KVH} hd={hd} {tag}",
+            max_abs_err=err, ms=cuda_ms(lambda: FA.flash_attention(q, k, v),
+                                        10),
+            plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v), 3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True), 10)))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:80",
+               **{k: recs[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")})
+    return row, recs
+
+
+def check_selective_scan(g, dev):
+    """selective_scan against its plain version at Jamba's full width
+    (di=8192, ds=16), on y and h_last: the prefill (B=4, T=2048, no h0:
+    the row), the same with h0, a decode step (B=4, T=1, with h0: the
+    shape of every Jamba decode step) and a ragged T=1000 with h0. No
+    single PyTorch call computes the scan."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as SS
+    di, ds = 8192, 16
+    A = -torch.exp(0.5 * torch.randn(di, ds, generator=g, device=dev))
+    recs = []
+    for label, B, T, with_h0 in (("no h0", 4, 2048, False),
+                                 ("with h0", 4, 2048, True),
+                                 ("decode step, with h0", 4, 1, True),
+                                 ("ragged T, with h0", 2, 1000, True)):
+        # as mamba_mix makes them: dt = softplus(.) > 0 near 0.01, A < 0
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, T, di, generator=g, device=dev) - 4.6)
+        dx = dt * torch.randn(B, T, di, generator=g, device=dev)
+        Bc, Cc = (torch.randn(B, T, ds, generator=g, device=dev)
+                  for _ in range(2))
+        h = (torch.randn(B, di, ds, generator=g, device=dev) if with_h0
+             else None)
+        y, hl = SS.selective_scan(dt, dx, A, Bc, Cc, h)
+        wy, wh = ref.selective_scan(dt, dx, A, Bc, Cc, h)
+        err = max(compare(f"selective_scan {label} {name} B={B} T={T} "
+                          f"di={di} ds={ds}", a, b, SCAN_TOL)
+                  for name, a, b in (("y", y, wy), ("h_last", hl, wh)))
+        # per (b, t, d, s): dt*A, exp, *h, dx*B, +, *C, + ; dt, dx, y per
+        # (b, t, d), Bc and Cc per (b, t), A, h_last (and h0) once
+        b_ms, b_by = bound(7.0 * B * T * di * ds,
+                           4.0 * (3 * B * T * di + 2 * B * T * ds + di * ds
+                                  + B * di * ds * (2 if with_h0 else 1)))
+        recs.append(dict(
+            case=f"{label} B={B} T={T} di={di} ds={ds} float32",
+            max_abs_err=err,
+            ms=cuda_ms(lambda: SS.selective_scan(dt, dx, A, Bc, Cc, h), 10),
+            plain_ms=cuda_ms(lambda: ref.selective_scan(dt, dx, A, Bc, Cc, h),
+                             2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        del dt, dx, Bc, Cc, h, y, hl, wy, wh
+    row = dict(name="selective_scan", route="cuda",
+               source="src/repro_torch/csrc/selective_scan.cu",
+               replaces="src/repro/kernels/selective_scan.py:69",
+               **{k: recs[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")})
+    return row, recs
+
+
+def hybrid_steps(cfg, batch, prompt_len, gen, generator, dev):
+    """Jamba's prefill and decode steps, driven as ``serve`` drives a dense
+    model, with its result dict. Jamba's prefill returns no cache (as in
+    the JAX package, whose launcher refuses hybrids), so the ``gen - 1``
+    greedy decode steps start from the prefill's argmax token on a zero
+    cache of the serving window (``prompt_len + gen``), at positions 0, 1,
+    ...: the prompt does not reach them, but each step does the work of a
+    step at that window."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import api
+    window = prompt_len + gen
+    params = api.init_params(cfg, generator, max_seq=window, device=dev)
+    prefill = api.make_prefill_step(cfg)
+    decode = api.make_decode_step(cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=generator, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    _, logits = prefill(params, {"tokens": prompts})
+    cache = api.zero_cache(cfg, ShapeConfig("serve", window, batch,
+                                            "decode"), dev)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_logits = logits
+    tok = torch.argmax(logits, dim=-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        cache, logits = decode(params, cache, {"token": tok, "pos": i})
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+    _sync(dev)
+    return {"tokens": torch.stack(out, dim=1).cpu(),
+            "prefill_logits": prefill_logits, "last_logits": logits,
+            "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0,
+            "params": params, "prompts": prompts}
+
+
+def lm_serve(label, run, cfg, batch, prompt_len, gen, seed, dev, needs):
+    """One run of ``run`` (``serve.serve`` or ``hybrid_steps``; random
+    params and prompts from ``seed``) with the launch counts set to 0 just
+    before and read just after; then the same prefill again, which must be
+    bitwise equal, and one prefill and one decode step under the profiler
+    (their launches uncounted). Returns a record; the params are freed."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import api
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    reset_counts()
+    r = run(cfg, batch, prompt_len, gen, g, dev)
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require_launches(label, launches, needs)
+    check_finite(label, r["prefill_logits"], r["last_logits"])
+    if r["tokens"].shape != (batch, gen):
+        fail(f"{label}: generated {tuple(r['tokens'].shape)} tokens")
+    prefill = api.make_prefill_step(cfg)
+    t0 = time.perf_counter()
+    _, again = prefill(r["params"], {"tokens": r["prompts"]})
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if not torch.equal(again, r["prefill_logits"]):
+        fail(f"{label}: the same prefill twice is not bitwise equal")
+    out = []
+    prof_prefill = profile_path(lambda: out.append(
+        prefill(r["params"], {"tokens": r["prompts"]})))
+    print_profile(f"{label}: one prefill", prof_prefill, 8)
+    cache = out[0][0]
+    window = prompt_len + gen
+    if cache is None:     # hybrid: decode from a zero cache, at position 0
+        cache, pos = api.zero_cache(cfg, ShapeConfig("p", window, batch,
+                                                     "decode"), dev), 0
+    else:
+        cache, pos = SV.pad_cache(cache, window), prompt_len
+    decode = api.make_decode_step(cfg)
+    tok = torch.argmax(out[0][1], dim=-1)
+    del out
+    prof_decode = profile_path(lambda: decode(
+        r["params"], cache, {"token": tok, "pos": pos}))
+    print_profile(f"{label}: one decode step", prof_decode, 8)
+    del cache
+    steps = gen - 1
+    rec = {"batch": batch, "prompt_len": prompt_len, "decode_steps": steps,
+           "n_params": api.n_params(cfg), "prefill_s": r["prefill_s"],
+           "prefill_warm_s": warm_s,
+           "prefill_tok_s": batch * prompt_len / r["prefill_s"],
+           "prefill_warm_tok_s": batch * prompt_len / warm_s,
+           "decode_s": r["decode_s"],
+           "decode_tok_s": batch * steps / r["decode_s"],
+           "peak_mem_gb": peak_gb, "launches": launches, "profile_prefill": prof_prefill,
+           "profile_decode_step": prof_decode}
+    print(f"  {label}: {rec['n_params'] / 1e9:.2f} B params; prefill "
+          f"{batch}x{prompt_len} in {r['prefill_s']:.3f} s "
+          f"({rec['prefill_tok_s']:.0f} tok/s; again, bitwise equal, "
+          f"{warm_s:.3f} s, {rec['prefill_warm_tok_s']:.0f} tok/s); "
+          f"{steps} decode steps in {r['decode_s']:.3f} s "
+          f"({rec['decode_tok_s']:.1f} tok/s); peak device memory "
+          f"{rec['peak_mem_gb']:.2f} GB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    del r, again
+    torch.cuda.empty_cache()
+    return rec
+
+
+class plain_kernels:
+    """Within the block, ``ops`` runs the plain versions of the two LM
+    kernels on the card: the same path, held against the kernels."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self.saved = ops.flash_attention, ops.selective_scan
+        ops.flash_attention = ref.flash_attention
+        ops.selective_scan = ref.selective_scan
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention, ops.selective_scan = self.saved
+
+
+def _allclose_err(got, want, tol: float) -> float:
+    """max(|got - want| / (tol + tol |want|)): at most 1 when every element
+    is within tol + tol |want|."""
+    return ((got - want).abs() / (tol + tol * want.abs())).max().item()
+
+
+def lm_correctness(seed, dev):
+    """At full width, depth 8 (one Jamba period), f32: Jamba prefill logits
+    on the kernels against the same path on the plain versions (B=2,
+    T=256); Jamba step-by-step decode from a zero cache against prefill
+    (T=64); StableLM prefill of S-1 tokens plus one decode step against
+    the full prefill (S=128)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import api
+    f32 = dict(n_layers=8, param_dtype="float32", activation_dtype="float32")
+    rec = {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cfg = get_config("jamba-v0.1-52b").with_overrides(moe=None, **f32)
+    params = api.init_params(cfg, g, device=dev)
+    prefill, decode = api.make_prefill_step(cfg), api.make_decode_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=g,
+                           device=dev)
+    _, lk = prefill(params, {"tokens": tokens})
+    before = read_counts()
+    with plain_kernels():
+        _, lp = prefill(params, {"tokens": tokens})
+    if read_counts() != before:
+        fail("the plain path launched a kernel")
+    rec["jamba_kernels_vs_plain"] = compare(
+        "Jamba depth 8 f32 prefill logits (B=2, T=256), kernels vs plain",
+        lk, lp, LOGIT_TOL)
+    T = 64
+    _, want = prefill(params, {"tokens": tokens[:, :T]})
+    cache = api.zero_cache(cfg, ShapeConfig("t", T, 2, "decode"), dev)
+    for t in range(T):
+        cache, got = decode(params, cache, {"token": tokens[:, t], "pos": t})
+    rec["jamba_decode_vs_prefill"] = e = _allclose_err(got, want, DECODE_TOL)
+    print(f"  Jamba depth 8 f32: {T} decode steps from a zero cache vs "
+          f"prefill, last position: max |diff| / (2e-3 + 2e-3 |prefill|) "
+          f"{e:.3e} {'ok' if e <= 1 else 'DISAGREES'}")
+    if e > 1:
+        fail("Jamba decode disagrees with prefill")
+    del params, cache, lk, lp
+    torch.cuda.empty_cache()
+
+    cfg = get_config("stablelm-1.6b").with_overrides(**f32)
+    params = api.init_params(cfg, g, device=dev)
+    prefill, decode = api.make_prefill_step(cfg), api.make_decode_step(cfg)
+    S = 128
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=g,
+                           device=dev)
+    _, want = prefill(params, {"tokens": tokens})
+    cache, _ = prefill(params, {"tokens": tokens[:, :-1]})
+    cache = SV.pad_cache(cache, S)
+    _, got = decode(params, cache, {"token": tokens[:, -1], "pos": S - 1})
+    rec["stablelm_decode_vs_prefill"] = e = _allclose_err(got, want,
+                                                          DECODE_TOL)
+    print(f"  StableLM depth 8 f32: prefill of {S - 1} + one decode step vs "
+          f"prefill of {S}: max |diff| / (2e-3 + 2e-3 |prefill|) {e:.3e} "
+          f"{'ok' if e <= 1 else 'DISAGREES'}")
+    if e > 1:
+        fail("StableLM decode disagrees with prefill")
+    del params, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_phase(seed, dev):
+    """The LM side: both kernels against their plain versions, then the
+    serving paths at full width (bf16), then the f32 correctness checks.
+    Returns (kernel rows, launches by path, record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as SV
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fa_row, fa_recs = check_flash_attention(g, dev)
+    ss_row, ss_recs = check_selective_scan(g, dev)
+    for r in fa_recs + ss_recs:
+        print(f"    {r['case']}: kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  library {r['library_ms']}")
+    torch.cuda.empty_cache()
+    rec = {"flash_attention": fa_recs, "selective_scan": ss_recs}
+    rec["stablelm_serve"] = lm_serve(
+        "StableLM-2 1.6B, CONFIG, bf16, repro_torch.launch.serve",
+        SV.serve, get_config("stablelm-1.6b"), 8, 1024, 32, seed, dev,
+        ("flash_attention",))
+    rec["jamba_steps"] = lm_serve(
+        "Jamba v0.1 without experts, CONFIG (32 layers), bf16, prefill and "
+        "decode steps from a zero cache", hybrid_steps,
+        get_config("jamba-v0.1-52b").with_overrides(moe=None), 4, 2048, 17,
+        seed, dev, ("flash_attention", "selective_scan"))
+    rec["correctness"] = lm_correctness(seed, dev)
+    paths = {"stablelm_serve": rec["stablelm_serve"]["launches"],
+             "jamba_steps": rec["jamba_steps"]["launches"]}
+    return [fa_row, ss_row], paths, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -858,14 +1239,25 @@ def main() -> int:
           f"phase {train['phase_s']:.1f} s")
     torch.cuda.empty_cache()
     train["vs_cpu"] = training_vs_cpu(cfg, ubm, args.seed, dev)
+    del ubm, model
+    torch.cuda.empty_cache()
 
-    # 6. kernels line, card line, contract line. Launches are summed over
-    # the main-path runs, each counted from 0: the three serving rungs and
-    # the training runs (the repeat run and the CPU check not included).
-    # The bf16 form of tvm_estep_a is held and timed here but no path of
-    # this script trains with bf16 E-step inputs.
+    # 6. the LM side: Jamba without experts and StableLM-2 1.6B
+    print("[6] LM serving")
+    t0 = time.perf_counter()
+    lm_rows, lm_paths, lm = lm_phase(args.seed, dev)
+    lm["phase_s"] = time.perf_counter() - t0
+    rows += lm_rows
+    print(f"  LM phase {lm['phase_s']:.1f} s")
+
+    # 7. kernels line, card line, contract line. Launches are summed over
+    # the main-path runs, each counted from 0: the three serving rungs, the
+    # training runs and the two LM serving runs (the repeat runs and the
+    # checks against plain paths not included). The bf16 form of
+    # tvm_estep_a is held and timed here but no path of this script trains
+    # with bf16 E-step inputs.
     paths = {"sparse": launches_sparse, "dense": launches_dense,
-             "fused": launches_fused, **train["launches"]}
+             "fused": launches_fused, **train["launches"], **lm_paths}
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
         r["on_path"] = r["name"] != "tvm_estep_a_bf16"
@@ -881,7 +1273,7 @@ def main() -> int:
               "peak_mem_gb_sparse": peak_gb, "profile_sparse": profile,
               "sparse_vs_dense_max_diff": d_sd,
               "sparse_vs_fused_max_diff": d_sf,
-              "card_vs_cpu_max_diff": d_cpu, "training": train,
+              "card_vs_cpu_max_diff": d_cpu, "training": train, "lm": lm,
               "kernels": rows}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

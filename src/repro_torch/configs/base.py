@@ -1,0 +1,130 @@
+"""Config system of the LM side: shape and model dataclasses, arch registry.
+
+A copy of ``repro/configs/base.py``: the port keeps its own so that it
+imports nothing of the JAX package, and copies the sub-configs whole so
+that ``ModelConfig`` keeps every field. ``get_config`` resolves only the
+arch ids the port runs (``PORTED_ARCH_IDS``); the others are still to be
+ported (ROADMAP.md Queue 1 item 14).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape. ``kind`` selects which step gets lowered."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                       LONG_500K)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    # arctic-style dense MLP residual running in parallel with the MoE branch
+    dense_residual_d_ff: int = 0
+    # which layers are MoE: 'all' | 'every_other' (odd layers, jamba-style)
+    layout: str = "all"
+    router_aux_loss: float = 0.01
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 selective-SSM hyperparameters (jamba's SSM layers)."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model/16)
+    # dtype of the scan's transition tensors; the port runs float32 only
+    scan_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64
+    tokenshift_lora: int = 32
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder tower for enc-dec (whisper) / frontend for VLM (internvl)."""
+
+    n_layers: int = 0
+    n_frames: int = 0
+    frontend_dim: int = 0
+    is_causal: bool = False
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str  # 'dense' | 'moe' | 'ssm' | 'audio' | 'vlm' | 'hybrid'
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    mlp_variant: str = "swiglu"  # 'swiglu' | 'geglu' | 'relu2' | 'gelu'
+    norm: str = "rmsnorm"  # 'rmsnorm' | 'layernorm'
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    # hybrid (jamba): one attention layer every `attn_period` layers; others SSM
+    attn_period: int = 0
+    subquadratic: bool = False
+    param_dtype: str = "bfloat16"
+    activation_dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"
+    remat: str = "layer"
+    grad_accum: int = 1
+    attn_chunk: int = 1024
+    note: str = ""
+
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def with_overrides(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+PORTED_ARCH_IDS = ("stablelm-1.6b", "jamba-v0.1-52b")
+
+
+def _module_for(arch_id: str) -> str:
+    return ("repro_torch.configs."
+            + arch_id.replace("-", "_").replace(".", "_"))
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
+    """Resolve a ported arch id to its ModelConfig (``SMOKE`` if asked)."""
+    if arch_id not in PORTED_ARCH_IDS:
+        raise KeyError(f"arch {arch_id!r} is not ported to repro_torch yet "
+                       f"(ROADMAP.md Queue 1 item 14); ported: "
+                       f"{PORTED_ARCH_IDS}")
+    mod = importlib.import_module(_module_for(arch_id))
+    return mod.SMOKE if smoke else mod.CONFIG

@@ -2,9 +2,11 @@
 
 The arguments are numpy arrays: ``np.asarray`` of the leaves of a JAX
 ``FullGMM`` (weights, means, covs), ``DiagGMM`` (weights, means, vars) or
-``TVModel`` (T, Sigma, prior, means, formulation). The port then computes the same function as the
-JAX package on the same parameters. Tensors go to ``device``: CUDA unless
-the caller names another.
+``TVModel`` (T, Sigma, prior, means, formulation), or the flat
+``{name: array}`` params of an LM (``repro.models.api.init_params``). The
+port then computes the same function as the JAX package on the same
+parameters. Tensors go to ``device``: CUDA unless the caller names
+another.
 """
 from __future__ import annotations
 
@@ -43,3 +45,13 @@ def tvm_from_numpy(T, Sigma, prior, means, formulation: str,
     dev = resolve_device(device)
     return TVModel(_tensor(T, dev), _tensor(Sigma, dev),
                    _tensor(prior, dev), _tensor(means, dev), formulation)
+
+
+def lm_params_from_numpy(params, dtype, device=None):
+    """{name: array} LM params (the JAX names and stacked layer axes) ->
+    {name: tensor} in ``dtype`` (a torch dtype or its name, e.g.
+    ``"float32"``). Arrays in bf16 widen to f32 exactly on the way."""
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v, np.float32), dtype=dt, device=dev)
+            for k, v in params.items()}

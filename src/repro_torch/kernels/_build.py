@@ -40,6 +40,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # gamma, x, n, f, S, F, C, D, device, stream
         "bw_stats_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR),
     },
+    "flash_attention": {
+        # q, k, v, o, B, S, H, KVH, hd, device, stream
+        "flash_attention_f32": (PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
+                                INT, PTR),
+        "flash_attention_bf16": (PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+                                 INT, INT, PTR),
+    },
     "gmm_align": {
         # x, dconst, dlin, dquad, A2, ll, sel, F, C, D, K, E2, device, stream
         "gmm_align_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
@@ -64,6 +71,12 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                               PTR),
         "packed_matmul_bf16": (PTR, PTR, PTR, INT, INT, INT, I64, I64, INT,
                                PTR),
+    },
+    "selective_scan": {
+        # dt, dx, A, Bc, Cc, h0 (or NULL), y, h_last, B, T, di, ds, device,
+        # stream
+        "selective_scan_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT,
+                               INT, INT, INT, INT, PTR),
     },
 }
 

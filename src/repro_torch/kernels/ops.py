@@ -12,10 +12,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bw_stats as _bw
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gmm_align as _ga
 from repro_torch.kernels import gmm_loglik as _gl
 from repro_torch.kernels import gmm_rescore as _gr
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import tvm_estep as _te
 
 f32 = torch.float32
@@ -113,3 +115,28 @@ def tvm_estep_a(n, PP_packed, *, dtype: str = "float32"):
     if _on_cuda(n):
         return _te.tvm_estep_a(n.contiguous(), PP_packed.contiguous())
     return ref.tvm_estep_a(n, PP_packed)
+
+
+def flash_attention(q, k, v):
+    """Causal GQA attention, forward: q [B, S, H, hd], k, v [B, S, KVH, hd]
+    -> [B, S, H, hd] in q's dtype. Any S; both paths keep the scores and
+    p in f32 (``repro/models/layers.py``'s blockwise path casts p to
+    q's dtype before P.V; at bf16 the port follows the TPU kernel)."""
+    if _on_cuda(q):
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous())
+    return ref.flash_attention(q, k, v)
+
+
+def selective_scan(dt, dx, A, Bc, Cc, h0=None):
+    """The Mamba recurrence h_t = exp(dt_t A) h_{t-1} + dx_t B_t,
+    y_t = C_t . h_t, in f32: dt, dx [B, T, di]; A [di, ds]; Bc, Cc
+    [B, T, ds]; h0 [B, di, ds] or None (zeros) -> (y [B, T, di],
+    h_last [B, di, ds])."""
+    if _on_cuda(dt):
+        dt, dx, A, Bc, Cc = (t.to(f32).contiguous()
+                             for t in (dt, dx, A, Bc, Cc))
+        if h0 is not None:
+            h0 = h0.to(f32).contiguous()
+        return _ss.selective_scan(dt, dx, A, Bc, Cc, h0)
+    return ref.selective_scan(dt, dx, A, Bc, Cc, h0)

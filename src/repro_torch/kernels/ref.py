@@ -185,3 +185,45 @@ def unpack_symmetric(Mp, R: int):
     same packed entry, so the result is exactly symmetric."""
     idx = _packed_index_map(R, Mp.device).reshape(-1)
     return Mp[..., idx].reshape(Mp.shape[:-1] + (R, R))
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Plain attention with the scores materialised, in f32.
+
+    q: [B, S, H, hd]; k, v: [B, S, KVH, hd], query head h reading kv head
+    h // (H // KVH). Masked scores are -1e30, as in the kernels. The
+    result is in q's dtype.
+    """
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    qr = q.to(f32).reshape(B, S, KVH, G, hd)
+    s = torch.einsum("bqkgh,bskh->bqkgs", qr, k.to(f32)) * hd ** -0.5
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        mask = pos[:, None] >= pos[None, :]
+        s = torch.where(mask[None, :, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqkgs,bskh->bqkgh", p, v.to(f32))
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def selective_scan(dt, dx, A, Bc, Cc, h0=None):
+    """The Mamba recurrence, one step at a time, in f32:
+
+        h_t = exp(dt_t A) h_{t-1} + dx_t B_t;   y_t = C_t . h_t
+
+    dt, dx: [B, T, di]; A: [di, ds]; Bc, Cc: [B, T, ds]; h0: [B, di, ds]
+    or None (zeros). Returns (y [B, T, di], h_last [B, di, ds]).
+    """
+    B, T, di = dt.shape
+    ds = A.shape[1]
+    dt, dx, A, Bc, Cc = (t.to(f32) for t in (dt, dx, A, Bc, Cc))
+    h = (torch.zeros((B, di, ds), dtype=f32, device=dt.device)
+         if h0 is None else h0.to(f32))
+    y = torch.empty((B, T, di), dtype=f32, device=dt.device)
+    for t in range(T):
+        h = (torch.exp(dt[:, t, :, None] * A) * h
+             + dx[:, t, :, None] * Bc[:, t, None, :])
+        y[:, t] = (h * Cc[:, t, None, :]).sum(-1)
+    return y, h

@@ -1,0 +1,144 @@
+"""Jamba: Mamba + attention 1:7 interleave, without its experts.
+
+The port of ``repro/models/jamba.py`` for ``cfg.moe is None``: layer i is
+attention iff i % attn_period == 0, else Mamba, and every layer has a
+dense MLP (the JAX ``_slot_is_moe`` is false for every slot without an
+MoE config). Params keep the JAX names and their stacked [n_periods] axis
+per period slot; the port loops over periods and slots in Python.
+
+As in the JAX package, prefill returns no cache: decode starts from a
+zero cache of ``cache_struct``. A decode step writes the new k, v and
+Mamba states into the cache in place and returns the same dict.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import mamba
+
+
+def _slot_is_attn(cfg, s: int) -> bool:
+    return s % cfg.attn_period == 0
+
+
+def _require_dense(cfg) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "Jamba's MoE layers (repro/models/moe.py) are not ported yet "
+            "(ROADMAP.md Queue 1 item 14); run it with moe=None")
+
+
+def n_periods(cfg) -> int:
+    if cfg.n_layers % cfg.attn_period:
+        raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
+                         f"attn_period {cfg.attn_period}")
+    return cfg.n_layers // cfg.attn_period
+
+
+def jamba_table(cfg) -> L.ParamTable:
+    _require_dense(cfg)
+    np_ = n_periods(cfg)
+    t: L.ParamTable = {}
+    t.update(L.embed_table(cfg))
+    t.update(L.norm_table(cfg, "ln_final"))
+    for s in range(cfg.attn_period):
+        pre = f"period/s{s}"
+        t.update(L.norm_table(cfg, pre + "/ln_mix", np_))
+        t.update(L.norm_table(cfg, pre + "/ln_ffn", np_))
+        if _slot_is_attn(cfg, s):
+            t.update(L.attn_table(cfg, pre + "/attn", np_))
+        else:
+            t.update(mamba.mamba_table(cfg, pre + "/mamba", np_))
+        t.update(L.mlp_table(cfg, pre + "/mlp", np_))
+    return t
+
+
+def _layer(params: Dict, prefix: str, i: int) -> Dict:
+    """The i-th layer's params under ``prefix``, prefix stripped."""
+    n = len(prefix)
+    return {k[n:]: v[i] for k, v in params.items() if k.startswith(prefix)}
+
+
+def _sub(p: Dict, prefix: str) -> Dict:
+    n = len(prefix)
+    return {k[n:]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def _decode_attention(cfg, ap, hn, kc, vc, pos: int):
+    """One token's attention: q, k, v with f32 products cast to the
+    activation dtype, RoPE at ``pos``, k and v written into the caches in
+    place at ``pos``."""
+    dtype = hn.dtype
+    q, k, v = (L._f32_dot(hn, ap[w].reshape(ap[w].shape[0], -1)).to(dtype)
+               .reshape(hn.shape[:2] + ap[w].shape[1:])
+               for w in ("wq", "wk", "wv"))
+    pvec = torch.full((1,), pos, dtype=torch.int32, device=hn.device)
+    q = L.rope(q, pvec, cfg.rope_theta)
+    k = L.rope(k, pvec, cfg.rope_theta)
+    kc[:, pos] = k[:, 0].to(kc.dtype)
+    vc[:, pos] = v[:, 0].to(vc.dtype)
+    return L.decode_attention(q[:, 0], kc, vc, pos)[:, None]
+
+
+def forward(cfg, params, tokens, kind: str, cache=None, pos=None):
+    """kind='prefill': tokens [B, T]; 'decode': tokens [B] at ``pos``.
+
+    cache (decode): {'k','v': [np,B,S,KVH,hd], 'conv': [np,7,B,dc-1,di],
+    'h': [np,7,B,di,ds]}, updated in place. Returns (hidden, cache), the
+    cache None after prefill. (The JAX forward also returns the MoE router
+    loss, which is 0 without experts.)
+    """
+    _require_dense(cfg)
+    if kind not in ("prefill", "decode"):
+        raise NotImplementedError(f"kind {kind!r}: the port runs prefill "
+                                  "and decode only")
+    dtype = L.cfg_dtype(cfg)
+    decode = kind == "decode"
+    x = params["embed"][tokens].to(dtype)
+    if decode:
+        x = x[:, None]                                 # [B, 1, d]
+    positions = (None if decode
+                 else torch.arange(x.shape[1], device=x.device))
+    for p in range(n_periods(cfg)):
+        mi = 0
+        for s in range(cfg.attn_period):
+            sp = _layer(params, f"period/s{s}/", p)
+            hn = L.norm(cfg, sp, "ln_mix", x)
+            if _slot_is_attn(cfg, s):
+                ap = _sub(sp, "attn/")
+                if decode:
+                    o = _decode_attention(cfg, ap, hn, cache["k"][p],
+                                          cache["v"][p], pos)
+                else:
+                    q, k, v = L.qkv_proj(cfg, ap, hn, positions)
+                    o = L.blockwise_causal_attention(q, k, v)
+                mix = L.out_proj(ap, o)
+            else:
+                state = ((cache["conv"][p, mi], cache["h"][p, mi])
+                         if decode else None)
+                mix, (conv2, h2) = mamba.mamba_mix(cfg, _sub(sp, "mamba/"),
+                                                   hn, state)
+                if decode:
+                    cache["conv"][p, mi] = conv2.to(cache["conv"].dtype)
+                    cache["h"][p, mi] = h2.to(cache["h"].dtype)
+                mi += 1
+            x = x + mix.to(dtype)
+            hn = L.norm(cfg, sp, "ln_ffn", x)
+            x = x + L.mlp(cfg, _sub(sp, "mlp/"), hn).to(dtype)
+    x = L.norm(cfg, params, "ln_final", x)
+    return x, cache if decode else None
+
+
+def cache_struct(cfg, batch: int, seq: int, dtype):
+    """{'k', 'v', 'conv', 'h'}: (shape, dtype) of the decode cache."""
+    np_ = n_periods(cfg)
+    KVH, hd = cfg.n_kv_heads, cfg.resolved_head_dim()
+    di, dtr, ds, dc = mamba.dims(cfg)
+    nm = cfg.attn_period - 1
+    return {"k": ((np_, batch, seq, KVH, hd), dtype),
+            "v": ((np_, batch, seq, KVH, hd), dtype),
+            "conv": ((np_, nm, batch, dc - 1, di), dtype),
+            "h": ((np_, nm, batch, di, ds), dtype)}

@@ -1,0 +1,102 @@
+"""Mamba-1 selective SSM layer (jamba's sequence mixer).
+
+The port of ``repro/models/mamba.py``. The scan goes through
+``ops.selective_scan``: on the card the hand-written kernel, which walks
+t in order with the state in registers and takes and returns the state,
+so prefill and a decode step run the same kernel; on the CPU its plain
+sequential version. The JAX ``_ssm_scan`` is chunked-associative: the
+same function, summed in another order.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+f32 = torch.float32
+
+
+def dims(cfg):
+    di = cfg.ssm.expand * cfg.d_model
+    dtr = cfg.ssm.dt_rank or -(-cfg.d_model // 16)
+    return di, dtr, cfg.ssm.d_state, cfg.ssm.d_conv
+
+
+def mamba_table(cfg, prefix, lead) -> L.ParamTable:
+    d = cfg.d_model
+    di, dtr, ds, dc = dims(cfg)
+    s = 0.02
+    la = ("layers",) if lead else ()
+    le = (lead,) if lead else ()
+    return {
+        prefix + "/in_proj": (le + (d, 2 * di), la + ("fsdp", "ffn"),
+                              ("normal", s)),
+        prefix + "/conv_w": (le + (di, dc), la + ("ffn", None),
+                             ("normal", s)),
+        prefix + "/conv_b": (le + (di,), la + ("ffn",), ("zeros",)),
+        prefix + "/x_proj": (le + (di, dtr + 2 * ds), la + ("ffn", None),
+                             ("normal", s)),
+        prefix + "/dt_w": (le + (dtr, di), la + (None, "ffn"),
+                           ("normal", s)),
+        # softplus(-4.6) ~ 0.01
+        prefix + "/dt_b": (le + (di,), la + ("ffn",), ("const", -4.6)),
+        prefix + "/A_log": (le + (di, ds), la + ("ffn", None),
+                            ("const", 0.0)),
+        prefix + "/D": (le + (di,), la + ("ffn",), ("ones",)),
+        prefix + "/out_proj": (le + (di, d), la + ("ffn", "fsdp"),
+                               ("normal", s)),
+    }
+
+
+def _causal_conv(x, w, b, tail=None):
+    """Depthwise causal conv via shifts. x: [B,T,di]; w: [di,dc]; tail:
+    [B, dc-1, di] carry for decode/streaming (None -> zero history)."""
+    B, T, di = x.shape
+    dc = w.shape[1]
+    if tail is None:
+        tail = torch.zeros((B, dc - 1, di), dtype=x.dtype, device=x.device)
+    xp = torch.cat([tail, x], dim=1)              # [B, T+dc-1, di]
+    y = torch.zeros((B, T, di), dtype=f32, device=x.device)
+    for i in range(dc):
+        y = y + xp[:, i:i + T].to(f32) * w[:, i].to(f32)
+    new_tail = xp[:, -(dc - 1):] if dc > 1 else tail
+    return (y + b.to(f32)).to(x.dtype), new_tail
+
+
+def mamba_mix(cfg, p, x, state=None):
+    """x: [B,T,d]. state: None or (conv_tail, h) for decode/streaming.
+    Returns (y [B,T,d], (new_tail, h_last)), h_last in x's dtype."""
+    if cfg.ssm.scan_dtype != "float32":
+        raise NotImplementedError(
+            f"scan_dtype {cfg.ssm.scan_dtype!r}: the port runs the scan in "
+            "float32 only (ROADMAP.md Queue 1 item 14)")
+    di, dtr, ds, dc = dims(cfg)
+    B, T, d = x.shape
+    xz = x @ p["in_proj"].to(x.dtype)
+    x1, z = xz[..., :di], xz[..., di:]
+    tail = state[0] if state is not None else None
+    x1, new_tail = _causal_conv(x1, p["conv_w"], p["conv_b"], tail)
+    x1 = F.silu(x1.to(f32)).to(x.dtype)
+    proj = L._f32_dot(x1, p["x_proj"].to(x.dtype))
+    dt_r, Bc, Cc = (proj[..., :dtr], proj[..., dtr:dtr + ds],
+                    proj[..., dtr + ds:])
+    dt = F.softplus(dt_r @ p["dt_w"].to(f32) + p["dt_b"].to(f32))
+    A = -torch.exp(p["A_log"].to(f32))            # [di, ds]
+    h0 = state[1].to(f32) if state is not None else None
+    x1f = x1.to(f32)
+    y, h_last = ops.selective_scan(dt, dt * x1f, A, Bc, Cc, h0)
+    y = y + p["D"].to(f32) * x1f
+    y = y * F.silu(z.to(f32))
+    out = y.to(x.dtype) @ p["out_proj"].to(x.dtype)
+    return out, (new_tail, h_last.to(x.dtype))
+
+
+def state_struct(cfg, batch, dtype, lead):
+    """{'conv', 'h'}: (shape, dtype) of one layer's (or ``lead`` stacked
+    layers') decode state."""
+    di, dtr, ds, dc = dims(cfg)
+    le = (lead,) if lead else ()
+    return {"conv": (le + (batch, dc - 1, di), dtype),
+            "h": (le + (batch, di, ds), dtype)}
