@@ -181,22 +181,44 @@ def kernel_checks(ex, utts, g):
     frames = torch.from_numpy(np.concatenate(utts)).to(dev)
     rows = []
 
-    # gmm_loglik: F=4096, C=2048, D=72
+    # gmm_loglik: F=4096, C=2048, D=72, then a ragged F and C and a P with
+    # an antisymmetric part (the kernel works on the symmetric part)
     x = frames[:4096].contiguous()
     linT, Pf = lin.T.contiguous(), P.reshape(C, D * D).contiguous()
     got = GL.gmm_loglik(x, const, linT, Pf)
     want = ref.gmm_loglik(x, const, linT, Pf)
     err = compare("gmm_loglik [4096x72] x C=2048", got, want)
+    Fr, Cr = 1000, 2000
+    compare(f"gmm_loglik ragged [{Fr}x72] x the first {Cr} components",
+            GL.gmm_loglik(x[:Fr].contiguous(), const[:Cr].contiguous(),
+                          linT[:, :Cr].contiguous(), Pf[:Cr].contiguous()),
+            ref.gmm_loglik(x[:Fr], const[:Cr], linT[:, :Cr], Pf[:Cr]))
+    # a generator of its own, so the draws of later phases stay as they were
+    g2 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 1)
+    skew = torch.randn(C, D, D, generator=g2, device=dev)
+    Pn = (P + 1e-3 * P.abs().max() * (skew - skew.transpose(1, 2))
+          ).reshape(C, D * D).contiguous()
+    compare("gmm_loglik [4096x72] x C=2048, P not symmetric",
+            GL.gmm_loglik(x, const, linT, Pn),
+            ref.gmm_loglik(x, const, linT, Pn))
+    del skew, Pn
     F = x.shape[0]
-    b_ms, b_by = bound(2.0 * F * C * (D * D + D),
+    E2 = 1 + D + D * (D + 1) // 2
+    # the packed form needs E2 products per (frame, component)
+    b_ms, b_by = bound(2.0 * F * C * E2,
                        4.0 * (F * D + C + D * C + C * D * D + F * C))
-    # library yardstick: one torch.addmm over the operand [x | vec(xxᵀ)]
-    # and the weights [lin; -½ P_flatᵀ], both built beforehand (as the
-    # bw_stats row's X₂), const as the bias
+    # library yardsticks, operands built beforehand: one torch.addmm over
+    # the packed expansion (ref.expand_quadratic without its ones column)
+    # and the packed weights, const as the bias; and, for continuity with
+    # earlier runs, over the full-width [x | vec(xxᵀ)] and [lin; -½ P_flatᵀ]
+    xp = ref.expand_quadratic(x)[:, 1:].contiguous()
+    wp = GL.packed_weights(const, linT, Pf)[1:E2, :C].contiguous()
+    compare("torch.addmm yardstick of gmm_loglik, packed",
+            torch.addmm(const, xp, wp), want)
     xe = torch.cat([x, (x[:, :, None] * x[:, None, :]).reshape(F, D * D)],
                    dim=1)
     we = torch.cat([linT, -0.5 * Pf.T], dim=0).contiguous()
-    compare("torch.addmm yardstick of gmm_loglik",
+    compare("torch.addmm yardstick of gmm_loglik, full width",
             torch.addmm(const, xe, we), want)
     rows.append(dict(
         name="gmm_loglik", route="cuda",
@@ -205,8 +227,10 @@ def kernel_checks(ex, utts, g):
         ms=cuda_ms(lambda: GL.gmm_loglik(x, const, linT, Pf), 20),
         plain_ms=cuda_ms(lambda: ref.gmm_loglik(x, const, linT, Pf), 20),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.addmm(const, xe, we), 20)))
-    del got, want, xe, we
+        library_ms=cuda_ms(lambda: torch.addmm(const, xp, wp), 20),
+        library_full_ms=cuda_ms(lambda: torch.addmm(const, xe, we), 20),
+        pack_ms=cuda_ms(lambda: GL.packed_weights(const, linT, Pf), 20)))
+    del got, want, xe, we, xp, wp
 
     # gmm_rescore: F=16384, K=20, ids from the real diag preselection
     x = frames[:16384].contiguous()
@@ -284,6 +308,9 @@ def kernel_checks(ex, utts, g):
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})  library {r['library_ms']}")
+    print(f"  gmm_loglik: of its kernel time, the packing pass "
+          f"{rows[0]['pack_ms']:.4f} ms; full-width torch.addmm "
+          f"{rows[0]['library_full_ms']:.4f} ms")
     return rows
 
 
@@ -787,12 +814,16 @@ def compare_bf16(name, got, want):
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     rms = want.square().mean().sqrt().item()
-    ratio = (diff / (BF16_HALF_ULP * want.abs() + BF16_RMS_FLOOR * rms)
-             ).max().item()
+    limit = BF16_HALF_ULP * want.abs() + BF16_RMS_FLOOR * rms
+    ratio = (diff / limit).max().item()
+    # what the plain result rounded once to bf16 reads against the same limit
+    rounding = ((want.to(torch.bfloat16).float() - want).abs() / limit
+                ).max().item()
     err = diff.max().item()
     ok = ratio <= 1
     print(f"  {name}: max_abs_err {err:.3e}  max |diff| / (2^-8 |plain| + "
-          f"1e-3 rms(plain) = {BF16_RMS_FLOOR * rms:.3e}) {ratio:.3f}  "
+          f"1e-3 rms(plain) = {BF16_RMS_FLOOR * rms:.3e}) {ratio:.3f} "
+          f"(the plain result's own bf16 rounding: {rounding:.3f})  "
           f"{'ok' if ok else 'DISAGREES'}")
     if not ok:
         fail(f"{name} disagrees with its plain version")
@@ -801,22 +832,29 @@ def compare_bf16(name, got, want):
 
 def check_flash_attention(g, dev):
     """flash_attention against its plain version: Jamba's shapes (the
-    serving path's, bf16, and f32), StableLM's (bf16) and a ragged S. The
-    row is the first case, the Jamba prefill of the serving path."""
+    serving path's, bf16, and f32), StableLM's (bf16), a ragged S (f32 and
+    bf16) and a short S of one partial tile (bf16). The row is the first
+    case, the Jamba prefill of the serving path. Each case prints the
+    kernel it ran (bf16 on the tensor cores, f32 on the CUDA cores)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = (("Jamba", 4, 2048, 32, 8, 128, torch.bfloat16),
-             ("Jamba", 4, 2048, 32, 8, 128, torch.float32),
-             ("StableLM", 8, 1024, 32, 32, 64, torch.bfloat16),
-             ("ragged S", 2, 1000, 32, 8, 128, torch.float32))
+    # the later cases draw from a generator of their own, so that the
+    # earlier cases and the phases after this one see the draws they had
+    g2 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 1)
+    cases = (("Jamba", 4, 2048, 32, 8, 128, torch.bfloat16, g),
+             ("Jamba", 4, 2048, 32, 8, 128, torch.float32, g),
+             ("StableLM", 8, 1024, 32, 32, 64, torch.bfloat16, g),
+             ("ragged S", 2, 1000, 32, 8, 128, torch.float32, g),
+             ("ragged S", 2, 1000, 32, 8, 128, torch.bfloat16, g2),
+             ("short S", 2, 80, 32, 8, 128, torch.bfloat16, g2))
     recs = []
-    for label, B, S, H, KVH, hd, dtype in cases:
-        q, k, v = (torch.randn(B, S, n, hd, generator=g, device=dev)
+    for label, B, S, H, KVH, hd, dtype, gen in cases:
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
                    .to(dtype) for n in (H, KVH, KVH))
         tag = _dtype_name(dtype)
         name = f"flash_attention {label} B={B} S={S} H={H} KVH={KVH} " \
-               f"hd={hd} {tag}"
+               f"hd={hd} {tag}, {FA.KERNELS[dtype][1]} kernel"
         if dtype == torch.float32:
             err = compare(name, FA.flash_attention(q, k, v),
                           ref.flash_attention(q, k, v), ATT_F32_TOL)
@@ -830,6 +868,7 @@ def check_flash_attention(g, dev):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         recs.append(dict(
             case=f"{label} B={B} S={S} H={H} KVH={KVH} hd={hd} {tag}",
+            kernel=FA.KERNELS[dtype][1],
             max_abs_err=err, ms=cuda_ms(lambda: FA.flash_attention(q, k, v),
                                         10),
             plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v), 3),

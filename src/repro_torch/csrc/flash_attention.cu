@@ -5,48 +5,78 @@
 //   o[b, i, h] = sum_{j <= i} softmax_j(q[b, i, h] . k[b, j, h/G] / sqrt(hd))
 //                v[b, j, h/G]
 //
-// q [B, S, H, hd], k and v [B, S, KVH, hd], G = H / KVH; f32 or bf16 in,
-// f32 inside, o [B, S, H, hd] in the input type.
+// q [B, S, H, hd], k and v [B, S, KVH, hd], G = H / KVH; o [B, S, H, hd] in
+// the input type. Scores, softmax and sums in f32; masked scores are -1e30
+// and o = acc / max(l, 1e-30), as in the TPU kernel. Any S: rows and keys
+// at or past S are masked here (the TPU wrapper needs S % block == 0).
 //
 // Bound on the H100: operations. The function needs 4*B*H*hd*S^2/2 FLOPs
 // (two products over the causal half) against (2*B*S*H + 2*B*S*KVH)*hd
-// elements moved: hundreds of FLOPs per byte at S in the thousands. This
-// kernel runs its products on the CUDA cores in f32, so its ceiling is the
-// f32 FMA rate, not the tensor cores' bf16 rate.
+// elements moved: hundreds of FLOPs per byte at S in the thousands.
 //
-// Design: one block per (q tile of 64 rows, head, batch), 256 threads as
-// 16 x 16; thread (ty, tx) owns query rows ty + 16i (i < 4). The q tile,
-// then each 64-row k and v tile, are staged in shared memory as f32
-// (3 x 32 KB at hd = 128, above the 48 KB default, so the entry point
-// raises the block's dynamic shared memory limit). Each thread computes a
-// 4 x 4 block of scores, the row max and row sum go across the 16 lanes
-// of a row by warp shuffles, and the running max m, sum l and the output
-// accumulator (4 rows x hd/16 columns) stay in registers across kv tiles:
-// the [S, S] scores never reach device memory, the property of the TPU
-// kernel worth keeping. Tiles wholly above the diagonal are skipped;
-// masked scores are -1e30, as in the TPU kernel; rows and keys past S are
-// masked here, so any S is exact. The p tile goes through shared memory
-// for P.V and stays f32 there (the TPU kernel keeps p in f32 as well).
-// Blocks of the longest rows are issued first.
+// Two kernels, one per input type:
+//
+// bf16 (flash_attention_bf16): the tensor cores. One block per (tile of
+// 128 query rows, head, batch), longest rows first: two consumer
+// warpgroups of 64 rows and one producer warp. The producer fills the
+// block's q tile once and a ring of STAGES (k, v) tiles by TMA (4-d tensor
+// maps over [B, S, heads, hd], 128-byte swizzle, mbarriers; keys past S
+// arrive as zeros); a tile is 128 keys up to hd = 128 and 64 above, for
+// shared memory. S = Q.K^T is wgmma with both operands in shared memory and
+// f32 accumulators in registers; bf16 inputs are exact, so S differs from
+// the f32 plain S by summation order only. The online softmax works on the
+// accumulator fragments: a row's max and sum across the four threads that
+// share it by shuffles, masks only on tiles that cross the diagonal or S.
+// P.V keeps p's f32 precision by splitting it: p_hi = bf16(p), p_lo =
+// bf16(p - p_hi), two wgmma with A from registers (the S accumulator layout
+// is the A fragment layout) and V MN-major from shared memory, both into
+// the same f32 o. p_hi + p_lo holds p to about 2^-16; a single bf16 p
+// would add up to 2^-9 per term, against a limit that the output's own
+// bf16 rounding already nearly fills. The split costs one more P.V: 1.5x
+// the function's operations.
+//
+// What bounds it is not the tensor cores: without any product the kernel
+// keeps most of its time (PERF.md). Each warpgroup runs S, its softmax and
+// P.V in turn, so the softmax (hundreds of instructions a thread per tile,
+// with one warp per scheduler to hide their latency) lies on its critical
+// path, and only the other warpgroup's products overlap it; a block's start
+// (the q tile's load) and its epilogue overlap nothing. Issuing the next S
+// before the softmax, to overlap a warpgroup's softmax with its own
+// products, made ptxas serialize the wgmma here. Head dims with an
+// instance: BF16_HEAD_DIMS in kernels/flash_attention.py.
+//
+// f32 (flash_attention_f32): the CUDA cores, f32 FMAs throughout. One
+// block per (q tile of 64 rows, head, batch), 256 threads as 16 x 16;
+// thread (ty, tx) owns query rows ty + 16i (i < 4). The q tile, then each
+// 64-row k and v tile, are staged in shared memory (3 x 32 KB at hd = 128,
+// above the 48 KB default, so the entry point raises the block's dynamic
+// shared memory limit). Each thread computes a 4 x 4 block of scores, the
+// row max and row sum go across the 16 lanes of a row by warp shuffles,
+// and the running max m, sum l and the output accumulator (4 rows x hd/16
+// columns) stay in registers across kv tiles. Tiles wholly above the
+// diagonal are skipped; the p tile goes through shared memory for P.V.
+//
+// Both keep the [S, S] scores out of device memory, the property of the
+// TPU kernel worth keeping.
+#include <cuda.h>          // CUtensorMap and its enums; no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
+
+constexpr float NEG = -1e30f;
+
+// ---------------------------------------------------------------- f32 ----
+
+namespace simt {
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BKV = 64;         // kv rows per tile
 constexpr int THREADS = 256;    // 16 x 16
 constexpr int PLD = BKV + 1;    // p tile row stride
-constexpr float NEG = -1e30f;
-
-__device__ inline float to_f32(float v) { return v; }
-__device__ inline float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ inline void store(float* p, float v) { *p = v; }
-__device__ inline void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -54,11 +84,11 @@ constexpr size_t smem_bytes() {
          ((size_t)2 * BQ * (HD + 1) + (size_t)BKV * HD + (size_t)BQ * PLD);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       int H, int KVH, float scale) {
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int S, int H, int KVH, float scale) {
   constexpr int LD = HD + 1;        // q and k tile row stride
   constexpr int CPT = HD / 16;      // output columns per thread
   extern __shared__ float smem[];
@@ -79,15 +109,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t qrow = (size_t)H * HD;        // row strides, in elements
   const size_t krow = (size_t)KVH * HD;
-  const T* qb = q + (size_t)b * S * qrow + (size_t)h * HD;
-  const T* kb = k + (size_t)b * S * krow + (size_t)kh * HD;
-  const T* vb = v + (size_t)b * S * krow + (size_t)kh * HD;
-  T* ob = o + (size_t)b * S * qrow + (size_t)h * HD;
+  const float* qb = q + (size_t)b * S * qrow + (size_t)h * HD;
+  const float* kb = k + (size_t)b * S * krow + (size_t)kh * HD;
+  const float* vb = v + (size_t)b * S * krow + (size_t)kh * HD;
+  float* ob = o + (size_t)b * S * qrow + (size_t)h * HD;
 
   for (int idx = tid; idx < BQ * HD; idx += THREADS) {
     const int r = idx / HD, d = idx - (idx / HD) * HD;
     const int s = q0 + r;
-    Qs[r * LD + d] = s < S ? to_f32(qb[(size_t)s * qrow + d]) : 0.f;
+    Qs[r * LD + d] = s < S ? qb[(size_t)s * qrow + d] : 0.f;
   }
 
   float acc[4][CPT];
@@ -107,8 +137,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / HD, d = idx - (idx / HD) * HD;
       const int s = k0 + r;
       const bool in = s < S;
-      Ks[r * LD + d] = in ? to_f32(kb[(size_t)s * krow + d]) : 0.f;
-      Vs[r * HD + d] = in ? to_f32(vb[(size_t)s * krow + d]) : 0.f;
+      Ks[r * LD + d] = in ? kb[(size_t)s * krow + d] : 0.f;
+      Vs[r * HD + d] = in ? vb[(size_t)s * krow + d] : 0.f;
     }
     __syncthreads();
 
@@ -185,38 +215,32 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc)
-      store(&ob[(size_t)qpos * qrow + tx + 16 * cc], acc[i][cc] / denom);
+      ob[(size_t)qpos * qrow + tx + 16 * cc] = acc[i][cc] / denom;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KVH, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
+      flash_attention_kernel<HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale = (float)std::pow((double)HD, -0.5);
-  flash_attention_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KVH, scale);
+  flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KVH, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int KVH, int hd, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0 || S == 0 || H == 0) return 0;
-  if (KVH <= 0 || H % KVH != 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
+             int S, int H, int KVH, int hd, cudaStream_t st) {
   switch (hd) {
 #define FA_CASE(N) \
   case N:          \
-    return launch<T, N>(q, k, v, o, B, S, H, KVH, st);
+    return launch<N>(q, k, v, o, B, S, H, KVH, st);
     FA_CASE(16) FA_CASE(32) FA_CASE(48) FA_CASE(64) FA_CASE(80) FA_CASE(96)
     FA_CASE(112) FA_CASE(128) FA_CASE(144) FA_CASE(160) FA_CASE(176)
     FA_CASE(192) FA_CASE(208) FA_CASE(224) FA_CASE(240) FA_CASE(256)
@@ -226,19 +250,636 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   }
 }
 
+}  // namespace simt
+
+// --------------------------------------------------------------- bf16 ----
+
+namespace tc {
+
+constexpr int BQ = 128;                 // query rows per block
+constexpr int STAGES = 3;               // (k, v) tiles in flight
+constexpr int CONSUMERS = 256;          // two warpgroups of 64 query rows
+constexpr int THREADS = CONSUMERS + 32; // and one producer warp
+constexpr int CHUNK = 64;               // hd columns per 128-byte swizzled row
+constexpr int ROW = 128;                // bytes per swizzled row
+
+// Tile sizes and shared memory, every tile 1024-byte aligned (the 128-byte
+// swizzle's period). A tile of R rows x hd is hd/64 chunks of R rows x 128
+// bytes. Keys per tile: 128 up to hd = 128, 64 above (shared memory).
+template <int HD>
+struct Layout {
+  static constexpr int BKV = HD <= 128 ? 128 : 64;
+  static constexpr int NCH = HD / CHUNK;
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BKV * HD * 2;      // one k or one v tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // full[STAGES], empty[STAGES], q barrier; 1024 bytes of alignment slack
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+  static_assert(BYTES <= 232448, "over the block's shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 4-d tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Registers a pending wgmma reads or writes must not be touched, or
+// reused, before the wait: these pin each one until after it.
+__device__ __forceinline__ void pin(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle. K-major tiles
+// (q, k): 8-row groups 1024 bytes apart (SBO); a k16 step inside the
+// 128-byte row advances the start address by 32 bytes. MN-major tiles (v
+// as B of P.V): 8-key groups 1024 bytes apart (SBO), 64-column chunks of
+// hd one tile of rows apart (LBO).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// S[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O[64 x 64] += A[64 x 16] B[16 x 64], A from registers, B MN-major in shared memory
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x 128] += A[64 x 16] B[16 x 128], A from registers, B MN-major in shared memory
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x 192] += A[64 x 16] B[16 x 192], A from registers, B MN-major in shared memory
+__device__ __forceinline__ void mma_rs_n192(float (&d)[96], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void mma_pv(float (&o)[HD / 2], const uint32_t* a,
+                                       uint64_t db) {
+  if constexpr (HD == 64) mma_rs_n64(o, a, db);
+  else if constexpr (HD == 128) mma_rs_n128(o, a, db);
+  else mma_rs_n192(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the MUFU unit alone; a result below 2^-126 flushes to 0, which no
+// row sum (at least 1, from its max) can tell
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// S (+)= Q K^T over one k16 step; the first step overwrites S
+template <int BKV>
+__device__ __forceinline__ void mma_qk(float (&s)[BKV / 2], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  if constexpr (BKV == 64) mma_ss_n64(s, da, db, accumulate);
+  else mma_ss_n128(s, da, db, accumulate);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          __nv_bfloat16* __restrict__ o, int S, int H,
+                          int KVH, float scale_log2) {
+  using L = Layout<HD>;
+  constexpr int BKV = L::BKV;
+  constexpr int NS = BKV / 2;   // score fragment floats per thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t sk = base + L::K_OFF;
+  const uint32_t sv = base + L::V_OFF;
+  const uint32_t full = base + L::BAR_OFF;     // full[s] = full + 8 s
+  const uint32_t empty = full + 8 * STAGES;    // empty[s] = empty + 8 s
+  const uint32_t qbar = empty + 8 * STAGES;
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt = nq - 1 - (int)blockIdx.x;     // longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KVH);
+  const int q0 = qt * BQ;
+  const int n_kv = (min(q0 + BQ, S) + BKV - 1) / BKV;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, CONSUMERS / 32);   // one arrival per warp
+    }
+    bar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer: the q tile once, then the (k, v) ring
+    if (tid == CONSUMERS) {
+      bar_expect_tx(qbar, L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < L::NCH; ++c)
+        tma_load(sq + c * BQ * ROW, &qmap, qbar, c * CHUNK, h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % STAGES;
+        bar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        const uint32_t fb = full + 8 * s;
+        bar_expect_tx(fb, 2 * L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < L::NCH; ++c) {
+          const uint32_t off = s * L::KV_BYTES + c * BKV * ROW;
+          tma_load(sk + off, &kmap, fb, c * CHUNK, kh, j * BKV, b);
+          tma_load(sv + off, &vmap, fb, c * CHUNK, kh, j * BKV, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows row0 .. row0 + 63 and
+  // computes kv tiles 0 .. nt - 1 (the rest lie above its rows)
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int row0 = q0 + 64 * wg;
+  const int r0 = row0 + 16 * warp + lane / 4;  // this thread's rows r0, r0 + 8
+  const int r1 = r0 + 8;
+  const int nt = min(n_kv, (row0 + 63) / BKV + 1);
+  const uint32_t qa = sq + 64 * wg * ROW;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m0 = NEG, m1 = NEG;   // running max of the scaled scores (log2 units)
+  float l0 = 0.f, l1 = 0.f;   // this thread's share of the running sums
+  float sc[NS];               // S of a tile
+#pragma unroll
+  for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+  uint32_t ph[NS / 2], pl[NS / 2];   // bf16 hi and lo A fragments of p
+
+  auto issue_pv = [&](int j) {
+    const uint32_t vt = sv + (j % STAGES) * L::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      mma_pv<HD>(acc, ph + 4 * kk, desc(vt + kk * 16 * ROW, BKV * ROW, 1024));
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      mma_pv<HD>(acc, pl + 4 * kk, desc(vt + kk * 16 * ROW, BKV * ROW, 1024));
+  };
+  auto issue_s = [&](int j) {
+    const uint32_t kt = sk + (j % STAGES) * L::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;   // k16 step in the row
+      mma_qk<BKV>(sc, desc(qa + (kk / 4) * BQ * ROW + off, 16, 1024),
+                  desc(kt + (kk / 4) * BKV * ROW + off, 16, 1024), kk > 0);
+    }
+  };
+  // after a group's wait: nothing it wrote or read moves across it
+  auto settle = [&]() {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) pin(acc[i]);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) pin(sc[i]);
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      pin(ph[i]);
+      pin(pl[i]);
+    }
+  };
+  auto release = [&](int j) {
+    if (lane == 0) bar_arrive(empty + 8 * (j % STAGES));
+  };
+  // the online softmax of tile j on sc: m, l and acc rescaled; p into
+  // ph (bf16 hi) and pl (bf16 lo)
+  auto softmax = [&](int j) {
+    // sc[4c + e]: row r0 (e < 2) or r1 (e >= 2), key k0 + 8c + 2(lane%4) + e%2
+    const int k0 = j * BKV;
+    if (k0 + BKV - 1 > row0 || k0 + BKV > S) {   // the diagonal, or past S
+#pragma unroll
+      for (int c = 0; c < BKV / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * c + 2 * (lane % 4) + e;
+          if (kpos > r0 || kpos >= S) sc[4 * c + e] = NEG;
+          if (kpos > r1 || kpos >= S) sc[4 * c + 2 + e] = NEG;
+        }
+      }
+    }
+    // the row max on the raw scores; the scale (> 0) goes into the
+    // exponent's fma: p = 2^(s * scale - m)
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int c = 0; c < BKV / 8; ++c) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * c], sc[4 * c + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * c + 2], sc[4 * c + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = fmaxf(m0, mx0 * scale_log2);
+    mx1 = fmaxf(m1, mx1 * scale_log2);
+    const float a0 = exp2_ftz(m0 - mx0);
+    const float a1 = exp2_ftz(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    // p in f32, split into bf16 hi and lo: ph[2c] row r0 keys 8c..,
+    // ph[2c + 1] row r1; the A fragment of k16 step kk is ph[4kk .. 4kk + 3]
+    // (the accumulator layout is the A fragment layout)
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < BKV / 8; ++c) {
+      const float p00 = exp2_ftz(fmaf(sc[4 * c], scale_log2, -m0));
+      const float p01 = exp2_ftz(fmaf(sc[4 * c + 1], scale_log2, -m0));
+      const float p10 = exp2_ftz(fmaf(sc[4 * c + 2], scale_log2, -m1));
+      const float p11 = exp2_ftz(fmaf(sc[4 * c + 3], scale_log2, -m1));
+      rs0 += p00 + p01;
+      rs1 += p10 + p11;
+      const uint32_t h0 = bf16x2(p00, p01);
+      const uint32_t h1 = bf16x2(p10, p11);
+      ph[2 * c] = h0;
+      ph[2 * c + 1] = h1;
+      pl[2 * c] = bf16x2(p00 - bf16_lo(h0), p01 - bf16_hi(h0));
+      pl[2 * c + 1] = bf16x2(p10 - bf16_lo(h1), p11 - bf16_hi(h1));
+    }
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+    // acc *= alpha, unless no row of the warp changed its max (alpha is
+    // then exactly 1 for each)
+    if (__any_sync(0xffffffffu, a0 != 1.f || a1 != 1.f)) {
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        acc[4 * c] *= a0;
+        acc[4 * c + 1] *= a0;
+        acc[4 * c + 2] *= a1;
+        acc[4 * c + 3] *= a1;
+      }
+    }
+  };
+
+  // Per tile: S = Q.K^T, its softmax, P.V, each product waited for
+  // before its results are read. The two warpgroups run independently, so
+  // that one's softmax overlaps the other's products on the tensor cores.
+  bar_wait(qbar, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    bar_wait(full + 8 * (j % STAGES), (j / STAGES) & 1);
+    if (j < nt) {
+      wg_fence();
+      issue_s(j);
+      wg_commit();
+      wg_wait();
+      settle();
+      softmax(j);
+      wg_fence();
+      issue_pv(j);
+      wg_commit();
+      wg_wait();
+      settle();
+    }
+    release(j);
+  }
+
+  // the four threads of a row hold a quarter of its sum each
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = 1.f / fmaxf(l0, 1e-30f);
+  const float d1 = 1.f / fmaxf(l1, 1e-30f);
+  const size_t row_stride = (size_t)H * HD;
+  __nv_bfloat16* o0 = o + ((size_t)b * S + r0) * row_stride + (size_t)h * HD;
+  __nv_bfloat16* o1 = o0 + 8 * row_stride;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    const int col = 8 * c + 2 * (lane % 4);
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
+          __floats2bfloat162_rn(acc[4 * c] * d0, acc[4 * c + 1] * d0);
+    if (r1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
+          __floats2bfloat162_rn(acc[4 * c + 2] * d1, acc[4 * c + 3] * d1);
+  }
+}
+
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [B, S, heads, hd] bf16 as a 4-d map (hd innermost), boxes of 64 hd
+// columns x `rows` rows of one (head, batch); out-of-range rows read 0.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+              int hd, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)CHUNK, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                   const_cast<void*>(ptr), dims, strides, box, elem,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int H, int KVH, cudaStream_t stream) {
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, B, S, H, HD, BQ) ||
+      !make_map(&km, k, B, S, KVH, HD, Layout<HD>::BKV) ||
+      !make_map(&vm, v, B, S, KVH, HD, Layout<HD>::BKV))
+    return (int)cudaErrorInvalidValue;
+  const int smem = Layout<HD>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  const float scale_log2 =
+      (float)(std::pow((double)HD, -0.5) * 1.4426950408889634);
+  flash_attention_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, H, KVH, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, int B,
+             int S, int H, int KVH, int hd, cudaStream_t st) {
+  switch (hd) {   // BF16_HEAD_DIMS in kernels/flash_attention.py
+    case 64: return launch<64>(q, k, v, o, B, S, H, KVH, st);
+    case 128: return launch<128>(q, k, v, o, B, S, H, KVH, st);
+    case 192: return launch<192>(q, k, v, o, B, S, H, KVH, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
+int prologue(int B, int S, int H, int KVH, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (KVH <= 0 || H % KVH != 0) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int H, int KVH, int hd, int device,
                                    void* stream) {
-  return dispatch<float>(q, k, v, o, B, S, H, KVH, hd, device, stream);
+  const int err = prologue(B, S, H, KVH, device);
+  if (err != 0 || B == 0 || S == 0 || H == 0) return err;
+  return simt::dispatch(q, k, v, o, B, S, H, KVH, hd, (cudaStream_t)stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
                                     int H, int KVH, int hd, int device,
                                     void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KVH, hd, device,
-                                 stream);
+  const int err = prologue(B, S, H, KVH, device);
+  if (err != 0 || B == 0 || S == 0 || H == 0) return err;
+  return tc::dispatch(q, k, v, o, B, S, H, KVH, hd, (cudaStream_t)stream);
 }

@@ -56,8 +56,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                   INT, INT, PTR),
     },
     "gmm_loglik": {
-        # x, const, lin, P_flat, out, F, C, D, device, stream
-        "gmm_loglik_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+        # x, W (gmm_loglik.packed_weights), out, F, C, D, E2, E2p, Cp,
+        # device, stream
+        "gmm_loglik_f32": (PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT,
                            PTR),
     },
     "gmm_rescore": {

@@ -1,9 +1,11 @@
 """CUDA kernel wrapper: causal GQA flash attention, forward.
 
 Launches ``csrc/flash_attention.cu`` (which says what it replaces, what
-bounds it and how it is laid out). The kernel masks ragged S itself, so
-any S is exact. ``ops.flash_attention`` dispatches here for CUDA tensors
-and to ``ref.flash_attention`` for CPU tensors.
+bounds it and how it is laid out): bf16 on the tensor cores (``wgmma``,
+with p split into bf16 hi and lo parts so that P.V keeps p's f32
+precision), f32 on the CUDA cores. The kernels mask ragged S themselves,
+so any S is exact. ``ops.flash_attention`` dispatches here for CUDA
+tensors and to ``ref.flash_attention`` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -11,29 +13,40 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16"}
+# entry point and the kernel it runs, by input type
+KERNELS = {
+    torch.float32: ("flash_attention_f32", "CUDA-core f32"),
+    torch.bfloat16: ("flash_attention_bf16", "tensor-core bf16 (wgmma)"),
+}
+# head dims with a bf16 tensor-core instance (csrc: tc::dispatch)
+BF16_HEAD_DIMS = (64, 128, 192)
 
 
 def flash_attention(q, k, v):
     """q: [B, S, H, hd]; k, v: [B, S, KVH, hd], one dtype (float32 or
-    bfloat16), contiguous on one CUDA device; H a multiple of KVH, hd a
-    multiple of 16 up to 256 -> o [B, S, H, hd] in q's dtype. The scores
-    and p stay f32 inside the kernel."""
+    bfloat16), contiguous on one CUDA device; H a multiple of KVH; hd a
+    multiple of 16 up to 256 in f32, one of ``BF16_HEAD_DIMS`` in bf16
+    -> o [B, S, H, hd] in q's dtype. Scores stay f32 inside, and p keeps
+    f32 precision (in bf16 as a hi and lo pair)."""
     B, S, H, hd = q.shape
     KVH = k.shape[2]
     if k.shape != (B, S, KVH, hd) or v.shape != k.shape or H % KVH:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: operands must all be float32 or "
+                        f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype == torch.bfloat16 and hd not in BF16_HEAD_DIMS:
+        raise ValueError(f"flash_attention: bf16 head_dim {hd} has no "
+                         f"tensor-core instance; supported: {BF16_HEAD_DIMS}")
     if hd % 16 or not 16 <= hd <= 256:
         raise ValueError(f"flash_attention: head_dim {hd} must be a "
                          "multiple of 16 up to 256")
     _build.require_cuda("flash_attention", q, k, v)
-    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: operands must all be float32 or "
-                        f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: operands must be 16-byte aligned")
     o = torch.empty_like(q)
-    err = getattr(_build.load("flash_attention"), _ENTRY[q.dtype])(
+    err = getattr(_build.load("flash_attention"), KERNELS[q.dtype][0])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
         KVH, hd, *_build.launch_args(q))
     _build.check(err, "flash_attention")

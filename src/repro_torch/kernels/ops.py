@@ -119,9 +119,10 @@ def tvm_estep_a(n, PP_packed, *, dtype: str = "float32"):
 
 def flash_attention(q, k, v):
     """Causal GQA attention, forward: q [B, S, H, hd], k, v [B, S, KVH, hd]
-    -> [B, S, H, hd] in q's dtype. Any S; both paths keep the scores and
-    p in f32 (``repro/models/layers.py``'s blockwise path casts p to
-    q's dtype before P.V; at bf16 the port follows the TPU kernel)."""
+    -> [B, S, H, hd] in q's dtype. Any S; both paths keep the scores in
+    f32 and p to f32 precision (the bf16 kernel as a hi and lo bf16 pair;
+    ``repro/models/layers.py``'s blockwise path casts p to q's dtype
+    before P.V; at bf16 the port follows the TPU kernel)."""
     if _on_cuda(q):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous())

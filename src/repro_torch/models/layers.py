@@ -125,9 +125,10 @@ def blockwise_causal_attention(q, k, v):
     """Causal GQA attention, q: [B, S, H, hd]; k, v: [B, S, KVH, hd].
 
     On the card this is the hand-written flash-attention kernel, on the
-    CPU its plain version (``ops.flash_attention``). Both keep p in f32
-    before P.V; the JAX blockwise path casts p to q's dtype first, so at
-    bf16 the port follows the TPU kernel, and at f32 the two agree to
+    CPU its plain version (``ops.flash_attention``). Both keep p to f32
+    precision before P.V (the bf16 kernel as a bf16 hi and lo pair, to
+    about 2^-16); the JAX blockwise path casts p to q's dtype first, so
+    at bf16 the port follows the TPU kernel, and at f32 the two agree to
     rounding.
     """
     return ops.flash_attention(q, k, v)

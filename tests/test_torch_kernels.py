@@ -7,6 +7,8 @@ the port's CPU path is the plain version the CUDA kernels are held against
 on the card. Tolerance: 2e-5 relative and absolute in f32, as in
 ``tests/test_kernels.py`` (the same f32 products summed in another order).
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -19,6 +21,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bw_stats as tbw  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import gmm_align as tga  # noqa: E402
 from repro_torch.kernels import gmm_loglik as tgl  # noqa: E402
 from repro_torch.kernels import gmm_rescore as tgr  # noqa: E402
@@ -62,6 +65,79 @@ def test_gmm_loglik_matches_pallas(F, D, C, bf, bc):
     got = tops.gmm_loglik(_t(x), _t(const), _t(lin), _t(P))
     assert got.shape == (F, C) and got.dtype == torch.float32
     _close(got, want)
+
+
+@pytest.mark.parametrize("F,D,C,skew,bf,bc", [
+    (256, 8, 32, 0.0, 128, 32),
+    (300, 8, 32, 0.3, 128, 32),    # ragged F; P with an antisymmetric part
+    (193, 6, 23, 0.0, 64, 16),     # ragged F and C
+    (193, 6, 23, 0.3, 64, 16),
+    (37, 72, 130, 0.1, 37, 130),   # the paper's D: E2 = 2701 pads to 2704
+])
+def test_gmm_loglik_packed_operand_matches_pallas(F, D, C, skew, bf, bc):
+    """The CUDA kernel's operand (``packed_weights``: the symmetric part of
+    P in ``align_pack``'s layout, E2-major, zero-padded to the kernel's
+    tiles) times ``expand_quadratic(x)`` -- the kernel's product, written
+    plainly -- is the full-width log-likelihood of any P, the Pallas
+    kernel's in interpret mode included (tolerance 2e-5: the same f32
+    products, the off-diagonal pairs summed once and doubled)."""
+    rng = np.random.default_rng(F + C + D)
+    x = rng.standard_normal((F, D)).astype(np.float32)
+    const, lin, P = _precisions(rng, C, D)
+    P = P.reshape(C, D, D)
+    A = rng.standard_normal((C, D, D)).astype(np.float32)
+    P = (P + skew * (A - A.transpose(0, 2, 1))).reshape(C, D * D)
+    W = tgl.packed_weights(_t(const), _t(lin), _t(P))
+    E2 = 1 + D + D * (D + 1) // 2
+    assert W.dtype == torch.float32
+    assert W.shape == (-(-E2 // tgl.BK) * tgl.BK, -(-C // tgl.BN) * tgl.BN)
+    assert not W[E2:].any() and not W[:, C:].any()
+    got = tref.expand_quadratic(_t(x)) @ W[:E2, :C]
+    _close(got, tops.gmm_loglik(_t(x), _t(const), _t(lin), _t(P)))
+    with jops.use_pallas(True):
+        want = jops.gmm_loglik(jnp.asarray(x), jnp.asarray(const),
+                               jnp.asarray(lin), jnp.asarray(P),
+                               block_f=bf, block_c=bc)
+    _close(got, want)
+    # a symmetric P packs to align_pack's rows exactly
+    Ps = P.reshape(C, D, D)
+    Ps = ((Ps + Ps.transpose(0, 2, 1)) / 2).reshape(C, D * D)
+    np.testing.assert_array_equal(
+        tgl.packed_weights(_t(const), _t(lin), _t(Ps))[:E2, :C].numpy(),
+        tref.align_pack(_t(const), _t(lin), _t(Ps)).T.numpy())
+
+
+@pytest.mark.parametrize("dtype,hd,match", [
+    (torch.bfloat16, 16, "no tensor-core instance"),
+    (torch.bfloat16, 80, "no tensor-core instance"),
+    (torch.bfloat16, 96, "no tensor-core instance"),
+    (torch.bfloat16, 64, "CUDA"),       # has an instance: refused for the CPU
+    (torch.bfloat16, 128, "CUDA"),
+    (torch.float32, 80, "CUDA"),        # f32 takes any multiple of 16
+])
+def test_flash_attention_refuses_bf16_head_dims_without_instance(dtype, hd,
+                                                                  match):
+    """A bf16 head dim with no tensor-core instance raises, naming the
+    supported set, before any device is touched: it never goes to the
+    CUDA-core f32 kernel or to the plain version."""
+    q = torch.zeros(1, 8, 2, hd, dtype=dtype)
+    k = torch.zeros(1, 8, 1, hd, dtype=dtype)
+    with pytest.raises(ValueError, match=match) as info:
+        tfa.flash_attention(q, k, k.clone())
+    if match != "CUDA":
+        assert str(tfa.BF16_HEAD_DIMS) in str(info.value)
+    assert tfa.flash_attention.launches == 0
+
+
+def test_flash_attention_bf16_head_dims_are_the_cuda_instances():
+    """``BF16_HEAD_DIMS`` lists exactly the head dims the tensor-core
+    dispatch of ``csrc/flash_attention.cu`` has a case for."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    body = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
+    body = body[body.index("int dispatch("):]
+    cases = tuple(int(n) for n in re.findall(r"case (\d+): return launch<",
+                                             body))
+    assert cases == tfa.BF16_HEAD_DIMS
 
 
 @pytest.mark.parametrize("F,D,C,K", [
