@@ -173,7 +173,6 @@ def kernel_checks(ex, utts, g):
     from repro_torch.kernels import gmm_loglik as GL
     from repro_torch.kernels import gmm_rescore as GR
     from repro_torch.kernels import ref
-    from repro_torch.kernels import tvm_estep as TE
     dev = ex.device
     const, lin, P = ex._pack.pre
     C, D = lin.shape
@@ -256,53 +255,8 @@ def kernel_checks(ex, utts, g):
     del got, want
     torch.cuda.empty_cache()
 
-    # tvm_estep_l: [16, 2048] @ [2048, 80200], the precompute of the session
-    Up = ex._tv_pre.U
-    Pn = Up.shape[1]
-    n16 = 50.0 * torch.rand(16, C, generator=g, device=dev)
-    got = TE.tvm_estep_l(n16, Up)
-    want = ref.tvm_estep_l(n16, Up)
-    err = compare(f"tvm_estep_l [16x{C}] @ [{C}x{Pn}]", got, want)
-    b_ms, b_by = bound(2.0 * 16 * C * Pn, 4.0 * (16 * C + C * Pn + 16 * Pn))
-    rows.append(dict(
-        name="tvm_estep_l", route="cuda",
-        source="src/repro_torch/csrc/packed_matmul.cu",
-        replaces="src/repro/kernels/tvm_estep.py:63", max_abs_err=err,
-        ms=cuda_ms(lambda: TE.tvm_estep_l(n16, Up), 20),
-        plain_ms=cuda_ms(lambda: ref.tvm_estep_l(n16, Up), 20),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.matmul(n16, Up), 20)))
-    del got, want
-
-    # tvm_estep_a: [512, 2048]^T @ [512, 80200], f32 and bf16 inputs
-    n512 = 50.0 * torch.rand(512, C, generator=g, device=dev)
-    PP = torch.randn(512, Pn, generator=g, device=dev)
-    for dtype, tag in ((torch.float32, "float32"),
-                       (torch.bfloat16, "bfloat16")):
-        a, b = n512.to(dtype), PP.to(dtype)
-        got = TE.tvm_estep_a(a, b)
-        want = ref.tvm_estep_a(a, b)
-        name = "tvm_estep_a" + ("" if tag == "float32" else "_bf16")
-        err = compare(f"{name} [512x{C}]^T @ [512x{Pn}]", got, want)
-        esz = a.element_size()
-        b_ms, b_by = bound(2.0 * C * 512 * Pn,
-                           esz * (512 * C + 512 * Pn) + 4.0 * C * Pn, tag)
-        if tag == "float32":
-            lib = cuda_ms(lambda: torch.matmul(a.T, b), 10)
-        else:
-            lib = cuda_ms(lambda: torch.mm(a.T, b, out_dtype=torch.float32),
-                          10)
-        rows.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/csrc/packed_matmul.cu",
-            replaces="src/repro/kernels/tvm_estep.py:63", max_abs_err=err,
-            ms=cuda_ms(lambda: TE.tvm_estep_a(a, b), 10),
-            plain_ms=cuda_ms(lambda: ref.tvm_estep_a(a, b), 10),
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib))
-        del got, want
-    del PP, n512
-    torch.cuda.empty_cache()
-    rows.append(check_bw_stats(ex, frames, K))
+    rows += check_packed_matmul(ex, C, g)
+    rows.append(check_bw_stats(ex, frames, K, g))
     rows.append(check_gmm_align(ex, frames, K))
     for r in rows:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms  plain "
@@ -311,14 +265,119 @@ def kernel_checks(ex, utts, g):
     print(f"  gmm_loglik: of its kernel time, the packing pass "
           f"{rows[0]['pack_ms']:.4f} ms; full-width torch.addmm "
           f"{rows[0]['library_full_ms']:.4f} ms")
+    bw = next(r for r in rows if r["name"] == "bw_stats")
+    print(f"  bw_stats: frame runs {bw['splits']}; full-width "
+          f"torch.matmul {bw['library_full_ms']:.4f} ms; bound over the "
+          f"touched (frame, tile) pairs {bw['touched_bound_ms']:.4f} ms")
     return rows
 
 
-def check_bw_stats(ex, frames, K: int):
+# packed_matmul's rows: (row, wrapper, "<dtype>_<form>" of its launch
+# counter); the bf16 rows run on no main path of this script
+TVM_ROWS = {"tvm_estep_l": ("tvm_estep_l", "float32_stream"),
+            "tvm_estep_l_train": ("tvm_estep_l", "float32_sgemm"),
+            "tvm_estep_l_bf16": ("tvm_estep_l", "bfloat16_stream"),
+            "tvm_estep_l_bf16_train": ("tvm_estep_l", "bfloat16_wgmma"),
+            "tvm_estep_a": ("tvm_estep_a", "float32_sgemm"),
+            "tvm_estep_a_bf16": ("tvm_estep_a", "bfloat16_wgmma")}
+OFF_PATH = ("tvm_estep_l_bf16", "tvm_estep_l_bf16_train", "tvm_estep_a_bf16")
+
+
+def check_packed_matmul(ex, C: int, g):
+    """The packed E-step matmul in each of its forms, at the shapes the
+    paths launch: L = n @ U_p at serving (U = 16, the stream form) and at
+    training and extract (U = 512, estep_chunk: the SGEMM), A = nᵀ @ PP
+    (U = 512, the SGEMM), each in f32 and with bf16 inputs (stream and
+    wgmma forms); then ragged shapes that take the kernels' masked edges,
+    their unaligned copies and the wgmma form's TMA padding, held but not
+    timed. Bounds: 2·M·K·N operations against the inputs read once and the
+    f32 output written once; library: one torch.matmul (f32) or torch.mm
+    with an f32 output (bf16)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tvm_estep as TE
+    dev = ex.device
+    Up = ex._tv_pre.U
+    Pn = Up.shape[1]
+    # drawn as in earlier runs, so that later phases see the same draws
+    n16 = 50.0 * torch.rand(16, C, generator=g, device=dev)
+    n512 = 50.0 * torch.rand(512, C, generator=g, device=dev)
+    PP = torch.randn(512, Pn, generator=g, device=dev)
+    # (row for f32 inputs, row for bf16 inputs, product, n, b)
+    cases = (("tvm_estep_l", "tvm_estep_l_bf16", "L", n16, Up),
+             ("tvm_estep_l_train", "tvm_estep_l_bf16_train", "L", n512, Up),
+             ("tvm_estep_a", "tvm_estep_a_bf16", "A", n512, PP))
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = _dtype_name(dtype)
+        for f32_name, bf16_name, which, n, b in cases:
+            name = f32_name if dtype == torch.float32 else bf16_name
+            n, b = n.to(dtype).contiguous(), b.to(dtype)
+            if which == "L":
+                run, plain = TE.tvm_estep_l, ref.tvm_estep_l
+                M, K = n.shape
+                lib_a = n
+            else:
+                run, plain = TE.tvm_estep_a, ref.tvm_estep_a
+                K, M = n.shape
+                lib_a = n.T
+            form = TE.form(dtype, M, K, Pn)
+            shape = (f"[{M}x{K}] @ [{K}x{Pn}]" if which == "L"
+                     else f"[{K}x{M}]ᵀ @ [{K}x{Pn}]")
+            err = compare(f"{name} {shape} {tag}, {form} form",
+                          run(n, b), plain(n, b))
+            esz = n.element_size()
+            b_ms, b_by = bound(2.0 * M * K * Pn,
+                               esz * (M * K + K * Pn) + 4.0 * M * Pn, tag)
+            if dtype == torch.float32:
+                lib = cuda_ms(lambda: torch.matmul(lib_a, b), 10)
+            else:
+                lib = cuda_ms(lambda: torch.mm(lib_a, b,
+                                               out_dtype=torch.float32), 10)
+            rows.append(dict(
+                name=name, route="cuda",
+                source="src/repro_torch/csrc/packed_matmul.cu",
+                replaces="src/repro/kernels/tvm_estep.py:63", form=form,
+                max_abs_err=err, ms=cuda_ms(lambda: run(n, b), 10),
+                plain_ms=cuda_ms(lambda: plain(n, b), 10),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+            del n, b, lib_a
+        torch.cuda.empty_cache()
+    del cases, n16, n512, PP
+    # ragged: U, C and P off every tile, with rows 16-byte aligned (zero-
+    # filled copies, TMA's edge) and not (odd C and P: plain copies in the
+    # CUDA-core forms, a TMA pad in the wgmma form); C = 13 sends A to the
+    # stream form, which then reads nᵀ M-contiguous
+    g2 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 2)
+    for U, Cr, Pr in ((200, 2000, 1000), (200, 2001, 1003), (9, 2001, 1003),
+                      (40, 13, 77)):
+        n = torch.rand(U, Cr, generator=g2, device=dev)
+        b_l = torch.randn(Cr, Pr, generator=g2, device=dev)
+        b_a = torch.randn(U, Pr, generator=g2, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            nd, bl, ba = n.to(dtype), b_l.to(dtype), b_a.to(dtype)
+            tag = _dtype_name(dtype)
+            compare(f"tvm_estep_l ragged [{U}x{Cr}] @ [{Cr}x{Pr}] {tag}, "
+                    f"{TE.form(dtype, U, Cr, Pr)} form",
+                    TE.tvm_estep_l(nd, bl), ref.tvm_estep_l(nd, bl))
+            compare(f"tvm_estep_a ragged [{U}x{Cr}]ᵀ @ [{U}x{Pr}] {tag}, "
+                    f"{TE.form(dtype, Cr, U, Pr)} form",
+                    TE.tvm_estep_a(nd, ba), ref.tvm_estep_a(nd, ba))
+    return rows
+
+
+def check_bw_stats(ex, frames, K: int, g):
     """bw_stats at a train_ubm chunk's shape: Γ [32768, 2048] from the
     alignment of real frames (top-20, no floor, as in the full UBM phase),
-    x [32768, 72]. The library column is one ``torch.matmul(Γᵀ, X₂)`` with
-    X₂ = vec(xxᵀ) built beforehand: the expansion is excluded from it."""
+    x [32768, 72]. Each component tile walks only its frames with a
+    non-zero Γ (the default); the same Γ after the fused path's 0.025
+    floor and a dense Γ (random positive) are held and timed too, each
+    both compacted and walking every frame (``compact=False``). Prints Γ's
+    non-zero share and the share of (frame, 128- or 64-component tile)
+    pairs with a non-zero Γ. The bound counts the dense work, 2·F·C·E
+    (``touched_bound_ms``: over the touched (frame, tile) pairs only). The
+    library column is one ``torch.matmul(Γᵀ, X₂)`` over the packed width
+    the kernel computes, X₂ = [x_i x_j (i <= j) | x | 1] built beforehand;
+    ``library_full_ms`` is the same call over all D² products."""
     from repro_torch.core import alignment as AL
     from repro_torch.kernels import bw_stats as BW
     from repro_torch.kernels import ref
@@ -333,25 +392,72 @@ def check_bw_stats(ex, frames, K: int):
     for k in range(K):
         gamma.scatter_add_(1, post.indices[:, k:k + 1],
                            post.values[:, k:k + 1])
+    del post
     got = BW.bw_stats(gamma, x)
     want = ref.bw_stats(gamma, x)
-    err = max(compare(f"bw_stats {name} [{F}x{C}]ᵀ [{F}x{D}]", g, w)
-              for name, g, w in zip(("n", "f", "S"), got, want))
+    err = max(compare(f"bw_stats {name} [{F}x{C}]ᵀ [{F}x{D}]", a, w)
+              for name, a, w in zip(("n", "f", "S"), got, want))
     del got, want
+    g2 = torch.Generator(device=x.device).manual_seed(g.initial_seed() + 3)
+    cases = {"path": gamma, "floor": gamma * (gamma >= 0.025),
+             "dense": torch.rand(F, C, generator=g2, device=x.device)}
+    shares, times = {}, {}
+    for label, gm in cases.items():
+        nz = gm != 0
+        shares[label] = {"nonzero": nz.float().mean().item(), **{
+            f"tiles{w}": nz.reshape(F, C // w, w).any(dim=2).float().mean()
+            .item() for w in (128, 64)}}
+        del nz
+        want = ref.bw_stats(gm, x)
+        for compact in (True, False):
+            tag = "compacted" if compact else "every frame"
+            compare(f"bw_stats S, {label} Γ, {tag}",
+                    BW.bw_stats(gm, x, compact=compact)[2], want[2])
+            times[f"{label}_{'compact' if compact else 'walk'}_ms"] = \
+                cuda_ms(lambda: BW.bw_stats(gm, x, compact=compact), 5)
+        del want
+        sh = shares[label]
+        print(f"  bw_stats, {label} Γ: non-zero share {sh['nonzero']:.4f}; "
+              f"(frame, tile) pairs touched: 128-wide {sh['tiles128']:.4f}, "
+              f"64-wide {sh['tiles64']:.4f}; compacted "
+              f"{times[label + '_compact_ms']:.4f} ms, every frame "
+              f"{times[label + '_walk_ms']:.4f} ms")
+    i0, i1, _ = ref._quad_pairs(D, x.device)
+    x2p = torch.cat([x[:, i0] * x[:, i1], x, torch.ones_like(x[:, :1])],
+                    dim=1)
     x2 = (x[:, :, None] * x[:, None, :]).reshape(F, D * D)
     gT = gamma.T
     # S_c is symmetric: the function needs D(D+1)/2 products per (frame,
     # component) for S, D for f and 1 for n; it writes all of S
-    b_ms, b_by = bound(2.0 * F * C * (D * (D + 1) // 2 + D + 1),
+    E = D * (D + 1) // 2 + D + 1
+    b_ms, b_by = bound(2.0 * F * C * E,
                        4.0 * (F * C + F * D + C * (D * D + D + 1)))
+    t_ms, _ = bound(2.0 * F * C * E * shares["path"]["tiles128"],
+                    4.0 * (F * C + F * D + C * (D * D + D + 1)))
     row = dict(
         name="bw_stats", route="cuda", source="src/repro_torch/csrc/bw_stats.cu",
         replaces="src/repro/kernels/bw_stats.py:54", max_abs_err=err,
         ms=cuda_ms(lambda: BW.bw_stats(gamma, x), 5),
         plain_ms=cuda_ms(lambda: ref.bw_stats(gamma, x), 5),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.matmul(gT, x2), 5))
-    del gamma, gT, x2, post
+        library_ms=cuda_ms(lambda: torch.matmul(gT, x2p), 5),
+        library_full_ms=cuda_ms(lambda: torch.matmul(gT, x2), 5),
+        touched_bound_ms=t_ms, splits=BW.splits(F, C, D, BW._n_sm(x.device)),
+        shares=shares, times=times)
+    del gamma, gT, x2, x2p, cases
+    # ragged F and C, with D = 72 (16-byte rows: zero-filled copies) and
+    # D = 70 (plain copies), compacted and not
+    for Dr in (72, 70):
+        xr = x[:1000, :Dr].contiguous()
+        gr = torch.rand(1000, 2000, generator=g2, device=x.device)
+        gr = gr * (gr > 0.9)
+        gr[:, 128:256] = 0.0     # a component tile with no frames
+        want = ref.bw_stats(gr, xr)
+        for compact in (True, False):
+            for name, a, w in zip(("n", "f", "S"),
+                                  BW.bw_stats(gr, xr, compact=compact), want):
+                compare(f"bw_stats {name} ragged [1000x2000]ᵀ [1000x{Dr}]"
+                        f"{', compacted' if compact else ''}", a, w)
     torch.cuda.empty_cache()
     return row
 
@@ -419,12 +525,20 @@ def counters():
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import tvm_estep as TE
     for w in counters().values():
         w.launches = 0
+    TE.reset_counts()
 
 
 def read_counts() -> dict:
-    return {k: w.launches for k, w in counters().items()}
+    """Launches by kernel row: packed_matmul's by form (TVM_ROWS)."""
+    ws = counters()
+    counts = {k: w.launches for k, w in ws.items()
+              if k not in ("tvm_estep_l", "tvm_estep_a")}
+    for row, (name, key) in TVM_ROWS.items():
+        counts[row] = ws[name].by_form[key]
+    return counts
 
 
 def drive(ex, utts, label: str):
@@ -592,7 +706,7 @@ def training_phase(cfg, ubm, g, seed: int, dev, n_utts: int = 640,
     rec.update(train_iter_s=secs, train_diag=diags)
     rec["launches"]["train"] = launches
     require_launches("train", launches, ("gmm_rescore", "bw_stats",
-                                         "tvm_estep_l", "tvm_estep_a"))
+                                         "tvm_estep_l_train", "tvm_estep_a"))
     print(f"  train, CONFIG (sparse, statistics once): stats pass "
           f"{rec['stats_pass_s']:.2f} s; iterations "
           f"{', '.join(f'{t:.2f}' for t in secs)} s (the first includes "
@@ -606,7 +720,7 @@ def training_phase(cfg, ubm, g, seed: int, dev, n_utts: int = 640,
     rec.update(fused_iter_s=secs_f, fused_diag=diags_f)
     rec["launches"]["train_fused"] = launches
     require_launches("train, fused", launches, ("gmm_align", "bw_stats",
-                                                "tvm_estep_l",
+                                                "tvm_estep_l_train",
                                                 "tvm_estep_a"))
     print(f"  train, fused + realignment every iteration + full UBM "
           f"refresh: iterations {', '.join(f'{t:.2f}' for t in secs_f)} s; "
@@ -632,8 +746,8 @@ def training_phase(cfg, ubm, g, seed: int, dev, n_utts: int = 640,
     _sync(dev)
     rec["extract_s"] = time.perf_counter() - t0
     rec["launches"]["extract"] = read_counts()
-    require_launches("extract", rec["launches"]["extract"], ("gmm_align",
-                                                             "tvm_estep_l"))
+    require_launches("extract", rec["launches"]["extract"],
+                     ("gmm_align", "tvm_estep_l_train"))
     iv_s = TR.extract(cfg, state_f, feats, device=dev)
     check_finite("extract", iv)
     if iv.shape != (n_utts, cfg.ivector_dim):
@@ -1292,14 +1406,14 @@ def main() -> int:
     # 7. kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
     # training runs and the two LM serving runs (the repeat runs and the
-    # checks against plain paths not included). The bf16 form of
-    # tvm_estep_a is held and timed here but no path of this script trains
-    # with bf16 E-step inputs.
+    # checks against plain paths not included). packed_matmul's bf16 forms
+    # are held and timed here, but no path of this script runs the E-step
+    # with bf16 inputs (OFF_PATH).
     paths = {"sparse": launches_sparse, "dense": launches_dense,
              "fused": launches_fused, **train["launches"], **lm_paths}
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
-        r["on_path"] = r["name"] != "tvm_estep_a_bf16"
+        r["on_path"] = r["name"] not in OFF_PATH
         if r["on_path"] and r["launches"] == 0:
             fail(f"no main-path run launched {r['name']}")
     frames = sum(u.shape[0] for u in utts)

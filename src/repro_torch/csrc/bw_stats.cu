@@ -8,80 +8,263 @@
 //
 // G [F, C] posteriors, x [F, D], all f32; n [C], f [C, D], S [C, D*D] f32.
 //
-// S_c is symmetric, so only its upper triangle is summed: P = D(D+1)/2
-// pairs i <= j, each written to both S[c, i*D+j] and S[c, j*D+i]. The two
-// halves are the same sum, so S is exactly symmetric.
+// Bound on the H100: operations. As one SGEMM out[c, e] = sum_f G[f, c]
+// X2[f, e] over the E = P + D + 1 extended columns, P = D(D+1)/2: X2[f, e]
+// is x_i x_j for the e-th upper-triangle pair i <= j (row-major, as
+// ref._quad_pairs orders them), then x_d, then 1 (which gives n). That is
+// 2*F*C*E FLOPs against F*C + F*D floats read and C*(D*D + D + 1) written:
+// at D = 72 some 1,350 FLOPs per byte of G. Without tensor cores (the
+// contract is full f32) the ceiling is the CUDA cores' f32 FMA rate.
 //
-// Bound on the H100: operations. The work is 2*F*C*(P + D + 1) FLOPs
-// against F*C + F*D floats read and C*(D*D + D + 1) written: at D = 72 some
-// 1,350 FLOPs per byte of G, far above the card's f32 ratio. Without tensor
-// cores the ceiling is the CUDA cores' f32 FMA rate.
+// Design: gmm_loglik.cu's pipelined SGEMM with the operands' roles
+// swapped. Each block owns one tile of 128 components x 128 e-columns and
+// walks one run of its frames (below). G's [16 frames x 128 components]
+// slabs are 16 rows of 512 contiguous bytes, and come with the slab's x
+// rows through a 4-stage ring of 16-byte cp.async copies (zero-filled past
+// the run's frames and past C). X2 is never read from memory: the block
+// loads its 128 columns' entries of the wrapper's pair table
+// (kernels/bw_stats.pair_table: (i0, i1), with x's row extended by a 1 at
+// column D and a 0 at D+1) into shared memory at its start, and forms each
+// 16 x 128 slab of X2 = x_i0 x_i1 from the slab's x rows -- the next slab
+// while the current one multiplies, with one barrier per slab -- so the
+// [F, D*D] expansion never reaches device memory, the property of the TPU
+// kernel worth keeping. Each thread holds an 8 x 8 tile of sums and reads
+// its operands as float4 from shared memory. Two blocks share an SM.
 //
-// Design: one SGEMM out[c, e] = sum_f G[f, c] X2[f, e] over the extended
-// output width e in [0, P + D + 1), with X2[f, e] = x_i x_j (e = the packed
-// index of pair i <= j, row-major over the upper triangle), x_d (e = P + d)
-// or 1 (e = P + D, which gives n). The B operand X2 is never read from
-// memory: each block copies the 8 frames of the current reduction slab of x
-// into shared memory and forms its 8 x 128 slab of X2 from them, so the
-// [F, D*D] expansion never reaches device memory -- the property of the TPU
-// kernel worth keeping, and gmm_loglik.cu's design with the roles of the
-// operands swapped. Each block owns one (128 components x 128 e) tile of the
-// output and walks all of F itself, so no partial sum crosses blocks: no
+// Frames a component tile never sees are skipped. Γ comes from top-K
+// alignments (K = 20 of C = 2048, fewer after a posterior floor), so in
+// most frames a 128-component tile holds only zeros. A first pass
+// (bw_tile_flags, one warp per 512-byte row segment, Γ read once) flags
+// each (frame, tile) with a non-zero Γ; bw_tile_lists turns each tile's
+// flags, by a block-wide prefix sum in frame order, into the list of its
+// frames. The main kernel then walks its tile's list, gathering those Γ
+// row segments and x rows by index with the same 16-byte copies. A
+// skipped frame adds exactly zero to every sum of the tile (0 * x = 0 for
+// finite x), so the function is the same on every finite input; a dense Γ
+// lists every frame. The entry point takes null lists to walk every frame.
+//
+// The 22 x 16 tiles of the paper's width fill 352 of the card's 264 block
+// slots (1.33 waves), so each tile's frames are cut into `nsplit` equal
+// runs (kernels/bw_stats.splits picks the count that fills the waves best)
+// and every block writes its partial sums, densely, to part[run][c][e].
+// bw_stats_finish then adds the runs in run order and scatters each
+// column: S's pairs to both halves (S is exactly symmetric), x_d's to f,
+// the ones column's to n. No partial sum crosses blocks any other way: no
 // atomics, and every output is summed in one fixed order (the result is
-// bitwise repeatable). Each thread holds an 8x8 tile of sums. Ragged F, C
-// and E are masked: rows past F read zero, components and columns past the
-// edge read zero and are not written.
+// bitwise repeatable).
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;                       // components per block
-constexpr int BN = 128;                       // extended columns per block
-constexpr int BK = 8;                         // frames per reduction slab
-constexpr int THREADS = 256;                  // 16 x 16, 8x8 outputs each
-constexpr int LD = BM + 4;                    // slab row stride (16-byte rows)
+using namespace hopper;
 
-// Extended column e -> (i, j): a pair i <= j of S (e < P), x_i (j = -1,
-// P <= e < P + D), the ones column (i = -1) or past the edge (i = -2).
-__device__ void decode(int e, int D, int P, int& i, int& j) {
-  if (e < P) {
-    i = 0;
-    while (e >= D - i) {
-      e -= D - i;
-      ++i;
+constexpr int BM = 128;                 // components per block
+constexpr int BN = 128;                 // extended columns per block
+constexpr int BK = 16;                  // frames per slab
+constexpr int STAGES = 4;               // (G, x) slabs in flight
+constexpr int THREADS = 256;            // 16 x 16, 8 x 8 outputs each
+constexpr int MAX_SMEM = 232448;
+
+__host__ __device__ inline int xs_ld(int D) { return (D + 2 + 3) / 4 * 4; }
+
+__host__ __device__ inline int stage_floats(int D) {
+  return BK * BM + BK * xs_ld(D);
+}
+
+__host__ __device__ inline size_t smem_bytes(int D) {
+  return sizeof(float) * ((size_t)STAGES * stage_floats(D) + 2 * BK * BN) +
+         sizeof(int) * (BN + STAGES * BK);
+}
+
+// frames per split: n frames in `splits` runs of a multiple of BK
+// (kernels/bw_stats.split_len)
+__device__ inline int split_len(int n, int splits) {
+  return ((n + splits - 1) / splits + BK - 1) / BK * BK;
+}
+
+// flags[t * Fp + f] = 1 if any of G[f, 128 t .. 128 t + 127] is non-zero:
+// one warp per (frame, tile), a 512-byte row segment
+__global__ void bw_tile_flags(const float* __restrict__ G,
+                              unsigned char* __restrict__ flags, int F,
+                              int Fp, int C, int T) {
+  const int lane = threadIdx.x % 32;
+  const long long w0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const long long nw = (long long)gridDim.x * blockDim.x / 32;
+  for (long long w = w0; w < (long long)F * T; w += nw) {
+    const int f = (int)(w / T), t = (int)(w - (long long)f * T);
+    bool any = false;
+#pragma unroll
+    for (int q = 0; q < BM / 32; ++q) {
+      const int c = t * BM + q * 32 + lane;
+      any |= c < C && G[(size_t)f * C + c] != 0.f;
     }
-    j = i + e;
-  } else if (e < P + D) {
-    i = e - P;
-    j = -1;
-  } else {
-    i = (e == P + D) ? -1 : -2;
-    j = -1;
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) flags[(size_t)t * Fp + f] = any;
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// One block per tile: the flagged frames in frame order into list[t * Fp
+// ..], their number into count[t]. A block-wide prefix sum over 4,096
+// frames at a time.
+constexpr int LIST_THREADS = 1024;
+__global__ void __launch_bounds__(LIST_THREADS)
+bw_tile_lists(const unsigned char* __restrict__ flags, int* __restrict__ list,
+              int* __restrict__ count, int F, int Fp) {
+  __shared__ int warp_sum[LIST_THREADS / 32];
+  const unsigned char* fl = flags + (size_t)blockIdx.x * Fp;
+  int* out = list + (size_t)blockIdx.x * Fp;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  int base = 0;
+  for (int f0 = 0; f0 < F; f0 += 4 * LIST_THREADS) {
+    const int f = f0 + 4 * tid;
+    int mine[4], n = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      mine[q] = f + q < F && fl[f + q];
+      n += mine[q];
+    }
+    int incl = n;   // inclusive scan over the warp
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int w = warp_sum[lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, w, off);
+        if (lane >= off) w += v;
+      }
+      warp_sum[lane] = w;   // inclusive over warps
+    }
+    __syncthreads();
+    int pos = base + (warp ? warp_sum[warp - 1] : 0) + incl - n;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (mine[q]) out[pos++] = f + q;
+    base += warp_sum[LIST_THREADS / 32 - 1];
+    __syncthreads();   // warp_sum is rewritten next round
+  }
+  if (tid == 0) count[blockIdx.x] = base;
+}
+
+// list: null (every frame, in order) or the frame lists of bw_tile_lists
+// (list[t * Fp + j], count[t], t the block's component tile)
+__global__ void __launch_bounds__(THREADS, 2)
 bw_stats_kernel(const float* __restrict__ G, const float* __restrict__ x,
-                float* __restrict__ n_out, float* __restrict__ f_out,
-                float* __restrict__ S_out, int F, int C, int D) {
+                const int* __restrict__ table, const int* __restrict__ list,
+                const int* __restrict__ count, float* __restrict__ part,
+                int F, int Fp, int C, int D, int Ep, bool vec) {
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                           // [BK][LD]: G slab, c-major
-  float* Bs = As + BK * LD;                   // [BK][LD]: X2 slab
-  float* xs = Bs + BK * LD;                   // [BK][D]: the slab's frames
+  const int XLD = xs_ld(D);
+  const int SF = stage_floats(D);
+  float* ring = smem;                           // [STAGES][G slab | x slab]
+  float* Bs = ring + STAGES * SF;               // [2][BK][BN]: X2 slabs
+  int* pairs = reinterpret_cast<int*>(Bs + 2 * BK * BN);   // [BN]
+  int* fids = pairs + BN;                       // [STAGES][BK]: slab frames
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int c0 = blockIdx.y * BM;
+  // a warp is 4 x 8 threads: its float4 reads of each operand's slab row
+  // span 64 and 128 bytes, one shared-memory wavefront each
+  const int tx = (tid / 32) % 2 * 8 + tid % 8;
+  const int ty = (tid / 64) * 4 + (tid % 32) / 8;
   const int e0 = blockIdx.x * BN;
-  const int P = D * (D + 1) / 2;
+  const int c0 = blockIdx.y * BM;
+  // this split's run [j_lo, j_hi) of the tile's frames, in frame order; a
+  // tile that lists every frame walks them without the list
+  const int n_frames = list ? count[blockIdx.y] : F;
+  const int* frames =
+      n_frames < F ? list + (size_t)blockIdx.y * Fp : nullptr;
+  const int per = split_len(n_frames, gridDim.z);
+  const int j_lo = blockIdx.z * per;
+  const int j_hi = min(n_frames, j_lo + per);
+  const int nslab = j_hi > j_lo ? (j_hi - j_lo + BK - 1) / BK : 0;
+  // the frame of run position j, or -1 past the run
+  auto frame = [&](int j) {
+    return j < j_hi ? (frames ? frames[j] : j) : -1;
+  };
 
-  // Each thread forms the same two X2 columns in every slab: column
-  // bn = tid % BN at slab rows bk0 and bk0 + 4. Decode its e once.
+  // x slab rows carry a 1 at column D and a 0 at D + 1 (the table's codes
+  // for n's column and for columns past E); the copies never touch them
+  for (int idx = tid; idx < STAGES * BK; idx += THREADS) {
+    float* row = ring + (idx / BK) * SF + BK * BM + (idx % BK) * XLD;
+    row[D] = 1.f;
+    row[D + 1] = 0.f;
+  }
+  for (int e = tid; e < BN; e += THREADS) pairs[e] = table[e0 + e];
+
+  // the frames of a slab's rows reach shared memory (fids) one slab before
+  // its copies are issued, so no copy waits on a read of the list
+  for (int idx = tid; idx < STAGES * BK; idx += THREADS)
+    fids[idx] = frame(j_lo + idx);
+  __syncthreads();
+
+  auto load = [&](int slab, int st) {
+    float* gs = ring + st * SF;
+    float* xs = gs + BK * BM;
+    const int* fs = fids + st * BK;
+#pragma unroll
+    for (int i = 0; i < BK * BM / 4 / THREADS; ++i) {
+      const int idx = tid + i * THREADS;
+      const int k = idx / (BM / 4), m = (idx % (BM / 4)) * 4;
+      const int f = fs[k], c = c0 + m;
+      const int valid = f >= 0 ? max(0, min(4, C - c)) : 0;
+      const float* src = valid ? G + (size_t)f * C + c : G;
+      if (vec) {
+        cp_async16_zfill(gs + k * BM + m, src, 4 * valid);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gs[k * BM + m + j] = j < valid ? src[j] : 0.f;
+      }
+    }
+    if (vec) {   // D % 4 == 0: D/4 chunks a row
+      const int cpr = D / 4;
+      for (int idx = tid; idx < BK * cpr; idx += THREADS) {
+        const int k = idx / cpr, d = (idx - k * cpr) * 4;
+        const int f = fs[k];
+        cp_async16_zfill(xs + k * XLD + d, f >= 0 ? x + (size_t)f * D + d : x,
+                         f >= 0 ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < BK * D; idx += THREADS) {
+        const int k = idx / D, d = idx - k * D;
+        const int f = fs[k];
+        xs[k * XLD + d] = f >= 0 ? x[(size_t)f * D + d] : 0.f;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nslab) load(s, s);
+    cp_commit();
+  }
+  __syncthreads();   // the pair table and the constant x columns
+
+  // this thread forms X2 column bn = tid % BN at slab rows tid / BN + 2r
   const int bn = tid % BN;
-  const int bk0 = tid / BN;                   // 0 or 1
-  int ei, ej;
-  decode(e0 + bn, D, P, ei, ej);
+  const int code = pairs[bn];
+  const int i0 = code & 255, i1 = (code >> 8) & 255;
+  auto form_x2 = [&](int slab, int buf) {
+    const float* xs = ring + (slab % STAGES) * SF + BK * BM;
+    float* dst = Bs + buf * BK * BN;
+#pragma unroll
+    for (int r = tid / BN; r < BK; r += THREADS / BN)
+      dst[r * BN + bn] = xs[r * XLD + i0] * xs[r * XLD + i1];
+  };
+  if (nslab > 0) {
+    cp_wait<STAGES - 2>();   // slab 0
+    __syncthreads();
+    form_x2(0, 0);
+  }
 
   float acc[8][8];
 #pragma unroll
@@ -89,36 +272,26 @@ bw_stats_kernel(const float* __restrict__ G, const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int f0 = 0; f0 < F; f0 += BK) {
-    for (int idx = tid; idx < BK * BM; idx += THREADS) {
-      const int k = idx / BM, m = idx - (idx / BM) * BM;
-      const int f = f0 + k, c = c0 + m;
-      As[k * LD + m] = (f < F && c < C) ? G[(size_t)f * C + c] : 0.f;
-    }
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int k = idx / D;
-      const int f = f0 + k;
-      xs[idx] = (f < F) ? x[(size_t)f * D + (idx - k * D)] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < BK; r += THREADS / BN) {
-      const int k = bk0 + r;
-      const float* xk = xs + k * D;
-      float v;
-      if (ei == -2) v = 0.f;
-      else if (ei == -1) v = (f0 + k < F) ? 1.f : 0.f;
-      else if (ej < 0) v = xk[ei];
-      else v = xk[ei] * xk[ej];
-      Bs[k * LD + bn] = v;
-    }
-    __syncthreads();
+  for (int s = 0; s < nslab; ++s) {
+    cp_wait<STAGES - 3>();   // slab s + 1 has landed (this thread's copies)
+    __syncthreads();         // everyone's; X2 slab s formed; slab s-1 free
+    const int nx = s + STAGES - 1;
+    if (nx < nslab) load(nx, nx % STAGES);
+    cp_commit();
+    // slab s + STAGES's frames: read now, stored after the products (its
+    // ids take slab s's place, which no thread reads any more)
+    const int pf = tid < BK ? frame(j_lo + (s + STAGES) * BK + tid) : 0;
+    if (s + 1 < nslab) form_x2(s + 1, (s + 1) & 1);
+    const float* a_s = ring + (s % STAGES) * SF;
+    const float* b_s = Bs + (s & 1) * BK * BN;
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k * LD + ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k * LD + 64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k * LD + tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k * LD + 64 + tx * 4]);
+      const float4 a0 = *reinterpret_cast<const float4*>(&a_s[k * BM + ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&a_s[k * BM + 64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&b_s[k * BN + tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&b_s[k * BN + 64 + tx * 4]);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -126,51 +299,87 @@ bw_stats_kernel(const float* __restrict__ G, const float* __restrict__ x,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
+    if (tid < BK) fids[(s % STAGES) * BK + tid] = pf;
   }
 
-  const int DD = D * D;
+  // partial sums, dense: part[split][c][e], rows of Ep (a multiple of BN)
+  float* out = part + (size_t)blockIdx.z * C * Ep;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = e0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-    int ci, cj;
-    decode(col, D, P, ci, cj);
-    if (ci == -2) continue;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = c0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-      if (c >= C) continue;
-      if (cj >= 0) {
-        S_out[(size_t)c * DD + ci * D + cj] = acc[i][j];
-        if (ci != cj) S_out[(size_t)c * DD + cj * D + ci] = acc[i][j];
-      } else if (ci >= 0) {
-        f_out[(size_t)c * D + ci] = acc[i][j];
-      } else {
-        n_out[c] = acc[i][j];
-      }
-    }
+  for (int i = 0; i < 8; ++i) {
+    const int c = c0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (c >= C) continue;
+    float* row = out + (size_t)c * Ep + e0;
+    *reinterpret_cast<float4*>(row + tx * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + 64 + tx * 4) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+// The splits added in split order, each column scattered by its code.
+__global__ void bw_stats_finish(const float* __restrict__ part,
+                                const int* __restrict__ table,
+                                float* __restrict__ n_out,
+                                float* __restrict__ f_out,
+                                float* __restrict__ S_out, int nsplit, int C,
+                                int D, int E, int Ep) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)C * E) return;
+  const int c = (int)(idx / E), e = (int)(idx - (size_t)c * E);
+  float v = 0.f;
+  for (int z = 0; z < nsplit; ++z) v += part[((size_t)z * C + c) * Ep + e];
+  const int code = table[e];
+  const int i0 = code & 255, i1 = (code >> 8) & 255;
+  if (i0 == D) {
+    n_out[c] = v;
+  } else if (i1 == D) {
+    f_out[(size_t)c * D + i0] = v;
+  } else {
+    float* S = S_out + (size_t)c * D * D;
+    S[i0 * D + i1] = v;
+    if (i0 != i1) S[i1 * D + i0] = v;
   }
 }
 
 }  // namespace
 
-extern "C" int bw_stats_f32(const float* G, const float* x, float* n,
-                            float* f, float* S, int F, int C, int D,
+// table: kernels/bw_stats.pair_table(D), Ep entries; part: [nsplit, C, Ep]
+// scratch. flags (uint8), list (int32): [ceil(C / 128), Fp] scratch and
+// count [ceil(C / 128)], or all three null to walk every frame.
+extern "C" int bw_stats_f32(const float* G, const float* x, const int* table,
+                            float* part, unsigned char* flags, int* list,
+                            int* count, float* n, float* f, float* S, int F,
+                            int Fp, int C, int D, int Ep, int nsplit,
                             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (C == 0) return 0;
-  const size_t smem = sizeof(float) * (2 * (size_t)BK * LD + (size_t)BK * D);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(bw_stats_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const int E = D * (D + 1) / 2 + D + 1;
-  const dim3 grid((E + BN - 1) / BN, (C + BM - 1) / BM);
-  bw_stats_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      G, x, n, f, S, F, C, D);
+  const bool compact = list != nullptr;
+  if (D + 1 > 255 || Ep % BN != 0 || Ep < E || nsplit < 1 || Fp < F ||
+      compact != (flags != nullptr) || compact != (count != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (C == 0) return 0;
+  const size_t smem = smem_bytes(D);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(bw_stats_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = C % 4 == 0 && D % 4 == 0 && (uintptr_t)G % 16 == 0 &&
+                   (uintptr_t)x % 16 == 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int T = (C + BM - 1) / BM;
+  if (compact) {
+    bw_tile_flags<<<132 * 8, 256, 0, s>>>(G, flags, F, Fp, C, T);
+    bw_tile_lists<<<T, LIST_THREADS, 0, s>>>(flags, list, count, F, Fp);
+  }
+  const dim3 grid(Ep / BN, T, nsplit);
+  bw_stats_kernel<<<grid, THREADS, smem, s>>>(G, x, table, list, count, part,
+                                              F, Fp, C, D, Ep, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t total = (size_t)C * E;
+  bw_stats_finish<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      part, table, n, f, S, nsplit, C, D, E, Ep);
   return (int)cudaGetLastError();
 }

@@ -58,12 +58,13 @@
 //
 // Both keep the [S, S] scores out of device memory, the property of the
 // TPU kernel worth keeping.
-#include <cuda.h>          // CUtensorMap and its enums; no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -256,6 +257,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BQ = 128;                 // query rows per block
 constexpr int STAGES = 3;               // (k, v) tiles in flight
 constexpr int CONSUMERS = 256;          // two warpgroups of 64 query rows
@@ -280,84 +283,6 @@ struct Layout {
   static_assert(BYTES <= 232448, "over the block's shared memory");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of the given parity has completed.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 4-d tensor map into shared memory, completing on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Registers a pending wgmma reads or writes must not be touched, or
-// reused, before the wait: these pin each one until after it.
-__device__ __forceinline__ void pin(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle. K-major tiles
-// (q, k): 8-row groups 1024 bytes apart (SBO); a k16 step inside the
-// 128-byte row advances the start address by 32 bytes. MN-major tiles (v
-// as B of P.V): 8-key groups 1024 bytes apart (SBO), 64-column chunks of
-// hd one tile of rows apart (LBO).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
 // S[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared memory
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                          int accumulate) {
@@ -377,40 +302,6 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// S[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, A and B K-major in shared memory
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -549,7 +440,7 @@ template <int BKV>
 __device__ __forceinline__ void mma_qk(float (&s)[BKV / 2], uint64_t da,
                                        uint64_t db, int accumulate) {
   if constexpr (BKV == 64) mma_ss_n64(s, da, db, accumulate);
-  else mma_ss_n128(s, da, db, accumulate);
+  else mma_ss_n128<0, 0>(s, da, db, accumulate);
 }
 
 template <int HD>
@@ -586,7 +477,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       bar_init(empty + 8 * s, CONSUMERS / 32);   // one arrival per warp
     }
     bar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
 
@@ -596,7 +487,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       bar_expect_tx(qbar, L::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < L::NCH; ++c)
-        tma_load(sq + c * BQ * ROW, &qmap, qbar, c * CHUNK, h, q0, b);
+        tma_load_4d(sq + c * BQ * ROW, &qmap, qbar, c * CHUNK, h, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % STAGES;
         bar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
@@ -605,8 +496,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int c = 0; c < L::NCH; ++c) {
           const uint32_t off = s * L::KV_BYTES + c * BKV * ROW;
-          tma_load(sk + off, &kmap, fb, c * CHUNK, kh, j * BKV, b);
-          tma_load(sv + off, &vmap, fb, c * CHUNK, kh, j * BKV, b);
+          tma_load_4d(sk + off, &kmap, fb, c * CHUNK, kh, j * BKV, b);
+          tma_load_4d(sv + off, &vmap, fb, c * CHUNK, kh, j * BKV, b);
         }
       }
     }
@@ -777,32 +668,6 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
           __floats2bfloat162_rn(acc[4 * c + 2] * d1, acc[4 * c + 3] * d1);
   }
-}
-
-// cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // [B, S, heads, hd] bf16 as a 4-d map (hd innermost), boxes of 64 hd

@@ -37,7 +37,11 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 128;                 // frames per block
 constexpr int BN = 128;                 // components per block
@@ -52,19 +56,6 @@ __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
 __host__ __device__ inline size_t smem_floats(int D, int E2p) {
   return (size_t)STAGES * BK * BN + 2 * BK * BM + round4((D + 1) * XS_LD) +
          E2p;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
@@ -144,7 +135,7 @@ gmm_loglik_kernel(const float* __restrict__ x, const float* __restrict__ W,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   for (int s = 0; s < nslab; ++s) {
-    cp_wait_ring();      // W slab s has landed (this thread's copies)
+    cp_wait<STAGES - 2>();      // W slab s has landed (this thread's copies)
     __syncthreads();     // everyone's copies, A slab s, and slab s-1 is free
     const int nx = s + STAGES - 1;
     if (nx < nslab) load_w(nx, nx % STAGES);

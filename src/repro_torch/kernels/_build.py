@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exports plain C entry points. It is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library and loaded with
 ``ctypes``: a build of a few seconds, where an extension that includes
 PyTorch's headers takes minutes. The library is named after a hash of
-its source and flags, so an edited source rebuilds at first use and an
-unchanged one is loaded as it is.
+its source, the ``csrc/`` headers it includes and the flags, so an edited
+source or header rebuilds at first use and an unchanged one is loaded as
+it is.
 
 Pointers and the stream go to C as ``c_void_p``; every entry returns
 ``cudaGetLastError()`` and ``check`` raises on anything but 0 (a launch
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
@@ -37,8 +39,11 @@ I64 = ctypes.c_longlong
 # C signature of every entry point, by source file
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "bw_stats": {
-        # gamma, x, n, f, S, F, C, D, device, stream
-        "bw_stats_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR),
+        # gamma, x, pair table, partial sums, flags, frame lists, counts
+        # (the last three NULL: every frame), n, f, S, F, Fp, C, D, Ep,
+        # nsplit, device, stream
+        "bw_stats_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
+                         INT, INT, INT, INT, INT, INT, INT, PTR),
     },
     "flash_attention": {
         # q, k, v, o, B, S, H, KVH, hd, device, stream
@@ -67,11 +72,12 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                             PTR),
     },
     "packed_matmul": {
-        # a, b, out, M, K, N, a_stride_m, a_stride_k, device, stream
-        "packed_matmul_f32": (PTR, PTR, PTR, INT, INT, INT, I64, I64, INT,
-                              PTR),
-        "packed_matmul_bf16": (PTR, PTR, PTR, INT, INT, INT, I64, I64, INT,
-                               PTR),
+        # a, b, out, M, K, N, a_stride_m, a_stride_k, b_row_stride, form
+        # (tvm_estep.FORMS), device, stream
+        "packed_matmul_f32": (PTR, PTR, PTR, INT, INT, INT, I64, I64, I64,
+                              INT, INT, PTR),
+        "packed_matmul_bf16": (PTR, PTR, PTR, INT, INT, INT, I64, I64, I64,
+                               INT, INT, PTR),
     },
     "selective_scan": {
         # dt, dx, A, Bc, Cc, h0 (or NULL), y, h_last, B, T, di, ds, device,
@@ -89,10 +95,28 @@ def _nvcc() -> str:
                / "bin" / "nvcc")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def includes(name: str) -> list:
+    """The ``csrc/`` headers that ``csrc/<name>.cu`` includes, directly or
+    through another header, sorted."""
+    found, todo = set(), [CSRC / f"{name}.cu"]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_bytes()):
+            header = inc.decode()
+            if header not in found:
+                found.add(header)
+                todo.append(CSRC / header)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{tag[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in includes(name):
+        h.update(header.encode() + b"\0" + (CSRC / header).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -302,6 +302,177 @@ def test_tvm_estep_bf16_matches_jnp_path():
         tops.tvm_estep_l(_t(n), _t(Up), dtype="float16")
 
 
+@pytest.mark.parametrize("dtype,M,want", [
+    (torch.float32, 1, "stream"),
+    (torch.float32, 16, "stream"),      # the serving L: U = max_batch
+    (torch.float32, 17, "sgemm"),
+    (torch.float32, 512, "sgemm"),      # L at training, A (M = C)
+    (torch.bfloat16, 16, "stream"),
+    (torch.bfloat16, 17, "wgmma"),
+    (torch.bfloat16, 2048, "wgmma"),
+])
+def test_packed_matmul_form_is_a_function_of_dtype_and_m(dtype, M, want):
+    """The kernel of csrc/packed_matmul.cu that runs: the stream form up to
+    M = 16 on either side of the threshold, then the CUDA-core SGEMM (f32)
+    or wgmma (bf16); K and N choose nothing."""
+    for K, N in ((1, 1), (2048, 80200), (13, 77)):
+        assert tte.form(dtype, M, K, N) == want
+    assert set(tte.FORMS) == {"stream", "sgemm", "wgmma"}
+
+
+@pytest.mark.parametrize("U,C,R", [
+    (24, 21, 6),     # C and P = 21 both off a multiple of 8
+    (40, 16, 5),     # P = 15 only
+    (33, 13, 15),    # C only (P = 120)
+])
+def test_tma_pad_gives_the_unpadded_product(U, C, R):
+    """The wgmma form's TMA pad: n and b padded to rows of a multiple of 8
+    elements (zeros past C or P), read through the padded row length, give
+    the unpadded product, checked through the plain version of the kernels'
+    function against the Pallas kernel in interpret mode, for L and A."""
+    rng = np.random.default_rng(U + C + R)
+    n, Up, PPp = _estep_operands(rng, U, C, R)
+    P = Up.shape[1]
+    with jops.use_pallas(True):
+        want_l = jops.tvm_estep_l(jnp.asarray(n), jnp.asarray(Up))
+        want_a = jops.tvm_estep_a(jnp.asarray(n), jnp.asarray(PPp))
+    n_p, up_p, pp_p = (tte.tma_pad(_t(a)) for a in (n, Up, PPp))
+    for t, cols in ((n_p, C), (up_p, P), (pp_p, P)):
+        assert t.shape[1] % 8 == 0 and t.shape[1] - cols < 8
+        assert not t[:, cols:].any()
+    ld = n_p.shape[1]
+    got_l = tte.plain(n_p, up_p, U, C, ld, 1)[:, :P]
+    got_a = tte.plain(n_p, pp_p, C, U, 1, ld)[:, :P]
+    _close(got_l, want_l)
+    _close(got_a, want_a)
+    aligned = _t(np.zeros((3, 16), np.float32))
+    assert tte.tma_pad(aligned) is aligned
+
+
+@pytest.mark.parametrize("stride_m,stride_k", [
+    (21, 2), (2, 21), (1, 1), (20, 1), (1, 20), (22, 1)])
+def test_packed_matmul_refuses_other_strides(stride_m, stride_k):
+    """a [rows, ld] is read only as (ld, 1) or (1, ld): any other stride
+    pair raises before anything reaches the card."""
+    a = torch.zeros(5, 21)
+    b = torch.zeros(21, 8)
+    with pytest.raises(ValueError, match="strides"):
+        tte.packed_matmul(a, b, 5, 21, stride_m, stride_k)
+    with pytest.raises(ValueError, match="strides"):
+        tte.plain(a, b, 5, 21, stride_m, stride_k)
+    # the two allowed pairs, past the stride check, need a CUDA tensor
+    with pytest.raises(ValueError, match="CUDA"):
+        tte.packed_matmul(a, b, 5, 21, 21, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tte.packed_matmul(a, b[:5], 21, 5, 1, 21)
+
+
+@pytest.mark.parametrize("D", [1, 5, 72])
+def test_bw_stats_pair_table_matches_quad_pairs(D):
+    """The kernel's column codes (i0 | i1 << 8 over [x | 1 | 0]): the
+    upper-triangle pairs in the order of the port's and the JAX package's
+    ``_quad_pairs``, then x_d, then the ones column, then zeros to a
+    multiple of the kernel's 128-column tile."""
+    table = tbw.pair_table(D).numpy()
+    E = tbw.n_columns(D)
+    P = D * (D + 1) // 2
+    assert table.dtype == np.int32 and table.shape[0] % tbw.BN == 0
+    assert 0 <= table.shape[0] - E < tbw.BN
+    i0, i1 = table & 255, table >> 8
+    t0, t1, _ = tref._quad_pairs(D)
+    j0, j1, _ = jref._quad_pairs(D)
+    np.testing.assert_array_equal(i0[:P], t0.numpy())
+    np.testing.assert_array_equal(i1[:P], t1.numpy())
+    np.testing.assert_array_equal(i0[:P], np.asarray(j0))
+    np.testing.assert_array_equal(i1[:P], np.asarray(j1))
+    np.testing.assert_array_equal(i0[P:P + D], np.arange(D))
+    assert (i1[P:P + D] == D).all() and i0[P + D] == i1[P + D] == D
+    assert (i0[E:] == D + 1).all() and (i1[E:] == D + 1).all()
+
+
+def _gamma(rng, F, C, kind):
+    """Posteriors of one of four kinds: "sparse" (half the entries zero, as
+    after top-K), "dense", "zero", or "hole" (sparse, with components
+    128..255 never touched: a 128-component tile with no frames)."""
+    gamma = rng.dirichlet(np.ones(C), size=F).astype(np.float32)
+    if kind in ("sparse", "hole"):
+        gamma[rng.uniform(size=(F, C)) < 0.5] = 0.0
+    if kind == "hole":
+        gamma[:, 128:256] = 0.0
+    if kind == "zero":
+        gamma[:] = 0.0
+    return gamma
+
+
+@pytest.mark.parametrize("F,D,C,kind", [
+    (256, 5, 300, "dense"),
+    (300, 6, 300, "zero"),
+    (301, 4, 300, "hole"),      # ragged F; tile 1 has no frames
+    (77, 3, 129, "sparse"),     # ragged F and C (a 1-component tile)
+])
+def test_bw_stats_frame_lists_match_numpy(F, D, C, kind):
+    """The compaction's plain version: each 128-component tile's frames
+    with a non-zero Γ, in frame order, against numpy."""
+    rng = np.random.default_rng(F + C)
+    gamma = _gamma(rng, F, C, kind)
+    lists = tbw.frame_lists(_t(gamma))
+    assert len(lists) == -(-C // 128)
+    for t, got in enumerate(lists):
+        want = np.flatnonzero((gamma[:, 128 * t:128 * (t + 1)] != 0)
+                              .any(axis=1))
+        np.testing.assert_array_equal(got.numpy(), want)
+    if kind == "dense":
+        assert all(len(li) == F for li in lists)
+    if kind == "zero":
+        assert all(len(li) == 0 for li in lists)
+    if kind == "hole":
+        assert len(lists[1]) == 0 and len(lists[0]) > 0
+
+
+@pytest.mark.parametrize("F,D,C,kind,nsplit", [
+    (256, 5, 8, "sparse", 1),
+    (300, 6, 300, "hole", 3),     # ragged F and C; a tile with no frames
+    (301, 4, 300, "dense", 4),
+    (40, 3, 9, "zero", 2),
+    (40, 3, 9, "sparse", 4),      # runs with no frames
+])
+@pytest.mark.parametrize("compact", [False, True])
+def test_bw_stats_table_moments_match_pallas(F, D, C, kind, nsplit, compact):
+    """The kernel's arithmetic in plain tensor code: for each component
+    tile, its frames (all, or its compacted list) in ``nsplit`` runs; Γᵀ X₂
+    over the coded columns per run, added in run order, scattered by code;
+    against the Pallas kernel in interpret mode and the port's plain
+    version. S comes out exactly symmetric."""
+    rng = np.random.default_rng(F + D + C)
+    x = rng.standard_normal((F, D)).astype(np.float32)
+    gamma = _gamma(rng, F, C, kind)
+    with jops.use_pallas(True):
+        want = jops.bw_stats(jnp.asarray(gamma), jnp.asarray(x),
+                             block_f=F, block_c=C)
+    got = tbw.moments(_t(gamma), _t(x), tbw.pair_table(D), nsplit, compact)
+    plain = tref.bw_stats(_t(gamma), _t(x))
+    for g, w, p in zip(got, want, plain):
+        _close(g, w)
+        _close(g, p)
+    S = got[2].reshape(C, D, D)
+    assert torch.equal(S, S.transpose(1, 2))
+
+
+def test_bw_stats_splits_fill_the_waves():
+    """Frame runs: at the paper's width (352 tiles against 264 slots of
+    132 SMs) three runs fill whole waves; a run is a multiple of the
+    16-frame slab and the runs cover the frames; short F takes one run."""
+    assert tbw.splits(32768, 2048, 72, 132) == 3
+    assert tbw.splits(262144, 2048, 72, 132) == 3
+    assert tbw.splits(1000, 2048, 72, 132) == 1
+    assert tbw.split_len(32768, 3) == 10928
+    for F in (0, 1, 1000, 5000, 32768, 262144):
+        n = tbw.splits(F, 2048, 72, 132)
+        per = tbw.split_len(F, n)
+        assert 1 <= n <= tbw.MAX_SPLITS and per % tbw.BK == 0
+        assert n * per >= F and (n - 1) * per < max(F, 1)
+
+
 @pytest.mark.parametrize("R,block", [(7, 16), (40, 8)])
 def test_tri_inverse_matches_jax(R, block):
     rng = np.random.default_rng(R)
@@ -353,9 +524,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             tga.gmm_rescore_fused.launches) == (0, 0, 0, 0, 0, 0)
 
 
-def test_build_names_every_source():
+def test_build_names_every_source(tmp_path, monkeypatch):
     """Every CUDA source under csrc/ has its entry signatures, and its
-    library name follows the source's hash into the ignored build dir."""
+    library name follows the hash of the source and of the csrc/ headers it
+    includes into the ignored build dir: an edited header renames the
+    library of every source that includes it, and of no other."""
     sources = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert sources == set(_build.SIGNATURES)
     for name in sources:
@@ -363,3 +536,15 @@ def test_build_names_every_source():
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    for name in ("flash_attention", "packed_matmul", "bw_stats",
+                 "gmm_loglik"):
+        assert _build.includes(name) == ["hopper.cuh"]
+    for p in _build.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n) for n in sources}
+    with open(tmp_path / "hopper.cuh", "a") as fh:
+        fh.write("// edited\n")
+    after = {n: _build.library_path(n) for n in sources}
+    for n in sources:
+        assert (before[n] != after[n]) == ("hopper.cuh" in _build.includes(n))
