@@ -20,7 +20,8 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   utterances against the CPU plain path on quantities the eigenvector
   signs of ``min_divergence`` leave alone;
 * on the LM side, holds ``flash_attention`` and ``selective_scan`` against
-  their plain versions at Jamba's and StableLM's shapes, then runs at
+  their plain versions at Jamba's and StableLM's shapes (the scan also at
+  d_state 8, and each d_state instance at ragged widths), then runs at
   the published widths in bf16 with random params from ``--seed``:
   StableLM-2 1.6B served through ``repro_torch.launch.serve`` (batch 8,
   prompt 1024, 32 tokens) and Jamba v0.1 without its experts (32 layers;
@@ -39,6 +40,7 @@ same numbers are written to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -54,6 +56,8 @@ ROOT = Path(__file__).resolve().parent
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+# exponentials a clock on one SM (the MUFU unit)
+MUFU_PER_SM_CLOCK = 16
 
 # |kernel - plain| <= TOL * max|plain|: both sum f32 products of the same
 # inputs, in another order (reductions of 5256, 2048 or 512 terms)
@@ -104,6 +108,19 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@functools.lru_cache(maxsize=1)
+def mufu_rate():
+    """(exponentials a second, how it is made up): MUFU_PER_SM_CLOCK times
+    the SMs times the card's max SM clock from nvidia-smi."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return (MUFU_PER_SM_CLOCK * n_sm * mhz * 1e6,
+            f"{MUFU_PER_SM_CLOCK} a clock an SM x {n_sm} SMs x {mhz:.0f} MHz")
 
 
 def bound(flops: float, nbytes: float, dtype: str = "float32"):
@@ -462,12 +479,47 @@ def check_bw_stats(ex, frames, K: int, g):
     return row
 
 
+def held_align(label, x, dconst, dlin, dquad, A2, K, want_sel=None):
+    """gmm_align against the plain preselect + packed rescore: the selected
+    sets compared frame by frame (the share that agrees is printed and held
+    to ALIGN_AGREE), sel_ll held to TOL on the frames that agree. Returns
+    (max error, the kernel's sel)."""
+    from repro_torch.kernels import gmm_align as GA
+    from repro_torch.kernels import ref
+    F = x.shape[0]
+    ll, sel = GA.gmm_align(x, dconst, dlin, dquad, A2, K)
+    if want_sel is None:
+        want_sel = ref.diag_topk(x, dconst, dlin, dquad, K)[1]
+    want_ll = ref.gmm_rescore_fused(x, want_sel, A2)
+    s_got, o_got = torch.sort(sel, dim=1)
+    s_want, o_want = torch.sort(want_sel, dim=1)
+    agree = (s_got == s_want).all(dim=1)
+    share = agree.float().mean().item()
+    print(f"  gmm_align {label}: selected sets agree on {agree.sum().item()} "
+          f"of {F} frames ({100 * share:.3f}%, at least "
+          f"{100 * ALIGN_AGREE:g}% required)")
+    if share < ALIGN_AGREE:
+        fail(f"gmm_align {label} selects other components than its plain "
+             "version")
+    held = agree & torch.isfinite(want_ll).all(dim=1)   # not NaN frames
+    err = compare(f"gmm_align {label} sel_ll on agreeing frames",
+                  torch.gather(ll, 1, o_got)[held],
+                  torch.gather(want_ll, 1, o_want)[held])
+    return err, sel
+
+
 def check_gmm_align(ex, frames, K: int):
     """gmm_align at F=16384 frames against the plain preselect + packed
-    rescore. The selected sets are compared frame by frame (the share that
-    agrees is printed and held to ALIGN_AGREE) and sel_ll is held to TOL
-    on the frames that agree. The rescore alone (``gmm_rescore_fused``,
-    the same kernel given the selection) is held on every frame."""
+    rescore (``held_align``); the rescore alone (``gmm_rescore_fused``,
+    the same kernel given the selection) held on every frame; then ragged
+    F and C (C a multiple of 4 or not), K above the streaming merge's 32
+    (the whole-row instance, 16 frames a block, and 8 at C = 4096), and,
+    for both instances, the NaN rule (a frame of NaNs takes C-1 in every
+    slot; a NaN score at C-1 alone puts C-1 first, then the best K-1 of the
+    others) and zero-weight components (a dconst of -inf leaving fewer than
+    K scores above it: the slots after take id 0), each against
+    ``ref.argmax_topk`` of the plain scores. The wrapper's ``geometry`` is
+    held against the CUDA side's for the shapes run here."""
     from repro_torch.core import ubm as U
     from repro_torch.kernels import gmm_align as GA
     from repro_torch.kernels import ref
@@ -477,35 +529,84 @@ def check_gmm_align(ex, frames, K: int):
     C, E2 = A2.shape
     x = frames[:16384].contiguous()
     F, D = x.shape
-    ll, sel = GA.gmm_align(x, dconst, dlin, dquad, A2, K)
-    want_ll, want_sel = ref.gmm_align(x, dconst, dlin, dquad, A2, K)
-    s_got, o_got = torch.sort(sel, dim=1)
-    s_want, o_want = torch.sort(want_sel, dim=1)
-    agree = (s_got == s_want).all(dim=1)
-    share = agree.float().mean().item()
-    print(f"  gmm_align: selected sets agree on {agree.sum().item()} of {F} "
-          f"frames ({100 * share:.3f}%, at least {100 * ALIGN_AGREE:g}% "
-          "required)")
-    if share < ALIGN_AGREE:
-        fail("gmm_align selects other components than its plain version")
-    err = compare(f"gmm_align sel_ll [{F}x{K}] on agreeing frames",
-                  torch.gather(ll, 1, o_got)[agree],
-                  torch.gather(want_ll, 1, o_want)[agree])
+    err, sel = held_align(f"[{F}x{D}] C={C} K={K}", x, dconst, dlin, dquad,
+                          A2, K)
     compare(f"gmm_rescore_fused [{F}x{K}] on the kernel's selection",
             GA.gmm_rescore_fused(x, sel, A2),
             ref.gmm_rescore_fused(x, sel, A2))
+    for Fr, Cr, Kr in ((1000, 2000, K), (1000, 1999, K), (2048, C, 40)):
+        held_align(f"ragged [{Fr}x{D}] C={Cr} K={Kr}", x[:Fr].contiguous(),
+                   dconst[:Cr].contiguous(), dlin[:, :Cr].contiguous(),
+                   dquad[:, :Cr].contiguous(), A2[:Cr].contiguous(), Kr)
+    # C = 2C: the second half's components are the first's with dconst
+    # moved by one, so no score ties exactly with the first half's
+    held_align(f"[1000x{D}] C={2 * C} K=40 (8-frame blocks)",
+               x[:1000].contiguous(),
+               torch.cat([dconst, dconst.roll(1)]).contiguous(),
+               torch.cat([dlin, dlin], 1).contiguous(),
+               torch.cat([dquad, dquad], 1).contiguous(),
+               torch.cat([A2, A2]).contiguous(), 40)
+    xn = x[:1000].clone()
+    xn[3] = float("nan")
+    dn = dconst.clone()
+    dn[C - 1] = float("nan")
+    finite = torch.arange(5, C, 150, device=dconst.device)   # 14 of them
+    dz = torch.full_like(dconst, float("-inf"))
+    dz[finite] = dconst[finite]
+    for Kr in (K, 40):
+        scores = ref.diag_topk(xn, dn, dlin, dquad, Kr)[0]
+        _, seln = held_align(f"NaN rule K={Kr}", xn, dn, dlin, dquad, A2, Kr,
+                             ref.argmax_topk(scores, Kr))
+        if not ((seln[3] == C - 1).all() and (seln[:, 0] == C - 1).all()):
+            fail("gmm_align breaks the NaN rule")
+        scores = ref.diag_topk(x[:1000], dz, dlin, dquad, Kr)[0]
+        _, selz = held_align(f"zero-weight components K={Kr}",
+                             x[:1000].contiguous(), dz, dlin, dquad, A2, Kr,
+                             ref.argmax_topk(scores, Kr))
+        if not (selz[:, finite.numel():] == 0).all():
+            fail("gmm_align breaks the -inf rule")
+    for shape in ((C, D, K), (1999, D, K), (C, D, 40), (2 * C, D, 40),
+                  (C, D, C), (6272, D, 40), (6273, D, 40), (C, D, 40, True)):
+        try:
+            mine = GA.geometry(*shape)
+        except ValueError:
+            mine = None
+        if mine != GA.kernel_geometry(*shape):
+            fail(f"gmm_align: geometry{shape} is {mine} in the wrapper, "
+                 f"{GA.kernel_geometry(*shape)} in the kernel")
     rows_touched = torch.unique(sel).numel()
     b_ms, b_by = bound(2.0 * F * C * (2 * D + 1) + 2.0 * F * K * E2,
                        4.0 * (F * D + C * (2 * D + 1) + rows_touched * E2)
                        + 12.0 * F * K)
+    # the split: the rescore alone is the same kernel given the selection
+    # (sel_in), the rest is the preselect and the top-K
+    ms = cuda_ms(lambda: GA.gmm_align(x, dconst, dlin, dquad, A2, K), 20)
+    rescore_ms = cuda_ms(lambda: GA.gmm_rescore_fused(x, sel, A2), 20)
+    print(f"  gmm_align split at F={F}: whole {ms:.4f} ms; rescore alone "
+          f"(gmm_rescore_fused) {rescore_ms:.4f} ms; preselect + top-K "
+          f"{ms - rescore_ms:.4f} ms")
+    # distinct component ids among a frame tile's (frame, slot) pairs: the
+    # rows a rescore grouped by id would read once per tile
+    distinct = {}
+    for bf in (32, 64):
+        s = torch.sort(sel[:F // bf * bf].reshape(-1, bf * K), dim=1).values
+        n = 1 + (s[:, 1:] != s[:, :-1]).sum(dim=1)
+        distinct[bf] = n.float().mean().item() / (bf * K)
+        print(f"  gmm_align: distinct ids in a {bf}-frame tile: "
+              f"{n.float().mean().item():.1f} of {bf * K} (frame, slot) "
+              f"pairs ({100 * distinct[bf]:.1f}%)")
+    bf, _, smem = GA.kernel_geometry(C, D, K)
+    print(f"  gmm_align: {bf} frames a block, {smem} bytes of shared memory "
+          f"a block (the kernel's own answer, as the wrapper's)")
     return dict(
         name="gmm_align", route="cuda",
         source="src/repro_torch/csrc/gmm_align.cu",
         replaces="src/repro/kernels/gmm_align.py:162", max_abs_err=err,
-        ms=cuda_ms(lambda: GA.gmm_align(x, dconst, dlin, dquad, A2, K), 20),
+        ms=ms,
         plain_ms=cuda_ms(
             lambda: ref.gmm_align(x, dconst, dlin, dquad, A2, K), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        rescore_ms=rescore_ms, distinct_share=distinct, smem_bytes=smem)
 
 
 def counters():
@@ -1001,20 +1102,31 @@ def check_flash_attention(g, dev):
 
 
 def check_selective_scan(g, dev):
-    """selective_scan against its plain version at Jamba's full width
-    (di=8192, ds=16), on y and h_last: the prefill (B=4, T=2048, no h0:
+    """selective_scan against its plain version on y and h_last: at
+    Jamba's full width (di=8192, ds=16) the prefill (B=4, T=2048, no h0:
     the row), the same with h0, a decode step (B=4, T=1, with h0: the
-    shape of every Jamba decode step) and a ragged T=1000 with h0. No
-    single PyTorch call computes the scan."""
-    from repro_torch.kernels import ref
+    shape of every Jamba decode step) and a ragged T=1000 with h0; the
+    prefill at d_state 8 (Jamba's SMOKE d_state) with h0; then the other
+    d_state instances at ragged widths (di not a multiple of the block's
+    64 channels, or of 4). No single PyTorch call computes the scan."""
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels import selective_scan as SS
-    di, ds = 8192, 16
-    A = -torch.exp(0.5 * torch.randn(di, ds, generator=g, device=dev))
+    A_of = {}
     recs = []
-    for label, B, T, with_h0 in (("no h0", 4, 2048, False),
-                                 ("with h0", 4, 2048, True),
-                                 ("decode step, with h0", 4, 1, True),
-                                 ("ragged T, with h0", 2, 1000, True)):
+    for label, B, T, di, ds, with_h0 in (
+            ("no h0", 4, 2048, 8192, 16, False),
+            ("with h0", 4, 2048, 8192, 16, True),
+            ("decode step, with h0", 4, 1, 8192, 16, True),
+            ("ragged T, with h0", 2, 1000, 8192, 16, True),
+            ("d_state 8, with h0", 4, 2048, 8192, 8, True),
+            ("d_state 4, di not a multiple of 4, with h0", 1, 37, 1003, 4,
+             True),
+            ("d_state 32, ragged di, with h0", 1, 100, 1000, 32, True),
+            ("d_state 64, ragged di", 1, 50, 130, 64, False)):
+        if (di, ds) not in A_of:
+            A_of[di, ds] = -torch.exp(
+                0.5 * torch.randn(di, ds, generator=g, device=dev))
+        A = A_of[di, ds]
         # as mamba_mix makes them: dt = softplus(.) > 0 near 0.01, A < 0
         dt = torch.nn.functional.softplus(
             torch.randn(B, T, di, generator=g, device=dev) - 4.6)
@@ -1025,28 +1137,50 @@ def check_selective_scan(g, dev):
              else None)
         y, hl = SS.selective_scan(dt, dx, A, Bc, Cc, h)
         wy, wh = ref.selective_scan(dt, dx, A, Bc, Cc, h)
-        err = max(compare(f"selective_scan {label} {name} B={B} T={T} "
-                          f"di={di} ds={ds}", a, b, SCAN_TOL)
-                  for name, a, b in (("y", y, wy), ("h_last", hl, wh)))
+        margin = float("inf")
+        err = 0.0
+        for name, a, w in (("y", y, wy), ("h_last", hl, wh)):
+            e = compare(f"selective_scan {label} {name} B={B} T={T} "
+                        f"di={di} ds={ds}", a, w, SCAN_TOL)
+            err = max(err, e)
+            margin = min(margin, SCAN_TOL * w.abs().max().item()
+                         / max(e, 1e-30))
+        print(f"    margin: the error is {margin:.0f}x below the limit")
         # per (b, t, d, s): dt*A, exp, *h, dx*B, +, *C, + ; dt, dx, y per
-        # (b, t, d), Bc and Cc per (b, t), A, h_last (and h0) once
+        # (b, t, d), Bc and Cc per (b, t), A, h_last (and h0) once. The
+        # exponentials (one per (b, t, d, s)) at the MUFU rate alone are
+        # printed beside the bound, not taken into it: the FMA pipe can
+        # take a share of them as a polynomial
         b_ms, b_by = bound(7.0 * B * T * di * ds,
                            4.0 * (3 * B * T * di + 2 * B * T * ds + di * ds
                                   + B * di * ds * (2 if with_h0 else 1)))
         recs.append(dict(
             case=f"{label} B={B} T={T} di={di} ds={ds} float32",
-            max_abs_err=err,
+            max_abs_err=err, margin=margin,
             ms=cuda_ms(lambda: SS.selective_scan(dt, dx, A, Bc, Cc, h), 10),
             plain_ms=cuda_ms(lambda: ref.selective_scan(dt, dx, A, Bc, Cc, h),
                              2),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            bound_ms=b_ms, bound_by=b_by,
+            mufu_ms=B * T * di * ds / mufu_rate()[0] * 1e3, library_ms=None))
         del dt, dx, Bc, Cc, h, y, hl, wy, wh
+    lib = _build.load("selective_scan")
+    for ds in SS.D_STATES:
+        if lib.selective_scan_lanes(ds) != SS.lanes(ds):
+            fail(f"selective_scan: lanes({ds}) is "
+                 f"{lib.selective_scan_lanes(ds)} in the kernel, "
+                 f"{SS.lanes(ds)} in the wrapper")
     row = dict(name="selective_scan", route="cuda",
                source="src/repro_torch/csrc/selective_scan.cu",
                replaces="src/repro/kernels/selective_scan.py:69",
                **{k: recs[0][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")})
+                                          "bound_ms", "bound_by", "mufu_ms",
+                                          "library_ms")},
+               decode_ms=recs[2]["ms"], ds8_ms=recs[4]["ms"])
+    print(f"  selective_scan: prefill {row['ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); its exponentials "
+          f"at the MUFU rate alone {row['mufu_ms']:.4f} ms ({mufu_rate()[1]}"
+          f"); decode step {row['decode_ms']:.4f} ms; d_state 8 "
+          f"{row['ds8_ms']:.4f} ms")
     return row, recs
 
 
@@ -1251,7 +1385,8 @@ def lm_phase(seed, dev):
     for r in fa_recs + ss_recs:
         print(f"    {r['case']}: kernel {r['ms']:.4f} ms  plain "
               f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})  library {r['library_ms']}")
+              f"({r['bound_by']})  library "
+              f"{r['library_ms']}")
     torch.cuda.empty_cache()
     rec = {"flash_attention": fa_recs, "selective_scan": ss_recs}
     rec["stablelm_serve"] = lm_serve(
@@ -1291,6 +1426,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print("[1] card")
     print(card)
+    print(f"  exponentials: {mufu_rate()[0] / 1e12:.3f} T/s "
+          f"({mufu_rate()[1]})")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), {kind}")
 

@@ -2,9 +2,10 @@
 // cp.async copies, mbarriers, TMA tensor loads, wgmma descriptors and
 // products, and cuTensorMapEncodeTiled found through the runtime.
 //
-// Included by flash_attention.cu, packed_matmul.cu, bw_stats.cu and
-// gmm_loglik.cu. kernels/_build.py hashes every header a source includes,
-// so an edit here rebuilds each of them.
+// Included by flash_attention.cu, packed_matmul.cu, bw_stats.cu,
+// gmm_loglik.cu, gmm_align.cu and selective_scan.cu. kernels/_build.py
+// hashes every header a source includes, so an edit here rebuilds each of
+// them.
 #pragma once
 
 #include <cuda.h>          // CUtensorMap and its enums; no driver library is linked
@@ -32,6 +33,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                                                  int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+// 4 bytes, copied if `bytes` is 4 and zero if it is 0; src must be a valid
+// 4-byte-aligned address either way
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(bytes)
                : "memory");

@@ -5,35 +5,116 @@
 //   h_t = exp(dt_t A) h_{t-1} + dx_t B_t,   y_t = C_t . h_t
 //
 // dt, dx [B, T, di], A [di, ds], Bc, Cc [B, T, ds], h0 [B, di, ds] or
-// null (zeros), all f32; y [B, T, di] and h_last [B, di, ds] f32.
+// null (zeros), all f32; y [B, T, di] and h_last [B, di, ds] f32. One
+// template instance for each ds in {4, 8, 16, 32, 64}.
 //
-// Bound on the H100: bytes. Per (b, t, channel) the function reads dt and
-// dx and writes y (12 bytes) and does ds exponentials and 3*ds FMA-class
-// operations; Bc and Cc are ds floats per (b, t), shared by all di
-// channels. At ds = 16 that is about 5 operations per byte, far below the
-// card's ratio.
+// Bound on the H100: the bytes. Per (b, t, channel) the function reads dt
+// and dx and writes y (12 bytes); Bc and Cc are ds floats per (b, t),
+// shared by all di channels. At B = 4, T = 2048, di = 8192, ds = 16: 805
+// MB, 0.24 ms at 3.35 TB/s. Its 1.07 G exponentials (one per state and
+// step) take 0.26 ms on the MUFU unit alone (16 a clock an SM, 1.98 GHz),
+// but the FMA pipe can take a share of them as a polynomial (~8
+// instructions each, beside the ~4 of the recurrence a state): split so,
+// they need ~0.19 ms, under the bytes.
 //
-// Design: one thread per (b, channel d), its h[16] in registers for the
-// whole of T and its row of A too, walking t in order: the [B, T, di, ds]
-// transition tensors of the XLA scan never exist, the property of the TPU
-// kernel worth keeping. A block is 128 channels of one batch row; it
-// stages a chunk of 64 time steps of Bc and Cc in shared memory, read by
-// all its channels as broadcasts. dt, dx and y are read and written along
-// d, so a warp's access is one contiguous 128-byte line; each thread
-// loads the dt and dx of 8 steps before it computes them, so that 8 loads
-// are in flight. The state h starts from h0 when given and is written
-// back to h_last, so a decode step carries it on. expf, not __expf: the
-// decay exp(dt A) is compared with the plain version to 1e-4.
+// What held the previous kernel back: one thread per (b, channel) with all
+// 16 states, so 1,024 warps at Jamba's shape (~7.8 an SM) and 8 loads in
+// flight a thread to hide a sequential loop; and an accurate expf per
+// state (a range reduction on the f32 pipe, then MUFU).
+//
+// Design:
+//   - d_state is split over lanes: lanes(ds) lanes of one warp share a
+//     channel (2 at ds = 16), each holding ds / lanes consecutive states
+//     and their row of A in registers for the whole of T (twice the warps
+//     at ds = 16). Each lane of a channel reads the step's dt and dx and
+//     takes part in the shuffles, so more lanes cost more than they hide:
+//     at Jamba's shape 4 lanes a channel were slower on the card than 2,
+//     and 1 no faster. A lane sums C_s h_s over its states in ascending
+//     order; the lanes' sums are added by __shfl_xor over 1, then 2 apart,
+//     reduce-scattered over groups of `lanes` steps (lane l keeps step l
+//     of a group): each y is (p0 + p1) + (p2 + p3), the same on every run.
+//   - A block is 64 channels of one batch row. Chunks of 16 time steps of
+//     dt and dx ([16, 64] tiles, 256-byte rows) and of Bc and Cc come in
+//     through a 3-stage cp.async ring, so two chunks are in flight while
+//     one is computed; y is staged in shared memory and leaves as
+//     coalesced rows.
+//   - log2(e) is folded into A once (a2 = A log2 e, in registers), and each
+//     decay is ex2.approx.ftz(dt a2): one FMUL and one MUFU.EX2, without
+//     expf's range reduction. The decays lie in (0, 1]; ex2.approx's
+//     relative error (~2^-22) stays far inside the 1e-4 x max|plain| the
+//     scan is held to (chip_smoke.py prints the margin).
+//   - The state starts from h0 when given and is written back to h_last,
+//     so one kernel serves prefill and a decode step (T = 1). The [B, T,
+//     di, ds] transition tensors of the XLA scan never exist, the property
+//     of the TPU kernel worth keeping.
+// At ds = 16 the kernel runs at about 59% of its bytes bound; on the card,
+// copies with the exponentials, or the dt and dx loads, or the shuffles
+// taken out each ran only a little faster, so no one unit sets the pace of
+// what is left.
+// Shared memory (dynamic): 3 x 16 x (2 x 64 + 2 ds) floats and the [16,
+// 64] y tile: 34 KB at ds = 16; blocks of 128 threads, at least 4 an SM, so
+// Jamba's 512 blocks fill the card in one wave. Channels past di and steps
+// past T are masked.
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;   // channels per block
-constexpr int BT = 64;         // time steps of Bc, Cc staged per chunk
-constexpr int UNROLL = 8;      // dt, dx loads in flight per thread
-constexpr int DS = 16;         // d_state, the state in registers
+using namespace hopper;
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int CH = 64;          // channels per block
+constexpr int BT = 16;          // time steps per chunk
+constexpr int STAGES = 3;       // chunks in flight
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
+
+// lanes of a warp that share a channel: 2, each with half the states; 1 at
+// ds = 4 and 4 from ds = 32 on, so that a lane holds 4 to 16 states
+__host__ __device__ constexpr int lanes(int ds) {
+  return ds == 4 ? 1 : ds <= 16 ? 2 : 4;
+}
+
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// The lanes' partial sums of L steps, reduce-scattered: added over lanes 1
+// apart, then 2 apart, lane l keeping step l. Each step's y comes out as
+// (p0 + p1) + (p2 + p3) of its lanes' partials (up to the order of each
+// addition's two operands, which does not change the sum): what a full
+// xor tree gives every lane, with 3 shuffles for 4 steps instead of 8.
+template <int L>
+__device__ __forceinline__ float reduce_scatter(const float (&p)[L], int l) {
+  if constexpr (L == 1) {
+    return p[0];
+  } else if constexpr (L == 2) {
+    const float send = (l & 1) ? p[0] : p[1];
+    return ((l & 1) ? p[1] : p[0]) + __shfl_xor_sync(FULL, send, 1);
+  } else {
+    static_assert(L == 4, "lanes() gives 1, 2 or 4");
+    float w[2];                   // w[j]: step 2j + (l & 1)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float send = (l & 1) ? p[2 * j] : p[2 * j + 1];
+      w[j] = ((l & 1) ? p[2 * j + 1] : p[2 * j]) +
+             __shfl_xor_sync(FULL, send, 1);
+    }
+    const float send = (l & 2) ? w[0] : w[1];
+    return ((l & 2) ? w[1] : w[0]) + __shfl_xor_sync(FULL, send, 2);
+  }
+}
+
+// shared memory in floats: per stage dt [BT][CH], dx [BT][CH], Bc [BT][DS],
+// Cc [BT][DS]; then y [BT][CH]
+__host__ __device__ constexpr int smem_floats(int ds) {
+  return STAGES * BT * (2 * CH + 2 * ds) + BT * CH;
+}
+
+template <int DS>
+__global__ void __launch_bounds__(CH * lanes(DS), DS <= 16 ? 4 : 2)
 selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ dx,
                       const float* __restrict__ A,
@@ -41,59 +122,169 @@ selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ Cc,
                       const float* __restrict__ h0, float* __restrict__ y,
                       float* __restrict__ h_last, int T, int di) {
-  __shared__ float Bs[BT * DS];
-  __shared__ float Cs[BT * DS];
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = d < di;
+  constexpr int L = lanes(DS);            // lanes per channel
+  constexpr int S = DS / L;               // states per lane
+  constexpr int THR = CH * L;
+  constexpr int STAGE = BT * (2 * CH + 2 * DS);
+  extern __shared__ __align__(16) float smem[];
+  float* ys = smem + STAGES * STAGE;      // [BT][CH]
 
-  float a[DS], h[DS];
+  const int tid = threadIdx.x;
+  const int ch = tid / L, l = tid % L;
+  const int b = blockIdx.y, d0 = blockIdx.x * CH;
+  const int d = d0 + ch;
+  const bool live = d < di;
+  const bool vec = (di % 4) == 0;         // dt, dx, y rows 16-byte aligned
+
+  // chunk c (time steps c*BT..) into ring stage st; steps past T and
+  // channels past di read zero
+  auto load_chunk = [&](int c, int st) {
+    float* dts = smem + st * STAGE;
+    float* dxs = dts + BT * CH;
+    float* bs = dxs + BT * CH;
+    float* cs = bs + BT * DS;
+    const int t0 = c * BT;
+    if (vec) {
+      for (int idx = tid; idx < BT * CH / 4; idx += THR) {
+        const int r = idx / (CH / 4), k = (idx % (CH / 4)) * 4;
+        const int t = t0 + r;
+        const bool in = t < T && d0 + k < di;
+        const size_t off = ((size_t)b * T + t) * di + d0 + k;
+        cp_async16_zfill(dts + r * CH + k, in ? dt + off : dt, in ? 16 : 0);
+        cp_async16_zfill(dxs + r * CH + k, in ? dx + off : dx, in ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < BT * CH; idx += THR) {
+        const int r = idx / CH, k = idx % CH;
+        const int t = t0 + r;
+        const bool in = t < T && d0 + k < di;
+        const size_t off = ((size_t)b * T + t) * di + d0 + k;
+        cp_async4_zfill(dts + r * CH + k, in ? dt + off : dt, in ? 4 : 0);
+        cp_async4_zfill(dxs + r * CH + k, in ? dx + off : dx, in ? 4 : 0);
+      }
+    }
+    for (int idx = tid; idx < BT * DS / 4; idx += THR) {
+      const int r = idx / (DS / 4), k = (idx % (DS / 4)) * 4;
+      const int t = t0 + r;
+      const bool in = t < T;
+      const size_t off = ((size_t)b * T + t) * DS + k;
+      cp_async16_zfill(bs + r * DS + k, in ? Bc + off : Bc, in ? 16 : 0);
+      cp_async16_zfill(cs + r * DS + k, in ? Cc + off : Cc, in ? 16 : 0);
+    }
+  };
+
+  const int nchunk = (T + BT - 1) / BT;
 #pragma unroll
-  for (int s = 0; s < DS; ++s) {
-    a[s] = live ? A[(size_t)d * DS + s] : 0.f;
-    h[s] = (live && h0 != nullptr) ? h0[((size_t)b * di + d) * DS + s] : 0.f;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nchunk) load_chunk(s, s);
+    cp_commit();
   }
 
-  const size_t base = (size_t)b * T * di + d;   // (b, 0, d)
-  for (int t0 = 0; t0 < T; t0 += BT) {
-    const int nt = min(BT, T - t0);
-    __syncthreads();   // the last chunk's readers are done
-    for (int idx = threadIdx.x; idx < nt * DS; idx += THREADS) {
-      const size_t src = ((size_t)b * T + t0) * DS + idx;
-      Bs[idx] = Bc[src];
-      Cs[idx] = Cc[src];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int t1 = 0; t1 < nt; t1 += UNROLL) {
-      float dtv[UNROLL], dxv[UNROLL];
+  float a2[S], h[S];
+  const size_t row = ((size_t)b * di + d) * DS + l * S;   // h0, h_last
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const size_t off = base + (size_t)(t0 + t1 + u) * di;
-        const bool in = t1 + u < nt;
-        dtv[u] = in ? dt[off] : 0.f;
-        dxv[u] = in ? dx[off] : 0.f;
-      }
+  for (int s = 0; s < S; s += 4) {
+    const float4 av = live ? *reinterpret_cast<const float4*>(
+                                 A + (size_t)d * DS + l * S + s)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 hv = (live && h0 != nullptr)
+                          ? *reinterpret_cast<const float4*>(h0 + row + s)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    a2[s] = av.x * LOG2E; a2[s + 1] = av.y * LOG2E;
+    a2[s + 2] = av.z * LOG2E; a2[s + 3] = av.w * LOG2E;
+    h[s] = hv.x; h[s + 1] = hv.y; h[s + 2] = hv.z; h[s + 3] = hv.w;
+  }
+
+  for (int c = 0; c < nchunk; ++c) {
+    cp_wait<STAGES - 2>();        // chunk c has landed (this thread's copies)
+    __syncthreads();              // everyone's; chunk c-1's stage and y free
+    const int nx = c + STAGES - 1;
+    if (nx < nchunk) load_chunk(nx, nx % STAGES);
+    cp_commit();
+    const float* dts = smem + (c % STAGES) * STAGE;
+    const float* dxs = dts + BT * CH;
+    const float* bs = dxs + BT * CH;
+    const float* cs = bs + BT * DS;
+    const int nt = min(BT, T - c * BT);
+    // groups of L steps (L divides BT). Steps past T read zeros, dt = dx
+    // = 0, so they leave h as it is (ex2(+-0) is exactly 1) and their y is
+    // not written out.
+    const int ng = (nt + L - 1) / L;
+#pragma unroll 2
+    for (int g = 0; g < ng; ++g) {
+      float p[L];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int tt = t1 + u;
-        if (tt >= nt) break;
-        float yv = 0.f;
+      for (int j = 0; j < L; ++j) {
+        const int tt = g * L + j;
+        const float dtv = dts[tt * CH + ch], dxv = dxs[tt * CH + ch];
+        float bv[S], cv[S];
 #pragma unroll
-        for (int s = 0; s < DS; ++s) {
-          h[s] = expf(dtv[u] * a[s]) * h[s] + dxv[u] * Bs[tt * DS + s];
-          yv = fmaf(h[s], Cs[tt * DS + s], yv);
+        for (int s = 0; s < S; s += 4) {
+          const float4 b4 =
+              *reinterpret_cast<const float4*>(bs + tt * DS + l * S + s);
+          const float4 c4 =
+              *reinterpret_cast<const float4*>(cs + tt * DS + l * S + s);
+          bv[s] = b4.x; bv[s + 1] = b4.y; bv[s + 2] = b4.z; bv[s + 3] = b4.w;
+          cv[s] = c4.x; cv[s + 1] = c4.y; cv[s + 2] = c4.z; cv[s + 3] = c4.w;
         }
-        y[base + (size_t)(t0 + tt) * di] = yv;
+        float q = 0.f;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          h[s] = fmaf(ex2(dtv * a2[s]), h[s], dxv * bv[s]);
+          q = fmaf(h[s], cv[s], q);
+        }
+        p[j] = q;
+      }
+      ys[(g * L + l) * CH + ch] = reduce_scatter<L>(p, l);
+    }
+    __syncthreads();              // the chunk's y tile is complete
+    const int t0 = c * BT;
+    if (vec) {
+      for (int idx = tid; idx < nt * CH / 4; idx += THR) {
+        const int r = idx / (CH / 4), k = (idx % (CH / 4)) * 4;
+        if (d0 + k < di)
+          *reinterpret_cast<float4*>(y + ((size_t)b * T + t0 + r) * di + d0 +
+                                     k) =
+              *reinterpret_cast<const float4*>(ys + r * CH + k);
+      }
+    } else {
+      for (int idx = tid; idx < nt * CH; idx += THR) {
+        const int r = idx / CH, k = idx % CH;
+        if (d0 + k < di)
+          y[((size_t)b * T + t0 + r) * di + d0 + k] = ys[r * CH + k];
       }
     }
   }
   if (!live) return;
 #pragma unroll
-  for (int s = 0; s < DS; ++s) h_last[((size_t)b * di + d) * DS + s] = h[s];
+  for (int s = 0; s < S; s += 4)
+    *reinterpret_cast<float4*>(h_last + row + s) =
+        make_float4(h[s], h[s + 1], h[s + 2], h[s + 3]);
+}
+
+template <int DS>
+int launch(const float* dt, const float* dx, const float* A, const float* Bc,
+           const float* Cc, const float* h0, float* y, float* h_last, int B,
+           int T, int di, void* stream) {
+  const int smem = (int)sizeof(float) * smem_floats(DS);
+  if (smem > 48 * 1024) {       // only ds = 64; a decode step stays lean
+    const cudaError_t err = cudaFuncSetAttribute(
+        selective_scan_kernel<DS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((di + CH - 1) / CH, B);
+  selective_scan_kernel<DS><<<grid, CH * lanes(DS), smem,
+                              (cudaStream_t)stream>>>(dt, dx, A, Bc, Cc, h0,
+                                                       y, h_last, T, di);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// lanes a channel for this d_state (kernels/selective_scan.lanes is
+// checked against this)
+extern "C" int selective_scan_lanes(int ds) { return lanes(ds); }
 
 extern "C" int selective_scan_f32(const float* dt, const float* dx,
                                   const float* A, const float* Bc,
@@ -102,10 +293,19 @@ extern "C" int selective_scan_f32(const float* dt, const float* dx,
                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ds != DS) return (int)cudaErrorInvalidValue;
   if (B == 0 || di == 0) return 0;
-  const dim3 grid((di + THREADS - 1) / THREADS, B);
-  selective_scan_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      dt, dx, A, Bc, Cc, h0, y, h_last, T, di);
-  return (int)cudaGetLastError();
+  switch (ds) {
+    case 4:
+      return launch<4>(dt, dx, A, Bc, Cc, h0, y, h_last, B, T, di, stream);
+    case 8:
+      return launch<8>(dt, dx, A, Bc, Cc, h0, y, h_last, B, T, di, stream);
+    case 16:
+      return launch<16>(dt, dx, A, Bc, Cc, h0, y, h_last, B, T, di, stream);
+    case 32:
+      return launch<32>(dt, dx, A, Bc, Cc, h0, y, h_last, B, T, di, stream);
+    case 64:
+      return launch<64>(dt, dx, A, Bc, Cc, h0, y, h_last, B, T, di, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -59,6 +59,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # x, sel, A2, ll, F, C, D, K, E2, device, stream
         "gmm_rescore_fused_f32": (PTR, PTR, PTR, PTR, INT, INT, INT, INT,
                                   INT, INT, PTR),
+        # C, D, K, rescore alone, out[3]
+        "gmm_align_geometry": (INT, INT, INT, INT, PTR),
     },
     "gmm_loglik": {
         # x, W (gmm_loglik.packed_weights), out, F, C, D, E2, E2p, Cp,
@@ -84,6 +86,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # stream
         "selective_scan_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT,
                                INT, INT, INT, INT, PTR),
+        # d_state -> lanes a channel
+        "selective_scan_lanes": (INT,),
     },
 }
 
@@ -172,6 +176,13 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: "
                            f"cudaError {err}")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on a 16-byte
+    boundary (a view into a larger tensor): kernels that read rows with
+    16-byte copies take their operands through this."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -104,6 +104,26 @@ def diag_topk(x, dconst, dlin, dquad, top_k: int):
     return scores, order[:, :top_k]
 
 
+def argmax_topk(scores, top_k: int):
+    """The TPU kernel's top-K (src/repro/kernels/gmm_align.py, phase 2):
+    ``top_k`` masked-argmax passes over scores [F, C], each taking the first
+    id attaining the row's max and setting its score to -inf -> sel [F, K]
+    int64. Where no score is NaN it selects what ``diag_topk`` does, until a
+    frame's scores above -inf run out: the slots after take id 0. A pass
+    whose max is NaN takes C-1 (so a NaN below C-1 gives C-1 in every slot;
+    a NaN at C-1 alone, C-1 first)."""
+    s = scores.clone()
+    F, C = s.shape
+    iota = torch.arange(C, device=s.device).expand(F, C)
+    cols = []
+    for _ in range(top_k):
+        v = s.amax(dim=1, keepdim=True)                  # NaN propagates
+        idx = torch.where(s >= v, iota, C).amin(dim=1).clamp(max=C - 1)
+        cols.append(idx)
+        s.scatter_(1, idx[:, None], float("-inf"))
+    return torch.stack(cols, 1)
+
+
 def gmm_align(x, dconst, dlin, dquad, A2, top_k: int):
     """The fused alignment front half, plainly: diag preselect + top-K, then
     the packed rescore of the selected set -> (sel_ll [F, K], sel [F, K])."""

@@ -227,6 +227,136 @@ def test_gmm_align_matches_pallas(F, D, C, K, bf, ties):
             assert r.index(2) + 1 == r.index(4) and r.index(4) + 1 == r.index(9)
 
 
+def _pallas_sel(x, dconst, dlin, dquad, K, bf):
+    """The Pallas kernel's selection (interpret mode), any packed rows."""
+    F, D = x.shape
+    C = dconst.shape[0]
+    A2 = tref.align_pack(torch.zeros(C), torch.zeros(D, C),
+                         torch.eye(D).reshape(1, D * D).repeat(C, 1))
+    _, sel = jga.gmm_align(
+        jnp.asarray(x), jnp.asarray(dconst)[None], jnp.asarray(dlin),
+        jnp.asarray(dquad), jops.align_expand_operand(D, A2.shape[1]),
+        jnp.asarray(A2.numpy()), top_k=K, block_f=bf, dma_depth=2)
+    return np.asarray(sel)
+
+
+@pytest.mark.parametrize("C,K,chunk,ties", [
+    (300, 7, 128, ((128, 127), (256, 255), (129, 3))),  # C ragged to 128
+    (300, 7, 16, ((16, 15), (32, 31), (47, 3))),
+    (300, 6, 7, ((7, 6), (14, 13), (22, 0))),            # a ragged width
+    (23, 23, 128, ((4, 2), (9, 2))),                     # K = C
+    (23, 23, 8, ((8, 7), (16, 7))),
+])
+def test_streaming_topk_matches_pallas_and_plain(C, K, chunk, ties):
+    """The kernel's top-K (``streaming_topk``: chunks merged into a running
+    best-K list) selects what the Pallas kernel's K masked-argmax passes
+    and the plain stable sort select, in the same order. Each (dst, src)
+    copies a boosted component, so its scores tie exactly with the
+    source's across a chunk boundary; the lower id goes first."""
+    F, D = 16, 5
+    rng = np.random.default_rng(C + K + chunk)
+    x = rng.standard_normal((F, D)).astype(np.float32)
+    dconst, dlin, dquad = _diag_coeffs(rng, C, D)
+    for _, src in ties:
+        dconst[src] += 40.0          # in every frame's top K
+    for dst, src in ties:
+        dconst[dst], dlin[:, dst], dquad[:, dst] = (
+            dconst[src], dlin[:, src], dquad[:, src])
+    scores, want = tref.diag_topk(_t(x), _t(dconst), _t(dlin), _t(dquad), K)
+    got = tga.streaming_topk(scores, K, chunk)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(tref.argmax_topk(scores, K).numpy(),
+                                  want.numpy())
+    np.testing.assert_array_equal(got.numpy(),
+                                  _pallas_sel(x, dconst, dlin, dquad, K, 8))
+    for dst, src in ties:
+        lo, hi = min(dst, src), max(dst, src)
+        for r in got.numpy().tolist():
+            assert r.index(lo) < r.index(hi)
+
+
+@pytest.mark.parametrize("nan_frame,nan_last,ninf", [
+    (True, False, False), (False, True, False), (True, True, False),
+    (False, False, True), (False, True, True), (True, False, True)])
+def test_streaming_topk_nan_rule_matches_pallas(nan_frame, nan_last, ninf):
+    """A frame whose scores hold a NaN below C-1 selects C-1 in every
+    slot; a NaN at C-1 alone puts C-1 first, then the best K-1 of the
+    others; with zero-weight components (a dconst of -inf) leaving fewer
+    than K scores above -inf, the slots after them take id 0: what the
+    Pallas kernel's masked-argmax passes give, and so both instances of
+    the CUDA kernel (the streaming merge, ``streaming_topk``; the argmax
+    passes over whole rows, as ``ref.argmax_topk``)."""
+    F, D, C, K = 16, 5, 300, 6
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((F, D)).astype(np.float32)
+    dconst, dlin, dquad = _diag_coeffs(rng, C, D)
+    finite = np.array([7, 130, 131, 256])       # across chunk boundaries
+    if ninf:
+        keep = np.zeros(C, bool)
+        keep[finite] = True
+        dconst[~keep] = -np.inf
+    if nan_frame:
+        x[2] = np.nan
+    if nan_last:
+        dconst[C - 1] = np.nan
+    scores, _ = tref.diag_topk(_t(x), _t(dconst), _t(dlin), _t(dquad), K)
+    want = _pallas_sel(x, dconst, dlin, dquad, K, 8)
+    got = tga.streaming_topk(scores, K).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tref.argmax_topk(scores, K).numpy(), want)
+    if nan_frame:
+        assert (got[2] == C - 1).all()
+    if nan_last:
+        assert (got[:, 0] == C - 1).all()
+    if ninf:
+        ok = [f for f in range(F) if not (nan_frame and f == 2)]
+        first = 1 if nan_last else 0
+        assert (np.sort(got[ok, first:first + 4], axis=1) == finite).all()
+        assert (got[ok, first + 4:] == 0).all()
+
+
+def test_gmm_align_geometry_fits_shared_memory():
+    """Blocks of the kernel: at the paper's width (C=2048, D=72, K=20) the
+    streaming instance, 64 frames in 109,056 bytes, two blocks in an SM's
+    228 KB; the rescore alone runs with the same blocks; K above 32 takes the
+    whole-row instance, 16 frames, then 8 once 16 rows outgrow a block
+    (C = 4096, K = 40, which the previous 8-frame kernel took too), until
+    8 rows outgrow it above C = 6272."""
+    assert tga.geometry(2048, 72, 20) == (64, True, 109056)
+    assert 2 * (109056 + 1024) <= 228 * 1024 < 3 * (109056 + 1024)
+    assert tga.geometry(2048, 72, 40, rescore_only=True) == (64, True, 109056)
+    assert tga.geometry(2048, 72, 40) == (16, False, 160256)
+    assert tga.geometry(2048, 72, 2048)[:2] == (16, False)
+    assert tga.geometry(3072, 72, 40)[:2] == (16, False)
+    assert tga.geometry(3073, 72, 40)[:2] == (8, False)
+    assert tga.geometry(4096, 72, 40) == (8, False, 160256)
+    assert tga.geometry(4096, 72, 4096)[:2] == (8, False)
+    assert tga.geometry(6272, 72, 40)[2] <= tga.MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        tga.geometry(6273, 72, 40)
+    for C, D, K in ((23, 6, 5), (2048, 72, 32), (300, 5, 7)):
+        bf, stream, smem = tga.geometry(C, D, K)
+        assert stream and bf == tga.BF_STREAM and smem <= tga.MAX_SMEM
+
+
+def test_gmm_align_geometry_constants_are_the_cuda_ones():
+    """``geometry``'s constants are those of csrc/gmm_align.cu, and its
+    frame counts those of the kernel's two instances (16 FM frame slots);
+    the shared memory for a shape is checked against the CUDA side's own
+    answer on the card (chip_smoke.py, ``kernel_geometry``)."""
+    src = (_build.CSRC / "gmm_align.cu").read_text()
+    const = {k: int(v) for k, v in
+             re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    for name in ("NC", "BKD", "STAGES", "STREAM_K", "MAX_SMEM"):
+        assert const[name] == getattr(tga, name), name
+    inst = dict((s, 16 * int(fm)) for fm, s in
+                re.findall(r"launch_instance<(\d+), (true|false)>\(", src))
+    assert inst == {"true": tga.BF_STREAM, "false": tga.BF_PRODUCT_ROWS}
+    assert re.search(r"g\.rows = g\.stream \? (\d+) : (\d+); g\.rows >= "
+                     r"(\d+); g\.rows /= 2", src).groups() == tuple(
+                         str(n) for n in (tga.BF_STREAM, *tga.BF_ROWS))
+
+
 def test_align_pack_expand_and_fused_rescore_match_jax():
     """The packed-symmetric rows, the frame expansion and the fused rescore
     (both JAX strategies compute the same function) agree with JAX, and
@@ -537,7 +667,7 @@ def test_build_names_every_source(tmp_path, monkeypatch):
         assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     for name in ("flash_attention", "packed_matmul", "bw_stats",
-                 "gmm_loglik"):
+                 "gmm_loglik", "gmm_align", "selective_scan"):
         assert _build.includes(name) == ["hopper.cuh"]
     for p in _build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())

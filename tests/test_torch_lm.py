@@ -12,6 +12,7 @@ layers and kernels (the same f32 products summed in another order),
 chunked-associative JAX scan against a sequential one).
 """
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -205,6 +206,63 @@ def test_selective_scan_with_state_matches_jax_scan():
     _close(h, want_h)
 
 
+@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("T", [64, 37])   # 37: ragged to 16-step chunks
+@pytest.mark.parametrize("with_state", [False, True])
+def test_scan_lanes_matches_pallas_and_plain(ds, T, with_state):
+    """The CUDA scan's arithmetic (``scan_lanes``: exp2 of dt (A log2 e),
+    each lane's partial C.h over its states, the lanes' partials added as
+    the xor shuffles add them) against the Pallas kernel in interpret mode
+    (no h0; it starts from zeros) or the JAX model's scan (with h0), and
+    against the port's plain version, y and the last state."""
+    dt, dx, A, Bc, Cc = _scan_inputs(2, T, 24, ds, seed=ds + T)
+    h0 = _normal(np.random.default_rng(T), 2, 24, ds) if with_state else None
+    y, h = tss.scan_lanes(*(_t(a) for a in (dt, dx, A, Bc, Cc)),
+                          None if h0 is None else _t(h0))
+    wy, wh = tref.selective_scan(*(_t(a) for a in (dt, dx, A, Bc, Cc)),
+                                 None if h0 is None else _t(h0))
+    _close(y, wy)
+    _close(h, wh)
+    if with_state:
+        jy, jh = JMB._ssm_scan(*(jnp.asarray(a)
+                                 for a in (dt, dx, A, Bc, Cc, h0)))
+        _close(h, jh)
+    else:
+        jy = jss.selective_scan(*(jnp.asarray(a) for a in (dt, dx, A, Bc, Cc)),
+                                block_t=T, block_d=8, interpret=True)
+    _close(y, jy)
+
+
+def test_scan_lanes_split_d_state_over_lanes():
+    """Lanes per channel as a function of d_state: two at Jamba's 8 and 16,
+    one at 4 and four above, so that each lane holds 4 to 16 states (a
+    multiple of 4: float4 reads), every state on exactly one lane; a
+    d_state without a kernel instance is refused, naming the instances."""
+    assert [tss.lanes(ds) for ds in tss.D_STATES] == [1, 2, 2, 4, 4]
+    for ds in tss.D_STATES:
+        L = tss.lanes(ds)
+        assert ds % L == 0 and 4 <= ds // L <= 16 and (ds // L) % 4 == 0
+        assert 32 % L == 0                  # a channel's lanes share a warp
+    for ds in (2, 12, 128):
+        with pytest.raises(ValueError, match=r"d_state in \(4, 8, 16"):
+            tss.lanes(ds)
+
+
+def test_scan_d_states_are_the_cuda_instances():
+    """``D_STATES`` lists exactly the d_states the dispatch of
+    csrc/selective_scan.cu has an instance for, and ``lanes`` is the
+    kernel's ``lanes`` there (checked on the card by chip_smoke.py through
+    ``selective_scan_lanes``)."""
+    src = (_build.CSRC / "selective_scan.cu").read_text()
+    body = src[src.index('extern "C" int selective_scan_f32('):]
+    cases = tuple(int(n) for n in re.findall(r"case (\d+):\s+return launch<",
+                                             body))
+    assert cases == tss.D_STATES
+    expr = re.search(r"constexpr int lanes\(int ds\) \{\s+return ([^;]+);",
+                     src).group(1)
+    assert expr == "ds == 4 ? 1 : ds <= 16 ? 2 : 4"
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 def test_mamba_mix_matches_jax(with_state):
     jc, tc = _cfgs(JAMBA)
@@ -361,8 +419,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     dt, dx, A, Bc, Cc = (_t(a) for a in _scan_inputs(1, 4, 8, 16, seed=0))
     with pytest.raises(ValueError, match="CUDA"):
         tss.selective_scan(dt, dx, A, Bc, Cc)
-    # the kernel is built for Jamba's d_state of 16 only
-    dt, dx, A, Bc, Cc = (_t(a) for a in _scan_inputs(1, 4, 8, 8, seed=0))
+    # the kernel has instances for d_state in tss.D_STATES only
+    dt, dx, A, Bc, Cc = (_t(a) for a in _scan_inputs(1, 4, 8, 12, seed=0))
     with pytest.raises(ValueError, match="d_state"):
         tss.selective_scan(dt, dx, A, Bc, Cc)
     assert tfa.flash_attention.launches == 0
