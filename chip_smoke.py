@@ -270,6 +270,7 @@ def kernel_checks(ex, utts, g):
             lambda: ref.gmm_rescore(x, sel, const, linT, Pf), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     del got, want
+    rows[-1].update(check_gmm_rescore(ex, frames, x, sel, K, g))
     torch.cuda.empty_cache()
 
     rows += check_packed_matmul(ex, C, g)
@@ -287,6 +288,149 @@ def kernel_checks(ex, utts, g):
           f"torch.matmul {bw['library_full_ms']:.4f} ms; bound over the "
           f"touched (frame, tile) pairs {bw['touched_bound_ms']:.4f} ms")
     return rows
+
+
+def short_name(kernel: str) -> str:
+    """A device event's name without its return type, namespace and
+    argument list."""
+    return (kernel.replace("(anonymous namespace)::", "")
+            .replace("void ", "").split("(")[0])
+
+
+def pair_spread(sel, C: int):
+    """How a launch's (frame, slot) pairs spread over the components: the
+    distinct ids, the mean (over those ids) and the largest number of pairs
+    a component has, and for each work-item size BP the share of the
+    BP-pair slots that grouping the pairs by component fills."""
+    counts = torch.bincount(sel.reshape(-1), minlength=C)
+    used = counts[counts > 0]
+    n = sel.numel()
+    fill = {bp: n / (bp * ((used + bp - 1) // bp).sum().item())
+            for bp in (32, 64)}
+    return {"distinct": used.numel(), "mean": n / used.numel(),
+            "max": used.max().item(), "fill": fill}
+
+
+def check_gmm_rescore(ex, frames, x, sel, K: int, g):
+    """gmm_rescore beyond the timed shape: ragged F (1,000), C = 1999 (the
+    first 1,999 rows, ids clipped into them), K = 1 and K = 40, every frame
+    on one set of ids (a serving bucket's padded frames), a P that is not
+    symmetric, D = 36 and 7 (the kernel's instance for any D, on random
+    SPD precisions), and the stats pass's F = 262,144 (the request frames
+    repeated; the plain version in 16,384-frame pieces), each held against
+    ``ref.gmm_rescore``; two calls bitwise equal. Prints how the pairs
+    spread over the components (``pair_spread``), the time at both F and
+    its split by launch (profiled), and holds the wrapper's ``geometry``
+    against the CUDA side's."""
+    from repro_torch.core import alignment as AL
+    from repro_torch.kernels import gmm_rescore as GR
+    from repro_torch.kernels import ref
+    dev = ex.device
+    const, lin, P = ex._pack.pre
+    C, D = lin.shape
+    linT, Pf = lin.T.contiguous(), P.reshape(C, D * D).contiguous()
+    A = ex._pack.rescore_A
+    F = x.shape[0]
+
+    def held(label, xs, ss, Cr=C, Ps=Pf, As=A):
+        return compare(f"gmm_rescore {label}", GR.gmm_rescore(xs, ss, As),
+                       ref.gmm_rescore(xs, ss, const[:Cr], linT[:, :Cr],
+                                       Ps[:Cr]))
+
+    held(f"ragged [1000x{K}]", x[:1000].contiguous(),
+         sel[:1000].contiguous())
+    Cr = 1999
+    held(f"[{F}x{K}] of the first C={Cr} rows", x,
+         sel.clamp(max=Cr - 1).contiguous(), Cr, As=A[:Cr].contiguous())
+    held(f"[{F}x1]", x, sel[:, :1].contiguous())
+    _, sel40 = AL.preselect(ex._pack.diag, x, 40)
+    held(f"[{F}x40]", x, sel40.contiguous())
+    del sel40
+    held(f"[{F}x{K}], every frame on frame 0's ids", x,
+         sel[:1].expand(F, K).contiguous())
+    g2 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 4)
+    skew = torch.randn(C, D, D, generator=g2, device=dev)
+    Pn = (P + 0.05 * P.abs().max() * (skew - skew.transpose(1, 2))
+          ).reshape(C, D * D).contiguous()
+    del skew
+    held(f"[{F}x{K}], P not symmetric", x, sel, Ps=Pn,
+         As=ref.rescore_pack(const, linT, Pn))
+    del Pn
+    # the instance for any D: P padded by 4-byte copies (D = 36), and the
+    # frames too where a row is not 16-byte aligned (D = 7)
+    for Dg in (36, 7):
+        Cg, Fg = 300, 3000
+        a = torch.randn(Cg, Dg, Dg, generator=g2, device=dev)
+        Pg = (a @ a.transpose(1, 2) / Dg
+              + torch.eye(Dg, device=dev)).reshape(Cg, Dg * Dg)
+        cg_ = torch.randn(Cg, generator=g2, device=dev)
+        lg = torch.randn(Dg, Cg, generator=g2, device=dev)
+        xg = torch.randn(Fg, Dg, generator=g2, device=dev)
+        sg = torch.randint(0, Cg, (Fg, K), generator=g2, device=dev)
+        compare(f"gmm_rescore [{Fg}x{K}], D={Dg}, C={Cg}",
+                GR.gmm_rescore(xg, sg, ref.rescore_pack(cg_, lg, Pg)),
+                ref.gmm_rescore(xg, sg, cg_, lg, Pg))
+    got = GR.gmm_rescore(x, sel, A)
+    if not torch.equal(got, GR.gmm_rescore(x, sel, A)):
+        fail("gmm_rescore: two calls on the same input are not bitwise "
+             "equal")
+    print("  gmm_rescore: two calls are bitwise equal")
+
+    # the stats pass's shape: 512 utterances x 512 frames
+    Fs = 512 * 512
+    xs = frames.repeat(-(-Fs // frames.shape[0]), 1)[:Fs].contiguous()
+    ss = torch.cat([AL.preselect(ex._pack.diag, xs[s:s + 16384], K)[1]
+                    for s in range(0, Fs, 16384)]).contiguous()
+    got = GR.gmm_rescore(xs, ss, A)
+    err = 0.0
+    scale = 0.0
+    for s in range(0, Fs, 16384):
+        want = ref.gmm_rescore(xs[s:s + 16384], ss[s:s + 16384], const,
+                               linT, Pf)
+        err = max(err, (got[s:s + 16384] - want).abs().max().item())
+        scale = max(scale, want.abs().max().item())
+    print(f"  gmm_rescore [{Fs}x{K}]: max_abs_err {err:.3e}  (tolerance "
+          f"{TOL:g} x max|plain| = {TOL * scale:.3e})  "
+          f"{'ok' if err <= TOL * scale else 'DISAGREES'}")
+    if err > TOL * scale:
+        fail("gmm_rescore at the stats pass's shape disagrees with its "
+             "plain version")
+    del got, want
+    spread = {f: pair_spread(s_, C) for f, s_ in ((F, sel), (Fs, ss))}
+    times = {F: cuda_ms(lambda: GR.gmm_rescore(x, sel, A), 20),
+             Fs: cuda_ms(lambda: GR.gmm_rescore(xs, ss, A), 5)}
+    for f, sp in spread.items():
+        print(f"  gmm_rescore at F={f}: {times[f]:.4f} ms; pairs over "
+              f"components: {sp['distinct']} distinct ids, "
+              f"{sp['mean']:.1f} pairs a component on average, at most "
+              f"{sp['max']}; BP-slot fill "
+              + ", ".join(f"{100 * v:.1f}% at BP={bp}"
+                          for bp, v in sp["fill"].items()))
+    # device time by launch (the sort's four and the rescore), one call
+    split = {}
+    for f, xx, s_ in ((F, x, sel), (Fs, xs, ss)):
+        split[f] = profile_path(lambda: GR.gmm_rescore(xx, s_, A))["top"]
+        print(f"  gmm_rescore at F={f}, device ms by launch: "
+              + "; ".join(f"{short_name(name)} {ms:.4f}"
+                          for name, ms, _ in split[f]))
+    del xs, ss
+    # the wrapper's geometry against the CUDA side's, fitting and refused
+    for shape in ((F, K, C, D), (1000, 1, 1999, D), (F, 40, C, D),
+                  (100, K, C, 200), (100, K, C, 201), (100, K, 58112, D),
+                  (100, K, 58113, D), (2 ** 31 // K + 1, K, C, D)):
+        try:
+            mine = GR.geometry(*shape)
+        except ValueError:
+            mine = None
+        if mine != GR.kernel_geometry(*shape):
+            fail(f"gmm_rescore: geometry{shape} is {mine} in the wrapper, "
+                 f"{GR.kernel_geometry(*shape)} in the kernel")
+    g0 = GR.geometry(F, K, C, D)
+    print(f"  gmm_rescore: work items of {g0.bp} pairs, at most "
+          f"{g0.max_items} at F={F}; {g0.smem_bytes} bytes of shared memory "
+          f"a block (the kernel's own answer, as the wrapper's)")
+    return {"times": times, "spread": spread, "split": split,
+            "geometry": g0._asdict()}
 
 
 # packed_matmul's rows: (row, wrapper, "<dtype>_<form>" of its launch

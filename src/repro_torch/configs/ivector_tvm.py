@@ -39,14 +39,14 @@ class IVectorConfig:
     posterior_floor: float = 0.025
     # full-covariance scoring of the preselected set (DESIGN.md §8, §12):
     #   'fused'  - the single-kernel alignment pipeline (preselect, top-K,
-    #              coalesced gather, packed-symmetric GEMM rescore;
-    #              kernels/gmm_align.py): the same C/K FLOP cut as
-    #              'sparse' without its per-slot DMA cost — the fast path
-    #              on every backend; the roofline autotuner picks the
-    #              tile schedule per (C, K, D, backend)
-    #   'sparse' - gather-and-rescore only the K selected components
-    #              (kernels/gmm_rescore.py): a C/K (~100x at this scale)
-    #              FLOP cut on the hottest path; the paper-regime default
+    #              packed-symmetric rescore; csrc/gmm_align.cu): the same
+    #              C/K FLOP cut as 'sparse' with the preselection in the
+    #              same launch
+    #   'sparse' - rescore only the K selected components
+    #              (csrc/gmm_rescore.cu): a C/K (~100x at this scale) FLOP
+    #              cut on the hottest path; the pairs are grouped by
+    #              component on the card, so each row is read once per
+    #              work item of up to 64 pairs; the paper-regime default
     #   'dense'  - score all C densely and gather (vec-trick matmul);
     #              the CPU/reference fallback, wins at small C
     # fallback ladder: fused -> sparse -> dense (DESIGN.md §12)

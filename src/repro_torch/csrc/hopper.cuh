@@ -2,8 +2,9 @@
 // cp.async copies, mbarriers, TMA tensor loads, wgmma descriptors and
 // products, and cuTensorMapEncodeTiled found through the runtime.
 //
-// Included by flash_attention.cu, packed_matmul.cu, bw_stats.cu,
-// gmm_loglik.cu, gmm_align.cu and selective_scan.cu. kernels/_build.py
+// Included by every source of csrc/: flash_attention.cu, packed_matmul.cu,
+// bw_stats.cu, gmm_loglik.cu, gmm_align.cu, gmm_rescore.cu and
+// selective_scan.cu. kernels/_build.py
 // hashes every header a source includes, so an edit here rebuilds each of
 // them.
 #pragma once

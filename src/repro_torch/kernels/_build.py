@@ -69,9 +69,12 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                            PTR),
     },
     "gmm_rescore": {
-        # x, sel, A, out, F, K, D, E, device, stream
-        "gmm_rescore_f32": (PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
-                            PTR),
+        # x, sel, A, out, scratch, F, K, C, D, E, then the geometry
+        # (max_items, scratch_words, smem), device, stream
+        "gmm_rescore_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+                            INT, I64, I64, I64, INT, PTR),
+        # F, K, C, D, out[4]
+        "gmm_rescore_geometry": (I64, I64, I64, INT, PTR),
     },
     "packed_matmul": {
         # a, b, out, M, K, N, a_stride_m, a_stride_k, b_row_stride, form

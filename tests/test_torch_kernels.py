@@ -140,17 +140,26 @@ def test_flash_attention_bf16_head_dims_are_the_cuda_instances():
     assert cases == tfa.BF16_HEAD_DIMS
 
 
-@pytest.mark.parametrize("F,D,C,K", [
-    (64, 8, 32, 5),
-    (37, 6, 16, 16),          # ragged F, K == C
+@pytest.mark.parametrize("F,D,C,K,case", [
+    pytest.param(64, 8, 32, 5, "", id="64-8-32-5"),
+    pytest.param(37, 6, 16, 16, "", id="37-6-16-16"),  # ragged F, K == C
+    pytest.param(50, 8, 32, 1, "", id="K1"),
+    pytest.param(64, 8, 32, 5, "bucket", id="padded-bucket"),
+    pytest.param(40, 7, 12, 4, "asym", id="P-not-symmetric"),
 ])
-def test_gmm_rescore_matches_pallas(F, D, C, K):
+def test_gmm_rescore_matches_pallas(F, D, C, K, case):
     """Duplicate, boundary and out-of-range ids: both wrappers clip into
-    [0, C) and score each slot independently."""
+    [0, C) and score each slot independently. Also K = 1; a serving
+    bucket whose padded frames (most of them here) all carry the same K
+    ids; and a P that is not symmetric, which both use whole."""
     rng = np.random.default_rng(F * K)
     x = rng.standard_normal((F, D)).astype(np.float32)
     const, lin, P = _precisions(rng, C, D)
+    if case == "asym":
+        P = P + 0.3 * rng.standard_normal(P.shape).astype(np.float32)
     sel = rng.integers(0, C, size=(F, K)).astype(np.int32)
+    if case == "bucket":
+        sel[F // 4:] = sel[F // 4]
     sel[0, :] = sel[0, 0]                 # duplicates
     sel[1, 0], sel[1, -1] = 0, C - 1      # boundaries
     sel[2, 0], sel[2, -1] = -3, C + 5     # out of range: clipped
@@ -165,6 +174,78 @@ def test_gmm_rescore_matches_pallas(F, D, C, K):
     pack = tref.rescore_pack(_t(const), _t(lin), _t(P))
     _close(pack, jref.rescore_pack(jnp.asarray(const), jnp.asarray(lin),
                                    jnp.asarray(P)))
+    # the CUDA kernel's grouping, in plain tensor code: pairs sorted by
+    # component, cut by work_items, scored an item at a time
+    ids = _t(sel).long().clamp(0, C - 1)
+    for bp in (tgr.BP, 3):
+        _close(_grouped(_t(x), ids, pack, bp), want)
+
+
+def _grouped(x, sel, A, bp):
+    F, D = x.shape
+    K = sel.shape[1]
+    flat = sel.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    out = torch.full((F * K,), float("nan"))
+    counts = torch.bincount(flat, minlength=A.shape[0])
+    for c, first, n in tgr.work_items(counts, bp).tolist():
+        p = order[first:first + n]
+        assert 1 <= n <= bp and (flat[p] == c).all()
+        xs = x[p // K]
+        P = A[c, 1 + D:1 + D + D * D].reshape(D, D)
+        out[p] = (A[c, 0] + xs @ A[c, 1:1 + D]) - 0.5 * ((xs @ P) * xs).sum(1)
+    return out.reshape(F, K)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_gmm_rescore_geometry(seed):
+    """Work items cover every pair exactly once, each within its
+    component's segment, for any histogram (empty components, one hot
+    component, counts on and off multiples of BP); their number stays
+    within the ceil(F*K / BP) + C that the wrapper allocates; a block's
+    shared memory fits; F*K >= 2**31, a D too wide and a C whose histogram
+    does not fit are refused."""
+    rng = np.random.default_rng(seed)
+    C = int(rng.integers(1, 300))
+    counts = rng.integers(0, 200, size=C) * (rng.uniform(size=C) < 0.7)
+    counts[rng.integers(0, C)] += int(rng.integers(0, 5000))
+    counts[rng.integers(0, C)] = tgr.BP * int(rng.integers(1, 4))
+    pairs = int(counts.sum())
+    K = int(rng.integers(1, 41))
+    F = -(-pairs // K)
+    counts[0] += F * K - pairs            # exactly F*K pairs
+    g = tgr.geometry(F, K, C, 72)
+    assert g.bp == tgr.BP and g.max_items == -(-F * K // tgr.BP) + C
+    assert g.scratch_words == (-(-(2 * C + 1) // 4) * 4 + 4 * g.max_items
+                               + F * K)
+    seg = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]))
+    for bp in (tgr.BP, int(rng.integers(1, 100))):
+        items = tgr.work_items(torch.from_numpy(counts), bp)
+        assert items.shape[0] <= -(-F * K // bp) + C
+        c, first, n = items.T
+        assert ((n >= 1) & (n <= bp)).all()
+        # in order, item after item, they tile [0, F*K) without a gap
+        assert first[0] == 0 and (first[1:] == (first + n)[:-1]).all()
+        assert int((first + n)[-1]) == F * K
+        assert ((first >= seg[c]) & (first + n <= seg[c + 1])).all()
+    for D in (1, 7, 8, 72, 144, 200):
+        assert tgr.geometry(100, 20, 2048, D).smem_bytes <= 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        tgr.geometry(100, 20, 2048, 201)
+    with pytest.raises(ValueError, match="shared memory"):
+        tgr.geometry(100, 20, 232448 // 4 + 1, 72)
+    tgr.geometry(100, 20, 232448 // 4, 72)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        tgr.geometry(2 ** 31 // 20 + 1, 20, 2048, 72)
+    tgr.geometry(2 ** 31 // 20, 20, 2048, 72)
+
+
+def test_gmm_rescore_constants_are_the_cuda_ones():
+    """The wrapper's geometry constants are csrc/gmm_rescore.cu's."""
+    src = (_build.CSRC / "gmm_rescore.cu").read_text()
+    for name, value in (("BP", tgr.BP), ("COLS", tgr.COLS),
+                        ("MAX_SMEM", tgr.MAX_SMEM)):
+        assert re.search(rf"constexpr [a-z ]+ {name} = {value};", src), name
 
 
 @pytest.mark.parametrize("F,D,C,bf,bc", [
@@ -667,7 +748,7 @@ def test_build_names_every_source(tmp_path, monkeypatch):
         assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     for name in ("flash_attention", "packed_matmul", "bw_stats",
-                 "gmm_loglik", "gmm_align", "selective_scan"):
+                 "gmm_loglik", "gmm_align", "gmm_rescore", "selective_scan"):
         assert _build.includes(name) == ["hopper.cuh"]
     for p in _build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
