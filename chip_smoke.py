@@ -28,7 +28,15 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   prefill of 4 x 2048 tokens, then 16 decode steps from a zero cache, as
   its prefill returns no cache); and checks, at
   depth 8 in f32, Jamba's prefill on the kernels against the same path on
-  the plain versions, and decode against prefill for both models.
+  the plain versions, and decode against prefill for both models;
+* drives the staged recipe (``repro_torch.api``) at full width: 64
+  speakers x 10 utterances x 512 frames from the port's
+  ``data/speech.py`` (mean and variance normalised), a top-20
+  ``train_ubm`` UBM passed in through the (feats, labels, ubm) triple,
+  ``IVectorRecipe.run`` for 3 iterations with the §4.1 backend, the trial
+  EER and a bundle saved to a temporary directory; serves 32 requests
+  through ``IVectorExtractor.from_bundle`` (bitwise the in-memory
+  session's) and holds the backend against the CPU.
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -88,6 +96,22 @@ INV_TOL = 1e-3
 T_INV_TOL = 1e-2
 ILL_POSED = ("T_c T_c^T", "T[:,:,0] p", "|prior|")
 CPU_CHECK_RUNS = 3
+# the recipe phase: 64 speakers x 10 utterances x 512 frames
+RECIPE_SPEAKERS, RECIPE_UTTS, RECIPE_FRAMES = 64, 10, 512
+# the §4.1 backend of the recipe run, card against the CPU. One trained
+# backend applied and scored on both: projected vectors and trial scores
+# within BACKEND_TOL x max|value| (f32 products and two Cholesky solves of
+# the same inputs, in another order; 3.7e-7 and 1.9e-6 read on an H100
+# 80GB HBM3, 700 W). The chain trained anew on the CPU from the card's
+# i-vectors: LDA 400 -> 200 on 64 speakers keeps 137 columns from the null
+# space of the between-class scatter (rank 63), chosen by rounding, so
+# only the 63 leading projected columns are held, up to sign, within
+# LDA_LEAD_TOL x max|value| (read: 4.7e-7), and its EER within EER_TOL,
+# five trials of the 10,000 in a class (read: equal); its trial scores
+# are printed (read: 5.3e-3 x max|score| apart).
+BACKEND_TOL = 1e-4
+LDA_LEAD_TOL = 1e-4
+EER_TOL = 5e-4
 
 
 def fail(msg: str) -> None:
@@ -1548,6 +1572,175 @@ def lm_phase(seed, dev):
     return [fa_row, ss_row], paths, rec
 
 
+class TimedStage:
+    """A canonical stage of the recipe, recording its wall time to the
+    device's end."""
+
+    def __init__(self, name: str, walls: dict, dev):
+        from repro_torch.api import STAGE_REGISTRY
+        self.name, self.walls, self.dev = name, walls, dev
+        self.inner = STAGE_REGISTRY[name]()
+
+    def run(self, ctx):
+        _sync(self.dev)
+        t0 = time.perf_counter()
+        ctx = self.inner.run(ctx)
+        _sync(self.dev)
+        self.walls[self.name] = time.perf_counter() - t0
+        return ctx
+
+
+def rel_err(got, want) -> float:
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def recipe_backend_vs_cpu(cfg, r, labels, seed: int, dev) -> dict:
+    """The recipe run's §4.1 backend on the card against the CPU (see
+    BACKEND_TOL and LDA_LEAD_TOL)."""
+    from repro_torch.api import artifacts as AR
+    from repro_torch.data.speech import make_trials
+    iv = torch.from_numpy(r.ivectors)
+    a, b, _ = make_trials(labels, np.arange(len(labels)),
+                          np.random.default_rng(seed))
+    art_c = r.backend.to("cpu")
+    xl_g = AR.apply_backend(r.backend, iv.to(dev)).cpu()
+    xl_c = AR.apply_backend(art_c, iv)
+    out = {"projected": rel_err(xl_g, xl_c),
+           "scores": rel_err(AR.score_trials(r.backend, xl_g, a, b),
+                             AR.score_trials(art_c, xl_c, a, b))}
+    print(f"  one backend, card vs CPU: projected vectors "
+          f"{out['projected']:.3e}, trial scores {out['scores']:.3e} x "
+          f"max|value| (tolerance {BACKEND_TOL})")
+    if max(out["projected"], out["scores"]) > BACKEND_TOL:
+        fail("recipe: the backend on the card and on the CPU disagree")
+    eer_c, art_t = AR.evaluate_ivectors(cfg, iv, labels, seed)
+    xl_t = AR.apply_backend(art_t, iv)
+    k = RECIPE_SPEAKERS - 1
+    sign = torch.sign((xl_t[:, :k] * xl_c[:, :k]).sum(0))
+    out.update(lead=rel_err(xl_t[:, :k] * sign, xl_c[:, :k]),
+               retrained_scores=rel_err(AR.score_trials(art_t, xl_t, a, b),
+                                        AR.score_trials(art_c, xl_c, a, b)),
+               eer_cpu=eer_c)
+    print(f"  chain trained on the CPU from the card's i-vectors: leading "
+          f"{k} LDA columns {out['lead']:.3e} x max|value| up to sign "
+          f"(tolerance {LDA_LEAD_TOL}); trial scores "
+          f"{out['retrained_scores']:.3e} x max|score|; EER {eer_c:.4f} "
+          f"(card {r.eer:.4f}, tolerance {EER_TOL})")
+    if out["lead"] > LDA_LEAD_TOL:
+        fail("recipe: the LDA trained on the CPU disagrees with the card's")
+    if abs(eer_c - r.eer) > EER_TOL:
+        fail(f"recipe: EER {r.eer} on the card, {eer_c} from the CPU chain "
+             f"(tolerance {EER_TOL})")
+    return out
+
+
+def recipe_phase(cfg, seed: int, dev):
+    """The staged recipe at full width on the card: the port's speech
+    generator (its default distributions) draws RECIPE_SPEAKERS x
+    RECIPE_UTTS utterances of RECIPE_FRAMES frames, normalised over the
+    corpus; ``train_ubm`` (top-20, 2 + 2 iterations, as in
+    phase 5: the recipe's ubm stage keeps the reference's top_k=0, K = C,
+    which scatters 2,048 one-slot slices per chunk) makes the UBM, passed
+    in through the (feats, labels, ubm) triple so that the ubm stage is
+    skipped, as the JAX recipe skips it; ``IVectorRecipe.run`` trains 3
+    iterations, fits the backend, scores the trials and saves a bundle in
+    a temporary directory; ``IVectorExtractor.from_bundle`` serves 32 of
+    the utterances. Returns (record, launches by path)."""
+    import tempfile
+    from repro_torch.api import Bundle, IVectorRecipe
+    from repro_torch.core import ubm as U
+    from repro_torch.data.speech import SpeechDataConfig, build_dataset
+    from repro_torch.serving import IVectorExtractor, ServingConfig
+    C, D = cfg.n_components, cfg.feat_dim
+    rec = {"speakers": RECIPE_SPEAKERS, "utts_per_speaker": RECIPE_UTTS,
+           "frames_per_utt": RECIPE_FRAMES}
+    data_cfg = SpeechDataConfig(feat_dim=D, n_speakers=RECIPE_SPEAKERS,
+                                utts_per_speaker=RECIPE_UTTS,
+                                frames_per_utt=RECIPE_FRAMES, seed=seed)
+    _sync(dev)
+    t0 = time.perf_counter()
+    feats, labels = build_dataset(data_cfg, device=dev)
+    # mean and variance normalisation over the corpus, as a front end
+    # normalises MFCCs: on the raw frames (|x|^2 in the hundreds) the
+    # augmented M-step's f32 Σ update goes indefinite on the components
+    # that own a handful of frames, and the next Cholesky fails
+    flat = feats.reshape(-1, D)
+    feats = (feats - flat.mean(dim=0)) / flat.std(dim=0)
+    _sync(dev)
+    rec["data_s"] = time.perf_counter() - t0
+    paths = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    ubm = U.train_ubm(feats.reshape(-1, D), C,
+                      torch.Generator().manual_seed(seed), diag_iters=2,
+                      full_iters=2, top_k=cfg.posterior_top_k, device=dev)
+    _sync(dev)
+    rec["train_ubm_s"] = time.perf_counter() - t0
+    paths["recipe_ubm"] = read_counts()
+    print(f"  data: {feats.shape[0]} utterances x {RECIPE_FRAMES} frames "
+          f"(data/speech.py) {rec['data_s']:.2f} s; train_ubm (top-20) "
+          f"{rec['train_ubm_s']:.2f} s")
+
+    walls = {}
+    recipe = IVectorRecipe.from_config(
+        cfg, stages=[TimedStage(n, walls, dev)
+                     for n in IVectorRecipe.DEFAULT_STAGES], device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = recipe.run(data=(feats, labels, ubm), seed=seed, n_iters=3,
+                       bundle_dir=Path(tmp) / "bundle")
+        _sync(dev)
+        rec["run_s"] = time.perf_counter() - t0
+        paths["recipe"] = read_counts()
+        require_launches("recipe", paths["recipe"],
+                         ("gmm_rescore", "bw_stats", "tvm_estep_l_train",
+                          "tvm_estep_a"))
+        rec["stage_s"] = dict(walls)
+        # what run does after its stages: the result and the bundle save
+        rec["bundle_save_s"] = rec["run_s"] - sum(walls.values())
+        files = [f for f in Path(r.bundle_path).rglob("*") if f.is_file()]
+        rec["bundle_bytes"] = sum(f.stat().st_size for f in files)
+        rec["eer"] = r.eer
+        print("  recipe.run: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in walls.items())
+            + f"; bundle save {rec['bundle_save_s']:.2f} s "
+            f"({rec['bundle_bytes'] / 1e6:.1f} MB); launches "
+            f"{paths['recipe']}")
+        print(f"  EER {r.eer:.4f} over 20,000 trials "
+              f"({RECIPE_SPEAKERS} speakers)")
+        if not 0.0 <= r.eer <= 0.5:
+            fail(f"recipe: EER {r.eer} outside [0, 0.5]")
+        rec["bundle_load_s"] = host_seconds(
+            dev, lambda: Bundle.load(r.bundle_path, device=dev))
+        requests = [feats[(20 * i) % len(labels), :128 + (97 * i) % 385]
+                    .cpu().numpy()
+                    for i in range(32)]
+        iv_mem = IVectorExtractor(cfg, r.tv.model, r.tv.ubm,
+                                  ServingConfig(), device=dev).extract(
+                                      requests)
+        t0 = time.perf_counter()
+        ex_b = IVectorExtractor.from_bundle(r.bundle_path, ServingConfig(),
+                                            device=dev)
+        _sync(dev)
+        rec["from_bundle_s"] = time.perf_counter() - t0
+    iv_b, paths["from_bundle"], rec["from_bundle_wall_s"] = drive(
+        ex_b, requests, "from_bundle session")
+    require_launches("from_bundle", paths["from_bundle"],
+                     ("gmm_rescore", "tvm_estep_l"))
+    print(f"  Bundle.load {rec['bundle_load_s']:.2f} s; from_bundle "
+          f"(load + session set-up) {rec['from_bundle_s']:.2f} s")
+    check_ivectors(iv_b, len(requests), cfg.ivector_dim, "from_bundle")
+    if not np.array_equal(iv_b, iv_mem):
+        fail("from_bundle i-vectors are not bitwise the in-memory "
+             "session's")
+    print("  from_bundle i-vectors are bitwise the in-memory session's")
+    rec["vs_cpu"] = recipe_backend_vs_cpu(cfg, r, labels, seed, dev)
+    return rec, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1683,15 +1876,24 @@ def main() -> int:
     lm["phase_s"] = time.perf_counter() - t0
     rows += lm_rows
     print(f"  LM phase {lm['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
 
-    # 7. kernels line, card line, contract line. Launches are summed over
+    # 7. the staged recipe: train -> backend -> EER -> bundle -> from_bundle
+    print("[7] recipe")
+    t0 = time.perf_counter()
+    recipe, recipe_paths = recipe_phase(cfg, args.seed, dev)
+    recipe["phase_s"] = time.perf_counter() - t0
+    print(f"  recipe phase {recipe['phase_s']:.1f} s")
+
+    # 8. kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
-    # training runs and the two LM serving runs (the repeat runs and the
-    # checks against plain paths not included). packed_matmul's bf16 forms
-    # are held and timed here, but no path of this script runs the E-step
-    # with bf16 inputs (OFF_PATH).
+    # training runs, the two LM serving runs and the recipe's runs (the
+    # repeat runs and the checks against plain paths not included).
+    # packed_matmul's bf16 forms are held and timed here, but no path of
+    # this script runs the E-step with bf16 inputs (OFF_PATH).
     paths = {"sparse": launches_sparse, "dense": launches_dense,
-             "fused": launches_fused, **train["launches"], **lm_paths}
+             "fused": launches_fused, **train["launches"], **lm_paths,
+             **recipe_paths}
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
         r["on_path"] = r["name"] not in OFF_PATH
@@ -1708,7 +1910,7 @@ def main() -> int:
               "sparse_vs_dense_max_diff": d_sd,
               "sparse_vs_fused_max_diff": d_sf,
               "card_vs_cpu_max_diff": d_cpu, "training": train, "lm": lm,
-              "kernels": rows}
+              "recipe": recipe, "kernels": rows}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

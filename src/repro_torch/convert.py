@@ -2,7 +2,8 @@
 
 The arguments are numpy arrays: ``np.asarray`` of the leaves of a JAX
 ``FullGMM`` (weights, means, covs), ``DiagGMM`` (weights, means, vars) or
-``TVModel`` (T, Sigma, prior, means, formulation), or the flat
+``TVModel`` (T, Sigma, prior, means, formulation), ``BackendArtifact``
+(mu, lda.mean, lda.proj, plda.mean, plda.B, plda.W, whitener), or the flat
 ``{name: array}`` params of an LM (``repro.models.api.init_params``). The
 port then computes the same function as the JAX package on the same
 parameters. Tensors go to ``device``: CUDA unless the caller names
@@ -14,6 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.api.artifacts import BackendArtifact
+from repro_torch.core.backend import LDA, PLDA
 from repro_torch.core.tvm import TVModel
 from repro_torch.core.ubm import DiagGMM, FullGMM
 
@@ -45,6 +48,19 @@ def tvm_from_numpy(T, Sigma, prior, means, formulation: str,
     dev = resolve_device(device)
     return TVModel(_tensor(T, dev), _tensor(Sigma, dev),
                    _tensor(prior, dev), _tensor(means, dev), formulation)
+
+
+def backend_from_numpy(mu, lda_mean, lda_proj, plda_mean, B, W,
+                       whitener=None, device=None):
+    """The leaves of a JAX ``BackendArtifact`` -> the port's (mu [R], LDA
+    mean [R] and proj [R, K], PLDA mean [K], B and W [K, K], whitener
+    [R, R] or None)."""
+    dev = resolve_device(device)
+    return BackendArtifact(
+        mu=_tensor(mu, dev), lda=LDA(_tensor(lda_mean, dev),
+                                     _tensor(lda_proj, dev)),
+        plda=PLDA(_tensor(plda_mean, dev), _tensor(B, dev), _tensor(W, dev)),
+        whitener=None if whitener is None else _tensor(whitener, dev))
 
 
 def lm_params_from_numpy(params, dtype, device=None):

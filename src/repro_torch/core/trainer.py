@@ -13,6 +13,10 @@ between iterations ``refresh_ubm`` writes the model back into the UBM
 ('means': the paper's step 5; 'full' also refreshes weights and
 covariances from the same streamed statistics).
 
+Long runs checkpoint through `checkpoint/manager.py` (``ckpt_dir``): model
++ UBM + last-pass sufficient statistics are saved every ``ckpt_interval``
+iterations, in the JAX package's format, and restored on restart.
+
 Entry points run on ``device`` (CUDA unless the caller names another). A
 kernel failure during training raises: the trainer has no demotion ladder.
 """
@@ -24,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import manager as CM
 from repro_torch.configs.ivector_tvm import IVectorConfig
 from repro_torch.core import engine as EN
 from repro_torch.core import stats as ST
@@ -167,16 +172,37 @@ def _realign_due(cfg: IVectorConfig, it: int, model: TV.TVModel) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _ckpt_tree(state: TrainState, totals: Optional[EN.UBMStats]):
+    """Fixed-structure checkpoint tree, the JAX package's (placeholder
+    zeros keep the manifest stable whether or not second-order statistics
+    are tracked)."""
+    C, D = state.ubm.means.shape
+    dev = state.ubm.means.device
+    n = torch.zeros((C,), dtype=f32, device=dev)
+    f = torch.zeros((C, D), dtype=f32, device=dev)
+    ss = torch.zeros((C, D, D), dtype=f32, device=dev)
+    if totals is not None:
+        n, f = totals.n, totals.f
+        if totals.ss is not None:
+            ss = totals.ss
+    return {"model": state.model, "ubm": state.ubm, "n": n, "f": f, "ss": ss}
+
+
 def train(cfg: IVectorConfig, ubm: U.FullGMM, feats,
           n_iters: Optional[int] = None,
           generator: Optional[torch.Generator] = None, callback=None,
-          mask=None, device=None) -> TrainState:
+          mask=None, ckpt_dir=None, ckpt_interval: int = 1,
+          ckpt_keep: int = 3, device=None) -> TrainState:
     """The training loop on in-memory features [U, F, D] (``mask`` [U, F]
     marks valid frames, so ragged batches train exactly).
 
     T is initialised from ``generator`` (a CPU generator seeded 0 when
     none is given, so a run is reproducible on any device). ``callback``
-    gets (state, diagnostics) after every iteration.
+    gets (state, diagnostics) after every iteration. With ``ckpt_dir`` the
+    loop saves model + UBM + last-pass statistics every ``ckpt_interval``
+    iterations (keeping ``ckpt_keep``) and resumes from the newest
+    checkpoint that verifies: the trajectory is bitwise that of an
+    uninterrupted run on the same device.
     """
     dev = resolve_device(device)
     feats = torch.as_tensor(feats).to(dev, f32)
@@ -189,27 +215,51 @@ def train(cfg: IVectorConfig, ubm: U.FullGMM, feats,
     state = TrainState(model=model, ubm=ubm)
     n_iters = n_iters or cfg.n_iters
 
+    prev: Optional[EN.UBMStats] = None
+    start = 0
+    mgr = None
+    if ckpt_dir is not None:
+        mgr = CM.CheckpointManager(ckpt_dir, save_interval=ckpt_interval,
+                                   keep=ckpt_keep, device=dev)
+        if mgr.has_checkpoint():
+            # the newest verified checkpoint: a torn or tampered latest
+            # write falls back instead of resuming from garbage
+            tree, step, _ = mgr.restore_latest_verified(
+                _ckpt_tree(state, None))
+            state.model = tree["model"]
+            state.ubm = tree["ubm"]
+            zero = torch.zeros((), dtype=f32, device=dev)
+            prev = EN.UBMStats(tree["n"], tree["f"], tree["ss"], zero, zero)
+            start = min(int(step), n_iters)
+            state.iteration = start
+
+    def save(totals):
+        if mgr is not None:
+            mgr.maybe_save(state.iteration, _ckpt_tree(state, totals),
+                           extra={"iteration": state.iteration})
+
     # When realignment can never fire the UBM is static: align once and
     # reuse the statistics; the streamed per-iteration pass runs only
     # when a write-back can change the alignments.
     if (cfg.realign_interval > 0 and cfg.ubm_update != "none"
             and cfg.formulation == "augmented"):
-        prev: Optional[EN.UBMStats] = None
-        for it in range(n_iters):
+        for it in range(start, n_iters):
             if _realign_due(cfg, it, state.model):
                 state.ubm = refresh_ubm(cfg, state.model, state.ubm, prev)
             state.model, prev, diag = iteration(cfg, state.model,
                                                 state.ubm, feats, mask)
             state.iteration = it + 1
+            save(prev)
             if callback is not None:
                 callback(state, diag)
         return state
 
     st, (ll, frames) = stats_ll(cfg, state.ubm, feats, mask)
     avg_ll = ll / torch.clamp(frames, min=1.0)
-    for it in range(n_iters):
+    for it in range(start, n_iters):
         state.model, diag = em_iter(cfg, state.model, st.n, st.f, st.S)
         state.iteration = it + 1
+        save(None)
         if callback is not None:
             callback(state, {**diag, "avg_loglik": avg_ll})
     return state

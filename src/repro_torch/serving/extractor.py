@@ -123,6 +123,19 @@ class IVectorExtractor:
         model, ubm = state
         return cls(cfg, model, ubm, serving, device=device)
 
+    @classmethod
+    def from_bundle(cls, path, serving: ServingConfig = ServingConfig(),
+                    device=None) -> "IVectorExtractor":
+        """Serving session from a saved artifact bundle (``api/bundle.py``,
+        either package's): the bundle's own config drives the session, so
+        the extraction is bitwise that of the in-memory session of the
+        state that saved it, on the same device."""
+        from repro_torch.api.bundle import Bundle
+        b = Bundle.load(path, device=device)
+        ex = cls(b.cfg, b.model, b.ubm, serving, device=device)
+        ex.bundle = b
+        return ex
+
     # -- bucketing ----------------------------------------------------------
 
     def bucket_for(self, n_frames: int) -> int:
