@@ -36,7 +36,21 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   ``IVectorRecipe.run`` for 3 iterations with the §4.1 backend, the trial
   EER and a bundle saved to a temporary directory; serves 32 requests
   through ``IVectorExtractor.from_bundle`` (bitwise the in-memory
-  session's) and holds the backend against the CPU.
+  session's) and holds the backend against the CPU;
+* streams, on the phase-3 system saved as a bundle and served through
+  ``from_bundle``, 32 of its requests (480 frames each) in 40-frame
+  chunks through ``AdmissionQueue`` and a journaled ``SessionStore``, and
+  checks the streamed i-vectors against batch extraction, an in-process
+  crash restore and a torn journal tail (bitwise), a real ``kill -9`` of a
+  child serving the same streams (this script with a private flag), the
+  fused -> sparse -> dense demotion ladder, the gated rollout (identical
+  bundle, a new one with migrate, rollback and drain, a byte-flipped one)
+  and the admission counters; holds the session path's kernels at its
+  chunk shapes;
+* trains with ``trainer.train_supervised`` on 128 utterances x 512 frames
+  (3 macro-steps, bitwise ``trainer.train``), then with a NaN batch, two
+  host losses and a corrupted checkpoint injected, which must end bitwise
+  at the same model.
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -48,8 +62,12 @@ same numbers are written to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
+import os
+import select
+import signal
 import subprocess
 import sys
 import time
@@ -1741,14 +1759,724 @@ def recipe_phase(cfg, seed: int, dev):
     return rec, paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: streaming sessions, admission, rollout (serving/session.py,
+# guard.py, rollout.py) at full width
+# ---------------------------------------------------------------------------
+
+# the first STREAMS requests of phase 3 that hold STREAM_FRAMES frames, cut
+# to that length and streamed in CHUNK-frame chunks (serve_ivector's
+# default; a 40-frame chunk pads to the 64-frame bucket, a 20-frame one to
+# 32): 32 x 12 = 384 chunks. The child process of the kill -9 drill is
+# killed after KILL_AFTER acknowledged chunks.
+STREAMS, STREAM_FRAMES, CHUNK = 32, 480, 40
+CHUNK_MIN_BUCKET = 32
+COMPACT_BYTES = 64 << 20      # above the 32 sessions' 19 MB live set
+KILL_AFTER = 150
+
+
+def session_config(journal_dir=None):
+    from repro_torch.serving import SessionConfig
+    return SessionConfig(chunk_min_bucket=CHUNK_MIN_BUCKET,
+                         journal_dir=None if journal_dir is None
+                         else str(journal_dir),
+                         journal_compact_bytes=COMPACT_BYTES)
+
+
+def chunk_of(streams, s: int, k: int):
+    return streams[s, k * CHUNK:(k + 1) * CHUNK]
+
+
+def sid_of(s: int) -> str:
+    return f"stream-{s}"
+
+
+def serve_child(workdir: Path) -> int:
+    """The kill -9 drill's child: serves every stream's chunks round-robin
+    through a journaled `SessionStore` on the bundle of ``workdir``, on
+    the parent's device, and acknowledges each applied chunk on stdout
+    ("<sid> <seq>") after the journal holds it. The parent kills it
+    mid-stream."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.serving import IVectorExtractor, SessionStore
+    streams = np.load(workdir / "streams.npy")
+    dev = torch.device((workdir / "device.txt").read_text())
+    ex = IVectorExtractor.from_bundle(workdir / "bundle", device=dev)
+    store = SessionStore(ex, session_config(workdir / "journal"))
+    for k in range(streams.shape[1] // CHUNK):
+        for s in range(streams.shape[0]):
+            _, info = store.update(sid_of(s), chunk_of(streams, s, k))
+            print(f"{info.sid} {info.seq}", flush=True)
+    print("done", flush=True)
+    return 0
+
+
+def start_child(workdir: Path):
+    err = open(workdir / "child.err", "wb")
+    try:
+        return subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-child",
+             str(workdir)], stdout=subprocess.PIPE, stderr=err)
+    finally:
+        err.close()
+
+
+def read_acks(proc, n: int, timeout: float) -> dict:
+    """Read the child's acknowledgements until ``n`` chunks are acked;
+    returns {sid: highest acked seq}. Fails if the child ends first or
+    the time runs out."""
+    fd, buf, acks = proc.stdout.fileno(), b"", {}
+    deadline = time.monotonic() + timeout
+    while sum(1 for _ in buf.splitlines()) < n:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            fail(f"kill -9 drill: the child acked {len(buf.splitlines())} "
+                 f"chunks in {timeout:.0f} s")
+        ready, _, _ = select.select([fd], [], [], left)
+        if ready:
+            data = os.read(fd, 1 << 16)
+            if not data:
+                fail("kill -9 drill: the child ended before the kill")
+            buf += data
+    for line in buf.splitlines()[:n]:
+        sid, seq = line.decode().split()
+        acks[sid] = max(acks.get(sid, 0), int(seq))
+    return acks
+
+
+def kill_drill(proc, workdir: Path, ex, streams) -> dict:
+    """SIGKILL the serving child after KILL_AFTER acknowledged chunks, then
+    restore its journal in this process: every acknowledged chunk is
+    there, and each session's n, f are bitwise those of a store here fed
+    that session's chunks up to its restored seq."""
+    from repro_torch.serving import SessionStore
+    t0 = time.perf_counter()
+    try:
+        acks = read_acks(proc, KILL_AFTER, 240.0)
+        os.kill(proc.pid, signal.SIGKILL)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+        proc.stdout.close()
+    wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = SessionStore(ex, session_config(workdir / "journal"))
+    restore_s = time.perf_counter() - t0
+    ref = SessionStore(ex, session_config())
+    restored = {sid: store.session(sid).seq for sid in acks
+                if sid in store}
+    for sid, acked in acks.items():
+        if restored.get(sid, 0) < acked:
+            fail(f"kill -9 drill: {sid} acked seq {acked}, restored "
+                 f"{restored.get(sid)}")
+    for s in range(streams.shape[0]):
+        sid = sid_of(s)
+        if sid not in store:
+            continue
+        seq = store.session(sid).seq
+        for k in range(seq):
+            ref.update(sid, chunk_of(streams, s, k), emit=False)
+        if not (np.array_equal(store.session(sid).n, ref.session(sid).n)
+                and np.array_equal(store.session(sid).f,
+                                   ref.session(sid).f)):
+            fail(f"kill -9 drill: {sid} restored at seq {seq} is not "
+                 "bitwise the store fed the same chunks")
+    rec = {"acked": KILL_AFTER, "restored_chunks": sum(
+        store.session(sid_of(s)).seq for s in range(streams.shape[0])
+        if sid_of(s) in store),
+        "sessions": len(store), "torn": store.stats["journal_torn"],
+        "restore_s": restore_s, "child_rc": proc.returncode,
+        "wait_s": wait_s}
+    print(f"  kill -9 drill: child killed after {KILL_AFTER} acknowledged "
+          f"chunks (rc {proc.returncode}); {rec['sessions']} sessions, "
+          f"{rec['restored_chunks']} chunks restored in {restore_s:.3f} s "
+          f"(torn tail {rec['torn']}); every acked chunk present, n and f "
+          f"bitwise the parent's replay; waited {wait_s:.1f} s for the "
+          "child")
+    store.close_store()
+    return rec
+
+
+def stream_through_queue(store, q, streams, snapshot):
+    """Every chunk of every stream through the admission queue, round-robin
+    (a stream's first chunk as 'first', later ones as 'refine'), drained
+    at ``batch_budget()`` each tick. A chunk shed at submit (QueueFull) or
+    preempted in the queue is submitted again, so each is applied once.
+    ``snapshot()`` runs once, after the tick that brings the applied
+    chunks to 6 a stream on average. Returns the record and the applied
+    (stream, chunk) order."""
+    from repro_torch.serving import QueueFull
+    S, n_chunks = streams.shape[0], streams.shape[1] // CHUNK
+    todo = {s: list(range(n_chunks)) for s in range(S)}
+    inflight, applied, arrived, first_iv = {}, [], {}, {}
+    full = preempted = expired = 0
+    snap_s, snap_at = 0.0, None
+    t0 = time.perf_counter()
+    while len(applied) < S * n_chunks:
+        for s in range(S):
+            if not todo[s]:
+                continue
+            k = todo[s][0]
+            # a stream arrives with its first submission attempt; a
+            # request is done at its submit time + its queue wait (the
+            # queue's clock, time.monotonic, stopped right after its
+            # update)
+            arrived.setdefault(s, time.monotonic())
+            try:
+                rid = q.submit(chunk_of(streams, s, k),
+                               kind="first" if k == 0 else "refine",
+                               sid=sid_of(s))
+            except QueueFull:
+                full += 1
+                continue
+            todo[s].pop(0)
+            inflight[rid] = (s, k, time.monotonic())
+        for rid, r in q.drain(q.batch_budget()).items():
+            s, k, sub = inflight.pop(rid)
+            if r.ivector is None:
+                preempted += r.preempted
+                expired += not r.preempted
+                todo[s].insert(0, k)
+                continue
+            applied.append((s, k))
+            first_iv.setdefault(s, sub + r.wait_s - arrived[s])
+        if snap_at is None and len(applied) >= 6 * S:
+            t1 = time.perf_counter()
+            snapshot()
+            snap_at = len(applied)
+            snap_s = time.perf_counter() - t1
+    wall = time.perf_counter() - t0 - snap_s
+    st = q.stats
+    if not (st["shed_refine"] > 0 and st["shed_full"] > 0):
+        fail(f"admission: no refine preemption or no full-queue shed: {st}")
+    if (preempted != st["shed_refine"] or full != st["shed_full"]
+            or expired != st["shed_deadline"]
+            or st["served"] != S * n_chunks
+            or st["submitted"] != S * n_chunks + preempted + expired):
+        fail(f"admission: shed requests not accounted for: {st}, "
+             f"preempted {preempted}, full {full}, expired {expired}")
+    tf = sorted(first_iv.values())
+    return {"chunks": len(applied), "wall_s": wall,
+            "chunks_per_s": len(applied) / wall,
+            "ttfi_p50_s": tf[len(tf) // 2], "ttfi_max_s": tf[-1],
+            "queue": dict(st)}, applied, snap_at
+
+
+def chunk_kernel_checks(ex, streams, K: int) -> dict:
+    """The session path's kernels at its shapes, each against its plain
+    version: a 40-frame chunk padded to the 64-frame bucket and a 20-frame
+    one padded to 32 (zero rows, as the store pads them) through
+    gmm_rescore, gmm_align and gmm_loglik, and the E-step's stream form at
+    M = 1 (a chunk's occupancies against the packed precompute)."""
+    from repro_torch.core import alignment as AL
+    from repro_torch.core import engine as EN
+    from repro_torch.core import ubm as U
+    from repro_torch.kernels import gmm_loglik as GL
+    from repro_torch.kernels import gmm_rescore as GR
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tvm_estep as TE
+    dev = ex.device
+    pack = ex._pack
+    const, lin, P = pack.pre
+    C, D = lin.shape
+    linT, Pf = lin.T.contiguous(), P.reshape(C, D * D).contiguous()
+    dconst, dlin, dquad = (t.contiguous() for t in U.diag_coeffs(pack.diag))
+    out = {}
+    for real, bucket in ((CHUNK, 64), (CHUNK // 2, 32)):
+        x = torch.zeros(bucket, D, device=dev)
+        x[:real] = torch.from_numpy(chunk_of(streams, 0, 1)[:real]).to(dev)
+        _, sel = AL.preselect(pack.diag, x, K)
+        sel = sel.contiguous()
+        t = {}
+        t["gmm_rescore_err"] = compare(
+            f"gmm_rescore chunk [{bucket}x{K}]", GR.gmm_rescore(
+                x, sel, pack.rescore_A),
+            ref.gmm_rescore(x, sel, const, linT, Pf))
+        t["gmm_rescore_ms"] = cuda_ms(
+            lambda: GR.gmm_rescore(x, sel, pack.rescore_A), 50)
+        t["gmm_align_err"], _ = held_align(
+            f"chunk [{bucket}x{D}]", x, dconst, dlin, dquad, pack.align_A, K)
+        from repro_torch.kernels import gmm_align as GA
+        t["gmm_align_ms"] = cuda_ms(lambda: GA.gmm_align(
+            x, dconst, dlin, dquad, pack.align_A, K), 50)
+        t["gmm_loglik_err"] = compare(
+            f"gmm_loglik chunk [{bucket}x{D}]",
+            GL.gmm_loglik(x, const, linT, Pf),
+            ref.gmm_loglik(x, const, linT, Pf))
+        t["gmm_loglik_ms"] = cuda_ms(
+            lambda: GL.gmm_loglik(x, const, linT, Pf), 50)
+        out[bucket] = t
+    mask = torch.ones(CHUNK, device=dev)
+    feats = torch.from_numpy(chunk_of(streams, 0, 1)).to(dev)
+    n1 = EN.session_stats(ex._spec, pack, feats, mask)[0][None]
+    Up = ex._tv_pre.U
+    if TE.form(torch.float32, 1, C, Up.shape[1]) != "stream":
+        fail("the M = 1 solve does not take the stream form")
+    out["stream_err"] = compare(
+        f"tvm_estep_l [1x{C}] @ [{C}x{Up.shape[1]}], stream form",
+        TE.tvm_estep_l(n1, Up), ref.tvm_estep_l(n1, Up))
+    out["stream_ms"] = cuda_ms(lambda: TE.tvm_estep_l(n1, Up), 50)
+    return out
+
+
+def streaming_phase(cfg, ubm, model, utts, seed: int, dev):
+    """Phase 8: the phase-3 system saved as a `Bundle` and served through
+    `from_bundle`; STREAMS streams of CHUNK-frame chunks through
+    `AdmissionQueue(max_pending=16, store=SessionStore(...))` with a
+    journal; crash restore, torn tail, a real kill -9, the demotion
+    ladder, rollout and admission checks. Returns (record, launches by
+    path)."""
+    import shutil
+    import tempfile
+    from repro_torch.api import Bundle
+    from repro_torch.distributed import fault_tolerance as FT
+    from repro_torch.serving import (AdmissionQueue, IVectorExtractor,
+                                     RolloutController, ServingConfig,
+                                     SessionJournal, SessionStore)
+    from repro_torch.serving import rollout as RO
+    picked = [u[:STREAM_FRAMES] for u in utts
+              if u.shape[0] >= STREAM_FRAMES][:STREAMS]
+    streams = np.stack(picked).astype(np.float32)
+    S, n_chunks = streams.shape[0], STREAM_FRAMES // CHUNK
+    rec, paths = {"streams": S, "chunks_per_stream": n_chunks}, {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_"))
+    proc = None
+    try:
+        child = tmp / "child"
+        child.mkdir()
+        t0 = time.perf_counter()
+        Bundle(cfg=cfg, ubm=ubm, model=model).save(child / "bundle")
+        rec["bundle_save_s"] = time.perf_counter() - t0
+        np.save(child / "streams.npy", streams)
+        (child / "device.txt").write_text(str(dev))
+        # the child takes seconds to reach the card: it starts now and is
+        # read after the work below, none of it timed as the main path
+        proc = start_child(child)
+        bundle_a = child / "bundle"
+        # the rollout candidate: a second synthetic system
+        ubm_b, model_b, _ = synthetic_system(cfg, seed + 1, dev)
+        Bundle(cfg=cfg, ubm=ubm_b, model=model_b).save(tmp / "bundle_b")
+        del ubm_b, model_b
+        t0 = time.perf_counter()
+        ex = IVectorExtractor.from_bundle(bundle_a, ServingConfig(),
+                                          device=dev)
+        _sync(dev)
+        rec["from_bundle_s"] = time.perf_counter() - t0
+        rec["kernels"] = chunk_kernel_checks(ex, streams,
+                                             cfg.posterior_top_k)
+        rec["kill"] = kill_drill(proc, child, ex, streams)
+        proc = None
+
+        # the main path: the queue-driven streams
+        store = SessionStore(ex, session_config(tmp / "journal"))
+        walls = []
+        update = store.update
+
+        def timed_update(sid, chunk, emit=True):
+            t1 = time.perf_counter()
+            out = update(sid, chunk, emit)
+            walls.append(time.perf_counter() - t1)
+            return out
+
+        store.update = timed_update
+        q = AdmissionQueue(ex, max_pending=16, store=store)
+        snap = {}
+
+        def snapshot():
+            # a copy of the journal dir, opened by a second store: the
+            # in-process crash restore
+            shutil.copytree(tmp / "journal", tmp / "snap")
+            t1 = time.perf_counter()
+            snap["store"] = SessionStore(ex, session_config(tmp / "snap"))
+            snap["restore_s"] = time.perf_counter() - t1
+            snap["want"] = {sid: (s.n.copy(), s.f.copy(), s.seq)
+                            for sid, s in store._sessions.items()}
+
+        reset_counts()
+        run, applied, snap_at = stream_through_queue(store, q, streams,
+                                                     snapshot)
+        paths["stream"] = read_counts()
+        require_launches("streaming", paths["stream"],
+                         ("gmm_rescore", "tvm_estep_l"))
+        walls.sort()
+        run["chunk_wall_p50_s"] = walls[len(walls) // 2]
+        run["chunk_wall_p99_s"] = walls[min(len(walls) - 1,
+                                            int(0.99 * len(walls)))]
+        rec["run"] = run
+        if store.stats["degradations"]:
+            fail(f"streaming store degraded: {store.stats}")
+        health = q.health()
+        if not health["ok"]:
+            fail(f"streaming: health {health}")
+        j = store._journal
+        s0 = store.session(sid_of(0))
+        rec["journal"] = {
+            "record_bytes": len(j._frame(j._encode(store._record(s0)))),
+            "records_appended": run["chunks"],
+            "compactions": store.stats["compactions"],
+            "file_bytes": store.stats["journal_bytes"],
+            "restore_s": snap["restore_s"]}
+        rec["journal"]["appended_mb"] = (rec["journal"]["record_bytes"]
+                                         * run["chunks"] / 1e6)
+        print(f"  streaming: {run['chunks']} chunks of {CHUNK} frames from "
+              f"{S} streams in {run['wall_s']:.3f} s: "
+              f"{run['chunks_per_s']:.1f} chunks/s; time to first i-vector "
+              f"p50 {run['ttfi_p50_s'] * 1e3:.1f} ms, max "
+              f"{run['ttfi_max_s'] * 1e3:.1f} ms; per-chunk wall p50 "
+              f"{run['chunk_wall_p50_s'] * 1e3:.2f} ms, p99 "
+              f"{run['chunk_wall_p99_s'] * 1e3:.2f} ms (host clock); "
+              f"launches {paths['stream']}")
+        print(f"  admission: {run['queue']}")
+        print(f"  journal: {rec['journal']['record_bytes']} bytes a record, "
+              f"{rec['journal']['appended_mb']:.1f} MB appended, "
+              f"{rec['journal']['compactions']} compactions, file "
+              f"{rec['journal']['file_bytes'] / 1e6:.1f} MB; restore of "
+              f"{len(snap['want'])} sessions {snap['restore_s']:.3f} s")
+        k = rec["kernels"]
+        print(f"  kernels at the chunk's shapes (ms; chunk wall p50 "
+              f"{run['chunk_wall_p50_s'] * 1e3:.2f}): gmm_rescore "
+              f"{k[64]['gmm_rescore_ms']:.4f} / {k[32]['gmm_rescore_ms']:.4f}"
+              f" (64 / 32 frames), gmm_align {k[64]['gmm_align_ms']:.4f} / "
+              f"{k[32]['gmm_align_ms']:.4f}, gmm_loglik "
+              f"{k[64]['gmm_loglik_ms']:.4f} / {k[32]['gmm_loglik_ms']:.4f},"
+              f" stream form at M = 1 {k['stream_ms']:.4f}")
+
+        # incremental against batch
+        final = np.stack([store.solve(sid_of(s)) for s in range(S)])
+        batch = ex.extract(list(streams))
+        check_ivectors(final, S, cfg.ivector_dim, "streamed")
+        d_ib = float(np.abs(final - batch).max())
+        rec["stream_vs_batch_max_diff"] = d_ib
+        print(f"  streamed vs batch extract of the whole streams: max "
+              f"|diff| {d_ib:.3e} (tolerance {IVEC_TOL})")
+        if d_ib > IVEC_TOL:
+            fail("streamed i-vectors disagree with batch extraction")
+
+        # in-process crash restore, continued to the end
+        c = snap["store"]
+        for sid, (n, f, seq) in snap["want"].items():
+            s = c.session(sid)
+            if not (s.seq == seq and np.array_equal(s.n, n)
+                    and np.array_equal(s.f, f)):
+                fail(f"crash restore: {sid} is not bitwise the live store's")
+        for s, kk in applied[snap_at:]:
+            c.update(sid_of(s), chunk_of(streams, s, kk), emit=False)
+        for s in range(S):
+            if not np.array_equal(c.solve(sid_of(s)), final[s]):
+                fail(f"crash restore: {sid_of(s)}'s final i-vector is not "
+                     "bitwise the uninterrupted store's")
+        print(f"  crash restore after {snap_at} chunks: {len(snap['want'])} "
+              "sessions bitwise; after the remaining chunks every "
+              "i-vector bitwise the uninterrupted store's")
+        c.close_store()
+
+        # torn tail: one more record on a copy, then torn mid-record
+        store.close_store()
+        shutil.copytree(tmp / "journal", tmp / "torn")
+        # (no compaction on this append: the torn record must be the
+        # session's second newest)
+        e = SessionStore(ex, dataclasses.replace(
+            session_config(tmp / "torn"), journal_compact_bytes=1 << 40))
+        e.update(sid_of(0), chunk_of(streams, 0, 0), emit=False)
+        e_seq = e.session(sid_of(0)).seq
+        e.close_store()
+        wal = tmp / "torn" / "wal.log"
+        with open(wal, "r+b") as fh:
+            fh.truncate(wal.stat().st_size - 1000)
+        torn = SessionStore(ex, session_config(tmp / "torn"))
+        t0s = torn.session(sid_of(0))
+        if (torn.stats["journal_torn"] != 1 or t0s.seq != e_seq - 1
+                or not np.array_equal(t0s.n, s0.n)
+                or len(torn) != S):
+            fail(f"torn tail: {torn.stats}, seq {t0s.seq} (want "
+                 f"{e_seq - 1})")
+        torn.close_store()
+        print(f"  torn tail: journal_torn 1, {sid_of(0)} restored one "
+              f"chunk behind (seq {e_seq - 1}), bitwise")
+
+        # the demotion ladder on a fused store: 4 chunks fused, then the
+        # fused kernel fails (-> sparse), then sparse too (-> dense)
+        ex_f = IVectorExtractor(cfg.with_overrides(rescore="fused"),
+                                ex.model, ex.ubm, ServingConfig(),
+                                device=dev)
+        sf = SessionStore(ex_f, session_config())
+        reset_counts()
+        modes = []
+        for kk in range(n_chunks):
+            if kk == 4:
+                if sf.stats["degradations"] or sf._live.mode != "fused":
+                    fail(f"fused store degraded un-injected: {sf.stats}")
+                sf._chaos_fail_modes = {"fused"}
+            if kk == 8:
+                sf._chaos_fail_modes = {"fused", "sparse"}
+            for s in (0, 1):
+                sf.update(sid_of(s), chunk_of(streams, s, kk))
+            modes.append(sf._live.mode)
+        paths["stream_demotion"] = read_counts()
+        require_launches("demotion", paths["stream_demotion"],
+                         ("gmm_align", "gmm_rescore", "gmm_loglik",
+                          "tvm_estep_l"))
+        if modes != ["fused"] * 4 + ["sparse"] * 4 + ["dense"] * 4 or \
+                sf.stats["degradations"] != 2:
+            fail(f"demotion: modes {modes}, {sf.stats}")
+        d_dm = max(float(np.abs(sf.solve(sid_of(s)) - final[s]).max())
+                   for s in (0, 1))
+        rec["demotion_max_diff"] = d_dm
+        print(f"  demotion: fused -> sparse -> dense, 2 degradations for "
+              f"2 injected failures; i-vectors vs the sparse store max "
+              f"|diff| {d_dm:.3e} (tolerance {IVEC_TOL}); launches "
+              f"{paths['stream_demotion']}")
+        if d_dm > IVEC_TOL:
+            fail("demotion: the demoted store disagrees with the sparse one")
+        del ex_f, sf
+
+        # rollout
+        shadow = [streams[s] for s in range(4)]
+        rec["model_hash_s"] = host_seconds(dev, lambda: RO._model_hash(ex))
+        rc = RolloutController(ex)
+        rep = rc.roll(bundle_a, shadow_utts=shadow)
+        if rep.outcome != "swapped" or not rep.parity["bit_exact"]:
+            fail(f"rollout, identical bundle: {rep.outcome} {rep.reason}")
+        roll_s = {"same": rep.elapsed_s}
+        del rc, rep
+        s1, s2 = (SessionStore(ex, session_config()) for _ in range(2))
+        for kk in range(6):
+            for s in range(4):
+                for st_ in (s1, s2):
+                    st_.update(sid_of(s), chunk_of(streams, s, kk),
+                               emit=False)
+        rc = RolloutController(ex, store=s1)
+        rep = rc.roll(tmp / "bundle_b", shadow_utts=shadow, policy="migrate")
+        roll_s["new_migrate"] = rep.elapsed_s
+        if (rep.outcome != "swapped" or rep.sessions["migrated"] != 4
+                or rep.parity["same_content"]):
+            fail(f"rollout, new bundle: {rep.outcome} {rep.reason} "
+                 f"{rep.sessions}")
+        if np.array_equal(s1.solve(sid_of(0)), s2.solve(sid_of(0))):
+            fail("rollout: the migrated session solves as before the swap")
+        if not rc.rollback() or rc.live is not ex:
+            fail("rollout: rollback did not restore the live extractor")
+        for s in range(4):
+            a, _ = s1.update(sid_of(s), chunk_of(streams, s, 6))
+            b, _ = s2.update(sid_of(s), chunk_of(streams, s, 6))
+            if not np.array_equal(a, b):
+                fail("rollout: after rollback the next i-vector is not "
+                     "bitwise a store's that never swapped")
+        rep = rc.roll(tmp / "bundle_b", shadow_utts=shadow, policy="drain")
+        roll_s["new_drain"] = rep.elapsed_s
+        s1.update("new-session", chunk_of(streams, 5, 0))
+        if (rep.outcome != "swapped"
+                or rep.sessions != {"migrated": 0, "pinned_to_old": 4}
+                or s1.draining() != 4
+                or s1.session("new-session").binding is
+                s1.session(sid_of(0)).binding):
+            fail(f"rollout, drain: {rep.outcome} {rep.sessions}")
+        FT.corrupt_checkpoint(next((tmp / "bundle_b").glob("step_*")))
+        rep = RolloutController(ex).roll(tmp / "bundle_b",
+                                         shadow_utts=shadow)
+        roll_s["corrupt"] = rep.elapsed_s
+        if rep.outcome != "rejected" or "shadow-load failed" not in \
+                rep.reason:
+            fail(f"rollout, corrupt bundle: {rep.outcome} {rep.reason}")
+        rec["roll_s"] = roll_s
+        print("  rollout: identical bundle bit_exact and swapped; new "
+              "bundle swapped (4 migrated), rollback bitwise a store that "
+              "never swapped; drain kept 4 sessions pinned; byte-flipped "
+              "bundle rejected at shadow-load. roll s: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in roll_s.items())
+              + f"; _model_hash {rec['model_hash_s']:.3f} s; bundle save "
+              f"{rec['bundle_save_s']:.2f} s, from_bundle "
+              f"{rec['from_bundle_s']:.2f} s")
+        del rc, s1, s2
+
+        # the device's share of one chunk's wall, and the chunk's wall
+        # split into its three host-side steps (medians of 20)
+        sp = SessionStore(ex, session_config())
+        sp.update("p", chunk_of(streams, 0, 0))
+        prof = profile_path(lambda: sp.update("p", chunk_of(streams, 0, 1)))
+        print_profile("streamed chunk (update + solve)", prof, 8)
+        rec["profile_chunk"] = prof
+        D = streams.shape[2]
+        feats = np.zeros((64, D), np.float32)
+        feats[:CHUNK] = chunk_of(streams, 0, 2)
+        mask = np.zeros((64,), np.float32)
+        mask[:CHUNK] = 1.0
+        jr, _ = SessionJournal.open(tmp / "split" / "wal.log", sp.C, D)
+        rec_p = sp._record(sp.session("p"))
+
+        def med_ms(fn):
+            return 1e3 * float(np.median([host_seconds(dev, fn)
+                                          for _ in range(20)]))
+
+        split = {"align_stats_copy_ms": med_ms(
+                     lambda: sp._run_chunk(sp._live, feats, mask)),
+                 "solve_ms": med_ms(lambda: sp.solve("p")),
+                 "journal_append_ms": med_ms(lambda: jr.append(rec_p))}
+        jr.close()
+        rec["chunk_split"] = split
+        print("  one chunk's steps (host clock, median of 20): "
+              + ", ".join(f"{k[:-3]} {v:.2f} ms" for k, v in split.items()))
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec, paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the supervised trainer and its fault drill at full width
+# ---------------------------------------------------------------------------
+
+SUP_UTTS, SUP_FRAMES, SUP_STEPS = 128, 512, 3
+
+
+class _Timed:
+    """Wraps callables so that each call's synchronised host seconds are
+    recorded under a name (restored by ``undo``)."""
+
+    def __init__(self, dev):
+        self.dev, self.times, self._undo = dev, {}, []
+
+    def wrap(self, fn, name):
+        def timed(*a, **kw):
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync(self.dev)
+            self.times.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def patch(self, owner, attr, name):
+        orig = getattr(owner, attr)
+        setattr(owner, attr, self.wrap(orig, name))
+        self._undo.append((owner, attr, orig))
+
+    def undo(self):
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+
+
+def supervised_phase(cfg, ubm, seed: int, dev):
+    """Phase 9: `trainer.train_supervised` at full width on SUP_UTTS x
+    SUP_FRAMES frames drawn from the phase-3 UBM (realign_interval 0): a
+    reference run of SUP_STEPS macro-steps, bitwise `trainer.train`; then
+    one run with a NaN batch (step 1, attempt 0), host losses after steps
+    1 (attempt 1) and 2 (attempt 2) and the step-2 checkpoint corrupted
+    (attempt 2), which must end bitwise at the reference. Returns
+    (record, launches by path)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.core import guardrails as GR
+    from repro_torch.core import trainer as TR
+    from repro_torch.distributed import fault_tolerance as FT
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    feats = synthetic_corpus(ubm, SUP_UTTS, SUP_FRAMES, g)
+    rec, paths = {"utterances": SUP_UTTS, "frames_per_utt": SUP_FRAMES,
+                  "steps": SUP_STEPS}, {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sup_"))
+    timed = _Timed(dev)
+    try:
+        timed.patch(TR, "iteration", "step")
+        timed.patch(CM.CheckpointManager, "maybe_save", "save")
+        timed.patch(CM.CheckpointManager, "restore_latest_verified",
+                    "restore")
+
+        def guardrail():
+            hook = GR.make_guardrail(GR.GuardrailConfig(
+                loglik_drop_tol=cfg.guardrail_loglik_drop))
+            w = timed.wrap(hook, "check_state")
+            w.reset = hook.reset
+            return w
+
+        def run(name, **kw):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = TR.train_supervised(
+                cfg, ubm, feats, n_iters=SUP_STEPS,
+                generator=torch.Generator().manual_seed(seed),
+                ckpt_dir=tmp / name, guardrail=guardrail(), device=dev,
+                **kw)
+            _sync(dev)
+            rec[f"{name}_s"] = time.perf_counter() - t0
+            paths[f"supervised_{name}"] = read_counts()
+            return out
+
+        ref, rep = run("reference")
+        if rep.n_restarts or rep.faults:
+            fail(f"supervised reference run: {rep}")
+        step_s = list(timed.times["step"])
+        ckpt_dir = tmp / "reference" / f"step_{SUP_STEPS:08d}"
+        rec["ckpt_bytes"] = sum(f.stat().st_size
+                                for f in ckpt_dir.iterdir())
+        plain = TR.train(cfg, ubm, feats, n_iters=SUP_STEPS,
+                         generator=torch.Generator().manual_seed(seed),
+                         device=dev)
+        if not (torch.equal(ref.model.T, plain.model.T)
+                and torch.equal(ref.model.Sigma, plain.model.Sigma)):
+            fail("train_supervised is not bitwise trainer.train")
+        del plain
+        print(f"  reference: {SUP_STEPS} macro-steps in "
+              f"{rec['reference_s']:.2f} s, bitwise trainer.train; "
+              f"launches {paths['supervised_reference']}")
+        chaos = FT.Chaos(
+            poison_at=lambda s, a: (s, a) == (1, 0),
+            fail_at=lambda s, a: (s, a) in ((2, 1), (3, 2)),
+            corrupt_ckpt_at=lambda s, a: (s, a) == (2, 2))
+        drill, rep = run("drill", chaos=chaos)
+        if not (torch.equal(drill.model.T, ref.model.T)
+                and torch.equal(drill.model.Sigma, ref.model.Sigma)):
+            fail("the fault drill did not end bitwise at the reference")
+        types = [f["type"] for f in rep.faults]
+        if (rep.n_restarts != 3 or rep.rollbacks != 1
+                or rep.skipped_corrupt != [2] or types != [
+                    "GuardrailViolation", "InjectedFailure",
+                    "InjectedFailure"]):
+            fail(f"fault drill: {rep}")
+        for name in ("reference", "drill"):
+            require_launches(name, paths[f"supervised_{name}"],
+                             ("gmm_rescore", "bw_stats", "tvm_estep_l_train",
+                              "tvm_estep_a"))
+        rec["faults"] = rep.faults
+        rec["times"] = timed.times
+        rec["step_s"] = step_s
+        t = timed.times
+        print(f"  drill: {rep.n_restarts} restarts, faults {types}, "
+              f"rollbacks {rep.rollbacks}, skipped corrupt "
+              f"{rep.skipped_corrupt}; bitwise the reference; "
+              f"{rec['drill_s']:.2f} s; launches "
+              f"{paths['supervised_drill']}")
+        print("  recovery s: " + ", ".join(
+            f"{f['type']} {f['recovery_s']:.3f}" for f in rep.faults))
+        print(f"  macro-step s (reference) "
+              f"{', '.join(f'{x:.3f}' for x in step_s)}; checkpoint "
+              f"{rec['ckpt_bytes'] / 1e6:.1f} MB, save s "
+              f"{np.median(t['save']):.3f} (median of {len(t['save'])}), "
+              f"restore s {np.median(t['restore']):.3f} (median of "
+              f"{len(t['restore'])}); check_state ms "
+              f"{1e3 * np.median(t['check_state']):.2f} (median of "
+              f"{len(t['check_state'])})")
+    finally:
+        timed.undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=64)
+    # the kill -9 drill's child process (phase 8)
+    ap.add_argument("--serve-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.serve_child is not None:
+        return serve_child(Path(args.serve_child))
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.ivector_tvm import CONFIG
     from repro_torch.kernels import _build
@@ -1884,16 +2612,38 @@ def main() -> int:
     recipe, recipe_paths = recipe_phase(cfg, args.seed, dev)
     recipe["phase_s"] = time.perf_counter() - t0
     print(f"  recipe phase {recipe['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
 
-    # 8. kernels line, card line, contract line. Launches are summed over
+    # 8. streaming sessions, admission and rollout on the phase-3 system
+    print(f"[8] streaming sessions ({card})")
+    ubm, model, _ = synthetic_system(cfg, args.seed, dev)
+    t0 = time.perf_counter()
+    stream, stream_paths = streaming_phase(cfg, ubm, model, utts,
+                                           args.seed, dev)
+    stream["phase_s"] = time.perf_counter() - t0
+    print(f"  streaming phase {stream['phase_s']:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+
+    # 9. the supervised trainer and its fault drill
+    print(f"[9] supervised training ({card})")
+    t0 = time.perf_counter()
+    sup, sup_paths = supervised_phase(cfg, ubm, args.seed, dev)
+    sup["phase_s"] = time.perf_counter() - t0
+    print(f"  supervised phase {sup['phase_s']:.1f} s")
+    del ubm
+    torch.cuda.empty_cache()
+
+    # 10. kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
-    # training runs, the two LM serving runs and the recipe's runs (the
-    # repeat runs and the checks against plain paths not included).
+    # training runs, the two LM serving runs, the recipe's runs, the
+    # streaming and demotion runs and the two supervised runs (the repeat
+    # runs and the checks against plain paths not included).
     # packed_matmul's bf16 forms are held and timed here, but no path of
     # this script runs the E-step with bf16 inputs (OFF_PATH).
     paths = {"sparse": launches_sparse, "dense": launches_dense,
              "fused": launches_fused, **train["launches"], **lm_paths,
-             **recipe_paths}
+             **recipe_paths, **stream_paths, **sup_paths}
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
         r["on_path"] = r["name"] not in OFF_PATH
@@ -1910,7 +2660,8 @@ def main() -> int:
               "sparse_vs_dense_max_diff": d_sd,
               "sparse_vs_fused_max_diff": d_sf,
               "card_vs_cpu_max_diff": d_cpu, "training": train, "lm": lm,
-              "recipe": recipe, "kernels": rows}
+              "recipe": recipe, "streaming": stream, "supervised": sup,
+              "kernels": rows}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

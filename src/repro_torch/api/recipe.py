@@ -31,12 +31,7 @@ from repro_torch.api.bundle import Bundle
 from repro_torch.configs.ivector_tvm import IVectorConfig
 from repro_torch.core import trainer as TR
 from repro_torch.data.speech import SpeechDataConfig
-
-# the JAX package's RetryPolicy defaults and retryable faults, recorded in
-# provenance as its describe() records them (no supervisor runs here yet)
-_BACKOFF_CAP, _JITTER = 30.0, 0.25
-_RETRYABLE = ["InjectedFailure", "DeadlineExceeded", "GuardrailViolation",
-              "CheckpointCorruption"]
+from repro_torch.distributed import fault_tolerance as FT
 
 
 @dataclass
@@ -131,9 +126,12 @@ class IVectorRecipe:
         the ``(feats, labels, ubm)`` triple of `prepare` / a prior
         result's ``.data`` (the shared-UBM multi-variant protocol).
 
-        ``mesh`` other than None and ``supervised=True`` raise: the port
-        runs on one device (ROADMAP Queue 1 item 11) and has no
-        supervisor yet (item 10). Provenance records the single device.
+        ``supervised``: run the tvm stage under the fault-tolerance
+        supervisor (retry policy + numerical guardrails + verified-
+        checkpoint restart; needs ``ckpt_dir``). What the supervisor did
+        lands in provenance, never in artifacts. ``mesh`` other than None
+        raises: the port runs on one device (ROADMAP Queue 1 item 11).
+        Provenance records the single device.
         """
         SG.refuse_mesh(mesh)
         names = [s.name for s in self.stages]
@@ -165,7 +163,7 @@ class IVectorRecipe:
             # the JAX package's descriptor of a one-device mesh
             "mesh": [["data", 1], ["model", 1]],
             "device": str(self.device),
-            "resilience": _resilience_provenance(self.cfg),
+            "resilience": _resilience_provenance(self.cfg, ctx),
         }
         result = RecipeResult(
             cfg=self.cfg, seed=seed,
@@ -263,19 +261,28 @@ def prepare(cfg: IVectorConfig, data_cfg: SpeechDataConfig, seed: int = 0,
     return ctx.feats, ctx.labels, ctx.ubm.ubm
 
 
-def _resilience_provenance(cfg: IVectorConfig) -> Dict:
-    """The failure-handling policy the config requests, in the JAX
-    package's provenance shape; the port runs unsupervised."""
-    return {
-        "supervised": False,
+def _resilience_provenance(cfg: IVectorConfig, ctx: SG.RunContext) -> Dict:
+    """The run's failure-handling contract: the policy the config
+    requested plus, for supervised runs, what the supervisor did
+    (restarts, rollbacks, ladder escalations, checkpoints it refused as
+    corrupt), with the JAX package's keys. Provenance, not artifact."""
+    out = {
+        "supervised": bool(ctx.supervised),
         "guardrail": bool(cfg.guardrail),
         "guardrail_loglik_drop": float(cfg.guardrail_loglik_drop),
-        "policy": {"max_restarts": cfg.max_restarts,
-                   "backoff": cfg.retry_backoff, "backoff_cap": _BACKOFF_CAP,
-                   "jitter": _JITTER, "step_deadline": cfg.step_deadline,
-                   "escalate_after": cfg.escalate_after,
-                   "retryable": list(_RETRYABLE)},
+        "policy": FT.RetryPolicy(
+            max_restarts=cfg.max_restarts, backoff=cfg.retry_backoff,
+            step_deadline=cfg.step_deadline,
+            escalate_after=cfg.escalate_after).describe(),
     }
+    rep = ctx.supervisor_report
+    if rep is not None:
+        out["report"] = {"n_restarts": rep.n_restarts,
+                         "rollbacks": rep.rollbacks,
+                         "escalations": rep.escalations,
+                         "faults": list(rep.faults),
+                         "skipped_corrupt": list(rep.skipped_corrupt)}
+    return out
 
 
 def _feed(ctx: SG.RunContext, data) -> None:

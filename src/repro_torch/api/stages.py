@@ -72,8 +72,11 @@ class RunContext:
     # checkpointing (threaded into the trainer by the tvm stage)
     ckpt_dir: Optional[str] = None
     ckpt_interval: int = 1
-    # the supervised trainer waits for ROADMAP Queue 1 item 10
+    # supervised tvm stage (trainer.train_supervised: retry policy +
+    # numerical guardrails + verified-checkpoint restart); the report of
+    # what the supervisor did lands here
     supervised: bool = False
+    supervisor_report: Optional[object] = None
     # one device only until ROADMAP Queue 1 item 11
     mesh: Optional[object] = None
     # set by the recipe when backend+eval stages follow the tvm stage:
@@ -174,10 +177,6 @@ class TVMStage:
     def run(self, ctx: RunContext) -> RunContext:
         if ctx.tv is not None:
             return ctx
-        if ctx.supervised:
-            raise NotImplementedError(
-                "supervised=True: the fault-tolerance supervisor waits "
-                "for ROADMAP Queue 1 item 10")
         refuse_mesh(ctx.mesh if ctx.mesh is not None else ctx.cfg.mesh)
         cfg, n_iters = ctx.cfg, ctx.n_iters or ctx.cfg.n_iters
         callback = None
@@ -192,12 +191,24 @@ class TVMStage:
                     e, _ = AR.evaluate_ivectors(cfg, ivecs, ctx.labels,
                                                 ctx.seed)
                     ctx.curve.append((it, e))
-        state = TR.train(cfg, ctx.ubm.ubm, ctx.feats, n_iters=n_iters,
-                         generator=torch.Generator().manual_seed(
-                             ctx.seed + 100),
-                         callback=callback, mask=ctx.mask,
-                         ckpt_dir=ctx.ckpt_dir,
-                         ckpt_interval=ctx.ckpt_interval, device=ctx.device)
+        generator = torch.Generator().manual_seed(ctx.seed + 100)
+        if ctx.supervised:
+            # guardrailed, checkpoint-every-step elastic path; the EER
+            # curve is not collected here (the supervisor owns the step
+            # loop), so eval_every applies to the final point only
+            if ctx.ckpt_dir is None:
+                raise ValueError("supervised tvm stage requires ckpt_dir")
+            state, report = TR.train_supervised(
+                cfg, ctx.ubm.ubm, ctx.feats, n_iters=n_iters,
+                generator=generator, mask=ctx.mask, ckpt_dir=ctx.ckpt_dir,
+                device=ctx.device)
+            ctx.supervisor_report = report
+        else:
+            state = TR.train(cfg, ctx.ubm.ubm, ctx.feats, n_iters=n_iters,
+                             generator=generator, callback=callback,
+                             mask=ctx.mask, ckpt_dir=ctx.ckpt_dir,
+                             ckpt_interval=ctx.ckpt_interval,
+                             device=ctx.device)
         ctx.tv = AR.TVArtifact(model=state.model, ubm=state.ubm,
                                iterations=state.iteration,
                                meta={"seed": ctx.seed,

@@ -9,7 +9,8 @@ augmented (Kaldi) formulation with prior offset p=100, LDA 400->200, PLDA.
 A copy of ``repro/configs/ivector_tvm.py``: the port keeps its own so that
 it imports nothing of the JAX package. The knobs keep their names and
 meanings; the port does not read ``mesh``, ``utts_per_batch``,
-``frames_per_utt``, ``compute_dtype`` or the resilience knobs yet.
+``frames_per_utt`` or ``compute_dtype`` yet. The resilience knobs drive
+``trainer.train_supervised``.
 """
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple

@@ -16,6 +16,10 @@ covariances from the same streamed statistics).
 Long runs checkpoint through `checkpoint/manager.py` (``ckpt_dir``): model
 + UBM + last-pass sufficient statistics are saved every ``ckpt_interval``
 iterations, in the JAX package's format, and restored on restart.
+`train_supervised` wraps the same macro-step in
+`distributed/fault_tolerance.run_supervised`: an injected failure costs
+exactly one macro-step and the restart resumes bit-exactly from the last
+checkpoint.
 
 Entry points run on ``device`` (CUDA unless the caller names another). A
 kernel failure during training raises: the trainer has no demotion ladder.
@@ -25,15 +29,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import manager as CM
 from repro_torch.configs.ivector_tvm import IVectorConfig
 from repro_torch.core import engine as EN
+from repro_torch.core import guardrails as GR
 from repro_torch.core import stats as ST
 from repro_torch.core import tvm as TV
 from repro_torch.core import ubm as U
+from repro_torch.distributed import fault_tolerance as FT
 
 f32 = torch.float32
 
@@ -263,6 +270,132 @@ def train(cfg: IVectorConfig, ubm: U.FullGMM, feats,
         if callback is not None:
             callback(state, {**diag, "avg_loglik": avg_ll})
     return state
+
+
+class _StepFeed:
+    """Step-indexed feed for `fault_tolerance.run_supervised`: the batch
+    is the (already device-resident) full macro-batch every step, so the
+    data cursor is just the step counter: deterministic, resumable.
+    ``gain`` is a float leaf the chaos NaN-batch injector can poison; the
+    step multiplies the features by it (exactly 1.0 normally, so the
+    product is bitwise the features)."""
+
+    def __init__(self):
+        self.step = 0
+
+    def next(self):
+        b = {"it": np.asarray(self.step, np.int64),
+             "gain": np.asarray(1.0, np.float32)}
+        self.step += 1
+        return b
+
+    def state(self):
+        return {"step": self.step}
+
+    def restore(self, st):
+        self.step = int(st.get("step", 0))
+
+
+def train_supervised(cfg: IVectorConfig, ubm: U.FullGMM, feats,
+                     n_iters: Optional[int] = None,
+                     generator: Optional[torch.Generator] = None, mask=None,
+                     ckpt_dir=None, ckpt_keep: int = 3,
+                     ckpt_keep_every: int = 0, mesh=None,
+                     fail_at=None, max_restarts: Optional[int] = None,
+                     policy: Optional[FT.RetryPolicy] = None,
+                     guardrail=None, chaos: Optional[FT.Chaos] = None,
+                     device=None):
+    """Elastic training: the same macro-step as `train` with realignment
+    (one fused streamed EM pass + the realignment write-back), driven by
+    `distributed/fault_tolerance.run_supervised` with a checkpoint every
+    macro-step. An `InjectedFailure` (``fail_at(step, attempt)``) lands in
+    the worst-case window, after a step and before its checkpoint, so a
+    failure costs exactly that macro-step and the restart resumes
+    bit-exactly from the previous one (f32 npz round-trips exactly;
+    alignment is a pure function of the restored model and UBM).
+
+    The resilience policy comes from ``cfg`` unless overridden: ``policy``
+    defaults to the config's restart/backoff/deadline knobs, ``guardrail``
+    to `core.guardrails.make_guardrail` when ``cfg.guardrail`` is set, and
+    the safety-ladder escalation (``cfg.escalate_after`` consecutive
+    rollbacks at one step -> the next `guardrails.escalation_ladder`
+    config) swaps the step in place. ``chaos`` injects drill faults.
+
+    T is drawn once from ``generator`` as `train` draws it (a CPU
+    generator seeded 0 when none is given), and every restart from
+    scratch starts from that draw. ``mesh`` other than None raises: the
+    port runs on one device. Returns (TrainState, SupervisorReport).
+    """
+    if ckpt_dir is None:
+        raise ValueError("train_supervised requires ckpt_dir")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh={mesh!r}: the port runs on one device; the mesh waits "
+            "for ROADMAP Queue 1 item 11")
+    dev = resolve_device(device)
+    feats = torch.as_tensor(feats).to(dev, f32)
+    mask = None if mask is None else torch.as_tensor(mask).to(dev)
+    generator = (generator if generator is not None
+                 else torch.Generator().manual_seed(0))
+    ubm = ubm.to(dev)
+    n_steps = n_iters or cfg.n_iters
+    init_tree = {}
+
+    def init_state_fn():
+        # drawn once: a generator advances with every draw, and a restart
+        # from scratch must see the same T
+        if not init_tree:
+            model = TV.init_model(generator, ubm.means, ubm.covs,
+                                  cfg.ivector_dim, cfg.formulation,
+                                  cfg.prior_offset)
+            init_tree.update(_ckpt_tree(TrainState(model=model, ubm=ubm),
+                                        None))
+        return dict(init_tree)
+
+    def make_step_fn(c: IVectorConfig):
+        def step_fn(tree, batch):
+            it = int(batch["it"])
+            model, gmm = tree["model"], tree["ubm"]
+            zero = torch.zeros((), dtype=f32, device=dev)
+            prev = EN.UBMStats(tree["n"], tree["f"], tree["ss"], zero, zero)
+            if _realign_due(c, it, model):
+                gmm = refresh_ubm(c, model, gmm, prev)
+            # gain is exactly 1.0 outside chaos drills: x * 1.0 is
+            # bit-exact, and a poisoned (NaN) gain floods the features so
+            # the guardrail trips on the resulting state
+            model, tot, diag = iteration(c, model, gmm,
+                                         feats * batch["gain"], mask)
+            return _ckpt_tree(TrainState(model=model, ubm=gmm), tot), diag
+
+        return step_fn
+
+    if policy is None:
+        policy = FT.RetryPolicy(
+            max_restarts=(cfg.max_restarts if max_restarts is None
+                          else max_restarts),
+            backoff=cfg.retry_backoff, step_deadline=cfg.step_deadline,
+            escalate_after=cfg.escalate_after)
+    if guardrail is None and cfg.guardrail:
+        guardrail = GR.make_guardrail(GR.GuardrailConfig(
+            loglik_drop_tol=cfg.guardrail_loglik_drop))
+
+    ladder = iter(GR.escalation_ladder(cfg))
+
+    def on_escalate():
+        c2 = next(ladder, None)
+        return None if c2 is None else make_step_fn(c2)
+
+    ckpt = CM.CheckpointManager(ckpt_dir, save_interval=1, keep=ckpt_keep,
+                                keep_every=ckpt_keep_every, device=dev)
+    report = FT.run_supervised(
+        init_state_fn=init_state_fn, train_step_fn=make_step_fn(cfg),
+        data_factory=_StepFeed, n_steps=n_steps, ckpt=ckpt,
+        fail_at=fail_at, policy=policy, guardrail=guardrail,
+        on_escalate=on_escalate, chaos=chaos, device=dev)
+    tree, _, _ = ckpt.restore_latest_verified(init_state_fn())
+    state = TrainState(model=tree["model"], ubm=tree["ubm"],
+                       iteration=report.final_step)
+    return state, report
 
 
 def extract(cfg: IVectorConfig, state: TrainState, feats, mask=None,
