@@ -50,7 +50,18 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
 * trains with ``trainer.train_supervised`` on 128 utterances x 512 frames
   (3 macro-steps, bitwise ``trainer.train``), then with a NaN batch, two
   host losses and a corrupted checkpoint injected, which must end bitwise
-  at the same model.
+  at the same model;
+* runs the mesh mode (``launch/mesh.py``, ``launch/ivector_cell.py``) on
+  256 utterances x 512 frames drawn from the phase-3 UBM: the kernels at
+  a model-sharded rank's shapes (C_loc = 1,024), one-rank references in
+  this process, then worlds of 2 and 4 ranks spawned on the one card over
+  gloo with the (2, 1), (1, 2), (4, 1) and (2, 2) meshes: trajectories
+  bitwise the one-rank run on the data meshes, per-utterance n/f bitwise
+  on all, T T^T and Sigma within the JAX tests' tolerances on the
+  model-sharded ones, the psum exit, the three rungs, macro-batches
+  through prefetch, and every kernel of the path on every rank. Several
+  ranks share one card there, so its times check the path and the cost
+  of its collectives; they do not measure scaling.
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -2465,6 +2476,489 @@ def supervised_phase(cfg, ubm, seed: int, dev):
     return rec, paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the mesh of ranks (launch/mesh.py, the engine's mesh mode,
+# launch/ivector_cell.py) at full width, several ranks on the one card
+# ---------------------------------------------------------------------------
+
+# 256 utterances x 512 frames drawn from the phase-3 UBM, normalised as in
+# phase 7
+MESH_UTTS, MESH_FRAMES = 256, 512
+# the worlds of ranks spawned on the card over gloo, and their meshes
+MESH_WORLDS = {2: ((2, 1), (1, 2)), 4: ((4, 1), (2, 2))}
+MESH_TIMEOUT = 600
+# model-sharded meshes against the one-rank run after 2 iterations: the
+# tolerances of the JAX test_sharded_trajectory_fused_matches_dense_8dev
+# (|a - b| <= atol + rtol |b| elementwise)
+TT_TOL, SIG_TOL = (5e-3, 5e-3), (1e-3, 1e-4)
+# exit_reduce 'psum' against 'ordered': the same partials summed in
+# another order, within PSUM_TOL x max|value|
+PSUM_TOL = 1e-5
+# the sparse and fused rungs of sharded_align_stats against the dense one,
+# with no posterior floor: each of n, f and S within RUNG_TOL x its
+# max|value|, the limit phase 4 holds the rungs' i-vectors to. The JAX
+# test_sharded_sparse_rescore_matches_dense holds them elementwise to
+# rtol = atol = 1e-4 at D = 6 (tests/test_torch_mesh.py does the same
+# against it); at D = 72 the rungs' logliks differ by up to ~1e-3 (f32
+# cancellation in the 72-dim quadratic form: phase 3 reads 6e-4 between
+# gmm_loglik and its plain version), and a posterior by twice that,
+# relative. At the config's 0.025 floor a posterior that the rounding
+# moves across the floor drops out and its frame's others renormalise,
+# so per-utterance statistics there differ by up to ~1e-2 x max|value|
+# (read on an H100 80GB HBM3, 700 W): printed, not held. The elementwise
+# readings are printed beside.
+RUNG_TOL = 1e-3
+RUNG_ELEMENTWISE = (1e-4, 1e-4)
+# train_ubm (1 diag + 1 full iteration) on a mesh against one rank: f32
+# sums over 131,072 frames in another order, within UBM_TOL x max|value|
+UBM_TOL = 1e-4
+# kernels every rank of a mesh launches; the rescore-only gmm_align
+# launch (gmm_rescore_fused) runs where the model axis is sharded
+MESH_KERNELS = ("gmm_rescore", "bw_stats", "tvm_estep_l_train",
+                "tvm_estep_a", "gmm_loglik")
+
+
+def mesh_cfgs(cfg, n_utts: int):
+    """The phase's configs: the ordered trajectories with one chunk a rank
+    ((2, 1) with realignment and the full refresh, (4, 1) without), the
+    model-sharded one (2 iterations, the chunk set per mesh), the
+    macro-batch pair (macro-batches of n_utts / 4 over 2 ranks, chunks of
+    half that) and the statistics pass (chunks of n_utts / 4)."""
+    base = cfg.with_overrides(realign_interval=2, ubm_update="full",
+                              update_sigma=True)
+    return {"ordered_2": base.with_overrides(
+                n_iters=3, estep_chunk=n_utts // 2),
+            "ordered_4": base.with_overrides(
+                n_iters=3, realign_interval=0, estep_chunk=n_utts // 4),
+            "model": base.with_overrides(n_iters=2),
+            "macro": base.with_overrides(n_iters=2,
+                                         estep_chunk=n_utts // 8),
+            "nf": base.with_overrides(estep_chunk=n_utts // 4)}
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's f32 bytes (+0.0 makes -0.0 and 0.0 one)."""
+    import hashlib
+    return hashlib.sha256((t.detach().float() + 0.0).contiguous().cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
+def peak_text(gbs) -> str:
+    return ("not measured" if None in gbs
+            else f"{max(gbs):.2f} GB")
+
+
+def tt(T):
+    return torch.einsum("cdr,cer->cde", T, T)
+
+
+def close_reading(got, want, tol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 passes."""
+    rtol, atol = tol
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def mesh_kernel_checks(ubm, feats, cfg):
+    """Each kernel of the mesh path against its plain version at a rank's
+    shapes on the model-sharded meshes (C_loc = C / 2 = 1,024), on the
+    limits of phase 3 (TOL): the rank-0 block of the rows, the slots that
+    the two-stage top-K gives rank 0 (another rank's slots at local id 0,
+    as ``engine._align_sharded`` passes them). Returns the errors and the
+    kernel times."""
+    from repro_torch.core import engine as EN
+    from repro_torch.core import ubm as U
+    from repro_torch.kernels import bw_stats as BW
+    from repro_torch.kernels import gmm_align as GA
+    from repro_torch.kernels import gmm_loglik as GL
+    from repro_torch.kernels import gmm_rescore as GR
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tvm_estep as TE
+    C, D = ubm.means.shape
+    Cl, K = C // 2, cfg.posterior_top_k
+    pack = EN.pack_ubm(ubm, feats.device)
+    const, lin, P = (t[:Cl].contiguous() for t in pack.pre)
+    linT, Pf = lin.T.contiguous(), P.reshape(Cl, D * D).contiguous()
+    x = feats.reshape(-1, D)[:16384].contiguous()
+    _, sel = ref.diag_topk(x, *U.diag_coeffs(pack.diag), K)
+    own = sel < Cl
+    loc = torch.where(own, sel, torch.zeros_like(sel)).contiguous()
+    out = {"own_share": own.float().mean().item()}
+    A, A2 = pack.rescore_A[:Cl].contiguous(), pack.align_A[:Cl].contiguous()
+    out["gmm_rescore"] = compare(
+        f"gmm_rescore [{x.shape[0]}x{K}] of C_loc={Cl}",
+        GR.gmm_rescore(x, loc, A), ref.gmm_rescore(x, loc, const, linT, Pf))
+    out["gmm_rescore_ms"] = cuda_ms(lambda: GR.gmm_rescore(x, loc, A), 10)
+    out["gmm_rescore_fused"] = compare(
+        f"gmm_rescore_fused (gmm_align, rescore only) [{x.shape[0]}x{K}] of "
+        f"C_loc={Cl}", GA.gmm_rescore_fused(x, loc, A2),
+        ref.gmm_rescore_fused(x, loc, A2))
+    out["gmm_rescore_fused_ms"] = cuda_ms(
+        lambda: GA.gmm_rescore_fused(x, loc, A2), 10)
+    xs = x[:4096].contiguous()
+    out["gmm_loglik"] = compare(
+        f"gmm_loglik [4096x{D}] x C_loc={Cl}",
+        GL.gmm_loglik(xs, const, linT, Pf), ref.gmm_loglik(xs, const, linT,
+                                                           Pf))
+    out["gmm_loglik_ms"] = cuda_ms(
+        lambda: GL.gmm_loglik(xs, const, linT, Pf), 10)
+    # Γ of rank 0's owned slots, the alignment's posteriors over the
+    # selected set, at a chunk's 32,768 frames
+    xb = feats.reshape(-1, D)[:32768].contiguous()
+    _, sb = ref.diag_topk(xb, *U.diag_coeffs(pack.diag), K)
+    ll = ref.gmm_rescore(xb, sb, pack.pre[0], pack.pre[1].T.contiguous(),
+                         pack.pre[2].reshape(C, D * D))
+    post = torch.softmax(ll, dim=1) * (sb < Cl)
+    gamma = torch.zeros((xb.shape[0], Cl), device=xb.device)
+    gamma.scatter_add_(1, torch.where(sb < Cl, sb, 0), post)
+    err = 0.0
+    for name, a, w in zip(("n", "f", "S"), BW.bw_stats(gamma, xb),
+                          ref.bw_stats(gamma, xb)):
+        err = max(err, compare(f"bw_stats {name} [{xb.shape[0]}x{Cl}]ᵀ "
+                               f"[{xb.shape[0]}x{D}]", a, w))
+    out["bw_stats"] = err
+    out["bw_stats_ms"] = cuda_ms(lambda: BW.bw_stats(gamma, xb), 5)
+    # the E-step at a (2, 2) rank's chunk: 128 utterances x C_loc
+    g = torch.Generator(device=xb.device).manual_seed(11)
+    R = cfg.ivector_dim
+    Pn = R * (R + 1) // 2
+    n = torch.rand(MESH_UTTS // 2, Cl, generator=g, device=xb.device) * 30
+    Up = torch.randn(Cl, Pn, generator=g, device=xb.device)
+    PP = torch.randn(MESH_UTTS // 2, Pn, generator=g, device=xb.device)
+    for name, run, plain, b in (("tvm_estep_l", TE.tvm_estep_l,
+                                 ref.tvm_estep_l, Up),
+                                ("tvm_estep_a", TE.tvm_estep_a,
+                                 ref.tvm_estep_a, PP)):
+        M, Kd = ((n.shape[0], Cl) if name == "tvm_estep_l"
+                 else (Cl, n.shape[0]))
+        form = TE.form(torch.float32, M, Kd, Pn)
+        out[name] = compare(f"{name} {form} form, M={M} K={Kd} N={Pn}",
+                            run(n, b), plain(n, b))
+        out[f"{name}_ms"] = cuda_ms(lambda: run(n, b), 10)
+    return out
+
+
+def _comm_delta(mesh, before):
+    return {k: [v[0] - before.get(k, [0, 0, 0.0])[0],
+                v[1] - before.get(k, [0, 0, 0.0])[1],
+                v[2] - before.get(k, [0, 0, 0.0])[2]]
+            for k, v in mesh.comm.items()}
+
+
+def mesh_rank(workdir: str, shapes, cfg, device=None):
+    """One rank of phase 10 (spawned by ``launch.mesh.run_ranks``): each
+    mesh of ``shapes`` on this world, every run counted from 0. Returns,
+    by mesh, digests of what must be bitwise, the readings of what is held
+    to a tolerance (rank 0 returns the arrays), launches, seconds, the
+    collectives' bytes and seconds, and peak memory."""
+    from repro_torch.core import engine as EN
+    from repro_torch.core import trainer as TR
+    from repro_torch.core import tvm as TV
+    from repro_torch.core import ubm as U
+    from repro_torch.launch import ivector_cell as IC
+    from repro_torch.launch import mesh as MS
+    inp = torch.load(Path(workdir) / "inputs.pt")
+    feats, seed = inp["feats"], inp["seed"]
+    n_utts = feats.shape[0]
+    cfgs = mesh_cfgs(cfg, n_utts)
+    out = {}
+    for shape in shapes:
+        mesh = MS.make_local_mesh(*shape, device=device)
+        mesh.timing = True
+        dev = mesh.device
+        ubm = U.FullGMM(inp["w"].to(dev), inp["means"].to(dev),
+                        inp["covs"].to(dev))
+        C, D = ubm.means.shape
+        d, m = mesh.data_extent, mesh.model_extent
+        rec = {"rank": mesh.rank, "backend": mesh.backend,
+               "device": str(dev), "launches": {}, "comm": {}}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        def run(name, fn):
+            before = {k: list(v) for k, v in mesh.comm.items()}
+            reset_counts()
+            _sync(dev)
+            t0 = time.perf_counter()
+            res = fn()
+            _sync(dev)
+            rec[f"{name}_s"] = time.perf_counter() - t0
+            rec[f"{name}_t0"] = t0
+            rec["launches"][name] = read_counts()
+            rec["comm"][name] = _comm_delta(mesh, before)
+            return res
+
+        gmm = run("train_ubm", lambda: U.train_ubm(
+            feats.reshape(-1, D), C, torch.Generator().manual_seed(seed),
+            diag_iters=1, full_iters=1, top_k=cfg.posterior_top_k,
+            chunk=64, frame_chunk=feats.shape[1], mesh=mesh))
+        rec["train_ubm_collectives"] = sum(
+            v[0] for v in rec["comm"]["train_ubm"].values())
+        if m == 1:
+            tcfg = cfgs["ordered_2" if d == 2 else "ordered_4"]
+        else:
+            tcfg = cfgs["model"].with_overrides(estep_chunk=n_utts // d)
+        ends = []
+        st = run("train", lambda: TR.train(
+            tcfg, ubm, feats, generator=torch.Generator().manual_seed(seed),
+            callback=lambda s, dg: (_sync(dev), ends.append(
+                time.perf_counter())), mesh=mesh))
+        rec["iteration_s"] = [b - a for a, b in zip(
+            [rec["train_t0"]] + ends[:-1], ends)]
+        rec["digest"] = {"T": digest(st.model.T),
+                         "Sigma": digest(st.model.Sigma),
+                         "means": digest(st.ubm.means),
+                         "ubm_means": digest(gmm.means),
+                         "ubm_covs": digest(gmm.covs)}
+        if mesh.rank == 0:
+            rec["ubm"] = (gmm.means.cpu(), gmm.covs.cpu())
+        if m == 1:
+            iv = run("extract", lambda: TR.extract(tcfg, st, feats,
+                                                   mesh=mesh))
+            rec["digest"]["iv"] = digest(iv)
+        elif mesh.rank == 0:
+            rec["TT"], rec["Sigma"] = tt(st.model.T).cpu(), \
+                st.model.Sigma.cpu()
+        del st
+        fl, _ = TR._place(mesh, feats, None)
+        nf, _ = run("stats", lambda: TR.stats_ll(cfgs["nf"], ubm, fl,
+                                                 mesh=mesh))
+        rec["digest"]["n"], rec["digest"]["f"] = digest(nf.n), digest(nf.f)
+        del nf
+        model0 = TV.init_model(torch.Generator().manual_seed(seed),
+                               ubm.means, ubm.covs, cfg.ivector_dim,
+                               cfg.formulation, cfg.prior_offset)
+        acc, S = run("macro_step", lambda: IC.em_macro_step(
+            tcfg, mesh, ubm.weights, ubm.means, ubm.covs, model0.T,
+            model0.Sigma, model0.prior, feats, utt_chunk=n_utts // d))
+        if shape == (2, 1):
+            # the same pass with the ordered exit, against the psum one
+            spec = EN.EngineSpec(
+                n_components=C, top_k=cfg.posterior_top_k,
+                floor=cfg.posterior_floor, second_order="full",
+                chunk=n_utts // d, rescore=cfg.rescore)
+            accums = (EN.TotalsAccum(spec, D), EN.TVMAccum(
+                model0, TV.precompute(model0, estep=cfg.estep, device=dev),
+                estep_dtype=cfg.estep_dtype))
+            (tot_o, acc_o), _ = EN.stream(spec, EN.pack_ubm(ubm, dev), fl,
+                                          None, accums, mesh=mesh)
+            pairs = list(zip(acc, acc_o)) + [(S, tot_o.ss)]
+            rec["psum_reading"] = max(
+                (a - b).abs().max().item() / b.abs().max().item()
+                for a, b in pairs)
+            # macro-batches of the rank's block through prefetch_to_device
+            # against the resident pass with the same chunks
+            gen = torch.Generator
+            a = TR.train(cfgs["macro"], ubm, feats,
+                         generator=gen().manual_seed(seed), mesh=mesh)
+            b = run("macro_batch", lambda: TR.train(
+                cfgs["macro"], ubm, feats, generator=gen().manual_seed(seed),
+                mesh=mesh, macro_batch=n_utts // 4, prefetch=2))
+            rec["macro_bitwise"] = (torch.equal(a.model.T, b.model.T) and
+                                    torch.equal(a.model.Sigma, b.model.Sigma))
+            del a, b, accums, acc_o, tot_o
+        del acc, S, model0
+        if m > 1:
+            pre = U.full_precisions(ubm)
+            rungs = ("fused",) if d == 1 else EN.RESCORE_LADDER
+            for floor in ((0.0, cfg.posterior_floor) if d > 1 else (0.0,)):
+                got = {}
+                for r in rungs:
+                    got[r] = run(f"align_{r}_{floor}",
+                                 lambda: IC.sharded_align_stats(
+                                     cfg.with_overrides(
+                                         rescore=r, posterior_floor=floor),
+                                     mesh, ubm.to_diag(), pre, feats,
+                                     second_order=True))
+                if "dense" in got:
+                    pairs = [(a, w) for r in ("sparse", "fused")
+                             for a, w in zip(got[r], got["dense"])]
+                    rec[f"rung_reading_{floor}"] = max(
+                        (a - w).abs().max().item() / w.abs().max().item()
+                        for a, w in pairs)
+                    rec[f"rung_elementwise_{floor}"] = max(
+                        close_reading(a, w, RUNG_ELEMENTWISE)
+                        for a, w in pairs)
+                del got
+            del pre
+        rec["peak_mem_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                              if dev.type == "cuda" else None)
+        out[shape] = rec
+        del fl, ubm
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(cfg, ubm, g, seed: int, dev, card: str):
+    """Phase 10: the kernels at a rank's shapes, the one-rank references in
+    this process (no process group), then the worlds of MESH_WORLDS
+    spawned on the card over gloo, and the six checks. Returns (record,
+    launches by path)."""
+    import shutil
+    import tempfile
+    from repro_torch.core import trainer as TR
+    from repro_torch.core import ubm as U
+    from repro_torch.launch import mesh as MS
+    C, D = ubm.means.shape
+    feats = synthetic_corpus(ubm, MESH_UTTS, MESH_FRAMES, g)
+    flat = feats.reshape(-1, D)
+    feats = (feats - flat.mean(dim=0)) / flat.std(dim=0)
+    rec = {"utterances": MESH_UTTS, "frames_per_utt": MESH_FRAMES,
+           "card": card}
+    print(f"  corpus: {MESH_UTTS} utterances x {MESH_FRAMES} frames, "
+          "normalised; kernels at a model-sharded rank's shapes:")
+    rec["kernels_c_loc"] = mesh_kernel_checks(ubm, feats, cfg)
+    cfgs = mesh_cfgs(cfg, MESH_UTTS)
+    gen = torch.Generator
+    refs, at2 = {}, {}
+
+    def keep2(state, diag):
+        if state.iteration == 2:
+            at2.update(TT=tt(state.model.T), Sigma=state.model.Sigma.clone())
+
+    t0 = time.perf_counter()
+    for name, cb in (("ordered_2", keep2), ("ordered_4", None)):
+        st = TR.train(cfgs[name], ubm, feats, generator=gen().manual_seed(
+            seed), callback=cb, device=dev)
+        iv = TR.extract(cfgs[name], st, feats, device=dev)
+        refs[name] = {"T": digest(st.model.T),
+                      "Sigma": digest(st.model.Sigma),
+                      "means": digest(st.ubm.means), "iv": digest(iv)}
+        del st, iv
+    nf, _ = TR.stats_ll(cfgs["nf"], ubm, feats)
+    refs["nf"] = {"n": digest(nf.n), "f": digest(nf.f)}
+    del nf
+    # train_ubm on pseudo-utterances of one utterance's frames, so that
+    # they divide over the data ranks: 64 a chunk (32,768 frames)
+    ref_ubm = U.train_ubm(feats.reshape(-1, D), C, gen().manual_seed(seed),
+                          diag_iters=1, full_iters=1,
+                          top_k=cfg.posterior_top_k, chunk=64,
+                          frame_chunk=MESH_FRAMES, device=dev)
+    _sync(dev)
+    rec["one_rank_s"] = time.perf_counter() - t0
+    print(f"  one-rank references (no process group): "
+          f"{rec['one_rank_s']:.1f} s")
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    # each rank takes its card as launch.mesh.default_device gives it
+    # (cuda:0 for every rank on one card); a CPU rehearsal passes "cpu"
+    rank_dev = None if dev.type == "cuda" else "cpu"
+    paths, ranks = {}, {}
+    try:
+        torch.save({"feats": feats.cpu(), "w": ubm.weights.cpu(),
+                    "means": ubm.means.cpu(), "covs": ubm.covs.cpu(),
+                    "seed": seed}, workdir / "inputs.pt")
+        for world, shapes in MESH_WORLDS.items():
+            t0 = time.perf_counter()
+            outs = MS.run_ranks(mesh_rank, world,
+                                args=(str(workdir), shapes, cfg, rank_dev),
+                                backend="gloo", device=dev,
+                                timeout=MESH_TIMEOUT, workdir=workdir)
+            rec[f"world{world}_s"] = time.perf_counter() - t0
+            for shape in shapes:
+                ranks[shape] = [o[shape] for o in outs]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    for shape, rs in ranks.items():
+        label = f"({shape[0]}, {shape[1]})"
+        r0 = rs[0]
+        # every rank holds the same results
+        for k, v in r0["digest"].items():
+            if any(r["digest"][k] != v for r in rs):
+                fail(f"mesh {label}: ranks disagree on {k}")
+        if any(r["backend"] != "gloo" or r["device"] != str(rank_dev or
+                                                             "cuda:0")
+               for r in rs):
+            fail(f"mesh {label}: a rank left gloo on its device: "
+                 f"{[(r['backend'], r['device']) for r in rs]}")
+        # 1. data-only meshes: bitwise the one-rank trajectory
+        if shape[1] == 1:
+            want = refs["ordered_2" if shape[0] == 2 else "ordered_4"]
+            for k in ("T", "Sigma", "means", "iv"):
+                if r0["digest"][k] != want[k]:
+                    fail(f"mesh {label}: {k} is not bitwise the one-rank "
+                         "run's")
+            print(f"  {label}: T, Sigma, UBM means and i-vectors bitwise "
+                  f"the one-rank run ({'realignment, ' if shape[0] == 2 else ''}"
+                  "ubm_update='full', ordered exit)")
+        # 2. model-sharded meshes: n/f bitwise, T T^T and Sigma close
+        else:
+            rd = (close_reading(r0["TT"], at2["TT"].cpu(), TT_TOL),
+                  close_reading(r0["Sigma"], at2["Sigma"].cpu(), SIG_TOL))
+            rec[f"reading_{shape}"] = rd
+            print(f"  {label}: after 2 iterations T T^T reading {rd[0]:.3e}"
+                  f", Sigma {rd[1]:.3e} (|a-b| / (atol + rtol|b|); 1 is the "
+                  f"limit: T T^T {TT_TOL}, Sigma {SIG_TOL})")
+            if max(rd) > 1:
+                fail(f"mesh {label}: T T^T or Sigma off the one-rank run")
+        for k in ("n", "f"):
+            if r0["digest"][k] != refs["nf"][k]:
+                fail(f"mesh {label}: per-utterance {k} is not bitwise the "
+                     "one-rank pass's")
+        # train_ubm ran on the mesh and agrees with one rank
+        if r0["train_ubm_collectives"] == 0:
+            fail(f"mesh {label}: train_ubm dropped the mesh")
+        um = max((a - b.cpu()).abs().max().item() / b.abs().max().item()
+                 for a, b in zip(r0["ubm"], (ref_ubm.means, ref_ubm.covs)))
+        rec[f"train_ubm_reading_{shape}"] = um
+        if um > UBM_TOL:
+            fail(f"mesh {label}: train_ubm off the one-rank run ({um:.3e})")
+        # 5. every kernel of the path on every rank
+        need = MESH_KERNELS + (("gmm_rescore_fused",) if shape[1] > 1
+                               else ())
+        for r in rs:
+            total = {k: sum(c[k] for c in r["launches"].values())
+                     for k in need}
+            require_launches(f"mesh {label} rank {r['rank']}", total, need)
+            for run_name, c in r["launches"].items():
+                paths[f"mesh_{shape[0]}x{shape[1]}_r{r['rank']}_{run_name}"] \
+                    = c
+        print(f"  {label}: per-utterance n/f bitwise the one-rank pass; "
+              f"train_ubm through the mesh, reading {um:.3e}; every rank "
+              f"launched {', '.join(need)}")
+    # 3. the psum exit, 4. the rungs, 6. macro-batches through prefetch
+    psum = max(r["psum_reading"] for r in ranks[(2, 1)])
+    print(f"  (2, 1) exit_reduce='psum' against 'ordered': {psum:.3e} x "
+          f"max|value| (tolerance {PSUM_TOL})")
+    rec["psum_reading"] = psum
+    if psum > PSUM_TOL:
+        fail("the psum exit disagrees with the ordered one")
+    for floor in (0.0, cfg.posterior_floor):
+        rung = max(r[f"rung_reading_{floor}"] for r in ranks[(2, 2)])
+        elem = max(r[f"rung_elementwise_{floor}"] for r in ranks[(2, 2)])
+        rec[f"rung_reading_{floor}"] = rung
+        rec[f"rung_elementwise_{floor}"] = elem
+        held = floor == 0.0
+        print(f"  (2, 2) sharded_align_stats sparse and fused against dense, "
+              f"floor {floor}: {rung:.3e} x max|value| "
+              f"({f'tolerance {RUNG_TOL}' if held else 'not held'}); "
+              f"elementwise at rtol = atol = 1e-4: reading {elem:.3e} (not "
+              "held)")
+        if held and rung > RUNG_TOL:
+            fail("the rungs of sharded_align_stats disagree")
+    if not all(r["macro_bitwise"] for r in ranks[(2, 1)]):
+        fail("train(macro_batch, prefetch=2) is not bitwise the resident "
+             "pass")
+    print(f"  (2, 1) train(macro_batch={MESH_UTTS // 4}, prefetch=2) bitwise "
+          f"the resident pass with {MESH_UTTS // 8}-utterance chunks")
+    for shape, rs in ranks.items():
+        r0 = rs[0]
+        comm = {n: {k: v for k, v in c.items()}
+                for n, c in r0["comm"].items()}
+        fmt = "; ".join(
+            f"{n}: " + ", ".join(f"{k} {v[1] / 1e6:.1f} MB {v[2]:.3f} s"
+                                 for k, v in sorted(c.items()))
+            for n, c in comm.items() if c and n in ("train", "macro_step"))
+        print(f"  ({shape[0]}, {shape[1]}) {r0['backend']}: iteration s "
+              f"{', '.join(f'{x:.3f}' for x in r0['iteration_s'])}; "
+              f"em_macro_step {r0['macro_step_s']:.3f} s; rank 0 "
+              f"collectives {fmt}; peak memory a rank "
+              f"{peak_text([r['peak_mem_gb'] for r in rs])} ({card})")
+        rec[f"mesh_{shape[0]}x{shape[1]}"] = [
+            {k: v for k, v in r.items() if k not in ("ubm", "TT", "Sigma")}
+            for r in rs]
+    return rec, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2634,18 +3128,37 @@ def main() -> int:
     del ubm
     torch.cuda.empty_cache()
 
-    # 10. kernels line, card line, contract line. Launches are summed over
+    # 10. the mesh of ranks on the phase-3 system, several ranks on the card
+    print(f"[10] mesh of ranks over gloo on the one card ({card})")
+    ubm, model, _ = synthetic_system(cfg, args.seed, dev)
+    del model
+    t0 = time.perf_counter()
+    mesh, mesh_paths = mesh_phase(
+        cfg, ubm, torch.Generator(device=dev).manual_seed(args.seed + 10),
+        args.seed, dev, card)
+    mesh["phase_s"] = time.perf_counter() - t0
+    print(f"  mesh phase {mesh['phase_s']:.1f} s")
+    del ubm
+    torch.cuda.empty_cache()
+
+    # 11. kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
     # training runs, the two LM serving runs, the recipe's runs, the
-    # streaming and demotion runs and the two supervised runs (the repeat
-    # runs and the checks against plain paths not included).
+    # streaming and demotion runs, the two supervised runs and every
+    # rank's runs of the mesh phase (the repeat runs and the checks
+    # against plain paths not included).
     # packed_matmul's bf16 forms are held and timed here, but no path of
     # this script runs the E-step with bf16 inputs (OFF_PATH).
     paths = {"sparse": launches_sparse, "dense": launches_dense,
              "fused": launches_fused, **train["launches"], **lm_paths,
-             **recipe_paths, **stream_paths, **sup_paths}
+             **recipe_paths, **stream_paths, **sup_paths, **mesh_paths}
+    # gmm_align's row counts both entries of csrc/gmm_align.cu: the fused
+    # launch and the rescore alone (gmm_rescore_fused, the mesh's fused
+    # rung)
     for r in rows:
-        r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
+        r["launches"] = sum(p.get(r["name"], 0) + (
+            p.get("gmm_rescore_fused", 0) if r["name"] == "gmm_align" else 0)
+            for p in paths.values())
         r["on_path"] = r["name"] not in OFF_PATH
         if r["on_path"] and r["launches"] == 0:
             fail(f"no main-path run launched {r['name']}")
@@ -2661,7 +3174,7 @@ def main() -> int:
               "sparse_vs_fused_max_diff": d_sf,
               "card_vs_cpu_max_diff": d_cpu, "training": train, "lm": lm,
               "recipe": recipe, "streaming": stream, "supervised": sup,
-              "kernels": rows}
+              "mesh": mesh, "kernels": rows}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

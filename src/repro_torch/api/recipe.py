@@ -32,6 +32,7 @@ from repro_torch.configs.ivector_tvm import IVectorConfig
 from repro_torch.core import trainer as TR
 from repro_torch.data.speech import SpeechDataConfig
 from repro_torch.distributed import fault_tolerance as FT
+from repro_torch.launch import mesh as MS
 
 
 @dataclass
@@ -129,11 +130,14 @@ class IVectorRecipe:
         ``supervised``: run the tvm stage under the fault-tolerance
         supervisor (retry policy + numerical guardrails + verified-
         checkpoint restart; needs ``ckpt_dir``). What the supervisor did
-        lands in provenance, never in artifacts. ``mesh`` other than None
-        raises: the port runs on one device (ROADMAP Queue 1 item 11).
-        Provenance records the single device.
+        lands in provenance, never in artifacts.
+
+        ``mesh``: the trainer substrate (a ``launch.mesh.Mesh``, a
+        ``(data, model)`` tuple, or None for ``cfg.mesh`` / the default
+        mesh). A run-time knob, not a stage: it is threaded through every
+        engine entry point, recorded in the run's provenance as the JAX
+        package records it, and stripped from saved bundles.
         """
-        SG.refuse_mesh(mesh)
         names = [s.name for s in self.stages]
         ctx = SG.RunContext(cfg=self.cfg, seed=seed, n_iters=n_iters,
                             eval_every=eval_every, data_cfg=self.data_cfg,
@@ -160,8 +164,8 @@ class IVectorRecipe:
             "seed": int(seed),
             "n_iters": int(ctx.tv.iterations if ctx.tv else 0),
             "stages": [s.name for s in self.stages],
-            # the JAX package's descriptor of a one-device mesh
-            "mesh": [["data", 1], ["model", 1]],
+            "mesh": _mesh_provenance(mesh if mesh is not None
+                                     else self.cfg.mesh, ctx),
             "device": str(self.device),
             "resilience": _resilience_provenance(self.cfg, ctx),
         }
@@ -283,6 +287,21 @@ def _resilience_provenance(cfg: IVectorConfig, ctx: SG.RunContext) -> Dict:
                          "faults": list(rep.faults),
                          "skipped_corrupt": list(rep.skipped_corrupt)}
     return out
+
+
+def _mesh_provenance(mesh, ctx) -> Optional[list]:
+    """((axis, size), ...) descriptor of the substrate this run trained
+    on (the trainer's resolution rules), JSON-shaped; None when it cannot
+    be resolved here (e.g. no features were built)."""
+    try:
+        resolved = MS.resolve_mesh(
+            mesh,
+            n_utts=None if ctx.feats is None else int(ctx.feats.shape[0]),
+            n_components=ctx.cfg.n_components, device=ctx.device)
+    except (ValueError, TypeError):
+        return None
+    desc = MS.mesh_descriptor(resolved)
+    return None if desc is None else [list(p) for p in desc]
 
 
 def _feed(ctx: SG.RunContext, data) -> None:

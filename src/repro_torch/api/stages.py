@@ -38,13 +38,7 @@ from repro_torch.configs.ivector_tvm import IVectorConfig
 from repro_torch.core import trainer as TR
 from repro_torch.core import ubm as U
 from repro_torch.data.speech import SpeechDataConfig, build_dataset
-
-
-def refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh={mesh!r}: the port runs on one device; the mesh waits "
-            "for ROADMAP Queue 1 item 11")
+from repro_torch.launch import mesh as MS
 
 
 @dataclass
@@ -77,7 +71,8 @@ class RunContext:
     # what the supervisor did lands here
     supervised: bool = False
     supervisor_report: Optional[object] = None
-    # one device only until ROADMAP Queue 1 item 11
+    # the trainer substrate (launch.mesh: a Mesh, a (data, model) tuple,
+    # or None for cfg.mesh / the default mesh)
     mesh: Optional[object] = None
     # set by the recipe when backend+eval stages follow the tvm stage:
     # the curve's final point is then taken from their result instead of
@@ -155,12 +150,16 @@ class UBMStage:
     def run(self, ctx: RunContext) -> RunContext:
         if ctx.ubm is not None:
             return ctx
-        refuse_mesh(ctx.mesh if ctx.mesh is not None else ctx.cfg.mesh)
         frames = ctx.feats.reshape(-1, ctx.feats.shape[-1])
         fmask = None if ctx.mask is None else ctx.mask.reshape(-1)
+        mesh = None
+        if ctx.mesh is not None or ctx.cfg.mesh is not None:
+            mesh = MS.resolve_mesh(
+                ctx.mesh if ctx.mesh is not None else ctx.cfg.mesh,
+                device=ctx.device)
         gmm = U.train_ubm(frames, ctx.cfg.n_components,
                           torch.Generator().manual_seed(ctx.seed),
-                          mask=fmask, device=ctx.device)
+                          mask=fmask, mesh=mesh, device=ctx.device)
         ctx.ubm = AR.UBMArtifact(gmm, meta={"seed": ctx.seed,
                                             "n_frames": int(frames.shape[0])})
         return ctx
@@ -177,7 +176,6 @@ class TVMStage:
     def run(self, ctx: RunContext) -> RunContext:
         if ctx.tv is not None:
             return ctx
-        refuse_mesh(ctx.mesh if ctx.mesh is not None else ctx.cfg.mesh)
         cfg, n_iters = ctx.cfg, ctx.n_iters or ctx.cfg.n_iters
         callback = None
         if ctx.eval_every > 0:
@@ -187,7 +185,7 @@ class TVMStage:
                     return   # final point appended from the eval stage
                 if it % ctx.eval_every == 0 or it == n_iters:
                     ivecs = TR.extract(cfg, state, ctx.feats, mask=ctx.mask,
-                                       device=ctx.device)
+                                       mesh=ctx.mesh, device=ctx.device)
                     e, _ = AR.evaluate_ivectors(cfg, ivecs, ctx.labels,
                                                 ctx.seed)
                     ctx.curve.append((it, e))
@@ -201,14 +199,14 @@ class TVMStage:
             state, report = TR.train_supervised(
                 cfg, ctx.ubm.ubm, ctx.feats, n_iters=n_iters,
                 generator=generator, mask=ctx.mask, ckpt_dir=ctx.ckpt_dir,
-                device=ctx.device)
+                mesh=ctx.mesh, device=ctx.device)
             ctx.supervisor_report = report
         else:
             state = TR.train(cfg, ctx.ubm.ubm, ctx.feats, n_iters=n_iters,
                              generator=generator, callback=callback,
                              mask=ctx.mask, ckpt_dir=ctx.ckpt_dir,
                              ckpt_interval=ctx.ckpt_interval,
-                             device=ctx.device)
+                             mesh=ctx.mesh, device=ctx.device)
         ctx.tv = AR.TVArtifact(model=state.model, ubm=state.ubm,
                                iterations=state.iteration,
                                meta={"seed": ctx.seed,
@@ -225,7 +223,8 @@ class BackendStage:
 
     def run(self, ctx: RunContext) -> RunContext:
         ctx.ivectors = TR.extract(ctx.cfg, ctx.state, ctx.feats,
-                                  mask=ctx.mask, device=ctx.device)
+                                  mask=ctx.mask, mesh=ctx.mesh,
+                                  device=ctx.device)
         if ctx.backend is None:
             ctx.backend = AR.train_backend(ctx.cfg, ctx.ivectors,
                                            ctx.labels)

@@ -17,9 +17,12 @@ falls back to the newest checkpoint that verifies, recording what it
 skipped. Retention keeps the last ``keep`` steps plus every
 ``keep_every``-th step.
 
-The elastic re-mesh of the JAX package (``logical_axes`` at save,
-``rules`` at restore) waits for the multi-device work (ROADMAP Queue 1
-item 11); passing either raises.
+On a mesh of several ranks (``CheckpointManager(mesh=...)``) the state
+is replicated, so rank 0 alone writes and prunes, and a barrier follows
+every save: every rank then restores the same files. The elastic re-mesh
+of the JAX package (``logical_axes`` at save, ``rules`` at restore)
+belongs to the LM side and waits for the port of ``sharding/``; passing
+either raises.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from repro_torch import resolve_device
 from repro_torch.core import backend as BK
 from repro_torch.core import tvm as TV
 from repro_torch.core import ubm as U
+from repro_torch.launch import mesh as MS
 
 SEP = "|"
 
@@ -58,8 +62,8 @@ _TORCH_NAME = {v[0]: k for k, v in _NONNATIVE.items()}
 def _no_elastic(what: str, value) -> None:
     if value is not None:
         raise NotImplementedError(
-            f"{what}: elastic re-mesh restore waits for the multi-device "
-            "port (ROADMAP Queue 1 item 11)")
+            f"{what}: elastic re-mesh restore waits for the port of the "
+            "LM side's sharding/ (ROADMAP Queue 1 item 14)")
 
 
 def encode(leaf) -> Tuple[np.ndarray, str]:
@@ -291,11 +295,15 @@ class CheckpointManager:
 
     Retention: the newest ``keep`` checkpoints always survive GC; with
     ``keep_every`` > 0, steps divisible by it are also retained (the
-    fall-back targets when the newest checkpoint is found corrupted)."""
+    fall-back targets when the newest checkpoint is found corrupted).
+
+    ``mesh`` (a ``launch.mesh.Mesh`` of several ranks, each holding the
+    same state): rank 0 writes and prunes, then every rank waits at a
+    barrier, so a save returns once the checkpoint is on disk for all."""
 
     def __init__(self, ckpt_dir, save_interval: int = 100, keep: int = 3,
                  logical_axes=None, rules=None, keep_every: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         _no_elastic("CheckpointManager(logical_axes=...)", logical_axes)
         _no_elastic("CheckpointManager(rules=...)", rules)
         self.dir = Path(ckpt_dir)
@@ -303,15 +311,30 @@ class CheckpointManager:
         self.keep = keep
         self.keep_every = keep_every
         self.device = device
+        self.mesh = mesh
         # steps restore_latest_verified skipped as corrupted, most recent
         # restore first
         self.skipped_corrupt: List[int] = []
 
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes: rank 0 of the mesh, or the only
+        process."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def sync(self) -> None:
+        """Wait for every rank of the mesh (nothing without one)."""
+        if self.mesh is not None:
+            MS.barrier(self.mesh)
+
     def maybe_save(self, step: int, tree, extra=None, force=False):
         if not force and (step % self.save_interval != 0):
             return None
-        p = save(self.dir, step, tree, extra=extra)
-        self._gc()
+        p = self.dir / f"step_{step:08d}"
+        if self.writer:
+            p = save(self.dir, step, tree, extra=extra)
+            self._gc()
+        self.sync()
         return p
 
     def _gc(self):

@@ -8,9 +8,11 @@ augmented (Kaldi) formulation with prior offset p=100, LDA 400->200, PLDA.
 
 A copy of ``repro/configs/ivector_tvm.py``: the port keeps its own so that
 it imports nothing of the JAX package. The knobs keep their names and
-meanings; the port does not read ``mesh``, ``utts_per_batch``,
-``frames_per_utt`` or ``compute_dtype`` yet. The resilience knobs drive
-``trainer.train_supervised``.
+meanings. ``mesh`` selects the trainer's mesh of ranks
+(``launch/mesh.py``); the resilience knobs drive
+``trainer.train_supervised``; ``utts_per_batch`` and ``frames_per_utt``
+size ``launch/ivector_cell.py``'s macro-step. The port does not read
+``compute_dtype``.
 """
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
@@ -77,10 +79,10 @@ class IVectorConfig:
     param_dtype: str = "float32"
     # stats/matmul compute dtype; bf16 w/ fp32 accumulation on TPU
     compute_dtype: str = "bfloat16"
-    # default trainer substrate (DESIGN.md §11): a (data, model) device
-    # grid every macro-step runs on via the engine's shard_map mode. None
-    # auto-sizes a local data-parallel mesh (1 device -> bit-identical
-    # single-device path). A KNOB, not a stage: it changes where the same
+    # default trainer substrate (DESIGN.md §11): a (data, model) grid of
+    # ranks every macro-step runs on via the engine's mesh mode. None
+    # takes the default mesh (one rank without a process group ->
+    # bit-identical single-device path). A KNOB, not a stage: it changes where the same
     # math runs, never what the pipeline computes, so saved bundles strip
     # it (api/recipe.py) and provenance records it per run.
     mesh: Optional[Tuple[int, int]] = None

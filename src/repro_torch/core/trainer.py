@@ -1,5 +1,5 @@
-"""The TVM trainer on one device (the port of ``repro/core/trainer.py``): the
-paper's §3.2 training loop, with its variants switchable by the config:
+"""The TVM trainer (the port of ``repro/core/trainer.py``): the paper's
+§3.2 training loop, with its variants switchable by the config:
 
   formulation   'standard' | 'augmented'
   min_divergence / update_sigma / realign_interval / ubm_update
@@ -13,16 +13,27 @@ between iterations ``refresh_ubm`` writes the model back into the UBM
 ('means': the paper's step 5; 'full' also refreshes weights and
 covariances from the same streamed statistics).
 
+Every entry point resolves a mesh (``mesh`` argument > ``cfg.mesh`` > the
+default: one rank without a process group, the whole world with one,
+``launch/mesh.py``) and runs every macro-step through the engine's mesh
+mode, so ``ubm_update`` and realignment work the same on any number of
+ranks. Every rank calls the entry point with the same global arrays;
+``_place`` puts the rank's block of utterances on its device, and every
+rank ends with the same model. ``macro_batch`` streams each pass through
+``data.speech.prefetch_to_device`` in slices of each rank's block instead
+of one resident block.
+
 Long runs checkpoint through `checkpoint/manager.py` (``ckpt_dir``): model
 + UBM + last-pass sufficient statistics are saved every ``ckpt_interval``
-iterations, in the JAX package's format, and restored on restart.
-`train_supervised` wraps the same macro-step in
+iterations, in the JAX package's format (by rank 0 on a mesh), and
+restored on restart. `train_supervised` wraps the same macro-step in
 `distributed/fault_tolerance.run_supervised`: an injected failure costs
 exactly one macro-step and the restart resumes bit-exactly from the last
 checkpoint.
 
-Entry points run on ``device`` (CUDA unless the caller names another). A
-kernel failure during training raises: the trainer has no demotion ladder.
+Entry points run on ``device`` (CUDA unless the caller names another; on
+a mesh of several ranks, the mesh's device). A kernel failure during
+training raises: the trainer has no demotion ladder.
 """
 from __future__ import annotations
 
@@ -32,7 +43,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.checkpoint import manager as CM
 from repro_torch.configs.ivector_tvm import IVectorConfig
 from repro_torch.core import engine as EN
@@ -40,7 +50,9 @@ from repro_torch.core import guardrails as GR
 from repro_torch.core import stats as ST
 from repro_torch.core import tvm as TV
 from repro_torch.core import ubm as U
+from repro_torch.data import speech as DS
 from repro_torch.distributed import fault_tolerance as FT
+from repro_torch.launch import mesh as MS
 
 f32 = torch.float32
 
@@ -60,14 +72,36 @@ def _spec(cfg: IVectorConfig, second_order: bool) -> EN.EngineSpec:
         chunk=cfg.estep_chunk, rescore=cfg.rescore)
 
 
+def _resolve_mesh(cfg: IVectorConfig, mesh, n_utts: int,
+                  device=None) -> MS.Mesh:
+    """The trainer-side mesh default: explicit argument > ``cfg.mesh`` >
+    the default mesh (``launch.mesh.resolve_mesh``), built on ``device``.
+    An explicit ``Mesh`` keeps its own device."""
+    return MS.resolve_mesh(mesh if mesh is not None else cfg.mesh,
+                           n_utts=n_utts, n_components=cfg.n_components,
+                           device=device)
+
+
+def _place(mesh: MS.Mesh, feats, mask):
+    """This rank's block of the utterances (and mask) on its device, once
+    per call site, so that the iterations never move features again."""
+    feats = MS.data_block(mesh, torch.as_tensor(feats)).to(f32)
+    mask = (None if mask is None
+            else MS.data_block(mesh, torch.as_tensor(mask)))
+    return feats, mask
+
+
 def stats_ll(cfg: IVectorConfig, ubm: U.FullGMM, feats, mask=None,
-             second_order: Optional[bool] = None):
+             second_order: Optional[bool] = None,
+             mesh: Optional[MS.Mesh] = None):
     """feats [U, F, D] -> (BWStats, (loglik, frames)) through the engine
     (the body of the JAX ``make_stats_ll_fn``; with ``second_order=False``
-    that of ``make_stats_fn``). S is tracked when the config updates Σ."""
+    that of ``make_stats_fn``). S is tracked when the config updates Σ.
+    On a ``mesh`` ``feats``/``mask`` are the rank's block (``_place``) and
+    the per-utterance n/f come back whole, in rank order."""
     so = cfg.update_sigma if second_order is None else second_order
     return EN.stream_bw(_spec(cfg, so), EN.pack_ubm(ubm, feats.device),
-                        feats, mask)
+                        feats, mask, mesh=mesh)
 
 
 def _finish_iteration(cfg: IVectorConfig, model: TV.TVModel,
@@ -114,17 +148,23 @@ def _iter_accums(cfg: IVectorConfig, spec: EN.EngineSpec,
                         estep_dtype=cfg.estep_dtype))
 
 
+def _track_S(cfg: IVectorConfig) -> bool:
+    return cfg.update_sigma or cfg.ubm_update == "full"
+
+
 def iteration(cfg: IVectorConfig, model: TV.TVModel, ubm: U.FullGMM, feats,
-              mask=None):
+              mask=None, mesh: Optional[MS.Mesh] = None):
     """One fused streamed EM iteration (the body of the JAX
     ``make_iter_fn``) -> (new model, totals, diagnostics): the engine feeds
     the global sufficient statistics (``TotalsAccum``: the Σ update and
-    the UBM refresh) and the TVM E-step (``TVMAccum``) from one pass."""
-    track_S = cfg.update_sigma or cfg.ubm_update == "full"
-    spec = _spec(cfg, track_S)
+    the UBM refresh) and the TVM E-step (``TVMAccum``) from one pass. On a
+    ``mesh`` (``feats``/``mask`` the rank's block) the pass runs in the
+    engine's mesh mode and the M-step on the exit-reduced accumulators,
+    the same on every rank."""
+    spec = _spec(cfg, _track_S(cfg))
     pack = EN.pack_ubm(ubm, feats.device)
     accums = _iter_accums(cfg, spec, model, feats.shape[-1])
-    (tot, acc), _ = EN.stream(spec, pack, feats, mask, accums)
+    (tot, acc), _ = EN.stream(spec, pack, feats, mask, accums, mesh=mesh)
     model, diag = _finish_iteration(cfg, model, tot, acc)
     return model, tot, diag
 
@@ -199,21 +239,33 @@ def train(cfg: IVectorConfig, ubm: U.FullGMM, feats,
           n_iters: Optional[int] = None,
           generator: Optional[torch.Generator] = None, callback=None,
           mask=None, ckpt_dir=None, ckpt_interval: int = 1,
-          ckpt_keep: int = 3, device=None) -> TrainState:
+          ckpt_keep: int = 3, mesh=None, macro_batch: int = 0,
+          prefetch: int = 2, device=None) -> TrainState:
     """The training loop on in-memory features [U, F, D] (``mask`` [U, F]
     marks valid frames, so ragged batches train exactly).
 
     T is initialised from ``generator`` (a CPU generator seeded 0 when
-    none is given, so a run is reproducible on any device). ``callback``
-    gets (state, diagnostics) after every iteration. With ``ckpt_dir`` the
-    loop saves model + UBM + last-pass statistics every ``ckpt_interval``
-    iterations (keeping ``ckpt_keep``) and resumes from the newest
-    checkpoint that verifies: the trajectory is bitwise that of an
-    uninterrupted run on the same device.
+    none is given, so a run is reproducible on any device and every rank
+    draws the same T). ``callback`` gets (state, diagnostics) after every
+    iteration. With ``ckpt_dir`` the loop saves model + UBM + last-pass
+    statistics every ``ckpt_interval`` iterations (keeping ``ckpt_keep``)
+    and resumes from the newest checkpoint that verifies: the trajectory
+    is bitwise that of an uninterrupted run on the same device.
+
+    ``mesh``: a ``launch.mesh.Mesh``, a ``(data, model)`` tuple, or None
+    (``cfg.mesh``, else the default mesh). Every rank passes the same
+    arguments. A one-rank mesh is the local path bit for bit; a data-only
+    mesh with ``cfg.estep_chunk`` = U / data extent reproduces it bit for
+    bit (the ordered exit fold), other meshes up to f32 reassociation.
+    ``macro_batch`` > 0 streams each pass through
+    ``data.speech.prefetch_to_device`` (``prefetch`` batches in flight) in
+    slices of ``macro_batch`` / data extent utterances of each rank's own
+    block, merged on the rank and reduced once a pass: with
+    ``estep_chunk`` equal to that slice the pass is bitwise the resident
+    one. (The reference slices the global batch and reduces every slice.)
     """
-    dev = resolve_device(device)
-    feats = torch.as_tensor(feats).to(dev, f32)
-    mask = None if mask is None else torch.as_tensor(mask).to(dev)
+    mesh = _resolve_mesh(cfg, mesh, feats.shape[0], device)
+    dev = mesh.device
     generator = (generator if generator is not None
                  else torch.Generator().manual_seed(0))
     ubm = ubm.to(dev)
@@ -221,13 +273,25 @@ def train(cfg: IVectorConfig, ubm: U.FullGMM, feats,
                           cfg.formulation, cfg.prior_offset)
     state = TrainState(model=model, ubm=ubm)
     n_iters = n_iters or cfg.n_iters
+    batched = bool(macro_batch) and 0 < macro_batch < feats.shape[0]
+    if batched:
+        if macro_batch % mesh.data_extent:
+            raise ValueError(f"macro_batch={macro_batch} does not divide "
+                             f"the mesh's data extent {mesh.data_extent}")
+        # the rank's block stays where the caller keeps it; slices of it
+        # are copied to the device as they are streamed
+        feats = MS.data_block(mesh, torch.as_tensor(feats), device=False)
+        mask = (None if mask is None else
+                MS.data_block(mesh, torch.as_tensor(mask), device=False))
+    else:
+        feats, mask = _place(mesh, feats, mask)
 
     prev: Optional[EN.UBMStats] = None
     start = 0
     mgr = None
     if ckpt_dir is not None:
         mgr = CM.CheckpointManager(ckpt_dir, save_interval=ckpt_interval,
-                                   keep=ckpt_keep, device=dev)
+                                   keep=ckpt_keep, device=dev, mesh=mesh)
         if mgr.has_checkpoint():
             # the newest verified checkpoint: a torn or tampered latest
             # write falls back instead of resuming from garbage
@@ -245,23 +309,53 @@ def train(cfg: IVectorConfig, ubm: U.FullGMM, feats,
             mgr.maybe_save(state.iteration, _ckpt_tree(state, totals),
                            extra={"iteration": state.iteration})
 
-    # When realignment can never fire the UBM is static: align once and
-    # reuse the statistics; the streamed per-iteration pass runs only
-    # when a write-back can change the alignments.
-    if (cfg.realign_interval > 0 and cfg.ubm_update != "none"
-            and cfg.formulation == "augmented"):
+    realign_possible = (cfg.realign_interval > 0
+                        and cfg.ubm_update != "none"
+                        and cfg.formulation == "augmented")
+    if batched:
+        spec = _spec(cfg, _track_S(cfg))
         for it in range(start, n_iters):
-            if _realign_due(cfg, it, state.model):
+            if realign_possible and _realign_due(cfg, it, state.model):
                 state.ubm = refresh_ubm(cfg, state.model, state.ubm, prev)
-            state.model, prev, diag = iteration(cfg, state.model,
-                                                state.ubm, feats, mask)
+            pack = EN.pack_ubm(state.ubm, dev)
+            accums = _iter_accums(cfg, spec, state.model, feats.shape[-1])
+            parts = None
+            for fb, mb in DS.prefetch_to_device(
+                    DS.iter_batches(feats, mask,
+                                    macro_batch // mesh.data_extent),
+                    size=prefetch, device=dev):
+                p, _ = EN.stream_partial(spec, pack, fb.to(f32), mb, accums,
+                                         mesh=mesh)
+                parts = p if parts is None else (
+                    merge_totals(parts[0], p[0]),
+                    TV.merge_accums(parts[1], p[1]))
+            tot, acc = EN.reduce_partials(mesh, accums, parts)
+            state.model, diag = _finish_iteration(cfg, state.model, tot,
+                                                  acc)
+            prev = tot
             state.iteration = it + 1
             save(prev)
             if callback is not None:
                 callback(state, diag)
         return state
 
-    st, (ll, frames) = stats_ll(cfg, state.ubm, feats, mask)
+    # When realignment can never fire the UBM is static: align once and
+    # reuse the statistics; the streamed per-iteration pass runs only
+    # when a write-back can change the alignments.
+    if realign_possible:
+        for it in range(start, n_iters):
+            if _realign_due(cfg, it, state.model):
+                state.ubm = refresh_ubm(cfg, state.model, state.ubm, prev)
+            state.model, prev, diag = iteration(cfg, state.model,
+                                                state.ubm, feats, mask,
+                                                mesh=mesh)
+            state.iteration = it + 1
+            save(prev)
+            if callback is not None:
+                callback(state, diag)
+        return state
+
+    st, (ll, frames) = stats_ll(cfg, state.ubm, feats, mask, mesh=mesh)
     avg_ll = ll / torch.clamp(frames, min=1.0)
     for it in range(start, n_iters):
         state.model, diag = em_iter(cfg, state.model, st.n, st.f, st.S)
@@ -323,18 +417,16 @@ def train_supervised(cfg: IVectorConfig, ubm: U.FullGMM, feats,
 
     T is drawn once from ``generator`` as `train` draws it (a CPU
     generator seeded 0 when none is given), and every restart from
-    scratch starts from that draw. ``mesh`` other than None raises: the
-    port runs on one device. Returns (TrainState, SupervisorReport).
+    scratch starts from that draw. ``mesh`` as in `train`: every rank
+    runs the supervisor, rank 0 writes the checkpoints and every rank
+    restores them, so a restart happens on every rank at once. Returns
+    (TrainState, SupervisorReport).
     """
     if ckpt_dir is None:
         raise ValueError("train_supervised requires ckpt_dir")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh={mesh!r}: the port runs on one device; the mesh waits "
-            "for ROADMAP Queue 1 item 11")
-    dev = resolve_device(device)
-    feats = torch.as_tensor(feats).to(dev, f32)
-    mask = None if mask is None else torch.as_tensor(mask).to(dev)
+    mesh = _resolve_mesh(cfg, mesh, feats.shape[0], device)
+    dev = mesh.device
+    feats, mask = _place(mesh, feats, mask)
     generator = (generator if generator is not None
                  else torch.Generator().manual_seed(0))
     ubm = ubm.to(dev)
@@ -364,7 +456,8 @@ def train_supervised(cfg: IVectorConfig, ubm: U.FullGMM, feats,
             # bit-exact, and a poisoned (NaN) gain floods the features so
             # the guardrail trips on the resulting state
             model, tot, diag = iteration(c, model, gmm,
-                                         feats * batch["gain"], mask)
+                                         feats * batch["gain"], mask,
+                                         mesh=mesh)
             return _ckpt_tree(TrainState(model=model, ubm=gmm), tot), diag
 
         return step_fn
@@ -386,12 +479,13 @@ def train_supervised(cfg: IVectorConfig, ubm: U.FullGMM, feats,
         return None if c2 is None else make_step_fn(c2)
 
     ckpt = CM.CheckpointManager(ckpt_dir, save_interval=1, keep=ckpt_keep,
-                                keep_every=ckpt_keep_every, device=dev)
+                                keep_every=ckpt_keep_every, device=dev,
+                                mesh=mesh)
     report = FT.run_supervised(
         init_state_fn=init_state_fn, train_step_fn=make_step_fn(cfg),
         data_factory=_StepFeed, n_steps=n_steps, ckpt=ckpt,
         fail_at=fail_at, policy=policy, guardrail=guardrail,
-        on_escalate=on_escalate, chaos=chaos, device=dev)
+        on_escalate=on_escalate, chaos=chaos, device=dev, mesh=mesh)
     tree, _, _ = ckpt.restore_latest_verified(init_state_fn())
     state = TrainState(model=tree["model"], ubm=tree["ubm"],
                        iteration=report.final_step)
@@ -399,15 +493,17 @@ def train_supervised(cfg: IVectorConfig, ubm: U.FullGMM, feats,
 
 
 def extract(cfg: IVectorConfig, state: TrainState, feats, mask=None,
-            device=None) -> torch.Tensor:
+            mesh=None, device=None) -> torch.Tensor:
     """i-vectors [U, R] for [U, F, D] features with the trained model and
     UBM (``mask`` [U, F] marks valid frames). The statistics pass skips
-    the second moment, which extraction does not use."""
-    dev = resolve_device(device)
-    feats = torch.as_tensor(feats).to(dev, f32)
-    mask = None if mask is None else torch.as_tensor(mask).to(dev)
+    the second moment, which extraction does not use. ``mesh`` shards the
+    statistics pass as in `train` (per-utterance n/f are bitwise the same
+    on every mesh); every rank then solves for all the i-vectors."""
+    mesh = _resolve_mesh(cfg, mesh, feats.shape[0], device)
+    dev = mesh.device
+    feats, mask = _place(mesh, feats, mask)
     st, _ = stats_ll(cfg, state.ubm.to(dev), feats, mask,
-                     second_order=False)
+                     second_order=False, mesh=mesh)
     model = state.model.to(dev)
     if model.formulation == "standard":
         stc = ST.center(ST.BWStats(st.n, st.f, None), model.means)

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as MS
 
 f32 = torch.float32
 COV_FLOOR = 1e-4
@@ -89,8 +90,16 @@ def precompute(model: TVModel, estep: str = "dense",
     return Precomp(Uc.to(f32), Pj.to(f32))
 
 
+def _model_sum(axis, t):
+    """Sum of the partial ``t`` over the model axis of the mesh ``axis``
+    (None: ``t`` is already whole)."""
+    if axis is None:
+        return t
+    return MS.all_reduce(axis, t, axis.groups["model"], "model")
+
+
 def posterior(model: TVModel, pre: Precomp, n, f, mean_only: bool = False,
-              estep_dtype: str = "float32"
+              estep_dtype: str = "float32", axis=None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """n: [U, C], f: [U, C, D] -> (phi [U, R], Phi [U, R, R] | None).
 
@@ -101,17 +110,25 @@ def posterior(model: TVModel, pre: Precomp, n, f, mean_only: bool = False,
     is then inverted by the matmul-only ``tri_inverse``. Dense mode keeps
     the ``cholesky_solve`` reference. ``mean_only=True`` returns
     ``Phi=None`` and never forms the covariance.
+
+    ``axis`` (the engine's mesh mode: a ``launch.mesh.Mesh`` whose model
+    axis is sharded): n/f and the precompute rows cover only the rank's
+    block of components, so the component contractions are partial sums.
+    They sum over the model axis before the eye and prior terms are
+    added, and everything after (solves, phi, Phi) is replicated over the
+    model axis: the E-step's only model-axis collective.
     """
     R = model.rank
     eye = torch.eye(R, dtype=f32, device=n.device)
     if pre.packed:
         Lp = ops.tvm_estep_l(n, pre.U, dtype=estep_dtype)      # [U, P]
-        L = eye + ops.unpack_symmetric(Lp, R)
+        L = eye + ops.unpack_symmetric(_model_sum(axis, Lp), R)
     else:
-        L = eye + torch.einsum("uc,crs->urs", n.to(f32), pre.U)
+        Ld = torch.einsum("uc,crs->urs", n.to(f32), pre.U)
+        L = eye + _model_sum(axis, Ld)
     u, C, D = f.shape
-    rhs = model.prior[None] + f.reshape(u, C * D).to(f32) @ \
-        pre.Pj.reshape(C * D, R)
+    rhs = model.prior[None] + _model_sum(
+        axis, f.reshape(u, C * D).to(f32) @ pre.Pj.reshape(C * D, R))
     chol = torch.linalg.cholesky(L)
     if pre.packed:
         Gi = ops.tri_inverse(chol)
@@ -150,15 +167,22 @@ class EMAccum(NamedTuple):
 
 
 def em_accumulate(model: TVModel, pre: Precomp, n, f,
-                  estep_dtype: str = "float32") -> EMAccum:
+                  estep_dtype: str = "float32", axis=None) -> EMAccum:
     """One minibatch of utterance stats -> E-step accumulators.
 
     A packed ``pre`` keeps the symmetric operands packed end to end: the
     per-utterance second moment Phi + φφᵀ is packed once [U, P], the
     A-accumulation runs on it (``ops.tvm_estep_a``: the packed matmul
     kernel on CUDA) and A stays packed until the M-step solve.
+
+    With ``axis`` (model-sharded n/f/pre) the posterior sums its partial
+    precision and rhs over the model axis; phi/Phi come back replicated,
+    so A/B/n_tot are this rank's rows of the whole accumulators and
+    h/H/n_utts are replicated: the layout the engine's exit reduce
+    expects.
     """
-    phi, Phi = posterior(model, pre, n, f, estep_dtype=estep_dtype)
+    phi, Phi = posterior(model, pre, n, f, estep_dtype=estep_dtype,
+                         axis=axis)
     if pre.packed:
         i0, i1 = torch.triu_indices(model.rank, model.rank, device=n.device)
         PPp = ops.pack_symmetric(Phi) + phi[:, i0] * phi[:, i1]

@@ -244,7 +244,7 @@ def _as_utterances(x, mask, frame_chunk: int):
 def train_ubm(x, C: int, generator: torch.Generator, diag_iters: int = 8,
               full_iters: int = 4, top_k: int = 0, chunk: int = 8,
               frame_chunk: int = 4096, mask=None, rescore: str = "dense",
-              device=None) -> FullGMM:
+              mesh=None, device=None) -> FullGMM:
     """The Kaldi-style recipe: diagonal EM, then full-covariance EM, with the
     E-side streamed chunk by chunk through the engine, so nothing
     frame-resident outlives one chunk.
@@ -255,24 +255,42 @@ def train_ubm(x, C: int, generator: torch.Generator, diag_iters: int = 8,
     keeps all C components, which is exact EM but scatters C slots per
     chunk. ``rescore`` picks how the full phase scores the selected set.
     Runs on ``device`` (CUDA unless the caller names another).
+
+    ``mesh`` (a ``launch.mesh.Mesh``; every rank passes the same ``x``)
+    runs both EM phases through the engine's mesh mode: each rank streams
+    its block of the pseudo-utterances against its block of the
+    components, on the mesh's device (a one-rank mesh streams locally on
+    its device). It is dropped (local streaming, as
+    in the reference) when the pseudo-utterances do not divide the data
+    extent or C the model extent.
     """
     from repro_torch.core import engine as EN   # engine imports ubm
-    dev = resolve_device(device)
+    from repro_torch.launch import mesh as MS
+    dev = resolve_device(device) if mesh is None else mesh.device
+    if mesh is not None and mesh.size == 1:
+        mesh = None
     x = torch.as_tensor(x).to(dev, f32)
     mask = None if mask is None else torch.as_tensor(mask).to(dev)
     feats, mask = _as_utterances(x, mask, frame_chunk)
+    if mesh is not None and (feats.shape[0] % mesh.data_extent
+                             or C % mesh.model_extent):
+        mesh = None
     gmm = init_diag_from_data(feats, C, generator, mask=mask)
+    if mesh is not None:
+        feats = MS.data_block(mesh, feats)
+        mask = MS.data_block(mesh, mask)
     K = int(top_k) if top_k else C
     spec_d = EN.EngineSpec(n_components=C, top_k=K, floor=0.0,
                            second_order="diag", chunk=chunk)
     for _ in range(diag_iters):
-        st = EN.stream_ubm(spec_d, EN.pack_diag(gmm), feats, mask)
+        st = EN.stream_ubm(spec_d, EN.pack_diag(gmm), feats, mask, mesh=mesh)
         gmm = diag_m_step(st.n, st.f, st.ss)
     full = full_from_diag(gmm)
     spec_f = EN.EngineSpec(n_components=C, top_k=K, floor=0.0,
                            second_order="full", chunk=chunk,
                            rescore=rescore)
     for _ in range(full_iters):
-        st = EN.stream_ubm(spec_f, EN.pack_ubm(full, dev), feats, mask)
+        st = EN.stream_ubm(spec_f, EN.pack_ubm(full, dev), feats, mask,
+                           mesh=mesh)
         full = full_m_step(st.n, st.f, st.ss)
     return full

@@ -11,11 +11,13 @@ trials in both packages. The generator draws the same distributions from
 bitwise the JAX package's: the two PRNGs differ. Its draws do not depend on
 the device the frames end up on; utterance (s, u) has a generator of its
 own, seeded from (seed + 1, s, u), so a dataset is deterministic per
-utterance. ``iter_batches`` and ``prefetch_to_device`` wait for the
-multi-device work (ROADMAP Queue 1 item 11).
+utterance. ``iter_batches`` cuts a batch into macro-batches and
+``prefetch_to_device`` keeps the next ones' host-to-device copies in
+flight while the current one is consumed.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -122,6 +124,69 @@ def build_ragged_dataset(cfg: SpeechDataConfig, device=None
     fixed, labels = build_dataset(cfg, device)
     lengths = utterance_lengths(cfg)
     return [fixed[i, :int(n)] for i, n in enumerate(lengths)], labels
+
+
+def iter_batches(feats, mask=None, batch: int = 0):
+    """Yield (feats_b, mask_b) macro-batch slices of [U, F, D] features in
+    utterance order. ``batch`` <= 0 yields the whole array once; a ragged
+    tail is yielded as it is (the engine's masked chunk body is exact on
+    any batch size). ``mask_b`` is None when ``mask`` is None."""
+    U = feats.shape[0]
+    if batch <= 0 or batch >= U:
+        yield feats, mask
+        return
+    for s in range(0, U, batch):
+        e = min(s + batch, U)
+        yield feats[s:e], (None if mask is None else mask[s:e])
+
+
+def prefetch_to_device(it, size: int = 2, device=None):
+    """Prefetching host -> device copies of an iterator of tuples of
+    tensors (None elements pass through).
+
+    On a CUDA ``device`` each element is copied from pinned host memory on
+    a side stream as soon as it is drawn, with up to ``size`` elements in
+    flight, so the next macro-batch's copy overlaps the current one's
+    compute; the consumer's stream waits on the element's copy event
+    before it is yielded. On the CPU (``device`` None or ``cpu``) the
+    elements pass through as tensors. ``size`` < 2 copies each element
+    when it is drawn, with nothing ahead.
+    """
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type != "cuda":
+        for batch in it:
+            yield tuple(None if x is None else torch.as_tensor(x)
+                        for x in batch)
+        return
+    side = torch.cuda.Stream(dev)
+
+    def copy(x):
+        x = torch.as_tensor(x)
+        return (x if x.is_cuda else x.pin_memory()).to(dev, non_blocking=True)
+
+    def put(batch):
+        with torch.cuda.stream(side):
+            out = tuple(None if x is None else copy(x) for x in batch)
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, done
+
+    def take(item):
+        out, done = item
+        cur = torch.cuda.current_stream(dev)
+        cur.wait_event(done)
+        for x in out:
+            if x is not None:
+                x.record_stream(cur)   # allocated on the side stream
+        return out
+
+    buf = deque()
+    for batch in it:
+        buf.append(put(batch))
+        if len(buf) >= max(size, 1):
+            yield take(buf.popleft())
+    while buf:
+        yield take(buf.popleft())
 
 
 def make_trials(labels: np.ndarray, ivec_ids: np.ndarray, rng: np.random.Generator,

@@ -1,6 +1,7 @@
 """Fault tolerance: supervised training with checkpoint/restart, a
 configurable retry policy, numerical guardrails and chaos injection (the
-port of ``repro/distributed/fault_tolerance.py``, on one device).
+port of ``repro/distributed/fault_tolerance.py``, on one device or on
+every rank of a mesh).
 
   * restart: state (model + data cursor) restores bit-exactly from the
     last verified checkpoint (corrupted ones are skipped, see
@@ -175,6 +176,7 @@ def run_supervised(
     clock: Callable[[], float] = time.monotonic,
     sleep: Callable[[float], None] = time.sleep,
     device=None,
+    mesh=None,
 ) -> SupervisorReport:
     """Train ``n_steps`` with checkpoint/restart under the retry policy.
 
@@ -195,6 +197,12 @@ def run_supervised(
     Each batch leaf reaches ``train_step_fn`` as a tensor on ``device``
     (the CPU when None). ``clock``/``sleep`` are injectable for
     deterministic drills.
+
+    ``mesh`` (a ``launch.mesh.Mesh``; ``ckpt`` built with the same): every
+    rank runs this loop on the same replicated state, so every decision
+    (a guardrail's, a chaos hook's, a restart) is the same on every rank.
+    The one that reads a clock is made so: a step's time is the slowest
+    rank's. A checkpoint is corrupted by rank 0 alone, as only it writes.
     """
     policy = policy or RetryPolicy(max_restarts=max_restarts)
     chaos = chaos or Chaos()
@@ -253,7 +261,7 @@ def run_supervised(
                     if guardrail is None:
                         raise
                     failed = [f"step {step}: factorization failed ({e})"]
-                elapsed = clock() - t0
+                elapsed = _slowest(mesh, clock() - t0)
                 if chaos.delay_at:
                     elapsed += float(chaos.delay_at(step, attempt))
                 if 0 < policy.step_deadline < elapsed:
@@ -276,7 +284,9 @@ def run_supervised(
                                         extra={"data": data.state()})
                 if (saved is not None and chaos.corrupt_ckpt_at
                         and chaos.corrupt_ckpt_at(step, attempt)):
-                    corrupt_checkpoint(saved)
+                    if ckpt.writer:
+                        corrupt_checkpoint(saved)
+                    ckpt.sync()
             ckpt.maybe_save(step, state, extra={"data": data.state()},
                             force=True)
             return SupervisorReport(
@@ -304,6 +314,18 @@ def run_supervised(
             if d > 0:
                 sleep(d)
             # fall through: loop restarts from the last good checkpoint
+
+
+def _slowest(mesh, seconds: float) -> float:
+    """The largest of every rank's ``seconds`` (``seconds`` without a
+    mesh of several ranks)."""
+    if mesh is None or mesh.size == 1:
+        return seconds
+    t = torch.tensor([seconds], dtype=torch.float64)
+    if mesh.backend == "nccl":
+        t = t.to(mesh.device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return float(t)
 
 
 def shard_for_host(step: int, host: int, n_hosts: int,

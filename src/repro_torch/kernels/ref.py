@@ -93,15 +93,21 @@ def gmm_rescore_fused(x, sel, A2):
     return torch.gather(ll, 1, sel.long())
 
 
+def topk_lowest(values, top_k: int):
+    """Positions [F, K] (int64) of the top-K of each row of ``values``,
+    ties toward the lowest position as ``lax.top_k`` breaks them: a stable
+    descending sort keeps equal values in position order (``torch.topk``
+    promises no order among equal values)."""
+    order = torch.sort(values, dim=1, descending=True, stable=True).indices
+    return order[:, :top_k]
+
+
 def diag_topk(x, dconst, dlin, dquad, top_k: int):
     """Diagonal preselection: scores const + x.lin + x².quad [F, C] and the
-    top-K ids [F, K] (int64), ties toward the lowest id as ``lax.top_k``
-    breaks them: a stable descending sort keeps equal scores in id order
-    (``torch.topk`` promises no order among equal scores)."""
+    top-K ids [F, K] (int64), ties toward the lowest id (``topk_lowest``)."""
     x = x.to(f32)
     scores = dconst[None] + x @ dlin + (x * x) @ dquad
-    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
-    return scores, order[:, :top_k]
+    return scores, topk_lowest(scores, top_k)
 
 
 def argmax_topk(scores, top_k: int):

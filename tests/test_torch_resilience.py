@@ -459,9 +459,13 @@ def test_train_supervised_refusals(setup, tmp_path):
     feats, gmm = setup
     with pytest.raises(ValueError, match="ckpt_dir"):
         TR.train_supervised(CFG, _tubm(gmm), feats, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TR.train_supervised(CFG, _tubm(gmm), feats, ckpt_dir=tmp_path,
-                            mesh=(1, 1), device="cpu")
+    # a one-rank mesh runs and equals the meshless run
+    a, _ = TR.train_supervised(CFG, _tubm(gmm), feats, generator=_gen(),
+                               ckpt_dir=tmp_path / "plain", device="cpu")
+    b, _ = TR.train_supervised(CFG, _tubm(gmm), feats, generator=_gen(),
+                               ckpt_dir=tmp_path / "mesh", mesh=(1, 1),
+                               device="cpu")
+    _assert_bit_exact(b, a)
 
 
 # ---------------------------------------------------------------------------

@@ -163,7 +163,8 @@ def test_port_imports_neither_jax_nor_repro():
         "assert not bad, bad\n"
         "need = ['serving.session', 'serving.guard', 'serving.rollout',\n"
         "        'launch.serve_ivector', 'core.guardrails',\n"
-        "        'distributed.fault_tolerance']\n"
+        "        'distributed.fault_tolerance', 'launch.mesh',\n"
+        "        'launch.ivector_cell']\n"
         "missing = [m for m in need if 'repro_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
