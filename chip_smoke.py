@@ -62,6 +62,14 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   through prefetch, and every kernel of the path on every rank. Several
   ranks share one card there, so its times check the path and the cost
   of its collectives; they do not measure scaling.
+* runs the port's ``analysis/``: the kernel registry's shared memory at
+  the main paths' shapes against the card's opt-in limit and the CUDA
+  side's geometry, each kernel's time against its bound (every bound
+  above comes from ``kernels/registry.py``'s work), ``autotune_align``'s
+  prediction against the measured ``gmm_align`` (K = 20 and 40, and the
+  rescore alone), ``op_cost`` on one iteration counted on the card and on
+  the CPU (equal flops), a full-width iteration's ``RooflineReport`` row,
+  and the check gate with its dispatch pass on the card (no finding).
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -89,10 +97,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, bf16 on the
-# tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-PEAK_BYTES = 3.35e12
 # exponentials a clock on one SM (the MUFU unit)
 MUFU_PER_SM_CLOCK = 16
 
@@ -176,12 +180,14 @@ def mufu_rate():
             f"{MUFU_PER_SM_CLOCK} a clock an SM x {n_sm} SMs x {mhz:.0f} MHz")
 
 
-def bound(flops: float, nbytes: float, dtype: str = "float32"):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate for the operands' type."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_mem = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+def bound(kernel: str, **cfg):
+    """(bound_ms, bound_by) of one call of a registered kernel at these
+    shapes: its work from ``kernels/registry.py`` against the H100's
+    data-sheet peaks in ``analysis/roofline.py`` (the larger of bytes over
+    the memory rate and operations over the peak rate for the operands'
+    type)."""
+    from repro_torch.analysis import roofline
+    return roofline.kernel_bound(kernel, cfg)
 
 
 def compare(name, got, want, tol=TOL):
@@ -273,9 +279,7 @@ def kernel_checks(ex, utts, g):
     del skew, Pn
     F = x.shape[0]
     E2 = 1 + D + D * (D + 1) // 2
-    # the packed form needs E2 products per (frame, component)
-    b_ms, b_by = bound(2.0 * F * C * E2,
-                       4.0 * (F * D + C + D * C + C * D * D + F * C))
+    b_ms, b_by = bound("gmm_loglik", F=F, C=C, D=D)
     # library yardsticks, operands built beforehand: one torch.addmm over
     # the packed expansion (ref.expand_quadratic without its ones column)
     # and the packed weights, const as the bias; and, for continuity with
@@ -310,10 +314,8 @@ def kernel_checks(ex, utts, g):
     got = GR.gmm_rescore(x, sel, A)
     want = ref.gmm_rescore(x, sel, const, linT, Pf)
     err = compare(f"gmm_rescore [{F}x{K}] of C=2048", got, want)
-    rows_touched = torch.unique(sel).numel()
-    b_ms, b_by = bound(2.0 * F * K * (D * D + D + 1),
-                       4.0 * (F * D + rows_touched * A.shape[1] + F * K)
-                       + 8.0 * F * K)
+    b_ms, b_by = bound("gmm_rescore", F=F, K=K, C=C, D=D,
+                       rows_touched=torch.unique(sel).numel())
     rows.append(dict(
         name="gmm_rescore", route="cuda",
         source="src/repro_torch/csrc/gmm_rescore.cu",
@@ -539,9 +541,7 @@ def check_packed_matmul(ex, C: int, g):
                      else f"[{K}x{M}]ᵀ @ [{K}x{Pn}]")
             err = compare(f"{name} {shape} {tag}, {form} form",
                           run(n, b), plain(n, b))
-            esz = n.element_size()
-            b_ms, b_by = bound(2.0 * M * K * Pn,
-                               esz * (M * K + K * Pn) + 4.0 * M * Pn, tag)
+            b_ms, b_by = bound("tvm_estep", M=M, K=K, N=Pn, dtype=tag)
             if dtype == torch.float32:
                 lib = cuda_ms(lambda: torch.matmul(lib_a, b), 10)
             else:
@@ -643,11 +643,9 @@ def check_bw_stats(ex, frames, K: int, g):
     gT = gamma.T
     # S_c is symmetric: the function needs D(D+1)/2 products per (frame,
     # component) for S, D for f and 1 for n; it writes all of S
-    E = D * (D + 1) // 2 + D + 1
-    b_ms, b_by = bound(2.0 * F * C * E,
-                       4.0 * (F * C + F * D + C * (D * D + D + 1)))
-    t_ms, _ = bound(2.0 * F * C * E * shares["path"]["tiles128"],
-                    4.0 * (F * C + F * D + C * (D * D + D + 1)))
+    b_ms, b_by = bound("bw_stats", F=F, C=C, D=D)
+    t_ms, _ = bound("bw_stats", F=F, C=C, D=D,
+                    touched=shares["path"]["tiles128"])
     row = dict(
         name="bw_stats", route="cuda", source="src/repro_torch/csrc/bw_stats.cu",
         replaces="src/repro/kernels/bw_stats.py:54", max_abs_err=err,
@@ -771,10 +769,8 @@ def check_gmm_align(ex, frames, K: int):
         if mine != GA.kernel_geometry(*shape):
             fail(f"gmm_align: geometry{shape} is {mine} in the wrapper, "
                  f"{GA.kernel_geometry(*shape)} in the kernel")
-    rows_touched = torch.unique(sel).numel()
-    b_ms, b_by = bound(2.0 * F * C * (2 * D + 1) + 2.0 * F * K * E2,
-                       4.0 * (F * D + C * (2 * D + 1) + rows_touched * E2)
-                       + 12.0 * F * K)
+    b_ms, b_by = bound("gmm_align", F=F, C=C, D=D, K=K,
+                       rows_touched=torch.unique(sel).numel())
     # the split: the rescore alone is the same kernel given the selection
     # (sel_in), the rest is the preselect and the top-K
     ms = cuda_ms(lambda: GA.gmm_align(x, dconst, dlin, dquad, A2, K), 20)
@@ -1274,9 +1270,8 @@ def check_flash_attention(g, dev):
             err = compare_bf16(name, FA.flash_attention(q, k, v),
                                ref.flash_attention(q.float(), k.float(),
                                                    v.float()))
-        b_ms, b_by = bound(4.0 * B * H * hd * S * S / 2,
-                           q.element_size() * hd * (2 * B * S * H
-                                                    + 2 * B * S * KVH), tag)
+        b_ms, b_by = bound("flash_attention", B=B, S=S, H=H, KVH=KVH,
+                           hd=hd, dtype=tag)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         recs.append(dict(
             case=f"{label} B={B} S={S} H={H} KVH={KVH} hd={hd} {tag}",
@@ -1343,14 +1338,11 @@ def check_selective_scan(g, dev):
             margin = min(margin, SCAN_TOL * w.abs().max().item()
                          / max(e, 1e-30))
         print(f"    margin: the error is {margin:.0f}x below the limit")
-        # per (b, t, d, s): dt*A, exp, *h, dx*B, +, *C, + ; dt, dx, y per
-        # (b, t, d), Bc and Cc per (b, t), A, h_last (and h0) once. The
-        # exponentials (one per (b, t, d, s)) at the MUFU rate alone are
-        # printed beside the bound, not taken into it: the FMA pipe can
-        # take a share of them as a polynomial
-        b_ms, b_by = bound(7.0 * B * T * di * ds,
-                           4.0 * (3 * B * T * di + 2 * B * T * ds + di * ds
-                                  + B * di * ds * (2 if with_h0 else 1)))
+        # the exponentials (one per (b, t, d, s)) at the MUFU rate alone
+        # are printed beside the bound, not taken into it: the FMA pipe
+        # can take a share of them as a polynomial
+        b_ms, b_by = bound("selective_scan", B=B, T=T, di=di, ds=ds,
+                           h0=with_h0)
         recs.append(dict(
             case=f"{label} B={B} T={T} di={di} ds={ds} float32",
             max_abs_err=err, margin=margin,
@@ -2959,6 +2951,262 @@ def mesh_phase(cfg, ubm, g, seed: int, dev, card: str):
     return rec, paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: analysis/ and the kernel registry on the card
+# ---------------------------------------------------------------------------
+
+# one trainer.iteration at SMOKE's width on OPCOST_UTTS x OPCOST_FRAMES
+# frames, counted on the card and on the CPU: the same contractions, so
+# the flops are equal; the bytes within OPCOST_BYTES_TOL of each other
+# (each kernel region counts the registry's work on both; only ops that
+# run on one device alone, such as a copy to the card, may differ)
+OPCOST_UTTS, OPCOST_FRAMES = 16, 64
+OPCOST_BYTES_TOL = 0.05
+# the full-width iteration: phase 5's corpus
+ROOFLINE_UTTS, ROOFLINE_FRAMES = 640, 512
+
+
+def registry_configs(cfg):
+    """(label, registry kernel, config) of every kernel row at the main
+    paths' shapes (PERF.md §6), gmm_align's whole-row instance (K = 40),
+    its rescore alone and the f32 attention."""
+    C, D, K, R = (cfg.n_components, cfg.feat_dim, cfg.posterior_top_k,
+                  cfg.ivector_dim)
+    P = R * (R + 1) // 2
+    out = [("gmm_loglik", "gmm_loglik", dict(F=4096, C=C, D=D)),
+           ("gmm_rescore", "gmm_rescore", dict(F=16384, K=K, C=C, D=D))]
+    for tag in ("float32", "bfloat16"):
+        sfx = "" if tag == "float32" else "_bf16"
+        out += [(f"tvm_estep_l{sfx}", "tvm_estep",
+                 dict(M=16, K=C, N=P, dtype=tag)),
+                (f"tvm_estep_l{sfx}_train", "tvm_estep",
+                 dict(M=512, K=C, N=P, dtype=tag)),
+                (f"tvm_estep_a{sfx}", "tvm_estep",
+                 dict(M=C, K=512, N=P, dtype=tag))]
+    out += [("bw_stats", "bw_stats", dict(F=32768, C=C, D=D)),
+            ("gmm_align", "gmm_align", dict(F=16384, C=C, D=D, K=K)),
+            ("gmm_align K=40", "gmm_align", dict(F=16384, C=C, D=D, K=40)),
+            ("gmm_rescore_fused", "gmm_align",
+             dict(F=16384, C=C, D=D, K=K, rescore_only=True)),
+            ("flash_attention", "flash_attention",
+             dict(B=4, S=2048, H=32, KVH=8, hd=128, dtype="bfloat16")),
+            ("flash_attention f32", "flash_attention",
+             dict(B=4, S=2048, H=32, KVH=8, hd=128, dtype="float32")),
+            ("selective_scan", "selective_scan",
+             dict(B=4, T=2048, di=8192, ds=16))]
+    return out
+
+
+def registry_on_card(cfg, rows):
+    """The registry's shared memory at the main paths' shapes against the
+    card's opt-in limit (read from the card, through torch where it has it
+    and through the CUDA runtime), and against the CUDA side's geometry
+    where it exports it; then each kernel row's time against its bound."""
+    from repro_torch.kernels import gmm_align as GA
+    from repro_torch.kernels import gmm_rescore as GR
+    from repro_torch.kernels import registry
+    props = torch.cuda.get_device_properties(0)
+    torch_optin = getattr(props, "shared_memory_per_block_optin", None)
+    runtime_optin = GA.smem_optin(0)
+    if torch_optin is not None and torch_optin != runtime_optin:
+        fail(f"shared memory opt-in: torch says {torch_optin}, the CUDA "
+             f"runtime {runtime_optin}")
+    budget = runtime_optin
+    print(f"  shared memory a block may opt in to: {budget} bytes (torch: "
+          f"{torch_optin}, CUDA runtime: {runtime_optin})")
+    recs = []
+    for label, name, c in registry_configs(cfg):
+        inst = registry.get(name).instance(c)
+        if inst.smem_bytes > budget:
+            fail(f"registry: {label} asks {inst.smem_bytes} bytes of shared "
+                 f"memory a block, above the card's {budget}")
+        cuda = None
+        if name == "gmm_align":
+            g = GA.kernel_geometry(c["C"], c["D"], c["K"],
+                                   c.get("rescore_only", False))
+            cuda = None if g is None else ((-(-c["F"] // g[0]),), g[2])
+        elif name == "gmm_rescore":
+            g = GR.kernel_geometry(c["F"], c["K"], c["C"], c["D"])
+            cuda = None if g is None else ((g.max_items,), g.smem_bytes)
+        if name in ("gmm_align", "gmm_rescore") and \
+                cuda != (inst.grid, inst.smem_bytes):
+            fail(f"registry: {label} grid {inst.grid}, {inst.smem_bytes} "
+                 f"bytes; the CUDA side's geometry: {cuda}")
+        rings = ", ".join(f"{r.kind} x{r.stages}" for r in inst.rings)
+        print(f"  {label}: grid {inst.grid} x {inst.threads} threads, "
+              f"{inst.smem_bytes} bytes of shared memory"
+              f"{' (= the CUDA side geometry)' if cuda else ''}; "
+              f"rings: {rings or 'none'}")
+        recs.append(dict(label=label, kernel=name, grid=inst.grid,
+                         threads=inst.threads, smem_bytes=inst.smem_bytes,
+                         cuda_geometry=cuda is not None))
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}): "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of its bound")
+    return budget, recs
+
+
+def autotune_vs_measured(cfg, utts, seed: int, dev):
+    """autotune_align's predicted time against the measured gmm_align at
+    F = 16,384, C = 2048, D = 72: the streaming instance (K = 20), the
+    whole-row one (K = 40) and the rescore alone (gmm_rescore_fused)."""
+    from repro_torch.analysis import roofline
+    from repro_torch.core import engine as EN
+    from repro_torch.core import ubm as U
+    from repro_torch.kernels import gmm_align as GA
+    ubm, model, _ = synthetic_system(cfg, seed, dev)
+    del model
+    pack = EN.pack_ubm(ubm, dev)
+    dconst, dlin, dquad = (t.contiguous() for t in U.diag_coeffs(pack.diag))
+    A2 = pack.align_A
+    x = torch.from_numpy(np.concatenate(utts)[:16384]).to(dev).contiguous()
+    F, D = x.shape
+    C = A2.shape[0]
+    out = []
+    for K, only in ((cfg.posterior_top_k, False), (40, False),
+                    (cfg.posterior_top_k, True)):
+        tune = roofline.autotune_align(C, K, D, frames=F, rescore_only=only)
+        if only:
+            sel = GA.gmm_align(x, dconst, dlin, dquad, A2,
+                               cfg.posterior_top_k)[1]
+            ms = cuda_ms(lambda: GA.gmm_rescore_fused(x, sel, A2), 20)
+        else:
+            ms = cuda_ms(lambda: GA.gmm_align(x, dconst, dlin, dquad, A2,
+                                              K), 20)
+        what = "rescore alone" if only else f"K={K}"
+        cands = "; ".join(f"{i} {bf} frames {t * 1e3:.4f}"
+                          for i, bf, t in tune.candidates)
+        print(f"  autotune_align {what}: {tune.instance} instance, "
+              f"{tune.block_f} frames a block: predicted "
+              f"{tune.t_predicted * 1e3:.4f} ms, measured {ms:.4f} ms "
+              f"(measured / predicted {ms / (tune.t_predicted * 1e3):.2f}); "
+              f"admitted: {cands}")
+        out.append(dict(K=K, rescore_only=only, instance=tune.instance,
+                        block_f=tune.block_f,
+                        predicted_ms=tune.t_predicted * 1e3, ms=ms,
+                        candidates=[(i, bf, t * 1e3)
+                                    for i, bf, t in tune.candidates]))
+    return out
+
+
+def op_cost_card_vs_cpu(seed: int, dev):
+    """One trainer.iteration at SMOKE's width counted on the card and on
+    the CPU (the module comment above OPCOST_UTTS)."""
+    from repro_torch.analysis import op_cost
+    from repro_torch.configs.ivector_tvm import SMOKE
+    from repro_torch.core import trainer as TR
+    cpu = torch.device("cpu")
+    ubm, model, g = synthetic_system(SMOKE, seed, cpu)
+    feats = synthetic_corpus(ubm, OPCOST_UTTS, OPCOST_FRAMES, g)
+    counted = {}
+    for d in (dev, cpu):
+        args = (model.to(d), ubm.to(d), feats.to(d))
+        with op_cost.OpCounter() as c:
+            TR.iteration(SMOKE, *args)
+        counted[d.type] = c
+    card, host = counted["cuda"], counted["cpu"]
+    rel = abs(card.bytes - host.bytes) / host.bytes
+    print(f"  op_cost, trainer.iteration at SMOKE width ({OPCOST_UTTS} x "
+          f"{OPCOST_FRAMES} frames): flops card {card.flops:.6e}, CPU "
+          f"{host.flops:.6e}; bytes card {card.bytes:.6e}, CPU "
+          f"{host.bytes:.6e} ({rel:.2e} apart, tolerance "
+          f"{OPCOST_BYTES_TOL:g}); kernel regions "
+          f"{ {k: v[0] for k, v in card.kernels.items()} }")
+    if card.flops != host.flops:
+        fail("op_cost: the card and the CPU count other flops")
+    if card.kernels.keys() != host.kernels.keys():
+        fail("op_cost: the card and the CPU count other kernel regions")
+    if rel > OPCOST_BYTES_TOL:
+        fail("op_cost: the card's and the CPU's bytes differ beyond the "
+             "tolerance")
+    return {"flops": card.flops, "bytes_card": card.bytes,
+            "bytes_cpu": host.bytes, "bytes_rel": rel}
+
+
+def iteration_roofline(cfg, seed: int, dev):
+    """One trainer.iteration at phase 5's full width, timed, then counted
+    by op_cost: its RooflineReport row against ivector_cell.model_flops
+    and the measured wall."""
+    from repro_torch.analysis import op_cost, roofline
+    from repro_torch.core import trainer as TR
+    from repro_torch.launch import ivector_cell as IC
+    ubm, model, g = synthetic_system(cfg, seed, dev)
+    feats = synthetic_corpus(ubm, ROOFLINE_UTTS, ROOFLINE_FRAMES, g)
+    TR.iteration(cfg, model, ubm, feats)            # warm
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(2):
+        _sync(dev)
+        t0 = time.perf_counter()
+        TR.iteration(cfg, model, ubm, feats)
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    with op_cost.OpCounter() as c:
+        TR.iteration(cfg, model, ubm, feats)
+    rep = roofline.roofline_from_counts(
+        c, arch=cfg.arch_id,
+        shape=f"{ROOFLINE_UTTS}x{ROOFLINE_FRAMES} frames", mesh_desc="(1, 1)",
+        chips=1, peak_memory=float(peak),
+        model_flops=IC.model_flops(
+            cfg.with_overrides(frames_per_utt=ROOFLINE_FRAMES),
+            ROOFLINE_UTTS))
+    row = rep.row()
+    wall = min(walls)
+    t_bound = max(row["t_compute_s"], row["t_memory_s"],
+                  row["t_collective_s"])
+    print(f"  iteration at {ROOFLINE_UTTS} x {ROOFLINE_FRAMES} frames "
+          f"({cfg.rescore} rung): wall {', '.join(f'{w:.3f}' for w in walls)}"
+          f" s; counted {row['flops_per_device']:.4e} flops, "
+          f"{row['bytes_per_device']:.4e} bytes; t_compute "
+          f"{row['t_compute_s'] * 1e3:.3f} ms, t_memory "
+          f"{row['t_memory_s'] * 1e3:.3f} ms, dominant {row['dominant']}, "
+          f"useful_flops_ratio {row['useful_flops_ratio']:.3f}, "
+          f"roofline_fraction {row['roofline_fraction']:.3f}; the bound is "
+          f"{100 * t_bound / wall:.1f}% of the wall")
+    top = sorted(c.kernels.items(), key=lambda kv: -kv[1][1])
+    print("    kernel regions (calls, flops, bytes): " + "; ".join(
+        f"{k} {v[0]}, {v[1]:.3e}, {v[2]:.3e}" for k, v in top))
+    aten = sorted(c.by_op.items(), key=lambda kv: -kv[1][2])[:8]
+    print("    aten ops outside them, most bytes first (calls, flops, "
+          "bytes): " + "; ".join(f"{k} {v[0]}, {v[1]:.3e}, {v[2]:.3e}"
+                                 for k, v in aten))
+    return dict(row, wall_s=walls, bound_share_of_wall=t_bound / wall,
+                kernels={k: list(v) for k, v in c.kernels.items()},
+                aten={k: list(v) for k, v in aten})
+
+
+def analysis_phase(cfg, utts, rows, seed: int, dev):
+    """Phase 11: the registry on the card, autotune_align against the
+    measured kernel, op_cost card against CPU and a full-width iteration's
+    roofline, then the port's check gate with its dispatch pass on the
+    card, which must report no unsuppressed finding."""
+    from repro_torch.analysis.check import run_all
+    rec = {}
+    budget, rec["registry"] = registry_on_card(cfg, rows)
+    rec["autotune"] = autotune_vs_measured(cfg, utts, seed, dev)
+    torch.cuda.empty_cache()
+    rec["op_cost"] = op_cost_card_vs_cpu(seed, dev)
+    rec["iteration"] = iteration_roofline(cfg, seed, dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report = run_all([str(ROOT / "src" / "repro_torch")], device=dev,
+                     budget=budget)
+    for f in report["findings"]:
+        if not f.suppressed:
+            print("  " + f.format())
+    print(f"  check gate (dispatch pass on {dev}): {report['unsuppressed']} "
+          f"unsuppressed finding(s), {report['suppressed']} suppressed, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if report["unsuppressed"]:
+        fail("the port's check gate reports findings")
+    rec["check"] = {"unsuppressed": report["unsuppressed"],
+                    "suppressed": report["suppressed"],
+                    "wall_s": report["wall_s"]}
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3141,7 +3389,15 @@ def main() -> int:
     del ubm
     torch.cuda.empty_cache()
 
-    # 11. kernels line, card line, contract line. Launches are summed over
+    # 11. analysis/ and the kernel registry on the card
+    print(f"[11] analysis ({card})")
+    t0 = time.perf_counter()
+    analysis = analysis_phase(cfg, utts, rows, args.seed, dev)
+    analysis["phase_s"] = time.perf_counter() - t0
+    print(f"  analysis phase {analysis['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
     # training runs, the two LM serving runs, the recipe's runs, the
     # streaming and demotion runs, the two supervised runs and every
@@ -3174,7 +3430,7 @@ def main() -> int:
               "sparse_vs_fused_max_diff": d_sf,
               "card_vs_cpu_max_diff": d_cpu, "training": train, "lm": lm,
               "recipe": recipe, "streaming": stream, "supervised": sup,
-              "mesh": mesh, "kernels": rows}
+              "mesh": mesh, "analysis": analysis, "kernels": rows}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -267,6 +267,7 @@ def train(cfg: IVectorConfig, ubm: U.FullGMM, feats,
     mesh = _resolve_mesh(cfg, mesh, feats.shape[0], device)
     dev = mesh.device
     generator = (generator if generator is not None
+                 # repro-check: disable=SRC002
                  else torch.Generator().manual_seed(0))
     ubm = ubm.to(dev)
     model = TV.init_model(generator, ubm.means, ubm.covs, cfg.ivector_dim,
@@ -428,6 +429,7 @@ def train_supervised(cfg: IVectorConfig, ubm: U.FullGMM, feats,
     dev = mesh.device
     feats, mask = _place(mesh, feats, mask)
     generator = (generator if generator is not None
+                 # repro-check: disable=SRC002
                  else torch.Generator().manual_seed(0))
     ubm = ubm.to(dev)
     n_steps = n_iters or cfg.n_iters

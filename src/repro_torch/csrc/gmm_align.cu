@@ -623,6 +623,14 @@ extern "C" int gmm_align_geometry(int C, int D, int K, int rescore_only,
   return 0;
 }
 
+// the shared memory a block of this card may opt in to
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin) into out[0]: the budget
+// chip_smoke.py holds the kernel registry's geometry against
+extern "C" int device_smem_optin(int device, int* out) {
+  return (int)cudaDeviceGetAttribute(
+      out, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
 extern "C" int gmm_rescore_fused_f32(const float* x, const long long* sel_in,
                                      const float* A2, float* ll, int F, int C,
                                      int D, int K, int E2, int device,

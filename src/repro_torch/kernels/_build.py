@@ -61,6 +61,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                   INT, INT, PTR),
         # C, D, K, rescore alone, out[3]
         "gmm_align_geometry": (INT, INT, INT, INT, PTR),
+        # device, out[1]: the card's shared memory a block may opt in to
+        "device_smem_optin": (INT, PTR),
     },
     "gmm_loglik": {
         # x, W (gmm_loglik.packed_weights), out, F, C, D, E2, E2p, Cp,

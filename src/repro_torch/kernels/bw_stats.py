@@ -17,10 +17,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-# csrc/bw_stats.cu: component and column tile, frames per slab, blocks an SM
+# csrc/bw_stats.cu: component and column tile, frames per slab, slabs in
+# flight, threads a block, blocks an SM
 BM = 128
 BN = 128
 BK = 16
+STAGES = 4
+THREADS = 256
 BLOCKS_PER_SM = 2
 MAX_SPLITS = 8
 MIN_SPLIT_FRAMES = 1024
@@ -28,6 +31,16 @@ MIN_SPLIT_FRAMES = 1024
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def smem_bytes(D: int) -> int:
+    """Shared memory of a block of the main pass (``smem_bytes`` in
+    csrc/bw_stats.cu): the ring of (Γ, x) slabs, x's rows padded to
+    (D + 2) rounded up to 4, two X₂ slabs, the pair codes and the slabs'
+    frame ids."""
+    xs_ld = _round_up(D + 2, 4)
+    return (4 * (STAGES * (BK * BM + BK * xs_ld) + 2 * BK * BN)
+            + 4 * (BN + STAGES * BK))
 
 
 def n_columns(D: int) -> int:

@@ -20,6 +20,29 @@ KERNELS = {
 }
 # head dims with a bf16 tensor-core instance (csrc: tc::dispatch)
 BF16_HEAD_DIMS = (64, 128, 192)
+# csrc/flash_attention.cu: query rows a block, threads a block and (bf16)
+# (k, v) tiles in flight, by input type
+BQ = {torch.float32: 64, torch.bfloat16: 128}
+THREADS = {torch.float32: 256, torch.bfloat16: 288}
+TC_STAGES = 3
+
+
+def kv_rows(dtype: torch.dtype, hd: int) -> int:
+    """Key rows a (k, v) tile: 64 in f32; 128 in bf16 up to hd 128, else
+    64 (``Layout::BKV``)."""
+    return 128 if dtype == torch.bfloat16 and hd <= 128 else 64
+
+
+def smem_bytes(dtype: torch.dtype, hd: int) -> int:
+    """Shared memory of a block: f32 (``simt::smem_bytes``) the q and o
+    tiles [64][hd + 1], a k or v tile [64][hd] and p [64][65]; bf16
+    (``tc::Layout::BYTES``) the q tile, the ring of k and v tiles, the
+    mbarriers and 1024 bytes of alignment slack."""
+    if dtype == torch.float32:
+        bq = BQ[dtype]
+        return 4 * (2 * bq * (hd + 1) + 64 * hd + bq * 65)
+    return (BQ[dtype] * hd * 2 + 2 * TC_STAGES * kv_rows(dtype, hd) * hd * 2
+            + (2 * TC_STAGES + 1) * 8 + 1024)
 
 
 def flash_attention(q, k, v):

@@ -20,7 +20,8 @@ from repro_torch.kernels import _build
 # slabs in flight, the largest K of the streaming merge, frames per block
 # of the streaming instance, the whole-row instance's frame slots in the
 # product and the frames a block of it keeps (the most that fit, of
-# these), shared memory a block may have
+# these), shared memory a block may have, threads a block
+THREADS = 256
 NC = 128
 BKD = 8
 STAGES = 3
@@ -35,6 +36,21 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def smem_bytes(C: int, D: int, stream: bool, rows: int) -> int:
+    """Shared memory of a block of the streaming or the whole-row instance
+    keeping ``rows`` frames (``smem_words`` in csrc/gmm_align.cu): the
+    larger of phase A (the slab ring, x d-major for the product's frame
+    slots, then the chunk's scores and the merge's lists and buffers, or
+    whole score rows) and phase B (the pair table and the frames' rows)."""
+    E2 = 1 + D + D * (D + 1) // 2
+    slots = BF_STREAM if stream else BF_PRODUCT_ROWS
+    phase_a = (STAGES * 2 * BKD * NC + _round_up(D, BKD) * slots
+               + (rows * NC + 4 * rows * STREAM_K + 2 * rows if stream
+                  else rows * _round_up(C, NC)))
+    phase_b = _round_up(E2, 4) + rows * (2 * D + 2)
+    return 4 * max(phase_a, phase_b)
+
+
 def geometry(C: int, D: int, K: int, rescore_only: bool = False):
     """(frames per block, streaming merge?, shared-memory bytes) of the
     kernel for these shapes (``geometry`` and ``smem_words`` in
@@ -42,14 +58,8 @@ def geometry(C: int, D: int, K: int, rescore_only: bool = False):
     the rescore alone, else whole score rows for the most frames of
     BF_ROWS that fit. Raises where none fits in a block's shared memory."""
     stream = rescore_only or K <= STREAM_K
-    E2 = 1 + D + D * (D + 1) // 2
     for bf in (BF_STREAM,) if stream else BF_ROWS:
-        slots = BF_STREAM if stream else BF_PRODUCT_ROWS
-        phase_a = (STAGES * 2 * BKD * NC + _round_up(D, BKD) * slots
-                   + (bf * NC + 4 * bf * STREAM_K + 2 * bf if stream
-                      else bf * _round_up(C, NC)))
-        phase_b = _round_up(E2, 4) + bf * (2 * D + 2)
-        smem = 4 * max(phase_a, phase_b)
+        smem = smem_bytes(C, D, stream, bf)
         if smem <= MAX_SMEM:
             return bf, stream, smem
     raise ValueError(
@@ -64,6 +74,15 @@ def kernel_geometry(C: int, D: int, K: int, rescore_only: bool = False):
     err = _build.load("gmm_align").gmm_align_geometry(
         C, D, K, int(rescore_only), ctypes.addressof(out))
     return None if err else (out[0], bool(out[1]), out[2])
+
+
+def smem_optin(device: int = 0) -> int:
+    """The shared memory a block of card ``device`` may opt in to, as the
+    CUDA runtime reads it (``device_smem_optin``)."""
+    out = (ctypes.c_int * 1)()
+    _build.check(_build.load("gmm_align").device_smem_optin(
+        device, ctypes.addressof(out)), "device_smem_optin")
+    return out[0]
 
 
 def streaming_topk(scores, top_k: int, chunk: int = NC):

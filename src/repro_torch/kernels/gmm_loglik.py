@@ -16,13 +16,26 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-# the kernel's reduction slab and component tile (csrc/gmm_loglik.cu)
+# csrc/gmm_loglik.cu: the reduction slab, the component and frame tiles,
+# W slabs in flight, threads a block
 BK = 16
 BN = 128
+BM = 128
+STAGES = 3
+THREADS = 256
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def smem_bytes(D: int) -> int:
+    """Shared memory of a block (``smem_floats`` in csrc/gmm_loglik.cu):
+    the ring of W slabs, two A slabs, the x tile [D + 1][BM + 1] and the
+    E2p-word pair table."""
+    E2p = _round_up(1 + D + D * (D + 1) // 2, BK)
+    return 4 * (STAGES * BK * BN + 2 * BK * BM
+                + _round_up((D + 1) * (BM + 1), 4) + E2p)
 
 
 @functools.lru_cache(maxsize=8)

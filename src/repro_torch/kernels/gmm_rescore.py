@@ -19,7 +19,8 @@ from repro_torch.kernels import _build
 
 # csrc/gmm_rescore.cu: pairs a work item at most, the rescore's warps
 # along the sum over i, columns of a product pass, shared memory a block
-# may have, the pair indices' limit
+# may have, the pair indices' limit, threads of a rescore block
+THREADS = 128
 BP = 64
 IW = 2
 COLS = 72

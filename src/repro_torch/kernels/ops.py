@@ -6,11 +6,17 @@ contracts are those of ``repro/kernels/ops.py``: ids are clipped into
 [0, C), ragged F, C, U and P give exactly the unpadded result (the CUDA
 kernels mask their ragged edges), and the E-step ``dtype`` knob casts the
 inputs only, accumulating in f32 always.
+
+Each dispatch function is a ``kernel_region`` (``analysis/op_cost.py``):
+a counter on counts the registry's work for the call's shapes, on either
+device, instead of the plain version's ops; the ``_cfg_*`` functions give
+those shapes.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.op_cost import kernel_region
 from repro_torch.kernels import bw_stats as _bw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gmm_align as _ga
@@ -23,10 +29,67 @@ from repro_torch.kernels import tvm_estep as _te
 f32 = torch.float32
 
 
+def _rows_touched(sel, C: int) -> int:
+    return int(torch.unique(sel.clamp(0, C - 1)).numel())
+
+
+def _cfg_loglik(out, x, const, lin, P_flat):
+    return {"F": x.shape[0], "C": const.shape[0], "D": x.shape[1]}
+
+
+def _cfg_rescore(out, x, sel, const, lin, P_flat, pack=None):
+    C = const.shape[0]
+    return {"F": x.shape[0], "K": sel.shape[1], "C": C, "D": x.shape[1],
+            "rows_touched": _rows_touched(sel, C)}
+
+
+def _cfg_fused(out, x, sel, A2):
+    C = A2.shape[0]
+    return {"F": x.shape[0], "K": sel.shape[1], "C": C, "D": x.shape[1],
+            "rescore_only": True, "rows_touched": _rows_touched(sel, C)}
+
+
+def _cfg_align(out, x, dconst, dlin, dquad, A2, *, top_k: int):
+    C = A2.shape[0]
+    return {"F": x.shape[0], "K": top_k, "C": C, "D": x.shape[1],
+            "rows_touched": _rows_touched(out[1], C)}
+
+
+def _cfg_bw(out, gamma, x):
+    return {"F": x.shape[0], "C": gamma.shape[1], "D": x.shape[1]}
+
+
+def _estep_dtype(dtype: str) -> str:
+    return "bfloat16" if dtype in ("bfloat16", "bf16") else "float32"
+
+
+def _cfg_estep_l(out, n, U_packed, *, dtype: str = "float32"):
+    return {"M": n.shape[0], "K": n.shape[1], "N": U_packed.shape[1],
+            "dtype": _estep_dtype(dtype)}
+
+
+def _cfg_estep_a(out, n, PP_packed, *, dtype: str = "float32"):
+    return {"M": n.shape[1], "K": n.shape[0], "N": PP_packed.shape[1],
+            "dtype": _estep_dtype(dtype)}
+
+
+def _cfg_attention(out, q, k, v):
+    B, S, H, hd = q.shape
+    return {"B": B, "S": S, "H": H, "KVH": k.shape[2], "hd": hd,
+            "dtype": str(q.dtype).removeprefix("torch.")}
+
+
+def _cfg_scan(out, dt, dx, A, Bc, Cc, h0=None):
+    B, T, di = dt.shape
+    return {"B": B, "T": T, "di": di, "ds": A.shape[1],
+            "h0": h0 is not None}
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+@kernel_region("gmm_loglik", _cfg_loglik)
 def gmm_loglik(x, const, lin, P_flat):
     """x: [F, D]; const: [C]; lin: [D, C]; P_flat: [C, D*D] -> [F, C]."""
     if _on_cuda(x):
@@ -35,6 +98,7 @@ def gmm_loglik(x, const, lin, P_flat):
     return ref.gmm_loglik(x, const, lin, P_flat)
 
 
+@kernel_region("gmm_rescore", _cfg_rescore)
 def gmm_rescore(x, sel, const, lin, P_flat, pack=None):
     """Sparse top-K rescoring: loglik of only the selected components.
 
@@ -53,6 +117,7 @@ def gmm_rescore(x, sel, const, lin, P_flat, pack=None):
     return ref.gmm_rescore(x, sel, const, lin, P_flat)
 
 
+@kernel_region("gmm_rescore_fused", _cfg_fused, kernel="gmm_align")
 def gmm_rescore_fused(x, sel, A2):
     """Selected-set log-likelihoods through the packed-symmetric
     ``ref.align_pack`` rows A2 [C, E2]: x [F, D], sel [F, K] -> [F, K].
@@ -64,6 +129,7 @@ def gmm_rescore_fused(x, sel, A2):
     return ref.gmm_rescore_fused(x, sel, A2)
 
 
+@kernel_region("gmm_align", _cfg_align)
 def gmm_align(x, dconst, dlin, dquad, A2, *, top_k: int):
     """The fused alignment front half: diag preselect + top-K + packed
     rescore -> (sel_ll [F, K] f32, sel [F, K] int64). dconst: [C]; dlin,
@@ -76,6 +142,7 @@ def gmm_align(x, dconst, dlin, dquad, A2, *, top_k: int):
     return ref.gmm_align(x, dconst, dlin, dquad, A2, top_k)
 
 
+@kernel_region("bw_stats", _cfg_bw)
 def bw_stats(gamma, x):
     """Dense Baum-Welch moments: gamma [F, C], x [F, D] ->
     (n [C], f [C, D], S [C, D*D]), all f32."""
@@ -101,6 +168,7 @@ def _estep_cast(a, b, dtype):
     return a.to(f32), b.to(f32)
 
 
+@kernel_region("tvm_estep_l", _cfg_estep_l, kernel="tvm_estep")
 def tvm_estep_l(n, U_packed, *, dtype: str = "float32"):
     """Packed L-assembly: n [U, C] @ U_packed [C, P] -> [U, P] f32."""
     n, U_packed = _estep_cast(n, U_packed, dtype)
@@ -109,6 +177,7 @@ def tvm_estep_l(n, U_packed, *, dtype: str = "float32"):
     return ref.tvm_estep_l(n, U_packed)
 
 
+@kernel_region("tvm_estep_a", _cfg_estep_a, kernel="tvm_estep")
 def tvm_estep_a(n, PP_packed, *, dtype: str = "float32"):
     """Packed A-accumulation: nᵀ [C, U] @ PP_packed [U, P] -> [C, P] f32."""
     n, PP_packed = _estep_cast(n, PP_packed, dtype)
@@ -117,6 +186,7 @@ def tvm_estep_a(n, PP_packed, *, dtype: str = "float32"):
     return ref.tvm_estep_a(n, PP_packed)
 
 
+@kernel_region("flash_attention", _cfg_attention)
 def flash_attention(q, k, v):
     """Causal GQA attention, forward: q [B, S, H, hd], k, v [B, S, KVH, hd]
     -> [B, S, H, hd] in q's dtype. Any S; both paths keep the scores in
@@ -129,6 +199,7 @@ def flash_attention(q, k, v):
     return ref.flash_attention(q, k, v)
 
 
+@kernel_region("selective_scan", _cfg_scan)
 def selective_scan(dt, dx, A, Bc, Cc, h0=None):
     """The Mamba recurrence h_t = exp(dt_t A) h_{t-1} + dx_t B_t,
     y_t = C_t . h_t, in f32: dt, dx [B, T, di]; A [di, ds]; Bc, Cc

@@ -1,0 +1,427 @@
+"""Kernel registry: what the check passes and the roofline read about each
+hand-written CUDA kernel, without launching anything (the counterpart of
+``repro/kernels/registry.py``).
+
+Each kernel of ``csrc/`` registers a :class:`KernelSpec`. Its
+``describe(cfg)`` gives a :class:`KernelInstance` at one configuration:
+
+  * the grid, the threads a block and, per grid axis, the extent it walks
+    and the tile a block takes (KRN001: the grid covers the extent; the
+    kernels mask ragged edges themselves);
+  * every output's tiles and the grid point that writes each (KRN002:
+    coverage and races), or, for a kernel whose blocks take
+    data-dependent runs (``gmm_rescore``'s work items), the runs;
+  * the shared memory a block asks for, from the wrappers' own geometry
+    functions (KRN004 against the card's opt-in limit);
+  * its async-copy rings: ``cp.async`` stages or TMA stages, read from the
+    ``.cu`` source by KRN003.
+
+``work(cfg)`` gives (flops, bytes, dtype) of one call: the least work the
+function needs, each input read once and each output written once, the
+count ``chip_smoke.py``'s bounds and ``analysis/op_cost.py`` use. For
+``gmm_rescore`` and ``gmm_align`` the rows of the packed table a call
+touches depend on the ids; ``rows_touched`` in cfg gives them (default:
+every row the pairs could reach).
+
+Configs use the wrappers' shape names. ``default_config`` is a small
+shape the check gate verifies; ``main_config`` the main paths' shape
+(PERF.md §6), which ``chip_smoke.py`` phase 11 checks on the card. Where a
+kernel has several launches (``bw_stats``' compaction and finishing
+passes, ``gmm_rescore``'s sort), the instance describes the launch that
+does the work.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Dict, Optional, Tuple
+
+from repro_torch.analysis.optable import DTYPE_BYTES
+from repro_torch.kernels import bw_stats as _bw
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gmm_align as _ga
+from repro_torch.kernels import gmm_loglik as _gl
+from repro_torch.kernels import gmm_rescore as _gr
+from repro_torch.kernels import selective_scan as _ss
+from repro_torch.kernels import tvm_estep as _te
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+
+
+def _cdiv(n: int, b: int) -> int:
+    return -(-n // b)
+
+
+@dataclass(frozen=True)
+class Axis:
+    """One grid axis: what it walks, its extent and a block's tile."""
+    name: str
+    extent: int
+    tile: int
+
+
+@dataclass(frozen=True)
+class BlockMap:
+    """One output: its shape, a block's tile of it and the grid point ->
+    tile index map."""
+    name: str
+    array_shape: Tuple[int, ...]
+    block: Tuple[int, ...]
+    index_map: Callable
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class Ring:
+    """An async-copy ring inside the kernel: 'cp.async' or 'tma', its
+    stages, and the namespace of the ``.cu`` source that holds it (None:
+    the whole file)."""
+    kind: str
+    stages: int
+    scope: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class KernelInstance:
+    """A KernelSpec at one concrete config."""
+    grid: Tuple[int, ...]
+    threads: int
+    smem_bytes: int
+    axes: Tuple[Axis, ...]
+    outputs: Tuple[BlockMap, ...] = ()
+    rings: Tuple[Ring, ...] = ()
+    scope: Optional[str] = None         # namespace of the launched kernel
+    # data-dependent runs (first, length) along a flattened output of
+    # ``run_extent`` elements, one a block, where outputs cannot say it
+    runs: Optional[Tuple[Tuple[int, int], ...]] = None
+    run_extent: int = 0
+
+
+@dataclass(frozen=True)
+class KernelSpec:
+    name: str
+    source: str                          # file under csrc/
+    describe: Callable[[dict], KernelInstance]
+    work: Callable[[dict], Tuple[float, float, str]]
+    default_config: dict
+    main_config: dict
+    reduction_axes: Tuple[int, ...] = ()   # grid axes that accumulate
+    masks_ragged: bool = True              # the kernel masks ragged edges
+    replaces: str = ""                     # the TPU kernel, file:line
+
+    def config(self, config: Optional[dict] = None) -> dict:
+        cfg = dict(self.default_config)
+        if config:
+            cfg.update(config)
+        return cfg
+
+    def instance(self, config: Optional[dict] = None) -> KernelInstance:
+        return self.describe(self.config(config))
+
+    def cost(self, config: Optional[dict] = None):
+        """(flops, bytes, dtype) of one call at ``config``."""
+        return self.work(self.config(config))
+
+    @property
+    def path(self) -> Path:
+        return CSRC / self.source
+
+
+KERNELS: Dict[str, KernelSpec] = {}
+
+
+def register(spec: KernelSpec) -> KernelSpec:
+    KERNELS[spec.name] = spec
+    return spec
+
+
+def get(name: str) -> KernelSpec:
+    return KERNELS[name]
+
+
+def all_specs():
+    return [KERNELS[k] for k in sorted(KERNELS)]
+
+
+# ---------------------------------------------------------------------------
+# gmm_loglik: dense loglik as one packed SGEMM (csrc/gmm_loglik.cu)
+# ---------------------------------------------------------------------------
+
+
+def _gmm_loglik_instance(cfg: dict) -> KernelInstance:
+    F, C, D = cfg["F"], cfg["C"], cfg["D"]
+    Cp = _cdiv(C, _gl.BN) * _gl.BN
+    grid = (Cp // _gl.BN, _cdiv(F, _gl.BM))
+    return KernelInstance(
+        grid=grid, threads=_gl.THREADS, smem_bytes=_gl.smem_bytes(D),
+        axes=(Axis("components", C, _gl.BN), Axis("frames", F, _gl.BM)),
+        outputs=(BlockMap("out", (F, C), (_gl.BM, _gl.BN),
+                          lambda j, i: (i, j)),),
+        rings=(Ring("cp.async", _gl.STAGES),))
+
+
+def _gmm_loglik_work(cfg: dict):
+    F, C, D = cfg["F"], cfg["C"], cfg["D"]
+    E2 = 1 + D + D * (D + 1) // 2
+    # the packed form needs E2 products per (frame, component)
+    return (2.0 * F * C * E2,
+            4.0 * (F * D + C + D * C + C * D * D + F * C), "float32")
+
+
+# ---------------------------------------------------------------------------
+# gmm_rescore: the sparse rung, pairs grouped by component
+# ---------------------------------------------------------------------------
+
+
+def _rescore_counts(cfg: dict):
+    """Pairs a component: cfg["counts"], else the F*K pairs spread over
+    the first ``rows_touched`` components as evenly as they go."""
+    import torch
+    if cfg.get("counts") is not None:
+        return torch.as_tensor(cfg["counts"])
+    pairs, C = cfg["F"] * cfg["K"], cfg["C"]
+    rows = max(1, min(cfg.get("rows_touched") or C, C, pairs))
+    counts = torch.zeros(C, dtype=torch.int64)
+    counts[:rows] = pairs // rows
+    counts[:pairs % rows] += 1
+    return counts
+
+
+def _gmm_rescore_instance(cfg: dict) -> KernelInstance:
+    F, K, C, D = cfg["F"], cfg["K"], cfg["C"], cfg["D"]
+    g = _gr.geometry(F, K, C, D)
+    items = _gr.work_items(_rescore_counts(cfg), g.bp)
+    runs = tuple((int(a), int(n)) for _, a, n in items.tolist())
+    return KernelInstance(
+        grid=(g.max_items,), threads=_gr.THREADS, smem_bytes=g.smem_bytes,
+        axes=(Axis("pairs", F * K, g.bp),),
+        rings=(Ring("cp.async", 1),), runs=runs, run_extent=F * K)
+
+
+def _gmm_rescore_work(cfg: dict):
+    F, K, C, D = cfg["F"], cfg["K"], cfg["C"], cfg["D"]
+    rows = cfg.get("rows_touched") or min(C, F * K)
+    E = 1 + D + D * D                        # ref.rescore_pack's row
+    return (2.0 * F * K * (D * D + D + 1),
+            4.0 * (F * D + rows * E + F * K) + 8.0 * F * K, "float32")
+
+
+# ---------------------------------------------------------------------------
+# gmm_align: diag preselect, top-K and packed rescore in one kernel
+# ---------------------------------------------------------------------------
+
+
+def _align_geometry(cfg: dict):
+    """(rows, stream) of the launch: cfg's override, else ``geometry``."""
+    C, D, K = cfg["C"], cfg["D"], cfg["K"]
+    only = cfg.get("rescore_only", False)
+    if cfg.get("rows") is not None:
+        return cfg["rows"], cfg.get("stream", only or K <= _ga.STREAM_K)
+    rows, stream, _ = _ga.geometry(C, D, K, only)
+    return rows, stream
+
+
+def _gmm_align_instance(cfg: dict) -> KernelInstance:
+    F, C, D, K = cfg["F"], cfg["C"], cfg["D"], cfg["K"]
+    rows, stream = _align_geometry(cfg)
+    outs = (BlockMap("ll", (F, K), (rows, K), lambda i: (i, 0)),)
+    if not cfg.get("rescore_only", False):
+        outs += (BlockMap("sel", (F, K), (rows, K), lambda i: (i, 0),
+                          dtype="int64"),)
+    return KernelInstance(
+        grid=(_cdiv(F, rows),), threads=_ga.THREADS,
+        smem_bytes=_ga.smem_bytes(C, D, stream, rows),
+        axes=(Axis("frames", F, rows),), outputs=outs,
+        rings=(Ring("cp.async", _ga.STAGES),))
+
+
+def _gmm_align_work(cfg: dict):
+    """The preselect's 2·F·C·(2D + 1) and the rescore's 2·F·K·E2
+    operations; x, the diag coefficients, the touched packed rows and the
+    outputs (ll f32, sel int64) once. ``rescore_only``: the rescore of a
+    given selection (``gmm_rescore_fused``), sel read instead."""
+    F, C, D, K = cfg["F"], cfg["C"], cfg["D"], cfg["K"]
+    E2 = 1 + D + D * (D + 1) // 2
+    rows = cfg.get("rows_touched") or min(C, F * K)
+    if cfg.get("rescore_only", False):
+        return (2.0 * F * K * E2,
+                4.0 * (F * D + rows * E2 + F * K) + 8.0 * F * K, "float32")
+    return (2.0 * F * C * (2 * D + 1) + 2.0 * F * K * E2,
+            4.0 * (F * D + C * (2 * D + 1) + rows * E2) + 12.0 * F * K,
+            "float32")
+
+
+# ---------------------------------------------------------------------------
+# tvm_estep: the packed E-step products (csrc/packed_matmul.cu), 3 forms
+# ---------------------------------------------------------------------------
+
+
+def _tvm_form(cfg: dict) -> str:
+    import torch
+    dt = torch.bfloat16 if cfg.get("dtype") == "bfloat16" else torch.float32
+    return cfg.get("form") or _te.form(dt, cfg["M"], cfg["K"], cfg["N"])
+
+
+def _tvm_estep_instance(cfg: dict) -> KernelInstance:
+    M, K, N = cfg["M"], cfg["K"], cfg["N"]
+    f = _tvm_form(cfg)
+    esz = DTYPE_BYTES[cfg.get("dtype", "float32")]
+    bm, bn = _te.TILE[f]
+    scope = {"stream": "stream", "sgemm": "sgemm", "wgmma": "tc"}[f]
+    if f == "stream":
+        grid, axes = (_cdiv(N, bn),), (Axis("columns", N, bn),)
+        out = BlockMap("out", (M, N), (bm, bn), lambda j: (0, j))
+    else:
+        grid = (_cdiv(M, bm), _cdiv(N, bn))
+        axes = (Axis("rows", M, bm), Axis("columns", N, bn))
+        out = BlockMap("out", (M, N), (bm, bn), lambda i, j: (i, j))
+    ring = Ring("tma" if f == "wgmma" else "cp.async", _te.STAGES[f], scope)
+    return KernelInstance(
+        grid=grid, threads=_te.THREADS[f], smem_bytes=_te.smem_bytes(f, esz),
+        axes=axes, outputs=(out,), rings=(ring,), scope=scope)
+
+
+def _tvm_estep_work(cfg: dict):
+    M, K, N = cfg["M"], cfg["K"], cfg["N"]
+    dt = cfg.get("dtype", "float32")
+    esz = DTYPE_BYTES[dt]
+    return 2.0 * M * K * N, esz * (M * K + K * N) + 4.0 * M * N, dt
+
+
+# ---------------------------------------------------------------------------
+# bw_stats: Γᵀ X₂ over the coded columns, frames cut into runs
+# ---------------------------------------------------------------------------
+
+
+def _bw_stats_instance(cfg: dict) -> KernelInstance:
+    F, C, D = cfg["F"], cfg["C"], cfg["D"]
+    Ep = _cdiv(_bw.n_columns(D), _bw.BN) * _bw.BN
+    nsplit = cfg.get("nsplit") or _bw.splits(F, C, D, cfg.get("n_sm", 132))
+    T = _cdiv(C, _bw.BM)
+    run = _bw.split_len(F, nsplit)
+    return KernelInstance(
+        grid=(Ep // _bw.BN, T, nsplit), threads=_bw.THREADS,
+        smem_bytes=_bw.smem_bytes(D),
+        axes=(Axis("columns", Ep, _bw.BN), Axis("components", C, _bw.BM),
+              Axis("frames", F, run)),
+        # each frame run writes its own partial sums; the finishing pass
+        # adds them in run order
+        outputs=(BlockMap("part", (nsplit, C, Ep), (1, _bw.BM, _bw.BN),
+                          lambda e, t, z: (z, t, e)),),
+        rings=(Ring("cp.async", _bw.STAGES),))
+
+
+def _bw_stats_work(cfg: dict):
+    """S_c is symmetric: D(D+1)/2 products per (frame, component) for S,
+    D for f and 1 for n (times ``touched``, the share of (frame, tile)
+    pairs with a non-zero Γ, where given); all of S is written."""
+    F, C, D = cfg["F"], cfg["C"], cfg["D"]
+    E = _bw.n_columns(D)
+    return (2.0 * F * C * E * cfg.get("touched", 1.0),
+            4.0 * (F * C + F * D + C * (D * D + D + 1)), "float32")
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: causal GQA forward, bf16 on wgmma, f32 on CUDA cores
+# ---------------------------------------------------------------------------
+
+
+def _flash_instance(cfg: dict) -> KernelInstance:
+    import torch
+    B, S, H, hd = cfg["B"], cfg["S"], cfg["H"], cfg["hd"]
+    dt = torch.bfloat16 if cfg.get("dtype") == "bfloat16" else torch.float32
+    bq = _fa.BQ[dt]
+    tc = dt == torch.bfloat16
+    return KernelInstance(
+        grid=(_cdiv(S, bq), H, B), threads=_fa.THREADS[dt],
+        smem_bytes=_fa.smem_bytes(dt, hd),
+        axes=(Axis("queries", S, bq), Axis("heads", H, 1),
+              Axis("batch", B, 1)),
+        outputs=(BlockMap("o", (B, S, H, hd), (1, bq, 1, hd),
+                          lambda i, h, b: (b, i, h, 0),
+                          dtype=cfg.get("dtype", "float32")),),
+        rings=(Ring("tma", _fa.TC_STAGES, "tc"),) if tc else (),
+        scope="tc" if tc else "simt")
+
+
+def _flash_work(cfg: dict):
+    B, S, H, KVH, hd = cfg["B"], cfg["S"], cfg["H"], cfg["KVH"], cfg["hd"]
+    dt = cfg.get("dtype", "float32")
+    # causal: half of Q·Kᵀ and of P·V; q and o [B, S, H, hd], k and v
+    # [B, S, KVH, hd]
+    return (4.0 * B * H * hd * S * S / 2,
+            DTYPE_BYTES[dt] * hd * (2 * B * S * H + 2 * B * S * KVH), dt)
+
+
+# ---------------------------------------------------------------------------
+# selective_scan: the Mamba recurrence, d_state over lanes
+# ---------------------------------------------------------------------------
+
+
+def _scan_instance(cfg: dict) -> KernelInstance:
+    B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
+    return KernelInstance(
+        grid=(_cdiv(di, _ss.CH), B), threads=_ss.CH * _ss.lanes(ds),
+        smem_bytes=_ss.smem_bytes(ds),
+        axes=(Axis("channels", di, _ss.CH), Axis("batch", B, 1)),
+        outputs=(BlockMap("y", (B, T, di), (1, T, _ss.CH),
+                          lambda i, b: (b, 0, i)),
+                 BlockMap("h_last", (B, di, ds), (1, _ss.CH, ds),
+                          lambda i, b: (b, i, 0))),
+        rings=(Ring("cp.async", _ss.STAGES),))
+
+
+def _scan_work(cfg: dict):
+    """Per (b, t, d, s): dt·A, exp, ·h, dx·B, +, ·C, +; dt, dx, y per
+    (b, t, d), Bc and Cc per (b, t), A, h_last (and h0) once."""
+    B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
+    h0 = cfg.get("h0", False)
+    return (7.0 * B * T * di * ds,
+            4.0 * (3 * B * T * di + 2 * B * T * ds + di * ds
+                   + B * di * ds * (2 if h0 else 1)), "float32")
+
+
+register(KernelSpec(
+    name="gmm_loglik", source="gmm_loglik.cu",
+    describe=_gmm_loglik_instance, work=_gmm_loglik_work,
+    default_config={"F": 512, "C": 256, "D": 12},
+    main_config={"F": 4096, "C": 2048, "D": 72},
+    replaces="src/repro/kernels/gmm_loglik.py:49"))
+register(KernelSpec(
+    name="gmm_rescore", source="gmm_rescore.cu",
+    describe=_gmm_rescore_instance, work=_gmm_rescore_work,
+    default_config={"F": 512, "C": 256, "D": 12, "K": 8},
+    main_config={"F": 16384, "C": 2048, "D": 72, "K": 20},
+    replaces="src/repro/kernels/gmm_rescore.py:129"))
+register(KernelSpec(
+    name="gmm_align", source="gmm_align.cu",
+    describe=_gmm_align_instance, work=_gmm_align_work,
+    default_config={"F": 512, "C": 256, "D": 12, "K": 8},
+    main_config={"F": 16384, "C": 2048, "D": 72, "K": 20},
+    replaces="src/repro/kernels/gmm_align.py:162"))
+register(KernelSpec(
+    name="tvm_estep", source="packed_matmul.cu",
+    describe=_tvm_estep_instance, work=_tvm_estep_work,
+    default_config={"M": 256, "K": 256, "N": 512, "dtype": "bfloat16"},
+    main_config={"M": 512, "K": 2048, "N": 80200, "dtype": "float32"},
+    replaces="src/repro/kernels/tvm_estep.py:63"))
+register(KernelSpec(
+    name="bw_stats", source="bw_stats.cu",
+    describe=_bw_stats_instance, work=_bw_stats_work,
+    default_config={"F": 1024, "C": 256, "D": 12},
+    main_config={"F": 32768, "C": 2048, "D": 72},
+    replaces="src/repro/kernels/bw_stats.py:54"))
+register(KernelSpec(
+    name="flash_attention", source="flash_attention.cu",
+    describe=_flash_instance, work=_flash_work,
+    default_config={"B": 1, "S": 256, "H": 4, "KVH": 2, "hd": 64,
+                    "dtype": "bfloat16"},
+    main_config={"B": 4, "S": 2048, "H": 32, "KVH": 8, "hd": 128,
+                 "dtype": "bfloat16"},
+    replaces="src/repro/kernels/flash_attention.py:80"))
+register(KernelSpec(
+    name="selective_scan", source="selective_scan.cu",
+    describe=_scan_instance, work=_scan_work,
+    default_config={"B": 2, "T": 64, "di": 256, "ds": 16},
+    main_config={"B": 4, "T": 2048, "di": 8192, "ds": 16},
+    replaces="src/repro/kernels/selective_scan.py:69"))

@@ -15,8 +15,12 @@ from repro_torch.kernels import _build
 
 # the d_states the kernel has an instance for
 D_STATES = (4, 8, 16, 32, 64)
-# csrc/selective_scan.cu: log2(e), folded into A once
+# csrc/selective_scan.cu: log2(e), folded into A once; channels a block,
+# time steps a chunk, chunks in flight
 LOG2E = 1.4426950408889634
+CH = 64
+BT = 16
+STAGES = 3
 
 
 def lanes(ds: int) -> int:
@@ -27,6 +31,13 @@ def lanes(ds: int) -> int:
         raise ValueError(f"selective_scan: the kernel has instances for "
                          f"d_state in {D_STATES}, not {ds}")
     return 1 if ds == 4 else 2 if ds <= 16 else 4
+
+
+def smem_bytes(ds: int) -> int:
+    """Shared memory of a block (``smem_floats`` in
+    csrc/selective_scan.cu): a chunk's dt, dx, Bc and Cc a stage, then its
+    y."""
+    return 4 * (STAGES * BT * (2 * CH + 2 * ds) + BT * CH)
 
 
 def scan_lanes(dt, dx, A, Bc, Cc, h0=None):

@@ -25,6 +25,12 @@ _ENTRY = {torch.float32: "packed_matmul_f32",
 FORMS = {"stream": 0, "sgemm": 1, "wgmma": 2}
 STREAM_MAX_M = 16      # csrc/packed_matmul.cu, stream::MMAX
 TMA_ALIGN = 8          # bf16 elements in 16 bytes
+# csrc/packed_matmul.cu, by form: output tile (rows, columns), threads a
+# block and slabs in flight (the stream form's tile is all M rows by 64)
+TILE = {"stream": (STREAM_MAX_M, 64), "sgemm": (128, 128),
+        "wgmma": (128, 128)}
+THREADS = {"stream": 256, "sgemm": 256, "wgmma": 288}
+STAGES = {"stream": 4, "sgemm": 3, "wgmma": 3}
 
 
 def form(dtype: torch.dtype, M: int, K: int, N: int) -> str:
@@ -39,6 +45,22 @@ def form(dtype: torch.dtype, M: int, K: int, N: int) -> str:
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def smem_bytes(f: str, esz: int) -> int:
+    """Shared memory of a block of form ``f`` on ``esz``-byte inputs:
+    stream (``stream::Shape::SMEM``), the larger of its ring of 128-byte-
+    deep b and a slabs and the eight warps' sums; sgemm (``sgemm::SMEM``),
+    its ring of a [16][132] and b [16][128] f32 slabs; wgmma
+    (``tc::SMEM``), its ring of 16 KB a and b tiles, the mbarriers and
+    1024 bytes of alignment slack."""
+    if f == "stream":
+        bk = 128 // esz
+        stage = bk * 64 * esz + STREAM_MAX_M * (bk + 16 // esz) * esz
+        return max(STAGES[f] * stage, 8 * STREAM_MAX_M * 64 * 4)
+    if f == "sgemm":
+        return 4 * STAGES[f] * (16 * 132 + 16 * 128)
+    return STAGES[f] * 2 * 16384 + 2 * STAGES[f] * 8 + 1024
 
 
 def tma_pad(t: torch.Tensor) -> torch.Tensor:

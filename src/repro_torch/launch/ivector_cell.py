@@ -14,8 +14,9 @@ Shapes (full config): C=2048, D=72, R=400, 8192 utts x 1024 frames a
 macro-step (``IVectorConfig.utts_per_batch``, ``frames_per_utt``).
 
 The reference's ``lower_cell`` lowers this step with XLA on a 512-device
-fake mesh and reads its roofline (``analysis/``); it has no counterpart
-here until ``analysis/`` and ``launch/dryrun.py`` are ported.
+fake mesh and reads its roofline; here ``analysis/op_cost.py`` counts a
+step as it runs and ``analysis/roofline.py`` reads it. ``lower_cell``
+waits for ``launch/dryrun.py`` (ROADMAP Queue 1 item 13e).
 """
 from __future__ import annotations
 
@@ -127,10 +128,10 @@ def input_axes():
 def model_flops(cfg, n_utts: int) -> float:
     """Analytic useful FLOPs for one macro-step: alignment + Baum-Welch
     stats + E-step solves and accumulations (the reference's model). The
-    fused rung counts what the port's kernel does: the packed
-    [1 | x | w·x_i x_j] row of each of the K selected components a frame
-    (E2 = 1 + D + D(D+1)/2 products); the reference sizes it from the
-    TPU's autotuned tile schedule (``analysis/``, not ported)."""
+    fused rung reads the instance ``analysis.roofline.autotune_align``
+    gives, as the reference does: each of its instances scores the packed
+    [1 | x | w·x_i x_j] row (E2 = 1 + D + D(D+1)/2 products) of the K
+    selected components a frame."""
     C, D, R, K = (cfg.n_components, cfg.feat_dim, cfg.ivector_dim,
                   cfg.posterior_top_k)
     F = n_utts * cfg.frames_per_utt
@@ -139,7 +140,10 @@ def model_flops(cfg, n_utts: int) -> float:
     if mode == "sparse":
         align += 2.0 * F * K * (D * D + D)         # gather-and-rescore K
     elif mode == "fused":
-        align += 2.0 * F * K * (1 + D + D * (D + 1) // 2)
+        from repro_torch.analysis.roofline import autotune_align
+        E2 = 1 + D + D * (D + 1) // 2
+        tune = autotune_align(C, K, D)
+        align += 2.0 * F * tune.rows_per_frame * E2
     else:
         align += 2.0 * F * (D * D + D) * C         # dense loglik matmuls
     stats = 2.0 * F * K * (D * D + D)              # sparse accumulation

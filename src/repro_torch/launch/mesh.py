@@ -60,7 +60,9 @@ class Mesh:
     other coordinate (None where the axis has extent 1), ``data_group``
     the group of the ranks that share the model coordinate (None where
     the data axes have extent 1). ``comm`` counts what the collectives
-    moved, by kind: {kind: [calls, bytes, seconds]}.
+    moved, by kind: {kind: [calls, bytes, seconds]}; ``by_op`` the same
+    bytes by collective ('all-gather', 'all-reduce'): {op: [calls,
+    bytes]}, which ``analysis/op_cost.py`` reads.
     """
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
@@ -71,6 +73,7 @@ class Mesh:
     data_group: Optional[object] = None
     timing: bool = False
     comm: Dict[str, list] = field(default_factory=dict)
+    by_op: Dict[str, list] = field(default_factory=dict)
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -302,10 +305,13 @@ def model_rows(mesh: Mesh, t):
 # ---------------------------------------------------------------------------
 
 
-def _run(mesh: Mesh, kind: str, nbytes: int, op):
+def _run(mesh: Mesh, kind: str, collective: str, nbytes: int, op):
     rec = mesh.comm.setdefault(kind, [0, 0, 0.0])
     rec[0] += 1
     rec[1] += nbytes
+    by = mesh.by_op.setdefault(collective, [0, 0])
+    by[0] += 1
+    by[1] += nbytes
     if not mesh.timing:
         return op()
     cuda = mesh.device.type == "cuda"
@@ -325,7 +331,7 @@ def all_reduce(mesh: Mesh, t, group, kind: str, op="sum"):
         return t
     t = t.contiguous()
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    _run(mesh, kind, t.numel() * t.element_size(),
+    _run(mesh, kind, "all-reduce", t.numel() * t.element_size(),
          lambda: dist.all_reduce(t, op=rop, group=group))
     return t
 
@@ -336,7 +342,7 @@ def all_gather(mesh: Mesh, t, group, kind: str):
         return [t]
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    _run(mesh, kind, t.numel() * t.element_size(),
+    _run(mesh, kind, "all-gather", t.numel() * t.element_size(),
          lambda: dist.all_gather(out, t, group=group))
     return out
 

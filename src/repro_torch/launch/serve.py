@@ -93,6 +93,7 @@ def main():
 
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device()
+    # repro-check: disable=SRC002
     g = torch.Generator(device=dev).manual_seed(0)
     r = serve(cfg, args.batch, args.prompt_len, args.gen, g, dev)
     steps = args.gen - 1
