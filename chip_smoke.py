@@ -69,7 +69,15 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   prediction against the measured ``gmm_align`` (K = 20 and 40, and the
   rescore alone), ``op_cost`` on one iteration counted on the card and on
   the CPU (equal flops), a full-width iteration's ``RooflineReport`` row,
-  and the check gate with its dispatch pass on the card (no finding).
+  and the check gate with its dispatch pass on the card (no finding);
+* lowers without a cluster (``launch/dryrun.py``): ``ivector-tvm x
+  train_4k`` on the 16 x 16 and 2 x 16 x 16 production meshes, rank 0's
+  share on meta tensors in a fake world of 256 and 512 ranks, held to the
+  digits ``tests/test_torch_dryrun.py`` pins on the CPU; an
+  ``em_macro_step`` of 128 x 1024 frames on the card against the same call
+  lowered (flops, bytes, and the lowered peak beside the card's); and the
+  (2, 2) mesh lowered in a fake world of 4 against the collective bytes
+  the gloo ranks above counted.
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -2662,12 +2670,13 @@ def mesh_rank(workdir: str, shapes, cfg, device=None):
         C, D = ubm.means.shape
         d, m = mesh.data_extent, mesh.model_extent
         rec = {"rank": mesh.rank, "backend": mesh.backend,
-               "device": str(dev), "launches": {}, "comm": {}}
+               "device": str(dev), "launches": {}, "comm": {}, "by_op": {}}
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
 
         def run(name, fn):
             before = {k: list(v) for k, v in mesh.comm.items()}
+            before_op = {k: list(v) for k, v in mesh.by_op.items()}
             reset_counts()
             _sync(dev)
             t0 = time.perf_counter()
@@ -2677,6 +2686,11 @@ def mesh_rank(workdir: str, shapes, cfg, device=None):
             rec[f"{name}_t0"] = t0
             rec["launches"][name] = read_counts()
             rec["comm"][name] = _comm_delta(mesh, before)
+            rec["by_op"][name] = {
+                k: [v[0] - before_op.get(k, [0, 0])[0],
+                    v[1] - before_op.get(k, [0, 0])[1]]
+                for k, v in mesh.by_op.items()
+                if v != before_op.get(k, [0, 0])}
             return res
 
         gmm = run("train_ubm", lambda: U.train_ubm(
@@ -2958,10 +2972,11 @@ def mesh_phase(cfg, ubm, g, seed: int, dev, card: str):
 # one trainer.iteration at SMOKE's width on OPCOST_UTTS x OPCOST_FRAMES
 # frames, counted on the card and on the CPU: the same contractions, so
 # the flops are equal; the bytes within OPCOST_BYTES_TOL of each other
-# (each kernel region counts the registry's work on both; only ops that
-# run on one device alone, such as a copy to the card, may differ)
+# (each kernel region counts the registry's work on both; the ops whose
+# decomposition depends on the device, one_hot's range check and a number
+# written into a tensor, are gone from the path)
 OPCOST_UTTS, OPCOST_FRAMES = 16, 64
-OPCOST_BYTES_TOL = 0.05
+OPCOST_BYTES_TOL = 1e-3
 # the full-width iteration: phase 5's corpus
 ROOFLINE_UTTS, ROOFLINE_FRAMES = 640, 512
 
@@ -3090,6 +3105,19 @@ def autotune_vs_measured(cfg, utts, seed: int, dev):
     return out
 
 
+def op_differences(a, b) -> dict:
+    """{op or region: (calls, bytes) of ``a`` less ``b``} where two
+    ``op_cost.OpCounter``s differ."""
+    out = {}
+    for table in ("by_op", "kernels"):
+        ta, tb = getattr(a, table), getattr(b, table)
+        for k in sorted(set(ta) | set(tb)):
+            ra, rb = ta.get(k, [0, 0.0, 0.0]), tb.get(k, [0, 0.0, 0.0])
+            if ra[0] != rb[0] or ra[2] != rb[2]:
+                out[k] = (ra[0] - rb[0], ra[2] - rb[2])
+    return out
+
+
 def op_cost_card_vs_cpu(seed: int, dev):
     """One trainer.iteration at SMOKE's width counted on the card and on
     the CPU (the module comment above OPCOST_UTTS)."""
@@ -3113,6 +3141,9 @@ def op_cost_card_vs_cpu(seed: int, dev):
           f"{host.bytes:.6e} ({rel:.2e} apart, tolerance "
           f"{OPCOST_BYTES_TOL:g}); kernel regions "
           f"{ {k: v[0] for k, v in card.kernels.items()} }")
+    differ = op_differences(card, host)
+    print(f"  ops the card and the CPU count differently (card - CPU, "
+          f"calls and bytes): {differ or 'none'}")
     if card.flops != host.flops:
         fail("op_cost: the card and the CPU count other flops")
     if card.kernels.keys() != host.kernels.keys():
@@ -3121,7 +3152,7 @@ def op_cost_card_vs_cpu(seed: int, dev):
         fail("op_cost: the card's and the CPU's bytes differ beyond the "
              "tolerance")
     return {"flops": card.flops, "bytes_card": card.bytes,
-            "bytes_cpu": host.bytes, "bytes_rel": rel}
+            "bytes_cpu": host.bytes, "bytes_rel": rel, "differ": differ}
 
 
 def iteration_roofline(cfg, seed: int, dev):
@@ -3204,6 +3235,180 @@ def analysis_phase(cfg, utts, rows, seed: int, dev):
     rec["check"] = {"unsuppressed": report["unsuppressed"],
                     "suppressed": report["suppressed"],
                     "wall_s": report["wall_s"]}
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: lowering without a cluster (launch/dryrun.py, lower_cell)
+# ---------------------------------------------------------------------------
+
+# (b) em_macro_step on a one-rank mesh on the card at CONFIG, LOWER_UTTS x
+# LOWER_FRAMES frames, against the same call lowered on meta tensors. The
+# same aten ops and kernel regions run on both, each region counting the
+# registry's work: outside the regions counted from a bound on their ids
+# the flops are equal and the bytes within LOWER_BYTES_TOL; inside them
+# the bound is at least what the card's ids touch
+LOWER_UTTS, LOWER_FRAMES = 128, 1024
+LOWER_BYTES_TOL = 1e-3
+
+
+def dryrun_pins() -> dict:
+    """The production rows' numbers tests/test_torch_dryrun.py pins on the
+    CPU: its ``PINS`` literal, read without importing the test (which
+    imports JAX)."""
+    import ast
+    tree = ast.parse((ROOT / "tests" / "test_torch_dryrun.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "PINS" for t in node.targets):
+            return ast.literal_eval(node.value)
+    fail("tests/test_torch_dryrun.py has no PINS")
+
+
+def production_rows(card: str):
+    """(a) ``ivector-tvm x train_4k`` lowered through ``launch.dryrun`` on
+    16 x 16 and 2 x 16 x 16: each row printed and held, to the last digit,
+    to the CPU's pins."""
+    from repro_torch.launch import dryrun
+    pins = dryrun_pins()
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    rows = {}
+    for multi in (False, True):
+        tag = "multi" if multi else "single"
+        _, row = dryrun.lower_cell("ivector-tvm", "train_4k", multi)
+        if row["status"] != "ok":
+            fail(f"lowering {tag}: {row}")
+        coll = ", ".join(f"{k} {v:.6e}" for k, v in
+                         sorted(row["collectives"].items()))
+        print(f"  ivector-tvm x train_4k on {row['mesh']} (rank 0 of "
+              f"{row['chips']}, meta): flops {row['flops_per_device']:.6e}, "
+              f"bytes {row['bytes_per_device']:.6e}, collective bytes "
+              f"{row['coll_bytes_per_device']:.6e} ({coll}); peak memory a "
+              f"device (inputs + live) "
+              f"{row['peak_memory_per_device'] / 1e9:.3f} GB of the "
+              f"card's {hbm / 1e9:.1f} GB; t_compute "
+              f"{row['t_compute_s'] * 1e3:.3f} ms, t_memory "
+              f"{row['t_memory_s'] * 1e3:.3f} ms, t_collective "
+              f"{row['t_collective_s'] * 1e3:.3f} ms, dominant "
+              f"{row['dominant']}; useful_flops_ratio "
+              f"{row['useful_flops_ratio']:.4f}, roofline_fraction "
+              f"{row['roofline_fraction']:.4f}; lowered in "
+              f"{row['lower_seconds']:.2f} s ({card})")
+        off = {k: (row[k], v) for k, v in pins[tag].items() if row[k] != v}
+        if off:
+            fail(f"lowering {tag}: (row, CPU pin) differ: {off}")
+        rows[tag] = row
+    print("  both rows equal the CPU's pins to the last digit")
+    return rows
+
+
+def lowering_vs_card(cfg, seed: int, dev):
+    """(b) em_macro_step on the card against the same call lowered on meta
+    (the comment above LOWER_UTTS), and the lowering's peak beside the
+    card's rise of allocated memory over the call."""
+    from repro_torch.analysis import op_cost
+    from repro_torch.core import tvm as TV
+    from repro_torch.launch import ivector_cell as IC
+    from repro_torch.launch import mesh as MS
+    ubm, _, g = synthetic_system(cfg, seed, dev)
+    feats = synthetic_corpus(ubm, LOWER_UTTS, LOWER_FRAMES, g)
+    model0 = TV.init_model(g, ubm.means, ubm.covs, cfg.ivector_dim,
+                           cfg.formulation, cfg.prior_offset)
+    args = (ubm.weights, ubm.means, ubm.covs, model0.T, model0.Sigma,
+            model0.prior, feats)
+    mesh = MS.make_local_mesh(device=dev)
+
+    def step():
+        return IC.em_macro_step(cfg, mesh, *args, utt_chunk=LOWER_UTTS)
+    step()                                     # warm
+    _sync(dev)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    rise = torch.cuda.max_memory_allocated() - base
+    check_finite("em_macro_step on the card", *out[0], out[1])
+    del out
+    with op_cost.OpCounter(mesh) as card:
+        step()
+    low = IC.lower_step(cfg.with_overrides(
+        utts_per_batch=LOWER_UTTS, frames_per_utt=LOWER_FRAMES),
+        MS.Mesh(MS.AXES, (1, 1), (0, 0), torch.device("meta")),
+        utt_chunk=LOWER_UTTS)
+    bound = sorted(low.id_bound)
+
+    def outside(c):
+        return (c.flops - sum(c.kernels[k][1] for k in bound),
+                c.bytes - sum(c.kernels[k][2] for k in bound))
+    (fc, bc), (fm, bm) = outside(card), outside(low)
+    rel = abs(bm - bc) / bc
+    print(f"  em_macro_step, {LOWER_UTTS} x {LOWER_FRAMES} frames, one rank "
+          f"({cfg.rescore} rung): card {wall:.3f} s; outside the id-bound "
+          f"regions {bound}: flops card {fc:.6e}, meta {fm:.6e}; bytes card "
+          f"{bc:.6e}, meta {bm:.6e} ({rel:.2e} apart, tolerance "
+          f"{LOWER_BYTES_TOL:g})")
+    print(f"  ops counted differently (card - meta, calls and bytes): "
+          f"{op_differences(card, low) or 'none'}")
+    if fc != fm:
+        fail("lowering: the card's and the lowered flops differ outside "
+             "the id-bound regions")
+    if rel > LOWER_BYTES_TOL:
+        fail("lowering: the card's and the lowered bytes differ beyond the "
+             "tolerance")
+    gaps = {}
+    for k in bound:
+        (_, fk, bk), (_, fl, bl) = card.kernels[k], low.kernels[k]
+        gaps[k] = {"flops": (fl, fk), "bytes": (bl, bk)}
+        print(f"  id-bound region {k}: flops meta {fl:.6e} >= card "
+              f"{fk:.6e} (gap {fl - fk:.3e}); bytes meta {bl:.6e} >= card "
+              f"{bk:.6e} (gap {bl - bk:.3e})")
+        if fl < fk or bl < bk:
+            fail(f"lowering: the bound of {k} is below the card's count")
+    ratio = low.peak_bytes / rise
+    print(f"  peak of the step's own storages (the inputs, made before, "
+          f"left out of both): lowered {low.peak_bytes / 1e9:.4f} GB, the "
+          f"card's max_memory_allocated rise over the call "
+          f"{rise / 1e9:.4f} GB (lowered / card {ratio:.3f})")
+    return {"wall_s": wall, "flops_card": fc, "flops_meta": fm,
+            "bytes_card": bc, "bytes_meta": bm, "bytes_rel": rel,
+            "id_bound": gaps, "peak_meta": low.peak_bytes,
+            "peak_rise_card": rise, "peak_ratio": ratio}
+
+
+def lowering_vs_ranks(cfg, ranks):
+    """(c) the (2, 2) mesh's em_macro_step lowered in a fake world of 4,
+    rank by rank, against the collectives by op that phase 10's gloo ranks
+    counted for the same call at the same shapes: equal."""
+    from repro_torch.launch import ivector_cell as IC
+    from repro_torch.launch import mesh as MS
+    d = 2
+    tcfg = mesh_cfgs(cfg, MESH_UTTS)["model"].with_overrides(
+        estep_chunk=MESH_UTTS // d, utts_per_batch=MESH_UTTS,
+        frames_per_utt=MESH_FRAMES)
+    for r in ranks:
+        with MS.fake_world(len(ranks), rank=r["rank"]):
+            mesh = MS.make_local_mesh(2, 2)
+            IC.lower_step(tcfg, mesh, utt_chunk=MESH_UTTS // d)
+            got = {k: list(v) for k, v in mesh.by_op.items()}
+        want = r["by_op"]["macro_step"]
+        if got != want:
+            fail(f"lowering (2, 2) rank {r['rank']}: fake world {got}, "
+                 f"gloo {want}")
+    print(f"  (2, 2) em_macro_step lowered in a fake world of 4: every "
+          f"rank's collectives by op equal phase 10's gloo ranks' "
+          f"({ranks[0]['by_op']['macro_step']}: [calls, bytes])")
+    return ranks[0]["by_op"]["macro_step"]
+
+
+def lowering_phase(cfg, seed: int, dev, card: str, ranks_2x2):
+    """Phase 12: (a) the production rows, (b) the lowering against a run
+    on the card, (c) against phase 10's gloo ranks."""
+    rec = {"rows": production_rows(card)}
+    rec["vs_card"] = lowering_vs_card(cfg, seed, dev)
+    torch.cuda.empty_cache()
+    rec["vs_ranks"] = lowering_vs_ranks(cfg, ranks_2x2)
     return rec
 
 
@@ -3397,6 +3602,14 @@ def main() -> int:
     print(f"  analysis phase {analysis['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # 12. lowering without a cluster: meta tensors in a fake world
+    print(f"[12] lowering ({card})")
+    t0 = time.perf_counter()
+    lowering = lowering_phase(cfg, args.seed, dev, card, mesh["mesh_2x2"])
+    lowering["phase_s"] = time.perf_counter() - t0
+    print(f"  lowering phase {lowering['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
     # training runs, the two LM serving runs, the recipe's runs, the
@@ -3430,7 +3643,8 @@ def main() -> int:
               "sparse_vs_fused_max_diff": d_sf,
               "card_vs_cpu_max_diff": d_cpu, "training": train, "lm": lm,
               "recipe": recipe, "streaming": stream, "supervised": sup,
-              "mesh": mesh, "analysis": analysis, "kernels": rows}
+              "mesh": mesh, "analysis": analysis, "lowering": lowering,
+              "kernels": rows}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

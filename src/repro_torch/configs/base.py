@@ -3,8 +3,8 @@
 A copy of ``repro/configs/base.py``: the port keeps its own so that it
 imports nothing of the JAX package, and copies the sub-configs whole so
 that ``ModelConfig`` keeps every field. ``get_config`` resolves only the
-arch ids the port runs (``PORTED_ARCH_IDS``); the others are still to be
-ported (ROADMAP.md Queue 1 item 14).
+arch ids the port runs (``PORTED_ARCH_IDS``); the others of ``ARCH_IDS``
+are still to be ported (ROADMAP.md Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -31,6 +31,14 @@ LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
 
 ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
                                        LONG_500K)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in ALL_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown shape {name!r}; "
+                   f"have {[s.name for s in ALL_SHAPES]}")
 
 
 @dataclass(frozen=True)
@@ -111,6 +119,24 @@ class ModelConfig:
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+
+# every arch id of the JAX package, ported or not (names only: the
+# dry-run reports a row for each; ``get_config`` resolves the ported ones)
+ARCH_IDS = (
+    "nemotron-4-15b",
+    "phi3-medium-14b",
+    "gemma-2b",
+    "stablelm-1.6b",
+    "arctic-480b",
+    "moonshot-v1-16b-a3b",
+    "rwkv6-7b",
+    "whisper-large-v3",
+    "internvl2-1b",
+    "jamba-v0.1-52b",
+    # the paper's own model, registered as an arch so it runs through the
+    # same dry-run / roofline machinery (an extra row)
+    "ivector-tvm",
+)
 
 PORTED_ARCH_IDS = ("stablelm-1.6b", "jamba-v0.1-52b")
 

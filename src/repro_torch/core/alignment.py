@@ -35,8 +35,11 @@ def floor_renormalise(post, floor: float) -> torch.Tensor:
     posterior of a frame, its arg-max component is kept, so no frame
     silently drops out of the statistics."""
     keep = post >= floor
-    best = torch.nn.functional.one_hot(
-        torch.argmax(post, dim=1), post.shape[1]).bool()
+    # the arg-max mask as a comparison, not ``one_hot``: one_hot checks its
+    # ids' range with two reductions on the CPU, none on the card, so the
+    # two would count other bytes (``analysis/op_cost.py``)
+    best = (torch.arange(post.shape[1], device=post.device)
+            == torch.argmax(post, dim=1, keepdim=True))
     keep = keep | (~keep.any(dim=1, keepdim=True) & best)
     post = torch.where(keep, post, torch.zeros((), dtype=post.dtype,
                                                device=post.device))

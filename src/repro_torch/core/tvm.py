@@ -274,8 +274,10 @@ def min_divergence(model: TVModel, acc: EMAccum,
     # augmented: also require P2 P1 h = b e1 (Householder, eqs. 8-11)
     p1h = P1 @ h
     h_t = p1h / torch.clamp(torch.linalg.norm(p1h), min=1e-10)
-    e1 = torch.zeros((R,), dtype=f32, device=h.device)
-    e1[0] = 1.0
+    # e1 as a comparison: a Python number written into a tensor dispatches
+    # a scalar_tensor on meta and none on the CPU, so a lowered iteration
+    # would count other ops than a run (``analysis/op_cost.py``)
+    e1 = (torch.arange(R, device=h.device) == 0).to(f32)
     denom = torch.clamp(2.0 * (1.0 - h_t[0]), min=1e-10)
     alpha = denom ** -0.5
     a = alpha * h_t - alpha * e1

@@ -1,7 +1,8 @@
 """Public kernel entry points: dispatch by the tensor's device.
 
 A CUDA tensor launches the hand-written kernel (or raises: there is no
-fallback). A CPU tensor takes the plain version in ``ref.py``. The
+fallback). A CPU tensor takes the plain version in ``ref.py``, and so does
+a meta tensor (shapes only: a lowered call, ``launch/dryrun.py``). The
 contracts are those of ``repro/kernels/ops.py``: ids are clipped into
 [0, C), ragged F, C, U and P give exactly the unpadded result (the CUDA
 kernels mask their ragged edges), and the E-step ``dtype`` knob casts the
@@ -10,7 +11,7 @@ inputs only, accumulating in f32 always.
 Each dispatch function is a ``kernel_region`` (``analysis/op_cost.py``):
 a counter on counts the registry's work for the call's shapes, on either
 device, instead of the plain version's ops; the ``_cfg_*`` functions give
-those shapes.
+those shapes (a meta call's ids give a bound, ``_rows_touched``).
 """
 from __future__ import annotations
 
@@ -29,8 +30,13 @@ from repro_torch.kernels import tvm_estep as _te
 f32 = torch.float32
 
 
-def _rows_touched(sel, C: int) -> int:
-    return int(torch.unique(sel.clamp(0, C - 1)).numel())
+def _rows_touched(sel, C: int) -> dict:
+    """The distinct component rows the ids ``sel`` touch, for a region's
+    config. Meta ids hold no values: they give the bound min(C, F·K), the
+    most rows the call can touch, marked ``rows_bound``."""
+    if sel.is_meta:
+        return {"rows_touched": min(C, sel.numel()), "rows_bound": True}
+    return {"rows_touched": int(torch.unique(sel.clamp(0, C - 1)).numel())}
 
 
 def _cfg_loglik(out, x, const, lin, P_flat):
@@ -40,19 +46,19 @@ def _cfg_loglik(out, x, const, lin, P_flat):
 def _cfg_rescore(out, x, sel, const, lin, P_flat, pack=None):
     C = const.shape[0]
     return {"F": x.shape[0], "K": sel.shape[1], "C": C, "D": x.shape[1],
-            "rows_touched": _rows_touched(sel, C)}
+            **_rows_touched(sel, C)}
 
 
 def _cfg_fused(out, x, sel, A2):
     C = A2.shape[0]
     return {"F": x.shape[0], "K": sel.shape[1], "C": C, "D": x.shape[1],
-            "rescore_only": True, "rows_touched": _rows_touched(sel, C)}
+            "rescore_only": True, **_rows_touched(sel, C)}
 
 
 def _cfg_align(out, x, dconst, dlin, dquad, A2, *, top_k: int):
     C = A2.shape[0]
     return {"F": x.shape[0], "K": top_k, "C": C, "D": x.shape[1],
-            "rows_touched": _rows_touched(out[1], C)}
+            **_rows_touched(out[1], C)}
 
 
 def _cfg_bw(out, gamma, x):

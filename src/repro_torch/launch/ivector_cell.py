@@ -14,14 +14,22 @@ Shapes (full config): C=2048, D=72, R=400, 8192 utts x 1024 frames a
 macro-step (``IVectorConfig.utts_per_batch``, ``frames_per_utt``).
 
 The reference's ``lower_cell`` lowers this step with XLA on a 512-device
-fake mesh and reads its roofline; here ``analysis/op_cost.py`` counts a
-step as it runs and ``analysis/roofline.py`` reads it. ``lower_cell``
-waits for ``launch/dryrun.py`` (ROADMAP Queue 1 item 13e).
+fake mesh and reads its roofline. The port has no compiler to lower to:
+its ``lower_cell`` runs rank 0's share of the step on meta tensors (no
+storage, no device) in a ``fake_world`` of 256 or 512 ranks, under
+``analysis/op_cost.py``'s counter with live bytes on, and
+``analysis/roofline.py`` reads the counts. The CPU and the card give the
+same row.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
+from repro_torch.analysis import op_cost
+from repro_torch.analysis.roofline import roofline_from_counts
+from repro_torch.configs.ivector_tvm import CONFIG
 from repro_torch.core import engine as EN
 from repro_torch.core import tvm as TV
 from repro_torch.core import ubm as U
@@ -156,3 +164,56 @@ def model_flops(cfg, n_utts: int) -> float:
     solves = n_utts * (R ** 3) / 3.0 * 2
     accum = 2.0 * n_utts * C * (RR + D * R)
     return align + stats + estep_L + estep_rhs + solves + accum
+
+
+def lower_step(cfg, mesh, utt_chunk: int = 512):
+    """Rank ``mesh.rank``'s share of one ``em_macro_step`` on the meta
+    inputs of ``input_structs(cfg)``, counted: -> the
+    ``op_cost.OpCounter`` (live bytes on) that saw it. ``mesh`` is on
+    meta: a ``fake_world``'s, or a one-rank ``Mesh`` on meta. The inputs
+    are made before the counter starts, so its peak is the step's own
+    storages alone."""
+    args = input_structs(cfg)
+    with op_cost.OpCounter(mesh, live=True) as counter:
+        em_macro_step(cfg, mesh, **args, utt_chunk=utt_chunk)
+    return counter
+
+
+def lower_cell(shape_name: str, multi_pod: bool):
+    """Lower one macro-step at ``CONFIG`` on a production mesh (the
+    reference's ``lower_cell``): rank 0 of a ``fake_world`` of 256
+    (16 x 16) or 512 (2 x 16 x 16) ranks runs its share on meta tensors.
+    Returns (counter, row): the row is ``roofline_from_counts(...).row()``
+    with ``status`` 'ok', ``lower_seconds``, the mesh's collectives by op
+    (``mesh_by_op``: [calls, bytes] a rank moved) and the kernel regions
+    counted from a bound on their ids (``id_bound``). Its
+    ``peak_memory_per_device`` is the inputs a rank holds (every rank the
+    whole model and batch) plus the step's live peak, as the reference's
+    argument + temp bytes. Any shape but ``train_4k`` gives (None, a
+    'skipped' row)."""
+    mesh_tag = "multi" if multi_pod else "single"
+    if shape_name != "train_4k":
+        # the paper model has a single macro-step shape; other assigned LM
+        # shapes do not apply (extra arch, not one of the 40 cells)
+        return None, {"arch": "ivector-tvm", "shape": shape_name,
+                      "mesh": mesh_tag, "status": "skipped",
+                      "reason": "ivector-tvm defines one EM macro-step "
+                                "shape; reported under train_4k only"}
+    cfg = CONFIG
+    t0 = time.perf_counter()
+    with MS.fake_world(512 if multi_pod else 256):
+        mesh = MS.make_production_mesh(multi_pod=multi_pod)
+        counter = lower_step(cfg, mesh)
+    inputs = sum(t.numel() * t.element_size()
+                 for t in input_structs(cfg).values())
+    rep = roofline_from_counts(
+        counter, arch="ivector-tvm", shape=shape_name,
+        mesh_desc="2x16x16" if multi_pod else "16x16", chips=mesh.size,
+        model_flops=model_flops(cfg, cfg.utts_per_batch),
+        peak_memory=float(inputs + counter.peak_bytes))
+    row = rep.row()
+    row["status"] = "ok"
+    row["lower_seconds"] = time.perf_counter() - t0
+    row["mesh_by_op"] = {k: list(v) for k, v in mesh.by_op.items()}
+    row["id_bound"] = {k: list(v) for k, v in counter.id_bound.items()}
+    return counter, row

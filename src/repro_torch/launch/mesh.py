@@ -23,6 +23,11 @@ through the host; NCCL refuses two ranks on one device). ``run_ranks``
 spawns the ranks of one world with a file-store rendezvous and a time
 limit of its own; tests and ``chip_smoke.py`` share it.
 
+``fake_world`` and ``make_production_mesh`` lower a step without a
+cluster (``launch/dryrun.py``): one process takes one rank of a world of
+256 or 512 on torch's ``fake`` backend, whose collectives move nothing,
+and runs its share of the step on meta tensors.
+
 Every collective of the mesh path goes through the helpers below, which
 count the bytes each rank contributes (``Mesh.comm``) and, with
 ``Mesh.timing`` on, the seconds from a device synchronise before the
@@ -30,6 +35,7 @@ collective to one after it.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import multiprocessing as mp
 import os
@@ -176,7 +182,9 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 0, *,
     """A ('data', 'model') mesh (('pod', 'data', 'model') with ``pod``)
     over the ranks of the initialised world, whose size it must equal. A
     one-rank mesh needs no process group. ``device`` defaults to
-    ``default_device(rank)``; ``backend`` to the world's."""
+    ``default_device(rank)``; ``backend`` to the world's. In a
+    ``fake_world`` the device is ``meta`` and the groups are fake ones:
+    there are no other ranks to ask for their devices."""
     shape = (pod, data, model) if pod else (data, model)
     axes = POD_AXES if pod else AXES
     n = int(np.prod(shape))
@@ -197,21 +205,64 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 0, *,
         raise ValueError(f"a {shape} mesh of {n} ranks in a world of "
                          f"{world}: a mesh spans the whole world")
     rank = dist.get_rank()
-    dev = default_device(rank) if device is None else resolve_device(device)
-    backend = backend or dist.get_backend()
+    fake = dist.get_backend() == "fake"
+    if fake:
+        dev, backend = torch.device("meta"), "fake"
+        if device is not None and torch.device(device) != dev:
+            raise ValueError(f"a fake world's mesh is on meta, not {device}")
+    else:
+        dev = (default_device(rank) if device is None
+               else resolve_device(device))
+        backend = backend or dist.get_backend()
     key = (id(dist.group.WORLD), shape, backend, str(dev))
     if key in _MESHES:
         return _MESHES[key]
-    devices = [None] * world
-    probe = dist.new_group(backend="gloo")
-    dist.all_gather_object(devices, str(dev), group=probe)
-    dist.destroy_process_group(probe)
-    check_backend(backend, devices)
+    if not fake:
+        devices = [None] * world
+        probe = dist.new_group(backend="gloo")
+        dist.all_gather_object(devices, str(dev), group=probe)
+        dist.destroy_process_group(probe)
+        check_backend(backend, devices)
     groups, data_group = _new_groups(shape, axes, backend)
     mesh = Mesh(axes, shape, tuple(int(c) for c in np.unravel_index(
         rank, shape)), dev, backend, groups, data_group)
     _MESHES[key] = mesh
     return mesh
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """A world of ``world`` ranks on torch's ``fake`` backend, this
+    process its rank ``rank``: collectives complete at once and move
+    nothing, so one process runs one rank's share of a step on meta
+    tensors. Refuses inside an initialised world; on exit destroys the
+    world and drops the meshes made on it."""
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           "initialised in this process")
+    # registers the 'fake' backend (torch's own, kept under testing)
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank,
+                            world_size=world)
+    before = set(_MESHES)
+    try:
+        yield
+    finally:
+        for k in set(_MESHES) - before:
+            del _MESHES[k]
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16 x 16 = 256 ranks ('data', 'model'), or 2 x 16 x 16 = 512
+    ('pod', 'data', 'model') with ``multi_pod``, as the reference builds
+    them: this rank's mesh in the ``fake_world`` of that size (device
+    ``meta``, fake process groups)."""
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_backend() == "fake"):
+        raise RuntimeError("make_production_mesh: lower inside "
+                           "fake_world(512 if multi_pod else 256)")
+    return make_local_mesh(16, 16, 2 if multi_pod else 0)
 
 
 def _largest_divisor_leq(n: int, cap: int) -> int:
@@ -358,8 +409,10 @@ def barrier(mesh: Mesh) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _rank_entry(fn, args, rank, world, backend, store, timeout, results):
+def _rank_entry(fn, args, rank, world, backend, store, timeout, threads,
+                results):
     try:
+        torch.set_num_threads(threads)
         dist.init_process_group(
             backend, init_method=f"file://{store}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=timeout))
@@ -376,7 +429,8 @@ def _rank_entry(fn, args, rank, world, backend, store, timeout, results):
 
 def run_ranks(fn: Callable, world: int, *, args: tuple = (),
               backend: Optional[str] = None, device=None,
-              timeout: float = 300.0, workdir=None) -> list:
+              timeout: float = 300.0, workdir=None,
+              threads: Optional[int] = None) -> list:
     """Run ``fn(*args)`` on ``world`` spawned ranks of one process group
     and return their results in rank order.
 
@@ -389,7 +443,13 @@ def run_ranks(fn: Callable, world: int, *, args: tuple = (),
     ``workdir`` (a temporary directory when None); every collective
     times out after ``timeout`` seconds, and the parent stops waiting at
     ``timeout`` too, terminating the ranks and raising. A rank that
-    raises makes this raise, with its traceback.
+    raises makes this raise, with its traceback. Each rank runs torch's
+    host ops on ``threads`` threads (default: this machine's cores shared
+    out, ``max(1, cpu_count // world)``), so that a world does not ask
+    for ``world`` times the cores there are. A CPU caller that holds the
+    ranks bitwise to a one-rank run of its own must run that at the same
+    ``threads`` (``torch.set_num_threads``): host reductions sum in an
+    order that depends on the thread count.
     """
     dev = torch.device("cuda" if device is None else device)
     if backend is None:
@@ -402,13 +462,16 @@ def run_ranks(fn: Callable, world: int, *, args: tuple = (),
     else:
         devices = [dev] * world
     check_backend(backend, devices)
+    if threads is None:
+        threads = max(1, (os.cpu_count() or 1) // world)
     own = workdir is None
     workdir = tempfile.mkdtemp(prefix="ranks_") if own else str(workdir)
     store = os.path.join(workdir, f"store_{os.getpid()}_{time.time_ns()}")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_entry, args=(
-        fn, args, r, world, backend, store, timeout, results), daemon=True)
+        fn, args, r, world, backend, store, timeout, threads, results),
+        daemon=True)
         for r in range(world)]
     out, errors = {}, {}
     try:

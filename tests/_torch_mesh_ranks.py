@@ -146,3 +146,22 @@ def stalled():
     if torch.distributed.get_rank() == 1:
         time.sleep(3600)
     torch.distributed.barrier()
+
+
+def macro_by_op(cfg, utt_chunk: int):
+    """One ``em_macro_step`` on a (2, 2) mesh of this world, on inputs of
+    ``cfg``'s shapes (``utts_per_batch`` x ``frames_per_utt`` frames)
+    drawn from one seed on every rank: the collectives by op the mesh
+    counted, {op: [calls, bytes]}."""
+    mesh = MS.make_local_mesh(2, 2, device="cpu")
+    g = torch.Generator().manual_seed(SEED)
+    C, D, R = cfg.n_components, cfg.feat_dim, cfg.ivector_dim
+    covs = torch.eye(D).repeat(C, 1, 1)
+    prior = torch.zeros(R)
+    prior[0] = cfg.prior_offset
+    IC.em_macro_step(cfg, mesh, torch.full((C,), 1.0 / C),
+                     torch.randn(C, D, generator=g), covs,
+                     0.1 * torch.randn(C, D, R, generator=g), covs, prior,
+                     torch.randn(cfg.utts_per_batch, cfg.frames_per_utt, D,
+                                 generator=g), utt_chunk=utt_chunk)
+    return {k: list(v) for k, v in mesh.by_op.items()}

@@ -19,6 +19,7 @@ K 8, 48 utterances x 40 frames.
 - One process: ``resolve_mesh``'s errors, the one-rank default, the
   prefetch iterator, macro-batches, resume, the recipe's provenance.
 """
+import os
 import subprocess
 import sys
 import textwrap
@@ -62,6 +63,11 @@ DATA = SpeechDataConfig(feat_dim=8, n_components=8, n_speakers=12,
                         speaker_scale=0.8, channel_scale=0.8)
 # every spawn and the JAX subprocess end within this many seconds
 TIMEOUT = 240
+# torch's host threads in each of the six ranks the two worlds run at once,
+# and in this process: the cores shared out, and one count everywhere, so
+# that a reduction sums in the same order in a rank as in the one-rank run
+# it is held to bit for bit
+THREADS = max(1, (os.cpu_count() or 1) // 6)
 
 JAX_SCRIPT = """
 import sys
@@ -95,6 +101,14 @@ np.savez(sys.argv[2], **out)
 """
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(THREADS)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def corpus():
     """48 utterances from the JAX tests' data config (the port's
@@ -122,6 +136,9 @@ def runs(corpus, tmp_path_factory):
     path = d / "inputs.npz"
     np.savez(path, **corpus)
     env = JMS.fake_device_env(4)
+    # one thread for XLA's CPU ops: the subprocess runs beside six ranks,
+    # each capped by run_ranks to its share of the cores
+    env["XLA_FLAGS"] += " --xla_cpu_multi_thread_eigen=false"
     env["PYTHONPATH"] = str(REPO / "src")
     env["JAX_PLATFORMS"] = "cpu"
     jax_proc = subprocess.Popen(
@@ -132,10 +149,11 @@ def runs(corpus, tmp_path_factory):
         with ThreadPoolExecutor(2) as pool:
             w2 = pool.submit(MS.run_ranks, RK.world2, 2,
                              args=(str(path), str(d / "ckpt")),
-                             device="cpu", timeout=TIMEOUT, workdir=d)
+                             device="cpu", timeout=TIMEOUT, workdir=d,
+                             threads=THREADS)
             w4 = pool.submit(MS.run_ranks, RK.world4, 4,
                              args=(str(path),), device="cpu",
-                             timeout=TIMEOUT, workdir=d)
+                             timeout=TIMEOUT, workdir=d, threads=THREADS)
             w2, w4 = w2.result(), w4.result()
         _, err = jax_proc.communicate(timeout=TIMEOUT)
     finally:
