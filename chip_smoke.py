@@ -823,7 +823,9 @@ def counters():
             "bw_stats": BW.bw_stats, "gmm_align": GA.gmm_align,
             "gmm_rescore_fused": GA.gmm_rescore_fused,
             "flash_attention": FA.flash_attention,
-            "selective_scan": SS.selective_scan}
+            "flash_attention_bwd": FA.flash_attention_bwd,
+            "selective_scan": SS.selective_scan,
+            "selective_scan_bwd": SS.selective_scan_bwd}
 
 
 def reset_counts() -> None:
@@ -2984,7 +2986,8 @@ ROOFLINE_UTTS, ROOFLINE_FRAMES = 640, 512
 def registry_configs(cfg):
     """(label, registry kernel, config) of every kernel row at the main
     paths' shapes (PERF.md §6), gmm_align's whole-row instance (K = 40),
-    its rescore alone and the f32 attention."""
+    its rescore alone, the f32 attention and the two backward kernels at
+    phase 13's training shapes."""
     C, D, K, R = (cfg.n_components, cfg.feat_dim, cfg.posterior_top_k,
                   cfg.ivector_dim)
     P = R * (R + 1) // 2
@@ -3008,7 +3011,13 @@ def registry_configs(cfg):
             ("flash_attention f32", "flash_attention",
              dict(B=4, S=2048, H=32, KVH=8, hd=128, dtype="float32")),
             ("selective_scan", "selective_scan",
-             dict(B=4, T=2048, di=8192, ds=16))]
+             dict(B=4, T=2048, di=8192, ds=16)),
+            ("flash_attention_bwd StableLM", "flash_attention_bwd",
+             dict(B=4, S=4096, H=32, KVH=32, hd=64, dtype="bfloat16")),
+            ("flash_attention_bwd Jamba", "flash_attention_bwd",
+             dict(B=1, S=4096, H=32, KVH=8, hd=128, dtype="bfloat16")),
+            ("selective_scan_bwd", "selective_scan_bwd",
+             dict(B=1, T=4096, di=8192, ds=16))]
     return out
 
 
@@ -3412,6 +3421,440 @@ def lowering_phase(cfg, seed: int, dev, card: str, ranks_2x2):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: LM training (launch/train.py, optim/, models.api, the backward
+# kernels)
+# ---------------------------------------------------------------------------
+
+# the attention's gradients against autograd of the plain version on the
+# same (exactly widened) inputs, max|diff| over max|plain| per gradient.
+# f32: the same f32 products summed in another order (read on the CPU
+# emulation: 1e-6). bf16: the kernel rounds each gradient once at its store
+# (2^-8 of it) and forms Delta = rowsum(dO o) from the forward's bf16 o,
+# itself rounded once: two roundings, 2^-7
+ATT_BWD_F32_TOL = 1e-4
+ATT_BWD_BF16_TOL = 2.0 ** -7
+# the scan's gradients, max|diff| over max|plain|: 4096 f32 steps summed in
+# another order, and the kernel's exp2 decays (ex2.approx, ~2^-22)
+SCAN_BWD_TOL = 1e-4
+# SMOKE train step, card against CPU from the same state and batch: the
+# loss, grad norm and every moment leaf within SMOKE_TRAIN_TOL x max|value|
+# (f32 sums in another order through the kernels, each within 1e-4 of its
+# plain version); every param within the sign-flip bound: at step 1 an
+# Adam step m^/(sqrt(v^) + eps) is ~sign(g), so an element whose gradient
+# is ~0 on both may move by lr_1 either way (2 lr_1, times ADAM_R)
+SMOKE_TRAIN_TOL = 1e-4
+ADAM_R = 1.0004
+# the full-width runs: TRAIN_4K's sequence, its batch of 256 cut to 4
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 4096
+H100_BF16_PEAK = 989e12
+
+
+def check_attention_bwd(g, dev):
+    """flash_attention_bwd against autograd of ref.flash_attention on the
+    card, bf16 and f32, at StableLM's (H = KVH = 32, hd 64) and Jamba's
+    (H 32, KVH 8, hd 128) shapes, B = 1, S = 4096: a Jamba micro-batch's
+    shape on the training path is the row. Times the kernel, the plain
+    backward (autograd of the plain forward, the graph kept), SDPA's
+    backward, and the forward with and without the log-sum-exps."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    recs = []
+    for label, B, S, H, KVH, hd, dtype in (
+            ("StableLM", 1, 4096, 32, 32, 64, torch.bfloat16),
+            ("StableLM", 1, 4096, 32, 32, 64, torch.float32),
+            ("Jamba", 1, 4096, 32, 8, 128, torch.bfloat16),
+            ("Jamba", 1, 4096, 32, 8, 128, torch.float32)):
+        tag = _dtype_name(dtype)
+        q, k, v, do = (torch.randn(B, S, n, hd, generator=g, device=dev)
+                       .to(dtype) for n in (H, KVH, KVH, H))
+        o, lse = FA.flash_attention(q, k, v, lse=True)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        again = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_bwd {label} {tag}: not bitwise repeatable")
+        ins = [t.float().requires_grad_() for t in (q, k, v)]
+        out = ref.flash_attention(*ins)
+        dof = do.float()
+        want = torch.autograd.grad(out, ins, dof, retain_graph=True)
+        tol = ATT_BWD_F32_TOL if dtype == torch.float32 else ATT_BWD_BF16_TOL
+        err, rel = 0.0, 0.0
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            e = (a.float() - w).abs().max().item()
+            r = e / w.abs().max().item()
+            err, rel = max(err, e), max(rel, r)
+            if r > tol:
+                fail(f"flash_attention_bwd {label} {tag} {name}: max|diff| "
+                     f"/ max|plain| {r:.3e} above {tol:g}")
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        b_ms, b_by = bound("flash_attention_bwd", B=B, S=S, H=H, KVH=KVH,
+                           hd=hd, dtype=tag)
+        rec = dict(
+            case=f"{label} B={B} S={S} H={H} KVH={KVH} hd={hd} {tag}",
+            max_abs_err=err, max_rel_err=rel, tol=tol,
+            ms=cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do),
+                       3),
+            plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                out, ins, dof, retain_graph=True), 2),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), dot, retain_graph=True), 5),
+            fwd_ms=cuda_ms(lambda: FA.flash_attention(q, k, v), 5),
+            fwd_lse_ms=cuda_ms(lambda: FA.flash_attention(q, k, v, lse=True),
+                               5))
+        print(f"  flash_attention_bwd {rec['case']}: max|diff| / max|plain| "
+              f"{rel:.3e} (tolerance {tol:g}), bitwise repeatable; kernel "
+              f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), SDPA backward "
+              f"{rec['library_ms']:.3f} ms; forward {rec['fwd_ms']:.4f} ms, "
+              f"with lse {rec['fwd_lse_ms']:.4f} ms")
+        recs.append(rec)
+        del q, k, v, do, o, lse, got, again, ins, out, want, qt, kt, vt, ot
+        torch.cuda.empty_cache()
+    r = recs[2]
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/csrc/flash_attention_bwd.cu",
+               replaces="src/repro/kernels/flash_attention.py:80",
+               **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")})
+    return row, recs
+
+
+def check_scan_bwd(g, dev):
+    """selective_scan_bwd against autograd of ref.selective_scan at a Jamba
+    micro-batch's shape (B = 1, T = 4096, di = 8192, ds = 16, no h0, as in
+    training): every gradient within SCAN_BWD_TOL x max|plain|, and two
+    runs bitwise equal. No single PyTorch call computes it."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as SS
+    B, T, di, ds = 1, 4096, 8192, 16
+    A = -torch.exp(0.5 * torch.randn(di, ds, generator=g, device=dev))
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, di, generator=g, device=dev) - 4.6)
+    dx = dt * torch.randn(B, T, di, generator=g, device=dev)
+    Bc, Cc = (torch.randn(B, T, ds, generator=g, device=dev)
+              for _ in range(2))
+    dy = torch.randn(B, T, di, generator=g, device=dev)
+    _, _, hs = SS.selective_scan(dt, dx, A, Bc, Cc, save_states=True)
+    got = SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy)
+    again = SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy)
+    if not all(torch.equal(a, b) for a, b in zip(got[:5], again[:5])):
+        fail("selective_scan_bwd: not bitwise repeatable")
+    ins = [t.clone().requires_grad_() for t in (dt, dx, A, Bc, Cc)]
+    y, _ = ref.selective_scan(*ins)
+    _sync(dev)
+    t0 = time.perf_counter()
+    want = torch.autograd.grad(y, ins, dy)
+    _sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, rel = 0.0, 0.0
+    for name, a, w in zip(("d(dt)", "d(dx)", "dA", "dB", "dC"), got, want):
+        e = (a - w).abs().max().item()
+        r = e / w.abs().max().item()
+        err, rel = max(err, e), max(rel, r)
+        if r > SCAN_BWD_TOL:
+            fail(f"selective_scan_bwd {name}: max|diff| / max|plain| "
+                 f"{r:.3e} above {SCAN_BWD_TOL:g}")
+    b_ms, b_by = bound("selective_scan_bwd", B=B, T=T, di=di, ds=ds)
+    row = dict(name="selective_scan_bwd", route="cuda",
+               source="src/repro_torch/csrc/selective_scan.cu",
+               replaces="src/repro/kernels/selective_scan.py:69",
+               max_abs_err=err, max_rel_err=rel,
+               ms=cuda_ms(lambda: SS.selective_scan_bwd(
+                   dt, dx, A, Bc, Cc, hs, dy), 3),
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None,
+               fwd_ms=cuda_ms(lambda: SS.selective_scan(dt, dx, A, Bc, Cc),
+                              5),
+               fwd_states_ms=cuda_ms(lambda: SS.selective_scan(
+                   dt, dx, A, Bc, Cc, save_states=True), 5))
+    print(f"  selective_scan_bwd B={B} T={T} di={di} ds={ds}: max|diff| / "
+          f"max|plain| {rel:.3e} (tolerance {SCAN_BWD_TOL:g}), bitwise "
+          f"repeatable; kernel {row['ms']:.3f} ms, plain backward (one run, "
+          f"host clock) {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"forward {row['fwd_ms']:.4f} ms, saving the chunk states "
+          f"{row['fwd_states_ms']:.4f} ms")
+    return row
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _leaves(state):
+    """(name, tensor) of every leaf of a train state, params and moments."""
+    out = [(f"params/{k}", v) for k, v in state["params"].items()]
+    for w in ("m", "v"):
+        out += [(f"{w}/{k}", v) for k, v in state["opt"][w].items()]
+    return out + [("count", state["opt"]["count"])]
+
+
+def smoke_train_vs_cpu(seed: int, dev):
+    """One make_train_step on StableLM SMOKE and Jamba SMOKE (moe=None,
+    f32) on the card and on the CPU from the same state and batch: the
+    loss, grad norm and moments within SMOKE_TRAIN_TOL, every param
+    within the sign-flip bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models import api
+    rec = {}
+    for arch in ("stablelm-1.6b", "jamba-v0.1-52b"):
+        cfg = get_config(arch, smoke=True)
+        if cfg.moe is not None:
+            cfg = cfg.with_overrides(moe=None)
+        st_cpu = api.init_state(cfg, torch.Generator().manual_seed(seed),
+                                device="cpu")
+        st_dev = _tree_to(st_cpu, dev)
+        b = TokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+            seed=seed)).next()
+        step = api.make_train_step(cfg)
+        reset_counts()
+        s_dev, m_dev = step(st_dev, {k: torch.as_tensor(v, device=dev)
+                                     for k, v in b.items()})
+        launches = read_counts()
+        needs = ("flash_attention", "flash_attention_bwd") + (
+            ("selective_scan", "selective_scan_bwd")
+            if cfg.family == "hybrid" else ())
+        require_launches(f"{arch} SMOKE train step", launches, needs)
+        s_cpu, m_cpu = step(st_cpu, {k: torch.as_tensor(v)
+                                     for k, v in b.items()})
+        worst = {}
+        for k in ("loss", "grad_norm"):
+            worst[k] = abs(float(m_dev[k]) - float(m_cpu[k])) / abs(
+                float(m_cpu[k]))
+        lr = float(m_cpu["lr"])
+        p_err = 0.0
+        mom = 0.0
+        for (name, a), (_, w) in zip(_leaves(s_dev), _leaves(s_cpu)):
+            a = a.cpu()
+            if name == "count":
+                if not torch.equal(a, w):
+                    fail(f"{arch} SMOKE: step counts differ")
+                continue
+            d = (a.float() - w.float()).abs().max().item()
+            if name.startswith("params/"):
+                p_err = max(p_err, d)
+            else:
+                mom = max(mom, d / max(w.abs().max().item(), 1e-30))
+        worst["moments"] = mom
+        p_bound = ADAM_R * 2 * lr + 1e-7
+        ok = (all(v <= SMOKE_TRAIN_TOL for v in worst.values())
+              and p_err <= p_bound)
+        print(f"  {arch} SMOKE train step, card vs CPU: loss "
+              f"{float(m_dev['loss']):.6f} vs {float(m_cpu['loss']):.6f}; "
+              f"relative: loss {worst['loss']:.2e}, grad norm "
+              f"{worst['grad_norm']:.2e}, moments (max over leaves) "
+              f"{mom:.2e} (tolerance {SMOKE_TRAIN_TOL:g}); params max|diff| "
+              f"{p_err:.2e} (bound 2 x {ADAM_R} x lr_1 = {p_bound:.2e}); "
+              f"launches { {k: v for k, v in launches.items() if v} }  "
+              f"{'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            fail(f"{arch} SMOKE train step: card and CPU disagree")
+        rec[arch] = dict(worst, params_max_diff=p_err, params_bound=p_bound,
+                         launches=launches)
+    return rec
+
+
+def train_flops(cfg, tokens: int, seq: int):
+    """(model flops of a training step, its reckoning): 6 N tokens for the
+    N params in products (all but the embedding table, which is a lookup)
+    plus the causal attention's 6 B H hd S^2 a layer (forward 2, backward
+    4; the remat recompute not counted)."""
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    n_embed = L.padded_vocab(cfg.vocab_size) * cfg.d_model
+    n = api.n_params(cfg) - n_embed
+    n_attn = (cfg.n_layers // cfg.attn_period if cfg.family == "hybrid"
+              else cfg.n_layers)
+    hd = cfg.resolved_head_dim()
+    batch = tokens // seq
+    attn = 6.0 * batch * cfg.n_heads * hd * seq * seq * n_attn
+    dense = 6.0 * n * tokens
+    return dense + attn, (
+        f"6 x {n:,} params in products (all {api.n_params(cfg):,} but the "
+        f"{n_embed:,} of the embedding lookup) x {tokens:,} tokens = "
+        f"{dense:.4e} + attention 6 x B {batch} x H {cfg.n_heads} x hd {hd} "
+        f"x S^2 {seq}^2 x {n_attn} layers = {attn:.4e}")
+
+
+def lm_train_run(label, cfg, steps: int, seed: int, dev, repeat: bool):
+    """``steps`` make_train_step steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ
+    tokens from TokenPipeline batches, on random params from ``seed``; the
+    launch counts set to 0 before each step and read after it. With
+    ``repeat``, one more step is taken twice from the same state and must
+    give the same bits, and a third time under the profiler (device time
+    by kernel; its launches uncounted). Returns a record with the launches
+    summed over the ``steps`` steps."""
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models import api
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = api.init_state(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    step = api.make_train_step(cfg)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+        global_batch=LM_TRAIN_BATCH, seed=seed))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    secs, losses, norms, per_step = [], [], [], []
+    total = {}
+    for i in range(steps):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in pipe.next().items()}
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        counts = read_counts()
+        per_step.append({k: v for k, v in counts.items() if v})
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if not (np.isfinite(losses[-1]) and np.isfinite(norms[-1])):
+            fail(f"{label}: step {i + 1} loss or grad norm not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flops, reckoning = train_flops(cfg, tokens, LM_TRAIN_SEQ)
+    warm = secs[1:] or secs
+    s_step = sum(warm) / len(warm)
+    rec = {"n_params": api.n_params(cfg), "batch": LM_TRAIN_BATCH,
+           "seq": LM_TRAIN_SEQ, "grad_accum": cfg.grad_accum,
+           "step_s": secs, "s_per_step_warm": s_step,
+           "tokens_per_s": tokens / s_step, "peak_mem_gb": peak_gb,
+           "losses": losses, "grad_norms": norms,
+           "launches_per_step": per_step, "launches": total,
+           "model_flops": flops,
+           "model_flops_share": flops / (s_step * H100_BF16_PEAK),
+           "flops_reckoning": reckoning}
+    print(f"  {label}: {rec['n_params'] / 1e9:.3f} B params; "
+          f"{steps} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens "
+          f"(grad_accum {cfg.grad_accum}): s a step {[f'{x:.3f}' for x in secs]}"
+          f", steps 2..{steps} {s_step:.3f} s, {rec['tokens_per_s']:.0f} "
+          f"tokens/s; peak device memory {peak_gb:.2f} GB; losses "
+          f"{[f'{x:.4f}' for x in losses]}; grad norms "
+          f"{[f'{x:.4f}' for x in norms]}")
+    print(f"    launches a step: {per_step}")
+    print(f"    model-flops share {rec['model_flops_share']:.4f} = "
+          f"{flops:.4e} / ({s_step:.3f} s x 989e12); {reckoning}")
+    if repeat:
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in pipe.next().items()}
+        s_a, m_a = step(state, batch)
+        s_b, m_b = step(state, batch)
+        same = float(m_a["loss"]) == float(m_b["loss"]) and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(_leaves(s_a),
+                                                        _leaves(s_b)))
+        print(f"    step {steps + 1} taken twice from the same state: params "
+              f"and moments {'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            fail(f"{label}: a step repeated from the same state differs")
+        rec["repeat_bitwise"] = True
+        del s_a, s_b
+        rec["profile_step"] = profile_path(lambda: step(state, batch))
+        print_profile(f"{label}: one step", rec["profile_step"], 8)
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def supervised_lm_drill(seed: int, dev):
+    """The port of tests/test_substrate.py's restart test on the card:
+    StableLM SMOKE under run_supervised with a failure after step 4 ends
+    bitwise at the uninterrupted 6-step run; then launch.train.main on the
+    card (--smoke, with checkpoints). Returns (record, launches of the
+    drill)."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.distributed.fault_tolerance import run_supervised
+    from repro_torch.launch import train as LT
+    from repro_torch.models import api
+    cfg = get_config("stablelm-1.6b", smoke=True)
+    pipe_cfg = TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                   global_batch=4)
+    step = api.make_train_step(cfg)
+
+    def init():
+        return api.init_state(
+            cfg, torch.Generator(device=dev).manual_seed(seed + 7),
+            device=dev)
+    state = init()
+    pipe = TokenPipeline(pipe_cfg)
+    for _ in range(6):
+        state, _ = step(state, {k: torch.as_tensor(v, device=dev)
+                                for k, v in pipe.next().items()})
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d, save_interval=2, device=dev)
+        reset_counts()
+        rep = run_supervised(
+            init_state_fn=init, train_step_fn=step,
+            data_factory=lambda: TokenPipeline(pipe_cfg), n_steps=6,
+            ckpt=ck, fail_at=lambda s, a: s == 4 and a == 0, device=dev)
+        launches = read_counts()
+        got, at, _ = ck.restore_latest(init())
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(_leaves(state),
+                                                           _leaves(got)))
+    print(f"  supervised drill (StableLM SMOKE, failure after step 4): "
+          f"{rep.n_restarts} restart, final step {rep.final_step}, restored "
+          f"step {at}; params and moments "
+          f"{'bitwise' if same else 'NOT'} equal to the uninterrupted run; "
+          f"launches { {k: v for k, v in launches.items() if v} }")
+    if not same or rep.n_restarts != 1 or at != 6:
+        fail("supervised LM drill: the restarted run differs")
+    with tempfile.TemporaryDirectory() as d:
+        out = LT.main(["--arch", "stablelm-1.6b", "--smoke", "--steps", "4",
+                       "--seq", "64", "--ckpt-dir", d, "--ckpt-interval",
+                       "2", "--log-every", "2"])
+    if out["final_step"] != 4 or not np.isfinite(out["losses"]).all():
+        fail("launch.train.main on the card did not train")
+    return {"restarts": rep.n_restarts, "bitwise": same,
+            "launcher_losses": out["losses"]}, launches
+
+
+def lm_training_phase(seed: int, dev):
+    """Phase 13: both backward kernels against autograd of their plain
+    versions, SMOKE train steps card vs CPU, StableLM-2 1.6B and Jamba
+    (one period, no experts) training at full width, the supervised
+    drill. Returns (kernel rows, launches by path, record)."""
+    from repro_torch.configs import get_config
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    rec = {}
+    t0 = time.perf_counter()
+    fa_row, rec["attention_bwd"] = check_attention_bwd(g, dev)
+    ss_row = check_scan_bwd(g, dev)
+    rec["scan_bwd"] = ss_row
+    rec["kernels_s"] = time.perf_counter() - t0
+    rec["smoke_vs_cpu"] = smoke_train_vs_cpu(seed, dev)
+    rec["stablelm_train"] = lm_train_run(
+        "StableLM-2 1.6B, CONFIG, bf16, remat layer", get_config(
+            "stablelm-1.6b"), 3, seed, dev, repeat=True)
+    rec["jamba_train"] = lm_train_run(
+        "Jamba v0.1 without experts, one period (8 layers), bf16",
+        get_config("jamba-v0.1-52b").with_overrides(moe=None, n_layers=8),
+        2, seed, dev, repeat=False)
+    for k in ("stablelm_train", "jamba_train"):
+        need = ("flash_attention", "flash_attention_bwd") + (
+            ("selective_scan", "selective_scan_bwd") if k == "jamba_train"
+            else ())
+        require_launches(k, rec[k]["launches"], need)
+    rec["supervised"], sup_launches = supervised_lm_drill(seed, dev)
+    paths = {"stablelm_train": rec["stablelm_train"]["launches"],
+             "jamba_train": rec["jamba_train"]["launches"],
+             "supervised_lm": sup_launches}
+    return [fa_row, ss_row], paths, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3610,17 +4053,29 @@ def main() -> int:
     print(f"  lowering phase {lowering['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # 13. LM training: the backward kernels, SMOKE card vs CPU, StableLM-2
+    # 1.6B and Jamba (one period) at full width, the supervised drill
+    print(f"[13] LM training ({card})")
+    t0 = time.perf_counter()
+    train_rows, train_paths, lm_train = lm_training_phase(args.seed, dev)
+    lm_train["phase_s"] = time.perf_counter() - t0
+    rows += train_rows
+    print(f"  LM training phase {lm_train['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
     # training runs, the two LM serving runs, the recipe's runs, the
-    # streaming and demotion runs, the two supervised runs and every
-    # rank's runs of the mesh phase (the repeat runs and the checks
-    # against plain paths not included).
+    # streaming and demotion runs, the two supervised runs, every
+    # rank's runs of the mesh phase and phase 13's LM training runs
+    # (StableLM's 3 steps, Jamba's 2, the supervised drill); the repeat
+    # runs and the checks against plain paths not included.
     # packed_matmul's bf16 forms are held and timed here, but no path of
     # this script runs the E-step with bf16 inputs (OFF_PATH).
     paths = {"sparse": launches_sparse, "dense": launches_dense,
              "fused": launches_fused, **train["launches"], **lm_paths,
-             **recipe_paths, **stream_paths, **sup_paths, **mesh_paths}
+             **recipe_paths, **stream_paths, **sup_paths, **mesh_paths,
+             **train_paths}
     # gmm_align's row counts both entries of csrc/gmm_align.cu: the fused
     # launch and the rescore alone (gmm_rescore_fused, the mesh's fused
     # rung)
@@ -3644,7 +4099,7 @@ def main() -> int:
               "card_vs_cpu_max_diff": d_cpu, "training": train, "lm": lm,
               "recipe": recipe, "streaming": stream, "supervised": sup,
               "mesh": mesh, "analysis": analysis, "lowering": lowering,
-              "kernels": rows}
+              "lm_training": lm_train, "kernels": rows}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

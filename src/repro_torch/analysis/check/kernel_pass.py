@@ -307,7 +307,7 @@ def gate_configs(name: str):
     if name == "tvm_estep":
         return [None, {"M": 16, "dtype": "float32"},
                 {"M": 256, "dtype": "float32"}]
-    if name == "flash_attention":
+    if name in ("flash_attention", "flash_attention_bwd"):
         return [None, {"dtype": "float32"}]
     if name == "gmm_align":
         return [None, {"K": 40}, {"rescore_only": True}]

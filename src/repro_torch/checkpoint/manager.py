@@ -4,10 +4,13 @@
 Arrays are written as npz (one file per step) plus a JSON manifest holding
 the keys, shapes, dtypes and a sha256 of the array payload. Writes are
 atomic (tmp dir + rename). The npz keys are the strings the JAX package
-derives from its pytree paths, spelled out here for the two trees the
-system saves (``flatten``): a bundle's ``{"ubm", "model", "backend"}`` and
-the trainer's ``{"model", "ubm", "n", "f", "ss"}``. So a checkpoint or
-bundle written by either package restores in the other.
+derives from its pytree paths, spelled out here for the trees the system
+saves (``flatten``): a bundle's ``{"ubm", "model", "backend"}``, the
+trainer's ``{"model", "ubm", "n", "f", "ss"}`` and an LM train state's
+nested dicts ``{"params": {...}, "opt": {"m": {...}, "v": {...},
+"count"}}`` (keys joined by ``|`` in sorted order, as JAX flattens a
+dict). So a checkpoint or bundle written by either package restores in
+the other.
 
 Integrity contract: `save` records ``sha256(arrays.npz)`` in the manifest;
 `verify`/`restore` refuse torn or tampered checkpoints (missing manifest,
@@ -110,12 +113,18 @@ def _flatten_value(name: str, v) -> Dict[str, object]:
         if v.whitener is not None:
             out[f"{name}|3"] = v.whitener
         return out
+    if isinstance(v, dict):         # JAX flattens a dict in sorted order
+        out = {}
+        for k in sorted(v):
+            out.update(_flatten_value(f"{name}{SEP}{k}", v[k]))
+        return out
     return {name: v}
 
 
 def flatten(tree: Dict) -> Dict[str, object]:
-    """{name: FullGMM | TVModel | BackendArtifact | tensor} -> {key: leaf},
-    keyed as the JAX package's ``tree_flatten_with_path`` keys them."""
+    """{name: FullGMM | TVModel | BackendArtifact | dict | tensor} ->
+    {key: leaf}, keyed as the JAX package's ``tree_flatten_with_path``
+    keys them."""
     flat: Dict[str, object] = {}
     for name in sorted(tree):
         flat.update(_flatten_value(name, tree[name]))
@@ -137,6 +146,9 @@ def _unflatten_value(name: str, like, leaves: Dict):
                          leaves[f"{name}|2|.W"]),
             whitener=(None if like.whitener is None
                       else leaves[f"{name}|3"]))
+    if isinstance(like, dict):
+        return {k: _unflatten_value(f"{name}{SEP}{k}", sub, leaves)
+                for k, sub in like.items()}
     return leaves[name]
 
 

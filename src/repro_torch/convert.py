@@ -3,8 +3,9 @@
 The arguments are numpy arrays: ``np.asarray`` of the leaves of a JAX
 ``FullGMM`` (weights, means, covs), ``DiagGMM`` (weights, means, vars) or
 ``TVModel`` (T, Sigma, prior, means, formulation), ``BackendArtifact``
-(mu, lda.mean, lda.proj, plda.mean, plda.B, plda.W, whitener), or the flat
-``{name: array}`` params of an LM (``repro.models.api.init_params``). The
+(mu, lda.mean, lda.proj, plda.mean, plda.B, plda.W, whitener), the flat
+``{name: array}`` params of an LM (``repro.models.api.init_params``) or
+an LM train state (``repro.models.api.init_state``). The
 port then computes the same function as the JAX package on the same
 parameters. Tensors go to ``device``: CUDA unless the caller names
 another.
@@ -71,3 +72,21 @@ def lm_params_from_numpy(params, dtype, device=None):
     dev = resolve_device(device)
     return {k: torch.tensor(np.asarray(v, np.float32), dtype=dt, device=dev)
             for k, v in params.items()}
+
+
+def lm_state_from_numpy(state, dtype, device=None):
+    """An LM train state {'params', 'opt': {'m', 'v', 'count'}} of arrays
+    (the JAX ``init_state`` or a JAX train step's output) -> the port's:
+    params in ``dtype``, each moment in its array's own dtype (float32 or
+    bfloat16), count an int32 scalar. Arrays in bf16 widen to f32 exactly
+    on the way."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+
+    def moments(tree):
+        return {k: lm_params_from_numpy({k: v}, str(np.asarray(v).dtype),
+                                        dev)[k] for k, v in tree.items()}
+    return {"params": lm_params_from_numpy(state["params"], dtype, dev),
+            "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]),
+                    "count": torch.tensor(int(np.asarray(opt["count"])),
+                                          dtype=torch.int32, device=dev)}}

@@ -9,6 +9,11 @@
 // the input type. Scores, softmax and sums in f32; masked scores are -1e30
 // and o = acc / max(l, 1e-30), as in the TPU kernel. Any S: rows and keys
 // at or past S are masked here (the TPU wrapper needs S % block == 0).
+// Optionally (lse not null) both kernels also write each row's
+// log-sum-exp of its scaled scores, lse [B, H, S] f32, in natural-log
+// units: m + log(l) on the f32 path, (m + log2(l)) ln 2 on the bf16 path
+// (whose running max is in log2 units); the backward pass
+// (flash_attention_bwd.cu) recomputes p = exp(s scale - lse) from it.
 //
 // Bound on the H100: operations. The function needs 4*B*H*hd*S^2/2 FLOPs
 // (two products over the causal half) against (2*B*S*H + 2*B*S*KVH)*hd
@@ -89,7 +94,8 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int S, int H, int KVH, float scale) {
+                       float* __restrict__ lse, int S, int H, int KVH,
+                       float scale) {
   constexpr int LD = HD + 1;        // q and k tile row stride
   constexpr int CPT = HD / 16;      // output columns per thread
   extern __shared__ float smem[];
@@ -217,12 +223,15 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc)
       ob[(size_t)qpos * qrow + tx + 16 * cc] = acc[i][cc] / denom;
+    // the 16 lanes of a row hold the same m and l
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + qpos] = m[i] + logf(l[i]);
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KVH, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int S, int H, int KVH, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<HD>,
@@ -232,16 +241,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const float scale = (float)std::pow((double)HD, -0.5);
   flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KVH, scale);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), S, H, KVH, scale);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int KVH, int hd, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int S, int H, int KVH, int hd, cudaStream_t st) {
   switch (hd) {
 #define FA_CASE(N) \
   case N:          \
-    return launch<N>(q, k, v, o, B, S, H, KVH, st);
+    return launch<N>(q, k, v, o, lse, B, S, H, KVH, st);
     FA_CASE(16) FA_CASE(32) FA_CASE(48) FA_CASE(64) FA_CASE(80) FA_CASE(96)
     FA_CASE(112) FA_CASE(128) FA_CASE(144) FA_CASE(160) FA_CASE(176)
     FA_CASE(192) FA_CASE(208) FA_CASE(224) FA_CASE(240) FA_CASE(256)
@@ -448,8 +458,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
-                          __nv_bfloat16* __restrict__ o, int S, int H,
-                          int KVH, float scale_log2) {
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int S, int H, int KVH,
+                          float scale_log2) {
   using L = Layout<HD>;
   constexpr int BKV = L::BKV;
   constexpr int NS = BKV / 2;   // score fragment floats per thread
@@ -655,6 +666,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = 1.f / fmaxf(l0, 1e-30f);
   const float d1 = 1.f / fmaxf(l1, 1e-30f);
+  // the log-sum-exp in natural-log units, the f32 path's quantity: m is
+  // the running max in log2 units and l the sum of 2^(s scale log2e - m)
+  if (lse != nullptr && lane % 4 == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    float* lrow = lse + ((size_t)b * H + h) * S;
+    if (r0 < S) lrow[r0] = (m0 + log2f(l0)) * LN2;
+    if (r1 < S) lrow[r1] = (m1 + log2f(l1)) * LN2;
+  }
   const size_t row_stride = (size_t)H * HD;
   __nv_bfloat16* o0 = o + ((size_t)b * S + r0) * row_stride + (size_t)h * HD;
   __nv_bfloat16* o1 = o0 + 8 * row_stride;
@@ -689,8 +708,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KVH, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int S, int H, int KVH, cudaStream_t stream) {
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, B, S, H, HD, BQ) ||
@@ -706,16 +725,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const float scale_log2 =
       (float)(std::pow((double)HD, -0.5) * 1.4426950408889634);
   flash_attention_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, H, KVH, scale_log2);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S,
+      H, KVH, scale_log2);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int KVH, int hd, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int S, int H, int KVH, int hd, cudaStream_t st) {
   switch (hd) {   // BF16_HEAD_DIMS in kernels/flash_attention.py
-    case 64: return launch<64>(q, k, v, o, B, S, H, KVH, st);
-    case 128: return launch<128>(q, k, v, o, B, S, H, KVH, st);
-    case 192: return launch<192>(q, k, v, o, B, S, H, KVH, st);
+    case 64: return launch<64>(q, k, v, o, lse, B, S, H, KVH, st);
+    case 128: return launch<128>(q, k, v, o, lse, B, S, H, KVH, st);
+    case 192: return launch<192>(q, k, v, o, lse, B, S, H, KVH, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -731,20 +751,23 @@ int prologue(int B, int S, int H, int KVH, int device) {
 
 }  // namespace
 
+// lse: null, or [B, H, S] f32 for the row log-sum-exps
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int B, int S,
-                                   int H, int KVH, int hd, int device,
+                                   const void* v, void* o, void* lse, int B,
+                                   int S, int H, int KVH, int hd, int device,
                                    void* stream) {
   const int err = prologue(B, S, H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
-  return simt::dispatch(q, k, v, o, B, S, H, KVH, hd, (cudaStream_t)stream);
+  return simt::dispatch(q, k, v, o, lse, B, S, H, KVH, hd,
+                        (cudaStream_t)stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int S,
-                                    int H, int KVH, int hd, int device,
+                                    const void* v, void* o, void* lse, int B,
+                                    int S, int H, int KVH, int hd, int device,
                                     void* stream) {
   const int err = prologue(B, S, H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
-  return tc::dispatch(q, k, v, o, B, S, H, KVH, hd, (cudaStream_t)stream);
+  return tc::dispatch(q, k, v, o, lse, B, S, H, KVH, hd,
+                      (cudaStream_t)stream);
 }

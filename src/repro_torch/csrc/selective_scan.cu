@@ -6,7 +6,10 @@
 //
 // dt, dx [B, T, di], A [di, ds], Bc, Cc [B, T, ds], h0 [B, di, ds] or
 // null (zeros), all f32; y [B, T, di] and h_last [B, di, ds] f32. One
-// template instance for each ds in {4, 8, 16, 32, 64}.
+// template instance for each ds in {4, 8, 16, 32, 64}. For training, hs
+// (null, or [B, ceil(T / BT), di, ds] f32) receives the state at the start
+// of every BT-step chunk (hs[:, 0] = h0), from which the backward kernel
+// (namespace bwd, below) recomputes each chunk's states.
 //
 // Bound on the H100: the bytes. Per (b, t, channel) the function reads dt
 // and dx and writes y (12 bytes); Bc and Cc are ds floats per (b, t),
@@ -121,7 +124,8 @@ selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ Bc,
                       const float* __restrict__ Cc,
                       const float* __restrict__ h0, float* __restrict__ y,
-                      float* __restrict__ h_last, int T, int di) {
+                      float* __restrict__ h_last, float* __restrict__ hs,
+                      int T, int di) {
   constexpr int L = lanes(DS);            // lanes per channel
   constexpr int S = DS / L;               // states per lane
   constexpr int THR = CH * L;
@@ -196,6 +200,13 @@ selective_scan_kernel(const float* __restrict__ dt,
   }
 
   for (int c = 0; c < nchunk; ++c) {
+    if (hs != nullptr && live) {  // the state at the chunk's start
+      float* hc = hs + (((size_t)b * nchunk + c) * di + d) * DS + l * S;
+#pragma unroll
+      for (int s = 0; s < S; s += 4)
+        *reinterpret_cast<float4*>(hc + s) =
+            make_float4(h[s], h[s + 1], h[s + 2], h[s + 3]);
+    }
     cp_wait<STAGES - 2>();        // chunk c has landed (this thread's copies)
     __syncthreads();              // everyone's; chunk c-1's stage and y free
     const int nx = c + STAGES - 1;
@@ -264,8 +275,8 @@ selective_scan_kernel(const float* __restrict__ dt,
 
 template <int DS>
 int launch(const float* dt, const float* dx, const float* A, const float* Bc,
-           const float* Cc, const float* h0, float* y, float* h_last, int B,
-           int T, int di, void* stream) {
+           const float* Cc, const float* h0, float* y, float* h_last,
+           float* hs, int B, int T, int di, void* stream) {
   const int smem = (int)sizeof(float) * smem_floats(DS);
   if (smem > 48 * 1024) {       // only ds = 64; a decode step stays lean
     const cudaError_t err = cudaFuncSetAttribute(
@@ -276,9 +287,261 @@ int launch(const float* dt, const float* dx, const float* A, const float* Bc,
   const dim3 grid((di + CH - 1) / CH, B);
   selective_scan_kernel<DS><<<grid, CH * lanes(DS), smem,
                               (cudaStream_t)stream>>>(dt, dx, A, Bc, Cc, h0,
-                                                       y, h_last, T, di);
+                                                       y, h_last, hs, T,
+                                                       di);
   return (int)cudaGetLastError();
 }
+
+// ------------------------------------------------------------ backward ----
+//
+// The derivative of the scan (the TPU kernel is forward only; the JAX
+// package trains through jnp autodiff of its chunked associative scan,
+// src/repro/models/mamba.py, _ssm_scan). With a_t = exp(dt_t A) and the
+// adjoint g_t = dL/dh_t,
+//
+//   g_t      = dy_t C_t + a_{t+1} g_{t+1}      (g_{T-1} = dy C + dh_last)
+//   d(dx_t)  = sum_s g_t B_t
+//   d(dt_t)  = sum_s g_t A a_t h_{t-1}
+//   dA       = sum_{b,t} g_t dt_t a_t h_{t-1}
+//   dB_t     = sum_d g_t dx_t,    dC_t = sum_d dy_t h_t
+//   dh0      = a_0 g_0
+//
+// One block per (64 channels, batch row), lanes(ds) lanes a channel as in
+// the forward. The chunks are walked last to first: a chunk's dt, dx, dy,
+// Bc and Cc come into shared memory, its states are recomputed from the
+// boundary state the forward saved (hs), each state before its step kept
+// in shared memory, and the adjoint then runs back through the chunk. The
+// decays are the forward's ex2(dt A log2 e), so the recomputed states are
+// the forward's bits. No atomics: a channel's lanes add their partials by
+// xor shuffles (1, then 2 apart); dB and dC, reduced over di, are summed
+// over the warp's channels by xor shuffles, over the block's warps in warp
+// order, and written as one partial a block, [B, blocks, T, ds]; dA is a
+// partial a batch row, [B, di, ds]. sum_mid_kernel then adds the partials
+// in index order. Every gradient is the same bits on every run.
+//
+// Bound on the H100: the bytes (dt, dx, dy and the saved states read, d(dt)
+// and d(dx) written; 19 operations a (b, t, d, s) against 24 bytes a (b, t,
+// d) at ds = 16). The reverse walk keeps the chunk's states in shared
+// memory: BT x ds floats a channel, 64 KB of 96 KB at ds = 16; ds = 64
+// would need 356 KB, so the backward has instances for ds up to 32
+// (BWD_D_STATES in kernels/selective_scan.py). A simple kernel that is
+// right: one wave of blocks at Jamba's di = 8192 and B = 1 leaves the card
+// latency-bound (PERF.md).
+namespace bwd {
+
+// shared memory in floats: dt, dx, dy [BT][CH]; Bc, Cc [BT][ds]; the
+// states before each step [BT][ds / lanes][threads]; d(dx), d(dt)
+// [BT][CH]; the warps' dB and dC sums [warps][BT][ds]
+__host__ __device__ constexpr int smem_floats(int ds) {
+  return 3 * BT * CH + 2 * BT * ds + BT * ds * CH + 2 * BT * CH +
+         2 * (CH * lanes(ds) / 32) * BT * ds;
+}
+
+// the sum over the channels of a warp that share lane index l: xor over
+// lanes L, 2L, .. 16 apart (every lane ends with the same bits)
+template <int L>
+__device__ __forceinline__ float channel_sum(float v) {
+#pragma unroll
+  for (int off = L; off < 32; off <<= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// the sum over a channel's L lanes: xor over 1, then 2 apart
+template <int L>
+__device__ __forceinline__ float lane_sum(float v) {
+#pragma unroll
+  for (int off = 1; off < L; off <<= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+template <int DS>
+__global__ void __launch_bounds__(CH * lanes(DS))
+scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ dx,
+                const float* __restrict__ A, const float* __restrict__ Bc,
+                const float* __restrict__ Cc, const float* __restrict__ hs,
+                const float* __restrict__ dy,
+                const float* __restrict__ dh_last, float* __restrict__ ddt,
+                float* __restrict__ ddx, float* __restrict__ dA_part,
+                float* __restrict__ dB_part, float* __restrict__ dC_part,
+                float* __restrict__ dh0, int T, int di) {
+  constexpr int L = lanes(DS);            // lanes per channel
+  constexpr int S = DS / L;               // states per lane
+  constexpr int THR = CH * L;
+  constexpr int NW = THR / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* dts = smem;                      // [BT][CH]
+  float* dxs = dts + BT * CH;
+  float* dys = dxs + BT * CH;
+  float* bs = dys + BT * CH;              // [BT][DS]
+  float* cs = bs + BT * DS;
+  float* hbuf = cs + BT * DS;             // [BT][S][THR]
+  float* gdx = hbuf + BT * S * THR;       // [BT][CH]
+  float* gdt = gdx + BT * CH;
+  float* redB = gdt + BT * CH;            // [NW][BT][DS]
+  float* redC = redB + NW * BT * DS;
+
+  const int tid = threadIdx.x;
+  const int ch = tid / L, l = tid % L;
+  const int warp = tid / 32, wl = tid % 32;
+  const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
+  const int d0 = blk * CH, d = d0 + ch;
+  const bool live = d < di;
+  const int nchunk = (T + BT - 1) / BT;
+  const size_t row = ((size_t)b * di + d) * DS + l * S;   // [B, di, ds]
+
+  float a[S], a2[S], carry[S], dA[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    a[s] = live ? A[(size_t)d * DS + l * S + s] : 0.f;
+    a2[s] = a[s] * LOG2E;
+    carry[s] = (live && dh_last != nullptr) ? dh_last[row + s] : 0.f;
+    dA[s] = 0.f;
+  }
+
+  for (int c = nchunk - 1; c >= 0; --c) {
+    const int t0 = c * BT;
+    const int nt = min(BT, T - t0);
+    __syncthreads();              // the last chunk's readers are done
+    for (int idx = tid; idx < BT * CH; idx += THR) {
+      const int r = idx / CH, k = idx % CH;
+      const bool in = r < nt && d0 + k < di;
+      const size_t off = ((size_t)b * T + t0 + r) * di + d0 + k;
+      dts[idx] = in ? dt[off] : 0.f;
+      dxs[idx] = in ? dx[off] : 0.f;
+      dys[idx] = in ? dy[off] : 0.f;
+    }
+    for (int idx = tid; idx < BT * DS; idx += THR) {
+      const int r = idx / DS;
+      const size_t off = ((size_t)b * T + t0 + r) * DS + idx % DS;
+      bs[idx] = r < nt ? Bc[off] : 0.f;
+      cs[idx] = r < nt ? Cc[off] : 0.f;
+    }
+    __syncthreads();
+
+    // the chunk's states again, from its saved start; dC's terms on the way
+    float h[S];
+    const float* hc = hs + (((size_t)b * nchunk + c) * di + d) * DS + l * S;
+#pragma unroll
+    for (int s = 0; s < S; ++s) h[s] = live ? hc[s] : 0.f;
+    for (int tt = 0; tt < nt; ++tt) {
+      const float dtv = dts[tt * CH + ch], dxv = dxs[tt * CH + ch];
+      const float dyv = dys[tt * CH + ch];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        hbuf[(tt * S + s) * THR + tid] = h[s];
+        h[s] = fmaf(ex2(dtv * a2[s]), h[s], dxv * bs[tt * DS + l * S + s]);
+        const float v = channel_sum<L>(dyv * h[s]);
+        if (wl < L) redC[(warp * BT + tt) * DS + l * S + s] = v;
+      }
+    }
+
+    // the adjoint, back through the chunk
+    for (int tt = nt - 1; tt >= 0; --tt) {
+      const float dtv = dts[tt * CH + ch], dxv = dxs[tt * CH + ch];
+      const float dyv = dys[tt * CH + ch];
+      float gx = 0.f, gt = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float at = ex2(dtv * a2[s]);
+        const float hp = hbuf[(tt * S + s) * THR + tid];
+        const float g = fmaf(dyv, cs[tt * DS + l * S + s], carry[s]);
+        gx = fmaf(g, bs[tt * DS + l * S + s], gx);
+        const float w = g * at * hp;
+        gt = fmaf(w, a[s], gt);
+        dA[s] = fmaf(w, dtv, dA[s]);
+        const float v = channel_sum<L>(g * dxv);
+        if (wl < L) redB[(warp * BT + tt) * DS + l * S + s] = v;
+        carry[s] = at * g;
+      }
+      gx = lane_sum<L>(gx);
+      gt = lane_sum<L>(gt);
+      if (l == 0) {
+        gdx[tt * CH + ch] = gx;
+        gdt[tt * CH + ch] = gt;
+      }
+    }
+    __syncthreads();              // gdx, gdt, redB, redC complete
+
+    for (int idx = tid; idx < nt * CH; idx += THR) {
+      const int r = idx / CH, k = idx % CH;
+      if (d0 + k < di) {
+        const size_t off = ((size_t)b * T + t0 + r) * di + d0 + k;
+        ddx[off] = gdx[idx];
+        ddt[off] = gdt[idx];
+      }
+    }
+    for (int idx = tid; idx < nt * DS; idx += THR) {
+      const int r = idx / DS, s = idx % DS;
+      float sb = 0.f, sc = 0.f;
+      for (int w = 0; w < NW; ++w) {   // the block's warps, in order
+        sb += redB[(w * BT + r) * DS + s];
+        sc += redC[(w * BT + r) * DS + s];
+      }
+      const size_t off = (((size_t)b * nblk + blk) * T + t0 + r) * DS + s;
+      dB_part[off] = sb;
+      dC_part[off] = sc;
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    dA_part[row + s] = dA[s];
+    if (dh0 != nullptr) dh0[row + s] = carry[s];
+  }
+}
+
+// out[i, k] = sum_j in[i, j, k], j in order: the per-block partials added
+__global__ void sum_mid_kernel(const float* __restrict__ in,
+                               float* __restrict__ out, int I, int J,
+                               long long K) {
+  const long long n = (long long)I * K;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < n; idx += (long long)gridDim.x * blockDim.x) {
+    const long long i = idx / K, k = idx % K;
+    const float* p = in + i * J * K + k;
+    float acc = 0.f;
+    for (int j = 0; j < J; ++j) acc += p[(long long)j * K];
+    out[idx] = acc;
+  }
+}
+
+int sum_mid(const float* in, float* out, int I, int J, long long K,
+            cudaStream_t st) {
+  const long long n = (long long)I * K;
+  const long long want = (n + 255) / 256;
+  const int blocks = (int)(want < 65535 ? want : 65535);
+  if (n > 0) sum_mid_kernel<<<blocks, 256, 0, st>>>(in, out, I, J, K);
+  return (int)cudaGetLastError();
+}
+
+template <int DS>
+int launch(const float* dt, const float* dx, const float* A, const float* Bc,
+           const float* Cc, const float* hs, const float* dy,
+           const float* dh_last, float* ddt, float* ddx, float* dA_part,
+           float* dB_part, float* dC_part, float* dA, float* dB, float* dC,
+           float* dh0, int B, int T, int di, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int smem = (int)sizeof(float) * smem_floats(DS);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scan_bwd_kernel<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int nblk = (di + CH - 1) / CH;
+  scan_bwd_kernel<DS><<<dim3(nblk, B), CH * lanes(DS), smem, st>>>(
+      dt, dx, A, Bc, Cc, hs, dy, dh_last, ddt, ddx, dA_part, dB_part, dC_part,
+      dh0, T, di);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  if ((err = sum_mid(dA_part, dA, 1, B, (long long)di * DS, st)) != 0)
+    return err;
+  if ((err = sum_mid(dB_part, dB, B, nblk, (long long)T * DS, st)) != 0)
+    return err;
+  return sum_mid(dC_part, dC, B, nblk, (long long)T * DS, st);
+}
+
+}  // namespace bwd
 
 }  // namespace
 
@@ -286,25 +549,58 @@ int launch(const float* dt, const float* dx, const float* A, const float* Bc,
 // checked against this)
 extern "C" int selective_scan_lanes(int ds) { return lanes(ds); }
 
+// hs: null, or [B, ceil(T / BT), di, ds] for the chunks' start states
 extern "C" int selective_scan_f32(const float* dt, const float* dx,
                                   const float* A, const float* Bc,
                                   const float* Cc, const float* h0, float* y,
-                                  float* h_last, int B, int T, int di, int ds,
-                                  int device, void* stream) {
+                                  float* h_last, float* hs, int B, int T,
+                                  int di, int ds, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || di == 0) return 0;
   switch (ds) {
     case 4:
-      return launch<4>(dt, dx, A, Bc, Cc, h0, y, h_last, B, T, di, stream);
+      return launch<4>(dt, dx, A, Bc, Cc, h0, y, h_last, hs, B, T, di,
+                       stream);
     case 8:
-      return launch<8>(dt, dx, A, Bc, Cc, h0, y, h_last, B, T, di, stream);
+      return launch<8>(dt, dx, A, Bc, Cc, h0, y, h_last, hs, B, T, di,
+                       stream);
     case 16:
-      return launch<16>(dt, dx, A, Bc, Cc, h0, y, h_last, B, T, di, stream);
+      return launch<16>(dt, dx, A, Bc, Cc, h0, y, h_last, hs, B, T, di,
+                        stream);
     case 32:
-      return launch<32>(dt, dx, A, Bc, Cc, h0, y, h_last, B, T, di, stream);
+      return launch<32>(dt, dx, A, Bc, Cc, h0, y, h_last, hs, B, T, di,
+                        stream);
     case 64:
-      return launch<64>(dt, dx, A, Bc, Cc, h0, y, h_last, B, T, di, stream);
+      return launch<64>(dt, dx, A, Bc, Cc, h0, y, h_last, hs, B, T, di,
+                        stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward: dt, dx, A, Bc, Cc and the forward's hs; dy, dh_last (or
+// null); out d(dt), d(dx) [B, T, di], the scratch partials dA_part [B, di,
+// ds], dB_part and dC_part [B, ceil(di / 64), T, ds], then dA [di, ds], dB,
+// dC [B, T, ds] and dh0 [B, di, ds] (or null); B, T, di, ds, device,
+// stream
+extern "C" int selective_scan_bwd_f32(
+    const float* dt, const float* dx, const float* A, const float* Bc,
+    const float* Cc, const float* hs, const float* dy, const float* dh_last,
+    float* ddt, float* ddx, float* dA_part, float* dB_part, float* dC_part,
+    float* dA, float* dB, float* dC, float* dh0, int B, int T, int di, int ds,
+    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B == 0 || di == 0 || T == 0) return 0;
+  switch (ds) {   // BWD_D_STATES in kernels/selective_scan.py
+#define SSB_CASE(N)                                                         \
+  case N:                                                                   \
+    return bwd::launch<N>(dt, dx, A, Bc, Cc, hs, dy, dh_last, ddt, ddx,     \
+                          dA_part, dB_part, dC_part, dA, dB, dC, dh0, B, T, \
+                          di, stream);
+    SSB_CASE(4) SSB_CASE(8) SSB_CASE(16) SSB_CASE(32)
+#undef SSB_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

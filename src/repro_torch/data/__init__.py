@@ -1,1 +1,2 @@
-"""Synthetic speaker data and the trial protocol."""
+"""Synthetic speaker data and the trial protocol; the synthetic LM token
+pipeline."""

@@ -46,11 +46,21 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                          INT, INT, INT, INT, INT, INT, INT, PTR),
     },
     "flash_attention": {
-        # q, k, v, o, B, S, H, KVH, hd, device, stream
-        "flash_attention_f32": (PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT,
-                                INT, PTR),
-        "flash_attention_bf16": (PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+        # q, k, v, o, lse (or NULL), B, S, H, KVH, hd, device, stream
+        "flash_attention_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+                                INT, INT, PTR),
+        "flash_attention_bf16": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
                                  INT, INT, PTR),
+    },
+    "flash_attention_bwd": {
+        # q, k, v, o, lse, dout, dq, dk, dv, delta scratch, B, S, H, KVH,
+        # hd, device, stream
+        "flash_attention_bwd_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
+                                    PTR, PTR, INT, INT, INT, INT, INT, INT,
+                                    PTR),
+        "flash_attention_bwd_bf16": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
+                                     PTR, PTR, INT, INT, INT, INT, INT, INT,
+                                     PTR),
     },
     "gmm_align": {
         # x, dconst, dlin, dquad, A2, ll, sel, F, C, D, K, E2, device, stream
@@ -87,10 +97,15 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                INT, INT, PTR),
     },
     "selective_scan": {
-        # dt, dx, A, Bc, Cc, h0 (or NULL), y, h_last, B, T, di, ds, device,
+        # dt, dx, A, Bc, Cc, h0 (or NULL), y, h_last, hs (or NULL), B, T,
+        # di, ds, device, stream
+        "selective_scan_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
+                               INT, INT, INT, INT, INT, PTR),
+        # dt, dx, A, Bc, Cc, hs, dy, dh_last (or NULL), ddt, ddx, dA_part,
+        # dB_part, dC_part, dA, dB, dC, dh0 (or NULL), B, T, di, ds, device,
         # stream
-        "selective_scan_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT,
-                               INT, INT, INT, INT, PTR),
+        "selective_scan_bwd_f32": (PTR,) * 17 + (INT, INT, INT, INT, INT,
+                                                PTR),
         # d_state -> lanes a channel
         "selective_scan_lanes": (INT,),
     },

@@ -2,7 +2,11 @@
 
 A CUDA tensor launches the hand-written kernel (or raises: there is no
 fallback). A CPU tensor takes the plain version in ``ref.py``, and so does
-a meta tensor (shapes only: a lowered call, ``launch/dryrun.py``). The
+a meta tensor (shapes only: a lowered call, ``launch/dryrun.py``). Where a
+gradient is wanted, ``flash_attention`` and ``selective_scan`` on CUDA
+tensors are ``torch.autograd.Function``s whose backward is a hand-written
+kernel too (``flash_attention_bwd``, ``selective_scan_bwd``); on the CPU
+autograd differentiates the plain version. The
 contracts are those of ``repro/kernels/ops.py``: ids are clipped into
 [0, C), ragged F, C, U and P give exactly the unpadded result (the CUDA
 kernels mask their ragged edges), and the E-step ``dtype`` knob casts the
@@ -37,6 +41,12 @@ def _rows_touched(sel, C: int) -> dict:
     if sel.is_meta:
         return {"rows_touched": min(C, sel.numel()), "rows_bound": True}
     return {"rows_touched": int(torch.unique(sel.clamp(0, C - 1)).numel())}
+
+
+def _wants_grad(*tensors) -> bool:
+    """Whether autograd will want the gradient of a call on ``tensors``:
+    then the LM kernels go through their autograd functions."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _cfg_loglik(out, x, const, lin, P_flat):
@@ -82,13 +92,26 @@ def _cfg_estep_a(out, n, PP_packed, *, dtype: str = "float32"):
 def _cfg_attention(out, q, k, v):
     B, S, H, hd = q.shape
     return {"B": B, "S": S, "H": H, "KVH": k.shape[2], "hd": hd,
-            "dtype": str(q.dtype).removeprefix("torch.")}
+            "dtype": str(q.dtype).removeprefix("torch."),
+            "lse": _wants_grad(q, k, v)}
+
+
+def _cfg_attention_bwd(out, q, k, v, o, lse, do):
+    return {**_cfg_attention(out, q, k, v), "lse": True}
 
 
 def _cfg_scan(out, dt, dx, A, Bc, Cc, h0=None):
     B, T, di = dt.shape
     return {"B": B, "T": T, "di": di, "ds": A.shape[1],
-            "h0": h0 is not None}
+            "h0": h0 is not None,
+            "save_states": _wants_grad(dt, dx, A, Bc, Cc)}
+
+
+def _cfg_scan_bwd(out, dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
+                  want_dh0=False):
+    B, T, di = dt.shape
+    return {"B": B, "T": T, "di": di, "ds": A.shape[1],
+            "dh_last": dh_last is not None, "dh0": want_dh0}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -192,17 +215,67 @@ def tvm_estep_a(n, PP_packed, *, dtype: str = "float32"):
     return ref.tvm_estep_a(n, PP_packed)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward (with the rows' log-sum-exp), kernel backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = _fa.flash_attention(q, k, v, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_bwd(*ctx.saved_tensors, do.contiguous())
+
+
 @kernel_region("flash_attention", _cfg_attention)
 def flash_attention(q, k, v):
     """Causal GQA attention, forward: q [B, S, H, hd], k, v [B, S, KVH, hd]
     -> [B, S, H, hd] in q's dtype. Any S; both paths keep the scores in
     f32 and p to f32 precision (the bf16 kernel as a hi and lo bf16 pair;
     ``repro/models/layers.py``'s blockwise path casts p to q's dtype
-    before P.V; at bf16 the port follows the TPU kernel)."""
+    before P.V; at bf16 the port follows the TPU kernel). Differentiable:
+    on the card through ``flash_attention_bwd``."""
     if _on_cuda(q):
-        return _fa.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous())
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if _wants_grad(q, k, v):
+            return _FlashAttention.apply(q, k, v)
+        return _fa.flash_attention(q, k, v)
     return ref.flash_attention(q, k, v)
+
+
+@kernel_region("flash_attention_bwd", _cfg_attention_bwd)
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """The gradients (dq, dk, dv) of ``flash_attention`` from its inputs,
+    output o, row log-sum-exps lse [B, H, S] f32 and the output's
+    gradient do; CUDA tensors only (the CPU path is autograd of the plain
+    version)."""
+    return _fa.flash_attention_bwd(q, k, v, o, lse, do)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """Kernel forward (saving each chunk's start state), kernel backward."""
+
+    @staticmethod
+    def forward(ctx, dt, dx, A, Bc, Cc, h0):
+        y, h_last, hs = _ss.selective_scan(dt, dx, A, Bc, Cc, h0,
+                                           save_states=True)
+        ctx.save_for_backward(dt, dx, A, Bc, Cc, hs)
+        ctx.with_h0 = h0 is not None
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        saved = ctx.saved_tensors      # unpacked once: remat allows no more
+        dy = torch.zeros_like(saved[0]) if dy is None else dy.contiguous()
+        if dh_last is not None:
+            dh_last = dh_last.contiguous()
+        ddt, ddx, dA, dB, dC, dh0 = selective_scan_bwd(
+            *saved, dy, dh_last,
+            want_dh0=ctx.with_h0 and ctx.needs_input_grad[5])
+        return ddt, ddx, dA, dB, dC, dh0
 
 
 @kernel_region("selective_scan", _cfg_scan)
@@ -210,11 +283,25 @@ def selective_scan(dt, dx, A, Bc, Cc, h0=None):
     """The Mamba recurrence h_t = exp(dt_t A) h_{t-1} + dx_t B_t,
     y_t = C_t . h_t, in f32: dt, dx [B, T, di]; A [di, ds]; Bc, Cc
     [B, T, ds]; h0 [B, di, ds] or None (zeros) -> (y [B, T, di],
-    h_last [B, di, ds])."""
+    h_last [B, di, ds]). Differentiable: on the card through
+    ``selective_scan_bwd``."""
     if _on_cuda(dt):
         dt, dx, A, Bc, Cc = (t.to(f32).contiguous()
                              for t in (dt, dx, A, Bc, Cc))
         if h0 is not None:
             h0 = h0.to(f32).contiguous()
+        if _wants_grad(dt, dx, A, Bc, Cc, *(() if h0 is None else (h0,))):
+            return _SelectiveScan.apply(dt, dx, A, Bc, Cc, h0)
         return _ss.selective_scan(dt, dx, A, Bc, Cc, h0)
     return ref.selective_scan(dt, dx, A, Bc, Cc, h0)
+
+
+@kernel_region("selective_scan_bwd", _cfg_scan_bwd)
+def selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
+                       want_dh0=False):
+    """The gradients (d(dt), d(dx), dA, dB, dC, dh0 or None) of
+    ``selective_scan`` from its inputs, the chunk start states hs its
+    forward saved, dy and dh_last (or None); CUDA tensors only (the CPU
+    path is autograd of the plain version)."""
+    return _ss.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last,
+                                  want_dh0)

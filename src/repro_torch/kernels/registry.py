@@ -23,6 +23,11 @@ count ``chip_smoke.py``'s bounds and ``analysis/op_cost.py`` use. For
 touches depend on the ids; ``rows_touched`` in cfg gives them (default:
 every row the pairs could reach).
 
+The two backward kernels (``flash_attention_bwd``, ``selective_scan_bwd``)
+are the port's own: the TPU kernels are forward only, and the JAX package
+trains through jnp autodiff. Their ``replaces`` names the TPU kernel they
+are the derivative of.
+
 Configs use the wrappers' shape names. ``default_config`` is a small
 shape the check gate verifies; ``main_config`` the main paths' shape
 (PERF.md §6), which ``chip_smoke.py`` phase 11 checks on the card. Where a
@@ -348,9 +353,43 @@ def _flash_work(cfg: dict):
     B, S, H, KVH, hd = cfg["B"], cfg["S"], cfg["H"], cfg["KVH"], cfg["hd"]
     dt = cfg.get("dtype", "float32")
     # causal: half of Q·Kᵀ and of P·V; q and o [B, S, H, hd], k and v
-    # [B, S, KVH, hd]
+    # [B, S, KVH, hd]; with ``lse`` (a training forward) the rows'
+    # log-sum-exps [B, H, S] f32
     return (4.0 * B * H * hd * S * S / 2,
-            DTYPE_BYTES[dt] * hd * (2 * B * S * H + 2 * B * S * KVH), dt)
+            DTYPE_BYTES[dt] * hd * (2 * B * S * H + 2 * B * S * KVH)
+            + (4.0 * B * H * S if cfg.get("lse") else 0.0), dt)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_bwd: the attention's gradients, dQ and dK/dV passes
+# ---------------------------------------------------------------------------
+
+
+def _flash_bwd_instance(cfg: dict) -> KernelInstance:
+    """The dK/dV launch: one block per (key tile, kv head, batch row)."""
+    B, S, KVH, hd = cfg["B"], cfg["S"], cfg["KVH"], cfg["hd"]
+    br = _fa.bwd_rows(hd)
+    dt = cfg.get("dtype", "float32")
+    outs = tuple(BlockMap(n, (B, S, KVH, hd), (1, br, 1, hd),
+                          lambda i, kh, b: (b, i, kh, 0), dtype=dt)
+                 for n in ("dk", "dv"))
+    return KernelInstance(
+        grid=(_cdiv(S, br), KVH, B), threads=_fa.BWD_THREADS,
+        smem_bytes=_fa.bwd_smem_bytes(hd),
+        axes=(Axis("keys", S, br), Axis("kv_heads", KVH, 1),
+              Axis("batch", B, 1)),
+        outputs=outs)
+
+
+def _flash_bwd_work(cfg: dict):
+    """Five products over the causal half (Q·Kᵀ again, dO·Vᵀ, Pᵀ·dO,
+    dSᵀ·Q, dS·K); q, o, dO read and dQ written [B, S, H, hd], k, v read
+    and dK, dV written [B, S, KVH, hd], the lse read."""
+    B, S, H, KVH, hd = cfg["B"], cfg["S"], cfg["H"], cfg["KVH"], cfg["hd"]
+    dt = cfg.get("dtype", "float32")
+    return (5.0 * 2 * B * H * hd * S * S / 2,
+            DTYPE_BYTES[dt] * hd * (4 * B * S * H + 4 * B * S * KVH)
+            + 4.0 * B * H * S, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -373,12 +412,51 @@ def _scan_instance(cfg: dict) -> KernelInstance:
 
 def _scan_work(cfg: dict):
     """Per (b, t, d, s): dt·A, exp, ·h, dx·B, +, ·C, +; dt, dx, y per
-    (b, t, d), Bc and Cc per (b, t), A, h_last (and h0) once."""
+    (b, t, d), Bc and Cc per (b, t), A, h_last (and h0) once; with
+    ``save_states`` (a training forward) each chunk's start state."""
     B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
     h0 = cfg.get("h0", False)
+    saved = _ss.n_chunks(T) if cfg.get("save_states") else 0
     return (7.0 * B * T * di * ds,
             4.0 * (3 * B * T * di + 2 * B * T * ds + di * ds
-                   + B * di * ds * (2 if h0 else 1)), "float32")
+                   + B * di * ds * (2 + saved if h0 else 1 + saved)),
+            "float32")
+
+
+# ---------------------------------------------------------------------------
+# selective_scan_bwd: the scan's gradients, chunks walked in reverse
+# ---------------------------------------------------------------------------
+
+
+def _scan_bwd_instance(cfg: dict) -> KernelInstance:
+    B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
+    return KernelInstance(
+        grid=(_cdiv(di, _ss.CH), B), threads=_ss.CH * _ss.lanes(ds),
+        smem_bytes=_ss.bwd_smem_bytes(ds),
+        axes=(Axis("channels", di, _ss.CH), Axis("batch", B, 1)),
+        outputs=(BlockMap("ddt", (B, T, di), (1, T, _ss.CH),
+                          lambda i, b: (b, 0, i)),
+                 BlockMap("ddx", (B, T, di), (1, T, _ss.CH),
+                          lambda i, b: (b, 0, i)),
+                 # dA's partial a batch row, added by sum_mid_kernel
+                 BlockMap("dA_part", (B, di, ds), (1, _ss.CH, ds),
+                          lambda i, b: (b, i, 0))),
+        scope="bwd")
+
+
+def _scan_bwd_work(cfg: dict):
+    """Per (b, t, d, s): the state again (dt·A, exp, ·h, dx·B, +), the
+    adjoint (dy·C, a·g, +), d(dx) (·B, +), d(dt) and dA (g·a·h, ·A, +,
+    ·dt, +), dB (g·dx, +) and dC (dy·h, +): 19. dt, dx, dy read and
+    d(dt), d(dx) written per (b, t, d); Bc, Cc read and dB, dC written per
+    (b, t); A read and dA written; the saved chunk states read (and
+    dh_last read, dh0 written)."""
+    B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
+    state = B * di * ds
+    extra = (1 if cfg.get("dh_last") else 0) + (1 if cfg.get("dh0") else 0)
+    return (19.0 * B * T * di * ds,
+            4.0 * (5 * B * T * di + 4 * B * T * ds + 2 * di * ds
+                   + state * (_ss.n_chunks(T) + extra)), "float32")
 
 
 register(KernelSpec(
@@ -419,6 +497,20 @@ register(KernelSpec(
     main_config={"B": 4, "S": 2048, "H": 32, "KVH": 8, "hd": 128,
                  "dtype": "bfloat16"},
     replaces="src/repro/kernels/flash_attention.py:80"))
+register(KernelSpec(
+    name="flash_attention_bwd", source="flash_attention_bwd.cu",
+    describe=_flash_bwd_instance, work=_flash_bwd_work,
+    default_config={"B": 1, "S": 256, "H": 4, "KVH": 2, "hd": 64,
+                    "dtype": "bfloat16"},
+    main_config={"B": 4, "S": 4096, "H": 32, "KVH": 32, "hd": 64,
+                 "dtype": "bfloat16"},
+    replaces="src/repro/kernels/flash_attention.py:80"))
+register(KernelSpec(
+    name="selective_scan_bwd", source="selective_scan.cu",
+    describe=_scan_bwd_instance, work=_scan_bwd_work,
+    default_config={"B": 2, "T": 64, "di": 256, "ds": 16},
+    main_config={"B": 1, "T": 4096, "di": 8192, "ds": 16},
+    replaces="src/repro/kernels/selective_scan.py:69"))
 register(KernelSpec(
     name="selective_scan", source="selective_scan.cu",
     describe=_scan_instance, work=_scan_work,

@@ -1,11 +1,16 @@
-"""CUDA kernel wrapper: the Mamba selective scan.
+"""CUDA kernel wrappers: the Mamba selective scan, forward and backward.
 
 Launches ``csrc/selective_scan.cu`` (which says what it replaces, what
 bounds it and how it is laid out). Unlike the TPU kernel it takes an
 optional initial state h0 and returns the last state, so one kernel
-serves both prefill and a decode step. ``ops.selective_scan`` dispatches
-here for CUDA tensors and to ``ref.selective_scan`` for CPU tensors;
-``scan_lanes`` is the kernel's arithmetic in plain tensor code.
+serves both prefill and a decode step; with ``save_states`` it also
+returns the state at the start of every BT-step chunk, from which the
+backward kernel (``selective_scan_bwd``) recomputes each chunk's states.
+``ops.selective_scan`` dispatches here for CUDA tensors (through an
+autograd function when a gradient is wanted) and to
+``ref.selective_scan`` for CPU tensors; ``scan_lanes`` is the forward
+kernel's arithmetic and ``backward_chunks`` the backward kernel's
+algorithm, in plain tensor code.
 """
 from __future__ import annotations
 
@@ -15,6 +20,9 @@ from repro_torch.kernels import _build
 
 # the d_states the kernel has an instance for
 D_STATES = (4, 8, 16, 32, 64)
+# the d_states the backward kernel has an instance for (its chunk's states
+# in shared memory: 356 KB at 64)
+BWD_D_STATES = (4, 8, 16, 32)
 # csrc/selective_scan.cu: log2(e), folded into A once; channels a block,
 # time steps a chunk, chunks in flight
 LOG2E = 1.4426950408889634
@@ -38,6 +46,18 @@ def smem_bytes(ds: int) -> int:
     csrc/selective_scan.cu): a chunk's dt, dx, Bc and Cc a stage, then its
     y."""
     return 4 * (STAGES * BT * (2 * CH + 2 * ds) + BT * CH)
+
+
+def bwd_smem_bytes(ds: int) -> int:
+    """Shared memory of a backward block (``bwd::smem_floats``): a chunk's
+    dt, dx and dy, its Bc and Cc, the states before each of its steps,
+    d(dx) and d(dt), and the warps' dB and dC sums."""
+    return 4 * (3 * BT * CH + 2 * BT * ds + BT * ds * CH + 2 * BT * CH
+                + 2 * (CH * lanes(ds) // 32) * BT * ds)
+
+
+def n_chunks(T: int) -> int:
+    return -(-T // BT)
 
 
 def scan_lanes(dt, dx, A, Bc, Cc, h0=None):
@@ -68,10 +88,12 @@ def scan_lanes(dt, dx, A, Bc, Cc, h0=None):
     return y, h
 
 
-def selective_scan(dt, dx, A, Bc, Cc, h0=None):
+def selective_scan(dt, dx, A, Bc, Cc, h0=None, save_states: bool = False):
     """dt, dx: [B, T, di]; A: [di, ds]; Bc, Cc: [B, T, ds]; h0: [B, di, ds]
     or None (zeros); all float32, contiguous, on one CUDA device, with
-    ds in D_STATES -> (y [B, T, di], h_last [B, di, ds]) float32."""
+    ds in D_STATES -> (y [B, T, di], h_last [B, di, ds]) float32, and with
+    ``save_states`` also hs [B, n_chunks(T), di, ds], the state at the
+    start of each BT-step chunk (hs[:, 0] is h0)."""
     B, T, di = dt.shape
     ds = A.shape[1]
     if (dx.shape != dt.shape or A.shape != (di, ds)
@@ -92,13 +114,114 @@ def selective_scan(dt, dx, A, Bc, Cc, h0=None):
         h0 = _build.aligned(h0)
     y = torch.empty((B, T, di), dtype=torch.float32, device=dt.device)
     h_last = torch.empty((B, di, ds), dtype=torch.float32, device=dt.device)
+    hs = (torch.empty((B, n_chunks(T), di, ds), dtype=torch.float32,
+                      device=dt.device) if save_states else None)
     err = _build.load("selective_scan").selective_scan_f32(
         dt.data_ptr(), dx.data_ptr(), A.data_ptr(), Bc.data_ptr(),
         Cc.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_last.data_ptr(), B, T, di, ds, *_build.launch_args(dt))
+        h_last.data_ptr(), None if hs is None else hs.data_ptr(), B, T, di,
+        ds, *_build.launch_args(dt))
     _build.check(err, "selective_scan")
     selective_scan.launches += 1
-    return y, h_last
+    return (y, h_last, hs) if save_states else (y, h_last)
 
 
 selective_scan.launches = 0
+
+
+def selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
+                       want_dh0: bool = False):
+    """The gradients of ``selective_scan``: its inputs, hs from its
+    ``save_states``, dy [B, T, di] the gradient of y and dh_last
+    [B, di, ds] (or None: zero) that of h_last; all float32, contiguous,
+    on one CUDA device, ds in BWD_D_STATES -> (d(dt), d(dx), dA, dB, dC,
+    dh0 or None). dA, dB and dC are sums over di (and dA over B and T),
+    formed as per-block partials added in a fixed order: the same bits
+    every run."""
+    B, T, di = dt.shape
+    ds = A.shape[1]
+    if ds not in BWD_D_STATES:
+        raise ValueError(f"selective_scan_bwd: the backward kernel has "
+                         f"instances for d_state in {BWD_D_STATES}, not {ds}")
+    if (dx.shape != dt.shape or dy.shape != dt.shape or A.shape != (di, ds)
+            or Bc.shape != (B, T, ds) or Cc.shape != Bc.shape
+            or hs.shape != (B, n_chunks(T), di, ds)
+            or (dh_last is not None and dh_last.shape != (B, di, ds))):
+        raise ValueError(
+            f"selective_scan_bwd: shapes dt {tuple(dt.shape)}, dx "
+            f"{tuple(dx.shape)}, A {tuple(A.shape)}, Bc {tuple(Bc.shape)}, "
+            f"Cc {tuple(Cc.shape)}, hs {tuple(hs.shape)}, dy "
+            f"{tuple(dy.shape)}")
+    ops = (dt, dx, A, Bc, Cc, hs, dy) + (() if dh_last is None
+                                         else (dh_last,))
+    _build.require_cuda("selective_scan_bwd", *ops)
+    if any(t.dtype != torch.float32 for t in ops):
+        raise TypeError("selective_scan_bwd: the kernel takes float32 "
+                        "operands")
+    f32, dev = torch.float32, dt.device
+    nblk = -(-di // CH)
+    ddt, ddx = torch.empty_like(dt), torch.empty_like(dx)
+    dA_part = torch.empty((B, di, ds), dtype=f32, device=dev)
+    dB_part = torch.empty((B, nblk, T, ds), dtype=f32, device=dev)
+    dC_part = torch.empty_like(dB_part)
+    dA = torch.empty((di, ds), dtype=f32, device=dev)
+    dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
+    dh0 = torch.empty((B, di, ds), dtype=f32, device=dev) if want_dh0 \
+        else None
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    err = _build.load("selective_scan").selective_scan_bwd_f32(
+        *(ptr(t) for t in (dt, dx, A, Bc, Cc, hs, dy, dh_last, ddt, ddx,
+                           dA_part, dB_part, dC_part, dA, dB, dC, dh0)),
+        B, T, di, ds, *_build.launch_args(dt))
+    _build.check(err, "selective_scan_bwd")
+    selective_scan_bwd.launches += 1
+    return ddt, ddx, dA, dB, dC, dh0
+
+
+selective_scan_bwd.launches = 0
+
+
+def backward_chunks(dt, dx, A, Bc, Cc, dy, h0=None, dh_last=None):
+    """The backward kernel's algorithm in plain tensor code (the CPU tests
+    hold it against autograd of ``ref.selective_scan``): the forward keeps
+    the state at the start of each BT-step chunk; the chunks are then
+    walked last to first, each chunk's states recomputed from its start
+    with the decay exp2(dt (A log2 e)) and the adjoint
+    g_t = dy_t C_t + a_{t+1} g_{t+1} run back through it. Returns (d(dt),
+    d(dx), dA, dB, dC, dh0), dh0 None without h0."""
+    B, T, di = dt.shape
+    ds = A.shape[1]
+    f32 = torch.float32
+    dt, dx, Bc, Cc, dy = (t.to(f32) for t in (dt, dx, Bc, Cc, dy))
+    A = A.to(f32)
+    a2 = A * torch.tensor(LOG2E, dtype=f32)
+    h = (torch.zeros((B, di, ds), dtype=f32, device=dt.device)
+         if h0 is None else h0.to(f32))
+    starts = []
+    for t in range(T):
+        if t % BT == 0:
+            starts.append(h)
+        h = (torch.exp2(dt[:, t, :, None] * a2) * h
+             + dx[:, t, :, None] * Bc[:, t, None, :])
+    carry = (torch.zeros_like(h) if dh_last is None else dh_last.to(f32))
+    ddt, ddx = torch.zeros_like(dt), torch.zeros_like(dx)
+    dA = torch.zeros((B, di, ds), dtype=f32, device=dt.device)
+    dB, dC = torch.zeros_like(Bc), torch.zeros_like(Cc)
+    for c in reversed(range(len(starts))):
+        t0, t1 = c * BT, min(T, (c + 1) * BT)
+        h, prev = starts[c], []
+        for t in range(t0, t1):
+            prev.append(h)
+            h = (torch.exp2(dt[:, t, :, None] * a2) * h
+                 + dx[:, t, :, None] * Bc[:, t, None, :])
+            dC[:, t] = (dy[:, t, :, None] * h).sum(1)
+        for t in reversed(range(t0, t1)):
+            at = torch.exp2(dt[:, t, :, None] * a2)
+            g = dy[:, t, :, None] * Cc[:, t, None, :] + carry
+            ddx[:, t] = (g * Bc[:, t, None, :]).sum(-1)
+            w = g * at * prev[t - t0]
+            ddt[:, t] = (w * A).sum(-1)
+            dA = dA + w * dt[:, t, :, None]
+            dB[:, t] = (g * dx[:, t, :, None]).sum(1)
+            carry = at * g
+    return ddt, ddx, dA.sum(0), dB, dC, None if h0 is None else carry

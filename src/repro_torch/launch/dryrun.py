@@ -15,10 +15,10 @@ bytes, collective bytes by op and peak live bytes, read by
 ``analysis/roofline.py``'s H100 profile. Nothing is allocated and no
 device is needed, so the CPU and the card give the same row. The
 paper's model (``ivector-tvm``) lowers through
-``launch/ivector_cell.lower_cell``; the LM archs give 'skipped' rows until
-their train step and sharding rules are ported (ROADMAP.md Queue 1 items
-14f and 14g). Rows are cached as JSON under ``chiprun_out/dryrun/`` (or
-``--out DIR``).
+``launch/ivector_cell.lower_cell``; the LM archs give 'skipped' rows: their
+train step is ported (ROADMAP.md Queue 1 item 14f), and they lower once
+the sharding rules are (item 14g). Rows are cached as JSON under
+``chiprun_out/dryrun/`` (or ``--out DIR``).
 """
 from __future__ import annotations
 
@@ -38,9 +38,8 @@ def _lm_reason(arch: str) -> str:
     if arch not in PORTED_ARCH_IDS:
         return (f"{arch} is not ported to repro_torch (ROADMAP.md Queue 1 "
                 "item 14)")
-    return ("the LM train, prefill and decode steps lower once the train "
-            "step (ROADMAP.md Queue 1 item 14f) and the sharding rules "
-            "(item 14g) are ported")
+    return ("the LM train step is ported (ROADMAP.md Queue 1 item 14f); "
+            "its cells lower once the sharding rules (item 14g) are")
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool):

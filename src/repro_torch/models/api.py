@@ -1,14 +1,17 @@
-"""Model API of the LM side: param tables, init, cache shapes, and the
-prefill and decode steps.
+"""Model API of the LM side: param tables, init, cache shapes, the
+train state, and the train, prefill and decode steps.
 
 The port of ``repro/models/api.py`` for the families it runs: ``dense``
-decoders and the ``hybrid`` (Jamba) stack, both without experts. Other
-families raise (ROADMAP.md Queue 1 item 14). Steps are plain functions;
-there is no ``jit``.
+decoders and the ``hybrid`` (Jamba) stack, both without experts. What
+raises: the other families (``audio``, ``vlm``, ``ssm``, ``moe``:
+ROADMAP.md Queue 1 items 14c and 14d), and a config with experts
+(``cfg.moe``, item 14d). Steps are plain functions; there is no ``jit``.
+A train step takes its gradients with ``torch.autograd.grad`` over the
+param leaves; no graph outlives the step.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -17,6 +20,9 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import jamba as J
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+f32 = torch.float32
 
 PORTED_FAMILIES = ("dense", "hybrid")
 
@@ -74,6 +80,13 @@ def zero_cache(cfg: ModelConfig, shape: ShapeConfig, device) -> Dict:
             for k, (s, dt) in cache_specs(cfg, shape).items()}
 
 
+def params_struct(cfg: ModelConfig, max_seq: int = 0):
+    """{name: (shape, dtype)} of the params, nothing allocated."""
+    dt = L.param_dtype(cfg)
+    return {k: (shape, dt)
+            for k, (shape, _, _) in param_table(cfg, max_seq).items()}
+
+
 def _hidden(cfg, params, tokens, kind: str, cache=None, pos=None):
     if cfg.family == "hybrid":
         return J.forward(cfg, params, tokens, kind, cache=cache, pos=pos)
@@ -106,3 +119,89 @@ def make_decode_step(cfg: ModelConfig):
         logits = L.logits_fn(cfg, params, h)
         return cache, logits[:, 0]
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """The mean next-token cross-entropy of ``batch`` ({'tokens',
+    'labels'}: [B, S] ints) under ``params``: the training forward, then
+    ``layers.chunked_lm_loss``. (The JAX loss adds the MoE router loss,
+    which is 0 without experts.)"""
+    _require_ported(cfg)
+    h, _ = _hidden(cfg, params, batch["tokens"], "train")
+    return L.chunked_lm_loss(cfg, params, h, batch["labels"])
+
+
+def _opt_config(cfg: ModelConfig, oc: Optional[AdamWConfig]) -> AdamWConfig:
+    return oc or AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+
+
+def make_train_step(cfg: ModelConfig, oc: Optional[AdamWConfig] = None):
+    """train_step(state, batch) -> (new state, {'loss', 'grad_norm',
+    'lr'}): the loss and its gradients over the param leaves, then
+    ``adamw_update``. With ``cfg.grad_accum`` = g > 1 the batch's rows are
+    cut into g micro-batches in order, each one's grads divided by g in
+    the params' dtype and summed in ``cfg.opt_state_dtype`` (as the JAX
+    ``lax.scan`` over micro-batches), the loss averaged in f32. The state
+    given is left as it was."""
+    _require_ported(cfg)
+    oc = _opt_config(cfg, oc)
+    g = max(1, cfg.grad_accum)
+
+    def value_and_grad(params, batch):
+        names = sorted(params)
+        leaves = [params[k].detach().requires_grad_(True) for k in names]
+        loss = loss_fn(cfg, dict(zip(names, leaves)), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), dict(zip(names, grads))
+
+    def train_step(state, batch):
+        params = state["params"]
+        if g == 1:
+            loss, grads = value_and_grad(params, batch)
+        else:
+            rows = next(iter(batch.values())).shape[0]
+            if rows % g:
+                raise ValueError(f"batch of {rows} rows does not split into "
+                                 f"grad_accum = {g} micro-batches")
+            b = rows // g
+            adt = getattr(torch, cfg.opt_state_dtype)
+            grads = {k: torch.zeros(p.shape, dtype=adt, device=p.device)
+                     for k, p in params.items()}
+            loss = torch.zeros((), dtype=f32,
+                               device=next(iter(params.values())).device)
+            for i in range(g):
+                mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+                l_, gr = value_and_grad(params, mb)
+                for k, a in grads.items():   # in place: one sum alive
+                    a.add_((gr[k] / g).to(a.dtype))
+                loss = loss + l_ / g
+                del gr
+        new_params, opt, metrics = adamw_update(params, grads, state["opt"],
+                                                oc)
+        metrics["loss"] = loss
+        return {"params": new_params, "opt": opt}, metrics
+
+    return train_step
+
+
+def init_state(cfg: ModelConfig, generator: torch.Generator,
+               max_seq: int = 0, oc: Optional[AdamWConfig] = None,
+               device=None) -> Dict:
+    """{'params', 'opt': {'m', 'v', 'count'}}: ``init_params`` and zero
+    moments in the optimizer's moment dtype, with the JAX names."""
+    params = init_params(cfg, generator, max_seq, device=device)
+    return {"params": params, "opt": adamw_init(params, _opt_config(cfg, oc))}
+
+
+def state_struct(cfg: ModelConfig, max_seq: int = 0) -> Dict:
+    """The train state's {name: (shape, dtype)} tree, nothing allocated."""
+    ps = params_struct(cfg, max_seq)
+    mdt = getattr(torch, cfg.opt_state_dtype)
+    mom = {k: (shape, mdt) for k, (shape, _) in ps.items()}
+    return {"params": ps,
+            "opt": {"m": mom, "v": dict(mom), "count": ((), torch.int32)}}

@@ -8,13 +8,17 @@ per period slot; the port loops over periods and slots in Python.
 
 As in the JAX package, prefill returns no cache: decode starts from a
 zero cache of ``cache_struct``. A decode step writes the new k, v and
-Mamba states into the cache in place and returns the same dict.
+Mamba states into the cache in place and returns the same dict. A
+training forward with ``cfg.remat == "layer"`` recomputes each period in
+the backward pass (``torch.utils.checkpoint``, the JAX
+``jax.checkpoint(period_body)``).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba
@@ -83,18 +87,38 @@ def _decode_attention(cfg, ap, hn, kc, vc, pos: int):
     return L.decode_attention(q[:, 0], kc, vc, pos)[:, None]
 
 
+def _period(cfg, params, p: int, x, positions):
+    """Period ``p`` of a training or prefill forward: each slot's mixer
+    (attention or Mamba) and its MLP, pre-normed and added to the
+    residual."""
+    dtype = x.dtype
+    for s in range(cfg.attn_period):
+        sp = _layer(params, f"period/s{s}/", p)
+        hn = L.norm(cfg, sp, "ln_mix", x)
+        if _slot_is_attn(cfg, s):
+            ap = _sub(sp, "attn/")
+            q, k, v = L.qkv_proj(cfg, ap, hn, positions)
+            mix = L.out_proj(ap, L.blockwise_causal_attention(q, k, v))
+        else:
+            mix, _ = mamba.mamba_mix(cfg, _sub(sp, "mamba/"), hn)
+        x = x + mix.to(dtype)
+        x = x + L.mlp(cfg, _sub(sp, "mlp/"),
+                      L.norm(cfg, sp, "ln_ffn", x)).to(dtype)
+    return x
+
+
 def forward(cfg, params, tokens, kind: str, cache=None, pos=None):
-    """kind='prefill': tokens [B, T]; 'decode': tokens [B] at ``pos``.
+    """kind='train' or 'prefill': tokens [B, T]; 'decode': tokens [B] at
+    ``pos``.
 
     cache (decode): {'k','v': [np,B,S,KVH,hd], 'conv': [np,7,B,dc-1,di],
     'h': [np,7,B,di,ds]}, updated in place. Returns (hidden, cache), the
-    cache None after prefill. (The JAX forward also returns the MoE router
-    loss, which is 0 without experts.)
+    cache None after train and prefill. (The JAX forward also returns the
+    MoE router loss, which is 0 without experts.)
     """
     _require_dense(cfg)
-    if kind not in ("prefill", "decode"):
-        raise NotImplementedError(f"kind {kind!r}: the port runs prefill "
-                                  "and decode only")
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"kind {kind!r}: 'train', 'prefill' or 'decode'")
     dtype = L.cfg_dtype(cfg)
     decode = kind == "decode"
     x = params["embed"][tokens].to(dtype)
@@ -102,6 +126,15 @@ def forward(cfg, params, tokens, kind: str, cache=None, pos=None):
         x = x[:, None]                                 # [B, 1, d]
     positions = (None if decode
                  else torch.arange(x.shape[1], device=x.device))
+    if not decode:
+        remat = kind == "train" and cfg.remat == "layer"
+        for p in range(n_periods(cfg)):
+            if remat:
+                x = checkpoint(_period, cfg, params, p, x, positions,
+                               use_reentrant=False)
+            else:
+                x = _period(cfg, params, p, x, positions)
+        return L.norm(cfg, params, "ln_final", x), None
     for p in range(n_periods(cfg)):
         mi = 0
         for s in range(cfg.attn_period):
@@ -109,27 +142,19 @@ def forward(cfg, params, tokens, kind: str, cache=None, pos=None):
             hn = L.norm(cfg, sp, "ln_mix", x)
             if _slot_is_attn(cfg, s):
                 ap = _sub(sp, "attn/")
-                if decode:
-                    o = _decode_attention(cfg, ap, hn, cache["k"][p],
-                                          cache["v"][p], pos)
-                else:
-                    q, k, v = L.qkv_proj(cfg, ap, hn, positions)
-                    o = L.blockwise_causal_attention(q, k, v)
-                mix = L.out_proj(ap, o)
+                mix = L.out_proj(ap, _decode_attention(
+                    cfg, ap, hn, cache["k"][p], cache["v"][p], pos))
             else:
-                state = ((cache["conv"][p, mi], cache["h"][p, mi])
-                         if decode else None)
+                state = (cache["conv"][p, mi], cache["h"][p, mi])
                 mix, (conv2, h2) = mamba.mamba_mix(cfg, _sub(sp, "mamba/"),
                                                    hn, state)
-                if decode:
-                    cache["conv"][p, mi] = conv2.to(cache["conv"].dtype)
-                    cache["h"][p, mi] = h2.to(cache["h"].dtype)
+                cache["conv"][p, mi] = conv2.to(cache["conv"].dtype)
+                cache["h"][p, mi] = h2.to(cache["h"].dtype)
                 mi += 1
             x = x + mix.to(dtype)
             hn = L.norm(cfg, sp, "ln_ffn", x)
             x = x + L.mlp(cfg, _sub(sp, "mlp/"), hn).to(dtype)
-    x = L.norm(cfg, params, "ln_final", x)
-    return x, cache if decode else None
+    return L.norm(cfg, params, "ln_final", x), cache
 
 
 def cache_struct(cfg, batch: int, seq: int, dtype):

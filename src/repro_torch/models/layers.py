@@ -8,9 +8,14 @@ output (``preferred_element_type=f32``), the port widens both operands to
 f32 first: bf16 widens exactly and its products are exact in f32, so the
 result is the same function.
 
+The training loss (``softmax_xent``, ``chunked_lm_loss``) is ported; each
+sequence chunk of the loss is recomputed in the backward pass
+(``torch.utils.checkpoint``), as the JAX ``lax.scan`` over
+``jax.checkpoint``-ed chunks does.
+
 Not ported yet: ``ring_attention``/``use_ring_attention`` and
-``_attn_block_size`` (mesh), ``full_attention`` (whisper),
-``chunked_lm_loss``/``softmax_xent`` (training).
+``_attn_block_size`` (mesh; ROADMAP.md Queue 1 item 14g),
+``full_attention`` (whisper; item 14c).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -269,6 +275,73 @@ def logits_fn(cfg, params, x):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     logits = _f32_dot(x, w.to(x.dtype))
     return logits[..., :cfg.vocab_size]
+
+
+def _label_select(shifted, labels):
+    """Each row's ``shifted`` logit at its label, in the JAX comparison
+    form (iota == label, then a sum over the vocab): no gather, whose
+    backward would be a float scatter-add."""
+    V = shifted.shape[-1]
+    iota = torch.arange(V, device=shifted.device, dtype=labels.dtype)
+    return torch.where(iota == labels[..., None], shifted, 0.0).sum(-1)
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Sharded-vocab-safe cross-entropy: no gather over the vocab dim.
+
+    logits: [B, S, V] f32; labels: [B, S] int; mask: [B, S] (1 = count).
+    """
+    lmax = logits.amax(-1, keepdim=True).detach()
+    shifted = logits - lmax
+    lse = torch.log(torch.exp(shifted).sum(-1)) + lmax[..., 0]
+    nll = lse - (_label_select(shifted, labels) + lmax[..., 0])
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(f32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _chunk_nll(cfg, xc, w, lc, mc):
+    """One sequence chunk of ``chunked_lm_loss``: its logits (padded vocab
+    columns at -1e30), then (masked NLL sum, token count)."""
+    logits = _f32_dot(xc, w)
+    V = logits.shape[-1]
+    if V != cfg.vocab_size:                   # mask padded vocab columns
+        pad = torch.arange(V, device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad, _NEG, logits)
+    lmax = logits.amax(-1, keepdim=True).detach()
+    shifted = logits - lmax
+    lse = torch.log(torch.exp(shifted).sum(-1)) + lmax[..., 0]
+    nll = lse - (_label_select(shifted, lc) + lmax[..., 0])
+    mc = mc.to(f32)
+    return (nll * mc).sum(), mc.sum()
+
+
+def chunked_lm_loss(cfg, params, x, labels, mask=None, chunk=512):
+    """LM cross-entropy without materializing [B, S, V] logits.
+
+    Sequence chunks of ``chunk`` (all of S where S is not a multiple of
+    it); each chunk computes its logits, its masked NLL sum and token
+    count, then frees the logits, and is recomputed in the backward pass
+    (``checkpoint``), so the backward too never holds more than one
+    chunk of [B, chunk, V] f32 logits.
+    """
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    if S % chunk != 0:
+        chunk = S  # fallback: single chunk
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    w = w.to(x.dtype)
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=f32, device=x.device)
+    tot = torch.zeros((), dtype=f32, device=x.device)
+    cnt = torch.zeros((), dtype=f32, device=x.device)
+    for c0 in range(0, S, chunk):
+        t, n = checkpoint(_chunk_nll, cfg, x[:, c0:c0 + chunk], w,
+                          labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk],
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def cfg_dtype(cfg) -> torch.dtype:

@@ -1,0 +1,92 @@
+"""AdamW with configurable moment dtypes, global-norm clipping and a
+linear-warmup / cosine schedule: the port of ``repro/optim/adamw.py``.
+
+Trees are flat ``{name: tensor}`` dicts (the LM params); the arithmetic
+is f32 throughout, params cast back to their dtype and moments to the
+moment dtype, as in the JAX package. The update is plain tensor code (it
+is jnp there, not a kernel) and returns new tensors: the state it was
+given is left as it was.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict
+
+import torch
+
+f32 = torch.float32
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    moment_dtype: str = "float32"
+
+
+def adamw_init(params: Dict[str, torch.Tensor], oc: AdamWConfig) -> Dict:
+    """Zero moments in ``oc.moment_dtype`` and an int32 step count, on the
+    params' device."""
+    dt = getattr(torch, oc.moment_dtype)
+
+    def zeros():
+        return {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+                for k, p in params.items()}
+    dev = next(iter(params.values())).device
+    return {"m": zeros(), "v": zeros(),
+            "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares, in f32, the leaves
+    in sorted-name order (``jax.tree.leaves``' order)."""
+    tot = None
+    for k in sorted(tree):
+        s = torch.sum(torch.square(tree[k].to(f32)))
+        tot = s if tot is None else tot + s
+    return torch.sqrt(tot)
+
+
+def _schedule(oc: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up over ``warmup_steps``, then cosine from ``lr`` to a
+    tenth of it at ``total_steps``; f32."""
+    step = step.to(f32)
+    warm = torch.clamp(step / max(oc.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - oc.warmup_steps)
+                       / max(oc.total_steps - oc.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    return oc.lr * warm * (0.1 + 0.9 * cos)
+
+
+def adamw_update(params: Dict[str, torch.Tensor],
+                 grads: Dict[str, torch.Tensor], opt_state: Dict,
+                 oc: AdamWConfig):
+    """Returns (new_params, new_opt_state, metrics {grad_norm, lr})."""
+    count = opt_state["count"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(oc.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    lr = _schedule(oc, count)
+    c1 = 1.0 - torch.pow(torch.tensor(oc.b1, dtype=f32,
+                                      device=count.device), count.to(f32))
+    c2 = 1.0 - torch.pow(torch.tensor(oc.b2, dtype=f32,
+                                      device=count.device), count.to(f32))
+    new_p, new_m, new_v = {}, {}, {}
+    for k in sorted(params):
+        p, m, v = params[k], opt_state["m"][k], opt_state["v"][k]
+        g = grads[k].to(f32) * scale
+        m2 = oc.b1 * m.to(f32) + (1 - oc.b1) * g
+        v2 = oc.b2 * v.to(f32) + (1 - oc.b2) * torch.square(g)
+        step_ = (m2 / c1) / (torch.sqrt(v2 / c2) + oc.eps)
+        p32 = p.to(f32)
+        new_p[k] = (p32 - lr * (step_ + oc.weight_decay * p32)).to(p.dtype)
+        new_m[k], new_v[k] = m2.to(m.dtype), v2.to(v.dtype)
+    return (new_p, {"m": new_m, "v": new_v, "count": count},
+            {"grad_norm": gnorm, "lr": lr})

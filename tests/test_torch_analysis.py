@@ -40,6 +40,10 @@ from repro_torch.launch import ivector_cell as IC  # noqa: E402
 
 SEVEN = ("bw_stats", "flash_attention", "gmm_align", "gmm_loglik",
          "gmm_rescore", "selective_scan", "tvm_estep")
+# the port's own kernels: the derivatives of two of the seven, which the
+# TPU side left to jnp autodiff -> the TPU kernel each differentiates
+BACKWARD = {"flash_attention_bwd": "flash_attention",
+            "selective_scan_bwd": "selective_scan"}
 
 # PERF.md §6's rows at the main paths' shapes -> (registry kernel, config,
 # printed bound ms, bound by)
@@ -74,6 +78,13 @@ PERF_ROWS = {
                         "operations"),
     "selective_scan": ("selective_scan", {"B": 4, "T": 2048, "di": 8192,
                                           "ds": 16}, "0.241", "bytes"),
+    # the backward kernels at a Jamba micro-batch's training shapes
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            {"B": 1, "S": 4096, "H": 32, "KVH": 8, "hd": 128,
+                             "dtype": "bfloat16"}, "0.347", "operations"),
+    "selective_scan_bwd": ("selective_scan_bwd", {"B": 1, "T": 4096,
+                                                  "di": 8192, "ds": 16},
+                           "0.241", "bytes"),
 }
 
 # every (C, D, K) gmm_align.geometry meets in tests/test_torch_*.py: the
@@ -87,10 +98,15 @@ ALIGN_SHAPES = ((2048, 72, 20), (2048, 72, 40), (2048, 72, 2048),
 
 
 def test_registry_has_the_seven_kernels():
-    assert tuple(s.name for s in registry.all_specs()) == SEVEN
+    """The seven TPU kernels' counterparts, plus the two backward kernels,
+    each naming the TPU kernel it is the derivative of."""
+    assert tuple(s.name for s in registry.all_specs()) == tuple(
+        sorted(SEVEN + tuple(BACKWARD)))
     for spec in registry.all_specs():
         assert spec.path.exists(), spec.path
         assert spec.replaces.startswith("src/repro/kernels/")
+    for bwd, fwd in BACKWARD.items():
+        assert registry.get(bwd).replaces == registry.get(fwd).replaces
 
 
 @pytest.mark.parametrize("row", sorted(PERF_ROWS))

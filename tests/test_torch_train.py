@@ -1,6 +1,9 @@
-"""Parity of the PyTorch port's training path (``ubm.train_ubm``,
-``trainer.train`` in both of its branches, ``trainer.extract``) with the JAX
-package, on the CPU.
+"""Parity of the PyTorch port's training paths with the JAX package, on the
+CPU: the i-vector trainer (``ubm.train_ubm``, ``trainer.train`` in both of
+its branches, ``trainer.extract``), then LM training (the second half of
+this file: the token pipeline, AdamW, the chunked loss, ``loss_fn``,
+``make_train_step``, the supervised launcher and LM train checkpoints; its
+tolerances are stated there).
 
 Both packages start from the same initial values: the port's random
 initialisations (``ubm.init_diag_from_data``, ``tvm.init_model``) draw from
@@ -20,6 +23,8 @@ another order, through three EM iterations of solves and Cholesky
 factors), 1e-2 with bf16 E-step inputs. ``extract`` on the same model is
 compared directly, to 1e-4.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -265,3 +270,621 @@ def test_training_entry_points_default_to_cuda(monkeypatch, data):
                        tubm.covs, R, "augmented"), tubm)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TTR.extract(tcfg, state, x)
+
+
+# ---------------------------------------------------------------------------
+# LM training: repro_torch.{data.tokens, optim, models.api, launch.train}
+# ---------------------------------------------------------------------------
+#
+# Inputs come from numpy seeds and the JAX pipeline (bitwise the port's);
+# JAX-drawn train states are carried across with
+# ``convert.lm_state_from_numpy``. Tolerances:
+#   * LM_TOL (1e-5 x max|value|): the same f32 function of the same inputs,
+#     summed in another order: the loss, and every param leaf's gradient
+#     through two (StableLM) or eight (Jamba) SMOKE layers, where the JAX
+#     attention is blockwise and its scan chunked-associative, the port's
+#     plain and sequential (read: 2e-6);
+#   * OPT_TOL (1e-6 relative): one AdamW update of the same f32 inputs (f32
+#     pow, sqrt and divisions, fused differently by XLA and torch);
+#   * after train steps, params within ADAM_R * 2 * sum_t lr_t: at steps 1
+#     and 2 an update's direction m^/(sqrt(v^) + eps) has |.| <= 1.0004
+#     (ADAM_R; Cauchy-Schwarz on the moments' weights, b1 = 0.9, b2 = 0.95),
+#     so an element whose gradient is ~0 in both packages may move by up to
+#     that much in opposite directions; the moments, which carry the
+#     gradients, are held to LM_TOL.
+
+from repro.checkpoint import restore as j_restore  # noqa: E402
+from repro.checkpoint import save as j_save  # noqa: E402
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.data.tokens import TokenPipeline as JPipe  # noqa: E402
+from repro.data.tokens import TokenPipelineConfig as JPipeCfg  # noqa: E402
+from repro.models import api as japi  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro.optim import AdamWConfig as JAdamW  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager as TCkpt  # noqa: E402
+from repro_torch.checkpoint import restore as t_restore  # noqa: E402
+from repro_torch.checkpoint import save as t_save  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.data.tokens import TokenPipeline as TPipe  # noqa: E402
+from repro_torch.data.tokens import TokenPipelineConfig as TPipeCfg  # noqa: E402
+from repro_torch.distributed.fault_tolerance import (  # noqa: E402
+    run_supervised)
+from repro_torch.kernels import flash_attention as TFA  # noqa: E402
+from repro_torch.kernels import ref as TREF  # noqa: E402
+from repro_torch.kernels import selective_scan as TSS  # noqa: E402
+from repro_torch.launch import train as TLAUNCH  # noqa: E402
+from repro_torch.models import api as tapi  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.optim import AdamWConfig as TAdamW  # noqa: E402
+from repro_torch.optim import adamw as tadamw  # noqa: E402
+
+LM_TOL = 1e-5
+OPT_TOL = 1e-6
+ADAM_R = 1.0004
+STABLELM, JAMBA = "stablelm-1.6b", "jamba-v0.1-52b"
+LM_SEQ, LM_BATCH = 32, 4
+
+
+def _lm_cfgs(arch, **kw):
+    """The f32 SMOKE config of ``arch`` in both packages, without experts."""
+    jc, tc = j_get_config(arch, smoke=True), t_get_config(arch, smoke=True)
+    if jc.moe is not None:
+        kw = {"moe": None, **kw}
+    return jc.with_overrides(**kw), tc.with_overrides(**kw)
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _lm_close(got, want, tol=LM_TOL):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= tol * max(np.abs(want).max(), 1e-30), err
+
+
+def _batches(vocab, n, seq=LM_SEQ, batch=LM_BATCH, **kw):
+    pipe = JPipe(JPipeCfg(vocab_size=vocab, seq_len=seq, global_batch=batch,
+                          **kw))
+    return [pipe.next() for _ in range(n)]
+
+
+def _t_batch(b):
+    return {k: torch.as_tensor(v) for k, v in b.items()}
+
+
+@pytest.fixture(scope="module")
+def lm_jax_states():
+    """arch -> the JAX init_state (numpy) of its f32 SMOKE config."""
+    out = {}
+    for i, arch in enumerate((STABLELM, JAMBA)):
+        jc, _ = _lm_cfgs(arch)
+        out[arch] = _np_tree(japi.init_state(jc, jax.random.PRNGKey(10 + i)))
+    return out
+
+
+@pytest.mark.parametrize("seed,step,shard,n_shards,kw", [
+    (0, 0, 0, 1, {}),
+    (3, 17, 1, 2, {"noise": 0.2, "active_vocab": 64}),
+    (7, 5, 3, 4, {"noise": 0.0}),
+])
+def test_token_pipeline_bitwise_jax(seed, step, shard, n_shards, kw):
+    jcfg = JPipeCfg(vocab_size=97, seq_len=32, global_batch=8, seed=seed,
+                    **kw)
+    tcfg = TPipeCfg(vocab_size=97, seq_len=32, global_batch=8, seed=seed,
+                    **kw)
+    jb = JPipe(jcfg, shard, n_shards).batch_at(step)
+    tb = TPipe(tcfg, shard, n_shards).batch_at(step)
+    for k in ("tokens", "labels"):
+        assert tb[k].dtype == jb[k].dtype
+        np.testing.assert_array_equal(tb[k], jb[k])
+
+
+def test_token_pipeline_deterministic_and_resumable():
+    """The port of tests/test_substrate.py's pipeline test."""
+    cfg = TPipeCfg(vocab_size=97, seq_len=32, global_batch=8)
+    p1 = TPipe(cfg)
+    batches = [p1.next() for _ in range(5)]
+    p2 = TPipe(cfg)
+    p2.restore({"step": 2})
+    np.testing.assert_array_equal(p2.next()["tokens"], batches[2]["tokens"])
+    assert p2.state() == {"step": 3}
+    pa, pb = TPipe(cfg, shard=0, n_shards=2), TPipe(cfg, shard=1, n_shards=2)
+    assert pa.next()["tokens"].shape[0] == 4
+    assert not np.array_equal(pa.batch_at(0)["tokens"],
+                              pb.batch_at(0)["tokens"])
+    b = batches[0]
+    np.testing.assert_array_equal(b["tokens"][:, 1:], b["labels"][:, :-1])
+
+
+def test_schedule_and_global_norm_match_jax():
+    oc_j, oc_t = JAdamW(), TAdamW()
+    steps = np.array([0, 1, 2, 50, 100, 101, 5000, 9999, 10000, 20000],
+                     np.int32)
+    for s in steps:
+        want = float(jadamw._schedule(oc_j, jnp.asarray(s)))
+        got = float(tadamw._schedule(oc_t, torch.tensor(int(s),
+                                                        dtype=torch.int32)))
+        assert abs(got - want) <= OPT_TOL * max(abs(want), 1e-12), (s, got,
+                                                                    want)
+    rng = np.random.default_rng(0)
+    tree = {"a": rng.standard_normal((3, 5)).astype(np.float32),
+            "b/c": rng.standard_normal((7,)).astype(np.float32),
+            "z": rng.standard_normal((2, 2, 2)).astype(np.float32)}
+    want = float(jadamw.global_norm({k: jnp.asarray(v)
+                                     for k, v in tree.items()}))
+    got = float(tadamw.global_norm({k: torch.as_tensor(v)
+                                    for k, v in tree.items()}))
+    assert abs(got - want) <= OPT_TOL * want
+
+
+@pytest.mark.parametrize("pdtype,mdtype,count", [
+    ("float32", "float32", 0), ("float32", "float32", 150),
+    ("bfloat16", "bfloat16", 3)])
+def test_adamw_update_matches_jax(pdtype, mdtype, count):
+    """One update from the same params, grads and moments. bf16 params and
+    moments are held to one bf16 ulp (2^-7 relative): their f32 values
+    agree to OPT_TOL, and the cast may round either side of a tie."""
+    rng = np.random.default_rng(count)
+    shapes = {"embed": (16, 8), "layer/w": (2, 8, 4), "s": (8,)}
+    p = {k: 0.02 * rng.standard_normal(s).astype(np.float32)
+         for k, s in shapes.items()}
+    g = {k: rng.standard_normal(s).astype(np.float32)
+         for k, s in shapes.items()}
+    g["s"][:3] = 0.0
+    m = {k: 0.1 * rng.standard_normal(s).astype(np.float32)
+         for k, s in shapes.items()}
+    v = {k: 0.01 * rng.random(s).astype(np.float32)
+         for k, s in shapes.items()}
+    jdt, tdt = jnp.dtype(pdtype), getattr(torch, pdtype)
+    jm, tm = jnp.dtype(mdtype), getattr(torch, mdtype)
+    oc_j = JAdamW(moment_dtype=mdtype)
+    oc_t = TAdamW(moment_dtype=mdtype)
+    jp, jo, jmet = jadamw.adamw_update(
+        {k: jnp.asarray(a).astype(jdt) for k, a in p.items()},
+        {k: jnp.asarray(a).astype(jdt) for k, a in g.items()},
+        {"m": {k: jnp.asarray(a).astype(jm) for k, a in m.items()},
+         "v": {k: jnp.asarray(a).astype(jm) for k, a in v.items()},
+         "count": jnp.asarray(count, jnp.int32)}, oc_j)
+    tp, to, tmet = tadamw.adamw_update(
+        {k: torch.as_tensor(a).to(tdt) for k, a in p.items()},
+        {k: torch.as_tensor(a).to(tdt) for k, a in g.items()},
+        {"m": {k: torch.as_tensor(a).to(tm) for k, a in m.items()},
+         "v": {k: torch.as_tensor(a).to(tm) for k, a in v.items()},
+         "count": torch.tensor(count, dtype=torch.int32)}, oc_t)
+    assert int(to["count"]) == int(jo["count"]) == count + 1
+    assert to["count"].dtype == torch.int32
+    for k in ("grad_norm", "lr"):
+        assert abs(float(tmet[k]) - float(jmet[k])) <= OPT_TOL * abs(
+            float(jmet[k]))
+    tol = 2.0 ** -7 if pdtype == "bfloat16" else OPT_TOL
+    for got, want in [(tp[k], jp[k]) for k in shapes] + [
+            (to[w][k], jo[w][k]) for w in ("m", "v") for k in shapes]:
+        assert got.dtype == getattr(torch, str(want.dtype))
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                   atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_softmax_xent_matches_jax(with_mask):
+    rng = np.random.default_rng(1)
+    logits = (3 * rng.standard_normal((2, 5, 33))).astype(np.float32)
+    labels = rng.integers(0, 33, (2, 5)).astype(np.int32)
+    mask = (rng.random((2, 5)) < 0.6).astype(np.float32) if with_mask \
+        else None
+    want = JL.softmax_xent(jnp.asarray(logits), jnp.asarray(labels),
+                           None if mask is None else jnp.asarray(mask))
+    got = TL.softmax_xent(torch.as_tensor(logits), torch.as_tensor(labels),
+                          None if mask is None else torch.as_tensor(mask))
+    _lm_close(got, want)
+
+
+@pytest.mark.parametrize("S,chunk,vocab,tie,with_mask", [
+    (64, 32, 500, False, True),     # two chunks; vocab padded 500 -> 512
+    (48, 32, 512, False, False),    # 48 % 32: the single-chunk fallback
+    (32, 512, 300, True, True),     # chunk > S; tied embeddings, padded
+])
+def test_chunked_lm_loss_and_grads_match_jax(S, chunk, vocab, tie,
+                                             with_mask):
+    jc, tc = _lm_cfgs(STABLELM, vocab_size=vocab, tie_embeddings=tie)
+    rng = np.random.default_rng(S + vocab)
+    B, D, Vp = 2, jc.d_model, TL.padded_vocab(vocab)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    w = 0.05 * rng.standard_normal((Vp, D) if tie else (D, Vp)
+                                   ).astype(np.float32)
+    name = "embed" if tie else "unembed"
+    labels = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    mask = (rng.random((B, S)) < 0.7).astype(np.float32) if with_mask \
+        else None
+
+    def jloss(xx, ww):
+        return JL.chunked_lm_loss(jc, {name: ww}, xx, jnp.asarray(labels),
+                                  None if mask is None else jnp.asarray(mask),
+                                  chunk=chunk)
+    jl, (jgx, jgw) = jax.value_and_grad(jloss, argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    tx, tw = (torch.tensor(a, requires_grad=True) for a in (x, w))
+    tl = TL.chunked_lm_loss(tc, {name: tw}, tx, torch.as_tensor(labels),
+                            None if mask is None else torch.as_tensor(mask),
+                            chunk=chunk)
+    gx, gw = torch.autograd.grad(tl, (tx, tw))
+    _lm_close(tl, jl)
+    _lm_close(gx, jgx)
+    _lm_close(gw, jgw)
+
+
+@pytest.mark.parametrize("arch", [STABLELM, JAMBA])
+def test_loss_and_grads_match_jax(lm_jax_states, arch):
+    """``loss_fn`` and the gradient of every param leaf against
+    ``jax.value_and_grad`` of the JAX ``loss_fn``, from the same state and
+    batch."""
+    jc, tc = _lm_cfgs(arch)
+    params = lm_jax_states[arch]["params"]
+    batch = _batches(jc.vocab_size, 1)[0]
+    jl, jg = jax.value_and_grad(lambda p, b: japi.loss_fn(jc, p, b))(
+        {k: jnp.asarray(v) for k, v in params.items()},
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    tp = convert.lm_params_from_numpy(params, "float32", "cpu")
+    names = sorted(tp)
+    leaves = [tp[k].requires_grad_() for k in names]
+    tl = tapi.loss_fn(tc, dict(zip(names, leaves)), _t_batch(batch))
+    tg = torch.autograd.grad(tl, leaves)
+    _lm_close(tl, jl)
+    assert set(names) == set(jg)
+    for k, g in zip(names, tg):
+        _lm_close(g, jg[k])
+
+
+@pytest.mark.parametrize("arch,accum", [(STABLELM, 1), (JAMBA, 1),
+                                        (STABLELM, 2)])
+def test_two_train_steps_match_jax(lm_jax_states, arch, accum):
+    """Two ``make_train_step`` steps (default AdamW) from the same state and
+    batches: losses, grad norms and lr to LM_TOL, the moments to LM_TOL,
+    the params within the sign-flip bound (module comment)."""
+    jc, tc = _lm_cfgs(arch, grad_accum=accum)
+    state = lm_jax_states[arch]
+    jstep = jax.jit(japi.make_train_step(jc))
+    tstep = tapi.make_train_step(tc)
+    js = jax.tree.map(jnp.asarray, state)
+    ts = convert.lm_state_from_numpy(state, "float32", "cpu")
+    lrs = []
+    for b in _batches(jc.vocab_size, 2):
+        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in b.items()})
+        ts, tm = tstep(ts, _t_batch(b))
+        for k in ("loss", "grad_norm", "lr"):
+            _lm_close(tm[k], jm[k])
+        lrs.append(float(jm["lr"]))
+    assert int(ts["opt"]["count"]) == int(js["opt"]["count"]) == 2
+    bound = ADAM_R * 2 * sum(lrs)
+    for k, p in ts["params"].items():
+        want = np.asarray(js["params"][k])
+        assert p.dtype == torch.float32 and p.shape == want.shape
+        assert np.abs(p.numpy() - want).max() <= bound + 1e-7, k
+        for w in ("m", "v"):
+            _lm_close(ts["opt"][w][k], js["opt"][w][k])
+
+
+@pytest.mark.parametrize("arch", [STABLELM, JAMBA])
+def test_remat_on_and_off_give_the_same_bits(lm_jax_states, arch):
+    """Recomputing each layer (or period) in the backward pass changes
+    what is kept, not what is computed: the loss and every gradient are
+    bitwise the same with remat on and off."""
+    grads = []
+    for remat in ("layer", "nothing"):
+        _, tc = _lm_cfgs(arch, remat=remat)
+        tp = convert.lm_params_from_numpy(lm_jax_states[arch]["params"],
+                                          "float32", "cpu")
+        names = sorted(tp)
+        leaves = [tp[k].requires_grad_() for k in names]
+        loss = tapi.loss_fn(tc, dict(zip(names, leaves)),
+                            _t_batch(_batches(tc.vocab_size, 1)[0]))
+        grads.append([loss.detach()] + list(torch.autograd.grad(loss,
+                                                                leaves)))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,S,H,KVH,hd,block", [
+    (2, 37, 4, 2, 16, 8), (1, 70, 6, 3, 32, 16), (1, 64, 2, 2, 16, 64)])
+def test_attention_backward_blocks_match_autograd(B, S, H, KVH, hd, block):
+    """``flash_attention.lse_blocks`` and ``backward_blocks`` (the forward's
+    log-sum-exp and the backward kernels' tile walk, ragged S included)
+    against autograd of the plain attention, to LM_TOL."""
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.tensor(rng.standard_normal((B, S, n, hd)).astype(
+        np.float32), requires_grad=True) for n in (H, KVH, KVH))
+    o = TREF.flash_attention(q, k, v)
+    do = torch.as_tensor(rng.standard_normal(o.shape).astype(np.float32))
+    want = torch.autograd.grad(o, (q, k, v), do)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.detach(),
+                     k.detach().repeat_interleave(H // KVH, 2)) * hd ** -0.5
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -1e30)
+    lse = TFA.lse_blocks(q.detach(), k.detach(), block)
+    _lm_close(lse, torch.logsumexp(s, -1))
+    got = TFA.backward_blocks(q.detach(), k.detach(), v.detach(),
+                              o.detach(), lse, do, block)
+    for a, b in zip(got, want):
+        _lm_close(a, b)
+
+
+@pytest.mark.parametrize("B,T,di,ds,with_h0,with_dh", [
+    (2, 37, 5, 4, False, False), (1, 50, 3, 8, True, True),
+    (1, 16, 4, 16, True, False)])
+def test_scan_backward_chunks_match_autograd(B, T, di, ds, with_h0,
+                                             with_dh):
+    """``selective_scan.backward_chunks`` (the backward kernel's walk: chunk
+    start states kept, chunks recomputed last to first) against autograd
+    of the plain scan, to LM_TOL."""
+    rng = np.random.default_rng(T)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    dt = torch.nn.functional.softplus(torch.as_tensor(f(B, T, di)) - 1)
+    ins = [dt, torch.as_tensor(f(B, T, di)),
+           -torch.exp(torch.as_tensor(f(di, ds))),
+           torch.as_tensor(f(B, T, ds)), torch.as_tensor(f(B, T, ds))]
+    if with_h0:
+        ins.append(torch.as_tensor(f(B, di, ds)))
+    ins = [t.requires_grad_() for t in ins]
+    y, h_last = TREF.selective_scan(*ins[:5], ins[5] if with_h0 else None)
+    dy = torch.as_tensor(f(B, T, di))
+    dh = torch.as_tensor(f(B, di, ds)) if with_dh else None
+    want = torch.autograd.grad([y] + ([h_last] if with_dh else []), ins,
+                               [dy] + ([dh] if with_dh else []))
+    got = TSS.backward_chunks(*(t.detach() for t in ins[:5]), dy,
+                              ins[5].detach() if with_h0 else None, dh)
+    assert (got[5] is None) == (not with_h0)
+    for a, b in zip(got, want):
+        _lm_close(a, b)
+
+
+def _sup_run(cfg, pipe_cfg, ckpt_dir, fail_at=None):
+    step = tapi.make_train_step(cfg)
+    init = lambda: tapi.init_state(  # noqa: E731
+        cfg, torch.Generator().manual_seed(7), device="cpu")
+    ck = TCkpt(ckpt_dir, save_interval=2, device="cpu")
+    rep = run_supervised(init_state_fn=init, train_step_fn=step,
+                         data_factory=lambda: TPipe(pipe_cfg), n_steps=6,
+                         ckpt=ck, fail_at=fail_at, device="cpu")
+    state, at, _ = ck.restore_latest(init())
+    return rep, state, at
+
+
+def test_restart_bitexact_after_failure(tmp_path):
+    """The port of tests/test_substrate.py's test: training with a failure
+    at step 4 and a restart from the step-4 checkpoint ends bitwise at the
+    uninterrupted run's state."""
+    _, cfg = _lm_cfgs(STABLELM)
+    pipe_cfg = TPipeCfg(vocab_size=cfg.vocab_size, seq_len=32,
+                        global_batch=4)
+    state = tapi.init_state(cfg, torch.Generator().manual_seed(7),
+                            device="cpu")
+    step = tapi.make_train_step(cfg)
+    pipe = TPipe(pipe_cfg)
+    for _ in range(6):
+        state, _ = step(state, _t_batch(pipe.next()))
+    rep, got, at = _sup_run(cfg, pipe_cfg, tmp_path / "a",
+                            fail_at=lambda s, a: s == 4 and a == 0)
+    assert (rep.n_restarts, rep.final_step, at) == (1, 6, 6)
+    for w in ("params", "m", "v"):
+        ref_t = state["params"] if w == "params" else state["opt"][w]
+        got_t = got["params"] if w == "params" else got["opt"][w]
+        for k in ref_t:
+            assert torch.equal(ref_t[k], got_t[k]), (w, k)
+
+
+def test_lm_training_loss_decreases():
+    """The port of tests/test_substrate.py's test: 30 steps of StableLM
+    SMOKE on a learnable chain lower the loss by more than 0.5 nats."""
+    _, cfg = _lm_cfgs(STABLELM)
+    pipe = TPipe(TPipeCfg(vocab_size=cfg.vocab_size, seq_len=64,
+                          global_batch=8, noise=0.2, active_vocab=64))
+    state = tapi.init_state(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    step = tapi.make_train_step(cfg, TAdamW(lr=1e-3, warmup_steps=5))
+    losses = []
+    for _ in range(30):
+        state, m = step(state, _t_batch(pipe.next()))
+        losses.append(float(m["loss"]))
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.5, losses[::6]
+
+
+def test_train_main_runs_and_resumes(tmp_path, capsys):
+    """``launch.train.main`` with the JAX flags plus --device: a run of 4
+    steps, then the same command for 6 resumes at step 4 from its
+    checkpoint and ends bitwise where an uninterrupted 6-step run ends."""
+    base = ["--arch", STABLELM, "--smoke", "--device", "cpu", "--batch", "2",
+            "--seq", "16", "--ckpt-interval", "2", "--log-every", "2"]
+    r1 = TLAUNCH.main(base + ["--steps", "4", "--ckpt-dir",
+                              str(tmp_path / "a")])
+    assert (r1["final_step"], len(r1["losses"])) == (4, 4)
+    r2 = TLAUNCH.main(base + ["--steps", "6", "--ckpt-dir",
+                              str(tmp_path / "a")])
+    assert (r2["final_step"], r2["n_restarts"], len(r2["losses"])) == (6, 0,
+                                                                       2)
+    r3 = TLAUNCH.main(base + ["--steps", "6", "--ckpt-dir",
+                              str(tmp_path / "b")])
+    assert r3["losses"][4:] == r2["losses"]
+    _, cfg = _lm_cfgs(STABLELM)
+    like = tapi.init_state(t_get_config(STABLELM, smoke=True),
+                           torch.Generator().manual_seed(0), device="cpu")
+    a, _, _ = t_restore(tmp_path / "a", like, device="cpu")
+    b, _, _ = t_restore(tmp_path / "b", like, device="cpu")
+    for k in a["params"]:
+        assert torch.equal(a["params"][k], b["params"][k])
+    r4 = TLAUNCH.main(base + ["--steps", "3"])   # no checkpoints
+    assert len(r4["losses"]) == 3 and np.isfinite(r4["losses"]).all()
+    assert "first loss" in capsys.readouterr().out
+
+
+def test_train_main_refuses_what_the_port_lacks():
+    with pytest.raises(NotImplementedError, match="14d"):
+        TLAUNCH.main(["--arch", JAMBA, "--smoke", "--device", "cpu"])
+    cfg = t_get_config(STABLELM, smoke=True)
+    with pytest.raises(NotImplementedError, match="14c"):
+        TLAUNCH.check_trainable(cfg.with_overrides(family="ssm"))
+    with pytest.raises(SystemExit):
+        TLAUNCH.check_trainable(cfg.with_overrides(family="audio"))
+
+
+def _bf16_cfgs():
+    return _lm_cfgs(STABLELM, param_dtype="bfloat16")
+
+
+def test_lm_train_checkpoint_port_to_jax(tmp_path):
+    """A port save of ``init_state`` (bf16 params, f32 moments) restores in
+    ``repro.checkpoint.restore`` with equal leaves and dtypes."""
+    jc, tc = _bf16_cfgs()
+    ts = tapi.init_state(tc, torch.Generator().manual_seed(1), device="cpu")
+    ts["opt"]["count"] = torch.tensor(5, dtype=torch.int32)
+    t_save(tmp_path, 5, ts, extra={"data": {"step": 5}})
+    like = japi.init_state(jc, jax.random.PRNGKey(0))
+    got, step, extra = j_restore(tmp_path, like)
+    assert (step, extra) == (5, {"data": {"step": 5}})
+    assert int(got["opt"]["count"]) == 5
+    for k, p in ts["params"].items():
+        assert got["params"][k].dtype == jnp.bfloat16
+        np.testing.assert_array_equal(np.asarray(got["params"][k], np.float32),
+                                      p.float().numpy())
+        for w in ("m", "v"):
+            assert got["opt"][w][k].dtype == jnp.float32
+            np.testing.assert_array_equal(np.asarray(got["opt"][w][k]),
+                                          ts["opt"][w][k].numpy())
+
+
+def test_lm_train_checkpoint_jax_to_port(tmp_path):
+    """A JAX save of a train state after one step restores in the port's
+    ``restore`` with equal leaves and dtypes (bf16 included)."""
+    jc, tc = _bf16_cfgs()
+    js = japi.init_state(jc, jax.random.PRNGKey(2))
+    b = _batches(jc.vocab_size, 1)[0]
+    js, _ = japi.make_train_step(jc)(js, {k: jnp.asarray(v)
+                                          for k, v in b.items()})
+    j_save(tmp_path, 1, js)
+    like = tapi.init_state(tc, torch.Generator().manual_seed(0),
+                           device="cpu")
+    got, step, _ = t_restore(tmp_path, like, device="cpu")
+    assert step == 1 and got["opt"]["count"].dtype == torch.int32
+    assert int(got["opt"]["count"]) == 1
+    for k in js["params"]:
+        assert got["params"][k].dtype == torch.bfloat16
+        np.testing.assert_array_equal(got["params"][k].float().numpy(),
+                                      np.asarray(js["params"][k], np.float32))
+        for w in ("m", "v"):
+            np.testing.assert_array_equal(got["opt"][w][k].numpy(),
+                                          np.asarray(js["opt"][w][k]))
+
+
+@pytest.mark.parametrize("arch", [STABLELM, JAMBA])
+def test_state_struct_matches_jax(arch):
+    jc, tc = (j_get_config(arch), t_get_config(arch).with_overrides(
+        moe=None))
+    if jc.moe is not None:
+        jc = jc.with_overrides(moe=None)
+    js, ts = japi.state_struct(jc), tapi.state_struct(tc)
+    assert ts["opt"]["count"] == ((), torch.int32)
+    for part in ("params", "m", "v"):
+        jt = js["params"] if part == "params" else js["opt"][part]
+        tt = ts["params"] if part == "params" else ts["opt"][part]
+        assert set(jt) == set(tt)
+        for k, s in jt.items():
+            assert tt[k] == (tuple(s.shape), getattr(torch, str(s.dtype)))
+
+
+def test_lm_backward_wrappers_refuse_cpu_tensors():
+    """The backward wrappers launch only on the card; on the CPU autograd
+    differentiates the plain versions through ``ops``."""
+    q = torch.zeros(1, 8, 2, 16)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        TFA.flash_attention_bwd(q, q, q, q, lse, q)
+    q80 = torch.zeros(1, 8, 2, 80, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="backward instance"):
+        TFA.flash_attention_bwd(q80, q80, q80, q80, lse, q80)
+    dt = torch.zeros(1, 4, 8)
+    hs = torch.zeros(1, 1, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        TSS.selective_scan_bwd(dt, dt, torch.zeros(8, 16),
+                               torch.zeros(1, 4, 16), torch.zeros(1, 4, 16),
+                               hs, dt)
+    with pytest.raises(ValueError, match="d_state"):
+        TSS.selective_scan_bwd(dt, dt, torch.zeros(8, 64),
+                               torch.zeros(1, 4, 64), torch.zeros(1, 4, 64),
+                               torch.zeros(1, 1, 8, 64), dt)
+    assert TFA.flash_attention_bwd.launches == 0
+    assert TSS.selective_scan_bwd.launches == 0
+
+
+def test_backward_instances_are_the_cuda_ones():
+    """``BF16_HEAD_DIMS`` and ``BWD_D_STATES`` list exactly the cases the
+    backward entry points of the ``.cu`` sources dispatch."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    body = src[src.index('extern "C" int flash_attention_bwd_bf16('):]
+    assert tuple(int(n) for n in re.findall(r"case (\d+):", body)) == \
+        TFA.BF16_HEAD_DIMS
+    body = src[src.index('extern "C" int flash_attention_bwd_f32('):
+               src.index('extern "C" int flash_attention_bwd_bf16(')]
+    assert tuple(int(n) for n in re.findall(r"FAB_CASE\((\d+)\)", body)) == \
+        tuple(range(16, 257, 16))
+    src = (_build.CSRC / "selective_scan.cu").read_text()
+    body = src[src.index('extern "C" int selective_scan_bwd_f32('):]
+    assert tuple(int(n) for n in re.findall(r"SSB_CASE\((\d+)\)", body)) == \
+        TSS.BWD_D_STATES
+
+
+@pytest.mark.parametrize("arch", [STABLELM, JAMBA])
+def test_autograd_functions_glue_on_cpu(monkeypatch, lm_jax_states, arch):
+    """The card's path through ``ops`` (the autograd functions around the
+    kernels, under remat) run on the CPU: ``ops`` is told the tensors lie
+    on the card and the kernel wrappers are replaced by their plain
+    emulations (the forward with its log-sum-exps or chunk start states,
+    ``backward_blocks``, ``backward_chunks``). The loss and every gradient
+    equal the plain path's to LM_TOL."""
+    from repro_torch.kernels import ops as TOPS
+
+    def fake_fa(q, k, v, lse=False):
+        o = TREF.flash_attention(q, k, v)
+        return (o, TFA.lse_blocks(q, k)) if lse else o
+
+    def fake_ss(dt, dx, A, Bc, Cc, h0=None, save_states=False):
+        y, h_last = TREF.selective_scan(dt, dx, A, Bc, Cc, h0)
+        if not save_states:
+            return y, h_last
+        h = torch.zeros_like(h_last) if h0 is None else h0
+        starts = []
+        for t in range(dt.shape[1]):
+            if t % TSS.BT == 0:
+                starts.append(h)
+            h = (torch.exp(dt[:, t, :, None] * A) * h
+                 + dx[:, t, :, None] * Bc[:, t, None, :])
+        return y, h_last, torch.stack(starts, 1)
+
+    def fake_ss_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
+                    want_dh0=False):
+        return TSS.backward_chunks(dt, dx, A, Bc, Cc, dy,
+                                   hs[:, 0] if want_dh0 else None, dh_last)
+
+    _, tc = _lm_cfgs(arch)
+    batch = _t_batch(_batches(tc.vocab_size, 1)[0])
+    runs = []
+    for patched in (False, True):
+        if patched:
+            monkeypatch.setattr(TOPS, "_on_cuda", lambda t: True)
+            monkeypatch.setattr(TFA, "flash_attention", fake_fa)
+            monkeypatch.setattr(TFA, "flash_attention_bwd",
+                                TFA.backward_blocks)
+            monkeypatch.setattr(TSS, "selective_scan", fake_ss)
+            monkeypatch.setattr(TSS, "selective_scan_bwd", fake_ss_bwd)
+        tp = convert.lm_params_from_numpy(lm_jax_states[arch]["params"],
+                                          "float32", "cpu")
+        names = sorted(tp)
+        leaves = [tp[k].requires_grad_() for k in names]
+        loss = tapi.loss_fn(tc, dict(zip(names, leaves)), batch)
+        runs.append([loss.detach()] + list(torch.autograd.grad(loss,
+                                                               leaves)))
+    for a, b in zip(*runs):
+        _lm_close(a, b)
