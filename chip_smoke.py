@@ -3437,6 +3437,15 @@ ATT_BWD_BF16_TOL = 2.0 ** -7
 # the scan's gradients, max|diff| over max|plain|: 4096 f32 steps summed in
 # another order, and the kernel's exp2 decays (ex2.approx, ~2^-22)
 SCAN_BWD_TOL = 1e-4
+# the first versions of the backward kernels (the attention backward on
+# the CUDA cores, the scan backward walking all of T in one block): their
+# times at these shapes (PERF.md §6; H100 80GB HBM3, 700 W), the yardstick
+# the redesigned kernels are printed beside
+FIRST_BWD_MS = {"flash_attention_bwd StableLM": 10.982,
+               "flash_attention_bwd Jamba": 26.996,
+               "selective_scan_bwd": 6.699}
+# segment lengths (chunks) the scan backward is swept over at Jamba's shape
+SCAN_SEGMENTS = (4, 8, 16, 32, 64, 256)
 # SMOKE train step, card against CPU from the same state and batch: the
 # loss, grad norm and every moment leaf within SMOKE_TRAIN_TOL x max|value|
 # (f32 sums in another order through the kernels, each within 1e-4 of its
@@ -3450,15 +3459,77 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 4096
 H100_BF16_PEAK = 989e12
 
 
+def _rel_errs(got, want, label, tol):
+    """(max|diff|, max|diff| / max|plain|) over the gradients; fails when a
+    gradient is past ``tol`` of its max|plain|."""
+    err, rel = 0.0, 0.0
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        e = (a.float() - w.float()).abs().max().item()
+        r = e / w.float().abs().max().item()
+        err, rel = max(err, e), max(rel, r)
+        if r > tol:
+            fail(f"{label} {name}: max|diff| / max|plain| {r:.3e} above "
+                 f"{tol:g}")
+    return err, rel
+
+
+def check_attention_bwd_small(g, dev):
+    """The backward at small shapes that the training shapes leave out:
+    bf16 hd 192 (the CUDA-core kernel, BF16_HEAD_DIMS' third instance)
+    against autograd of the plain version, and the tensor-core kernels at
+    ragged S under GQA against their algorithm in f32 (``backward_blocks``
+    on the same bf16 o and lse, so the same Delta: what is left is the
+    kernel's one rounding of each gradient at its store, 2^-8 of it, and
+    the bf16 pairs' 2^-16), each to ATT_BWD_BF16_TOL and bitwise
+    repeatable. Their distance to autograd, which comes mostly from
+    Delta's bf16 o at small S, is printed beside it."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    recs = []
+    for B, S, H, KVH, hd in ((1, 100, 2, 1, 192), (2, 200, 4, 2, 64),
+                             (1, 333, 4, 1, 128)):
+        q, k, v, do = (torch.randn(B, S, n, hd, generator=g, device=dev)
+                       .to(torch.bfloat16) for n in (H, KVH, KVH, H))
+        o, lse = FA.flash_attention(q, k, v, lse=True)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        again = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        scope = FA.bwd_scope(torch.bfloat16, hd)
+        label = (f"flash_attention_bwd B={B} S={S} H={H} KVH={KVH} hd={hd} "
+                 f"bf16 ({scope})")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{label}: not bitwise repeatable")
+        ins = [t.float().requires_grad_() for t in (q, k, v)]
+        plain = torch.autograd.grad(ref.flash_attention(*ins), ins,
+                                    do.float())
+        tol = ATT_BWD_BF16_TOL
+        if scope == "simt":
+            err, rel = _rel_errs(got, plain, label, tol)
+            note = "against autograd of the plain version"
+        else:
+            want = FA.backward_blocks(q.float(), k.float(), v.float(),
+                                      o.float(), lse, do.float())
+            err, rel = _rel_errs(got, want, label, tol)
+            note = (f"against backward_blocks in f32; against autograd of "
+                    f"the plain version (not held) "
+                    f"{_rel_errs(got, plain, label, 1.0)[1]:.3e}")
+        print(f"  {label}: max|diff| / max|plain| {rel:.3e} {note} "
+              f"(tolerance {tol:g}), bitwise repeatable")
+        recs.append(dict(case=label, max_abs_err=err, max_rel_err=rel,
+                         tol=tol))
+    return recs
+
+
 def check_attention_bwd(g, dev):
     """flash_attention_bwd against autograd of ref.flash_attention on the
     card, bf16 and f32, at StableLM's (H = KVH = 32, hd 64) and Jamba's
     (H 32, KVH 8, hd 128) shapes, B = 1, S = 4096: a Jamba micro-batch's
-    shape on the training path is the row. Times the kernel, the plain
-    backward (autograd of the plain forward, the graph kept), SDPA's
-    backward, and the forward with and without the log-sum-exps."""
+    shape on the training path is the row. Times the kernel (beside PR
+    23's), the plain backward (autograd of the plain forward, the graph
+    kept), SDPA's backward, and the forward with and without the
+    log-sum-exps; then the small cases of check_attention_bwd_small."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
+    from repro_torch.kernels import registry
     sdpa = torch.nn.functional.scaled_dot_product_attention
     recs = []
     for label, B, S, H, KVH, hd, dtype in (
@@ -3479,25 +3550,21 @@ def check_attention_bwd(g, dev):
         dof = do.float()
         want = torch.autograd.grad(out, ins, dof, retain_graph=True)
         tol = ATT_BWD_F32_TOL if dtype == torch.float32 else ATT_BWD_BF16_TOL
-        err, rel = 0.0, 0.0
-        for name, a, w in zip(("dq", "dk", "dv"), got, want):
-            e = (a.float() - w).abs().max().item()
-            r = e / w.abs().max().item()
-            err, rel = max(err, e), max(rel, r)
-            if r > tol:
-                fail(f"flash_attention_bwd {label} {tag} {name}: max|diff| "
-                     f"/ max|plain| {r:.3e} above {tol:g}")
+        err, rel = _rel_errs(got, want, f"flash_attention_bwd {label} {tag}",
+                             tol)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
         dot = do.transpose(1, 2)
-        b_ms, b_by = bound("flash_attention_bwd", B=B, S=S, H=H, KVH=KVH,
-                           hd=hd, dtype=tag)
+        cfg = dict(B=B, S=S, H=H, KVH=KVH, hd=hd, dtype=tag)
+        b_ms, b_by = bound("flash_attention_bwd", **cfg)
+        flops = registry.get("flash_attention_bwd").cost(cfg)[0]
         rec = dict(
             case=f"{label} B={B} S={S} H={H} KVH={KVH} hd={hd} {tag}",
+            scope=FA.bwd_scope(dtype, hd),
             max_abs_err=err, max_rel_err=rel, tol=tol,
             ms=cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do),
-                       3),
+                       5),
             plain_ms=cuda_ms(lambda: torch.autograd.grad(
                 out, ins, dof, retain_graph=True), 2),
             bound_ms=b_ms, bound_by=b_by,
@@ -3506,15 +3573,24 @@ def check_attention_bwd(g, dev):
             fwd_ms=cuda_ms(lambda: FA.flash_attention(q, k, v), 5),
             fwd_lse_ms=cuda_ms(lambda: FA.flash_attention(q, k, v, lse=True),
                                5))
-        print(f"  flash_attention_bwd {rec['case']}: max|diff| / max|plain| "
-              f"{rel:.3e} (tolerance {tol:g}), bitwise repeatable; kernel "
-              f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}), SDPA backward "
-              f"{rec['library_ms']:.3f} ms; forward {rec['fwd_ms']:.4f} ms, "
-              f"with lse {rec['fwd_lse_ms']:.4f} ms")
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        rec["bound_share"] = b_ms / rec["ms"]
+        before = FIRST_BWD_MS.get(f"flash_attention_bwd {label}") \
+            if dtype == torch.bfloat16 else None
+        was = (f" (first version: {before:.3f} ms, "
+               f"{before / rec['ms']:.2f}x)" if before else "")
+        print(f"  flash_attention_bwd {rec['case']} ({rec['scope']}): "
+              f"max|diff| / max|plain| {rel:.3e} (tolerance {tol:g}), "
+              f"bitwise repeatable; kernel {rec['ms']:.3f} ms{was}, "
+              f"{rec['tflops']:.1f} TFLOP/s of the bound's "
+              f"{flops / 1e9:.1f} GFLOP, {rec['bound_share']:.3f} of the "
+              f"bound {b_ms:.4f} ms ({b_by}); plain {rec['plain_ms']:.3f} ms, "
+              f"SDPA backward {rec['library_ms']:.3f} ms; forward "
+              f"{rec['fwd_ms']:.4f} ms, with lse {rec['fwd_lse_ms']:.4f} ms")
         recs.append(rec)
         del q, k, v, do, o, lse, got, again, ins, out, want, qt, kt, vt, ot
         torch.cuda.empty_cache()
+    recs += check_attention_bwd_small(g, dev)
     r = recs[2]
     row = dict(name="flash_attention_bwd", route="cuda",
                source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3524,20 +3600,69 @@ def check_attention_bwd(g, dev):
     return row, recs
 
 
+def _scan_inputs(g, dev, B, T, di, ds, dt_shift):
+    A = -torch.exp(0.5 * torch.randn(di, ds, generator=g, device=dev))
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, di, generator=g, device=dev) - dt_shift)
+    dx = dt * torch.randn(B, T, di, generator=g, device=dev)
+    Bc, Cc = (torch.randn(B, T, ds, generator=g, device=dev)
+              for _ in range(2))
+    return dt, dx, A, Bc, Cc
+
+
+def check_scan_bwd_segments(g, dev):
+    """The scan backward at ragged T with several segments, with h0 and
+    dh_last (dh0 wanted), every d_state of BWD_D_STATES: each gradient
+    within SCAN_BWD_TOL of autograd of the plain scan, bitwise
+    repeatable."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as SS
+    recs = []
+    for B, T, di, ds in ((2, 1000, 200, 4), (1, 1000, 130, 8),
+                         (2, 1000, 200, 16), (1, 700, 66, 32)):
+        dt, dx, A, Bc, Cc = _scan_inputs(g, dev, B, T, di, ds, 2.0)
+        h0, dh = (torch.randn(B, di, ds, generator=g, device=dev)
+                  for _ in range(2))
+        dy = torch.randn(B, T, di, generator=g, device=dev)
+        _, _, hs = SS.selective_scan(dt, dx, A, Bc, Cc, h0, save_states=True)
+        got = SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh,
+                                    want_dh0=True)
+        again = SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh,
+                                      want_dh0=True)
+        label = (f"selective_scan_bwd B={B} T={T} di={di} ds={ds}, "
+                 f"{SS.n_segments(T)} segments, h0 and dh_last")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{label}: not bitwise repeatable")
+        ins = [t.clone().requires_grad_() for t in (dt, dx, A, Bc, Cc, h0)]
+        y, h_last = ref.selective_scan(*ins)
+        want = torch.autograd.grad([y, h_last], ins, [dy, dh])
+        rel = 0.0
+        for name, a, w in zip(("d(dt)", "d(dx)", "dA", "dB", "dC", "dh0"),
+                              got, want):
+            r = (a - w).abs().max().item() / w.abs().max().item()
+            rel = max(rel, r)
+            if r > SCAN_BWD_TOL:
+                fail(f"{label} {name}: max|diff| / max|plain| {r:.3e} "
+                     f"above {SCAN_BWD_TOL:g}")
+        print(f"  {label}: max|diff| / max|plain| {rel:.3e} (tolerance "
+              f"{SCAN_BWD_TOL:g}), bitwise repeatable")
+        recs.append(dict(case=label, max_rel_err=rel))
+    return recs
+
+
 def check_scan_bwd(g, dev):
     """selective_scan_bwd against autograd of ref.selective_scan at a Jamba
     micro-batch's shape (B = 1, T = 4096, di = 8192, ds = 16, no h0, as in
     training): every gradient within SCAN_BWD_TOL x max|plain|, and two
-    runs bitwise equal. No single PyTorch call computes it."""
+    runs bitwise equal; its time beside the first version's
+    (FIRST_BWD_MS) and swept over the segment length (SCAN_SEGMENTS). No
+    single PyTorch call computes it.
+    Then the ragged cases of check_scan_bwd_segments."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels import registry
     from repro_torch.kernels import selective_scan as SS
     B, T, di, ds = 1, 4096, 8192, 16
-    A = -torch.exp(0.5 * torch.randn(di, ds, generator=g, device=dev))
-    dt = torch.nn.functional.softplus(
-        torch.randn(B, T, di, generator=g, device=dev) - 4.6)
-    dx = dt * torch.randn(B, T, di, generator=g, device=dev)
-    Bc, Cc = (torch.randn(B, T, ds, generator=g, device=dev)
-              for _ in range(2))
+    dt, dx, A, Bc, Cc = _scan_inputs(g, dev, B, T, di, ds, 4.6)
     dy = torch.randn(B, T, di, generator=g, device=dev)
     _, _, hs = SS.selective_scan(dt, dx, A, Bc, Cc, save_states=True)
     got = SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy)
@@ -3559,25 +3684,50 @@ def check_scan_bwd(g, dev):
         if r > SCAN_BWD_TOL:
             fail(f"selective_scan_bwd {name}: max|diff| / max|plain| "
                  f"{r:.3e} above {SCAN_BWD_TOL:g}")
-    b_ms, b_by = bound("selective_scan_bwd", B=B, T=T, di=di, ds=ds)
+    cfg = dict(B=B, T=T, di=di, ds=ds)
+    b_ms, b_by = bound("selective_scan_bwd", **cfg)
+    nbytes = registry.get("selective_scan_bwd").cost(cfg)[1]
+
+    def run():
+        return SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy)
     row = dict(name="selective_scan_bwd", route="cuda",
                source="src/repro_torch/csrc/selective_scan.cu",
                replaces="src/repro/kernels/selective_scan.py:69",
                max_abs_err=err, max_rel_err=rel,
-               ms=cuda_ms(lambda: SS.selective_scan_bwd(
-                   dt, dx, A, Bc, Cc, hs, dy), 3),
+               ms=cuda_ms(run, 5),
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=None,
                fwd_ms=cuda_ms(lambda: SS.selective_scan(dt, dx, A, Bc, Cc),
                               5),
                fwd_states_ms=cuda_ms(lambda: SS.selective_scan(
                    dt, dx, A, Bc, Cc, save_states=True), 5))
-    print(f"  selective_scan_bwd B={B} T={T} di={di} ds={ds}: max|diff| / "
-          f"max|plain| {rel:.3e} (tolerance {SCAN_BWD_TOL:g}), bitwise "
-          f"repeatable; kernel {row['ms']:.3f} ms, plain backward (one run, "
-          f"host clock) {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); "
-          f"forward {row['fwd_ms']:.4f} ms, saving the chunk states "
-          f"{row['fwd_states_ms']:.4f} ms")
+    before = FIRST_BWD_MS["selective_scan_bwd"]
+    print(f"  selective_scan_bwd B={B} T={T} di={di} ds={ds} "
+          f"({SS.n_segments(T)} segments of {SS.SEG_CHUNKS} chunks): "
+          f"max|diff| / max|plain| {rel:.3e} (tolerance {SCAN_BWD_TOL:g}), "
+          f"bitwise repeatable; kernel {row['ms']:.3f} ms (first version: "
+          f"{before:.3f} ms, {before / row['ms']:.2f}x), "
+          f"{nbytes / row['ms'] / 1e6:.1f} GB/s of the bound's "
+          f"{nbytes / 1e6:.1f} MB, {b_ms / row['ms']:.3f} of the bound "
+          f"{b_ms:.4f} ms ({b_by}); plain backward (one run, host clock) "
+          f"{plain_ms:.1f} ms; forward {row['fwd_ms']:.4f} ms, saving the "
+          f"chunk states {row['fwd_states_ms']:.4f} ms")
+    sweep = {}
+    keep = SS.SEG_CHUNKS
+    try:
+        for seg in SCAN_SEGMENTS:
+            SS.SEG_CHUNKS = seg
+            sweep[seg] = cuda_ms(run, 5)
+    finally:
+        SS.SEG_CHUNKS = keep
+    print("    segment length (chunks: segments) -> ms, share of bound: "
+          + ", ".join(f"{s} ({SS.n_segments(T, s)}): {ms:.3f}, "
+                      f"{b_ms / ms:.3f}" for s, ms in sweep.items()))
+    row["segment_sweep_ms"] = sweep
+    row["bound_share"] = b_ms / row["ms"]
+    del dt, dx, A, Bc, Cc, dy, hs, got, again, ins, y, want
+    torch.cuda.empty_cache()
+    row["small"] = check_scan_bwd_segments(g, dev)
     return row
 
 
@@ -3689,7 +3839,7 @@ def lm_train_run(label, cfg, steps: int, seed: int, dev, repeat: bool):
     tokens from TokenPipeline batches, on random params from ``seed``; the
     launch counts set to 0 before each step and read after it. With
     ``repeat``, one more step is taken twice from the same state and must
-    give the same bits, and a third time under the profiler (device time
+    give the same bits. Then one more step under the profiler (device time
     by kernel; its launches uncounted). Returns a record with the launches
     summed over the ``steps`` steps."""
     from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
@@ -3759,8 +3909,8 @@ def lm_train_run(label, cfg, steps: int, seed: int, dev, repeat: bool):
             fail(f"{label}: a step repeated from the same state differs")
         rec["repeat_bitwise"] = True
         del s_a, s_b
-        rec["profile_step"] = profile_path(lambda: step(state, batch))
-        print_profile(f"{label}: one step", rec["profile_step"], 8)
+    rec["profile_step"] = profile_path(lambda: step(state, batch))
+    print_profile(f"{label}: one step", rec["profile_step"], 8)
     del state
     torch.cuda.empty_cache()
     return rec

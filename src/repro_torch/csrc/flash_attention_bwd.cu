@@ -17,40 +17,98 @@
 // with s = hd^-1/2 and, under GQA, dK and dV of a kv head summed over the
 // G = H / KVH query heads that read it. q, o, dO, dQ [B, S, H, hd], k, v,
 // dK, dV [B, S, KVH, hd], all in the input type (f32 or bf16); lse and
-// Delta [B, H, S] f32. Every product and sum is f32; a bf16 result is
-// rounded once, at its store.
+// Delta [B, H, S] f32.
 //
 // Bound on the H100: operations. Five products over the causal half
 // (Q.K^T again, dO.V^T, P^T.dO, dS^T.Q, dS.K): 5 * 2 * B*H*hd*S^2/2 FLOPs
 // against (4 B S H + 4 B S KVH) hd elements and the lse moved.
 //
-// Design: three kernels, no atomics, so the gradients are the same bits on
-// every run.
-//   - delta_kernel: one warp per (b, row, head), Delta = dO . o summed by
-//     a shuffle tree.
-//   - dq_kernel: one block per (query tile, head, batch), longest rows
-//     first; the q and dO tiles stay in shared memory while the (k, v)
-//     tiles up to the diagonal pass through; dS goes through shared memory
-//     for dS.K, dQ accumulates in registers.
-//   - dkdv_kernel: one block per (key tile, kv head, batch), longest first;
-//     the k and v tiles stay in shared memory while the query tiles from
-//     the diagonal on pass through, head by head of the kv head's group in
-//     order, so GQA's sum over the group is a fixed-order sum in the block;
-//     P and dS go through shared memory for P^T.dO and dS^T.Q.
-// All three run on the CUDA cores (f32 FMAs), 256 threads as 16 x 16, the
-// score tile split 4 x 4 (2 x 2 above hd 128) a thread as in the forward's
-// f32 kernel. Tiles are 64 rows up to hd = 128 and 32 above, so that the
-// four [rows][hd + 1] f32 tiles fit a block's shared memory at hd = 256.
+// Three kernels a call, no atomics, so the gradients are the same bits on
+// every run: delta_kernel (one warp per (b, row, head), Delta = dO . o
+// summed by a shuffle tree), then a dQ kernel, then a dK/dV kernel, both of
+// which read Delta. Dispatch by input type and head dim (not a fallback):
+// bf16 at hd 64 and 128 on the tensor cores (namespace tc), bf16 at hd 192
+// and f32 at every head dim on the CUDA cores (namespace simt).
+//
+// Precision contract of the tensor-core kernels:
+//   - Exact products. Q, K, V and dO enter wgmma as the bf16 values they
+//     are, so S = Q.K^T and dP = dO.V^T are exact up to the order of their
+//     f32 summation.
+//   - P and dS as hi/lo pairs. They are f32 values; each enters its product
+//     (dV += P^T.dO, dK += dS^T.Q, dQ += dS.K) as hi = bf16(x), lo =
+//     bf16(x - hi): two wgmma into the same f32 accumulator, as the
+//     forward does for p. The pair holds x to about 2^-16.
+//   - f32 arithmetic. Every accumulator, the exponentials (ex2 of the
+//     scaled score less lse, both in log2 units) and Delta are f32; each
+//     result is rounded to bf16 once, at its store.
+//   - No single-bf16 P or dS (FlashAttention-2/3 style): that would add up
+//     to 2^-9 to each term, against a 2^-7 limit that the output's own
+//     rounding already half fills.
+//   - Cost: the split takes 3 of the 5 products twice, and each kernel
+//     recomputes S and dP, so the kernels issue 10 products where the bound
+//     counts 5.
+//
+// tc, the dQ kernel (dq_tc_kernel): one block per (128 query rows, head,
+// batch), longest rows first: two consumer warpgroups of 64 rows and one
+// producer warp, the forward's layout. The producer loads the block's q and
+// dO tiles once and a ring of STAGES (k, v) tiles of 64 keys by TMA (4-d
+// maps over [B, S, heads, hd], 128-byte swizzle, mbarriers; rows past S
+// arrive as zeros). Per key tile up to the diagonal: S = Q.K^T and dP =
+// dO.V^T (wgmma, both operands K-major in shared memory), P and dS on the
+// accumulator fragments (masks only on the tile that crosses the diagonal
+// or S; a row's lse and Delta in registers for the whole block), then dQ +=
+// dS.K with dS's hi and lo as register A fragments (the accumulator layout
+// is the A fragment layout) and K MN-major from shared memory.
+//
+// tc, the dK/dV kernel (dkdv_tc_kernel): one block per (128 key rows, kv
+// head, batch), the key tile that sees the most queries first: two
+// consumer warpgroups of 64 key rows and a producer warpgroup, of which
+// one thread loads the block's k and v tiles once, then walks the group's
+// query heads in order and, for each, the query tiles from the diagonal
+// on, feeding the q and dO tiles through a ring. With the key rows as M,
+// S^T = K.Q^T and dP^T = V.dO^T come out in the accumulator layout, so
+// P^T and dS^T are register A fragments as they are: dV += P^T.dO and dK
+// += dS^T.Q, with dO and Q MN-major from shared memory. GQA's sum over
+// the group is a fixed-order sum in the block. A query column's lse and
+// Delta come from global memory (L2) with the tile. Query tiles are 64
+// rows at hd 64 and 32 at hd 128, so that S^T, dP^T and the four fragment
+// sets fit beside the two hd-wide accumulators (128 f32 registers a
+// thread at hd 128).
+//
+// Registers: ptxas gives a block of more than 256 threads at most 168
+// registers a thread (it allocates by warpgroup: 65,536 / 384). With one
+// producer warp (288 threads, as the dQ kernel and the forward) the dK/dV
+// kernel spilled at both head dims, and at hd 128 ptxas serialized its
+// wgmma (C7512). The producer is therefore a whole warpgroup that gives
+// its registers back (setmaxnreg.dec to 24) and the consumers take them
+// (setmaxnreg.inc to 240): no spill, the same bits, and a faster kernel
+// on the card (PERF.md §6). The dQ kernel fits in 168 registers
+// and gained nothing from the same change.
+//
+// Each consumer warpgroup runs its products and their pointwise work in
+// turn; the other warpgroup's products overlap that work. This is the
+// simple tensor-core design.
+//
+// simt (CUDA cores, f32 FMAs): dq_kernel, one block per (query tile, head,
+// batch), and dkdv_kernel, one block per (key tile, kv head, batch), the
+// group's query heads walked in order; 256 threads as 16 x 16, the score
+// tile split 4 x 4 (2 x 2 above hd 128) a thread; tiles of 64 rows up to hd
+// 128 and 32 above, so that the four [rows][hd + 1] f32 tiles fit a block's
+// shared memory at hd 256. P and dS go through shared memory. Every
+// product and sum is f32; a bf16 result is rounded once, at its store.
 // Keys and queries at or past S load as zeros and are masked; a tile wholly
-// above the diagonal is never visited. This is the simple kernel that is
-// right: the tensor cores are left for a later redesign (PERF.md).
+// above the diagonal is never visited.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+namespace simt {
 
 constexpr int THREADS = 256;   // 16 x 16
 constexpr unsigned FULL = 0xffffffffu;
@@ -104,6 +162,17 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     const long long b = bs / S;
     delta[(b * H + h) * S + s] = acc;
   }
+}
+
+template <typename T>
+int launch_delta(const void* o, const void* dout, float* delta, int B, int S,
+                 int H, int hd, cudaStream_t st) {
+  const long long rows = (long long)B * S * H;
+  delta_kernel<T><<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)),
+                    THREADS, 0, st>>>(static_cast<const T*>(o),
+                                      static_cast<const T*>(dout), delta,
+                                      rows, S, H, hd);
+  return (int)cudaGetLastError();
 }
 
 // rows r0 .. r0 + BR - 1 of a [S, heads, HD] slab (row stride `stride`
@@ -377,12 +446,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const T* dop = static_cast<const T*>(dout);
   const float* lp = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  const long long rows = (long long)B * S * H;
-  delta_kernel<T><<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)),
-                    THREADS, 0, st>>>(static_cast<const T*>(o), dop, dl, rows,
-                                      S, H, HD);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if ((err = (cudaError_t)launch_delta<T>(o, dout, dl, B, S, H, HD, st)) !=
+      cudaSuccess)
+    return (int)err;
   const float scale = (float)std::pow((double)HD, -0.5);
   const int nt = (S + L::BR - 1) / L::BR;
   dq_kernel<T, HD><<<dim3(nt, H, B), THREADS, dq_smem, st>>>(
@@ -394,6 +460,527 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       KVH, scale);
   return (int)cudaGetLastError();
 }
+
+}  // namespace simt
+
+// ------------------------------------------------------------ bf16, wgmma --
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int STAGES = 4;                // tiles in flight in a ring
+constexpr int CONSUMERS = 256;           // two warpgroups of 64 rows
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp (dQ)
+// the dK/dV kernel: a whole producer warpgroup, so that its registers can
+// go to the consumers (setmaxnreg): 128 x 24 + 256 x 240 of the 65,536
+constexpr int KV_THREADS = CONSUMERS + 128;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int CHUNK = 64;                // hd columns per 128-byte row
+constexpr int ROW = 128;                 // bytes per swizzled row
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory of the dQ kernel: the q and dO tiles of 128 rows, then the
+// ring of (k, v) tiles of 64 keys; each tile hd/64 chunks of rows x 128
+// bytes, 1024-byte aligned (the swizzle's period).
+template <int HD>
+struct DqLayout {
+  static constexpr int BQ = 128;                // query rows a block
+  static constexpr int BKV = 64;                // keys a tile
+  static constexpr int NCH = HD / CHUNK;
+  static constexpr int Q_BYTES = BQ * HD * 2;   // the q or the dO tile
+  static constexpr int KV_BYTES = BKV * HD * 2; // one k or one v tile
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // full[STAGES], empty[STAGES], the q/dO barrier; alignment slack
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+  static_assert(BYTES <= 232448, "over the block's shared memory");
+};
+
+// Shared memory of the dK/dV kernel: the k and v tiles of 128 key rows,
+// then the ring of (q, dO) tiles of BQ query rows.
+template <int HD>
+struct KvLayout {
+  static constexpr int BK = 128;                // key rows a block
+  static constexpr int BQ = HD <= 64 ? 64 : 32; // query rows a tile
+  static constexpr int NCH = HD / CHUNK;
+  static constexpr int K_BYTES = BK * HD * 2;   // the k or the v tile
+  static constexpr int Q_BYTES = BQ * HD * 2;   // one q or one dO tile
+  static constexpr int V_OFF = K_BYTES;
+  static constexpr int Q_OFF = 2 * K_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int BAR_OFF = DO_OFF + STAGES * Q_BYTES;
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+  static_assert(BYTES <= 232448, "over the block's shared memory");
+};
+
+// D (+)= A.B^T, both K-major in shared memory, N columns
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  if constexpr (N == 32) mma_ss_n32(d, da, db, accumulate);
+  else if constexpr (N == 64) mma_ss_n64(d, da, db, accumulate);
+  else mma_ss_n128<0, 0>(d, da, db, accumulate);
+}
+
+// D += A.B, A from registers, B MN-major in shared memory, N columns
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t* a,
+                                       uint64_t db) {
+  if constexpr (N == 64) mma_rs_n64(d, a, db);
+  else mma_rs_n128(d, a, db);
+}
+
+// D = X.Y^T over hd: X the warpgroup's 64 rows at `a` of a tile stored
+// with `a_rows` rows a chunk, Y the N rows of a tile at `b`
+template <int HD, int N>
+__device__ __forceinline__ void mma_rows(float (&d)[N / 2], uint32_t a,
+                                         int a_rows, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;   // k16 step in the 128-byte row
+    mma_ss<N>(d, desc(a + (kk / 4) * a_rows * ROW + off, 16, 1024),
+              desc(b + (kk / 4) * N * ROW + off, 16, 1024), kk > 0);
+  }
+}
+
+// D += X.Y with X = hi + lo as register A fragments over K rows (k16 step
+// kk is hi[4kk .. 4kk + 3]) and Y the [K][HD] tile at `b`, MN-major: the
+// hi products first, then the lo ones, into the same accumulator
+template <int HD, int K>
+__device__ __forceinline__ void mma_split(float (&d)[HD / 2],
+                                          const uint32_t* hi,
+                                          const uint32_t* lo, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    mma_rs<HD>(d, hi + 4 * kk, desc(b + kk * 16 * ROW, K * ROW, 1024));
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    mma_rs<HD>(d, lo + 4 * kk, desc(b + kk * 16 * ROW, K * ROW, 1024));
+}
+
+// (x0, x1) as a bf16 pair: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
+                                      uint32_t& lo) {
+  hi = bf16x2(x0, x1);
+  lo = bf16x2(x0 - bf16_lo(hi), x1 - bf16_hi(hi));
+}
+
+// Fragment layout (accumulator = A fragment): a thread of warp w holds rows
+// r0 = 16w + lane/4 and r1 = r0 + 8 of its warpgroup's 64; element 4c + e
+// of an N-column accumulator is row r0 (e < 2) or r1 (e >= 2), column 8c +
+// 2 (lane % 4) + e % 2. Fragment word 2c holds row r0's pair of columns
+// 8c.., word 2c + 1 row r1's.
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap omap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             __nv_bfloat16* __restrict__ dq, int S, int H, int KVH,
+             float scale, float scale_log2) {
+  using L = DqLayout<HD>;
+  constexpr int BQ = L::BQ, BKV = L::BKV;
+  constexpr int NS = BKV / 2;   // score fragment floats per thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t sdo = base + L::DO_OFF;
+  const uint32_t sk = base + L::K_OFF;
+  const uint32_t sv = base + L::V_OFF;
+  const uint32_t full = base + L::BAR_OFF;     // full[s] = full + 8 s
+  const uint32_t empty = full + 8 * STAGES;    // empty[s] = empty + 8 s
+  const uint32_t qbar = empty + 8 * STAGES;
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt = nq - 1 - (int)blockIdx.x;     // longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / KVH);
+  const int q0 = qt * BQ;
+  const int n_kv = (min(q0 + BQ, S) + BKV - 1) / BKV;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, CONSUMERS / 32);   // one arrival per warp
+    }
+    bar_init(qbar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer: the q and dO tiles once, then the (k, v) ring
+    if (tid == CONSUMERS) {
+      bar_expect_tx(qbar, 2 * L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < L::NCH; ++c) {
+        tma_load_4d(sq + c * BQ * ROW, &qmap, qbar, c * CHUNK, h, q0, b);
+        tma_load_4d(sdo + c * BQ * ROW, &omap, qbar, c * CHUNK, h, q0, b);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % STAGES;
+        bar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        const uint32_t fb = full + 8 * s;
+        bar_expect_tx(fb, 2 * L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < L::NCH; ++c) {
+          const uint32_t off = s * L::KV_BYTES + c * BKV * ROW;
+          tma_load_4d(sk + off, &kmap, fb, c * CHUNK, kh, j * BKV, b);
+          tma_load_4d(sv + off, &vmap, fb, c * CHUNK, kh, j * BKV, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows row0 .. row0 + 63 and walks
+  // the key tiles 0 .. nt - 1 (the rest lie above its rows)
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int row0 = q0 + 64 * wg;
+  const int r0 = row0 + 16 * warp + lane / 4;
+  const int r1 = r0 + 8;
+  const int nt = min(n_kv, (row0 + 63) / BKV + 1);
+  const uint32_t qa = sq + 64 * wg * ROW;
+  const uint32_t oa = sdo + 64 * wg * ROW;
+  const float* lrow = lse + ((size_t)b * H + h) * S;
+  const float* drow = delta + ((size_t)b * H + h) * S;
+  // the rows' lse in log2 units and Delta; rows past S read 0 (their q and
+  // dO are zeros, so their dS is 0, and they are not stored)
+  const float l0 = r0 < S ? lrow[r0] * LOG2E : 0.f;
+  const float l1 = r1 < S ? lrow[r1] * LOG2E : 0.f;
+  const float e0 = r0 < S ? drow[r0] : 0.f;
+  const float e1 = r1 < S ? drow[r1] : 0.f;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float sc[NS], dp[NS];
+  uint32_t dh[NS / 2], dl[NS / 2];   // dS as bf16 hi and lo A fragments
+  // after a group's wait, the registers its products wrote or read: none
+  // of them moves across the wait or is reused before it
+  auto settle_s = [&]() {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      pin(sc[i]);
+      pin(dp[i]);
+    }
+  };
+  auto settle_dq = [&]() {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) pin(acc[i]);
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      pin(dh[i]);
+      pin(dl[i]);
+    }
+  };
+
+  bar_wait(qbar, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    bar_wait(full + 8 * (j % STAGES), (j / STAGES) & 1);
+    if (j < nt) {
+      const uint32_t kt = sk + (j % STAGES) * L::KV_BYTES;
+      const uint32_t vt = sv + (j % STAGES) * L::KV_BYTES;
+      wg_fence();
+      mma_rows<HD, BKV>(sc, qa, BQ, kt);
+      mma_rows<HD, BKV>(dp, oa, BQ, vt);
+      wg_commit();
+      wg_wait();
+      settle_s();
+      const int k0 = j * BKV;
+      const bool edge = k0 + BKV - 1 > row0 || k0 + BKV > S;
+#pragma unroll
+      for (int c = 0; c < BKV / 8; ++c) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool top = e < 2;
+          float p = exp2_ftz(fmaf(sc[4 * c + e], scale_log2, top ? -l0 : -l1));
+          if (edge) {
+            const int kpos = k0 + 8 * c + 2 * (lane % 4) + (e & 1);
+            if (kpos > (top ? r0 : r1) || kpos >= S) p = 0.f;
+          }
+          ds[e] = p * (dp[4 * c + e] - (top ? e0 : e1));
+        }
+        split(ds[0], ds[1], dh[2 * c], dl[2 * c]);
+        split(ds[2], ds[3], dh[2 * c + 1], dl[2 * c + 1]);
+      }
+      wg_fence();
+      mma_split<HD, BKV>(acc, dh, dl, kt);
+      wg_commit();
+      wg_wait();
+      settle_dq();
+    }
+    if (lane == 0) bar_arrive(empty + 8 * (j % STAGES));
+  }
+
+  const size_t row_stride = (size_t)H * HD;
+  __nv_bfloat16* o0 = dq + ((size_t)b * S + r0) * row_stride + (size_t)h * HD;
+  __nv_bfloat16* o1 = o0 + 8 * row_stride;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    const int col = 8 * c + 2 * (lane % 4);
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
+          __floats2bfloat162_rn(acc[4 * c] * scale, acc[4 * c + 1] * scale);
+    if (r1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + col) = __floats2bfloat162_rn(
+          acc[4 * c + 2] * scale, acc[4 * c + 3] * scale);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap omap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               int S, int H, int KVH, float scale, float scale_log2) {
+  using L = KvLayout<HD>;
+  constexpr int BK = L::BK, BQ = L::BQ;
+  constexpr int NS = BQ / 2;    // S^T fragment floats per thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = base;
+  const uint32_t sv = base + L::V_OFF;
+  const uint32_t sq = base + L::Q_OFF;
+  const uint32_t sdo = base + L::DO_OFF;
+  const uint32_t full = base + L::BAR_OFF;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t kbar = empty + 8 * STAGES;
+
+  const int kt = blockIdx.x;    // key tile 0 sees the most queries: first
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KVH;
+  const int k0 = kt * BK;
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt0 = k0 / BQ;      // the first query tile with a row >= k0
+  const int ntq = nq - qt0;     // query tiles a head
+  const int n_tiles = G * ntq;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, CONSUMERS / 32);
+    }
+    bar_init(kbar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer: the k and v tiles once, then the (q, dO) ring, the group's
+    // heads in order and each head's query tiles from the diagonal on
+    regs_dec<PRODUCER_REGS>();
+    if (tid == CONSUMERS) {
+      bar_expect_tx(kbar, 2 * L::K_BYTES);
+#pragma unroll
+      for (int c = 0; c < L::NCH; ++c) {
+        tma_load_4d(sk + c * BK * ROW, &kmap, kbar, c * CHUNK, kh, k0, b);
+        tma_load_4d(sv + c * BK * ROW, &vmap, kbar, c * CHUNK, kh, k0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int h = kh * G + j / ntq;
+        const int q0 = (qt0 + j % ntq) * BQ;
+        const int s = j % STAGES;
+        bar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        const uint32_t fb = full + 8 * s;
+        bar_expect_tx(fb, 2 * L::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < L::NCH; ++c) {
+          const uint32_t off = s * L::Q_BYTES + c * BQ * ROW;
+          tma_load_4d(sq + off, &qmap, fb, c * CHUNK, h, q0, b);
+          tma_load_4d(sdo + off, &omap, fb, c * CHUNK, h, q0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns key rows kw .. kw + 63
+  regs_inc<CONSUMER_REGS>();
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int kw = k0 + 64 * wg;
+  const int r0 = kw + 16 * warp + lane / 4;
+  const int r1 = r0 + 8;
+  const uint32_t ka = sk + 64 * wg * ROW;
+  const uint32_t va = sv + 64 * wg * ROW;
+
+  float accK[HD / 2], accV[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) {
+    accK[i] = 0.f;
+    accV[i] = 0.f;
+  }
+  float st[NS], dpt[NS];             // S^T and dP^T of a tile
+  uint32_t ph[NS / 2], pl[NS / 2];   // P^T as bf16 hi and lo A fragments
+  uint32_t dh[NS / 2], dl[NS / 2];   // dS^T likewise
+  auto settle_s = [&]() {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      pin(st[i]);
+      pin(dpt[i]);
+    }
+  };
+  auto settle_kv = [&]() {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) {
+      pin(accK[i]);
+      pin(accV[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      pin(ph[i]);
+      pin(pl[i]);
+      pin(dh[i]);
+      pin(dl[i]);
+    }
+  };
+
+  bar_wait(kbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int h = kh * G + j / ntq;
+    const int q0 = (qt0 + j % ntq) * BQ;
+    const int s = j % STAGES;
+    bar_wait(full + 8 * s, (j / STAGES) & 1);
+    // a tile wholly above the warpgroup's keys (every query before them),
+    // or keys all past S, contributes nothing
+    if (q0 + BQ - 1 >= kw && kw < S) {
+      const uint32_t qs = sq + s * L::Q_BYTES;
+      const uint32_t os = sdo + s * L::Q_BYTES;
+      // this thread's query columns' lse (log2 units) and Delta; columns
+      // past S read 0 and are masked
+      const float* lrow = lse + ((size_t)b * H + h) * S;
+      const float* drow = delta + ((size_t)b * H + h) * S;
+      float lc[NS / 2], ec[NS / 2];
+#pragma unroll
+      for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qpos = q0 + 8 * c + 2 * (lane % 4) + e;
+          lc[2 * c + e] = qpos < S ? lrow[qpos] * LOG2E : 0.f;
+          ec[2 * c + e] = qpos < S ? drow[qpos] : 0.f;
+        }
+      wg_fence();
+      mma_rows<HD, BQ>(st, ka, BK, qs);
+      mma_rows<HD, BQ>(dpt, va, BK, os);
+      wg_commit();
+      wg_wait();
+      settle_s();
+      const bool edge = kw + 63 > q0 || q0 + BQ > S;
+#pragma unroll
+      for (int c = 0; c < BQ / 8; ++c) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 2 * c + (e & 1);
+          p[e] = exp2_ftz(fmaf(st[4 * c + e], scale_log2, -lc[col]));
+          if (edge) {
+            const int qpos = q0 + 8 * c + 2 * (lane % 4) + (e & 1);
+            if ((e < 2 ? r0 : r1) > qpos || qpos >= S) p[e] = 0.f;
+          }
+          ds[e] = p[e] * (dpt[4 * c + e] - ec[col]);
+        }
+        split(p[0], p[1], ph[2 * c], pl[2 * c]);
+        split(p[2], p[3], ph[2 * c + 1], pl[2 * c + 1]);
+        split(ds[0], ds[1], dh[2 * c], dl[2 * c]);
+        split(ds[2], ds[3], dh[2 * c + 1], dl[2 * c + 1]);
+      }
+      wg_fence();
+      mma_split<HD, BQ>(accV, ph, pl, os);
+      mma_split<HD, BQ>(accK, dh, dl, qs);
+      wg_commit();
+      wg_wait();
+      settle_kv();
+    }
+    if (lane == 0) bar_arrive(empty + 8 * s);
+  }
+
+  const size_t row_stride = (size_t)KVH * HD;
+  const size_t at0 = ((size_t)b * S + r0) * row_stride + (size_t)kh * HD;
+  const size_t at1 = at0 + 8 * row_stride;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    const int col = 8 * c + 2 * (lane % 4);
+    if (r0 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at0 + col) =
+          __floats2bfloat162_rn(accK[4 * c] * scale, accK[4 * c + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at0 + col) =
+          __floats2bfloat162_rn(accV[4 * c], accV[4 * c + 1]);
+    }
+    if (r1 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at1 + col) =
+          __floats2bfloat162_rn(accK[4 * c + 2] * scale,
+                                accK[4 * c + 3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at1 + col) =
+          __floats2bfloat162_rn(accV[4 * c + 2], accV[4 * c + 3]);
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* lse, const void* dout, void* dq, void* dk, void* dv,
+           void* delta, int B, int S, int H, int KVH, cudaStream_t st) {
+  using D = DqLayout<HD>;
+  using K = KvLayout<HD>;
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap qd, od, kd, vd, qk, ok, kk, vk;
+  if (!make_map(&qd, q, B, S, H, HD, D::BQ) ||
+      !make_map(&od, dout, B, S, H, HD, D::BQ) ||
+      !make_map(&kd, k, B, S, KVH, HD, D::BKV) ||
+      !make_map(&vd, v, B, S, KVH, HD, D::BKV) ||
+      !make_map(&qk, q, B, S, H, HD, K::BQ) ||
+      !make_map(&ok, dout, B, S, H, HD, K::BQ) ||
+      !make_map(&kk, k, B, S, KVH, HD, K::BK) ||
+      !make_map(&vk, v, B, S, KVH, HD, K::BK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      D::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dkdv_tc_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             K::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const float* lp = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if ((err = (cudaError_t)simt::launch_delta<__nv_bfloat16>(
+           o, dout, dl, B, S, H, HD, st)) != cudaSuccess)
+    return (int)err;
+  const double scale = std::pow((double)HD, -0.5);
+  const float sc = (float)scale, sc_log2 = (float)(scale * 1.4426950408889634);
+  dq_tc_kernel<HD><<<dim3((S + D::BQ - 1) / D::BQ, H, B), THREADS, D::BYTES,
+                     st>>>(qd, od, kd, vd, lp, dl,
+                           static_cast<__nv_bfloat16*>(dq), S, H, KVH, sc,
+                           sc_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dkdv_tc_kernel<HD><<<dim3((S + K::BK - 1) / K::BK, KVH, B), KV_THREADS,
+                       K::BYTES, st>>>(
+      qk, ok, kk, vk, lp, dl, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, H, KVH, sc, sc_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 int prologue(int H, int KVH, int device) {
   cudaError_t err = cudaSetDevice(device);
@@ -419,7 +1006,7 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
   switch (hd) {
 #define FAB_CASE(N)                                                         \
   case N:                                                                   \
-    return launch<float, N>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, \
+    return simt::launch<float, N>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, \
                             H, KVH, st);
     FAB_CASE(16) FAB_CASE(32) FAB_CASE(48) FAB_CASE(64) FAB_CASE(80)
     FAB_CASE(96) FAB_CASE(112) FAB_CASE(128) FAB_CASE(144) FAB_CASE(160)
@@ -443,14 +1030,14 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
   const cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {   // BF16_HEAD_DIMS in kernels/flash_attention.py
     case 64:
-      return launch<__nv_bfloat16, 64>(q, k, v, o, lse, dout, dq, dk, dv,
-                                       delta, B, S, H, KVH, st);
+      return tc::launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S,
+                            H, KVH, st);
     case 128:
-      return launch<__nv_bfloat16, 128>(q, k, v, o, lse, dout, dq, dk, dv,
-                                        delta, B, S, H, KVH, st);
-    case 192:
-      return launch<__nv_bfloat16, 192>(q, k, v, o, lse, dout, dq, dk, dv,
-                                        delta, B, S, H, KVH, st);
+      return tc::launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S,
+                             H, KVH, st);
+    case 192:   // the CUDA-core kernel: wgmma at hd 192 is not instanced
+      return simt::launch<__nv_bfloat16, 192>(q, k, v, o, lse, dout, dq, dk,
+                                              dv, delta, B, S, H, KVH, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

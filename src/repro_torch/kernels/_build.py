@@ -101,11 +101,10 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # di, ds, device, stream
         "selective_scan_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                                INT, INT, INT, INT, INT, PTR),
-        # dt, dx, A, Bc, Cc, hs, dy, dh_last (or NULL), ddt, ddx, dA_part,
-        # dB_part, dC_part, dA, dB, dC, dh0 (or NULL), B, T, di, ds, device,
-        # stream
-        "selective_scan_bwd_f32": (PTR,) * 17 + (INT, INT, INT, INT, INT,
-                                                PTR),
+        # dt, dx, A, Bc, Cc, hs, dy, dh_last (or NULL), ddt, ddx, lcarry,
+        # decay, dA_part, dB_part, dC_part, dA, dB, dC, dh0 (or NULL), B, T,
+        # di, ds, seg_chunks, device, stream
+        "selective_scan_bwd_f32": (PTR,) * 19 + (INT,) * 6 + (PTR,),
         # d_state -> lanes a channel
         "selective_scan_lanes": (INT,),
     },

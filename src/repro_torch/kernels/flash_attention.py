@@ -5,7 +5,9 @@ replaces, what bounds it and how it is laid out): bf16 on the tensor
 cores (``wgmma``, with p split into bf16 hi and lo parts so that P.V
 keeps p's f32 precision), f32 on the CUDA cores. With ``lse=True`` it
 also returns each row's log-sum-exp [B, H, S] f32, which the backward
-(``csrc/flash_attention_bwd.cu``) recomputes the probabilities from. The
+(``csrc/flash_attention_bwd.cu``) recomputes the probabilities from: bf16
+at hd 64 and 128 on the tensor cores (P and dS split into bf16 hi and lo
+parts for their products), bf16 at hd 192 and f32 on the CUDA cores. The
 kernels mask ragged S themselves, so any S is exact.
 ``ops.flash_attention`` dispatches here for CUDA tensors (through an
 autograd function when a gradient is wanted) and to
@@ -35,8 +37,15 @@ BF16_HEAD_DIMS = (64, 128, 192)
 BQ = {torch.float32: 64, torch.bfloat16: 128}
 THREADS = {torch.float32: 256, torch.bfloat16: 288}
 TC_STAGES = 3
-# csrc/flash_attention_bwd.cu: threads a block
-BWD_THREADS = 256
+# log2(e): the kernels' exponentials are exp2 of log2-scaled scores
+LOG2E = 1.4426950408889634
+# csrc/flash_attention_bwd.cu: the bf16 head dims on the tensor cores
+# (namespace tc; the others run namespace simt), threads a dK/dV block by
+# namespace (tc: two consumer warpgroups and a producer warpgroup) and the
+# tensor-core kernels' tiles in flight
+BWD_TC_HEAD_DIMS = (64, 128)
+BWD_THREADS = {"tc": 384, "simt": 256}
+BWD_TC_STAGES = 4
 
 
 def kv_rows(dtype: torch.dtype, hd: int) -> int:
@@ -57,17 +66,39 @@ def smem_bytes(dtype: torch.dtype, hd: int) -> int:
             + (2 * TC_STAGES + 1) * 8 + 1024)
 
 
-def bwd_rows(hd: int) -> int:
-    """Rows of a query or key tile of the backward (``Tile::BR``): 64 up
-    to hd 128, 32 above."""
+def bwd_scope(dtype: torch.dtype, hd: int) -> str:
+    """The namespace of csrc/flash_attention_bwd.cu that a call runs:
+    "tc" (wgmma) for bf16 at BWD_TC_HEAD_DIMS, else "simt"."""
+    return ("tc" if dtype == torch.bfloat16 and hd in BWD_TC_HEAD_DIMS
+            else "simt")
+
+
+def bwd_rows(dtype: torch.dtype, hd: int) -> int:
+    """Key rows of a dK/dV block: 128 on the tensor cores
+    (``tc::KvLayout::BK``, two warpgroups of 64); on the CUDA cores
+    (``simt::Tile::BR``) 64 up to hd 128, 32 above."""
+    if bwd_scope(dtype, hd) == "tc":
+        return 128
     return 64 if hd <= 128 else 32
 
 
-def bwd_smem_bytes(hd: int) -> int:
-    """Shared memory of a dK/dV block (``Tile::DKDV_FLOATS``, the larger
-    of the two): the k, v, q and dO tiles [rows][hd + 1], P and dS
-    [rows][rows + 1], the rows' lse and Delta, all f32."""
-    br = bwd_rows(hd)
+def bwd_query_rows(hd: int) -> int:
+    """Query rows of a (q, dO) tile of the tensor-core dK/dV kernel
+    (``tc::KvLayout::BQ``): 64 at hd 64, 32 at hd 128, so that S^T, dP^T
+    and their fragments fit beside the two hd-wide accumulators."""
+    return 64 if hd <= 64 else 32
+
+
+def bwd_smem_bytes(dtype: torch.dtype, hd: int) -> int:
+    """Shared memory of a dK/dV block. Tensor cores (``tc::KvLayout``):
+    the k and v tiles, the ring of (q, dO) tiles, the mbarriers and 1024
+    bytes of alignment slack, bf16. CUDA cores (``simt::Tile``): the k, v,
+    q and dO tiles [rows][hd + 1], P and dS [rows][rows + 1], the rows'
+    lse and Delta, all f32."""
+    if bwd_scope(dtype, hd) == "tc":
+        return (2 * 128 * hd * 2 + 2 * BWD_TC_STAGES * bwd_query_rows(hd)
+                * hd * 2 + (2 * BWD_TC_STAGES + 1) * 8 + 1024)
+    br = bwd_rows(dtype, hd)
     return 4 * (4 * br * (hd + 1) + 2 * br * (br + 1) + 2 * br)
 
 
@@ -121,7 +152,9 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     output, lse its [B, H, S] f32 log-sum-exps, do the output's gradient
     (q's shape and dtype), all contiguous on one CUDA device -> (dq, dk,
     dv) in q's dtype. Takes the head dims the forward takes; no atomics,
-    so the same bits every run."""
+    so the same bits every run. bf16 at hd 64 and 128 runs on the tensor
+    cores with P and dS as bf16 hi/lo pairs (the .cu header states the
+    precision contract)."""
     _check_operands("flash_attention_bwd", q, k, v, BF16_HEAD_DIMS,
                     "backward")
     B, S, H, hd = q.shape
@@ -133,6 +166,9 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         raise TypeError("flash_attention_bwd: o and do in q's dtype, lse "
                         "float32")
     _build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash_attention_bwd: operands must be 16-byte "
+                         "aligned")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     err = getattr(_build.load("flash_attention_bwd"), BWD_KERNELS[q.dtype])(
@@ -172,55 +208,83 @@ def lse_blocks(q, k, block: int = 64):
     return (m + torch.log(lsum)).reshape(B, S, H).permute(0, 2, 1)
 
 
+def split_bf16(x):
+    """x (f32) as the bf16 pair the tensor-core kernels feed their
+    products: hi = bf16(x), lo = bf16(x - hi), both widened to f32."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
 def backward_blocks(q, k, v, o, lse, do, block: int = 64):
     """The backward kernels' algorithm in plain tensor code, in f32, tile
     by tile (the CPU tests hold it against autograd of
-    ``ref.flash_attention``): Delta = rowsum(dO o); the dQ pass walks the
-    key tiles of each query tile up to the diagonal; the dK/dV pass walks,
-    for each key tile, the group's query heads in order and their query
-    tiles from the diagonal on; P = exp(s q.k - lse) recomputed in each
-    pass. Same arguments and results as ``flash_attention_bwd``."""
+    ``ref.flash_attention``), with ``block`` rows a tile: Delta =
+    rowsum(dO o); the dQ pass walks, for each query tile, the key tiles up
+    to the diagonal: S = Q.K^T, dP = dO.V^T, P = exp2(S s log2 e - lse
+    log2 e), dS = P (dP - Delta), dQ += dS.K; the dK/dV pass walks, for
+    each key tile, the group's query heads in order and their query tiles
+    from the diagonal on, on the transposed tiles S^T = K.Q^T and dP^T =
+    V.dO^T: dV += P^T.dO, dK += dS^T.Q. With bf16 inputs P and dS enter
+    their products as bf16 hi + lo (``split_bf16``: the hi product, then
+    the lo one, into the f32 sum), as on the tensor cores. Same arguments
+    and results as ``flash_attention_bwd``."""
     B, S, H, hd = q.shape
     KVH = k.shape[2]
     G = H // KVH
     f32 = torch.float32
     qf, kf, vf, of, dof = (t.to(f32) for t in (q, k, v, o, do))
     scale = hd ** -0.5
+    scale_log2 = scale * LOG2E
+    lse2 = lse.to(f32) * LOG2E                              # [B, H, S]
     delta = (dof * of).sum(-1).permute(0, 2, 1)            # [B, H, S]
     pos = torch.arange(S, device=q.device)
+    split = q.dtype == torch.bfloat16
+
+    def mm_split(x, y):
+        """x @ y with x as the kernels feed it: its bf16 hi and lo parts
+        (bf16 inputs), or itself."""
+        if not split:
+            return x @ y
+        hi, lo = split_bf16(x)
+        return hi @ y + lo @ y
+
     dq = torch.zeros_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
     tiles = range(0, S, block)
-
-    def tile_p_ds(h, q0, k0):
-        qt, ot = qf[:, q0:q0 + block, h], dof[:, q0:q0 + block, h]
-        kt, vt = kf[:, k0:k0 + block, h // G], vf[:, k0:k0 + block, h // G]
-        s = torch.einsum("bqd,bkd->bqk", qt, kt) * scale
-        ok = pos[q0:q0 + block, None] >= pos[None, k0:k0 + block]
-        p = torch.where(ok[None], torch.exp(
-            s - lse[:, h, q0:q0 + block, None]), 0.0)
-        dp = torch.einsum("bqd,bkd->bqk", ot, vt)
-        return p, p * (dp - delta[:, h, q0:q0 + block, None])
-
-    for h in range(H):
+    for h in range(H):                                     # the dQ pass
         for q0 in tiles:
-            acc = torch.zeros_like(dq[:, q0:q0 + block, h])
-            for k0 in range(0, q0 + 1, block):
-                _, ds = tile_p_ds(h, q0, k0)
-                acc = acc + ds @ kf[:, k0:k0 + block, h // G]
-            dq[:, q0:q0 + block, h] = acc * scale
-    for kh in range(KVH):
+            qs = slice(q0, q0 + block)
+            qt, ot = qf[:, qs, h], dof[:, qs, h]
+            acc = torch.zeros_like(qt)
+            for k0 in range(0, q0 + block, block):
+                ks = slice(k0, k0 + block)
+                kt, vt = kf[:, ks, h // G], vf[:, ks, h // G]
+                s = torch.einsum("bqd,bkd->bqk", qt, kt)
+                ok = pos[qs, None] >= pos[None, ks]
+                p = torch.where(ok[None], torch.exp2(
+                    s * scale_log2 - lse2[:, h, qs, None]), 0.0)
+                dp = torch.einsum("bqd,bkd->bqk", ot, vt)
+                acc = acc + mm_split(p * (dp - delta[:, h, qs, None]), kt)
+            dq[:, qs, h] = acc * scale
+    for kh in range(KVH):                                  # the dK/dV pass
         for k0 in tiles:
-            acc_k = torch.zeros_like(dk[:, k0:k0 + block, kh])
-            acc_v = torch.zeros_like(acc_k)
+            ks = slice(k0, k0 + block)
+            kt, vt = kf[:, ks, kh], vf[:, ks, kh]
+            acc_k = torch.zeros_like(kt)
+            acc_v = torch.zeros_like(kt)
             for h in range(kh * G, kh * G + G):
                 for q0 in range(k0, S, block):
-                    p, ds = tile_p_ds(h, q0, k0)
-                    acc_v = acc_v + p.transpose(1, 2) @ dof[:, q0:q0 + block,
-                                                            h]
-                    acc_k = acc_k + ds.transpose(1, 2) @ qf[:, q0:q0 + block,
-                                                            h]
-            dk[:, k0:k0 + block, kh] = acc_k * scale
-            dv[:, k0:k0 + block, kh] = acc_v
+                    qs = slice(q0, q0 + block)
+                    qt, ot = qf[:, qs, h], dof[:, qs, h]
+                    st = torch.einsum("bkd,bqd->bkq", kt, qt)
+                    ok = pos[ks, None] <= pos[None, qs]
+                    pt = torch.where(ok[None], torch.exp2(
+                        st * scale_log2 - lse2[:, h, None, qs]), 0.0)
+                    dpt = torch.einsum("bkd,bqd->bkq", vt, ot)
+                    acc_v = acc_v + mm_split(pt, ot)
+                    acc_k = acc_k + mm_split(
+                        pt * (dpt - delta[:, h, None, qs]), qt)
+            dk[:, ks, kh] = acc_k * scale
+            dv[:, ks, kh] = acc_v
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

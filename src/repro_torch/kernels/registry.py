@@ -366,19 +366,27 @@ def _flash_work(cfg: dict):
 
 
 def _flash_bwd_instance(cfg: dict) -> KernelInstance:
-    """The dK/dV launch: one block per (key tile, kv head, batch row)."""
+    """The dK/dV launch: one block per (key tile, kv head, batch row); on
+    the tensor cores (bf16 at hd 64 and 128) with its TMA ring of (q, dO)
+    tiles."""
+    import torch
     B, S, KVH, hd = cfg["B"], cfg["S"], cfg["KVH"], cfg["hd"]
-    br = _fa.bwd_rows(hd)
     dt = cfg.get("dtype", "float32")
+    tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+    scope = _fa.bwd_scope(tdt, hd)
+    br = _fa.bwd_rows(tdt, hd)
     outs = tuple(BlockMap(n, (B, S, KVH, hd), (1, br, 1, hd),
                           lambda i, kh, b: (b, i, kh, 0), dtype=dt)
                  for n in ("dk", "dv"))
     return KernelInstance(
-        grid=(_cdiv(S, br), KVH, B), threads=_fa.BWD_THREADS,
-        smem_bytes=_fa.bwd_smem_bytes(hd),
+        grid=(_cdiv(S, br), KVH, B), threads=_fa.BWD_THREADS[scope],
+        smem_bytes=_fa.bwd_smem_bytes(tdt, hd),
         axes=(Axis("keys", S, br), Axis("kv_heads", KVH, 1),
               Axis("batch", B, 1)),
-        outputs=outs)
+        outputs=outs,
+        rings=((Ring("tma", _fa.BWD_TC_STAGES, "tc"),) if scope == "tc"
+               else ()),
+        scope=scope)
 
 
 def _flash_bwd_work(cfg: dict):
@@ -429,18 +437,25 @@ def _scan_work(cfg: dict):
 
 
 def _scan_bwd_instance(cfg: dict) -> KernelInstance:
+    """The gradient pass: one block per (64 channels, segment, batch
+    row), ds / 4 lanes a channel, its chunks through a cp.async ring."""
     B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
+    seg = _ss.SEG_CHUNKS * _ss.BT
     return KernelInstance(
-        grid=(_cdiv(di, _ss.CH), B), threads=_ss.CH * _ss.lanes(ds),
+        grid=(_cdiv(di, _ss.CH), _ss.n_segments(T), B),
+        threads=_ss.CH * _ss.bwd_lanes(ds),
         smem_bytes=_ss.bwd_smem_bytes(ds),
-        axes=(Axis("channels", di, _ss.CH), Axis("batch", B, 1)),
-        outputs=(BlockMap("ddt", (B, T, di), (1, T, _ss.CH),
-                          lambda i, b: (b, 0, i)),
-                 BlockMap("ddx", (B, T, di), (1, T, _ss.CH),
-                          lambda i, b: (b, 0, i)),
-                 # dA's partial a batch row, added by sum_mid_kernel
-                 BlockMap("dA_part", (B, di, ds), (1, _ss.CH, ds),
-                          lambda i, b: (b, i, 0))),
+        axes=(Axis("channels", di, _ss.CH), Axis("segments", T, seg),
+              Axis("batch", B, 1)),
+        outputs=(BlockMap("ddt", (B, T, di), (1, seg, _ss.CH),
+                          lambda i, s, b: (b, s, i)),
+                 BlockMap("ddx", (B, T, di), (1, seg, _ss.CH),
+                          lambda i, s, b: (b, s, i)),
+                 # dA's partial a (batch row, segment), added by
+                 # sum_mid_kernel
+                 BlockMap("dA_part", (B, _ss.n_segments(T), di, ds),
+                          (1, 1, _ss.CH, ds), lambda i, s, b: (b, s, i, 0))),
+        rings=(Ring("cp.async", _ss.STAGES, "bwd"),),
         scope="bwd")
 
 

@@ -186,6 +186,35 @@ def test_wrapper_constants_are_the_cuda_ones():
     assert tfa.TC_STAGES == _cu_int("flash_attention.cu", "STAGES", "tc")
 
 
+def test_backward_constants_are_the_cuda_ones():
+    """The backward kernels' geometry in the wrappers (and so the
+    registry's instances) is that of the ``.cu`` sources: the tensor-core
+    attention backward's ring and threads, the scan backward's ring and
+    states a lane."""
+    assert tfa.BWD_TC_STAGES == _cu_int("flash_attention_bwd.cu", "STAGES",
+                                        "tc")
+    assert tfa.BWD_THREADS["tc"] == 128 + _cu_int("flash_attention_bwd.cu",
+                                                  "CONSUMERS", "tc")
+    assert tfa.BWD_THREADS["simt"] == _cu_int("flash_attention_bwd.cu",
+                                              "THREADS", "simt")
+    assert tss.STAGES == _cu_int("selective_scan.cu", "STAGES", "bwd")
+    assert tss.BWD_STATES_PER_LANE == _cu_int("selective_scan.cu", "SL",
+                                              "bwd")
+    for hd in (64, 128):
+        inst = registry.get("flash_attention_bwd").instance(
+            {"hd": hd, "dtype": "bfloat16"})
+        assert inst.scope == "tc" and inst.rings[0].stages == 4
+        assert inst.smem_bytes == tfa.bwd_smem_bytes(torch.bfloat16, hd)
+    inst = registry.get("flash_attention_bwd").instance(
+        {"hd": 192, "dtype": "bfloat16"})
+    assert (inst.scope, inst.rings, inst.threads) == ("simt", (), 256)
+    inst = registry.get("selective_scan_bwd").instance(
+        {"B": 1, "T": 4096, "di": 8192, "ds": 16})
+    assert inst.grid == (128, tss.n_segments(4096), 1)
+    assert inst.threads == 64 * 4 and inst.smem_bytes == tss.bwd_smem_bytes(
+        16)
+
+
 @pytest.mark.parametrize("C,D,K", ALIGN_SHAPES)
 def test_autotune_pick_is_geometry(C, D, K):
     tune = roofline.autotune_align(C, K, D, device="cpu")

@@ -612,15 +612,48 @@ def test_attention_backward_blocks_match_autograd(B, S, H, KVH, hd, block):
         _lm_close(a, b)
 
 
-@pytest.mark.parametrize("B,T,di,ds,with_h0,with_dh", [
-    (2, 37, 5, 4, False, False), (1, 50, 3, 8, True, True),
-    (1, 16, 4, 16, True, False)])
-def test_scan_backward_chunks_match_autograd(B, T, di, ds, with_h0,
-                                             with_dh):
-    """``selective_scan.backward_chunks`` (the backward kernel's walk: chunk
-    start states kept, chunks recomputed last to first) against autograd
-    of the plain scan, to LM_TOL."""
-    rng = np.random.default_rng(T)
+# the bf16 backward's limit (chip_smoke.py's ATT_BWD_BF16_TOL): each
+# gradient rounded once at its store, Delta formed from the forward's bf16 o
+ATT_BWD_BF16_TOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("B,S,H,KVH,hd,block", [
+    (1, 70, 4, 2, 64, 16), (2, 33, 2, 1, 128, 32)])
+def test_attention_backward_blocks_bf16_within_limit(B, S, H, KVH, hd,
+                                                      block):
+    """``backward_blocks`` on bf16 inputs (P and dS split into bf16 hi and
+    lo before their products, as on the tensor cores; o the forward's bf16
+    output) against autograd of the plain attention in f32 on the same
+    values: every gradient within 2^-7 of max|plain|."""
+    rng = np.random.default_rng(S + hd)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, S, n, hd)).astype(
+        np.float32)).to(torch.bfloat16) for n in (H, KVH, KVH, H))
+    ins = [t.float().requires_grad_() for t in (q, k, v)]
+    out = TREF.flash_attention(*ins)
+    want = torch.autograd.grad(out, ins, do.float())
+    got = TFA.backward_blocks(q, k, v, out.detach().to(torch.bfloat16),
+                              TFA.lse_blocks(q, k, block), do, block)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        _lm_close(a, w, ATT_BWD_BF16_TOL)
+
+
+def test_bf16_split_holds_a_float_to_2_to_the_minus_16():
+    """``split_bf16``: hi + lo holds each f32 value to about 2^-16 of it,
+    where bf16 alone holds it to 2^-9."""
+    x = torch.tensor(np.random.default_rng(5).standard_normal(4096).astype(
+        np.float32)) * 3.0
+    hi, lo = TFA.split_bf16(x)
+    assert torch.equal(hi, x.to(torch.bfloat16).float())
+    rel = ((hi + lo - x).abs() / x.abs()).max().item()
+    assert rel <= 2.0 ** -16
+    assert ((hi - x).abs() / x.abs()).max().item() > 2.0 ** -12
+
+
+def _scan_backward_case(B, T, di, ds, with_h0, with_dh, **seg):
+    """``backward_chunks`` against autograd of the plain scan, to LM_TOL,
+    on inputs drawn from a seed."""
+    rng = np.random.default_rng(T + seg.get("seg_chunks", 0))
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     dt = torch.nn.functional.softplus(torch.as_tensor(f(B, T, di)) - 1)
     ins = [dt, torch.as_tensor(f(B, T, di)),
@@ -635,10 +668,37 @@ def test_scan_backward_chunks_match_autograd(B, T, di, ds, with_h0,
     want = torch.autograd.grad([y] + ([h_last] if with_dh else []), ins,
                                [dy] + ([dh] if with_dh else []))
     got = TSS.backward_chunks(*(t.detach() for t in ins[:5]), dy,
-                              ins[5].detach() if with_h0 else None, dh)
+                              ins[5].detach() if with_h0 else None, dh,
+                              **seg)
     assert (got[5] is None) == (not with_h0)
     for a, b in zip(got, want):
         _lm_close(a, b)
+
+
+@pytest.mark.parametrize("B,T,di,ds,with_h0,with_dh", [
+    (2, 37, 5, 4, False, False), (1, 50, 3, 8, True, True),
+    (1, 16, 4, 16, True, False)])
+def test_scan_backward_chunks_match_autograd(B, T, di, ds, with_h0,
+                                             with_dh):
+    """``selective_scan.backward_chunks`` (the backward kernels' walk: chunk
+    start states kept, chunks recomputed last to first; one segment at
+    these T) against autograd of the plain scan, to LM_TOL."""
+    _scan_backward_case(B, T, di, ds, with_h0, with_dh)
+
+
+@pytest.mark.parametrize("B,T,di,ds,with_h0,with_dh,seg_chunks", [
+    (2, 37, 5, 4, False, False, 1), (1, 50, 3, 8, True, True, 1),
+    (1, 80, 4, 16, True, True, 2), (1, 64, 3, 32, False, True, 3),
+    (2, 96, 2, 8, True, False, 2), (1, 48, 4, 16, False, False, 2)])
+def test_scan_backward_segments_match_autograd(B, T, di, ds, with_h0,
+                                               with_dh, seg_chunks):
+    """``backward_chunks`` cut into segments of ``seg_chunks`` chunks (the
+    adjoint of each segment from a zero carry, the carries composed last
+    to first, the segments rerun from their carries), T a multiple of a
+    segment or not, against autograd of the plain scan, to LM_TOL."""
+    assert TSS.n_segments(T, seg_chunks) > 1
+    _scan_backward_case(B, T, di, ds, with_h0, with_dh,
+                        seg_chunks=seg_chunks)
 
 
 def _sup_run(cfg, pipe_cfg, ckpt_dir, fail_at=None):
@@ -834,6 +894,24 @@ def test_backward_instances_are_the_cuda_ones():
     body = src[src.index('extern "C" int selective_scan_bwd_f32('):]
     assert tuple(int(n) for n in re.findall(r"SSB_CASE\((\d+)\)", body)) == \
         TSS.BWD_D_STATES
+
+
+def test_backward_tensor_core_dispatch_is_the_cuda_one():
+    """``BWD_TC_HEAD_DIMS`` are the bf16 head dims the backward entry
+    point sends to its tensor-core kernels (namespace tc); the rest of
+    ``BF16_HEAD_DIMS`` go to the CUDA-core ones, as ``bwd_scope`` says."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    body = src[src.index('extern "C" int flash_attention_bwd_bf16('):]
+    assert tuple(int(n) for n in re.findall(r"tc::launch<(\d+)>", body)) \
+        == TFA.BWD_TC_HEAD_DIMS
+    assert tuple(int(n) for n in re.findall(
+        r"simt::launch<__nv_bfloat16, (\d+)>", body)) == tuple(
+        d for d in TFA.BF16_HEAD_DIMS if d not in TFA.BWD_TC_HEAD_DIMS)
+    for hd in TFA.BF16_HEAD_DIMS:
+        assert TFA.bwd_scope(torch.bfloat16, hd) == (
+            "tc" if hd in TFA.BWD_TC_HEAD_DIMS else "simt")
+        assert TFA.bwd_scope(torch.float32, hd) == "simt"
 
 
 @pytest.mark.parametrize("arch", [STABLELM, JAMBA])
