@@ -28,7 +28,15 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   prefill of 4 x 2048 tokens, then 16 decode steps from a zero cache, as
   its prefill returns no cache); and checks, at
   depth 8 in f32, Jamba's prefill on the kernels against the same path on
-  the plain versions, and decode against prefill for both models;
+  the plain versions, and decode against prefill for both models; then
+  the rest of the zoo at its published widths in bf16, each freed before
+  the next: Phi-3-medium 14B, Nemotron-4 15B, Gemma 2B (the attention at
+  head dim 256) and RWKV-6 7B through ``repro_torch.launch.serve`` (batch
+  4, prompt 1024, 16 tokens), Whisper large-v3 (1,500 frames, 448 decoder
+  tokens) and InternVL2-1B (256 patches + 768 text tokens) through the
+  ``models.api`` steps with 16 decode steps; and at full width, 2 to 4
+  layers, in f32, each one's prefill on the kernels against the plain
+  versions and decode against prefill;
 * drives the staged recipe (``repro_torch.api``) at full width: 64
   speakers x 10 utterances x 512 frames from the port's
   ``data/speech.py`` (mean and variance normalised), a top-20
@@ -83,8 +91,9 @@ Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it is one JSON object with every kernel's numbers. The
-same numbers are written to ``chiprun_out/chip_smoke.json``.
+before it come the card's name and power limit, and before that one JSON
+object with every kernel's numbers. The same numbers are written to
+``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -93,6 +102,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import select
 import signal
 import subprocess
@@ -104,6 +114,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # exponentials a clock on one SM (the MUFU unit)
 MUFU_PER_SM_CLOCK = 16
@@ -158,6 +169,43 @@ EER_TOL = 5e-4
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     raise SystemExit(1)
+
+
+def start_ptxas(names) -> dict:
+    """``nvcc -cubin -Xptxas -v`` on ``csrc/<name>.cu`` for each name,
+    started at once: a device compile only, whose log gives each kernel's
+    registers and spills. Returns {name: process}."""
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return {n: subprocess.Popen(
+        [_build._nvcc(), "-cubin", "-arch=sm_90a", "-std=c++17", "-O3",
+         "-Xptxas", "-v", "-o", str(_build.BUILD_DIR / f"ptxas_{n}.cubin"),
+         str(_build.CSRC / f"{n}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in names}
+
+
+def ptxas_report(procs: dict, key: str) -> dict:
+    """{mangled kernel name containing ``key``: its ptxas lines after the
+    entry line (stack frame and spills, registers), joined by '; '} from
+    the logs of ``start_ptxas``'s processes, once each has ended."""
+    entry = re.compile(r"Compiling entry function '([^']+)'")
+    out = {}
+    for n, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc -Xptxas -v failed on {n}.cu:\n{log[-3000:]}")
+        name = None
+        for line in log.splitlines():
+            m = entry.search(line)
+            if m:
+                name = m.group(1) if key in m.group(1) else None
+                if name is not None:
+                    out[name] = []
+            elif name is not None and ("spill" in line or "Used" in line):
+                out[name].append(line.split(":", 1)[-1].strip()
+                                 if line.startswith("ptxas") else line.strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1251,21 +1299,36 @@ def compare_bf16(name, got, want):
 def check_flash_attention(g, dev):
     """flash_attention against its plain version: Jamba's shapes (the
     serving path's, bf16, and f32), StableLM's (bf16), a ragged S (f32 and
-    bf16) and a short S of one partial tile (bf16). The row is the first
-    case, the Jamba prefill of the serving path. Each case prints the
-    kernel it ran (bf16 on the tensor cores, f32 on the CUDA cores)."""
+    bf16), a short S of one partial tile (bf16), Gemma 2B's prefill at
+    head dim 256 under MQA (bf16, the tensor-core instance of 64-row
+    blocks, and f32) with a ragged and a short S (bf16), and the bf16
+    prefill shapes of the other zoo serving paths: Phi-3-medium,
+    Nemotron-4, Whisper's decoder (S = 448, not a multiple of the 128-row
+    block) and InternVL2 (256 patches + 768 tokens, a group of 7). The row
+    is the first case, the Jamba prefill of the serving path. Each case prints the kernel it ran (bf16 on the tensor
+    cores, f32 on the CUDA cores)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # the later cases draw from a generator of their own, so that the
     # earlier cases and the phases after this one see the draws they had
     g2 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 1)
+    g3 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 2)
     cases = (("Jamba", 4, 2048, 32, 8, 128, torch.bfloat16, g),
              ("Jamba", 4, 2048, 32, 8, 128, torch.float32, g),
              ("StableLM", 8, 1024, 32, 32, 64, torch.bfloat16, g),
              ("ragged S", 2, 1000, 32, 8, 128, torch.float32, g),
              ("ragged S", 2, 1000, 32, 8, 128, torch.bfloat16, g2),
-             ("short S", 2, 80, 32, 8, 128, torch.bfloat16, g2))
+             ("short S", 2, 80, 32, 8, 128, torch.bfloat16, g2),
+             ("Gemma", 4, 2048, 8, 1, 256, torch.bfloat16, g3),
+             ("Gemma", 4, 2048, 8, 1, 256, torch.float32, g3),
+             ("Gemma ragged S", 2, 1000, 8, 1, 256, torch.bfloat16, g3),
+             ("Gemma short S", 1, 80, 8, 1, 256, torch.bfloat16, g3),
+             ("Phi-3 serving", 4, 1024, 40, 10, 128, torch.bfloat16, g3),
+             ("Nemotron serving", 4, 1024, 48, 8, 128, torch.bfloat16, g3),
+             ("Whisper decoder serving", 4, 448, 20, 20, 64, torch.bfloat16,
+              g3),
+             ("InternVL2 serving", 4, 1024, 14, 2, 64, torch.bfloat16, g3))
     recs = []
     for label, B, S, H, KVH, hd, dtype, gen in cases:
         q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
@@ -1421,14 +1484,73 @@ def hybrid_steps(cfg, batch, prompt_len, gen, generator, dev):
             "params": params, "prompts": prompts}
 
 
-def lm_serve(label, run, cfg, batch, prompt_len, gen, seed, dev, needs):
-    """One run of ``run`` (``serve.serve`` or ``hybrid_steps``; random
-    params and prompts from ``seed``) with the launch counts set to 0 just
-    before and read just after; then the same prefill again, which must be
-    bitwise equal, and one prefill and one decode step under the profiler
-    (their launches uncounted). Returns a record; the params are freed."""
-    from repro_torch.configs import ShapeConfig
+def pad_self_cache(cache, window: int):
+    """``serve.pad_cache`` on the self-attention's k and v only: the JAX
+    ``pad_cache`` it mirrors would also grow the cross-attention's xk and
+    xv where the window is longer than the encoder's frames, and the
+    zero keys would then take part in the cross-attention."""
     from repro_torch.launch import serve as SV
+    out = dict(cache)
+    out.update(SV.pad_cache({k: cache[k] for k in ("k", "v")}, window))
+    return out
+
+
+def media_steps(cfg, batch, prompt_len, gen, generator, dev):
+    """An audio (Whisper) or vlm (InternVL2) model's prefill and decode
+    steps, driven as ``serve`` drives a token LM (its launcher refuses
+    these families, as the JAX one does), with its result dict: ``batch``
+    prompts of ``prompt_len`` tokens with random frames (audio, the
+    encoder's ``n_frames``) or patches (vlm), one prefill, its cache
+    padded to the window (the patches, the prompt and ``gen`` tokens;
+    ``pad_self_cache``), then ``gen - 1`` greedy decode steps at the
+    positions after the prompt."""
+    from repro_torch.models import api
+    enc = cfg.encoder
+    prefix = enc.n_frames if cfg.family == "vlm" else 0
+    window = prefix + prompt_len + gen
+    params = api.init_params(cfg, generator, max_seq=window, device=dev)
+    prefill = api.make_prefill_step(cfg)
+    decode = api.make_decode_step(cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=generator, device=dev)
+    inputs = {"tokens": prompts,
+              "frames" if cfg.family == "audio" else "patches": torch.randn(
+                  batch, enc.n_frames, enc.frontend_dim, generator=generator,
+                  device=dev)}
+    _sync(dev)
+    t0 = time.perf_counter()
+    cache, logits = prefill(params, inputs)
+    cache = pad_self_cache(cache, window)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_logits = logits
+    tok = torch.argmax(logits, dim=-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        cache, logits = decode(params, cache,
+                               {"token": tok, "pos": prefix + prompt_len + i})
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+    _sync(dev)
+    return {"tokens": torch.stack(out, dim=1).cpu(),
+            "prefill_logits": prefill_logits, "last_logits": logits,
+            "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0,
+            "params": params, "prompts": prompts, "inputs": inputs,
+            "window": window, "pos0": prefix + prompt_len}
+
+
+def lm_serve(label, run, cfg, batch, prompt_len, gen, seed, dev, needs):
+    """One run of ``run`` (``serve.serve``, ``hybrid_steps`` or
+    ``media_steps``; random params and prompts from ``seed``) with the
+    launch counts set to 0 just before and read just after; then the same
+    prefill again, which must be bitwise equal, and one prefill and one
+    decode step under the profiler (their launches uncounted). Two peaks
+    of device memory: ``init_peak_gb`` over the run, the drawing of the
+    params included; ``peak_mem_gb`` over the prefill and decode step
+    after it, with the params resident: what serving needs. Returns a
+    record; the params are freed."""
+    from repro_torch.configs import ShapeConfig
     from repro_torch.models import api
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1436,45 +1558,53 @@ def lm_serve(label, run, cfg, batch, prompt_len, gen, seed, dev, needs):
     reset_counts()
     r = run(cfg, batch, prompt_len, gen, g, dev)
     launches = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     require_launches(label, launches, needs)
     check_finite(label, r["prefill_logits"], r["last_logits"])
     if r["tokens"].shape != (batch, gen):
         fail(f"{label}: generated {tuple(r['tokens'].shape)} tokens")
     prefill = api.make_prefill_step(cfg)
+    inputs = r.get("inputs", {"tokens": r["prompts"]})
     t0 = time.perf_counter()
-    _, again = prefill(r["params"], {"tokens": r["prompts"]})
+    again = prefill(r["params"], inputs)[1]    # its cache freed at once
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     if not torch.equal(again, r["prefill_logits"]):
         fail(f"{label}: the same prefill twice is not bitwise equal")
     out = []
     prof_prefill = profile_path(lambda: out.append(
-        prefill(r["params"], {"tokens": r["prompts"]})))
+        prefill(r["params"], inputs)))
     print_profile(f"{label}: one prefill", prof_prefill, 8)
     cache = out[0][0]
-    window = prompt_len + gen
+    window = r.get("window", prompt_len + gen)
     if cache is None:     # hybrid: decode from a zero cache, at position 0
         cache, pos = api.zero_cache(cfg, ShapeConfig("p", window, batch,
                                                      "decode"), dev), 0
+    elif cfg.family == "ssm":     # a recurrent state: nothing to pad
+        pos = prompt_len
     else:
-        cache, pos = SV.pad_cache(cache, window), prompt_len
+        cache, pos = pad_self_cache(cache, window), r.get("pos0", prompt_len)
     decode = api.make_decode_step(cfg)
     tok = torch.argmax(out[0][1], dim=-1)
     del out
     prof_decode = profile_path(lambda: decode(
         r["params"], cache, {"token": tok, "pos": pos}))
     print_profile(f"{label}: one decode step", prof_decode, 8)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del cache
     steps = gen - 1
-    rec = {"batch": batch, "prompt_len": prompt_len, "decode_steps": steps,
-           "n_params": api.n_params(cfg), "prefill_s": r["prefill_s"],
+    rec = {"arch": cfg.arch_id, "n_layers": cfg.n_layers, "batch": batch,
+           "prompt_len": prompt_len, "decode_steps": steps,
+           "n_params": api.n_params(cfg, window), "prefill_s": r["prefill_s"],
            "prefill_warm_s": warm_s,
            "prefill_tok_s": batch * prompt_len / r["prefill_s"],
            "prefill_warm_tok_s": batch * prompt_len / warm_s,
            "decode_s": r["decode_s"],
            "decode_tok_s": batch * steps / r["decode_s"],
-           "peak_mem_gb": peak_gb, "launches": launches, "profile_prefill": prof_prefill,
+           "peak_mem_gb": peak_gb, "init_peak_gb": init_peak_gb,
+           "launches": launches, "profile_prefill": prof_prefill,
            "profile_decode_step": prof_decode}
     print(f"  {label}: {rec['n_params'] / 1e9:.2f} B params; prefill "
           f"{batch}x{prompt_len} in {r['prefill_s']:.3f} s "
@@ -1482,9 +1612,10 @@ def lm_serve(label, run, cfg, batch, prompt_len, gen, seed, dev, needs):
           f"{warm_s:.3f} s, {rec['prefill_warm_tok_s']:.0f} tok/s); "
           f"{steps} decode steps in {r['decode_s']:.3f} s "
           f"({rec['decode_tok_s']:.1f} tok/s); peak device memory "
-          f"{rec['peak_mem_gb']:.2f} GB; launches "
+          f"serving {peak_gb:.2f} GB, with the params' drawing "
+          f"{init_peak_gb:.2f} GB; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
-    del r, again
+    del r, again, inputs
     torch.cuda.empty_cache()
     return rec
 
@@ -1572,6 +1703,104 @@ def lm_correctness(seed, dev):
     return rec
 
 
+# the rest of the zoo served at its published widths and full depth, in
+# bf16: (record key, label, arch, batch, prompt tokens, generated tokens,
+# the kernels its path must launch). The dense and ssm ones go through
+# repro_torch.launch.serve, the audio and vlm ones through the models.api
+# steps (media_steps); RWKV-6's WKV is matmuls, as in the reference, so
+# its path launches no kernel
+ZOO_SERVE = (
+    ("phi3_serve", "Phi-3-medium 14B, CONFIG (40 layers), bf16, "
+     "repro_torch.launch.serve", "phi3-medium-14b", 4, 1024, 16,
+     ("flash_attention",)),
+    ("nemotron_serve", "Nemotron-4 15B, CONFIG (32 layers), bf16, "
+     "repro_torch.launch.serve", "nemotron-4-15b", 4, 1024, 16,
+     ("flash_attention",)),
+    ("gemma_serve", "Gemma 2B, CONFIG (18 layers, head dim 256, MQA), bf16, "
+     "repro_torch.launch.serve", "gemma-2b", 4, 1024, 16,
+     ("flash_attention",)),
+    ("rwkv_serve", "RWKV-6 7B, CONFIG (32 layers), bf16, "
+     "repro_torch.launch.serve", "rwkv6-7b", 4, 1024, 16, ()),
+    ("whisper_steps", "Whisper large-v3, CONFIG (32 + 32 layers, 1,500 "
+     "frames), bf16, prefill and 16 decode steps from the padded cache",
+     "whisper-large-v3", 4, 448, 17, ("flash_attention",)),
+    ("internvl_steps", "InternVL2-1B, CONFIG (24 layers, 256 patches + 768 "
+     "text tokens), bf16, prefill and 16 decode steps from the padded "
+     "cache", "internvl2-1b", 4, 768, 17, ("flash_attention",)),
+)
+
+
+def zoo_correctness(seed, dev):
+    """Each config of ZOO_SERVE at full width, 2 layers (InternVL2 4,
+    Whisper 2 + 2), f32: prefill logits on the kernels against the same
+    path on the plain versions (LOGIT_TOL x max|logits|; RWKV-6 has no
+    kernel on its path), and decode against prefill (DECODE_TOL): the
+    prefill of S - 1 tokens plus one decode step against the prefill of S
+    (S = 128, after the 256 patches for InternVL2, with the cross cache
+    for Whisper), as the JAX test_decode_matches_full_forward holds them;
+    RWKV-6 at S = 64, from a prefill of 48 tokens (both prefills a
+    multiple of its 16-step chunk) through 16 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    f32 = dict(param_dtype="float32", activation_dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    rec = {}
+    for key, _, arch, *_ in ZOO_SERVE:
+        cfg = get_config(arch)
+        depth = dict(n_layers=4 if cfg.family == "vlm" else 2)
+        if cfg.family == "audio":
+            depth["encoder"] = dataclasses.replace(cfg.encoder, n_layers=2)
+        cfg = cfg.with_overrides(**f32, **depth)
+        ssm = cfg.family == "ssm"
+        S = 64 if ssm else 128
+        prefix = cfg.encoder.n_frames if cfg.family == "vlm" else 0
+        params = api.init_params(cfg, g, max_seq=prefix + S, device=dev)
+        prefill, decode = api.make_prefill_step(cfg), api.make_decode_step(
+            cfg)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, S),
+                                         generator=g, device=dev)}
+        if cfg.family in ("audio", "vlm"):
+            batch["frames" if cfg.family == "audio" else "patches"] = \
+                torch.randn(2, cfg.encoder.n_frames, cfg.encoder.frontend_dim,
+                            generator=g, device=dev)
+        name = (f"{arch} f32, {cfg.n_layers} layers"
+                + (f" + {cfg.encoder.n_layers} encoder layers"
+                   if cfg.family == "audio" else ""))
+        _, want = prefill(params, batch)
+        r = {}
+        if not ssm:
+            before = read_counts()
+            with plain_kernels():
+                _, lp = prefill(params, batch)
+            if read_counts() != before:
+                fail("the plain path launched a kernel")
+            r["kernels_vs_plain"] = compare(
+                f"{name} prefill logits (B=2, S={S}), kernels vs plain", want,
+                lp, LOGIT_TOL)
+            cut = dict(batch, tokens=batch["tokens"][:, :-1])
+            cache, _ = prefill(params, cut)
+            cache = pad_self_cache(cache, prefix + S)
+            _, got = decode(params, cache, {"token": batch["tokens"][:, -1],
+                                            "pos": prefix + S - 1})
+            how = f"prefill of {S - 1} + one decode step vs prefill of {S}"
+        else:
+            cache, _ = prefill(params, {"tokens": batch["tokens"][:, :48]})
+            for t in range(48, S):
+                cache, got = decode(params, cache,
+                                    {"token": batch["tokens"][:, t],
+                                     "pos": t})
+            how = f"prefill of 48 + {S - 48} decode steps vs prefill of {S}"
+        r["decode_vs_prefill"] = e = _allclose_err(got, want, DECODE_TOL)
+        print(f"  {name}: {how}: max |diff| / (2e-3 + 2e-3 |prefill|) "
+              f"{e:.3e} {'ok' if e <= 1 else 'DISAGREES'}")
+        if e > 1:
+            fail(f"{arch}: decode disagrees with prefill")
+        rec[key] = r
+        del params, cache, batch
+        torch.cuda.empty_cache()
+    return rec
+
+
 def lm_phase(seed, dev):
     """The LM side: both kernels against their plain versions, then the
     serving paths at full width (bf16), then the f32 correctness checks.
@@ -1598,8 +1827,23 @@ def lm_phase(seed, dev):
         get_config("jamba-v0.1-52b").with_overrides(moe=None), 4, 2048, 17,
         seed, dev, ("flash_attention", "selective_scan"))
     rec["correctness"] = lm_correctness(seed, dev)
+    for key, label, arch, batch, prompt_len, gen, needs in ZOO_SERVE:
+        cfg = get_config(arch)
+        run = (SV.serve if cfg.family in ("dense", "ssm") else media_steps)
+        rec[key] = lm_serve(label, run, cfg, batch, prompt_len, gen, seed,
+                            dev, needs)
+    rec["zoo_correctness"] = zoo_correctness(seed, dev)
+    print("  the zoo served in bf16 (prefill s, decode tok/s, serving peak "
+          "GB (with the params' drawing), launches of flash_attention):")
+    for key, *_ in ZOO_SERVE:
+        z = rec[key]
+        print(f"    {z['arch']}: {z['prefill_s']:.3f} s, "
+              f"{z['decode_tok_s']:.1f} tok/s, {z['peak_mem_gb']:.2f} GB "
+              f"({z['init_peak_gb']:.2f} GB), "
+              f"{z['launches']['flash_attention']}")
     paths = {"stablelm_serve": rec["stablelm_serve"]["launches"],
-             "jamba_steps": rec["jamba_steps"]["launches"]}
+             "jamba_steps": rec["jamba_steps"]["launches"],
+             **{key: rec[key]["launches"] for key, *_ in ZOO_SERVE}}
     return [fa_row, ss_row], paths, rec
 
 
@@ -3522,23 +3766,27 @@ def check_attention_bwd_small(g, dev):
 def check_attention_bwd(g, dev):
     """flash_attention_bwd against autograd of ref.flash_attention on the
     card, bf16 and f32, at StableLM's (H = KVH = 32, hd 64) and Jamba's
-    (H 32, KVH 8, hd 128) shapes, B = 1, S = 4096: a Jamba micro-batch's
-    shape on the training path is the row. Times the kernel (beside PR
-    23's), the plain backward (autograd of the plain forward, the graph
-    kept), SDPA's backward, and the forward with and without the
-    log-sum-exps; then the small cases of check_attention_bwd_small."""
+    (H 32, KVH 8, hd 128) shapes, and bf16 at Gemma 2B's (H 8, KVH 1, hd
+    256: the CUDA-core kernel, on inputs of a generator of its own), B =
+    1, S = 4096: a Jamba micro-batch's shape on the training path is the
+    row. Times the kernel (beside its first version's, FIRST_BWD_MS), the
+    plain backward (autograd of the plain forward, the graph kept), SDPA's
+    backward, and the forward with and without the log-sum-exps; then the
+    small cases of check_attention_bwd_small."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     from repro_torch.kernels import registry
     sdpa = torch.nn.functional.scaled_dot_product_attention
     recs = []
-    for label, B, S, H, KVH, hd, dtype in (
-            ("StableLM", 1, 4096, 32, 32, 64, torch.bfloat16),
-            ("StableLM", 1, 4096, 32, 32, 64, torch.float32),
-            ("Jamba", 1, 4096, 32, 8, 128, torch.bfloat16),
-            ("Jamba", 1, 4096, 32, 8, 128, torch.float32)):
+    g_gemma = torch.Generator(device=dev).manual_seed(g.initial_seed() + 1)
+    for label, B, S, H, KVH, hd, dtype, gen in (
+            ("StableLM", 1, 4096, 32, 32, 64, torch.bfloat16, g),
+            ("StableLM", 1, 4096, 32, 32, 64, torch.float32, g),
+            ("Jamba", 1, 4096, 32, 8, 128, torch.bfloat16, g),
+            ("Jamba", 1, 4096, 32, 8, 128, torch.float32, g),
+            ("Gemma", 1, 4096, 8, 1, 256, torch.bfloat16, g_gemma)):
         tag = _dtype_name(dtype)
-        q, k, v, do = (torch.randn(B, S, n, hd, generator=g, device=dev)
+        q, k, v, do = (torch.randn(B, S, n, hd, generator=gen, device=dev)
                        .to(dtype) for n in (H, KVH, KVH, H))
         o, lse = FA.flash_attention(q, k, v, lse=True)
         got = FA.flash_attention_bwd(q, k, v, o, lse, do)
@@ -3974,9 +4222,10 @@ def supervised_lm_drill(seed: int, dev):
 
 def lm_training_phase(seed: int, dev):
     """Phase 13: both backward kernels against autograd of their plain
-    versions, SMOKE train steps card vs CPU, StableLM-2 1.6B and Jamba
-    (one period, no experts) training at full width, the supervised
-    drill. Returns (kernel rows, launches by path, record)."""
+    versions, SMOKE train steps card vs CPU, StableLM-2 1.6B, Jamba (one
+    period, no experts) and Gemma 2B (full depth, 2 steps) training at
+    full width, the supervised drill. Returns (kernel rows, launches by
+    path, record)."""
     from repro_torch.configs import get_config
     g = torch.Generator(device=dev).manual_seed(seed + 13)
     rec = {}
@@ -3993,7 +4242,11 @@ def lm_training_phase(seed: int, dev):
         "Jamba v0.1 without experts, one period (8 layers), bf16",
         get_config("jamba-v0.1-52b").with_overrides(moe=None, n_layers=8),
         2, seed, dev, repeat=False)
-    for k in ("stablelm_train", "jamba_train"):
+    rec["gemma_train"] = lm_train_run(
+        "Gemma 2B, CONFIG (18 layers, head dim 256: the bf16 backward on the "
+        "CUDA cores), bf16, remat layer", get_config("gemma-2b"), 2, seed,
+        dev, repeat=False)
+    for k in ("stablelm_train", "jamba_train", "gemma_train"):
         need = ("flash_attention", "flash_attention_bwd") + (
             ("selective_scan", "selective_scan_bwd") if k == "jamba_train"
             else ())
@@ -4001,6 +4254,7 @@ def lm_training_phase(seed: int, dev):
     rec["supervised"], sup_launches = supervised_lm_drill(seed, dev)
     paths = {"stablelm_train": rec["stablelm_train"]["launches"],
              "jamba_train": rec["jamba_train"]["launches"],
+             "gemma_train": rec["gemma_train"]["launches"],
              "supervised_lm": sup_launches}
     return [fa_row, ss_row], paths, rec
 
@@ -4036,12 +4290,24 @@ def main() -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), {kind}")
 
-    # 2. build
+    # 2. build, and beside it the attention's two sources once more for
+    # what ptxas reports of their head-dim-256 instances (the bf16
+    # forward's 64-row blocks, the bf16 backward on the CUDA cores)
     t0 = time.perf_counter()
-    _build.build_all()
+    ptxas = start_ptxas(("flash_attention", "flash_attention_bwd"))
+    try:
+        _build.build_all()
+    except BaseException:
+        for proc in ptxas.values():
+            proc.kill()
+            proc.communicate()
+        raise
     build_s = time.perf_counter() - t0
     print(f"[2] build: {len(_build.SIGNATURES)} kernel libraries in "
           f"{build_s:.1f} s")
+    ptxas_hd256 = ptxas_report(ptxas, "Li256E")
+    for k, v in sorted(ptxas_hd256.items()):
+        print(f"  ptxas {k}: {v}")
 
     # 3. model, session and kernel checks at the serving path's shapes
     dev = torch.device("cuda")
@@ -4137,7 +4403,8 @@ def main() -> int:
     del ubm, model
     torch.cuda.empty_cache()
 
-    # 6. the LM side: Jamba without experts and StableLM-2 1.6B
+    # 6. the LM side: Jamba without experts, StableLM-2 1.6B and the rest
+    # of the zoo
     print("[6] LM serving")
     t0 = time.perf_counter()
     lm_rows, lm_paths, lm = lm_phase(args.seed, dev)
@@ -4215,11 +4482,11 @@ def main() -> int:
 
     # kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
-    # training runs, the two LM serving runs, the recipe's runs, the
+    # training runs, the eight LM serving runs, the recipe's runs, the
     # streaming and demotion runs, the two supervised runs, every
     # rank's runs of the mesh phase and phase 13's LM training runs
-    # (StableLM's 3 steps, Jamba's 2, the supervised drill); the repeat
-    # runs and the checks against plain paths not included.
+    # (StableLM's 3 steps, Jamba's 2, Gemma's 2, the supervised drill); the
+    # repeat runs and the checks against plain paths not included.
     # packed_matmul's bf16 forms are held and timed here, but no path of
     # this script runs the E-step with bf16 inputs (OFF_PATH).
     paths = {"sparse": launches_sparse, "dense": launches_dense,
@@ -4239,7 +4506,8 @@ def main() -> int:
     frames = sum(u.shape[0] for u in utts)
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "seed": args.seed,
-              "build_s": build_s, "setup_s": setup_s,
+              "build_s": build_s, "ptxas_hd256": ptxas_hd256,
+              "setup_s": setup_s,
               "requests": len(utts), "frames": frames,
               "sparse_wall_s": [wall, wall2], "dense_wall_s": wall_d,
               "fused_wall_s": wall_f, "launches": paths,
@@ -4250,6 +4518,8 @@ def main() -> int:
               "recipe": recipe, "streaming": stream, "supervised": sup,
               "mesh": mesh, "analysis": analysis, "lowering": lowering,
               "lm_training": lm_train, "kernels": rows}
+    record["command_s"] = time.perf_counter() - T_START
+    print(f"chip_smoke: {record['command_s']:.1f} s from start")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

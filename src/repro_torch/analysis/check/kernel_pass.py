@@ -292,7 +292,7 @@ def check_kernel(spec, config: Optional[dict] = None,
 
 def check_all_kernels(budget: int = SMEM_BUDGET_BYTES) -> List[Finding]:
     """Every registered kernel at its default config and, for
-    ``tvm_estep`` and ``flash_attention``, at each form's."""
+    ``tvm_estep`` and the attention kernels, at each form's."""
     from repro_torch.kernels import registry
     out: List[Finding] = []
     for spec in registry.all_specs():
@@ -308,7 +308,11 @@ def gate_configs(name: str):
         return [None, {"M": 16, "dtype": "float32"},
                 {"M": 256, "dtype": "float32"}]
     if name in ("flash_attention", "flash_attention_bwd"):
-        return [None, {"dtype": "float32"}]
+        # f32, and bf16 at hd 256 (the forward's 64-row blocks, the
+        # backward's CUDA-core kernel): Gemma 2B's MQA prefill
+        return [None, {"dtype": "float32"},
+                {"B": 4, "S": 2048, "H": 8, "KVH": 1, "hd": 256,
+                 "dtype": "bfloat16"}]
     if name == "gmm_align":
         return [None, {"K": 40}, {"rescore_only": True}]
     return [None]

@@ -50,6 +50,15 @@
 // products, made ptxas serialize the wgmma here. Head dims with an
 // instance: BF16_HEAD_DIMS in kernels/flash_attention.py.
 //
+// hd 256 (Gemma 2B): a consumer warpgroup's 64 x 256 f32 output would take
+// 128 registers a thread, beside S (32) and the p pair (32), over what
+// 288 threads can hold. So at hd 256 a block has 64 query rows, and both
+// warpgroups take all 64: each computes the same S and softmax (the same
+// bits) and accumulates half of o's columns, 64 x 128, with an n128 P.V
+// over its half of V's columns. S is computed twice: 2x the function's
+// operations against 1.5x at the other head dims. The q tile of 64 rows
+// leaves room for the 3-stage ring of 64-key tiles (230,456 bytes).
+//
 // f32 (flash_attention_f32): the CUDA cores, f32 FMAs throughout. One
 // block per (q tile of 64 rows, head, batch), 256 threads as 16 x 16;
 // thread (ty, tx) owns query rows ty + 16i (i < 4). The q tile, then each
@@ -269,7 +278,7 @@ namespace tc {
 
 using namespace hopper;
 
-constexpr int BQ = 128;                 // query rows per block
+constexpr int BQ = 128;                 // query rows per block (64 at hd 256)
 constexpr int STAGES = 3;               // (k, v) tiles in flight
 constexpr int CONSUMERS = 256;          // two warpgroups of 64 query rows
 constexpr int THREADS = CONSUMERS + 32; // and one producer warp
@@ -279,11 +288,17 @@ constexpr int ROW = 128;                // bytes per swizzled row
 // Tile sizes and shared memory, every tile 1024-byte aligned (the 128-byte
 // swizzle's period). A tile of R rows x hd is hd/64 chunks of R rows x 128
 // bytes. Keys per tile: 128 up to hd = 128, 64 above (shared memory).
+// SPLIT (hd 256): the block's ROWS = 64 query rows are both warpgroups',
+// and warpgroup wg holds o's columns [OD wg, OD wg + OD); otherwise
+// warpgroup wg holds rows [64 wg, 64 wg + 64) and all hd columns.
 template <int HD>
 struct Layout {
+  static constexpr bool SPLIT = HD > 192;
+  static constexpr int ROWS = SPLIT ? BQ / 2 : BQ;    // query rows a block
+  static constexpr int OD = SPLIT ? HD / 2 : HD;      // o columns a warpgroup
   static constexpr int BKV = HD <= 128 ? 128 : 64;
   static constexpr int NCH = HD / CHUNK;
-  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int Q_BYTES = ROWS * HD * 2;
   static constexpr int KV_BYTES = BKV * HD * 2;      // one k or one v tile
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
@@ -339,11 +354,12 @@ __device__ __forceinline__ void mma_rs_n192(float (&d)[96], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int HD>
-__device__ __forceinline__ void mma_pv(float (&o)[HD / 2], const uint32_t* a,
+// O[64 x N] += P[64 x 16] V[16 x N], N = the warpgroup's o columns
+template <int N>
+__device__ __forceinline__ void mma_pv(float (&o)[N / 2], const uint32_t* a,
                                        uint64_t db) {
-  if constexpr (HD == 64) mma_rs_n64(o, a, db);
-  else if constexpr (HD == 128) mma_rs_n128(o, a, db);
+  if constexpr (N == 64) mma_rs_n64(o, a, db);
+  else if constexpr (N == 128) mma_rs_n128(o, a, db);
   else mma_rs_n192(o, a, db);
 }
 
@@ -365,6 +381,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           float scale_log2) {
   using L = Layout<HD>;
   constexpr int BKV = L::BKV;
+  constexpr int ROWS = L::ROWS;
+  constexpr int OD = L::OD;
   constexpr int NS = BKV / 2;   // score fragment floats per thread
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -375,13 +393,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t empty = full + 8 * STAGES;    // empty[s] = empty + 8 s
   const uint32_t qbar = empty + 8 * STAGES;
 
-  const int nq = (S + BQ - 1) / BQ;
+  const int nq = (S + ROWS - 1) / ROWS;
   const int qt = nq - 1 - (int)blockIdx.x;     // longest rows first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / KVH);
-  const int q0 = qt * BQ;
-  const int n_kv = (min(q0 + BQ, S) + BKV - 1) / BKV;
+  const int q0 = qt * ROWS;
+  const int n_kv = (min(q0 + ROWS, S) + BKV - 1) / BKV;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -400,7 +418,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       bar_expect_tx(qbar, L::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < L::NCH; ++c)
-        tma_load_4d(sq + c * BQ * ROW, &qmap, qbar, c * CHUNK, h, q0, b);
+        tma_load_4d(sq + c * ROWS * ROW, &qmap, qbar, c * CHUNK, h, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % STAGES;
         bar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
@@ -417,20 +435,22 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // consumers: warpgroup wg owns query rows row0 .. row0 + 63 and
-  // computes kv tiles 0 .. nt - 1 (the rest lie above its rows)
+  // consumers: warpgroup wg owns query rows row0 .. row0 + 63 and o's
+  // columns col0 .. col0 + OD - 1, and computes kv tiles 0 .. nt - 1 (the
+  // rest lie above its rows)
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
-  const int row0 = q0 + 64 * wg;
+  const int row0 = q0 + (L::SPLIT ? 0 : 64 * wg);
+  const int col0 = L::SPLIT ? OD * wg : 0;
   const int r0 = row0 + 16 * warp + lane / 4;  // this thread's rows r0, r0 + 8
   const int r1 = r0 + 8;
   const int nt = min(n_kv, (row0 + 63) / BKV + 1);
-  const uint32_t qa = sq + 64 * wg * ROW;
+  const uint32_t qa = sq + (L::SPLIT ? 0 : 64 * wg * ROW);
 
-  float acc[HD / 2];
+  float acc[OD / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < OD / 2; ++i) acc[i] = 0.f;
   float m0 = NEG, m1 = NEG;   // running max of the scaled scores (log2 units)
   float l0 = 0.f, l1 = 0.f;   // this thread's share of the running sums
   float sc[NS];               // S of a tile
@@ -438,28 +458,30 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int i = 0; i < NS; ++i) sc[i] = 0.f;
   uint32_t ph[NS / 2], pl[NS / 2];   // bf16 hi and lo A fragments of p
 
+  // V's columns col0 .. col0 + OD - 1 start at chunk col0 / CHUNK
   auto issue_pv = [&](int j) {
-    const uint32_t vt = sv + (j % STAGES) * L::KV_BYTES;
+    const uint32_t vt = sv + (j % STAGES) * L::KV_BYTES +
+                        (col0 / CHUNK) * BKV * ROW;
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      mma_pv<HD>(acc, ph + 4 * kk, desc(vt + kk * 16 * ROW, BKV * ROW, 1024));
+      mma_pv<OD>(acc, ph + 4 * kk, desc(vt + kk * 16 * ROW, BKV * ROW, 1024));
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      mma_pv<HD>(acc, pl + 4 * kk, desc(vt + kk * 16 * ROW, BKV * ROW, 1024));
+      mma_pv<OD>(acc, pl + 4 * kk, desc(vt + kk * 16 * ROW, BKV * ROW, 1024));
   };
   auto issue_s = [&](int j) {
     const uint32_t kt = sk + (j % STAGES) * L::KV_BYTES;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;   // k16 step in the row
-      mma_qk<BKV>(sc, desc(qa + (kk / 4) * BQ * ROW + off, 16, 1024),
+      mma_qk<BKV>(sc, desc(qa + (kk / 4) * ROWS * ROW + off, 16, 1024),
                   desc(kt + (kk / 4) * BKV * ROW + off, 16, 1024), kk > 0);
     }
   };
   // after a group's wait: nothing it wrote or read moves across it
   auto settle = [&]() {
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) pin(acc[i]);
+    for (int i = 0; i < OD / 2; ++i) pin(acc[i]);
 #pragma unroll
     for (int i = 0; i < NS; ++i) pin(sc[i]);
 #pragma unroll
@@ -530,7 +552,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     // then exactly 1 for each)
     if (__any_sync(0xffffffffu, a0 != 1.f || a1 != 1.f)) {
 #pragma unroll
-      for (int c = 0; c < HD / 8; ++c) {
+      for (int c = 0; c < OD / 8; ++c) {
         acc[4 * c] *= a0;
         acc[4 * c + 1] *= a0;
         acc[4 * c + 2] *= a1;
@@ -570,17 +592,19 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const float d1 = 1.f / fmaxf(l1, 1e-30f);
   // the log-sum-exp in natural-log units, the f32 path's quantity: m is
   // the running max in log2 units and l the sum of 2^(s scale log2e - m)
-  if (lse != nullptr && lane % 4 == 0) {
+  // (under SPLIT both warpgroups hold the same rows: the first writes)
+  if (lse != nullptr && lane % 4 == 0 && (!L::SPLIT || wg == 0)) {
     constexpr float LN2 = 0.6931471805599453f;
     float* lrow = lse + ((size_t)b * H + h) * S;
     if (r0 < S) lrow[r0] = (m0 + log2f(l0)) * LN2;
     if (r1 < S) lrow[r1] = (m1 + log2f(l1)) * LN2;
   }
   const size_t row_stride = (size_t)H * HD;
-  __nv_bfloat16* o0 = o + ((size_t)b * S + r0) * row_stride + (size_t)h * HD;
+  __nv_bfloat16* o0 =
+      o + ((size_t)b * S + r0) * row_stride + (size_t)h * HD + col0;
   __nv_bfloat16* o1 = o0 + 8 * row_stride;
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
+  for (int c = 0; c < OD / 8; ++c) {
     const int col = 8 * c + 2 * (lane % 4);
     if (r0 < S)
       *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
@@ -596,7 +620,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int S, int H, int KVH, cudaStream_t stream) {
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, B, S, H, HD, BQ) ||
+  constexpr int ROWS = Layout<HD>::ROWS;
+  if (!make_map(&qm, q, B, S, H, HD, ROWS) ||
       !make_map(&km, k, B, S, KVH, HD, Layout<HD>::BKV) ||
       !make_map(&vm, v, B, S, KVH, HD, Layout<HD>::BKV))
     return (int)cudaErrorInvalidValue;
@@ -605,7 +630,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
       flash_attention_tc_kernel<HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  const dim3 grid((S + ROWS - 1) / ROWS, H, B);
   const float scale_log2 =
       (float)(std::pow((double)HD, -0.5) * 1.4426950408889634);
   flash_attention_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(
@@ -620,6 +645,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
     case 64: return launch<64>(q, k, v, o, lse, B, S, H, KVH, st);
     case 128: return launch<128>(q, k, v, o, lse, B, S, H, KVH, st);
     case 192: return launch<192>(q, k, v, o, lse, B, S, H, KVH, st);
+    case 256: return launch<256>(q, k, v, o, lse, B, S, H, KVH, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -28,7 +28,7 @@
 // summed by a shuffle tree), then a dQ kernel, then a dK/dV kernel, both of
 // which read Delta. Dispatch by input type and head dim (not a fallback):
 // bf16 at hd 64 and 128 on the tensor cores (namespace tc), bf16 at hd 192
-// and f32 at every head dim on the CUDA cores (namespace simt).
+// and 256 and f32 at every head dim on the CUDA cores (namespace simt).
 //
 // Precision contract of the tensor-core kernels:
 //   - Exact products. Q, K, V and dO enter wgmma as the bf16 values they
@@ -1035,8 +1035,11 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
     case 128:
       return tc::launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S,
                              H, KVH, st);
-    case 192:   // the CUDA-core kernel: wgmma at hd 192 is not instanced
+    case 192:   // the CUDA-core kernel: wgmma at hd 192 and 256 is not
       return simt::launch<__nv_bfloat16, 192>(q, k, v, o, lse, dout, dq, dk,
+                                              dv, delta, B, S, H, KVH, st);
+    case 256:   // instanced
+      return simt::launch<__nv_bfloat16, 256>(q, k, v, o, lse, dout, dq, dk,
                                               dv, delta, B, S, H, KVH, st);
     default:
       return (int)cudaErrorInvalidValue;

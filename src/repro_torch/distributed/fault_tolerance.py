@@ -201,8 +201,10 @@ def run_supervised(
     ``mesh`` (a ``launch.mesh.Mesh``; ``ckpt`` built with the same): every
     rank runs this loop on the same replicated state, so every decision
     (a guardrail's, a chaos hook's, a restart) is the same on every rank.
-    The one that reads a clock is made so: a step's time is the slowest
-    rank's. A checkpoint is corrupted by rank 0 alone, as only it writes.
+    The ones that read a clock or the checkpoint directory are made so: a
+    step's time is the slowest rank's, and every rank looks for a
+    checkpoint before a barrier that rank 0's first save waits behind. A
+    checkpoint is corrupted by rank 0 alone, as only it writes.
     """
     policy = policy or RetryPolicy(max_restarts=max_restarts)
     chaos = chaos or Chaos()
@@ -218,9 +220,15 @@ def run_supervised(
     fault_t0: Optional[float] = None
 
     while True:
-        # (re)start: restore the newest verified checkpoint, or init
+        # (re)start: restore the newest verified checkpoint, or init.
+        # Every rank of a mesh looks before any rank writes (the eager
+        # step-0 save below): a rank that looked after rank 0 had saved
+        # would restore and enter the first step's collectives while rank
+        # 0 waited in the save's barrier, and the two would deadlock
         data = data_factory()
-        if ckpt.has_checkpoint():
+        resume = ckpt.has_checkpoint()
+        ckpt.sync()
+        if resume:
             state, step0, extra = ckpt.restore_latest_verified(
                 init_state_fn())
             skipped.extend(s for s in ckpt.skipped_corrupt

@@ -7,8 +7,8 @@ keeps p's f32 precision), f32 on the CUDA cores. With ``lse=True`` it
 also returns each row's log-sum-exp [B, H, S] f32, which the backward
 (``csrc/flash_attention_bwd.cu``) recomputes the probabilities from: bf16
 at hd 64 and 128 on the tensor cores (P and dS split into bf16 hi and lo
-parts for their products), bf16 at hd 192 and f32 on the CUDA cores. The
-kernels mask ragged S themselves, so any S is exact.
+parts for their products), bf16 at hd 192 and 256 and f32 on the CUDA
+cores. The kernels mask ragged S themselves, so any S is exact.
 ``ops.flash_attention`` dispatches here for CUDA tensors (through an
 autograd function when a gradient is wanted) and to
 ``ref.flash_attention`` for CPU tensors. ``backward_blocks`` is the
@@ -31,9 +31,10 @@ BWD_KERNELS = {
 }
 # head dims with a bf16 instance, the tensor-core forward's (csrc:
 # tc::dispatch) and the backward's (csrc/flash_attention_bwd.cu)
-BF16_HEAD_DIMS = (64, 128, 192)
-# csrc/flash_attention.cu: query rows a block, threads a block and (bf16)
-# (k, v) tiles in flight, by input type
+BF16_HEAD_DIMS = (64, 128, 192, 256)
+# csrc/flash_attention.cu: query rows a block (bf16: up to hd 192, see
+# tc_rows), threads a block and (bf16) (k, v) tiles in flight, by input
+# type
 BQ = {torch.float32: 64, torch.bfloat16: 128}
 THREADS = {torch.float32: 256, torch.bfloat16: 288}
 TC_STAGES = 3
@@ -48,6 +49,20 @@ BWD_THREADS = {"tc": 384, "simt": 256}
 BWD_TC_STAGES = 4
 
 
+def tc_rows(hd: int) -> int:
+    """Query rows a block of the tensor-core forward (``tc::Layout::BQ``):
+    128 (one 64-row slice for each consumer warpgroup), and 64 at hd 256,
+    where the two warpgroups share the block's rows and each holds half of
+    the output's columns (a 64 x 256 f32 accumulator would not fit one
+    warpgroup's registers beside S and p)."""
+    return BQ[torch.bfloat16] // 2 if hd > 192 else BQ[torch.bfloat16]
+
+
+def q_rows(dtype: torch.dtype, hd: int) -> int:
+    """Query rows a block of the forward launch, by input type."""
+    return tc_rows(hd) if dtype == torch.bfloat16 else BQ[dtype]
+
+
 def kv_rows(dtype: torch.dtype, hd: int) -> int:
     """Key rows a (k, v) tile: 64 in f32; 128 in bf16 up to hd 128, else
     64 (``Layout::BKV``)."""
@@ -57,18 +72,20 @@ def kv_rows(dtype: torch.dtype, hd: int) -> int:
 def smem_bytes(dtype: torch.dtype, hd: int) -> int:
     """Shared memory of a block: f32 (``simt::smem_bytes``) the q and o
     tiles [64][hd + 1], a k or v tile [64][hd] and p [64][65]; bf16
-    (``tc::Layout::BYTES``) the q tile, the ring of k and v tiles, the
-    mbarriers and 1024 bytes of alignment slack."""
+    (``tc::Layout::BYTES``) the q tile of ``tc_rows(hd)`` rows, the ring
+    of ``TC_STAGES`` k and v tiles, the mbarriers and 1024 bytes of
+    alignment slack (230,456 bytes at hd 256)."""
     if dtype == torch.float32:
         bq = BQ[dtype]
         return 4 * (2 * bq * (hd + 1) + 64 * hd + bq * 65)
-    return (BQ[dtype] * hd * 2 + 2 * TC_STAGES * kv_rows(dtype, hd) * hd * 2
+    return (tc_rows(hd) * hd * 2 + 2 * TC_STAGES * kv_rows(dtype, hd) * hd * 2
             + (2 * TC_STAGES + 1) * 8 + 1024)
 
 
 def bwd_scope(dtype: torch.dtype, hd: int) -> str:
     """The namespace of csrc/flash_attention_bwd.cu that a call runs:
-    "tc" (wgmma) for bf16 at BWD_TC_HEAD_DIMS, else "simt"."""
+    "tc" (wgmma) for bf16 at BWD_TC_HEAD_DIMS, else "simt" (bf16 at hd
+    192 and 256, f32 at every head dim)."""
     return ("tc" if dtype == torch.bfloat16 and hd in BWD_TC_HEAD_DIMS
             else "simt")
 

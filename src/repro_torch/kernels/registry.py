@@ -335,7 +335,7 @@ def _flash_instance(cfg: dict) -> KernelInstance:
     import torch
     B, S, H, hd = cfg["B"], cfg["S"], cfg["H"], cfg["hd"]
     dt = torch.bfloat16 if cfg.get("dtype") == "bfloat16" else torch.float32
-    bq = _fa.BQ[dt]
+    bq = _fa.q_rows(dt, hd)
     tc = dt == torch.bfloat16
     return KernelInstance(
         grid=(_cdiv(S, bq), H, B), threads=_fa.THREADS[dt],

@@ -3,11 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --smoke --batch 4 --prompt-len 32 --gen 16
 
-The port of ``repro/launch/serve.py``, with the same flags. Params and
-prompts are random, drawn from a seeded generator; ``main`` runs on the
-card (``serve`` takes a ``device``). Of the JAX launcher's families
-(dense, moe, ssm) only dense is ported. A hybrid (Jamba) is refused, as
-the JAX launcher refuses it: its prefill returns no cache to decode from.
+The port of ``repro/launch/serve.py``, with the same flags plus
+``--device`` (the card unless the caller names another). Params and
+prompts are random, drawn from a seeded generator. Of the JAX launcher's
+families (dense, moe, ssm) the port serves dense and ssm (RWKV-6); moe
+waits on ROADMAP.md Queue 1 item 14d. The others are refused as the JAX
+launcher refuses them: audio and vlm need their frames or patches (their
+steps are ``models.api``'s), and a hybrid's (Jamba's) prefill returns no
+cache to decode from.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ from repro_torch.models import api
 
 
 def pad_cache(cache, target_len: int):
-    """Grow a prefill cache's sequence dim (axis 2) to the serving window."""
+    """Grow a prefill cache's sequence dim (axis 2) to the serving window
+    (every array of 3 or more dims shorter than it there, as the JAX
+    ``pad_cache``; not for an ssm's recurrent cache)."""
     def grow(a):
         if a.ndim >= 3 and a.shape[2] < target_len:
             out = a.new_zeros(a.shape[:2] + (target_len,) + a.shape[3:])
@@ -46,11 +51,15 @@ def serve(cfg, batch: int, prompt_len: int, gen: int,
     ``last_logits`` [batch, V] f32, ``prefill_s`` (prefill and cache
     growth) and ``decode_s`` (host clock, ending in a device synchronise),
     ``params`` and ``prompts``."""
-    if cfg.family != "dense":
+    if cfg.family in ("audio", "vlm"):
         raise NotImplementedError(
-            f"serve drives the dense token LMs, not {cfg.family!r}: moe and "
-            f"ssm are not ported (ROADMAP.md Queue 1 item 14), and a hybrid's "
-            f"prefill returns no cache to decode from")
+            f"serve.py drives token-LM archs, not {cfg.family!r}: its steps "
+            "need frames or patches (models.api.make_prefill_step)")
+    if cfg.family not in ("dense", "ssm") or cfg.moe is not None:
+        raise NotImplementedError(
+            f"serve drives the dense and ssm token LMs, not {cfg.family!r}: "
+            "moe is not ported (ROADMAP.md Queue 1 item 14d), and a "
+            "hybrid's prefill returns no cache to decode from")
     dev = resolve_device(device)
     window = prompt_len + gen
     params = api.init_params(cfg, generator, max_seq=window, device=dev)
@@ -61,7 +70,8 @@ def serve(cfg, batch: int, prompt_len: int, gen: int,
     _sync(dev)
     t0 = time.perf_counter()
     cache, logits = prefill(params, {"tokens": prompts})
-    cache = pad_cache(cache, window)
+    if cfg.family != "ssm":
+        cache = pad_cache(cache, window)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -89,10 +99,12 @@ def main():
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
     args = ap.parse_args()
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    dev = resolve_device()
+    dev = resolve_device(args.device)
     # repro-check: disable=SRC002
     g = torch.Generator(device=dev).manual_seed(0)
     r = serve(cfg, args.batch, args.prompt_len, args.gen, g, dev)

@@ -7,9 +7,11 @@ checkpoint/restart when given a checkpoint directory.
 The port of ``repro/launch/train.py``, with the same flags plus
 ``--device`` (the card unless the caller names another). Of the JAX
 launcher's families (dense, moe, ssm, hybrid) the port trains the dense
-decoders and a hybrid without experts; an arch with experts or of another
-family is refused (ROADMAP.md Queue 1 items 14c and 14d). Params are
-random, drawn from a generator seeded with 0.
+decoders and a hybrid without experts. An arch with experts is refused
+(ROADMAP.md Queue 1 item 14d), and so is the ssm family: its forward is
+ported (``models.api.loss_fn`` runs it on the CPU), but training it on the
+card, with audio and vlm, is item 14h. Params are random, drawn from a
+generator seeded with 0.
 """
 from __future__ import annotations
 
@@ -30,11 +32,14 @@ def check_trainable(cfg) -> None:
     """Raise for what the launcher cannot train: the families the JAX
     launcher leaves to their own examples, and what the port lacks."""
     if cfg.family in ("audio", "vlm", "ivector"):
-        raise SystemExit("use family-specific examples for audio/vlm/ivector")
-    if cfg.family not in api.PORTED_FAMILIES:
+        raise SystemExit("use family-specific examples for audio/vlm/ivector"
+                         " (training audio and vlm on the card: ROADMAP.md "
+                         "Queue 1 item 14h)")
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family is not ported "
-            "(ROADMAP.md Queue 1 items 14c, 14d)")
+            f"{cfg.arch_id}: the launcher does not train the {cfg.family!r} "
+            "family: ssm (with audio and vlm) on the card is ROADMAP.md "
+            "Queue 1 item 14h, moe item 14d")
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.arch_id}: MoE layers are not ported (ROADMAP.md Queue 1 "

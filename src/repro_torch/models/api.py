@@ -2,12 +2,15 @@
 train state, and the train, prefill and decode steps.
 
 The port of ``repro/models/api.py`` for the families it runs: ``dense``
-decoders and the ``hybrid`` (Jamba) stack, both without experts. What
-raises: the other families (``audio``, ``vlm``, ``ssm``, ``moe``:
-ROADMAP.md Queue 1 items 14c and 14d), and a config with experts
-(``cfg.moe``, item 14d). Steps are plain functions; there is no ``jit``.
-A train step takes its gradients with ``torch.autograd.grad`` over the
-param leaves; no graph outlives the step.
+decoders, the ``hybrid`` (Jamba) stack without experts, the ``audio``
+encoder-decoder (whisper), the ``vlm`` (InternVL2) and the ``ssm``
+(RWKV-6). What raises: the ``moe`` family and a config with experts
+(``cfg.moe``: ROADMAP.md Queue 1 item 14d). A step's batch holds what the
+JAX one does: ``tokens`` (prefill and train), with ``frames`` [B, F,
+frontend_dim] for audio and ``patches`` [B, P, frontend_dim] for vlm;
+``token`` and ``pos`` for a decode step. Steps are plain functions; there
+is no ``jit``. A train step takes its gradients with
+``torch.autograd.grad`` over the param leaves; no graph outlives the step.
 """
 from __future__ import annotations
 
@@ -19,25 +22,34 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import jamba as J
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
 from repro_torch.models import transformer as T
+from repro_torch.models import vlm as V
+from repro_torch.models import whisper as W
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 f32 = torch.float32
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "hybrid", "audio", "vlm", "ssm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.arch_id}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md Queue 1 item 14); ported: {PORTED_FAMILIES}")
+            f"(ROADMAP.md Queue 1 item 14d); ported: {PORTED_FAMILIES}")
 
 
 def param_table(cfg: ModelConfig, max_seq: int = 0) -> L.ParamTable:
-    """``max_seq`` sizes the learned positional table of families that
-    have one; neither ported family does."""
+    """``max_seq`` sizes whisper's learned positional table (4096 when
+    0, as in the reference); the other families have none."""
     _require_ported(cfg)
+    if cfg.family == "audio":
+        return W.whisper_table(cfg, max_seq=max_seq or 4096)
+    if cfg.family == "vlm":
+        return V.vlm_table(cfg)
+    if cfg.family == "ssm":
+        return R.rwkv_table(cfg)
     if cfg.family == "hybrid":
         return J.jamba_table(cfg)
     return T.decoder_table(cfg)
@@ -65,13 +77,18 @@ def n_params(cfg: ModelConfig, max_seq: int = 0) -> int:
 
 def cache_specs(cfg: ModelConfig,
                 shape: ShapeConfig) -> Dict[str, Tuple[Tuple, torch.dtype]]:
-    """{name: (shape, dtype)} of the decode cache at this shape."""
+    """{name: (shape, dtype)} of the decode cache at this shape: the
+    recurrent state for ssm (no sequence axis), the KV cache otherwise,
+    with the cross-attention's over the encoder's frames for audio."""
     _require_ported(cfg)
     dt = L.cfg_dtype(cfg)
     B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "ssm":
+        return R.cache_struct(cfg, B, dt)
     if cfg.family == "hybrid":
         return J.cache_struct(cfg, B, S, dt)
-    return T.cache_struct(cfg, B, S, dt)
+    cross = cfg.encoder.n_frames if cfg.family == "audio" else 0
+    return T.cache_struct(cfg, B, S, dt, cross_frames=cross)
 
 
 def zero_cache(cfg: ModelConfig, shape: ShapeConfig, device) -> Dict:
@@ -87,22 +104,36 @@ def params_struct(cfg: ModelConfig, max_seq: int = 0):
             for k, (shape, _, _) in param_table(cfg, max_seq).items()}
 
 
-def _hidden(cfg, params, tokens, kind: str, cache=None, pos=None):
+def _hidden(cfg, params, batch, kind: str):
+    """(hidden, cache or None) of a train or prefill forward over
+    ``batch`` (the JAX ``_hidden_and_aux`` without the router loss)."""
+    if cfg.family == "audio":
+        if kind == "train":
+            return W.forward_train(cfg, params, batch["frames"],
+                                   batch["tokens"]), None
+        return W.forward_prefill(cfg, params, batch["frames"],
+                                 batch["tokens"])
+    if cfg.family == "vlm":
+        if kind == "train":
+            return V.forward_train(cfg, params, batch["patches"],
+                                   batch["tokens"]), None
+        return V.forward_prefill(cfg, params, batch["patches"],
+                                 batch["tokens"])
+    if cfg.family == "ssm":
+        return R.forward(cfg, params, batch["tokens"], kind)
     if cfg.family == "hybrid":
-        return J.forward(cfg, params, tokens, kind, cache=cache, pos=pos)
-    if kind == "decode":
-        tokens = tokens[:, None]
-    x = L.embed(cfg, params, tokens)
-    return T.forward(cfg, params, x, kind, cache=cache, pos=pos)
+        return J.forward(cfg, params, batch["tokens"], kind)
+    x = L.embed(cfg, params, batch["tokens"])
+    return T.forward(cfg, params, x, kind)
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """prefill_step(params, {'tokens': [B, S]}) -> (cache or None, logits
-    of the last position [B, V] f32). Jamba's prefill returns no cache."""
+    """prefill_step(params, batch) -> (cache or None, logits of the last
+    position [B, V] f32). Jamba's prefill returns no cache."""
     _require_ported(cfg)
 
     def prefill_step(params, batch):
-        h, cache = _hidden(cfg, params, batch["tokens"], "prefill")
+        h, cache = _hidden(cfg, params, batch, "prefill")
         logits = L.logits_fn(cfg, params, h[:, -1:])
         return cache, logits[:, 0]
     return prefill_step
@@ -110,12 +141,25 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_decode_step(cfg: ModelConfig):
     """decode_step(params, cache, {'token': [B], 'pos': int}) -> (cache,
-    logits [B, V] f32). The cache is updated in place and returned."""
+    logits [B, V] f32). The cache is updated in place and returned; an
+    ssm step reads no ``pos``."""
     _require_ported(cfg)
 
     def decode_step(params, cache, batch):
-        h, cache = _hidden(cfg, params, batch["token"], "decode",
-                           cache=cache, pos=int(batch["pos"]))
+        token, pos = batch["token"], int(batch["pos"])
+        if cfg.family == "audio":
+            h, cache = W.forward_decode(cfg, params, token, cache, pos)
+        elif cfg.family == "vlm":
+            h, cache = V.forward_decode(cfg, params, token, cache, pos)
+        elif cfg.family == "ssm":
+            h, cache = R.forward(cfg, params, token, "decode", cache=cache)
+        elif cfg.family == "hybrid":
+            h, cache = J.forward(cfg, params, token, "decode", cache=cache,
+                                 pos=pos)
+        else:
+            x = L.embed(cfg, params, token[:, None])
+            h, cache = T.forward(cfg, params, x, "decode", cache=cache,
+                                 pos=pos)
         logits = L.logits_fn(cfg, params, h)
         return cache, logits[:, 0]
     return decode_step
@@ -128,11 +172,12 @@ def make_decode_step(cfg: ModelConfig):
 
 def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     """The mean next-token cross-entropy of ``batch`` ({'tokens',
-    'labels'}: [B, S] ints) under ``params``: the training forward, then
-    ``layers.chunked_lm_loss``. (The JAX loss adds the MoE router loss,
-    which is 0 without experts.)"""
+    'labels'}: [B, S] ints, with ``frames`` or ``patches`` for audio and
+    vlm; a vlm's labels cover its text positions) under ``params``: the
+    training forward, then ``layers.chunked_lm_loss``. (The JAX loss adds
+    the MoE router loss, which is 0 without experts.)"""
     _require_ported(cfg)
-    h, _ = _hidden(cfg, params, batch["tokens"], "train")
+    h, _ = _hidden(cfg, params, batch, "train")
     return L.chunked_lm_loss(cfg, params, h, batch["labels"])
 
 

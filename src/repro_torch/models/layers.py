@@ -14,8 +14,7 @@ sequence chunk of the loss is recomputed in the backward pass
 ``jax.checkpoint``-ed chunks does.
 
 Not ported yet: ``ring_attention``/``use_ring_attention`` and
-``_attn_block_size`` (mesh; ROADMAP.md Queue 1 item 14g),
-``full_attention`` (whisper; item 14c).
+``_attn_block_size`` (mesh; ROADMAP.md Queue 1 item 14g).
 """
 from __future__ import annotations
 
@@ -40,13 +39,15 @@ def table_init(table: ParamTable, generator: torch.Generator, dtype,
     """Draw every param of ``table`` in sorted-name order from one
     generator, on ``device`` (the generator's device), in f32, then cast to
     ``dtype``. Same distributions as the JAX ``table_init``; not the same
-    numbers."""
+    numbers. Each draw is scaled in place, so a param costs one f32 copy
+    beside its result (Nemotron-4's stacked up-projection is 19 GB in
+    f32)."""
     out = {}
     for name, (shape, _, init) in sorted(table.items()):
         kind = init[0]
         if kind == "normal":
             arr = torch.randn(shape, generator=generator, dtype=f32,
-                              device=device) * init[1]
+                              device=device).mul_(init[1])
         elif kind == "zeros":
             arr = torch.zeros(shape, dtype=f32, device=device)
         elif kind == "ones":
@@ -55,7 +56,8 @@ def table_init(table: ParamTable, generator: torch.Generator, dtype,
             arr = torch.full(shape, init[1], dtype=f32, device=device)
         elif kind == "uniform":
             arr = torch.rand(shape, generator=generator, dtype=f32,
-                             device=device) * (init[2] - init[1]) + init[1]
+                             device=device).mul_(init[2] - init[1]).add_(
+                                 init[1])
         else:
             raise ValueError(kind)
         out[name] = arr.to(dtype)
@@ -140,6 +142,30 @@ def blockwise_causal_attention(q, k, v):
     return ops.flash_attention(q, k, v)
 
 
+def full_attention(q, k, v, causal: bool):
+    """Plain GQA attention over a short kv (the whisper encoder and the
+    cross-attention), causal or not. q: [B, Sq, H, hd]; k, v: [B, Sk,
+    KVH, hd] -> [B, Sq, H, hd] in q's dtype.
+
+    The JAX package computes it with ``einsum`` outside any Pallas
+    kernel, so here it stays matmul and softmax on the card too. Scores
+    in f32; p is cast to q's dtype before P.V (the reference's rounding,
+    not the flash kernel's hi/lo pair), summed in f32.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    qr = q.reshape(B, Sq, KVH, G, hd)
+    s = torch.einsum("bqkgh,bskh->bqkgs", qr.to(f32), k.to(f32)) * hd ** -0.5
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(mask[None, :, None, None, :], s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqkgs,bskh->bqkgh", p.to(q.dtype).to(f32), v.to(f32))
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, pos: int):
     """Single-token attention against a fixed-size cache.
 
@@ -190,6 +216,13 @@ def _proj_heads(x, w):
     d, H, hd = w.shape
     return (x @ w.to(x.dtype).reshape(d, H * hd)).reshape(
         x.shape[:-1] + (H, hd))
+
+
+def _f32_proj_heads(x, w):
+    """x [B, S, d] @ w [d, H, hd] -> [B, S, H, hd] f32, as JAX's
+    ``preferred_element_type=f32`` einsum."""
+    d, H, hd = w.shape
+    return _f32_dot(x, w.reshape(d, H * hd)).reshape(x.shape[:-1] + (H, hd))
 
 
 def qkv_proj(cfg, p, x, positions=None):

@@ -1,4 +1,5 @@
-"""Decoder-only transformer with a KV cache: dense self-attention layers.
+"""Decoder-only transformer with a KV cache, optional cross-attention (the
+whisper decoder) and an optional learned positional table.
 
 The port of ``repro/models/transformer.py`` for a dense FFN: training,
 prefill and decode. Per-layer params keep the JAX names under
@@ -6,11 +7,12 @@ prefill and decode. Per-layer params keep the JAX names under
 layers in Python. With ``cfg.remat == "layer"`` a training forward
 recomputes each layer in the backward pass (``torch.utils.checkpoint``,
 the JAX ``jax.checkpoint`` of the layer body). A decode step writes the
-new k and v into the cache in place and returns it.
+new k and v into the cache in place and returns it; the cross-attention's
+k and v (``xk``, ``xv``) are projected from the encoder output at prefill
+and read from the cache at decode.
 
-Not ported yet (ROADMAP.md Queue 1 item 14): the MoE FFN (item 14d),
-cross-attention and the learned ``pos_embed`` (whisper, item 14c) and the
-ring-attention mesh path (item 14g).
+Not ported yet (ROADMAP.md Queue 1 item 14): the MoE FFN (item 14d) and
+the ring-attention mesh path (item 14g).
 """
 from __future__ import annotations
 
@@ -21,16 +23,22 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 
+# the families whose decoder this module runs
+FAMILIES = ("dense", "audio", "vlm")
+
 
 def _require_dense(cfg) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
+    if cfg.family not in FAMILIES or cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.arch_id} ({cfg.family}): the port's transformer runs "
-            "dense self-attention decoders only; MoE layers are not "
-            "ported yet (ROADMAP.md Queue 1 item 14)")
+            f"dense-FFN decoders of the {FAMILIES} families only; MoE "
+            "layers are not ported yet (ROADMAP.md Queue 1 item 14d)")
 
 
-def decoder_table(cfg) -> L.ParamTable:
+def decoder_table(cfg, max_seq: int = 0, cross: bool = False
+                  ) -> L.ParamTable:
+    """``cross`` adds the cross-attention and its norm to every layer;
+    ``max_seq`` > 0 a learned positional table [max_seq, d] (whisper)."""
     _require_dense(cfg)
     nl = cfg.n_layers
     t: L.ParamTable = {}
@@ -38,8 +46,14 @@ def decoder_table(cfg) -> L.ParamTable:
     t.update(L.attn_table(cfg, "layer/attn", nl))
     t.update(L.norm_table(cfg, "layer/ln_attn", nl))
     t.update(L.norm_table(cfg, "ln_final"))
+    if cross:
+        t.update(L.attn_table(cfg, "layer/xattn", nl))
+        t.update(L.norm_table(cfg, "layer/ln_xattn", nl))
     t.update(L.mlp_table(cfg, "layer/mlp", nl))
     t.update(L.norm_table(cfg, "layer/ln_mlp", nl))
+    if max_seq:
+        t["pos_embed"] = ((max_seq, cfg.d_model), (None, "dmodel"),
+                          ("normal", 0.02))
     return t
 
 
@@ -55,47 +69,84 @@ def _sub(p, prefix):
     return {k[n:]: v for k, v in p.items() if k.startswith(prefix)}
 
 
-def _train_layer(cfg, lp, x, positions):
-    """One layer of the training forward: attention, then the MLP, each
-    pre-normed and added to the residual."""
+def _use_rope(cfg) -> bool:
+    return cfg.family != "audio"
+
+
+def _cross_kv(lp, enc_out):
+    """The cross-attention's k and v [B, F, KVH, hd] from the encoder
+    output [B, F, d]."""
+    ap = _sub(lp, "xattn/")
+    return L._proj_heads(enc_out, ap["wk"]), L._proj_heads(enc_out, ap["wv"])
+
+
+def _cross(cfg, lp, x, xk, xv):
+    """The cross-attention branch of a layer, pre-normed: queries from
+    ``x``, non-causal over the encoder's frames."""
+    ap = _sub(lp, "xattn/")
+    q = L._proj_heads(L.norm(cfg, lp, "ln_xattn", x), ap["wq"])
+    return L.out_proj(ap, L.full_attention(q, xk, xv, causal=False))
+
+
+def _train_layer(cfg, lp, x, positions, enc_out):
+    """One layer of the training forward: attention, the cross-attention
+    where there is an encoder output, then the MLP, each pre-normed and
+    added to the residual."""
     ap = _sub(lp, "attn/")
     q, k, v = L.qkv_proj(cfg, ap, L.norm(cfg, lp, "ln_attn", x), positions)
     x = x + L.out_proj(ap, L.blockwise_causal_attention(q, k, v)).to(x.dtype)
+    if enc_out is not None:
+        x = x + _cross(cfg, lp, x, *_cross_kv(lp, enc_out)).to(x.dtype)
     return x + L.mlp(cfg, _sub(lp, "mlp/"),
                      L.norm(cfg, lp, "ln_mlp", x)).to(x.dtype)
 
 
-def forward(cfg, params, x, kind: str, *, cache=None, pos=None):
+def forward(cfg, params, x, kind: str, *, enc_out=None, cache=None,
+            pos=None):
     """Run the decoder stack.
 
     kind='train': x [B, S, D] embedded inputs; returns (hidden [B,S,D],
         None), each layer recomputed in the backward pass when
         ``cfg.remat == "layer"``.
     kind='prefill': x [B, S, D] embedded inputs; returns (hidden [B,S,D],
-        cache {'k','v': [L, B, S, KVH, hd]}).
-    kind='decode': x [B, 1, D]; ``cache`` {'k','v'} [L, B, S, KVH, hd],
-        updated in place at ``pos``; returns (hidden [B,1,D], cache).
-    (The JAX forward also returns the MoE router loss, 0 for a dense FFN.)
+        cache {'k','v': [L, B, S, KVH, hd]}, with a cross-attention also
+        {'xk','xv': [L, B, F, KVH, hd]}).
+    kind='decode': x [B, 1, D]; ``cache`` as prefill's (k and v [L, B,
+        S, KVH, hd]), k and v updated in place at ``pos``; returns
+        (hidden [B,1,D], cache).
+    ``enc_out`` [B, F, D]: the encoder output the cross-attention reads at
+    train and prefill (a decoder with ``layer/xattn`` params needs it).
+    A ``pos_embed`` param adds the learned position; RoPE applies except
+    for the audio family. (The JAX forward also returns the MoE router
+    loss, 0 for a dense FFN.)
     """
     _require_dense(cfg)
     if kind not in ("train", "prefill", "decode"):
         raise ValueError(f"kind {kind!r}: 'train', 'prefill' or 'decode'")
     layer_p, other_p = split_params(params)
+    cross = any(k.startswith("xattn") for k in layer_p)
+    decode = kind == "decode"
+    if cross and not decode and enc_out is None:
+        raise ValueError("a decoder with cross-attention needs enc_out")
+    dtype = x.dtype
+    if "pos_embed" in other_p:
+        pe = (other_p["pos_embed"][pos:pos + 1] if decode
+              else other_p["pos_embed"][:x.shape[1]])
+        x = x + pe.to(dtype)[None]
+    positions = (torch.full((1,), pos, dtype=torch.int32, device=x.device)
+                 if decode else torch.arange(x.shape[1], device=x.device))
+    if not _use_rope(cfg):
+        positions = None
     if kind == "train":
-        positions = torch.arange(x.shape[1], device=x.device)
         for i in range(cfg.n_layers):
             lp = {k: v[i] for k, v in layer_p.items()}
             if cfg.remat == "layer":
-                x = checkpoint(_train_layer, cfg, lp, x, positions,
+                x = checkpoint(_train_layer, cfg, lp, x, positions, enc_out,
                                use_reentrant=False)
             else:
-                x = _train_layer(cfg, lp, x, positions)
+                x = _train_layer(cfg, lp, x, positions, enc_out)
         return L.norm(cfg, other_p, "ln_final", x), None
-    dtype = x.dtype
-    decode = kind == "decode"
-    positions = (torch.full((1,), pos, dtype=torch.int32, device=x.device)
-                 if decode else torch.arange(x.shape[1], device=x.device))
-    ks, vs = [], []
+    ks, vs, xks, xvs = [], [], [], []
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in layer_p.items()}
         ap = _sub(lp, "attn/")
@@ -111,16 +162,30 @@ def forward(cfg, params, x, kind: str, *, cache=None, pos=None):
             ks.append(k)
             vs.append(v)
         x = x + L.out_proj(ap, o).to(dtype)
+        if cross:
+            if decode:
+                xk, xv = cache["xk"][i], cache["xv"][i]
+            else:
+                xk, xv = _cross_kv(lp, enc_out)
+                xks.append(xk)
+                xvs.append(xv)
+            x = x + _cross(cfg, lp, x, xk, xv).to(dtype)
         x = x + L.mlp(cfg, _sub(lp, "mlp/"),
                       L.norm(cfg, lp, "ln_mlp", x)).to(dtype)
     x = L.norm(cfg, other_p, "ln_final", x)
     if not decode:
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if cross:
+            cache["xk"], cache["xv"] = torch.stack(xks), torch.stack(xvs)
     return x, cache
 
 
-def cache_struct(cfg, batch: int, seq: int, dtype):
-    """{'k', 'v'}: (shape, dtype) of the decode KV cache."""
+def cache_struct(cfg, batch: int, seq: int, dtype, cross_frames: int = 0):
+    """{'k', 'v'} (and with ``cross_frames`` {'xk', 'xv'} [L, B,
+    cross_frames, KVH, hd]): (shape, dtype) of the decode cache."""
     KVH, hd, nl = cfg.n_kv_heads, cfg.resolved_head_dim(), cfg.n_layers
-    return {"k": ((nl, batch, seq, KVH, hd), dtype),
-            "v": ((nl, batch, seq, KVH, hd), dtype)}
+    out = {"k": ((nl, batch, seq, KVH, hd), dtype),
+           "v": ((nl, batch, seq, KVH, hd), dtype)}
+    if cross_frames:
+        out["xk"] = out["xv"] = ((nl, batch, cross_frames, KVH, hd), dtype)
+    return out

@@ -4,6 +4,9 @@ and returns numpy arrays. They import neither JAX nor the JAX package, so
 that a spawned rank starts quickly; the inputs come from an npz file the
 test writes.
 """
+import os
+import time
+
 import numpy as np
 import torch
 
@@ -25,6 +28,31 @@ CFG = SMOKE.with_overrides(feat_dim=8, n_components=16, ivector_dim=12,
 # per-utterance statistics are compared at one chunk size on every mesh
 NF_CHUNK = 12
 SEED = 100
+
+
+# when this module was imported in the rank (before its rendezvous)
+_IMPORTED = time.monotonic()
+
+
+def mark(path, world: str, what: str) -> None:
+    """Append ``what`` and the seconds since this module's import to the
+    progress file of ``world`` and this rank's process, beside ``path``:
+    the phases a timed-out world had reached (``progress``)."""
+    f = os.path.join(os.path.dirname(path),
+                     f"progress_{world}_{os.getpid()}.txt")
+    with open(f, "a") as fh:
+        fh.write(f"{what} {time.monotonic() - _IMPORTED:.1f}s\n")
+
+
+def progress(workdir, world: str) -> dict:
+    """{pid: the phases its rank of ``world`` reached, with their
+    seconds}."""
+    out = {}
+    for name in sorted(os.listdir(workdir)):
+        if name.startswith(f"progress_{world}_"):
+            with open(os.path.join(workdir, name)) as fh:
+                out[name.split("_")[-1][:-4]] = " ".join(fh.read().split())
+    return out
 
 
 def load(path):
@@ -80,44 +108,77 @@ def fused_trajectory(z, ubm, feats, mesh):
     return {"T": np_(st.model.T), "Sigma": np_(st.model.Sigma)}
 
 
-def world2(path, ckpt_dir):
-    """(2, 1) and (1, 2): the ordered trajectory, per-utterance stats
-    (also on a tied UBM), the fused trajectory from JAX's T0, and the
-    supervised run with an injected failure."""
+def world2_trajectory(path):
+    """(2, 1) and (1, 2): the ordered trajectory and the per-utterance
+    stats (also on a tied UBM), with the (2, 1) mesh's collective
+    counts."""
+    mark(path, "trajectory2", "start")
     z, feats, ubm = load(path)
-    labels = z["labels"]
     out = {}
     m21 = MS.make_local_mesh(2, 1, device="cpu")
     m12 = MS.make_local_mesh(1, 2, device="cpu")
-    cfg = bitwise_cfg(2, feats.shape[0])
-    out["train_2x1"] = train_and_extract(cfg, ubm, feats, labels, m21)
+    out["train_2x1"] = train_and_extract(bitwise_cfg(2, feats.shape[0]),
+                                         ubm, feats, z["labels"], m21)
+    mark(path, "trajectory2", "train")
     out["nf_2x1"] = nf(ubm, feats, m21)
     out["nf_1x2"] = nf(ubm, feats, m12)
     out["nf_tied_1x2"] = nf(tied(ubm), feats, m12)
-    st, rep = TR.train_supervised(
-        cfg, ubm, feats, generator=torch.Generator().manual_seed(SEED),
-        ckpt_dir=ckpt_dir, mesh=m21, device="cpu",
-        fail_at=lambda step, attempt: step == 1 and attempt == 0)
-    out["supervised_2x1"] = {"T": np_(st.model.T),
-                             "Sigma": np_(st.model.Sigma),
-                             "restarts": rep.n_restarts,
-                             "iteration": st.iteration}
-    out["fused_2x1"] = fused_trajectory(z, ubm, feats, m21)
+    mark(path, "trajectory2", "nf")
     out["comm"] = {k: list(v) for k, v in m21.comm.items()}
     return out
+
+
+def supervised(feats, ubm, ckpt_dir, mesh):
+    """train_supervised on ``mesh`` with a failure injected after step 1
+    of the first attempt."""
+    st, rep = TR.train_supervised(
+        bitwise_cfg(2, feats.shape[0]), ubm, feats,
+        generator=torch.Generator().manual_seed(SEED), ckpt_dir=ckpt_dir,
+        mesh=mesh, device="cpu",
+        fail_at=lambda step, attempt: step == 1 and attempt == 0)
+    return {"T": np_(st.model.T), "Sigma": np_(st.model.Sigma),
+            "restarts": rep.n_restarts, "iteration": st.iteration}
+
+
+def world2_supervised(path, ckpt_dir):
+    """(2, 1): the supervised run with an injected failure, then the
+    fused trajectory from JAX's T0."""
+    mark(path, "supervised2", "start")
+    z, feats, ubm = load(path)
+    out = {}
+    m21 = MS.make_local_mesh(2, 1, device="cpu")
+    out["supervised_2x1"] = supervised(feats, ubm, ckpt_dir, m21)
+    mark(path, "supervised2", "supervised")
+    out["fused_2x1"] = fused_trajectory(z, ubm, feats, m21)
+    mark(path, "supervised2", "fused")
+    return out
+
+
+def late_supervised(path, ckpt_dir, delay: float):
+    """The supervised (2, 1) run with rank 1 arriving ``delay`` seconds
+    after rank 0, which by then could have written the step-0
+    checkpoint: the ranks must still agree to start from scratch."""
+    _, feats, ubm = load(path)
+    m21 = MS.make_local_mesh(2, 1, device="cpu")
+    if m21.rank == 1:
+        time.sleep(delay)
+    return supervised(feats, ubm, ckpt_dir, m21)
 
 
 def world4(path):
     """(4, 1) and (2, 2): the ordered trajectory, per-utterance stats, the
     three rungs of ``sharded_align_stats`` and one ``em_macro_step``."""
+    mark(path, "world4", "start")
     z, feats, ubm = load(path)
     out = {}
     m41 = MS.make_local_mesh(4, 1, device="cpu")
     m22 = MS.make_local_mesh(2, 2, device="cpu")
     out["train_4x1"] = train_and_extract(bitwise_cfg(4, feats.shape[0]),
                                          ubm, feats, z["labels"], m41)
+    mark(path, "world4", "train")
     out["nf_4x1"] = nf(ubm, feats, m41)
     out["nf_2x2"] = nf(ubm, feats, m22)
+    mark(path, "world4", "nf")
     pre = U.full_precisions(ubm)
     for rescore in EN.RESCORE_LADDER:
         n, f, S = IC.sharded_align_stats(
@@ -130,6 +191,7 @@ def world4(path):
                               torch.tensor(z["prior0"]), feats, utt_chunk=6)
     out["macro_2x2"] = {"A": np_(acc.A), "B": np_(acc.B), "h": np_(acc.h),
                         "S": np_(S)}
+    mark(path, "world4", "align and macro-step")
     return out
 
 

@@ -400,7 +400,7 @@ def test_jamba_with_experts_raises():
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="Queue 1 item 14"):
-        t_get_config("gemma-2b")
+        t_get_config("arctic-480b")
 
 
 def test_init_params_defaults_to_cuda_and_refuses_without_it(monkeypatch):

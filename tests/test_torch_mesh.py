@@ -3,9 +3,13 @@
 run and against the JAX package.
 
 Multi-rank runs are spawned by ``launch.mesh.run_ranks`` (a file store in
-``tmp_path``, a time limit on every join) in two worlds: 2 ranks for the
-(2, 1) and (1, 2) meshes, 4 for (4, 1) and (2, 2). The JAX reference runs
-at the same time in one subprocess with ``fake_device_env(4)``. Sizes are
+``tmp_path``, a time limit on every join) in three worlds, all at once:
+2 ranks for the (2, 1) trajectory and the (2, 1) and (1, 2) per-utterance
+stats, 2 for the (2, 1) supervised run and fused trajectory, 4 for
+(4, 1) and (2, 2). The JAX reference runs at the same time in one
+subprocess with ``fake_device_env(4)``. Each world, and the JAX run, has
+a fixture of its own, so a world that overruns its deadline errors only
+the tests that read it, and names the phases its ranks reached. Sizes are
 the JAX mesh tests' (``tests/test_mesh_trainer.py``): D 8, C 16, R 12,
 K 8, 48 utterances x 40 frames.
 
@@ -13,6 +17,8 @@ K 8, 48 utterances x 40 frames.
   reproduce the one-rank trajectory bit for bit, realignment with the
   full UBM refresh included: T, Σ, UBM means, i-vectors, EER.
 - Per-utterance n/f are bitwise the one-rank pass's on every mesh.
+- ``train_supervised`` on (2, 1) restarts bitwise at the one-rank
+  trajectory, also when rank 1 arrives after rank 0 could have saved.
 - ``sharded_align_stats`` on (2, 2) equals JAX's on a (2, 2) mesh within
   1e-4 on every rung; the fused (2, 1) trajectory tracks JAX's within the
   tolerances of ``test_sharded_trajectory_fused_matches_dense_8dev``.
@@ -61,13 +67,16 @@ DATA = SpeechDataConfig(feat_dim=8, n_components=8, n_speakers=12,
                         utts_per_speaker=4, frames_per_utt=40,
                         speaker_rank=6, channel_rank=3,
                         speaker_scale=0.8, channel_scale=0.8)
-# every spawn and the JAX subprocess end within this many seconds
-TIMEOUT = 240
-# torch's host threads in each of the six ranks the two worlds run at once,
-# and in this process: the cores shared out, and one count everywhere, so
-# that a reduction sums in the same order in a rank as in the one-rank run
-# it is held to bit for bit
-THREADS = max(1, (os.cpu_count() or 1) // 6)
+# seconds from the launch within which each spawned world and the JAX
+# subprocess end: at least 3x the slowest wall read under the full suite's
+# load (-n 6), where the three worlds took up to 28 s and the JAX run 73 s
+DEADLINE = {"trajectory2": 240, "supervised2": 240, "world4": 240,
+            "jax": 300}
+# torch's host threads in each of the eight ranks the three worlds run at
+# once, and in this process: the cores shared out, and one count
+# everywhere, so that a reduction sums in the same order in a rank as in
+# the one-rank run it is held to bit for bit
+THREADS = max(1, (os.cpu_count() or 1) // 8)
 
 JAX_SCRIPT = """
 import sys
@@ -130,39 +139,81 @@ def corpus():
 
 
 @pytest.fixture(scope="module")
-def runs(corpus, tmp_path_factory):
-    """The JAX subprocess and the two spawned worlds, all at once."""
+def launched(corpus, tmp_path_factory):
+    """The JAX subprocess and the three spawned worlds, started at once;
+    the fixtures below each wait for one of them."""
     d = tmp_path_factory.mktemp("mesh")
     path = d / "inputs.npz"
     np.savez(path, **corpus)
     env = JMS.fake_device_env(4)
-    # one thread for XLA's CPU ops: the subprocess runs beside six ranks,
+    # one thread for XLA's CPU ops: the subprocess runs beside eight ranks,
     # each capped by run_ranks to its share of the cores
     env["XLA_FLAGS"] += " --xla_cpu_multi_thread_eigen=false"
     env["PYTHONPATH"] = str(REPO / "src")
     env["JAX_PLATFORMS"] = "cpu"
+    t0 = time.monotonic()
     jax_proc = subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(JAX_SCRIPT), str(path),
          str(d / "jax_out.npz")], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
+    walls = {}
+    pool = ThreadPoolExecutor(3)
+    worlds = {}
+    for name, fn, n, args in (
+            ("trajectory2", RK.world2_trajectory, 2, (str(path),)),
+            ("supervised2", RK.world2_supervised, 2,
+             (str(path), str(d / "ckpt"))),
+            ("world4", RK.world4, 4, (str(path),))):
+        worlds[name] = pool.submit(MS.run_ranks, fn, n, args=args,
+                                   device="cpu", timeout=DEADLINE[name],
+                                   workdir=d, threads=THREADS)
+        worlds[name].add_done_callback(
+            lambda f, name=name: walls.setdefault(name,
+                                                  time.monotonic() - t0))
+    yield {"dir": d, "t0": t0, "worlds": worlds, "jax": jax_proc,
+           "walls": walls}
+    pool.shutdown(wait=True)
+    if jax_proc.poll() is None:
+        jax_proc.kill()
+        jax_proc.communicate()
+
+
+def _world(launched, name):
+    """The per-rank results of one world; past its deadline, the error
+    names the phases its ranks reached and the walls (s from the launch)
+    of the worlds that had ended."""
     try:
-        with ThreadPoolExecutor(2) as pool:
-            w2 = pool.submit(MS.run_ranks, RK.world2, 2,
-                             args=(str(path), str(d / "ckpt")),
-                             device="cpu", timeout=TIMEOUT, workdir=d,
-                             threads=THREADS)
-            w4 = pool.submit(MS.run_ranks, RK.world4, 4,
-                             args=(str(path),), device="cpu",
-                             timeout=TIMEOUT, workdir=d, threads=THREADS)
-            w2, w4 = w2.result(), w4.result()
-        _, err = jax_proc.communicate(timeout=TIMEOUT)
-    finally:
-        if jax_proc.poll() is None:
-            jax_proc.kill()
-            jax_proc.communicate()
-    assert jax_proc.returncode == 0, err[-3000:]
-    return {"world2": w2, "world4": w4,
-            "jax": dict(np.load(d / "jax_out.npz"))}
+        return launched["worlds"][name].result()
+    except TimeoutError as e:
+        raise TimeoutError(f"{e}; phases reached by pid: "
+                           f"{RK.progress(launched['dir'], name)}; walls of "
+                           f"the ended: {launched['walls']}") from e
+
+
+@pytest.fixture(scope="module")
+def trajectory2(launched):
+    return _world(launched, "trajectory2")
+
+
+@pytest.fixture(scope="module")
+def supervised2(launched):
+    return _world(launched, "supervised2")
+
+
+@pytest.fixture(scope="module")
+def world4(launched):
+    return _world(launched, "world4")
+
+
+@pytest.fixture(scope="module")
+def jax_out(launched):
+    """The JAX subprocess's arrays."""
+    proc = launched["jax"]
+    left = launched["t0"] + DEADLINE["jax"] - time.monotonic()
+    _, err = proc.communicate(timeout=max(left, 1.0))
+    launched["walls"]["jax"] = time.monotonic() - launched["t0"]
+    assert proc.returncode == 0, err[-3000:]
+    return dict(np.load(launched["dir"] / "jax_out.npz"))
 
 
 def _port_ubm(corpus):
@@ -192,11 +243,12 @@ def one_rank(corpus):
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (4, 1)])
-def test_data_mesh_trajectory_is_bitwise_one_rank(runs, one_rank, shape):
+def test_data_mesh_trajectory_is_bitwise_one_rank(request, one_rank, shape):
     """The ordered exit fold with one chunk a rank: T, Σ, the UBM means
     after the full refresh, the i-vectors and the EER are the one-rank
     run's bit for bit, on every rank."""
-    world = runs["world2" if shape == (2, 1) else "world4"]
+    world = request.getfixturevalue("trajectory2" if shape == (2, 1)
+                                    else "world4")
     name = f"train_{shape[0]}x{shape[1]}"
     want = one_rank[f"train_{shape[0]}"]
     for rank_out in world:
@@ -208,35 +260,59 @@ def test_data_mesh_trajectory_is_bitwise_one_rank(runs, one_rank, shape):
 
 @pytest.mark.parametrize("name", ["nf_2x1", "nf_1x2", "nf_4x1", "nf_2x2",
                                   "nf_tied_1x2"])
-def test_per_utterance_stats_bitwise_across_meshes(runs, one_rank, name):
+def test_per_utterance_stats_bitwise_across_meshes(request, one_rank,
+                                                   name):
     """Per-utterance sums never cross ranks, and the two-stage top-K
     breaks ties toward the lowest global id as one rank does (the tied
     UBM repeats its first half of components in its second, so every
     diag score ties across the two model ranks)."""
-    world = runs["world2" if name in ("nf_2x1", "nf_1x2", "nf_tied_1x2")
-                 else "world4"]
+    world = request.getfixturevalue(
+        "trajectory2" if name in ("nf_2x1", "nf_1x2", "nf_tied_1x2")
+        else "world4")
     want = one_rank["nf_tied" if "tied" in name else "nf"]
     for rank_out in world:
         np.testing.assert_array_equal(rank_out[name]["n"], want["n"])
         np.testing.assert_array_equal(rank_out[name]["f"], want["f"])
 
 
-def test_supervised_resume_on_a_mesh_is_bitwise(runs, one_rank):
+def test_supervised_resume_on_a_mesh_is_bitwise(supervised2, one_rank):
     """train_supervised on (2, 1) with a failure injected after step 1:
     rank 0 writes the checkpoints, both ranks restart from them, and the
     run ends bitwise at the one-rank trajectory."""
     want = one_rank["train_2"]
-    for rank_out in runs["world2"]:
+    for rank_out in supervised2:
         got = rank_out["supervised_2x1"]
         assert got["restarts"] == 1 and got["iteration"] == CFG.n_iters
         np.testing.assert_array_equal(got["T"], want["T"])
         np.testing.assert_array_equal(got["Sigma"], want["Sigma"])
 
 
-def test_collectives_are_counted(runs):
+def test_supervised_start_agrees_when_a_rank_is_late(corpus, one_rank,
+                                                     tmp_path):
+    """Rank 1 reaches ``train_supervised`` 3 s after rank 0, which has by
+    then written its step-0 checkpoint if nothing holds it: both ranks
+    still start from scratch, restart once after the injected failure and
+    end bitwise at the one-rank trajectory. (A rank that saw rank 0's
+    checkpoint would restore and enter the first step's collectives while
+    rank 0 waited in the save's barrier: the deadlock that timed the
+    supervised world out under load.)"""
+    path = tmp_path / "inputs.npz"
+    np.savez(path, **corpus)
+    out = MS.run_ranks(RK.late_supervised, 2,
+                       args=(str(path), str(tmp_path / "ckpt"), 3.0),
+                       device="cpu", timeout=DEADLINE["supervised2"],
+                       workdir=tmp_path, threads=THREADS)
+    want = one_rank["train_2"]
+    for got in out:
+        assert got["restarts"] == 1 and got["iteration"] == CFG.n_iters
+        np.testing.assert_array_equal(got["T"], want["T"])
+        np.testing.assert_array_equal(got["Sigma"], want["Sigma"])
+
+
+def test_collectives_are_counted(trajectory2):
     """A data mesh moves bytes only at the exit reduce and when it hands
     per-utterance statistics back; no model-axis collective runs."""
-    comm = runs["world2"][0]["comm"]
+    comm = trajectory2[0]["comm"]
     assert comm["exit"][0] > 0 and comm["exit"][1] > 0
     assert comm["gather"][1] > 0
     assert "model" not in comm
@@ -248,22 +324,22 @@ def test_collectives_are_counted(runs):
 
 
 @pytest.mark.parametrize("rescore", ["fused", "sparse", "dense"])
-def test_sharded_align_stats_match_jax(runs, rescore):
+def test_sharded_align_stats_match_jax(world4, jax_out, rescore):
     """(2, 2): the port's n, f and S equal the JAX package's on the same
     numpy inputs within rtol = atol = 1e-4, on every rank."""
-    jx = runs["jax"]
-    for rank_out in runs["world4"]:
+    jx = jax_out
+    for rank_out in world4:
         got = rank_out[f"align_{rescore}"]
         for k in ("n", "f", "S"):
             np.testing.assert_allclose(got[k], jx[f"align_{rescore}_{k}"],
                                        rtol=1e-4, atol=1e-4, err_msg=k)
 
 
-def test_rungs_agree_on_the_model_sharded_mesh(runs):
+def test_rungs_agree_on_the_model_sharded_mesh(world4):
     """``sharded_align_stats`` on (2, 2): the sparse and fused rungs agree
     with the dense rung within 1e-4 (``test_sharded_sparse_rescore_
     matches_dense``)."""
-    got = runs["world4"][0]
+    got = world4[0]
     for r in ("sparse", "fused"):
         for k in ("n", "f", "S"):
             np.testing.assert_allclose(got[f"align_{r}"][k],
@@ -271,11 +347,11 @@ def test_rungs_agree_on_the_model_sharded_mesh(runs):
                                        rtol=1e-4, atol=1e-4)
 
 
-def test_fused_trajectory_tracks_jax(runs):
+def test_fused_trajectory_tracks_jax(supervised2, jax_out):
     """The fused rung on (2, 1), 3 iterations from the same T0: T Tᵀ and Σ
     within the tolerances of JAX's
     ``test_sharded_trajectory_fused_matches_dense_8dev``."""
-    got, jx = runs["world2"][0]["fused_2x1"], runs["jax"]
+    got, jx = supervised2[0]["fused_2x1"], jax_out
 
     def TTt(T):
         return np.einsum("cdr,cer->cde", T, T)
@@ -285,7 +361,7 @@ def test_fused_trajectory_tracks_jax(runs):
                                rtol=1e-3, atol=1e-4)
 
 
-def test_em_macro_step_matches_one_rank(runs, corpus):
+def test_em_macro_step_matches_one_rank(world4, corpus):
     """``em_macro_step`` on (2, 2) with the 'psum' exit: the packed A, B, h
     and S agree with the one-rank step within f32 reassociation."""
     feats = torch.tensor(corpus["feats"])
@@ -294,7 +370,7 @@ def test_em_macro_step_matches_one_rank(runs, corpus):
         CFG.with_overrides(estep="packed"), MS.make_local_mesh(device="cpu"),
         ubm.weights, ubm.means, ubm.covs, torch.tensor(corpus["T0"]),
         ubm.covs, torch.tensor(corpus["prior0"]), feats, utt_chunk=6)
-    got = runs["world4"][0]["macro_2x2"]
+    got = world4[0]["macro_2x2"]
     for k, want in (("A", acc.A), ("B", acc.B), ("h", acc.h), ("S", S)):
         want = want.numpy()
         np.testing.assert_allclose(got[k], want, rtol=1e-4,

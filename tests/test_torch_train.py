@@ -784,7 +784,7 @@ def test_train_main_refuses_what_the_port_lacks():
     with pytest.raises(NotImplementedError, match="14d"):
         TLAUNCH.main(["--arch", JAMBA, "--smoke", "--device", "cpu"])
     cfg = t_get_config(STABLELM, smoke=True)
-    with pytest.raises(NotImplementedError, match="14c"):
+    with pytest.raises(NotImplementedError, match="14h"):
         TLAUNCH.check_trainable(cfg.with_overrides(family="ssm"))
     with pytest.raises(SystemExit):
         TLAUNCH.check_trainable(cfg.with_overrides(family="audio"))
