@@ -187,10 +187,13 @@ def start_ptxas(names) -> dict:
 
 def ptxas_report(procs: dict, key: str) -> dict:
     """{mangled kernel name containing ``key``: its ptxas lines after the
-    entry line (stack frame and spills, registers), joined by '; '} from
-    the logs of ``start_ptxas``'s processes, once each has ended."""
+    entry line (stack frame and spills, registers), joined by '; ', with
+    "C7512" added where ptxas serialized the kernel's wgmma} from the logs
+    of ``start_ptxas``'s processes, once each has ended. Any other C7512
+    line is printed."""
     entry = re.compile(r"Compiling entry function '([^']+)'")
-    out = {}
+    serial = re.compile(r"\(C7512\).*'([^']+)'")
+    out, serialized = {}, []
     for n, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -198,6 +201,8 @@ def ptxas_report(procs: dict, key: str) -> dict:
         name = None
         for line in log.splitlines():
             m = entry.search(line)
+            if "C7512" in line:
+                serialized.append(line.strip())
             if m:
                 name = m.group(1) if key in m.group(1) else None
                 if name is not None:
@@ -205,6 +210,12 @@ def ptxas_report(procs: dict, key: str) -> dict:
             elif name is not None and ("spill" in line or "Used" in line):
                 out[name].append(line.split(":", 1)[-1].strip()
                                  if line.startswith("ptxas") else line.strip())
+    for line in serialized:
+        m = serial.search(line)
+        if m and m.group(1) in out:
+            out[m.group(1)].append("C7512 (wgmma serialized)")
+        else:
+            print(f"  ptxas: {line}")
     return {k: "; ".join(v) for k, v in out.items()}
 
 
@@ -3682,14 +3693,19 @@ ATT_BWD_BF16_TOL = 2.0 ** -7
 # another order, and the kernel's exp2 decays (ex2.approx, ~2^-22)
 SCAN_BWD_TOL = 1e-4
 # the first versions of the backward kernels (the attention backward on
-# the CUDA cores, the scan backward walking all of T in one block): their
-# times at these shapes (PERF.md §6; H100 80GB HBM3, 700 W), the yardstick
-# the redesigned kernels are printed beside
+# the CUDA cores, at hd 256 too, the scan backward walking all of T in one
+# block): their times at these shapes (PERF.md §6; H100 80GB HBM3, 700 W),
+# the yardstick the redesigned kernels are printed beside
 FIRST_BWD_MS = {"flash_attention_bwd StableLM": 10.982,
                "flash_attention_bwd Jamba": 26.996,
+               "flash_attention_bwd Gemma": 29.100,
                "selective_scan_bwd": 6.699}
 # segment lengths (chunks) the scan backward is swept over at Jamba's shape
 SCAN_SEGMENTS = (4, 8, 16, 32, 64, 256)
+# the hd-256 attention backward's query-head splits of the dK/dV pass
+# (flash_attention.bwd_splits), swept at Gemma 2B's shape at these batches
+ATT_BWD_SPLITS = (1, 2, 4, 8)
+ATT_BWD_SPLIT_BATCHES = (1, 4)
 # SMOKE train step, card against CPU from the same state and batch: the
 # loss, grad norm and every moment leaf within SMOKE_TRAIN_TOL x max|value|
 # (f32 sums in another order through the kernels, each within 1e-4 of its
@@ -3721,25 +3737,32 @@ def check_attention_bwd_small(g, dev):
     """The backward at small shapes that the training shapes leave out:
     bf16 hd 192 (the CUDA-core kernel, BF16_HEAD_DIMS' third instance)
     against autograd of the plain version, and the tensor-core kernels at
-    ragged S under GQA against their algorithm in f32 (``backward_blocks``
-    on the same bf16 o and lse, so the same Delta: what is left is the
-    kernel's one rounding of each gradient at its store, 2^-8 of it, and
-    the bf16 pairs' 2^-16), each to ATT_BWD_BF16_TOL and bitwise
-    repeatable. Their distance to autograd, which comes mostly from
-    Delta's bf16 o at small S, is printed beside it."""
+    ragged S under GQA and MQA (hd 256: ragged, GQA, and a short S of 80,
+    its dK/dV pass split over the query heads, and a ragged GQA case of
+    256 key-tile blocks, which takes no split) against their algorithm in
+    f32 (``backward_blocks`` on the same bf16 o and lse, so the same
+    Delta, and the same splits: what is left is the kernel's one rounding
+    of each gradient at its store, 2^-8 of it, and the bf16 pairs'
+    2^-16), each to ATT_BWD_BF16_TOL and bitwise repeatable. Their
+    distance to autograd, which comes mostly from Delta's bf16 o at small
+    S, is printed beside it."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     recs = []
     for B, S, H, KVH, hd in ((1, 100, 2, 1, 192), (2, 200, 4, 2, 64),
-                             (1, 333, 4, 1, 128)):
+                             (1, 333, 4, 1, 128), (1, 333, 8, 1, 256),
+                             (2, 200, 4, 2, 256), (1, 80, 8, 1, 256),
+                             (4, 2000, 4, 2, 256)):
         q, k, v, do = (torch.randn(B, S, n, hd, generator=g, device=dev)
                        .to(torch.bfloat16) for n in (H, KVH, KVH, H))
         o, lse = FA.flash_attention(q, k, v, lse=True)
         got = FA.flash_attention_bwd(q, k, v, o, lse, do)
         again = FA.flash_attention_bwd(q, k, v, o, lse, do)
         scope = FA.bwd_scope(torch.bfloat16, hd)
+        splits = FA.bwd_splits(torch.bfloat16, B, S, H, KVH, hd)
+        split = f", {splits} splits" if splits > 1 else ""
         label = (f"flash_attention_bwd B={B} S={S} H={H} KVH={KVH} hd={hd} "
-                 f"bf16 ({scope})")
+                 f"bf16 ({scope}{split})")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"{label}: not bitwise repeatable")
         ins = [t.float().requires_grad_() for t in (q, k, v)]
@@ -3767,12 +3790,14 @@ def check_attention_bwd(g, dev):
     """flash_attention_bwd against autograd of ref.flash_attention on the
     card, bf16 and f32, at StableLM's (H = KVH = 32, hd 64) and Jamba's
     (H 32, KVH 8, hd 128) shapes, and bf16 at Gemma 2B's (H 8, KVH 1, hd
-    256: the CUDA-core kernel, on inputs of a generator of its own), B =
-    1, S = 4096: a Jamba micro-batch's shape on the training path is the
-    row. Times the kernel (beside its first version's, FIRST_BWD_MS), the
-    plain backward (autograd of the plain forward, the graph kept), SDPA's
-    backward, and the forward with and without the log-sum-exps; then the
-    small cases of check_attention_bwd_small."""
+    256: the 64-row tensor-core kernels, the dK/dV pass split over the
+    query heads; on inputs of a generator of its own), B = 1, S = 4096: a
+    Jamba micro-batch's shape on the training path is the row. Times the
+    kernel (beside its first version's, FIRST_BWD_MS), the plain backward
+    (autograd of the plain forward, the graph kept), SDPA's backward, and
+    the forward with and without the log-sum-exps; then the hd-256
+    kernel's split sweep (check_attention_bwd_splits) and the small cases
+    of check_attention_bwd_small."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     from repro_torch.kernels import registry
@@ -3838,6 +3863,7 @@ def check_attention_bwd(g, dev):
         recs.append(rec)
         del q, k, v, do, o, lse, got, again, ins, out, want, qt, kt, vt, ot
         torch.cuda.empty_cache()
+    recs[4]["split_sweep"] = check_attention_bwd_splits(g, dev, recs[4])
     recs += check_attention_bwd_small(g, dev)
     r = recs[2]
     row = dict(name="flash_attention_bwd", route="cuda",
@@ -3846,6 +3872,57 @@ def check_attention_bwd(g, dev):
                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")})
     return row, recs
+
+
+def check_attention_bwd_splits(g, dev, gemma):
+    """The hd-256 backward at Gemma 2B's shape (S = 4096, H 8, KVH 1) at
+    each batch of ATT_BWD_SPLIT_BATCHES, at each split of the dK/dV pass
+    in ATT_BWD_SPLITS (its blocks a key tile; 1 writes bf16 with no
+    workspace): each split's gradients within ATT_BWD_BF16_TOL of
+    autograd of the plain version and bitwise repeatable, timed, its share
+    of the bound printed beside the default (``bwd_splits``: 1 at the
+    training batch B = 4); ``gemma`` is the B = 1 row, timed at the
+    default. Inputs from a generator of its own, seeded from ``g``'s
+    seed."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(g.initial_seed() + 2)
+    S, H, KVH, hd = 4096, 8, 1, 256
+    sweep = {}
+    for B in ATT_BWD_SPLIT_BATCHES:
+        q, k, v, do = (torch.randn(B, S, n, hd, generator=gen, device=dev)
+                       .to(torch.bfloat16) for n in (H, KVH, KVH, H))
+        o, lse = FA.flash_attention(q, k, v, lse=True)
+        ins = [t.float().requires_grad_() for t in (q, k, v)]
+        plain = torch.autograd.grad(ref.flash_attention(*ins), ins,
+                                    do.float())
+        del ins
+        default = FA.bwd_splits(torch.bfloat16, B, S, H, KVH, hd)
+        b_ms, _ = bound("flash_attention_bwd", B=B, S=S, H=H, KVH=KVH, hd=hd,
+                        dtype="bfloat16")
+        row, rels = {}, {}
+        for n in ATT_BWD_SPLITS:
+            label = f"flash_attention_bwd Gemma B={B} splits={n}"
+            got = FA.flash_attention_bwd(q, k, v, o, lse, do, _splits=n)
+            again = FA.flash_attention_bwd(q, k, v, o, lse, do, _splits=n)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{label}: not bitwise repeatable")
+            rels[n] = _rel_errs(got, plain, label, ATT_BWD_BF16_TOL)[1]
+            row[n] = cuda_ms(lambda: FA.flash_attention_bwd(
+                q, k, v, o, lse, do, _splits=n), 5)
+            del got, again
+        print(f"    Gemma B={B} S={S} hd={hd}: dK/dV splits -> ms, share of "
+              f"bound {b_ms:.4f} ms, max|diff| / max|plain| against "
+              f"autograd (tolerance {ATT_BWD_BF16_TOL:g}; each bitwise "
+              f"repeatable): " + ", ".join(
+                  f"{n}: {ms:.3f}, {b_ms / ms:.3f}, {rels[n]:.3e}"
+                  for n, ms in row.items())
+              + f"; the default {default}"
+              + (f" (the row above: {gemma['ms']:.3f} ms)" if B == 1 else ""))
+        sweep[B] = {"default": default, "ms": row, "max_rel_err": rels}
+        del q, k, v, do, o, lse, plain
+        torch.cuda.empty_cache()
+    return sweep
 
 
 def _scan_inputs(g, dev, B, T, di, ds, dt_shift):
@@ -4243,9 +4320,9 @@ def lm_training_phase(seed: int, dev):
         get_config("jamba-v0.1-52b").with_overrides(moe=None, n_layers=8),
         2, seed, dev, repeat=False)
     rec["gemma_train"] = lm_train_run(
-        "Gemma 2B, CONFIG (18 layers, head dim 256: the bf16 backward on the "
-        "CUDA cores), bf16, remat layer", get_config("gemma-2b"), 2, seed,
-        dev, repeat=False)
+        "Gemma 2B, CONFIG (18 layers, head dim 256: the bf16 backward on "
+        "64-row wgmma blocks), bf16, remat layer", get_config("gemma-2b"), 2,
+        seed, dev, repeat=False)
     for k in ("stablelm_train", "jamba_train", "gemma_train"):
         need = ("flash_attention", "flash_attention_bwd") + (
             ("selective_scan", "selective_scan_bwd") if k == "jamba_train"
@@ -4292,7 +4369,8 @@ def main() -> int:
 
     # 2. build, and beside it the attention's two sources once more for
     # what ptxas reports of their head-dim-256 instances (the bf16
-    # forward's 64-row blocks, the bf16 backward on the CUDA cores)
+    # forward's and backward's 64-row blocks on wgmma, the f32 kernels):
+    # a spill or a serialized wgmma (C7512) fails the run
     t0 = time.perf_counter()
     ptxas = start_ptxas(("flash_attention", "flash_attention_bwd"))
     try:
@@ -4308,6 +4386,14 @@ def main() -> int:
     ptxas_hd256 = ptxas_report(ptxas, "Li256E")
     for k, v in sorted(ptxas_hd256.items()):
         print(f"  ptxas {k}: {v}")
+    for want in ("flash_attention_tc_kernelILi256E", "dq_tc_kernelILi256E",
+                 "dkdv_tc_kernelILi256E"):
+        if not any(want in k for k in ptxas_hd256):
+            fail(f"ptxas reported no {want} kernel")
+    bad = [k for k, v in ptxas_hd256.items()
+           if "C7512" in v or re.search(r"[1-9]\d* bytes spill", v)]
+    if bad:
+        fail(f"hd-256 kernels spill or serialize their wgmma: {bad}")
 
     # 3. model, session and kernel checks at the serving path's shapes
     dev = torch.device("cuda")

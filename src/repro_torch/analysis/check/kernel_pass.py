@@ -309,7 +309,8 @@ def gate_configs(name: str):
                 {"M": 256, "dtype": "float32"}]
     if name in ("flash_attention", "flash_attention_bwd"):
         # f32, and bf16 at hd 256 (the forward's 64-row blocks, the
-        # backward's CUDA-core kernel): Gemma 2B's MQA prefill
+        # backward's 64-row blocks split over the query heads): Gemma 2B's
+        # MQA prefill
         return [None, {"dtype": "float32"},
                 {"B": 4, "S": 2048, "H": 8, "KVH": 1, "hd": 256,
                  "dtype": "bfloat16"}]

@@ -23,12 +23,15 @@
 // (Q.K^T again, dO.V^T, P^T.dO, dS^T.Q, dS.K): 5 * 2 * B*H*hd*S^2/2 FLOPs
 // against (4 B S H + 4 B S KVH) hd elements and the lse moved.
 //
-// Three kernels a call, no atomics, so the gradients are the same bits on
-// every run: delta_kernel (one warp per (b, row, head), Delta = dO . o
-// summed by a shuffle tree), then a dQ kernel, then a dK/dV kernel, both of
-// which read Delta. Dispatch by input type and head dim (not a fallback):
-// bf16 at hd 64 and 128 on the tensor cores (namespace tc), bf16 at hd 192
-// and 256 and f32 at every head dim on the CUDA cores (namespace simt).
+// Three kernels a call (four at hd 256 with a head split), no atomics, so
+// the gradients are the same bits on every run: delta_kernel (one warp per
+// (b, row, head), Delta = dO . o summed by a shuffle tree), then a dQ
+// kernel, then a dK/dV kernel, both of which read Delta. Dispatch by input
+// type and head dim (not a fallback): bf16 at hd 64, 128 and 256 on the
+// tensor cores (namespace tc), bf16 at hd 192 and f32 at every head dim on
+// the CUDA cores (namespace simt). No config of either package has head
+// dim 192; its bf16 instance is the forward's third one, and stays on the
+// CUDA cores.
 //
 // Precision contract of the tensor-core kernels:
 //   - Exact products. Q, K, V and dO enter wgmma as the bf16 values they
@@ -46,30 +49,31 @@
 //     rounding already half fills.
 //   - Cost: the split takes 3 of the 5 products twice, and each kernel
 //     recomputes S and dP, so the kernels issue 10 products where the bound
-//     counts 5.
+//     counts 5 (14 at hd 256, below).
 //
 // tc, the dQ kernel (dq_tc_kernel): one block per (128 query rows, head,
-// batch), longest rows first: two consumer warpgroups of 64 rows and one
-// producer warp, the forward's layout. The producer loads the block's q and
-// dO tiles once and a ring of STAGES (k, v) tiles of 64 keys by TMA (4-d
-// maps over [B, S, heads, hd], 128-byte swizzle, mbarriers; rows past S
-// arrive as zeros). Per key tile up to the diagonal: S = Q.K^T and dP =
-// dO.V^T (wgmma, both operands K-major in shared memory), P and dS on the
-// accumulator fragments (masks only on the tile that crosses the diagonal
-// or S; a row's lse and Delta in registers for the whole block), then dQ +=
-// dS.K with dS's hi and lo as register A fragments (the accumulator layout
-// is the A fragment layout) and K MN-major from shared memory.
+// batch; at hd 256 see below), longest rows first: two consumer
+// warpgroups of 64 rows and one producer warp, the forward's layout. The
+// producer loads the block's q and dO tiles once and a ring of STAGES (k,
+// v) tiles of 64 keys by TMA (4-d maps over [B, S, heads, hd], 128-byte
+// swizzle, mbarriers; rows past S arrive as zeros). Per key tile up to the
+// diagonal: S = Q.K^T and dP = dO.V^T (wgmma, both operands K-major in
+// shared memory), P and dS on the accumulator fragments (masks only on the
+// tile that crosses the diagonal or S; a row's lse and Delta in registers
+// for the whole block), then dQ += dS.K with dS's hi and lo as register A
+// fragments (the accumulator layout is the A fragment layout) and K
+// MN-major from shared memory.
 //
 // tc, the dK/dV kernel (dkdv_tc_kernel): one block per (128 key rows, kv
-// head, batch), the key tile that sees the most queries first: two
-// consumer warpgroups of 64 key rows and a producer warpgroup, of which
-// one thread loads the block's k and v tiles once, then walks the group's
-// query heads in order and, for each, the query tiles from the diagonal
-// on, feeding the q and dO tiles through a ring. With the key rows as M,
-// S^T = K.Q^T and dP^T = V.dO^T come out in the accumulator layout, so
-// P^T and dS^T are register A fragments as they are: dV += P^T.dO and dK
-// += dS^T.Q, with dO and Q MN-major from shared memory. GQA's sum over
-// the group is a fixed-order sum in the block. A query column's lse and
+// head, batch; at hd 256 see below), the key tile that sees the most
+// queries first: two consumer warpgroups of 64 key rows and a producer
+// warpgroup, of which one thread loads the block's k and v tiles once,
+// then walks the group's query heads in order and, for each, the query
+// tiles from the diagonal on, feeding the q and dO tiles through a ring.
+// With the key rows as M, S^T = K.Q^T and dP^T = V.dO^T come out in the
+// accumulator layout, so P^T and dS^T are register A fragments as they
+// are: dV += P^T.dO and dK += dS^T.Q, with dO and Q MN-major from shared
+// memory. GQA's sum over the group is a fixed-order sum in the block. A query column's lse and
 // Delta come from global memory (L2) with the tile. Query tiles are 64
 // rows at hd 64 and 32 at hd 128, so that S^T, dP^T and the four fragment
 // sets fit beside the two hd-wide accumulators (128 f32 registers a
@@ -84,6 +88,50 @@
 // (setmaxnreg.inc to 240): no spill, the same bits, and a faster kernel
 // on the card (PERF.md §6). The dQ kernel fits in 168 registers
 // and gained nothing from the same change.
+//
+// tc at hd 256 (Gemma 2B; DqLayout::SPLIT and KvLayout::SPLIT), the
+// forward's answer to the same wall: a warpgroup's hd-wide f32
+// accumulators (128 registers a thread for dQ, 256 for dK and dV) do not
+// fit beside the score fragments. So a block takes SPLIT_ROWS = 64 rows,
+// both consumer warpgroups compute the same scores (the same bits in both)
+// and each holds half of the gradients' columns:
+//   - dQ: S = Q.K^T and dP = dO.V^T over 64-key tiles, then dQ[:, half] +=
+//     dS.K[:, half], an n128 product over its half of K's columns (64 x 128
+//     f32, 64 registers). With S, dP and the dS pair that is 160
+//     registers before any address or mask, against the 168 of a
+//     288-thread block, so the producer is a warpgroup that gives its
+//     registers back, as in the dK/dV kernel. The q and dO tiles take 64
+//     KB and a (k, v) stage 64 KB: a ring of DQ_SPLIT_STAGES = 2 (197,672
+//     bytes).
+//   - dK/dV: S^T = K.Q^T and dP^T = V.dO^T over 32-row query tiles, then
+//     dV[:, half] += P^T.dO[:, half] and dK[:, half] += dS^T.Q[:, half]:
+//     64 + 64 accumulator registers, the hd-128 instance's count. k and v
+//     take 64 KB and the 4-stage (q, dO) ring 128 KB (197,704 bytes).
+//   - Parallelism under MQA: a (key tile, kv head, batch) grid gives
+//     Gemma's B = 1, S = 4096, KVH = 1 64 blocks for 132 SMs, each walking
+//     all 8 query heads. The grid is (key tile, kv head x split, batch)
+//     instead: a block walks G / nsplit of its group's query heads in
+//     order and writes its partial dK and dV in f32 to a workspace [2]
+//     [nsplit][B, S, KVH, hd]; sum_splits_kernel then adds the partials in
+//     split order and rounds each sum once to bf16. No atomics, so the
+//     same bits every run; with nsplit = 1 the kernel stores bf16 itself.
+//     The caller picks nsplit (kernels/flash_attention.py, bwd_splits):
+//     the smallest divisor of G up to 8 that brings the grid to 256
+//     blocks, about two an SM. chip_smoke.py's sweep of 1, 2, 4 and 8 at
+//     Gemma's S = 4096 (H100 80GB HBM3, 700 W; PERF.md §6) put the best
+//     at 4 for B = 1 (0.946 ms against 2.391 at 1) and at 1 for B = 4,
+//     its training micro-batch, whose 256 unsplit blocks fill the card
+//     (3.529 ms against 4.019 at 8).
+//   - Both kernels number their blocks longest first (longest_first): the
+//     linear block index walks every (head or split, batch) of the first
+//     tile before any of the second, so the blocks with the most work
+//     start first. In blockIdx order (the hd-64/128 kernels') the last
+//     head's or split's longest tiles start when most of the grid is done
+//     and run on alone: chip_smoke.py at Gemma's S = 4096 (H100 80GB
+//     HBM3, 700 W; PERF.md §6) took 1.229 ms at B = 1 and 4.151 at B = 4
+//     in that order, 0.919 and 3.551 longest first.
+// The split recomputes S and dP (S^T and dP^T) in both warpgroups: the
+// kernels issue 14 products where the bound counts 5 (10 at hd 64, 128).
 //
 // Each consumer warpgroup runs its products and their pointwise work in
 // turn; the other warpgroup's products overlap that work. This is the
@@ -472,39 +520,55 @@ using namespace hopper;
 constexpr int STAGES = 4;                // tiles in flight in a ring
 constexpr int CONSUMERS = 256;           // two warpgroups of 64 rows
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp (dQ)
-// the dK/dV kernel: a whole producer warpgroup, so that its registers can
-// go to the consumers (setmaxnreg): 128 x 24 + 256 x 240 of the 65,536
+// the dK/dV kernel, and the dQ kernel at hd 256: a whole producer
+// warpgroup, so that its registers can go to the consumers (setmaxnreg):
+// 128 x 24 + 256 x 240 of the 65,536
 constexpr int KV_THREADS = CONSUMERS + 128;
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr int CHUNK = 64;                // hd columns per 128-byte row
 constexpr int ROW = 128;                 // bytes per swizzled row
+// hd 256 (the SPLIT layouts): rows a block, both warpgroups', and the dQ
+// kernel's (k, v) tiles in flight
+constexpr int SPLIT_ROWS = 64;
+constexpr int DQ_SPLIT_STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared memory of the dQ kernel: the q and dO tiles of 128 rows, then the
+// Shared memory of the dQ kernel: the q and dO tiles of BQ rows, then the
 // ring of (k, v) tiles of 64 keys; each tile hd/64 chunks of rows x 128
-// bytes, 1024-byte aligned (the swizzle's period).
+// bytes, 1024-byte aligned (the swizzle's period). SPLIT (hd 256): the
+// block's rows are both warpgroups', and warpgroup wg holds dQ's columns
+// [QD wg, QD wg + QD); otherwise warpgroup wg holds rows [64 wg, 64 wg +
+// 64) and all hd columns.
 template <int HD>
 struct DqLayout {
-  static constexpr int BQ = 128;                // query rows a block
+  static constexpr bool SPLIT = HD > 128;
+  static constexpr int BQ = SPLIT ? SPLIT_ROWS : 128;  // query rows a block
+  static constexpr int QD = SPLIT ? HD / 2 : HD;  // dQ columns a warpgroup
   static constexpr int BKV = 64;                // keys a tile
+  static constexpr int RING = SPLIT ? DQ_SPLIT_STAGES : STAGES;
+  static constexpr int NTHREADS = SPLIT ? KV_THREADS : THREADS;
   static constexpr int NCH = HD / CHUNK;
   static constexpr int Q_BYTES = BQ * HD * 2;   // the q or the dO tile
   static constexpr int KV_BYTES = BKV * HD * 2; // one k or one v tile
   static constexpr int DO_OFF = Q_BYTES;
   static constexpr int K_OFF = 2 * Q_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
-  // full[STAGES], empty[STAGES], the q/dO barrier; alignment slack
-  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+  static constexpr int V_OFF = K_OFF + RING * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + RING * KV_BYTES;
+  // full[RING], empty[RING], the q/dO barrier; alignment slack
+  static constexpr int BYTES = BAR_OFF + (2 * RING + 1) * 8 + 1024;
   static_assert(BYTES <= 232448, "over the block's shared memory");
 };
 
-// Shared memory of the dK/dV kernel: the k and v tiles of 128 key rows,
-// then the ring of (q, dO) tiles of BQ query rows.
+// Shared memory of the dK/dV kernel: the k and v tiles of BK key rows,
+// then the ring of (q, dO) tiles of BQ query rows. SPLIT (hd 256): the
+// block's key rows are both warpgroups', and warpgroup wg holds dK's and
+// dV's columns [KD wg, KD wg + KD).
 template <int HD>
 struct KvLayout {
-  static constexpr int BK = 128;                // key rows a block
+  static constexpr bool SPLIT = HD > 128;
+  static constexpr int BK = SPLIT ? SPLIT_ROWS : 128;  // key rows a block
+  static constexpr int KD = SPLIT ? HD / 2 : HD;  // dK, dV columns a warpgroup
   static constexpr int BQ = HD <= 64 ? 64 : 32; // query rows a tile
   static constexpr int NCH = HD / CHUNK;
   static constexpr int K_BYTES = BK * HD * 2;   // the k or the v tile
@@ -516,6 +580,19 @@ struct KvLayout {
   static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
   static_assert(BYTES <= 232448, "over the block's shared memory");
 };
+
+// (tile, y, z) of this block of a (tiles, y, z) grid, numbered longest
+// first: the linear block index walks every (y, z) of tile 0 before any of
+// tile 1, so that the blocks with the most work start first (blocks start
+// in about the order of their linear index). The SPLIT kernels' order.
+__device__ __forceinline__ int3 longest_first() {
+  const unsigned yz = gridDim.y * gridDim.z;
+  const unsigned lin =
+      (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  const unsigned r = lin % yz;
+  return make_int3((int)(lin / yz), (int)(r % gridDim.y),
+                   (int)(r / gridDim.y));
+}
 
 // D (+)= A.B^T, both K-major in shared memory, N columns
 template <int N>
@@ -548,18 +625,19 @@ __device__ __forceinline__ void mma_rows(float (&d)[N / 2], uint32_t a,
 }
 
 // D += X.Y with X = hi + lo as register A fragments over K rows (k16 step
-// kk is hi[4kk .. 4kk + 3]) and Y the [K][HD] tile at `b`, MN-major: the
-// hi products first, then the lo ones, into the same accumulator
-template <int HD, int K>
-__device__ __forceinline__ void mma_split(float (&d)[HD / 2],
+// kk is hi[4kk .. 4kk + 3]) and Y the [K][N] columns at `b` of a tile of K
+// rows, MN-major: the hi products first, then the lo ones, into the same
+// accumulator
+template <int N, int K>
+__device__ __forceinline__ void mma_split(float (&d)[N / 2],
                                           const uint32_t* hi,
                                           const uint32_t* lo, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    mma_rs<HD>(d, hi + 4 * kk, desc(b + kk * 16 * ROW, K * ROW, 1024));
+    mma_rs<N>(d, hi + 4 * kk, desc(b + kk * 16 * ROW, K * ROW, 1024));
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    mma_rs<HD>(d, lo + 4 * kk, desc(b + kk * 16 * ROW, K * ROW, 1024));
+    mma_rs<N>(d, lo + 4 * kk, desc(b + kk * 16 * ROW, K * ROW, 1024));
 }
 
 // (x0, x1) as a bf16 pair: hi = bf16(x), lo = bf16(x - hi)
@@ -576,7 +654,7 @@ __device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
 // 8c.., word 2c + 1 row r1's.
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(DqLayout<HD>::NTHREADS, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap omap,
              const __grid_constant__ CUtensorMap kmap,
@@ -585,7 +663,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
              __nv_bfloat16* __restrict__ dq, int S, int H, int KVH,
              float scale, float scale_log2) {
   using L = DqLayout<HD>;
-  constexpr int BQ = L::BQ, BKV = L::BKV;
+  constexpr int BQ = L::BQ, BKV = L::BKV, QD = L::QD, RING = L::RING;
   constexpr int NS = BKV / 2;   // score fragment floats per thread
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -594,20 +672,23 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t sk = base + L::K_OFF;
   const uint32_t sv = base + L::V_OFF;
   const uint32_t full = base + L::BAR_OFF;     // full[s] = full + 8 s
-  const uint32_t empty = full + 8 * STAGES;    // empty[s] = empty + 8 s
-  const uint32_t qbar = empty + 8 * STAGES;
+  const uint32_t empty = full + 8 * RING;      // empty[s] = empty + 8 s
+  const uint32_t qbar = empty + 8 * RING;
 
+  // longest rows first (at hd 256 across every head and batch row)
+  const int3 blk = L::SPLIT ? longest_first()
+                            : make_int3(blockIdx.x, blockIdx.y, blockIdx.z);
   const int nq = (S + BQ - 1) / BQ;
-  const int qt = nq - 1 - (int)blockIdx.x;     // longest rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int qt = nq - 1 - blk.x;
+  const int h = blk.y;
+  const int b = blk.z;
   const int kh = h / (H / KVH);
   const int q0 = qt * BQ;
   const int n_kv = (min(q0 + BQ, S) + BKV - 1) / BKV;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < RING; ++s) {
       bar_init(full + 8 * s, 1);
       bar_init(empty + 8 * s, CONSUMERS / 32);   // one arrival per warp
     }
@@ -618,6 +699,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (tid >= CONSUMERS) {
     // producer: the q and dO tiles once, then the (k, v) ring
+    if constexpr (L::SPLIT) regs_dec<PRODUCER_REGS>();
     if (tid == CONSUMERS) {
       bar_expect_tx(qbar, 2 * L::Q_BYTES);
 #pragma unroll
@@ -626,8 +708,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         tma_load_4d(sdo + c * BQ * ROW, &omap, qbar, c * CHUNK, h, q0, b);
       }
       for (int j = 0; j < n_kv; ++j) {
-        const int s = j % STAGES;
-        bar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        const int s = j % RING;
+        bar_wait(empty + 8 * s, ((j / RING) & 1) ^ 1);
         const uint32_t fb = full + 8 * s;
         bar_expect_tx(fb, 2 * L::KV_BYTES);
 #pragma unroll
@@ -641,17 +723,20 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // consumers: warpgroup wg owns query rows row0 .. row0 + 63 and walks
-  // the key tiles 0 .. nt - 1 (the rest lie above its rows)
+  // consumers: warpgroup wg owns query rows row0 .. row0 + 63 and dQ's
+  // columns col0 .. col0 + QD - 1, and walks the key tiles 0 .. nt - 1
+  // (the rest lie above its rows)
+  if constexpr (L::SPLIT) regs_inc<CONSUMER_REGS>();
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
-  const int row0 = q0 + 64 * wg;
+  const int row0 = q0 + (L::SPLIT ? 0 : 64 * wg);
+  const int col0 = L::SPLIT ? QD * wg : 0;
   const int r0 = row0 + 16 * warp + lane / 4;
   const int r1 = r0 + 8;
   const int nt = min(n_kv, (row0 + 63) / BKV + 1);
-  const uint32_t qa = sq + 64 * wg * ROW;
-  const uint32_t oa = sdo + 64 * wg * ROW;
+  const uint32_t qa = sq + (L::SPLIT ? 0 : 64 * wg * ROW);
+  const uint32_t oa = sdo + (L::SPLIT ? 0 : 64 * wg * ROW);
   const float* lrow = lse + ((size_t)b * H + h) * S;
   const float* drow = delta + ((size_t)b * H + h) * S;
   // the rows' lse in log2 units and Delta; rows past S read 0 (their q and
@@ -661,9 +746,9 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const float e0 = r0 < S ? drow[r0] : 0.f;
   const float e1 = r1 < S ? drow[r1] : 0.f;
 
-  float acc[HD / 2];
+  float acc[QD / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < QD / 2; ++i) acc[i] = 0.f;
   float sc[NS], dp[NS];
   uint32_t dh[NS / 2], dl[NS / 2];   // dS as bf16 hi and lo A fragments
   // after a group's wait, the registers its products wrote or read: none
@@ -677,7 +762,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   auto settle_dq = [&]() {
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) pin(acc[i]);
+    for (int i = 0; i < QD / 2; ++i) pin(acc[i]);
 #pragma unroll
     for (int i = 0; i < NS / 2; ++i) {
       pin(dh[i]);
@@ -687,10 +772,10 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
   bar_wait(qbar, 0);
   for (int j = 0; j < n_kv; ++j) {
-    bar_wait(full + 8 * (j % STAGES), (j / STAGES) & 1);
+    bar_wait(full + 8 * (j % RING), (j / RING) & 1);
     if (j < nt) {
-      const uint32_t kt = sk + (j % STAGES) * L::KV_BYTES;
-      const uint32_t vt = sv + (j % STAGES) * L::KV_BYTES;
+      const uint32_t kt = sk + (j % RING) * L::KV_BYTES;
+      const uint32_t vt = sv + (j % RING) * L::KV_BYTES;
       wg_fence();
       mma_rows<HD, BKV>(sc, qa, BQ, kt);
       mma_rows<HD, BKV>(dp, oa, BQ, vt);
@@ -715,20 +800,22 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         split(ds[0], ds[1], dh[2 * c], dl[2 * c]);
         split(ds[2], ds[3], dh[2 * c + 1], dl[2 * c + 1]);
       }
+      // dQ's columns col0 .. col0 + QD - 1 over K's at chunk col0 / CHUNK
       wg_fence();
-      mma_split<HD, BKV>(acc, dh, dl, kt);
+      mma_split<QD, BKV>(acc, dh, dl, kt + (col0 / CHUNK) * BKV * ROW);
       wg_commit();
       wg_wait();
       settle_dq();
     }
-    if (lane == 0) bar_arrive(empty + 8 * (j % STAGES));
+    if (lane == 0) bar_arrive(empty + 8 * (j % RING));
   }
 
   const size_t row_stride = (size_t)H * HD;
-  __nv_bfloat16* o0 = dq + ((size_t)b * S + r0) * row_stride + (size_t)h * HD;
+  __nv_bfloat16* o0 =
+      dq + ((size_t)b * S + r0) * row_stride + (size_t)h * HD + col0;
   __nv_bfloat16* o1 = o0 + 8 * row_stride;
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
+  for (int c = 0; c < QD / 8; ++c) {
     const int col = 8 * c + 2 * (lane % 4);
     if (r0 < S)
       *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
@@ -739,6 +826,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// work (SPLIT with nsplit > 1): [2][nsplit][B, S, KVH, hd] f32, dK's
+// partial sums then dV's, for sum_splits_kernel; nsplit is 1 otherwise
 template <int HD>
 __global__ void __launch_bounds__(KV_THREADS, 1)
 dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -748,9 +837,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                const float* __restrict__ lse,
                const float* __restrict__ delta,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-               int S, int H, int KVH, float scale, float scale_log2) {
+               float* __restrict__ work, int S, int H, int KVH, int nsplit,
+               float scale, float scale_log2) {
   using L = KvLayout<HD>;
-  constexpr int BK = L::BK, BQ = L::BQ;
+  constexpr int BK = L::BK, BQ = L::BQ, KD = L::KD;
   constexpr int NS = BQ / 2;    // S^T fragment floats per thread
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -762,15 +852,22 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t empty = full + 8 * STAGES;
   const uint32_t kbar = empty + 8 * STAGES;
 
-  const int kt = blockIdx.x;    // key tile 0 sees the most queries: first
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
+  // key tile 0 sees the most queries: first. At hd 256 the grid's y is
+  // (kv head, split), and a block walks the split's GS query heads.
+  const int3 blk = L::SPLIT ? longest_first()
+                            : make_int3(blockIdx.x, blockIdx.y, blockIdx.z);
+  const int kt = blk.x;
+  const int kh = L::SPLIT ? blk.y / nsplit : blk.y;
+  const int part = L::SPLIT ? blk.y % nsplit : 0;
+  const int b = blk.z;
   const int G = H / KVH;
+  const int GS = L::SPLIT ? G / nsplit : G;
+  const int h0 = kh * G + part * GS;  // the block's first query head
   const int k0 = kt * BK;
   const int nq = (S + BQ - 1) / BQ;
   const int qt0 = k0 / BQ;      // the first query tile with a row >= k0
   const int ntq = nq - qt0;     // query tiles a head
-  const int n_tiles = G * ntq;
+  const int n_tiles = GS * ntq;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -784,7 +881,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
 
   if (tid >= CONSUMERS) {
-    // producer: the k and v tiles once, then the (q, dO) ring, the group's
+    // producer: the k and v tiles once, then the (q, dO) ring, the block's
     // heads in order and each head's query tiles from the diagonal on
     regs_dec<PRODUCER_REGS>();
     if (tid == CONSUMERS) {
@@ -795,7 +892,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         tma_load_4d(sv + c * BK * ROW, &vmap, kbar, c * CHUNK, kh, k0, b);
       }
       for (int j = 0; j < n_tiles; ++j) {
-        const int h = kh * G + j / ntq;
+        const int h = h0 + j / ntq;
         const int q0 = (qt0 + j % ntq) * BQ;
         const int s = j % STAGES;
         bar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
@@ -812,20 +909,24 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // consumers: warpgroup wg owns key rows kw .. kw + 63
+  // consumers: warpgroup wg owns key rows kw .. kw + 63 and dK's and dV's
+  // columns col0 .. col0 + KD - 1
   regs_inc<CONSUMER_REGS>();
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
-  const int kw = k0 + 64 * wg;
+  const int kw = k0 + (L::SPLIT ? 0 : 64 * wg);
+  const int col0 = L::SPLIT ? KD * wg : 0;
   const int r0 = kw + 16 * warp + lane / 4;
   const int r1 = r0 + 8;
-  const uint32_t ka = sk + 64 * wg * ROW;
-  const uint32_t va = sv + 64 * wg * ROW;
+  const uint32_t ka = sk + (L::SPLIT ? 0 : 64 * wg * ROW);
+  const uint32_t va = sv + (L::SPLIT ? 0 : 64 * wg * ROW);
+  // dO's and Q's columns col0 .. col0 + KD - 1 in a ring tile
+  const uint32_t half = (col0 / CHUNK) * BQ * ROW;
 
-  float accK[HD / 2], accV[HD / 2];
+  float accK[KD / 2], accV[KD / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) {
+  for (int i = 0; i < KD / 2; ++i) {
     accK[i] = 0.f;
     accV[i] = 0.f;
   }
@@ -841,7 +942,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   auto settle_kv = [&]() {
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) {
+    for (int i = 0; i < KD / 2; ++i) {
       pin(accK[i]);
       pin(accV[i]);
     }
@@ -856,7 +957,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
   bar_wait(kbar, 0);
   for (int j = 0; j < n_tiles; ++j) {
-    const int h = kh * G + j / ntq;
+    const int h = h0 + j / ntq;
     const int q0 = (qt0 + j % ntq) * BQ;
     const int s = j % STAGES;
     bar_wait(full + 8 * s, (j / STAGES) & 1);
@@ -904,8 +1005,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         split(ds[2], ds[3], dh[2 * c + 1], dl[2 * c + 1]);
       }
       wg_fence();
-      mma_split<HD, BQ>(accV, ph, pl, os);
-      mma_split<HD, BQ>(accK, dh, dl, qs);
+      mma_split<KD, BQ>(accV, ph, pl, os + half);
+      mma_split<KD, BQ>(accK, dh, dl, qs + half);
       wg_commit();
       wg_wait();
       settle_kv();
@@ -914,10 +1015,34 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   const size_t row_stride = (size_t)KVH * HD;
-  const size_t at0 = ((size_t)b * S + r0) * row_stride + (size_t)kh * HD;
+  const size_t at0 =
+      ((size_t)b * S + r0) * row_stride + (size_t)kh * HD + col0;
   const size_t at1 = at0 + 8 * row_stride;
+  if (L::SPLIT && nsplit > 1) {
+    // the block's partial sums, f32, at split `part` of the workspace
+    const size_t slab = (size_t)gridDim.z * S * row_stride;
+    float* pk = work + (size_t)part * slab;
+    float* pv = pk + (size_t)nsplit * slab;
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
+    for (int c = 0; c < KD / 8; ++c) {
+      const int col = 8 * c + 2 * (lane % 4);
+      if (r0 < S) {
+        *reinterpret_cast<float2*>(pk + at0 + col) =
+            make_float2(accK[4 * c] * scale, accK[4 * c + 1] * scale);
+        *reinterpret_cast<float2*>(pv + at0 + col) =
+            make_float2(accV[4 * c], accV[4 * c + 1]);
+      }
+      if (r1 < S) {
+        *reinterpret_cast<float2*>(pk + at1 + col) =
+            make_float2(accK[4 * c + 2] * scale, accK[4 * c + 3] * scale);
+        *reinterpret_cast<float2*>(pv + at1 + col) =
+            make_float2(accV[4 * c + 2], accV[4 * c + 3]);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < KD / 8; ++c) {
     const int col = 8 * c + 2 * (lane % 4);
     if (r0 < S) {
       *reinterpret_cast<__nv_bfloat162*>(dk + at0 + col) =
@@ -935,12 +1060,45 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// dK and dV from the dK/dV kernel's partial sums, work [2][nsplit][n] f32
+// (n = B S KVH hd, in groups of 4): each element's partials added in split
+// order, then rounded once to bf16. One thread a group; blockIdx.y 0 is
+// dK, 1 dV.
+__global__ void __launch_bounds__(256)
+sum_splits_kernel(const float* __restrict__ work,
+                  __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, long long n4, int nsplit) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n4) return;
+  const float4* p =
+      reinterpret_cast<const float4*>(work) + blockIdx.y * nsplit * n4 + i;
+  float4 a = p[0];
+  for (int s = 1; s < nsplit; ++s) {
+    const float4 x = p[s * n4];
+    a.x += x.x;
+    a.y += x.y;
+    a.z += x.z;
+    a.w += x.w;
+  }
+  __nv_bfloat162* out =
+      reinterpret_cast<__nv_bfloat162*>(blockIdx.y == 0 ? dk : dv) + 2 * i;
+  out[0] = __floats2bfloat162_rn(a.x, a.y);
+  out[1] = __floats2bfloat162_rn(a.z, a.w);
+}
+
+// nsplit: the query-head splits of the dK/dV pass, 1 up to hd 128; above,
+// a divisor of the group, with work its [2][nsplit][B, S, KVH, hd] f32
+// workspace where nsplit > 1
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* lse, const void* dout, void* dq, void* dk, void* dv,
-           void* delta, int B, int S, int H, int KVH, cudaStream_t st) {
+           void* delta, void* work, int B, int S, int H, int KVH, int nsplit,
+           cudaStream_t st) {
   using D = DqLayout<HD>;
   using K = KvLayout<HD>;
+  if (nsplit < 1 || (H / KVH) % nsplit != 0 || (!K::SPLIT && nsplit != 1) ||
+      (nsplit > 1 && work == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qd, od, kd, vd, qk, ok, kk, vk;
   if (!make_map(&qd, q, B, S, H, HD, D::BQ) ||
@@ -967,16 +1125,23 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     return (int)err;
   const double scale = std::pow((double)HD, -0.5);
   const float sc = (float)scale, sc_log2 = (float)(scale * 1.4426950408889634);
-  dq_tc_kernel<HD><<<dim3((S + D::BQ - 1) / D::BQ, H, B), THREADS, D::BYTES,
-                     st>>>(qd, od, kd, vd, lp, dl,
-                           static_cast<__nv_bfloat16*>(dq), S, H, KVH, sc,
-                           sc_log2);
+  dq_tc_kernel<HD><<<dim3((S + D::BQ - 1) / D::BQ, H, B), D::NTHREADS,
+                     D::BYTES, st>>>(qd, od, kd, vd, lp, dl,
+                                     static_cast<__nv_bfloat16*>(dq), S, H,
+                                     KVH, sc, sc_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dkdv_tc_kernel<HD><<<dim3((S + K::BK - 1) / K::BK, KVH, B), KV_THREADS,
-                       K::BYTES, st>>>(
-      qk, ok, kk, vk, lp, dl, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, H, KVH, sc, sc_log2);
+  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(dk);
+  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(dv);
+  float* wp = static_cast<float*>(work);
+  dkdv_tc_kernel<HD><<<dim3((S + K::BK - 1) / K::BK, KVH * nsplit, B),
+                       KV_THREADS, K::BYTES, st>>>(
+      qk, ok, kk, vk, lp, dl, dkp, dvp, wp, S, H, KVH, nsplit, sc, sc_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return (int)err;
+  const long long n4 = (long long)B * S * KVH * HD / 4;
+  sum_splits_kernel<<<dim3((unsigned)((n4 + 255) / 256), 2), 256, 0, st>>>(
+      wp, dkp, dvp, n4, nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -1018,29 +1183,34 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
   }
 }
 
+// the f32 entry's arguments, and work, the dK/dV pass's f32 workspace
+// (NULL where nsplit is 1), and nsplit, its query-head splits (1 up to hd
+// 128 and at hd 192; a divisor of H / KVH at hd 256: tc::launch)
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* lse, const void* dout,
                                         void* dq, void* dk, void* dv,
-                                        void* delta, int B, int S, int H,
-                                        int KVH, int hd, int device,
+                                        void* delta, void* work, int B,
+                                        int S, int H, int KVH, int hd,
+                                        int nsplit, int device,
                                         void* stream) {
   const int err = prologue(H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {   // BF16_HEAD_DIMS in kernels/flash_attention.py
     case 64:
-      return tc::launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S,
-                            H, KVH, st);
+      return tc::launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, work,
+                            B, S, H, KVH, nsplit, st);
     case 128:
-      return tc::launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S,
-                             H, KVH, st);
-    case 192:   // the CUDA-core kernel: wgmma at hd 192 and 256 is not
+      return tc::launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, work,
+                             B, S, H, KVH, nsplit, st);
+    case 192:   // the CUDA-core kernel (no config has hd 192)
+      if (nsplit != 1) return (int)cudaErrorInvalidValue;
       return simt::launch<__nv_bfloat16, 192>(q, k, v, o, lse, dout, dq, dk,
                                               dv, delta, B, S, H, KVH, st);
-    case 256:   // instanced
-      return simt::launch<__nv_bfloat16, 256>(q, k, v, o, lse, dout, dq, dk,
-                                              dv, delta, B, S, H, KVH, st);
+    case 256:
+      return tc::launch<256>(q, k, v, o, lse, dout, dq, dk, dv, delta, work,
+                             B, S, H, KVH, nsplit, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -58,9 +58,11 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "flash_attention_bwd_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                                     PTR, PTR, INT, INT, INT, INT, INT, INT,
                                     PTR),
+        # the same with the dK/dV workspace (or NULL) after the delta
+        # scratch and the splits after hd
         "flash_attention_bwd_bf16": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                                     PTR, PTR, INT, INT, INT, INT, INT, INT,
-                                     PTR),
+                                     PTR, PTR, PTR, INT, INT, INT, INT, INT,
+                                     INT, INT, PTR),
     },
     "gmm_align": {
         # x, dconst, dlin, dquad, A2, ll, sel, F, C, D, K, E2, device, stream

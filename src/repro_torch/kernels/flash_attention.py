@@ -6,9 +6,11 @@ cores (``wgmma``, with p split into bf16 hi and lo parts so that P.V
 keeps p's f32 precision), f32 on the CUDA cores. With ``lse=True`` it
 also returns each row's log-sum-exp [B, H, S] f32, which the backward
 (``csrc/flash_attention_bwd.cu``) recomputes the probabilities from: bf16
-at hd 64 and 128 on the tensor cores (P and dS split into bf16 hi and lo
-parts for their products), bf16 at hd 192 and 256 and f32 on the CUDA
-cores. The kernels mask ragged S themselves, so any S is exact.
+at hd 64, 128 and 256 on the tensor cores (P and dS split into bf16 hi
+and lo parts for their products; at hd 256 each gradient's columns split
+over two warpgroups and the dK/dV pass's query heads over ``bwd_splits``
+blocks), bf16 at hd 192 and f32 on the CUDA cores. The kernels mask
+ragged S themselves, so any S is exact.
 ``ops.flash_attention`` dispatches here for CUDA tensors (through an
 autograd function when a gradient is wanted) and to
 ``ref.flash_attention`` for CPU tensors. ``backward_blocks`` is the
@@ -25,10 +27,6 @@ KERNELS = {
     torch.float32: ("flash_attention_f32", "CUDA-core f32"),
     torch.bfloat16: ("flash_attention_bf16", "tensor-core bf16 (wgmma)"),
 }
-BWD_KERNELS = {
-    torch.float32: "flash_attention_bwd_f32",
-    torch.bfloat16: "flash_attention_bwd_bf16",
-}
 # head dims with a bf16 instance, the tensor-core forward's (csrc:
 # tc::dispatch) and the backward's (csrc/flash_attention_bwd.cu)
 BF16_HEAD_DIMS = (64, 128, 192, 256)
@@ -44,9 +42,24 @@ LOG2E = 1.4426950408889634
 # (namespace tc; the others run namespace simt), threads a dK/dV block by
 # namespace (tc: two consumer warpgroups and a producer warpgroup) and the
 # tensor-core kernels' tiles in flight
-BWD_TC_HEAD_DIMS = (64, 128)
+BWD_TC_HEAD_DIMS = (64, 128, 256)
 BWD_THREADS = {"tc": 384, "simt": 256}
 BWD_TC_STAGES = 4
+# the tensor-core kernels at hd 256 (tc::SPLIT_ROWS): rows a dQ or dK/dV
+# block, shared by its two warpgroups
+BWD_SPLIT_ROWS = 64
+# the hd-256 dK/dV pass's split over a group's query heads (bwd_splits):
+# at most BWD_SPLITS blocks a (key tile, kv head, batch row), each writing
+# f32 partial sums that a fourth kernel adds in split order, and no more
+# than it takes to reach BWD_SPLIT_BLOCKS blocks (about two an SM).
+# chip_smoke.py's sweep of 1, 2, 4 and 8 at Gemma 2B's S = 4096, H = 8,
+# KVH = 1 (64 key tiles a batch row; H100 80GB HBM3, 700 W, PERF.md §6):
+# at B = 1, 2.391, 1.392, 0.946, 0.955 ms (the grid's 64 blocks leave
+# most SMs idle); at B = 4, 3.529, 3.558, 3.651, 4.019 ms (256 blocks
+# fill the card, and a split only adds the workspace's traffic). So 4 at
+# B = 1 and 1 at B = 4, Gemma's training micro-batch.
+BWD_SPLITS = 8
+BWD_SPLIT_BLOCKS = 256
 
 
 def tc_rows(hd: int) -> int:
@@ -85,38 +98,68 @@ def smem_bytes(dtype: torch.dtype, hd: int) -> int:
 def bwd_scope(dtype: torch.dtype, hd: int) -> str:
     """The namespace of csrc/flash_attention_bwd.cu that a call runs:
     "tc" (wgmma) for bf16 at BWD_TC_HEAD_DIMS, else "simt" (bf16 at hd
-    192 and 256, f32 at every head dim)."""
+    192, f32 at every head dim)."""
     return ("tc" if dtype == torch.bfloat16 and hd in BWD_TC_HEAD_DIMS
             else "simt")
 
 
+def bwd_splits(dtype: torch.dtype, B: int, S: int, H: int, KVH: int,
+               hd: int) -> int:
+    """Blocks the dK/dV pass splits a group of G = H / KVH query heads
+    over, each block walking G / splits of them: on the tensor cores at
+    hd 256 (``tc::KvLayout::SPLIT``) the smallest divisor of G up to
+    BWD_SPLITS that brings the grid to BWD_SPLIT_BLOCKS blocks, or the
+    largest if none does; 1 elsewhere (a block walks the whole group)."""
+    if bwd_scope(dtype, hd) != "tc" or hd <= 128:
+        return 1
+    G = H // KVH
+    blocks = -(-S // BWD_SPLIT_ROWS) * KVH * B
+    fits = [n for n in range(1, min(G, BWD_SPLITS) + 1) if G % n == 0]
+    return next((n for n in fits if blocks * n >= BWD_SPLIT_BLOCKS),
+                fits[-1])
+
+
 def bwd_rows(dtype: torch.dtype, hd: int) -> int:
-    """Key rows of a dK/dV block: 128 on the tensor cores
-    (``tc::KvLayout::BK``, two warpgroups of 64); on the CUDA cores
-    (``simt::Tile::BR``) 64 up to hd 128, 32 above."""
+    """Key rows of a dK/dV block: on the tensor cores
+    (``tc::KvLayout::BK``) 128, two warpgroups of 64, and BWD_SPLIT_ROWS
+    at hd 256, both warpgroups' with half of the columns each; on the CUDA
+    cores (``simt::Tile::BR``) 64 up to hd 128, 32 above."""
     if bwd_scope(dtype, hd) == "tc":
-        return 128
+        return BWD_SPLIT_ROWS if hd > 128 else 128
     return 64 if hd <= 128 else 32
 
 
 def bwd_query_rows(hd: int) -> int:
     """Query rows of a (q, dO) tile of the tensor-core dK/dV kernel
-    (``tc::KvLayout::BQ``): 64 at hd 64, 32 at hd 128, so that S^T, dP^T
-    and their fragments fit beside the two hd-wide accumulators."""
+    (``tc::KvLayout::BQ``): 64 at hd 64, 32 at hd 128 and 256, so that
+    S^T, dP^T and their fragments fit beside the accumulators (dK's and
+    dV's columns, half of them at hd 256: 128 f32 registers a thread at
+    hd 128 and 256)."""
     return 64 if hd <= 64 else 32
 
 
 def bwd_smem_bytes(dtype: torch.dtype, hd: int) -> int:
     """Shared memory of a dK/dV block. Tensor cores (``tc::KvLayout``):
-    the k and v tiles, the ring of (q, dO) tiles, the mbarriers and 1024
-    bytes of alignment slack, bf16. CUDA cores (``simt::Tile``): the k, v,
-    q and dO tiles [rows][hd + 1], P and dS [rows][rows + 1], the rows'
-    lse and Delta, all f32."""
-    if bwd_scope(dtype, hd) == "tc":
-        return (2 * 128 * hd * 2 + 2 * BWD_TC_STAGES * bwd_query_rows(hd)
-                * hd * 2 + (2 * BWD_TC_STAGES + 1) * 8 + 1024)
+    the k and v tiles of ``bwd_rows`` rows, the ring of (q, dO) tiles,
+    the mbarriers and 1024 bytes of alignment slack, bf16 (197,704 bytes
+    at hd 256). CUDA cores (``simt::Tile``): the k, v, q and dO tiles
+    [rows][hd + 1], P and dS [rows][rows + 1], the rows' lse and Delta,
+    all f32."""
     br = bwd_rows(dtype, hd)
+    if bwd_scope(dtype, hd) == "tc":
+        return (2 * br * hd * 2 + 2 * BWD_TC_STAGES * bwd_query_rows(hd)
+                * hd * 2 + (2 * BWD_TC_STAGES + 1) * 8 + 1024)
     return 4 * (4 * br * (hd + 1) + 2 * br * (br + 1) + 2 * br)
+
+
+def longest_first(i: int, j: int, z: int, grid) -> tuple:
+    """The (tile, y, z) that block (i, j, z) of a (tiles, y, z) ``grid``
+    takes in the hd-256 tensor-core kernels (``tc::longest_first``): the
+    linear block index walks every (y, z) of tile 0 before any of tile 1."""
+    X, Y, Z = grid
+    lin = (z * Y + j) * X + i
+    r = lin % (Y * Z)
+    return lin // (Y * Z), r % Y, r // Y
 
 
 def _check_operands(name, q, k, v, bf16_dims, what):
@@ -164,14 +207,20 @@ def flash_attention(q, k, v, lse: bool = False):
 flash_attention.launches = 0
 
 
-def flash_attention_bwd(q, k, v, o, lse, do):
+def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
     """The gradients of ``flash_attention``: q, k, v as there, o its
     output, lse its [B, H, S] f32 log-sum-exps, do the output's gradient
     (q's shape and dtype), all contiguous on one CUDA device -> (dq, dk,
     dv) in q's dtype. Takes the head dims the forward takes; no atomics,
-    so the same bits every run. bf16 at hd 64 and 128 runs on the tensor
-    cores with P and dS as bf16 hi/lo pairs (the .cu header states the
-    precision contract)."""
+    so the same bits every run. bf16 at hd 64, 128 and 256 runs on the
+    tensor cores with P and dS as bf16 hi/lo pairs (the .cu header states
+    the precision contract); at hd 256 the dK/dV pass splits the group's
+    query heads over ``bwd_splits`` blocks, which write f32 partial sums
+    to a workspace allocated here, [2, splits, B, S, KVH, hd] (none for 1;
+    32 MiB a split at Gemma 2B's B = 1, S = 4096), added in split order by
+    a fourth kernel. ``_splits`` overrides ``bwd_splits`` for
+    chip_smoke.py's sweep (a divisor of H / KVH; 1 at other head
+    dims)."""
     _check_operands("flash_attention_bwd", q, k, v, BF16_HEAD_DIMS,
                     "backward")
     B, S, H, hd = q.shape
@@ -186,13 +235,28 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention_bwd: operands must be 16-byte "
                          "aligned")
+    KVH = k.shape[2]
+    splits = (bwd_splits(q.dtype, B, S, H, KVH, hd) if _splits is None
+              else _splits)
+    if splits != 1 and (bwd_scope(q.dtype, hd) != "tc" or hd <= 128
+                          or (H // KVH) % splits):
+        raise ValueError(f"flash_attention_bwd: {splits} splits of "
+                         f"{H // KVH} query heads at {q.dtype} head_dim {hd}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = getattr(_build.load("flash_attention_bwd"), BWD_KERNELS[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), B, S, H, k.shape[2], hd,
-        *_build.launch_args(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr())
+    lib = _build.load("flash_attention_bwd")
+    if q.dtype == torch.float32:
+        err = lib.flash_attention_bwd_f32(*args, B, S, H, KVH, hd,
+                                          *_build.launch_args(q))
+    else:
+        work = (torch.empty((2, splits, B, S, KVH, hd), dtype=torch.float32,
+                            device=q.device) if splits > 1 else None)
+        err = lib.flash_attention_bwd_bf16(
+            *args, None if work is None else work.data_ptr(), B, S, H, KVH,
+            hd, splits, *_build.launch_args(q))
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -241,10 +305,14 @@ def backward_blocks(q, k, v, o, lse, do, block: int = 64):
     log2 e), dS = P (dP - Delta), dQ += dS.K; the dK/dV pass walks, for
     each key tile, the group's query heads in order and their query tiles
     from the diagonal on, on the transposed tiles S^T = K.Q^T and dP^T =
-    V.dO^T: dV += P^T.dO, dK += dS^T.Q. With bf16 inputs P and dS enter
-    their products as bf16 hi + lo (``split_bf16``: the hi product, then
-    the lo one, into the f32 sum), as on the tensor cores. Same arguments
-    and results as ``flash_attention_bwd``."""
+    V.dO^T: dV += P^T.dO, dK += dS^T.Q. The group's heads are cut into
+    the tensor-core kernel's ``bwd_splits`` runs in order (at hd 256 often
+    several, whatever the input type); each run's sums (dK's scaled) are a
+    partial, and the partials are added in split order, as the hd-256
+    kernels' fourth pass adds them. With bf16 inputs P and dS enter their
+    products as bf16 hi + lo (``split_bf16``: the hi product, then the lo
+    one, into the f32 sum), as on the tensor cores. Same arguments and
+    results as ``flash_attention_bwd``."""
     B, S, H, hd = q.shape
     KVH = k.shape[2]
     G = H // KVH
@@ -284,24 +352,32 @@ def backward_blocks(q, k, v, o, lse, do, block: int = 64):
                 dp = torch.einsum("bqd,bkd->bqk", ot, vt)
                 acc = acc + mm_split(p * (dp - delta[:, h, qs, None]), kt)
             dq[:, qs, h] = acc * scale
+    gs = G // bwd_splits(torch.bfloat16, B, S, H, KVH, hd)
     for kh in range(KVH):                                  # the dK/dV pass
         for k0 in tiles:
             ks = slice(k0, k0 + block)
             kt, vt = kf[:, ks, kh], vf[:, ks, kh]
-            acc_k = torch.zeros_like(kt)
-            acc_v = torch.zeros_like(kt)
-            for h in range(kh * G, kh * G + G):
-                for q0 in range(k0, S, block):
-                    qs = slice(q0, q0 + block)
-                    qt, ot = qf[:, qs, h], dof[:, qs, h]
-                    st = torch.einsum("bkd,bqd->bkq", kt, qt)
-                    ok = pos[ks, None] <= pos[None, qs]
-                    pt = torch.where(ok[None], torch.exp2(
-                        st * scale_log2 - lse2[:, h, None, qs]), 0.0)
-                    dpt = torch.einsum("bkd,bqd->bkq", vt, ot)
-                    acc_v = acc_v + mm_split(pt, ot)
-                    acc_k = acc_k + mm_split(
-                        pt * (dpt - delta[:, h, None, qs]), qt)
-            dk[:, ks, kh] = acc_k * scale
-            dv[:, ks, kh] = acc_v
+            part_k, part_v = [], []
+            for h0 in range(kh * G, kh * G + G, gs):       # the splits
+                acc_k = torch.zeros_like(kt)
+                acc_v = torch.zeros_like(kt)
+                for h in range(h0, h0 + gs):
+                    for q0 in range(k0, S, block):
+                        qs = slice(q0, q0 + block)
+                        qt, ot = qf[:, qs, h], dof[:, qs, h]
+                        st = torch.einsum("bkd,bqd->bkq", kt, qt)
+                        ok = pos[ks, None] <= pos[None, qs]
+                        pt = torch.where(ok[None], torch.exp2(
+                            st * scale_log2 - lse2[:, h, None, qs]), 0.0)
+                        dpt = torch.einsum("bkd,bqd->bkq", vt, ot)
+                        acc_v = acc_v + mm_split(pt, ot)
+                        acc_k = acc_k + mm_split(
+                            pt * (dpt - delta[:, h, None, qs]), qt)
+                part_k.append(acc_k * scale)
+                part_v.append(acc_v)
+            sum_k, sum_v = part_k[0], part_v[0]
+            for pk, pv in zip(part_k[1:], part_v[1:]):     # in split order
+                sum_k, sum_v = sum_k + pk, sum_v + pv
+            dk[:, ks, kh] = sum_k
+            dv[:, ks, kh] = sum_v
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -367,21 +367,40 @@ def _flash_work(cfg: dict):
 
 def _flash_bwd_instance(cfg: dict) -> KernelInstance:
     """The dK/dV launch: one block per (key tile, kv head, batch row); on
-    the tensor cores (bf16 at hd 64 and 128) with its TMA ring of (q, dO)
-    tiles."""
+    the tensor cores (bf16 at hd 64, 128 and 256) with its TMA ring of (q,
+    dO) tiles. At hd 256 one block per (key tile, kv head x split, batch
+    row), numbered ``longest_first``, each writing its split's f32 partial
+    dK and dV (``bwd_splits`` > 1; the fourth kernel adds them)."""
     import torch
-    B, S, KVH, hd = cfg["B"], cfg["S"], cfg["KVH"], cfg["hd"]
+    B, S, H, KVH, hd = cfg["B"], cfg["S"], cfg["H"], cfg["KVH"], cfg["hd"]
     dt = cfg.get("dtype", "float32")
     tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
     scope = _fa.bwd_scope(tdt, hd)
     br = _fa.bwd_rows(tdt, hd)
-    outs = tuple(BlockMap(n, (B, S, KVH, hd), (1, br, 1, hd),
-                          lambda i, kh, b: (b, i, kh, 0), dtype=dt)
-                 for n in ("dk", "dv"))
+    splits = _fa.bwd_splits(tdt, B, S, H, KVH, hd)
+    grid = (_cdiv(S, br), KVH * splits, B)
+    if scope == "tc" and hd > 128:
+        def tile(i, j, b):
+            """(split, batch row, key tile, kv head) of block (i, j, b)."""
+            kt, y, bb = _fa.longest_first(i, j, b, grid)
+            return y % splits, bb, kt, y // splits
+        if splits > 1:
+            outs = tuple(BlockMap(n, (splits, B, S, KVH, hd),
+                                  (1, 1, br, 1, hd),
+                                  lambda i, j, b: (*tile(i, j, b), 0))
+                         for n in ("dk_part", "dv_part"))
+        else:
+            outs = tuple(BlockMap(n, (B, S, KVH, hd), (1, br, 1, hd),
+                                  lambda i, j, b: (*tile(i, j, b)[1:], 0),
+                                  dtype=dt) for n in ("dk", "dv"))
+    else:
+        outs = tuple(BlockMap(n, (B, S, KVH, hd), (1, br, 1, hd),
+                              lambda i, kh, b: (b, i, kh, 0), dtype=dt)
+                     for n in ("dk", "dv"))
     return KernelInstance(
-        grid=(_cdiv(S, br), KVH, B), threads=_fa.BWD_THREADS[scope],
+        grid=grid, threads=_fa.BWD_THREADS[scope],
         smem_bytes=_fa.bwd_smem_bytes(tdt, hd),
-        axes=(Axis("keys", S, br), Axis("kv_heads", KVH, 1),
+        axes=(Axis("keys", S, br), Axis("kv_heads x splits", KVH * splits, 1),
               Axis("batch", B, 1)),
         outputs=outs,
         rings=((Ring("tma", _fa.BWD_TC_STAGES, "tc"),) if scope == "tc"

@@ -200,11 +200,20 @@ def test_backward_constants_are_the_cuda_ones():
     assert tss.STAGES == _cu_int("selective_scan.cu", "STAGES", "bwd")
     assert tss.BWD_STATES_PER_LANE == _cu_int("selective_scan.cu", "SL",
                                               "bwd")
-    for hd in (64, 128):
+    assert tfa.BWD_SPLIT_ROWS == _cu_int("flash_attention_bwd.cu",
+                                         "SPLIT_ROWS", "tc")
+    for hd in (64, 128, 256):
         inst = registry.get("flash_attention_bwd").instance(
             {"hd": hd, "dtype": "bfloat16"})
         assert inst.scope == "tc" and inst.rings[0].stages == 4
         assert inst.smem_bytes == tfa.bwd_smem_bytes(torch.bfloat16, hd)
+    # hd 256: 64 key rows a block, both warpgroups', the dK/dV blocks of a
+    # key tile split over the group's query heads (the default config's 2)
+    inst = registry.get("flash_attention_bwd").instance(
+        {"hd": 256, "dtype": "bfloat16"})
+    assert inst.grid == (256 // tfa.BWD_SPLIT_ROWS, 2 * 2, 1)
+    assert inst.threads == 128 + _cu_int("flash_attention_bwd.cu",
+                                         "CONSUMERS", "tc")
     inst = registry.get("flash_attention_bwd").instance(
         {"hd": 192, "dtype": "bfloat16"})
     assert (inst.scope, inst.rings, inst.threads) == ("simt", (), 256)

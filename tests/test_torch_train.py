@@ -590,11 +590,14 @@ def test_remat_on_and_off_give_the_same_bits(lm_jax_states, arch):
 
 
 @pytest.mark.parametrize("B,S,H,KVH,hd,block", [
-    (2, 37, 4, 2, 16, 8), (1, 70, 6, 3, 32, 16), (1, 64, 2, 2, 16, 64)])
+    (2, 37, 4, 2, 16, 8), (1, 70, 6, 3, 32, 16), (1, 64, 2, 2, 16, 64),
+    (1, 100, 4, 1, 256, 32), (2, 70, 4, 2, 256, 16)])
 def test_attention_backward_blocks_match_autograd(B, S, H, KVH, hd, block):
     """``flash_attention.lse_blocks`` and ``backward_blocks`` (the forward's
     log-sum-exp and the backward kernels' tile walk, ragged S included)
-    against autograd of the plain attention, to LM_TOL."""
+    against autograd of the plain attention, to LM_TOL; at hd 256 under
+    MQA and GQA, with the dK/dV pass's query heads in ``bwd_splits``
+    partials added in split order."""
     rng = np.random.default_rng(S)
     q, k, v = (torch.tensor(rng.standard_normal((B, S, n, hd)).astype(
         np.float32), requires_grad=True) for n in (H, KVH, KVH))
@@ -618,13 +621,15 @@ ATT_BWD_BF16_TOL = 2.0 ** -7
 
 
 @pytest.mark.parametrize("B,S,H,KVH,hd,block", [
-    (1, 70, 4, 2, 64, 16), (2, 33, 2, 1, 128, 32)])
+    (1, 70, 4, 2, 64, 16), (2, 33, 2, 1, 128, 32), (1, 100, 4, 1, 256, 32),
+    (2, 70, 4, 2, 256, 16)])
 def test_attention_backward_blocks_bf16_within_limit(B, S, H, KVH, hd,
                                                       block):
     """``backward_blocks`` on bf16 inputs (P and dS split into bf16 hi and
     lo before their products, as on the tensor cores; o the forward's bf16
-    output) against autograd of the plain attention in f32 on the same
-    values: every gradient within 2^-7 of max|plain|."""
+    output; at hd 256 the dK/dV partials of ``bwd_splits``) against
+    autograd of the plain attention in f32 on the same values: every
+    gradient within 2^-7 of max|plain|."""
     rng = np.random.default_rng(S + hd)
     q, k, v, do = (torch.tensor(rng.standard_normal((B, S, n, hd)).astype(
         np.float32)).to(torch.bfloat16) for n in (H, KVH, KVH, H))
@@ -636,6 +641,28 @@ def test_attention_backward_blocks_bf16_within_limit(B, S, H, KVH, hd,
     for a, w in zip(got, want):
         assert a.dtype == torch.bfloat16
         _lm_close(a, w, ATT_BWD_BF16_TOL)
+
+
+def test_attention_backward_blocks_hd256_match_jax_grad():
+    """``backward_blocks`` at hd 256 under MQA (the hd-256 tensor-core
+    kernels' algorithm: 4 query heads over 4 dK/dV splits) against
+    ``jax.grad`` of the JAX package's ``blockwise_causal_attention`` on the
+    same numpy inputs, in f32 on the CPU: every gradient within LM_TOL of
+    max|JAX| (the same f32 function summed in another order), the
+    log-sum-exps from ``lse_blocks`` and o from the plain forward."""
+    B, S, H, KVH, hd = 1, 96, 4, 1, 256
+    rng = np.random.default_rng(256)
+    q, k, v, do = (rng.standard_normal((B, S, n, hd)).astype(np.float32)
+                   for n in (H, KVH, KVH, H))
+    assert TFA.bwd_splits(torch.bfloat16, B, S, H, KVH, hd) == 4
+    _, vjp = jax.vjp(JL.blockwise_causal_attention, jnp.asarray(q),
+                     jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.as_tensor(a) for a in (q, k, v, do))
+    got = TFA.backward_blocks(tq, tk, tv, TREF.flash_attention(tq, tk, tv),
+                              TFA.lse_blocks(tq, tk), tdo)
+    for a, w in zip(got, want):
+        _lm_close(a, w)
 
 
 def test_bf16_split_holds_a_float_to_2_to_the_minus_16():

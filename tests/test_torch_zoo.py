@@ -462,21 +462,33 @@ def test_transformer_still_refuses_experts():
 
 
 def test_hd256_has_bf16_instances_that_fit():
-    """Gemma 2B's head dim has a tensor-core forward instance and a
-    CUDA-core backward one, each within a block's shared memory, and the
+    """Gemma 2B's head dim has a tensor-core forward instance and
+    tensor-core backward ones (64-row blocks, the dK/dV pass split over
+    the query heads), each within a block's shared memory, and the
     registry describes both."""
     bf = torch.bfloat16
     assert 256 in tfa.BF16_HEAD_DIMS
     assert tfa.smem_bytes(bf, 256) <= 232448
     assert tfa.tc_rows(256) == 64 and tfa.tc_rows(128) == 128
-    assert tfa.bwd_scope(bf, 256) == "simt" and tfa.bwd_rows(bf, 256) == 32
+    assert tfa.bwd_scope(bf, 256) == "tc" and tfa.bwd_rows(bf, 256) == 64
     assert tfa.bwd_smem_bytes(bf, 256) <= 232448
     cfg = {"B": 4, "S": 2048, "H": 8, "KVH": 1, "hd": 256,
            "dtype": "bfloat16"}
     inst = registry.get("flash_attention").instance(cfg)
     assert inst.grid == (2048 // 64, 8, 4)
     assert inst.smem_bytes == tfa.smem_bytes(bf, 256)
-    assert registry.get("flash_attention_bwd").instance(cfg).scope == "simt"
+    # 32 key tiles x 4 batch rows: 2 splits reach 256 blocks; 4 x 4096
+    # (Gemma's training micro-batch) needs none
+    assert tfa.bwd_splits(bf, 4, 2048, 8, 1, 256) == 2
+    assert tfa.bwd_splits(bf, 4, 4096, 8, 1, 256) == 1
+    assert tfa.bwd_splits(bf, 1, 4096, 8, 1, 256) == 4
+    assert tfa.bwd_splits(bf, 1, 80, 8, 1, 256) == 8
+    assert tfa.bwd_splits(bf, 1, 4096, 8, 1, 128) == 1
+    assert tfa.bwd_splits(torch.float32, 1, 4096, 8, 1, 256) == 1
+    inst = registry.get("flash_attention_bwd").instance(cfg)
+    assert (inst.scope, inst.threads) == ("tc", 384)
+    assert inst.grid == (2048 // 64, 2, 4)
+    assert inst.smem_bytes == tfa.bwd_smem_bytes(bf, 256)
 
 
 def test_bf16_dims_outside_the_instances_still_raise():
