@@ -36,7 +36,13 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   tokens) and InternVL2-1B (256 patches + 768 text tokens) through the
   ``models.api`` steps with 16 decode steps; and at full width, 2 to 4
   layers, in f32, each one's prefill on the kernels against the plain
-  versions and decode against prefill;
+  versions and decode against prefill; then the archs with experts in
+  bf16: Moonlight 16B-A3B at full depth and Arctic 480B at 2 layers
+  through ``repro_torch.launch.serve`` (batch 4, prompt 1024, 16 tokens)
+  and Jamba v0.1 with its experts at one period (as Jamba above); and
+  Moonlight at 2 layers in f32 (kernels against plain versions, decode
+  against prefill at capacity factor 64), the three at SMOKE card against
+  CPU;
 * drives the staged recipe (``repro_torch.api``) at full width: 64
   speakers x 10 utterances x 512 frames from the port's
   ``data/speech.py`` (mean and variance normalised), a top-20
@@ -85,7 +91,16 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   ``em_macro_step`` of 128 x 1024 frames on the card against the same call
   lowered (flops, bytes, and the lowered peak beside the card's); and the
   (2, 2) mesh lowered in a fake world of 4 against the collective bytes
-  the gloo ranks above counted.
+  the gloo ranks above counted;
+* trains the LM zoo (phase 13): both backward kernels against autograd
+  of their plain versions; one SMOKE train step card against CPU for
+  StableLM, Jamba without and with experts, Moonlight, Arctic, RWKV-6,
+  Whisper and InternVL2; bf16 steps of 4 x 4096 tokens at full width:
+  StableLM-2 1.6B, Jamba (one period, no experts), Gemma 2B, Moonlight
+  (4 layers), RWKV-6 (8 layers, grad_accum 4), Whisper large-v3 (1,500
+  frames, 448 decoder tokens) and InternVL2-1B (256 patches + 3,840
+  tokens), most with a step repeated bitwise; the supervised restart
+  drill and ``launch.train.main``.
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -1315,8 +1330,12 @@ def check_flash_attention(g, dev):
     blocks, and f32) with a ragged and a short S (bf16), and the bf16
     prefill shapes of the other zoo serving paths: Phi-3-medium,
     Nemotron-4, Whisper's decoder (S = 448, not a multiple of the 128-row
-    block) and InternVL2 (256 patches + 768 tokens, a group of 7). The row
-    is the first case, the Jamba prefill of the serving path. Each case prints the kernel it ran (bf16 on the tensor
+    block) and InternVL2 (256 patches + 768 tokens, a group of 7); then
+    the bf16 shapes of the MoE serving paths, Moonlight (MHA at hd 128)
+    and Arctic (a group of 7 at hd 128), and the training forwards of
+    Moonlight (4 x 4096) and InternVL2 (256 patches + 3,840 tokens), on a
+    generator of their own. The row is the first case, the Jamba prefill
+    of the serving path. Each case prints the kernel it ran (bf16 on the tensor
     cores, f32 on the CUDA cores)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
@@ -1325,6 +1344,7 @@ def check_flash_attention(g, dev):
     # earlier cases and the phases after this one see the draws they had
     g2 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 1)
     g3 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 2)
+    g4 = torch.Generator(device=dev).manual_seed(g.initial_seed() + 3)
     cases = (("Jamba", 4, 2048, 32, 8, 128, torch.bfloat16, g),
              ("Jamba", 4, 2048, 32, 8, 128, torch.float32, g),
              ("StableLM", 8, 1024, 32, 32, 64, torch.bfloat16, g),
@@ -1339,7 +1359,12 @@ def check_flash_attention(g, dev):
              ("Nemotron serving", 4, 1024, 48, 8, 128, torch.bfloat16, g3),
              ("Whisper decoder serving", 4, 448, 20, 20, 64, torch.bfloat16,
               g3),
-             ("InternVL2 serving", 4, 1024, 14, 2, 64, torch.bfloat16, g3))
+             ("InternVL2 serving", 4, 1024, 14, 2, 64, torch.bfloat16, g3),
+             ("Moonlight serving", 4, 1024, 16, 16, 128, torch.bfloat16, g4),
+             ("Arctic serving", 4, 1024, 56, 8, 128, torch.bfloat16, g4),
+             ("Moonlight training", 4, 4096, 16, 16, 128, torch.bfloat16,
+              g4),
+             ("InternVL2 training", 4, 4096, 14, 2, 64, torch.bfloat16, g4))
     recs = []
     for label, B, S, H, KVH, hd, dtype, gen in cases:
         q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev)
@@ -1812,12 +1837,132 @@ def zoo_correctness(seed, dev):
     return rec
 
 
-def lm_phase(seed, dev):
-    """The LM side: both kernels against their plain versions, then the
-    serving paths at full width (bf16), then the f32 correctness checks.
-    Returns (kernel rows, launches by path, record)."""
+# the archs with experts, served in bf16 with random params, each freed
+# before the next: (record key, label, arch, overrides, batch, prompt
+# tokens, generated tokens, the kernels its path must launch). Moonlight
+# and Arctic go through repro_torch.launch.serve, Jamba through the
+# models.api steps (hybrid_steps). One card holds Moonlight at full depth
+# (56 GB in bf16), Arctic at 2 of its 35 layers (55 GB) and Jamba with its
+# experts at one period of 8 layers (27 GB)
+MOE_SERVE = (
+    ("moonlight_serve", "Moonlight 16B-A3B, CONFIG (48 layers, 64 experts, "
+     "top 6), bf16, repro_torch.launch.serve", "moonshot-v1-16b-a3b", {}, 4,
+     1024, 16, ("flash_attention",)),
+    ("arctic_serve", "Arctic 480B cut to 2 layers (128 experts, top 2, "
+     "beside a dense residual MLP), bf16, repro_torch.launch.serve",
+     "arctic-480b", {"n_layers": 2}, 4, 1024, 16, ("flash_attention",)),
+    ("jamba_moe_steps", "Jamba v0.1 with its experts, one period (8 layers, "
+     "4 of them 16 experts, top 2), bf16, prefill and decode steps from a "
+     "zero cache", "jamba-v0.1-52b", {"n_layers": 8}, 4, 2048, 17,
+     ("flash_attention", "selective_scan")),
+)
+# the archs with experts held card against CPU at SMOKE, f32 (Arctic and
+# Jamba with experts need ~54 GB in f32 even at their least depth): the
+# prefill logits, its k and v, and MOE_DECODE_STEPS decode steps' logits
+# within LOGIT_TOL x max|logits| (the same routing on both: f32 sums in
+# another order move a router probability by ~1e-7)
+MOE_SMOKE = ("moonshot-v1-16b-a3b", "arctic-480b", "jamba-v0.1-52b")
+MOE_DECODE_STEPS = 3
+
+
+def moe_correctness(seed, dev):
+    """Moonlight at full width, 2 layers, f32: prefill logits on the
+    kernels against the same path on the plain versions at the published
+    capacity factor (B=2, S=128: each expert keeps 30 of the 1,536
+    choices' slots and drops the rest, the same on both paths), and, at
+    capacity factor 64 (nothing dropped, as the reference's
+    test_decode_matches_full_forward sets it), the prefill of S - 1 tokens
+    plus one decode step against the prefill of S. Then MOE_SMOKE card
+    against CPU."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as SV
+    from repro_torch.models import api
+    g = torch.Generator(device=dev).manual_seed(seed + 27)
+    cfg = get_config("moonshot-v1-16b-a3b").with_overrides(
+        n_layers=2, param_dtype="float32", activation_dtype="float32")
+    params = api.init_params(cfg, g, device=dev)
+    S = 128
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=g,
+                           device=dev)
+    prefill = api.make_prefill_step(cfg)
+    _, lk = prefill(params, {"tokens": tokens})
+    before = read_counts()
+    with plain_kernels():
+        _, lp = prefill(params, {"tokens": tokens})
+    if read_counts() != before:
+        fail("the plain path launched a kernel")
+    rec = {"moonlight_kernels_vs_plain": compare(
+        "Moonlight 16B-A3B f32, 2 layers, prefill logits (B=2, S=128, "
+        "capacity factor 1.25), kernels vs plain", lk, lp, LOGIT_TOL)}
+    big = cfg.with_overrides(moe=dataclasses.replace(cfg.moe,
+                                                     capacity_factor=64.0))
+    prefill, decode = api.make_prefill_step(big), api.make_decode_step(big)
+    _, want = prefill(params, {"tokens": tokens})
+    cache, _ = prefill(params, {"tokens": tokens[:, :-1]})
+    _, got = decode(params, SV.pad_cache(cache, S),
+                    {"token": tokens[:, -1], "pos": S - 1})
+    rec["moonlight_decode_vs_prefill"] = e = _allclose_err(got, want,
+                                                           DECODE_TOL)
+    print(f"  Moonlight 16B-A3B f32, 2 layers, capacity factor 64: prefill "
+          f"of {S - 1} + one decode step vs prefill of {S}: max |diff| / "
+          f"(2e-3 + 2e-3 |prefill|) {e:.3e} {'ok' if e <= 1 else 'DISAGREES'}")
+    if e > 1:
+        fail("Moonlight decode disagrees with prefill")
+    del params, cache, lk, lp
+    torch.cuda.empty_cache()
+    rec["smoke_vs_cpu"] = moe_smoke_vs_cpu(seed, dev)
+    return rec
+
+
+def moe_smoke_vs_cpu(seed: int, dev):
+    """Each arch of MOE_SMOKE at SMOKE (f32, its published capacity
+    factor) on the card and on the CPU from the same params and prompts:
+    the prefill's logits and k, then MOE_DECODE_STEPS decode steps from
+    its cache (Jamba's prefill returns none: from a zero cache), each
+    step's logits. Returns {arch: the largest max|diff|}."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import api
+    rec = {}
+    P = 32
+    for arch in MOE_SMOKE:
+        cfg = get_config(arch, smoke=True)
+        prefill, decode = api.make_prefill_step(cfg), api.make_decode_step(cfg)
+        p_cpu = api.init_params(cfg, torch.Generator().manual_seed(seed),
+                                device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, P + MOE_DECODE_STEPS),
+                               generator=torch.Generator().manual_seed(seed))
+        window = tokens.shape[1]
+        outs = []
+        for params, d in ((_tree_to(p_cpu, dev), dev), (p_cpu, "cpu")):
+            tk = tokens.to(d)
+            cache, logits = prefill(params, {"tokens": tk[:, :P]})
+            got = {"prefill logits": logits.cpu()}
+            if cache is None:
+                cache, first = api.zero_cache(cfg, ShapeConfig(
+                    "s", window, 2, "decode"), d), 0
+            else:
+                got["prefill k"] = cache["k"].cpu()
+                cache, first = SV.pad_cache(cache, window), P
+            for i in range(MOE_DECODE_STEPS):
+                cache, logits = decode(params, cache, {
+                    "token": tk[:, first + i], "pos": first + i})
+                got[f"decode step {i + 1} logits"] = logits.cpu()
+            outs.append(got)
+        rec[arch] = max(compare(f"{arch} SMOKE f32 {what}, card vs CPU", a,
+                                outs[1][what], LOGIT_TOL)
+                        for what, a in outs[0].items())
+    return rec
+
+
+def lm_phase(seed, dev):
+    """The LM side: both kernels against their plain versions, then the
+    serving paths at full width (bf16), then the f32 correctness checks;
+    the archs with experts last. Returns (kernel rows, launches by path,
+    record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import api
     g = torch.Generator(device=dev).manual_seed(seed)
     fa_row, fa_recs = check_flash_attention(g, dev)
     ss_row, ss_recs = check_selective_scan(g, dev)
@@ -1844,17 +1989,26 @@ def lm_phase(seed, dev):
         rec[key] = lm_serve(label, run, cfg, batch, prompt_len, gen, seed,
                             dev, needs)
     rec["zoo_correctness"] = zoo_correctness(seed, dev)
+    for key, label, arch, over, batch, prompt_len, gen, needs in MOE_SERVE:
+        cfg = get_config(arch).with_overrides(**over)
+        run = SV.serve if cfg.family == "moe" else hybrid_steps
+        rec[key] = lm_serve(label, run, cfg, batch, prompt_len, gen, seed,
+                            dev, needs)
+        rec[key]["n_active_params"] = api.n_active_params(cfg)
+    rec["moe_correctness"] = moe_correctness(seed, dev)
     print("  the zoo served in bf16 (prefill s, decode tok/s, serving peak "
           "GB (with the params' drawing), launches of flash_attention):")
-    for key, *_ in ZOO_SERVE:
+    for key, *_ in ZOO_SERVE + MOE_SERVE:
         z = rec[key]
-        print(f"    {z['arch']}: {z['prefill_s']:.3f} s, "
+        print(f"    {z['arch']} ({z['n_layers']} layers): "
+              f"{z['prefill_s']:.3f} s, "
               f"{z['decode_tok_s']:.1f} tok/s, {z['peak_mem_gb']:.2f} GB "
               f"({z['init_peak_gb']:.2f} GB), "
               f"{z['launches']['flash_attention']}")
     paths = {"stablelm_serve": rec["stablelm_serve"]["launches"],
              "jamba_steps": rec["jamba_steps"]["launches"],
-             **{key: rec[key]["launches"] for key, *_ in ZOO_SERVE}}
+             **{key: rec[key]["launches"]
+                for key, *_ in ZOO_SERVE + MOE_SERVE}}
     return [fa_row, ss_row], paths, rec
 
 
@@ -3796,8 +3950,9 @@ def check_attention_bwd(g, dev):
     kernel (beside its first version's, FIRST_BWD_MS), the plain backward
     (autograd of the plain forward, the graph kept), SDPA's backward, and
     the forward with and without the log-sum-exps; then the hd-256
-    kernel's split sweep (check_attention_bwd_splits) and the small cases
-    of check_attention_bwd_small."""
+    kernel's split sweep (check_attention_bwd_splits), the small cases
+    of check_attention_bwd_small and the training rows' shapes
+    (check_attention_bwd_training)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     from repro_torch.kernels import registry
@@ -3865,6 +4020,7 @@ def check_attention_bwd(g, dev):
         torch.cuda.empty_cache()
     recs[4]["split_sweep"] = check_attention_bwd_splits(g, dev, recs[4])
     recs += check_attention_bwd_small(g, dev)
+    recs += check_attention_bwd_training(g, dev)
     r = recs[2]
     row = dict(name="flash_attention_bwd", route="cuda",
                source="src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3872,6 +4028,66 @@ def check_attention_bwd(g, dev):
                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")})
     return row, recs
+
+
+def check_attention_bwd_training(g, dev):
+    """The bf16 backward at the shapes of the training rows that the
+    B = 1 cases above leave out: Moonlight (4 x 4096, MHA at hd 128),
+    Whisper's decoder (4 x 448, a ragged S, 20 heads at hd 64) and
+    InternVL2 (4 x 4096, a group of 7 at hd 64), each against autograd of
+    the plain version to ATT_BWD_BF16_TOL and bitwise repeatable.
+    Times the plain backward and SDPA's beside the kernel. Inputs from a
+    generator of their own, seeded from ``g``'s seed."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(g.initial_seed() + 3)
+    recs = []
+    for model, B, S, H, KVH, hd in (("Moonlight", 4, 4096, 16, 16, 128),
+                                    ("Whisper decoder", 4, 448, 20, 20, 64),
+                                    ("InternVL2", 4, 4096, 14, 2, 64)):
+        q, k, v, do = (torch.randn(B, S, n, hd, generator=gen, device=dev)
+                       .to(torch.bfloat16) for n in (H, KVH, KVH, H))
+        o, lse = FA.flash_attention(q, k, v, lse=True)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        again = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        label = (f"flash_attention_bwd {model} training B={B} S={S} H={H} "
+                 f"KVH={KVH} hd={hd} bf16 "
+                 f"({FA.bwd_scope(torch.bfloat16, hd)})")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{label}: not bitwise repeatable")
+        ins = [t.float().requires_grad_() for t in (q, k, v)]
+        out = ref.flash_attention(*ins)
+        dof = do.float()
+        plain = torch.autograd.grad(out, ins, dof, retain_graph=True)
+        err, rel = _rel_errs(got, plain, label, ATT_BWD_BF16_TOL)
+        del plain
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        b_ms, b_by = bound("flash_attention_bwd", B=B, S=S, H=H, KVH=KVH,
+                           hd=hd, dtype="bfloat16")
+        rec = dict(
+            case=label, max_abs_err=err, max_rel_err=rel,
+            tol=ATT_BWD_BF16_TOL,
+            ms=cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do),
+                       5),
+            plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                out, ins, dof, retain_graph=True), 2),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), dot, retain_graph=True), 5))
+        print(f"  {label}: max|diff| / max|plain| {rel:.3e} against "
+              f"autograd of the plain version (tolerance "
+              f"{ATT_BWD_BF16_TOL:g}), bitwise repeatable; kernel "
+              f"{rec['ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); plain "
+              f"{rec['plain_ms']:.3f} ms, SDPA backward "
+              f"{rec['library_ms']:.3f} ms")
+        recs.append(rec)
+        del q, k, v, do, o, lse, got, again, ins, out, dof, qt, kt, vt, ot
+        torch.cuda.empty_cache()
+    return recs
 
 
 def check_attention_bwd_splits(g, dev, gemma):
@@ -4070,36 +4286,77 @@ def _leaves(state):
     return out + [("count", state["opt"]["count"])]
 
 
-def smoke_train_vs_cpu(seed: int, dev):
-    """One make_train_step on StableLM SMOKE and Jamba SMOKE (moe=None,
-    f32) on the card and on the CPU from the same state and batch: the
-    loss, grad norm and moments within SMOKE_TRAIN_TOL, every param
-    within the sign-flip bound."""
-    from repro_torch.configs import get_config
+# the SMOKE train steps held card against CPU: (record key, arch,
+# overrides). Jamba without and with its experts; RWKV-6's path launches
+# no kernel (its WKV is matmuls, as in the reference)
+SMOKE_TRAIN = (
+    ("stablelm-1.6b", "stablelm-1.6b", {}),
+    ("jamba-v0.1-52b", "jamba-v0.1-52b", {"moe": None}),
+    ("jamba-v0.1-52b experts", "jamba-v0.1-52b", {}),
+    ("moonshot-v1-16b-a3b", "moonshot-v1-16b-a3b", {}),
+    ("arctic-480b", "arctic-480b", {}),
+    ("rwkv6-7b", "rwkv6-7b", {}),
+    ("whisper-large-v3", "whisper-large-v3", {}),
+    ("internvl2-1b", "internvl2-1b", {}),
+)
+
+
+def path_kernels(cfg) -> tuple:
+    """The kernels a training step of ``cfg`` must launch."""
+    if cfg.family == "ssm":
+        return ()
+    return ("flash_attention", "flash_attention_bwd") + (
+        ("selective_scan", "selective_scan_bwd")
+        if cfg.family == "hybrid" else ())
+
+
+def train_batches(cfg, rows: int, seq: int, seed: int, dev):
+    """next_batch() -> a train batch on ``dev``: ``rows`` x ``seq`` tokens
+    and labels from the TokenPipeline, with frames (audio) or patches
+    (vlm) [rows, n_frames, frontend_dim] in the activation dtype, drawn
+    from a generator seeded with ``seed``."""
     from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.models import layers as L
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=rows,
+        seed=seed))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    media = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+
+    def next_batch():
+        b = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.next().items()}
+        if media:
+            enc = cfg.encoder
+            b[media] = torch.randn(rows, enc.n_frames, enc.frontend_dim,
+                                   generator=g, device=dev).to(
+                                       L.cfg_dtype(cfg))
+        return b
+    return next_batch
+
+
+def smoke_train_vs_cpu(seed: int, dev):
+    """One make_train_step of each SMOKE_TRAIN config (f32) on the card
+    and on the CPU from the same state and batch (the MoE archs at their
+    published capacity factor): the loss, grad norm and f32 moments within
+    SMOKE_TRAIN_TOL (bf16 moments within one bf16 ulp, 2^-7, of their
+    leaf's max), every param within the sign-flip bound."""
+    from repro_torch.configs import get_config
     from repro_torch.models import api
     rec = {}
-    for arch in ("stablelm-1.6b", "jamba-v0.1-52b"):
-        cfg = get_config(arch, smoke=True)
-        if cfg.moe is not None:
-            cfg = cfg.with_overrides(moe=None)
+    for key, arch, over in SMOKE_TRAIN:
+        cfg = get_config(arch, smoke=True).with_overrides(**over)
         st_cpu = api.init_state(cfg, torch.Generator().manual_seed(seed),
                                 device="cpu")
         st_dev = _tree_to(st_cpu, dev)
-        b = TokenPipeline(TokenPipelineConfig(
-            vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
-            seed=seed)).next()
+        b = train_batches(cfg, 4, 64, seed, "cpu")()
         step = api.make_train_step(cfg)
         reset_counts()
-        s_dev, m_dev = step(st_dev, {k: torch.as_tensor(v, device=dev)
-                                     for k, v in b.items()})
+        s_dev, m_dev = step(st_dev, _tree_to(b, dev))
         launches = read_counts()
-        needs = ("flash_attention", "flash_attention_bwd") + (
-            ("selective_scan", "selective_scan_bwd")
-            if cfg.family == "hybrid" else ())
-        require_launches(f"{arch} SMOKE train step", launches, needs)
-        s_cpu, m_cpu = step(st_cpu, {k: torch.as_tensor(v)
-                                     for k, v in b.items()})
+        require_launches(f"{key} SMOKE train step", launches,
+                         path_kernels(cfg))
+        s_cpu, m_cpu = step(st_cpu, b)
         worst = {}
         for k in ("loss", "grad_norm"):
             worst[k] = abs(float(m_dev[k]) - float(m_cpu[k])) / abs(
@@ -4111,7 +4368,7 @@ def smoke_train_vs_cpu(seed: int, dev):
             a = a.cpu()
             if name == "count":
                 if not torch.equal(a, w):
-                    fail(f"{arch} SMOKE: step counts differ")
+                    fail(f"{key} SMOKE: step counts differ")
                 continue
             d = (a.float() - w.float()).abs().max().item()
             if name.startswith("params/"):
@@ -4120,69 +4377,123 @@ def smoke_train_vs_cpu(seed: int, dev):
                 mom = max(mom, d / max(w.abs().max().item(), 1e-30))
         worst["moments"] = mom
         p_bound = ADAM_R * 2 * lr + 1e-7
-        ok = (all(v <= SMOKE_TRAIN_TOL for v in worst.values())
-              and p_err <= p_bound)
-        print(f"  {arch} SMOKE train step, card vs CPU: loss "
+        # bf16 moments (Arctic's opt_state_dtype): an element whose f32
+        # value lies at a rounding boundary may round one bf16 ulp apart
+        mom_tol = (SMOKE_TRAIN_TOL if cfg.opt_state_dtype == "float32"
+                   else 2 * BF16_HALF_ULP)
+        ok = (worst["loss"] <= SMOKE_TRAIN_TOL
+              and worst["grad_norm"] <= SMOKE_TRAIN_TOL
+              and mom <= mom_tol and p_err <= p_bound)
+        shown = ({k: v for k, v in launches.items() if v}
+                 or "none (no kernel on this path)")
+        print(f"  {key} SMOKE train step, card vs CPU: loss "
               f"{float(m_dev['loss']):.6f} vs {float(m_cpu['loss']):.6f}; "
               f"relative: loss {worst['loss']:.2e}, grad norm "
-              f"{worst['grad_norm']:.2e}, moments (max over leaves) "
-              f"{mom:.2e} (tolerance {SMOKE_TRAIN_TOL:g}); params max|diff| "
+              f"{worst['grad_norm']:.2e} (tolerance {SMOKE_TRAIN_TOL:g}), "
+              f"moments ({cfg.opt_state_dtype}, max over leaves) {mom:.2e} "
+              f"(tolerance {mom_tol:g}); params max|diff| "
               f"{p_err:.2e} (bound 2 x {ADAM_R} x lr_1 = {p_bound:.2e}); "
-              f"launches { {k: v for k, v in launches.items() if v} }  "
+              f"launches {shown}  "
               f"{'ok' if ok else 'DISAGREES'}")
         if not ok:
-            fail(f"{arch} SMOKE train step: card and CPU disagree")
-        rec[arch] = dict(worst, params_max_diff=p_err, params_bound=p_bound,
-                         launches=launches)
+            fail(f"{key} SMOKE train step: card and CPU disagree")
+        rec[key] = dict(worst, params_max_diff=p_err, params_bound=p_bound,
+                        launches=launches)
     return rec
 
 
-def train_flops(cfg, tokens: int, seq: int):
-    """(model flops of a training step, its reckoning): 6 N tokens for the
-    N params in products (all but the embedding table, which is a lookup)
-    plus the causal attention's 6 B H hd S^2 a layer (forward 2, backward
-    4; the remat recompute not counted)."""
+def train_flops(cfg, rows: int, seq: int):
+    """(model flops of a training step of ``rows`` x ``seq`` positions,
+    its reckoning): 6 N for each of the N active params in products
+    (``n_active_params``: an MoE table counts top_k of its n_experts; not
+    an untied embedding nor a positional table, which are lookups)
+    a position, the encoder's params a frame for audio; plus attention,
+    forward and backward: causal self-attention 6 B H hd S^2 a layer,
+    Whisper's encoder 12 B H hd F^2 a layer and its cross-attention 12 B
+    H hd S F a layer (non-causal: twice the causal count). RWKV-6's WKV
+    chunks and the Mamba scans are not counted, nor remat's recompute."""
     from repro_torch.models import api
     from repro_torch.models import layers as L
-    n_embed = L.padded_vocab(cfg.vocab_size) * cfg.d_model
-    n = api.n_params(cfg) - n_embed
-    n_attn = (cfg.n_layers // cfg.attn_period if cfg.family == "hybrid"
-              else cfg.n_layers)
+    table = api.param_table(cfg, seq if cfg.family == "audio" else 0)
+    # a tied embedding is also the head's product (Gemma)
+    lookup = sum(int(np.prod(table[k][0])) for k in
+                 ("embed", "pos_embed", "enc_pos_embed") if k in table
+                 and not (k == "embed" and cfg.tie_embeddings))
+    enc = sum(int(np.prod(v[0])) for k, v in table.items()
+              if k.startswith("enc_layer/"))
+    n = api.n_active_params(cfg, seq if cfg.family == "audio" else 0) \
+        - lookup - enc
     hd = cfg.resolved_head_dim()
-    batch = tokens // seq
-    attn = 6.0 * batch * cfg.n_heads * hd * seq * seq * n_attn
-    dense = 6.0 * n * tokens
-    return dense + attn, (
-        f"6 x {n:,} params in products (all {api.n_params(cfg):,} but the "
-        f"{n_embed:,} of the embedding lookup) x {tokens:,} tokens = "
-        f"{dense:.4e} + attention 6 x B {batch} x H {cfg.n_heads} x hd {hd} "
-        f"x S^2 {seq}^2 x {n_attn} layers = {attn:.4e}")
+    bh = 6.0 * rows * cfg.n_heads * hd
+    n_attn = {"hybrid": cfg.n_layers // max(cfg.attn_period, 1),
+              "ssm": 0}.get(cfg.family, cfg.n_layers)
+    attn = bh * seq * seq * n_attn
+    dense = 6.0 * n * rows * seq
+    text = (f"6 x {n:,} active params in products (of {api.n_params(cfg):,};"
+            f" not the {lookup:,} of lookup tables) x {rows * seq:,} "
+            f"positions = {dense:.4e} + causal attention 6 x B {rows} x H "
+            f"{cfg.n_heads} x hd {hd} x S^2 {seq}^2 x {n_attn} layers = "
+            f"{attn:.4e}")
+    total = dense + attn
+    if cfg.family == "audio":
+        F, ne = cfg.encoder.n_frames, cfg.encoder.n_layers
+        e_dense = 6.0 * enc * rows * F
+        e_attn = 2 * bh * F * F * ne + 2 * bh * seq * F * cfg.n_layers
+        total += e_dense + e_attn
+        text += (f" + encoder 6 x {enc:,} params x {rows * F:,} frames = "
+                 f"{e_dense:.4e} + encoder and cross attention 12 x B x H x "
+                 f"hd x (F^2 {F}^2 x {ne} + S F {seq} x {F} x "
+                 f"{cfg.n_layers}) = {e_attn:.4e}")
+    if cfg.family == "ssm":
+        text += " (the WKV's chunk products not counted)"
+    return total, text
 
 
-def lm_train_run(label, cfg, steps: int, seed: int, dev, repeat: bool):
-    """``steps`` make_train_step steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ
-    tokens from TokenPipeline batches, on random params from ``seed``; the
-    launch counts set to 0 before each step and read after it. With
-    ``repeat``, one more step is taken twice from the same state and must
-    give the same bits. Then one more step under the profiler (device time
+def state_digest(state) -> dict:
+    """{leaf: a 64-bit checksum of its bits}: sum_i bits_i x w_i modulo
+    2^64 over the leaf's elements as integers, w_i odd, so that any one
+    element that differs changes the sum. Two states of this digest are
+    compared instead of held together (two Moonlight train states do not
+    fit beside a third)."""
+    out = {}
+    for name, t in _leaves(state):
+        bits = t.detach().reshape(-1).view(
+            {1: torch.int8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64}[t.element_size()])
+        h = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, bits.numel(), 1 << 26):
+            b = bits[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + b.numel(), device=t.device)
+            h += (b * ((w * 2654435761) % (1 << 31) * 2 + 1)).sum()
+        out[name] = int(h)
+    return out
+
+
+def lm_train_run(label, cfg, steps: int, seed: int, dev, repeat: bool,
+                 rows: int = LM_TRAIN_BATCH, seq: int = LM_TRAIN_SEQ):
+    """``steps`` make_train_step steps of ``rows`` x ``seq`` tokens
+    (``train_batches``: with frames or patches where the family takes
+    them), on random params from ``seed``; the launch counts set to 0
+    before each step and read after it. With ``repeat``, one more step is
+    taken twice from the same state and must give the same bits
+    (``state_digest``). Then one more step under the profiler (device time
     by kernel; its launches uncounted). Returns a record with the launches
     summed over the ``steps`` steps."""
-    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
     from repro_torch.models import api
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    max_seq = seq if cfg.family == "audio" else 0
     state = api.init_state(cfg, torch.Generator(device=dev).manual_seed(seed),
-                           device=dev)
+                           max_seq=max_seq, device=dev)
     step = api.make_train_step(cfg)
-    pipe = TokenPipeline(TokenPipelineConfig(
-        vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
-        global_batch=LM_TRAIN_BATCH, seed=seed))
-    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    next_batch = train_batches(cfg, rows, seq, seed, dev)
+    # positions a step: a vlm's patches and text
+    pos = seq + (cfg.encoder.n_frames if cfg.family == "vlm" else 0)
+    tokens = rows * pos
     secs, losses, norms, per_step = [], [], [], []
     total = {}
     for i in range(steps):
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in pipe.next().items()}
+        batch = next_batch()
         reset_counts()
         _sync(dev)
         t0 = time.perf_counter()
@@ -4198,11 +4509,13 @@ def lm_train_run(label, cfg, steps: int, seed: int, dev, repeat: bool):
         if not (np.isfinite(losses[-1]) and np.isfinite(norms[-1])):
             fail(f"{label}: step {i + 1} loss or grad norm not finite")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    flops, reckoning = train_flops(cfg, tokens, LM_TRAIN_SEQ)
+    flops, reckoning = train_flops(cfg, rows, pos)
     warm = secs[1:] or secs
     s_step = sum(warm) / len(warm)
-    rec = {"n_params": api.n_params(cfg), "batch": LM_TRAIN_BATCH,
-           "seq": LM_TRAIN_SEQ, "grad_accum": cfg.grad_accum,
+    rec = {"n_params": api.n_params(cfg, max_seq),
+           "n_active_params": api.n_active_params(cfg, max_seq),
+           "n_layers": cfg.n_layers, "batch": rows, "seq": seq,
+           "positions": pos, "grad_accum": cfg.grad_accum,
            "step_s": secs, "s_per_step_warm": s_step,
            "tokens_per_s": tokens / s_step, "peak_mem_gb": peak_gb,
            "losses": losses, "grad_norms": norms,
@@ -4210,8 +4523,13 @@ def lm_train_run(label, cfg, steps: int, seed: int, dev, repeat: bool):
            "model_flops": flops,
            "model_flops_share": flops / (s_step * H100_BF16_PEAK),
            "flops_reckoning": reckoning}
-    print(f"  {label}: {rec['n_params'] / 1e9:.3f} B params; "
-          f"{steps} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens "
+    what = (f"{rows} x {seq} tokens" if pos == seq
+            else f"{rows} x ({pos - seq} patches + {seq} tokens)")
+    if cfg.family == "audio":
+        what += f" on {rows} x {cfg.encoder.n_frames} frames"
+    print(f"  {label}: {rec['n_params'] / 1e9:.3f} B params "
+          f"({rec['n_active_params'] / 1e9:.3f} B active); "
+          f"{steps} steps of {what} "
           f"(grad_accum {cfg.grad_accum}): s a step {[f'{x:.3f}' for x in secs]}"
           f", steps 2..{steps} {s_step:.3f} s, {rec['tokens_per_s']:.0f} "
           f"tokens/s; peak device memory {peak_gb:.2f} GB; losses "
@@ -4221,19 +4539,20 @@ def lm_train_run(label, cfg, steps: int, seed: int, dev, repeat: bool):
     print(f"    model-flops share {rec['model_flops_share']:.4f} = "
           f"{flops:.4e} / ({s_step:.3f} s x 989e12); {reckoning}")
     if repeat:
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in pipe.next().items()}
+        batch = next_batch()
         s_a, m_a = step(state, batch)
+        d_a = state_digest(s_a)
+        del s_a
         s_b, m_b = step(state, batch)
-        same = float(m_a["loss"]) == float(m_b["loss"]) and all(
-            torch.equal(a, b) for (_, a), (_, b) in zip(_leaves(s_a),
-                                                        _leaves(s_b)))
+        same = (float(m_a["loss"]) == float(m_b["loss"])
+                and d_a == state_digest(s_b))
         print(f"    step {steps + 1} taken twice from the same state: params "
-              f"and moments {'bitwise equal' if same else 'DIFFER'}")
+              f"and moments {'bitwise equal' if same else 'DIFFER'} (every "
+              f"leaf's 64-bit checksum)")
         if not same:
             fail(f"{label}: a step repeated from the same state differs")
         rec["repeat_bitwise"] = True
-        del s_a, s_b
+        del s_b
     rec["profile_step"] = profile_path(lambda: step(state, batch))
     print_profile(f"{label}: one step", rec["profile_step"], 8)
     del state
@@ -4297,12 +4616,37 @@ def supervised_lm_drill(seed: int, dev):
             "launcher_losses": out["losses"]}, launches
 
 
+# the full-width training runs after StableLM's: (record key, label, arch,
+# overrides, steps, repeat, tokens a row). Jamba cut to one period
+# (about 111 GB at full depth), Moonlight to 4 layers (about 337 GB at
+# 48), RWKV-6 to 8 layers; RWKV-6's WKV is matmuls, as in the reference,
+# so its path launches no kernel
+LM_TRAIN = (
+    ("jamba_train", "Jamba v0.1 without experts, one period (8 layers), "
+     "bf16", "jamba-v0.1-52b", {"moe": None, "n_layers": 8}, 2, False,
+     LM_TRAIN_SEQ),
+    ("gemma_train", "Gemma 2B, CONFIG (18 layers, head dim 256: the bf16 "
+     "backward on 64-row wgmma blocks), bf16, remat layer", "gemma-2b", {},
+     2, False, LM_TRAIN_SEQ),
+    ("moonlight_train", "Moonlight 16B-A3B cut to 4 layers (64 experts, top "
+     "6, capacity factor 1.25), bf16, remat layer", "moonshot-v1-16b-a3b",
+     {"n_layers": 4}, 2, True, LM_TRAIN_SEQ),
+    ("rwkv_train", "RWKV-6 7B cut to 8 layers, bf16, remat layer (no kernel "
+     "on this path)", "rwkv6-7b", {"n_layers": 8}, 2, True, LM_TRAIN_SEQ),
+    ("whisper_train", "Whisper large-v3, CONFIG (32 + 32 layers), bf16, "
+     "remat layer, through models.api.make_train_step", "whisper-large-v3",
+     {}, 2, True, 448),
+    ("internvl_train", "InternVL2-1B, CONFIG (24 layers), bf16, remat layer, "
+     "through models.api.make_train_step", "internvl2-1b", {}, 2, True,
+     LM_TRAIN_SEQ - 256),
+)
+
+
 def lm_training_phase(seed: int, dev):
     """Phase 13: both backward kernels against autograd of their plain
-    versions, SMOKE train steps card vs CPU, StableLM-2 1.6B, Jamba (one
-    period, no experts) and Gemma 2B (full depth, 2 steps) training at
-    full width, the supervised drill. Returns (kernel rows, launches by
-    path, record)."""
+    versions, SMOKE train steps card vs CPU, StableLM-2 1.6B and the
+    LM_TRAIN runs at full width, the supervised drill. Returns (kernel
+    rows, launches by path, record)."""
     from repro_torch.configs import get_config
     g = torch.Generator(device=dev).manual_seed(seed + 13)
     rec = {}
@@ -4315,24 +4659,25 @@ def lm_training_phase(seed: int, dev):
     rec["stablelm_train"] = lm_train_run(
         "StableLM-2 1.6B, CONFIG, bf16, remat layer", get_config(
             "stablelm-1.6b"), 3, seed, dev, repeat=True)
-    rec["jamba_train"] = lm_train_run(
-        "Jamba v0.1 without experts, one period (8 layers), bf16",
-        get_config("jamba-v0.1-52b").with_overrides(moe=None, n_layers=8),
-        2, seed, dev, repeat=False)
-    rec["gemma_train"] = lm_train_run(
-        "Gemma 2B, CONFIG (18 layers, head dim 256: the bf16 backward on "
-        "64-row wgmma blocks), bf16, remat layer", get_config("gemma-2b"), 2,
-        seed, dev, repeat=False)
-    for k in ("stablelm_train", "jamba_train", "gemma_train"):
-        need = ("flash_attention", "flash_attention_bwd") + (
-            ("selective_scan", "selective_scan_bwd") if k == "jamba_train"
-            else ())
-        require_launches(k, rec[k]["launches"], need)
+    require_launches("stablelm_train", rec["stablelm_train"]["launches"],
+                     path_kernels(get_config("stablelm-1.6b")))
+    for key, label, arch, over, steps, repeat, seq in LM_TRAIN:
+        cfg = get_config(arch).with_overrides(**over)
+        rec[key] = lm_train_run(label, cfg, steps, seed, dev, repeat,
+                                seq=seq)
+        require_launches(key, rec[key]["launches"], path_kernels(cfg))
+    print("  trained in bf16 (s a step, tokens/s, peak GB, model-flops "
+          "share, launches of flash_attention_bwd):")
+    for key in ("stablelm_train",) + tuple(k for k, *_ in LM_TRAIN):
+        r = rec[key]
+        print(f"    {key}: {r['s_per_step_warm']:.3f} s, "
+              f"{r['tokens_per_s']:.0f} tokens/s, {r['peak_mem_gb']:.2f} GB, "
+              f"{r['model_flops_share']:.4f}, "
+              f"{r['launches'].get('flash_attention_bwd', 0)}")
     rec["supervised"], sup_launches = supervised_lm_drill(seed, dev)
-    paths = {"stablelm_train": rec["stablelm_train"]["launches"],
-             "jamba_train": rec["jamba_train"]["launches"],
-             "gemma_train": rec["gemma_train"]["launches"],
-             "supervised_lm": sup_launches}
+    paths = {k: rec[k]["launches"]
+             for k in ("stablelm_train",) + tuple(k for k, *_ in LM_TRAIN)}
+    paths["supervised_lm"] = sup_launches
     return [fa_row, ss_row], paths, rec
 
 
@@ -4489,8 +4834,8 @@ def main() -> int:
     del ubm, model
     torch.cuda.empty_cache()
 
-    # 6. the LM side: Jamba without experts, StableLM-2 1.6B and the rest
-    # of the zoo
+    # 6. the LM side: Jamba without experts, StableLM-2 1.6B, the rest of
+    # the zoo, then the archs with experts
     print("[6] LM serving")
     t0 = time.perf_counter()
     lm_rows, lm_paths, lm = lm_phase(args.seed, dev)
@@ -4557,7 +4902,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 13. LM training: the backward kernels, SMOKE card vs CPU, StableLM-2
-    # 1.6B and Jamba (one period) at full width, the supervised drill
+    # 1.6B and the LM_TRAIN runs at full width, the supervised drill
     print(f"[13] LM training ({card})")
     t0 = time.perf_counter()
     train_rows, train_paths, lm_train = lm_training_phase(args.seed, dev)
@@ -4568,11 +4913,11 @@ def main() -> int:
 
     # kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
-    # training runs, the eight LM serving runs, the recipe's runs, the
+    # training runs, the eleven LM serving runs, the recipe's runs, the
     # streaming and demotion runs, the two supervised runs, every
     # rank's runs of the mesh phase and phase 13's LM training runs
-    # (StableLM's 3 steps, Jamba's 2, Gemma's 2, the supervised drill); the
-    # repeat runs and the checks against plain paths not included.
+    # (StableLM's 3 steps, 2 of each LM_TRAIN run, the supervised drill);
+    # the repeat runs and the checks against plain paths not included.
     # packed_matmul's bf16 forms are held and timed here, but no path of
     # this script runs the E-step with bf16 inputs (OFF_PATH).
     paths = {"sparse": launches_sparse, "dense": launches_dense,

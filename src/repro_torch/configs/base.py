@@ -2,9 +2,9 @@
 
 A copy of ``repro/configs/base.py``: the port keeps its own so that it
 imports nothing of the JAX package, and copies the sub-configs whole so
-that ``ModelConfig`` keeps every field. ``get_config`` resolves only the
-arch ids the port runs (``PORTED_ARCH_IDS``); the others of ``ARCH_IDS``
-(the two MoE archs) are still to be ported (ROADMAP.md Queue 1 item 14d).
+that ``ModelConfig`` keeps every field. ``get_config`` resolves every LM
+arch id of ``ARCH_IDS`` (``PORTED_ARCH_IDS``: all ten); ``ivector-tvm``
+is the i-vector config, ``configs.ivector_tvm``.
 """
 from __future__ import annotations
 
@@ -140,7 +140,8 @@ ARCH_IDS = (
 
 PORTED_ARCH_IDS = ("stablelm-1.6b", "jamba-v0.1-52b", "phi3-medium-14b",
                    "nemotron-4-15b", "gemma-2b", "whisper-large-v3",
-                   "internvl2-1b", "rwkv6-7b")
+                   "internvl2-1b", "rwkv6-7b", "arctic-480b",
+                   "moonshot-v1-16b-a3b")
 
 
 def _module_for(arch_id: str) -> str:
@@ -149,10 +150,9 @@ def _module_for(arch_id: str) -> str:
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
-    """Resolve a ported arch id to its ModelConfig (``SMOKE`` if asked)."""
+    """Resolve an LM arch id to its ModelConfig (``SMOKE`` if asked)."""
     if arch_id not in PORTED_ARCH_IDS:
-        raise KeyError(f"arch {arch_id!r} is not ported to repro_torch yet "
-                       f"(ROADMAP.md Queue 1 item 14d); ported: "
-                       f"{PORTED_ARCH_IDS}")
+        raise KeyError(f"arch {arch_id!r} is not an LM arch of repro_torch; "
+                       f"have: {PORTED_ARCH_IDS}")
     mod = importlib.import_module(_module_for(arch_id))
     return mod.SMOKE if smoke else mod.CONFIG

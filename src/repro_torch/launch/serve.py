@@ -5,12 +5,11 @@
 
 The port of ``repro/launch/serve.py``, with the same flags plus
 ``--device`` (the card unless the caller names another). Params and
-prompts are random, drawn from a seeded generator. Of the JAX launcher's
-families (dense, moe, ssm) the port serves dense and ssm (RWKV-6); moe
-waits on ROADMAP.md Queue 1 item 14d. The others are refused as the JAX
-launcher refuses them: audio and vlm need their frames or patches (their
-steps are ``models.api``'s), and a hybrid's (Jamba's) prefill returns no
-cache to decode from.
+prompts are random, drawn from a seeded generator. It serves the JAX
+launcher's families: dense, moe and ssm (RWKV-6). The others are refused
+as the JAX launcher refuses them: audio and vlm need their frames or
+patches (their steps are ``models.api``'s), and a hybrid's (Jamba's)
+prefill returns no cache to decode from.
 """
 from __future__ import annotations
 
@@ -55,11 +54,11 @@ def serve(cfg, batch: int, prompt_len: int, gen: int,
         raise NotImplementedError(
             f"serve.py drives token-LM archs, not {cfg.family!r}: its steps "
             "need frames or patches (models.api.make_prefill_step)")
-    if cfg.family not in ("dense", "ssm") or cfg.moe is not None:
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"serve drives the dense and ssm token LMs, not {cfg.family!r}: "
-            "moe is not ported (ROADMAP.md Queue 1 item 14d), and a "
-            "hybrid's prefill returns no cache to decode from")
+            f"serve drives the dense, moe and ssm token LMs, not "
+            f"{cfg.family!r}: a hybrid's prefill returns no cache to decode "
+            "from")
     dev = resolve_device(device)
     window = prompt_len + gen
     params = api.init_params(cfg, generator, max_seq=window, device=dev)

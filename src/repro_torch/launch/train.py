@@ -5,17 +5,20 @@ checkpoint/restart when given a checkpoint directory.
         --smoke --steps 50 --batch 4 --seq 128 --ckpt-dir /tmp/ck
 
 The port of ``repro/launch/train.py``, with the same flags plus
-``--device`` (the card unless the caller names another). Of the JAX
-launcher's families (dense, moe, ssm, hybrid) the port trains the dense
-decoders and a hybrid without experts. An arch with experts is refused
-(ROADMAP.md Queue 1 item 14d), and so is the ssm family: its forward is
-ported (``models.api.loss_fn`` runs it on the CPU), but training it on the
-card, with audio and vlm, is item 14h. Params are random, drawn from a
+``--device`` (the card unless the caller names another). It trains what
+the JAX launcher trains (dense, moe, ssm and hybrid, experts included)
+and refuses what it refuses: audio, vlm and ivector, which train through
+``models.api.make_train_step`` with their frames or patches. One card
+holds the train state of Moonlight's 4 layers or RWKV-6's 8 at their
+published widths; a config whose train state is past the card's memory
+(Arctic and Jamba with experts at full width among them) exits naming the
+mesh, ROADMAP.md Queue 1 item 14g. Params are random, drawn from a
 generator seeded with 0.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
@@ -29,21 +32,31 @@ from repro_torch.models import api
 
 
 def check_trainable(cfg) -> None:
-    """Raise for what the launcher cannot train: the families the JAX
-    launcher leaves to their own examples, and what the port lacks."""
+    """Exit for the families the JAX launcher leaves to their own
+    examples, as it does."""
     if cfg.family in ("audio", "vlm", "ivector"):
         raise SystemExit("use family-specific examples for audio/vlm/ivector"
-                         " (training audio and vlm on the card: ROADMAP.md "
-                         "Queue 1 item 14h)")
-    if cfg.family not in ("dense", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the launcher does not train the {cfg.family!r} "
-            "family: ssm (with audio and vlm) on the card is ROADMAP.md "
-            "Queue 1 item 14h, moe item 14d")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE layers are not ported (ROADMAP.md Queue 1 "
-            "item 14d); models.api trains it with moe=None")
+                         " (models.api.make_train_step trains audio and vlm "
+                         "with their frames or patches)")
+
+
+def check_fits(cfg, max_seq: int, capacity: int) -> None:
+    """Exit where the params, their gradients and the two moments alone
+    take more than ``capacity`` bytes, one card's memory: sharding the
+    state over cards is ROADMAP.md Queue 1 item 14g."""
+    st = api.state_struct(cfg, max_seq)
+
+    def nbytes(tree):
+        return sum(math.prod(s) * d.itemsize for s, d in tree.values())
+
+    need = 2 * nbytes(st["params"]) + nbytes(st["opt"]["m"]) \
+        + nbytes(st["opt"]["v"])
+    if need > capacity:
+        raise SystemExit(
+            f"{cfg.arch_id}: params, gradients and moments take "
+            f"{need / 1e9:.1f} GB, past the card's {capacity / 1e9:.1f} GB; "
+            f"training it waits on sharding the state over cards (ROADMAP.md "
+            f"Queue 1 item 14g)")
 
 
 def main(argv=None) -> dict:
@@ -64,6 +77,9 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch, smoke=args.smoke)
     check_trainable(cfg)
     dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        check_fits(cfg, args.seq,
+                   torch.cuda.get_device_properties(dev).total_memory)
     step_fn = api.make_train_step(cfg)
     pipe_cfg = TokenPipelineConfig(vocab_size=cfg.vocab_size,
                                    seq_len=args.seq,

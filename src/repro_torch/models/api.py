@@ -1,13 +1,14 @@
 """Model API of the LM side: param tables, init, cache shapes, the
 train state, and the train, prefill and decode steps.
 
-The port of ``repro/models/api.py`` for the families it runs: ``dense``
-decoders, the ``hybrid`` (Jamba) stack without experts, the ``audio``
-encoder-decoder (whisper), the ``vlm`` (InternVL2) and the ``ssm``
-(RWKV-6). What raises: the ``moe`` family and a config with experts
-(``cfg.moe``: ROADMAP.md Queue 1 item 14d). A step's batch holds what the
-JAX one does: ``tokens`` (prefill and train), with ``frames`` [B, F,
-frontend_dim] for audio and ``patches`` [B, P, frontend_dim] for vlm;
+The port of ``repro/models/api.py`` for every family of its LM archs:
+``dense`` and ``moe`` decoders, the ``hybrid`` (Jamba) stack with or
+without experts, the ``audio`` encoder-decoder (whisper), the ``vlm``
+(InternVL2) and the ``ssm`` (RWKV-6). On one device an MoE layer
+dispatches with ``moe.moe_dense``; the mesh's ``moe_a2a`` is ROADMAP.md
+Queue 1 item 14g. A step's batch holds what the JAX one does:
+``tokens`` (prefill and train), with ``frames`` [B, F, frontend_dim] for
+audio and ``patches`` [B, P, frontend_dim] for vlm;
 ``token`` and ``pos`` for a decode step. Steps are plain functions; there
 is no ``jit``. A train step takes its gradients with
 ``torch.autograd.grad`` over the param leaves; no graph outlives the step.
@@ -30,14 +31,14 @@ from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 f32 = torch.float32
 
-PORTED_FAMILIES = ("dense", "hybrid", "audio", "vlm", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "audio", "vlm", "ssm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md Queue 1 item 14d); ported: {PORTED_FAMILIES}")
+            f"{cfg.arch_id}: family {cfg.family!r} is not an LM family of "
+            f"the port: {PORTED_FAMILIES}")
 
 
 def param_table(cfg: ModelConfig, max_seq: int = 0) -> L.ParamTable:
@@ -75,6 +76,19 @@ def n_params(cfg: ModelConfig, max_seq: int = 0) -> int:
     return tot
 
 
+def n_active_params(cfg: ModelConfig, max_seq: int = 0) -> int:
+    """Per-token active params (MoE: only top_k of n_experts count)."""
+    tot = 0
+    for name, (shape, _, _) in param_table(cfg, max_seq).items():
+        n = 1
+        for s in shape:
+            n *= s
+        if "/moe/w_" in name and cfg.moe is not None:
+            n = n * cfg.moe.top_k // cfg.moe.n_experts
+        tot += n
+    return tot
+
+
 def cache_specs(cfg: ModelConfig,
                 shape: ShapeConfig) -> Dict[str, Tuple[Tuple, torch.dtype]]:
     """{name: (shape, dtype)} of the decode cache at this shape: the
@@ -104,23 +118,24 @@ def params_struct(cfg: ModelConfig, max_seq: int = 0):
             for k, (shape, _, _) in param_table(cfg, max_seq).items()}
 
 
-def _hidden(cfg, params, batch, kind: str):
-    """(hidden, cache or None) of a train or prefill forward over
-    ``batch`` (the JAX ``_hidden_and_aux`` without the router loss)."""
+def _hidden_and_aux(cfg, params, batch, kind: str):
+    """(hidden, router aux loss, cache or None) of a train or prefill
+    forward over ``batch``."""
     if cfg.family == "audio":
         if kind == "train":
             return W.forward_train(cfg, params, batch["frames"],
-                                   batch["tokens"]), None
+                                   batch["tokens"]) + (None,)
         return W.forward_prefill(cfg, params, batch["frames"],
                                  batch["tokens"])
     if cfg.family == "vlm":
         if kind == "train":
             return V.forward_train(cfg, params, batch["patches"],
-                                   batch["tokens"]), None
+                                   batch["tokens"]) + (None,)
         return V.forward_prefill(cfg, params, batch["patches"],
                                  batch["tokens"])
     if cfg.family == "ssm":
-        return R.forward(cfg, params, batch["tokens"], kind)
+        h, cache = R.forward(cfg, params, batch["tokens"], kind)
+        return h, torch.zeros((), dtype=f32, device=h.device), cache
     if cfg.family == "hybrid":
         return J.forward(cfg, params, batch["tokens"], kind)
     x = L.embed(cfg, params, batch["tokens"])
@@ -133,7 +148,7 @@ def make_prefill_step(cfg: ModelConfig):
     _require_ported(cfg)
 
     def prefill_step(params, batch):
-        h, cache = _hidden(cfg, params, batch, "prefill")
+        h, _, cache = _hidden_and_aux(cfg, params, batch, "prefill")
         logits = L.logits_fn(cfg, params, h[:, -1:])
         return cache, logits[:, 0]
     return prefill_step
@@ -148,18 +163,18 @@ def make_decode_step(cfg: ModelConfig):
     def decode_step(params, cache, batch):
         token, pos = batch["token"], int(batch["pos"])
         if cfg.family == "audio":
-            h, cache = W.forward_decode(cfg, params, token, cache, pos)
+            h, _, cache = W.forward_decode(cfg, params, token, cache, pos)
         elif cfg.family == "vlm":
-            h, cache = V.forward_decode(cfg, params, token, cache, pos)
+            h, _, cache = V.forward_decode(cfg, params, token, cache, pos)
         elif cfg.family == "ssm":
             h, cache = R.forward(cfg, params, token, "decode", cache=cache)
         elif cfg.family == "hybrid":
-            h, cache = J.forward(cfg, params, token, "decode", cache=cache,
-                                 pos=pos)
+            h, _, cache = J.forward(cfg, params, token, "decode",
+                                    cache=cache, pos=pos)
         else:
             x = L.embed(cfg, params, token[:, None])
-            h, cache = T.forward(cfg, params, x, "decode", cache=cache,
-                                 pos=pos)
+            h, _, cache = T.forward(cfg, params, x, "decode", cache=cache,
+                                    pos=pos)
         logits = L.logits_fn(cfg, params, h)
         return cache, logits[:, 0]
     return decode_step
@@ -174,11 +189,15 @@ def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     """The mean next-token cross-entropy of ``batch`` ({'tokens',
     'labels'}: [B, S] ints, with ``frames`` or ``patches`` for audio and
     vlm; a vlm's labels cover its text positions) under ``params``: the
-    training forward, then ``layers.chunked_lm_loss``. (The JAX loss adds
-    the MoE router loss, which is 0 without experts.)"""
+    training forward, then ``layers.chunked_lm_loss``, plus
+    ``router_aux_loss`` x the router aux loss summed over the MoE layers
+    where the config has experts."""
     _require_ported(cfg)
-    h, _ = _hidden(cfg, params, batch, "train")
-    return L.chunked_lm_loss(cfg, params, h, batch["labels"])
+    h, aux, _ = _hidden_and_aux(cfg, params, batch, "train")
+    loss = L.chunked_lm_loss(cfg, params, h, batch["labels"])
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_loss * aux
+    return loss
 
 
 def _opt_config(cfg: ModelConfig, oc: Optional[AdamWConfig]) -> AdamWConfig:

@@ -1,10 +1,11 @@
-"""Jamba: Mamba + attention 1:7 interleave, without its experts.
+"""Jamba: Mamba + attention 1:7 interleave with every-other-layer MoE.
 
-The port of ``repro/models/jamba.py`` for ``cfg.moe is None``: layer i is
-attention iff i % attn_period == 0, else Mamba, and every layer has a
-dense MLP (the JAX ``_slot_is_moe`` is false for every slot without an
-MoE config). Params keep the JAX names and their stacked [n_periods] axis
-per period slot; the port loops over periods and slots in Python.
+The port of ``repro/models/jamba.py``: layer i is attention iff i %
+attn_period == 0, else Mamba; its FFN is an MoE iff ``cfg.moe`` is set
+and i is odd (``_slot_is_moe``), a dense MLP otherwise. Params keep the
+JAX names and their stacked [n_periods] axis per period slot; the port
+loops over periods and slots in Python. The router aux loss is summed
+over the MoE slots, as the reference's scan carry sums it.
 
 As in the JAX package, prefill returns no cache: decode starts from a
 zero cache of ``cache_struct``. A decode step writes the new k, v and
@@ -22,17 +23,18 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba
+from repro_torch.models.moe import moe_ffn, moe_table
+
+f32 = torch.float32
 
 
 def _slot_is_attn(cfg, s: int) -> bool:
     return s % cfg.attn_period == 0
 
 
-def _require_dense(cfg) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "Jamba's MoE layers (repro/models/moe.py) are not ported yet "
-            "(ROADMAP.md Queue 1 item 14); run it with moe=None")
+def _slot_is_moe(cfg, s: int) -> bool:
+    # global layer index = period * attn_period + s; parity == parity of s
+    return cfg.moe is not None and s % 2 == 1
 
 
 def n_periods(cfg) -> int:
@@ -43,7 +45,6 @@ def n_periods(cfg) -> int:
 
 
 def jamba_table(cfg) -> L.ParamTable:
-    _require_dense(cfg)
     np_ = n_periods(cfg)
     t: L.ParamTable = {}
     t.update(L.embed_table(cfg))
@@ -56,7 +57,10 @@ def jamba_table(cfg) -> L.ParamTable:
             t.update(L.attn_table(cfg, pre + "/attn", np_))
         else:
             t.update(mamba.mamba_table(cfg, pre + "/mamba", np_))
-        t.update(L.mlp_table(cfg, pre + "/mlp", np_))
+        if _slot_is_moe(cfg, s):
+            t.update(moe_table(cfg, pre + "/moe", np_))
+        else:
+            t.update(L.mlp_table(cfg, pre + "/mlp", np_))
     return t
 
 
@@ -87,11 +91,19 @@ def _decode_attention(cfg, ap, hn, kc, vc, pos: int):
     return L.decode_attention(q[:, 0], kc, vc, pos)[:, None]
 
 
-def _period(cfg, params, p: int, x, positions):
+def _ffn(cfg, sp, s: int, hn, kind):
+    """Slot ``s``'s FFN on the normed ``hn`` -> (y, router aux loss)."""
+    if _slot_is_moe(cfg, s):
+        return moe_ffn(cfg, _sub(sp, "moe/"), hn, kind)
+    return L.mlp(cfg, _sub(sp, "mlp/"), hn), hn.new_zeros((), dtype=f32)
+
+
+def _period(cfg, params, p: int, x, positions, kind):
     """Period ``p`` of a training or prefill forward: each slot's mixer
-    (attention or Mamba) and its MLP, pre-normed and added to the
-    residual."""
+    (attention or Mamba) and its FFN, pre-normed and added to the
+    residual. -> (x, the period's router aux loss)."""
     dtype = x.dtype
+    aux = x.new_zeros((), dtype=f32)
     for s in range(cfg.attn_period):
         sp = _layer(params, f"period/s{s}/", p)
         hn = L.norm(cfg, sp, "ln_mix", x)
@@ -102,9 +114,10 @@ def _period(cfg, params, p: int, x, positions):
         else:
             mix, _ = mamba.mamba_mix(cfg, _sub(sp, "mamba/"), hn)
         x = x + mix.to(dtype)
-        x = x + L.mlp(cfg, _sub(sp, "mlp/"),
-                      L.norm(cfg, sp, "ln_ffn", x)).to(dtype)
-    return x
+        y, a = _ffn(cfg, sp, s, L.norm(cfg, sp, "ln_ffn", x), kind)
+        x = x + y.to(dtype)
+        aux = aux + a
+    return x, aux
 
 
 def forward(cfg, params, tokens, kind: str, cache=None, pos=None):
@@ -112,11 +125,10 @@ def forward(cfg, params, tokens, kind: str, cache=None, pos=None):
     ``pos``.
 
     cache (decode): {'k','v': [np,B,S,KVH,hd], 'conv': [np,7,B,dc-1,di],
-    'h': [np,7,B,di,ds]}, updated in place. Returns (hidden, cache), the
-    cache None after train and prefill. (The JAX forward also returns the
-    MoE router loss, which is 0 without experts.)
+    'h': [np,7,B,di,ds]}, updated in place. Returns (hidden, router aux
+    loss, cache), the cache None after train and prefill, as the
+    reference's.
     """
-    _require_dense(cfg)
     if kind not in ("train", "prefill", "decode"):
         raise ValueError(f"kind {kind!r}: 'train', 'prefill' or 'decode'")
     dtype = L.cfg_dtype(cfg)
@@ -126,15 +138,17 @@ def forward(cfg, params, tokens, kind: str, cache=None, pos=None):
         x = x[:, None]                                 # [B, 1, d]
     positions = (None if decode
                  else torch.arange(x.shape[1], device=x.device))
+    aux = torch.zeros((), dtype=f32, device=x.device)
     if not decode:
         remat = kind == "train" and cfg.remat == "layer"
         for p in range(n_periods(cfg)):
             if remat:
-                x = checkpoint(_period, cfg, params, p, x, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(_period, cfg, params, p, x, positions,
+                                  kind, use_reentrant=False)
             else:
-                x = _period(cfg, params, p, x, positions)
-        return L.norm(cfg, params, "ln_final", x), None
+                x, a = _period(cfg, params, p, x, positions, kind)
+            aux = aux + a
+        return L.norm(cfg, params, "ln_final", x), aux, None
     for p in range(n_periods(cfg)):
         mi = 0
         for s in range(cfg.attn_period):
@@ -152,9 +166,10 @@ def forward(cfg, params, tokens, kind: str, cache=None, pos=None):
                 cache["h"][p, mi] = h2.to(cache["h"].dtype)
                 mi += 1
             x = x + mix.to(dtype)
-            hn = L.norm(cfg, sp, "ln_ffn", x)
-            x = x + L.mlp(cfg, _sub(sp, "mlp/"), hn).to(dtype)
-    return L.norm(cfg, params, "ln_final", x), cache
+            y, a = _ffn(cfg, sp, s, L.norm(cfg, sp, "ln_ffn", x), kind)
+            x = x + y.to(dtype)
+            aux = aux + a
+    return L.norm(cfg, params, "ln_final", x), aux, cache
 
 
 def cache_struct(cfg, batch: int, seq: int, dtype):

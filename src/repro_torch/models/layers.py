@@ -34,33 +34,52 @@ _NEG = -1e30
 ParamTable = Dict[str, Tuple[Tuple[int, ...], Tuple, Tuple]]
 
 
+# the most elements a table_init draw holds in f32 at once (1 GiB)
+DRAW_SLICE = 1 << 28
+
+
+def _draw(out, init, generator) -> None:
+    """Fill ``out`` with ``init``'s values: drawn in f32 and written into
+    out's dtype, in slices along the leading axis (recursively, where one
+    slice is still over ``DRAW_SLICE`` elements)."""
+    n = out.numel()
+    if n > DRAW_SLICE and out.dim() > 1:
+        step = DRAW_SLICE // (n // out.shape[0])
+        for i in range(0, out.shape[0], max(step, 1)):
+            # a row over the slice is cut along its own leading axis
+            _draw(out[i:i + step] if step else out[i], init, generator)
+        return
+    kind, shape, dev = init[0], out.shape, out.device
+    if kind == "normal":
+        arr = torch.randn(shape, generator=generator, dtype=f32,
+                          device=dev).mul_(init[1])
+    elif kind == "zeros":
+        arr = torch.zeros(shape, dtype=f32, device=dev)
+    elif kind == "ones":
+        arr = torch.ones(shape, dtype=f32, device=dev)
+    elif kind == "const":
+        arr = torch.full(shape, init[1], dtype=f32, device=dev)
+    elif kind == "uniform":
+        arr = torch.rand(shape, generator=generator, dtype=f32,
+                         device=dev).mul_(init[2] - init[1]).add_(init[1])
+    else:
+        raise ValueError(kind)
+    out.copy_(arr)
+
+
 def table_init(table: ParamTable, generator: torch.Generator, dtype,
                device) -> Dict[str, torch.Tensor]:
     """Draw every param of ``table`` in sorted-name order from one
-    generator, on ``device`` (the generator's device), in f32, then cast to
+    generator, on ``device`` (the generator's device), in f32 cast to
     ``dtype``. Same distributions as the JAX ``table_init``; not the same
-    numbers. Each draw is scaled in place, so a param costs one f32 copy
-    beside its result (Nemotron-4's stacked up-projection is 19 GB in
-    f32)."""
+    numbers. A table over ``DRAW_SLICE`` elements is drawn slice by slice
+    along its leading axes, so that its f32 draw costs one slice beside
+    the result (Moonlight's stacked expert tables are 35 GB each in f32);
+    one under it is one draw."""
     out = {}
     for name, (shape, _, init) in sorted(table.items()):
-        kind = init[0]
-        if kind == "normal":
-            arr = torch.randn(shape, generator=generator, dtype=f32,
-                              device=device).mul_(init[1])
-        elif kind == "zeros":
-            arr = torch.zeros(shape, dtype=f32, device=device)
-        elif kind == "ones":
-            arr = torch.ones(shape, dtype=f32, device=device)
-        elif kind == "const":
-            arr = torch.full(shape, init[1], dtype=f32, device=device)
-        elif kind == "uniform":
-            arr = torch.rand(shape, generator=generator, dtype=f32,
-                             device=device).mul_(init[2] - init[1]).add_(
-                                 init[1])
-        else:
-            raise ValueError(kind)
-        out[name] = arr.to(dtype)
+        out[name] = torch.empty(shape, dtype=dtype, device=device)
+        _draw(out[name], init, generator)
     return out
 
 

@@ -10,7 +10,7 @@ the WKV recurrence is evaluated in closed matmul form with per-channel
 decay factors (``_wkv_chunk``); the state crosses chunks in a Python
 loop. The reference has no Pallas kernel here (its WKV is jnp), so
 neither has the port: the chunk products are batched over every chunk of
-the sequence at once, and only the state carry, two small products a
+the sequence at once, and only the state carry, a multiply and an add a
 chunk, runs in the loop. Decode is a single recurrence step.
 
 Two reference behaviours are mirrored, not fixed (ROADMAP.md Queue 3):
@@ -99,7 +99,7 @@ def _ddlerp(p, x, dx):
     k5 = k5.reshape(B, T, 5, tl)
     deltas = torch.einsum("btfl,fld->btfd", k5, p["ts_w2"].to(f32))
     mus = p["mu"].to(f32) + deltas  # [B,T,5,d]
-    return [(x + dx * mus[:, :, j].to(x.dtype)) for j in range(5)]
+    return [(x + dx * m.to(x.dtype)) for m in mus.unbind(2)]
 
 
 def _wkv_chunks(r, k, v, logw, u, state, c: int):
@@ -135,11 +135,16 @@ def _wkv_chunks(r, k, v, logw, u, state, c: int):
     k_tail = k * torch.exp(cw_last[:, :, None] - cw)
     kv = torch.einsum("bnshk,bnshv->bnhkv", k_tail, v)
     decay = torch.exp(cw_last)[..., None]
-    inter = []
-    for j in range(n):
-        inter.append(torch.einsum("bthk,bhkv->bthv", r_in[:, j], state))
-        state = decay[:, j] * state + kv[:, j]
-    out = torch.stack(inter, dim=1) + intra + diag
+    # only the carry runs in the loop, over tensors unbound once (a
+    # chunk's slice taken in the loop would cost its backward a zero-filled
+    # gradient of the whole tensor, n times); each chunk's read of the
+    # state entering it is one product over all chunks after
+    states = []
+    for d_j, kv_j in zip(decay.unbind(1), kv.unbind(1)):
+        states.append(state)
+        state = d_j * state + kv_j
+    inter = torch.einsum("bnthk,bnhkv->bnthv", r_in, torch.stack(states, 1))
+    out = inter + intra + diag
     return out.reshape(B, T, H, v.shape[-1]), state
 
 

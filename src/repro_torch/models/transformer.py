@@ -1,18 +1,21 @@
 """Decoder-only transformer with a KV cache, optional cross-attention (the
 whisper decoder) and an optional learned positional table.
 
-The port of ``repro/models/transformer.py`` for a dense FFN: training,
-prefill and decode. Per-layer params keep the JAX names under
+The port of ``repro/models/transformer.py``: training, prefill and
+decode, each layer's FFN a dense MLP, an MoE (``cfg.moe`` with layout
+"all") or an MoE beside a dense residual MLP on the same normed input
+(Arctic). Per-layer params keep the JAX names under
 ``"layer/"`` and their stacked leading [L] axis; the port loops over
 layers in Python. With ``cfg.remat == "layer"`` a training forward
 recomputes each layer in the backward pass (``torch.utils.checkpoint``,
 the JAX ``jax.checkpoint`` of the layer body). A decode step writes the
 new k and v into the cache in place and returns it; the cross-attention's
 k and v (``xk``, ``xv``) are projected from the encoder output at prefill
-and read from the cache at decode.
+and read from the cache at decode. The MoE router's aux loss is summed
+over layers, as the reference's scan carry sums it.
 
-Not ported yet (ROADMAP.md Queue 1 item 14): the MoE FFN (item 14d) and
-the ring-attention mesh path (item 14g).
+Not ported yet: the ring-attention mesh path and ``moe_a2a`` (ROADMAP.md
+Queue 1 item 14g).
 """
 from __future__ import annotations
 
@@ -22,24 +25,19 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_ffn, moe_table
 
-# the families whose decoder this module runs
-FAMILIES = ("dense", "audio", "vlm")
+f32 = torch.float32
 
 
-def _require_dense(cfg) -> None:
-    if cfg.family not in FAMILIES or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id} ({cfg.family}): the port's transformer runs "
-            f"dense-FFN decoders of the {FAMILIES} families only; MoE "
-            "layers are not ported yet (ROADMAP.md Queue 1 item 14d)")
+def is_moe_layer(cfg) -> bool:
+    return cfg.moe is not None and cfg.moe.layout == "all"
 
 
 def decoder_table(cfg, max_seq: int = 0, cross: bool = False
                   ) -> L.ParamTable:
     """``cross`` adds the cross-attention and its norm to every layer;
     ``max_seq`` > 0 a learned positional table [max_seq, d] (whisper)."""
-    _require_dense(cfg)
     nl = cfg.n_layers
     t: L.ParamTable = {}
     t.update(L.embed_table(cfg))
@@ -49,7 +47,13 @@ def decoder_table(cfg, max_seq: int = 0, cross: bool = False
     if cross:
         t.update(L.attn_table(cfg, "layer/xattn", nl))
         t.update(L.norm_table(cfg, "layer/ln_xattn", nl))
-    t.update(L.mlp_table(cfg, "layer/mlp", nl))
+    if is_moe_layer(cfg):
+        t.update(moe_table(cfg, "layer/moe", nl))
+        if cfg.moe.dense_residual_d_ff:
+            t.update(L.mlp_table(cfg, "layer/mlp", nl,
+                                 d_ff=cfg.moe.dense_residual_d_ff))
+    else:
+        t.update(L.mlp_table(cfg, "layer/mlp", nl))
     t.update(L.norm_table(cfg, "layer/ln_mlp", nl))
     if max_seq:
         t["pos_embed"] = ((max_seq, cfg.d_model), (None, "dmodel"),
@@ -67,6 +71,17 @@ def split_params(params) -> Tuple[Dict, Dict]:
 def _sub(p, prefix):
     n = len(prefix)
     return {k[n:]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def _ffn(cfg, lp, x, kind):
+    """The FFN branch on the normed ``x``: a dense MLP, an MoE, or an MoE
+    plus the dense residual MLP (Arctic). -> (y, router aux loss)."""
+    if not is_moe_layer(cfg):
+        return L.mlp(cfg, _sub(lp, "mlp/"), x), x.new_zeros((), dtype=f32)
+    y, aux = moe_ffn(cfg, _sub(lp, "moe/"), x, kind)
+    if cfg.moe.dense_residual_d_ff:
+        y = y + L.mlp(cfg, _sub(lp, "mlp/"), x)
+    return y, aux
 
 
 def _use_rope(cfg) -> bool:
@@ -90,37 +105,36 @@ def _cross(cfg, lp, x, xk, xv):
 
 def _train_layer(cfg, lp, x, positions, enc_out):
     """One layer of the training forward: attention, the cross-attention
-    where there is an encoder output, then the MLP, each pre-normed and
-    added to the residual."""
+    where there is an encoder output, then the FFN, each pre-normed and
+    added to the residual. -> (x, the layer's router aux loss)."""
     ap = _sub(lp, "attn/")
     q, k, v = L.qkv_proj(cfg, ap, L.norm(cfg, lp, "ln_attn", x), positions)
     x = x + L.out_proj(ap, L.blockwise_causal_attention(q, k, v)).to(x.dtype)
     if enc_out is not None:
         x = x + _cross(cfg, lp, x, *_cross_kv(lp, enc_out)).to(x.dtype)
-    return x + L.mlp(cfg, _sub(lp, "mlp/"),
-                     L.norm(cfg, lp, "ln_mlp", x)).to(x.dtype)
+    y, aux = _ffn(cfg, lp, L.norm(cfg, lp, "ln_mlp", x), "train")
+    return x + y.to(x.dtype), aux
 
 
 def forward(cfg, params, x, kind: str, *, enc_out=None, cache=None,
             pos=None):
-    """Run the decoder stack.
+    """Run the decoder stack -> (hidden, router aux loss, cache), as the
+    reference's.
 
-    kind='train': x [B, S, D] embedded inputs; returns (hidden [B,S,D],
-        None), each layer recomputed in the backward pass when
-        ``cfg.remat == "layer"``.
-    kind='prefill': x [B, S, D] embedded inputs; returns (hidden [B,S,D],
-        cache {'k','v': [L, B, S, KVH, hd]}, with a cross-attention also
-        {'xk','xv': [L, B, F, KVH, hd]}).
+    kind='train': x [B, S, D] embedded inputs; the cache is None, each
+        layer recomputed in the backward pass when ``cfg.remat ==
+        "layer"``.
+    kind='prefill': x [B, S, D] embedded inputs; cache {'k','v': [L, B,
+        S, KVH, hd]}, with a cross-attention also {'xk','xv': [L, B, F,
+        KVH, hd]}.
     kind='decode': x [B, 1, D]; ``cache`` as prefill's (k and v [L, B,
-        S, KVH, hd]), k and v updated in place at ``pos``; returns
-        (hidden [B,1,D], cache).
+        S, KVH, hd]), k and v updated in place at ``pos`` and returned.
     ``enc_out`` [B, F, D]: the encoder output the cross-attention reads at
     train and prefill (a decoder with ``layer/xattn`` params needs it).
     A ``pos_embed`` param adds the learned position; RoPE applies except
-    for the audio family. (The JAX forward also returns the MoE router
-    loss, 0 for a dense FFN.)
+    for the audio family. The aux loss (f32) is the MoE layers' summed,
+    0 without experts.
     """
-    _require_dense(cfg)
     if kind not in ("train", "prefill", "decode"):
         raise ValueError(f"kind {kind!r}: 'train', 'prefill' or 'decode'")
     layer_p, other_p = split_params(params)
@@ -137,15 +151,17 @@ def forward(cfg, params, x, kind: str, *, enc_out=None, cache=None,
                  if decode else torch.arange(x.shape[1], device=x.device))
     if not _use_rope(cfg):
         positions = None
+    aux = torch.zeros((), dtype=f32, device=x.device)
     if kind == "train":
         for i in range(cfg.n_layers):
             lp = {k: v[i] for k, v in layer_p.items()}
             if cfg.remat == "layer":
-                x = checkpoint(_train_layer, cfg, lp, x, positions, enc_out,
-                               use_reentrant=False)
+                x, a = checkpoint(_train_layer, cfg, lp, x, positions,
+                                  enc_out, use_reentrant=False)
             else:
-                x = _train_layer(cfg, lp, x, positions, enc_out)
-        return L.norm(cfg, other_p, "ln_final", x), None
+                x, a = _train_layer(cfg, lp, x, positions, enc_out)
+            aux = aux + a
+        return L.norm(cfg, other_p, "ln_final", x), aux, None
     ks, vs, xks, xvs = [], [], [], []
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in layer_p.items()}
@@ -170,14 +186,15 @@ def forward(cfg, params, x, kind: str, *, enc_out=None, cache=None,
                 xks.append(xk)
                 xvs.append(xv)
             x = x + _cross(cfg, lp, x, xk, xv).to(dtype)
-        x = x + L.mlp(cfg, _sub(lp, "mlp/"),
-                      L.norm(cfg, lp, "ln_mlp", x)).to(dtype)
+        y, a = _ffn(cfg, lp, L.norm(cfg, lp, "ln_mlp", x), kind)
+        x = x + y.to(dtype)
+        aux = aux + a
     x = L.norm(cfg, other_p, "ln_final", x)
     if not decode:
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
         if cross:
             cache["xk"], cache["xv"] = torch.stack(xks), torch.stack(xvs)
-    return x, cache
+    return x, aux, cache
 
 
 def cache_struct(cfg, batch: int, seq: int, dtype, cross_frames: int = 0):

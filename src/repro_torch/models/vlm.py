@@ -30,14 +30,15 @@ def _merge(cfg, params, patches, tokens):
 
 
 def forward_train(cfg, params, patches, tokens):
-    """-> hidden states of the TEXT positions only [B, S_text, d]."""
+    """-> (hidden states of the TEXT positions only [B, S_text, d],
+    router aux loss)."""
     x = _merge(cfg, params, patches, tokens)
-    h, _ = T.forward(cfg, params, x, "train")
-    return h[:, patches.shape[1]:]
+    h, aux, _ = T.forward(cfg, params, x, "train")
+    return h[:, patches.shape[1]:], aux
 
 
 def forward_prefill(cfg, params, patches, tokens):
-    """-> (hidden [B, P + S, d], cache over all P + S positions)."""
+    """-> (hidden [B, P + S, d], aux, cache over all P + S positions)."""
     return T.forward(cfg, params, _merge(cfg, params, patches, tokens),
                      "prefill")
 

@@ -68,22 +68,24 @@ def _dec_params(params):
 
 
 def forward_train(cfg, params, frames, tokens):
-    """-> hidden [B, S, d] of the decoder over ``tokens``."""
+    """-> (hidden [B, S, d] of the decoder over ``tokens``, router aux
+    loss)."""
     enc_out = encode(cfg, params, frames)
     x = L.embed(cfg, params, tokens)
-    h, _ = T.forward(cfg, _dec_params(params), x, "train", enc_out=enc_out)
-    return h
+    h, aux, _ = T.forward(cfg, _dec_params(params), x, "train",
+                          enc_out=enc_out)
+    return h, aux
 
 
 def forward_prefill(cfg, params, frames, tokens):
-    """-> (hidden [B, S, d], cache {'k', 'v', 'xk', 'xv'})."""
+    """-> (hidden [B, S, d], aux, cache {'k', 'v', 'xk', 'xv'})."""
     enc_out = encode(cfg, params, frames)
     x = L.embed(cfg, params, tokens)
     return T.forward(cfg, _dec_params(params), x, "prefill", enc_out=enc_out)
 
 
 def forward_decode(cfg, params, token, cache, pos: int):
-    """token [B] at ``pos`` -> (hidden [B, 1, d], cache updated in
+    """token [B] at ``pos`` -> (hidden [B, 1, d], aux, cache updated in
     place)."""
     x = L.embed(cfg, params, token[:, None])
     return T.forward(cfg, _dec_params(params), x, "decode", cache=cache,

@@ -320,16 +320,20 @@ from repro_torch.optim import AdamWConfig as TAdamW  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 
 LM_TOL = 1e-5
+# gradients through the experts: the f32 sums of the router's softmax and
+# the expert products' backward, as tests/test_torch_moe.py holds them
+MOE_GRAD_TOL = 1e-4
 OPT_TOL = 1e-6
 ADAM_R = 1.0004
 STABLELM, JAMBA = "stablelm-1.6b", "jamba-v0.1-52b"
 LM_SEQ, LM_BATCH = 32, 4
 
 
-def _lm_cfgs(arch, **kw):
-    """The f32 SMOKE config of ``arch`` in both packages, without experts."""
+def _lm_cfgs(arch, experts=False, **kw):
+    """The f32 SMOKE config of ``arch`` in both packages, without experts
+    unless asked."""
     jc, tc = j_get_config(arch, smoke=True), t_get_config(arch, smoke=True)
-    if jc.moe is not None:
+    if jc.moe is not None and not experts:
         kw = {"moe": None, **kw}
     return jc.with_overrides(**kw), tc.with_overrides(**kw)
 
@@ -364,6 +368,8 @@ def lm_jax_states():
     for i, arch in enumerate((STABLELM, JAMBA)):
         jc, _ = _lm_cfgs(arch)
         out[arch] = _np_tree(japi.init_state(jc, jax.random.PRNGKey(10 + i)))
+    jc, _ = _lm_cfgs(JAMBA, experts=True)
+    out[JAMBA, True] = _np_tree(japi.init_state(jc, jax.random.PRNGKey(12)))
     return out
 
 
@@ -518,13 +524,24 @@ def test_chunked_lm_loss_and_grads_match_jax(S, chunk, vocab, tie,
     _lm_close(gw, jgw)
 
 
-@pytest.mark.parametrize("arch", [STABLELM, JAMBA])
-def test_loss_and_grads_match_jax(lm_jax_states, arch):
+WITH_EXPERTS = [pytest.param(STABLELM, False, id=STABLELM),
+                pytest.param(JAMBA, False, id=JAMBA),
+                pytest.param(JAMBA, True, id=JAMBA + "-experts")]
+
+
+def _state_key(arch, experts):
+    return (arch, True) if experts else arch
+
+
+@pytest.mark.parametrize("arch,experts", WITH_EXPERTS)
+def test_loss_and_grads_match_jax(lm_jax_states, arch, experts):
     """``loss_fn`` and the gradient of every param leaf against
     ``jax.value_and_grad`` of the JAX ``loss_fn``, from the same state and
-    batch."""
-    jc, tc = _lm_cfgs(arch)
-    params = lm_jax_states[arch]["params"]
+    batch; Jamba with its experts too (the router aux loss included),
+    its gradients within 1e-4 of each leaf's largest |value|, as
+    ``tests/test_torch_moe.py`` holds them."""
+    jc, tc = _lm_cfgs(arch, experts)
+    params = lm_jax_states[_state_key(arch, experts)]["params"]
     batch = _batches(jc.vocab_size, 1)[0]
     jl, jg = jax.value_and_grad(lambda p, b: japi.loss_fn(jc, p, b))(
         {k: jnp.asarray(v) for k, v in params.items()},
@@ -537,17 +554,22 @@ def test_loss_and_grads_match_jax(lm_jax_states, arch):
     _lm_close(tl, jl)
     assert set(names) == set(jg)
     for k, g in zip(names, tg):
-        _lm_close(g, jg[k])
+        _lm_close(g, jg[k], MOE_GRAD_TOL if experts else LM_TOL)
 
 
-@pytest.mark.parametrize("arch,accum", [(STABLELM, 1), (JAMBA, 1),
-                                        (STABLELM, 2)])
-def test_two_train_steps_match_jax(lm_jax_states, arch, accum):
+@pytest.mark.parametrize("arch,accum,experts", [
+    pytest.param(STABLELM, 1, False, id=STABLELM + "-1"),
+    pytest.param(JAMBA, 1, False, id=JAMBA + "-1"),
+    pytest.param(STABLELM, 2, False, id=STABLELM + "-2"),
+    pytest.param(JAMBA, 2, True, id=JAMBA + "-experts-2")])
+def test_two_train_steps_match_jax(lm_jax_states, arch, accum, experts):
     """Two ``make_train_step`` steps (default AdamW) from the same state and
-    batches: losses, grad norms and lr to LM_TOL, the moments to LM_TOL,
-    the params within the sign-flip bound (module comment)."""
-    jc, tc = _lm_cfgs(arch, grad_accum=accum)
-    state = lm_jax_states[arch]
+    batches: losses, grad norms and lr to LM_TOL, the moments to LM_TOL
+    (MOE_GRAD_TOL with experts), the params within the sign-flip bound
+    (module comment)."""
+    jc, tc = _lm_cfgs(arch, experts, grad_accum=accum)
+    state = lm_jax_states[_state_key(arch, experts)]
+    tol = MOE_GRAD_TOL if experts else LM_TOL
     jstep = jax.jit(japi.make_train_step(jc))
     tstep = tapi.make_train_step(tc)
     js = jax.tree.map(jnp.asarray, state)
@@ -557,7 +579,7 @@ def test_two_train_steps_match_jax(lm_jax_states, arch, accum):
         js, jm = jstep(js, {k: jnp.asarray(v) for k, v in b.items()})
         ts, tm = tstep(ts, _t_batch(b))
         for k in ("loss", "grad_norm", "lr"):
-            _lm_close(tm[k], jm[k])
+            _lm_close(tm[k], jm[k], tol)
         lrs.append(float(jm["lr"]))
     assert int(ts["opt"]["count"]) == int(js["opt"]["count"]) == 2
     bound = ADAM_R * 2 * sum(lrs)
@@ -566,7 +588,7 @@ def test_two_train_steps_match_jax(lm_jax_states, arch, accum):
         assert p.dtype == torch.float32 and p.shape == want.shape
         assert np.abs(p.numpy() - want).max() <= bound + 1e-7, k
         for w in ("m", "v"):
-            _lm_close(ts["opt"][w][k], js["opt"][w][k])
+            _lm_close(ts["opt"][w][k], js["opt"][w][k], tol)
 
 
 @pytest.mark.parametrize("arch", [STABLELM, JAMBA])
@@ -808,11 +830,15 @@ def test_train_main_runs_and_resumes(tmp_path, capsys):
 
 
 def test_train_main_refuses_what_the_port_lacks():
-    with pytest.raises(NotImplementedError, match="14d"):
-        TLAUNCH.main(["--arch", JAMBA, "--smoke", "--device", "cpu"])
+    """(Named while the launcher refused moe and ssm; the name is kept so
+    that its record carries on.) The port lacks nothing the JAX launcher
+    trains: Jamba with its experts trains through ``main``, the ssm family
+    passes the check, and audio exits as in the JAX launcher."""
+    out = TLAUNCH.main(["--arch", JAMBA, "--smoke", "--device", "cpu",
+                        "--steps", "1", "--batch", "2", "--seq", "16"])
+    assert out["final_step"] == 1 and np.isfinite(out["losses"]).all()
     cfg = t_get_config(STABLELM, smoke=True)
-    with pytest.raises(NotImplementedError, match="14h"):
-        TLAUNCH.check_trainable(cfg.with_overrides(family="ssm"))
+    TLAUNCH.check_trainable(cfg.with_overrides(family="ssm"))
     with pytest.raises(SystemExit):
         TLAUNCH.check_trainable(cfg.with_overrides(family="audio"))
 
@@ -865,12 +891,11 @@ def test_lm_train_checkpoint_jax_to_port(tmp_path):
                                           np.asarray(js["opt"][w][k]))
 
 
-@pytest.mark.parametrize("arch", [STABLELM, JAMBA])
-def test_state_struct_matches_jax(arch):
-    jc, tc = (j_get_config(arch), t_get_config(arch).with_overrides(
-        moe=None))
-    if jc.moe is not None:
-        jc = jc.with_overrides(moe=None)
+@pytest.mark.parametrize("arch,experts", WITH_EXPERTS)
+def test_state_struct_matches_jax(arch, experts):
+    jc, tc = j_get_config(arch), t_get_config(arch)
+    if jc.moe is not None and not experts:
+        jc, tc = jc.with_overrides(moe=None), tc.with_overrides(moe=None)
     js, ts = japi.state_struct(jc), tapi.state_struct(tc)
     assert ts["opt"]["count"] == ((), torch.int32)
     for part in ("params", "m", "v"):

@@ -107,16 +107,17 @@ def _both(batch):
 
 
 def test_eight_lm_archs_resolve_and_only_moe_raises():
+    """(The name is the one this test had while the MoE archs raised; it
+    is kept so that its record carries on.) All ten LM archs resolve,
+    full and SMOKE; an unknown id raises."""
     lm = [a for a in ARCH_IDS if a != "ivector-tvm"]
-    assert len(lm) == 10 and set(PORTED_ARCH_IDS) <= set(lm)
+    assert len(lm) == 10 and set(PORTED_ARCH_IDS) == set(lm)
     for arch in lm:
-        if arch in ("arctic-480b", "moonshot-v1-16b-a3b"):
-            with pytest.raises(KeyError, match="item 14d"):
-                t_get_config(arch)
-        else:
-            assert t_get_config(arch).arch_id == arch
-            assert t_get_config(arch, smoke=True).arch_id == arch
-    assert len(PORTED_ARCH_IDS) == 8
+        assert t_get_config(arch).arch_id == arch
+        assert t_get_config(arch, smoke=True).arch_id == arch
+    assert len(PORTED_ARCH_IDS) == 10
+    with pytest.raises(KeyError):
+        t_get_config("ivector-tvm")
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -441,19 +442,37 @@ def test_serve_main_on_cpu(arch, capsys, monkeypatch):
 
 
 def test_train_launcher_refuses_the_new_families():
+    """(Named while the launcher also refused ssm and moe; the name is
+    kept so that its record carries on.) The launcher refuses what the
+    JAX one refuses, audio, vlm and ivector, and takes the rest: ssm,
+    moe, and a hybrid with experts."""
     for arch in (WHISPER, INTERNVL):
         with pytest.raises(SystemExit):
             tlaunch.check_trainable(t_get_config(arch, smoke=True))
-    with pytest.raises(NotImplementedError, match="14h"):
-        tlaunch.check_trainable(t_get_config(RWKV, smoke=True))
-    tlaunch.check_trainable(t_get_config(GEMMA, smoke=True))
+    with pytest.raises(SystemExit):
+        tlaunch.check_trainable(t_get_config(GEMMA, smoke=True)
+                                .with_overrides(family="ivector"))
+    for arch in (RWKV, GEMMA, "moonshot-v1-16b-a3b", "arctic-480b",
+                 "jamba-v0.1-52b"):
+        tlaunch.check_trainable(t_get_config(arch, smoke=True))
 
 
 def test_transformer_still_refuses_experts():
-    tc = t_get_config("jamba-v0.1-52b", smoke=True).with_overrides(
-        family="dense")
-    with pytest.raises(NotImplementedError, match="14d"):
-        tapi.param_table(tc)
+    """(Named while the transformer refused experts; the name is kept so
+    that its record carries on.) The transformer's table with experts is
+    the reference's: an every-other layout (Jamba's) puts none in a
+    decoder, whose layers stay dense; the "all" layout puts an MoE in every
+    layer, beside a dense residual MLP of ``dense_residual_d_ff`` where set
+    (Arctic)."""
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as TT
+    for arch in ("jamba-v0.1-52b", "arctic-480b", "moonshot-v1-16b-a3b"):
+        jc, tc = (c.with_overrides(family="dense") for c in _cfgs(arch))
+        jt, tt = JT.decoder_table(jc), TT.decoder_table(tc)
+        assert {k: v[0] for k, v in jt.items()} == {k: v[0]
+                                                    for k, v in tt.items()}
+        assert TT.is_moe_layer(tc) == (arch != "jamba-v0.1-52b")
+        assert ("layer/mlp/w_up" in tt) == (arch != "moonshot-v1-16b-a3b")
 
 
 # ---------------------------------------------------------------------------
