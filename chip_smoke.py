@@ -100,7 +100,17 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   (4 layers), RWKV-6 (8 layers, grad_accum 4), Whisper large-v3 (1,500
   frames, 448 decoder tokens) and InternVL2-1B (256 patches + 3,840
   tokens), most with a step repeated bitwise; the supervised restart
-  drill and ``launch.train.main``.
+  drill and ``launch.train.main``;
+* runs the LM side's mesh paths (phase 14) on worlds of 4 and 2 ranks
+  over gloo on the one card: every LM arch's SMOKE gradients on (2, 2)
+  against one rank, InternVL2-1B on (1, 4) through the ring, Moonlight
+  on (2, 2) through ``moe_a2a``, each with an f32 step (its loss, grad
+  norm, params and gradients) held to one rank, Jamba with experts (one
+  period) prefilling on (2, 2) against one rank in f32 activations and,
+  at its first MoE layer, in bf16, StableLM-2 steps whose collectives by
+  op equal their lowering in a fake world, the elastic restore (4, 1) ->
+  (2, 2) and (2, 1), and one LM dry-run row per production mesh equal to
+  ``tests/test_torch_mesh_lm.py``'s ``LM_PINS``.
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -113,6 +123,7 @@ object with every kernel's numbers. The same numbers are written to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -4681,6 +4692,697 @@ def lm_training_phase(seed: int, dev):
     return [fa_row, ss_row], paths, rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the LM side's mesh paths on the card (sharding rules on
+# DTensor, ring attention, the expert-parallel MoE, elastic restore)
+# ---------------------------------------------------------------------------
+
+LM_MESH_TIMEOUT = 900
+# tokens a step of the mesh runs: rows x positions (a vlm's patches
+# included); the f32 pairs and Jamba's prefill at capacity factor 64 take
+# fewer (their one-rank buffers are [E, T K 64 / E, d], and the mesh's
+# exchanges move them through the host)
+LM_MESH_ROWS, LM_MESH_SEQ = 4, 2048
+LM_MESH_F32 = {"internvl_f32": (2, 512), "moonlight_f32": (2, 256)}
+JAMBA_PREFILL = (2, 256)
+# the f32 pairs against one rank: the loss and the grad norm to this share
+# of themselves, every param to this absolute distance
+# (tests/test_torch_mesh_lm.py's). One step from the warm-up's first rate
+# (3e-6) moves a param by about that rate whatever its gradient, so the
+# gradients themselves are held too: each leaf to LM_MESH_GRAD_RTOL of its
+# largest one-rank entry (a gradient left a partial sum, or halved, is
+# off by a large share of it)
+LM_MESH_LOSS_RTOL, LM_MESH_PARAM_ATOL = 1e-4, 3e-3
+LM_MESH_GRAD_RTOL = 1e-3
+# every LM arch's SMOKE gradients (f32) on (2, 2), each rank against its
+# own one-rank run: rows x positions
+LM_MESH_ZOO = (4, 64)
+# Jamba's prefill on the mesh against one rank (bf16 params, f32
+# activations): the last position's logits, max |diff| / max |one rank|.
+JAMBA_MESH_RTOL = 1e-3
+# Jamba's prefill in its own bf16 activations. A product summed in another
+# order moves some tokens' router scores enough to change their experts,
+# and a token's new experts change the rest of its sequence, so the mesh
+# is held at the first MoE layer: its output against one rank's
+# moe_dense on the mesh's own input (max |diff| / max |one rank|), and,
+# against the one-rank prefill, the share of tokens routed to the same
+# experts and the output's error on those tokens.
+JAMBA_BF16_A2A_RTOL = 3e-2
+JAMBA_BF16_AGREE_MIN, JAMBA_BF16_AGREE_RTOL = 0.5, 0.1
+
+
+def lm_mesh_cfgs():
+    """The configs of phase 14, by name: full width, depth cut as listed
+    (InternVL2's bf16 step at its full 24 layers). Moonlight's f32 pair
+    weighs the router's aux loss by 0: on the mesh that loss is the mean
+    of each rank's block's (the reference's ``pmean`` in ``moe_a2a``), on
+    one rank it is the whole batch's, so the two steps differ in that
+    term by design; tests/test_torch_mesh_lm.py holds the mesh's aux
+    loss and its gradients against JAX. Four ranks share the
+    card, and sharding does not shrink what they hold together: a bf16
+    Moonlight step at 4 layers (35.4 GB of state, twice that while the
+    new state is made, and the experts' gathers) ran out of the card's
+    80 GB on an H100, so it runs at 2. StableLM-2's step, whose
+    collectives are held against its lowering, runs 8 of its 24 layers
+    for the phase's time (31 s a step at 24 on an H100)."""
+    import dataclasses as dc
+    from repro_torch.configs.base import get_config
+    f32 = dict(param_dtype="float32", activation_dtype="float32")
+    ivl = get_config("internvl2-1b")
+    moon = get_config("moonshot-v1-16b-a3b")
+    jamba = get_config("jamba-v0.1-52b")
+    slm = get_config("stablelm-1.6b")
+    return {
+        "internvl_bf16": ivl,
+        "internvl_f32": ivl.with_overrides(n_layers=2, **f32),
+        "moonlight_bf16": moon.with_overrides(n_layers=2),
+        "moonlight_f32": moon.with_overrides(
+            n_layers=2, moe=dc.replace(moon.moe, capacity_factor=64.0,
+                                       router_aux_loss=0.0), **f32),
+        "jamba": jamba.with_overrides(
+            n_layers=jamba.attn_period, activation_dtype="float32",
+            moe=dc.replace(jamba.moe, capacity_factor=64.0)),
+        "jamba_bf16": jamba.with_overrides(
+            n_layers=jamba.attn_period,
+            moe=dc.replace(jamba.moe, capacity_factor=64.0)),
+        "stablelm_bf16": slm.with_overrides(n_layers=8),
+        "stablelm_2l": slm.with_overrides(n_layers=2),
+    }
+
+
+def _mesh_shape(cfg, rows, seq, kind):
+    from repro_torch.configs.base import ShapeConfig
+    pos = seq + (cfg.encoder.n_frames if cfg.family == "vlm" else 0)
+    return ShapeConfig(f"mesh_{kind}", pos, rows, kind)
+
+
+def _text_seq(cfg, seq):
+    """Text tokens of a step of ``seq`` positions (a vlm's patches come
+    first)."""
+    return seq - (cfg.encoder.n_frames if cfg.family == "vlm" else 0)
+
+
+def lm_mesh_kernel_checks(dev):
+    """The two kernels the phase's ranks launch under local_map, at a
+    rank's block: Moonlight's attention on (2, 2) (half the batch, 8 of
+    its 16 heads) forward against the plain version and backward against
+    its f32 algorithm, and Jamba's scan on (2, 2) (half the channels)
+    against the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as SS
+    g = torch.Generator(device=dev).manual_seed(14)
+    B, S, H, hd = LM_MESH_ROWS // 2, LM_MESH_SEQ, 8, 128
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    label = f"flash_attention B={B} S={S} H={H} hd={hd} bf16 (a rank's block)"
+    o, lse = FA.flash_attention(q, k, v, lse=True)
+    err_f = compare_bf16(label, o, ref.flash_attention(q.float(), k.float(),
+                                                       v.float()))
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+    want = FA.backward_blocks(q.float(), k.float(), v.float(), o.float(),
+                              lse, do.float())
+    err_b, rel_b = _rel_errs(got, want, "flash_attention_bwd (a rank's "
+                             "block)", ATT_BWD_BF16_TOL)
+    print(f"  flash_attention_bwd at the same block: max|diff| / max|plain| "
+          f"{rel_b:.3e} against backward_blocks in f32 (tolerance "
+          f"{ATT_BWD_BF16_TOL:g})")
+    Bj, T = JAMBA_PREFILL
+    di, ds = 2 * 4096 // 2, 16
+    dt = torch.rand(Bj, T, di, generator=g, device=dev) * 0.1
+    dx = torch.randn(Bj, T, di, generator=g, device=dev)
+    A = -torch.rand(di, ds, generator=g, device=dev) - 0.5
+    Bc, Cc = (torch.randn(Bj, T, ds, generator=g, device=dev)
+              for _ in range(2))
+    y, h = SS.selective_scan(dt, dx, A, Bc, Cc)
+    yr, hr = ref.selective_scan(dt, dx, A, Bc, Cc)
+    err_s = max(compare(f"selective_scan B={Bj} T={T} di={di} ds={ds} (a "
+                        "rank's block)", y, yr),
+                compare("  its h_last", h, hr))
+    return {"flash_attention": err_f, "flash_attention_bwd": err_b,
+            "selective_scan": err_s}
+
+
+def _ref_dir(workdir: Path, name: str) -> Path:
+    return workdir / f"ref_{name}"
+
+
+def _leaf_file(d: Path, k: str, what: str = "") -> Path:
+    return d / (what + k.replace("/", "__") + ".npy")
+
+
+def _save_ref(workdir: Path, name: str, params, m, grads) -> None:
+    """A one-rank result for the ranks to read: each param leaf after the
+    step and each gradient leaf as an f32 .npy (memory-mapped there, so a
+    rank reads its block only), the loss, the grad norm and each gradient
+    leaf's largest |entry|."""
+    d = _ref_dir(workdir, name)
+    d.mkdir()
+    for k, v in params.items():
+        np.save(_leaf_file(d, k), v.detach().float().cpu().numpy())
+    gmax = {}
+    for k, v in grads.items():
+        np.save(_leaf_file(d, k, "grad__"), v.float().cpu().numpy())
+        gmax[k] = v.float().abs().max().item()
+    (d / "grad_max.json").write_text(json.dumps(gmax))
+    np.save(d / "loss.npy", np.float32(float(m["loss"])))
+    np.save(d / "grad_norm.npy", np.float32(float(m["grad_norm"])))
+
+
+@contextlib.contextmanager
+def first_moe_call(store: dict):
+    """Records in ``store`` the first MoE layer call of a Jamba forward
+    inside the block: its params ``p``, input ``x`` and output ``y``."""
+    from repro_torch.models import jamba as J
+    inner = J.moe_ffn
+
+    def wrapped(cfg, p, x, *args, **kw):
+        y, aux = inner(cfg, p, x, *args, **kw)
+        if not store:
+            store.update(p=p, x=x, y=y)
+        return y, aux
+
+    J.moe_ffn = wrapped
+    try:
+        yield store
+    finally:
+        J.moe_ffn = inner
+
+
+def lm_mesh_references(cfgs, workdir: Path, seed: int, dev):
+    """The one-rank runs the ranks are held to, in this process (no
+    process group): the f32 InternVL2 and Moonlight steps, Jamba's
+    prefill. Returns their walls."""
+    from repro_torch.models import api
+    out = {}
+    for name in ("internvl_f32", "moonlight_f32"):
+        cfg = cfgs[name]
+        rows, seq = LM_MESH_F32[name]
+        t0 = time.perf_counter()
+        state = api.init_state(cfg, torch.Generator(device=dev).manual_seed(
+            seed), device=dev)
+        batch = train_batches(cfg, rows, _text_seq(cfg, seq), seed, dev)()
+        new, m = api.make_train_step(cfg)(state, batch)
+        _sync(dev)
+        out[name] = time.perf_counter() - t0
+        new = new["params"]       # the new moments go before the grads
+        _, grads = api.loss_and_grads(cfg, state["params"], batch)
+        _save_ref(workdir, name, new, m, grads)
+        del state, new, batch, grads
+        torch.cuda.empty_cache()
+    cfg = cfgs["jamba"]
+    rows, seq = JAMBA_PREFILL
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    batch = train_batches(cfg, rows, seq, seed, dev)()
+    _, logits = api.make_prefill_step(cfg)(params,
+                                          {"tokens": batch["tokens"]})
+    _sync(dev)
+    out["jamba"] = time.perf_counter() - t0
+    np.save(workdir / "ref_jamba_logits.npy", logits.float().cpu().numpy())
+    del params, logits
+    torch.cuda.empty_cache()
+    print("  one-rank references (no process group): " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out.items()))
+    return out
+
+
+def lowered_by_op(cfg, rows, seq, shape):
+    """The collectives by op ([calls, bytes] a rank) of a train step of
+    ``cfg`` lowered on meta tensors in a fake world on ``shape``."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MS
+    n = int(np.prod(shape))
+    with MS.fake_world(n):
+        mesh = MS.make_local_mesh(*shape)
+        DR.lower_lm(cfg, _mesh_shape(cfg, rows, seq, "train"), mesh)
+    return {k: list(v) for k, v in mesh.by_op.items()}
+
+
+def lm_mesh_rank(workdir: str, world: int, seed: int):
+    """One rank of phase 14 (spawned by ``launch.mesh.run_ranks`` on the
+    card over gloo). World 4: every arch's SMOKE gradients on (2, 2),
+    InternVL2 on (1, 4) (the ring), Moonlight and StableLM-2 steps and
+    Jamba's prefills on (2, 2) (the MoE exchange, the scan under
+    local_map), the elastic save on (4, 1) and restore on
+    (2, 2); world 2: a StableLM-2 step on (1, 2) and the restore onto
+    (2, 1). Every main-path run counted from 0; returns walls, this
+    rank's peak, bytes by op, launches and the comparisons' readings."""
+    import dataclasses as dc
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.analysis.op_cost import OpCounter
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import api
+    from repro_torch.sharding import make_rules, use_rules
+    wd = Path(workdir)
+    cfgs = lm_mesh_cfgs()
+    rec = {"launches": {}, "walls": {}, "by_op": {}, "peaks": {}}
+
+    def state_of(cfg, rules, params_only=False):
+        gen = torch.Generator(device=rules.mesh.device).manual_seed(seed)
+        with use_rules(rules):
+            if params_only:
+                return api.init_params(cfg, gen, device=rules.mesh.device)
+            return api.init_state(cfg, gen, device=rules.mesh.device)
+
+    def batch_of(cfg, rules, rows, seq, kind):
+        b = train_batches(cfg, rows, _text_seq(cfg, seq), seed,
+                          rules.mesh.device)()
+        if kind == "prefill":
+            b = {"tokens": b["tokens"]}
+        with use_rules(rules):
+            return api.distribute(b, api.input_axes(
+                cfg, _mesh_shape(cfg, rows, seq, kind)))
+
+    def run(name, rules, fn):
+        mesh, dev = rules.mesh, rules.mesh.device
+        before = {k: list(v) for k, v in mesh.by_op.items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with use_rules(rules), OpCounter(mesh):
+            res = fn()
+        _sync(dev)
+        rec["walls"][name] = time.perf_counter() - t0
+        rec["launches"][name] = read_counts()
+        rec["peaks"][name] = torch.cuda.max_memory_allocated(dev) / 1e9
+        rec["by_op"][name] = {
+            k: [v[0] - before.get(k, [0, 0])[0],
+                v[1] - before.get(k, [0, 0])[1]]
+            for k, v in mesh.by_op.items() if v != before.get(k, [0, 0])}
+        return res
+
+    def step_run(name, cfg, shape, rows, seq):
+        rules = make_rules(MS.make_local_mesh(*shape), cfg,
+                           _mesh_shape(cfg, rows, seq, "train"))
+        state = state_of(cfg, rules)
+        batch = batch_of(cfg, rules, rows, seq, "train")
+        step = api.make_train_step(cfg)
+        new, m = run(name, rules, lambda: step(state, batch))
+        rec[f"{name}_loss"] = float(m["loss"])
+        del state, batch
+        return rules, new, m
+
+    def block_err(t, path):
+        """max |this rank's block of DTensor t - its block of the .npy|."""
+        ref_ = np.load(path, mmap_mode="r")
+        loc = t.to_local()
+        _, off = compute_local_shape_and_global_offset(
+            t.shape, t.device_mesh, t.placements)
+        blk = ref_[tuple(slice(o, o + n) for o, n in zip(off, loc.shape))]
+        return (loc.float() - torch.as_tensor(
+            np.ascontiguousarray(blk), device=loc.device)).abs().max().item()
+
+    def held(name, cfg, rules, new, m, rows, seq):
+        """max |param - one rank's| over this rank's blocks; the loss's and
+        the grad norm's shares of the one-rank ones; and, from the same
+        params and batch, each gradient leaf's max |diff| over this rank's
+        block as a share of the one-rank leaf's largest entry."""
+        d = _ref_dir(wd, name)
+        for key in ("loss", "grad_norm"):
+            want = float(np.load(d / f"{key}.npy"))
+            rec[f"{name}_{key}_rel"] = abs(float(m[key]) - want) / abs(want)
+        rec[f"{name}_param_err"] = max(
+            block_err(t, _leaf_file(d, k)) for k, t in new["params"].items())
+        params = state_of(cfg, rules, params_only=True)
+        batch = batch_of(cfg, rules, rows, seq, "train")
+        with use_rules(rules), api.on_mesh(params):
+            _, grads = api.loss_and_grads(cfg, params, batch)
+        gmax = json.loads((d / "grad_max.json").read_text())
+        rec[f"{name}_grad_rel"] = max(
+            block_err(g.redistribute(params[k].device_mesh,
+                                     params[k].placements),
+                      _leaf_file(d, k, "grad__")) / gmax[k]
+            for k, g in grads.items())
+        del params, batch, grads
+
+    def free():
+        torch.cuda.empty_cache()
+
+    def zoo_grads():
+        """Each LM arch's SMOKE loss gradients (f32; experts at capacity
+        factor 64 and the router's aux loss weighed 0, as in Moonlight's
+        pair, where the mesh's per-rank capacity and aux differ from one
+        rank's by design) on (2, 2) against this rank's
+        own one-rank run from the same params and batch: per arch, the
+        largest max |diff| / max |one rank| over the leaves. Two split
+        mesh axes are where torch 2.11's DTensor backward went wrong."""
+        from repro_torch.configs.base import PORTED_ARCH_IDS, get_config
+        rows, seq = LM_MESH_ZOO
+        out = {}
+        for arch in PORTED_ARCH_IDS:
+            cfg = get_config(arch, smoke=True).with_overrides(
+                param_dtype="float32", activation_dtype="float32")
+            if cfg.moe is not None:
+                cfg = cfg.with_overrides(moe=dc.replace(
+                    cfg.moe, capacity_factor=64.0, router_aux_loss=0.0))
+            rules = make_rules(MS.make_local_mesh(2, 2), cfg,
+                               _mesh_shape(cfg, rows, seq, "train"))
+            dev = rules.mesh.device
+            params = api.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(seed), device=dev)
+            b = train_batches(cfg, rows, _text_seq(cfg, seq), seed, dev)()
+            _, want = api.loss_and_grads(cfg, params, b)
+            try:
+                with use_rules(rules):
+                    dp = api.distribute(params, api.params_axes(cfg))
+                    db = api.distribute(b, api.input_axes(
+                        cfg, _mesh_shape(cfg, rows, seq, "train")))
+                    with api.on_mesh(dp):
+                        _, got = api.loss_and_grads(cfg, dp, db)
+                out[arch] = max(
+                    (got[k].full_tensor() - w).abs().max().item()
+                    / max(w.abs().max().item(), 1e-30)
+                    for k, w in want.items())
+            except Exception as e:   # every arch reported, then failed
+                out[arch] = f"{type(e).__name__}: {e}"[:300]
+        return out
+
+    if world == 4:
+        t0 = time.perf_counter()
+        rec["zoo_grad_rel"] = zoo_grads()
+        rec["walls"]["zoo_grads"] = time.perf_counter() - t0
+        free()
+        # InternVL2-1B on (1, 4): 14 heads do not divide 4, so the ring
+        r, new, m = step_run("internvl_bf16", cfgs["internvl_bf16"], (1, 4),
+                             LM_MESH_ROWS, LM_MESH_SEQ)
+        del new
+        free()
+        r, new, m = step_run("internvl_f32", cfgs["internvl_f32"], (1, 4),
+                             *LM_MESH_F32["internvl_f32"])
+        held("internvl_f32", cfgs["internvl_f32"], r, new, m,
+             *LM_MESH_F32["internvl_f32"])
+        del new
+        free()
+        # Moonlight on (2, 2) through moe_a2a
+        r, new, m = step_run("moonlight_bf16", cfgs["moonlight_bf16"],
+                             (2, 2), LM_MESH_ROWS, LM_MESH_SEQ)
+        del new
+        free()
+        r, new, m = step_run("moonlight_f32", cfgs["moonlight_f32"], (2, 2),
+                             *LM_MESH_F32["moonlight_f32"])
+        held("moonlight_f32", cfgs["moonlight_f32"], r, new, m,
+             *LM_MESH_F32["moonlight_f32"])
+        del new
+        free()
+        # Jamba with experts, one period, prefill on (2, 2)
+        cfg = cfgs["jamba"]
+        rows, seq = JAMBA_PREFILL
+        rules = make_rules(MS.make_local_mesh(2, 2), cfg,
+                           _mesh_shape(cfg, rows, seq, "prefill"))
+        params = state_of(cfg, rules, params_only=True)
+        batch = batch_of(cfg, rules, rows, seq, "prefill")
+        step = api.make_prefill_step(cfg)
+        _, logits = run("jamba", rules, lambda: step(params, batch))
+        want = np.load(wd / "ref_jamba_logits.npy")
+        got = logits.full_tensor().float().cpu().numpy()
+        rec["jamba_rel"] = float(np.abs(got - want).max()
+                                      / np.abs(want).max())
+        del params, batch, logits
+        free()
+        # the same in Jamba's own bf16 activations: the first MoE layer's
+        # input and output and the logits, whole, for the parent to hold
+        cfg = cfgs["jamba_bf16"]
+        params = state_of(cfg, rules, params_only=True)
+        batch = batch_of(cfg, rules, rows, seq, "prefill")
+        step = api.make_prefill_step(cfg)
+        with first_moe_call({}) as cap:
+            _, logits = run("jamba_bf16", rules, lambda: step(params, batch))
+        whole = {k: cap[k].full_tensor().cpu() for k in ("x", "y")}
+        whole["logits"] = logits.full_tensor().cpu()
+        if torch.distributed.get_rank() == 0:
+            torch.save(whole, wd / "mesh_jamba_bf16.pt")
+        del params, batch, logits, cap, whole
+        free()
+        # StableLM-2 1.6B on (2, 2): its collectives by op
+        step_run("stablelm_bf16", cfgs["stablelm_bf16"], (2, 2),
+                 LM_MESH_ROWS, LM_MESH_SEQ)
+        free()
+        # elastic: saved on (4, 1), restored on (2, 2)
+        cfg = cfgs["stablelm_2l"]
+        r41 = make_rules(MS.make_local_mesh(4, 1), cfg)
+        params = state_of(cfg, r41, params_only=True)
+        axes = api.params_axes(cfg)
+        t0 = time.perf_counter()
+        CM.CheckpointManager(wd / "elastic", logical_axes={"params": axes},
+                             mesh=r41.mesh).maybe_save(1, {"params": params},
+                                                       force=True)
+        rec["walls"]["elastic_save"] = time.perf_counter() - t0
+        del params
+    targets = {4: ((2, 2),), 2: ((2, 1),)}[world]
+    if world == 2:
+        step_run("stablelm_2l_1x2", cfgs["stablelm_2l"], (1, 2),
+                 LM_MESH_ROWS, LM_MESH_SEQ)
+        free()
+    cfg = cfgs["stablelm_2l"]
+    axes = api.params_axes(cfg)
+    whole = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    for shape in targets:
+        rules = make_rules(MS.make_local_mesh(*shape), cfg)
+        t0 = time.perf_counter()
+        got, _, _ = CM.restore(wd / "elastic", {"params": dict.fromkeys(
+            axes)}, step=1, rules=rules)
+        key = "elastic_" + "x".join(map(str, shape))
+        rec["walls"][key] = time.perf_counter() - t0
+        same = True
+        for k, t in got["params"].items():
+            _, off = compute_local_shape_and_global_offset(
+                t.shape, t.device_mesh, t.placements)
+            loc = t.to_local()
+            same &= torch.equal(loc, whole[k][tuple(
+                slice(o, o + n) for o, n in zip(off, loc.shape))])
+        rec[key + "_bitwise"] = bool(same)
+        del got
+    del whole
+    free()
+    return rec
+
+
+def lm_mesh_phase(seed: int, dev, card: str):
+    """Phase 14: the LM mesh on the card. The kernels at a rank's blocks,
+    the one-rank references and the fake-world lowerings here, then
+    worlds of 4 and 2 ranks on the card over gloo, and the checks.
+    Returns (record, launches by path)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MS
+    cfgs = lm_mesh_cfgs()
+    rec = {"card": card}
+    rec["kernels"] = lm_mesh_kernel_checks(dev)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_"))
+    try:
+        rec["one_rank_s"] = lm_mesh_references(cfgs, workdir, seed, dev)
+        t0 = time.perf_counter()
+        lowered = {
+            "stablelm_bf16": lowered_by_op(cfgs["stablelm_bf16"],
+                                           LM_MESH_ROWS, LM_MESH_SEQ,
+                                           (2, 2)),
+            "stablelm_2l_1x2": lowered_by_op(cfgs["stablelm_2l"],
+                                             LM_MESH_ROWS, LM_MESH_SEQ,
+                                             (1, 2))}
+        rec["lowered_s"] = time.perf_counter() - t0
+        ranks = {}
+        for world in (4, 2):
+            t0 = time.perf_counter()
+            ranks[world] = MS.run_ranks(
+                lm_mesh_rank, world, args=(str(workdir), world, seed),
+                backend="gloo", timeout=LM_MESH_TIMEOUT, workdir=workdir,
+                threads=max(1, (os.cpu_count() or 1) // world))
+            rec[f"world{world}_s"] = time.perf_counter() - t0
+            print(f"  world of {world} ranks (gloo, one card): "
+                  f"{rec[f'world{world}_s']:.1f} s")
+        rec["jamba_bf16"] = jamba_bf16_check(cfgs["jamba_bf16"], workdir,
+                                             seed, dev)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    r4, r2 = ranks[4], ranks[2]
+    for name in r4[0]["walls"]:
+        walls = [r["walls"][name] for r in r4]
+        peaks = [r["peaks"].get(name) for r in r4]
+        by_op = r4[0]["by_op"].get(name, {})
+        print(f"  {name}: wall {max(walls):.2f} s, per-rank peak "
+              f"{peak_text(peaks) if None not in peaks else 'n/a'}, rank 0's "
+              f"collectives by op {by_op} ({card})")
+    for name in r2[0]["walls"]:
+        print(f"  {name} (world of 2): wall "
+              f"{max(r['walls'][name] for r in r2):.2f} s, rank 0's "
+              f"collectives by op {r2[0]['by_op'].get(name, {})}")
+    # every arch's SMOKE gradients on (2, 2) against one rank
+    zoo = {a: max((r["zoo_grad_rel"][a] for r in r4),
+                  key=lambda v: (not isinstance(v, float), v))
+           for a in r4[0]["zoo_grad_rel"]}
+    print("  SMOKE gradients (f32) on (2, 2) vs one rank, max |diff| / max "
+          "|one rank| over the leaves and ranks (tolerance "
+          f"{LM_MESH_GRAD_RTOL:g}): " + ", ".join(
+              f"{a} {v:.2e}" if isinstance(v, float) else f"{a} {v}"
+              for a, v in zoo.items()))
+    bad = [a for a, v in zoo.items()
+           if not (isinstance(v, float) and v <= LM_MESH_GRAD_RTOL)]
+    if bad:
+        fail(f"SMOKE gradients on (2, 2) disagree with one rank: {bad}")
+    rec["zoo_grad_rel"] = zoo
+    # the f32 pairs against one rank
+    for name in ("internvl_f32", "moonlight_f32"):
+        got = {k: max(r[f"{name}_{k}"] for r in r4)
+               for k in ("loss_rel", "grad_norm_rel", "param_err",
+                         "grad_rel")}
+        print(f"  {name} on the mesh vs one rank: loss rel "
+              f"{got['loss_rel']:.3e} and grad norm rel "
+              f"{got['grad_norm_rel']:.3e} (tolerance "
+              f"{LM_MESH_LOSS_RTOL:g}), max |param diff| "
+              f"{got['param_err']:.3e} (tolerance {LM_MESH_PARAM_ATOL:g}), "
+              f"gradients max |diff| / max |one rank| over the leaves "
+              f"{got['grad_rel']:.3e} (tolerance {LM_MESH_GRAD_RTOL:g})")
+        if (max(got["loss_rel"], got["grad_norm_rel"]) > LM_MESH_LOSS_RTOL
+                or got["param_err"] > LM_MESH_PARAM_ATOL
+                or got["grad_rel"] > LM_MESH_GRAD_RTOL):
+            fail(f"{name}: the mesh step disagrees with one rank")
+        rec[name] = got
+    jrel = max(r["jamba_rel"] for r in r4)
+    print(f"  Jamba (one period, experts at capacity factor 64, f32 "
+          f"activations) prefill on "
+          f"(2, 2) vs one rank: last-position logits max |diff| / max|one "
+          f"rank| {jrel:.3e} (tolerance {JAMBA_MESH_RTOL:g})")
+    if jrel > JAMBA_MESH_RTOL:
+        fail("Jamba's mesh prefill disagrees with one rank")
+    rec["jamba_rel"] = jrel
+    # collectives by op against the fake-world lowering of the same step
+    for name, world_ranks in (("stablelm_bf16", r4),
+                              ("stablelm_2l_1x2", r2)):
+        got = world_ranks[0]["by_op"][name]
+        print(f"  {name}: the card's rank 0 by op {got}; lowered in a fake "
+              f"world {lowered[name]}")
+        if got != lowered[name]:
+            fail(f"{name}: the card's collectives differ from the lowered "
+                 "step's")
+    rec["lowered_by_op"] = lowered
+    # elastic restore, and one rank here
+    for key in ("elastic_2x2_bitwise",):
+        if not all(r[key] for r in r4):
+            fail(f"{key}: a rank's restored block is not its saved block")
+    if not all(r["elastic_2x1_bitwise"] for r in r2):
+        fail("elastic restore onto (2, 1): a block is not bitwise")
+    print("  elastic: saved on (4, 1), restored on (2, 2) and (2, 1), "
+          "every rank's block bitwise its slice of the params")
+    # the dry run's LM rows, one per mesh, against the CPU's (pinned)
+    rec["dryrun"] = lm_dryrun_rows(card)
+    rec["ranks"] = {4: r4, 2: r2}
+    launches = {}
+    for world, rk in ranks.items():
+        for r in rk:
+            for name, counts in r["launches"].items():
+                tot = launches.setdefault(f"lm_mesh_{name}", {})
+                for k, v in counts.items():
+                    tot[k] = tot.get(k, 0) + v
+    # InternVL2's decoder takes the ring (plain products, no kernel)
+    for name, need in (("moonlight_bf16", ("flash_attention",
+                                           "flash_attention_bwd")),
+                       ("jamba", ("flash_attention", "selective_scan")),
+                       ("jamba_bf16", ("flash_attention", "selective_scan")),
+                       ("stablelm_bf16", ("flash_attention",
+                                          "flash_attention_bwd"))):
+        require_launches(f"phase 14 {name}", launches[f"lm_mesh_{name}"],
+                         need)
+    return rec, launches
+
+
+def jamba_bf16_check(cfg, workdir: Path, seed: int, dev) -> dict:
+    """Jamba's bf16 prefill on the mesh (saved by rank 0) against one rank
+    here: the first MoE layer's output against ``moe_dense`` on the mesh's
+    own input; against the one-rank prefill, the tokens whose experts
+    differ (the witness that bf16 summation order re-routes them), the
+    output's error on the tokens that agree, and the last position's
+    logits (printed). Fails where a held reading is out of bounds."""
+    from repro_torch.models import api
+    from repro_torch.models import moe as MOE
+    mesh = torch.load(workdir / "mesh_jamba_bf16.pt")
+    rows, seq = JAMBA_PREFILL
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    batch = train_batches(cfg, rows, seq, seed, dev)()
+    with first_moe_call({}) as cap, torch.no_grad():
+        _, logits = api.make_prefill_step(cfg)(params,
+                                              {"tokens": batch["tokens"]})
+        xm, ym = (mesh[k].to(dev) for k in ("x", "y"))
+        y_same, _ = MOE.moe_dense(cfg, cap["p"], xm)
+        d = xm.shape[-1]
+        sets = [torch.sort(MOE._route(cfg, cap["p"], t.reshape(-1, d))[1],
+                           dim=-1).values for t in (cap["x"], xm)]
+    agree = (sets[0] == sets[1]).all(-1)
+    y1 = cap["y"].reshape(-1, d).float()
+    dy = (ym.reshape(-1, d).float() - y1).abs()
+    scale = y1.abs().max().item()
+    out = {
+        "a2a_rel": ((ym.float() - y_same.float()).abs().max().item()
+                    / y_same.float().abs().max().item()),
+        "tokens": int(agree.numel()),
+        "rerouted": int((~agree).sum().item()),
+        "agree_rel": (dy[agree].max().item() / scale if agree.any()
+                      else float("inf")),
+        "all_rel": dy.max().item() / scale,
+        "logits_rel": ((mesh["logits"].to(dev).float() - logits.float())
+                       .abs().max().item()
+                       / logits.float().abs().max().item())}
+    out["agree_share"] = 1 - out["rerouted"] / out["tokens"]
+    print(f"  Jamba bf16 prefill on (2, 2), first MoE layer: the mesh's "
+          f"output vs one rank's moe_dense on the same input max |diff| / "
+          f"max {out['a2a_rel']:.3e} (tolerance {JAMBA_BF16_A2A_RTOL:g}); "
+          f"vs the one-rank prefill {out['rerouted']} of {out['tokens']} "
+          f"tokens routed to other experts (share agreeing "
+          f"{out['agree_share']:.4f}, least {JAMBA_BF16_AGREE_MIN:g}), "
+          f"error on the agreeing tokens {out['agree_rel']:.3e} "
+          f"(tolerance {JAMBA_BF16_AGREE_RTOL:g}), on all "
+          f"{out['all_rel']:.3e}; last-position logits "
+          f"{out['logits_rel']:.3e} (not held)")
+    if (out["a2a_rel"] > JAMBA_BF16_A2A_RTOL
+            or out["agree_share"] < JAMBA_BF16_AGREE_MIN
+            or out["agree_rel"] > JAMBA_BF16_AGREE_RTOL):
+        fail("Jamba's bf16 mesh prefill disagrees with one rank")
+    del params, batch, logits, cap, mesh
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_dryrun_pins() -> dict:
+    """``LM_PINS`` of tests/test_torch_mesh_lm.py, read without running it."""
+    import ast
+    src = (ROOT / "tests" / "test_torch_mesh_lm.py").read_text()
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "LM_PINS":
+            return ast.literal_eval(node.value)
+    fail("tests/test_torch_mesh_lm.py has no LM_PINS")
+
+
+def lm_dryrun_rows(card: str) -> dict:
+    """One LM dry-run row per production mesh, lowered here, against the
+    CPU's (``LM_PINS``, taken with torch 2.13): every pinned key equal,
+    the collectives too (where DTensor's planner could choose, the loss
+    settles its partial sums itself, so torch 2.11 and 2.13 place the
+    same collectives)."""
+    from repro_torch.launch import dryrun as DR
+    pins = lm_dryrun_pins()
+    out = {}
+    for key, want in pins.items():
+        arch, shape, tag = key.split("__")
+        t0 = time.perf_counter()
+        _, row = DR.lower_cell(arch, shape, tag == "multi")
+        print(f"  dry-run row {key} ({time.perf_counter() - t0:.1f} s, "
+              f"{card}):")
+        for k in want:
+            print(f"    {k}: card {row[k]}, CPU {want[k]}")
+        bad = [k for k in want if row[k] != want[k]]
+        if bad:
+            fail(f"dry-run row {key}: {bad} differ from the CPU's")
+        out[key] = row
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4911,6 +5613,15 @@ def main() -> int:
     print(f"  LM training phase {lm_train['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # 14. the LM mesh: sharding rules on DTensor, the ring, the MoE
+    # exchange, elastic restore, the dry run's LM rows
+    print(f"[14] LM mesh over gloo on the one card ({card})")
+    t0 = time.perf_counter()
+    lm_mesh, lm_mesh_paths = lm_mesh_phase(args.seed, dev, card)
+    lm_mesh["phase_s"] = time.perf_counter() - t0
+    print(f"  LM mesh phase {lm_mesh['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
     # training runs, the eleven LM serving runs, the recipe's runs, the
@@ -4923,7 +5634,7 @@ def main() -> int:
     paths = {"sparse": launches_sparse, "dense": launches_dense,
              "fused": launches_fused, **train["launches"], **lm_paths,
              **recipe_paths, **stream_paths, **sup_paths, **mesh_paths,
-             **train_paths}
+             **train_paths, **lm_mesh_paths}
     # gmm_align's row counts both entries of csrc/gmm_align.cu: the fused
     # launch and the rescore alone (gmm_rescore_fused, the mesh's fused
     # rung)
@@ -4948,7 +5659,7 @@ def main() -> int:
               "card_vs_cpu_max_diff": d_cpu, "training": train, "lm": lm,
               "recipe": recipe, "streaming": stream, "supervised": sup,
               "mesh": mesh, "analysis": analysis, "lowering": lowering,
-              "lm_training": lm_train, "kernels": rows}
+              "lm_training": lm_train, "lm_mesh": lm_mesh, "kernels": rows}
     record["command_s"] = time.perf_counter() - T_START
     print(f"chip_smoke: {record['command_s']:.1f} s from start")
     out = ROOT / "chiprun_out"

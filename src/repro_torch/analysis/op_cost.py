@@ -23,6 +23,15 @@ counts
   * collective bytes: what ``launch/mesh.py``'s collectives moved while
     the counter was on (``Mesh.by_op``), an all-reduce counted twice (its
     reduce-scatter and all-gather phases), as ``roofline.py`` counts it.
+    DTensor's functional collectives (``_c10d_functional``, the LM side's
+    redistributions) are counted into the same ``Mesh.by_op`` by the
+    counter itself, under ``optable.FUNCTIONAL_COLLECTIVES``' names, at
+    their input's bytes.
+
+A DTensor op is not counted as such: the counter defers it to DTensor,
+whose local ops (each rank's share) and collectives it then sees. The
+fake tensors DTensor's sharding propagation runs global shapes through
+(on a cache miss only) are not counted either.
 
 The hand-written kernels are reached through ctypes, so a dispatch mode
 sees nothing of them on the card, while on the CPU the same call runs the
@@ -97,6 +106,18 @@ def tensors(obj):
             yield from tensors(getattr(obj, k))
 
 
+def _has_dtensor(types) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _is_fake(types, out) -> bool:
+    """Whether an op ran on fake tensors (DTensor's shape propagation)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(issubclass(t, FakeTensor) for t in types) or any(
+        isinstance(t, FakeTensor) for t in tensors(out))
+
+
 class Observer(TorchDispatchMode):
     """A dispatch mode that also observes kernel regions: ``aten`` sees
     each op outside a region, ``region`` each region once it returned
@@ -122,8 +143,10 @@ class Observer(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _has_dtensor(types):
+            return NotImplemented      # DTensor runs it on local tensors
         out = func(*args, **kwargs)
-        if not self._inside:
+        if not self._inside and not _is_fake(types, out):
             self.aten(func, args, kwargs, out)
         return out
 
@@ -303,6 +326,12 @@ class OpCounter(Observer):
         name = optable.op_name(func)
         if func.is_view or name in _NO_BYTES:
             return
+        coll = optable.FUNCTIONAL_COLLECTIVES.get(name)
+        if coll is not None and func.namespace == "_c10d_functional" \
+                and self.mesh is not None:
+            by = self.mesh.by_op.setdefault(coll, [0, 0])
+            by[0] += 1
+            by[1] += _nbytes(args[0])
         flops = (contraction_flops(name, args, out)
                  if name in optable.CONTRACTION_OPS else 0.0)
         self._add(self.by_op, name, flops, io_bytes(name, args, kwargs, out))

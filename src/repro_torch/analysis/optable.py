@@ -31,10 +31,22 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-# the collectives ``launch/mesh.py`` runs (``Mesh.by_op`` counts their
-# bytes by these names) and how often each crosses the links: an
-# all-reduce twice (reduce-scatter, then all-gather), an all-gather once
-LINK_CROSSINGS = {"all-gather": 1, "all-reduce": 2}
+# the collectives ``launch/mesh.py`` runs and DTensor's functional ones
+# (``Mesh.by_op`` counts their bytes by these names) and how often each
+# crosses the links: an all-reduce twice (reduce-scatter, then
+# all-gather), the others once
+LINK_CROSSINGS = {"all-gather": 1, "all-reduce": 2, "reduce-scatter": 1,
+                  "all-to-all": 1, "collective-permute": 1}
+
+# DTensor's functional collectives (namespace ``_c10d_functional``) by the
+# names ``Mesh.by_op`` counts them under
+FUNCTIONAL_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all"}
 
 # every torch.mm / matmul / einsum / linear lands on one of these aten ops
 CONTRACTION_OPS = frozenset({

@@ -20,12 +20,14 @@ falls back to the newest checkpoint that verifies, recording what it
 skipped. Retention keeps the last ``keep`` steps plus every
 ``keep_every``-th step.
 
-On a mesh of several ranks (``CheckpointManager(mesh=...)``) the state
-is replicated, so rank 0 alone writes and prunes, and a barrier follows
-every save: every rank then restores the same files. The elastic re-mesh
-of the JAX package (``logical_axes`` at save, ``rules`` at restore)
-belongs to the LM side and waits for the port of ``sharding/``; passing
-either raises.
+On a mesh of several ranks (``CheckpointManager(mesh=...)``) rank 0
+alone writes and prunes, and a barrier follows every save: every rank
+then restores the same files. The elastic re-mesh of the JAX package:
+a save with ``logical_axes`` stores whole arrays (a DTensor leaf is
+gathered first, by every rank) and each leaf's axes in the manifest, in
+the reference's format; a restore with ``rules`` gives each rank its
+shards (DTensors) on the rules' mesh, whatever mesh saved them, and
+without rules the whole tensors.
 """
 from __future__ import annotations
 
@@ -62,11 +64,15 @@ _NONNATIVE = {"bfloat16": (torch.bfloat16, torch.int16, np.uint16),
 _TORCH_NAME = {v[0]: k for k, v in _NONNATIVE.items()}
 
 
-def _no_elastic(what: str, value) -> None:
-    if value is not None:
-        raise NotImplementedError(
-            f"{what}: elastic re-mesh restore waits for the port of the "
-            "LM side's sharding/ (ROADMAP Queue 1 item 14)")
+def _whole(tree):
+    """``tree`` with every DTensor leaf gathered to its whole tensor (a
+    collective: every rank of its mesh calls it)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    return tree
 
 
 def encode(leaf) -> Tuple[np.ndarray, str]:
@@ -166,8 +172,10 @@ def unflatten(tree_like: Dict, leaves: Dict) -> Dict:
 
 def save(ckpt_dir, step: int, tree, logical_axes=None,
          extra: Optional[Dict] = None) -> Path:
-    """Atomic checkpoint write of ``tree`` (see `flatten`)."""
-    _no_elastic("save(logical_axes=...)", logical_axes)
+    """Atomic checkpoint write of ``tree`` (see `flatten`; DTensor leaves
+    must come gathered, as ``CheckpointManager`` gathers them).
+    ``logical_axes``: a tree of the same structure holding axis tuples
+    (or None), stored for elastic restore."""
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     arrays = {k: encode(v) for k, v in flatten(tree).items()}
@@ -177,6 +185,9 @@ def save(ckpt_dir, step: int, tree, logical_axes=None,
                  for k, (a, name) in arrays.items()},
         "extra": extra or {},
     }
+    if logical_axes is not None:
+        manifest["axes"] = {k: list(v) if v is not None else None
+                            for k, v in flatten(logical_axes).items()}
     tmp = Path(tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_"))
     try:
         np.savez(tmp / "arrays.npz", **{k: a for k, (a, _) in arrays.items()})
@@ -284,9 +295,12 @@ def restore(ckpt_dir, tree_like, step: Optional[int] = None, rules=None,
     """Restore into the structure of ``tree_like`` (values unused but for
     a TVModel's formulation and a backend's whitener), tensors on
     ``device`` (CUDA unless the caller names another). ``check`` (default)
-    integrity-verifies the checkpoint first. Returns (tree, step, extra)."""
-    _no_elastic("restore(rules=...)", rules)
-    dev = resolve_device(device)
+    integrity-verifies the checkpoint first. With ``rules`` of several
+    ranks, each leaf with stored axes comes back as this rank's shards (a
+    DTensor on the rules' mesh, its placements rebuilt from the axes),
+    on the mesh's device. Returns (tree, step, extra)."""
+    distributed = rules is not None and rules.distributed
+    dev = rules.mesh.device if distributed else resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -298,6 +312,11 @@ def restore(ckpt_dir, tree_like, step: Optional[int] = None, rules=None,
     with np.load(d / "arrays.npz") as data:
         leaves = {k: _decode(data[k], manifest["keys"][k]["dtype"], dev)
                   for k in flatten(tree_like)}
+    axes = manifest.get("axes", {})
+    if distributed:
+        leaves = {k: (rules.distribute(v, tuple(axes[k]))
+                      if axes.get(k) is not None else v)
+                  for k, v in leaves.items()}
     return unflatten(tree_like, leaves), step, manifest.get("extra", {})
 
 
@@ -309,16 +328,18 @@ class CheckpointManager:
     ``keep_every`` > 0, steps divisible by it are also retained (the
     fall-back targets when the newest checkpoint is found corrupted).
 
-    ``mesh`` (a ``launch.mesh.Mesh`` of several ranks, each holding the
-    same state): rank 0 writes and prunes, then every rank waits at a
-    barrier, so a save returns once the checkpoint is on disk for all."""
+    ``mesh`` (a ``launch.mesh.Mesh`` of several ranks): every rank
+    gathers the DTensor leaves, rank 0 writes and prunes, then every rank
+    waits at a barrier, so a save returns once the checkpoint is on disk
+    for all. ``logical_axes`` are stored with every save; ``rules``
+    restore each rank's shards (module docstring)."""
 
     def __init__(self, ckpt_dir, save_interval: int = 100, keep: int = 3,
                  logical_axes=None, rules=None, keep_every: int = 0,
                  device=None, mesh=None):
-        _no_elastic("CheckpointManager(logical_axes=...)", logical_axes)
-        _no_elastic("CheckpointManager(rules=...)", rules)
         self.dir = Path(ckpt_dir)
+        self.logical_axes = logical_axes
+        self.rules = rules
         self.save_interval = save_interval
         self.keep = keep
         self.keep_every = keep_every
@@ -343,8 +364,9 @@ class CheckpointManager:
         if not force and (step % self.save_interval != 0):
             return None
         p = self.dir / f"step_{step:08d}"
+        tree = _whole(tree)
         if self.writer:
-            p = save(self.dir, step, tree, extra=extra)
+            p = save(self.dir, step, tree, self.logical_axes, extra)
             self._gc()
         self.sync()
         return p
@@ -368,7 +390,8 @@ class CheckpointManager:
     def restore_latest(self, tree_like):
         """Restore the newest checkpoint; raises `CheckpointCorruption` if
         it fails integrity (use `restore_latest_verified` to fall back)."""
-        return restore(self.dir, tree_like, device=self.device)
+        return restore(self.dir, tree_like, rules=self.rules,
+                       device=self.device)
 
     def restore_latest_verified(self, tree_like):
         """Restore the newest checkpoint that verifies, walking past
@@ -385,8 +408,8 @@ class CheckpointManager:
             except CheckpointCorruption:
                 self.skipped_corrupt.append(step)
                 continue
-            return restore(self.dir, tree_like, step=step, check=False,
-                           device=self.device)
+            return restore(self.dir, tree_like, step=step, rules=self.rules,
+                           check=False, device=self.device)
         raise CheckpointCorruption(
             f"every checkpoint under {self.dir} is corrupt "
             f"(steps {self.skipped_corrupt})")

@@ -6,8 +6,10 @@ this is the memory-pressure stress case: bf16 Adam moments + full FSDPxTP
 sharding of params and optimizer state.
 
 A copy of ``repro/configs/arctic_480b.py``. One card serves 2 layers
-(about 55 GB in bf16); training it needs the mesh (ROADMAP.md Queue 1 item
-14g).
+(about 55 GB in bf16). Its train state shards over a mesh of ranks
+(``sharding.make_rules``; the dry run lowers it on the production
+meshes); one layer's state is past a card, so training it waits for a
+host with more cards than one.
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig
 

@@ -116,6 +116,13 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def shape_applicability(self, shape: ShapeConfig) -> Tuple[bool, str]:
+        """(runnable, reason-if-skipped) for an assigned (arch x shape) cell."""
+        if shape.name == "long_500k" and not self.subquadratic:
+            return False, ("full quadratic attention; 512k decode cache "
+                           "infeasible")
+        return True, ""
+
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -4,8 +4,10 @@ Layer i is attention iff i % 8 == 0 (1 attn : 7 mamba); layer i has a
 16-expert top-2 MoE FFN iff i % 2 == 1, dense d_ff=14336 otherwise.
 
 A copy of ``repro/configs/jamba_v0_1_52b.py``. One card holds one
-period (8 layers) with its experts for serving; training it with experts
-needs the mesh (ROADMAP.md Queue 1 item 14g).
+period (8 layers) with its experts for serving. Its train state shards
+over a mesh of ranks (``sharding.make_rules``); one period's state with
+experts is past a card, so training it waits for a host with more cards
+than one.
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
 

@@ -2,7 +2,11 @@
 
 A CUDA tensor launches the hand-written kernel (or raises: there is no
 fallback). A CPU tensor takes the plain version in ``ref.py``, and so does
-a meta tensor (shapes only: a lowered call, ``launch/dryrun.py``). Where a
+a meta tensor (shapes only: a lowered call, ``launch/dryrun.py``), but for
+the two LM kernels, whose meta calls take the card's path (the autograd
+functions, their backward a kernel region too) with outputs of the
+kernels' shapes and nothing computed: a lowered train step then counts
+what the card runs, not the plain version's S x S scores. Where a
 gradient is wanted, ``flash_attention`` and ``selective_scan`` on CUDA
 tensors are ``torch.autograd.Function``s whose backward is a hand-written
 kernel too (``flash_attention_bwd``, ``selective_scan_bwd``); on the CPU
@@ -118,6 +122,16 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def _no_dtensor(name: str, *ts) -> None:
+    """A kernel takes a rank's local tensors: a DTensor here means a mesh
+    path that forgot its ``local_map`` (its pointer is one shard's)."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError(f"{name}: got a DTensor; a kernel runs on each "
+                        "rank's local block, under local_map "
+                        "(models/layers.py)")
+
+
 @kernel_region("gmm_loglik", _cfg_loglik)
 def gmm_loglik(x, const, lin, P_flat):
     """x: [F, D]; const: [C]; lin: [D, C]; P_flat: [C, D*D] -> [F, C]."""
@@ -215,12 +229,34 @@ def tvm_estep_a(n, PP_packed, *, dtype: str = "float32"):
     return ref.tvm_estep_a(n, PP_packed)
 
 
+def _fa_kernel(q, k, v, lse: bool = False):
+    """The attention kernel, or on meta tensors its outputs' shapes."""
+    if not q.is_meta:
+        return _fa.flash_attention(q, k, v, lse=lse)
+    B, S, H, _ = q.shape
+    o = torch.empty_like(q)
+    return (o, q.new_empty((B, H, S), dtype=f32)) if lse else o
+
+
+def _ss_kernel(dt, dx, A, Bc, Cc, h0, save_states: bool = False):
+    """The scan kernel, or on meta tensors its outputs' shapes."""
+    if not dt.is_meta:
+        return _ss.selective_scan(dt, dx, A, Bc, Cc, h0,
+                                  save_states=save_states)
+    B, T, di = dt.shape
+    ds = A.shape[1]
+    y, h = dt.new_empty((B, T, di)), dt.new_empty((B, di, ds))
+    if not save_states:
+        return y, h
+    return y, h, dt.new_empty((B, _ss.n_chunks(T), di, ds))
+
+
 class _FlashAttention(torch.autograd.Function):
     """Kernel forward (with the rows' log-sum-exp), kernel backward."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        o, lse = _fa.flash_attention(q, k, v, lse=True)
+        o, lse = _fa_kernel(q, k, v, lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -237,11 +273,12 @@ def flash_attention(q, k, v):
     ``repro/models/layers.py``'s blockwise path casts p to q's dtype
     before P.V; at bf16 the port follows the TPU kernel). Differentiable:
     on the card through ``flash_attention_bwd``."""
-    if _on_cuda(q):
+    _no_dtensor("flash_attention", q, k, v)
+    if _on_cuda(q) or q.is_meta:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if _wants_grad(q, k, v):
             return _FlashAttention.apply(q, k, v)
-        return _fa.flash_attention(q, k, v)
+        return _fa_kernel(q, k, v)
     return ref.flash_attention(q, k, v)
 
 
@@ -251,6 +288,9 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     output o, row log-sum-exps lse [B, H, S] f32 and the output's
     gradient do; CUDA tensors only (the CPU path is autograd of the plain
     version)."""
+    _no_dtensor("flash_attention_bwd", q, k, v, o, lse, do)
+    if q.is_meta:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return _fa.flash_attention_bwd(q, k, v, o, lse, do)
 
 
@@ -259,8 +299,7 @@ class _SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dt, dx, A, Bc, Cc, h0):
-        y, h_last, hs = _ss.selective_scan(dt, dx, A, Bc, Cc, h0,
-                                           save_states=True)
+        y, h_last, hs = _ss_kernel(dt, dx, A, Bc, Cc, h0, save_states=True)
         ctx.save_for_backward(dt, dx, A, Bc, Cc, hs)
         ctx.with_h0 = h0 is not None
         ctx.set_materialize_grads(False)
@@ -285,14 +324,15 @@ def selective_scan(dt, dx, A, Bc, Cc, h0=None):
     [B, T, ds]; h0 [B, di, ds] or None (zeros) -> (y [B, T, di],
     h_last [B, di, ds]). Differentiable: on the card through
     ``selective_scan_bwd``."""
-    if _on_cuda(dt):
+    _no_dtensor("selective_scan", dt, dx, A, Bc, Cc, h0)
+    if _on_cuda(dt) or dt.is_meta:
         dt, dx, A, Bc, Cc = (t.to(f32).contiguous()
                              for t in (dt, dx, A, Bc, Cc))
         if h0 is not None:
             h0 = h0.to(f32).contiguous()
         if _wants_grad(dt, dx, A, Bc, Cc, *(() if h0 is None else (h0,))):
             return _SelectiveScan.apply(dt, dx, A, Bc, Cc, h0)
-        return _ss.selective_scan(dt, dx, A, Bc, Cc, h0)
+        return _ss_kernel(dt, dx, A, Bc, Cc, h0)
     return ref.selective_scan(dt, dx, A, Bc, Cc, h0)
 
 
@@ -303,5 +343,9 @@ def selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
     ``selective_scan`` from its inputs, the chunk start states hs its
     forward saved, dy and dh_last (or None); CUDA tensors only (the CPU
     path is autograd of the plain version)."""
+    _no_dtensor("selective_scan_bwd", dt, dx, A, Bc, Cc, hs, dy, dh_last)
+    if dt.is_meta:
+        return tuple(torch.empty_like(t) for t in (dt, dx, A, Bc, Cc)) + (
+            hs.new_empty(hs.shape[:1] + hs.shape[2:]) if want_dh0 else None,)
     return _ss.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last,
                                   want_dh0)

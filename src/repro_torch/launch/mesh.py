@@ -31,7 +31,12 @@ and runs its share of the step on meta tensors.
 Every collective of the mesh path goes through the helpers below, which
 count the bytes each rank contributes (``Mesh.comm``) and, with
 ``Mesh.timing`` on, the seconds from a device synchronise before the
-collective to one after it.
+collective to one after it. ``all_to_all`` and ``ppermute_ring`` are the
+reference's ``lax.all_to_all`` and ``lax.ppermute`` over one axis, with
+their transposes as backward (the LM side's MoE dispatch and ring
+attention). The LM side's other collectives are DTensor's
+(``sharding/``), which ``analysis/op_cost.OpCounter`` counts into the
+same ``Mesh.by_op``.
 """
 from __future__ import annotations
 
@@ -223,6 +228,8 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 0, *,
         dist.all_gather_object(devices, str(dev), group=probe)
         dist.destroy_process_group(probe)
         check_backend(backend, devices)
+    if backend == "gloo" and dev.type == "cuda":
+        _gloo_cuda_all_gather()
     groups, data_group = _new_groups(shape, axes, backend)
     mesh = Mesh(axes, shape, tuple(int(c) for c in np.unravel_index(
         rank, shape)), dev, backend, groups, data_group)
@@ -396,6 +403,105 @@ def all_gather(mesh: Mesh, t, group, kind: str):
     _run(mesh, kind, "all-gather", t.numel() * t.element_size(),
          lambda: dist.all_gather(out, t, group=group))
     return out
+
+
+def _a2a(mesh: Mesh, t, group, kind: str, collective: str, out_splits=None,
+         in_splits=None):
+    t = t.contiguous()
+    rows = t.shape[0] if out_splits is None else sum(out_splits)
+    out = t.new_empty((rows,) + tuple(t.shape[1:]))
+    _run(mesh, kind, collective, t.numel() * t.element_size(),
+         lambda: dist.all_to_all_single(out, t, out_splits, in_splits,
+                                        group=group))
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """out[j] = (rank j's t)[me] over ``group``, t [P, ...]; its
+    transpose is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, group, kind):
+        ctx.args = (mesh, group, kind)
+        return _a2a(mesh, t, group, kind, "all-to-all")
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_a2a(ctx.args[0], g, ctx.args[1], ctx.args[2],
+                     "all-to-all"), None, None, None)
+
+
+def all_to_all(mesh: Mesh, t, group, kind: str):
+    """The reference's ``lax.all_to_all(t, axis, 0, 0, tiled=False)``
+    over ``group`` (P ranks): t [P, ...]; block j goes to group rank j,
+    and block i of the result came from group rank i. Differentiable (the
+    backward is the same exchange of the gradient), counted as
+    'all-to-all'."""
+    if group is None:
+        return t
+    return _AllToAll.apply(t, mesh, group, kind)
+
+
+def _shift(mesh: Mesh, t, group, kind: str, step: int):
+    """Send ``t`` to group rank (me + step) mod P, receive from (me -
+    step): one ``all_to_all_single`` whose splits hold one non-empty
+    block each way (gloo's send and recv take CPU tensors only; this
+    runs on gloo with CUDA tensors and on NCCL alike)."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    rows = t.shape[0]
+    ins = [0] * n
+    outs = [0] * n
+    ins[(me + step) % n] = rows
+    outs[(me - step) % n] = rows
+    return _a2a(mesh, t, group, kind, "collective-permute", outs, ins)
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, group, kind):
+        ctx.args = (mesh, group, kind)
+        return _shift(mesh, t, group, kind, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_shift(ctx.args[0], g, ctx.args[1], ctx.args[2], -1),
+                None, None, None)
+
+
+def ppermute_ring(mesh: Mesh, t, group, kind: str):
+    """The reference's ``lax.ppermute`` with perm [(i, i + 1 mod P)]: each
+    group rank's ``t`` goes to the next, wrapping. Differentiable (the
+    backward is the reverse shift), counted as 'collective-permute'."""
+    if group is None:
+        return t
+    return _Permute.apply(t, mesh, group, kind)
+
+
+_GLOO_CUDA = []
+
+
+def _gloo_cuda_all_gather() -> None:
+    """Run DTensor's functional all-gather of CUDA tensors through the
+    c10d ``all_gather_into_tensor``: on a gloo group the functional op
+    crashes the process with CUDA tensors (torch 2.11 on the H100), while
+    the c10d call, like the functional reduce-scatter, all-reduce and
+    all-to-all, runs. Installed once in a process whose mesh is gloo on
+    a card; NCCL groups take the same c10d path."""
+    if _GLOO_CUDA:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+
+    def all_gather_into_tensor(t, group_size, group_name):
+        from torch.distributed.distributed_c10d import \
+            _resolve_process_group
+        out = t.new_empty((t.shape[0] * group_size,) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
+    _GLOO_CUDA.append(lib)
 
 
 def barrier(mesh: Mesh) -> None:

@@ -12,8 +12,8 @@ and refuses what it refuses: audio, vlm and ivector, which train through
 holds the train state of Moonlight's 4 layers or RWKV-6's 8 at their
 published widths; a config whose train state is past the card's memory
 (Arctic and Jamba with experts at full width among them) exits naming the
-mesh, ROADMAP.md Queue 1 item 14g. Params are random, drawn from a
-generator seeded with 0.
+number of such cards its state would need, sharded. Params are random,
+drawn from a generator seeded with 0.
 """
 from __future__ import annotations
 
@@ -40,23 +40,41 @@ def check_trainable(cfg) -> None:
                          "with their frames or patches)")
 
 
-def check_fits(cfg, max_seq: int, capacity: int) -> None:
-    """Exit where the params, their gradients and the two moments alone
-    take more than ``capacity`` bytes, one card's memory: sharding the
-    state over cards is ROADMAP.md Queue 1 item 14g."""
+def state_bytes(cfg, max_seq: int, rules=None) -> int:
+    """The bytes of the params, their gradients and the two moments; with
+    ``rules`` (``sharding.make_rules``), one rank's shards of them."""
     st = api.state_struct(cfg, max_seq)
+    axes = api.params_axes(cfg, max_seq)
 
     def nbytes(tree):
-        return sum(math.prod(s) * d.itemsize for s, d in tree.values())
+        tot = 0
+        for k, (s, d) in tree.items():
+            n = math.prod(s)
+            if rules is not None:
+                for e in rules.spec(len(s), axes[k], s):
+                    n //= rules.axis_size(e)
+            tot += n * d.itemsize
+        return tot
 
-    need = 2 * nbytes(st["params"]) + nbytes(st["opt"]["m"]) \
+    return 2 * nbytes(st["params"]) + nbytes(st["opt"]["m"]) \
         + nbytes(st["opt"]["v"])
+
+
+def check_fits(cfg, max_seq: int, capacity: int, rules=None) -> None:
+    """Exit where the params, their gradients and the two moments alone
+    take more than ``capacity`` bytes, one card's memory (with ``rules``,
+    a rank's shards of them), naming how many such cards the whole state
+    needs at the least, sharded evenly."""
+    need = state_bytes(cfg, max_seq, rules)
     if need > capacity:
+        whole = state_bytes(cfg, max_seq)
+        where = ("a rank's shards of " if rules is not None else "")
         raise SystemExit(
-            f"{cfg.arch_id}: params, gradients and moments take "
+            f"{cfg.arch_id}: {where}params, gradients and moments take "
             f"{need / 1e9:.1f} GB, past the card's {capacity / 1e9:.1f} GB; "
-            f"training it waits on sharding the state over cards (ROADMAP.md "
-            f"Queue 1 item 14g)")
+            f"the state needs at least {math.ceil(whole / capacity)} cards "
+            f"of this size, sharded (sharding.make_rules on a "
+            f"launch.mesh mesh)")
 
 
 def main(argv=None) -> dict:

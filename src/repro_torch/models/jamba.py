@@ -19,11 +19,11 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba
 from repro_torch.models.moe import moe_ffn, moe_table
+from repro_torch.sharding import tag
 
 f32 = torch.float32
 
@@ -80,14 +80,13 @@ def _decode_attention(cfg, ap, hn, kc, vc, pos: int):
     activation dtype, RoPE at ``pos``, k and v written into the caches in
     place at ``pos``."""
     dtype = hn.dtype
-    q, k, v = (L._f32_dot(hn, ap[w].reshape(ap[w].shape[0], -1)).to(dtype)
-               .reshape(hn.shape[:2] + ap[w].shape[1:])
+    q, k, v = (L._f32_proj_heads(hn, ap[w]).to(dtype)
                for w in ("wq", "wk", "wv"))
     pvec = torch.full((1,), pos, dtype=torch.int32, device=hn.device)
     q = L.rope(q, pvec, cfg.rope_theta)
     k = L.rope(k, pvec, cfg.rope_theta)
-    kc[:, pos] = k[:, 0].to(kc.dtype)
-    vc[:, pos] = v[:, 0].to(vc.dtype)
+    L.cache_write(kc, pos, k[:, 0])
+    L.cache_write(vc, pos, v[:, 0])
     return L.decode_attention(q[:, 0], kc, vc, pos)[:, None]
 
 
@@ -95,7 +94,8 @@ def _ffn(cfg, sp, s: int, hn, kind):
     """Slot ``s``'s FFN on the normed ``hn`` -> (y, router aux loss)."""
     if _slot_is_moe(cfg, s):
         return moe_ffn(cfg, _sub(sp, "moe/"), hn, kind)
-    return L.mlp(cfg, _sub(sp, "mlp/"), hn), hn.new_zeros((), dtype=f32)
+    return L.mlp(cfg, _sub(sp, "mlp/"), hn), torch.zeros(
+        (), dtype=f32, device=hn.device)
 
 
 def _period(cfg, params, p: int, x, positions, kind):
@@ -103,7 +103,7 @@ def _period(cfg, params, p: int, x, positions, kind):
     (attention or Mamba) and its FFN, pre-normed and added to the
     residual. -> (x, the period's router aux loss)."""
     dtype = x.dtype
-    aux = x.new_zeros((), dtype=f32)
+    aux = torch.zeros((), dtype=f32, device=x.device)
     for s in range(cfg.attn_period):
         sp = _layer(params, f"period/s{s}/", p)
         hn = L.norm(cfg, sp, "ln_mix", x)
@@ -115,7 +115,7 @@ def _period(cfg, params, p: int, x, positions, kind):
             mix, _ = mamba.mamba_mix(cfg, _sub(sp, "mamba/"), hn)
         x = x + mix.to(dtype)
         y, a = _ffn(cfg, sp, s, L.norm(cfg, sp, "ln_ffn", x), kind)
-        x = x + y.to(dtype)
+        x = tag(x + y.to(dtype), "batch", "seq", None)
         aux = aux + a
     return x, aux
 
@@ -133,9 +133,7 @@ def forward(cfg, params, tokens, kind: str, cache=None, pos=None):
         raise ValueError(f"kind {kind!r}: 'train', 'prefill' or 'decode'")
     dtype = L.cfg_dtype(cfg)
     decode = kind == "decode"
-    x = params["embed"][tokens].to(dtype)
-    if decode:
-        x = x[:, None]                                 # [B, 1, d]
+    x = L.embed(cfg, params, tokens[:, None] if decode else tokens)
     positions = (None if decode
                  else torch.arange(x.shape[1], device=x.device))
     aux = torch.zeros((), dtype=f32, device=x.device)
@@ -143,8 +141,7 @@ def forward(cfg, params, tokens, kind: str, cache=None, pos=None):
         remat = kind == "train" and cfg.remat == "layer"
         for p in range(n_periods(cfg)):
             if remat:
-                x, a = checkpoint(_period, cfg, params, p, x, positions,
-                                  kind, use_reentrant=False)
+                x, a = L.remat(_period, cfg, params, p, x, positions, kind)
             else:
                 x, a = _period(cfg, params, p, x, positions, kind)
             aux = aux + a
@@ -182,3 +179,11 @@ def cache_struct(cfg, batch: int, seq: int, dtype):
             "v": ((np_, batch, seq, KVH, hd), dtype),
             "conv": ((np_, nm, batch, dc - 1, di), dtype),
             "h": ((np_, nm, batch, di, ds), dtype)}
+
+
+def cache_axes(cfg):
+    """The logical axes of ``cache_struct``'s entries (the reference's)."""
+    return {"k": ("layers", "cache_batch", "cache_seq", "kv_heads", None),
+            "v": ("layers", "cache_batch", "cache_seq", "kv_heads", None),
+            "conv": ("layers", None, "cache_batch", None, "ffn"),
+            "h": ("layers", None, "cache_batch", "ffn", None)}

@@ -13,8 +13,13 @@ sequence chunk of the loss is recomputed in the backward pass
 (``torch.utils.checkpoint``), as the JAX ``lax.scan`` over
 ``jax.checkpoint``-ed chunks does.
 
-Not ported yet: ``ring_attention``/``use_ring_attention`` and
-``_attn_block_size`` (mesh; ROADMAP.md Queue 1 item 14g).
+On a mesh (``sharding.use_rules`` with more than one rank) params and
+activations are DTensors and ``tag`` redistributes them, as the
+reference's ``with_sharding_constraint``. The hand-written kernels take
+each rank's local block under ``local_map`` (``blockwise_causal_attention``
+here, ``mamba.mamba_mix``'s scan); ``ring_attention`` is the reference's
+context-parallel ``shard_map`` body, its kv blocks rotated by
+``launch.mesh.ppermute_ring``.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import active_rules, is_dtensor, tag, use_rules
 
 f32 = torch.float32
 _NEG = -1e30
@@ -68,25 +74,128 @@ def _draw(out, init, generator) -> None:
 
 
 def table_init(table: ParamTable, generator: torch.Generator, dtype,
-               device) -> Dict[str, torch.Tensor]:
+               device, place=None) -> Dict[str, torch.Tensor]:
     """Draw every param of ``table`` in sorted-name order from one
     generator, on ``device`` (the generator's device), in f32 cast to
     ``dtype``. Same distributions as the JAX ``table_init``; not the same
     numbers. A table over ``DRAW_SLICE`` elements is drawn slice by slice
     along its leading axes, so that its f32 draw costs one slice beside
     the result (Moonlight's stacked expert tables are 35 GB each in f32);
-    one under it is one draw."""
+    one under it is one draw. ``place(name, tensor)``, where given, takes
+    each whole param as it is drawn and returns what is kept of it (a
+    rank's shard: one whole param is alive at a time)."""
     out = {}
     for name, (shape, _, init) in sorted(table.items()):
-        out[name] = torch.empty(shape, dtype=dtype, device=device)
-        _draw(out[name], init, generator)
+        t = torch.empty(shape, dtype=dtype, device=device)
+        _draw(t, init, generator)
+        out[name] = t if place is None else place(name, t)
+        del t
     return out
+
+
+def remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint``, non-reentrant). On a mesh the
+    recomputation re-enters the active rules: on the card the backward
+    runs on autograd's device thread, which does not see the caller's
+    context variable, so the recomputation would take the one-rank paths
+    and save other tensors than the forward did."""
+    rules = active_rules()
+    if rules is None or not rules.distributed:
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def again(*a):
+        with use_rules(rules):
+            return fn(*a)
+    return checkpoint(again, *args, use_reentrant=False)
+
+
+def whole(t, dim: int):
+    """A DTensor with dim ``dim`` gathered whole on every rank (before a
+    slice of that dim, which DTensor's rule for a split dim does not
+    give the same answer for across torch versions)."""
+    from torch.distributed.tensor import Replicate, Shard
+    d = dim % t.dim()
+    pl = [Replicate() if p == Shard(d) else p for p in settle(t).placements]
+    return t.redistribute(t.device_mesh, pl)
+
+
+def settle(t):
+    """A DTensor's partial reductions (a max or a sum over a split dim)
+    carried out now: its Partial placements made Replicate. DTensor
+    cannot turn a partial max into the partial sum a following
+    subtraction would want; a plain tensor is returned as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Partial, Replicate
+    if not any(isinstance(p, Partial) for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if isinstance(p, Partial) else p for p in t.placements])
 
 
 def _f32_dot(x, w):
     """x [..., K] @ w [K, N] with f32 output, as JAX's
     ``preferred_element_type=f32``."""
-    return x.to(f32) @ w.to(f32)
+    return mm(x.to(f32), w.to(f32))
+
+
+def mm(x, w):
+    """x [..., K] @ w [K, N]; on DTensors ``dmatmul``."""
+    if is_dtensor(x) and is_dtensor(w):
+        return dmatmul(x, w, 1)
+    return x @ w
+
+
+def dmatmul(x, w, nk: int):
+    """x [*L, *K] times w [*K, *N] -> [*L, *N] on DTensors, K the first
+    ``nk`` dims of w: each rank's product of its blocks under
+    ``local_map``, placed as GSPMD places the reference's einsum. Per
+    mesh axis: x split on a leading dim keeps it (w gathered whole there,
+    the fsdp gather; w's gradient a partial sum); else w split on an
+    output dim keeps it (x gathered; x's gradient partial); x and w split
+    on the same contracted dim, or w alone on one (x then sliced
+    locally), give a partial sum; x partial stays partial; else both
+    whole. No DTensor is reshaped, so no split is flattened into
+    another (DTensor's own product rule flattens [B, S] and may split a
+    product's columns finer than its heads)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    R = Replicate()
+    nl = x.dim() - nk
+    xin, win, out, xg, wg = [], [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        xd = xp.dim if isinstance(xp, Shard) else None
+        wd = wp.dim if isinstance(wp, Shard) else None
+        if isinstance(xp, Partial) and wd is None:
+            row = (xp, R, xp, R, Partial())
+        elif xd is not None and xd < nl:
+            row = (Shard(xd), R, Shard(xd), Shard(xd), Partial())
+        elif wd is not None and wd >= nk:
+            row = (R, Shard(wd), Shard(nl + wd - nk), Partial(), Shard(wd))
+        elif wd is not None and (xd == nl + wd or
+                                 (xd is None and not isinstance(xp,
+                                                                Partial))):
+            row = (Shard(nl + wd), Shard(wd), Partial(), Shard(nl + wd),
+                   Shard(wd))
+        else:
+            row = (R, R, R, R, R)
+        for lst, pl in zip((xin, win, out, xg, wg), row):
+            lst.append(pl)
+
+    def body(xl, wl):
+        kk = 1
+        for n in wl.shape[:nk]:
+            kk *= n
+        lead = xl.shape[:nl]
+        y = xl.reshape(lead + (kk,)) @ wl.reshape(kk, -1)
+        return y.reshape(lead + wl.shape[nk:])
+
+    return local_map(body, out_placements=out,
+                     in_placements=(tuple(xin), tuple(win)),
+                     in_grad_placements=(tuple(xg), tuple(wg)),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +257,58 @@ def rope(x, positions, theta):
 # ---------------------------------------------------------------------------
 
 
+def _local_kv(k, v, h0: int, h_loc: int, G: int):
+    """The kv heads a rank's query heads [h0, h0 + h_loc) read, from k
+    and v holding all KVH heads: a slice where the rank's heads cover
+    whole groups or sit in one, else one kv head per query head."""
+    if h_loc % G == 0 and h0 % G == 0:
+        sl = slice(h0 // G, (h0 + h_loc) // G)
+        return k[:, :, sl], v[:, :, sl]
+    if G % h_loc == 0:
+        sl = slice(h0 // G, h0 // G + 1)
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.arange(h0, h0 + h_loc, device=k.device) // G
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _sharded_attention(q, k, v, fn=None):
+    """``ops.flash_attention`` (or ``fn``) on DTensors: each rank's call on
+    its local block under ``local_map``. Batch follows q's data placements;
+    where q's heads are sharded over a mesh axis and k's are not (too few
+    kv heads), a rank reads the kv heads its query heads need, and k's
+    and v's gradients come back as partial sums over that axis."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = q.device_mesh
+    H, KVH = q.shape[2], k.shape[2]
+    G = H // KVH
+    # batch and heads split as q's; the sequence whole (causality)
+    qp = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+               for p in q.placements)
+    # k and v follow q outside the heads dim; their heads stay as they are
+    kvp = tuple(p if p != Shard(2) else
+                (Shard(2) if k.placements[i] == Shard(2) else Replicate())
+                for i, p in enumerate(qp))
+    head_dims = [i for i, p in enumerate(qp) if p == Shard(2)
+                 and kvp[i] == Replicate()]
+    kv_grad = tuple(Partial() if i in head_dims else p
+                    for i, p in enumerate(kvp))
+
+    def body(ql, kl, vl):
+        if head_dims:
+            h_loc = ql.shape[2]
+            r = 0
+            for i in head_dims:
+                r = r * dm.size(i) + dm.get_local_rank(i)
+            kl, vl = _local_kv(kl, vl, r * h_loc, h_loc, G)
+        return (fn or ops.flash_attention)(ql, kl, vl)
+
+    return local_map(body, out_placements=list(qp),
+                     in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kv_grad, kv_grad),
+                     device_mesh=dm, redistribute_inputs=True)(q, k, v)
+
+
 def blockwise_causal_attention(q, k, v):
     """Causal GQA attention, q: [B, S, H, hd]; k, v: [B, S, KVH, hd].
 
@@ -156,9 +317,98 @@ def blockwise_causal_attention(q, k, v):
     precision before P.V (the bf16 kernel as a bf16 hi and lo pair, to
     about 2^-16); the JAX blockwise path casts p to q's dtype first, so
     at bf16 the port follows the TPU kernel, and at f32 the two agree to
-    rounding.
+    rounding. On DTensors each rank runs it on its local block
+    (``_sharded_attention``).
     """
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v)
     return ops.flash_attention(q, k, v)
+
+
+def _ring_step(qr, kc, vc, o, m, l, qpos, kpos, scale):
+    """One kv block of the ring: the reference's online-softmax update,
+    its einsums in f32 (p cast to q's dtype before P.V)."""
+    s = torch.einsum("bqkgh,bskh->bqkgs", qr.to(f32), kc.to(f32)) * scale
+    mask = qpos[:, None] >= kpos[None, :]
+    s = torch.where(mask[None, :, None, None, :], s, _NEG)
+    m2 = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m2[..., None])
+    alpha = torch.exp(m - m2)
+    l2 = l * alpha + p.sum(-1)
+    o2 = o * alpha[..., None] + torch.einsum(
+        "bqkgs,bskh->bqkgh", p.to(qr.dtype).to(f32), vc.to(f32))
+    return o2, m2, l2
+
+
+def ring_attention(q, k, v):
+    """Context-parallel causal attention: q/k/v arrive SEQ-SHARDED over the
+    'model' axis; kv blocks rotate around the ring (``ppermute_ring``)
+    while each rank accumulates its q rows online (Ring Attention).
+
+    Used when an arch's head count does not divide the model axis
+    (arctic's 56, whisper's 20, internvl's 14): the ring keeps compute
+    exact per rank and its only collective is the kv rotation.
+    q: [B, S, H, hd]; k, v: [B, S, KVH, hd] (global shapes, DTensors).
+    The body is the reference's ``shard_map`` body under ``local_map``
+    with its specs (``P(data_axes, 'model', None, None)``); each step is
+    recomputed in the backward pass, as the reference's checkpointed scan
+    step. Every rank computes every step, the blocks wholly above its
+    diagonal too (they add exactly nothing), as the reference does: a
+    rank that left a block out would leave that rotation's backward
+    permute out of its graph, and the other ranks would wait on it. The
+    last rotation, whose blocks no rank reads, is not made."""
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.mesh import ppermute_ring
+    rules = active_rules()
+    mesh = rules.mesh
+    Pm = mesh.sizes["model"]
+    data_axes = tuple(a for a in mesh.axis_names if a != "model")
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    S_loc = S // Pm
+    scale = hd ** -0.5
+    group = mesh.groups["model"]
+    spec = rules.placements_of((data_axes, "model", None, None))
+
+    def block(q_loc, k_loc, v_loc):
+        r = mesh.model_rank
+        Bl = q_loc.shape[0]
+        dev = q_loc.device
+        qr = q_loc.reshape(Bl, S_loc, KVH, G, hd)
+        qpos = r * S_loc + torch.arange(S_loc, device=dev)
+        o = torch.zeros((Bl, S_loc, KVH, G, hd), dtype=f32, device=dev)
+        m = torch.full((Bl, S_loc, KVH, G), _NEG, dtype=f32, device=dev)
+        l = torch.zeros((Bl, S_loc, KVH, G), dtype=f32, device=dev)
+        kc, vc = k_loc, v_loc
+        for j in range(Pm):
+            src = (r - j) % Pm
+            kpos = src * S_loc + torch.arange(S_loc, device=dev)
+            o, m, l = checkpoint(_ring_step, qr, kc, vc, o, m, l, qpos,
+                                 kpos, scale, use_reentrant=False)
+            if j < Pm - 1:
+                kc = ppermute_ring(mesh, kc, group, "ring")
+                vc = ppermute_ring(mesh, vc, group, "ring")
+        out = o / torch.clamp(l[..., None], min=1e-30)
+        return out.reshape(Bl, S_loc, H, hd).to(q_loc.dtype)
+
+    return local_map(block, out_placements=list(spec),
+                     in_placements=(spec, spec, spec),
+                     device_mesh=rules.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def use_ring_attention(cfg, B: int, S: int) -> bool:
+    """Ring path: active mesh, heads do NOT divide the model axis (so the
+    head-sharded path would replicate), and batch/seq divide the mesh."""
+    rules = active_rules()
+    if rules is None or "model" not in rules.mesh.sizes:
+        return False
+    msize = rules.mesh.sizes["model"]
+    if msize <= 1 or cfg.n_heads % msize == 0:
+        return False
+    n_data = rules.mesh.size // msize
+    return S % msize == 0 and B % n_data == 0
 
 
 def full_attention(q, k, v, causal: bool):
@@ -169,8 +419,14 @@ def full_attention(q, k, v, causal: bool):
     The JAX package computes it with ``einsum`` outside any Pallas
     kernel, so here it stays matmul and softmax on the card too. Scores
     in f32; p is cast to q's dtype before P.V (the reference's rounding,
-    not the flash kernel's hi/lo pair), summed in f32.
+    not the flash kernel's hi/lo pair), summed in f32. On DTensors each
+    rank computes its block under ``local_map``, as the flash kernel's
+    (``_sharded_attention``): DTensor's own einsum flattens split dims,
+    which torch 2.11 refuses.
     """
+    if is_dtensor(q):
+        return _sharded_attention(
+            q, k, v, lambda a, b, c: full_attention(a, b, c, causal))
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -185,12 +441,85 @@ def full_attention(q, k, v, causal: bool):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def cache_write(cache, pos: int, new) -> None:
+    """cache[:, pos] = new, in place: cache [B, S, KVH, hd], new [B, KVH,
+    hd]. On a DTensor cache whose sequence is sharded, the rank whose
+    block holds ``pos`` writes it into its local block (the reference's
+    ``dynamic_update_slice`` into a sharded cache)."""
+    if not is_dtensor(cache):
+        cache[:, pos] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    dm, cp = cache.device_mesh, tuple(cache.placements)
+    # new's dims are cache's without the sequence: batch 0, heads 1
+    want = tuple(Replicate() if p == Shard(1) else
+                 (Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+                  else p) for p in cp)
+    loc = cache.to_local()
+    nl = new.redistribute(dm, want).to_local()
+    r = 0
+    for i, p in enumerate(cp):
+        if p == Shard(1):
+            r = r * dm.size(i) + dm.get_local_rank(i)
+    s_loc = loc.shape[1]
+    if r * s_loc <= pos < (r + 1) * s_loc:
+        loc[:, pos - r * s_loc] = nl.to(loc.dtype)
+
+
+def _sharded_decode_attention(q, k_cache, v_cache, pos: int):
+    """``decode_attention`` on a DTensor cache split over batch, kv heads
+    and/or sequence (the rules' 'cache_batch', 'kv_heads', 'cache_seq'):
+    each rank attends to its block of the cache under ``local_map``
+    (q split as the cache's batch and heads), giving its block's row max,
+    sum and unnormalised output; the blocks of a split sequence are then
+    combined as flash-decoding does (a max and two sums over the ranks)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = k_cache.device_mesh
+    B, S, KVH, hd = k_cache.shape
+    G = q.shape[1] // KVH
+    R = Replicate()
+    cp = tuple(k_cache.placements)
+    qp = tuple({Shard(0): Shard(0), Shard(2): Shard(1)}.get(p, R)
+               for p in cp)
+    op = tuple({Shard(0): Shard(1), Shard(1): Shard(0),
+                Shard(2): Shard(2)}.get(p, R) for p in cp)
+    seq_dims = [i for i, p in enumerate(cp) if p == Shard(1)]
+
+    def body(ql, kl, vl):
+        r = 0
+        for i in seq_dims:
+            r = r * dm.size(i) + dm.get_local_rank(i)
+        b, s_loc, kvh = kl.shape[:3]
+        qr = ql.reshape(b, kvh, G, hd)
+        s = torch.einsum("bkgh,bskh->bkgs", qr.to(f32),
+                         kl.to(f32)) * hd ** -0.5
+        valid = r * s_loc + torch.arange(s_loc, device=ql.device) <= pos
+        s = torch.where(valid[None, None, None, :], s, _NEG)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        o = torch.einsum("bkgs,bskh->bkgh", p.to(ql.dtype).to(f32),
+                         vl.to(f32))
+        return m[None], p.sum(-1)[None], o[None]
+
+    m, l, o = local_map(body, out_placements=(op, op, op),
+                        in_placements=(qp, cp, cp), device_mesh=dm,
+                        redistribute_inputs=True)(q, k_cache, v_cache)
+    mx = settle(m.amax(0))
+    w = torch.exp(m - mx[None])
+    o = (o * w[..., None]).sum(0) / (l * w).sum(0)[..., None]
+    return o.reshape(B, KVH * G, hd).to(q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, pos: int):
     """Single-token attention against a fixed-size cache.
 
     q: [B, H, hd]; caches: [B, S, KVH, hd]; pos: tokens < pos+1 are valid
-    (the current token was already written at ``pos``).
+    (the current token was already written at ``pos``). On DTensors
+    ``_sharded_decode_attention``.
     """
+    if is_dtensor(k_cache):
+        return _sharded_decode_attention(q, k_cache, v_cache, pos)
     B, S, KVH, hd = k_cache.shape
     H = q.shape[1]
     G = H // KVH
@@ -232,6 +561,8 @@ def attn_table(cfg, prefix, L) -> ParamTable:
 
 def _proj_heads(x, w):
     """x [B, S, d] @ w [d, H, hd] -> [B, S, H, hd] in x's dtype."""
+    if is_dtensor(x):
+        return dmatmul(x, w.to(x.dtype), 1)
     d, H, hd = w.shape
     return (x @ w.to(x.dtype).reshape(d, H * hd)).reshape(
         x.shape[:-1] + (H, hd))
@@ -240,23 +571,34 @@ def _proj_heads(x, w):
 def _f32_proj_heads(x, w):
     """x [B, S, d] @ w [d, H, hd] -> [B, S, H, hd] f32, as JAX's
     ``preferred_element_type=f32`` einsum."""
+    if is_dtensor(x):
+        return dmatmul(x.to(f32), w.to(f32), 1)
     d, H, hd = w.shape
     return _f32_dot(x, w.reshape(d, H * hd)).reshape(x.shape[:-1] + (H, hd))
 
 
-def qkv_proj(cfg, p, x, positions=None):
-    """x: [B, S, D] -> q [B,S,H,hd], k,v [B,S,KVH,hd] (+RoPE if positions)."""
+def qkv_proj(cfg, p, x, positions=None, sp: bool = False):
+    """x: [B, S, D] -> q [B,S,H,hd], k,v [B,S,KVH,hd] (+RoPE if positions).
+
+    sp=True (ring-attention path): projections run on the seq-sharded
+    residual and stay seq-sharded."""
     q = _proj_heads(x, p["wq"])
     k = _proj_heads(x, p["wk"])
     v = _proj_heads(x, p["wv"])
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    seq_ax = "seq_sp" if sp else "seq"
+    q = tag(q, "batch", seq_ax, "heads", None)
+    k = tag(k, "batch", seq_ax, "kv_heads", None)
+    v = tag(v, "batch", seq_ax, "kv_heads", None)
     return q, k, v
 
 
 def out_proj(p, o):
     """o [B, S, H, hd] @ wo [H, hd, d] -> [B, S, d] in o's dtype."""
+    if is_dtensor(o):
+        return dmatmul(o, p["wo"].to(o.dtype), 2)
     H, hd, d = p["wo"].shape
     return o.reshape(o.shape[:-2] + (H * hd,)) @ p["wo"].to(o.dtype).reshape(
         H * hd, d)
@@ -284,12 +626,12 @@ def mlp_table(cfg, prefix, L, d_ff=None) -> ParamTable:
 
 
 def mlp(cfg, p, x):
-    up = x @ p["w_up"].to(x.dtype)
+    up = mm(x, p["w_up"].to(x.dtype))
     if cfg.mlp_variant == "swiglu":
-        g = x @ p["w_gate"].to(x.dtype)
+        g = mm(x, p["w_gate"].to(x.dtype))
         h = F.silu(g.to(f32)).to(x.dtype) * up
     elif cfg.mlp_variant == "geglu":
-        g = x @ p["w_gate"].to(x.dtype)
+        g = mm(x, p["w_gate"].to(x.dtype))
         h = F.gelu(g.to(f32), approximate="tanh").to(x.dtype) * up
     elif cfg.mlp_variant == "relu2":
         h = torch.square(torch.relu(up))
@@ -297,7 +639,8 @@ def mlp(cfg, p, x):
         h = F.gelu(up.to(f32), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(f"unknown mlp_variant {cfg.mlp_variant!r}")
-    return h.to(x.dtype) @ p["w_down"].to(x.dtype)
+    h = tag(h.to(x.dtype), "batch", "seq", "ffn")
+    return mm(h, p["w_down"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -318,14 +661,61 @@ def embed_table(cfg) -> ParamTable:
     return t
 
 
+def _sharded_lookup(table, tokens):
+    """table[tokens] on DTensors, the table's vocab rows split over mesh
+    axes (the reference's 'vocab' axis): each rank looks up the tokens
+    its rows hold (zeros for the others) under ``local_map``, so the
+    result is a partial sum over those axes and the table is never
+    gathered. The tokens keep their own split elsewhere."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = table.device_mesh
+    R = Replicate()
+    tin, pin, out, pg = [], [], [], []
+    vocab = []
+    for i, (tp, kp) in enumerate(zip(table.placements, tokens.placements)):
+        if tp == Shard(0):
+            row = (R, Shard(0), Partial(), Shard(0))
+            vocab.append(i)
+        elif isinstance(kp, Shard):
+            row = (kp, R, kp, Partial())
+        else:
+            row = (R, R, R, R)
+        for lst, pl in zip((tin, pin, out, pg), row):
+            lst.append(pl)
+
+    def body(tl, kl):
+        r = 0
+        for i in vocab:
+            r = r * dm.size(i) + dm.get_local_rank(i)
+        n = tl.shape[0]
+        idx = kl.long() - r * n
+        hit = (idx >= 0) & (idx < n)
+        rows = tl[torch.where(hit, idx, torch.zeros_like(idx))]
+        return rows * hit[..., None].to(rows.dtype)
+
+    return local_map(body, out_placements=out,
+                     in_placements=(tuple(pin), tuple(tin)),
+                     in_grad_placements=(tuple(pg), tuple(tin)),
+                     device_mesh=dm, redistribute_inputs=True)(table, tokens)
+
+
 def embed(cfg, params, tokens):
-    return params["embed"][tokens].to(cfg_dtype(cfg))
+    table = params["embed"]
+    if is_dtensor(table):
+        e = _sharded_lookup(table, tokens).to(cfg_dtype(cfg))
+        # rows of one token (RWKV's decode) are [B, d]
+        return tag(e, *(("batch", "seq", None) if e.dim() == 3
+                        else ("batch", None)))
+    return table[tokens].to(cfg_dtype(cfg))
 
 
 def logits_fn(cfg, params, x):
     """f32 logits over the REAL vocab (padded columns sliced off)."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = _f32_dot(x, w.to(x.dtype))
+    logits = tag(_f32_dot(x, w.to(x.dtype)), "batch", "seq", "vocab")
+    if is_dtensor(logits):      # the slice takes the vocab split whole
+        logits = whole(logits, -1)
     return logits[..., :cfg.vocab_size]
 
 
@@ -338,15 +728,23 @@ def _label_select(shifted, labels):
     return torch.where(iota == labels[..., None], shifted, 0.0).sum(-1)
 
 
+def _log_sum_exp(shifted):
+    """log(sum(exp(shifted), -1)). Over a split vocab the sum is a partial
+    one, settled before the log: left to DTensor, the log's backward on a
+    mesh of two split axes came out wrong in torch 2.11 (a (2, 2) world
+    of gloo ranks on an H100), while its forward agreed."""
+    return torch.log(settle(torch.exp(shifted).sum(-1)))
+
+
 def softmax_xent(logits, labels, mask=None):
     """Sharded-vocab-safe cross-entropy: no gather over the vocab dim.
 
     logits: [B, S, V] f32; labels: [B, S] int; mask: [B, S] (1 = count).
     """
-    lmax = logits.amax(-1, keepdim=True).detach()
+    lmax = settle(logits.amax(-1, keepdim=True)).detach()
     shifted = logits - lmax
-    lse = torch.log(torch.exp(shifted).sum(-1)) + lmax[..., 0]
-    nll = lse - (_label_select(shifted, labels) + lmax[..., 0])
+    lse = _log_sum_exp(shifted) + lmax[..., 0]
+    nll = lse - (settle(_label_select(shifted, labels)) + lmax[..., 0])
     if mask is None:
         return nll.mean()
     mask = mask.to(f32)
@@ -356,15 +754,15 @@ def softmax_xent(logits, labels, mask=None):
 def _chunk_nll(cfg, xc, w, lc, mc):
     """One sequence chunk of ``chunked_lm_loss``: its logits (padded vocab
     columns at -1e30), then (masked NLL sum, token count)."""
-    logits = _f32_dot(xc, w)
+    logits = tag(_f32_dot(xc, w), "batch", "seq", "vocab")
     V = logits.shape[-1]
     if V != cfg.vocab_size:                   # mask padded vocab columns
         pad = torch.arange(V, device=logits.device) >= cfg.vocab_size
         logits = torch.where(pad, _NEG, logits)
-    lmax = logits.amax(-1, keepdim=True).detach()
+    lmax = settle(logits.amax(-1, keepdim=True)).detach()
     shifted = logits - lmax
-    lse = torch.log(torch.exp(shifted).sum(-1)) + lmax[..., 0]
-    nll = lse - (_label_select(shifted, lc) + lmax[..., 0])
+    lse = _log_sum_exp(shifted) + lmax[..., 0]
+    nll = lse - (settle(_label_select(shifted, lc)) + lmax[..., 0])
     mc = mc.to(f32)
     return (nll * mc).sum(), mc.sum()
 
@@ -386,13 +784,14 @@ def chunked_lm_loss(cfg, params, x, labels, mask=None, chunk=512):
     w = w.to(x.dtype)
     if mask is None:
         mask = torch.ones(labels.shape, dtype=f32, device=x.device)
-    tot = torch.zeros((), dtype=f32, device=x.device)
-    cnt = torch.zeros((), dtype=f32, device=x.device)
+    tot = cnt = None
     for c0 in range(0, S, chunk):
-        t, n = checkpoint(_chunk_nll, cfg, x[:, c0:c0 + chunk], w,
-                          labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk],
-                          use_reentrant=False)
-        tot, cnt = tot + t, cnt + n
+        t, n = remat(_chunk_nll, cfg, x[:, c0:c0 + chunk], w,
+                     labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk])
+        # on a mesh t is a partial sum: added to a plain zero, DTensor
+        # would reduce it at once in one torch version and defer it in
+        # another
+        tot, cnt = (t, n) if tot is None else (tot + t, cnt + n)
     return tot / torch.clamp(cnt, min=1.0)
 
 

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import is_dtensor, tag
 
 f32 = torch.float32
 
@@ -65,6 +66,37 @@ def _causal_conv(x, w, b, tail=None):
     return (y + b.to(f32)).to(x.dtype), new_tail
 
 
+def _scan(dt, dx, A, Bc, Cc, h0):
+    """``ops.selective_scan``; on DTensors each rank's kernel call on its
+    local block under ``local_map``: channels split as dt's (the
+    reference's 'ffn' over the model axis), batch as dt's, the time axis
+    whole; A's gradient a partial sum over the batch split, B's and C's
+    over the channel split."""
+    if not is_dtensor(dt):
+        return ops.selective_scan(dt, dx, A, Bc, Cc, h0)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    tp = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+               for p in dt.placements)
+    ap = tuple(Shard(0) if p == Shard(2) else Replicate() for p in tp)
+    bp = tuple(Shard(0) if p == Shard(0) else Replicate() for p in tp)
+    hp = tuple(Shard(1) if p == Shard(2) else p for p in tp)
+    agrad = tuple(Partial() if p == Shard(0) else a for p, a in zip(tp, ap))
+    bgrad = tuple(Partial() if p == Shard(2) else b for p, b in zip(tp, bp))
+    hin = () if h0 is None else (h0,)
+
+    def body(*args):
+        return ops.selective_scan(*args)
+
+    return local_map(
+        body, out_placements=(tp, hp),
+        in_placements=(tp, tp, ap, bp, bp) + ((hp,) if hin else ()),
+        in_grad_placements=(tp, tp, agrad, bgrad, bgrad)
+        + ((hp,) if hin else ()),
+        device_mesh=dt.device_mesh, redistribute_inputs=True)(
+            dt, dx, A, Bc, Cc, *hin)
+
+
 def mamba_mix(cfg, p, x, state=None):
     """x: [B,T,d]. state: None or (conv_tail, h) for decode/streaming.
     Returns (y [B,T,d], (new_tail, h_last)), h_last in x's dtype."""
@@ -74,22 +106,29 @@ def mamba_mix(cfg, p, x, state=None):
             "float32 only (ROADMAP.md Queue 1 item 14)")
     di, dtr, ds, dc = dims(cfg)
     B, T, d = x.shape
-    xz = x @ p["in_proj"].to(x.dtype)
-    x1, z = xz[..., :di], xz[..., di:]
+    xz = L.mm(x, p["in_proj"].to(x.dtype))
+    if is_dtensor(xz):
+        # the halves' channels interleave over the ranks' blocks of the
+        # 'ffn' split: gather it, take the halves, split each again
+        xz = L.whole(xz, -1)
+        x1 = tag(xz[..., :di], "batch", "seq", "ffn")
+        z = tag(xz[..., di:], "batch", "seq", "ffn")
+    else:
+        x1, z = xz[..., :di], xz[..., di:]
     tail = state[0] if state is not None else None
     x1, new_tail = _causal_conv(x1, p["conv_w"], p["conv_b"], tail)
     x1 = F.silu(x1.to(f32)).to(x.dtype)
     proj = L._f32_dot(x1, p["x_proj"].to(x.dtype))
     dt_r, Bc, Cc = (proj[..., :dtr], proj[..., dtr:dtr + ds],
                     proj[..., dtr + ds:])
-    dt = F.softplus(dt_r @ p["dt_w"].to(f32) + p["dt_b"].to(f32))
+    dt = F.softplus(L.mm(dt_r, p["dt_w"].to(f32)) + p["dt_b"].to(f32))
     A = -torch.exp(p["A_log"].to(f32))            # [di, ds]
     h0 = state[1].to(f32) if state is not None else None
     x1f = x1.to(f32)
-    y, h_last = ops.selective_scan(dt, dt * x1f, A, Bc, Cc, h0)
+    y, h_last = _scan(dt, dt * x1f, A, Bc, Cc, h0)
     y = y + p["D"].to(f32) * x1f
     y = y * F.silu(z.to(f32))
-    out = y.to(x.dtype) @ p["out_proj"].to(x.dtype)
+    out = L.mm(y.to(x.dtype), p["out_proj"].to(x.dtype))
     return out, (new_tail, h_last.to(x.dtype))
 
 

@@ -1,6 +1,7 @@
-"""Mixture-of-Experts FFN: GShard-style capacity dispatch on one device.
+"""Mixture-of-Experts FFN: GShard-style capacity dispatch, on one device
+(``moe_dense``) and expert-parallel over a mesh (``moe_a2a``).
 
-The port of ``repro/models/moe.py``'s dense path: top-k routing with the
+The port of ``repro/models/moe.py``. Its dense path: top-k routing with the
 GShard auxiliary loss, each (token, choice) given a slot in its expert's
 buffer of ``cap`` rows in (token, choice) order, the rows past ``cap``
 dropped (they add zero; Arctic's dense residual branch keeps them on the
@@ -16,9 +17,15 @@ appended for the purpose.
 
 ``capacity = max(1, int(T K cf / E))`` counts the tokens of the call, as
 in the reference: a decode step (T = batch) drops choices that a prefill
-of the same tokens keeps. ``moe_a2a``, the reference's expert-parallel
-``shard_map`` over a mesh, is ROADMAP.md Queue 1 item 14g: until the
-port has sharding rules, ``moe_ffn`` is ``moe_dense``.
+of the same tokens keeps.
+
+``moe_a2a`` is the reference's expert-parallel ``shard_map`` body under
+``local_map``: tokens split over every mesh axis, experts over 'model',
+each rank's capacity buffer [P, E_loc, cap, d] laid out as
+``moe_dense``'s [E, cap, d] (so the same ``_Rows`` dispatch fills it),
+two counted ``launch.mesh.all_to_all`` exchanges, and the aux loss
+averaged over every rank. ``moe_ffn`` picks it for train and prefill on
+a mesh whose model axis the experts divide, as the reference does.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import active_rules, is_dtensor
 
 f32 = torch.float32
 
@@ -143,34 +151,195 @@ def _slot_maps(idx, pos, keep, E: int, cap: int):
     return slot, src[:n]
 
 
-def moe_dense(cfg, p, x):
-    """Capacity dispatch on one device. x: [B, S, d] (or [T, d]) ->
-    (y of x's shape and dtype, aux loss f32 scalar)."""
+def _dispatch(cfg, x2d, router, cap: int):
+    """Route the rows of x2d and fill the [E, cap, d] buffer -> (buf, w,
+    slot, src, aux): buffer row s reads token src[s] // K; token t's rows
+    are its K slots (the zero row where dropped)."""
     m = cfg.moe
-    shape = x.shape
-    x2d = x.reshape(-1, shape[-1])
     T, d = x2d.shape
     E, K = m.n_experts, m.top_k
-    cap = max(1, int(T * K * m.capacity_factor / E))
-    w, idx, aux = _route(cfg, p, x2d)
+    w, idx, aux = _route(cfg, {"router": router}, x2d)
     with torch.no_grad():
         pos = _positions_in_expert(idx, E)
         slot, src = _slot_maps(idx, pos, pos < cap, E, cap)
         tok = torch.where(src < T * K, src // K, torch.full_like(src, T))
-    # dispatch: buffer row s reads token src[s] // K; token t's rows are
-    # its K slots (the zero row where dropped)
     buf = _Rows.apply(x2d, tok, slot).reshape(E, cap, d)
-    y_buf = _expert_mlp(cfg, p, buf).reshape(E * cap, d)
-    # combine: (t, k) reads its slot; buffer row s goes back to src[s]
-    gathered = _Rows.apply(y_buf, slot.reshape(-1), src[:, None])
-    y = (gathered.reshape(T, K, d) * w[..., None].to(x.dtype)).sum(1)
+    return buf, w, slot, src, aux
+
+
+def _combine(y_buf, w, slot, src):
+    """Each (t, k) reads its slot of the experts' output [E, cap, d]
+    (buffer row s goes back to src[s]), weighted and summed over k ->
+    [T, d]."""
+    E, cap, d = y_buf.shape
+    T, K = w.shape
+    gathered = _Rows.apply(y_buf.reshape(E * cap, d), slot.reshape(-1),
+                           src[:, None])
+    return (gathered.reshape(T, K, d) * w[..., None].to(y_buf.dtype)).sum(1)
+
+
+def _moe_dense_sharded(cfg, p, x):
+    """``moe_dense`` on DTensors (decode on a mesh): the tokens replicated
+    (one token a sequence), the routing and the buffer's rows moved on
+    each rank's full copy under ``local_map``, the experts' products as
+    DTensor ops on the experts' own placements (no gather of the expert
+    tables), the buffer gathered back for the combine."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    m = cfg.moe
+    dm = x.device_mesh
+    rep = tuple(Replicate() for _ in range(dm.ndim))
+    shape = x.shape
+    T = x.numel() // shape[-1]
+    cap = max(1, int(T * m.top_k * m.capacity_factor / m.n_experts))
+    xr = x.redistribute(dm, rep).reshape(T, shape[-1])
+    buf, w, slot, src, aux = local_map(
+        lambda a, r: _dispatch(cfg, a, r, cap), out_placements=(rep,) * 5,
+        in_placements=(rep, rep), device_mesh=dm,
+        redistribute_inputs=True)(xr, p["router"])
+    y_buf = _expert_mlp(cfg, p, buf)
+    y = local_map(_combine, out_placements=list(rep),
+                  in_placements=(rep,) * 4,
+                  device_mesh=dm, redistribute_inputs=True)(
+                      y_buf, w, slot, src)
     return y.reshape(shape), aux
 
 
-def moe_ffn(cfg, p, x, kind: str):
-    """The dispatch selector: ``moe_dense``, the reference's choice
-    wherever no sharding rules are active, as on one card. Its other
-    choice, ``moe_a2a`` over a mesh, comes with the port's sharding rules
-    (ROADMAP.md Queue 1 item 14g). ``kind`` is the reference's argument
-    (train, prefill or decode), which only that choice reads."""
+def moe_dense(cfg, p, x):
+    """Capacity dispatch on one device. x: [B, S, d] (or [T, d]) ->
+    (y of x's shape and dtype, aux loss f32 scalar)."""
+    if is_dtensor(x):
+        return _moe_dense_sharded(cfg, p, x)
+    m = cfg.moe
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1])
+    cap = max(1, int(x2d.shape[0] * m.top_k * m.capacity_factor
+                     / m.n_experts))
+    buf, w, slot, src, aux = _dispatch(cfg, x2d, p["router"], cap)
+    y = _combine(_expert_mlp(cfg, p, buf), w, slot, src)
+    return y.reshape(shape), aux
+
+
+class _MeanAll(torch.autograd.Function):
+    """The mean of a scalar over every rank (the reference's ``pmean``
+    over all axes): an all-reduce forward; the result is the same on
+    every rank, so each rank's share of its gradient is 1/N of it."""
+
+    @staticmethod
+    def forward(ctx, a, mesh):
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import all_reduce
+        ctx.n = mesh.size
+        return all_reduce(mesh, a.clone(), dist.group.WORLD, "moe") / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The model-axis blocks of the sequence put back together (the
+    reference's tiled ``all_gather`` over 'model', dim 1); the result is
+    the same on every model rank, so a rank's gradient is its block of
+    the result's."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        from repro_torch.launch.mesh import all_gather
+        ctx.r, ctx.s = mesh.model_rank, y.shape[1]
+        return torch.cat(all_gather(mesh, y, mesh.groups["model"], "moe"),
+                         dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, ctx.r * ctx.s:(ctx.r + 1) * ctx.s], None
+
+
+def moe_a2a(cfg, p, x, sp: bool):
+    """Expert-parallel MoE over the active rules' mesh. x: [B, S, d]
+    (a DTensor) -> (y of x's shape, aux loss, the same on every rank).
+
+    sp=True: the caller's residual stream is sequence-parallel, tokens
+    split over (data axes on the batch, 'model' on the sequence); the
+    only collectives are the two exchanges. sp=False (jamba: its
+    recurrence keeps the sequence whole): tokens arrive split over the
+    data axes; each model rank takes its block of the sequence and the
+    blocks are gathered back at the end."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.mesh import all_to_all
+    rules = active_rules()
+    mesh = rules.mesh
+    m = cfg.moe
+    B, S, d = x.shape
+    data_axes = tuple(a for a in mesh.axis_names if a != "model")
+    Pm = mesh.sizes["model"]
+    E = m.n_experts
+    E_loc = E // Pm
+    n_data = mesh.size // Pm
+    t_loc = (B // n_data) * (S // Pm)
+    # per-source-device, per-expert capacity
+    cap = max(1, int(-(-t_loc * m.top_k * m.capacity_factor // E)))
+    group = mesh.groups["model"]
+    gated = cfg.mlp_variant in ("swiglu", "geglu")
+    names = ("w_up", "w_down") + (("w_gate",) if gated else ())
+
+    def block(x_blk, router, *ws):
+        pp = dict(zip(names, ws))
+        if not sp:
+            s_loc = x_blk.shape[1] // Pm
+            r = mesh.model_rank
+            xs = x_blk[:, r * s_loc:(r + 1) * s_loc]
+        else:
+            xs = x_blk
+        buf, w, slot, src, aux = _dispatch(cfg, xs.reshape(-1, d), router,
+                                           cap)
+        # the send buffer: peer p's experts' slots, [Pm, E_loc, cap, d]
+        recv = all_to_all(mesh, buf.reshape(Pm, E_loc * cap, d), group,
+                          "moe")
+        h = recv.reshape(Pm, E_loc, cap, d).transpose(0, 1).reshape(
+            E_loc, Pm * cap, d)
+        y = _expert_mlp(cfg, pp, h)
+        y = y.reshape(E_loc, Pm, cap, d).transpose(0, 1).reshape(
+            Pm, E_loc * cap, d)
+        back = all_to_all(mesh, y, group, "moe").reshape(E, cap, d)
+        y_tok = _combine(back, w, slot, src).reshape(xs.shape)
+        if not sp:
+            y_tok = _GatherSeq.apply(y_tok, mesh)
+        return y_tok, _MeanAll.apply(aux, mesh)
+
+    tok_spec = rules.placements_of(
+        (data_axes, "model" if sp else None, None))
+    rep = tuple(Replicate() for _ in tok_spec)
+    w_spec = rules.placements_of(("model", None, None))
+    # each rank's gradients come from its own tokens: partial sums over
+    # every axis a spec leaves whole (the reference's shard_map psums its
+    # cotangents there); sp=False leaves x whole over 'model' and each
+    # model rank's gradient covers only its block of the sequence
+    tok_grad, w_grad = (tuple(p if isinstance(p, Shard) else Partial()
+                              for p in spec) for spec in (tok_spec, w_spec))
+    fn = local_map(block, out_placements=(tok_spec, rep),
+                   in_placements=(tok_spec, rep) + (w_spec,) * len(names),
+                   in_grad_placements=(tok_grad, (Partial(),) * len(rep))
+                   + (w_grad,) * len(names),
+                   device_mesh=rules.device_mesh, redistribute_inputs=True)
+    return fn(x, p["router"], *(p[n] for n in names))
+
+
+def moe_ffn(cfg, p, x, kind: str, sp: bool = False):
+    """The dispatch selector, the reference's: ``moe_a2a`` for train and
+    prefill on a mesh whose model axis (> 1) the experts divide, where
+    the batch divides the data ranks and the sequence the model axis;
+    ``moe_dense`` otherwise (one card, decode). ``sp`` holds only where
+    the rules shard the residual's sequence."""
+    m = cfg.moe
+    rules = active_rules()
+    B, S = x.shape[0], x.shape[1]
+    sizes = rules.mesh.sizes if rules is not None else {}
+    Pm = sizes.get("model", 1)
+    if (rules is not None and rules.distributed and Pm > 1
+            and kind in ("train", "prefill") and m.n_experts % Pm == 0
+            and B % (rules.mesh.size // Pm) == 0 and S % Pm == 0):
+        return moe_a2a(cfg, p, x,
+                       sp and rules.table.get("seq_sp") is not None)
     return moe_dense(cfg, p, x)

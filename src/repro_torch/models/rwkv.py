@@ -23,9 +23,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import is_dtensor, tag
 
 f32 = torch.float32
 
@@ -148,6 +148,30 @@ def _wkv_chunks(r, k, v, logw, u, state, c: int):
     return out.reshape(B, T, H, v.shape[-1]), state
 
 
+def _wkv(r, k, v, logw, u, state, c: int):
+    """``_wkv_chunks``; on DTensors each rank's heads and rows under
+    ``local_map`` (the recurrence is per head, the reference's 'heads'
+    over the model axis): u's gradient a partial sum over the batch split,
+    the state split as r's rows and heads."""
+    if not is_dtensor(r):
+        return _wkv_chunks(r, k, v, logw, u, state, c)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = r.device_mesh
+    R = Replicate()
+    tp = tuple(p if p in (Shard(0), Shard(2)) else R for p in r.placements)
+    up = tuple(Shard(0) if p == Shard(2) else R for p in tp)
+    ug = tuple(Partial() if p == Shard(0) else q for p, q in zip(tp, up))
+    sp = tuple(Shard(1) if p == Shard(2) else p for p in tp)
+    if not is_dtensor(state):
+        state = DTensor.from_local(state, dm, [R] * dm.ndim)
+    return local_map(
+        lambda *a: _wkv_chunks(*a, c), out_placements=(tp, sp),
+        in_placements=(tp, tp, tp, tp, up, sp),
+        in_grad_placements=(tp, tp, tp, tp, ug, sp), device_mesh=dm,
+        redistribute_inputs=True)(r, k, v, logw, u, state)
+
+
 def _wkv_chunk(r, k, v, logw, u, state):
     """One chunk of the WKV recurrence in closed form (the reference's
     ``_wkv_chunk``): ``_wkv_chunks`` with the chunk the whole of T."""
@@ -157,8 +181,8 @@ def _wkv_chunk(r, k, v, logw, u, state):
 def _decay_log(p, xw):
     """log w [.., H*K] f32 from the decay stream: w0 + tanh(xw) dw1 dw2,
     then -exp(.) clamped to [LOGW_MIN, LOGW_MAX]."""
-    dlog = p["w0"].to(f32) + (torch.tanh(xw.to(f32)) @ p["dw1"].to(f32)
-                              ) @ p["dw2"].to(f32)
+    dlog = p["w0"].to(f32) + L.mm(L.mm(torch.tanh(xw.to(f32)),
+                                       p["dw1"].to(f32)), p["dw2"].to(f32))
     return torch.clamp(-torch.exp(dlog), LOGW_MIN, LOGW_MAX)
 
 
@@ -176,7 +200,7 @@ def time_mix(cfg, p, x, tm_x, wkv_state):
     c = min(WKV_CHUNK, T)
     if T % c != 0:
         c = T
-    out, new_state = _wkv_chunks(r, k, v, logw, p["u"], wkv_state.to(f32), c)
+    out, new_state = _wkv(r, k, v, logw, p["u"], wkv_state.to(f32), c)
     out = _gn_gate(cfg, p, out, g, B, T)
     y = _dot(out, p["w_o"]).to(x.dtype)
     return y, x[:, -1], new_state
@@ -193,6 +217,34 @@ def _gn_gate(cfg, p, out, g, B, T):
     return (out * F.silu(g)).to(f32)
 
 
+def _wkv_step_local(r, k, v, w, u, S):
+    """One WKV step: r, k, v, w [B,H,K]; u [H,K]; S [B,H,K,V] f32 ->
+    (out [B,H,V], new state)."""
+    kv = k[..., None] * v[..., None, :]  # [B,H,K,V]
+    out = torch.einsum("bhk,bhkv->bhv", r,
+                       S + u.to(f32)[None, :, :, None] * kv)
+    return out, w[..., None] * S + kv
+
+
+def _wkv_step(r, k, v, w, u, S):
+    """``_wkv_step_local``; on DTensors each rank's rows and heads under
+    ``local_map`` (DTensor's own rule for the einsum flattens a split
+    batch into the heads)."""
+    if not is_dtensor(r):
+        return _wkv_step_local(r, k, v, w, u, S)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = r.device_mesh
+    R = Replicate()
+    tp = tuple(p if p in (Shard(0), Shard(1)) else R for p in r.placements)
+    up = tuple(Shard(0) if p == Shard(1) else R for p in tp)
+    if not is_dtensor(S):
+        S = DTensor.from_local(S, dm, [R] * dm.ndim)
+    return local_map(_wkv_step_local, out_placements=(tp, tp),
+                     in_placements=(tp, tp, tp, tp, up, tp), device_mesh=dm,
+                     redistribute_inputs=True)(r, k, v, w, u, S)
+
+
 def time_mix_decode(cfg, p, x, tm_x, wkv_state):
     """Single-token recurrence. x: [B,d]. Returns (out, x, new_state)."""
     B, d = x.shape
@@ -205,11 +257,7 @@ def time_mix_decode(cfg, p, x, tm_x, wkv_state):
     v = _dot(xv, p["w_v"])[:, 0].reshape(B, H, K)
     g = _dot(xg, p["w_g"])[:, 0]
     w = torch.exp(_decay_log(p, xw[:, 0])).reshape(B, H, K)
-    S = wkv_state.to(f32)
-    kv = k[..., None] * v[..., None, :]  # [B,H,K,V]
-    out = torch.einsum("bhk,bhkv->bhv", r,
-                       S + p["u"].to(f32)[None, :, :, None] * kv)
-    new_state = w[..., None] * S + kv
+    out, new_state = _wkv_step(r, k, v, w, p["u"], wkv_state.to(f32))
     out = _gn_gate(cfg, p, out[:, None], g[:, None], B, 1)
     y = _dot(out, p["w_o"])[:, 0]
     return y.to(x.dtype), x, new_state
@@ -240,7 +288,7 @@ def _layer(cfg, lp, h):
     hn = L.layernorm(h, lp["ln2/scale"], lp["ln2/bias"])
     out, cm_x = channel_mix(cfg, lp, hn,
                             torch.zeros(B, d, dtype=h.dtype, device=h.device))
-    return h + out, tm_x, wkv, cm_x
+    return tag(h + out, "batch", "seq", None), tm_x, wkv, cm_x
 
 
 def forward(cfg, params, tokens, kind: str, cache=None):
@@ -256,6 +304,8 @@ def forward(cfg, params, tokens, kind: str, cache=None):
     other = {k: v for k, v in params.items() if not k.startswith("layer/")}
     x = L.embed(cfg, params, tokens)
     x = L.layernorm(x, other["ln0/scale"], other["ln0/bias"])
+    if kind != "decode":
+        x = tag(x, "batch", "seq", None)
     ln_f = (other["ln_final/scale"], other["ln_final/bias"])
 
     if kind == "decode":
@@ -267,7 +317,9 @@ def forward(cfg, params, tokens, kind: str, cache=None):
             x = x + out
             hn = L.layernorm(x, lp["ln2/scale"], lp["ln2/bias"])
             out, cm_x = channel_mix(cfg, lp, hn[:, None], cache["cm_x"][i])
-            x = x + out[:, 0]
+            # the residual's partial sums settled at the layer's end (on a
+            # mesh), as the train path's tag does
+            x = tag(x + out[:, 0], "batch", None)
             cache["tm_x"][i] = tm_x
             cache["wkv"][i] = wkv.to(cache["wkv"].dtype)
             cache["cm_x"][i] = cm_x
@@ -278,8 +330,7 @@ def forward(cfg, params, tokens, kind: str, cache=None):
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in layer_p.items()}
         if kind == "train" and cfg.remat == "layer":
-            x, tm_x, wkv, cm_x = checkpoint(_layer, cfg, lp, x,
-                                            use_reentrant=False)
+            x, tm_x, wkv, cm_x = L.remat(_layer, cfg, lp, x)
         else:
             x, tm_x, wkv, cm_x = _layer(cfg, lp, x)
         if kind == "prefill":
@@ -298,3 +349,10 @@ def cache_struct(cfg, batch: int, dtype):
     return {"tm_x": ((nl, batch, d), dtype),
             "wkv": ((nl, batch, H, K, K), dtype),
             "cm_x": ((nl, batch, d), dtype)}
+
+
+def cache_axes(cfg):
+    """The logical axes of ``cache_struct``'s entries (the reference's)."""
+    return {"tm_x": ("layers", "cache_batch", None),
+            "wkv": ("layers", "cache_batch", "heads", None, None),
+            "cm_x": ("layers", "cache_batch", None)}

@@ -14,18 +14,21 @@ k and v (``xk``, ``xv``) are projected from the encoder output at prefill
 and read from the cache at decode. The MoE router's aux loss is summed
 over layers, as the reference's scan carry sums it.
 
-Not ported yet: the ring-attention mesh path and ``moe_a2a`` (ROADMAP.md
-Queue 1 item 14g).
+On a mesh (active ``sharding`` rules) the reference's tags hold: the
+residual stream is sequence-parallel between layers (``seq_sp``), the
+matmul inputs are gathered over the sequence (``seq``), and an arch whose
+heads do not divide the model axis takes ``layers.ring_attention`` on the
+seq-sharded residual.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_ffn, moe_table
+from repro_torch.sharding import tag
 
 f32 = torch.float32
 
@@ -73,14 +76,16 @@ def _sub(p, prefix):
     return {k[n:]: v for k, v in p.items() if k.startswith(prefix)}
 
 
-def _ffn(cfg, lp, x, kind):
+def _ffn(cfg, lp, x, kind, sp=False):
     """The FFN branch on the normed ``x``: a dense MLP, an MoE, or an MoE
     plus the dense residual MLP (Arctic). -> (y, router aux loss)."""
     if not is_moe_layer(cfg):
-        return L.mlp(cfg, _sub(lp, "mlp/"), x), x.new_zeros((), dtype=f32)
-    y, aux = moe_ffn(cfg, _sub(lp, "moe/"), x, kind)
+        return (L.mlp(cfg, _sub(lp, "mlp/"), tag(x, "batch", "seq", None)),
+                torch.zeros((), dtype=f32, device=x.device))
+    y, aux = moe_ffn(cfg, _sub(lp, "moe/"), x, kind, sp=sp)
     if cfg.moe.dense_residual_d_ff:
-        y = y + L.mlp(cfg, _sub(lp, "mlp/"), x)
+        r = L.mlp(cfg, _sub(lp, "mlp/"), tag(x, "batch", "seq", None))
+        y = y + (_sp(r) if sp and kind != "decode" else r)
     return y, aux
 
 
@@ -95,25 +100,51 @@ def _cross_kv(lp, enc_out):
     return L._proj_heads(enc_out, ap["wk"]), L._proj_heads(enc_out, ap["wv"])
 
 
-def _cross(cfg, lp, x, xk, xv):
+def _cross(cfg, lp, x, xk, xv, decode=False):
     """The cross-attention branch of a layer, pre-normed: queries from
     ``x``, non-causal over the encoder's frames."""
     ap = _sub(lp, "xattn/")
-    q = L._proj_heads(L.norm(cfg, lp, "ln_xattn", x), ap["wq"])
+    hn = L.norm(cfg, lp, "ln_xattn", x)
+    if not decode:
+        hn = tag(hn, "batch", "seq", None)
+    q = L._proj_heads(hn, ap["wq"])
     return L.out_proj(ap, L.full_attention(q, xk, xv, causal=False))
+
+
+def _self_attn(cfg, lp, x, positions):
+    """A train or prefill layer's self-attention on the pre-normed
+    residual: (out, k, v). On a mesh whose model axis the heads do not
+    divide, the ring on the seq-sharded residual; else the heads-sharded
+    flash attention on the residual gathered over the sequence."""
+    ap = _sub(lp, "attn/")
+    hn = L.norm(cfg, lp, "ln_attn", x)
+    ring = L.use_ring_attention(cfg, x.shape[0], x.shape[1])
+    if not ring:
+        hn = tag(hn, "batch", "seq", None)
+    q, k, v = L.qkv_proj(cfg, ap, hn, positions, sp=ring)
+    o = (L.ring_attention(q, k, v) if ring
+         else L.blockwise_causal_attention(q, k, v))
+    return L.out_proj(ap, o), k, v
+
+
+def _sp(y):
+    """A branch's output put on the sequence-parallel residual's split
+    before the add (the reference's reduce-scatter into ``seq_sp``): the
+    gradient then comes back gathered over the sequence, as the branch's
+    products take it."""
+    return tag(y, "batch", "seq_sp", None)
 
 
 def _train_layer(cfg, lp, x, positions, enc_out):
     """One layer of the training forward: attention, the cross-attention
     where there is an encoder output, then the FFN, each pre-normed and
     added to the residual. -> (x, the layer's router aux loss)."""
-    ap = _sub(lp, "attn/")
-    q, k, v = L.qkv_proj(cfg, ap, L.norm(cfg, lp, "ln_attn", x), positions)
-    x = x + L.out_proj(ap, L.blockwise_causal_attention(q, k, v)).to(x.dtype)
+    out, _, _ = _self_attn(cfg, lp, x, positions)
+    x = x + _sp(out).to(x.dtype)
     if enc_out is not None:
-        x = x + _cross(cfg, lp, x, *_cross_kv(lp, enc_out)).to(x.dtype)
-    y, aux = _ffn(cfg, lp, L.norm(cfg, lp, "ln_mlp", x), "train")
-    return x + y.to(x.dtype), aux
+        x = x + _sp(_cross(cfg, lp, x, *_cross_kv(lp, enc_out))).to(x.dtype)
+    y, aux = _ffn(cfg, lp, L.norm(cfg, lp, "ln_mlp", x), "train", sp=True)
+    return tag(x + _sp(y).to(x.dtype), "batch", "seq_sp", None), aux
 
 
 def forward(cfg, params, x, kind: str, *, enc_out=None, cache=None,
@@ -152,32 +183,36 @@ def forward(cfg, params, x, kind: str, *, enc_out=None, cache=None,
     if not _use_rope(cfg):
         positions = None
     aux = torch.zeros((), dtype=f32, device=x.device)
+    if not decode:
+        x = tag(x, "batch", "seq_sp", None)
     if kind == "train":
         for i in range(cfg.n_layers):
             lp = {k: v[i] for k, v in layer_p.items()}
             if cfg.remat == "layer":
-                x, a = checkpoint(_train_layer, cfg, lp, x, positions,
-                                  enc_out, use_reentrant=False)
+                x, a = L.remat(_train_layer, cfg, lp, x, positions,
+                               enc_out)
             else:
                 x, a = _train_layer(cfg, lp, x, positions, enc_out)
             aux = aux + a
-        return L.norm(cfg, other_p, "ln_final", x), aux, None
+        x = L.norm(cfg, other_p, "ln_final", x)
+        return tag(x, "batch", "seq", None), aux, None
     ks, vs, xks, xvs = [], [], [], []
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in layer_p.items()}
-        ap = _sub(lp, "attn/")
-        hn = L.norm(cfg, lp, "ln_attn", x)
-        q, k, v = L.qkv_proj(cfg, ap, hn, positions)
         if decode:
+            ap = _sub(lp, "attn/")
+            q, k, v = L.qkv_proj(cfg, ap, L.norm(cfg, lp, "ln_attn", x),
+                                 positions)
             kc, vc = cache["k"][i], cache["v"][i]
-            kc[:, pos] = k[:, 0].to(kc.dtype)
-            vc[:, pos] = v[:, 0].to(vc.dtype)
+            L.cache_write(kc, pos, k[:, 0])
+            L.cache_write(vc, pos, v[:, 0])
             o = L.decode_attention(q[:, 0], kc, vc, pos)[:, None]
+            out = L.out_proj(ap, o)
         else:
-            o = L.blockwise_causal_attention(q, k, v)
+            out, k, v = _self_attn(cfg, lp, x, positions)
             ks.append(k)
             vs.append(v)
-        x = x + L.out_proj(ap, o).to(dtype)
+        x = x + (out if decode else _sp(out)).to(dtype)
         if cross:
             if decode:
                 xk, xv = cache["xk"][i], cache["xv"][i]
@@ -185,12 +220,16 @@ def forward(cfg, params, x, kind: str, *, enc_out=None, cache=None,
                 xk, xv = _cross_kv(lp, enc_out)
                 xks.append(xk)
                 xvs.append(xv)
-            x = x + _cross(cfg, lp, x, xk, xv).to(dtype)
-        y, a = _ffn(cfg, lp, L.norm(cfg, lp, "ln_mlp", x), kind)
-        x = x + y.to(dtype)
+            xo = _cross(cfg, lp, x, xk, xv, decode)
+            x = x + (xo if decode else _sp(xo)).to(dtype)
+        y, a = _ffn(cfg, lp, L.norm(cfg, lp, "ln_mlp", x), kind, sp=True)
+        x = x + (y if decode else _sp(y)).to(dtype)
+        if not decode:
+            x = tag(x, "batch", "seq_sp", None)
         aux = aux + a
     x = L.norm(cfg, other_p, "ln_final", x)
     if not decode:
+        x = tag(x, "batch", "seq", None)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
         if cross:
             cache["xk"], cache["xv"] = torch.stack(xks), torch.stack(xvs)
@@ -205,4 +244,14 @@ def cache_struct(cfg, batch: int, seq: int, dtype, cross_frames: int = 0):
            "v": ((nl, batch, seq, KVH, hd), dtype)}
     if cross_frames:
         out["xk"] = out["xv"] = ((nl, batch, cross_frames, KVH, hd), dtype)
+    return out
+
+
+def cache_axes(cfg, cross: bool = False):
+    """The logical axes of ``cache_struct``'s entries (the reference's)."""
+    axes = ("layers", "cache_batch", "cache_seq", "kv_heads", None)
+    out = {"k": axes, "v": axes}
+    if cross:
+        out["xk"] = out["xv"] = ("layers", "cache_batch", "frames",
+                                 "kv_heads", None)
     return out

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import tag
 
 
 def vlm_table(cfg) -> L.ParamTable:
@@ -26,7 +27,7 @@ def _merge(cfg, params, patches, tokens):
     dtype = L.cfg_dtype(cfg)
     pe = L._f32_dot(patches.to(dtype), params["patch_proj"].to(dtype))
     te = L.embed(cfg, params, tokens)
-    return torch.cat([pe.to(dtype), te], dim=1)
+    return tag(torch.cat([pe.to(dtype), te], dim=1), "batch", "seq", None)
 
 
 def forward_train(cfg, params, patches, tokens):

@@ -10,10 +10,10 @@ self-attention on the flash-attention kernel.
 """
 from __future__ import annotations
 
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import tag
 
 
 def whisper_table(cfg, max_seq: int) -> L.ParamTable:
@@ -40,8 +40,9 @@ def _enc_layer(cfg, lp, h):
                for w in ("wq", "wk", "wv"))
     o = L.full_attention(q, k, v, causal=False)
     h = h + L.out_proj({"wo": lp["attn/wo"]}, o).to(dtype)
-    return h + L.mlp(cfg, T._sub(lp, "mlp/"),
-                     L.norm(cfg, lp, "ln_mlp", h)).to(dtype)
+    h = h + L.mlp(cfg, T._sub(lp, "mlp/"),
+                  L.norm(cfg, lp, "ln_mlp", h)).to(dtype)
+    return tag(h, "batch", "frames", None)
 
 
 def encode(cfg, params, frames):
@@ -51,10 +52,11 @@ def encode(cfg, params, frames):
              if k.startswith("enc_layer/")}
     dtype = L.cfg_dtype(cfg)
     x = frames.to(dtype) + params["enc_pos_embed"].to(dtype)[None]
+    x = tag(x, "batch", "frames", None)
     for i in range(cfg.encoder.n_layers):
         lp = {k: v[i] for k, v in enc_p.items()}
         if cfg.remat == "layer":
-            x = checkpoint(_enc_layer, cfg, lp, x, use_reentrant=False)
+            x = L.remat(_enc_layer, cfg, lp, x)
         else:
             x = _enc_layer(cfg, lp, x)
     return L.layernorm(x, params["enc_ln_final/scale"],

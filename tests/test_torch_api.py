@@ -435,11 +435,15 @@ def test_refusals(data, tmp_path):
         assert got.eer == plain.eer
         np.testing.assert_array_equal(got.ivectors, plain.ivectors)
         assert got.provenance["mesh"] == [["data", 1], ["model", 1]]
-    # the elastic re-mesh knobs wait for the LM side's sharding/
-    with pytest.raises(NotImplementedError, match="sharding/"):
-        TCM.restore(tmp_path, {}, rules=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding/"):
-        TCM.CheckpointManager(tmp_path, logical_axes={})
+    # the elastic re-mesh knobs are no refusals now: a save stores the
+    # axes, and rules of one rank (or none) restore the whole tensors
+    ck = tmp_path / "elastic"
+    tree = {"p": {"w": torch.arange(6.0).reshape(2, 3)}}
+    TCM.CheckpointManager(ck, logical_axes={"p": {"w": ("batch", None)}}
+                          ).maybe_save(1, tree, force=True)
+    assert TCM.verify(ck, 1)["axes"] == {"p|w": ["batch", None]}
+    got, _, _ = TCM.restore(ck, tree, rules=None, device="cpu")
+    assert torch.equal(got["p"]["w"], tree["p"]["w"])
 
 
 # ---------------------------------------------------------------------------

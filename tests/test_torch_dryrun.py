@@ -418,27 +418,38 @@ def test_dryrun_cli_mesh_flags(tmp_path, flags, meshes):
 
 def test_dryrun_cli_all(tmp_path):
     """--all writes a row a cell: ivector-tvm train_4k 'ok' on both
-    meshes, its other shapes and every LM cell 'skipped' with the reason;
-    exit 0."""
+    meshes, its other shapes 'skipped' with the reason; every LM cell
+    lowered at full width, cut to one layer (``--layers 1``, four cells at
+    a time), 'ok' with counts, or 'skipped' with the reason
+    ``shape_applicability`` gives (long_500k for the quadratic archs);
+    exit 0 and no 'error' row."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--out", str(tmp_path)], env=env, capture_output=True, text=True,
-        timeout=300, cwd=str(REPO))
+         "--layers", "1", "--jobs", "4", "--out", str(tmp_path)], env=env,
+        capture_output=True, text=True, timeout=300, cwd=str(REPO))
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
     rows = {p.stem: json.loads(p.read_text())
             for p in tmp_path.glob("*.json")}
     assert len(rows) == len(TC.ARCH_IDS) * len(TC.ALL_SHAPES) * 2
     for key, row in rows.items():
-        arch, shape, _ = key.split("__")
-        if arch == "ivector-tvm" and shape == "train_4k":
-            tag = "multi" if row["mesh"] == "2x16x16" else "single"
-            assert row["status"] == "ok"
-            assert {k: row[k] for k in PINS[tag]} == PINS[tag]
+        arch, shape = key.split("__")[:2]
+        if arch == "ivector-tvm":
+            if shape == "train_4k":
+                tag = "multi" if row["mesh"] == "2x16x16" else "single"
+                assert row["status"] == "ok"
+                assert {k: row[k] for k in PINS[tag]} == PINS[tag]
+            else:
+                assert row["status"] == "skipped"
+                assert "one EM macro-step" in row["reason"], row
+            continue
+        cfg = TC.get_config(arch)
+        ok, why = cfg.shape_applicability(TC.get_shape(shape))
+        if ok:
+            assert row["status"] == "ok", row
+            assert row["flops_per_device"] > 0 and row["layers"] >= 1
+            assert row["bytes_per_device"] > 0
+            assert row["coll_bytes_per_device"] > 0, row
         else:
-            assert row["status"] == "skipped"
-            want = ("14f" if arch in TC.PORTED_ARCH_IDS
-                    else "one EM macro-step" if arch == "ivector-tvm"
-                    else "not ported")
-            assert want in row["reason"], row
+            assert row["status"] == "skipped" and row["reason"] == why
     assert "done; 0 errors" in res.stdout

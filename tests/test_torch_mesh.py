@@ -616,6 +616,16 @@ def test_ivector_cell_counts_and_inputs_match_jax():
 
 
 def test_checkpoint_elastic_knobs_still_refuse(tmp_path):
+    """The elastic knobs no longer refuse: rules of one rank restore what a
+    manager with logical axes saved, whole, as the reference does without
+    a mesh (the re-mesh itself: tests/test_torch_mesh_lm.py)."""
     from repro_torch.checkpoint import manager as CM
-    with pytest.raises(NotImplementedError, match="sharding/"):
-        CM.CheckpointManager(tmp_path, rules=object())
+    from repro_torch.sharding import make_rules
+    one = make_rules(MS.Mesh(("data", "model"), (1, 1), (0, 0),
+                             torch.device("cpu")))
+    tree = {"w": torch.arange(8.0).reshape(4, 2)}
+    mgr = CM.CheckpointManager(tmp_path, logical_axes={"w": ("batch", None)},
+                               rules=one, device="cpu")
+    mgr.maybe_save(3, tree, force=True)
+    got, step, _ = mgr.restore_latest(tree)
+    assert step == 3 and torch.equal(got["w"], tree["w"])

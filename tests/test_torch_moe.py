@@ -389,15 +389,18 @@ def test_train_main_on_cpu(arch, capsys):
 def test_train_launcher_checks_the_state_fits_a_card(arch, layers, fits):
     """``check_fits`` at an H100's 80 GB: at full width Arctic's, Jamba
     with experts' and Moonlight's params, gradients and moments are past
-    it and the launcher exits naming the mesh item; Moonlight at 4 layers
-    and RWKV-6 at 8 (phase 13's training rows) fit."""
+    it and the launcher exits naming how many such cards the sharded
+    state needs; Moonlight at 4 layers and RWKV-6 at 8 (phase 13's
+    training rows) fit."""
     cfg = t_get_config(arch)
     if layers:
         cfg = cfg.with_overrides(n_layers=layers)
     if fits:
         tlaunch.check_fits(cfg, 4096, 80 * 10**9)
     else:
-        with pytest.raises(SystemExit, match="14g"):
+        need = tlaunch.state_bytes(cfg, 4096)
+        with pytest.raises(SystemExit, match=f"at least "
+                           f"{-(-need // (80 * 10**9))} cards"):
             tlaunch.check_fits(cfg, 4096, 80 * 10**9)
 
 
