@@ -221,7 +221,9 @@ def ptxas_report(procs: dict, key: str) -> dict:
     serial = re.compile(r"\(C7512\).*'([^']+)'")
     out, serialized = {}, []
     for n, proc in procs.items():
-        log, _ = proc.communicate()
+        if not hasattr(proc, "log"):      # read once, for every report
+            proc.log = proc.communicate()[0]
+        log = proc.log
         if proc.returncode != 0:
             fail(f"nvcc -Xptxas -v failed on {n}.cu:\n{log[-3000:]}")
         name = None
@@ -243,6 +245,32 @@ def ptxas_report(procs: dict, key: str) -> dict:
         else:
             print(f"  ptxas: {line}")
     return {k: "; ".join(v) for k, v in out.items()}
+
+
+def res_usage(names) -> dict:
+    """{mangled kernel name: "REG n, STACK m"} of every kernel in the built
+    libraries of ``csrc/<name>.cu`` for each name, from ``cuobjdump
+    -res-usage`` (no second compile: a stack frame above 0 is a spill or a
+    local array)."""
+    from repro_torch.kernels import _build
+    tool = str(Path(_build._nvcc()).parent / "cuobjdump")
+    fn = re.compile(r"Function ([^:\s]+):")
+    res = re.compile(r"REG:(\d+) STACK:(\d+)")
+    out = {}
+    for n in names:
+        log = subprocess.run([tool, "-res-usage",
+                              str(_build.library_path(n))],
+                             capture_output=True, text=True, check=True).stdout
+        name = None
+        for line in log.splitlines():
+            m = fn.search(line)
+            if m:
+                name = m.group(1)
+            r = res.search(line)
+            if r and name is not None:
+                out[name] = f"REG {r.group(1)}, STACK {r.group(2)}"
+                name = None
+    return out
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -913,20 +941,31 @@ def counters():
             "selective_scan_bwd": SS.selective_scan_bwd}
 
 
+# the scan's launches by form (selective_scan.FORMS): (row suffix,
+# scan_dtype); the f32 form keeps the plain rows' names
+SCAN_FORMS = (("", "float32"), ("_bf16", "bfloat16"), ("_f16", "float16"))
+
+
 def reset_counts() -> None:
+    from repro_torch.kernels import selective_scan as SS
     from repro_torch.kernels import tvm_estep as TE
     for w in counters().values():
         w.launches = 0
     TE.reset_counts()
+    SS.reset_counts()
 
 
 def read_counts() -> dict:
-    """Launches by kernel row: packed_matmul's by form (TVM_ROWS)."""
+    """Launches by kernel row: packed_matmul's by form (TVM_ROWS), the
+    scan's and its backward's by form (SCAN_FORMS)."""
     ws = counters()
     counts = {k: w.launches for k, w in ws.items()
               if k not in ("tvm_estep_l", "tvm_estep_a")}
     for row, (name, key) in TVM_ROWS.items():
         counts[row] = ws[name].by_form[key]
+    for name in ("selective_scan", "selective_scan_bwd"):
+        for suffix, sd in SCAN_FORMS:
+            counts[name + suffix] = ws[name].by_form[sd]
     return counts
 
 
@@ -4346,8 +4385,8 @@ def train_batches(cfg, rows: int, seq: int, seed: int, dev):
     return next_batch
 
 
-def smoke_train_vs_cpu(seed: int, dev):
-    """One make_train_step of each SMOKE_TRAIN config (f32) on the card
+def smoke_train_vs_cpu(seed: int, dev, cases=SMOKE_TRAIN):
+    """One make_train_step of each of ``cases`` (f32) on the card
     and on the CPU from the same state and batch (the MoE archs at their
     published capacity factor): the loss, grad norm and f32 moments within
     SMOKE_TRAIN_TOL (bf16 moments within one bf16 ulp, 2^-7, of their
@@ -4355,7 +4394,7 @@ def smoke_train_vs_cpu(seed: int, dev):
     from repro_torch.configs import get_config
     from repro_torch.models import api
     rec = {}
-    for key, arch, over in SMOKE_TRAIN:
+    for key, arch, over in cases:
         cfg = get_config(arch, smoke=True).with_overrides(**over)
         st_cpu = api.init_state(cfg, torch.Generator().manual_seed(seed),
                                 device="cpu")
@@ -5382,6 +5421,612 @@ def lm_dryrun_rows(card: str) -> dict:
         out[key] = row
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 15: the LM side's refusals lifted: the scan at a 16-bit scan_dtype,
+# forward and backward (ROADMAP item 14e), the scan at every d_state up to
+# 64, bf16 attention at every head dim up to 256
+# ---------------------------------------------------------------------------
+
+# the scan's 16-bit forms against the plain tree (ref.selective_scan_tree)
+# on the card, y, h_last and the saved states within TREE_TOL x max|plain|,
+# the limit the CPU tests hold the plain tree to against the reference: the
+# same rounded combines in the same order; what is left is y's f32 sum over
+# the states in another order and a decay or state whose last f32 bit
+# differs (an FMA) rounding the other way, 2^-8 of one term
+TREE_TOL = 2e-3
+# their backward against its algorithm in plain code (backward_chunks) on
+# the card: the same f32 adjoint at the same rounded transitions; f32 sums
+# in another order, and a state rounded the other way in dC's R(h)
+TREE_BWD_TOL = 1e-3
+# ... and against autograd of the plain tree, which rounds each cotangent
+# to the 16-bit type where the kernel keeps f32 (ROADMAP Queue 3): the CPU
+# tests' GRAD_TOL (read there up to 1.6e-2 in bf16, 2.7e-3 in f16)
+TREE_GRAD_TOL = {"bfloat16": 3e-2, "float16": 6e-3}
+# Jamba one period at scan_dtype bf16, prefill logits against the same
+# params and prompts at scan_dtype f32: max|diff| / max|f32|. A bf16
+# transition holds 8 bits, so a chunk's 64 rounded combines move a scan's
+# y by about 1e-2 of its max against the f32 scan; the limit leaves room
+# for eight layers of that in bf16 activations
+SCAN_DTYPE_LOGIT_TOL = 5e-2
+# every attention arch's SMOKE config in bf16, card against CPU from the
+# same state and batch: prefill logits within BF16_SMOKE_LOGIT_TOL x
+# max|CPU|, a train step's loss and grad norm within BF16_SMOKE_TRAIN_TOL
+# of the CPU's. Both sides round bf16 products and activations, in other
+# orders: bf16 against f32 on the CPU reads 2.5e-3 to 9.5e-3 on the
+# logits, up to 4.9e-5 on the loss and 1.9e-3 on the grad norm
+BF16_SMOKE_LOGIT_TOL = 2e-2
+BF16_SMOKE_TRAIN_TOL = 1e-2
+# the archs whose path runs the attention kernel, at their SMOKE head dims
+# (16 to 32)
+ATTENTION_ARCHS = ("stablelm-1.6b", "phi3-medium-14b", "nemotron-4-15b",
+                   "gemma-2b", "whisper-large-v3", "internvl2-1b",
+                   "moonshot-v1-16b-a3b", "arctic-480b", "jamba-v0.1-52b")
+SHORT = {"bfloat16": "bf16", "float16": "f16"}
+
+
+def scan_cfg(cfg, **ssm):
+    """``cfg`` with its SSM config's fields replaced."""
+    import dataclasses
+    return cfg.with_overrides(ssm=dataclasses.replace(cfg.ssm, **ssm))
+
+
+def check_scan_geometry() -> None:
+    """The wrapper's instance, lanes, channels and shared memory of every
+    d_state from 1 to 64, forward (both forms) and backward, against the
+    CUDA side's."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import selective_scan as SS
+    fwd = _build.load("selective_scan")
+    bwd = _build.load("selective_scan_bwd")
+    out = (ctypes.c_int * 4)()
+    for ds in SS.D_STATES:
+        want = (SS.instance(ds), SS.tree_lanes(ds), SS.tree_channels(ds),
+                SS.smem_bytes(ds, "bfloat16"))
+        if fwd.selective_scan_geometry(ds, out) or tuple(out) != want:
+            fail(f"selective_scan geometry at d_state {ds}: kernel "
+                 f"{tuple(out)}, wrapper {want}")
+        if fwd.selective_scan_lanes(ds) != SS.lanes(ds):
+            fail(f"selective_scan lanes at d_state {ds}")
+        want = (SS.instance(ds), SS.bwd_lanes(ds), SS.bwd_channels(ds),
+                SS.bwd_smem_bytes(ds))
+        if bwd.selective_scan_bwd_geometry(ds, out) or tuple(out) != want:
+            fail(f"selective_scan_bwd geometry at d_state {ds}: kernel "
+                 f"{tuple(out)}, wrapper {want}")
+    print(f"  selective_scan: instance, lanes, channels and shared memory "
+          f"of d_state 1 to {SS.D_STATES[-1]}, forward and backward, equal "
+          f"on both sides")
+
+
+def check_scan_forms(g, dev):
+    """The scan's bf16 and f16 forms (the tree kernel) against the plain
+    tree on the card: at Jamba's full width (di 8192, ds 16) the prefill
+    (B 4, T 2048, no h0: the row; and with h0), a decode step and a ragged
+    T = 1000 (one chunk of 1000 steps: the high counter), then d_state 1,
+    12, 48 and 64; y, h_last and the saved chunk states within TREE_TOL;
+    then the f32 scan at d_state 1, 12 and 48 (instances 4, 16, 64, the
+    states past ds masked) against its plain version within SCAN_TOL.
+    Returns (two kernel rows, records)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as SS
+    rows, recs = [], []
+    for sd in ("bfloat16", "float16"):
+        for label, B, T, di, ds, with_h0 in (
+                ("no h0", 4, 2048, 8192, 16, False),
+                ("with h0", 4, 2048, 8192, 16, True),
+                ("decode step, with h0", 4, 1, 8192, 16, True),
+                ("ragged T, with h0", 2, 1000, 8192, 16, True),
+                ("d_state 1, with h0", 1, 300, 1000, 1, True),
+                ("d_state 12, ragged T and di, with h0", 2, 100, 1030, 12,
+                 True),
+                ("d_state 48", 1, 256, 520, 48, False),
+                ("d_state 64, with h0", 2, 128, 8192, 64, True)):
+            dt, dx, A, Bc, Cc = _scan_inputs(g, dev, B, T, di, ds, 4.6)
+            h = (torch.randn(B, di, ds, generator=g, device=dev)
+                 if with_h0 else None)
+            y, hl, hs = SS.selective_scan(dt, dx, A, Bc, Cc, h,
+                                          save_states=True, scan_dtype=sd)
+            wy, wh, starts = ref.selective_scan_tree(dt, dx, A, Bc, Cc, h,
+                                                     sd, every=SS.BT)
+            name = (f"selective_scan {SHORT[sd]} {label} B={B} T={T} "
+                    f"di={di} ds={ds}")
+            err = max(compare(f"{name} {what}", a, w, TREE_TOL)
+                      for what, a, w in (("y", y, wy), ("h_last", hl, wh),
+                                         ("saved states", hs,
+                                          torch.stack(starts, 1))))
+            del hs, starts, y, hl, wy, wh
+            b_ms, b_by = bound("selective_scan", B=B, T=T, di=di, ds=ds,
+                               h0=with_h0, scan_dtype=sd)
+            recs.append(dict(
+                case=f"{label} B={B} T={T} di={di} ds={ds} {sd}",
+                max_abs_err=err,
+                ms=cuda_ms(lambda: SS.selective_scan(
+                    dt, dx, A, Bc, Cc, h, scan_dtype=sd), 10),
+                plain_ms=(cuda_ms(lambda: ref.selective_scan(
+                    dt, dx, A, Bc, Cc, h, sd), 1) if label == "no h0"
+                    else None),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            del dt, dx, A, Bc, Cc, h
+            torch.cuda.empty_cache()
+        first = next(r for r in recs if r["case"].startswith("no h0")
+                     and r["case"].endswith(" " + sd))
+        rows.append(dict(
+            name=f"selective_scan_{SHORT[sd]}", route="cuda",
+            source="src/repro_torch/csrc/selective_scan.cu",
+            replaces="src/repro/kernels/selective_scan.py:69",
+            **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}))
+    for B, T, di, ds in ((1, 300, 1000, 1), (2, 100, 1030, 12),
+                         (1, 256, 520, 48)):
+        dt, dx, A, Bc, Cc = _scan_inputs(g, dev, B, T, di, ds, 4.6)
+        h = torch.randn(B, di, ds, generator=g, device=dev)
+        y, hl = SS.selective_scan(dt, dx, A, Bc, Cc, h)
+        wy, wh = ref.selective_scan(dt, dx, A, Bc, Cc, h)
+        for what, a, w in (("y", y, wy), ("h_last", hl, wh)):
+            compare(f"selective_scan f32 d_state {ds} (instance "
+                    f"{SS.instance(ds)}) {what} B={B} T={T} di={di}", a, w,
+                    SCAN_TOL)
+    check_scan_geometry()
+    return rows, recs
+
+
+def check_scan_bwd_forms(g, dev):
+    """The backward of the scan's bf16 and f16 forms: at a Jamba
+    micro-batch's training shape (B 1, T 4096, di 8192, ds 16, 8 segments)
+    against backward_chunks on the card within TREE_BWD_TOL, bitwise
+    repeatable, timed beside the f32 form and the bound (the rows); the
+    f32 backward's 64-state instance at that shape but d_state 64 against
+    backward_chunks (SCAN_BWD_TOL), timed; at ragged T with several
+    segments, h0 and dh_last, at d_state 1, 12, 48 and 64, the 16-bit forms
+    against backward_chunks and autograd of the plain tree
+    (TREE_GRAD_TOL), the f32 one against autograd of the plain f32 scan
+    (SCAN_BWD_TOL). No single PyTorch call computes it. Returns (two
+    kernel rows, records)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import registry
+    from repro_torch.kernels import selective_scan as SS
+    grads = ("d(dt)", "d(dx)", "dA", "dB", "dC", "dh0")
+
+    def held(label, got, want, tol):
+        rel = 0.0
+        for name, a, w in zip(grads, got, want):
+            if a is None:
+                continue
+            r = (a - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            rel = max(rel, r)
+            if r > tol:
+                fail(f"{label} {name}: max|diff| / max|plain| {r:.3e} "
+                     f"above {tol:g}")
+        return rel
+
+    rows, recs = [], []
+    B, T, di, ds = 1, 4096, 8192, 16
+    cfg = dict(B=B, T=T, di=di, ds=ds)
+    for sd in ("bfloat16", "float16"):
+        dt, dx, A, Bc, Cc = _scan_inputs(g, dev, B, T, di, ds, 4.6)
+        dy = torch.randn(B, T, di, generator=g, device=dev)
+        _, _, hs = SS.selective_scan(dt, dx, A, Bc, Cc, save_states=True,
+                                     scan_dtype=sd)
+
+        def run(sd=sd, hs=hs):
+            return SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy,
+                                         scan_dtype=sd)
+        got, again = run(), run()
+        label = (f"selective_scan_bwd {SHORT[sd]} B={B} T={T} di={di} "
+                 f"ds={ds} ({SS.n_segments(T)} segments)")
+        if not all(torch.equal(a, b) for a, b in zip(got[:5], again[:5])):
+            fail(f"{label}: not bitwise repeatable")
+        _sync(dev)
+        t0 = time.perf_counter()
+        want = SS.backward_chunks(dt, dx, A, Bc, Cc, dy, scan_dtype=sd)
+        _sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        rel = held(label, got, want, TREE_BWD_TOL)
+        err = max((a - w).abs().max().item()
+                  for a, w in zip(got[:5], want[:5]))
+        b_ms, b_by = bound("selective_scan_bwd", **cfg, scan_dtype=sd)
+        nbytes = registry.get("selective_scan_bwd").cost(
+            dict(cfg, scan_dtype=sd))[1]
+        ms = cuda_ms(run, 5)
+        f32_ms = cuda_ms(lambda: SS.selective_scan_bwd(
+            dt, dx, A, Bc, Cc, hs, dy), 5)
+        fwd_ms = cuda_ms(lambda: SS.selective_scan(
+            dt, dx, A, Bc, Cc, save_states=True, scan_dtype=sd), 5)
+        print(f"  {label}: against backward_chunks max|diff| / max|plain| "
+              f"{rel:.3e} (tolerance {TREE_BWD_TOL:g}), bitwise repeatable; "
+              f"kernel {ms:.3f} ms (the f32 form on the same inputs "
+              f"{f32_ms:.3f} ms), {nbytes / ms / 1e6:.1f} GB/s, "
+              f"{b_ms / ms:.3f} of the bound {b_ms:.4f} ms ({b_by}); "
+              f"backward_chunks (one run, host clock) {plain_ms:.1f} ms; "
+              f"forward saving the chunk states {fwd_ms:.4f} ms")
+        rows.append(dict(
+            name=f"selective_scan_bwd_{SHORT[sd]}", route="cuda",
+            source="src/repro_torch/csrc/selective_scan_bwd.cu",
+            replaces="src/repro/kernels/selective_scan.py:69",
+            max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            f32_form_ms=f32_ms, fwd_states_ms=fwd_ms))
+        del dt, dx, A, Bc, Cc, dy, hs, got, again, want
+        torch.cuda.empty_cache()
+    # the f32 backward's 64-state instance (32 channels a block) at a
+    # Jamba micro-batch's shape but d_state 64, against backward_chunks
+    dt, dx, A, Bc, Cc = _scan_inputs(g, dev, 1, 4096, 8192, 64, 4.6)
+    dy = torch.randn(1, 4096, 8192, generator=g, device=dev)
+    _, _, hs = SS.selective_scan(dt, dx, A, Bc, Cc, save_states=True)
+
+    def run64():
+        return SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy)
+    got = run64()
+    label = "selective_scan_bwd f32 B=1 T=4096 di=8192 ds=64 (8 segments)"
+    if not all(torch.equal(a, b) for a, b in zip(got[:5], run64()[:5])):
+        fail(f"{label}: not bitwise repeatable")
+    _sync(dev)
+    t0 = time.perf_counter()
+    want = SS.backward_chunks(dt, dx, A, Bc, Cc, dy)
+    _sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rel = held(label, got, want, SCAN_BWD_TOL)
+    b_ms, b_by = bound("selective_scan_bwd", B=1, T=4096, di=8192, ds=64)
+    ms = cuda_ms(run64, 5)
+    print(f"  {label}: against backward_chunks max|diff| / max|plain| "
+          f"{rel:.3e} (tolerance {SCAN_BWD_TOL:g}), bitwise repeatable; "
+          f"kernel {ms:.3f} ms, {b_ms / ms:.3f} of the bound {b_ms:.4f} ms "
+          f"({b_by}); backward_chunks (one run, host clock) "
+          f"{plain_ms:.1f} ms")
+    recs.append(dict(case=label, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    del dt, dx, A, Bc, Cc, dy, hs, got, want
+    torch.cuda.empty_cache()
+    for sd in ("bfloat16", "float16", "float32"):
+        for B, T, di, ds in ((2, 300, 40, 1), (2, 1000, 200, 12),
+                             (1, 700, 66, 48), (1, 500, 64, 64)):
+            dt, dx, A, Bc, Cc = _scan_inputs(g, dev, B, T, di, ds, 2.0)
+            h0, dh = (torch.randn(B, di, ds, generator=g, device=dev)
+                      for _ in range(2))
+            dy = torch.randn(B, T, di, generator=g, device=dev)
+            _, _, hs = SS.selective_scan(dt, dx, A, Bc, Cc, h0,
+                                         save_states=True, scan_dtype=sd)
+            got = SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh,
+                                        want_dh0=True, scan_dtype=sd)
+            again = SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh,
+                                          want_dh0=True, scan_dtype=sd)
+            label = (f"selective_scan_bwd {SHORT.get(sd, 'f32')} B={B} "
+                     f"T={T} di={di} ds={ds} (instance {SS.instance(ds)}), "
+                     f"{SS.n_segments(T)} segments, h0 and dh_last")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{label}: not bitwise repeatable")
+            ins = [t.clone().requires_grad_()
+                   for t in (dt, dx, A, Bc, Cc, h0)]
+            y, h_last = ref.selective_scan(*ins, scan_dtype=sd)
+            plain = torch.autograd.grad([y, h_last], ins, [dy, dh])
+            if sd == "float32":
+                rel = held(label, got, plain, SCAN_BWD_TOL)
+                note = (f"against autograd of the plain scan (tolerance "
+                        f"{SCAN_BWD_TOL:g})")
+            else:
+                want = SS.backward_chunks(dt, dx, A, Bc, Cc, dy, h0, dh,
+                                          scan_dtype=sd)
+                rel = held(label, got, want, TREE_BWD_TOL)
+                rel_p = held(label, got, plain, TREE_GRAD_TOL[sd])
+                note = (f"against backward_chunks (tolerance "
+                        f"{TREE_BWD_TOL:g}); against autograd of the plain "
+                        f"tree {rel_p:.3e} (tolerance {TREE_GRAD_TOL[sd]:g})")
+            print(f"  {label}: max|diff| / max|plain| {rel:.3e} {note}, "
+                  f"bitwise repeatable")
+            recs.append(dict(case=label, max_rel_err=rel))
+    return rows, recs
+
+
+def check_attention_head_dims(g, dev):
+    """bf16 attention at every head dim the earlier phases leave out (16 to
+    240 but 64, 128 and 192; hd 256 is Gemma's), B 2, S 1000 (ragged), H
+    8, KVH 2, each on the instance of its width: the forward against the
+    plain version (compare_bf16), timed beside SDPA and the bound; the
+    backward bitwise repeatable and against backward_blocks in f32 on the
+    tensor cores, or autograd of the plain version on the CUDA cores (hd
+    144 to 176), within ATT_BWD_BF16_TOL, timed beside SDPA's backward and
+    the bound. Returns records."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S, H, KVH = 2, 1000, 8, 2
+    recs = []
+    for hd in FA.BF16_HEAD_DIMS:
+        if hd in (64, 128, 192, 256):
+            continue
+        q, k, v, do = (torch.randn(B, S, n, hd, generator=g, device=dev)
+                       .to(torch.bfloat16) for n in (H, KVH, KVH, H))
+        label = (f"B={B} S={S} H={H} KVH={KVH} hd={hd} bf16 (width "
+                 f"{FA.tc_width(hd)})")
+        err = compare_bf16(f"flash_attention {label}",
+                           FA.flash_attention(q, k, v),
+                           ref.flash_attention(q.float(), k.float(),
+                                               v.float()))
+        o, lse = FA.flash_attention(q, k, v, lse=True)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        again = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        scope = FA.bwd_scope(torch.bfloat16, hd)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_bwd {label}: not bitwise repeatable")
+        if scope == "tc":
+            want = FA.backward_blocks(q.float(), k.float(), v.float(),
+                                      o.float(), lse, do.float())
+            what = "backward_blocks in f32"
+        else:
+            ins = [t.float().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(ref.flash_attention(*ins), ins,
+                                       do.float())
+            what = "autograd of the plain version"
+        b_err, b_rel = _rel_errs(got, want, f"flash_attention_bwd {label}",
+                                 ATT_BWD_BF16_TOL)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        cfg = dict(B=B, S=S, H=H, KVH=KVH, hd=hd, dtype="bfloat16")
+        f_ms, f_by = bound("flash_attention", **cfg)
+        g_ms, g_by = bound("flash_attention_bwd", **cfg)
+        rec = dict(
+            case=label, max_abs_err=err, bwd_scope=scope,
+            bwd_max_abs_err=b_err, bwd_max_rel_err=b_rel,
+            ms=cuda_ms(lambda: FA.flash_attention(q, k, v), 10),
+            plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v), 3),
+            bound_ms=f_ms, bound_by=f_by,
+            library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True), 10),
+            bwd_ms=cuda_ms(lambda: FA.flash_attention_bwd(
+                q, k, v, o, lse, do), 10),
+            bwd_bound_ms=g_ms, bwd_bound_by=g_by,
+            bwd_library_ms=cuda_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), 10))
+        print(f"  flash_attention_bwd {label} ({scope}): max|diff| / "
+              f"max|plain| {b_rel:.3e} against {what} (tolerance "
+              f"{ATT_BWD_BF16_TOL:g}), bitwise repeatable; forward "
+              f"{rec['ms']:.4f} ms (SDPA {rec['library_ms']:.4f}, bound "
+              f"{f_ms:.4f}), backward {rec['bwd_ms']:.4f} ms (SDPA "
+              f"{rec['bwd_library_ms']:.4f}, bound {g_ms:.4f})")
+        recs.append(rec)
+        del q, k, v, do, o, lse, got, again, want, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    return recs
+
+
+def jamba_scan_dtype_steps(seed: int, dev):
+    """Jamba v0.1 without experts, one period (8 layers) at full width,
+    bf16 params and activations, scan_dtype bf16: a prefill of 4 x 2048
+    and 16 decode steps (``hybrid_steps``) with the launch counts set to 0
+    just before and read just after; then the same params and prompts at
+    scan_dtype f32, whose prefill logits the bf16 ones are held to within
+    SCAN_DTYPE_LOGIT_TOL. Returns (record, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config("jamba-v0.1-52b").with_overrides(moe=None, n_layers=8)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    reset_counts()
+    r = hybrid_steps(scan_cfg(cfg, scan_dtype="bfloat16"), 4, 2048, 17, g,
+                     dev)
+    launches = read_counts()
+    label = ("Jamba v0.1 without experts, one period (8 layers), bf16, "
+             "scan_dtype bf16")
+    require_launches(label, launches, ("flash_attention",
+                                       "selective_scan_bf16"))
+    check_finite(label, r["prefill_logits"], r["last_logits"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, want = api.make_prefill_step(cfg)(r["params"],
+                                          {"tokens": r["prompts"]})
+    got = r["prefill_logits"].float()
+    want = want.float()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    steps = r["tokens"].shape[1] - 1
+    rec = {"prefill_s": r["prefill_s"], "decode_s": r["decode_s"],
+           "prefill_tok_s": 4 * 2048 / r["prefill_s"],
+           "decode_tok_s": 4 * steps / r["decode_s"], "peak_mem_gb": peak_gb,
+           "logits_vs_f32_scan": rel, "launches": launches}
+    print(f"  {label}: prefill 4x2048 in {r['prefill_s']:.3f} s "
+          f"({rec['prefill_tok_s']:.0f} tok/s), {steps} decode steps in "
+          f"{r['decode_s']:.3f} s ({rec['decode_tok_s']:.1f} tok/s), peak "
+          f"{peak_gb:.2f} GB; prefill logits against scan_dtype f32 on the "
+          f"same params: max|diff| / max|f32| {rel:.3e} (tolerance "
+          f"{SCAN_DTYPE_LOGIT_TOL:g}) {'ok' if rel <= SCAN_DTYPE_LOGIT_TOL else 'DISAGREES'}; "
+          f"launches { {k: v for k, v in launches.items() if v} }")
+    if rel > SCAN_DTYPE_LOGIT_TOL:
+        fail(f"{label}: logits disagree with scan_dtype f32")
+    del r, got, want
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def bf16_smoke_vs_cpu(seed: int, dev):
+    """Every ATTENTION_ARCHS SMOKE config in bf16 (params and
+    activations; head dims 16 to 32, the instances this phase adds), card
+    against CPU from the same state and batch: the prefill's logits within
+    BF16_SMOKE_LOGIT_TOL x max|CPU|, then one make_train_step whose loss
+    and grad norm are within BF16_SMOKE_TRAIN_TOL of the CPU's. The card's
+    prefill and step are main-path runs, their launches counted. Returns
+    (record, launches by run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    rec, paths = {}, {}
+    for arch in ATTENTION_ARCHS:
+        cfg = get_config(arch, smoke=True).with_overrides(
+            param_dtype="bfloat16", activation_dtype="bfloat16")
+        st_cpu = api.init_state(cfg, torch.Generator().manual_seed(seed),
+                                device="cpu")
+        st_dev = _tree_to(st_cpu, dev)
+        b = train_batches(cfg, 4, 64, seed, "cpu")()
+        inputs = {k: v for k, v in b.items() if k != "labels"}
+        prefill = api.make_prefill_step(cfg)
+        reset_counts()
+        _, l_dev = prefill(st_dev["params"], _tree_to(inputs, dev))
+        p_launches = read_counts()
+        _, l_cpu = prefill(st_cpu["params"], inputs)
+        step = api.make_train_step(cfg)
+        reset_counts()
+        _, m_dev = step(st_dev, _tree_to(b, dev))
+        t_launches = read_counts()
+        _, m_cpu = step(st_cpu, b)
+        label = f"{arch} SMOKE bf16 (hd {cfg.resolved_head_dim()})"
+        require_launches(f"{label} prefill", p_launches, ("flash_attention",))
+        require_launches(f"{label} train step", t_launches,
+                         ("flash_attention", "flash_attention_bwd"))
+        l_dev, l_cpu = l_dev.float().cpu(), l_cpu.float()
+        check_finite(label, l_dev)
+        worst = {"logits": ((l_dev - l_cpu).abs().max()
+                            / l_cpu.abs().max()).item()}
+        for k in ("loss", "grad_norm"):
+            worst[k] = abs(float(m_dev[k]) - float(m_cpu[k])) / abs(
+                float(m_cpu[k]))
+        ok = (worst["logits"] <= BF16_SMOKE_LOGIT_TOL
+              and worst["loss"] <= BF16_SMOKE_TRAIN_TOL
+              and worst["grad_norm"] <= BF16_SMOKE_TRAIN_TOL)
+        print(f"  {label}, card vs CPU: prefill logits max|diff| / max|CPU| "
+              f"{worst['logits']:.2e} (tolerance {BF16_SMOKE_LOGIT_TOL:g}); "
+              f"train step loss {worst['loss']:.2e}, grad norm "
+              f"{worst['grad_norm']:.2e} (tolerance "
+              f"{BF16_SMOKE_TRAIN_TOL:g})  {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            fail(f"{label}: card and CPU disagree")
+        rec[arch] = worst
+        paths[f"{arch} bf16 SMOKE prefill"] = p_launches
+        paths[f"{arch} bf16 SMOKE train step"] = t_launches
+    return rec, paths
+
+
+def f16_scan_smoke_vs_cpu(seed: int, dev):
+    """Jamba SMOKE without experts at scan_dtype f16 (f32 params), card
+    against CPU: the prefill's logits within LOGIT_TOL x max|CPU| (the tree
+    kernel against the plain tree, the same rounded combines), three decode
+    steps' logits the same; one train step's loss within SMOKE_TRAIN_TOL
+    and its grad norm within TREE_GRAD_TOL["float16"] (the CPU's autograd
+    of the plain tree rounds its cotangents to f16, the kernel does not).
+    The card's runs are main-path runs. Returns (record, launches)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import api
+    cfg = scan_cfg(get_config("jamba-v0.1-52b", smoke=True).with_overrides(
+        moe=None), scan_dtype="float16")
+    st_cpu = api.init_state(cfg, torch.Generator().manual_seed(seed),
+                            device="cpu")
+    st_dev = _tree_to(st_cpu, dev)
+    b = train_batches(cfg, 4, 64, seed, "cpu")()
+    prefill, decode = api.make_prefill_step(cfg), api.make_decode_step(cfg)
+    step = api.make_train_step(cfg)
+    reset_counts()
+    _, l_dev = prefill(st_dev["params"], {"tokens": b["tokens"].to(dev)})
+    cache = api.zero_cache(cfg, ShapeConfig("t", 8, 4, "decode"), dev)
+    decoded = []
+    for t in range(3):
+        cache, lg = decode(st_dev["params"], cache,
+                           {"token": b["tokens"][:, t].to(dev), "pos": t})
+        decoded.append(lg.cpu())
+    _, m_dev = step(st_dev, _tree_to(b, dev))
+    launches = read_counts()
+    label = "Jamba SMOKE scan_dtype f16"
+    require_launches(label, launches, ("selective_scan_f16",
+                                       "selective_scan_bwd_f16"))
+    _, l_cpu = prefill(st_cpu["params"], {"tokens": b["tokens"]})
+    cache = api.zero_cache(cfg, ShapeConfig("t", 8, 4, "decode"), "cpu")
+    err = compare(f"{label} prefill logits, card vs CPU", l_dev.cpu(), l_cpu,
+                  LOGIT_TOL)
+    for t in range(3):
+        cache, lg = decode(st_cpu["params"], cache,
+                           {"token": b["tokens"][:, t], "pos": t})
+        err = max(err, compare(f"{label} decode step {t} logits, card vs "
+                               f"CPU", decoded[t], lg, LOGIT_TOL))
+    _, m_cpu = step(st_cpu, b)
+    loss = abs(float(m_dev["loss"]) - float(m_cpu["loss"])) / abs(
+        float(m_cpu["loss"]))
+    norm = abs(float(m_dev["grad_norm"]) - float(m_cpu["grad_norm"])) / abs(
+        float(m_cpu["grad_norm"]))
+    ok = loss <= SMOKE_TRAIN_TOL and norm <= TREE_GRAD_TOL["float16"]
+    print(f"  {label} train step, card vs CPU: loss {loss:.2e} (tolerance "
+          f"{SMOKE_TRAIN_TOL:g}), grad norm {norm:.2e} (tolerance "
+          f"{TREE_GRAD_TOL['float16']:g})  {'ok' if ok else 'DISAGREES'}")
+    if not ok:
+        fail(f"{label} train step: card and CPU disagree")
+    return {"logits_max_abs_err": err, "loss": loss, "grad_norm": norm,
+            "launches": launches}, launches
+
+
+def refusals_phase(seed: int, dev):
+    """Phase 15: the new kernel forms against their plain versions, then
+    the main-path runs that take them: Jamba one period with its scan's
+    transitions in bf16 (served, then trained: 2 steps of 4 x 4096 tokens,
+    grad_accum 4), every attention arch's SMOKE in bf16 (prefill and a
+    train step, card vs CPU), Jamba SMOKE at scan_dtype f16 and at d_state
+    64 (a train step, card vs CPU). Returns (kernel rows, launches by
+    path, record)."""
+    from repro_torch.configs import get_config
+    rec = {}
+    g = torch.Generator(device=dev).manual_seed(seed + 15)
+    t0 = time.perf_counter()
+    scan_rows, rec["scan_forms"] = check_scan_forms(g, dev)
+    bwd_rows, rec["scan_bwd_forms"] = check_scan_bwd_forms(g, dev)
+    rec["attention_head_dims"] = check_attention_head_dims(g, dev)
+    rec["kernels_s"] = time.perf_counter() - t0
+    paths = {}
+    rec["jamba_bf16_scan_steps"], paths["jamba_bf16_scan_steps"] = (
+        jamba_scan_dtype_steps(seed, dev))
+    cfg = scan_cfg(get_config("jamba-v0.1-52b").with_overrides(
+        moe=None, n_layers=8), scan_dtype="bfloat16")
+    rec["jamba_bf16_scan_train"] = lm_train_run(
+        "Jamba v0.1 without experts, one period (8 layers), bf16, "
+        "scan_dtype bf16", cfg, 2, seed, dev, repeat=False)
+    paths["jamba_bf16_scan_train"] = rec["jamba_bf16_scan_train"]["launches"]
+    require_launches("jamba_bf16_scan_train", paths["jamba_bf16_scan_train"],
+                     ("flash_attention", "flash_attention_bwd",
+                      "selective_scan_bf16", "selective_scan_bwd_bf16"))
+    rec["bf16_smoke"], smoke_paths = bf16_smoke_vs_cpu(seed, dev)
+    paths.update(smoke_paths)
+    rec["f16_scan_smoke"], paths["jamba_f16_scan_smoke"] = (
+        f16_scan_smoke_vs_cpu(seed, dev))
+    rec["d_state_64_smoke"] = smoke_train_vs_cpu(seed, dev, cases=(
+        ("jamba-v0.1-52b d_state 64", "jamba-v0.1-52b",
+         {"moe": None, "ssm": scan_cfg(get_config(
+             "jamba-v0.1-52b", smoke=True), d_state=64).ssm}),))
+    paths["jamba_d_state_64_smoke"] = rec["d_state_64_smoke"][
+        "jamba-v0.1-52b d_state 64"]["launches"]
+    torch.cuda.empty_cache()
+    return scan_rows + bwd_rows, paths, rec
+
+
+def phase_15_alone(args, card: str, kind: str, build_s: float,
+                   ptxas_new: dict) -> int:
+    """``--phase 15``: phase 15 alone after the card and build steps, its
+    kernel rows' launches from its own main-path runs; writes
+    chiprun_out/chip_smoke_phase15.json and prints the kernels line of its
+    rows, the card and the contract line."""
+    dev = torch.device("cuda")
+    print(f"[15] the scan's 16-bit forms, every d_state, every bf16 head "
+          f"dim ({card})")
+    t0 = time.perf_counter()
+    rows, paths, rec = refusals_phase(args.seed, dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 15 {rec['phase_s']:.1f} s")
+    for r in rows:
+        r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
+        r["on_path"] = True
+        if r["launches"] == 0:
+            fail(f"no main-path run launched {r['name']}")
+    record = {"card": card, "build_s": build_s, "ptxas_new": ptxas_new,
+              "launches": paths, "refusals": rec, "kernels": rows,
+              "command_s": time.perf_counter() - T_START}
+    print(f"chip_smoke: {record['command_s']:.1f} s from start")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_phase15.json").write_text(
+        json.dumps(record, indent=1, default=str))
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "on_path")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5389,6 +6034,9 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=64)
     # the kill -9 drill's child process (phase 8)
     ap.add_argument("--serve-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--phase", type=int, choices=(15,), default=None,
+                    help="run only the card and build steps and this "
+                    "phase, and print its kernel rows")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5417,7 +6065,10 @@ def main() -> int:
     # 2. build, and beside it the attention's two sources once more for
     # what ptxas reports of their head-dim-256 instances (the bf16
     # forward's and backward's 64-row blocks on wgmma, the f32 kernels):
-    # a spill or a serialized wgmma (C7512) fails the run
+    # a spill or a serialized wgmma (C7512) fails the run. Of the instances
+    # phase 15 adds, printed: the bf16 CUDA-core backward at hd 144 to 176
+    # (ptxas), the scan's forms at every d_state instance (cuobjdump's
+    # registers and stack of the built libraries)
     t0 = time.perf_counter()
     ptxas = start_ptxas(("flash_attention", "flash_attention_bwd"))
     try:
@@ -5441,6 +6092,15 @@ def main() -> int:
            if "C7512" in v or re.search(r"[1-9]\d* bytes spill", v)]
     if bad:
         fail(f"hd-256 kernels spill or serialize their wgmma: {bad}")
+    ptxas_new = {}
+    for key in ("__nv_bfloat16Li144E", "__nv_bfloat16Li160E",
+                "__nv_bfloat16Li176E"):
+        ptxas_new.update(ptxas_report(ptxas, key))
+    ptxas_new.update(res_usage(("selective_scan", "selective_scan_bwd")))
+    for k, v in sorted(ptxas_new.items()):
+        print(f"  ptxas {k}: {v}")
+    if args.phase == 15:
+        return phase_15_alone(args, card, kind, build_s, ptxas_new)
 
     # 3. model, session and kernel checks at the serving path's shapes
     dev = torch.device("cuda")
@@ -5622,19 +6282,32 @@ def main() -> int:
     print(f"  LM mesh phase {lm_mesh['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # 15. the refusals lifted: the scan at scan_dtype bf16 and f16 and at
+    # every d_state up to 64, bf16 attention at every head dim up to 256
+    print(f"[15] the scan's 16-bit forms, every d_state, every bf16 head "
+          f"dim ({card})")
+    t0 = time.perf_counter()
+    ref_rows, ref_paths, refusals = refusals_phase(args.seed, dev)
+    refusals["phase_s"] = time.perf_counter() - t0
+    rows += ref_rows
+    print(f"  phase 15 {refusals['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
     # training runs, the eleven LM serving runs, the recipe's runs, the
     # streaming and demotion runs, the two supervised runs, every
     # rank's runs of the mesh phase and phase 13's LM training runs
-    # (StableLM's 3 steps, 2 of each LM_TRAIN run, the supervised drill);
+    # (StableLM's 3 steps, 2 of each LM_TRAIN run, the supervised drill)
+    # and phase 15's runs (Jamba served and trained at scan_dtype bf16, the
+    # bf16 SMOKE prefills and steps, the f16 and d_state-64 SMOKE runs);
     # the repeat runs and the checks against plain paths not included.
     # packed_matmul's bf16 forms are held and timed here, but no path of
     # this script runs the E-step with bf16 inputs (OFF_PATH).
     paths = {"sparse": launches_sparse, "dense": launches_dense,
              "fused": launches_fused, **train["launches"], **lm_paths,
              **recipe_paths, **stream_paths, **sup_paths, **mesh_paths,
-             **train_paths, **lm_mesh_paths}
+             **train_paths, **lm_mesh_paths, **ref_paths}
     # gmm_align's row counts both entries of csrc/gmm_align.cu: the fused
     # launch and the rescore alone (gmm_rescore_fused, the mesh's fused
     # rung)
@@ -5659,7 +6332,8 @@ def main() -> int:
               "card_vs_cpu_max_diff": d_cpu, "training": train, "lm": lm,
               "recipe": recipe, "streaming": stream, "supervised": sup,
               "mesh": mesh, "analysis": analysis, "lowering": lowering,
-              "lm_training": lm_train, "lm_mesh": lm_mesh, "kernels": rows}
+              "lm_training": lm_train, "lm_mesh": lm_mesh,
+              "refusals": refusals, "ptxas_new": ptxas_new, "kernels": rows}
     record["command_s"] = time.perf_counter() - T_START
     print(f"chip_smoke: {record['command_s']:.1f} s from start")
     out = ROOT / "chiprun_out"

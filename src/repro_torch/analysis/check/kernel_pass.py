@@ -310,10 +310,19 @@ def gate_configs(name: str):
     if name in ("flash_attention", "flash_attention_bwd"):
         # f32, and bf16 at hd 256 (the forward's 64-row blocks, the
         # backward's 64-row blocks split over the query heads): Gemma 2B's
-        # MQA prefill
+        # MQA prefill; bf16 at a head dim below its instance's width (16:
+        # width 64) and one the backward runs on the CUDA cores (176)
         return [None, {"dtype": "float32"},
                 {"B": 4, "S": 2048, "H": 8, "KVH": 1, "hd": 256,
-                 "dtype": "bfloat16"}]
+                 "dtype": "bfloat16"},
+                {"hd": 16, "dtype": "bfloat16"},
+                {"hd": 176, "dtype": "bfloat16"}]
+    if name == "selective_scan":
+        # the tree form, and a d_state between the instances
+        return [None, {"scan_dtype": "bfloat16"}, {"ds": 12}]
+    if name == "selective_scan_bwd":
+        # the 64-state instance: 32 channels a block
+        return [None, {"ds": 64}]
     if name == "gmm_align":
         return [None, {"K": 40}, {"rescore_only": True}]
     return [None]

@@ -62,8 +62,14 @@ class SSMConfig:
     d_conv: int = 4
     expand: int = 2
     dt_rank: int = 0  # 0 -> ceil(d_model/16)
-    # dtype of the scan's transition tensors; the port runs float32 only
+    # dtype of the scan's transition tensors, named as jnp.dtype reads it:
+    # "float32", "bfloat16" or "float16" (kernels/ref.py, SCAN_DTYPES)
     scan_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.scan_dtype not in ("float32", "bfloat16", "float16"):
+            raise ValueError(f"scan_dtype {self.scan_dtype!r}: 'float32', "
+                             "'bfloat16' or 'float16'")
 
 
 @dataclass(frozen=True)

@@ -47,8 +47,14 @@
 // path, and only the other warpgroup's products overlap it; a block's start
 // (the q tile's load) and its epilogue overlap nothing. Issuing the next S
 // before the softmax, to overlap a warpgroup's softmax with its own
-// products, made ptxas serialize the wgmma here. Head dims with an
-// instance: BF16_HEAD_DIMS in kernels/flash_attention.py.
+// products, made ptxas serialize the wgmma here. Instances of width 64,
+// 128, 192 and 256; every bf16 head dim that is a multiple of 16 up to 256
+// (BF16_HEAD_DIMS in kernels/flash_attention.py) runs the least one at or
+// above it (tc_width). Its tensor maps' extent is the head dim, so the TMA
+// fills the tiles' columns past it with zeros: they add nothing to S, P.V
+// computes zeros there, and the store skips them. A head dim of 16 thus
+// does the work of 64 (the SMOKE configs' widths; no published config
+// has one under 64 or between the widths).
 //
 // hd 256 (Gemma 2B): a consumer warpgroup's 64 x 256 f32 output would take
 // 128 registers a thread, beside S (32) and the p pair (32), over what
@@ -378,7 +384,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap vmap,
                           __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, int S, int H, int KVH,
-                          float scale_log2) {
+                          int hd, float scale_log2) {
   using L = Layout<HD>;
   constexpr int BKV = L::BKV;
   constexpr int ROWS = L::ROWS;
@@ -599,13 +605,16 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if (r0 < S) lrow[r0] = (m0 + log2f(l0)) * LN2;
     if (r1 < S) lrow[r1] = (m1 + log2f(l1)) * LN2;
   }
-  const size_t row_stride = (size_t)H * HD;
+  // o's columns col0 .. col0 + OD - 1 of hd (an instance wider than hd
+  // holds zeros past it, not stored)
+  const size_t row_stride = (size_t)H * hd;
   __nv_bfloat16* o0 =
-      o + ((size_t)b * S + r0) * row_stride + (size_t)h * HD + col0;
+      o + ((size_t)b * S + r0) * row_stride + (size_t)h * hd + col0;
   __nv_bfloat16* o1 = o0 + 8 * row_stride;
 #pragma unroll
   for (int c = 0; c < OD / 8; ++c) {
     const int col = 8 * c + 2 * (lane % 4);
+    if (col0 + col >= hd) continue;
     if (r0 < S)
       *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
           __floats2bfloat162_rn(acc[4 * c] * d0, acc[4 * c + 1] * d0);
@@ -615,15 +624,20 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// HD: the instance's width (TC_WIDTHS in kernels/flash_attention.py); hd
+// the head dim, a multiple of 16 in (HD - 64, HD]: the maps' extent, so
+// that the TMA fills the tiles' columns past hd with zeros
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int S, int H, int KVH, cudaStream_t stream) {
+           int B, int S, int H, int KVH, int hd, cudaStream_t stream) {
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  if (hd % 16 != 0 || hd > HD || hd <= HD - CHUNK)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
   constexpr int ROWS = Layout<HD>::ROWS;
-  if (!make_map(&qm, q, B, S, H, HD, ROWS) ||
-      !make_map(&km, k, B, S, KVH, HD, Layout<HD>::BKV) ||
-      !make_map(&vm, v, B, S, KVH, HD, Layout<HD>::BKV))
+  if (!make_map(&qm, q, B, S, H, hd, ROWS) ||
+      !make_map(&km, k, B, S, KVH, hd, Layout<HD>::BKV) ||
+      !make_map(&vm, v, B, S, KVH, hd, Layout<HD>::BKV))
     return (int)cudaErrorInvalidValue;
   const int smem = Layout<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
@@ -632,20 +646,26 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + ROWS - 1) / ROWS, H, B);
   const float scale_log2 =
-      (float)(std::pow((double)HD, -0.5) * 1.4426950408889634);
+      (float)(std::pow((double)hd, -0.5) * 1.4426950408889634);
   flash_attention_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S,
-      H, KVH, scale_log2);
+      H, KVH, hd, scale_log2);
   return (int)cudaGetLastError();
 }
 
+// head dim -> the instance of its width (BF16_HEAD_DIMS and tc_width in
+// kernels/flash_attention.py)
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
              int B, int S, int H, int KVH, int hd, cudaStream_t st) {
-  switch (hd) {   // BF16_HEAD_DIMS in kernels/flash_attention.py
-    case 64: return launch<64>(q, k, v, o, lse, B, S, H, KVH, st);
-    case 128: return launch<128>(q, k, v, o, lse, B, S, H, KVH, st);
-    case 192: return launch<192>(q, k, v, o, lse, B, S, H, KVH, st);
-    case 256: return launch<256>(q, k, v, o, lse, B, S, H, KVH, st);
+  switch (hd) {
+#define TC_CASE(N, W) \
+  case N:             \
+    return launch<W>(q, k, v, o, lse, B, S, H, KVH, hd, st);
+    TC_CASE(16, 64) TC_CASE(32, 64) TC_CASE(48, 64) TC_CASE(64, 64)
+    TC_CASE(80, 128) TC_CASE(96, 128) TC_CASE(112, 128) TC_CASE(128, 128)
+    TC_CASE(144, 192) TC_CASE(160, 192) TC_CASE(176, 192) TC_CASE(192, 192)
+    TC_CASE(208, 256) TC_CASE(224, 256) TC_CASE(240, 256) TC_CASE(256, 256)
+#undef TC_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -27,11 +27,13 @@
 // the gradients are the same bits on every run: delta_kernel (one warp per
 // (b, row, head), Delta = dO . o summed by a shuffle tree), then a dQ
 // kernel, then a dK/dV kernel, both of which read Delta. Dispatch by input
-// type and head dim (not a fallback): bf16 at hd 64, 128 and 256 on the
-// tensor cores (namespace tc), bf16 at hd 192 and f32 at every head dim on
-// the CUDA cores (namespace simt). No config of either package has head
-// dim 192; its bf16 instance is the forward's third one, and stays on the
-// CUDA cores.
+// type and head dim (not a fallback): bf16 on the tensor cores (namespace
+// tc) at every multiple of 16 up to 256 but 144 to 192, each on the
+// instance of its width (64, 128 or 256, as the forward's: the TMA's
+// zeros past the head dim add nothing to any product, and the stores skip
+// those columns), bf16 at 144 to 192 and f32 at every head dim on the CUDA
+// cores (namespace simt). No config of either package has a head dim in
+// 144 to 192, and the tensor cores have no instance of width 192.
 //
 // Precision contract of the tensor-core kernels:
 //   - Exact products. Q, K, V and dO enter wgmma as the bf16 values they
@@ -660,7 +662,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             __nv_bfloat16* __restrict__ dq, int S, int H, int KVH,
+             __nv_bfloat16* __restrict__ dq, int S, int H, int KVH, int hd,
              float scale, float scale_log2) {
   using L = DqLayout<HD>;
   constexpr int BQ = L::BQ, BKV = L::BKV, QD = L::QD, RING = L::RING;
@@ -810,13 +812,15 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) bar_arrive(empty + 8 * (j % RING));
   }
 
-  const size_t row_stride = (size_t)H * HD;
+  // dQ's columns of hd (an instance wider than hd holds zeros past it)
+  const size_t row_stride = (size_t)H * hd;
   __nv_bfloat16* o0 =
-      dq + ((size_t)b * S + r0) * row_stride + (size_t)h * HD + col0;
+      dq + ((size_t)b * S + r0) * row_stride + (size_t)h * hd + col0;
   __nv_bfloat16* o1 = o0 + 8 * row_stride;
 #pragma unroll
   for (int c = 0; c < QD / 8; ++c) {
     const int col = 8 * c + 2 * (lane % 4);
+    if (col0 + col >= hd) continue;
     if (r0 < S)
       *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
           __floats2bfloat162_rn(acc[4 * c] * scale, acc[4 * c + 1] * scale);
@@ -838,7 +842,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                const float* __restrict__ delta,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                float* __restrict__ work, int S, int H, int KVH, int nsplit,
-               float scale, float scale_log2) {
+               int hd, float scale, float scale_log2) {
   using L = KvLayout<HD>;
   constexpr int BK = L::BK, BQ = L::BQ, KD = L::KD;
   constexpr int NS = BQ / 2;    // S^T fragment floats per thread
@@ -1014,9 +1018,11 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) bar_arrive(empty + 8 * s);
   }
 
-  const size_t row_stride = (size_t)KVH * HD;
+  // dK's and dV's columns of hd (an instance wider than hd holds zeros
+  // past it)
+  const size_t row_stride = (size_t)KVH * hd;
   const size_t at0 =
-      ((size_t)b * S + r0) * row_stride + (size_t)kh * HD + col0;
+      ((size_t)b * S + r0) * row_stride + (size_t)kh * hd + col0;
   const size_t at1 = at0 + 8 * row_stride;
   if (L::SPLIT && nsplit > 1) {
     // the block's partial sums, f32, at split `part` of the workspace
@@ -1026,6 +1032,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int c = 0; c < KD / 8; ++c) {
       const int col = 8 * c + 2 * (lane % 4);
+      if (col0 + col >= hd) continue;
       if (r0 < S) {
         *reinterpret_cast<float2*>(pk + at0 + col) =
             make_float2(accK[4 * c] * scale, accK[4 * c + 1] * scale);
@@ -1044,6 +1051,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int c = 0; c < KD / 8; ++c) {
     const int col = 8 * c + 2 * (lane % 4);
+    if (col0 + col >= hd) continue;
     if (r0 < S) {
       *reinterpret_cast<__nv_bfloat162*>(dk + at0 + col) =
           __floats2bfloat162_rn(accK[4 * c] * scale, accK[4 * c + 1] * scale);
@@ -1086,29 +1094,33 @@ sum_splits_kernel(const float* __restrict__ work,
   out[1] = __floats2bfloat162_rn(a.z, a.w);
 }
 
-// nsplit: the query-head splits of the dK/dV pass, 1 up to hd 128; above,
-// a divisor of the group, with work its [2][nsplit][B, S, KVH, hd] f32
-// workspace where nsplit > 1
+// HD: the instance's width (TC_WIDTHS in kernels/flash_attention.py), hd
+// the head dim, a multiple of 16 in (HD - 64, HD]: the maps' extent, so
+// that the TMA fills the tiles' columns past hd with zeros, which add
+// nothing to any product. nsplit: the query-head splits of the dK/dV
+// pass, 1 up to width 128; above, a divisor of the group, with work its
+// [2][nsplit][B, S, KVH, hd] f32 workspace where nsplit > 1
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* lse, const void* dout, void* dq, void* dk, void* dv,
-           void* delta, void* work, int B, int S, int H, int KVH, int nsplit,
-           cudaStream_t st) {
+           void* delta, void* work, int B, int S, int H, int KVH, int hd,
+           int nsplit, cudaStream_t st) {
   using D = DqLayout<HD>;
   using K = KvLayout<HD>;
   if (nsplit < 1 || (H / KVH) % nsplit != 0 || (!K::SPLIT && nsplit != 1) ||
-      (nsplit > 1 && work == nullptr))
+      (nsplit > 1 && work == nullptr) || hd % 16 != 0 || hd > HD ||
+      hd <= HD - CHUNK)
     return (int)cudaErrorInvalidValue;
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qd, od, kd, vd, qk, ok, kk, vk;
-  if (!make_map(&qd, q, B, S, H, HD, D::BQ) ||
-      !make_map(&od, dout, B, S, H, HD, D::BQ) ||
-      !make_map(&kd, k, B, S, KVH, HD, D::BKV) ||
-      !make_map(&vd, v, B, S, KVH, HD, D::BKV) ||
-      !make_map(&qk, q, B, S, H, HD, K::BQ) ||
-      !make_map(&ok, dout, B, S, H, HD, K::BQ) ||
-      !make_map(&kk, k, B, S, KVH, HD, K::BK) ||
-      !make_map(&vk, v, B, S, KVH, HD, K::BK))
+  if (!make_map(&qd, q, B, S, H, hd, D::BQ) ||
+      !make_map(&od, dout, B, S, H, hd, D::BQ) ||
+      !make_map(&kd, k, B, S, KVH, hd, D::BKV) ||
+      !make_map(&vd, v, B, S, KVH, hd, D::BKV) ||
+      !make_map(&qk, q, B, S, H, hd, K::BQ) ||
+      !make_map(&ok, dout, B, S, H, hd, K::BQ) ||
+      !make_map(&kk, k, B, S, KVH, hd, K::BK) ||
+      !make_map(&vk, v, B, S, KVH, hd, K::BK))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       dq_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1121,14 +1133,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const float* lp = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if ((err = (cudaError_t)simt::launch_delta<__nv_bfloat16>(
-           o, dout, dl, B, S, H, HD, st)) != cudaSuccess)
+           o, dout, dl, B, S, H, hd, st)) != cudaSuccess)
     return (int)err;
-  const double scale = std::pow((double)HD, -0.5);
+  const double scale = std::pow((double)hd, -0.5);
   const float sc = (float)scale, sc_log2 = (float)(scale * 1.4426950408889634);
   dq_tc_kernel<HD><<<dim3((S + D::BQ - 1) / D::BQ, H, B), D::NTHREADS,
                      D::BYTES, st>>>(qd, od, kd, vd, lp, dl,
                                      static_cast<__nv_bfloat16*>(dq), S, H,
-                                     KVH, sc, sc_log2);
+                                     KVH, hd, sc, sc_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(dk);
@@ -1136,10 +1148,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   float* wp = static_cast<float*>(work);
   dkdv_tc_kernel<HD><<<dim3((S + K::BK - 1) / K::BK, KVH * nsplit, B),
                        KV_THREADS, K::BYTES, st>>>(
-      qk, ok, kk, vk, lp, dl, dkp, dvp, wp, S, H, KVH, nsplit, sc, sc_log2);
+      qk, ok, kk, vk, lp, dl, dkp, dvp, wp, S, H, KVH, nsplit, hd, sc,
+      sc_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
-  const long long n4 = (long long)B * S * KVH * HD / 4;
+  const long long n4 = (long long)B * S * KVH * hd / 4;
   sum_splits_kernel<<<dim3((unsigned)((n4 + 255) / 256), 2), 256, 0, st>>>(
       wp, dkp, dvp, n4, nsplit);
   return (int)cudaGetLastError();
@@ -1197,20 +1210,27 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
   const int err = prologue(H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {   // BF16_HEAD_DIMS in kernels/flash_attention.py
-    case 64:
-      return tc::launch<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, work,
-                            B, S, H, KVH, nsplit, st);
-    case 128:
-      return tc::launch<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, work,
-                             B, S, H, KVH, nsplit, st);
-    case 192:   // the CUDA-core kernel (no config has hd 192)
-      if (nsplit != 1) return (int)cudaErrorInvalidValue;
-      return simt::launch<__nv_bfloat16, 192>(q, k, v, o, lse, dout, dq, dk,
-                                              dv, delta, B, S, H, KVH, st);
-    case 256:
-      return tc::launch<256>(q, k, v, o, lse, dout, dq, dk, dv, delta, work,
-                             B, S, H, KVH, nsplit, st);
+  // BF16_HEAD_DIMS in kernels/flash_attention.py: the tensor-core
+  // instance of the head dim's width (tc_width), or at 144 to 192 the
+  // CUDA-core kernel (no tensor-core instance of width 192)
+  switch (hd) {
+#define BWD_TC_CASE(N, W)                                                   \
+  case N:                                                                   \
+    return tc::launch<W>(q, k, v, o, lse, dout, dq, dk, dv, delta, work, B, \
+                         S, H, KVH, hd, nsplit, st);
+#define BWD_SIMT_CASE(N)                                                    \
+  case N:                                                                   \
+    if (nsplit != 1) return (int)cudaErrorInvalidValue;                     \
+    return simt::launch<__nv_bfloat16, N>(q, k, v, o, lse, dout, dq, dk, dv, \
+                                          delta, B, S, H, KVH, st);
+    BWD_TC_CASE(16, 64) BWD_TC_CASE(32, 64) BWD_TC_CASE(48, 64)
+    BWD_TC_CASE(64, 64) BWD_TC_CASE(80, 128) BWD_TC_CASE(96, 128)
+    BWD_TC_CASE(112, 128) BWD_TC_CASE(128, 128) BWD_SIMT_CASE(144)
+    BWD_SIMT_CASE(160) BWD_SIMT_CASE(176) BWD_SIMT_CASE(192)
+    BWD_TC_CASE(208, 256) BWD_TC_CASE(224, 256) BWD_TC_CASE(240, 256)
+    BWD_TC_CASE(256, 256)
+#undef BWD_TC_CASE
+#undef BWD_SIMT_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

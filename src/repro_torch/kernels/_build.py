@@ -100,15 +100,21 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
     "selective_scan": {
         # dt, dx, A, Bc, Cc, h0 (or NULL), y, h_last, hs (or NULL), B, T,
-        # di, ds, device, stream
+        # di, ds, form (selective_scan.FORMS), device, stream
         "selective_scan_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                               INT, INT, INT, INT, INT, PTR),
-        # dt, dx, A, Bc, Cc, hs, dy, dh_last (or NULL), ddt, ddx, lcarry,
-        # decay, dA_part, dB_part, dC_part, dA, dB, dC, dh0 (or NULL), B, T,
-        # di, ds, seg_chunks, device, stream
-        "selective_scan_bwd_f32": (PTR,) * 19 + (INT,) * 6 + (PTR,),
+                               INT, INT, INT, INT, INT, INT, PTR),
         # d_state -> lanes a channel
         "selective_scan_lanes": (INT,),
+        # d_state, out[4]: the instance and its tree geometry
+        "selective_scan_geometry": (INT, PTR),
+    },
+    "selective_scan_bwd": {
+        # dt, dx, A, Bc, Cc, hs, dy, dh_last (or NULL), ddt, ddx, lcarry,
+        # decay, dA_part, dB_part, dC_part, dA, dB, dC, dh0 (or NULL), B, T,
+        # di, ds, seg_chunks, form, device, stream
+        "selective_scan_bwd_f32": (PTR,) * 19 + (INT,) * 7 + (PTR,),
+        # d_state, out[4]: the instance and its backward geometry
+        "selective_scan_bwd_geometry": (INT, PTR),
     },
 }
 

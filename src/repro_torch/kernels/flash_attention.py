@@ -6,10 +6,13 @@ cores (``wgmma``, with p split into bf16 hi and lo parts so that P.V
 keeps p's f32 precision), f32 on the CUDA cores. With ``lse=True`` it
 also returns each row's log-sum-exp [B, H, S] f32, which the backward
 (``csrc/flash_attention_bwd.cu``) recomputes the probabilities from: bf16
-at hd 64, 128 and 256 on the tensor cores (P and dS split into bf16 hi
-and lo parts for their products; at hd 256 each gradient's columns split
-over two warpgroups and the dK/dV pass's query heads over ``bwd_splits``
-blocks), bf16 at hd 192 and f32 on the CUDA cores. The kernels mask
+on the tensor cores (P and dS split into bf16 hi and lo parts for their
+products; above hd 128 each gradient's columns split over two
+warpgroups and the dK/dV pass's query heads over ``bwd_splits``
+blocks), bf16 at hd 144 to 192 and f32 on the CUDA cores. Every multiple
+of 16 up to 256 runs in both types: a bf16 head dim runs the tensor-core
+instance of its width ``tc_width`` (64, 128, 192 or 256), its columns
+past hd zero (the TMA fills them) and never stored. The kernels mask
 ragged S themselves, so any S is exact.
 ``ops.flash_attention`` dispatches here for CUDA tensors (through an
 autograd function when a gradient is wanted) and to
@@ -27,9 +30,12 @@ KERNELS = {
     torch.float32: ("flash_attention_f32", "CUDA-core f32"),
     torch.bfloat16: ("flash_attention_bf16", "tensor-core bf16 (wgmma)"),
 }
-# head dims with a bf16 instance, the tensor-core forward's (csrc:
-# tc::dispatch) and the backward's (csrc/flash_attention_bwd.cu)
-BF16_HEAD_DIMS = (64, 128, 192, 256)
+# head dims bf16 runs at, forward (csrc: tc::dispatch, on the tensor-core
+# instance of tc_width(hd)) and backward (csrc/flash_attention_bwd.cu)
+BF16_HEAD_DIMS = tuple(range(16, 257, 16))
+# the widths of the tensor-core instances: a head dim runs the least one
+# at or above it
+TC_WIDTHS = (64, 128, 192, 256)
 # csrc/flash_attention.cu: query rows a block (bf16: up to hd 192, see
 # tc_rows), threads a block and (bf16) (k, v) tiles in flight, by input
 # type
@@ -39,10 +45,11 @@ TC_STAGES = 3
 # log2(e): the kernels' exponentials are exp2 of log2-scaled scores
 LOG2E = 1.4426950408889634
 # csrc/flash_attention_bwd.cu: the bf16 head dims on the tensor cores
-# (namespace tc; the others run namespace simt), threads a dK/dV block by
-# namespace (tc: two consumer warpgroups and a producer warpgroup) and the
-# tensor-core kernels' tiles in flight
-BWD_TC_HEAD_DIMS = (64, 128, 256)
+# (namespace tc, the instance of tc_width(hd); 144 to 192 run namespace
+# simt, as hd 192 always has: no tensor-core instance of width 192),
+# threads a dK/dV block by namespace (tc: two consumer warpgroups and a
+# producer warpgroup) and the tensor-core kernels' tiles in flight
+BWD_TC_HEAD_DIMS = tuple(d for d in BF16_HEAD_DIMS if not 128 < d <= 192)
 BWD_THREADS = {"tc": 384, "simt": 256}
 BWD_TC_STAGES = 4
 # the tensor-core kernels at hd 256 (tc::SPLIT_ROWS): rows a dQ or dK/dV
@@ -60,6 +67,15 @@ BWD_SPLIT_ROWS = 64
 # B = 1 and 1 at B = 4, Gemma's training micro-batch.
 BWD_SPLITS = 8
 BWD_SPLIT_BLOCKS = 256
+
+
+def tc_width(hd: int) -> int:
+    """The width of the tensor-core instance a bf16 head dim runs (the
+    template argument of ``tc::launch`` in both sources): the least of
+    TC_WIDTHS at or above hd. Its q, k, v and dO tiles are that wide; the
+    columns past hd arrive as zeros from the TMA (the maps' extent is hd),
+    add nothing to the products and are not stored."""
+    return next(w for w in TC_WIDTHS if w >= hd)
 
 
 def tc_rows(hd: int) -> int:
@@ -91,14 +107,15 @@ def smem_bytes(dtype: torch.dtype, hd: int) -> int:
     if dtype == torch.float32:
         bq = BQ[dtype]
         return 4 * (2 * bq * (hd + 1) + 64 * hd + bq * 65)
-    return (tc_rows(hd) * hd * 2 + 2 * TC_STAGES * kv_rows(dtype, hd) * hd * 2
+    w = tc_width(hd)
+    return (tc_rows(hd) * w * 2 + 2 * TC_STAGES * kv_rows(dtype, hd) * w * 2
             + (2 * TC_STAGES + 1) * 8 + 1024)
 
 
 def bwd_scope(dtype: torch.dtype, hd: int) -> str:
     """The namespace of csrc/flash_attention_bwd.cu that a call runs:
     "tc" (wgmma) for bf16 at BWD_TC_HEAD_DIMS, else "simt" (bf16 at hd
-    192, f32 at every head dim)."""
+    144 to 192, f32 at every head dim)."""
     return ("tc" if dtype == torch.bfloat16 and hd in BWD_TC_HEAD_DIMS
             else "simt")
 
@@ -131,7 +148,8 @@ def bwd_rows(dtype: torch.dtype, hd: int) -> int:
 
 def bwd_query_rows(hd: int) -> int:
     """Query rows of a (q, dO) tile of the tensor-core dK/dV kernel
-    (``tc::KvLayout::BQ``): 64 at hd 64, 32 at hd 128 and 256, so that
+    (``tc::KvLayout::BQ`` of ``tc_width(hd)``): 64 up to hd 64, 32 above
+    (hd 128 and 256 among them), so that
     S^T, dP^T and their fragments fit beside the accumulators (dK's and
     dV's columns, half of them at hd 256: 128 f32 registers a thread at
     hd 128 and 256)."""
@@ -147,8 +165,9 @@ def bwd_smem_bytes(dtype: torch.dtype, hd: int) -> int:
     all f32."""
     br = bwd_rows(dtype, hd)
     if bwd_scope(dtype, hd) == "tc":
-        return (2 * br * hd * 2 + 2 * BWD_TC_STAGES * bwd_query_rows(hd)
-                * hd * 2 + (2 * BWD_TC_STAGES + 1) * 8 + 1024)
+        w = tc_width(hd)
+        return (2 * br * w * 2 + 2 * BWD_TC_STAGES * bwd_query_rows(hd)
+                * w * 2 + (2 * BWD_TC_STAGES + 1) * 8 + 1024)
     return 4 * (4 * br * (hd + 1) + 2 * br * (br + 1) + 2 * br)
 
 
@@ -182,8 +201,8 @@ def _check_operands(name, q, k, v, bf16_dims, what):
 def flash_attention(q, k, v, lse: bool = False):
     """q: [B, S, H, hd]; k, v: [B, S, KVH, hd], one dtype (float32 or
     bfloat16), contiguous on one CUDA device; H a multiple of KVH; hd a
-    multiple of 16 up to 256 in f32, one of ``BF16_HEAD_DIMS`` in bf16
-    -> o [B, S, H, hd] in q's dtype, and with ``lse`` also the rows'
+    multiple of 16 up to 256 (``BF16_HEAD_DIMS`` in bf16) -> o [B, S, H,
+    hd] in q's dtype, and with ``lse`` also the rows'
     log-sum-exp [B, H, S] f32. Scores stay f32 inside, and p keeps f32
     precision (in bf16 as a hi and lo pair)."""
     _check_operands("flash_attention", q, k, v, BF16_HEAD_DIMS,
@@ -212,9 +231,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
     output, lse its [B, H, S] f32 log-sum-exps, do the output's gradient
     (q's shape and dtype), all contiguous on one CUDA device -> (dq, dk,
     dv) in q's dtype. Takes the head dims the forward takes; no atomics,
-    so the same bits every run. bf16 at hd 64, 128 and 256 runs on the
+    so the same bits every run. bf16 at BWD_TC_HEAD_DIMS runs on the
     tensor cores with P and dS as bf16 hi/lo pairs (the .cu header states
-    the precision contract); at hd 256 the dK/dV pass splits the group's
+    the precision contract); above hd 192 the dK/dV pass splits the group's
     query heads over ``bwd_splits`` blocks, which write f32 partial sums
     to a workspace allocated here, [2, splits, B, S, KVH, hd] (none for 1;
     32 MiB a split at Gemma 2B's B = 1, S = 4096), added in split order by

@@ -104,18 +104,20 @@ def _cfg_attention_bwd(out, q, k, v, o, lse, do):
     return {**_cfg_attention(out, q, k, v), "lse": True}
 
 
-def _cfg_scan(out, dt, dx, A, Bc, Cc, h0=None):
+def _cfg_scan(out, dt, dx, A, Bc, Cc, h0=None, scan_dtype="float32"):
     B, T, di = dt.shape
     return {"B": B, "T": T, "di": di, "ds": A.shape[1],
             "h0": h0 is not None,
-            "save_states": _wants_grad(dt, dx, A, Bc, Cc)}
+            "save_states": _wants_grad(dt, dx, A, Bc, Cc),
+            "scan_dtype": scan_dtype}
 
 
 def _cfg_scan_bwd(out, dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
-                  want_dh0=False):
+                  want_dh0=False, scan_dtype="float32"):
     B, T, di = dt.shape
     return {"B": B, "T": T, "di": di, "ds": A.shape[1],
-            "dh_last": dh_last is not None, "dh0": want_dh0}
+            "dh_last": dh_last is not None, "dh0": want_dh0,
+            "scan_dtype": scan_dtype}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -238,11 +240,13 @@ def _fa_kernel(q, k, v, lse: bool = False):
     return (o, q.new_empty((B, H, S), dtype=f32)) if lse else o
 
 
-def _ss_kernel(dt, dx, A, Bc, Cc, h0, save_states: bool = False):
+def _ss_kernel(dt, dx, A, Bc, Cc, h0, save_states: bool = False,
+               scan_dtype: str = "float32"):
     """The scan kernel, or on meta tensors its outputs' shapes."""
     if not dt.is_meta:
         return _ss.selective_scan(dt, dx, A, Bc, Cc, h0,
-                                  save_states=save_states)
+                                  save_states=save_states,
+                                  scan_dtype=scan_dtype)
     B, T, di = dt.shape
     ds = A.shape[1]
     y, h = dt.new_empty((B, T, di)), dt.new_empty((B, di, ds))
@@ -298,10 +302,12 @@ class _SelectiveScan(torch.autograd.Function):
     """Kernel forward (saving each chunk's start state), kernel backward."""
 
     @staticmethod
-    def forward(ctx, dt, dx, A, Bc, Cc, h0):
-        y, h_last, hs = _ss_kernel(dt, dx, A, Bc, Cc, h0, save_states=True)
+    def forward(ctx, dt, dx, A, Bc, Cc, h0, scan_dtype):
+        y, h_last, hs = _ss_kernel(dt, dx, A, Bc, Cc, h0, save_states=True,
+                                   scan_dtype=scan_dtype)
         ctx.save_for_backward(dt, dx, A, Bc, Cc, hs)
         ctx.with_h0 = h0 is not None
+        ctx.scan_dtype = scan_dtype
         ctx.set_materialize_grads(False)
         return y, h_last
 
@@ -313,32 +319,36 @@ class _SelectiveScan(torch.autograd.Function):
             dh_last = dh_last.contiguous()
         ddt, ddx, dA, dB, dC, dh0 = selective_scan_bwd(
             *saved, dy, dh_last,
-            want_dh0=ctx.with_h0 and ctx.needs_input_grad[5])
-        return ddt, ddx, dA, dB, dC, dh0
+            want_dh0=ctx.with_h0 and ctx.needs_input_grad[5],
+            scan_dtype=ctx.scan_dtype)
+        return ddt, ddx, dA, dB, dC, dh0, None
 
 
 @kernel_region("selective_scan", _cfg_scan)
-def selective_scan(dt, dx, A, Bc, Cc, h0=None):
+def selective_scan(dt, dx, A, Bc, Cc, h0=None, scan_dtype="float32"):
     """The Mamba recurrence h_t = exp(dt_t A) h_{t-1} + dx_t B_t,
-    y_t = C_t . h_t, in f32: dt, dx [B, T, di]; A [di, ds]; Bc, Cc
-    [B, T, ds]; h0 [B, di, ds] or None (zeros) -> (y [B, T, di],
-    h_last [B, di, ds]). Differentiable: on the card through
-    ``selective_scan_bwd``."""
+    y_t = C_t . h_t: dt, dx [B, T, di]; A [di, ds]; Bc, Cc [B, T, ds];
+    h0 [B, di, ds] or None (zeros) -> (y [B, T, di], h_last [B, di, ds]),
+    f32. ``scan_dtype`` "float32" runs it in f32; "bfloat16" and
+    "float16" as the reference's chunked tree with its transitions
+    rounded to that type (``ref.selective_scan_tree``). Differentiable: on
+    the card through ``selective_scan_bwd``."""
     _no_dtensor("selective_scan", dt, dx, A, Bc, Cc, h0)
+    ref.scan_type(scan_dtype)            # raises on other names
     if _on_cuda(dt) or dt.is_meta:
         dt, dx, A, Bc, Cc = (t.to(f32).contiguous()
                              for t in (dt, dx, A, Bc, Cc))
         if h0 is not None:
             h0 = h0.to(f32).contiguous()
         if _wants_grad(dt, dx, A, Bc, Cc, *(() if h0 is None else (h0,))):
-            return _SelectiveScan.apply(dt, dx, A, Bc, Cc, h0)
-        return _ss_kernel(dt, dx, A, Bc, Cc, h0)
-    return ref.selective_scan(dt, dx, A, Bc, Cc, h0)
+            return _SelectiveScan.apply(dt, dx, A, Bc, Cc, h0, scan_dtype)
+        return _ss_kernel(dt, dx, A, Bc, Cc, h0, scan_dtype=scan_dtype)
+    return ref.selective_scan(dt, dx, A, Bc, Cc, h0, scan_dtype)
 
 
 @kernel_region("selective_scan_bwd", _cfg_scan_bwd)
 def selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
-                       want_dh0=False):
+                       want_dh0=False, scan_dtype="float32"):
     """The gradients (d(dt), d(dx), dA, dB, dC, dh0 or None) of
     ``selective_scan`` from its inputs, the chunk start states hs its
     forward saved, dy and dh_last (or None); CUDA tensors only (the CPU
@@ -348,4 +358,4 @@ def selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
         return tuple(torch.empty_like(t) for t in (dt, dx, A, Bc, Cc)) + (
             hs.new_empty(hs.shape[:1] + hs.shape[2:]) if want_dh0 else None,)
     return _ss.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last,
-                                  want_dh0)
+                                  want_dh0, scan_dtype)

@@ -234,14 +234,110 @@ def flash_attention(q, k, v, causal: bool = True):
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
-def selective_scan(dt, dx, A, Bc, Cc, h0=None):
+# scan_dtype names (``configs.base.SSMConfig.scan_dtype``) and the type of
+# the scan's transitions each gives
+SCAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float16": torch.float16}
+# repro/models/mamba.py: the chunk of the reference's associative scan
+SSM_CHUNK = 64
+
+
+def scan_type(scan_dtype: str) -> torch.dtype:
+    """The torch type of a ``scan_dtype`` name; other names raise."""
+    if scan_dtype not in SCAN_DTYPES:
+        raise ValueError(f"scan_dtype {scan_dtype!r}: one of "
+                         f"{tuple(SCAN_DTYPES)}")
+    return SCAN_DTYPES[scan_dtype]
+
+
+def scan_chunk(T: int) -> int:
+    """The reference's chunk (``_ssm_scan``): 64 steps, or all of T when
+    64 does not divide it (T < 64 included)."""
+    c = min(SSM_CHUNK, T)
+    return c if c and T % c == 0 else T
+
+
+def combine(al, bl, ar, br):
+    """(al, bl) o (ar, br) = (al ar, bl ar + br) in the pairs' 16-bit type
+    as the reference's runtime (XLA on the CPU) rounds it: in bf16 the
+    product and the sum each round to bf16 (torch's ops on bf16 tensors do
+    the same); in f16 the product-sum bl ar + br is formed in f32 and
+    rounds once. (Read against the reference on the CPU, T = 100, ds = 64:
+    rounding the f16 sum's product too leaves h_last 8.4e-4 x max|h| off,
+    once 7.3e-5; rounding the bf16 product-sum once leaves it 2.6e-3 off,
+    each 3.3e-8.)"""
+    if al.dtype == torch.float16:
+        return al * ar, (bl.to(f32) * ar.to(f32) + br.to(f32)).to(al.dtype)
+    return al * ar, bl * ar + br
+
+
+def tree_scan(a, b):
+    """Inclusive prefixes of the pairs (a_t, b_t) along axis 1 under
+    ``combine``, in the order of ``lax.associative_scan``: combine
+    adjacent pairs, recurse on them, combine each odd prefix with the next
+    even element, interleave. Prefix t is then the left fold, largest
+    first, of the aligned power-of-two blocks that t + 1's bits give, each
+    block a balanced tree of combines: the order the kernel follows."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    oa, ob = tree_scan(*combine(a[:, 0:n - 1:2], b[:, 0:n - 1:2],
+                                a[:, 1::2], b[:, 1::2]))
+    m = (n - 1) // 2                      # evens after the first
+    ea, eb = combine(oa[:, :m], ob[:, :m], a[:, 2::2], b[:, 2::2])
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    out_a[:, 0], out_b[:, 0] = a[:, 0], b[:, 0]
+    out_a[:, 2::2], out_b[:, 2::2] = ea, eb
+    out_a[:, 1::2], out_b[:, 1::2] = oa, ob
+    return out_a, out_b
+
+
+def selective_scan_tree(dt, dx, A, Bc, Cc, h0=None, scan_dtype="bfloat16",
+                        every: int = 0):
+    """The reference's ``_ssm_scan`` at a 16-bit ``scan_dtype``, step for
+    step: per chunk (``scan_chunk``) the transitions exp(dt A) and dx B
+    rounded to it, their ``tree_scan`` (``combine``), then h_t = f32(aa_t) h + f32(bb_t)
+    in f32 from the chunk's start state h (carried in f32 between chunks)
+    and y_t = sum_s f32(bf(h_t)) f32(bf(C_t)), f32 sums. Arguments and
+    result as ``selective_scan``; with ``every`` > 0 also the states
+    before steps 0, every, 2 every, .. (the first h0 or zeros), as the
+    kernel saves them for the backward."""
+    B, T, di = dt.shape
+    ds = A.shape[1]
+    sd = scan_type(scan_dtype)
+    dt, dx, A, Bc, Cc = (t.to(f32) for t in (dt, dx, A, Bc, Cc))
+    h = (torch.zeros((B, di, ds), dtype=f32, device=dt.device)
+         if h0 is None else h0.to(f32))
+    y = torch.empty((B, T, di), dtype=f32, device=dt.device)
+    starts = []
+    c = scan_chunk(T)
+    for t0 in range(0, T, c):
+        ts = slice(t0, t0 + c)
+        a = torch.exp(dt[:, ts, :, None] * A).to(sd)
+        b = (dx[:, ts, :, None] * Bc[:, ts, None, :]).to(sd)
+        aa, bb = tree_scan(a, b)
+        h_all = aa.to(f32) * h[:, None] + bb.to(f32)
+        if every:
+            starts += [h if t == t0 else h_all[:, t - t0 - 1]
+                       for t in range(t0, t0 + c) if t % every == 0]
+        y[:, ts] = (h_all.to(sd).to(f32)
+                    * Cc[:, ts, None, :].to(sd).to(f32)).sum(-1)
+        h = h_all[:, -1]
+    return (y, h, starts) if every else (y, h)
+
+
+def selective_scan(dt, dx, A, Bc, Cc, h0=None, scan_dtype="float32"):
     """The Mamba recurrence, one step at a time, in f32:
 
         h_t = exp(dt_t A) h_{t-1} + dx_t B_t;   y_t = C_t . h_t
 
     dt, dx: [B, T, di]; A: [di, ds]; Bc, Cc: [B, T, ds]; h0: [B, di, ds]
-    or None (zeros). Returns (y [B, T, di], h_last [B, di, ds]).
+    or None (zeros). Returns (y [B, T, di], h_last [B, di, ds]). A 16-bit
+    ``scan_dtype`` (``SCAN_DTYPES``) runs the reference's rounded tree
+    instead, ``selective_scan_tree``.
     """
+    if scan_type(scan_dtype) != f32:
+        return selective_scan_tree(dt, dx, A, Bc, Cc, h0, scan_dtype)
     B, T, di = dt.shape
     ds = A.shape[1]
     dt, dx, A, Bc, Cc = (t.to(f32) for t in (dt, dx, A, Bc, Cc))

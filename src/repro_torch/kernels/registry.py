@@ -425,26 +425,38 @@ def _flash_bwd_work(cfg: dict):
 
 
 def _scan_instance(cfg: dict) -> KernelInstance:
+    """The f32 forward (64 channels a block, ``lanes`` a channel) or, at a
+    16-bit scan_dtype, the tree forward (namespace tree: ``tree_channels``
+    a block, ``tree_lanes`` a channel)."""
     B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
+    sd = cfg.get("scan_dtype", "float32")
+    tree = _ss.form(sd) != 0
+    ch = _ss.tree_channels(ds) if tree else _ss.CH
     return KernelInstance(
-        grid=(_cdiv(di, _ss.CH), B), threads=_ss.CH * _ss.lanes(ds),
-        smem_bytes=_ss.smem_bytes(ds),
-        axes=(Axis("channels", di, _ss.CH), Axis("batch", B, 1)),
-        outputs=(BlockMap("y", (B, T, di), (1, T, _ss.CH),
+        grid=(_cdiv(di, ch), B),
+        threads=ch * (_ss.tree_lanes(ds) if tree else _ss.lanes(ds)),
+        smem_bytes=_ss.smem_bytes(ds, sd),
+        axes=(Axis("channels", di, ch), Axis("batch", B, 1)),
+        outputs=(BlockMap("y", (B, T, di), (1, T, ch),
                           lambda i, b: (b, 0, i)),
-                 BlockMap("h_last", (B, di, ds), (1, _ss.CH, ds),
+                 BlockMap("h_last", (B, di, ds), (1, ch, ds),
                           lambda i, b: (b, i, 0))),
-        rings=(Ring("cp.async", _ss.STAGES),))
+        rings=(Ring("cp.async", _ss.STAGES),),
+        scope="tree" if tree else None)
 
 
 def _scan_work(cfg: dict):
     """Per (b, t, d, s): dt·A, exp, ·h, dx·B, +, ·C, +; dt, dx, y per
     (b, t, d), Bc and Cc per (b, t), A, h_last (and h0) once; with
-    ``save_states`` (a training forward) each chunk's start state."""
+    ``save_states`` (a training forward) each chunk's start state. At a
+    16-bit scan_dtype the tree's two combines (·, ·, + each) take the
+    place of ·h and +, and h_t is f32(A_t)·h + f32(B_t): 12; the bytes do
+    not change."""
     B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
     h0 = cfg.get("h0", False)
     saved = _ss.n_chunks(T) if cfg.get("save_states") else 0
-    return (7.0 * B * T * di * ds,
+    per = 7.0 if _ss.form(cfg.get("scan_dtype", "float32")) == 0 else 12.0
+    return (per * B * T * di * ds,
             4.0 * (3 * B * T * di + 2 * B * T * ds + di * ds
                    + B * di * ds * (2 + saved if h0 else 1 + saved)),
             "float32")
@@ -460,20 +472,21 @@ def _scan_bwd_instance(cfg: dict) -> KernelInstance:
     row), ds / 4 lanes a channel, its chunks through a cp.async ring."""
     B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
     seg = _ss.SEG_CHUNKS * _ss.BT
+    ch, n = _ss.bwd_channels(ds), _ss.instance(ds)
     return KernelInstance(
-        grid=(_cdiv(di, _ss.CH), _ss.n_segments(T), B),
-        threads=_ss.CH * _ss.bwd_lanes(ds),
+        grid=(_cdiv(di, ch), _ss.n_segments(T), B),
+        threads=ch * _ss.bwd_lanes(ds),
         smem_bytes=_ss.bwd_smem_bytes(ds),
-        axes=(Axis("channels", di, _ss.CH), Axis("segments", T, seg),
+        axes=(Axis("channels", di, ch), Axis("segments", T, seg),
               Axis("batch", B, 1)),
-        outputs=(BlockMap("ddt", (B, T, di), (1, seg, _ss.CH),
+        outputs=(BlockMap("ddt", (B, T, di), (1, seg, ch),
                           lambda i, s, b: (b, s, i)),
-                 BlockMap("ddx", (B, T, di), (1, seg, _ss.CH),
+                 BlockMap("ddx", (B, T, di), (1, seg, ch),
                           lambda i, s, b: (b, s, i)),
                  # dA's partial a (batch row, segment), added by
                  # sum_mid_kernel
-                 BlockMap("dA_part", (B, _ss.n_segments(T), di, ds),
-                          (1, 1, _ss.CH, ds), lambda i, s, b: (b, s, i, 0))),
+                 BlockMap("dA_part", (B, _ss.n_segments(T), di, n),
+                          (1, 1, ch, n), lambda i, s, b: (b, s, i, 0))),
         rings=(Ring("cp.async", _ss.STAGES, "bwd"),),
         scope="bwd")
 
@@ -540,7 +553,7 @@ register(KernelSpec(
                  "dtype": "bfloat16"},
     replaces="src/repro/kernels/flash_attention.py:80"))
 register(KernelSpec(
-    name="selective_scan_bwd", source="selective_scan.cu",
+    name="selective_scan_bwd", source="selective_scan_bwd.cu",
     describe=_scan_bwd_instance, work=_scan_bwd_work,
     default_config={"B": 2, "T": 64, "di": 256, "ds": 16},
     main_config={"B": 1, "T": 4096, "di": 8192, "ds": 16},

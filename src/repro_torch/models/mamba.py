@@ -1,11 +1,13 @@
 """Mamba-1 selective SSM layer (jamba's sequence mixer).
 
 The port of ``repro/models/mamba.py``. The scan goes through
-``ops.selective_scan``: on the card the hand-written kernel, which walks
-t in order with the state in registers and takes and returns the state,
-so prefill and a decode step run the same kernel; on the CPU its plain
-sequential version. The JAX ``_ssm_scan`` is chunked-associative: the
-same function, summed in another order.
+``ops.selective_scan`` at ``cfg.ssm.scan_dtype``: on the card the
+hand-written kernel, which walks t in order with the state in registers
+and takes and returns the state, so prefill and a decode step run the
+same kernel; on the CPU its plain version. In f32 that is a sequential
+scan, where the JAX ``_ssm_scan`` is chunked-associative: the same
+function, summed in another order. At a 16-bit scan_dtype both follow the
+reference's chunked tree and its roundings (``ref.selective_scan_tree``).
 """
 from __future__ import annotations
 
@@ -66,14 +68,14 @@ def _causal_conv(x, w, b, tail=None):
     return (y + b.to(f32)).to(x.dtype), new_tail
 
 
-def _scan(dt, dx, A, Bc, Cc, h0):
-    """``ops.selective_scan``; on DTensors each rank's kernel call on its
-    local block under ``local_map``: channels split as dt's (the
-    reference's 'ffn' over the model axis), batch as dt's, the time axis
-    whole; A's gradient a partial sum over the batch split, B's and C's
-    over the channel split."""
+def _scan(dt, dx, A, Bc, Cc, h0, scan_dtype="float32"):
+    """``ops.selective_scan`` at ``scan_dtype``; on DTensors each rank's
+    kernel call on its local block under ``local_map``: channels split as
+    dt's (the reference's 'ffn' over the model axis), batch as dt's, the
+    time axis whole; A's gradient a partial sum over the batch split, B's
+    and C's over the channel split."""
     if not is_dtensor(dt):
-        return ops.selective_scan(dt, dx, A, Bc, Cc, h0)
+        return ops.selective_scan(dt, dx, A, Bc, Cc, h0, scan_dtype)
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     tp = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
@@ -86,7 +88,8 @@ def _scan(dt, dx, A, Bc, Cc, h0):
     hin = () if h0 is None else (h0,)
 
     def body(*args):
-        return ops.selective_scan(*args)
+        return ops.selective_scan(*args[:5], args[5] if hin else None,
+                                  scan_dtype)
 
     return local_map(
         body, out_placements=(tp, hp),
@@ -100,10 +103,6 @@ def _scan(dt, dx, A, Bc, Cc, h0):
 def mamba_mix(cfg, p, x, state=None):
     """x: [B,T,d]. state: None or (conv_tail, h) for decode/streaming.
     Returns (y [B,T,d], (new_tail, h_last)), h_last in x's dtype."""
-    if cfg.ssm.scan_dtype != "float32":
-        raise NotImplementedError(
-            f"scan_dtype {cfg.ssm.scan_dtype!r}: the port runs the scan in "
-            "float32 only (ROADMAP.md Queue 1 item 14)")
     di, dtr, ds, dc = dims(cfg)
     B, T, d = x.shape
     xz = L.mm(x, p["in_proj"].to(x.dtype))
@@ -125,7 +124,7 @@ def mamba_mix(cfg, p, x, state=None):
     A = -torch.exp(p["A_log"].to(f32))            # [di, ds]
     h0 = state[1].to(f32) if state is not None else None
     x1f = x1.to(f32)
-    y, h_last = _scan(dt, dt * x1f, A, Bc, Cc, h0)
+    y, h_last = _scan(dt, dt * x1f, A, Bc, Cc, h0, cfg.ssm.scan_dtype)
     y = y + p["D"].to(f32) * x1f
     y = y * F.silu(z.to(f32))
     out = L.mm(y.to(x.dtype), p["out_proj"].to(x.dtype))

@@ -163,8 +163,9 @@ def test_wrapper_constants_are_the_cuda_ones():
     for name in ("BM", "BN", "BK", "STAGES", "THREADS"):
         assert getattr(tgl, name) == _cu_int("gmm_loglik.cu", name), name
         assert getattr(tbw, name) == _cu_int("bw_stats.cu", name), name
-    for name in ("CH", "BT", "STAGES"):
-        assert getattr(tss, name) == _cu_int("selective_scan.cu", name)
+    for name in ("CH", "BT"):
+        assert getattr(tss, name) == _cu_int("selective_scan.cuh", name)
+    assert tss.STAGES == _cu_int("selective_scan.cu", "STAGES")
     assert tga.THREADS == _cu_int("gmm_align.cu", "THREADS")
     assert tgr.THREADS == _cu_int("gmm_rescore.cu", "THREADS")
     for f, scope in (("stream", "stream"), ("sgemm", "sgemm"),
@@ -197,8 +198,8 @@ def test_backward_constants_are_the_cuda_ones():
                                                   "CONSUMERS", "tc")
     assert tfa.BWD_THREADS["simt"] == _cu_int("flash_attention_bwd.cu",
                                               "THREADS", "simt")
-    assert tss.STAGES == _cu_int("selective_scan.cu", "STAGES", "bwd")
-    assert tss.BWD_STATES_PER_LANE == _cu_int("selective_scan.cu", "SL",
+    assert tss.STAGES == _cu_int("selective_scan_bwd.cu", "STAGES", "bwd")
+    assert tss.BWD_STATES_PER_LANE == _cu_int("selective_scan_bwd.cu", "SL",
                                               "bwd")
     assert tfa.BWD_SPLIT_ROWS == _cu_int("flash_attention_bwd.cu",
                                          "SPLIT_ROWS", "tc")

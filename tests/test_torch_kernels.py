@@ -108,18 +108,21 @@ def test_gmm_loglik_packed_operand_matches_pallas(F, D, C, skew, bf, bc):
 
 
 @pytest.mark.parametrize("dtype,hd,match", [
-    (torch.bfloat16, 16, "no tensor-core instance"),
-    (torch.bfloat16, 80, "no tensor-core instance"),
-    (torch.bfloat16, 96, "no tensor-core instance"),
+    (torch.bfloat16, 72, "no tensor-core instance"),
+    (torch.bfloat16, 272, "no tensor-core instance"),
+    (torch.bfloat16, 8, "no tensor-core instance"),
     (torch.bfloat16, 64, "CUDA"),       # has an instance: refused for the CPU
     (torch.bfloat16, 128, "CUDA"),
+    (torch.bfloat16, 16, "CUDA"),       # every multiple of 16 up to 256
+    (torch.bfloat16, 80, "CUDA"),
     (torch.float32, 80, "CUDA"),        # f32 takes any multiple of 16
 ])
 def test_flash_attention_refuses_bf16_head_dims_without_instance(dtype, hd,
                                                                   match):
-    """A bf16 head dim with no tensor-core instance raises, naming the
-    supported set, before any device is touched: it never goes to the
-    CUDA-core f32 kernel or to the plain version."""
+    """A bf16 head dim with no tensor-core instance (one that is not a
+    multiple of 16 up to 256) raises, naming the supported set, before any
+    device is touched: it never goes to the CUDA-core f32 kernel or to the
+    plain version."""
     q = torch.zeros(1, 8, 2, hd, dtype=dtype)
     k = torch.zeros(1, 8, 1, hd, dtype=dtype)
     with pytest.raises(ValueError, match=match) as info:
@@ -131,13 +134,16 @@ def test_flash_attention_refuses_bf16_head_dims_without_instance(dtype, hd,
 
 def test_flash_attention_bf16_head_dims_are_the_cuda_instances():
     """``BF16_HEAD_DIMS`` lists exactly the head dims the tensor-core
-    dispatch of ``csrc/flash_attention.cu`` has a case for."""
+    dispatch of ``csrc/flash_attention.cu`` has a case for, each sent to
+    the instance of its width ``tc_width``."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     body = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
     body = body[body.index("int dispatch("):]
-    cases = tuple(int(n) for n in re.findall(r"case (\d+): return launch<",
-                                             body))
-    assert cases == tfa.BF16_HEAD_DIMS
+    cases = [(int(n), int(w)) for n, w in re.findall(
+        r"TC_CASE\((\d+), (\d+)\)", body)]
+    assert tuple(n for n, _ in cases) == tfa.BF16_HEAD_DIMS
+    assert all(w == tfa.tc_width(n) for n, w in cases)
+    assert {w for _, w in cases} == set(tfa.TC_WIDTHS)
 
 
 @pytest.mark.parametrize("F,D,C,K,case", [
@@ -748,8 +754,10 @@ def test_build_names_every_source(tmp_path, monkeypatch):
         assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     for name in ("flash_attention", "packed_matmul", "bw_stats",
-                 "gmm_loglik", "gmm_align", "gmm_rescore", "selective_scan"):
+                 "gmm_loglik", "gmm_align", "gmm_rescore"):
         assert _build.includes(name) == ["hopper.cuh"]
+    for name in ("selective_scan", "selective_scan_bwd"):
+        assert _build.includes(name) == ["hopper.cuh", "selective_scan.cuh"]
     for p in _build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)

@@ -238,28 +238,34 @@ def test_scan_lanes_matches_pallas_and_plain(ds, T, with_state):
 def test_scan_lanes_split_d_state_over_lanes():
     """Lanes per channel as a function of d_state: two at Jamba's 8 and 16,
     one at 4 and four above, so that each lane holds 4 to 16 states (a
-    multiple of 4: float4 reads), every state on exactly one lane; a
-    d_state without a kernel instance is refused, naming the instances."""
-    assert [tss.lanes(ds) for ds in tss.D_STATES] == [1, 2, 2, 4, 4]
-    for ds in tss.D_STATES:
+    multiple of 4: float4 reads), every state on exactly one lane; every
+    d_state from 1 to 64 takes its instance's lanes, and one past 64 is
+    refused, naming the range."""
+    assert [tss.lanes(ds) for ds in tss.INSTANCES] == [1, 2, 2, 4, 4]
+    for ds in tss.INSTANCES:
         L = tss.lanes(ds)
         assert ds % L == 0 and 4 <= ds // L <= 16 and (ds // L) % 4 == 0
         assert 32 % L == 0                  # a channel's lanes share a warp
-    for ds in (2, 12, 128):
-        with pytest.raises(ValueError, match=r"d_state in \(4, 8, 16"):
+    for ds in tss.D_STATES:
+        assert tss.lanes(ds) == tss.lanes(tss.instance(ds))
+        n = tss.instance(ds)
+        assert ds <= n and (n == 4 or n < 2 * ds)
+    for ds in (0, 65, 128):
+        with pytest.raises(ValueError, match=r"d_state 1 to 64"):
             tss.lanes(ds)
 
 
 def test_scan_d_states_are_the_cuda_instances():
-    """``D_STATES`` lists exactly the d_states the dispatch of
-    csrc/selective_scan.cu has an instance for, and ``lanes`` is the
-    kernel's ``lanes`` there (checked on the card by chip_smoke.py through
-    ``selective_scan_lanes``)."""
+    """``INSTANCES`` lists exactly the d_states the dispatch of
+    csrc/selective_scan.cu has an instance for, ``D_STATES`` (1 to 64) the
+    d_states it takes, and ``lanes`` is the kernel's ``lanes`` there
+    (checked on the card by chip_smoke.py through ``selective_scan_lanes``
+    and ``selective_scan_geometry``)."""
     src = (_build.CSRC / "selective_scan.cu").read_text()
     body = src[src.index('extern "C" int selective_scan_f32('):]
-    cases = tuple(int(n) for n in re.findall(r"case (\d+):\s+return launch<",
-                                             body))
-    assert cases == tss.D_STATES
+    cases = tuple(int(n) for n in re.findall(r"SSF_CASE\((\d+)\)", body))
+    assert cases == tss.INSTANCES
+    assert tss.D_STATES == tuple(range(1, 65))
     expr = re.search(r"constexpr int lanes\(int ds\) \{\s+return ([^;]+);",
                      src).group(1)
     assert expr == "ds == 4 ? 1 : ds <= 16 ? 2 : 4"
@@ -282,15 +288,6 @@ def test_mamba_mix_matches_jax(with_state):
     _close(got_y, want_y)
     _close(got_tail, want_tail)
     _close(got_h, want_h)
-
-
-def test_mamba_mix_refuses_other_scan_dtypes():
-    _, tc = _cfgs(JAMBA)
-    import dataclasses
-    tc = tc.with_overrides(ssm=dataclasses.replace(tc.ssm,
-                                                   scan_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        TMB.mamba_mix(tc, {}, torch.zeros(1, 1, tc.d_model))
 
 
 # ---------------------------------------------------------------------------
@@ -437,8 +434,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     dt, dx, A, Bc, Cc = (_t(a) for a in _scan_inputs(1, 4, 8, 16, seed=0))
     with pytest.raises(ValueError, match="CUDA"):
         tss.selective_scan(dt, dx, A, Bc, Cc)
-    # the kernel has instances for d_state in tss.D_STATES only
-    dt, dx, A, Bc, Cc = (_t(a) for a in _scan_inputs(1, 4, 8, 12, seed=0))
+    # the kernel takes d_state 1 to 64 only
+    dt, dx, A, Bc, Cc = (_t(a) for a in _scan_inputs(1, 4, 8, 128, seed=0))
     with pytest.raises(ValueError, match="d_state"):
         tss.selective_scan(dt, dx, A, Bc, Cc)
     assert tfa.flash_attention.launches == 0

@@ -913,9 +913,9 @@ def test_lm_backward_wrappers_refuse_cpu_tensors():
     lse = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         TFA.flash_attention_bwd(q, q, q, q, lse, q)
-    q80 = torch.zeros(1, 8, 2, 80, dtype=torch.bfloat16)
+    q72 = torch.zeros(1, 8, 2, 72, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="backward instance"):
-        TFA.flash_attention_bwd(q80, q80, q80, q80, lse, q80)
+        TFA.flash_attention_bwd(q72, q72, q72, q72, lse, q72)
     dt = torch.zeros(1, 4, 8)
     hs = torch.zeros(1, 1, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -923,29 +923,37 @@ def test_lm_backward_wrappers_refuse_cpu_tensors():
                                torch.zeros(1, 4, 16), torch.zeros(1, 4, 16),
                                hs, dt)
     with pytest.raises(ValueError, match="d_state"):
-        TSS.selective_scan_bwd(dt, dt, torch.zeros(8, 64),
-                               torch.zeros(1, 4, 64), torch.zeros(1, 4, 64),
-                               torch.zeros(1, 1, 8, 64), dt)
+        TSS.selective_scan_bwd(dt, dt, torch.zeros(8, 128),
+                               torch.zeros(1, 4, 128), torch.zeros(1, 4, 128),
+                               torch.zeros(1, 1, 8, 128), dt)
     assert TFA.flash_attention_bwd.launches == 0
     assert TSS.selective_scan_bwd.launches == 0
 
 
 def test_backward_instances_are_the_cuda_ones():
     """``BF16_HEAD_DIMS`` and ``BWD_D_STATES`` list exactly the cases the
-    backward entry points of the ``.cu`` sources dispatch."""
+    backward entry points of the ``.cu`` sources dispatch: every bf16 head
+    dim to a tensor-core instance of its width or to the CUDA-core kernel,
+    every d_state from 1 to 64 to the instance ``instance`` names."""
     from repro_torch.kernels import _build
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     body = src[src.index('extern "C" int flash_attention_bwd_bf16('):]
-    assert tuple(int(n) for n in re.findall(r"case (\d+):", body)) == \
-        TFA.BF16_HEAD_DIMS
+    tc = [(int(n), int(w)) for n, w in re.findall(
+        r"BWD_TC_CASE\((\d+), (\d+)\)", body)]
+    simt = [int(n) for n in re.findall(r"BWD_SIMT_CASE\((\d+)\)", body)]
+    assert tuple(sorted([n for n, _ in tc] + simt)) == TFA.BF16_HEAD_DIMS
+    assert all(w == TFA.tc_width(n) for n, w in tc)
     body = src[src.index('extern "C" int flash_attention_bwd_f32('):
                src.index('extern "C" int flash_attention_bwd_bf16(')]
     assert tuple(int(n) for n in re.findall(r"FAB_CASE\((\d+)\)", body)) == \
         tuple(range(16, 257, 16))
-    src = (_build.CSRC / "selective_scan.cu").read_text()
+    src = (_build.CSRC / "selective_scan_bwd.cu").read_text()
     body = src[src.index('extern "C" int selective_scan_bwd_f32('):]
     assert tuple(int(n) for n in re.findall(r"SSB_CASE\((\d+)\)", body)) == \
-        TSS.BWD_D_STATES
+        TSS.INSTANCES
+    assert TSS.BWD_D_STATES == tuple(range(1, 65))
+    assert sorted({TSS.instance(ds) for ds in TSS.BWD_D_STATES}) == \
+        list(TSS.INSTANCES)
 
 
 def test_backward_tensor_core_dispatch_is_the_cuda_one():
@@ -955,10 +963,10 @@ def test_backward_tensor_core_dispatch_is_the_cuda_one():
     from repro_torch.kernels import _build
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     body = src[src.index('extern "C" int flash_attention_bwd_bf16('):]
-    assert tuple(int(n) for n in re.findall(r"tc::launch<(\d+)>", body)) \
-        == TFA.BWD_TC_HEAD_DIMS
+    assert tuple(int(n) for n in re.findall(r"BWD_TC_CASE\((\d+), \d+\)",
+                                            body)) == TFA.BWD_TC_HEAD_DIMS
     assert tuple(int(n) for n in re.findall(
-        r"simt::launch<__nv_bfloat16, (\d+)>", body)) == tuple(
+        r"BWD_SIMT_CASE\((\d+)\)", body)) == tuple(
         d for d in TFA.BF16_HEAD_DIMS if d not in TFA.BWD_TC_HEAD_DIMS)
     for hd in TFA.BF16_HEAD_DIMS:
         assert TFA.bwd_scope(torch.bfloat16, hd) == (
@@ -980,7 +988,9 @@ def test_autograd_functions_glue_on_cpu(monkeypatch, lm_jax_states, arch):
         o = TREF.flash_attention(q, k, v)
         return (o, TFA.lse_blocks(q, k)) if lse else o
 
-    def fake_ss(dt, dx, A, Bc, Cc, h0=None, save_states=False):
+    def fake_ss(dt, dx, A, Bc, Cc, h0=None, save_states=False,
+                scan_dtype="float32"):
+        assert scan_dtype == "float32"
         y, h_last = TREF.selective_scan(dt, dx, A, Bc, Cc, h0)
         if not save_states:
             return y, h_last
@@ -994,9 +1004,10 @@ def test_autograd_functions_glue_on_cpu(monkeypatch, lm_jax_states, arch):
         return y, h_last, torch.stack(starts, 1)
 
     def fake_ss_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
-                    want_dh0=False):
+                    want_dh0=False, scan_dtype="float32"):
         return TSS.backward_chunks(dt, dx, A, Bc, Cc, dy,
-                                   hs[:, 0] if want_dh0 else None, dh_last)
+                                   hs[:, 0] if want_dh0 else None, dh_last,
+                                   scan_dtype=scan_dtype)
 
     _, tc = _lm_cfgs(arch)
     batch = _t_batch(_batches(tc.vocab_size, 1)[0])

@@ -511,9 +511,9 @@ def test_hd256_has_bf16_instances_that_fit():
 
 
 def test_bf16_dims_outside_the_instances_still_raise():
-    q = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
-    k = torch.zeros(1, 8, 1, 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 32"):
+    q = torch.zeros(1, 8, 2, 40, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 1, 40, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 40"):
         tfa.flash_attention(q, k, k)
     q = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 1, 256, dtype=torch.bfloat16)
