@@ -110,7 +110,19 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   at its first MoE layer, in bf16, StableLM-2 steps whose collectives by
   op equal their lowering in a fake world, the elastic restore (4, 1) ->
   (2, 2) and (2, 1), and one LM dry-run row per production mesh equal to
-  ``tests/test_torch_mesh_lm.py``'s ``LM_PINS``.
+  ``tests/test_torch_mesh_lm.py``'s ``LM_PINS``;
+* lifts the i-vector side's refusals (phase 16): each wrapper's geometry
+  against the CUDA side's for every D up to 512; the new forms at the old
+  limits against their plain versions (``gmm_align``'s spill form at C =
+  6273, 8192 and 65,536 with K = 33, 64 and C, its wide phase B at D =
+  235, 256, 512; ``gmm_rescore`` at D = 201, 256, 512 and C = 65,536;
+  ``gmm_loglik`` at D = 205 to 512; ``bw_stats`` at D = 255, 256, 512),
+  the sums over E2 or D^2 held to their formula in float64; the path at
+  D = 256 (``train_ubm``, the rungs' statistics, the statistics pass, 2
+  EM iterations repeated bitwise, extraction, 32 requests on every rung,
+  card against CPU at C = 64) and ``train_ubm`` at C = 8192 with
+  ``top_k=0``. ``--phase 16`` runs it alone after the card and build
+  steps.
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -617,7 +629,8 @@ TVM_ROWS = {"tvm_estep_l": ("tvm_estep_l", "float32_stream"),
             "tvm_estep_l_bf16_train": ("tvm_estep_l", "bfloat16_wgmma"),
             "tvm_estep_a": ("tvm_estep_a", "float32_sgemm"),
             "tvm_estep_a_bf16": ("tvm_estep_a", "bfloat16_wgmma")}
-OFF_PATH = ("tvm_estep_l_bf16", "tvm_estep_l_bf16_train", "tvm_estep_a_bf16")
+OFF_PATH = ("tvm_estep_l_bf16", "tvm_estep_l_bf16_train", "tvm_estep_a_bf16",
+            "gmm_rescore_hist_global")
 
 
 def check_packed_matmul(ex, C: int, g):
@@ -795,11 +808,13 @@ def check_bw_stats(ex, frames, K: int, g):
     return row
 
 
-def held_align(label, x, dconst, dlin, dquad, A2, K, want_sel=None):
+def held_align(label, x, dconst, dlin, dquad, A2, K, want_sel=None,
+               exact: bool = False):
     """gmm_align against the plain preselect + packed rescore: the selected
     sets compared frame by frame (the share that agrees is printed and held
-    to ALIGN_AGREE), sel_ll held to TOL on the frames that agree. Returns
-    (max error, the kernel's sel)."""
+    to ALIGN_AGREE), sel_ll held to TOL on the frames that agree (with
+    ``exact``, to TOL of the rescore's float64 value, ``held_exact``).
+    Returns (max error, the kernel's sel)."""
     from repro_torch.kernels import gmm_align as GA
     from repro_torch.kernels import ref
     F = x.shape[0]
@@ -818,9 +833,16 @@ def held_align(label, x, dconst, dlin, dquad, A2, K, want_sel=None):
         fail(f"gmm_align {label} selects other components than its plain "
              "version")
     held = agree & torch.isfinite(want_ll).all(dim=1)   # not NaN frames
-    err = compare(f"gmm_align {label} sel_ll on agreeing frames",
-                  torch.gather(ll, 1, o_got)[held],
-                  torch.gather(want_ll, 1, o_want)[held])
+    got_h = torch.gather(ll, 1, o_got)[held]
+    want_h = torch.gather(want_ll, 1, o_want)[held]
+    if exact:
+        err = held_exact(f"gmm_align {label} sel_ll on agreeing frames",
+                         got_h, want_h, exact_fused(
+                             x[held], torch.gather(want_sel, 1, o_want)[held],
+                             A2))
+    else:
+        err = compare(f"gmm_align {label} sel_ll on agreeing frames", got_h,
+                      want_h)
     return err, sel
 
 
@@ -909,7 +931,8 @@ def check_gmm_align(ex, frames, K: int):
         print(f"  gmm_align: distinct ids in a {bf}-frame tile: "
               f"{n.float().mean().item():.1f} of {bf * K} (frame, slot) "
               f"pairs ({100 * distinct[bf]:.1f}%)")
-    bf, _, smem = GA.kernel_geometry(C, D, K)
+    g0 = GA.kernel_geometry(C, D, K)
+    bf, smem = g0.rows, g0.smem
     print(f"  gmm_align: {bf} frames a block, {smem} bytes of shared memory "
           f"a block (the kernel's own answer, as the wrapper's)")
     return dict(
@@ -946,18 +969,33 @@ def counters():
 SCAN_FORMS = (("", "float32"), ("_bf16", "bfloat16"), ("_f16", "float16"))
 
 
+# the i-vector kernels' new forms (phase 16): row -> ((wrapper, form), ...)
+# whose launches it sums
+IVEC_FORM_ROWS = {
+    "gmm_loglik_wide": (("gmm_loglik", "wide"),),
+    "gmm_rescore_strips": (("gmm_rescore", "strips"),),
+    "gmm_rescore_hist_global": (("gmm_rescore", "hist_global"),),
+    "gmm_align_wide": (("gmm_align", "wide"), ("gmm_rescore_fused", "wide")),
+    "gmm_align_spill": (("gmm_align", "spill"),)}
+
+
 def reset_counts() -> None:
     from repro_torch.kernels import selective_scan as SS
     from repro_torch.kernels import tvm_estep as TE
-    for w in counters().values():
+    ws = counters()
+    for w in ws.values():
         w.launches = 0
+    for parts in IVEC_FORM_ROWS.values():
+        for name, form in parts:
+            ws[name].by_form[form] = 0
     TE.reset_counts()
     SS.reset_counts()
 
 
 def read_counts() -> dict:
     """Launches by kernel row: packed_matmul's by form (TVM_ROWS), the
-    scan's and its backward's by form (SCAN_FORMS)."""
+    scan's and its backward's by form (SCAN_FORMS), the i-vector kernels'
+    new forms (IVEC_FORM_ROWS)."""
     ws = counters()
     counts = {k: w.launches for k, w in ws.items()
               if k not in ("tvm_estep_l", "tvm_estep_a")}
@@ -966,6 +1004,8 @@ def read_counts() -> dict:
     for name in ("selective_scan", "selective_scan_bwd"):
         for suffix, sd in SCAN_FORMS:
             counts[name + suffix] = ws[name].by_form[sd]
+    for row, parts in IVEC_FORM_ROWS.items():
+        counts[row] = sum(ws[name].by_form[form] for name, form in parts)
     return counts
 
 
@@ -3476,7 +3516,17 @@ def registry_configs(cfg):
             ("flash_attention_bwd Jamba", "flash_attention_bwd",
              dict(B=1, S=4096, H=32, KVH=8, hd=128, dtype="bfloat16")),
             ("selective_scan_bwd", "selective_scan_bwd",
-             dict(B=1, T=4096, di=8192, ds=16))]
+             dict(B=1, T=4096, di=8192, ds=16)),
+            # the i-vector kernels' new forms (phase 16)
+            ("gmm_loglik D=256", "gmm_loglik", dict(F=4096, C=C, D=256)),
+            ("gmm_rescore D=256", "gmm_rescore",
+             dict(F=1024, K=K, C=C, D=256)),
+            ("gmm_rescore C=65536", "gmm_rescore",
+             dict(F=8192, K=K, C=65536, D=D)),
+            ("bw_stats D=256", "bw_stats", dict(F=8192, C=C, D=256)),
+            ("gmm_align D=256", "gmm_align", dict(F=4096, C=C, D=256, K=K)),
+            ("gmm_align spill", "gmm_align",
+             dict(F=1024, C=8192, D=D, K=8192))]
     return out
 
 
@@ -3486,6 +3536,7 @@ def registry_on_card(cfg, rows):
     and through the CUDA runtime), and against the CUDA side's geometry
     where it exports it; then each kernel row's time against its bound."""
     from repro_torch.kernels import gmm_align as GA
+    from repro_torch.kernels import gmm_loglik as GL
     from repro_torch.kernels import gmm_rescore as GR
     from repro_torch.kernels import registry
     props = torch.cuda.get_device_properties(0)
@@ -3511,7 +3562,11 @@ def registry_on_card(cfg, rows):
         elif name == "gmm_rescore":
             g = GR.kernel_geometry(c["F"], c["K"], c["C"], c["D"])
             cuda = None if g is None else ((g.max_items,), g.smem_bytes)
-        if name in ("gmm_align", "gmm_rescore") and \
+        elif name == "gmm_loglik":
+            g = GL.kernel_geometry(c["D"])
+            cuda = None if g is None else (
+                (-(-c["C"] // GL.BN), -(-c["F"] // g.bm)), g.smem)
+        if name in ("gmm_align", "gmm_rescore", "gmm_loglik") and \
                 cuda != (inst.grid, inst.smem_bytes):
             fail(f"registry: {label} grid {inst.grid}, {inst.smem_bytes} "
                  f"bytes; the CUDA side's geometry: {cuda}")
@@ -6028,13 +6083,930 @@ def phase_15_alone(args, card: str, kind: str, build_s: float,
     return 0
 
 
+# Phase 16: the i-vector kernels' shape range. The boundary shapes of each
+# new form: (D, F) at C = 2048 for gmm_loglik and bw_stats, (D, C, F) at
+# K = 20 for gmm_rescore, (C, K, F) at D = 72 and (D, F) at C = 2048, K =
+# 20 for gmm_align. F keeps the plain version's operands under about 8 GB
+# (the plain gmm_loglik and bw_stats form [F, D^2], the plain gmm_rescore
+# gathers [F, K, D^2]) and the K = C alignments short (a frame rescores C
+# rows there)
+P16_LOGLIK = ((205, 4096), (254, 4096), (255, 4096), (256, 4096),
+              (512, 4096))
+P16_BW = ((255, 8192), (256, 8192), (512, 4096))
+P16_RESCORE = ((201, 2048, 2048), (256, 2048, 1024), (512, 2048, 256),
+               (72, 65536, 8192))
+P16_ALIGN_C = ((6273, 33, 4096), (6273, 64, 4096), (6273, 6273, 512),
+               (8192, 33, 4096), (8192, 64, 4096), (8192, 8192, 1024),
+               (65536, 33, 1024), (65536, 64, 1024), (65536, 65536, 128))
+P16_ALIGN_D = ((235, 4096), (256, 4096), (512, 4096))
+REPLACES = {"gmm_loglik": "src/repro/kernels/gmm_loglik.py:49",
+            "bw_stats": "src/repro/kernels/bw_stats.py:54",
+            "gmm_rescore": "src/repro/kernels/gmm_rescore.py:129",
+            "gmm_align": "src/repro/kernels/gmm_align.py:162"}
+# the kernels line's rows of the new forms -> the case whose shape each
+# takes; hist_global runs on no main path of this script (OFF_PATH)
+P16_ROWS = {"gmm_loglik_wide": "gmm_loglik D=256",
+            "gmm_rescore_strips": "gmm_rescore D=256 C=2048",
+            "gmm_rescore_hist_global": "gmm_rescore D=72 C=65536",
+            "gmm_align_wide": "gmm_align D=256 C=2048 K=20",
+            "gmm_align_spill": "gmm_align D=72 C=8192 K=8192"}
+# the D = 256 path: the paper's config at D = 256 (the smallest round
+# width past every old limit), its corpus (utterances x frames, every
+# component dealt an equal share), its serving requests, and the
+# components of its card-vs-CPU check
+P16_D = 256
+P16_UTTS, P16_FRAMES = 128, 512
+P16_REQUESTS = 32
+P16_CPU_C = 64
+# train_ubm at C = 8192 with the reference's default top_k=0 (K = C), on
+# P16_SPILL_UTTS x 512 frames
+P16_SPILL_C = 8192
+P16_SPILL_UTTS = 64
+
+
+def held_exact(label, got, want, exact, tol=TOL) -> float:
+    """A new form's output against its plain version (f32) and against the
+    plain version's formula evaluated in float64 (``exact``): held within
+    tol x max|exact| of the latter, since at D in the hundreds the f32
+    plain version carries the rounding of its own 10^4..10^5-term sums
+    (its distance from ``exact`` is printed beside). Returns the error
+    against the f32 plain version."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs().max().item()
+    e64 = (got - exact).abs().max().item()
+    p64 = (want - exact).abs().max().item()
+    scale = exact.abs().max().item()
+    ok = e64 <= tol * scale
+    print(f"  {label}: max_abs_err {e64:.3e} from the float64 value "
+          f"(tolerance {tol:g} x max|value| = {tol * scale:.3e}), "
+          f"{err:.3e} from the f32 plain version, whose own error is "
+          f"{p64:.3e}  {'ok' if ok else 'DISAGREES'}")
+    if not ok:
+        fail(f"{label} disagrees with its plain version's value")
+    return err
+
+
+def _rows_at_once(row_bytes: int) -> int:
+    """Rows of a float64 reference computed at once: about 1 GB of them."""
+    return max(1, (1 << 30) // max(row_bytes, 1))
+
+
+def exact_loglik(x, const, lin, Pf):
+    """``ref.gmm_loglik``'s formula in float64, in frame chunks."""
+    D = x.shape[1]
+    out = []
+    l64, P64 = lin.double(), Pf.double()
+    for s in range(0, x.shape[0], _rows_at_once(8 * D * D)):
+        xd = x[s:s + _rows_at_once(8 * D * D)].double()
+        e = (xd[:, :, None] * xd[:, None, :]).reshape(xd.shape[0], D * D)
+        out.append(const.double()[None] + xd @ l64 - 0.5 * (e @ P64.T))
+    return torch.cat(out)
+
+
+def exact_rescore(x, sel, A):
+    """``ref.gmm_rescore``'s formula on the packed rows in float64."""
+    F, D = x.shape
+    E = A.shape[1]
+    out = []
+    step = _rows_at_once(8 * sel.shape[1] * E)
+    for s in range(0, F, step):
+        xd = x[s:s + step].double()
+        rows = A[sel[s:s + step]].double()             # [f, K, E]
+        P = rows[..., 1 + D:1 + D + D * D].reshape(*rows.shape[:2], D, D)
+        q = torch.einsum("fi,fkij,fj->fk", xd, P, xd)
+        out.append(rows[..., 0] + torch.einsum("fd,fkd->fk", xd,
+                                               rows[..., 1:1 + D]) - 0.5 * q)
+    return torch.cat(out)
+
+
+def exact_fused(x, sel, A2):
+    """``ref.gmm_rescore_fused``'s formula in float64: the packed
+    expansion against the selected packed rows."""
+    from repro_torch.kernels import ref
+    out = []
+    step = _rows_at_once(8 * sel.shape[1] * A2.shape[1])
+    for s in range(0, x.shape[0], step):
+        xe = ref.expand_quadratic(x[s:s + step]).double()
+        rows = A2[sel[s:s + step]].double()            # [f, K, E2]
+        out.append(torch.einsum("fe,fke->fk", xe, rows))
+    return torch.cat(out)
+
+
+def p16_precisions(C: int, D: int, g, dev):
+    """const [C], lin [D, C], P_flat [C, D*D]: random SPD precisions."""
+    P = torch.empty((C, D, D), device=dev)
+    step = max(1, (1 << 28) // (D * D * 4))
+    for c0 in range(0, C, step):
+        a = torch.randn(min(step, C - c0), D, D, generator=g, device=dev)
+        P[c0:c0 + step] = (0.3 * a @ a.transpose(1, 2) / D
+                           + torch.eye(D, device=dev))
+    return (torch.randn(C, generator=g, device=dev),
+            torch.randn(D, C, generator=g, device=dev),
+            P.reshape(C, D * D))
+
+
+def p16_record(label, kernel: str, cfg: dict, err, fn, plain, library=None,
+               iters: int = 3) -> dict:
+    """A case's kernel and plain times, its bound (the registry's work) and
+    the bytes its form moves (the registry's ``moved``) over the memory
+    rate, and its library call's time where it has one."""
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels import registry
+    b_ms, b_by = bound(kernel, **cfg)
+    spec = registry.get(kernel)
+    rec = dict(label=label, kernel=kernel, cfg=cfg, max_abs_err=err,
+               ms=cuda_ms(fn, iters), plain_ms=cuda_ms(plain, 1),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=None if library is None else cuda_ms(library,
+                                                               iters),
+               moved_ms=spec.moved(spec.config(cfg)) / roofline.HW.hbm_bw
+               * 1e3)
+    lib = ("none" if library is None else f"{rec['library_ms']:.4f} ms")
+    print(f"  {label}: kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), its "
+          f"form's bytes {rec['moved_ms']:.4f} ms, library {lib}")
+    return rec
+
+
+def p16_geometry() -> dict:
+    """Each wrapper's geometry against the CUDA side's: gmm_loglik and
+    bw_stats at every D from 1 to 720, gmm_rescore and gmm_align at every
+    D from 1 to 512 for shapes on both sides of each old limit."""
+    from repro_torch.kernels import bw_stats as BW
+    from repro_torch.kernels import gmm_align as GA
+    from repro_torch.kernels import gmm_loglik as GL
+    from repro_torch.kernels import gmm_rescore as GR
+
+    def held(name, mine, theirs, shape):
+        try:
+            want = mine(*shape)
+        except ValueError:
+            want = None
+        got = theirs(*shape)
+        if want != got:
+            fail(f"{name}: geometry{shape} is {want} in the wrapper, {got} "
+                 f"in the kernel")
+        return want is not None
+
+    n = {"gmm_loglik": 0, "bw_stats": 0, "gmm_rescore": 0, "gmm_align": 0}
+    for D in range(1, 721):
+        n["gmm_loglik"] += held("gmm_loglik", GL.geometry,
+                                GL.kernel_geometry, (D,))
+        n["bw_stats"] += held(
+            "bw_stats", lambda d: BW.smem_bytes(d)
+            if BW.smem_bytes(d) <= BW.MAX_SMEM else None,
+            BW.kernel_smem, (D,))
+    for D in range(1, 513):
+        for shape in ((1000, 20, 2048, D), (1000, 20, 58113, D),
+                      (1000, 64, 65536, D)):
+            n["gmm_rescore"] += held("gmm_rescore", GR.geometry,
+                                     GR.kernel_geometry, shape)
+        for shape in ((2048, D, 20), (2048, D, 40), (2048, D, 2048),
+                      (6272, D, 40), (6273, D, 33), (8192, D, 8192),
+                      (65536, D, 64), (2048, D, 20, True)):
+            n["gmm_align"] += held("gmm_align", GA.geometry,
+                                   GA.kernel_geometry, shape)
+    held("gmm_rescore", GR.geometry, GR.kernel_geometry,
+         (2 ** 31 // 20 + 1, 20, 2048, 72))
+    print(f"  geometry equal on both sides: gmm_loglik and bw_stats at D = "
+          f"1..720 ({n['gmm_loglik']} and {n['bw_stats']} fit), "
+          f"gmm_rescore {n['gmm_rescore']} and gmm_align {n['gmm_align']} "
+          f"shapes at D = 1..512; gmm_rescore refuses F*K >= 2**31 on both")
+    return n
+
+
+def p16_loglik(g, dev) -> list:
+    """gmm_loglik at D = 205 .. 512 (the 64-frame form) against its plain
+    version, with torch.addmm over the packed expansion as its library
+    call; and D = 204, the last narrow D, once."""
+    from repro_torch.kernels import gmm_loglik as GL
+    from repro_torch.kernels import ref
+    recs = []
+    C = 2048
+    for D, F in ((204, 1024),) + P16_LOGLIK:
+        const, lin, Pf = p16_precisions(C, D, g, dev)
+        x = torch.randn(F, D, generator=g, device=dev)
+        geo = GL.geometry(D)
+        label = f"gmm_loglik D={D}"
+        err = held_exact(f"{label} [{F}x{D}] x C={C} ({geo.bm}-frame blocks"
+                         f"{', the table in device memory' if geo.wide else ''}"
+                         f")", GL.gmm_loglik(x, const, lin, Pf),
+                         ref.gmm_loglik(x, const, lin, Pf),
+                         exact_loglik(x, const, lin, Pf))
+        if D == 204:
+            continue
+        E2 = 1 + D + D * (D + 1) // 2
+        xp = ref.expand_quadratic(x)[:, 1:].contiguous()
+        wp = GL.packed_weights(const, lin, Pf)[1:E2, :C].contiguous()
+        recs.append(p16_record(
+            label, "gmm_loglik", dict(F=F, C=C, D=D), err,
+            lambda: GL.gmm_loglik(x, const, lin, Pf),
+            lambda: ref.gmm_loglik(x, const, lin, Pf),
+            lambda: torch.addmm(const, xp, wp)))
+        del const, lin, Pf, xp, wp
+        torch.cuda.empty_cache()
+    return recs
+
+
+def p16_gamma(F: int, C: int, K: int, g, dev):
+    """A top-K-like posterior [F, C]: K random components a frame with
+    random weights summing to one."""
+    idx = torch.randint(0, C, (F, K), generator=g, device=dev)
+    w = torch.rand(F, K, generator=g, device=dev)
+    gamma = torch.zeros(F, C, device=dev)
+    gamma.scatter_add_(1, idx, w / w.sum(1, keepdim=True))
+    return gamma
+
+
+def p16_bw(g, dev) -> list:
+    """bw_stats at D = 255, 256 and 512 (16-bit codes) against its plain
+    version on a top-20-like Γ, with torch.matmul(Γᵀ, X₂) over the packed
+    width as its library call."""
+    from repro_torch.kernels import bw_stats as BW
+    from repro_torch.kernels import ref
+    recs = []
+    C = 2048
+    for D, F in P16_BW:
+        x = torch.randn(F, D, generator=g, device=dev)
+        gamma = p16_gamma(F, C, 20, g, dev)
+        label = f"bw_stats D={D}"
+        err = max(compare(f"{label} {nm} [{F}x{C}]ᵀ [{F}x{D}]", a, w)
+                  for nm, a, w in zip("nfS", BW.bw_stats(gamma, x),
+                                      ref.bw_stats(gamma, x)))
+        touched = (gamma != 0).reshape(F, C // 128, 128).any(2).float() \
+            .mean().item()
+        i0, i1, _ = ref._quad_pairs(D, dev)
+        x2p = torch.cat([x[:, i0] * x[:, i1], x, torch.ones_like(x[:, :1])],
+                        1)
+        gT = gamma.T
+        rec = p16_record(label, "bw_stats", dict(F=F, C=C, D=D), err,
+                         lambda: BW.bw_stats(gamma, x),
+                         lambda: ref.bw_stats(gamma, x),
+                         lambda: torch.matmul(gT, x2p))
+        rec["touched_bound_ms"] = bound("bw_stats", F=F, C=C, D=D,
+                                        touched=touched)[0]
+        recs.append(rec)
+        del x2p, gT, gamma
+        torch.cuda.empty_cache()
+    return recs
+
+
+def p16_rescore(g, dev) -> list:
+    """gmm_rescore with P in strips (D = 201, 256, 512) and with its sort's
+    counts in device memory (C = 65,536) against its plain version, two
+    calls bitwise equal; no library call computes it."""
+    from repro_torch.kernels import gmm_rescore as GR
+    from repro_torch.kernels import ref
+    recs = []
+    K = 20
+    for D, C, F in P16_RESCORE:
+        Cs = min(C, 2048)       # C = 65,536: 2,048 precisions dealt out
+        const, lin, Pf = p16_precisions(Cs, D, g, dev)
+        if C > Cs:
+            rep = torch.arange(C, device=dev) % Cs
+            const = (const[rep] + torch.randn(C, generator=g, device=dev))
+            lin, Pf = lin[:, rep].contiguous(), Pf[rep]
+        A = ref.rescore_pack(const, lin, Pf)
+        x = torch.randn(F, D, generator=g, device=dev)
+        sel = torch.randint(0, C, (F, K), generator=g, device=dev)
+        geo = GR.geometry(F, K, C, D)
+        label = f"gmm_rescore D={D} C={C}"
+        got = GR.gmm_rescore(x, sel, A)
+        err = held_exact(f"{label} [{F}x{K}] (P in rows of {geo.strip}, "
+                         f"the sort's counts in "
+                         f"{'device' if geo.hist_global else 'shared'} "
+                         f"memory)", got,
+                         ref.gmm_rescore(x, sel, const, lin, Pf),
+                         exact_rescore(x, sel, A))
+        if not torch.equal(got, GR.gmm_rescore(x, sel, A)):
+            fail(f"{label}: two calls are not bitwise equal")
+        recs.append(p16_record(
+            label, "gmm_rescore", dict(F=F, K=K, C=C, D=D,
+                                       rows_touched=torch.unique(sel)
+                                       .numel()), err,
+            lambda: GR.gmm_rescore(x, sel, A),
+            lambda: ref.gmm_rescore(x, sel, const, lin, Pf)))
+        del const, lin, Pf, A, got
+        torch.cuda.empty_cache()
+    print("  gmm_rescore: two calls bitwise equal at every shape")
+    return recs
+
+
+def p16_diag(C: int, D: int, g, dev):
+    """A random diagonal GMM's preselect coefficients (dconst [C], dlin,
+    dquad [D, C]) and its means and deviations, to draw frames from."""
+    from repro_torch.core import ubm as U
+    w = torch.rand(C, generator=g, device=dev) + 0.5
+    means = torch.randn(C, D, generator=g, device=dev)
+    var = torch.rand(C, D, generator=g, device=dev) + 0.5
+    coeffs = tuple(t.contiguous() for t in
+                   U.diag_coeffs(U.DiagGMM(w / w.sum(), means, var)))
+    return coeffs, means, var.sqrt()
+
+
+def held_select_order(label, x, dconst, dlin, dquad, A2, K, sel) -> None:
+    """The spill form's selection held in its order, on every frame: the
+    kernel run again with a scratch of the caller's, whose first F x Cp
+    words then hold the preselect's scores. Those are held to TOL of the
+    plain diagonal scores, and the select must give, slot by slot, what a
+    stable descending sort of them gives (best first, ties to the lowest
+    id, -0 as +0; a slot past the scores above -inf takes id 0), and the
+    same as the first run. For frames with no NaN."""
+    from repro_torch.kernels import gmm_align as GA
+    F, C = x.shape[0], dconst.shape[0]
+    Cp = -(-C // GA.NC) * GA.NC
+    scratch = torch.empty(GA.spill_words(F, C, K), dtype=torch.int32,
+                          device=x.device)
+    _, sel2 = GA.gmm_align(x, dconst, dlin, dquad, A2, K, scratch=scratch)
+    scores = scratch[:F * Cp].view(torch.float32).view(F, Cp)[:, :C]
+    plain = dconst[None] + x @ dlin + (x * x) @ dquad
+    fin = torch.isfinite(plain)
+    compare(f"gmm_align {label} preselect scores", scores[fin], plain[fin])
+    if not torch.equal(scores[~fin], plain[~fin]):
+        fail(f"gmm_align {label}: the preselect's -inf scores differ")
+    best = torch.sort(scores, dim=1, descending=True, stable=True)
+    want = torch.where(best.values[:, :K] == float("-inf"), 0,
+                       best.indices[:, :K])
+    same = (sel2 == want).all(dim=1)
+    print(f"  gmm_align {label}: the select's order equals a stable sort of "
+          f"its scores on {same.sum().item()} of {F} frames (all required)")
+    if not same.all():
+        fail(f"gmm_align {label}: the select orders its K otherwise")
+    if not torch.equal(sel2, sel):
+        fail(f"gmm_align {label}: two runs select differently")
+
+
+def p16_align(g, dev) -> list:
+    """gmm_align's spill form (K > 32 past the whole-row blocks: C = 6273,
+    8192 and 65,536 at K = 33, 64 and C) and wide phase B (D = 235, 256,
+    512 at C = 2048, K = 20) against the plain preselect + packed rescore
+    (``held_align``: the selected sets, the share that agrees printed;
+    the spill form's order too, ``held_select_order``); the spill form's
+    NaN rule and zero-weight components against
+    ``ref.argmax_topk``; the spill form's device time by launch."""
+    from repro_torch.kernels import gmm_align as GA
+    from repro_torch.kernels import ref
+    recs = []
+    cases = ([(72, C, K, F) for C, K, F in P16_ALIGN_C]
+             + [(D, 2048, 20, F) for D, F in P16_ALIGN_D])
+    for D, C, K, F in cases:
+        (dconst, dlin, dquad), mu, sd = p16_diag(C, D, g, dev)
+        const, lin, Pf = p16_precisions(min(C, 2048), D, g, dev)
+        if C > 2048:
+            rep = torch.arange(C, device=dev) % 2048
+            const, lin, Pf = const[rep], lin[:, rep], Pf[rep]
+        A2 = ref.align_pack(const, lin, Pf)
+        del const, lin, Pf
+        comp = torch.randint(0, C, (F,), generator=g, device=dev)
+        x = mu[comp] + sd[comp] * torch.randn(F, D, generator=g, device=dev)
+        geo = GA.geometry(C, D, K)
+        label = f"gmm_align D={D} C={C} K={K}"
+        form = "spill" if geo.spill else "stream" if geo.stream else "rows"
+        err, sel = held_align(f"D={D} C={C} K={K} [{F}x{D}] ({form}"
+                              f"{', wide phase B' if geo.wide else ''})",
+                              x, dconst, dlin, dquad, A2, K,
+                              exact=geo.wide)
+        if geo.spill:
+            held_select_order(f"D={D} C={C} K={K} [{F}x{D}]", x, dconst,
+                              dlin, dquad, A2, K, sel)
+        rec = p16_record(label, "gmm_align",
+                         dict(F=F, C=C, D=D, K=K,
+                              rows_touched=torch.unique(sel).numel()), err,
+                         lambda: GA.gmm_align(x, dconst, dlin, dquad, A2, K),
+                         lambda: ref.gmm_align(x, dconst, dlin, dquad, A2, K),
+                         iters=2)
+        rec["form"] = form
+        if label == P16_ROWS["gmm_align_spill"]:
+            prof = profile_path(lambda: GA.gmm_align(x, dconst, dlin, dquad,
+                                                     A2, K))
+            rec["by_launch"] = prof["top"]
+            print(f"  {label}, device ms by launch: "
+                  + "; ".join(f"{short_name(n)} {ms:.4f}"
+                              for n, ms, _ in prof["top"][:4]))
+        if geo.spill and K == 64 and C == 8192:
+            # the NaN rule and zero-weight components, as phase 3 holds
+            # the streaming and whole-row instances
+            xn = x[:1000].clone()
+            xn[3] = float("nan")
+            dn = dconst.clone()
+            dn[C - 1] = float("nan")
+            _, seln = held_align(f"D={D} C={C} K={K} NaN rule", xn, dn, dlin, dquad,
+                                 A2, K, ref.argmax_topk(ref.diag_topk(
+                                     xn, dn, dlin, dquad, K)[0], K))
+            if not ((seln[3] == C - 1).all() and (seln[:, 0] == C - 1)
+                    .all()):
+                fail("gmm_align's spill form breaks the NaN rule")
+            finite = torch.arange(5, C, 150, device=dev)
+            dz = torch.full_like(dconst, float("-inf"))
+            dz[finite] = dconst[finite]
+            _, selz = held_align(f"D={D} C={C} K={K} zero-weight components",
+                                 x[:1000].contiguous(), dz, dlin, dquad, A2,
+                                 K, ref.argmax_topk(ref.diag_topk(
+                                     x[:1000], dz, dlin, dquad, K)[0], K))
+            if not (selz[:, finite.numel():] == 0).all():
+                fail("gmm_align's spill form breaks the -inf rule")
+            held_select_order(f"D={D} C={C} K={K} zero-weight components",
+                              x[:1000].contiguous(), dz, dlin, dquad, A2, K,
+                              selz)
+        recs.append(rec)
+        del A2, x, sel
+        torch.cuda.empty_cache()
+    return recs
+
+
+def p16_synthetic(cfg, seed: int, dev):
+    """The D = 256 system and corpus: a random full-covariance UBM and TVM
+    (``synthetic_system``), P16_UTTS x P16_FRAMES frames drawn from it with
+    every component dealt an equal share, then the frames and the UBM moved
+    by one affine map that gives the frames zero mean and unit variance a
+    dimension (the normalisation that keeps the M-step's Σ definite; the
+    UBM still describes the frames exactly)."""
+    from repro_torch.core import tvm as TV
+    from repro_torch.core import ubm as U
+    ubm, _, g = synthetic_system(cfg, seed, dev)
+    feats = synthetic_corpus(ubm, P16_UTTS, P16_FRAMES, g,
+                             every_component=True)
+    flat = feats.reshape(-1, feats.shape[-1])
+    mu, sd = flat.mean(0), flat.std(0)
+    feats = (feats - mu) / sd
+    ubm = U.FullGMM(ubm.weights, (ubm.means - mu) / sd,
+                    ubm.covs / (sd[:, None] * sd[None, :]))
+    model = TV.init_model(g, ubm.means, ubm.covs, cfg.ivector_dim,
+                          cfg.formulation, prior_offset=cfg.prior_offset)
+    return ubm, model, feats, g
+
+
+def p16_rung_stats(cfg, ubm, feats, dev) -> dict:
+    """The three rungs' statistics of the same 32 utterances with no
+    posterior floor (``engine.chunk_body``: alignment, then n, f and the
+    full S through bw_stats): the sparse and fused rungs against the dense
+    one, each of n, f and S within RUNG_TOL x its max|value| (phase 10's
+    limit). -> (readings, launches by rung)."""
+    from repro_torch.core import engine as EN
+    pack = EN.pack_ubm(ubm, dev)
+    stats, launches = {}, {}
+    for rung in ("dense", "sparse", "fused"):
+        spec = EN.EngineSpec(n_components=cfg.n_components,
+                             top_k=cfg.posterior_top_k, floor=0.0,
+                             second_order="full", rescore=rung)
+        reset_counts()
+        cs = EN.chunk_body(spec, pack, feats[:32])
+        _sync(dev)
+        launches[rung] = read_counts()
+        stats[rung] = (cs.n, cs.f, cs.S)
+    read = {}
+    for rung in ("sparse", "fused"):
+        read[rung] = max(rel_err(a, w) for a, w in
+                         zip(stats[rung], stats["dense"]))
+        print(f"  D={P16_D} rungs: {rung} against dense, n, f and S of 32 "
+              f"utterances, no floor: {read[rung]:.3e} x max|value| "
+              f"(tolerance {RUNG_TOL})")
+        if read[rung] > RUNG_TOL:
+            fail(f"D={P16_D}: the {rung} rung disagrees with the dense one")
+    return read, launches
+
+
+def f64_ivectors(model, n, f):
+    """``tvm.extract_ivectors`` in float64 on the float64 model: the
+    posterior's solve on L = I + sum_c n_c T_c' S_c^-1 T_c. Statistics
+    raw (augmented) or centred (standard), as the session hands them ->
+    (i-vectors [u, R] centred at the prior, not length-normalised; |phi|
+    [u]; the condition number of L [u])."""
+    T, S = model.T.double(), model.Sigma.double()
+    Pj = torch.cholesky_solve(T, torch.linalg.cholesky(S))
+    U = T.transpose(1, 2) @ Pj
+    U = 0.5 * (U + U.transpose(1, 2))
+    u, C, D = f.shape
+    R = T.shape[2]
+    prior = model.prior.double()
+    L = torch.eye(R, dtype=torch.float64, device=n.device) + torch.einsum(
+        "uc,crs->urs", n.double(), U)
+    del U
+    phi = torch.linalg.solve(L, prior[None] + f.reshape(u, C * D).double()
+                             @ Pj.reshape(C * D, R))
+    ev = torch.linalg.eigvalsh(L)
+    return phi - prior[None], phi.norm(dim=1), ev[:, -1] / ev[:, 0]
+
+
+def p16_conditioning(label: str, cfg, model, ubm, reqs, served,
+                     dev) -> dict:
+    """What the rungs' served i-vectors of a trained model (``served``: rung
+    -> [N, R], unit length) differ by, taken apart. The requests'
+    statistics on each rung (``engine.chunk_body`` on one padded batch, the
+    session's floor), and from them:
+
+      * the float64 extraction (``f64_ivectors``): the i-vectors the rungs'
+        statistics decide. Held: the rungs within IVEC_TOL of each other.
+      * the plain f32 extraction (``tvm.precompute`` 'dense' and its
+        Cholesky solve; no kernel) against float64: e_plain, the largest
+        over the rungs, the f32 solve's own error on this model.
+      * the session's f32 extraction (packed E-step kernel) of the same
+        statistics against float64, and the served rungs' gap: each held
+        to IVEC_TOL + 2 e_plain (a gap is two f32 solves of one system
+        apart, each off by e_plain's order; where that is far below
+        IVEC_TOL, the solves' own forms differ by more than their ratio).
+
+    All on unit i-vectors; |phi|, |phi - prior| and the condition number
+    of L printed. -> readings."""
+    from dataclasses import replace
+    from repro_torch.core import engine as EN
+    from repro_torch.core import stats as ST
+    from repro_torch.core import tvm as TV
+    from repro_torch.serving import IVectorExtractor, ServingConfig
+
+    def unit(v):
+        v = v.double()
+        return v / v.norm(dim=-1, keepdim=True)
+
+    D = cfg.feat_dim
+    frames = max(r.shape[0] for r in reqs)
+    x = torch.zeros(len(reqs), frames, D, device=dev)
+    m = torch.zeros(len(reqs), frames, device=dev)
+    for i, r in enumerate(reqs):
+        x[i, :r.shape[0]] = torch.from_numpy(r).to(dev)
+        m[i, :r.shape[0]] = 1
+    pre_plain = TV.precompute(model, estep="dense", device=dev)
+    iv64, e_plain, e_kernel = {}, 0.0, 0.0
+    for rung in ("sparse", "dense", "fused"):
+        ex = IVectorExtractor(cfg.with_overrides(rescore=rung), model, ubm,
+                              ServingConfig(), device=dev)
+        cs = EN.chunk_body(replace(ex._spec, rescore=rung), ex._pack, x, m)
+        n, f = cs.n, cs.f
+        if model.formulation == "standard":
+            stc = ST.center(ST.BWStats(n, f, None), model.means)
+            n, f = stc.n, stc.f
+        iv64[rung], phi_norm, kappa = f64_ivectors(model, n, f)
+        want = unit(iv64[rung])
+        e_plain = max(e_plain, float((unit(TV.extract_ivectors(
+            model, pre_plain, n, f)) - want).abs().max()))
+        e_kernel = max(e_kernel, float((unit(TV.extract_ivectors(
+            model, ex._tv_pre, n, f, estep_dtype=cfg.estep_dtype))
+            - want).abs().max()))
+        del ex, cs, n, f
+    del pre_plain
+    torch.cuda.empty_cache()
+    rec = {"e_plain": e_plain, "e_kernel": e_kernel,
+           "kappa": [float(kappa.min()), float(kappa.max())],
+           "phi_norm": [float(phi_norm.min()), float(phi_norm.max())],
+           "ivec_norm": [float(iv64["dense"].norm(dim=1).min()),
+                         float(iv64["dense"].norm(dim=1).max())]}
+    limit = IVEC_TOL + 2 * e_plain
+    print(f"  {label}: L's condition number {rec['kappa'][0]:.3e} to "
+          f"{rec['kappa'][1]:.3e}; |phi| {rec['phi_norm'][0]:.1f} to "
+          f"{rec['phi_norm'][1]:.1f} against |phi - prior| "
+          f"{rec['ivec_norm'][0]:.2f} to {rec['ivec_norm'][1]:.2f}; the "
+          f"plain f32 extraction from float64 {e_plain:.3e}, the session's "
+          f"{e_kernel:.3e} (tolerance {IVEC_TOL} + 2 x {e_plain:.3e} = "
+          f"{limit:.3e})")
+    if e_kernel > limit:
+        fail(f"{label}: the session's extraction is further from float64 "
+             "than f32 rounding on this model explains")
+    for rung in ("dense", "fused"):
+        d64 = float((unit(iv64[rung]) - unit(iv64["sparse"])).abs().max())
+        gap = float(np.abs(served[rung] - served["sparse"]).max())
+        rel = gap / float(np.abs(served["sparse"]).max())
+        rec[f"f64_sparse_vs_{rung}"] = d64
+        rec[f"served_sparse_vs_{rung}"] = gap
+        print(f"  {label}, sparse vs {rung}: the float64 extractions of "
+              f"the rungs' statistics {d64:.3e} (tolerance {IVEC_TOL}); "
+              f"served {gap:.3e}, {rel:.3e} x max|i-vector| (tolerance "
+              f"{limit:.3e})")
+        if d64 > IVEC_TOL:
+            fail(f"{label}: the {rung} rung's statistics decide other "
+                 "i-vectors than the sparse rung's")
+        if gap > limit:
+            fail(f"{label}: the sparse and {rung} rungs serve i-vectors "
+                 "further apart than f32 rounding on this model explains")
+    return rec
+
+
+def p16_trained_d72(seed: int, dev) -> dict:
+    """The D = 256 run's trained-model check at the paper's D = 72 (the
+    forms before phase 16's): the same corpus size, 2 EM iterations, the
+    same requests served on each rung, ``p16_conditioning``."""
+    from repro_torch.configs.ivector_tvm import CONFIG
+    from repro_torch.core import trainer as TR
+    from repro_torch.serving import IVectorExtractor, ServingConfig
+    cfg = CONFIG
+    ubm, _, feats, _ = p16_synthetic(cfg, seed, dev)
+    state = TR.train(cfg, ubm, feats, n_iters=2,
+                     generator=torch.Generator().manual_seed(seed),
+                     device=dev)
+    reqs = [feats[i % P16_UTTS, :256 + 8 * i].cpu().numpy()
+            for i in range(P16_REQUESTS)]
+    served = {rung: IVectorExtractor(cfg.with_overrides(rescore=rung),
+                                     state.model, ubm, ServingConfig(),
+                                     device=dev).extract(reqs)
+              for rung in ("sparse", "dense", "fused")}
+    rec = p16_conditioning(f"D={cfg.feat_dim} trained model", cfg,
+                           state.model, ubm, reqs, served, dev)
+    del state, ubm, feats
+    torch.cuda.empty_cache()
+    return rec
+
+
+def p16_vs_cpu(cfg, seed: int, dev) -> dict:
+    """The D = 256 path at C = P16_CPU_C on the card and on the CPU's
+    plain versions: the statistics pass (fused rung; n and f) and the
+    i-vectors of four requests served on the sparse and fused rungs, each
+    within IVEC_TOL x max|value| with no posterior floor; at the config's
+    floor the same readings are printed, not held (a posterior the two
+    sides round across the floor drops out on one side only). Then the
+    model of 2 EM iterations on the card (the whole corpus) serves the
+    same requests on both sides, held alike with no floor."""
+    from repro_torch.core import trainer as TR
+    from repro_torch.serving import IVectorExtractor, ServingConfig
+    cfg_c = cfg.with_overrides(n_components=P16_CPU_C, rescore="fused")
+    ubm, model, corpus, g = p16_synthetic(cfg_c, seed + 2, dev)
+    cpu = torch.device("cpu")
+    feats = corpus[:16, :256].contiguous()
+    reqs = [feats[i, :200 + 16 * i].cpu().numpy() for i in range(4)]
+    sides = (("card", dev), ("cpu", cpu))
+    out = {}
+    for floor in (cfg.posterior_floor, 0.0):
+        c0 = cfg_c.with_overrides(posterior_floor=floor)
+        st = {w: TR.stats_ll(c0, ubm.to(d), feats.to(d))[0]
+              for w, d in sides}
+        read = {k: rel_err(getattr(st["card"], k).cpu(),
+                           getattr(st["cpu"], k)) for k in ("n", "f")}
+        for rung in ("sparse", "fused"):
+            c = c0.with_overrides(rescore=rung)
+            iv = {w: IVectorExtractor(c, model.to(d), ubm.to(d),
+                                      ServingConfig(max_batch=4),
+                                      device=d).extract(reqs)
+                  for w, d in sides}
+            read[f"ivectors_{rung}"] = float(
+                np.abs(iv["card"] - iv["cpu"]).max()
+                / np.abs(iv["cpu"]).max())
+        held = floor == 0.0
+        for k, v in read.items():
+            print(f"  D={P16_D} C={P16_CPU_C} card vs CPU plain path, floor "
+                  f"{floor}, {k}: {v:.3e} x max|value| "
+                  f"({f'tolerance {IVEC_TOL}' if held else 'not held'})")
+            if held and v > IVEC_TOL:
+                fail(f"D={P16_D}: card and CPU disagree on {k}")
+        out[f"floor{floor}"] = read
+    trained = TR.train(cfg_c, ubm, corpus, n_iters=2,
+                       generator=torch.Generator().manual_seed(seed),
+                       device=dev).model
+    c0 = cfg_c.with_overrides(posterior_floor=0.0)
+    for rung in ("sparse", "fused"):
+        iv = {w: IVectorExtractor(c0.with_overrides(rescore=rung),
+                                  trained.to(d), ubm.to(d),
+                                  ServingConfig(max_batch=4),
+                                  device=d).extract(reqs)
+              for w, d in sides}
+        v = float(np.abs(iv["card"] - iv["cpu"]).max()
+                  / np.abs(iv["cpu"]).max())
+        out[f"trained_ivectors_{rung}"] = v
+        print(f"  D={P16_D} C={P16_CPU_C} trained model (2 EM iterations) "
+              f"card vs CPU plain path, floor 0.0, ivectors_{rung}: "
+              f"{v:.3e} x max|value| (tolerance {IVEC_TOL})")
+        if v > IVEC_TOL:
+            fail(f"D={P16_D}: card and CPU serve the trained model's "
+                 f"i-vectors apart on the {rung} rung")
+    return out
+
+
+def p16_path(seed: int, dev):
+    """The i-vector main path at D = 256, C = 2048, R = 400, K = 20:
+    train_ubm (1 diagonal + 1 full iteration, dense rung), the three rungs'
+    statistics, the statistics pass, 2 TVM EM iterations (twice: bitwise
+    equal), extraction, P16_REQUESTS requests served on the sparse, dense
+    and fused rungs (the trained model's gap taken apart and held by
+    ``p16_conditioning``, and the same at D = 72); then card against CPU at
+    C = 64. -> (record, launches by run)."""
+    from repro_torch.configs.ivector_tvm import CONFIG
+    from repro_torch.core import trainer as TR
+    from repro_torch.core import ubm as U
+    from repro_torch.serving import IVectorExtractor, ServingConfig
+    cfg = CONFIG.with_overrides(feat_dim=P16_D)
+    rec, paths = {}, {}
+    t0 = time.perf_counter()
+    ubm, model, feats, g = p16_synthetic(cfg, seed, dev)
+    C, D = ubm.means.shape
+    rec["setup_s"] = time.perf_counter() - t0
+    print(f"  D={D} C={C} R={cfg.ivector_dim} K={cfg.posterior_top_k}: "
+          f"{P16_UTTS} utterances x {P16_FRAMES} frames drawn and "
+          f"normalised in {rec['setup_s']:.1f} s")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    ubm_t = U.train_ubm(feats.reshape(-1, D), C,
+                        torch.Generator(device=dev).manual_seed(seed),
+                        diag_iters=1, full_iters=1,
+                        top_k=cfg.posterior_top_k, device=dev)
+    _sync(dev)
+    rec["train_ubm_s"] = time.perf_counter() - t0
+    paths["d256_train_ubm"] = read_counts()
+    check_finite("D=256 train_ubm", ubm_t.weights, ubm_t.means, ubm_t.covs)
+    require_launches("D=256 train_ubm", paths["d256_train_ubm"],
+                     ("gmm_loglik_wide", "bw_stats"))
+    del ubm_t
+    print(f"  train_ubm (1 diag + 1 full iteration, top-20, dense rung): "
+          f"{rec['train_ubm_s']:.2f} s")
+
+    rec["rungs"], rung_paths = p16_rung_stats(cfg, ubm, feats, dev)
+    for rung, c in rung_paths.items():
+        paths[f"d256_rung_{rung}"] = c
+    require_launches("D=256 rungs", {
+        k: sum(c[k] for c in rung_paths.values()) for k in
+        ("gmm_loglik_wide", "gmm_rescore_strips", "gmm_align_wide",
+         "bw_stats")}, ("gmm_loglik_wide", "gmm_rescore_strips",
+                        "gmm_align_wide", "bw_stats"))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    st, _ = TR.stats_ll(cfg, ubm, feats)
+    _sync(dev)
+    rec["stats_pass_s"] = time.perf_counter() - t0
+    paths["d256_stats"] = read_counts()
+    del st
+    state, secs, diags, paths["d256_train"] = timed_train(cfg, ubm, feats, 2,
+                                                          seed, dev)
+    require_launches("D=256 train", paths["d256_train"],
+                     ("gmm_rescore_strips", "bw_stats",
+                      "tvm_estep_l_train", "tvm_estep_a"))
+    again = TR.train(cfg, ubm, feats, n_iters=2,
+                     generator=torch.Generator().manual_seed(seed),
+                     device=dev)
+    for a, b in ((state.model.T, again.model.T),
+                 (state.model.Sigma, again.model.Sigma),
+                 (state.model.prior, again.model.prior)):
+        if not torch.equal(a, b):
+            fail("D=256: two EM runs from the same state are not bitwise "
+                 "equal")
+    del again
+    rec.update(train_iter_s=secs, train_diag=diags)
+    print(f"  statistics pass {rec['stats_pass_s']:.2f} s; 2 EM iterations "
+          f"{', '.join(f'{t:.2f}' for t in secs)} s, repeated bitwise")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    iv = TR.extract(cfg, state, feats, device=dev)
+    _sync(dev)
+    rec["extract_s"] = time.perf_counter() - t0
+    paths["d256_extract"] = read_counts()
+    check_finite("D=256 extract", iv)
+    if iv.shape != (P16_UTTS, cfg.ivector_dim):
+        fail(f"D=256 extract: shape {tuple(iv.shape)}")
+    del iv
+    # served on each rung: with the trained model at the config's floor,
+    # whose rungs' gap p16_conditioning takes apart and holds (its L is
+    # conditioned far worse than the drawn model's: the f32 solve's own
+    # error sets the gap), then with the drawn model as phase 4 serves,
+    # with no floor (a posterior the rungs round across a floor drops out
+    # on one rung only), held to IVEC_TOL of each other
+    reqs = [feats[i % P16_UTTS, :256 + 8 * i].cpu().numpy()
+            for i in range(P16_REQUESTS)]
+    for which, mdl, floor, held in (
+            ("trained", state.model, cfg.posterior_floor, False),
+            ("drawn", model, 0.0, True)):
+        served = {}
+        for rung in ("sparse", "dense", "fused"):
+            ex = IVectorExtractor(cfg.with_overrides(
+                rescore=rung, posterior_floor=floor), mdl, ubm,
+                ServingConfig(), device=dev)
+            tag = f"d256_serve_{which}_{rung}"
+            served[rung], paths[tag], rec[tag + "_s"] = drive(
+                ex, reqs, f"D={D} served, {which} model, {rung} rung, "
+                f"floor {floor}")
+            check_ivectors(served[rung], len(reqs), cfg.ivector_dim,
+                           f"D={D} {rung}")
+            del ex
+        for rung in ("dense", "fused"):
+            d = float(np.abs(served[rung] - served["sparse"]).max())
+            rec[f"serve_{which}_sparse_vs_{rung}"] = d
+            print(f"  D={D} served, {which} model, floor {floor}, sparse vs "
+                  f"{rung}: max |diff| {d:.3e} "
+                  f"({f'tolerance {IVEC_TOL}' if held else 'held below'})")
+            if held and d > IVEC_TOL:
+                fail(f"D={D}: the sparse and {rung} rungs serve other "
+                     "i-vectors")
+        if which == "trained":
+            rec["conditioning"] = p16_conditioning(
+                f"D={D} trained model", cfg, state.model, ubm, reqs, served,
+                dev)
+    del state, ubm, model, feats
+    torch.cuda.empty_cache()
+    rec["conditioning_d72"] = p16_trained_d72(seed, dev)
+    rec["vs_cpu"] = p16_vs_cpu(cfg, seed, dev)
+    return rec, paths
+
+
+def p16_spill_train(seed: int, dev):
+    """train_ubm at C = 8192, D = 72 with the reference's default
+    top_k=0 (K = C), fused rung: one diagonal and one full iteration on
+    P16_SPILL_UTTS x 512 frames drawn from the phase-3 system, normalised;
+    the spill form must launch. -> (record, launches)."""
+    from repro_torch.configs.ivector_tvm import CONFIG
+    from repro_torch.core import ubm as U
+    ubm, _, g = synthetic_system(CONFIG, seed, dev)
+    x = synthetic_corpus(ubm, P16_SPILL_UTTS, 512, g).reshape(
+        -1, CONFIG.feat_dim)
+    x = (x - x.mean(0)) / x.std(0)
+    del ubm
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = U.train_ubm(x, P16_SPILL_C,
+                      torch.Generator(device=dev).manual_seed(seed),
+                      diag_iters=1, full_iters=1, top_k=0, rescore="fused",
+                      device=dev)
+    _sync(dev)
+    rec = {"seconds": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "frames": x.shape[0]}
+    launches = read_counts()
+    check_finite("train_ubm C=8192 top_k=0", out.weights, out.means,
+                 out.covs)
+    require_launches("train_ubm C=8192 top_k=0", launches,
+                     ("gmm_align_spill", "bw_stats"))
+    print(f"  train_ubm C={P16_SPILL_C} D={CONFIG.feat_dim} top_k=0 (K = "
+          f"C), fused, 1 diag + 1 full iteration on {x.shape[0]} frames: "
+          f"{rec['seconds']:.2f} s, peak {rec['peak_gb']:.1f} GB; spill "
+          f"launches {launches['gmm_align_spill']}")
+    del out, x
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def shapes_phase(seed: int, dev):
+    """Phase 16: the i-vector kernels' new forms, then the main-path runs
+    that take them. -> (kernel rows, launches by run, record)."""
+    rec = {}
+    g = torch.Generator(device=dev).manual_seed(seed + 16)
+    t0 = time.perf_counter()
+    rec["geometry"] = p16_geometry()
+    cases = (p16_loglik(g, dev) + p16_bw(g, dev) + p16_rescore(g, dev)
+             + p16_align(g, dev))
+    rec["cases"] = cases
+    rec["kernels_s"] = time.perf_counter() - t0
+    paths = {}
+    rec["d256"], d256_paths = p16_path(seed, dev)
+    paths.update(d256_paths)
+    rec["spill_train_ubm"], paths["spill_train_ubm"] = p16_spill_train(
+        seed, dev)
+    by_label = {c["label"]: c for c in cases}
+    sources = {"gmm_loglik": "gmm_loglik", "bw_stats": "bw_stats",
+               "gmm_rescore": "gmm_rescore", "gmm_align": "gmm_align"}
+    rows = []
+    for name, label in P16_ROWS.items():
+        c = by_label[label]
+        base = c["kernel"]
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/csrc/{sources[base]}.cu",
+            replaces=REPLACES[base], max_abs_err=c["max_abs_err"],
+            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=c["library_ms"],
+            moved_ms=c["moved_ms"], shape=c["cfg"]))
+    torch.cuda.empty_cache()
+    return rows, paths, rec
+
+
+def phase_16_alone(args, card: str, kind: str, build_s: float) -> int:
+    """``--phase 16``: phase 16 alone after the card and build steps, its
+    kernel rows' launches from its own main-path runs; writes
+    chiprun_out/chip_smoke_phase16.json and prints the kernels line of its
+    rows, the card and the contract line."""
+    dev = torch.device("cuda")
+    print(f"[16] the i-vector kernels' shape range ({card})")
+    t0 = time.perf_counter()
+    rows, paths, rec = shapes_phase(args.seed, dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 16 {rec['phase_s']:.1f} s")
+    for r in rows:
+        r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
+        r["on_path"] = r["name"] not in OFF_PATH
+        if r["on_path"] and r["launches"] == 0:
+            fail(f"no main-path run launched {r['name']}")
+    record = {"card": card, "build_s": build_s, "launches": paths,
+              "shapes": rec, "kernels": rows,
+              "command_s": time.perf_counter() - T_START}
+    print(f"chip_smoke: {record['command_s']:.1f} s from start")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_phase16.json").write_text(
+        json.dumps(record, indent=1, default=str))
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "on_path")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=64)
     # the kill -9 drill's child process (phase 8)
     ap.add_argument("--serve-child", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--phase", type=int, choices=(15,), default=None,
+    ap.add_argument("--phase", type=int, choices=(15, 16), default=None,
                     help="run only the card and build steps and this "
                     "phase, and print its kernel rows")
     args = ap.parse_args()
@@ -6101,6 +7073,8 @@ def main() -> int:
         print(f"  ptxas {k}: {v}")
     if args.phase == 15:
         return phase_15_alone(args, card, kind, build_s, ptxas_new)
+    if args.phase == 16:
+        return phase_16_alone(args, card, kind, build_s)
 
     # 3. model, session and kernel checks at the serving path's shapes
     dev = torch.device("cuda")
@@ -6293,21 +7267,36 @@ def main() -> int:
     print(f"  phase 15 {refusals['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # 16. the i-vector kernels' shape range: gmm_align past C = 6272 at
+    # K > 32 (the spill form) and past D = 234, gmm_rescore past D = 200
+    # and C = 58,112, gmm_loglik past D = 204, bw_stats past D = 254; the
+    # path at D = 256; train_ubm at C = 8192 with top_k=0
+    print(f"[16] the i-vector kernels' shape range ({card})")
+    t0 = time.perf_counter()
+    shape_rows, shape_paths, shapes = shapes_phase(args.seed, dev)
+    shapes["phase_s"] = time.perf_counter() - t0
+    rows += shape_rows
+    print(f"  phase 16 {shapes['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
     # training runs, the eleven LM serving runs, the recipe's runs, the
     # streaming and demotion runs, the two supervised runs, every
     # rank's runs of the mesh phase and phase 13's LM training runs
-    # (StableLM's 3 steps, 2 of each LM_TRAIN run, the supervised drill)
-    # and phase 15's runs (Jamba served and trained at scan_dtype bf16, the
-    # bf16 SMOKE prefills and steps, the f16 and d_state-64 SMOKE runs);
+    # (StableLM's 3 steps, 2 of each LM_TRAIN run, the supervised drill),
+    # phase 15's runs (Jamba served and trained at scan_dtype bf16, the
+    # bf16 SMOKE prefills and steps, the f16 and d_state-64 SMOKE runs)
+    # and phase 16's (the D = 256 path's train_ubm, rungs, statistics,
+    # training, extraction and serving, train_ubm at C = 8192);
     # the repeat runs and the checks against plain paths not included.
     # packed_matmul's bf16 forms are held and timed here, but no path of
-    # this script runs the E-step with bf16 inputs (OFF_PATH).
+    # this script runs the E-step with bf16 inputs, and none runs
+    # gmm_rescore at C above 58,112 (OFF_PATH).
     paths = {"sparse": launches_sparse, "dense": launches_dense,
              "fused": launches_fused, **train["launches"], **lm_paths,
              **recipe_paths, **stream_paths, **sup_paths, **mesh_paths,
-             **train_paths, **lm_mesh_paths, **ref_paths}
+             **train_paths, **lm_mesh_paths, **ref_paths, **shape_paths}
     # gmm_align's row counts both entries of csrc/gmm_align.cu: the fused
     # launch and the rescore alone (gmm_rescore_fused, the mesh's fused
     # rung)
@@ -6333,12 +7322,14 @@ def main() -> int:
               "recipe": recipe, "streaming": stream, "supervised": sup,
               "mesh": mesh, "analysis": analysis, "lowering": lowering,
               "lm_training": lm_train, "lm_mesh": lm_mesh,
-              "refusals": refusals, "ptxas_new": ptxas_new, "kernels": rows}
+              "refusals": refusals, "shapes": shapes,
+              "ptxas_new": ptxas_new, "kernels": rows}
     record["command_s"] = time.perf_counter() - T_START
     print(f"chip_smoke: {record['command_s']:.1f} s from start")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    (out / "chip_smoke.json").write_text(json.dumps(record, indent=1,
+                                                    default=str))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "on_path")

@@ -13,9 +13,10 @@ work whichever implementation runs. ``RooflineReport`` carries a whole
 step's counts (``analysis/op_cost.py``) with the reference's fields and
 ``row()`` keys; ``roofline_from_counts`` builds one.
 
-``align_cost_model`` and ``autotune_align`` model the two instances the
-CUDA ``gmm_align`` has (``kernels/gmm_align.geometry``) and pick the one
-``geometry`` picks; they predict, they never choose what runs.
+``align_cost_model`` and ``autotune_align`` model the instances the CUDA
+``gmm_align`` has (``kernels/gmm_align.geometry``: streaming, whole-row
+and spill) and pick the one ``geometry`` picks; they predict, they never
+choose what runs.
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ class AlignTune:
     """The fused-alignment instance for one (C, K, D) cell: what
     ``geometry`` launches, with the model's time for it and for every
     instance the kernel admits there."""
-    instance: str            # 'stream' (64-frame blocks) | 'rows'
+    instance: str            # 'stream' (64-frame blocks) | 'rows' | 'spill'
     block_f: int             # frames a block keeps
     smem_bytes: int
     t_predicted: float       # model seconds for ``frames`` frames
@@ -105,10 +106,15 @@ def align_cost_model(C: int, K: int, D: int, *, block_f: int,
     block_f), plus x once. The rescore does 2·F·K·E2 operations and reads
     one packed row (E2 floats) per (frame, slot) pair; ll (f32) and sel
     (int64) are written once. ``rescore_only`` (``gmm_rescore_fused``)
-    has no preselect and reads sel instead of writing it.
+    has no preselect and reads sel instead of writing it. The spill form
+    (64-frame preselect blocks) adds, between the two, its score rows [F,
+    C] written and read back by the select (the NaN scan, 4 radix-select
+    passes where K < C, the compaction) and the K keys and ids written by
+    the compaction and by each of its 4 sort passes, which read them twice.
     """
-    if instance not in ("stream", "rows"):
-        raise ValueError(f"instance must be 'stream' or 'rows': {instance!r}")
+    if instance not in ("stream", "rows", "spill"):
+        raise ValueError(f"instance must be 'stream', 'rows' or 'spill': "
+                         f"{instance!r}")
     E2 = 1 + D + D * (D + 1) // 2
     F = frames
     peak = hw.peak("float32")
@@ -117,6 +123,9 @@ def align_cost_model(C: int, K: int, D: int, *, block_f: int,
     if rescore_only:
         return t + 4.0 * F * D / hw.hbm_bw
     blocks = -(-F // block_f)
+    if instance == "spill":
+        t += (4.0 * F * C * (3 + (4 if K < C else 0))
+              + 8.0 * F * K * 13) / hw.hbm_bw
     return t + max(2.0 * F * C * (2 * D + 1) / peak,
                    (4.0 * F * D + 4.0 * blocks * C * (2 * D + 1))
                    / hw.hbm_bw)
@@ -126,18 +135,30 @@ def _admitted(C: int, K: int, D: int, rescore_only: bool):
     """(instance, frames a block, shared memory) of every instance the
     kernel can run at these shapes: the streaming one for K <= STREAM_K
     and for the rescore alone; the whole-row one, 16 or 8 frames, for any
-    K of a full alignment; each where it fits in a block's shared
-    memory."""
+    K of a full alignment; each where it fits in a block's shared memory,
+    with phase B's pair table there or, wide, in device memory; and the
+    spill form for K > STREAM_K where no whole-row block fits."""
+    def fits(stream: bool, bf: int):
+        for wide in (False, True):
+            smem = _ga.smem_bytes(C, D, stream, bf, wide)
+            if smem <= _ga.MAX_SMEM:
+                return smem
+        return None
+
     out = []
     if rescore_only or K <= _ga.STREAM_K:
-        smem = _ga.smem_bytes(C, D, True, _ga.BF_STREAM)
-        if smem <= _ga.MAX_SMEM:
+        smem = fits(True, _ga.BF_STREAM)
+        if smem is not None:
             out.append(("stream", _ga.BF_STREAM, smem))
     if not rescore_only:
         for bf in _ga.BF_ROWS:
-            smem = _ga.smem_bytes(C, D, False, bf)
-            if smem <= _ga.MAX_SMEM:
+            smem = fits(False, bf)
+            if smem is not None:
                 out.append(("rows", bf, smem))
+        if K > _ga.STREAM_K and not out:
+            smem = _ga.smem_bytes(C, D, False, _ga.BF_STREAM, spill=True)
+            if smem <= _ga.MAX_SMEM and fits(True, _ga.BF_STREAM):
+                out.append(("spill", _ga.BF_STREAM, smem))
     return out
 
 
@@ -158,19 +179,19 @@ def autotune_align(C: int, K: int, D: int, *, device=None,
     import torch
     dev = torch.device("cuda" if device is None else device)
     hw = CPU_HW if dev.type == "cpu" else HW
-    rows, stream, smem = _ga.geometry(C, D, K, rescore_only)
+    g = _ga.geometry(C, D, K, rescore_only)
     cands = tuple(
         (inst, bf, align_cost_model(C, K, D, block_f=bf, instance=inst,
                                     frames=frames,
                                     rescore_only=rescore_only, hw=hw))
         for inst, bf, _ in _admitted(C, K, D, rescore_only))
     win = min(cands, key=lambda c: c[2])     # ties go to the first listed
-    pick = ("stream" if stream else "rows", rows)
+    pick = ("spill" if g.spill else "stream" if g.stream else "rows", g.rows)
     if win[:2] != pick:
         raise RuntimeError(f"autotune_align: the model picks {win[:2]}, "
                              f"geometry launches {pick}")
-    # either instance scores one packed row per (frame, slot) pair
-    return AlignTune(instance=pick[0], block_f=rows, smem_bytes=smem,
+    # every instance scores one packed row per (frame, slot) pair
+    return AlignTune(instance=pick[0], block_f=g.rows, smem_bytes=g.smem,
                      t_predicted=win[2], rows_per_frame=K, candidates=cands)
 
 

@@ -23,10 +23,10 @@
 // rows through a 4-stage ring of 16-byte cp.async copies (zero-filled past
 // the run's frames and past C). X2 is never read from memory: the block
 // loads its 128 columns' entries of the wrapper's pair table
-// (kernels/bw_stats.pair_table: (i0, i1), with x's row extended by a 1 at
-// column D and a 0 at D+1) into shared memory at its start, and forms each
-// 16 x 128 slab of X2 = x_i0 x_i1 from the slab's x rows -- the next slab
-// while the current one multiplies, with one barrier per slab -- so the
+// (kernels/bw_stats.pair_table: i0 | i1 << 16, with x's row extended by a
+// 1 at column D and a 0 at D+1) into shared memory at its start, and forms
+// each 16 x 128 slab of X2 = x_i0 x_i1 from the slab's x rows -- the next
+// slab while the current one multiplies, with one barrier per slab -- so the
 // [F, D*D] expansion never reaches device memory, the property of the TPU
 // kernel worth keeping. Each thread holds an 8 x 8 tile of sums and reads
 // its operands as float4 from shared memory. Two blocks share an SM.
@@ -52,6 +52,10 @@
 // the ones column's to n. No partial sum crosses blocks any other way: no
 // atomics, and every output is summed in one fixed order (the result is
 // bitwise repeatable).
+//
+// Any D whose block fits in shared memory (D <= 710; 182,016 bytes at D =
+// 512): the codes' 16-bit fields index x's row at any such width. They
+// were 8-bit before, which capped D at 254.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -252,7 +256,7 @@ bw_stats_kernel(const float* __restrict__ G, const float* __restrict__ x,
   // this thread forms X2 column bn = tid % BN at slab rows tid / BN + 2r
   const int bn = tid % BN;
   const int code = pairs[bn];
-  const int i0 = code & 255, i1 = (code >> 8) & 255;
+  const int i0 = code & 0xffff, i1 = code >> 16;
   auto form_x2 = [&](int slab, int buf) {
     const float* xs = ring + (slab % STAGES) * SF + BK * BM;
     float* dst = Bs + buf * BK * BN;
@@ -329,7 +333,7 @@ __global__ void bw_stats_finish(const float* __restrict__ part,
   float v = 0.f;
   for (int z = 0; z < nsplit; ++z) v += part[((size_t)z * C + c) * Ep + e];
   const int code = table[e];
-  const int i0 = code & 255, i1 = (code >> 8) & 255;
+  const int i0 = code & 0xffff, i1 = code >> 16;
   if (i0 == D) {
     n_out[c] = v;
   } else if (i1 == D) {
@@ -355,7 +359,7 @@ extern "C" int bw_stats_f32(const float* G, const float* x, const int* table,
   if (err != cudaSuccess) return (int)err;
   const int E = D * (D + 1) / 2 + D + 1;
   const bool compact = list != nullptr;
-  if (D + 1 > 255 || Ep % BN != 0 || Ep < E || nsplit < 1 || Fp < F ||
+  if (D < 1 || Ep % BN != 0 || Ep < E || nsplit < 1 || Fp < F ||
       compact != (flags != nullptr) || compact != (count != nullptr))
     return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
@@ -382,4 +386,13 @@ extern "C" int bw_stats_f32(const float* G, const float* x, const int* table,
   bw_stats_finish<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
       part, table, n, f, S, nsplit, C, D, E, Ep);
   return (int)cudaGetLastError();
+}
+
+// shared-memory bytes of a block of the main pass for D into out[0];
+// cudaErrorInvalidValue where it exceeds MAX_SMEM (D above 710)
+// (kernels/bw_stats.smem_bytes is checked against this)
+extern "C" int bw_stats_geometry(int D, int* out) {
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  out[0] = (int)smem_bytes(D);
+  return smem_bytes(D) > MAX_SMEM ? (int)cudaErrorInvalidValue : 0;
 }

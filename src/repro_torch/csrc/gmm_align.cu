@@ -89,6 +89,41 @@
 // memory for the launch and for kernels/gmm_align.geometry's check
 // (gmm_align_geometry). Frames past F are masked (x reads zero, nothing
 // is written).
+//
+// Two forms past those, each taken only where the ones above do not fit:
+//   wide phase B (D >= 235 at 64 frames: the pair table of E2 words and
+//     the frames' rows outgrow a block, 527 KB of table alone at D = 512):
+//     the rescore reads the pair table from device memory
+//     (kernels/gmm_align.pair_table, the wrapper's, L2-resident; a warp's
+//     32 lanes read 32 neighbouring codes, one 128-byte line) and each
+//     warp keeps only the row of the frame it is rescoring, written by the
+//     warp itself before each frame. Shared memory no longer grows with D
+//     in phase B (8 rows of 2D + 2 words); phase A fits up to D = 552.
+//   spill (K > STREAM_K where no whole-row block fits: C > 6272 at D =
+//     72, train_ubm's top_k=0 asks K = C), three launches:
+//     1. the preselect of design 1 (64-frame blocks) writes each chunk's
+//        scores to a [F, Cp] scratch in device memory (Cp = C rounded up
+//        to NC; 537 MB at F = 16,384, C = 8,192) instead of merging them;
+//     2. select_kernel, one block a frame, picks its K exactly: scores
+//        become order-preserving uint32 keys (NaN above every score, -0
+//        as +0), a radix select over 8-bit digits, most significant first
+//        (4 histogram passes over the row, for K < C), finds the K-th key
+//        T and how many keys equal to T to take, the lowest ids first; a
+//        compaction writes the winners in id order; then a stable LSD
+//        radix sort of the K (4 passes, each digit descending) puts them
+//        best first, equal keys in id order, so ties go to the lowest id
+//        as everywhere above. The NaN rule is the one above: a NaN below
+//        C-1 writes C-1 to every slot, a NaN at C-1 alone sorts first. A
+//        slot whose key is -inf's takes id 0. Its plain version is
+//        kernels/gmm_align.select_topk;
+//     3. the rescore alone (the streaming instance given the selection).
+//     The scratch (scores, then two [F, K] key and id buffers) is the
+//     wrapper's (kernels/gmm_align.spill_words).
+//   The rescore alone at K > SLOT_SPLIT (the spill form's, at K up to C)
+//   also splits its grid over runs of SLOT_SPLIT slots (blockIdx.y), so
+//   that a few frames still fill the card: at F = 128, K = C = 65,536 the
+//   64-frame blocks alone were 2. At K <= SLOT_SPLIT the grid is as
+//   before.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -108,6 +143,9 @@ constexpr int STAGES = 3;       // slabs in flight
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int STREAM_K = 32;    // the largest K of the streaming merge
 constexpr int MAX_SMEM = 232448;
+constexpr int SEL_THREADS = 256;  // select_kernel: one thread a digit
+constexpr int SLOT_SPLIT = 256;   // slots a block of the rescore alone
+constexpr unsigned KEY_NINF = 0x007fffffu;   // order_key(-inf)
 
 __host__ __device__ inline int round_up(int n, int m) {
   return (n + m - 1) / m * m;
@@ -161,25 +199,35 @@ __device__ __forceinline__ void flush(float& v_l, int& i_l, const float* bv,
 // slab ring [STAGES][2][BKD][NC], x d-major [Dp][BF], then either the
 // chunk's scores [BF][NC], the lists [BF][STREAM_K] (values, ids), NaN
 // flags [BF], the candidate buffers [BF][32] (values, ids) and their counts
-// [BF], or the whole score rows [rows][Cp]. Phase B (rescore), from word 0:
-// the pair table [E2] and the frames' rows [rows][2D + 2].
+// [BF], or the whole score rows [rows][Cp], or, in the spill form,
+// nothing. Phase B (rescore), from word 0: the pair table [E2] and the
+// frames' rows [rows][2D + 2], or, wide, a row a warp [8][2D + 2]; none in
+// the spill form's preselect.
 inline size_t smem_words(int C, int D, int E2, int FM, bool stream,
-                         int rows) {
+                         int rows, bool wide, bool spill) {
   const int BF = 16 * FM;
   const size_t a = (size_t)STAGES * 2 * BKD * NC +
                    (size_t)round_up(D, BKD) * BF +
-                   (stream ? (size_t)BF * NC + 4 * BF * STREAM_K + 2 * BF
-                           : (size_t)rows * round_up(C, NC));
-  const size_t b = (size_t)round_up(E2, 4) + (size_t)rows * (2 * D + 2);
+                   (spill    ? 0
+                    : stream ? (size_t)BF * NC + 4 * BF * STREAM_K + 2 * BF
+                             : (size_t)rows * round_up(C, NC));
+  const size_t b = spill ? 0
+                   : wide ? (size_t)(THREADS / 32) * (2 * D + 2)
+                          : (size_t)round_up(E2, 4) +
+                                (size_t)rows * (2 * D + 2);
   return a > b ? a : b;
 }
 
 // The instance and its blocks for these shapes: the streaming one (FM = 4,
 // 64 frames) for K <= STREAM_K and for the rescore alone, else whole score
-// rows (FM = 1) for 16 frames a block, or 8 where 16 rows do not fit.
-// False where even 8 do not fit.
+// rows (FM = 1) for 16 frames a block, or 8 where 16 rows do not fit; each
+// with phase B's pair table in shared memory, else wide. Past those, for
+// K > STREAM_K, the spill form: `rows` and `smem` are its preselect's,
+// `wide` its rescore's. False where none fits.
 struct Geometry {
   bool stream;
+  bool spill;
+  bool wide;                    // phase B's pair table in device memory
   int rows;                     // frames a block keeps
   size_t smem;                  // bytes
 };
@@ -187,13 +235,24 @@ struct Geometry {
 inline bool geometry(int C, int D, int K, bool rescore_only, Geometry& g) {
   const int E2 = 1 + D + D * (D + 1) / 2;
   g.stream = rescore_only || K <= STREAM_K;
-  for (g.rows = g.stream ? 64 : 16; g.rows >= 8; g.rows /= 2) {
-    g.smem = sizeof(float) * smem_words(C, D, E2, g.stream ? 4 : 1,
-                                        g.stream, g.rows);
-    if (g.smem <= (size_t)MAX_SMEM) return true;
-    if (g.stream) return false;
+  g.spill = false;
+  for (int w = 0; w < 2; ++w) {
+    g.wide = w == 1;
+    for (g.rows = g.stream ? 64 : 16; g.rows >= 8; g.rows /= 2) {
+      g.smem = sizeof(float) * smem_words(C, D, E2, g.stream ? 4 : 1,
+                                          g.stream, g.rows, g.wide, false);
+      if (g.smem <= (size_t)MAX_SMEM) return true;
+      if (g.stream) break;
+    }
   }
-  return false;
+  if (g.stream) return false;
+  Geometry r;
+  if (!geometry(C, D, K, true, r)) return false;
+  g.spill = true;
+  g.wide = r.wide;
+  g.rows = 64;
+  g.smem = sizeof(float) * smem_words(C, D, E2, 4, false, 64, false, true);
+  return g.smem <= (size_t)MAX_SMEM;
 }
 
 // The rescore of G slots k0.. of one frame: ll[f, k0 + j] = xe_f . A2[id_j]
@@ -242,15 +301,18 @@ __device__ __forceinline__ void rescore_slots(
 
 // FM frames a thread in the product (BF = 16 FM frame slots); STREAM: the
 // streaming merge (K <= STREAM_K, rows = BF), else whole score rows of the
-// first `rows` slots.
-template <int FM, bool STREAM>
-__global__ void __launch_bounds__(THREADS, STREAM ? 2 : 1)
+// first `rows` slots; WIDE: phase B reads the pair table pair_g from device
+// memory, a row a warp; SPILL: phase A alone, the scores to `scores` [F,
+// Cp] (rows = BF).
+template <int FM, bool STREAM, bool WIDE = false, bool SPILL = false>
+__global__ void __launch_bounds__(THREADS, STREAM || SPILL ? 2 : 1)
 gmm_align_kernel(const float* __restrict__ x, const float* __restrict__ dconst,
                  const float* __restrict__ dlin,
                  const float* __restrict__ dquad,
-                 const float* __restrict__ A2, const long long* sel_in,
-                 float* __restrict__ ll, long long* sel, int F, int C, int D,
-                 int K, int E2, int rows) {
+                 const float* __restrict__ A2, const int* __restrict__ pair_g,
+                 const long long* sel_in, float* __restrict__ ll,
+                 long long* sel, float* __restrict__ scores, int F, int C,
+                 int D, int K, int E2, int rows) {
   constexpr int BF = 16 * FM;
   const int R = STREAM ? BF : rows;   // frames the block keeps
   const int FPW = R / 8;          // frames a warp in the top-K and rescore
@@ -433,18 +495,21 @@ gmm_align_kernel(const float* __restrict__ x, const float* __restrict__ dconst,
         const int c = c0 + cc + (j < 4 ? j : 28 + j);
         k0[j] = c < C ? __ldg(dconst + c) : 0.f;
       }
-      float* dst = STREAM ? sc : sc + c0;
+      float* dst = SPILL    ? scores + (size_t)f0 * Cp + c0
+                   : STREAM ? sc
+                            : sc + c0;
       const int ld = STREAM ? NC : Cp;
 #pragma unroll
       for (int i = 0; i < FM; ++i) {
         if (!STREAM && fr + i >= R) break;      // a slot the block drops
+        if (SPILL && f0 + fr + i >= F) break;   // past F: not written
         float v[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           v[j] = (k0[j] + a[i][j]) + b[i][j];
           a[i][j] = b[i][j] = 0.f;
         }
-        float* row = dst + (fr + i) * ld + cc;
+        float* row = dst + (size_t)(fr + i) * ld + cc;
         *reinterpret_cast<float4*>(row) = make_float4(v[0], v[1], v[2], v[3]);
         *reinterpret_cast<float4*>(row + 32) =
             make_float4(v[4], v[5], v[6], v[7]);
@@ -455,6 +520,10 @@ gmm_align_kernel(const float* __restrict__ x, const float* __restrict__ dconst,
       }
     }
 
+    if (SPILL) {
+      cp_wait<0>();               // only empty groups are left
+      return;                     // select_kernel picks from the scores
+    }
     if (STREAM) {
       // the last buffers merged, the lists with the NaN rule to sel (each
       // warp reads its own frames)
@@ -520,66 +589,275 @@ gmm_align_kernel(const float* __restrict__ x, const float* __restrict__ dconst,
   // xr[i1] over a frame's row xr = [x | 1 | 2x | 1]: e = 0 is 1 x 1,
   // e = 1 + d is x_d x 1, pair (i <= j) at 1 + D + i*D - i(i-1)/2 + (j - i)
   // is x_i x_j on the diagonal and x_i (2 x_j) off it -- both exactly
-  // what expand_quadratic gives
-  int* pair = reinterpret_cast<int*>(smem);
+  // what expand_quadratic gives. WIDE: the same table from pair_g
+  // (kernels/gmm_align.pair_table), and a warp's row at word warp * XR.
+  int* pair_s = reinterpret_cast<int*>(smem);
+  const int* pair = WIDE ? pair_g : pair_s;
   const int XR = 2 * D + 2;
-  float* xr = smem + round_up(E2, 4);                    // [R][XR]
-  for (int e = tid; e < 1 + D; e += THREADS)
-    pair[e] = (e == 0 ? D : e - 1) | D << 16;
-  for (int idx = tid; idx < D * D; idx += THREADS) {
-    const int i = idx / D, j = idx - (idx / D) * D;
-    if (j >= i)
-      pair[1 + D + i * D - i * (i - 1) / 2 + (j - i)] =
-          i | (i == j ? j : D + 1 + j) << 16;
-  }
-  for (int idx = tid; idx < R * (D + 1); idx += THREADS) {
-    const int r = idx / (D + 1), d = idx - r * (D + 1);
-    const int f = f0 + r;
-    const float v = d == D ? 1.f : (f < F ? x[(size_t)f * D + d] : 0.f);
-    xr[r * XR + d] = v;
-    xr[r * XR + D + 1 + d] = d == D ? 1.f : 2.f * v;
+  float* xr = WIDE ? smem + warp * XR : smem + round_up(E2, 4);  // [R][XR]
+  if (!WIDE) {
+    for (int e = tid; e < 1 + D; e += THREADS)
+      pair_s[e] = (e == 0 ? D : e - 1) | D << 16;
+    for (int idx = tid; idx < D * D; idx += THREADS) {
+      const int i = idx / D, j = idx - (idx / D) * D;
+      if (j >= i)
+        pair_s[1 + D + i * D - i * (i - 1) / 2 + (j - i)] =
+            i | (i == j ? j : D + 1 + j) << 16;
+    }
+    for (int idx = tid; idx < R * (D + 1); idx += THREADS) {
+      const int r = idx / (D + 1), d = idx - r * (D + 1);
+      const int f = f0 + r;
+      const float v = d == D ? 1.f : (f < F ? x[(size_t)f * D + d] : 0.f);
+      xr[r * XR + d] = v;
+      xr[r * XR + D + 1 + d] = d == D ? 1.f : 2.f * v;
+    }
   }
   __syncthreads();
 
-  // warp w rescores its frames, 8 slots at a time, then 4, then 1
+  // warp w rescores its frames' slots k_lo.. (the block's run of them),
+  // 8 slots at a time, then 4, then 1
+  const int k_lo = blockIdx.y * SLOT_SPLIT;
+  const int k_hi = gridDim.y == 1 ? K : min(K, k_lo + SLOT_SPLIT);
   for (int q = 0; q < FPW; ++q) {
     const int r = warp * FPW + q, f = f0 + r;
     if (f >= F) break;
-    const float* xf = xr + r * XR;
+    if (WIDE) {
+      __syncwarp();               // the warp's last frame is scored
+      for (int d = lane; d <= D; d += 32) {
+        const float v = d == D ? 1.f : x[(size_t)f * D + d];
+        xr[d] = v;
+        xr[D + 1 + d] = d == D ? 1.f : 2.f * v;
+      }
+      __syncwarp();
+    }
+    const float* xf = WIDE ? xr : xr + r * XR;
     const size_t fk = (size_t)f * K;
-    int k0 = 0;
-    for (; k0 + 8 <= K; k0 += 8)
+    int k0 = k_lo;
+    for (; k0 + 8 <= k_hi; k0 += 8)
       rescore_slots<8>(A2, ids, pair, xf, ll, fk, k0, E2, lane);
-    if (k0 + 4 <= K) {
+    if (k0 + 4 <= k_hi) {
       rescore_slots<4>(A2, ids, pair, xf, ll, fk, k0, E2, lane);
       k0 += 4;
     }
-    for (; k0 < K; ++k0)
+    for (; k0 < k_hi; ++k0)
       rescore_slots<1>(A2, ids, pair, xf, ll, fk, k0, E2, lane);
   }
 }
 
-template <int FM, bool STREAM>
+// A score's key: larger keys for better scores, as unsigned integers; NaN
+// above every score, -0 as +0 (they compare equal as scores)
+__device__ __forceinline__ unsigned order_key(float v) {
+  if (isnan(v)) return 0xffffffffu;
+  const unsigned u = v == 0.f ? 0u : __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The spill form's selection, one block a frame: from scores [F, Cp] (the
+// preselect's) the frame's K best ids, best first, into sel [F, K]; work:
+// keys and ids [F, K] twice, as uint32 / int32 (A keys, A ids, B keys, B
+// ids). Design: the header, spill 2.
+__global__ void __launch_bounds__(SEL_THREADS)
+select_kernel(const float* __restrict__ scores, int* __restrict__ work,
+              long long* __restrict__ sel, int F, int C, int Cp, int K) {
+  static_assert(SEL_THREADS == 256, "one thread a digit");
+  constexpr int NW = SEL_THREADS / 32;
+  __shared__ int hist[256];
+  __shared__ int wcnt[NW][256];
+  __shared__ int wsum[2][NW];
+  __shared__ int sh_digit, sh_need;
+  const int f = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const unsigned lt = (1u << lane) - 1u;
+  const float* s = scores + (size_t)f * Cp;
+  const size_t FK = (size_t)F * K;
+  unsigned* keys = reinterpret_cast<unsigned*>(work);
+  unsigned* ka = keys + (size_t)f * K;
+  int* ia = work + FK + (size_t)f * K;
+  unsigned* kb = keys + 2 * FK + (size_t)f * K;
+  int* ib = work + 3 * FK + (size_t)f * K;
+  long long* out = sel + (size_t)f * K;
+
+  // a NaN below C-1: C-1 in every slot
+  bool nan_low = false;
+  for (int c = tid; c < C - 1; c += SEL_THREADS) nan_low |= isnan(s[c]);
+  if (__syncthreads_or(nan_low)) {
+    for (int k = tid; k < K; k += SEL_THREADS) out[k] = C - 1;
+    return;
+  }
+
+  // radix select, most significant digit first: T the K-th key, `need`
+  // the keys equal to T to take (K = C takes every key)
+  unsigned T = 0, mask = 0;
+  int need = 0;
+  if (K < C) {
+    need = K;
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      for (int b = tid; b < 256; b += SEL_THREADS) hist[b] = 0;
+      __syncthreads();
+      for (int c = tid; c < C; c += SEL_THREADS) {
+        const unsigned k = order_key(s[c]);
+        if ((k & mask) == T) atomicAdd(&hist[(k >> shift) & 255], 1);
+      }
+      __syncthreads();
+      if (tid == 0) {
+        int cum = 0, b = 255;
+        for (; b > 0 && cum + hist[b] < need; --b) cum += hist[b];
+        sh_digit = b;
+        sh_need = need - cum;
+      }
+      __syncthreads();
+      T |= (unsigned)sh_digit << shift;
+      mask |= 255u << shift;
+      need = sh_need;
+    }
+  }
+
+  // the winners in id order into A: keys above T, and the first `need`
+  // keys equal to T
+  int seen_eq = 0, taken = 0;
+  for (int c0 = 0; c0 < C; c0 += SEL_THREADS) {
+    const int c = c0 + tid;
+    const unsigned k = c < C ? order_key(s[c]) : 0u;
+    const bool gt = c < C && (K >= C || k > T);
+    const bool eq = c < C && K < C && k == T;
+    const unsigned beq = __ballot_sync(FULL, eq);
+    if (lane == 0) wsum[0][warp] = __popc(beq);
+    __syncthreads();
+    int eq_before = seen_eq + __popc(beq & lt), eq_tile = 0;
+    for (int w = 0; w < NW; ++w) {
+      if (w < warp) eq_before += wsum[0][w];
+      eq_tile += wsum[0][w];
+    }
+    const bool take = gt || (eq && eq_before < need);
+    const unsigned bt = __ballot_sync(FULL, take);
+    if (lane == 0) wsum[1][warp] = __popc(bt);
+    __syncthreads();
+    int pos = taken + __popc(bt & lt), t_tile = 0;
+    for (int w = 0; w < NW; ++w) {
+      if (w < warp) pos += wsum[1][w];
+      t_tile += wsum[1][w];
+    }
+    if (take) {
+      ka[pos] = k;
+      ia[pos] = c;
+    }
+    seen_eq += eq_tile;
+    taken += t_tile;
+    __syncthreads();              // wsum is rewritten by the next tile
+  }
+
+  // stable LSD radix sort of the K, 8-bit digits, each pass descending:
+  // A -> B -> A -> B -> sel, where a key of -inf writes id 0
+  for (int p = 0; p < 4; ++p) {
+    const unsigned* sk = (p & 1) ? kb : ka;
+    const int* si = (p & 1) ? ib : ia;
+    unsigned* dk = (p & 1) ? ka : kb;
+    int* di = (p & 1) ? ia : ib;
+    const int shift = 8 * p;
+    for (int b = tid; b < 256; b += SEL_THREADS) hist[b] = 0;
+    __syncthreads();              // and the last pass's writes are seen
+    for (int i = tid; i < K; i += SEL_THREADS)
+      atomicAdd(&hist[(sk[i] >> shift) & 255], 1);
+    __syncthreads();
+    if (warp == 0) {              // hist[d] = the keys of digits above d
+      int v[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = hist[255 - (lane * 8 + j)];
+        sum += v[j];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += t;
+      }
+      int run = incl - sum;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        hist[255 - (lane * 8 + j)] = run;
+        run += v[j];
+      }
+    }
+    __syncthreads();
+    for (int i0 = 0; i0 < K; i0 += SEL_THREADS) {
+      const int i = i0 + tid;
+      const bool valid = i < K;
+      const unsigned k = valid ? sk[i] : 0u;
+      const int id = valid ? si[i] : 0;
+      const int d = valid ? (int)((k >> shift) & 255u) : 256 + lane;
+      const unsigned peers = __match_any_sync(FULL, d);
+      const int rank = __popc(peers & lt);     // same digit, lower lanes
+      for (int b = tid; b < NW * 256; b += SEL_THREADS) (&wcnt[0][0])[b] = 0;
+      __syncthreads();
+      if (valid && rank == 0) wcnt[warp][d] = __popc(peers);
+      __syncthreads();
+      {                           // thread d: the tile's places of digit d
+        int run = hist[tid];
+        for (int w = 0; w < NW; ++w) {
+          const int n = wcnt[w][tid];
+          wcnt[w][tid] = run;
+          run += n;
+        }
+        hist[tid] = run;
+      }
+      __syncthreads();
+      if (valid) {
+        const int at = wcnt[warp][d] + rank;
+        if (p == 3) {
+          out[at] = k == KEY_NINF ? 0 : id;
+        } else {
+          dk[at] = k;
+          di[at] = id;
+        }
+      }
+      __syncthreads();            // wcnt is rewritten by the next tile
+    }
+  }
+}
+
+template <int FM, bool STREAM, bool WIDE = false, bool SPILL = false>
 int launch_instance(const float* x, const float* dconst, const float* dlin,
-                    const float* dquad, const float* A2,
-                    const long long* sel_in, float* ll, long long* sel, int F,
-                    int C, int D, int K, int E2, const Geometry& g,
-                    void* stream) {
+                    const float* dquad, const float* A2, const int* pair,
+                    const long long* sel_in, float* ll, long long* sel,
+                    float* scores, int F, int C, int D, int K, int E2,
+                    const Geometry& g, void* stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      gmm_align_kernel<FM, STREAM>,
+      gmm_align_kernel<FM, STREAM, WIDE, SPILL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (F + g.rows - 1) / g.rows;
-  gmm_align_kernel<FM, STREAM><<<blocks, THREADS, g.smem,
-                                 (cudaStream_t)stream>>>(
-      x, dconst, dlin, dquad, A2, sel_in, ll, sel, F, C, D, K, E2, g.rows);
+  // the rescore alone: a block a run of SLOT_SPLIT slots too
+  const dim3 blocks((F + g.rows - 1) / g.rows,
+                    sel_in ? (K + SLOT_SPLIT - 1) / SLOT_SPLIT : 1);
+  gmm_align_kernel<FM, STREAM, WIDE, SPILL><<<blocks, THREADS, g.smem,
+                                              (cudaStream_t)stream>>>(
+      x, dconst, dlin, dquad, A2, pair, sel_in, ll, sel, scores, F, C, D, K,
+      E2, g.rows);
   return (int)cudaGetLastError();
 }
 
+// the rescore alone (or the streaming instance), narrow or wide
+int launch_stream(const float* x, const float* dconst, const float* dlin,
+                  const float* dquad, const float* A2, const int* pair,
+                  const long long* sel_in, float* ll, long long* sel, int F,
+                  int C, int D, int K, int E2, const Geometry& g,
+                  void* stream) {
+  if (g.wide)
+    return launch_instance<4, true, true>(x, dconst, dlin, dquad, A2, pair,
+                                          sel_in, ll, sel, nullptr, F, C, D,
+                                          K, E2, g, stream);
+  return launch_instance<4, true>(x, dconst, dlin, dquad, A2, pair, sel_in,
+                                  ll, sel, nullptr, F, C, D, K, E2, g,
+                                  stream);
+}
+
+// pair: kernels/gmm_align.pair_table(D) (read where the geometry is wide;
+// may be NULL elsewhere); scratch: kernels/gmm_align.spill_words(F, C, K)
+// int32 words (the spill form's; may be NULL elsewhere)
 int launch(const float* x, const float* dconst, const float* dlin,
-           const float* dquad, const float* A2, const long long* sel_in,
-           float* ll, long long* sel, int F, int C, int D, int K, int E2,
-           int device, void* stream) {
+           const float* dquad, const float* A2, const int* pair,
+           int* scratch, const long long* sel_in, float* ll, long long* sel,
+           int F, int C, int D, int K, int E2, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (F == 0 || K == 0) return 0;
@@ -589,29 +867,52 @@ int launch(const float* x, const float* dconst, const float* dlin,
   // the rescore alone runs with the streaming instance's blocks, so the
   // whole kernel and its rescore are timed like for like
   Geometry g;
-  if (!geometry(C, D, K, sel_in != nullptr, g))
+  if (!geometry(C, D, K, sel_in != nullptr, g) ||
+      (g.wide && pair == nullptr) || (g.spill && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (g.spill) {
+    const int Cp = round_up(C, NC);
+    float* scores = reinterpret_cast<float*>(scratch);
+    err = (cudaError_t)launch_instance<4, false, false, true>(
+        x, dconst, dlin, dquad, A2, pair, nullptr, ll, sel, scores, F, C, D,
+        K, E2, g, stream);
+    if (err != cudaSuccess) return (int)err;
+    select_kernel<<<F, SEL_THREADS, 0, (cudaStream_t)stream>>>(
+        scores, scratch + (size_t)F * Cp, sel, F, C, Cp, K);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    Geometry r;
+    geometry(C, D, K, true, r);
+    return launch_stream(x, dconst, dlin, dquad, A2, pair, sel, ll, nullptr,
+                         F, C, D, K, E2, r, stream);
+  }
   if (g.stream)
-    return launch_instance<4, true>(x, dconst, dlin, dquad, A2, sel_in, ll,
-                                    sel, F, C, D, K, E2, g, stream);
-  return launch_instance<1, false>(x, dconst, dlin, dquad, A2, sel_in, ll,
-                                   sel, F, C, D, K, E2, g, stream);
+    return launch_stream(x, dconst, dlin, dquad, A2, pair, sel_in, ll, sel,
+                         F, C, D, K, E2, g, stream);
+  if (g.wide)
+    return launch_instance<1, false, true>(x, dconst, dlin, dquad, A2, pair,
+                                           sel_in, ll, sel, nullptr, F, C, D,
+                                           K, E2, g, stream);
+  return launch_instance<1, false>(x, dconst, dlin, dquad, A2, pair, sel_in,
+                                   ll, sel, nullptr, F, C, D, K, E2, g,
+                                   stream);
 }
 
 }  // namespace
 
 extern "C" int gmm_align_f32(const float* x, const float* dconst,
                              const float* dlin, const float* dquad,
-                             const float* A2, float* ll, long long* sel,
-                             int F, int C, int D, int K, int E2, int device,
-                             void* stream) {
-  return launch(x, dconst, dlin, dquad, A2, nullptr, ll, sel, F, C, D, K, E2,
-                device, stream);
+                             const float* A2, const int* pair, int* scratch,
+                             float* ll, long long* sel, int F, int C, int D,
+                             int K, int E2, int device, void* stream) {
+  return launch(x, dconst, dlin, dquad, A2, pair, scratch, nullptr, ll, sel,
+                F, C, D, K, E2, device, stream);
 }
 
-// (frames a block keeps, streaming instance?, shared-memory bytes) of the
-// launch for these shapes into out[0..2]; cudaErrorInvalidValue where they
-// do not fit (kernels/gmm_align.geometry is checked against this)
+// (frames a block keeps, streaming instance?, shared-memory bytes, spill
+// form?, wide phase B?) of the launch for these shapes into out[0..4];
+// cudaErrorInvalidValue where they do not fit (kernels/gmm_align.geometry
+// is checked against this)
 extern "C" int gmm_align_geometry(int C, int D, int K, int rescore_only,
                                   int* out) {
   Geometry g;
@@ -620,6 +921,8 @@ extern "C" int gmm_align_geometry(int C, int D, int K, int rescore_only,
   out[0] = g.rows;
   out[1] = g.stream ? 1 : 0;
   out[2] = (int)g.smem;
+  out[3] = g.spill ? 1 : 0;
+  out[4] = g.wide ? 1 : 0;
   return 0;
 }
 
@@ -632,9 +935,9 @@ extern "C" int device_smem_optin(int device, int* out) {
 }
 
 extern "C" int gmm_rescore_fused_f32(const float* x, const long long* sel_in,
-                                     const float* A2, float* ll, int F, int C,
-                                     int D, int K, int E2, int device,
-                                     void* stream) {
-  return launch(x, nullptr, nullptr, nullptr, A2, sel_in, ll, nullptr, F, C,
-                D, K, E2, device, stream);
+                                     const float* A2, const int* pair,
+                                     float* ll, int F, int C, int D, int K,
+                                     int E2, int device, void* stream) {
+  return launch(x, nullptr, nullptr, nullptr, A2, pair, nullptr, sel_in, ll,
+                nullptr, F, C, D, K, E2, device, stream);
 }

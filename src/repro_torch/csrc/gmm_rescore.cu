@@ -65,6 +65,20 @@
 // differ from its own. A persistent two-stage version, items of 128 pairs,
 // 8-warp blocks and items of several 64-pair passes were each slower on
 // the card (PERF.md, section 6).
+//
+// Two forms past the one above, each taken only where it does not fit:
+//   strips (D >= 201, where P_c whole and the item's frames outgrow a
+//     block): P_c comes in strips of STRIP = 32 rows, one at a time by
+//     4-byte cp.async; each strip's rows are split between the two
+//     i-warps as P's rows are above, and each pair's quadratic gains the
+//     strip's part x_S' (P_S x) column pass by column pass, added onto
+//     the i-warp's sum in strip order (the -2 lin term in the first strip
+//     only). A fixed order, so two calls are bitwise equal. 224 KB at D =
+//     512 (the item's frames 147 KB of it), one block an SM.
+//   a histogram in device memory (C >= 58,113, where C counts outgrow a
+//     sort block's shared memory): the sort's counts and its scatter take
+//     one device-memory atomic a pair. Counts are integers, so their order
+//     changes nothing; the order inside a segment varies, as above.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -80,6 +94,7 @@ constexpr int THREADS = 128;      // the rescore
 constexpr int RW = BP / 32;       // its warps along the rows
 constexpr int IW = THREADS / 32 / RW;   // and along the sum over i
 constexpr int COLS = 72;          // columns of Y a pass: 8 lane groups x 9
+constexpr int STRIP = 32;         // rows of P a strip, in the strip form
 constexpr int SORT_THREADS = 512;
 constexpr int CHUNK_MIN = 4096;   // pairs a sort block at least
 constexpr int CUT_THREADS = 1024;
@@ -95,14 +110,14 @@ __host__ __device__ inline int p_rows(int D) {
   return (int)round_up(D, 2 * IW);
 }
 
-// Shared memory of a rescore block in 4-byte words: P_c [Di][Dp] (Di =
-// p_rows(D), Dp = round_up(D, COLS) columns, zero past D), the item's
-// frames [BP][Dp] (zero past D and past its pairs), lin [Dp], const [4],
-// the i-warps' partial sums [IW][BP], the pairs' indices and frames
-// [2][BP].
-inline long long smem_words(int D) {
-  const long long Dp = round_up(D, COLS), Di = p_rows(D);
-  return Di * Dp + 4 + BP * Dp + Dp + 4 + IW * BP + 2 * BP;
+// Shared memory of a rescore block in 4-byte words: `rows` rows of P_c
+// [rows][Dp] (all of it, Di = p_rows(D), or a strip; Dp = round_up(D,
+// COLS) columns, zero past D), the item's frames [BP][Dp] (zero past D and
+// past its pairs), lin [Dp], const [4], the i-warps' partial sums [IW][BP],
+// the pairs' indices and frames [2][BP].
+inline long long smem_words(int D, int rows) {
+  const long long Dp = round_up(D, COLS);
+  return rows * Dp + 4 + BP * Dp + Dp + 4 + IW * BP + 2 * BP;
 }
 
 // Scratch, in int32 words: counts [C], the items' starts [C + 1] (the
@@ -112,18 +127,28 @@ struct Geometry {
   long long max_items;          // ceil(F K / BP) + C
   long long scratch_words;
   long long smem;               // bytes a rescore block
+  long long strip;              // rows of P a pass: p_rows(D), or STRIP
+  long long hist_global;        // 1: the sort counts in device memory
 };
 
-// The sizes for these shapes; false where F K >= 2^31, where the sort's
-// per-block histogram [C] or a rescore block exceeds MAX_SMEM.
+// The sizes for these shapes: P whole where it fits, else in strips; the
+// sort's histogram in shared memory where C counts fit, else in device
+// memory. False where F K >= 2^31 or where a rescore block exceeds
+// MAX_SMEM even with strips (D above 576).
 inline bool geometry(long long F, long long K, long long C, int D,
                      Geometry& g) {
   if (F < 0 || K < 0 || C < 1 || D < 1) return false;
   const long long pairs = F * K;
-  if (pairs >= (1LL << 31) || 4 * C > MAX_SMEM) return false;
+  if (pairs >= (1LL << 31)) return false;
   g.max_items = (pairs + BP - 1) / BP + C;
   g.scratch_words = round_up(2 * C + 1, 4) + 4 * g.max_items + pairs;
-  g.smem = 4 * smem_words(D);
+  g.hist_global = 4 * C > MAX_SMEM ? 1 : 0;
+  g.strip = p_rows(D);
+  g.smem = 4 * smem_words(D, (int)g.strip);
+  if (g.smem > MAX_SMEM) {
+    g.strip = STRIP;
+    g.smem = 4 * smem_words(D, STRIP);
+  }
   return g.smem <= MAX_SMEM;
 }
 
@@ -141,6 +166,25 @@ hist_kernel(const long long* __restrict__ sel, int* __restrict__ counts,
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += SORT_THREADS)
     if (h[c] != 0) atomicAdd(counts + c, h[c]);
+}
+
+// 1 and 3 where C counts do not fit in a block's shared memory: one
+// device-memory atomic a pair (the counts, then each pair's place)
+__global__ void __launch_bounds__(SORT_THREADS)
+hist_global_kernel(const long long* __restrict__ sel, int* __restrict__ counts,
+                   int pairs) {
+  const int stride = gridDim.x * SORT_THREADS;
+  for (int p = blockIdx.x * SORT_THREADS + threadIdx.x; p < pairs; p += stride)
+    atomicAdd(counts + (int)sel[p], 1);
+}
+
+__global__ void __launch_bounds__(SORT_THREADS)
+scatter_global_kernel(const long long* __restrict__ sel,
+                      int* __restrict__ cursor, int* __restrict__ order,
+                      int pairs) {
+  const int stride = gridDim.x * SORT_THREADS;
+  for (int p = blockIdx.x * SORT_THREADS + threadIdx.x; p < pairs; p += stride)
+    order[atomicAdd(cursor + (int)sel[p], 1)] = p;
 }
 
 // 2. one block: counts -> each component's first pair (into counts: the
@@ -235,16 +279,18 @@ scatter_kernel(const long long* __restrict__ sel, int* __restrict__ cursor,
     order[atomicAdd(h + (int)sel[p], 1)] = p;
 }
 
-// P_c [D][D] from a row of A into Ps [Di][Dp] (zero past D), 4-byte
-// cp.async: for any D (the slow path; rows of A start at any word)
+// Rows i_s .. i_s + rows - 1 of P_c [D][D] from a row of A into Ps
+// [rows][Dp] (zero past D), 4-byte cp.async: for any D (the slow path; rows
+// of A start at any word)
 __device__ __forceinline__ void load_p_words(float* Ps,
                                              const float* __restrict__ src,
-                                             int D, int Dp, int Di) {
+                                             int D, int Dp, int i_s,
+                                             int rows) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < Di; i += THREADS / 32)
+  for (int i = warp; i < rows; i += THREADS / 32)
     for (int j = lane; j < Dp; j += 32) {
-      const bool in = i < D && j < D;
-      cp_async4_zfill(Ps + i * Dp + j, in ? src + i * D + j : src,
+      const bool in = i_s + i < D && j < D;
+      cp_async4_zfill(Ps + i * Dp + j, in ? src + (i_s + i) * D + j : src,
                       in ? 4 : 0);
     }
 }
@@ -270,22 +316,24 @@ __device__ __forceinline__ int load_p_chunks(float* Ps,
 
 // 4. one work item a block: its pairs' scores against row c of A. DC: D
 // fixed at compile time (the instance for D = COLS, whose shared-memory
-// offsets then fold into the loads), or 0 for any D.
+// offsets then fold into the loads), or 0 for any D. `strip`: rows of P a
+// pass (p_rows(D): all of P at once; or STRIP, the strip form).
 template <int DC>
 __global__ void __launch_bounds__(THREADS, 4)
 rescore_kernel(const float* __restrict__ x, const float* __restrict__ A,
                const int* __restrict__ order, const int4* __restrict__ items,
                const int* __restrict__ n_items, float* __restrict__ out,
-               int K, int D_any, int E) {
+               int K, int D_any, int E, int strip) {
   const int D = DC ? DC : D_any;
   const int total = *n_items;
   const int4 it = items[blockIdx.x];      // in the allocation either way
   if ((int)blockIdx.x >= total) return;
   const int c = it.x, first = it.y, n = it.z;
   const int Dp = (D + COLS - 1) / COLS * COLS, Di = p_rows(D);
+  const int S = DC ? Di : strip;
   extern __shared__ __align__(16) float smem[];
-  float* Ps = smem;                                   // [Di][Dp]
-  float* xs = Ps + Di * Dp + 4;                       // [BP][Dp]
+  float* Ps = smem;                                   // [S][Dp]
+  float* xs = Ps + S * Dp + 4;                        // [BP][Dp]
   float* lin = xs + BP * Dp;                          // [Dp]
   float* cst = lin + Dp;                              // [4]
   float* red = cst + 4;                               // [IW][BP]
@@ -296,12 +344,13 @@ rescore_kernel(const float* __restrict__ x, const float* __restrict__ A,
   // Row c by cp.async while the item's pairs are read, then its frames.
   // P is kept flat (row stride D) where D is a multiple of COLS, copied in
   // 16-byte chunks from the boundary before it and moved back into line
-  // below; else padded to Dp columns by 4-byte copies.
+  // below; else padded to Dp columns by 4-byte copies, and in the strip
+  // form only its first strip, the rest after each strip is done.
   const float* row = A + (size_t)c * E;
-  const bool flat = D == Dp && Di == D;
+  const bool flat = D == Dp && Di == D && S == Di;
   const int pstride = flat ? D : Dp;
   const int shift = flat ? load_p_chunks(Ps, row + 1 + D, D) : 0;
-  if (!flat) load_p_words(Ps, row + 1 + D, D, Dp, Di);
+  if (!flat) load_p_words(Ps, row + 1 + D, D, Dp, 0, min(S, Di));
   for (int d = tid; d < Dp; d += THREADS)
     cp_async4_zfill(lin + d, row + 1 + (d < D ? d : 0), d < D ? 4 : 0);
   if (tid == 0) cp_async4_zfill(cst, row, 4);
@@ -361,19 +410,28 @@ rescore_kernel(const float* __restrict__ x, const float* __restrict__ A,
   // q / 2. Warp (rw, iw) takes rows rw*32.. and i in [iw*Di/2,
   // (iw+1)*Di/2), the -2 lin term in iw = 0. A thread: rows r0 + 4u (u =
   // 0..7), columns cg*4..+3, 32+cg*4..+3 and 64+cg of each pass; x read
-  // two i at a time, the rows' float2s on distinct banks.
+  // two i at a time, the rows' float2s on distinct banks. In the strip
+  // form each strip's rows i_s.. are split so, and its part of q added on.
   const int rw = warp % RW, iw = warp / RW;
   const int rg = lane >> 3, cg = lane & 7;
   const int r0 = rw * 32 + rg;
-  const int span = Di / IW, i0 = iw * span;
-  if (rw * 32 < n) {
+  for (int i_s = 0; i_s < Di; i_s += S) {
+    if (i_s > 0) {
+      __syncthreads();            // every warp is done with the last strip
+      load_p_words(Ps, row + 1 + D, D, Dp, i_s, min(S, Di - i_s));
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+    }
+    const int span = min(S, Di - i_s) / IW, i0 = iw * span;
+    if (rw * 32 >= n) continue;
     for (int jc = 0; jc < Dp; jc += COLS) {
       const float* lc = lin + jc;
       float acc[8][9];
 #pragma unroll
       for (int t = 0; t < 9; ++t) {
         const int j = t < 4 ? cg * 4 + t : t < 8 ? 28 + cg * 4 + t : 64 + cg;
-        const float a0 = iw == 0 ? -2.f * lc[j] : 0.f;
+        const float a0 = iw == 0 && i_s == 0 ? -2.f * lc[j] : 0.f;
 #pragma unroll
         for (int u = 0; u < 8; ++u) acc[u][t] = a0;
       }
@@ -381,7 +439,8 @@ rescore_kernel(const float* __restrict__ x, const float* __restrict__ A,
         float2 xv[8];
 #pragma unroll
         for (int u = 0; u < 8; ++u)
-          xv[u] = *reinterpret_cast<const float2*>(xs + (r0 + 4 * u) * Dp + i);
+          xv[u] = *reinterpret_cast<const float2*>(xs + (r0 + 4 * u) * Dp +
+                                                   i_s + i);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float* pr = Ps + (i + h) * pstride + jc;
@@ -419,7 +478,7 @@ rescore_kernel(const float* __restrict__ x, const float* __restrict__ A,
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           float* q = red + iw * BP + r0 + 4 * u;
-          *q = jc == 0 ? s[u] : *q + s[u];
+          *q = jc == 0 && i_s == 0 ? s[u] : *q + s[u];
         }
     }
   }
@@ -444,25 +503,26 @@ int launch_rescore(const float* x, const float* A, const int* order,
     if (err != cudaSuccess) return (int)err;
   }
   rescore_kernel<DC><<<(unsigned)g.max_items, THREADS, g.smem, stream>>>(
-      x, A, order, items, n_items, out, K, D, E);
+      x, A, order, items, n_items, out, K, D, E, (int)g.strip);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The wrapper's geometry (max_items, scratch_words, smem) must be the
-// kernel's own for these shapes, or nothing is launched.
+// The wrapper's geometry (max_items, scratch_words, smem, strip) must be
+// the kernel's own for these shapes, or nothing is launched.
 extern "C" int gmm_rescore_f32(const float* x, const long long* sel,
                                const float* A, float* out, int* scratch,
                                int F, int K, int C, int D, int E,
                                long long max_items, long long scratch_words,
-                               long long smem, int device, void* stream) {
+                               long long smem, long long strip, int device,
+                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Geometry g;
   if (!geometry(F, K, C, D, g) || max_items != g.max_items ||
       scratch_words != g.scratch_words || smem != g.smem ||
-      E < 1 + D + D * D)
+      strip != g.strip || E < 1 + D + D * D)
     return (int)cudaErrorInvalidValue;
   if (F == 0 || K == 0) return 0;
   int n_sm = 0;
@@ -474,7 +534,7 @@ extern "C" int gmm_rescore_f32(const float* x, const long long* sel,
   const int chunk =
       (int)round_up(share > CHUNK_MIN ? share : CHUNK_MIN, SORT_THREADS);
   const int sort_blocks = (pairs + chunk - 1) / chunk;
-  const size_t hist_bytes = sizeof(int) * (size_t)C;
+  const size_t hist_bytes = g.hist_global ? 0 : sizeof(int) * (size_t)C;
   if (hist_bytes > 48 * 1024) {
     err = cudaFuncSetAttribute(hist_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -492,25 +552,34 @@ extern "C" int gmm_rescore_f32(const float* x, const long long* sel,
   int* order = scratch + round_up(2 * C + 1, 4) + 4 * g.max_items;
   err = cudaMemsetAsync(counts, 0, sizeof(int) * C, st);
   if (err != cudaSuccess) return (int)err;
-  hist_kernel<<<sort_blocks, SORT_THREADS, hist_bytes, st>>>(sel, counts,
-                                                             pairs, C, chunk);
+  if (g.hist_global)
+    hist_global_kernel<<<sort_blocks, SORT_THREADS, 0, st>>>(sel, counts,
+                                                             pairs);
+  else
+    hist_kernel<<<sort_blocks, SORT_THREADS, hist_bytes, st>>>(
+        sel, counts, pairs, C, chunk);
   scan_kernel<<<1, CUT_THREADS, 0, st>>>(counts, wstart, C);
   cut_kernel<<<(unsigned)((g.max_items + SORT_THREADS - 1) / SORT_THREADS),
                SORT_THREADS, 0, st>>>(counts, wstart, items, C, pairs);
-  scatter_kernel<<<sort_blocks, SORT_THREADS, hist_bytes, st>>>(
-      sel, counts, order, pairs, C, chunk);
+  if (g.hist_global)
+    scatter_global_kernel<<<sort_blocks, SORT_THREADS, 0, st>>>(
+        sel, counts, order, pairs);
+  else
+    scatter_kernel<<<sort_blocks, SORT_THREADS, hist_bytes, st>>>(
+        sel, counts, order, pairs, C, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (D == COLS)
+  if (D == COLS && g.strip == p_rows(D))
     return launch_rescore<COLS>(x, A, order, items, wstart + C, out, K, D, E,
                                 g, st);
   return launch_rescore<0>(x, A, order, items, wstart + C, out, K, D, E, g,
                            st);
 }
 
-// (BP, max_items, scratch_words, smem bytes) for these shapes into
-// out[0..3]; cudaErrorInvalidValue where it refuses them
-// (kernels/gmm_rescore.geometry is checked against this)
+// (BP, max_items, scratch_words, smem bytes, strip rows, histogram in
+// device memory) for these shapes into out[0..5]; cudaErrorInvalidValue
+// where it refuses them (kernels/gmm_rescore.geometry is checked against
+// this)
 extern "C" int gmm_rescore_geometry(long long F, long long K, long long C,
                                     int D, long long* out) {
   Geometry g;
@@ -519,5 +588,7 @@ extern "C" int gmm_rescore_geometry(long long F, long long K, long long C,
   out[1] = g.max_items;
   out[2] = g.scratch_words;
   out[3] = g.smem;
+  out[4] = g.strip;
+  out[5] = g.hist_global;
   return 0;
 }

@@ -44,6 +44,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # nsplit, device, stream
         "bw_stats_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                          INT, INT, INT, INT, INT, INT, INT, PTR),
+        # D, out[1]: a block's shared-memory bytes
+        "bw_stats_geometry": (INT, PTR),
     },
     "flash_attention": {
         # q, k, v, o, lse (or NULL), B, S, H, KVH, hd, device, stream
@@ -65,29 +67,35 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                      INT, INT, PTR),
     },
     "gmm_align": {
-        # x, dconst, dlin, dquad, A2, ll, sel, F, C, D, K, E2, device, stream
-        "gmm_align_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
-                          INT, INT, INT, PTR),
-        # x, sel, A2, ll, F, C, D, K, E2, device, stream
-        "gmm_rescore_fused_f32": (PTR, PTR, PTR, PTR, INT, INT, INT, INT,
-                                  INT, INT, PTR),
-        # C, D, K, rescore alone, out[3]
+        # x, dconst, dlin, dquad, A2, pair table (gmm_align.pair_table, or
+        # NULL), spill scratch (gmm_align.spill_words, or NULL), ll, sel, F,
+        # C, D, K, E2, device, stream
+        "gmm_align_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT,
+                          INT, INT, INT, INT, INT, PTR),
+        # x, sel, A2, pair table (or NULL), ll, F, C, D, K, E2, device,
+        # stream
+        "gmm_rescore_fused_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+                                  INT, INT, INT, PTR),
+        # C, D, K, rescore alone, out[5]
         "gmm_align_geometry": (INT, INT, INT, INT, PTR),
         # device, out[1]: the card's shared memory a block may opt in to
         "device_smem_optin": (INT, PTR),
     },
     "gmm_loglik": {
-        # x, W (gmm_loglik.packed_weights), out, F, C, D, E2, E2p, Cp,
-        # device, stream
-        "gmm_loglik_f32": (PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT,
-                           PTR),
+        # x, W (gmm_loglik.packed_weights), pair table (gmm_loglik.pair_table,
+        # or NULL for the narrow form), out, F, C, D, E2, E2p, Cp, device,
+        # stream
+        "gmm_loglik_f32": (PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
+                           INT, PTR),
+        # D, out[3]: frames a block, wide form?, shared-memory bytes
+        "gmm_loglik_geometry": (INT, PTR),
     },
     "gmm_rescore": {
         # x, sel, A, out, scratch, F, K, C, D, E, then the geometry
-        # (max_items, scratch_words, smem), device, stream
+        # (max_items, scratch_words, smem, strip), device, stream
         "gmm_rescore_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
-                            INT, I64, I64, I64, INT, PTR),
-        # F, K, C, D, out[4]
+                            INT, I64, I64, I64, I64, INT, PTR),
+        # F, K, C, D, out[6]
         "gmm_rescore_geometry": (I64, I64, I64, INT, PTR),
     },
     "packed_matmul": {

@@ -10,6 +10,7 @@ plain tensor code.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -18,12 +19,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 # csrc/bw_stats.cu: component and column tile, frames per slab, slabs in
-# flight, threads a block, blocks an SM
+# flight, threads a block, shared memory a block may have, blocks an SM
 BM = 128
 BN = 128
 BK = 16
 STAGES = 4
 THREADS = 256
+MAX_SMEM = 232448
 BLOCKS_PER_SM = 2
 MAX_SPLITS = 8
 MIN_SPLIT_FRAMES = 1024
@@ -48,14 +50,25 @@ def n_columns(D: int) -> int:
     return D * (D + 1) // 2 + D + 1
 
 
+def kernel_smem(D: int):
+    """``smem_bytes`` as the CUDA side computes it (``bw_stats_geometry``),
+    or None where it refuses D."""
+    out = (ctypes.c_int * 1)()
+    err = _build.load("bw_stats").bw_stats_geometry(D, ctypes.addressof(out))
+    return None if err else out[0]
+
+
 def pair_table(D: int, device=None) -> torch.Tensor:
     """int32 [Ep] (Ep = E rounded up to BN): extended column e is
-    X₂[f, e] = x̃[f, i0] x̃[f, i1], code i0 | i1 << 8, over x̃ = [x | 1 | 0].
-    e < P: the e-th upper-triangle pair (i, j), i <= j, row-major (the
+    X₂[f, e] = x̃[f, i0] x̃[f, i1], code i0 | i1 << 16, over x̃ = [x | 1 |
+    0]. e < P: the e-th upper-triangle pair (i, j), i <= j, row-major (the
     order of ``ref._quad_pairs``); then (d, D) for x_d; (D, D) for the ones
-    column (n); (D+1, D+1) past E."""
-    if D + 1 > 255:
-        raise ValueError(f"bw_stats: D={D} above the kernel's 254")
+    column (n); (D+1, D+1) past E. Raises where a block of the kernel
+    would not fit in shared memory (D above 710)."""
+    if smem_bytes(D) > MAX_SMEM:
+        raise ValueError(f"bw_stats: D={D} needs {smem_bytes(D)} bytes of "
+                         f"shared memory a block, above the {MAX_SMEM} a "
+                         f"block may have")
     i0, i1, _ = ref._quad_pairs(D)
     d = torch.arange(D)
     first = torch.cat([i0, d, torch.tensor([D])])
@@ -64,7 +77,7 @@ def pair_table(D: int, device=None) -> torch.Tensor:
     pad = _round_up(E, BN) - E
     first = torch.cat([first, torch.full((pad,), D + 1)])
     second = torch.cat([second, torch.full((pad,), D + 1)])
-    table = (first | second << 8).to(torch.int32)
+    table = (first | second << 16).to(torch.int32)
     return table if device is None else table.to(device)
 
 
@@ -117,7 +130,7 @@ def moments(gamma, x, table, nsplit: int = 1, compact: bool = False):
     E = n_columns(D)
     xt = torch.cat([x.float(), x.new_ones(F, 1), x.new_zeros(F, 1)], dim=1)
     code = table[:E].long().to(x.device)
-    i0, i1 = code & 255, code >> 8
+    i0, i1 = code & 0xffff, code >> 16
     x2 = xt[:, i0] * xt[:, i1]                                  # [F, E]
     out = x2.new_empty((C, E))
     lists = frame_lists(gamma) if compact else None

@@ -18,7 +18,12 @@ Each kernel of ``csrc/`` registers a :class:`KernelSpec`. Its
 
 ``work(cfg)`` gives (flops, bytes, dtype) of one call: the least work the
 function needs, each input read once and each output written once, the
-count ``chip_smoke.py``'s bounds and ``analysis/op_cost.py`` use. For
+count ``chip_smoke.py``'s bounds and ``analysis/op_cost.py`` use.
+``moved(cfg)``, where a kernel has it, gives the bytes its launches move
+in the form ``geometry`` picks for cfg: the re-reads its blocks make (x
+once a component block, W once a frame block), its scratch written and
+read back, the select's passes; ``chip_smoke.py`` prints its time over
+the memory rate beside the bound. For
 ``gmm_rescore`` and ``gmm_align`` the rows of the packed table a call
 touches depend on the ids; ``rows_touched`` in cfg gives them (default:
 every row the pairs could reach).
@@ -113,6 +118,7 @@ class KernelSpec:
     reduction_axes: Tuple[int, ...] = ()   # grid axes that accumulate
     masks_ragged: bool = True              # the kernel masks ragged edges
     replaces: str = ""                     # the TPU kernel, file:line
+    moved: Optional[Callable[[dict], float]] = None   # the form's bytes
 
     def config(self, config: Optional[dict] = None) -> dict:
         cfg = dict(self.default_config)
@@ -154,13 +160,16 @@ def all_specs():
 
 
 def _gmm_loglik_instance(cfg: dict) -> KernelInstance:
+    """The form ``geometry`` picks for D: 128-frame blocks (the narrow
+    form) or 64-frame blocks (the wide one, D >= 205)."""
     F, C, D = cfg["F"], cfg["C"], cfg["D"]
+    g = _gl.geometry(D)
     Cp = _cdiv(C, _gl.BN) * _gl.BN
-    grid = (Cp // _gl.BN, _cdiv(F, _gl.BM))
+    grid = (Cp // _gl.BN, _cdiv(F, g.bm))
     return KernelInstance(
-        grid=grid, threads=_gl.THREADS, smem_bytes=_gl.smem_bytes(D),
-        axes=(Axis("components", C, _gl.BN), Axis("frames", F, _gl.BM)),
-        outputs=(BlockMap("out", (F, C), (_gl.BM, _gl.BN),
+        grid=grid, threads=_gl.THREADS, smem_bytes=g.smem,
+        axes=(Axis("components", C, _gl.BN), Axis("frames", F, g.bm)),
+        outputs=(BlockMap("out", (F, C), (g.bm, _gl.BN),
                           lambda j, i: (i, j)),),
         rings=(Ring("cp.async", _gl.STAGES),))
 
@@ -171,6 +180,18 @@ def _gmm_loglik_work(cfg: dict):
     # the packed form needs E2 products per (frame, component)
     return (2.0 * F * C * E2,
             4.0 * (F * D + C + D * C + C * D * D + F * C), "float32")
+
+
+def _gmm_loglik_moved(cfg: dict) -> float:
+    """x read once a component block, the packed W [E2p, Cp] once a frame
+    block (and, wide, the pair table with it), out written once."""
+    F, C, D = cfg["F"], cfg["C"], cfg["D"]
+    g = _gl.geometry(D)
+    E2p = _cdiv(1 + D + D * (D + 1) // 2, _gl.BK) * _gl.BK
+    Cp = _cdiv(C, _gl.BN) * _gl.BN
+    fb = _cdiv(F, g.bm)
+    return 4.0 * (F * D * (Cp // _gl.BN) + E2p * Cp * fb + F * C
+                  + (E2p * (Cp // _gl.BN) * fb if g.wide else 0))
 
 
 # ---------------------------------------------------------------------------
@@ -211,31 +232,63 @@ def _gmm_rescore_work(cfg: dict):
             4.0 * (F * D + rows * E + F * K) + 8.0 * F * K, "float32")
 
 
+def _gmm_rescore_moved(cfg: dict) -> float:
+    """The sort: sel read twice (counting, then scattering) and the pair
+    indices written and read once; each work item's row of A (P whole or
+    strip by strip, the same bytes) and its frames' rows; out once."""
+    F, K, C, D = cfg["F"], cfg["K"], cfg["C"], cfg["D"]
+    g = _gr.geometry(F, K, C, D)
+    items = _gr.work_items(_rescore_counts(cfg), g.bp).shape[0]
+    return (16.0 * F * K + 8.0 * F * K + 4.0 * F * K
+            + 4.0 * items * (1 + D + D * D) + 4.0 * F * K * D)
+
+
 # ---------------------------------------------------------------------------
 # gmm_align: diag preselect, top-K and packed rescore in one kernel
 # ---------------------------------------------------------------------------
 
 
-def _align_geometry(cfg: dict):
-    """(rows, stream) of the launch: cfg's override, else ``geometry``."""
+def _align_geometry(cfg: dict) -> "_ga.Geometry":
+    """The launch's geometry: cfg's override of rows (and stream, wide),
+    else ``geometry``."""
     C, D, K = cfg["C"], cfg["D"], cfg["K"]
     only = cfg.get("rescore_only", False)
     if cfg.get("rows") is not None:
-        return cfg["rows"], cfg.get("stream", only or K <= _ga.STREAM_K)
-    rows, stream, _ = _ga.geometry(C, D, K, only)
-    return rows, stream
+        rows = cfg["rows"]
+        stream = cfg.get("stream", only or K <= _ga.STREAM_K)
+        wide = cfg.get("wide", False)
+        return _ga.Geometry(rows, stream,
+                            _ga.smem_bytes(C, D, stream, rows, wide),
+                            False, wide)
+    return _ga.geometry(C, D, K, only)
 
 
 def _gmm_align_instance(cfg: dict) -> KernelInstance:
+    """The fused launch, or in the spill form its preselect, whose 64-frame
+    blocks write the score rows [F, Cp] (its select and rescore follow)."""
     F, C, D, K = cfg["F"], cfg["C"], cfg["D"], cfg["K"]
-    rows, stream = _align_geometry(cfg)
-    outs = (BlockMap("ll", (F, K), (rows, K), lambda i: (i, 0)),)
-    if not cfg.get("rescore_only", False):
-        outs += (BlockMap("sel", (F, K), (rows, K), lambda i: (i, 0),
-                          dtype="int64"),)
+    g = _align_geometry(cfg)
+    rows = g.rows
+    if g.spill:
+        Cp = _cdiv(C, _ga.NC) * _ga.NC
+        outs = (BlockMap("scores", (F, Cp), (rows, Cp), lambda i: (i, 0)),)
+    elif cfg.get("rescore_only", False) and K > _ga.SLOT_SPLIT:
+        # the rescore alone past SLOT_SPLIT slots: a block a run of them
+        ks = _ga.SLOT_SPLIT
+        return KernelInstance(
+            grid=(_cdiv(F, rows), _cdiv(K, ks)), threads=_ga.THREADS,
+            smem_bytes=g.smem,
+            axes=(Axis("frames", F, rows), Axis("slots", K, ks)),
+            outputs=(BlockMap("ll", (F, K), (rows, ks),
+                              lambda i, j: (i, j)),),
+            rings=(Ring("cp.async", _ga.STAGES),))
+    else:
+        outs = (BlockMap("ll", (F, K), (rows, K), lambda i: (i, 0)),)
+        if not cfg.get("rescore_only", False):
+            outs += (BlockMap("sel", (F, K), (rows, K), lambda i: (i, 0),
+                              dtype="int64"),)
     return KernelInstance(
-        grid=(_cdiv(F, rows),), threads=_ga.THREADS,
-        smem_bytes=_ga.smem_bytes(C, D, stream, rows),
+        grid=(_cdiv(F, rows),), threads=_ga.THREADS, smem_bytes=g.smem,
         axes=(Axis("frames", F, rows),), outputs=outs,
         rings=(Ring("cp.async", _ga.STAGES),))
 
@@ -254,6 +307,30 @@ def _gmm_align_work(cfg: dict):
     return (2.0 * F * C * (2 * D + 1) + 2.0 * F * K * E2,
             4.0 * (F * D + C * (2 * D + 1) + rows * E2) + 12.0 * F * K,
             "float32")
+
+
+def _gmm_align_moved(cfg: dict) -> float:
+    """The preselect's diag coefficients once a frame block and x once; the
+    rescore's packed row once a (frame, slot) pair (and, wide, the pair
+    table's entries with it); ll and sel once. The spill form adds its
+    score rows [F, Cp] written, then read by the select (the NaN scan, 4
+    radix-select passes where K < C, the compaction), and the K keys and
+    ids (8 bytes each) written by the compaction and by each of the 4 LSD
+    passes, which read them twice (digits, then the scatter)."""
+    F, C, D, K = cfg["F"], cfg["C"], cfg["D"], cfg["K"]
+    g = _align_geometry(cfg)
+    E2 = 1 + D + D * (D + 1) // 2
+    rescore = 4.0 * F * K * E2 * (2 if g.wide else 1) + 4.0 * F * K
+    if cfg.get("rescore_only", False):
+        return 4.0 * F * D + 8.0 * F * K + rescore
+    blocks = _cdiv(F, _ga.BF_STREAM if g.spill else g.rows)
+    total = (4.0 * F * D + 4.0 * blocks * C * (2 * D + 1) + 8.0 * F * K
+             + rescore)
+    if g.spill:
+        Cp = _cdiv(C, _ga.NC) * _ga.NC
+        passes = 2 + (4 if K < C else 0)
+        total += 4.0 * F * Cp + 4.0 * F * C * passes + 8.0 * F * K * (1 + 4 * 3)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +401,21 @@ def _bw_stats_work(cfg: dict):
     E = _bw.n_columns(D)
     return (2.0 * F * C * E * cfg.get("touched", 1.0),
             4.0 * (F * C + F * D + C * (D * D + D + 1)), "float32")
+
+
+def _bw_stats_moved(cfg: dict) -> float:
+    """Γ once a column tile (its compaction pass reads it once more), x
+    once a (column tile, component tile), the partial sums written and
+    read by the finishing pass, n, f and S written."""
+    F, C, D = cfg["F"], cfg["C"], cfg["D"]
+    E = _bw.n_columns(D)
+    Ep = _cdiv(E, _bw.BN) * _bw.BN
+    nsplit = cfg.get("nsplit") or _bw.splits(F, C, D, cfg.get("n_sm", 132))
+    ct = Ep // _bw.BN
+    touched = cfg.get("touched", 1.0)
+    return (4.0 * F * C * (ct * touched + 1)
+            + 4.0 * F * D * ct * _cdiv(C, _bw.BM) * touched
+            + 8.0 * nsplit * C * Ep + 4.0 * C * (D * D + D + 1))
 
 
 # ---------------------------------------------------------------------------
@@ -511,19 +603,20 @@ register(KernelSpec(
     describe=_gmm_loglik_instance, work=_gmm_loglik_work,
     default_config={"F": 512, "C": 256, "D": 12},
     main_config={"F": 4096, "C": 2048, "D": 72},
-    replaces="src/repro/kernels/gmm_loglik.py:49"))
+    replaces="src/repro/kernels/gmm_loglik.py:49", moved=_gmm_loglik_moved))
 register(KernelSpec(
     name="gmm_rescore", source="gmm_rescore.cu",
     describe=_gmm_rescore_instance, work=_gmm_rescore_work,
     default_config={"F": 512, "C": 256, "D": 12, "K": 8},
     main_config={"F": 16384, "C": 2048, "D": 72, "K": 20},
-    replaces="src/repro/kernels/gmm_rescore.py:129"))
+    replaces="src/repro/kernels/gmm_rescore.py:129",
+    moved=_gmm_rescore_moved))
 register(KernelSpec(
     name="gmm_align", source="gmm_align.cu",
     describe=_gmm_align_instance, work=_gmm_align_work,
     default_config={"F": 512, "C": 256, "D": 12, "K": 8},
     main_config={"F": 16384, "C": 2048, "D": 72, "K": 20},
-    replaces="src/repro/kernels/gmm_align.py:162"))
+    replaces="src/repro/kernels/gmm_align.py:162", moved=_gmm_align_moved))
 register(KernelSpec(
     name="tvm_estep", source="packed_matmul.cu",
     describe=_tvm_estep_instance, work=_tvm_estep_work,
@@ -535,7 +628,7 @@ register(KernelSpec(
     describe=_bw_stats_instance, work=_bw_stats_work,
     default_config={"F": 1024, "C": 256, "D": 12},
     main_config={"F": 32768, "C": 2048, "D": 72},
-    replaces="src/repro/kernels/bw_stats.py:54"))
+    replaces="src/repro/kernels/bw_stats.py:54", moved=_bw_stats_moved))
 register(KernelSpec(
     name="flash_attention", source="flash_attention.cu",
     describe=_flash_instance, work=_flash_work,

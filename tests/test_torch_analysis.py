@@ -94,7 +94,12 @@ ALIGN_SHAPES = ((2048, 72, 20), (2048, 72, 40), (2048, 72, 2048),
                 (3072, 72, 40), (3073, 72, 40), (4096, 72, 40),
                 (4096, 72, 4096), (6272, 72, 40), (23, 6, 5),
                 (2048, 72, 32), (300, 5, 7), (8, 5, 4), (16, 8, 8),
-                (16, 6, 4), (32, 6, 4), (16, 4, 4), (12, 4, 4))
+                (16, 6, 4), (32, 6, 4), (16, 4, 4), (12, 4, 4),
+                # the spill form and phase B in device memory
+                (6273, 72, 33), (8192, 72, 64), (8192, 72, 8192),
+                (65536, 72, 65536), (2048, 234, 20), (2048, 235, 20),
+                (2048, 256, 20), (2048, 512, 20), (2048, 512, 40),
+                (2048, 512, 2048), (8192, 512, 8192))
 
 
 def test_registry_has_the_seven_kernels():
@@ -228,9 +233,10 @@ def test_backward_constants_are_the_cuda_ones():
 @pytest.mark.parametrize("C,D,K", ALIGN_SHAPES)
 def test_autotune_pick_is_geometry(C, D, K):
     tune = roofline.autotune_align(C, K, D, device="cpu")
-    rows, stream, smem = tga.geometry(C, D, K)
+    g = tga.geometry(C, D, K)
     assert (tune.instance, tune.block_f, tune.smem_bytes) == (
-        "stream" if stream else "rows", rows, smem)
+        "spill" if g.spill else "stream" if g.stream else "rows", g.rows,
+        g.smem)
     assert tune.t_predicted == min(t for _, _, t in tune.candidates)
     only = roofline.autotune_align(C, K, D, rescore_only=True)
     assert (only.instance, only.block_f) == ("stream", 64)
@@ -243,8 +249,11 @@ def test_autotune_candidates_and_refusal():
     t40 = roofline.autotune_align(2048, 40, 72, frames=16384)
     assert [c[:2] for c in t40.candidates] == [("rows", 16), ("rows", 8)]
     assert roofline.autotune_align(4096, 40, 72).block_f == 8
+    # past C = 6272 at K > 32 no whole-row block fits: the spill form
+    t = roofline.autotune_align(6273, 40, 72)
+    assert [c[:2] for c in t.candidates] == [("spill", 64)]
     with pytest.raises(ValueError):
-        roofline.autotune_align(6273, 40, 72)
+        roofline.autotune_align(2048, 20, 553)
     with pytest.raises(ValueError):
         roofline.align_cost_model(2048, 20, 72, block_f=64, instance="union")
 

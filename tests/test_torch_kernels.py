@@ -235,12 +235,15 @@ def test_gmm_rescore_geometry(seed):
         assert int((first + n)[-1]) == F * K
         assert ((first >= seg[c]) & (first + n <= seg[c + 1])).all()
     for D in (1, 7, 8, 72, 144, 200):
-        assert tgr.geometry(100, 20, 2048, D).smem_bytes <= 232448
-    with pytest.raises(ValueError, match="shared memory"):
-        tgr.geometry(100, 20, 2048, 201)
-    with pytest.raises(ValueError, match="shared memory"):
-        tgr.geometry(100, 20, 232448 // 4 + 1, 72)
-    tgr.geometry(100, 20, 232448 // 4, 72)
+        g = tgr.geometry(100, 20, 2048, D)
+        assert g.smem_bytes <= 232448 and g.strip == tgr.p_rows(D)
+    # past D = 200 P comes in strips of STRIP rows
+    g = tgr.geometry(100, 20, 2048, 201)
+    assert g.strip == tgr.STRIP and g.smem_bytes <= 232448
+    assert tgr.smem_bytes(201, tgr.p_rows(201)) > 232448
+    # past C = 58,112 the sort's counts go to device memory
+    assert tgr.geometry(100, 20, 232448 // 4 + 1, 72).hist_global == 1
+    assert tgr.geometry(100, 20, 232448 // 4, 72).hist_global == 0
     with pytest.raises(ValueError, match="2\\*\\*31"):
         tgr.geometry(2 ** 31 // 20 + 1, 20, 2048, 72)
     tgr.geometry(2 ** 31 // 20, 20, 2048, 72)
@@ -250,7 +253,7 @@ def test_gmm_rescore_constants_are_the_cuda_ones():
     """The wrapper's geometry constants are csrc/gmm_rescore.cu's."""
     src = (_build.CSRC / "gmm_rescore.cu").read_text()
     for name, value in (("BP", tgr.BP), ("COLS", tgr.COLS),
-                        ("MAX_SMEM", tgr.MAX_SMEM)):
+                        ("STRIP", tgr.STRIP), ("MAX_SMEM", tgr.MAX_SMEM)):
         assert re.search(rf"constexpr [a-z ]+ {name} = {value};", src), name
 
 
@@ -408,21 +411,26 @@ def test_gmm_align_geometry_fits_shared_memory():
     228 KB; the rescore alone runs with the same blocks; K above 32 takes the
     whole-row instance, 16 frames, then 8 once 16 rows outgrow a block
     (C = 4096, K = 40, which the previous 8-frame kernel took too), until
-    8 rows outgrow it above C = 6272."""
-    assert tga.geometry(2048, 72, 20) == (64, True, 109056)
+    8 rows outgrow it above C = 6272, where the spill form takes over (its
+    preselect's 64-frame blocks)."""
+    narrow = (False, False)                    # (spill, wide)
+    assert tga.geometry(2048, 72, 20) == (64, True, 109056, *narrow)
     assert 2 * (109056 + 1024) <= 228 * 1024 < 3 * (109056 + 1024)
-    assert tga.geometry(2048, 72, 40, rescore_only=True) == (64, True, 109056)
-    assert tga.geometry(2048, 72, 40) == (16, False, 160256)
+    assert tga.geometry(2048, 72, 40, rescore_only=True) == (
+        64, True, 109056, *narrow)
+    assert tga.geometry(2048, 72, 40) == (16, False, 160256, *narrow)
     assert tga.geometry(2048, 72, 2048)[:2] == (16, False)
     assert tga.geometry(3072, 72, 40)[:2] == (16, False)
     assert tga.geometry(3073, 72, 40)[:2] == (8, False)
-    assert tga.geometry(4096, 72, 40) == (8, False, 160256)
+    assert tga.geometry(4096, 72, 40) == (8, False, 160256, *narrow)
     assert tga.geometry(4096, 72, 4096)[:2] == (8, False)
     assert tga.geometry(6272, 72, 40)[2] <= tga.MAX_SMEM
-    with pytest.raises(ValueError, match="shared memory"):
-        tga.geometry(6273, 72, 40)
+    assert tga.geometry(6272, 72, 40)[3:] == narrow
+    g = tga.geometry(6273, 72, 40)
+    assert g.spill and not g.wide and (g.rows, g.stream) == (64, False)
+    assert tga.smem_bytes(6273, 72, False, 8) > tga.MAX_SMEM
     for C, D, K in ((23, 6, 5), (2048, 72, 32), (300, 5, 7)):
-        bf, stream, smem = tga.geometry(C, D, K)
+        bf, stream, smem, _, _ = tga.geometry(C, D, K)
         assert stream and bf == tga.BF_STREAM and smem <= tga.MAX_SMEM
 
 
@@ -584,9 +592,9 @@ def test_packed_matmul_refuses_other_strides(stride_m, stride_k):
         tte.packed_matmul(a, b[:5], 21, 5, 1, 21)
 
 
-@pytest.mark.parametrize("D", [1, 5, 72])
+@pytest.mark.parametrize("D", [1, 5, 72, 254, 255, 512])
 def test_bw_stats_pair_table_matches_quad_pairs(D):
-    """The kernel's column codes (i0 | i1 << 8 over [x | 1 | 0]): the
+    """The kernel's column codes (i0 | i1 << 16 over [x | 1 | 0]): the
     upper-triangle pairs in the order of the port's and the JAX package's
     ``_quad_pairs``, then x_d, then the ones column, then zeros to a
     multiple of the kernel's 128-column tile."""
@@ -595,7 +603,7 @@ def test_bw_stats_pair_table_matches_quad_pairs(D):
     P = D * (D + 1) // 2
     assert table.dtype == np.int32 and table.shape[0] % tbw.BN == 0
     assert 0 <= table.shape[0] - E < tbw.BN
-    i0, i1 = table & 255, table >> 8
+    i0, i1 = table & 0xFFFF, table >> 16
     t0, t1, _ = tref._quad_pairs(D)
     j0, j1, _ = jref._quad_pairs(D)
     np.testing.assert_array_equal(i0[:P], t0.numpy())
