@@ -97,7 +97,7 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   StableLM, Jamba without and with experts, Moonlight, Arctic, RWKV-6,
   Whisper and InternVL2; bf16 steps of 4 x 4096 tokens at full width:
   StableLM-2 1.6B, Jamba (one period, no experts), Gemma 2B, Moonlight
-  (4 layers), RWKV-6 (8 layers, grad_accum 4), Whisper large-v3 (1,500
+  (4 layers), RWKV-6 (4 layers, grad_accum 4), Whisper large-v3 (1,500
   frames, 448 decoder tokens) and InternVL2-1B (256 patches + 3,840
   tokens), most with a step repeated bitwise; the supervised restart
   drill and ``launch.train.main``;
@@ -122,7 +122,20 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   EM iterations repeated bitwise, extraction, 32 requests on every rung,
   card against CPU at C = 64) and ``train_ubm`` at C = 8192 with
   ``top_k=0``. ``--phase 16`` runs it alone after the card and build
-  steps.
+  steps;
+* lifts the LM side's last refusals (phase 17): each attention wrapper's
+  launch geometry against the CUDA side's at every head dim 1 to 512 in
+  both types, the scan's at every d_state 1 to 256; attention at 14
+  head dims in f32 and bf16 and the scan at 6 d_states past 64 in its
+  three forms, forward and backward, against their plain versions,
+  timed beside SDPA and the bound; Jamba one period served at d_state
+  256 and trained at 128, StableLM-2 8 layers served at head_dim 72 and
+  320 and trained at 320, Whisper 2 + 2 layers at head_dim 81, all at
+  full width, and SMOKE configs at the new shapes card against CPU.
+  ``--phase 17`` runs it alone after the card and build steps.
+
+``--rows SRC`` times only the LM kernels' existing rows (``ROWS``) with
+the package under SRC, for a parent against a change on one card.
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -209,37 +222,19 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def start_ptxas(names) -> dict:
-    """``nvcc -cubin -Xptxas -v`` on ``csrc/<name>.cu`` for each name,
-    started at once: a device compile only, whose log gives each kernel's
-    registers and spills. Returns {name: process}."""
-    from repro_torch.kernels import _build
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return {n: subprocess.Popen(
-        [_build._nvcc(), "-cubin", "-arch=sm_90a", "-std=c++17", "-O3",
-         "-Xptxas", "-v", "-o", str(_build.BUILD_DIR / f"ptxas_{n}.cubin"),
-         str(_build.CSRC / f"{n}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n in names}
-
-
-def ptxas_report(procs: dict, key: str) -> dict:
+def ptxas_report(names, key: str) -> dict:
     """{mangled kernel name containing ``key``: its ptxas lines after the
     entry line (stack frame and spills, registers), joined by '; ', with
-    "C7512" added where ptxas serialized the kernel's wgmma} from the logs
-    of ``start_ptxas``'s processes, once each has ended. Any other C7512
-    line is printed."""
+    "C7512" added where ptxas serialized the kernel's wgmma} from the build
+    logs of ``csrc/<name>.cu`` for each name (``_build.build_log``: the
+    library build runs ptxas with -v). Any other C7512 line is printed."""
+    from repro_torch.kernels import _build
     entry = re.compile(r"Compiling entry function '([^']+)'")
     serial = re.compile(r"\(C7512\).*'([^']+)'")
     out, serialized = {}, []
-    for n, proc in procs.items():
-        if not hasattr(proc, "log"):      # read once, for every report
-            proc.log = proc.communicate()[0]
-        log = proc.log
-        if proc.returncode != 0:
-            fail(f"nvcc -Xptxas -v failed on {n}.cu:\n{log[-3000:]}")
+    for n in names:
         name = None
-        for line in log.splitlines():
+        for line in _build.build_log(n).read_text().splitlines():
             m = entry.search(line)
             if "C7512" in line:
                 serialized.append(line.strip())
@@ -979,7 +974,13 @@ IVEC_FORM_ROWS = {
     "gmm_align_spill": (("gmm_align", "spill"),)}
 
 
+# the attention's forms with rows of their own (phase 17;
+# flash_attention.form): the row is "<wrapper>_<form>"
+ATTENTION_FORMS = ("tc8", "simt_bf16", "wide")
+
+
 def reset_counts() -> None:
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import selective_scan as SS
     from repro_torch.kernels import tvm_estep as TE
     ws = counters()
@@ -990,12 +991,14 @@ def reset_counts() -> None:
             ws[name].by_form[form] = 0
     TE.reset_counts()
     SS.reset_counts()
+    FA.reset_counts()
 
 
 def read_counts() -> dict:
     """Launches by kernel row: packed_matmul's by form (TVM_ROWS), the
-    scan's and its backward's by form (SCAN_FORMS), the i-vector kernels'
-    new forms (IVEC_FORM_ROWS)."""
+    scan's and its backward's by form (SCAN_FORMS) and, past 64 states, by
+    form again ("_grouped" rows), the attention's and its backward's
+    ATTENTION_FORMS, the i-vector kernels' new forms (IVEC_FORM_ROWS)."""
     ws = counters()
     counts = {k: w.launches for k, w in ws.items()
               if k not in ("tvm_estep_l", "tvm_estep_a")}
@@ -1004,6 +1007,10 @@ def read_counts() -> dict:
     for name in ("selective_scan", "selective_scan_bwd"):
         for suffix, sd in SCAN_FORMS:
             counts[name + suffix] = ws[name].by_form[sd]
+            counts[f"{name}_grouped{suffix}"] = ws[name].by_form_grouped[sd]
+    for name in ("flash_attention", "flash_attention_bwd"):
+        for form in ATTENTION_FORMS:
+            counts[f"{name}_{form}"] = ws[name].by_form[form]
     for row, parts in IVEC_FORM_ROWS.items():
         counts[row] = sum(ws[name].by_form[form] for name, form in parts)
     return counts
@@ -1552,7 +1559,7 @@ def check_selective_scan(g, dev):
             mufu_ms=B * T * di * ds / mufu_rate()[0] * 1e3, library_ms=None))
         del dt, dx, Bc, Cc, h, y, hl, wy, wh
     lib = _build.load("selective_scan")
-    for ds in SS.D_STATES:
+    for ds in range(1, 65):      # past 64: phase 17
         if lib.selective_scan_lanes(ds) != SS.lanes(ds):
             fail(f"selective_scan: lanes({ds}) is "
                  f"{lib.selective_scan_lanes(ds)} in the kernel, "
@@ -3994,7 +4001,7 @@ def _rel_errs(got, want, label, tol):
 
 def check_attention_bwd_small(g, dev):
     """The backward at small shapes that the training shapes leave out:
-    bf16 hd 192 (the CUDA-core kernel, BF16_HEAD_DIMS' third instance)
+    bf16 hd 192 (the CUDA-core kernel: the backward's range 129 to 192)
     against autograd of the plain version, and the tensor-core kernels at
     ragged S under GQA and MQA (hd 256: ragged, GQA, and a short S of 80,
     its dK/dV pass split over the query heads, and a ragged GQA case of
@@ -4724,8 +4731,9 @@ def supervised_lm_drill(seed: int, dev):
 # the full-width training runs after StableLM's: (record key, label, arch,
 # overrides, steps, repeat, tokens a row). Jamba cut to one period
 # (about 111 GB at full depth), Moonlight to 4 layers (about 337 GB at
-# 48), RWKV-6 to 8 layers; RWKV-6's WKV is matmuls, as in the reference,
-# so its path launches no kernel
+# 48), RWKV-6 to 4 layers (its steps were the phase's longest: 7.4 s a
+# step at 8 layers on an H100, five steps a run); RWKV-6's WKV is matmuls,
+# as in the reference, so its path launches no kernel
 LM_TRAIN = (
     ("jamba_train", "Jamba v0.1 without experts, one period (8 layers), "
      "bf16", "jamba-v0.1-52b", {"moe": None, "n_layers": 8}, 2, False,
@@ -4736,8 +4744,8 @@ LM_TRAIN = (
     ("moonlight_train", "Moonlight 16B-A3B cut to 4 layers (64 experts, top "
      "6, capacity factor 1.25), bf16, remat layer", "moonshot-v1-16b-a3b",
      {"n_layers": 4}, 2, True, LM_TRAIN_SEQ),
-    ("rwkv_train", "RWKV-6 7B cut to 8 layers, bf16, remat layer (no kernel "
-     "on this path)", "rwkv6-7b", {"n_layers": 8}, 2, True, LM_TRAIN_SEQ),
+    ("rwkv_train", "RWKV-6 7B cut to 4 layers, bf16, remat layer (no kernel "
+     "on this path)", "rwkv6-7b", {"n_layers": 4}, 2, True, LM_TRAIN_SEQ),
     ("whisper_train", "Whisper large-v3, CONFIG (32 + 32 layers), bf16, "
      "remat layer, through models.api.make_train_step", "whisper-large-v3",
      {}, 2, True, 448),
@@ -5525,32 +5533,31 @@ def scan_cfg(cfg, **ssm):
     return cfg.with_overrides(ssm=dataclasses.replace(cfg.ssm, **ssm))
 
 
-def check_scan_geometry() -> None:
-    """The wrapper's instance, lanes, channels and shared memory of every
-    d_state from 1 to 64, forward (both forms) and backward, against the
-    CUDA side's."""
-    import ctypes
+def check_scan_geometry(d_states=range(1, 65)) -> None:
+    """The wrapper's instance, groups, lanes, channels and shared memory of
+    every d_state of ``d_states``, forward (both forms) and backward,
+    against the CUDA side's (``selective_scan_geometry`` and
+    ``selective_scan_bwd_geometry``), and its lanes against
+    ``selective_scan_lanes``; a d_state past 256 refused on both sides."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import selective_scan as SS
     fwd = _build.load("selective_scan")
-    bwd = _build.load("selective_scan_bwd")
-    out = (ctypes.c_int * 4)()
-    for ds in SS.D_STATES:
-        want = (SS.instance(ds), SS.tree_lanes(ds), SS.tree_channels(ds),
-                SS.smem_bytes(ds, "bfloat16"))
-        if fwd.selective_scan_geometry(ds, out) or tuple(out) != want:
-            fail(f"selective_scan geometry at d_state {ds}: kernel "
-                 f"{tuple(out)}, wrapper {want}")
+    for ds in d_states:
+        for backward in (False, True):
+            want = SS.bwd_geometry(ds) if backward else SS.geometry(ds)
+            got = SS.kernel_geometry(ds, backward)
+            if got != want:
+                fail(f"selective_scan{'_bwd' if backward else ''} geometry "
+                     f"at d_state {ds}: kernel {got}, wrapper {want}")
         if fwd.selective_scan_lanes(ds) != SS.lanes(ds):
             fail(f"selective_scan lanes at d_state {ds}")
-        want = (SS.instance(ds), SS.bwd_lanes(ds), SS.bwd_channels(ds),
-                SS.bwd_smem_bytes(ds))
-        if bwd.selective_scan_bwd_geometry(ds, out) or tuple(out) != want:
-            fail(f"selective_scan_bwd geometry at d_state {ds}: kernel "
-                 f"{tuple(out)}, wrapper {want}")
-    print(f"  selective_scan: instance, lanes, channels and shared memory "
-          f"of d_state 1 to {SS.D_STATES[-1]}, forward and backward, equal "
-          f"on both sides")
+    top = SS.D_STATES[-1] + 1
+    if SS.kernel_geometry(top) is not None or SS.kernel_geometry(
+            top, True) is not None:
+        fail(f"selective_scan: the CUDA side takes d_state {top}")
+    print(f"  selective_scan: instance, groups, lanes, channels and shared "
+          f"memory of d_state {d_states[0]} to {d_states[-1]}, forward and "
+          f"backward, equal on both sides; {top} refused")
 
 
 def check_scan_forms(g, dev):
@@ -5786,7 +5793,7 @@ def check_attention_head_dims(g, dev):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, S, H, KVH = 2, 1000, 8, 2
     recs = []
-    for hd in FA.BF16_HEAD_DIMS:
+    for hd in range(16, 257, 16):     # the other head dims: phase 17
         if hd in (64, 128, 192, 256):
             continue
         q, k, v, do = (torch.randn(B, S, n, hd, generator=g, device=dev)
@@ -5893,20 +5900,26 @@ def jamba_scan_dtype_steps(seed: int, dev):
     return rec, launches
 
 
-def bf16_smoke_vs_cpu(seed: int, dev):
+def bf16_smoke_vs_cpu(seed: int, dev, cases=None):
     """Every ATTENTION_ARCHS SMOKE config in bf16 (params and
-    activations; head dims 16 to 32, the instances this phase adds), card
-    against CPU from the same state and batch: the prefill's logits within
-    BF16_SMOKE_LOGIT_TOL x max|CPU|, then one make_train_step whose loss
-    and grad norm are within BF16_SMOKE_TRAIN_TOL of the CPU's. The card's
-    prefill and step are main-path runs, their launches counted. Returns
-    (record, launches by run)."""
+    activations; head dims 16 to 32, the instances phase 15 adds), or each
+    of ``cases`` ((arch, config overrides, the prefill's kernels, the
+    step's kernels)), card against CPU from the same state and batch: the
+    prefill's logits within BF16_SMOKE_LOGIT_TOL x max|CPU|, then one
+    make_train_step whose loss and grad norm are within
+    BF16_SMOKE_TRAIN_TOL of the CPU's. The card's prefill and step are
+    main-path runs, their launches counted. Returns (record, launches by
+    run)."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
+    if cases is None:
+        cases = tuple((arch, {}, ("flash_attention",),
+                       ("flash_attention", "flash_attention_bwd"))
+                      for arch in ATTENTION_ARCHS)
     rec, paths = {}, {}
-    for arch in ATTENTION_ARCHS:
+    for arch, over, p_needs, t_needs in cases:
         cfg = get_config(arch, smoke=True).with_overrides(
-            param_dtype="bfloat16", activation_dtype="bfloat16")
+            param_dtype="bfloat16", activation_dtype="bfloat16", **over)
         st_cpu = api.init_state(cfg, torch.Generator().manual_seed(seed),
                                 device="cpu")
         st_dev = _tree_to(st_cpu, dev)
@@ -5923,9 +5936,8 @@ def bf16_smoke_vs_cpu(seed: int, dev):
         t_launches = read_counts()
         _, m_cpu = step(st_cpu, b)
         label = f"{arch} SMOKE bf16 (hd {cfg.resolved_head_dim()})"
-        require_launches(f"{label} prefill", p_launches, ("flash_attention",))
-        require_launches(f"{label} train step", t_launches,
-                         ("flash_attention", "flash_attention_bwd"))
+        require_launches(f"{label} prefill", p_launches, p_needs)
+        require_launches(f"{label} train step", t_launches, t_needs)
         l_dev, l_cpu = l_dev.float().cpu(), l_cpu.float()
         check_finite(label, l_dev)
         worst = {"logits": ((l_dev - l_cpu).abs().max()
@@ -5943,24 +5955,28 @@ def bf16_smoke_vs_cpu(seed: int, dev):
               f"{BF16_SMOKE_TRAIN_TOL:g})  {'ok' if ok else 'DISAGREES'}")
         if not ok:
             fail(f"{label}: card and CPU disagree")
-        rec[arch] = worst
-        paths[f"{arch} bf16 SMOKE prefill"] = p_launches
-        paths[f"{arch} bf16 SMOKE train step"] = t_launches
+        rec[label] = worst
+        paths[f"{label} prefill"] = p_launches
+        paths[f"{label} train step"] = t_launches
     return rec, paths
 
 
-def f16_scan_smoke_vs_cpu(seed: int, dev):
-    """Jamba SMOKE without experts at scan_dtype f16 (f32 params), card
-    against CPU: the prefill's logits within LOGIT_TOL x max|CPU| (the tree
-    kernel against the plain tree, the same rounded combines), three decode
-    steps' logits the same; one train step's loss within SMOKE_TRAIN_TOL
-    and its grad norm within TREE_GRAD_TOL["float16"] (the CPU's autograd
-    of the plain tree rounds its cotangents to f16, the kernel does not).
-    The card's runs are main-path runs. Returns (record, launches)."""
+def f16_scan_smoke_vs_cpu(seed: int, dev, sd: str = "float16",
+                          d_state: int = 0, needs=("selective_scan_f16",
+                                                   "selective_scan_bwd_f16")):
+    """Jamba SMOKE without experts at scan_dtype ``sd`` (f16; f32 params;
+    its d_state, or ``d_state``), card against CPU: the prefill's logits
+    within LOGIT_TOL x max|CPU| (the tree kernel against the plain tree,
+    the same rounded combines), three decode steps' logits the same; one
+    train step's loss within SMOKE_TRAIN_TOL and its grad norm within
+    TREE_GRAD_TOL[sd] (the CPU's autograd of the plain tree rounds its
+    cotangents to the 16-bit type, the kernel does not). The card's runs
+    are main-path runs, which must launch ``needs``. Returns (record,
+    launches)."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.models import api
-    cfg = scan_cfg(get_config("jamba-v0.1-52b", smoke=True).with_overrides(
-        moe=None), scan_dtype="float16")
+    cfg = get_config("jamba-v0.1-52b", smoke=True).with_overrides(moe=None)
+    cfg = scan_cfg(cfg, scan_dtype=sd, d_state=d_state or cfg.ssm.d_state)
     st_cpu = api.init_state(cfg, torch.Generator().manual_seed(seed),
                             device="cpu")
     st_dev = _tree_to(st_cpu, dev)
@@ -5977,9 +5993,9 @@ def f16_scan_smoke_vs_cpu(seed: int, dev):
         decoded.append(lg.cpu())
     _, m_dev = step(st_dev, _tree_to(b, dev))
     launches = read_counts()
-    label = "Jamba SMOKE scan_dtype f16"
-    require_launches(label, launches, ("selective_scan_f16",
-                                       "selective_scan_bwd_f16"))
+    label = (f"Jamba SMOKE scan_dtype {SHORT[sd]}"
+             + (f" d_state {d_state}" if d_state else ""))
+    require_launches(label, launches, needs)
     _, l_cpu = prefill(st_cpu["params"], {"tokens": b["tokens"]})
     cache = api.zero_cache(cfg, ShapeConfig("t", 8, 4, "decode"), "cpu")
     err = compare(f"{label} prefill logits, card vs CPU", l_dev.cpu(), l_cpu,
@@ -5994,10 +6010,10 @@ def f16_scan_smoke_vs_cpu(seed: int, dev):
         float(m_cpu["loss"]))
     norm = abs(float(m_dev["grad_norm"]) - float(m_cpu["grad_norm"])) / abs(
         float(m_cpu["grad_norm"]))
-    ok = loss <= SMOKE_TRAIN_TOL and norm <= TREE_GRAD_TOL["float16"]
+    ok = loss <= SMOKE_TRAIN_TOL and norm <= TREE_GRAD_TOL[sd]
     print(f"  {label} train step, card vs CPU: loss {loss:.2e} (tolerance "
           f"{SMOKE_TRAIN_TOL:g}), grad norm {norm:.2e} (tolerance "
-          f"{TREE_GRAD_TOL['float16']:g})  {'ok' if ok else 'DISAGREES'}")
+          f"{TREE_GRAD_TOL[sd]:g})  {'ok' if ok else 'DISAGREES'}")
     if not ok:
         fail(f"{label} train step: card and CPU disagree")
     return {"logits_max_abs_err": err, "loss": loss, "grad_norm": norm,
@@ -7000,22 +7016,567 @@ def phase_16_alone(args, card: str, kind: str, build_s: float) -> int:
     return 0
 
 
+# Phase 17: the LM kernels' whole domain, head dims 1 to 512 in f32 and bf16
+# and d_states 1 to 256 at every scan_dtype, forward and backward. The
+# attention's cases at a ragged S under GQA, each head dim on both routes
+# it can take; the scan's at ragged T and di, with h0 and dh_last and
+# several backward segments; then the timed shapes: the forward at a Jamba
+# prefill's (B 4, T 2048, di 8192), the backward at a micro-batch's (B 1,
+# T 4096)
+P17_HEAD_DIMS = (1, 8, 24, 33, 40, 72, 100, 136, 200, 257, 320, 384, 448,
+                 512)
+P17_ATT = dict(B=2, S=1000, H=8, KVH=2)
+# rows a tile of backward_blocks, the backward's plain version, on the card
+P17_PLAIN_BLOCK = 250
+P17_D_STATES = (65, 100, 128, 129, 200, 256)
+P17_SCAN = dict(B=2, T=600, di=520)
+P17_SCAN_FWD = dict(B=4, T=2048, di=8192)
+P17_SCAN_BWD = dict(B=1, T=4096, di=8192)
+P17_TIMED_D_STATES = (128, 256)
+# the d_state of the scan's kernel rows, at which the plain versions are
+# timed (once each, host clock)
+P17_ROW_D_STATE = 128
+# the kernels line's rows of the new forms -> the case whose numbers each
+# takes: (kind, dtype or scan_dtype, head dim or d_state)
+P17_ROWS = {
+    "flash_attention_tc8": ("fwd", "bfloat16", 72),
+    "flash_attention_simt_bf16": ("fwd", "bfloat16", 100),
+    "flash_attention_wide": ("fwd", "bfloat16", 320),
+    "flash_attention_bwd_tc8": ("bwd", "bfloat16", 72),
+    "flash_attention_bwd_simt_bf16": ("bwd", "bfloat16", 100),
+    "flash_attention_bwd_wide": ("bwd", "bfloat16", 320),
+    "selective_scan_grouped": ("scan", "float32", P17_ROW_D_STATE),
+    "selective_scan_grouped_bf16": ("scan", "bfloat16", P17_ROW_D_STATE),
+    "selective_scan_grouped_f16": ("scan", "float16", P17_ROW_D_STATE),
+    "selective_scan_bwd_grouped": ("scan_bwd", "float32", P17_ROW_D_STATE),
+    "selective_scan_bwd_grouped_bf16": ("scan_bwd", "bfloat16",
+                                        P17_ROW_D_STATE),
+    "selective_scan_bwd_grouped_f16": ("scan_bwd", "float16",
+                                       P17_ROW_D_STATE),
+}
+
+
+def p17_geometry() -> dict:
+    """The attention wrappers' geometry (route, width, rows, shared
+    memory) against the CUDA side's at every head dim 1 to 512, both
+    types, forward and backward, and 513 refused on both sides; the scan's
+    at every d_state 1 to 256 (check_scan_geometry)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import selective_scan as SS
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in FA.HEAD_DIMS:
+            for bwd in (False, True):
+                want = (FA.bwd_geometry if bwd else FA.geometry)(dt, hd)
+                got = FA.kernel_geometry(dt, hd, bwd)
+                if got != want:
+                    fail(f"flash_attention{'_bwd' if bwd else ''} geometry "
+                         f"at {_dtype_name(dt)} hd {hd}: kernel {got}, "
+                         f"wrapper {want}")
+                n += 1
+        top = FA.HEAD_DIMS[-1] + 1
+        if any(FA.kernel_geometry(dt, top, b) is not None
+               for b in (False, True)):
+            fail(f"flash_attention: the CUDA side takes hd {top}")
+    print(f"  flash_attention: route, width, rows and shared memory of head "
+          f"dim 1 to {FA.HEAD_DIMS[-1]}, f32 and bf16, forward and backward "
+          f"({n} points), equal on both sides; {FA.HEAD_DIMS[-1] + 1} "
+          f"refused")
+    check_scan_geometry(SS.D_STATES)
+    return {"attention_points": n, "d_states": len(SS.D_STATES)}
+
+
+def sdpa_times(q, k, v, do):
+    """(backend, forward ms, backward ms) of PyTorch's
+    scaled_dot_product_attention, causal with GQA, on q, k, v [B, heads, S,
+    hd]: the first of the flash, memory-efficient and math backends that
+    takes these inputs. The yardstick only; the port never calls it."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                out = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        except RuntimeError:
+            continue
+        with sdpa_kernel(backend):
+            fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                       enable_gqa=True), 5)
+            bwd = cuda_ms(lambda: torch.autograd.grad(
+                out, (q, k, v), do, retain_graph=True), 5)
+        return backend.name.lower(), fwd, bwd
+    fail("scaled_dot_product_attention: no backend takes the inputs")
+
+
+def p17_attention(g, dev) -> list:
+    """Every head dim of P17_HEAD_DIMS in f32 and bf16 at P17_ATT: the
+    forward against the plain version (compare_bf16, or TOL x max|plain|
+    in f32); the backward bitwise repeatable and against backward_blocks
+    in f32 on the same inputs, o and lse (ATT_BWD_BF16_TOL, or TOL in
+    f32); both timed beside SDPA (its backend named) and the bound, the
+    plain versions timed where the case is a kernel row's (the forward's
+    on the card; backward_blocks once, host clock, in tiles of
+    P17_PLAIN_BLOCK rows: the f32 sums do not depend on the tiling).
+    Returns records."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    B, S, H, KVH = (P17_ATT[k] for k in ("B", "S", "H", "KVH"))
+    rows = {(getattr(torch, dt), n) for kind, dt, n in P17_ROWS.values()
+            if kind in ("fwd", "bwd")}
+    recs = []
+    for hd in P17_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = _dtype_name(dtype)
+            q, k, v, do = (torch.randn(B, S, n, hd, generator=g, device=dev)
+                           .to(dtype) for n in (H, KVH, KVH, H))
+            geo, bgeo = FA.geometry(dtype, hd), FA.bwd_geometry(dtype, hd)
+            label = (f"B={B} S={S} H={H} KVH={KVH} hd={hd} {name} "
+                     f"({FA.route(dtype, hd)} width {geo[1]}; backward "
+                     f"{FA.bwd_scope(dtype, hd)} width {bgeo[1]}, "
+                     f"{bgeo[2]}-row tiles)")
+            plain = ref.flash_attention(q.float(), k.float(), v.float())
+            o, lse = FA.flash_attention(q, k, v, lse=True)
+            if dtype == torch.bfloat16:
+                err = compare_bf16(f"flash_attention {label}", o, plain)
+            else:
+                err = compare(f"flash_attention {label}", o, plain, TOL)
+            del plain
+            got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+            again = FA.flash_attention_bwd(q, k, v, o, lse, do)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"flash_attention_bwd {label}: not bitwise repeatable")
+            del again
+            _sync(dev)
+            t0 = time.perf_counter()
+            want = FA.backward_blocks(q.float(), k.float(), v.float(),
+                                      o.float(), lse, do.float(),
+                                      P17_PLAIN_BLOCK)
+            _sync(dev)
+            bwd_plain_ms = (time.perf_counter() - t0) * 1e3
+            tol = ATT_BWD_BF16_TOL if dtype == torch.bfloat16 else TOL
+            b_err, b_rel = _rel_errs(got, want, f"flash_attention_bwd "
+                                     f"{label}", tol)
+            del got, want
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            backend, lib_ms, lib_bwd_ms = sdpa_times(
+                qt, kt, vt, do.transpose(1, 2))
+            cfg = dict(B=B, S=S, H=H, KVH=KVH, hd=hd, dtype=name)
+            f_ms, f_by = bound("flash_attention", **cfg)
+            g_ms, g_by = bound("flash_attention_bwd", **cfg)
+            rec = dict(
+                case=label, hd=hd, dtype=name,
+                form=FA.form(dtype, hd), bwd_form=FA.form(dtype, hd, True),
+                max_abs_err=err, bwd_max_abs_err=b_err,
+                bwd_max_rel_err=b_rel,
+                ms=cuda_ms(lambda: FA.flash_attention(q, k, v), 5),
+                plain_ms=(cuda_ms(lambda: ref.flash_attention(q, k, v), 2)
+                          if (dtype, hd) in rows else None),
+                bound_ms=f_ms, bound_by=f_by, library=backend,
+                library_ms=lib_ms,
+                bwd_ms=cuda_ms(lambda: FA.flash_attention_bwd(
+                    q, k, v, o, lse, do), 5),
+                bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=g_ms,
+                bwd_bound_by=g_by, bwd_library_ms=lib_bwd_ms)
+            print(f"  flash_attention_bwd {label}: max|diff| / max|plain| "
+                  f"{b_rel:.3e} against backward_blocks in f32 (tolerance "
+                  f"{tol:g}), bitwise repeatable; forward {rec['ms']:.4f} "
+                  f"ms (SDPA, {backend}, {lib_ms:.4f}; bound {f_ms:.4f}), "
+                  f"backward {rec['bwd_ms']:.4f} ms (SDPA {lib_bwd_ms:.4f}; "
+                  f"bound {g_ms:.4f})")
+            recs.append(rec)
+            del q, k, v, do, o, lse, qt, kt, vt
+            torch.cuda.empty_cache()
+    return recs
+
+
+def p17_scan(g, dev) -> list:
+    """Every d_state of P17_D_STATES at P17_SCAN (T and di ragged, h0 and
+    dh_last, two backward segments): the three forms forward (f32 against
+    scan_lanes within SCAN_TOL, bf16 and f16 against ref.selective_scan_tree
+    within TREE_TOL, the saved chunk states too); the backward of each
+    form bitwise repeatable and against backward_chunks (SCAN_BWD_TOL,
+    TREE_BWD_TOL). Then each form timed forward at P17_SCAN_FWD and
+    backward at P17_SCAN_BWD, d_state 128 and 256; the plain versions
+    timed once (host clock) at P17_ROW_D_STATE. Returns records."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as SS
+    grads = ("d(dt)", "d(dx)", "dA", "dB", "dC", "dh0")
+    recs = []
+
+    def held(label, got, want, tol):
+        """(max|diff|, max|diff| / max|plain|) over the gradients."""
+        err, rel = 0.0, 0.0
+        for nm, a, w in zip(grads, got, want):
+            e = (a - w).abs().max().item()
+            r = e / max(w.abs().max().item(), 1e-30)
+            err, rel = max(err, e), max(rel, r)
+            if r > tol:
+                fail(f"{label} {nm}: max|diff| / max|plain| {r:.3e} above "
+                     f"{tol:g}")
+        return err, rel
+
+    B, T, di = (P17_SCAN[k] for k in ("B", "T", "di"))
+    for ds in P17_D_STATES:
+        dt, dx, A, Bc, Cc = _scan_inputs(g, dev, B, T, di, ds, 2.0)
+        h0, dh = (torch.randn(B, di, ds, generator=g, device=dev)
+                  for _ in range(2))
+        dy = torch.randn(B, T, di, generator=g, device=dev)
+        for sd in ("float32", "bfloat16", "float16"):
+            y, hl, hs = SS.selective_scan(dt, dx, A, Bc, Cc, h0,
+                                          save_states=True, scan_dtype=sd)
+            label = (f"selective_scan {SHORT.get(sd, 'f32')} B={B} T={T} "
+                     f"di={di} ds={ds} ({SS.groups(ds)} groups), h0")
+            if sd == "float32":
+                wy, wh = SS.scan_lanes(dt, dx, A, Bc, Cc, h0)
+                err = max(compare(f"{label} {w}", a, b, SCAN_TOL)
+                          for w, a, b in (("y", y, wy), ("h_last", hl, wh)))
+            else:
+                wy, wh, starts = ref.selective_scan_tree(
+                    dt, dx, A, Bc, Cc, h0, sd, every=SS.BT)
+                err = max(compare(f"{label} {w}", a, b, TREE_TOL)
+                          for w, a, b in (("y", y, wy), ("h_last", hl, wh),
+                                          ("saved states", hs,
+                                           torch.stack(starts, 1))))
+            rec = dict(case=label, max_abs_err=err)
+            got = SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh,
+                                        want_dh0=True, scan_dtype=sd)
+            again = SS.selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh,
+                                          want_dh0=True, scan_dtype=sd)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{label} backward: not bitwise repeatable")
+            want = SS.backward_chunks(dt, dx, A, Bc, Cc, dy, h0, dh,
+                                      scan_dtype=sd)
+            tol = SCAN_BWD_TOL if sd == "float32" else TREE_BWD_TOL
+            rec["bwd_max_abs_err"], rec["bwd_max_rel_err"] = held(
+                f"{label} backward", got, want, tol)
+            print(f"  {label} backward ({SS.n_segments(T)} segments, "
+                  f"dh_last): max|diff| / max|plain| "
+                  f"{rec['bwd_max_rel_err']:.3e} against backward_chunks "
+                  f"(tolerance {tol:g}), bitwise repeatable")
+            del got, again, want
+            recs.append(rec)
+        del dt, dx, A, Bc, Cc, h0, dh, dy
+        torch.cuda.empty_cache()
+    for ds in P17_TIMED_D_STATES:
+        B, T, di = (P17_SCAN_FWD[k] for k in ("B", "T", "di"))
+        dt, dx, A, Bc, Cc = _scan_inputs(g, dev, B, T, di, ds, 4.6)
+        for sd in ("float32", "bfloat16", "float16"):
+            b_ms, b_by = bound("selective_scan", B=B, T=T, di=di, ds=ds,
+                               scan_dtype=sd)
+            plain_ms = None
+            if ds == P17_ROW_D_STATE:
+                _sync(dev)
+                t0 = time.perf_counter()
+                ref.selective_scan(dt, dx, A, Bc, Cc, None, sd)
+                _sync(dev)
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: SS.selective_scan(dt, dx, A, Bc, Cc,
+                                                   scan_dtype=sd), 5)
+            label = (f"selective_scan {SHORT.get(sd, 'f32')} B={B} T={T} "
+                     f"di={di} ds={ds} ({SS.groups(ds)} groups)")
+            print(f"  {label}: {ms:.4f} ms, {b_ms / ms:.3f} of the bound "
+                  f"{b_ms:.4f} ms ({b_by}); plain version (one run, host "
+                  f"clock) {plain_ms}")
+            recs.append(dict(case=label, kind="scan", scan_dtype=sd, ds=ds,
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None))
+        del dt, dx, A, Bc, Cc
+        torch.cuda.empty_cache()
+        B, T, di = (P17_SCAN_BWD[k] for k in ("B", "T", "di"))
+        dt, dx, A, Bc, Cc = _scan_inputs(g, dev, B, T, di, ds, 4.6)
+        dy = torch.randn(B, T, di, generator=g, device=dev)
+        for sd in ("float32", "bfloat16", "float16"):
+            _, _, hs = SS.selective_scan(dt, dx, A, Bc, Cc, save_states=True,
+                                         scan_dtype=sd)
+            b_ms, b_by = bound("selective_scan_bwd", B=B, T=T, di=di, ds=ds,
+                               scan_dtype=sd)
+            ms = cuda_ms(lambda: SS.selective_scan_bwd(
+                dt, dx, A, Bc, Cc, hs, dy, scan_dtype=sd), 3)
+            plain_ms = None
+            if ds == P17_ROW_D_STATE:
+                _sync(dev)
+                t0 = time.perf_counter()
+                SS.backward_chunks(dt, dx, A, Bc, Cc, dy, scan_dtype=sd)
+                _sync(dev)
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            label = (f"selective_scan_bwd {SHORT.get(sd, 'f32')} B={B} "
+                     f"T={T} di={di} ds={ds} ({SS.groups(ds)} groups, "
+                     f"{SS.n_segments(T)} segments)")
+            print(f"  {label}: {ms:.3f} ms, {b_ms / ms:.3f} of the bound "
+                  f"{b_ms:.4f} ms ({b_by}); backward_chunks (one run, host "
+                  f"clock) {plain_ms}")
+            recs.append(dict(case=label, kind="scan_bwd", scan_dtype=sd,
+                             ds=ds, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None))
+            del hs
+        del dt, dx, A, Bc, Cc, dy
+        torch.cuda.empty_cache()
+    return recs
+
+
+def p17_runs(seed: int, dev):
+    """The main-path runs that take the new forms, each with the launch
+    counts set to 0 just before it and read just after: Jamba v0.1 without
+    experts, one period, served at d_state 256 and trained 2 steps at 128;
+    StableLM-2 1.6B at full width, 8 layers, served at head_dim 72 and 320
+    and trained 2 steps at 320 (4 x 2048 tokens); Whisper large-v3 at full
+    width, 2 + 2 layers, served at head_dim 81; then SMOKE card vs CPU:
+    StableLM at head_dim 40 and Whisper at 33 in bf16 (prefill and a train
+    step), Jamba at d_state 100, scan_dtype bf16, and 129, f16 (prefill,
+    decode and a train step: a last group of 36 and of 1 state). Returns
+    (record, launches by run)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as SV
+    rec, paths, walls = {}, {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(key):
+        """the wall s since the last lap, as ``key``"""
+        now = time.perf_counter()
+        walls[key] = now - clock[0]
+        clock[0] = now
+    jamba = get_config("jamba-v0.1-52b").with_overrides(moe=None, n_layers=8)
+    rec["jamba_ds256_serve"] = lm_serve(
+        "Jamba v0.1 without experts, one period (8 layers), d_state 256, "
+        "bf16, prefill and decode steps from a zero cache", hybrid_steps,
+        scan_cfg(jamba, d_state=256), 4, 2048, 17, seed, dev,
+        ("flash_attention", "selective_scan_grouped"))
+    lap("jamba_ds256_serve")
+    rec["jamba_ds128_train"] = lm_train_run(
+        "Jamba v0.1 without experts, one period (8 layers), d_state 128, "
+        "bf16", scan_cfg(jamba, d_state=128), 2, seed, dev, repeat=False)
+    lap("jamba_ds128_train")
+    stablelm = get_config("stablelm-1.6b").with_overrides(n_layers=8)
+    for hd, form in ((72, "tc8"), (320, "wide")):
+        rec[f"stablelm_hd{hd}_serve"] = lm_serve(
+            f"StableLM-2 1.6B, 8 layers, head_dim {hd}, bf16, "
+            f"repro_torch.launch.serve", SV.serve,
+            stablelm.with_overrides(head_dim=hd), 4, 1024, 17, seed, dev,
+            (f"flash_attention_{form}",))
+        lap(f"stablelm_hd{hd}_serve")
+    rec["stablelm_hd320_train"] = lm_train_run(
+        "StableLM-2 1.6B, 8 layers, head_dim 320, bf16",
+        stablelm.with_overrides(head_dim=320), 2, seed, dev, repeat=False,
+        seq=2048)
+    lap("stablelm_hd320_train")
+    whisper = get_config("whisper-large-v3")
+    whisper = whisper.with_overrides(
+        n_layers=2, head_dim=81,
+        encoder=dataclasses.replace(whisper.encoder, n_layers=2))
+    rec["whisper_hd81_serve"] = lm_serve(
+        "Whisper large-v3, 2 + 2 layers (1,500 frames), head_dim 81, bf16, "
+        "prefill and 16 decode steps from the padded cache", media_steps,
+        whisper, 4, 448, 17, seed, dev, ("flash_attention_simt_bf16",))
+    lap("whisper_hd81_serve")
+    for key in rec:
+        paths[key] = rec[key]["launches"]
+    require_launches("jamba_ds128_train", paths["jamba_ds128_train"],
+                     ("flash_attention", "flash_attention_bwd",
+                      "selective_scan_grouped", "selective_scan_bwd_grouped"))
+    require_launches("stablelm_hd320_train", paths["stablelm_hd320_train"],
+                     ("flash_attention_wide", "flash_attention_bwd_wide"))
+    rec["bf16_smoke"], smoke_paths = bf16_smoke_vs_cpu(seed, dev, cases=(
+        ("stablelm-1.6b", {"head_dim": 40}, ("flash_attention_tc8",),
+         ("flash_attention_tc8", "flash_attention_bwd_tc8")),
+        ("whisper-large-v3", {"head_dim": 33},
+         ("flash_attention_simt_bf16",),
+         ("flash_attention_simt_bf16", "flash_attention_bwd_simt_bf16"))))
+    paths.update(smoke_paths)
+    lap("bf16_smoke")
+    for sd, ds in (("bfloat16", 100), ("float16", 129)):
+        key = f"jamba_smoke_ds{ds}_{SHORT[sd]}"
+        rec[key], paths[key] = f16_scan_smoke_vs_cpu(
+            seed, dev, sd, ds, (f"selective_scan_grouped_{SHORT[sd]}",
+                                f"selective_scan_bwd_grouped_{SHORT[sd]}"))
+        lap(key)
+    rec["walls_s"] = walls
+    print("  phase 17's runs, wall s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return rec, paths
+
+
+def p17_row(name, recs) -> dict:
+    """The kernels line's row ``name`` (P17_ROWS) from its case's
+    record."""
+    kind, dt, n = P17_ROWS[name]
+    if kind in ("fwd", "bwd"):
+        c = next(r for r in recs if r.get("hd") == n and r["dtype"] == dt)
+        pre = "" if kind == "fwd" else "bwd_"
+        src = "flash_attention" + ("" if kind == "fwd" else "_bwd")
+        return dict(name=name, route="cuda",
+                    source=f"src/repro_torch/csrc/{src}.cu",
+                    replaces="src/repro/kernels/flash_attention.py:80",
+                    max_abs_err=c[f"{pre}max_abs_err"], ms=c[f"{pre}ms"],
+                    plain_ms=c[f"{pre}plain_ms"],
+                    bound_ms=c[f"{pre}bound_ms"],
+                    bound_by=c[f"{pre}bound_by"],
+                    library_ms=c[f"{pre}library_ms"],
+                    library=c["library"], shape=c["case"])
+    c = next(r for r in recs if r.get("kind") == kind
+             and r["scan_dtype"] == dt and r["ds"] == n)
+    err = "max_abs_err" if kind == "scan" else "bwd_max_abs_err"
+    errs = [r[err] for r in recs if err in r
+            and f" ds={n} " in r["case"] and r["case"].startswith(
+                "selective_scan " + SHORT.get(dt, "f32"))]
+    src = "selective_scan" + ("" if kind == "scan" else "_bwd")
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/csrc/{src}.cu",
+                replaces="src/repro/kernels/selective_scan.py:69",
+                max_abs_err=max(errs), ms=c["ms"], plain_ms=c["plain_ms"],
+                bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                library_ms=None, shape=c["case"])
+
+
+def domain_phase(seed: int, dev):
+    """Phase 17: the geometry of the whole domain, the new forms against
+    their plain versions and timed, then the main-path runs that take
+    them. -> (kernel rows, launches by run, record)."""
+    rec = {}
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    t0 = time.perf_counter()
+    rec["geometry"] = p17_geometry()
+    t1 = time.perf_counter()
+    rec["attention"] = p17_attention(g, dev)
+    t2 = time.perf_counter()
+    rec["scan"] = p17_scan(g, dev)
+    t3 = time.perf_counter()
+    rec["kernels_s"] = t3 - t0
+    print(f"  phase 17's kernel checks {rec['kernels_s']:.1f} s (geometry "
+          f"{t1 - t0:.1f}, attention {t2 - t1:.1f}, scan {t3 - t2:.1f})")
+    t0 = time.perf_counter()
+    rec["runs"], paths = p17_runs(seed, dev)
+    rec["runs_s"] = time.perf_counter() - t0
+    recs = rec["attention"] + rec["scan"]
+    rows = [p17_row(name, recs) for name in P17_ROWS]
+    torch.cuda.empty_cache()
+    return rows, paths, rec
+
+
+def phase_17_alone(args, card: str, kind: str, build_s: float,
+                   ptxas_new: dict) -> int:
+    """``--phase 17``: phase 17 alone after the card and build steps, its
+    kernel rows' launches from its own main-path runs; writes
+    chiprun_out/chip_smoke_phase17.json and prints the kernels line of its
+    rows, the card and the contract line."""
+    dev = torch.device("cuda")
+    print(f"[17] the LM kernels' whole domain ({card})")
+    t0 = time.perf_counter()
+    rows, paths, rec = domain_phase(args.seed, dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 17 {rec['phase_s']:.1f} s")
+    for r in rows:
+        r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
+        r["on_path"] = True
+        if r["launches"] == 0:
+            fail(f"no main-path run launched {r['name']}")
+    record = {"card": card, "build_s": build_s, "ptxas_new": ptxas_new,
+              "launches": paths, "domain": rec, "kernels": rows,
+              "command_s": time.perf_counter() - T_START}
+    print(f"chip_smoke: {record['command_s']:.1f} s from start")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_phase17.json").write_text(
+        json.dumps(record, indent=1, default=str))
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "on_path")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# --rows: the LM kernels' rows that a change to their sources must leave
+# where they were, by name -> (kernel, B, S or T, H or di, KVH or ds, hd,
+# dtype): Jamba's prefill and training shapes, Gemma 2B's and the f32
+# CUDA-core kernel
+ROWS = {
+    "flash_attention bf16 hd128 B4 S2048 32/8": ("fa", 4, 2048, 32, 8, 128,
+                                                 torch.bfloat16),
+    "flash_attention_bwd bf16 hd128 B1 S4096 32/8": ("fa_bwd", 1, 4096, 32, 8,
+                                                     128, torch.bfloat16),
+    "flash_attention bf16 hd256 B1 S4096 8/1": ("fa", 1, 4096, 8, 1, 256,
+                                                torch.bfloat16),
+    "flash_attention_bwd bf16 hd256 B1 S4096 8/1": ("fa_bwd", 1, 4096, 8, 1,
+                                                    256, torch.bfloat16),
+    "flash_attention f32 hd64 B2 S1000 8/2": ("fa", 2, 1000, 8, 2, 64,
+                                              torch.float32),
+    "flash_attention_bwd f32 hd64 B2 S1000 8/2": ("fa_bwd", 2, 1000, 8, 2, 64,
+                                                  torch.float32),
+    "selective_scan f32 ds16 B4 T2048 di8192": ("ss", 4, 2048, 8192, 16,
+                                                None, None),
+    "selective_scan_bwd f32 ds16 B1 T4096 di8192": ("ss_bwd", 1, 4096, 8192,
+                                                    16, None, None),
+}
+
+
+def rows_alone(src: str, card: str, kind: str) -> int:
+    """``--rows SRC``: the ROWS timed with the ``repro_torch`` under SRC
+    (this tree's ``src``, or another tree's, such as the parent's unpacked
+    by ``git archive`` into the ignored ``build/``), so that two trees can
+    be compared in turns on one card (parent, change, parent, change ..);
+    each row the median of 5 means of 10 launches (CUDA events), inputs
+    drawn on the card from seed 0. Prints ``ROWS SRC {json}``, the card
+    and the contract line."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import selective_scan as SS
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, (k, B, S, H, KVH, hd, dt) in ROWS.items():
+        if k.startswith("fa"):
+            q, kk, v, do = (torch.randn(B, S, n, hd, generator=g, device=dev)
+                            .to(dt) for n in (H, KVH, KVH, H))
+            o, lse = FA.flash_attention(q, kk, v, lse=True)
+            fn = ((lambda: FA.flash_attention(q, kk, v)) if k == "fa" else
+                  (lambda: FA.flash_attention_bwd(q, kk, v, o, lse, do)))
+        else:
+            ins = _scan_inputs(g, dev, B, S, H, KVH, 4.6)
+            if k == "ss":
+                fn = lambda: SS.selective_scan(*ins)   # noqa: E731
+            else:
+                hs = SS.selective_scan(*ins, save_states=True)[2]
+                dy = torch.randn(B, S, H, generator=g, device=dev)
+                fn = lambda: SS.selective_scan_bwd(*ins, hs, dy)  # noqa: E731
+        times = sorted(cuda_ms(fn, 10) for _ in range(5))
+        out[name] = times[2]
+        del fn
+        torch.cuda.empty_cache()
+    print("ROWS", src, json.dumps(out))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=64)
     # the kill -9 drill's child process (phase 8)
     ap.add_argument("--serve-child", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--phase", type=int, choices=(15, 16), default=None,
+    ap.add_argument("--phase", type=int, choices=(15, 16, 17), default=None,
                     help="run only the card and build steps and this "
                     "phase, and print its kernel rows")
+    ap.add_argument("--rows", default=None, metavar="SRC",
+                    help="time only the LM kernels' existing rows (ROWS) "
+                    "with the repro_torch package under SRC")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if args.serve_child is not None:
         return serve_child(Path(args.serve_child))
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, args.rows or str(ROOT / "src"))
     from repro_torch.configs.ivector_tvm import CONFIG
     from repro_torch.kernels import _build
     from repro_torch.serving import IVectorExtractor, ServingConfig
@@ -7033,24 +7594,20 @@ def main() -> int:
           f"({mufu_rate()[1]})")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), {kind}")
+    if args.rows is not None:
+        return rows_alone(args.rows, card, kind)
 
-    # 2. build, and beside it the attention's two sources once more for
-    # what ptxas reports of their head-dim-256 instances (the bf16
-    # forward's and backward's 64-row blocks on wgmma, the f32 kernels):
-    # a spill or a serialized wgmma (C7512) fails the run. Of the instances
-    # phase 15 adds, printed: the bf16 CUDA-core backward at hd 144 to 176
-    # (ptxas), the scan's forms at every d_state instance (cuobjdump's
+    # 2. build, then what ptxas reported in the attention's two builds of
+    # their head-dim-256 instances (the bf16 forward's and backward's
+    # 64-row blocks on wgmma, the f32 kernels): a spill or a serialized
+    # wgmma (C7512) fails the run. Of the CUDA-core instances, printed: the
+    # widths past 256 (320 to 512, f32 and bf16, forward and backward:
+    # ptxas), the scan's forms at every d_state instance (cuobjdump's
     # registers and stack of the built libraries)
     t0 = time.perf_counter()
-    ptxas = start_ptxas(("flash_attention", "flash_attention_bwd"))
-    try:
-        _build.build_all()
-    except BaseException:
-        for proc in ptxas.values():
-            proc.kill()
-            proc.communicate()
-        raise
+    _build.build_all()
     build_s = time.perf_counter() - t0
+    ptxas = ("flash_attention", "flash_attention_bwd")
     print(f"[2] build: {len(_build.SIGNATURES)} kernel libraries in "
           f"{build_s:.1f} s")
     ptxas_hd256 = ptxas_report(ptxas, "Li256E")
@@ -7065,8 +7622,7 @@ def main() -> int:
     if bad:
         fail(f"hd-256 kernels spill or serialize their wgmma: {bad}")
     ptxas_new = {}
-    for key in ("__nv_bfloat16Li144E", "__nv_bfloat16Li160E",
-                "__nv_bfloat16Li176E"):
+    for key in ("Li320E", "Li384E", "Li448E", "Li512E"):
         ptxas_new.update(ptxas_report(ptxas, key))
     ptxas_new.update(res_usage(("selective_scan", "selective_scan_bwd")))
     for k, v in sorted(ptxas_new.items()):
@@ -7075,6 +7631,8 @@ def main() -> int:
         return phase_15_alone(args, card, kind, build_s, ptxas_new)
     if args.phase == 16:
         return phase_16_alone(args, card, kind, build_s)
+    if args.phase == 17:
+        return phase_17_alone(args, card, kind, build_s, ptxas_new)
 
     # 3. model, session and kernel checks at the serving path's shapes
     dev = torch.device("cuda")
@@ -7279,6 +7837,16 @@ def main() -> int:
     print(f"  phase 16 {shapes['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # 17. the LM kernels' whole domain: attention at every head dim 1 to
+    # 512, the scan at every d_state 1 to 256, forward and backward
+    print(f"[17] the LM kernels' whole domain ({card})")
+    t0 = time.perf_counter()
+    domain_rows, domain_paths, domain = domain_phase(args.seed, dev)
+    domain["phase_s"] = time.perf_counter() - t0
+    rows += domain_rows
+    print(f"  phase 17 {domain['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     # kernels line, card line, contract line. Launches are summed over
     # the main-path runs, each counted from 0: the three serving rungs, the
     # training runs, the eleven LM serving runs, the recipe's runs, the
@@ -7287,8 +7855,11 @@ def main() -> int:
     # (StableLM's 3 steps, 2 of each LM_TRAIN run, the supervised drill),
     # phase 15's runs (Jamba served and trained at scan_dtype bf16, the
     # bf16 SMOKE prefills and steps, the f16 and d_state-64 SMOKE runs)
-    # and phase 16's (the D = 256 path's train_ubm, rungs, statistics,
-    # training, extraction and serving, train_ubm at C = 8192);
+    # phase 16's (the D = 256 path's train_ubm, rungs, statistics,
+    # training, extraction and serving, train_ubm at C = 8192) and phase
+    # 17's (Jamba at d_state 256 served and at 128 trained, StableLM at
+    # head_dim 72 and 320 served and at 320 trained, Whisper at 81 served,
+    # the SMOKE runs at the new head dims and d_states);
     # the repeat runs and the checks against plain paths not included.
     # packed_matmul's bf16 forms are held and timed here, but no path of
     # this script runs the E-step with bf16 inputs, and none runs
@@ -7296,7 +7867,8 @@ def main() -> int:
     paths = {"sparse": launches_sparse, "dense": launches_dense,
              "fused": launches_fused, **train["launches"], **lm_paths,
              **recipe_paths, **stream_paths, **sup_paths, **mesh_paths,
-             **train_paths, **lm_mesh_paths, **ref_paths, **shape_paths}
+             **train_paths, **lm_mesh_paths, **ref_paths, **shape_paths,
+             **domain_paths}
     # gmm_align's row counts both entries of csrc/gmm_align.cu: the fused
     # launch and the rescore alone (gmm_rescore_fused, the mesh's fused
     # rung)
@@ -7322,7 +7894,7 @@ def main() -> int:
               "recipe": recipe, "streaming": stream, "supervised": sup,
               "mesh": mesh, "analysis": analysis, "lowering": lowering,
               "lm_training": lm_train, "lm_mesh": lm_mesh,
-              "refusals": refusals, "shapes": shapes,
+              "refusals": refusals, "shapes": shapes, "domain": domain,
               "ptxas_new": ptxas_new, "kernels": rows}
     record["command_s"] = time.perf_counter() - T_START
     print(f"chip_smoke: {record['command_s']:.1f} s from start")

@@ -311,18 +311,28 @@ def gate_configs(name: str):
         # f32, and bf16 at hd 256 (the forward's 64-row blocks, the
         # backward's 64-row blocks split over the query heads): Gemma 2B's
         # MQA prefill; bf16 at a head dim below its instance's width (16:
-        # width 64) and one the backward runs on the CUDA cores (176)
+        # width 64), one the backward runs on the CUDA cores (176), a
+        # multiple of 8 on the tensor cores (40), one on the CUDA cores in
+        # bf16 (33), and the widest (512: 32-row tiles, 16 in the
+        # backward) in both types
         return [None, {"dtype": "float32"},
                 {"B": 4, "S": 2048, "H": 8, "KVH": 1, "hd": 256,
                  "dtype": "bfloat16"},
                 {"hd": 16, "dtype": "bfloat16"},
-                {"hd": 176, "dtype": "bfloat16"}]
+                {"hd": 176, "dtype": "bfloat16"},
+                {"hd": 40, "dtype": "bfloat16"},
+                {"hd": 33, "dtype": "bfloat16"},
+                {"hd": 512, "dtype": "bfloat16"},
+                {"hd": 512, "dtype": "float32"}]
     if name == "selective_scan":
-        # the tree form, and a d_state between the instances
-        return [None, {"scan_dtype": "bfloat16"}, {"ds": 12}]
+        # the tree form, a d_state between the instances, and past 64 the
+        # state groups (4 at 256; 2, the last masked, at 100 in the tree)
+        return [None, {"scan_dtype": "bfloat16"}, {"ds": 12}, {"ds": 256},
+                {"ds": 100, "scan_dtype": "bfloat16"}]
     if name == "selective_scan_bwd":
-        # the 64-state instance: 32 channels a block
-        return [None, {"ds": 64}]
+        # the 64-state instance: 32 channels a block; past 64 the state
+        # groups beside the channel blocks
+        return [None, {"ds": 64}, {"ds": 129}]
     if name == "gmm_align":
         return [None, {"K": 40}, {"rescore_only": True}]
     return [None]

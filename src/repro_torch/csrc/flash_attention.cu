@@ -19,7 +19,8 @@
 // (two products over the causal half) against (2*B*S*H + 2*B*S*KVH)*hd
 // elements moved: hundreds of FLOPs per byte at S in the thousands.
 //
-// Two kernels, one per input type:
+// Two kernels: the tensor cores for bf16 (namespace tc) and the CUDA cores
+// for f32 and the bf16 head dims the tensor cores lack (namespace simt).
 //
 // bf16 (flash_attention_bf16): the tensor cores. One block per (tile of
 // 128 query rows, head, batch), longest rows first: two consumer
@@ -48,13 +49,17 @@
 // (the q tile's load) and its epilogue overlap nothing. Issuing the next S
 // before the softmax, to overlap a warpgroup's softmax with its own
 // products, made ptxas serialize the wgmma here. Instances of width 64,
-// 128, 192 and 256; every bf16 head dim that is a multiple of 16 up to 256
-// (BF16_HEAD_DIMS in kernels/flash_attention.py) runs the least one at or
-// above it (tc_width). Its tensor maps' extent is the head dim, so the TMA
-// fills the tiles' columns past it with zeros: they add nothing to S, P.V
-// computes zeros there, and the store skips them. A head dim of 16 thus
-// does the work of 64 (the SMOKE configs' widths; no published config
-// has one under 64 or between the widths).
+// 128, 192 and 256; every bf16 head dim that is a multiple of 8 up to 256
+// (TC_HEAD_DIMS in kernels/flash_attention.py) runs the least one at or
+// above it (tc_width): a multiple of 8 makes every global stride of the
+// tensor maps a multiple of 16 bytes, as the TMA needs. Its tensor maps'
+// extent is the head dim, so the TMA fills the tiles' columns past it with
+// zeros: they add nothing to S, P.V computes zeros there, and the store
+// skips them (its paired bf16 stores start on even columns of a row whose
+// length is a multiple of 8, so they stay 4-byte aligned). A head dim of
+// 8 thus does the work of 64 (the SMOKE configs' widths; no published
+// config has one under 64 or between the widths). Every other bf16 head
+// dim (not a multiple of 8, or above 256) runs on the CUDA cores, below.
 //
 // hd 256 (Gemma 2B): a consumer warpgroup's 64 x 256 f32 output would take
 // 128 registers a thread, beside S (32) and the p pair (32), over what
@@ -65,16 +70,29 @@
 // operations against 1.5x at the other head dims. The q tile of 64 rows
 // leaves room for the 3-stage ring of 64-key tiles (230,456 bytes).
 //
-// f32 (flash_attention_f32): the CUDA cores, f32 FMAs throughout. One
-// block per (q tile of 64 rows, head, batch), 256 threads as 16 x 16;
-// thread (ty, tx) owns query rows ty + 16i (i < 4). The q tile, then each
-// 64-row k and v tile, are staged in shared memory (3 x 32 KB at hd = 128,
-// above the 48 KB default, so the entry point raises the block's dynamic
-// shared memory limit). Each thread computes a 4 x 4 block of scores, the
-// row max and row sum go across the 16 lanes of a row by warp shuffles,
-// and the running max m, sum l and the output accumulator (4 rows x hd/16
-// columns) stay in registers across kv tiles. Tiles wholly above the
-// diagonal are skipped; the p tile goes through shared memory for P.V.
+// The CUDA cores (namespace simt): f32 at every head dim 1 to 512, and bf16
+// at those the tensor cores lack, f32 FMAs throughout (a bf16 input is
+// widened at load, p stays f32, o is rounded once at its store: at least as
+// exact as the tensor-core path). One block per (q tile, head, batch), 256
+// threads as 16 x 16; thread (ty, tx) owns query rows ty + 16i. A head dim
+// that is a multiple of 16 up to 256, or of 64 above (SIMT_WIDTHS), runs an
+// EXACT kernel of its own width, whose masks, strides and stores are fixed
+// at compile time, so that the configs' head dims pay nothing for the
+// others. Any other head dim runs the masked kernel of the
+// least of 32, 64, 128, 256, 384 and 512 at or above it (SIMT_MASKED_WIDTHS),
+// its tiles' columns past hd zero and never stored, the scale from the true
+// hd. EXACT kernels are built only where such a head dim reaches the CUDA
+// cores: f32, and bf16 past 256. A tile is 64 rows up to width 256 and 32
+// above, so that the q, k, v and p tiles fit a block's shared memory at 512
+// (201,088 bytes; 213,760 at 256). The q tile, then each k and v tile, are
+// staged in shared memory (above the 48 KB default, so the entry point
+// raises the block's dynamic shared memory limit). Each thread computes a
+// 4 x 4 (2 x 2) block of scores, the row max and row sum go across the 16
+// lanes of a row by warp shuffles, and the running max m, sum l and the
+// output accumulator (4 or 2 rows x W/16 columns) stay in registers across
+// kv tiles. Tiles wholly above the diagonal are skipped; the p tile goes
+// through shared memory for P.V. It stores one element at a time, so a row
+// may start on any element (an odd bf16 head dim).
 //
 // Both keep the [S, S] scores out of device memory, the property of the
 // TPU kernel worth keeping.
@@ -83,6 +101,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -90,36 +109,73 @@ namespace {
 
 constexpr float NEG = -1e30f;
 
-// ---------------------------------------------------------------- f32 ----
+// ------------------------------------------------------------ CUDA cores --
 
 namespace simt {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BKV = 64;         // kv rows per tile
+constexpr int BQ = 64;          // query rows (and keys) a tile up to width 256
 constexpr int THREADS = 256;    // 16 x 16
-constexpr int PLD = BKV + 1;    // p tile row stride
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((size_t)2 * BQ * (HD + 1) + (size_t)BKV * HD + (size_t)BQ * PLD);
+// rows of a query or (k, v) tile at instance width W: BQ up to 256, half
+// above, so that the tiles fit a block's shared memory at width 512
+__host__ __device__ constexpr int rows(int W) { return W <= 256 ? BQ : BQ / 2; }
+
+// the instance a head dim runs (simt_width in kernels/flash_attention.py):
+// its own width where it is a multiple of 16 up to 256 or of 64 above (the
+// EXACT kernel, SIMT_WIDTHS), else the least of the masked widths at or
+// above it (SIMT_MASKED_WIDTHS); 0 outside 1 to 512
+__host__ __device__ constexpr int width(int hd) {
+  return hd < 1 || hd > 512 ? 0
+       : hd % 16 == 0 && (hd <= 256 || hd % 64 == 0) ? hd
+       : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256
+       : hd <= 384 ? 384 : 512;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       float* __restrict__ lse, int S, int H, int KVH,
-                       float scale) {
-  constexpr int LD = HD + 1;        // q and k tile row stride
-  constexpr int CPT = HD / 16;      // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [BQ][LD]
-  float* Ks = Qs + BQ * LD;         // [BKV][LD]
-  float* Vs = Ks + BKV * LD;        // [BKV][HD]
-  float* Ps = Vs + BKV * HD;        // [BQ][PLD]
+// the widths with a masked kernel, for the head dims between the EXACT
+// ones (SIMT_MASKED_WIDTHS)
+__host__ __device__ constexpr bool masked(int W) {
+  return W == 32 || W == 64 || W == 128 || W == 256 || W == 384 || W == 512;
+}
 
-  const int nq = (S + BQ - 1) / BQ;
+// the q and k tiles [R][W + 1], the v tile [R][W] and p [R][R + 1], f32
+template <int W>
+constexpr size_t smem_bytes() {
+  constexpr size_t R = rows(W);
+  return sizeof(float) * (2 * R * (W + 1) + R * W + R * (R + 1));
+}
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// T: the input type, widened to f32 at load; W: the instance's width. The
+// tiles' columns hd .. W - 1 load as zeros and add nothing to the
+// products; the stores skip them. EXACT (hd = W): the kernel of that one
+// head dim, its masks and strides fixed at compile time.
+template <typename T, int W, bool EXACT>
+__global__ void __launch_bounds__(THREADS)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int S, int H, int KVH, int hd,
+                       float scale) {
+  if (EXACT) hd = W;
+  constexpr int R = rows(W);        // query rows a block, keys a tile
+  constexpr int RI = R / 16;        // rows (and keys) a thread
+  constexpr int LD = W + 1;         // q and k tile row stride
+  constexpr int PLD = R + 1;        // p tile row stride
+  constexpr int CPT = W / 16;       // output columns a thread
+  extern __shared__ float smem[];
+  float* Qs = smem;                 // [R][LD]
+  float* Ks = Qs + R * LD;          // [R][LD]
+  float* Vs = Ks + R * LD;          // [R][W]
+  float* Ps = Vs + R * W;           // [R][PLD]
+
+  const int nq = (S + R - 1) / R;
   const int qt = nq - 1 - (int)blockIdx.x;   // longest rows first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -127,25 +183,26 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int q0 = qt * BQ;
+  const int q0 = qt * R;
 
-  const size_t qrow = (size_t)H * HD;        // row strides, in elements
-  const size_t krow = (size_t)KVH * HD;
-  const float* qb = q + (size_t)b * S * qrow + (size_t)h * HD;
-  const float* kb = k + (size_t)b * S * krow + (size_t)kh * HD;
-  const float* vb = v + (size_t)b * S * krow + (size_t)kh * HD;
-  float* ob = o + (size_t)b * S * qrow + (size_t)h * HD;
+  const size_t qrow = (size_t)H * hd;        // row strides, in elements
+  const size_t krow = (size_t)KVH * hd;
+  const T* qb = q + (size_t)b * S * qrow + (size_t)h * hd;
+  const T* kb = k + (size_t)b * S * krow + (size_t)kh * hd;
+  const T* vb = v + (size_t)b * S * krow + (size_t)kh * hd;
+  T* ob = o + (size_t)b * S * qrow + (size_t)h * hd;
 
-  for (int idx = tid; idx < BQ * HD; idx += THREADS) {
-    const int r = idx / HD, d = idx - (idx / HD) * HD;
+  for (int idx = tid; idx < R * W; idx += THREADS) {
+    const int r = idx / W, d = idx - (idx / W) * W;
     const int s = q0 + r;
-    Qs[r * LD + d] = s < S ? qb[(size_t)s * qrow + d] : 0.f;
+    Qs[r * LD + d] =
+        s < S && (EXACT || d < hd) ? ld(qb + (size_t)s * qrow + d) : 0.f;
   }
 
-  float acc[4][CPT];
-  float m[4], l[4];
+  float acc[RI][CPT];
+  float m[RI], l[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
@@ -153,41 +210,41 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * BKV;
+    const int k0 = kt * R;
     __syncthreads();   // the last tile's readers are done; Qs is written
-    for (int idx = tid; idx < BKV * HD; idx += THREADS) {
-      const int r = idx / HD, d = idx - (idx / HD) * HD;
+    for (int idx = tid; idx < R * W; idx += THREADS) {
+      const int r = idx / W, d = idx - (idx / W) * W;
       const int s = k0 + r;
-      const bool in = s < S;
-      Ks[r * LD + d] = in ? kb[(size_t)s * krow + d] : 0.f;
-      Vs[r * HD + d] = in ? vb[(size_t)s * krow + d] : 0.f;
+      const bool in = s < S && (EXACT || d < hd);
+      Ks[r * LD + d] = in ? ld(kb + (size_t)s * krow + d) : 0.f;
+      Vs[r * W + d] = in ? ld(vb + (size_t)s * krow + d) : 0.f;
     }
     __syncthreads();
 
-    float sc[4][4];
+    float sc[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+      for (int j = 0; j < RI; ++j) sc[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
+    for (int d = 0; d < W; ++d) {
+      float qv[RI], kv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * LD + d];
+      for (int i = 0; i < RI; ++i) qv[i] = Qs[(ty + 16 * i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
+      for (int j = 0; j < RI; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+        for (int j = 0; j < RI; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int qpos = q0 + ty + 16 * i;
       float mx = NEG;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int kpos = k0 + tx + 16 * j;
         const float s = kpos <= qpos ? sc[i][j] * scale : NEG;
         sc[i][j] = s;
@@ -200,7 +257,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float m_new = fmaxf(m[i], mx);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const float p = expf(sc[i][j] - m_new);
         Ps[(ty + 16 * i) * PLD + tx + 16 * j] = p;
         rs += p;
@@ -217,64 +274,108 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < BKV; ++c) {
-      float pv[4];
+    for (int c = 0; c < R; ++c) {
+      float pv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PLD + c];
+      for (int i = 0; i < RI; ++i) pv[i] = Ps[(ty + 16 * i) * PLD + c];
 #pragma unroll
       for (int cc = 0; cc < CPT; ++cc) {
-        const float vv = Vs[c * HD + tx + 16 * cc];
+        const float vv = Vs[c * W + tx + 16 * cc];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pv[i], vv, acc[i][cc]);
+        for (int i = 0; i < RI; ++i) acc[i][cc] = fmaf(pv[i], vv, acc[i][cc]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc)
-      ob[(size_t)qpos * qrow + tx + 16 * cc] = acc[i][cc] / denom;
+      if (EXACT || tx + 16 * cc < hd)
+        st(ob + (size_t)qpos * qrow + tx + 16 * cc, acc[i][cc] / denom);
     // the 16 lanes of a row hold the same m and l
     if (lse != nullptr && tx == 0)
       lse[((size_t)b * H + h) * S + qpos] = m[i] + logf(l[i]);
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int S, int H, int KVH, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD>();
+template <typename T, int W, bool EXACT>
+int launch_kernel(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int B, int S, int H, int KVH, int hd,
+                  cudaStream_t stream) {
+  const size_t smem = smem_bytes<W>();
+  static_assert(smem_bytes<W>() <= 232448, "over the block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<HD>,
+      flash_attention_kernel<T, W, EXACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  const float scale = (float)std::pow((double)HD, -0.5);
-  flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), S, H, KVH, scale);
+  const dim3 grid((S + rows(W) - 1) / rows(W), H, B);
+  const float scale = (float)std::pow((double)hd, -0.5);
+  flash_attention_kernel<T, W, EXACT><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      S, H, KVH, hd, scale);
   return (int)cudaGetLastError();
 }
 
+// a head dim of the width itself runs the EXACT kernel, built where such
+// a head dim reaches the CUDA cores (f32, and bf16 past the tensor cores'
+// 256); any other the masked kernel of a masked width
+template <typename T, int W>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int S, int H, int KVH, int hd, cudaStream_t stream) {
+  if (hd == W) {
+    if constexpr (std::is_same<T, float>::value || W > 256)
+      return launch_kernel<T, W, true>(q, k, v, o, lse, B, S, H, KVH, hd,
+                                       stream);
+  } else if constexpr (masked(W)) {
+    return launch_kernel<T, W, false>(q, k, v, o, lse, B, S, H, KVH, hd,
+                                      stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the instances, by width (SIMT_WIDTHS)
+#define SIMT_WIDTH_LIST(X)                                                  \
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176)    \
+  X(192) X(208) X(224) X(240) X(256) X(320) X(384) X(448) X(512)
+
+// head dim -> the instance of its width
+template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
              int B, int S, int H, int KVH, int hd, cudaStream_t st) {
-  switch (hd) {
-#define FA_CASE(N) \
-  case N:          \
-    return launch<N>(q, k, v, o, lse, B, S, H, KVH, st);
-    FA_CASE(16) FA_CASE(32) FA_CASE(48) FA_CASE(64) FA_CASE(80) FA_CASE(96)
-    FA_CASE(112) FA_CASE(128) FA_CASE(144) FA_CASE(160) FA_CASE(176)
-    FA_CASE(192) FA_CASE(208) FA_CASE(224) FA_CASE(240) FA_CASE(256)
-#undef FA_CASE
+  switch (width(hd)) {
+#define SIMT_CASE(W) \
+  case W:            \
+    return launch<T, W>(q, k, v, o, lse, B, S, H, KVH, hd, st);
+    SIMT_WIDTH_LIST(SIMT_CASE)
+#undef SIMT_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// out = {width, query rows a block, shared memory} of a head dim's
+// instance, or 0 where it has none
+inline int geometry(int hd, int* out) {
+  switch (width(hd)) {
+#define SIMT_GEO(W)                 \
+  case W:                           \
+    out[0] = W;                     \
+    out[1] = rows(W);               \
+    out[2] = (int)smem_bytes<W>();  \
+    return 1;
+    SIMT_WIDTH_LIST(SIMT_GEO)
+#undef SIMT_GEO
+    default:
+      return 0;
+  }
+}
+
+#undef SIMT_WIDTH_LIST
 
 }  // namespace simt
 
@@ -624,15 +725,24 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// HD: the instance's width (TC_WIDTHS in kernels/flash_attention.py); hd
-// the head dim, a multiple of 16 in (HD - 64, HD]: the maps' extent, so
-// that the TMA fills the tiles' columns past hd with zeros
+// the instance a bf16 head dim runs on the tensor cores (TC_WIDTHS and
+// tc_width in kernels/flash_attention.py): a multiple of 8 up to 256 (every
+// global stride of its tensor maps then a multiple of 16 bytes) runs the
+// least width at or above it; 0 for any other head dim (route: the CUDA
+// cores)
+__host__ __device__ constexpr int width(int hd) {
+  return hd < 1 || hd % 8 != 0 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128
+       : hd <= 192 ? 192 : hd <= 256 ? 256 : 0;
+}
+
+// HD: the instance's width; hd the head dim, a multiple of 8 in (HD - 64,
+// HD]: the maps' extent, so that the TMA fills the tiles' columns past hd
+// with zeros
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int S, int H, int KVH, int hd, cudaStream_t stream) {
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
-  if (hd % 16 != 0 || hd > HD || hd <= HD - CHUNK)
-    return (int)cudaErrorInvalidValue;
+  if (width(hd) != HD) return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
   constexpr int ROWS = Layout<HD>::ROWS;
   if (!make_map(&qm, q, B, S, H, hd, ROWS) ||
@@ -653,20 +763,32 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
-// head dim -> the instance of its width (BF16_HEAD_DIMS and tc_width in
-// kernels/flash_attention.py)
+// head dim -> the instance of its width
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
              int B, int S, int H, int KVH, int hd, cudaStream_t st) {
-  switch (hd) {
-#define TC_CASE(N, W) \
-  case N:             \
+  switch (width(hd)) {
+#define TC_CASE(W) \
+  case W:          \
     return launch<W>(q, k, v, o, lse, B, S, H, KVH, hd, st);
-    TC_CASE(16, 64) TC_CASE(32, 64) TC_CASE(48, 64) TC_CASE(64, 64)
-    TC_CASE(80, 128) TC_CASE(96, 128) TC_CASE(112, 128) TC_CASE(128, 128)
-    TC_CASE(144, 192) TC_CASE(160, 192) TC_CASE(176, 192) TC_CASE(192, 192)
-    TC_CASE(208, 256) TC_CASE(224, 256) TC_CASE(240, 256) TC_CASE(256, 256)
+    TC_CASE(64) TC_CASE(128) TC_CASE(192) TC_CASE(256)
 #undef TC_CASE
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out = {width, query rows a block, shared memory}, or 0 where the head
+// dim has no tensor-core instance
+inline int geometry(int hd, int* out) {
+  switch (width(hd)) {
+#define TC_GEO(W)                     \
+  case W:                             \
+    out[0] = W;                       \
+    out[1] = Layout<W>::ROWS;         \
+    out[2] = Layout<W>::BYTES;        \
+    return 1;
+    TC_GEO(64) TC_GEO(128) TC_GEO(192) TC_GEO(256)
+#undef TC_GEO
+    default: return 0;
   }
 }
 
@@ -688,16 +810,34 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    void* stream) {
   const int err = prologue(B, S, H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
-  return simt::dispatch(q, k, v, o, lse, B, S, H, KVH, hd,
-                        (cudaStream_t)stream);
+  return simt::dispatch<float>(q, k, v, o, lse, B, S, H, KVH, hd,
+                               (cudaStream_t)stream);
 }
 
+// bf16: the tensor cores where the head dim has an instance there (a
+// multiple of 8 up to 256), else the CUDA cores
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, void* lse, int B,
                                     int S, int H, int KVH, int hd, int device,
                                     void* stream) {
   const int err = prologue(B, S, H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
-  return tc::dispatch(q, k, v, o, lse, B, S, H, KVH, hd,
-                      (cudaStream_t)stream);
+  if (tc::width(hd) != 0)
+    return tc::dispatch(q, k, v, o, lse, B, S, H, KVH, hd,
+                        (cudaStream_t)stream);
+  return simt::dispatch<__nv_bfloat16>(q, k, v, o, lse, B, S, H, KVH, hd,
+                                       (cudaStream_t)stream);
+}
+
+// the launch a head dim gets, for kernels/flash_attention.geometry to be
+// held against: out = {route (1 the tensor cores, 0 the CUDA cores), the
+// instance's width, query rows a block, shared memory a block}; bf16 is 0
+// for f32, 1 for bf16. cudaErrorInvalidValue past the domain (1 to 512).
+extern "C" int flash_attention_geometry(int bf16, int hd, int* out) {
+  if (bf16 && tc::geometry(hd, out + 1)) {
+    out[0] = 1;
+    return 0;
+  }
+  out[0] = 0;
+  return simt::geometry(hd, out + 1) ? 0 : (int)cudaErrorInvalidValue;
 }

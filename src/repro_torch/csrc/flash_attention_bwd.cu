@@ -28,12 +28,14 @@
 // (b, row, head), Delta = dO . o summed by a shuffle tree), then a dQ
 // kernel, then a dK/dV kernel, both of which read Delta. Dispatch by input
 // type and head dim (not a fallback): bf16 on the tensor cores (namespace
-// tc) at every multiple of 16 up to 256 but 144 to 192, each on the
+// tc) at every multiple of 8 up to 256 but 129 to 192, each on the
 // instance of its width (64, 128 or 256, as the forward's: the TMA's
 // zeros past the head dim add nothing to any product, and the stores skip
-// those columns), bf16 at 144 to 192 and f32 at every head dim on the CUDA
-// cores (namespace simt). No config of either package has a head dim in
-// 144 to 192, and the tensor cores have no instance of width 192.
+// those columns; a multiple of 8 keeps the tensor maps' strides and the
+// paired bf16 stores aligned), every other bf16 head dim (129 to 192, not
+// a multiple of 8, above 256) and f32 at every head dim 1 to 512 on the
+// CUDA cores (namespace simt). No config of either package has a head dim
+// in 129 to 192, and the tensor cores have no instance of width 192.
 //
 // Precision contract of the tensor-core kernels:
 //   - Exact products. Q, K, V and dO enter wgmma as the bf16 values they
@@ -141,18 +143,28 @@
 //
 // simt (CUDA cores, f32 FMAs): dq_kernel, one block per (query tile, head,
 // batch), and dkdv_kernel, one block per (key tile, kv head, batch), the
-// group's query heads walked in order; 256 threads as 16 x 16, the score
-// tile split 4 x 4 (2 x 2 above hd 128) a thread; tiles of 64 rows up to hd
-// 128 and 32 above, so that the four [rows][hd + 1] f32 tiles fit a block's
-// shared memory at hd 256. P and dS go through shared memory. Every
-// product and sum is f32; a bf16 result is rounded once, at its store.
-// Keys and queries at or past S load as zeros and are masked; a tile wholly
-// above the diagonal is never visited.
+// group's query heads walked in order; 256 threads as 16 x 16. The
+// instances are the forward's (SIMT_WIDTHS, SIMT_MASKED_WIDTHS): a multiple
+// of 16 up to 256, or of 64 above, runs an EXACT pair of kernels of its own
+// width, its masks and strides fixed at compile time (built for f32, and for
+// bf16 at 144 to 192 and past 256, where such a head dim reaches the CUDA
+// cores); any other head dim the masked pair of the least of 32, 64, 128,
+// 256, 384 and 512 at or above it, the tiles' columns past hd zero. The
+// stores are one element each (a row may start anywhere), the scale from
+// the true hd. Tiles of 64 rows up to width 128, 32 up to
+// 384 and 16 above, so that the four [rows][W + 1] f32 tiles fit a block's
+// shared memory (133,632 bytes a dK/dV block at 512, 205,824 at 384); the
+// score tile is split 4 x 4, 2 x 2 or 1 x 1 a thread. P and dS go through
+// shared memory. Every product and sum is f32; a bf16 input is widened at
+// load and a bf16 result is rounded once, at its store. Keys and queries at
+// or past S load as zeros and are masked; a tile wholly above the diagonal
+// is never visited.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -172,13 +184,32 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// rows of a query or key tile, by head dim: 64 up to hd 128, 32 above
-template <int HD>
+// the instance a head dim runs (simt_width in kernels/flash_attention.py):
+// its own width where it is a multiple of 16 up to 256 or of 64 above (the
+// EXACT kernels, SIMT_WIDTHS), else the least of the masked widths at or
+// above it (SIMT_MASKED_WIDTHS); 0 outside 1 to 512
+__host__ __device__ constexpr int width(int hd) {
+  return hd < 1 || hd > 512 ? 0
+       : hd % 16 == 0 && (hd <= 256 || hd % 64 == 0) ? hd
+       : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256
+       : hd <= 384 ? 384 : 512;
+}
+
+// the widths with a masked pair of kernels, for the head dims between the
+// EXACT ones (SIMT_MASKED_WIDTHS)
+__host__ __device__ constexpr bool masked(int W) {
+  return W == 32 || W == 64 || W == 128 || W == 256 || W == 384 || W == 512;
+}
+
+// rows of a query or key tile, by instance width W: 64 up to 128, 32 up to
+// 384, 16 above, so that the four [rows][W + 1] f32 tiles fit a block's
+// shared memory
+template <int W>
 struct Tile {
-  static constexpr int BR = HD <= 128 ? 64 : 32;
+  static constexpr int BR = W <= 128 ? 64 : W <= 384 ? 32 : 16;
   static constexpr int RI = BR / 16;    // score rows (and columns) a thread
-  static constexpr int CPT = HD / 16;   // hd columns a thread
-  static constexpr int LD = HD + 1;     // [rows][hd] tile row stride
+  static constexpr int CPT = W / 16;    // columns a thread, at most
+  static constexpr int LD = W + 1;      // [rows][W] tile row stride
   static constexpr int PLD = BR + 1;    // [rows][rows] tile row stride
   // dq: q, dO, k, v tiles, dS, lse and Delta
   static constexpr int DQ_FLOATS = 4 * BR * LD + BR * PLD + 2 * BR;
@@ -225,27 +256,31 @@ int launch_delta(const void* o, const void* dout, float* delta, int B, int S,
   return (int)cudaGetLastError();
 }
 
-// rows r0 .. r0 + BR - 1 of a [S, heads, HD] slab (row stride `stride`
-// elements) into a [BR][LD] f32 tile, zeros past S
-template <int HD, int BR, typename T>
+// rows r0 .. r0 + BR - 1 of a [S, heads, hd] slab (row stride `stride`
+// elements) into a [BR][W + 1] f32 tile, zeros past S and past hd (EXACT:
+// hd is W)
+template <int W, int BR, bool EXACT, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          size_t stride, int r0, int S) {
-  constexpr int LD = HD + 1;
-  for (int idx = threadIdx.x; idx < BR * HD; idx += THREADS) {
-    const int r = idx / HD, d = idx - (idx / HD) * HD;
+                                          size_t stride, int r0, int S,
+                                          int hd) {
+  constexpr int LD = W + 1;
+  for (int idx = threadIdx.x; idx < BR * W; idx += THREADS) {
+    const int r = idx / W, d = idx - (idx / W) * W;
     const int s = r0 + r;
-    dst[r * LD + d] = s < S ? ld(src + (size_t)s * stride + d) : 0.f;
+    dst[r * LD + d] = s < S && (EXACT || d < hd)
+                          ? ld(src + (size_t)s * stride + d)
+                          : 0.f;
   }
 }
 
 // sc = Qt . Kt^T and dp = dOt . Vt^T for this thread's RI x RI scores (rows
 // ty + 16 i of the query tile, columns tx + 16 j of the key tile)
-template <int HD, int RI>
+template <int W, int RI>
 __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
                                        const float* Ks, const float* Vs,
                                        int ty, int tx, float (&sc)[RI][RI],
                                        float (&dp)[RI][RI]) {
-  constexpr int LD = HD + 1;
+  constexpr int LD = W + 1;
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -254,7 +289,7 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
       dp[i][j] = 0.f;
     }
 #pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
+  for (int d = 0; d < W; ++d) {
     float qv[RI], ov[RI], kv[RI], vv[RI];
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
@@ -273,13 +308,16 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
   }
 }
 
-template <typename T, int HD>
+// EXACT (hd = W): the kernel of that one head dim, its masks and strides
+// fixed at compile time
+template <typename T, int W, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int S, int H, int KVH, float scale) {
-  using L = Tile<HD>;
+          T* __restrict__ dq, int S, int H, int KVH, int hd, float scale) {
+  if (EXACT) hd = W;
+  using L = Tile<W>;
   constexpr int BR = L::BR, RI = L::RI, CPT = L::CPT, LD = L::LD,
                 PLD = L::PLD;
   extern __shared__ float smem[];
@@ -297,14 +335,14 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kh = h / (H / KVH);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = qt * BR;
-  const size_t qrow = (size_t)H * HD, krow = (size_t)KVH * HD;
-  const size_t qoff = (size_t)b * S * qrow + (size_t)h * HD;
-  const size_t koff = (size_t)b * S * krow + (size_t)kh * HD;
+  const size_t qrow = (size_t)H * hd, krow = (size_t)KVH * hd;
+  const size_t qoff = (size_t)b * S * qrow + (size_t)h * hd;
+  const size_t koff = (size_t)b * S * krow + (size_t)kh * hd;
   const float* lrow = lse + ((size_t)b * H + h) * S;
   const float* drow = delta + ((size_t)b * H + h) * S;
 
-  load_tile<HD, BR>(Qs, q + qoff, qrow, q0, S);
-  load_tile<HD, BR>(dOs, dout + qoff, qrow, q0, S);
+  load_tile<W, BR, EXACT>(Qs, q + qoff, qrow, q0, S, hd);
+  load_tile<W, BR, EXACT>(dOs, dout + qoff, qrow, q0, S, hd);
   for (int r = tid; r < BR; r += THREADS) {
     const int s = q0 + r;
     Ls[r] = s < S ? lrow[s] : 0.f;
@@ -320,11 +358,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt <= qt; ++kt) {   // key tiles up to the diagonal
     const int k0 = kt * BR;
     __syncthreads();   // the last tile's readers are done
-    load_tile<HD, BR>(Ks, k + koff, krow, k0, S);
-    load_tile<HD, BR>(Vs, v + koff, krow, k0, S);
+    load_tile<W, BR, EXACT>(Ks, k + koff, krow, k0, S, hd);
+    load_tile<W, BR, EXACT>(Vs, v + koff, krow, k0, S, hd);
     __syncthreads();
     float sc[RI][RI], dp[RI][RI];
-    scores<HD, RI>(Qs, dOs, Ks, Vs, ty, tx, sc, dp);
+    scores<W, RI>(Qs, dOs, Ks, Vs, ty, tx, sc, dp);
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int r = ty + 16 * i;
@@ -360,18 +398,20 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qpos >= S) continue;
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc)
-      st(dqb + (size_t)qpos * qrow + tx + 16 * cc, acc[i][cc] * scale);
+      if (EXACT || tx + 16 * cc < hd)
+        st(dqb + (size_t)qpos * qrow + tx + 16 * cc, acc[i][cc] * scale);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int W, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KVH,
-            float scale) {
-  using L = Tile<HD>;
+            int hd, float scale) {
+  if (EXACT) hd = W;
+  using L = Tile<W>;
   constexpr int BR = L::BR, RI = L::RI, CPT = L::CPT, LD = L::LD,
                 PLD = L::PLD;
   extern __shared__ float smem[];
@@ -390,11 +430,11 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int G = H / KVH;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int k0 = kt * BR;
-  const size_t qrow = (size_t)H * HD, krow = (size_t)KVH * HD;
-  const size_t koff = (size_t)b * S * krow + (size_t)kh * HD;
+  const size_t qrow = (size_t)H * hd, krow = (size_t)KVH * hd;
+  const size_t koff = (size_t)b * S * krow + (size_t)kh * hd;
 
-  load_tile<HD, BR>(Ks, k + koff, krow, k0, S);
-  load_tile<HD, BR>(Vs, v + koff, krow, k0, S);
+  load_tile<W, BR, EXACT>(Ks, k + koff, krow, k0, S, hd);
+  load_tile<W, BR, EXACT>(Vs, v + koff, krow, k0, S, hd);
 
   // this thread's rows ty + 16 i of the key tile, columns tx + 16 cc
   float accK[RI][CPT], accV[RI][CPT];
@@ -408,14 +448,14 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int g = 0; g < G; ++g) {   // the group's query heads, in order
     const int h = kh * G + g;
-    const size_t qoff = (size_t)b * S * qrow + (size_t)h * HD;
+    const size_t qoff = (size_t)b * S * qrow + (size_t)h * hd;
     const float* lrow = lse + ((size_t)b * H + h) * S;
     const float* drow = delta + ((size_t)b * H + h) * S;
     for (int qt = kt; qt < nq; ++qt) {   // query tiles from the diagonal
       const int q0 = qt * BR;
       __syncthreads();   // the last tile's readers are done
-      load_tile<HD, BR>(Qs, q + qoff, qrow, q0, S);
-      load_tile<HD, BR>(dOs, dout + qoff, qrow, q0, S);
+      load_tile<W, BR, EXACT>(Qs, q + qoff, qrow, q0, S, hd);
+      load_tile<W, BR, EXACT>(dOs, dout + qoff, qrow, q0, S, hd);
       for (int r = tid; r < BR; r += THREADS) {
         const int s = q0 + r;
         Ls[r] = s < S ? lrow[s] : 0.f;
@@ -423,7 +463,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
       float sc[RI][RI], dp[RI][RI];
-      scores<HD, RI>(Qs, dOs, Ks, Vs, ty, tx, sc, dp);
+      scores<W, RI>(Qs, dOs, Ks, Vs, ty, tx, sc, dp);
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
         const int r = ty + 16 * i;
@@ -469,6 +509,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (kpos >= S) continue;
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) {
+      if (!EXACT && tx + 16 * cc >= hd) continue;
       const size_t at = (size_t)kpos * krow + tx + 16 * cc;
       st(dkb + at, accK[i][cc] * scale);
       st(dvb + at, accV[i][cc]);
@@ -476,17 +517,19 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* lse, const void* dout, void* dq, void* dk, void* dv,
-           void* delta, int B, int S, int H, int KVH, cudaStream_t st) {
-  using L = Tile<HD>;
+template <typename T, int W, bool EXACT>
+int launch_kernels(const void* q, const void* k, const void* v,
+                   const void* o, const void* lse, const void* dout,
+                   void* dq, void* dk, void* dv, void* delta, int B, int S,
+                   int H, int KVH, int hd, cudaStream_t st) {
+  using L = Tile<W>;
   const int dq_smem = L::DQ_FLOATS * (int)sizeof(float);
   const int dkdv_smem = L::DKDV_FLOATS * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+      dq_kernel<T, W, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dkdv_kernel<T, HD>,
+  err = cudaFuncSetAttribute(dkdv_kernel<T, W, EXACT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dkdv_smem);
   if (err != cudaSuccess) return (int)err;
@@ -496,20 +539,83 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const T* dop = static_cast<const T*>(dout);
   const float* lp = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if ((err = (cudaError_t)launch_delta<T>(o, dout, dl, B, S, H, HD, st)) !=
+  if ((err = (cudaError_t)launch_delta<T>(o, dout, dl, B, S, H, hd, st)) !=
       cudaSuccess)
     return (int)err;
-  const float scale = (float)std::pow((double)HD, -0.5);
+  const float scale = (float)std::pow((double)hd, -0.5);
   const int nt = (S + L::BR - 1) / L::BR;
-  dq_kernel<T, HD><<<dim3(nt, H, B), THREADS, dq_smem, st>>>(
-      qp, kp, vp, dop, lp, dl, static_cast<T*>(dq), S, H, KVH, scale);
+  dq_kernel<T, W, EXACT><<<dim3(nt, H, B), THREADS, dq_smem, st>>>(
+      qp, kp, vp, dop, lp, dl, static_cast<T*>(dq), S, H, KVH, hd, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dkdv_kernel<T, HD><<<dim3(nt, KVH, B), THREADS, dkdv_smem, st>>>(
+  dkdv_kernel<T, W, EXACT><<<dim3(nt, KVH, B), THREADS, dkdv_smem, st>>>(
       qp, kp, vp, dop, lp, dl, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
-      KVH, scale);
+      KVH, hd, scale);
   return (int)cudaGetLastError();
 }
+
+// a head dim of the width itself runs the EXACT kernels, built where such
+// a head dim reaches the CUDA cores (f32; bf16 at 144 to 192, which the
+// tensor cores lack, and past 256); any other the masked kernels of a
+// masked width
+template <typename T, int W>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* lse, const void* dout, void* dq, void* dk, void* dv,
+           void* delta, int B, int S, int H, int KVH, int hd,
+           cudaStream_t st) {
+  if (hd == W) {
+    if constexpr (std::is_same<T, float>::value || (W > 128 && W <= 192) ||
+                  W > 256)
+      return launch_kernels<T, W, true>(q, k, v, o, lse, dout, dq, dk, dv,
+                                        delta, B, S, H, KVH, hd, st);
+  } else if constexpr (masked(W)) {
+    return launch_kernels<T, W, false>(q, k, v, o, lse, dout, dq, dk, dv,
+                                       delta, B, S, H, KVH, hd, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the instances, by width (SIMT_WIDTHS)
+#define SIMT_WIDTH_LIST(X)                                                  \
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176)    \
+  X(192) X(208) X(224) X(240) X(256) X(320) X(384) X(448) X(512)
+
+// head dim -> the instance of its width
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* o,
+             const void* lse, const void* dout, void* dq, void* dk, void* dv,
+             void* delta, int B, int S, int H, int KVH, int hd,
+             cudaStream_t st) {
+  switch (width(hd)) {
+#define BWD_SIMT_CASE(W)                                                     \
+  case W:                                                                    \
+    return launch<T, W>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, H,   \
+                        KVH, hd, st);
+    SIMT_WIDTH_LIST(BWD_SIMT_CASE)
+#undef BWD_SIMT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out = {width, key rows a dK/dV block, its shared memory}, or 0 where the
+// head dim has no instance
+inline int geometry(int hd, int* out) {
+  switch (width(hd)) {
+#define BWD_SIMT_GEO(W)                                      \
+  case W:                                                    \
+    out[0] = W;                                              \
+    out[1] = Tile<W>::BR;                                    \
+    out[2] = Tile<W>::DKDV_FLOATS * (int)sizeof(float);      \
+    return 1;
+    SIMT_WIDTH_LIST(BWD_SIMT_GEO)
+#undef BWD_SIMT_GEO
+    default:
+      return 0;
+  }
+}
+
+#undef SIMT_WIDTH_LIST
 
 }  // namespace simt
 
@@ -1094,8 +1200,17 @@ sum_splits_kernel(const float* __restrict__ work,
   out[1] = __floats2bfloat162_rn(a.z, a.w);
 }
 
+// the instance a bf16 head dim runs on the tensor cores (BWD_TC_WIDTHS and
+// tc_width in kernels/flash_attention.py): a multiple of 8 up to 128 or in
+// 193 to 256 runs the least width at or above it; 0 for any other head dim
+// (route: the CUDA cores; no tensor-core instance of width 192)
+__host__ __device__ constexpr int width(int hd) {
+  return hd < 1 || hd % 8 != 0 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128
+       : hd <= 192 ? 0 : hd <= 256 ? 256 : 0;
+}
+
 // HD: the instance's width (TC_WIDTHS in kernels/flash_attention.py), hd
-// the head dim, a multiple of 16 in (HD - 64, HD]: the maps' extent, so
+// the head dim, a multiple of 8 in (HD - 64, HD]: the maps' extent, so
 // that the TMA fills the tiles' columns past hd with zeros, which add
 // nothing to any product. nsplit: the query-head splits of the dK/dV
 // pass, 1 up to width 128; above, a divisor of the group, with work its
@@ -1108,8 +1223,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   using D = DqLayout<HD>;
   using K = KvLayout<HD>;
   if (nsplit < 1 || (H / KVH) % nsplit != 0 || (!K::SPLIT && nsplit != 1) ||
-      (nsplit > 1 && work == nullptr) || hd % 16 != 0 || hd > HD ||
-      hd <= HD - CHUNK)
+      (nsplit > 1 && work == nullptr) || width(hd) != HD)
     return (int)cudaErrorInvalidValue;
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qd, od, kd, vd, qk, ok, kk, vk;
@@ -1158,6 +1272,22 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// out = {width, key rows a dK/dV block, its shared memory}, or 0 where
+// the head dim has no tensor-core instance
+inline int geometry(int hd, int* out) {
+  switch (width(hd)) {
+#define BWD_TC_GEO(W)              \
+  case W:                          \
+    out[0] = W;                    \
+    out[1] = KvLayout<W>::BK;      \
+    out[2] = KvLayout<W>::BYTES;   \
+    return 1;
+    BWD_TC_GEO(64) BWD_TC_GEO(128) BWD_TC_GEO(256)
+#undef BWD_TC_GEO
+    default: return 0;
+  }
+}
+
 }  // namespace tc
 
 int prologue(int H, int KVH, int device) {
@@ -1180,25 +1310,13 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        void* stream) {
   const int err = prologue(H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-#define FAB_CASE(N)                                                         \
-  case N:                                                                   \
-    return simt::launch<float, N>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, \
-                            H, KVH, st);
-    FAB_CASE(16) FAB_CASE(32) FAB_CASE(48) FAB_CASE(64) FAB_CASE(80)
-    FAB_CASE(96) FAB_CASE(112) FAB_CASE(128) FAB_CASE(144) FAB_CASE(160)
-    FAB_CASE(176) FAB_CASE(192) FAB_CASE(208) FAB_CASE(224) FAB_CASE(240)
-    FAB_CASE(256)
-#undef FAB_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return simt::dispatch<float>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
+                               S, H, KVH, hd, (cudaStream_t)stream);
 }
 
 // the f32 entry's arguments, and work, the dK/dV pass's f32 workspace
-// (NULL where nsplit is 1), and nsplit, its query-head splits (1 up to hd
-// 128 and at hd 192; a divisor of H / KVH at hd 256: tc::launch)
+// (NULL where nsplit is 1), and nsplit, its query-head splits (1 but on
+// the tensor cores at width 256: a divisor of H / KVH there, tc::launch)
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* lse, const void* dout,
@@ -1210,28 +1328,31 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
   const int err = prologue(H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
   const cudaStream_t st = (cudaStream_t)stream;
-  // BF16_HEAD_DIMS in kernels/flash_attention.py: the tensor-core
-  // instance of the head dim's width (tc_width), or at 144 to 192 the
-  // CUDA-core kernel (no tensor-core instance of width 192)
-  switch (hd) {
-#define BWD_TC_CASE(N, W)                                                   \
-  case N:                                                                   \
+  // the tensor-core instance of the head dim's width (tc::width), or the
+  // CUDA-core kernel (bwd_scope in kernels/flash_attention.py)
+  switch (tc::width(hd)) {
+#define BWD_TC_CASE(W)                                                      \
+  case W:                                                                   \
     return tc::launch<W>(q, k, v, o, lse, dout, dq, dk, dv, delta, work, B, \
                          S, H, KVH, hd, nsplit, st);
-#define BWD_SIMT_CASE(N)                                                    \
-  case N:                                                                   \
-    if (nsplit != 1) return (int)cudaErrorInvalidValue;                     \
-    return simt::launch<__nv_bfloat16, N>(q, k, v, o, lse, dout, dq, dk, dv, \
-                                          delta, B, S, H, KVH, st);
-    BWD_TC_CASE(16, 64) BWD_TC_CASE(32, 64) BWD_TC_CASE(48, 64)
-    BWD_TC_CASE(64, 64) BWD_TC_CASE(80, 128) BWD_TC_CASE(96, 128)
-    BWD_TC_CASE(112, 128) BWD_TC_CASE(128, 128) BWD_SIMT_CASE(144)
-    BWD_SIMT_CASE(160) BWD_SIMT_CASE(176) BWD_SIMT_CASE(192)
-    BWD_TC_CASE(208, 256) BWD_TC_CASE(224, 256) BWD_TC_CASE(240, 256)
-    BWD_TC_CASE(256, 256)
+    BWD_TC_CASE(64) BWD_TC_CASE(128) BWD_TC_CASE(256)
 #undef BWD_TC_CASE
-#undef BWD_SIMT_CASE
     default:
-      return (int)cudaErrorInvalidValue;
+      if (nsplit != 1) return (int)cudaErrorInvalidValue;
+      return simt::dispatch<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv,
+                                           delta, B, S, H, KVH, hd, st);
   }
+}
+
+// the dK/dV launch a head dim gets, for kernels/flash_attention.bwd_geometry
+// to be held against: out = {route (1 the tensor cores, 0 the CUDA cores),
+// the instance's width, key rows a block, shared memory a block}; bf16 is
+// 0 for f32, 1 for bf16. cudaErrorInvalidValue past the domain (1 to 512).
+extern "C" int flash_attention_bwd_geometry(int bf16, int hd, int* out) {
+  if (bf16 && tc::geometry(hd, out + 1)) {
+    out[0] = 1;
+    return 0;
+  }
+  out[0] = 0;
+  return simt::geometry(hd, out + 1) ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -7,14 +7,22 @@
 // dt, dx [B, T, di], A [di, ds], Bc, Cc [B, T, ds], h0 [B, di, ds] or
 // null (zeros), all f32; y [B, T, di] and h_last [B, di, ds] f32. One
 // template instance for each ds in {4, 8, 16, 32, 64}; any ds from 1 to 64
-// runs the least at or above it (instance), the states past ds masked:
-// they read as zero (A = B = C = h0 = 0, so they stay 0) and are not
-// stored. Two forms: the f32 scan (this header) and, at a 16-bit
-// scan_dtype, the reference's rounded tree (namespace tree, below). For
-// training, hs (null, or [B, ceil(T / BT), di, ds] f32) receives the state
-// at the start of every BT-step chunk (hs[:, 0] = h0), from which the
-// backward kernels (csrc/selective_scan_bwd.cu) recompute each chunk's
-// states.
+// runs the least at or above it (instance), the states past ds masked: they
+// read as zero (A = B = C = h0 = 0, so they stay 0) and are not stored. From
+// 65 to 256 the states are cut into groups of 64 (groups), a third grid
+// axis: the recurrence is independent in every (channel, state), so each
+// group runs the 64-state instance as it is on its own states (the last
+// one's past ds masked) and writes its slice of h_last and hs. Only y sums
+// over the states: group 0 writes its partial y to y, the others theirs to
+// a [groups - 1, B, T, di] scratch that the wrapper frees on return, and
+// sum_groups_kernel adds them into y in group order (no atomics: the same
+// bits every run). The y traffic grows with the groups (a read and
+// a write of [B, T, di] more for each), beside the groups' reads of dt and
+// dx. Two forms: the f32 scan (this header) and, at a 16-bit scan_dtype, the
+// reference's rounded tree (namespace tree, below). For training, hs (null,
+// or [B, ceil(T / BT), di, ds] f32) receives the state at the start of every
+// BT-step chunk (hs[:, 0] = h0), from which the backward kernels
+// (csrc/selective_scan_bwd.cu) recompute each chunk's states.
 //
 // Bound on the H100: the bytes. Per (b, t, channel) the function reads dt
 // and dx and writes y (12 bytes); Bc and Cc are ds floats per (b, t),
@@ -117,8 +125,8 @@ selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ Bc,
                       const float* __restrict__ Cc,
                       const float* __restrict__ h0, float* __restrict__ y,
-                      float* __restrict__ h_last, float* __restrict__ hs,
-                      int T, int di, int ds_in) {
+                      float* __restrict__ parts, float* __restrict__ h_last,
+                      float* __restrict__ hs, int T, int di, int lds_in) {
   constexpr int L = lanes(DS);            // lanes per channel
   constexpr int S = DS / L;               // states per lane
   constexpr int THR = CH * L;
@@ -133,7 +141,16 @@ selective_scan_kernel(const float* __restrict__ dt,
   const bool live = d < di;
   const bool vec = (di % 4) == 0;         // dt, dx, y rows 16-byte aligned
   constexpr bool full = WHOLE;
-  const int ds = WHOLE ? DS : ds_in;       // states a row of A, Bc, Cc, h
+  // the block's group of states: s0 .. s0 + ds - 1 of the lds a row of A,
+  // Bc, Cc and h holds; its partial y goes to y (group 0) or to its slice
+  // of parts, which sum_groups_kernel adds in group order. An instance
+  // below GROUP has one group: the terms fold away.
+  // (WHOLE below GROUP: a row is the instance's DS states)
+  const int lds = WHOLE && DS < GROUP ? DS : lds_in;
+  const int grp = DS < GROUP ? 0 : (int)blockIdx.z;
+  const int s0 = grp * DS;
+  const int ds = WHOLE ? DS : DS < GROUP ? lds : min(DS, lds - s0);
+  float* yg = grp == 0 ? y : parts + (size_t)(grp - 1) * gridDim.y * T * di;
 
   // chunk c (time steps c*BT..) into ring stage st; steps past T,
   // channels past di and states past ds read zero
@@ -162,7 +179,7 @@ selective_scan_kernel(const float* __restrict__ dt,
         cp_async4_zfill(dxs + r * CH + k, in ? dx + off : dx, in ? 4 : 0);
       }
     }
-    load_states<THR, DS>(bs, Bc, cs, Cc, b, t0, T, ds);
+    load_states<THR, DS>(bs, Bc, cs, Cc, b, t0, T, ds, lds, s0);
   };
 
   const int nchunk = (T + BT - 1) / BT;
@@ -173,12 +190,12 @@ selective_scan_kernel(const float* __restrict__ dt,
   }
 
   float a2[S], h[S];
-  const size_t row = ((size_t)b * di + d) * ds + l * S;   // h0, h_last
+  const size_t row = ((size_t)b * di + d) * lds + s0 + l * S;  // h0, h_last
   if (full) {
 #pragma unroll
     for (int s = 0; s < S; s += 4) {
       const float4 av = live ? *reinterpret_cast<const float4*>(
-                                   A + (size_t)d * DS + l * S + s)
+                                   A + (size_t)d * lds + s0 + l * S + s)
                              : make_float4(0.f, 0.f, 0.f, 0.f);
       const float4 hv = (live && h0 != nullptr)
                             ? *reinterpret_cast<const float4*>(h0 + row + s)
@@ -191,14 +208,15 @@ selective_scan_kernel(const float* __restrict__ dt,
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const bool in = live && l * S + s < ds;
-      a2[s] = (in ? A[(size_t)d * ds + l * S + s] : 0.f) * LOG2E;
+      a2[s] = (in ? A[(size_t)d * lds + s0 + l * S + s] : 0.f) * LOG2E;
       h[s] = in && h0 != nullptr ? h0[row + s] : 0.f;
     }
   }
 
   for (int c = 0; c < nchunk; ++c) {
     if (hs != nullptr && live)    // the state at the chunk's start
-      store_states<S>(hs + (((size_t)b * nchunk + c) * di + d) * ds + l * S,
+      store_states<S>(hs + (((size_t)b * nchunk + c) * di + d) * lds + s0 +
+                          l * S,
                       h, ds - l * S, full);
     cp_wait<STAGES - 2>();        // chunk c has landed (this thread's copies)
     __syncthreads();              // everyone's; chunk c-1's stage and y free
@@ -247,7 +265,7 @@ selective_scan_kernel(const float* __restrict__ dt,
       for (int idx = tid; idx < nt * CH / 4; idx += THR) {
         const int r = idx / (CH / 4), k = (idx % (CH / 4)) * 4;
         if (d0 + k < di)
-          *reinterpret_cast<float4*>(y + ((size_t)b * T + t0 + r) * di + d0 +
+          *reinterpret_cast<float4*>(yg + ((size_t)b * T + t0 + r) * di + d0 +
                                      k) =
               *reinterpret_cast<const float4*>(ys + r * CH + k);
       }
@@ -255,7 +273,7 @@ selective_scan_kernel(const float* __restrict__ dt,
       for (int idx = tid; idx < nt * CH; idx += THR) {
         const int r = idx / CH, k = idx % CH;
         if (d0 + k < di)
-          y[((size_t)b * T + t0 + r) * di + d0 + k] = ys[r * CH + k];
+          yg[((size_t)b * T + t0 + r) * di + d0 + k] = ys[r * CH + k];
       }
     }
   }
@@ -266,8 +284,8 @@ selective_scan_kernel(const float* __restrict__ dt,
 template <int DS, bool WHOLE>
 int launch_f32(const float* dt, const float* dx, const float* A,
                const float* Bc, const float* Cc, const float* h0, float* y,
-               float* h_last, float* hs, int B, int T, int di, int ds,
-               void* stream) {
+               float* parts, float* h_last, float* hs, int B, int T, int di,
+               int ds, void* stream) {
   const int smem = (int)sizeof(float) * smem_floats(DS);
   if (smem > 48 * 1024) {       // only ds = 64; a decode step stays lean
     const cudaError_t err = cudaFuncSetAttribute(
@@ -275,21 +293,25 @@ int launch_f32(const float* dt, const float* dx, const float* A,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((di + CH - 1) / CH, B);
+  const dim3 grid((di + CH - 1) / CH, B, groups(ds));
   selective_scan_kernel<DS, WHOLE><<<grid, CH * lanes(DS), smem,
                                     (cudaStream_t)stream>>>(
-      dt, dx, A, Bc, Cc, h0, y, h_last, hs, T, di, ds);
+      dt, dx, A, Bc, Cc, h0, y, parts, h_last, hs, T, di, ds);
   return (int)cudaGetLastError();
 }
 
+// WHOLE where every group holds DS states on 16-byte aligned rows: ds is
+// DS, or past 64 a multiple of it
 template <int DS>
 int launch(const float* dt, const float* dx, const float* A, const float* Bc,
-           const float* Cc, const float* h0, float* y, float* h_last,
-           float* hs, int B, int T, int di, int ds, void* stream) {
-  return ds == DS ? launch_f32<DS, true>(dt, dx, A, Bc, Cc, h0, y, h_last,
-                                         hs, B, T, di, ds, stream)
-                  : launch_f32<DS, false>(dt, dx, A, Bc, Cc, h0, y, h_last,
-                                          hs, B, T, di, ds, stream);
+           const float* Cc, const float* h0, float* y, float* parts,
+           float* h_last, float* hs, int B, int T, int di, int ds,
+           void* stream) {
+  return ds % DS == 0
+             ? launch_f32<DS, true>(dt, dx, A, Bc, Cc, h0, y, parts, h_last,
+                                    hs, B, T, di, ds, stream)
+             : launch_f32<DS, false>(dt, dx, A, Bc, Cc, h0, y, parts, h_last,
+                                     hs, B, T, di, ds, stream);
 }
 
 // ----------------------------------------------- 16-bit transitions ----
@@ -455,8 +477,9 @@ __global__ void __launch_bounds__(tch(DS) * tlanes(DS))
 tree_kernel(const float* __restrict__ dt, const float* __restrict__ dx,
             const float* __restrict__ A, const float* __restrict__ Bc,
             const float* __restrict__ Cc, const float* __restrict__ h0,
-            float* __restrict__ y, float* __restrict__ h_last,
-            float* __restrict__ hs, int T, int di, int ds) {
+            float* __restrict__ y, float* __restrict__ parts,
+            float* __restrict__ h_last, float* __restrict__ hs, int T, int di,
+            int lds) {
   using Q = Tr<R>;
   using V = typename Q::V;
   constexpr int L = tlanes(DS);
@@ -472,7 +495,12 @@ tree_kernel(const float* __restrict__ dt, const float* __restrict__ dx,
   const int d = d0 + ch;
   const bool live = d < di;
   const bool vec = (di % 4) == 0;
-  const bool full = ds == DS;
+  // the block's group of states and its partial y, as in the f32 kernel
+  const int grp = DS < GROUP ? 0 : (int)blockIdx.z;
+  const int s0 = grp * DS;
+  const int ds = DS < GROUP ? lds : min(DS, lds - s0);
+  const bool full = ds == DS && lds % 4 == 0;
+  float* yg = grp == 0 ? y : parts + (size_t)(grp - 1) * gridDim.y * T * di;
 
   auto load_chunk = [&](int c, int st) {
     float* dts = smem + st * STAGE;
@@ -497,7 +525,7 @@ tree_kernel(const float* __restrict__ dt, const float* __restrict__ dx,
         cp_async4_zfill(dxs + r * C + k, in ? dx + off : dx, in ? 4 : 0);
       }
     }
-    load_states<THR, DS>(bs, Bc, cs, Cc, b, t0, T, ds);
+    load_states<THR, DS>(bs, Bc, cs, Cc, b, t0, T, ds, lds, s0);
   };
 
   const int nchunk = (T + BT - 1) / BT;
@@ -514,11 +542,11 @@ tree_kernel(const float* __restrict__ dt, const float* __restrict__ dx,
   float a[S], hst[S], hcur[S];
   V slot[S][4], fold[S][4], s4[S], s5[S], F[S], H[S];
   V hslot[S][KH], hfold[S][KH];           // the high counter (ragged T)
-  const size_t row = ((size_t)b * di + d) * ds + l * S;
+  const size_t row = ((size_t)b * di + d) * lds + s0 + l * S;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const bool in = live && l * S + s < ds;
-    a[s] = in ? A[(size_t)d * ds + l * S + s] : 0.f;
+    a[s] = in ? A[(size_t)d * lds + s0 + l * S + s] : 0.f;
     hst[s] = in && h0 != nullptr ? h0[row + s] : 0.f;
     hcur[s] = hst[s];
     H[s] = F[s] = Q::pack(1.f, 0.f);
@@ -537,8 +565,8 @@ tree_kernel(const float* __restrict__ dt, const float* __restrict__ dx,
       }
       if (c < nchunk) {
         if (hs != nullptr && live)          // the state at the chunk's start
-          store_states<S>(hs + (((size_t)b * nchunk + c) * di + d) * ds +
-                              l * S, hcur, ds - l * S, full);
+          store_states<S>(hs + (((size_t)b * nchunk + c) * di + d) * lds +
+                              s0 + l * S, hcur, ds - l * S, full);
         cp_wait<STAGES - 2>();
         __syncthreads();
         const int nx = c + STAGES - 1;
@@ -618,7 +646,7 @@ tree_kernel(const float* __restrict__ dt, const float* __restrict__ dx,
           for (int idx = tid; idx < nt * C / 4; idx += THR) {
             const int r = idx / (C / 4), k = (idx % (C / 4)) * 4;
             if (d0 + k < di)
-              *reinterpret_cast<float4*>(y + ((size_t)b * T + t0 + r) * di +
+              *reinterpret_cast<float4*>(yg + ((size_t)b * T + t0 + r) * di +
                                          d0 + k) =
                   *reinterpret_cast<const float4*>(ys + r * C + k);
           }
@@ -626,7 +654,7 @@ tree_kernel(const float* __restrict__ dt, const float* __restrict__ dx,
           for (int idx = tid; idx < nt * C; idx += THR) {
             const int r = idx / C, k = idx % C;
             if (d0 + k < di)
-              y[((size_t)b * T + t0 + r) * di + d0 + k] = ys[r * C + k];
+              yg[((size_t)b * T + t0 + r) * di + d0 + k] = ys[r * C + k];
           }
         }
       }
@@ -642,17 +670,18 @@ tree_kernel(const float* __restrict__ dt, const float* __restrict__ dx,
 
 template <typename R, int DS>
 int launch(const float* dt, const float* dx, const float* A, const float* Bc,
-           const float* Cc, const float* h0, float* y, float* h_last,
-           float* hs, int B, int T, int di, int ds, void* stream) {
+           const float* Cc, const float* h0, float* y, float* parts,
+           float* h_last, float* hs, int B, int T, int di, int ds,
+           void* stream) {
   if ((long long)T >= ((long long)G << KH)) return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(float) * smem_floats(DS);
   cudaError_t err = cudaFuncSetAttribute(
       tree_kernel<R, DS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((di + tch(DS) - 1) / tch(DS), B);
+  const dim3 grid((di + tch(DS) - 1) / tch(DS), B, groups(ds));
   tree_kernel<R, DS><<<grid, tch(DS) * tlanes(DS), smem,
                        (cudaStream_t)stream>>>(dt, dx, A, Bc, Cc, h0, y,
-                                               h_last, hs, T, di, ds);
+                                               parts, h_last, hs, T, di, ds);
   return (int)cudaGetLastError();
 }
 
@@ -660,25 +689,33 @@ int launch(const float* dt, const float* dx, const float* A, const float* Bc,
 
 
 // the transitions' type by the entry points' form: 0 f32, 1 bf16, 2 f16
-// (kernels/selective_scan.FORMS)
+// (kernels/selective_scan.FORMS); past 64 states the groups' partial y
+// added in group order
 template <int DS>
 int forward(int form, const float* dt, const float* dx, const float* A,
             const float* Bc, const float* Cc, const float* h0, float* y,
-            float* h_last, float* hs, int B, int T, int di, int ds,
-            void* stream) {
+            float* parts, float* h_last, float* hs, int B, int T, int di,
+            int ds, void* stream) {
+  int err;
   switch (form) {
     case 0:
-      return launch<DS>(dt, dx, A, Bc, Cc, h0, y, h_last, hs, B, T, di, ds,
-                        stream);
+      err = launch<DS>(dt, dx, A, Bc, Cc, h0, y, parts, h_last, hs, B, T, di,
+                       ds, stream);
+      break;
     case 1:
-      return tree::launch<__nv_bfloat16, DS>(dt, dx, A, Bc, Cc, h0, y, h_last,
-                                             hs, B, T, di, ds, stream);
+      err = tree::launch<__nv_bfloat16, DS>(dt, dx, A, Bc, Cc, h0, y, parts,
+                                            h_last, hs, B, T, di, ds, stream);
+      break;
     case 2:
-      return tree::launch<__half, DS>(dt, dx, A, Bc, Cc, h0, y, h_last, hs,
-                                      B, T, di, ds, stream);
+      err = tree::launch<__half, DS>(dt, dx, A, Bc, Cc, h0, y, parts, h_last,
+                                     hs, B, T, di, ds, stream);
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  if (err != 0) return err;
+  const long long btd = (long long)B * T * di;
+  return sum_groups(y, parts, btd, btd, groups(ds) - 1, (cudaStream_t)stream);
 }
 
 
@@ -688,35 +725,39 @@ int forward(int form, const float* dt, const float* dx, const float* A,
 // is checked against this)
 extern "C" int selective_scan_lanes(int ds) { return lanes(instance(ds)); }
 
-// the geometry of a d_state's forward instances, for
-// kernels/selective_scan.py to be held against: out = {instance, tree
-// lanes, tree channels, tree shared memory}
+// the geometry of a d_state's forward launch, for kernels/selective_scan.py
+// to be held against: out = {instance, state groups, tree lanes, tree
+// channels, tree shared memory}
 extern "C" int selective_scan_geometry(int ds, int* out) {
   const int n = instance(ds);
   if (n == 0) return (int)cudaErrorInvalidValue;
   out[0] = n;
-  out[1] = tree::tlanes(n);
-  out[2] = tree::tch(n);
-  out[3] = (int)sizeof(float) * tree::smem_floats(n);
+  out[1] = groups(ds);
+  out[2] = tree::tlanes(n);
+  out[3] = tree::tch(n);
+  out[4] = (int)sizeof(float) * tree::smem_floats(n);
   return 0;
 }
 
-// hs: null, or [B, ceil(T / BT), di, ds] for the chunks' start states; form:
-// the transitions' type (0 f32, 1 bf16, 2 f16); any ds from 1 to 64
+// y: [B, T, di], which receives group 0's partial sum and then the
+// others'; parts: null up to 64 states, else a [groups(ds) - 1, B, T, di]
+// scratch for the other groups' partials; hs: null, or [B, ceil(T / BT),
+// di, ds] for the chunks' start states; form: the transitions' type (0
+// f32, 1 bf16, 2 f16); any ds from 1 to 256
 extern "C" int selective_scan_f32(const float* dt, const float* dx,
                                   const float* A, const float* Bc,
                                   const float* Cc, const float* h0, float* y,
-                                  float* h_last, float* hs, int B, int T,
-                                  int di, int ds, int form, int device,
-                                  void* stream) {
+                                  float* parts, float* h_last, float* hs,
+                                  int B, int T, int di, int ds, int form,
+                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || di == 0) return 0;
   switch (instance(ds)) {   // D_STATES in kernels/selective_scan.py
 #define SSF_CASE(N)                                                         \
   case N:                                                                   \
-    return forward<N>(form, dt, dx, A, Bc, Cc, h0, y, h_last, hs, B, T, di, \
-                      ds, stream);
+    return forward<N>(form, dt, dx, A, Bc, Cc, h0, y, parts, h_last, hs, B, T, \
+                      di, ds, stream);
     SSF_CASE(4) SSF_CASE(8) SSF_CASE(16) SSF_CASE(32) SSF_CASE(64)
 #undef SSF_CASE
     default:

@@ -64,18 +64,38 @@ namespace {
 // partials in index order. Every gradient is the same bits on every run.
 // Steps past T load as zeros (dt = dx = dy = 0: a decay of 1, nothing
 // added), so they pass the carry through unchanged and are not stored.
-// Instances for ds 4, 8, 16, 32 and 64; every d_state from 1 to 64
-// (BWD_D_STATES in kernels/selective_scan.py) runs the least at or above
-// it, the states past ds masked: they load as zeros (A = C = h = 0, so
-// their adjoint and states stay 0), the internal carries and partials
-// keep the instance's width and the sums of dA, dB and dC drop them. At
-// 32 a block is 512 threads and 147 KB. At 64, 16 lanes a channel, a
-// block keeps 512 threads by holding 32 channels (bch): each thread keeps
-// its 16 steps x 4 states before each step in 64 registers within the 128
-// a 512-thread block allows, as at 32; 198 KB of shared memory, the warps'
-// dB and dC sums 128 KB of it. The f32 form at a d_state of its own
-// instance runs the kernels as they were before masking (WHOLE); the
-// masked ones, and the 16-bit forms (Step), are instances of their own.
+// Instances for ds 4, 8, 16, 32 and 64; every d_state from 1 to 64 runs the
+// least at or above it, the states past ds masked: they load as zeros (A = C
+// = h = 0, so their adjoint and states stay 0), the internal carries and
+// partials keep the instance's width and the sums of dA, dB and dC drop
+// them. At 32 a block is 512 threads and 147 KB. At 64, 16 lanes a channel,
+// a block keeps 512 threads by holding 32 channels (bch): each thread keeps
+// its 16 steps x 4 states before each step in 64 registers within the 128 a
+// 512-thread block allows, as at 32; 198 KB of shared memory, the warps' dB
+// and dC sums 128 KB of it. The f32 form at a d_state of its own instance
+// runs the kernels as they were before masking (WHOLE); the masked ones, and
+// the 16-bit forms (Step), are instances of their own.
+//
+// Past 64 states (65 to 256, BWD_D_STATES), the states are cut into groups
+// of 64 (groups), a grid axis folded into x beside the channel blocks: the
+// recurrence and its adjoint are independent in every (channel, state), so
+// each group runs the 64-state instance as it is on its own states (the last
+// one's past ds masked). The per-state results are each group's slice: the
+// carries, decays and dA partials [B, nseg, di, W] and the dB and dC
+// partials [B, blocks, T, W] are W = 64 x groups states wide, and
+// sum_mid_kernel drops the states past ds; dh0 is written in place. d(dx)
+// and d(dt) sum over the states: group 0 writes its partials to them, the
+// others theirs to a [groups - 1, 2, B, T, di] scratch that the wrapper
+// frees on return, and sum_groups_kernel adds those into them in group
+// order. No atomics, so the same bits every run. The gradient pass past 64
+// states is a kernel of its own (scan_bwd_groups_kernel): with the group
+// terms in scan_bwd_kernel, folded to constants at one group, the f32 pass
+// at d_state 16 ran 2.55% slower on an H100 (PERF.md §6). Up to
+// 64 states carry_kernel runs with GROUPED false, every group term a
+// constant that folds away (its SASS is the same as without them).
+// Widening the per-warp layout instead would put a
+// channel's 64 lanes across two warps (the shuffle sums stop at a warp) and
+// need about 512 KB of shared memory for the warps' dB and dC sums at 256.
 //
 // On the card (H100 80GB HBM3, 700 W; chip_smoke.py phase 13 sweeps the
 // segment length at Jamba's B = 1, T = 4096, di = 8192, ds = 16): ms and
@@ -199,14 +219,15 @@ __device__ __forceinline__ void unpack(const float4 v, float (&out)[SL]) {
 // Pass 1: segment blockIdx.y + 1's adjoint from a zero carry, its last
 // chunk first: lcarry = the carry it leaves, decay = the product of its
 // decays, [B, nseg, di, DS] (states past ds stay 0 and 1)
-template <typename R, int DS, bool WHOLE>
+template <typename R, int DS, bool WHOLE, bool GROUPED>
 __global__ void __launch_bounds__(bch(DS) * DS / SL)
 carry_kernel(const float* __restrict__ dt, const float* __restrict__ A,
              const float* __restrict__ Cc, const float* __restrict__ dy,
              float* __restrict__ lcarry, float* __restrict__ decay, int T,
-             int di, int ds_in, int seg_chunks, int nseg) {
+             int di, int lds_in, int seg_chunks, int nseg) {
   using Q = Step<R>;
-  const int ds = WHOLE ? DS : ds_in;
+  // (WHOLE in one group: a row is the instance's DS states)
+  const int lds = WHOLE && !GROUPED ? DS : lds_in;
   constexpr int L = blanes(DS);
   constexpr int CH = bch(DS);
   constexpr int THR = CH * L;
@@ -215,7 +236,15 @@ carry_kernel(const float* __restrict__ dt, const float* __restrict__ A,
   const int tid = threadIdx.x;
   const int ch = tid / L, l = tid % L;
   const int seg = blockIdx.y + 1, b = blockIdx.z;
-  const int d0 = blockIdx.x * CH, d = d0 + ch;
+  // blockIdx.x: (state group, channel block); the group's states s0 .. s0
+  // + ds - 1 of the lds a row holds, its slice of the [.., W] scratch (in
+  // one group the terms fold away)
+  const int nblk = GROUPED ? (di + CH - 1) / CH : (int)gridDim.x;
+  const int grp = GROUPED ? (int)blockIdx.x / nblk : 0;
+  const int blk = GROUPED ? (int)blockIdx.x % nblk : (int)blockIdx.x;
+  const int s0 = grp * DS, W = GROUPED ? groups(lds) * DS : DS;
+  const int ds = WHOLE ? DS : GROUPED ? min(DS, lds - s0) : lds;
+  const int d0 = blk * CH, d = d0 + ch;
   const bool live = d < di, vec = (di % 4) == 0;
   const int nchunk = (T + BT - 1) / BT;
   const int c_hi = min(nchunk, (seg + 1) * seg_chunks) - 1;
@@ -227,7 +256,7 @@ carry_kernel(const float* __restrict__ dt, const float* __restrict__ A,
     load_rows<THR, CH>(dts, dt, b, t0, T, d0, di, vec);
     load_rows<THR, CH>(dts + BT * CH, dy, b, t0, T, d0, di, vec);
     load_states<THR, DS>(dts + 2 * BT * CH, Cc, nullptr, nullptr, b, t0, T,
-                         ds);
+                         ds, lds, s0);
   };
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -236,8 +265,8 @@ carry_kernel(const float* __restrict__ dt, const float* __restrict__ A,
   }
 
   float a[SL], a2[SL], carry[SL], prod[SL];
-  unpack(live ? (WHOLE ? ld4(A + (size_t)d * DS + l * SL)
-                      : ld4m(A + (size_t)d * ds + l * SL, ds - l * SL))
+  unpack(live ? (WHOLE ? ld4(A + (size_t)d * lds + s0 + l * SL)
+                      : ld4m(A + (size_t)d * lds + s0 + l * SL, ds - l * SL))
               : make_float4(0.f, 0.f, 0.f, 0.f), a);
 #pragma unroll
   for (int s = 0; s < SL; ++s) {
@@ -269,7 +298,8 @@ carry_kernel(const float* __restrict__ dt, const float* __restrict__ A,
     }
   }
   if (!live) return;
-  const size_t srow = (((size_t)b * nseg + seg) * di + d) * DS + l * SL;
+  const size_t srow =
+      (((size_t)b * nseg + seg) * di + d) * W + s0 + l * SL;
   st4(lcarry + srow, carry);
   st4(decay + srow, prod);
 }
@@ -495,6 +525,209 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ dx,
   }
 }
 
+// Pass 3 past 64 states: the gradients of segment blockIdx.y from its
+// carry K, for the state group and channel block of blockIdx.x
+template <typename R, int DS, bool WHOLE>
+__global__ void __launch_bounds__(bch(DS) * DS / SL, DS <= 16 ? 2 : 1)
+scan_bwd_groups_kernel(
+    const float* __restrict__ dt, const float* __restrict__ dx,
+    const float* __restrict__ A, const float* __restrict__ Bc,
+    const float* __restrict__ Cc, const float* __restrict__ hs,
+    const float* __restrict__ dy, const float* __restrict__ kcarry,
+    float* __restrict__ ddt, float* __restrict__ ddx,
+    float* __restrict__ parts, float* __restrict__ dA_part,
+    float* __restrict__ dB_part, float* __restrict__ dC_part,
+    float* __restrict__ dh0, int T, int di, int lds, int seg_chunks,
+    int nseg) {
+  using Q = Step<R>;
+  constexpr int L = blanes(DS);           // lanes per channel
+  constexpr int CH = bch(DS);
+  constexpr int THR = CH * L;
+  constexpr int NW = THR / 32;
+  constexpr int STG = stage_floats(DS);
+  extern __shared__ __align__(16) float smem[];
+  float* gdx = smem + STAGES * STG;       // [BT][CH]
+  float* gdt = gdx + BT * CH;
+  float* redB = gdt + BT * CH;            // [NW][BT][DS]
+  float* redC = redB + NW * BT * DS;
+
+  const int tid = threadIdx.x;
+  const int ch = tid / L, l = tid % L;
+  const int warp = tid / 32, wl = tid % 32;
+  const int seg = blockIdx.y, b = blockIdx.z;
+  // blockIdx.x: (state group, channel block); the group's states s0 .. s0
+  // + ds - 1 of the lds a row holds, its slice of the [.., W] scratch, and
+  // its partial d(dt) and d(dx): group 0's in ddt and ddx, group g's the
+  // slices [g - 1, 0] and [g - 1, 1] of parts [groups - 1, 2, B, T, di],
+  // added in group order by sum_groups_kernel
+  const int nblk = (di + CH - 1) / CH;
+  const int grp = (int)blockIdx.x / nblk, blk = (int)blockIdx.x % nblk;
+  const int s0 = grp * DS, W = groups(lds) * DS;
+  const int ds = WHOLE ? DS : min(DS, lds - s0);
+  const size_t btd = (size_t)gridDim.z * T * di;
+  float* ddt_g = grp == 0 ? ddt : parts + (size_t)(grp - 1) * 2 * btd;
+  float* ddx_g = grp == 0 ? ddx : parts + ((size_t)(grp - 1) * 2 + 1) * btd;
+  const int d0 = blk * CH, d = d0 + ch;
+  const bool live = d < di, vec = (di % 4) == 0;
+  constexpr bool full = WHOLE;
+  const int nchunk = (T + BT - 1) / BT;
+  const int c_hi = min(nchunk, (seg + 1) * seg_chunks) - 1;
+  const int n = c_hi - seg * seg_chunks + 1;   // chunks, walked last first
+
+  // chunk c_hi - i into ring stage st: dt, dx, dy, Bc, Cc and the state
+  // the forward saved at its start (channels past di read 0)
+  auto load = [&](int i, int st) {
+    float* dts = smem + st * STG;
+    const int c = c_hi - i, t0 = c * BT;
+    load_rows<THR, CH>(dts, dt, b, t0, T, d0, di, vec);
+    load_rows<THR, CH>(dts + BT * CH, dx, b, t0, T, d0, di, vec);
+    load_rows<THR, CH>(dts + 2 * BT * CH, dy, b, t0, T, d0, di, vec);
+    float* bs = dts + 3 * BT * CH;
+    load_states<THR, DS>(bs, Bc, nullptr, nullptr, b, t0, T, ds, lds, s0);
+    load_states<THR, DS>(bs + BT * DS, Cc, nullptr, nullptr, b, t0, T, ds,
+                         lds, s0);
+    float* hsm = bs + 2 * BT * DS;
+    const float* hc =
+        hs + ((size_t)b * nchunk + c) * di * lds + (size_t)d0 * lds + s0;
+    if (full) {
+      for (int idx = tid; idx < CH * DS / 4; idx += THR) {
+        const int r = idx * 4 / DS, k = idx * 4 % DS;
+        const bool in = d0 + r < di;
+        cp_async16_zfill(hsm + idx * 4, in ? hc + (size_t)r * lds + k : hs,
+                         in ? 16 : 0);
+      }
+    } else {   // [CH][DS] from rows of lds, states ds.. zero
+      for (int idx = tid; idx < CH * DS; idx += THR) {
+        const int r = idx / DS, k = idx % DS;
+        const bool in = d0 + r < di && k < ds;
+        cp_async4_zfill(hsm + idx, in ? hc + (size_t)r * lds + k : hs,
+                        in ? 4 : 0);
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n) load(s, s);
+    cp_commit();
+  }
+
+  const size_t srow =
+      (((size_t)b * nseg + seg) * di + d) * W + s0 + l * SL;
+  float a[SL], a2[SL], carry[SL], dA[SL];
+  unpack(live ? (WHOLE ? ld4(A + (size_t)d * lds + s0 + l * SL)
+                      : ld4m(A + (size_t)d * lds + s0 + l * SL, ds - l * SL))
+              : make_float4(0.f, 0.f, 0.f, 0.f), a);
+  unpack(live ? ld4(kcarry + srow) : make_float4(0.f, 0.f, 0.f, 0.f), carry);
+#pragma unroll
+  for (int s = 0; s < SL; ++s) {
+    a2[s] = a[s] * LOG2E;
+    dA[s] = 0.f;
+  }
+
+  for (int i = 0; i < n; ++i) {
+    cp_wait<STAGES - 2>();        // chunk i has landed (this thread's copies)
+    __syncthreads();              // everyone's; chunk i-1's buffers free
+    const int nx = i + STAGES - 1;
+    if (nx < n) load(nx, nx % STAGES);
+    cp_commit();
+    const float* dts = smem + (i % STAGES) * STG;
+    const float* dxs = dts + BT * CH;
+    const float* dys = dxs + BT * CH;
+    const float* bs = dys + BT * CH;
+    const float* cs = bs + BT * DS;
+    const float* hsm = cs + BT * DS;
+    const int t0 = (c_hi - i) * BT;
+    const int nt = min(BT, T - t0);
+
+    // the chunk's states again, from its saved start, each before its step
+    // kept in registers; dC's terms on the way
+    float hb[BT][SL], h[SL];
+    unpack(ld4(hsm + ch * DS + l * SL), h);
+#pragma unroll
+    for (int tt = 0; tt < BT; ++tt) {
+      const float dtv = dts[tt * CH + ch], dxv = dxs[tt * CH + ch];
+      const float dyv = dys[tt * CH + ch];
+      float bv[SL];
+      unpack(ld4(bs + tt * DS + l * SL), bv);
+#pragma unroll
+      for (int s = 0; s < SL; ++s) {
+        hb[tt][s] = h[s];
+        if constexpr (Q::F32)
+          h[s] = fmaf(ex2(dtv * a2[s]), h[s], dxv * bv[s]);
+        else
+          h[s] = fmaf(Q::rnd(expf(dtv * a[s])), h[s],
+                      Q::rnd(dxv * bv[s]));
+        const float v = channel_sum<L>(dyv * Q::rnd(h[s]));
+        if (wl < L) redC[(warp * BT + tt) * DS + l * SL + s] = v;
+      }
+    }
+
+    // the adjoint, back through the chunk
+#pragma unroll
+    for (int tt = BT - 1; tt >= 0; --tt) {
+      const float dtv = dts[tt * CH + ch], dxv = dxs[tt * CH + ch];
+      const float dyv = dys[tt * CH + ch];
+      float bv[SL], cv[SL];
+      unpack(ld4(bs + tt * DS + l * SL), bv);
+      unpack(ld4(cs + tt * DS + l * SL), cv);
+      float gx = 0.f, gt = 0.f;
+#pragma unroll
+      for (int s = 0; s < SL; ++s) {
+        // the decay, and its derivative's exp (the same in f32)
+        const float e = Q::F32 ? ex2(dtv * a2[s]) : expf(dtv * a[s]);
+        const float at = Q::rnd(e);
+        const float g = fmaf(dyv, Q::rnd(cv[s]), carry[s]);
+        gx = fmaf(g, bv[s], gx);
+        const float w = g * e * hb[tt][s];
+        gt = fmaf(w, a[s], gt);
+        dA[s] = fmaf(w, dtv, dA[s]);
+        const float v = channel_sum<L>(g * dxv);
+        if (wl < L) redB[(warp * BT + tt) * DS + l * SL + s] = v;
+        carry[s] = at * g;
+      }
+      gx = lane_sum<L>(gx);
+      gt = lane_sum<L>(gt);
+      if (l == 0) {
+        gdx[tt * CH + ch] = gx;
+        gdt[tt * CH + ch] = gt;
+      }
+    }
+    __syncthreads();              // gdx, gdt, redB, redC complete
+
+    for (int idx = tid; idx < nt * CH; idx += THR) {
+      const int r = idx / CH, k = idx % CH;
+      if (d0 + k < di) {
+        const size_t off = ((size_t)b * T + t0 + r) * di + d0 + k;
+        ddx_g[off] = gdx[idx];
+        ddt_g[off] = gdt[idx];
+      }
+    }
+    for (int idx = tid; idx < nt * DS; idx += THR) {
+      const int r = idx / DS, s = idx % DS;
+      float sb = 0.f, sc = 0.f;
+      for (int w = 0; w < NW; ++w) {   // the block's warps, in order
+        sb += redB[(w * BT + r) * DS + s];
+        sc += redC[(w * BT + r) * DS + s];
+      }
+      const size_t off = (((size_t)b * nblk + blk) * T + t0 + r) * W + s0 + s;
+      dB_part[off] = sb;
+      dC_part[off] = sc;
+    }
+  }
+  if (!live) return;
+  st4(dA_part + srow, dA);
+  if (seg == 0 && dh0 != nullptr) {
+    float* p = dh0 + ((size_t)b * di + d) * lds + s0 + l * SL;
+    if (full) {
+      st4(p, carry);
+    } else {
+#pragma unroll
+      for (int s = 0; s < SL; ++s)
+        if (l * SL + s < ds) p[s] = carry[s];
+    }
+  }
+}
+
 // out[i, k] = sum_j in[i, j, k], j in order: the per-block partials added.
 // k runs over rows of DS states, of which the first ds are kept: out is
 // [I, K / DS, ds]
@@ -526,53 +759,93 @@ int sum_mid(const float* in, float* out, int I, int J, long long K, int DS,
   return (int)cudaGetLastError();
 }
 
-template <typename R, int DS, bool WHOLE>
-int launch(const float* dt, const float* dx, const float* A, const float* Bc,
-           const float* Cc, const float* hs, const float* dy,
-           const float* dh_last, float* ddt, float* ddx, float* lcarry,
-           float* decay, float* dA_part, float* dB_part, float* dC_part,
-           float* dA, float* dB, float* dC, float* dh0, int B, int T, int di,
-           int ds, int seg_chunks, void* stream) {
+template <typename R, int DS, bool WHOLE, bool GROUPED>
+int launch_kernels(const float* dt, const float* dx, const float* A,
+                   const float* Bc, const float* Cc, const float* hs,
+                   const float* dy, const float* dh_last, float* ddt,
+                   float* ddx, float* parts, float* lcarry, float* decay,
+                   float* dA_part, float* dB_part, float* dC_part, float* dA,
+                   float* dB, float* dC, float* dh0, int B, int T, int di,
+                   int ds, int seg_chunks, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (seg_chunks <= 0) return (int)cudaErrorInvalidValue;
   const int nchunk = (T + BT - 1) / BT;
   const int nseg = (nchunk + seg_chunks - 1) / seg_chunks;
+  // a (state group, channel block) pair a block along x; the scratch
+  // rows are W = groups x DS states wide
   const int nblk = (di + bch(DS) - 1) / bch(DS);
+  const int ngrp = groups(ds), W = ngrp * DS;
   const int threads = bch(DS) * blanes(DS);
   const int smem = (int)sizeof(float) * smem_floats(DS);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_bwd_kernel<R, DS, WHOLE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err;
+  if constexpr (GROUPED)
+    err = cudaFuncSetAttribute(scan_bwd_groups_kernel<R, DS, WHOLE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  else
+    err = cudaFuncSetAttribute(scan_bwd_kernel<R, DS, WHOLE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
   if (err != cudaSuccess) return (int)err;
   if (nseg > 1) {
     const int csmem = (int)sizeof(float) * carry_smem_floats(DS);
     if (csmem > 48 * 1024 &&
         (err = cudaFuncSetAttribute(
-             carry_kernel<R, DS, WHOLE>,
+             carry_kernel<R, DS, WHOLE, GROUPED>,
              cudaFuncAttributeMaxDynamicSharedMemorySize,
              csmem)) != cudaSuccess)
       return (int)err;
-    carry_kernel<R, DS, WHOLE><<<dim3(nblk, nseg - 1, B), threads, csmem,
-                                st>>>(
+    carry_kernel<R, DS, WHOLE, GROUPED><<<dim3(nblk * ngrp, nseg - 1, B),
+                                         threads, csmem, st>>>(
         dt, A, Cc, dy, lcarry, decay, T, di, ds, seg_chunks, nseg);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  const long long q4 = (long long)di * DS / 4;
+  const long long q4 = (long long)di * W / 4;
   carries_kernel<<<grid_for(B * q4), 256, 0, st>>>(dh_last, lcarry, decay, B,
-                                                   q4, nseg, DS, ds);
+                                                   q4, nseg, W, ds);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  scan_bwd_kernel<R, DS, WHOLE><<<dim3(nblk, nseg, B), threads, smem, st>>>(
-      dt, dx, A, Bc, Cc, hs, dy, lcarry, ddt, ddx, dA_part, dB_part, dC_part,
-      dh0, T, di, ds, seg_chunks, nseg);
+  if constexpr (GROUPED)
+    scan_bwd_groups_kernel<R, DS, WHOLE><<<dim3(nblk * ngrp, nseg, B),
+                                           threads, smem, st>>>(
+        dt, dx, A, Bc, Cc, hs, dy, lcarry, ddt, ddx, parts, dA_part, dB_part,
+        dC_part, dh0, T, di, ds, seg_chunks, nseg);
+  else
+    scan_bwd_kernel<R, DS, WHOLE><<<dim3(nblk, nseg, B), threads, smem,
+                                    st>>>(
+        dt, dx, A, Bc, Cc, hs, dy, lcarry, ddt, ddx, dA_part, dB_part,
+        dC_part, dh0, T, di, ds, seg_chunks, nseg);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
-  if ((e = sum_mid(dA_part, dA, 1, B * nseg, (long long)di * DS, DS, ds,
+  const long long btd = (long long)B * T * di;   // the groups' d(dt), d(dx)
+  if ((e = sum_groups(ddt, parts, btd, 2 * btd, ngrp - 1, st)) != 0 ||
+      (e = sum_groups(ddx, parts + btd, btd, 2 * btd, ngrp - 1, st)) != 0)
+    return e;
+  if ((e = sum_mid(dA_part, dA, 1, B * nseg, (long long)di * W, W, ds,
                    st)) != 0)
     return e;
-  if ((e = sum_mid(dB_part, dB, B, nblk, (long long)T * DS, DS, ds, st)) != 0)
+  if ((e = sum_mid(dB_part, dB, B, nblk, (long long)T * W, W, ds, st)) != 0)
     return e;
-  return sum_mid(dC_part, dC, B, nblk, (long long)T * DS, DS, ds, st);
+  return sum_mid(dC_part, dC, B, nblk, (long long)T * W, W, ds, st);
+}
+
+// past 64 states the grouped kernels; in one group the per-instance ones
+template <typename R, int DS, bool WHOLE>
+int launch(const float* dt, const float* dx, const float* A, const float* Bc,
+           const float* Cc, const float* hs, const float* dy,
+           const float* dh_last, float* ddt, float* ddx, float* parts,
+           float* lcarry, float* decay, float* dA_part, float* dB_part,
+           float* dC_part, float* dA, float* dB, float* dC, float* dh0, int B,
+           int T, int di, int ds, int seg_chunks, void* stream) {
+#define SSB_KERNEL_ARGS                                                     \
+  dt, dx, A, Bc, Cc, hs, dy, dh_last, ddt, ddx, parts, lcarry, decay,      \
+      dA_part, dB_part, dC_part, dA, dB, dC, dh0, B, T, di, ds, seg_chunks, \
+      stream
+  if constexpr (DS == GROUP) {
+    if (groups(ds) > 1)
+      return launch_kernels<R, DS, WHOLE, true>(SSB_KERNEL_ARGS);
+  }
+  return launch_kernels<R, DS, WHOLE, false>(SSB_KERNEL_ARGS);
+#undef SSB_KERNEL_ARGS
 }
 
 }  // namespace bwd
@@ -581,17 +854,20 @@ template <int DS>
 int backward(int form, const float* dt, const float* dx, const float* A,
              const float* Bc, const float* Cc, const float* hs,
              const float* dy, const float* dh_last, float* ddt, float* ddx,
-             float* lcarry, float* decay, float* dA_part, float* dB_part,
-             float* dC_part, float* dA, float* dB, float* dC, float* dh0,
-             int B, int T, int di, int ds, int seg_chunks, void* stream) {
+             float* parts, float* lcarry, float* decay, float* dA_part,
+             float* dB_part, float* dC_part, float* dA, float* dB, float* dC,
+             float* dh0, int B, int T, int di, int ds, int seg_chunks,
+             void* stream) {
 #define SSB_ARGS                                                            \
-  dt, dx, A, Bc, Cc, hs, dy, dh_last, ddt, ddx, lcarry, decay, dA_part,    \
-      dB_part, dC_part, dA, dB, dC, dh0, B, T, di, ds, seg_chunks, stream
-  // the f32 form at a d_state of its own instance runs the kernels as they
-  // were before masking (WHOLE); every other case the masked ones
+  dt, dx, A, Bc, Cc, hs, dy, dh_last, ddt, ddx, parts, lcarry, decay,      \
+      dA_part, dB_part, dC_part, dA, dB, dC, dh0, B, T, di, ds, seg_chunks, \
+      stream
+  // the f32 form where every group holds its instance's DS states (ds is
+  // DS, or past 64 a multiple of it) runs the kernels as they were before
+  // masking (WHOLE); every other case the masked ones
   switch (form) {
     case 0:
-      return ds == DS ? bwd::launch<float, DS, true>(SSB_ARGS)
+      return ds % DS == 0 ? bwd::launch<float, DS, true>(SSB_ARGS)
                       : bwd::launch<float, DS, false>(SSB_ARGS);
     case 1: return bwd::launch<__nv_bfloat16, DS, false>(SSB_ARGS);
     case 2: return bwd::launch<__half, DS, false>(SSB_ARGS);
@@ -602,33 +878,36 @@ int backward(int form, const float* dt, const float* dx, const float* A,
 
 }  // namespace
 
-// the geometry of a d_state's backward instance, for
-// kernels/selective_scan.py to be held against: out = {instance, lanes a
-// channel, channels a block, shared memory of the gradient pass}
+// the geometry of a d_state's backward launch, for kernels/selective_scan.py
+// to be held against: out = {instance, state groups, lanes a channel,
+// channels a block, shared memory of the gradient pass}
 extern "C" int selective_scan_bwd_geometry(int ds, int* out) {
   const int n = instance(ds);
   if (n == 0) return (int)cudaErrorInvalidValue;
   out[0] = n;
-  out[1] = bwd::blanes(n);
-  out[2] = bwd::bch(n);
-  out[3] = (int)sizeof(float) * bwd::smem_floats(n);
+  out[1] = groups(ds);
+  out[2] = bwd::blanes(n);
+  out[3] = bwd::bch(n);
+  out[4] = (int)sizeof(float) * bwd::smem_floats(n);
   return 0;
 }
 
 // The backward: dt, dx, A, Bc, Cc and the forward's hs; dy, dh_last (or
 // null); out d(dt), d(dx) [B, T, di], the scratch lcarry and decay [B, nseg,
-// di, n], dA_part [B, nseg, di, n], dB_part and dC_part [B, ceil(di /
-// bch(n)), T, n] (n = the d_state's instance), then dA [di, ds], dB, dC
-// [B, T, ds] and dh0 [B, di, ds] (or null); B, T, di, ds, the segment
-// length in chunks, form, device, stream. nseg = ceil(ceil(T / 16) /
-// seg_chunks).
+// di, W], dA_part [B, nseg, di, W], dB_part and dC_part [B, ceil(di /
+// bch(n)), T, W] (n = the d_state's instance, W = n x groups(ds)), then
+// dA [di, ds], dB, dC [B, T, ds] and dh0 [B, di, ds] (or null); B, T, di,
+// ds, the segment length in chunks, form, device, stream. nseg =
+// ceil(ceil(T / 16) / seg_chunks). parts: null up to 64 states, else a
+// [groups(ds) - 1, 2, B, T, di] scratch for the other groups' partial d(dt)
+// and d(dx), added into ddt and ddx in group order.
 extern "C" int selective_scan_bwd_f32(
     const float* dt, const float* dx, const float* A, const float* Bc,
     const float* Cc, const float* hs, const float* dy, const float* dh_last,
-    float* ddt, float* ddx, float* lcarry, float* decay, float* dA_part,
-    float* dB_part, float* dC_part, float* dA, float* dB, float* dC,
-    float* dh0, int B, int T, int di, int ds, int seg_chunks, int form,
-    int device, void* stream) {
+    float* ddt, float* ddx, float* parts, float* lcarry, float* decay,
+    float* dA_part, float* dB_part, float* dC_part, float* dA, float* dB,
+    float* dC, float* dh0, int B, int T, int di, int ds, int seg_chunks,
+    int form, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || di == 0 || T == 0) return 0;
@@ -636,8 +915,8 @@ extern "C" int selective_scan_bwd_f32(
 #define SSB_CASE(N)                                                          \
   case N:                                                                    \
     return backward<N>(form, dt, dx, A, Bc, Cc, hs, dy, dh_last, ddt, ddx,   \
-                       lcarry, decay, dA_part, dB_part, dC_part, dA, dB, dC, \
-                       dh0, B, T, di, ds, seg_chunks, stream);
+                       parts, lcarry, decay, dA_part, dB_part, dC_part, dA,  \
+                       dB, dC, dh0, B, T, di, ds, seg_chunks, stream);
     SSB_CASE(4) SSB_CASE(8) SSB_CASE(16) SSB_CASE(32) SSB_CASE(64)
 #undef SSB_CASE
     default:

@@ -29,8 +29,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <checkout>/build/repro_torch_kernels (listed in .gitignore)
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
+# -Xptxas -v: ptxas reports each kernel's registers and spills into the
+# build's log (``build_log``), so that no second compile is needed to read
+# them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -53,6 +56,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                 INT, INT, PTR),
         "flash_attention_bf16": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
                                  INT, INT, PTR),
+        # bf16?, head dim, out[4]: route, width, query rows, shared memory
+        "flash_attention_geometry": (INT, INT, PTR),
     },
     "flash_attention_bwd": {
         # q, k, v, o, lse, dout, dq, dk, dv, delta scratch, B, S, H, KVH,
@@ -65,6 +70,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "flash_attention_bwd_bf16": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                                      PTR, PTR, PTR, INT, INT, INT, INT, INT,
                                      INT, INT, PTR),
+        # bf16?, head dim, out[4]: route, width, key rows of a dK/dV block,
+        # its shared memory
+        "flash_attention_bwd_geometry": (INT, INT, PTR),
     },
     "gmm_align": {
         # x, dconst, dlin, dquad, A2, pair table (gmm_align.pair_table, or
@@ -107,21 +115,25 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                INT, INT, PTR),
     },
     "selective_scan": {
-        # dt, dx, A, Bc, Cc, h0 (or NULL), y, h_last, hs (or NULL), B, T,
-        # di, ds, form (selective_scan.FORMS), device, stream
-        "selective_scan_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                               INT, INT, INT, INT, INT, INT, PTR),
+        # dt, dx, A, Bc, Cc, h0 (or NULL), y, the other state groups'
+        # partial y (NULL up to 64 states, else [groups - 1, B, T, di]),
+        # h_last, hs (or NULL), B, T, di, ds, form (selective_scan.FORMS),
+        # device, stream
+        "selective_scan_f32": (PTR,) * 10 + (INT,) * 6 + (PTR,),
         # d_state -> lanes a channel
         "selective_scan_lanes": (INT,),
-        # d_state, out[4]: the instance and its tree geometry
+        # d_state, out[5]: the instance, its groups and its tree geometry
         "selective_scan_geometry": (INT, PTR),
     },
     "selective_scan_bwd": {
-        # dt, dx, A, Bc, Cc, hs, dy, dh_last (or NULL), ddt, ddx, lcarry,
-        # decay, dA_part, dB_part, dC_part, dA, dB, dC, dh0 (or NULL), B, T,
-        # di, ds, seg_chunks, form, device, stream
-        "selective_scan_bwd_f32": (PTR,) * 19 + (INT,) * 7 + (PTR,),
-        # d_state, out[4]: the instance and its backward geometry
+        # dt, dx, A, Bc, Cc, hs, dy, dh_last (or NULL), ddt, ddx, the other
+        # state groups' partial d(dt) and d(dx) (NULL up to 64 states, else
+        # [groups - 1, 2, B, T, di]), lcarry, decay, dA_part, dB_part,
+        # dC_part, dA, dB, dC, dh0 (or NULL), B, T, di, ds, seg_chunks,
+        # form, device, stream
+        "selective_scan_bwd_f32": (PTR,) * 20 + (INT,) * 7 + (PTR,),
+        # d_state, out[5]: the instance, its groups and its backward
+        # geometry
         "selective_scan_bwd_geometry": (INT, PTR),
     },
 }
@@ -158,6 +170,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def build_log(name: str) -> Path:
+    """nvcc's output for the library of ``csrc/<name>.cu`` (ptxas' report
+    of each kernel), written beside it when it is built."""
+    return library_path(name).with_suffix(".log")
+
+
 def _start(name: str):
     """Start nvcc for one source unless its library is built; returns
     (process or None, final path, temporary path)."""
@@ -178,6 +196,7 @@ def _finish(name: str, proc, out: Path, tmp) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)   # atomic: a concurrent builder sees all or none
 
 

@@ -3,16 +3,22 @@
 The forward launches ``csrc/flash_attention.cu`` (which says what it
 replaces, what bounds it and how it is laid out): bf16 on the tensor
 cores (``wgmma``, with p split into bf16 hi and lo parts so that P.V
-keeps p's f32 precision), f32 on the CUDA cores. With ``lse=True`` it
-also returns each row's log-sum-exp [B, H, S] f32, which the backward
+keeps p's f32 precision), f32 and the bf16 head dims the tensor cores
+lack on the CUDA cores. With ``lse=True`` it also returns each row's
+log-sum-exp [B, H, S] f32, which the backward
 (``csrc/flash_attention_bwd.cu``) recomputes the probabilities from: bf16
 on the tensor cores (P and dS split into bf16 hi and lo parts for their
 products; above hd 128 each gradient's columns split over two
 warpgroups and the dK/dV pass's query heads over ``bwd_splits``
-blocks), bf16 at hd 144 to 192 and f32 on the CUDA cores. Every multiple
-of 16 up to 256 runs in both types: a bf16 head dim runs the tensor-core
-instance of its width ``tc_width`` (64, 128, 192 or 256), its columns
-past hd zero (the TMA fills them) and never stored. The kernels mask
+blocks), the rest on the CUDA cores. Every head dim from 1 to 512
+(``HEAD_DIMS``) runs in both types, forward and backward (``route`` and
+``bwd_scope`` name the kernel): a bf16 head dim that is a multiple of 8
+up to 256 runs the tensor-core instance of its width ``tc_width`` (64,
+128, 192 or 256; the backward's 129 to 192 the CUDA cores), its columns
+past hd zero (the TMA fills them) and never stored; every other head dim
+runs the CUDA-core instance of its width ``simt_width`` (its own at a
+multiple of 16 up to 256 or of 64 above, else a masked one of 32 to 512
+whose columns past hd are zero). Past 512 the wrappers raise. The kernels mask
 ragged S themselves, so any S is exact.
 ``ops.flash_attention`` dispatches here for CUDA tensors (through an
 autograd function when a gradient is wanted) and to
@@ -20,6 +26,8 @@ autograd function when a gradient is wanted) and to
 backward kernels' algorithm in plain tensor code, tile by tile.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -30,26 +38,36 @@ KERNELS = {
     torch.float32: ("flash_attention_f32", "CUDA-core f32"),
     torch.bfloat16: ("flash_attention_bf16", "tensor-core bf16 (wgmma)"),
 }
-# head dims bf16 runs at, forward (csrc: tc::dispatch, on the tensor-core
-# instance of tc_width(hd)) and backward (csrc/flash_attention_bwd.cu)
-BF16_HEAD_DIMS = tuple(range(16, 257, 16))
+# the domain: every head dim runs in both types, forward and backward
+HEAD_DIMS = tuple(range(1, 513))
+# the bf16 head dims on the tensor cores, forward (csrc: tc::width, the
+# instance of tc_width(hd)): a multiple of 8 makes every global stride of
+# the TMA's tensor maps a multiple of 16 bytes
+TC_HEAD_DIMS = tuple(range(8, 257, 8))
 # the widths of the tensor-core instances: a head dim runs the least one
 # at or above it
 TC_WIDTHS = (64, 128, 192, 256)
-# csrc/flash_attention.cu: query rows a block (bf16: up to hd 192, see
-# tc_rows), threads a block and (bf16) (k, v) tiles in flight, by input
-# type
+# the widths of the CUDA-core instances (csrc: SIMT_WIDTH_LIST and
+# simt::width, forward and backward): a head dim that is a multiple of 16
+# up to 256, or of 64 above, runs the EXACT kernel of its own width, its
+# loops fixed at compile time; any other the masked kernel of the least of
+# SIMT_MASKED_WIDTHS at or above it
+SIMT_WIDTHS = tuple(range(16, 257, 16)) + (320, 384, 448, 512)
+SIMT_MASKED_WIDTHS = (32, 64, 128, 256, 384, 512)
+# csrc/flash_attention.cu: query rows a block (tensor cores: up to hd 192,
+# see tc_rows; CUDA cores: up to width 256, see simt_rows), threads a
+# block by namespace and (tensor cores) (k, v) tiles in flight
 BQ = {torch.float32: 64, torch.bfloat16: 128}
-THREADS = {torch.float32: 256, torch.bfloat16: 288}
+THREADS = {"simt": 256, "tc": 288}
 TC_STAGES = 3
 # log2(e): the kernels' exponentials are exp2 of log2-scaled scores
 LOG2E = 1.4426950408889634
 # csrc/flash_attention_bwd.cu: the bf16 head dims on the tensor cores
-# (namespace tc, the instance of tc_width(hd); 144 to 192 run namespace
-# simt, as hd 192 always has: no tensor-core instance of width 192),
-# threads a dK/dV block by namespace (tc: two consumer warpgroups and a
-# producer warpgroup) and the tensor-core kernels' tiles in flight
-BWD_TC_HEAD_DIMS = tuple(d for d in BF16_HEAD_DIMS if not 128 < d <= 192)
+# (namespace tc, the instance of tc_width(hd); 129 to 192 run namespace
+# simt: no tensor-core instance of width 192), threads a dK/dV block by
+# namespace (tc: two consumer warpgroups and a producer warpgroup) and
+# the tensor-core kernels' tiles in flight
+BWD_TC_HEAD_DIMS = tuple(d for d in TC_HEAD_DIMS if not 128 < d <= 192)
 BWD_THREADS = {"tc": 384, "simt": 256}
 BWD_TC_STAGES = 4
 # the tensor-core kernels at hd 256 (tc::SPLIT_ROWS): rows a dQ or dK/dV
@@ -69,6 +87,31 @@ BWD_SPLITS = 8
 BWD_SPLIT_BLOCKS = 256
 
 
+def _in_domain(hd: int, name: str = "flash_attention") -> None:
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: the kernels take head_dim 1 to "
+                         f"{HEAD_DIMS[-1]}, not {hd}")
+
+
+# the launch counts' forms (``form``)
+FORMS = ("tc", "tc8", "simt", "simt_bf16", "wide")
+
+
+def form(dtype: torch.dtype, hd: int, backward: bool = False) -> str:
+    """A launch's form, by which ``by_form`` counts it: "wide" past hd 256
+    (the CUDA-core instances of width 320 to 512, 32-row tiles, 16 in the
+    backward above 384); below, on the tensor cores "tc" at a multiple of 16
+    and "tc8" at one of 8 only; on the CUDA cores "simt_bf16" for bf16
+    inputs and "simt" for f32."""
+    if hd > 256:
+        _in_domain(hd)
+        return "wide"
+    scope = bwd_scope(dtype, hd) if backward else route(dtype, hd)
+    if scope == "tc":
+        return "tc8" if hd % 16 else "tc"
+    return "simt_bf16" if dtype == torch.bfloat16 else "simt"
+
+
 def tc_width(hd: int) -> int:
     """The width of the tensor-core instance a bf16 head dim runs (the
     template argument of ``tc::launch`` in both sources): the least of
@@ -76,6 +119,25 @@ def tc_width(hd: int) -> int:
     columns past hd arrive as zeros from the TMA (the maps' extent is hd),
     add nothing to the products and are not stored."""
     return next(w for w in TC_WIDTHS if w >= hd)
+
+
+def simt_width(hd: int) -> int:
+    """The width of the CUDA-core instance a head dim runs (``simt::width``
+    in both sources): hd itself where it is one of SIMT_WIDTHS (the EXACT
+    kernel), else the least of SIMT_MASKED_WIDTHS at or above hd, whose
+    tiles' columns past hd load as zeros and are not stored."""
+    _in_domain(hd)
+    if hd in SIMT_WIDTHS:
+        return hd
+    return next(w for w in SIMT_MASKED_WIDTHS if w >= hd)
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The namespace of csrc/flash_attention.cu that a forward runs: "tc"
+    (wgmma) for bf16 at TC_HEAD_DIMS, else "simt" (the CUDA cores: f32 at
+    every head dim, bf16 at the rest). Raises past the domain."""
+    _in_domain(hd)
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "simt"
 
 
 def tc_rows(hd: int) -> int:
@@ -87,35 +149,55 @@ def tc_rows(hd: int) -> int:
     return BQ[torch.bfloat16] // 2 if hd > 192 else BQ[torch.bfloat16]
 
 
+def simt_rows(hd: int) -> int:
+    """Query rows of a block, and keys of a (k, v) tile, of the CUDA-core
+    forward (``simt::rows``): 64 up to width 256, 32 above."""
+    return BQ[torch.float32] if simt_width(hd) <= 256 else BQ[
+        torch.float32] // 2
+
+
 def q_rows(dtype: torch.dtype, hd: int) -> int:
-    """Query rows a block of the forward launch, by input type."""
-    return tc_rows(hd) if dtype == torch.bfloat16 else BQ[dtype]
+    """Query rows a block of the forward launch."""
+    return tc_rows(hd) if route(dtype, hd) == "tc" else simt_rows(hd)
 
 
 def kv_rows(dtype: torch.dtype, hd: int) -> int:
-    """Key rows a (k, v) tile: 64 in f32; 128 in bf16 up to hd 128, else
-    64 (``Layout::BKV``)."""
-    return 128 if dtype == torch.bfloat16 and hd <= 128 else 64
+    """Key rows a (k, v) tile: on the tensor cores 128 up to hd 128, else
+    64 (``Layout::BKV``); on the CUDA cores ``simt_rows``."""
+    if route(dtype, hd) == "tc":
+        return 128 if hd <= 128 else 64
+    return simt_rows(hd)
 
 
 def smem_bytes(dtype: torch.dtype, hd: int) -> int:
-    """Shared memory of a block: f32 (``simt::smem_bytes``) the q and o
-    tiles [64][hd + 1], a k or v tile [64][hd] and p [64][65]; bf16
-    (``tc::Layout::BYTES``) the q tile of ``tc_rows(hd)`` rows, the ring
-    of ``TC_STAGES`` k and v tiles, the mbarriers and 1024 bytes of
-    alignment slack (230,456 bytes at hd 256)."""
-    if dtype == torch.float32:
-        bq = BQ[dtype]
-        return 4 * (2 * bq * (hd + 1) + 64 * hd + bq * 65)
+    """Shared memory of a forward block: on the CUDA cores
+    (``simt::smem_bytes``) the q and k tiles [R][W + 1], the v tile [R][W]
+    and p [R][R + 1], f32 (W = simt_width(hd), R = simt_rows(hd)); on the
+    tensor cores (``tc::Layout::BYTES``) the q tile of ``tc_rows(hd)``
+    rows, the ring of ``TC_STAGES`` k and v tiles, the mbarriers and 1024
+    bytes of alignment slack (230,456 bytes at hd 256)."""
+    if route(dtype, hd) == "simt":
+        w, r = simt_width(hd), simt_rows(hd)
+        return 4 * (2 * r * (w + 1) + r * w + r * (r + 1))
     w = tc_width(hd)
     return (tc_rows(hd) * w * 2 + 2 * TC_STAGES * kv_rows(dtype, hd) * w * 2
             + (2 * TC_STAGES + 1) * 8 + 1024)
 
 
+def geometry(dtype: torch.dtype, hd: int) -> tuple:
+    """(route: 1 the tensor cores, 0 the CUDA cores; the instance's width;
+    query rows a block; shared memory a block) of a forward, what
+    ``flash_attention_geometry`` of csrc/flash_attention.cu gives."""
+    tc = route(dtype, hd) == "tc"
+    return (int(tc), tc_width(hd) if tc else simt_width(hd),
+            q_rows(dtype, hd), smem_bytes(dtype, hd))
+
+
 def bwd_scope(dtype: torch.dtype, hd: int) -> str:
     """The namespace of csrc/flash_attention_bwd.cu that a call runs:
-    "tc" (wgmma) for bf16 at BWD_TC_HEAD_DIMS, else "simt" (bf16 at hd
-    144 to 192, f32 at every head dim)."""
+    "tc" (wgmma) for bf16 at BWD_TC_HEAD_DIMS, else "simt" (bf16 at the
+    rest, f32 at every head dim). Raises past the domain."""
+    _in_domain(hd, "flash_attention_bwd")
     return ("tc" if dtype == torch.bfloat16 and hd in BWD_TC_HEAD_DIMS
             else "simt")
 
@@ -124,7 +206,7 @@ def bwd_splits(dtype: torch.dtype, B: int, S: int, H: int, KVH: int,
                hd: int) -> int:
     """Blocks the dK/dV pass splits a group of G = H / KVH query heads
     over, each block walking G / splits of them: on the tensor cores at
-    hd 256 (``tc::KvLayout::SPLIT``) the smallest divisor of G up to
+    width 256 (``tc::KvLayout::SPLIT``) the smallest divisor of G up to
     BWD_SPLITS that brings the grid to BWD_SPLIT_BLOCKS blocks, or the
     largest if none does; 1 elsewhere (a block walks the whole group)."""
     if bwd_scope(dtype, hd) != "tc" or hd <= 128:
@@ -137,13 +219,15 @@ def bwd_splits(dtype: torch.dtype, B: int, S: int, H: int, KVH: int,
 
 
 def bwd_rows(dtype: torch.dtype, hd: int) -> int:
-    """Key rows of a dK/dV block: on the tensor cores
-    (``tc::KvLayout::BK``) 128, two warpgroups of 64, and BWD_SPLIT_ROWS
-    at hd 256, both warpgroups' with half of the columns each; on the CUDA
-    cores (``simt::Tile::BR``) 64 up to hd 128, 32 above."""
+    """Key rows of a dK/dV block (and, on the CUDA cores, rows of every
+    tile of both passes): on the tensor cores (``tc::KvLayout::BK``) 128,
+    two warpgroups of 64, and BWD_SPLIT_ROWS at hd 256, both warpgroups'
+    with half of the columns each; on the CUDA cores (``simt::Tile::BR``)
+    64 up to width 128, 32 up to 384, 16 above."""
     if bwd_scope(dtype, hd) == "tc":
         return BWD_SPLIT_ROWS if hd > 128 else 128
-    return 64 if hd <= 128 else 32
+    w = simt_width(hd)
+    return 64 if w <= 128 else 32 if w <= 384 else 16
 
 
 def bwd_query_rows(hd: int) -> int:
@@ -161,14 +245,35 @@ def bwd_smem_bytes(dtype: torch.dtype, hd: int) -> int:
     the k and v tiles of ``bwd_rows`` rows, the ring of (q, dO) tiles,
     the mbarriers and 1024 bytes of alignment slack, bf16 (197,704 bytes
     at hd 256). CUDA cores (``simt::Tile``): the k, v, q and dO tiles
-    [rows][hd + 1], P and dS [rows][rows + 1], the rows' lse and Delta,
-    all f32."""
+    [rows][W + 1], P and dS [rows][rows + 1], the rows' lse and Delta,
+    all f32 (W = simt_width(hd))."""
     br = bwd_rows(dtype, hd)
     if bwd_scope(dtype, hd) == "tc":
         w = tc_width(hd)
         return (2 * br * w * 2 + 2 * BWD_TC_STAGES * bwd_query_rows(hd)
                 * w * 2 + (2 * BWD_TC_STAGES + 1) * 8 + 1024)
-    return 4 * (4 * br * (hd + 1) + 2 * br * (br + 1) + 2 * br)
+    return 4 * (4 * br * (simt_width(hd) + 1) + 2 * br * (br + 1) + 2 * br)
+
+
+def bwd_geometry(dtype: torch.dtype, hd: int) -> tuple:
+    """(route: 1 the tensor cores, 0 the CUDA cores; the instance's width;
+    key rows a dK/dV block; its shared memory) of a backward, what
+    ``flash_attention_bwd_geometry`` of csrc/flash_attention_bwd.cu
+    gives."""
+    tc = bwd_scope(dtype, hd) == "tc"
+    return (int(tc), tc_width(hd) if tc else simt_width(hd),
+            bwd_rows(dtype, hd), bwd_smem_bytes(dtype, hd))
+
+
+def kernel_geometry(dtype: torch.dtype, hd: int, backward: bool = False):
+    """``geometry`` (or ``bwd_geometry``) as the CUDA side computes it, or
+    None where it refuses the head dim; needs the built library, so it
+    runs on a machine with nvcc."""
+    name = "flash_attention_bwd" if backward else "flash_attention"
+    out = (ctypes.c_int * 4)()
+    err = getattr(_build.load(name), f"{name}_geometry")(
+        int(dtype == torch.bfloat16), hd, out)
+    return None if err else tuple(out)
 
 
 def longest_first(i: int, j: int, z: int, grid) -> tuple:
@@ -181,7 +286,7 @@ def longest_first(i: int, j: int, z: int, grid) -> tuple:
     return lin // (Y * Z), r % Y, r // Y
 
 
-def _check_operands(name, q, k, v, bf16_dims, what):
+def _check_operands(name, q, k, v):
     B, S, H, hd = q.shape
     KVH = k.shape[2]
     if k.shape != (B, S, KVH, hd) or v.shape != k.shape or H % KVH:
@@ -190,23 +295,17 @@ def _check_operands(name, q, k, v, bf16_dims, what):
     if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: operands must all be float32 or all "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dtype == torch.bfloat16 and hd not in bf16_dims:
-        raise ValueError(f"{name}: bf16 head_dim {hd} has no {what} "
-                         f"instance; supported: {bf16_dims}")
-    if hd % 16 or not 16 <= hd <= 256:
-        raise ValueError(f"{name}: head_dim {hd} must be a multiple of 16 "
-                         "up to 256")
+    _in_domain(hd, name)
 
 
 def flash_attention(q, k, v, lse: bool = False):
     """q: [B, S, H, hd]; k, v: [B, S, KVH, hd], one dtype (float32 or
-    bfloat16), contiguous on one CUDA device; H a multiple of KVH; hd a
-    multiple of 16 up to 256 (``BF16_HEAD_DIMS`` in bf16) -> o [B, S, H,
-    hd] in q's dtype, and with ``lse`` also the rows'
-    log-sum-exp [B, H, S] f32. Scores stay f32 inside, and p keeps f32
-    precision (in bf16 as a hi and lo pair)."""
-    _check_operands("flash_attention", q, k, v, BF16_HEAD_DIMS,
-                    "tensor-core")
+    bfloat16), contiguous on one CUDA device; H a multiple of KVH; hd in
+    HEAD_DIMS (1 to 512) -> o [B, S, H, hd] in q's dtype, and with ``lse``
+    also the rows' log-sum-exp [B, H, S] f32. Scores stay f32 inside, and
+    p keeps f32 precision (on the tensor cores as a bf16 hi and lo pair).
+    Launches are counted in ``launches`` and by form in ``by_form``."""
+    _check_operands("flash_attention", q, k, v)
     _build.require_cuda("flash_attention", q, k, v)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: operands must be 16-byte aligned")
@@ -220,10 +319,8 @@ def flash_attention(q, k, v, lse: bool = False):
         k.shape[2], hd, *_build.launch_args(q))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.by_form[form(q.dtype, hd)] += 1
     return (o, out_lse) if lse else o
-
-
-flash_attention.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
@@ -239,9 +336,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
     32 MiB a split at Gemma 2B's B = 1, S = 4096), added in split order by
     a fourth kernel. ``_splits`` overrides ``bwd_splits`` for
     chip_smoke.py's sweep (a divisor of H / KVH; 1 at other head
-    dims)."""
-    _check_operands("flash_attention_bwd", q, k, v, BF16_HEAD_DIMS,
-                    "backward")
+    dims). Launches are counted in ``launches`` and by form in
+    ``by_form``."""
+    _check_operands("flash_attention_bwd", q, k, v)
     B, S, H, hd = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, S):
         raise ValueError(f"flash_attention_bwd: shapes o {tuple(o.shape)}, "
@@ -257,7 +354,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
     KVH = k.shape[2]
     splits = (bwd_splits(q.dtype, B, S, H, KVH, hd) if _splits is None
               else _splits)
-    if splits != 1 and (bwd_scope(q.dtype, hd) != "tc" or hd <= 128
+    scope = bwd_scope(q.dtype, hd)
+    if splits != 1 and (scope != "tc" or hd <= 128
                           or (H // KVH) % splits):
         raise ValueError(f"flash_attention_bwd: {splits} splits of "
                          f"{H // KVH} query heads at {q.dtype} head_dim {hd}")
@@ -278,10 +376,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
             hd, splits, *_build.launch_args(q))
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.by_form[form(q.dtype, hd, backward=True)] += 1
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+def reset_counts() -> None:
+    """Both wrappers' launch counts to 0, by form too."""
+    for w in (flash_attention, flash_attention_bwd):
+        w.launches = 0
+        w.by_form = dict.fromkeys(FORMS, 0)
+
+
+reset_counts()
 
 
 def lse_blocks(q, k, block: int = 64):

@@ -428,9 +428,10 @@ def _flash_instance(cfg: dict) -> KernelInstance:
     B, S, H, hd = cfg["B"], cfg["S"], cfg["H"], cfg["hd"]
     dt = torch.bfloat16 if cfg.get("dtype") == "bfloat16" else torch.float32
     bq = _fa.q_rows(dt, hd)
-    tc = dt == torch.bfloat16
+    route = _fa.route(dt, hd)
+    tc = route == "tc"
     return KernelInstance(
-        grid=(_cdiv(S, bq), H, B), threads=_fa.THREADS[dt],
+        grid=(_cdiv(S, bq), H, B), threads=_fa.THREADS[route],
         smem_bytes=_fa.smem_bytes(dt, hd),
         axes=(Axis("queries", S, bq), Axis("heads", H, 1),
               Axis("batch", B, 1)),
@@ -438,7 +439,7 @@ def _flash_instance(cfg: dict) -> KernelInstance:
                           lambda i, h, b: (b, i, h, 0),
                           dtype=cfg.get("dtype", "float32")),),
         rings=(Ring("tma", _fa.TC_STAGES, "tc"),) if tc else (),
-        scope="tc" if tc else "simt")
+        scope=route)
 
 
 def _flash_work(cfg: dict):
@@ -519,20 +520,27 @@ def _flash_bwd_work(cfg: dict):
 def _scan_instance(cfg: dict) -> KernelInstance:
     """The f32 forward (64 channels a block, ``lanes`` a channel) or, at a
     16-bit scan_dtype, the tree forward (namespace tree: ``tree_channels``
-    a block, ``tree_lanes`` a channel)."""
+    a block, ``tree_lanes`` a channel), one block a (channel block, batch
+    row, state group): past 64 states group 0 writes its partial y to y
+    and each other group to its slice of a [groups - 1, B, T, di] scratch
+    (sum_groups_kernel adds them into y; the map below takes y and the
+    scratch as one [groups, B, T, di] array of partials), and each its
+    states' slice of h_last."""
     B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
     sd = cfg.get("scan_dtype", "float32")
     tree = _ss.form(sd) != 0
     ch = _ss.tree_channels(ds) if tree else _ss.CH
+    ng, n = _ss.groups(ds), _ss.instance(ds)
     return KernelInstance(
-        grid=(_cdiv(di, ch), B),
+        grid=(_cdiv(di, ch), B, ng),
         threads=ch * (_ss.tree_lanes(ds) if tree else _ss.lanes(ds)),
         smem_bytes=_ss.smem_bytes(ds, sd),
-        axes=(Axis("channels", di, ch), Axis("batch", B, 1)),
-        outputs=(BlockMap("y", (B, T, di), (1, T, ch),
-                          lambda i, b: (b, 0, i)),
-                 BlockMap("h_last", (B, di, ds), (1, ch, ds),
-                          lambda i, b: (b, i, 0))),
+        axes=(Axis("channels", di, ch), Axis("batch", B, 1),
+              Axis("state groups", ds, n)),
+        outputs=(BlockMap("y (group partials)", (ng, B, T, di),
+                          (1, 1, T, ch), lambda i, b, g: (g, b, 0, i)),
+                 BlockMap("h_last", (B, di, ds), (1, ch, n),
+                          lambda i, b, g: (b, i, g))),
         rings=(Ring("cp.async", _ss.STAGES),),
         scope="tree" if tree else None)
 
@@ -560,25 +568,36 @@ def _scan_work(cfg: dict):
 
 
 def _scan_bwd_instance(cfg: dict) -> KernelInstance:
-    """The gradient pass: one block per (64 channels, segment, batch
-    row), ds / 4 lanes a channel, its chunks through a cp.async ring."""
+    """The gradient pass: one block per (state group x 64 channels,
+    segment, batch row), ds / 4 lanes a channel (the instance's), its
+    chunks through a cp.async ring; past 64 states group 0 writes its
+    partial d(dt) and d(dx) to the outputs and each other group to its
+    slices of a [groups - 1, 2, B, T, di] scratch (sum_groups_kernel adds
+    them into the outputs; the maps below take the outputs and the
+    scratch as [groups, B, T, di] arrays of partials), and each its slice
+    of the carries' scratch."""
     B, T, di, ds = cfg["B"], cfg["T"], cfg["di"], cfg["ds"]
     seg = _ss.SEG_CHUNKS * _ss.BT
     ch, n = _ss.bwd_channels(ds), _ss.instance(ds)
+    ng, nblk = _ss.groups(ds), _cdiv(di, ch)
     return KernelInstance(
-        grid=(_cdiv(di, ch), _ss.n_segments(T), B),
+        grid=(nblk * ng, _ss.n_segments(T), B),
         threads=ch * _ss.bwd_lanes(ds),
         smem_bytes=_ss.bwd_smem_bytes(ds),
-        axes=(Axis("channels", di, ch), Axis("segments", T, seg),
-              Axis("batch", B, 1)),
-        outputs=(BlockMap("ddt", (B, T, di), (1, seg, ch),
-                          lambda i, s, b: (b, s, i)),
-                 BlockMap("ddx", (B, T, di), (1, seg, ch),
-                          lambda i, s, b: (b, s, i)),
-                 # dA's partial a (batch row, segment), added by
+        axes=(Axis("state groups x channels", di * ng, ch),
+              Axis("segments", T, seg), Axis("batch", B, 1)),
+        outputs=(BlockMap("ddt (group partials)", (ng, B, T, di),
+                          (1, 1, seg, ch),
+                          lambda i, s, b: (i // nblk, b, s, i % nblk)),
+                 BlockMap("ddx (group partials)", (ng, B, T, di),
+                          (1, 1, seg, ch),
+                          lambda i, s, b: (i // nblk, b, s, i % nblk)),
+                 # dA's partial a (batch row, segment), each group's
+                 # slice of the W = n x groups states, added by
                  # sum_mid_kernel
-                 BlockMap("dA_part", (B, _ss.n_segments(T), di, n),
-                          (1, 1, ch, n), lambda i, s, b: (b, s, i, 0))),
+                 BlockMap("dA_part", (B, _ss.n_segments(T), di, n * ng),
+                          (1, 1, ch, n),
+                          lambda i, s, b: (b, s, i % nblk, i // nblk))),
         rings=(Ring("cp.async", _ss.STAGES, "bwd"),),
         scope="bwd")
 

@@ -12,7 +12,12 @@ in segments of SEG_CHUNKS chunks that run in parallel over time.
 "float16" the reference's chunked tree with its transitions rounded to
 that type (namespace tree; its backward takes the recurrence in f32 at
 the rounded transitions). Any d_state from 1 to 64 runs the instance
-``instance(ds)``, the states above it masked in the kernel.
+``instance(ds)``, the states above it masked in the kernel; from 65 to
+256 (``D_STATES``) the states are cut into ``groups(ds)`` groups of 64,
+a grid axis, each running the 64-state instance on its own states, and
+the groups' partial sums over the states (y forward, d(dx) and d(dt)
+backward) are added in group order by a second kernel. Past 256 the
+wrappers raise.
 ``ops.selective_scan`` dispatches here for CUDA tensors (through an
 autograd function when a gradient is wanted) and to
 ``ref.selective_scan`` for CPU tensors; ``scan_lanes`` and
@@ -29,9 +34,11 @@ from repro_torch.kernels import _build, ref
 # the d_state instances of csrc/selective_scan.cu; every d_state from 1 to
 # 64 runs the least instance at or above it (``instance``), forward and
 # backward (a block of the backward is ds / 4 lanes a channel: 512
-# threads from ds = 32 on, 32 channels a block at 64)
+# threads from ds = 32 on, 32 channels a block at 64); from 65 to 256 the
+# 64-state instance once for each group of GROUP states (``groups``)
 INSTANCES = (4, 8, 16, 32, 64)
-D_STATES = tuple(range(1, 65))
+GROUP = 64
+D_STATES = tuple(range(1, 257))
 BWD_D_STATES = D_STATES
 # the entry points' form by scan_dtype: the transitions' type
 FORMS = {"float32": 0, "bfloat16": 1, "float16": 2}
@@ -57,12 +64,32 @@ SEG_CHUNKS = 32
 
 def instance(ds: int) -> int:
     """The d_state instance a d_state runs (``instance`` in
-    csrc/selective_scan.cu): the least of INSTANCES at or above it, the
-    states above ds masked. Raises past 64."""
+    csrc/selective_scan.cuh): the least of INSTANCES at or above it, the
+    states above ds masked; past 64 the 64-state instance (one a group).
+    Raises past 256."""
     if ds not in D_STATES:
         raise ValueError(f"selective_scan: the kernel takes d_state 1 to "
                          f"{D_STATES[-1]}, not {ds}")
-    return next(n for n in INSTANCES if n >= ds)
+    return next((n for n in INSTANCES if n >= ds), GROUP)
+
+
+def groups(ds: int) -> int:
+    """The groups of up to GROUP states a d_state is cut into (``groups``
+    in csrc/selective_scan.cuh): a grid axis of both launches, 1 up to
+    64."""
+    instance(ds)
+    return -(-ds // GROUP)
+
+
+def width(ds: int) -> int:
+    """States a row of the backward's scratch (carries, decays, the dA, dB
+    and dC partials): the instance's, times the groups."""
+    return instance(ds) * groups(ds)
+
+
+def _group_slices(ds: int):
+    """The state slices of the groups, in order."""
+    return [slice(s, min(s + GROUP, ds)) for s in range(0, ds, GROUP)]
 
 
 def form(scan_dtype: str) -> int:
@@ -91,6 +118,32 @@ def tree_channels(ds: int) -> int:
     TREE_THREADS' worth of lanes from ds = 32 on."""
     L = tree_lanes(ds)
     return CH if L <= 4 else TREE_THREADS // L
+
+
+def geometry(ds: int) -> tuple:
+    """(instance, groups, tree lanes, tree channels, tree shared memory) of
+    a d_state's forward: what ``selective_scan_geometry`` of
+    csrc/selective_scan.cu gives."""
+    return (instance(ds), groups(ds), tree_lanes(ds), tree_channels(ds),
+            smem_bytes(ds, "bfloat16"))
+
+
+def bwd_geometry(ds: int) -> tuple:
+    """(instance, groups, lanes a channel, channels a block, shared memory
+    of the gradient pass) of a d_state's backward: what
+    ``selective_scan_bwd_geometry`` of csrc/selective_scan_bwd.cu gives."""
+    return (instance(ds), groups(ds), bwd_lanes(ds), bwd_channels(ds),
+            bwd_smem_bytes(ds))
+
+
+def kernel_geometry(ds: int, backward: bool = False):
+    """``geometry`` (or ``bwd_geometry``) as the CUDA side computes it, or
+    None where it refuses the d_state; needs the built library."""
+    import ctypes
+    name = "selective_scan_bwd" if backward else "selective_scan"
+    out = (ctypes.c_int * 5)()
+    err = getattr(_build.load(name), f"{name}_geometry")(ds, out)
+    return None if err else tuple(out)
 
 
 def smem_bytes(ds: int, scan_dtype: str = "float32") -> int:
@@ -162,16 +215,35 @@ def _lane_sum(prod, L: int):
     return p[..., 0]
 
 
+def _by_groups(fn, dt, dx, A, Bc, Cc, h0, **kw):
+    """``fn`` (a forward's function on one group, padded to its instance)
+    over the state groups: y the groups' partials added in group order, as
+    sum_groups_kernel adds them, and h_last their states side by side."""
+    y, hs = None, []
+    for sl in _group_slices(A.shape[1]):
+        yg, hg = fn(dt, dx, A[:, sl], Bc[..., sl], Cc[..., sl],
+                    None if h0 is None else h0[..., sl], **kw)
+        y = yg if y is None else y + yg
+        hs.append(hg)
+    return y, torch.cat(hs, -1)
+
+
 def scan_lanes(dt, dx, A, Bc, Cc, h0=None):
     """The f32 kernel's function in plain tensor code, in its order: the
     decay exp2(dt (A log2 e)); each lane's partial sum of C_s h_s over its
     ``ds / lanes(ds)`` consecutive states, ascending; the lanes' partials
     added as the xor shuffles add them (lanes 1 apart, then 2 apart); the
-    states of the instance past ds zero. Same arguments and result as
-    ``ref.selective_scan``."""
+    states of the instance past ds zero; past 64 states each group of 64
+    so, and the groups' partial y added in group order. Same arguments and
+    result as ``ref.selective_scan``."""
+    ds = A.shape[1]
+    return _by_groups(_scan_lanes_group, dt, dx, A, Bc, Cc, h0,
+                      n=instance(ds), L=lanes(ds))
+
+
+def _scan_lanes_group(dt, dx, A, Bc, Cc, h0, n, L):
     B, T, di = dt.shape
     ds = A.shape[1]
-    n, L = instance(ds), lanes(ds)
     f32 = torch.float32
     A, Bc, Cc, h0 = _padded(n, A, Bc, Cc, h0)
     dt, dx, Bc, Cc = (t.to(f32) for t in (dt, dx, Bc, Cc))
@@ -197,10 +269,17 @@ def scan_tree_lanes(dt, dx, A, Bc, Cc, h0=None, scan_dtype="bfloat16"):
     the next group's. h_t = f32(A_t) h + f32(B_t) from the chunk's start
     state; y_t the lanes' partials of R(h_t) R(C_t) (4 states a lane,
     ``_lane_sum``). Same arguments and result as ``ref.selective_scan``
-    at that scan_dtype."""
+    at that scan_dtype; past 64 states each group of 64 so, and the
+    groups' partial y added in group order."""
+    ds = A.shape[1]
+    return _by_groups(_scan_tree_group, dt, dx, A, Bc, Cc, h0,
+                      n=instance(ds), L=tree_lanes(ds),
+                      scan_dtype=scan_dtype)
+
+
+def _scan_tree_group(dt, dx, A, Bc, Cc, h0, n, L, scan_dtype):
     B, T, di = dt.shape
     ds = A.shape[1]
-    n, L = instance(ds), tree_lanes(ds)
     f32, sd = torch.float32, ref.scan_type(scan_dtype)
     A, Bc, Cc, h0 = _padded(n, A, Bc, Cc, h0)
     dt, dx, A, Bc, Cc = (t.to(f32) for t in (dt, dx, A, Bc, Cc))
@@ -253,8 +332,12 @@ def selective_scan(dt, dx, A, Bc, Cc, h0=None, save_states: bool = False,
     ds in D_STATES -> (y [B, T, di], h_last [B, di, ds]) float32, and with
     ``save_states`` also hs [B, n_chunks(T), di, ds], the state at the
     start of each BT-step chunk (hs[:, 0] is h0). ``scan_dtype`` (FORMS)
-    picks the f32 scan or the rounded tree. Launches are counted in
-    ``launches`` and by scan_dtype in ``by_form``."""
+    picks the f32 scan or the rounded tree. Past 64 states the first
+    group's partial y goes to y and the others' to a [groups - 1, B, T,
+    di] f32 scratch allocated here and freed on return, added into y in
+    group order. Launches are counted
+    in ``launches``, by scan_dtype in ``by_form`` and, past 64 states, in
+    ``by_form_grouped``."""
     B, T, di = dt.shape
     ds = A.shape[1]
     if (dx.shape != dt.shape or A.shape != (di, ds)
@@ -265,7 +348,7 @@ def selective_scan(dt, dx, A, Bc, Cc, h0=None, save_states: bool = False,
             f"{tuple(dx.shape)}, A {tuple(A.shape)}, Bc {tuple(Bc.shape)}, "
             f"Cc {tuple(Cc.shape)}, h0 "
             f"{None if h0 is None else tuple(h0.shape)}")
-    instance(ds)   # raises on a d_state past 64
+    ng = groups(ds)   # raises on a d_state past 256
     fm = form(scan_dtype)
     if fm and T >= TREE_GROUP << 20:
         raise ValueError(f"selective_scan: the tree's high counter takes "
@@ -278,25 +361,31 @@ def selective_scan(dt, dx, A, Bc, Cc, h0=None, save_states: bool = False,
     if h0 is not None:
         h0 = _build.aligned(h0)
     y = torch.empty((B, T, di), dtype=torch.float32, device=dt.device)
+    parts = (torch.empty((ng - 1, B, T, di), dtype=torch.float32,
+                         device=dt.device) if ng > 1 else None)
     h_last = torch.empty((B, di, ds), dtype=torch.float32, device=dt.device)
     hs = (torch.empty((B, n_chunks(T), di, ds), dtype=torch.float32,
                       device=dt.device) if save_states else None)
     err = _build.load("selective_scan").selective_scan_f32(
         dt.data_ptr(), dx.data_ptr(), A.data_ptr(), Bc.data_ptr(),
         Cc.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_last.data_ptr(), None if hs is None else hs.data_ptr(), B, T, di,
+        None if parts is None else parts.data_ptr(), h_last.data_ptr(), None if hs is None else hs.data_ptr(), B, T, di,
         ds, fm, *_build.launch_args(dt))
     _build.check(err, "selective_scan")
     selective_scan.launches += 1
     selective_scan.by_form[scan_dtype] += 1
+    if ng > 1:
+        selective_scan.by_form_grouped[scan_dtype] += 1
     return (y, h_last, hs) if save_states else (y, h_last)
 
 
 def reset_counts() -> None:
-    """Both wrappers' launch counts to 0, by form too."""
+    """Both wrappers' launch counts to 0, by form (and past 64 states by
+    form) too."""
     for w in (selective_scan, selective_scan_bwd):
         w.launches = 0
         w.by_form = dict.fromkeys(FORMS, 0)
+        w.by_form_grouped = dict.fromkeys(FORMS, 0)
 
 
 def selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
@@ -311,7 +400,10 @@ def selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
     parallel; the carries between them are composed in a fixed order. At a
     16-bit ``scan_dtype`` the gradients are those of the recurrence in f32
     at the tree's rounded transitions, each rounding passing its
-    cotangent through (``backward_chunks``)."""
+    cotangent through (``backward_chunks``). Past 64 states the first
+    group's partial d(dt) and d(dx) go to the outputs and the others' to a
+    [groups - 1, 2, B, T, di] f32 scratch allocated here and freed on
+    return, added into the outputs in group order."""
     B, T, di = dt.shape
     ds = A.shape[1]
     if ds not in BWD_D_STATES:
@@ -338,9 +430,11 @@ def selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
     if dh_last is not None:
         dh_last = _build.aligned(dh_last)
     f32, dev = torch.float32, dt.device
-    n = instance(ds)
+    n, ng = width(ds), groups(ds)
     nblk, nseg = -(-di // bwd_channels(ds)), n_segments(T)
     ddt, ddx = torch.empty_like(dt), torch.empty_like(dx)
+    parts = (torch.empty((ng - 1, 2, B, T, di), dtype=f32, device=dev)
+             if ng > 1 else None)
     lcarry, decay, dA_part = (torch.empty((B, nseg, di, n), dtype=f32,
                                           device=dev) for _ in range(3))
     dB_part = torch.empty((B, nblk, T, n), dtype=f32, device=dev)
@@ -352,12 +446,14 @@ def selective_scan_bwd(dt, dx, A, Bc, Cc, hs, dy, dh_last=None,
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     err = _build.load("selective_scan_bwd").selective_scan_bwd_f32(
         *(ptr(t) for t in (dt, dx, A, Bc, Cc, hs, dy, dh_last, ddt, ddx,
-                           lcarry, decay, dA_part, dB_part, dC_part, dA, dB,
-                           dC, dh0)),
+                           parts, lcarry, decay, dA_part, dB_part, dC_part,
+                           dA, dB, dC, dh0)),
         B, T, di, ds, SEG_CHUNKS, fm, *_build.launch_args(dt))
     _build.check(err, "selective_scan_bwd")
     selective_scan_bwd.launches += 1
     selective_scan_bwd.by_form[scan_dtype] += 1
+    if ng > 1:
+        selective_scan_bwd.by_form_grouped[scan_dtype] += 1
     return ddt, ddx, dA, dB, dC, dh0
 
 
@@ -378,7 +474,10 @@ def backward_chunks(dt, dx, A, Bc, Cc, dy, h0=None, dh_last=None,
     Pass 3: each segment from its carry, its chunks last to first, each
     chunk's states recomputed from its start and the adjoint run back
     through it. dA is summed per (batch row, segment), then over those in
-    order. Returns (d(dt), d(dx), dA, dB, dC, dh0), dh0 None without h0.
+    order. d(dx) and d(dt), sums over the states, are summed within each
+    group of 64 states and then over the groups in order, as the kernels'
+    groups are added. Returns (d(dt), d(dx), dA, dB, dC, dh0), dh0 None
+    without h0.
 
     At a 16-bit ``scan_dtype`` (R: rounding to it) the chunk starts are
     the tree forward's states (``ref.selective_scan_tree``), the states
@@ -408,6 +507,16 @@ def backward_chunks(dt, dx, A, Bc, Cc, dy, h0=None, dh_last=None,
 
     def step(t, h):
         return decay(t)[0] * h + rnd(dx[:, t, :, None] * Bc[:, t, None, :])
+
+    slices = _group_slices(ds)
+
+    def by_groups(v):
+        """v's sum over the states: each group's, then the groups' in
+        order."""
+        out = v[..., slices[0]].sum(-1)
+        for sl in slices[1:]:
+            out = out + v[..., sl].sum(-1)
+        return out
 
     h = (torch.zeros((B, di, ds), dtype=f32, device=dt.device)
          if h0 is None else h0.to(f32))
@@ -453,9 +562,9 @@ def backward_chunks(dt, dx, A, Bc, Cc, dy, h0=None, dh_last=None,
             for t in reversed(range(t0, t1)):
                 at, e = decay(t)
                 g = dy[:, t, :, None] * Cr[:, t, None, :] + carry
-                ddx[:, t] = (g * Bc[:, t, None, :]).sum(-1)
+                ddx[:, t] = by_groups(g * Bc[:, t, None, :])
                 w = g * e * prev[t - t0]
-                ddt[:, t] = (w * A).sum(-1)
+                ddt[:, t] = by_groups(w * A)
                 dA_parts[:, s] += w * dt[:, t, :, None]
                 dB[:, t] = (g * dx[:, t, :, None]).sum(1)
                 carry = at * g

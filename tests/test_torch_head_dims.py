@@ -1,0 +1,264 @@
+"""The port's attention at every head dim from 1 to 512 against the JAX
+package, on the CPU.
+
+The kernels take any head dim from 1 to 512 in f32 and bf16, forward and
+backward (``kernels/flash_attention.py``: a bf16 head dim that is a
+multiple of 8 up to 256 on the tensor-core instance of its width, every
+other on the CUDA-core instance of its width, its columns past hd zero).
+On the CPU the port runs the plain version (``ref.flash_attention``) and
+the backward kernels' algorithm (``backward_blocks``, at the kernels'
+tile rows of the head dim); here they are held against the Pallas kernel
+in interpret mode, ``blockwise_causal_attention`` and ``jax.grad`` of the
+JAX reference attention, and StableLM SMOKE at head_dim 40 and 320 and
+Whisper SMOKE at 33 (no RoPE, so an odd head dim) against JAX at model
+level. Inputs are made with numpy from a seed. Limits:
+
+- TOL, f32 against f32: 1e-5 x max|want| (the same f32 function summed
+  in another order), as ``tests/test_torch_lm.py``.
+- BF16_TOL, bf16 inputs: 2^-7 x max|want| (each result rounded once to
+  bf16; the reference rounds p to bf16 before P.V, the port does not).
+- MODEL_TOL, 2e-4, and GRAD_TOL, 1e-4 x each leaf's max|value|, for the
+  SMOKE models (``tests/test_torch_zoo.py``'s and
+  ``tests/test_torch_moe.py``'s).
+"""
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.kernels import flash_attention as jfa  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import api as japi  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import api as tapi  # noqa: E402
+
+KEY = jax.random.PRNGKey(0)
+TOL = 1e-5
+BF16_TOL = 2.0 ** -7
+MODEL_TOL = 2e-4
+GRAD_TOL = 1e-4
+HEAD_DIMS = (1, 8, 33, 40, 72, 100, 257, 320, 512)
+SMEM = 232448
+bf16 = torch.bfloat16
+
+
+def _rel(got, want) -> float:
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _qkv(hd, S, dtype, seed, B=1, H=4, KVH=2, do=False):
+    """q, k, v (and dO) as numpy f32 holding values of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    out = [rng.standard_normal((B, S, n, hd)).astype(np.float32)
+           for n in (H, KVH, KVH) + ((H,) if do else ())]
+    if dtype == "bfloat16":
+        out = [np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+               for a in out]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The kernels' functions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_attention_matches_pallas_and_blockwise(hd, dtype):
+    """The port's attention at the head dim (``ops.flash_attention``: the
+    plain version on the CPU) against the Pallas kernel in interpret mode
+    (one block of S rows: its own tiling is not what is held here) and
+    ``blockwise_causal_attention``, on the same inputs in the type; S 64
+    (128 at hd 100 and 257), B 1, H 4, KVH 2."""
+    S = 128 if hd in (100, 257) else 64
+    q, k, v = _qkv(hd, S, dtype, seed=hd)
+    tt = getattr(torch, dtype)
+    got = tops.flash_attention(*(torch.as_tensor(a).to(tt)
+                                 for a in (q, k, v)))
+    assert got.dtype == tt and got.shape == q.shape
+    jt = jnp.dtype(dtype)
+    jq, jk, jv = (jnp.asarray(a, jt) for a in (q, k, v))
+    tol = TOL if dtype == "float32" else BF16_TOL
+    assert _rel(got, jfa.flash_attention(jq, jk, jv, block_q=S, block_k=S,
+                                         interpret=True)) <= tol
+    assert _rel(got, jax.jit(JL.blockwise_causal_attention)(jq, jk, jv)) \
+        <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_backward_blocks_match_jax_grad(hd, dtype):
+    """``backward_blocks`` at the kernels' tile rows of the head dim
+    (``bwd_rows``: on the CUDA cores 64 up to 128, 32 up to 384, 16
+    above; 128 or 64 on the tensor cores), with ``lse_blocks`` at the forward's, against ``jax.grad`` of
+    the JAX package's reference attention (``repro.kernels.ref``) in f32
+    on the same values: TOL in f32,
+    BF16_TOL on bf16 inputs (P and dS as bf16 hi + lo where the tensor
+    cores take them). o is the plain forward's f32 output: the kernels
+    read the forward's bf16 o, whose rounding moves Delta = rowsum(dO o)
+    by up to 2^-9 of it (at hd 1, one term a row, 1.0e-2 of max|grad| here
+    against 2^-7); chip_smoke.py holds the kernels against
+    ``backward_blocks`` on that same bf16 o."""
+    S = 48
+    q, k, v, do = _qkv(hd, S, dtype, seed=hd + 1, do=True)
+    _, vjp = jax.vjp(jref.flash_attention,
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.as_tensor(a).to(tt) for a in (q, k, v, do))
+    block = tfa.bwd_rows(tt, hd)
+    o = tref.flash_attention(tq.float(), tk.float(), tv.float())
+    got = tfa.backward_blocks(tq, tk, tv, o,
+                              tfa.lse_blocks(tq, tk, tfa.kv_rows(tt, hd)),
+                              tdo, block)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    for a, w in zip(got, want):
+        assert a.dtype == tt
+        assert _rel(a, w) <= tol
+
+
+# ---------------------------------------------------------------------------
+# The launch geometry and the domain
+# ---------------------------------------------------------------------------
+
+
+def _width_fn(scope: str, src: str):
+    """``width(hd)`` of namespace ``scope`` of a .cu source as a Python
+    function: the C chain of conditionals read from the source (``c1 ? v1
+    : c2 ? v2 : .. : d``, integer arithmetic, ``||`` and ``&&``)."""
+    body = src[src.index(f"namespace {scope} {{"):]
+    expr = re.search(r"constexpr int width\(int hd\) \{\s+return ([^;]+);",
+                     body).group(1)
+    expr = (" ".join(expr.split()).replace("||", " or ")
+            .replace("&&", " and ").replace("/", "//"))
+    parts = [p.strip() for p in re.split(r"[?:]", expr)]
+    arms, default = list(zip(parts[:-1:2], parts[1::2])), parts[-1]
+
+    def width(hd: int) -> int:
+        for cond, val in arms:
+            if eval(cond, {}, {"hd": hd}):
+                return eval(val, {}, {"hd": hd})
+        return eval(default, {}, {"hd": hd})
+    return width
+
+
+def test_geometry_fits_and_routes_as_the_dispatch():
+    """At every head dim from 1 to 512 in both types, forward and backward:
+    the block's shared memory fits the card's 232,448 bytes, and the route
+    and width are those the .cu sources' dispatch takes (bf16 on the
+    tensor cores where ``tc::width`` is not 0, else the CUDA-core instance
+    of ``simt::width``); the rows and shared memory follow the CUDA-side
+    formulas of the instance."""
+    fsrc = (_build.CSRC / "flash_attention.cu").read_text()
+    bsrc = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    f_tc, f_simt = _width_fn("tc", fsrc), _width_fn("simt", fsrc)
+    b_tc, b_simt = _width_fn("tc", bsrc), _width_fn("simt", bsrc)
+    for hd in tfa.HEAD_DIMS:
+        for dt in (torch.float32, bf16):
+            tc = dt == bf16 and f_tc(hd) != 0
+            route, width, rows, smem = tfa.geometry(dt, hd)
+            assert (route, width) == ((1, f_tc(hd)) if tc
+                                      else (0, f_simt(hd)))
+            assert rows == (tfa.tc_rows(hd) if tc
+                            else 64 if width <= 256 else 32)
+            if not tc:
+                assert smem == 4 * (2 * rows * (width + 1) + rows * width
+                                    + rows * (rows + 1))
+            assert 0 < smem <= SMEM
+            tc = dt == bf16 and b_tc(hd) != 0
+            route, width, rows, smem = tfa.bwd_geometry(dt, hd)
+            assert (route, width) == ((1, b_tc(hd)) if tc
+                                      else (0, b_simt(hd)))
+            if not tc:
+                assert rows == (64 if width <= 128 else 32 if width <= 384
+                                else 16)
+                assert smem == 4 * (4 * rows * (width + 1)
+                                    + 2 * rows * (rows + 1) + 2 * rows)
+            assert 0 < smem <= SMEM
+    assert f_tc(513) == f_simt(513) == b_tc(513) == b_simt(513) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, bf16])
+def test_past_the_domain_raises_naming_it(dtype):
+    """hd 513 raises in both wrappers and in the routing, naming the
+    domain, before any device is touched; hd 512 is refused only for
+    lying on the CPU."""
+    for hd, match in ((513, "head_dim 1 to 512, not 513"), (512, "CUDA")):
+        q = torch.zeros(1, 8, 2, hd, dtype=dtype)
+        k = torch.zeros(1, 8, 1, hd, dtype=dtype)
+        lse = torch.zeros(1, 2, 8)
+        with pytest.raises(ValueError, match=match):
+            tfa.flash_attention(q, k, k)
+        with pytest.raises(ValueError, match=match):
+            tfa.flash_attention_bwd(q, k, k, q, lse, q)
+    for fn in (tfa.route, tfa.bwd_scope, tfa.geometry, tfa.bwd_geometry):
+        with pytest.raises(ValueError, match="head_dim 1 to 512"):
+            fn(dtype, 513)
+    assert tfa.flash_attention.launches == 0
+    assert tfa.flash_attention_bwd.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# Models at overridden head dims
+# ---------------------------------------------------------------------------
+
+
+def _inputs(jc, B, S, seed):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, jc.vocab_size, (B, S)).astype(np.int32)}
+    if jc.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (B, jc.encoder.n_frames, jc.encoder.frontend_dim)).astype(
+            np.float32)
+    return out
+
+
+@pytest.mark.parametrize("arch,hd", [("stablelm-1.6b", 40),
+                                     ("stablelm-1.6b", 320),
+                                     ("whisper-large-v3", 33)])
+def test_model_prefill_and_grads_match_jax(arch, hd):
+    """The f32 SMOKE config with ``head_dim`` overridden (Whisper's odd
+    one: it has no RoPE), JAX-drawn params carried across: the prefill's
+    logits within MODEL_TOL, ``loss_fn`` within MODEL_TOL and the gradient
+    of every param leaf within GRAD_TOL x its max|value| of
+    ``jax.value_and_grad``'s."""
+    jc = j_get_config(arch, smoke=True).with_overrides(head_dim=hd)
+    tc = t_get_config(arch, smoke=True).with_overrides(head_dim=hd)
+    assert tc.resolved_head_dim() == hd
+    jp = japi.init_params(jc, jax.random.fold_in(KEY, hd))
+    tp = convert.lm_params_from_numpy({k: np.asarray(v) for k, v in
+                                       jp.items()}, "float32", device="cpu")
+    b = _inputs(jc, 2, 16, hd)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    tb = {k: torch.as_tensor(v) for k, v in b.items()}
+    _, jlog = jax.jit(japi.make_prefill_step(jc))(jp, jb)
+    _, tlog = tapi.make_prefill_step(tc)(tp, tb)
+    assert _rel(tlog, jlog) <= MODEL_TOL
+    b["labels"] = np.roll(b["tokens"], -1, axis=1)
+    jb["labels"], tb["labels"] = (jnp.asarray(b["labels"]),
+                                  torch.as_tensor(b["labels"]))
+    jl, jg = jax.jit(jax.value_and_grad(lambda p: japi.loss_fn(jc, p, jb)))(
+        jp)
+    names = sorted(tp)
+    leaves = [tp[k].requires_grad_() for k in names]
+    tl = tapi.loss_fn(tc, dict(zip(names, leaves)), tb)
+    tg = torch.autograd.grad(tl, leaves)
+    assert _rel(tl, jl) <= MODEL_TOL
+    for k, g in zip(names, tg):
+        assert _rel(g, jg[k]) <= GRAD_TOL, k

@@ -108,42 +108,76 @@ def test_gmm_loglik_packed_operand_matches_pallas(F, D, C, skew, bf, bc):
 
 
 @pytest.mark.parametrize("dtype,hd,match", [
-    (torch.bfloat16, 72, "no tensor-core instance"),
-    (torch.bfloat16, 272, "no tensor-core instance"),
-    (torch.bfloat16, 8, "no tensor-core instance"),
-    (torch.bfloat16, 64, "CUDA"),       # has an instance: refused for the CPU
+    (torch.bfloat16, 513, "head_dim 1 to 512"),
+    (torch.bfloat16, 1024, "head_dim 1 to 512"),
+    (torch.float32, 520, "head_dim 1 to 512"),
+    (torch.bfloat16, 64, "CUDA"),       # in the domain: refused for the CPU
     (torch.bfloat16, 128, "CUDA"),
-    (torch.bfloat16, 16, "CUDA"),       # every multiple of 16 up to 256
+    (torch.bfloat16, 16, "CUDA"),       # every head dim from 1 to 512
     (torch.bfloat16, 80, "CUDA"),
-    (torch.float32, 80, "CUDA"),        # f32 takes any multiple of 16
+    (torch.float32, 80, "CUDA"),
 ])
 def test_flash_attention_refuses_bf16_head_dims_without_instance(dtype, hd,
                                                                   match):
-    """A bf16 head dim with no tensor-core instance (one that is not a
-    multiple of 16 up to 256) raises, naming the supported set, before any
-    device is touched: it never goes to the CUDA-core f32 kernel or to the
-    plain version."""
+    """A head dim past the kernels' domain (1 to 512, in both types)
+    raises, naming the domain, before any device is touched: it never goes
+    to a kernel or to the plain version; one inside it is refused only for
+    lying on the CPU."""
     q = torch.zeros(1, 8, 2, hd, dtype=dtype)
     k = torch.zeros(1, 8, 1, hd, dtype=dtype)
-    with pytest.raises(ValueError, match=match) as info:
+    with pytest.raises(ValueError, match=match):
         tfa.flash_attention(q, k, k.clone())
-    if match != "CUDA":
-        assert str(tfa.BF16_HEAD_DIMS) in str(info.value)
     assert tfa.flash_attention.launches == 0
 
 
 def test_flash_attention_bf16_head_dims_are_the_cuda_instances():
-    """``BF16_HEAD_DIMS`` lists exactly the head dims the tensor-core
-    dispatch of ``csrc/flash_attention.cu`` has a case for, each sent to
-    the instance of its width ``tc_width``."""
+    """``TC_HEAD_DIMS`` are exactly the bf16 head dims the forward entry of
+    ``csrc/flash_attention.cu`` sends to its tensor-core instances (a
+    multiple of 8 up to 256, each on the instance of its width
+    ``tc_width``), and every head dim of the domain has a CUDA-core
+    instance of its width ``simt_width``: the dispatch switches list
+    TC_WIDTHS and SIMT_WIDTHS, the masked kernels' widths are
+    SIMT_MASKED_WIDTHS, and the widths' functions are the wrapper's."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    body = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
-    body = body[body.index("int dispatch("):]
-    cases = [(int(n), int(w)) for n, w in re.findall(
-        r"TC_CASE\((\d+), (\d+)\)", body)]
-    assert tuple(n for n, _ in cases) == tfa.BF16_HEAD_DIMS
-    assert all(w == tfa.tc_width(n) for n, w in cases)
-    assert {w for _, w in cases} == set(tfa.TC_WIDTHS)
+    tc = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
+    body = tc[tc.index("int dispatch("):]
+    assert tuple(int(w) for w in re.findall(r"TC_CASE\((\d+)\)", body)) \
+        == tfa.TC_WIDTHS
+    expr = re.search(r"constexpr int width\(int hd\) \{\s+return ([^;]+);",
+                     tc).group(1)
+    assert "hd % 8 != 0" in expr and "hd <= 256 ? 256 : 0" in expr
+    simt = src[src.index("namespace simt {"):src.index("}  // namespace simt")]
+    listed = simt[simt.index("#define SIMT_WIDTH_LIST(X)"):
+                  simt.index("// head dim -> the instance of its width")]
+    assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", listed)) == \
+        tfa.SIMT_WIDTHS
+    body = simt[simt.index("int dispatch("):]
+    assert "SIMT_WIDTH_LIST(SIMT_CASE)" in body
+    expr = re.search(r"constexpr int width\(int hd\) \{\s+return ([^;]+);",
+                     simt).group(1)
+    assert " ".join(expr.split()) == (
+        "hd < 1 || hd > 512 ? 0 : hd % 16 == 0 && (hd <= 256 || hd % 64 == "
+        "0) ? hd : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= "
+        "256 ? 256 : hd <= 384 ? 384 : 512")
+    masked = re.search(r"constexpr bool masked\(int W\) \{\s+return ([^;]+);",
+                       simt).group(1)
+    assert tuple(int(w) for w in re.findall(r"W == (\d+)", masked)) == \
+        tfa.SIMT_MASKED_WIDTHS
+    assert tfa.TC_HEAD_DIMS == tuple(range(8, 257, 8))
+    assert tfa.HEAD_DIMS == tuple(range(1, 513))
+    for hd in tfa.HEAD_DIMS:
+        if hd in tfa.TC_HEAD_DIMS:
+            assert tfa.route(torch.bfloat16, hd) == "tc"
+            assert tfa.tc_width(hd) - 64 < hd <= tfa.tc_width(hd)
+        else:
+            assert tfa.route(torch.bfloat16, hd) == "simt"
+        assert tfa.route(torch.float32, hd) == "simt"
+        w = tfa.simt_width(hd)
+        if hd in tfa.SIMT_WIDTHS:
+            assert w == hd
+        else:
+            assert hd < w and w in tfa.SIMT_MASKED_WIDTHS and all(
+                v < hd for v in tfa.SIMT_MASKED_WIDTHS if v < w)
 
 
 @pytest.mark.parametrize("F,D,C,K,case", [

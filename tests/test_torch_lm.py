@@ -239,8 +239,9 @@ def test_scan_lanes_split_d_state_over_lanes():
     """Lanes per channel as a function of d_state: two at Jamba's 8 and 16,
     one at 4 and four above, so that each lane holds 4 to 16 states (a
     multiple of 4: float4 reads), every state on exactly one lane; every
-    d_state from 1 to 64 takes its instance's lanes, and one past 64 is
-    refused, naming the range."""
+    d_state from 1 to 256 takes its instance's lanes (past 64 the 64-state
+    instance's, one instance a group of 64), and one past 256 is refused,
+    naming the range."""
     assert [tss.lanes(ds) for ds in tss.INSTANCES] == [1, 2, 2, 4, 4]
     for ds in tss.INSTANCES:
         L = tss.lanes(ds)
@@ -249,15 +250,18 @@ def test_scan_lanes_split_d_state_over_lanes():
     for ds in tss.D_STATES:
         assert tss.lanes(ds) == tss.lanes(tss.instance(ds))
         n = tss.instance(ds)
-        assert ds <= n and (n == 4 or n < 2 * ds)
-    for ds in (0, 65, 128):
-        with pytest.raises(ValueError, match=r"d_state 1 to 64"):
+        if ds <= 64:
+            assert ds <= n and (n == 4 or n < 2 * ds)
+        else:
+            assert n == 64 and tss.groups(ds) == -(-ds // 64)
+    for ds in (0, 257, 300):
+        with pytest.raises(ValueError, match=r"d_state 1 to 256"):
             tss.lanes(ds)
 
 
 def test_scan_d_states_are_the_cuda_instances():
     """``INSTANCES`` lists exactly the d_states the dispatch of
-    csrc/selective_scan.cu has an instance for, ``D_STATES`` (1 to 64) the
+    csrc/selective_scan.cu has an instance for, ``D_STATES`` (1 to 256) the
     d_states it takes, and ``lanes`` is the kernel's ``lanes`` there
     (checked on the card by chip_smoke.py through ``selective_scan_lanes``
     and ``selective_scan_geometry``)."""
@@ -265,7 +269,7 @@ def test_scan_d_states_are_the_cuda_instances():
     body = src[src.index('extern "C" int selective_scan_f32('):]
     cases = tuple(int(n) for n in re.findall(r"SSF_CASE\((\d+)\)", body))
     assert cases == tss.INSTANCES
-    assert tss.D_STATES == tuple(range(1, 65))
+    assert tss.D_STATES == tuple(range(1, 257))
     expr = re.search(r"constexpr int lanes\(int ds\) \{\s+return ([^;]+);",
                      src).group(1)
     assert expr == "ds == 4 ? 1 : ds <= 16 ? 2 : 4"
@@ -434,8 +438,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     dt, dx, A, Bc, Cc = (_t(a) for a in _scan_inputs(1, 4, 8, 16, seed=0))
     with pytest.raises(ValueError, match="CUDA"):
         tss.selective_scan(dt, dx, A, Bc, Cc)
-    # the kernel takes d_state 1 to 64 only
-    dt, dx, A, Bc, Cc = (_t(a) for a in _scan_inputs(1, 4, 8, 128, seed=0))
+    # the kernel takes d_state 1 to 256 only
+    dt, dx, A, Bc, Cc = (_t(a) for a in _scan_inputs(1, 4, 8, 257, seed=0))
     with pytest.raises(ValueError, match="d_state"):
         tss.selective_scan(dt, dx, A, Bc, Cc)
     assert tfa.flash_attention.launches == 0

@@ -913,9 +913,9 @@ def test_lm_backward_wrappers_refuse_cpu_tensors():
     lse = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         TFA.flash_attention_bwd(q, q, q, q, lse, q)
-    q72 = torch.zeros(1, 8, 2, 72, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="backward instance"):
-        TFA.flash_attention_bwd(q72, q72, q72, q72, lse, q72)
+    q520 = torch.zeros(1, 8, 2, 520, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 1 to 512"):
+        TFA.flash_attention_bwd(q520, q520, q520, q520, lse, q520)
     dt = torch.zeros(1, 4, 8)
     hs = torch.zeros(1, 1, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -923,52 +923,66 @@ def test_lm_backward_wrappers_refuse_cpu_tensors():
                                torch.zeros(1, 4, 16), torch.zeros(1, 4, 16),
                                hs, dt)
     with pytest.raises(ValueError, match="d_state"):
-        TSS.selective_scan_bwd(dt, dt, torch.zeros(8, 128),
-                               torch.zeros(1, 4, 128), torch.zeros(1, 4, 128),
-                               torch.zeros(1, 1, 8, 128), dt)
+        TSS.selective_scan_bwd(dt, dt, torch.zeros(8, 257),
+                               torch.zeros(1, 4, 257), torch.zeros(1, 4, 257),
+                               torch.zeros(1, 1, 8, 257), dt)
     assert TFA.flash_attention_bwd.launches == 0
     assert TSS.selective_scan_bwd.launches == 0
 
 
 def test_backward_instances_are_the_cuda_ones():
-    """``BF16_HEAD_DIMS`` and ``BWD_D_STATES`` list exactly the cases the
-    backward entry points of the ``.cu`` sources dispatch: every bf16 head
-    dim to a tensor-core instance of its width or to the CUDA-core kernel,
-    every d_state from 1 to 64 to the instance ``instance`` names."""
+    """``HEAD_DIMS`` and ``BWD_D_STATES`` list exactly the cases the
+    backward entry points of the ``.cu`` sources dispatch: every head dim
+    from 1 to 512, bf16 to a tensor-core instance of its width or to the
+    CUDA-core instance of its width, f32 to the CUDA-core one; every
+    d_state from 1 to 256 to the instance ``instance`` names, past 64 once
+    for each of its ``groups``."""
     from repro_torch.kernels import _build
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     body = src[src.index('extern "C" int flash_attention_bwd_bf16('):]
-    tc = [(int(n), int(w)) for n, w in re.findall(
-        r"BWD_TC_CASE\((\d+), (\d+)\)", body)]
-    simt = [int(n) for n in re.findall(r"BWD_SIMT_CASE\((\d+)\)", body)]
-    assert tuple(sorted([n for n, _ in tc] + simt)) == TFA.BF16_HEAD_DIMS
-    assert all(w == TFA.tc_width(n) for n, w in tc)
+    tc = tuple(int(w) for w in re.findall(r"BWD_TC_CASE\((\d+)\)", body))
+    assert tc == tuple(sorted({TFA.tc_width(n)
+                               for n in TFA.BWD_TC_HEAD_DIMS}))
+    assert "simt::dispatch<__nv_bfloat16>" in body
+    simt = src[src.index("namespace simt {"):src.index("}  // namespace simt")]
+    listed = simt[simt.index("#define SIMT_WIDTH_LIST(X)"):
+                  simt.index("// head dim -> the instance of its width")]
+    assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", listed)) == \
+        TFA.SIMT_WIDTHS
+    disp = simt[simt.index("int dispatch("):]
+    assert "SIMT_WIDTH_LIST(BWD_SIMT_CASE)" in disp
     body = src[src.index('extern "C" int flash_attention_bwd_f32('):
                src.index('extern "C" int flash_attention_bwd_bf16(')]
-    assert tuple(int(n) for n in re.findall(r"FAB_CASE\((\d+)\)", body)) == \
-        tuple(range(16, 257, 16))
+    assert "simt::dispatch<float>" in body
+    assert TFA.HEAD_DIMS == tuple(range(1, 513))
     src = (_build.CSRC / "selective_scan_bwd.cu").read_text()
     body = src[src.index('extern "C" int selective_scan_bwd_f32('):]
     assert tuple(int(n) for n in re.findall(r"SSB_CASE\((\d+)\)", body)) == \
         TSS.INSTANCES
-    assert TSS.BWD_D_STATES == tuple(range(1, 65))
+    assert TSS.BWD_D_STATES == tuple(range(1, 257))
     assert sorted({TSS.instance(ds) for ds in TSS.BWD_D_STATES}) == \
         list(TSS.INSTANCES)
+    for ds in TSS.BWD_D_STATES:
+        assert TSS.groups(ds) == (1 if ds <= 64 else -(-ds // 64))
+        assert TSS.width(ds) >= ds
 
 
 def test_backward_tensor_core_dispatch_is_the_cuda_one():
     """``BWD_TC_HEAD_DIMS`` are the bf16 head dims the backward entry
-    point sends to its tensor-core kernels (namespace tc); the rest of
-    ``BF16_HEAD_DIMS`` go to the CUDA-core ones, as ``bwd_scope`` says."""
+    point sends to its tensor-core kernels (namespace tc: ``tc::width`` a
+    multiple of 8 up to 128 or in 193 to 256); the rest of the domain goes
+    to the CUDA-core ones, as ``bwd_scope`` says."""
     from repro_torch.kernels import _build
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    body = src[src.index('extern "C" int flash_attention_bwd_bf16('):]
-    assert tuple(int(n) for n in re.findall(r"BWD_TC_CASE\((\d+), \d+\)",
-                                            body)) == TFA.BWD_TC_HEAD_DIMS
-    assert tuple(int(n) for n in re.findall(
-        r"BWD_SIMT_CASE\((\d+)\)", body)) == tuple(
-        d for d in TFA.BF16_HEAD_DIMS if d not in TFA.BWD_TC_HEAD_DIMS)
-    for hd in TFA.BF16_HEAD_DIMS:
+    tc = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
+    expr = re.search(r"constexpr int width\(int hd\) \{\s+return ([^;]+);",
+                     tc).group(1)
+    assert expr.replace("\n", " ").split() == (
+        "hd < 1 || hd % 8 != 0 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128 "
+        ": hd <= 192 ? 0 : hd <= 256 ? 256 : 0").split()
+    assert TFA.BWD_TC_HEAD_DIMS == tuple(
+        d for d in range(8, 257, 8) if not 128 < d <= 192)
+    for hd in TFA.HEAD_DIMS:
         assert TFA.bwd_scope(torch.bfloat16, hd) == (
             "tc" if hd in TFA.BWD_TC_HEAD_DIMS else "simt")
         assert TFA.bwd_scope(torch.float32, hd) == "simt"

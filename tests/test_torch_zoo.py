@@ -486,7 +486,7 @@ def test_hd256_has_bf16_instances_that_fit():
     the query heads), each within a block's shared memory, and the
     registry describes both."""
     bf = torch.bfloat16
-    assert 256 in tfa.BF16_HEAD_DIMS
+    assert 256 in tfa.TC_HEAD_DIMS
     assert tfa.smem_bytes(bf, 256) <= 232448
     assert tfa.tc_rows(256) == 64 and tfa.tc_rows(128) == 128
     assert tfa.bwd_scope(bf, 256) == "tc" and tfa.bwd_rows(bf, 256) == 64
@@ -511,9 +511,9 @@ def test_hd256_has_bf16_instances_that_fit():
 
 
 def test_bf16_dims_outside_the_instances_still_raise():
-    q = torch.zeros(1, 8, 2, 40, dtype=torch.bfloat16)
-    k = torch.zeros(1, 8, 1, 40, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 40"):
+    q = torch.zeros(1, 8, 2, 520, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 1, 520, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 1 to 512, not 520"):
         tfa.flash_attention(q, k, k)
     q = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 1, 256, dtype=torch.bfloat16)
