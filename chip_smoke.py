@@ -976,7 +976,7 @@ IVEC_FORM_ROWS = {
 
 # the attention's forms with rows of their own (phase 17;
 # flash_attention.form): the row is "<wrapper>_<form>"
-ATTENTION_FORMS = ("tc8", "simt_bf16", "wide")
+ATTENTION_FORMS = ("tc8", "staged", "wide")
 
 
 def reset_counts() -> None:
@@ -4001,8 +4001,8 @@ def _rel_errs(got, want, label, tol):
 
 def check_attention_bwd_small(g, dev):
     """The backward at small shapes that the training shapes leave out:
-    bf16 hd 192 (the CUDA-core kernel: the backward's range 129 to 192)
-    against autograd of the plain version, and the tensor-core kernels at
+    bf16 hd 192 (the width-256 instance: the backward's range 129 to 192)
+    and the tensor-core kernels at
     ragged S under GQA and MQA (hd 256: ragged, GQA, and a short S of 80,
     its dK/dV pass split over the query heads, and a ragged GQA case of
     256 key-tile blocks, which takes no split) against their algorithm in
@@ -4035,16 +4035,12 @@ def check_attention_bwd_small(g, dev):
         plain = torch.autograd.grad(ref.flash_attention(*ins), ins,
                                     do.float())
         tol = ATT_BWD_BF16_TOL
-        if scope == "simt":
-            err, rel = _rel_errs(got, plain, label, tol)
-            note = "against autograd of the plain version"
-        else:
-            want = FA.backward_blocks(q.float(), k.float(), v.float(),
-                                      o.float(), lse, do.float())
-            err, rel = _rel_errs(got, want, label, tol)
-            note = (f"against backward_blocks in f32; against autograd of "
-                    f"the plain version (not held) "
-                    f"{_rel_errs(got, plain, label, 1.0)[1]:.3e}")
+        want = FA.backward_blocks(q.float(), k.float(), v.float(),
+                                  o.float(), lse, do.float())
+        err, rel = _rel_errs(got, want, label, tol)
+        note = (f"against backward_blocks in f32; against autograd of "
+                f"the plain version (not held) "
+                f"{_rel_errs(got, plain, label, 1.0)[1]:.3e}")
         print(f"  {label}: max|diff| / max|plain| {rel:.3e} {note} "
               f"(tolerance {tol:g}), bitwise repeatable")
         recs.append(dict(case=label, max_abs_err=err, max_rel_err=rel,
@@ -5784,9 +5780,9 @@ def check_attention_head_dims(g, dev):
     240 but 64, 128 and 192; hd 256 is Gemma's), B 2, S 1000 (ragged), H
     8, KVH 2, each on the instance of its width: the forward against the
     plain version (compare_bf16), timed beside SDPA and the bound; the
-    backward bitwise repeatable and against backward_blocks in f32 on the
-    tensor cores, or autograd of the plain version on the CUDA cores (hd
-    144 to 176), within ATT_BWD_BF16_TOL, timed beside SDPA's backward and
+    backward bitwise repeatable and against backward_blocks in f32 (the
+    tensor cores at every bf16 head dim; 144 to 176 on the width-256
+    instance), within ATT_BWD_BF16_TOL, timed beside SDPA's backward and
     the bound. Returns records."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
@@ -5810,15 +5806,8 @@ def check_attention_head_dims(g, dev):
         scope = FA.bwd_scope(torch.bfloat16, hd)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"flash_attention_bwd {label}: not bitwise repeatable")
-        if scope == "tc":
-            want = FA.backward_blocks(q.float(), k.float(), v.float(),
-                                      o.float(), lse, do.float())
-            what = "backward_blocks in f32"
-        else:
-            ins = [t.float().requires_grad_() for t in (q, k, v)]
-            want = torch.autograd.grad(ref.flash_attention(*ins), ins,
-                                       do.float())
-            what = "autograd of the plain version"
+        want = FA.backward_blocks(q.float(), k.float(), v.float(),
+                                  o.float(), lse, do.float())
         b_err, b_rel = _rel_errs(got, want, f"flash_attention_bwd {label}",
                                  ATT_BWD_BF16_TOL)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -5842,7 +5831,8 @@ def check_attention_head_dims(g, dev):
             bwd_library_ms=cuda_ms(lambda: torch.autograd.grad(
                 out, (qt, kt, vt), dot, retain_graph=True), 10))
         print(f"  flash_attention_bwd {label} ({scope}): max|diff| / "
-              f"max|plain| {b_rel:.3e} against {what} (tolerance "
+              f"max|plain| {b_rel:.3e} against backward_blocks in f32 "
+              f"(tolerance "
               f"{ATT_BWD_BF16_TOL:g}), bitwise repeatable; forward "
               f"{rec['ms']:.4f} ms (SDPA {rec['library_ms']:.4f}, bound "
               f"{f_ms:.4f}), backward {rec['bwd_ms']:.4f} ms (SDPA "
@@ -7018,13 +7008,13 @@ def phase_16_alone(args, card: str, kind: str, build_s: float) -> int:
 
 # Phase 17: the LM kernels' whole domain, head dims 1 to 512 in f32 and bf16
 # and d_states 1 to 256 at every scan_dtype, forward and backward. The
-# attention's cases at a ragged S under GQA, each head dim on both routes
-# it can take; the scan's at ragged T and di, with h0 and dh_last and
+# attention's cases at a ragged S under GQA, each head dim in both types
+# (bf16 on each tensor-core form: tc, tc8, staged, wide); the scan's at ragged T and di, with h0 and dh_last and
 # several backward segments; then the timed shapes: the forward at a Jamba
 # prefill's (B 4, T 2048, di 8192), the backward at a micro-batch's (B 1,
 # T 4096)
-P17_HEAD_DIMS = (1, 8, 24, 33, 40, 72, 100, 136, 200, 257, 320, 384, 448,
-                 512)
+P17_HEAD_DIMS = (1, 8, 24, 33, 40, 72, 100, 136, 144, 160, 176, 200, 257,
+                 320, 384, 448, 512)
 P17_ATT = dict(B=2, S=1000, H=8, KVH=2)
 # rows a tile of backward_blocks, the backward's plain version, on the card
 P17_PLAIN_BLOCK = 250
@@ -7040,10 +7030,10 @@ P17_ROW_D_STATE = 128
 # takes: (kind, dtype or scan_dtype, head dim or d_state)
 P17_ROWS = {
     "flash_attention_tc8": ("fwd", "bfloat16", 72),
-    "flash_attention_simt_bf16": ("fwd", "bfloat16", 100),
+    "flash_attention_staged": ("fwd", "bfloat16", 100),
     "flash_attention_wide": ("fwd", "bfloat16", 320),
     "flash_attention_bwd_tc8": ("bwd", "bfloat16", 72),
-    "flash_attention_bwd_simt_bf16": ("bwd", "bfloat16", 100),
+    "flash_attention_bwd_staged": ("bwd", "bfloat16", 100),
     "flash_attention_bwd_wide": ("bwd", "bfloat16", 320),
     "selective_scan_grouped": ("scan", "float32", P17_ROW_D_STATE),
     "selective_scan_grouped_bf16": ("scan", "bfloat16", P17_ROW_D_STATE),
@@ -7169,7 +7159,7 @@ def p17_attention(g, dev) -> list:
             g_ms, g_by = bound("flash_attention_bwd", **cfg)
             rec = dict(
                 case=label, hd=hd, dtype=name,
-                form=FA.form(dtype, hd), bwd_form=FA.form(dtype, hd, True),
+                form=FA.form(dtype, hd),
                 max_abs_err=err, bwd_max_abs_err=b_err,
                 bwd_max_rel_err=b_rel,
                 ms=cuda_ms(lambda: FA.flash_attention(q, k, v), 5),
@@ -7334,6 +7324,9 @@ def p17_runs(seed: int, dev):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as SV
     rec, paths, walls = {}, {}, {}
+    runs = ("jamba_ds256_serve", "jamba_ds128_train", "stablelm_hd72_serve",
+            "stablelm_hd320_serve", "stablelm_hd320_train",
+            "whisper_hd81_serve")
     clock = [time.perf_counter()]
 
     def lap(key):
@@ -7372,9 +7365,20 @@ def p17_runs(seed: int, dev):
     rec["whisper_hd81_serve"] = lm_serve(
         "Whisper large-v3, 2 + 2 layers (1,500 frames), head_dim 81, bf16, "
         "prefill and 16 decode steps from the padded cache", media_steps,
-        whisper, 4, 448, 17, seed, dev, ("flash_attention_simt_bf16",))
+        whisper, 4, 448, 17, seed, dev, ("flash_attention_staged",))
     lap("whisper_hd81_serve")
-    for key in rec:
+    rec["readings"] = {
+        "stablelm_hd320_prefill_s": rec["stablelm_hd320_serve"]["prefill_s"],
+        "stablelm_hd320_prefill_warm_s":
+            rec["stablelm_hd320_serve"]["prefill_warm_s"],
+        "stablelm_hd320_train_step_s":
+            rec["stablelm_hd320_train"]["s_per_step_warm"],
+        "whisper_hd81_prefill_s": rec["whisper_hd81_serve"]["prefill_s"],
+        "whisper_hd81_prefill_warm_s":
+            rec["whisper_hd81_serve"]["prefill_warm_s"]}
+    print("  phase 17's readings: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in rec["readings"].items()))
+    for key in runs:
         paths[key] = rec[key]["launches"]
     require_launches("jamba_ds128_train", paths["jamba_ds128_train"],
                      ("flash_attention", "flash_attention_bwd",
@@ -7385,8 +7389,8 @@ def p17_runs(seed: int, dev):
         ("stablelm-1.6b", {"head_dim": 40}, ("flash_attention_tc8",),
          ("flash_attention_tc8", "flash_attention_bwd_tc8")),
         ("whisper-large-v3", {"head_dim": 33},
-         ("flash_attention_simt_bf16",),
-         ("flash_attention_simt_bf16", "flash_attention_bwd_simt_bf16"))))
+         ("flash_attention_staged",),
+         ("flash_attention_staged", "flash_attention_bwd_staged"))))
     paths.update(smoke_paths)
     lap("bf16_smoke")
     for sd, ds in (("bfloat16", 100), ("float16", 129)):
@@ -7599,11 +7603,12 @@ def main() -> int:
 
     # 2. build, then what ptxas reported in the attention's two builds of
     # their head-dim-256 instances (the bf16 forward's and backward's
-    # 64-row blocks on wgmma, the f32 kernels): a spill or a serialized
-    # wgmma (C7512) fails the run. Of the CUDA-core instances, printed: the
-    # widths past 256 (320 to 512, f32 and bf16, forward and backward:
-    # ptxas), the scan's forms at every d_state instance (cuobjdump's
-    # registers and stack of the built libraries)
+    # 64-row blocks on wgmma, the f32 kernels) and of the width-512
+    # tensor-core kernels (namespace wide): a spill or a serialized wgmma
+    # (C7512) fails the run. Printed: the f32 CUDA-core instances past 256
+    # (320 to 512, forward and backward: ptxas), the scan's forms at every
+    # d_state instance (cuobjdump's registers and stack of the built
+    # libraries)
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
@@ -7611,16 +7616,19 @@ def main() -> int:
     print(f"[2] build: {len(_build.SIGNATURES)} kernel libraries in "
           f"{build_s:.1f} s")
     ptxas_hd256 = ptxas_report(ptxas, "Li256E")
+    ptxas_hd256.update(ptxas_report(ptxas, "wide_kernel"))
     for k, v in sorted(ptxas_hd256.items()):
         print(f"  ptxas {k}: {v}")
     for want in ("flash_attention_tc_kernelILi256E", "dq_tc_kernelILi256E",
-                 "dkdv_tc_kernelILi256E"):
+                 "dkdv_tc_kernelILi256E", "flash_attention_wide_kernel",
+                 "dq_wide_kernel", "dkdv_wide_kernel"):
         if not any(want in k for k in ptxas_hd256):
             fail(f"ptxas reported no {want} kernel")
     bad = [k for k, v in ptxas_hd256.items()
            if "C7512" in v or re.search(r"[1-9]\d* bytes spill", v)]
     if bad:
-        fail(f"hd-256 kernels spill or serialize their wgmma: {bad}")
+        fail(f"hd-256 and width-512 kernels spill or serialize their "
+             f"wgmma: {bad}")
     ptxas_new = {}
     for key in ("Li320E", "Li384E", "Li448E", "Li512E"):
         ptxas_new.update(ptxas_report(ptxas, key))

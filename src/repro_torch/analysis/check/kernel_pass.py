@@ -311,10 +311,10 @@ def gate_configs(name: str):
         # f32, and bf16 at hd 256 (the forward's 64-row blocks, the
         # backward's 64-row blocks split over the query heads): Gemma 2B's
         # MQA prefill; bf16 at a head dim below its instance's width (16:
-        # width 64), one the backward runs on the CUDA cores (176), a
-        # multiple of 8 on the tensor cores (40), one on the CUDA cores in
-        # bf16 (33), and the widest (512: 32-row tiles, 16 in the
-        # backward) in both types
+        # width 64), one the backward runs on the width-256 instance (176),
+        # a multiple of 8 (40), one staged (33), and the widest (512: the
+        # width-512 instances' column slices; f32's 32-row tiles, 16 in
+        # the backward) in both types
         return [None, {"dtype": "float32"},
                 {"B": 4, "S": 2048, "H": 8, "KVH": 1, "hd": 256,
                  "dtype": "bfloat16"},

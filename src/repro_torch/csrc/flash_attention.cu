@@ -19,8 +19,8 @@
 // (two products over the causal half) against (2*B*S*H + 2*B*S*KVH)*hd
 // elements moved: hundreds of FLOPs per byte at S in the thousands.
 //
-// Two kernels: the tensor cores for bf16 (namespace tc) and the CUDA cores
-// for f32 and the bf16 head dims the tensor cores lack (namespace simt).
+// bf16 runs on the tensor cores at every head dim 1 to 512 (namespaces tc
+// and wide), f32 on the CUDA cores (namespace simt).
 //
 // bf16 (flash_attention_bf16): the tensor cores. One block per (tile of
 // 128 query rows, head, batch), longest rows first: two consumer
@@ -49,17 +49,22 @@
 // (the q tile's load) and its epilogue overlap nothing. Issuing the next S
 // before the softmax, to overlap a warpgroup's softmax with its own
 // products, made ptxas serialize the wgmma here. Instances of width 64,
-// 128, 192 and 256; every bf16 head dim that is a multiple of 8 up to 256
-// (TC_HEAD_DIMS in kernels/flash_attention.py) runs the least one at or
-// above it (tc_width): a multiple of 8 makes every global stride of the
-// tensor maps a multiple of 16 bytes, as the TMA needs. Its tensor maps'
-// extent is the head dim, so the TMA fills the tiles' columns past it with
-// zeros: they add nothing to S, P.V computes zeros there, and the store
-// skips them (its paired bf16 stores start on even columns of a row whose
-// length is a multiple of 8, so they stay 4-byte aligned). A head dim of
-// 8 thus does the work of 64 (the SMOKE configs' widths; no published
-// config has one under 64 or between the widths). Every other bf16 head
-// dim (not a multiple of 8, or above 256) runs on the CUDA cores, below.
+// 128, 192 and 256; every bf16 head dim up to 256 runs the least one at or
+// above it (tc_width in kernels/flash_attention.py). The tensor maps' row
+// stride ld must be a multiple of 8 elements (every global stride of a
+// map a multiple of 16 bytes, as the TMA needs): at a head dim that is a
+// multiple of 8, ld is the head dim and the kernel reads the caller's
+// tensors; at any other the entry stages q, k and v in buffers ld =
+// ceil8(hd) columns wide, zeros past hd (restride.cuh, in a scratch the
+// wrapper allocates), and narrows o, which the kernel writes ld wide (the
+// launch takes both: the maps' extent and the scale from hd, the row
+// stride from ld). The maps' extent is the head dim, so
+// the TMA fills the tiles' columns past it with zeros: they add nothing
+// to S, P.V computes zeros there, and the store skips the columns past ld
+// (its paired bf16 stores start on even columns of a row whose length is
+// a multiple of 8, so they stay 4-byte aligned). A head dim of 8 thus
+// does the work of 64 (the SMOKE configs' widths; no published config has
+// one under 64 or between the widths).
 //
 // hd 256 (Gemma 2B): a consumer warpgroup's 64 x 256 f32 output would take
 // 128 registers a thread, beside S (32) and the p pair (32), over what
@@ -70,10 +75,26 @@
 // operations against 1.5x at the other head dims. The q tile of 64 rows
 // leaves room for the 3-stage ring of 64-key tiles (230,456 bytes).
 //
-// The CUDA cores (namespace simt): f32 at every head dim 1 to 512, and bf16
-// at those the tensor cores lack, f32 FMAs throughout (a bf16 input is
-// widened at load, p stays f32, o is rounded once at its store: at least as
-// exact as the tensor-core path). One block per (q tile, head, batch), 256
+// Past hd 256 (namespace wide, Gemma's hd 256 taken further): one
+// instance of width 512 for every bf16 head dim 257 to 512, on buffers ld
+// wide as above. Its limits: 227 KB of shared memory a block and a
+// warpgroup's registers, which hold at most 64 x 128 f32 of o beside S
+// and p. So a block has 64 query rows, both warpgroups take all 64 and
+// compute the same S and softmax, and o's 512 columns split over a grid
+// axis of SLICES = 2 column slices and, inside a slice, over the two
+// warpgroups: 128 columns each, an n128 P.V as at hd 256. Each block
+// recomputes S for its slice: 4x the S that the function needs (two
+// slices, two warpgroups), against 2x at hd 256. The q tile, 64 rows x
+// 512, stays in shared memory (64 KB); each ring stage holds a k tile of
+// BKV = 32 keys at every column (S = Q.K^T over the head dim, an n32
+// wgmma) and the v tile of the slice's 256 columns: 48 KB a stage, 3
+// stages, 214,072 bytes. The 64-column chunks that hold none of the first
+// ld columns are neither loaded nor multiplied, and a warpgroup whose
+// columns all lie past ld issues no P.V: hd 320 pays for S over 320
+// columns, not 512. Blocks are numbered longest first (hopper.cuh).
+//
+// The CUDA cores (namespace simt): f32 at every head dim 1 to 512, f32
+// FMAs throughout. One block per (q tile, head, batch), 256
 // threads as 16 x 16; thread (ty, tx) owns query rows ty + 16i. A head dim
 // that is a multiple of 16 up to 256, or of 64 above (SIMT_WIDTHS), runs an
 // EXACT kernel of its own width, whose masks, strides and stores are fixed
@@ -81,8 +102,7 @@
 // others. Any other head dim runs the masked kernel of the
 // least of 32, 64, 128, 256, 384 and 512 at or above it (SIMT_MASKED_WIDTHS),
 // its tiles' columns past hd zero and never stored, the scale from the true
-// hd. EXACT kernels are built only where such a head dim reaches the CUDA
-// cores: f32, and bf16 past 256. A tile is 64 rows up to width 256 and 32
+// hd. A tile is 64 rows up to width 256 and 32
 // above, so that the q, k, v and p tiles fit a block's shared memory at 512
 // (201,088 bytes; 213,760 at 256). The q tile, then each k and v tile, are
 // staged in shared memory (above the 48 KB default, so the entry point
@@ -92,18 +112,18 @@
 // output accumulator (4 or 2 rows x W/16 columns) stay in registers across
 // kv tiles. Tiles wholly above the diagonal are skipped; the p tile goes
 // through shared memory for P.V. It stores one element at a time, so a row
-// may start on any element (an odd bf16 head dim).
+// may start on any element (an odd head dim).
 //
-// Both keep the [S, S] scores out of device memory, the property of the
+// All keep the [S, S] scores out of device memory, the property of the
 // TPU kernel worth keeping.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 #include "hopper.cuh"
+#include "restride.cuh"
 
 namespace {
 
@@ -145,15 +165,9 @@ constexpr size_t smem_bytes() {
 }
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
-// T: the input type, widened to f32 at load; W: the instance's width. The
+// T: the input type (f32); W: the instance's width. The
 // tiles' columns hd .. W - 1 load as zeros and add nothing to the
 // products; the stores skip them. EXACT (hd = W): the kernel of that one
 // head dim, its masks and strides fixed at compile time.
@@ -321,16 +335,14 @@ int launch_kernel(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// a head dim of the width itself runs the EXACT kernel, built where such
-// a head dim reaches the CUDA cores (f32, and bf16 past the tensor cores'
-// 256); any other the masked kernel of a masked width
+// a head dim of the width itself runs the EXACT kernel; any other the
+// masked kernel of a masked width
 template <typename T, int W>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int S, int H, int KVH, int hd, cudaStream_t stream) {
   if (hd == W) {
-    if constexpr (std::is_same<T, float>::value || W > 256)
-      return launch_kernel<T, W, true>(q, k, v, o, lse, B, S, H, KVH, hd,
-                                       stream);
+    return launch_kernel<T, W, true>(q, k, v, o, lse, B, S, H, KVH, hd,
+                                     stream);
   } else if constexpr (masked(W)) {
     return launch_kernel<T, W, false>(q, k, v, o, lse, B, S, H, KVH, hd,
                                       stream);
@@ -726,28 +738,28 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // the instance a bf16 head dim runs on the tensor cores (TC_WIDTHS and
-// tc_width in kernels/flash_attention.py): a multiple of 8 up to 256 (every
-// global stride of its tensor maps then a multiple of 16 bytes) runs the
-// least width at or above it; 0 for any other head dim (route: the CUDA
-// cores)
+// tc_width in kernels/flash_attention.py): the least width at or above it,
+// 512 (namespace wide) past 256; 0 outside 1 to 512
 __host__ __device__ constexpr int width(int hd) {
-  return hd < 1 || hd % 8 != 0 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128
-       : hd <= 192 ? 192 : hd <= 256 ? 256 : 0;
+  return hd < 1 || hd > 512 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128
+       : hd <= 192 ? 192 : hd <= 256 ? 256 : 512;
 }
 
-// HD: the instance's width; hd the head dim, a multiple of 8 in (HD - 64,
-// HD]: the maps' extent, so that the TMA fills the tiles' columns past hd
-// with zeros
+// HD: the instance's width; hd the head dim in (HD - 64, HD]: the maps'
+// extent, so that the TMA fills the tiles' columns past hd with zeros, and
+// the scale's; ld: q's, k's, v's and o's row stride, hd rounded up to a
+// multiple of 8 (the kernel's own hd: it stores o's columns up to ld)
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int S, int H, int KVH, int hd, cudaStream_t stream) {
+           int B, int S, int H, int KVH, int hd, int ld,
+           cudaStream_t stream) {
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   if (width(hd) != HD) return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
   constexpr int ROWS = Layout<HD>::ROWS;
-  if (!make_map(&qm, q, B, S, H, hd, ROWS) ||
-      !make_map(&km, k, B, S, KVH, hd, Layout<HD>::BKV) ||
-      !make_map(&vm, v, B, S, KVH, hd, Layout<HD>::BKV))
+  if (!make_map(&qm, q, B, S, H, hd, ld, ROWS) ||
+      !make_map(&km, k, B, S, KVH, hd, ld, Layout<HD>::BKV) ||
+      !make_map(&vm, v, B, S, KVH, hd, ld, Layout<HD>::BKV))
     return (int)cudaErrorInvalidValue;
   const int smem = Layout<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
@@ -759,21 +771,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
       (float)(std::pow((double)hd, -0.5) * 1.4426950408889634);
   flash_attention_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S,
-      H, KVH, hd, scale_log2);
+      H, KVH, ld, scale_log2);
   return (int)cudaGetLastError();
-}
-
-// head dim -> the instance of its width
-int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
-             int B, int S, int H, int KVH, int hd, cudaStream_t st) {
-  switch (width(hd)) {
-#define TC_CASE(W) \
-  case W:          \
-    return launch<W>(q, k, v, o, lse, B, S, H, KVH, hd, st);
-    TC_CASE(64) TC_CASE(128) TC_CASE(192) TC_CASE(256)
-#undef TC_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // out = {width, query rows a block, shared memory}, or 0 where the head
@@ -793,6 +792,307 @@ inline int geometry(int hd, int* out) {
 }
 
 }  // namespace tc
+
+// ------------------------------------------------- bf16 past hd 256 ----
+
+namespace wide {
+
+using namespace hopper;
+using tc::CHUNK;
+using tc::CONSUMERS;
+using tc::ROW;
+using tc::THREADS;
+
+constexpr int W = 512;                  // the instance's width
+constexpr int ROWS = 64;                // query rows a block, both warpgroups'
+constexpr int BKV = 32;                 // keys a (k, v) tile
+constexpr int SLICES = 2;               // o's column slices, a grid axis
+constexpr int SW = W / SLICES;          // columns a slice
+constexpr int OD = SW / 2;              // o columns a warpgroup
+constexpr int STAGES = 3;               // (k, v) tiles in flight
+constexpr int Q_BYTES = ROWS * W * 2;   // the q tile, every column
+constexpr int K_BYTES = BKV * W * 2;    // a k tile, every column
+constexpr int V_BYTES = BKV * SW * 2;   // a v tile, the slice's columns
+constexpr int K_OFF = Q_BYTES;
+constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+constexpr int BAR_OFF = V_OFF + STAGES * V_BYTES;
+// full[STAGES], empty[STAGES], the q barrier; alignment slack
+constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+static_assert(BYTES <= 232448, "over the block's shared memory");
+
+// One block per (64 query rows, head x slice, batch), numbered longest
+// first. ld: the row stride of q, k, v and o (a multiple of 8); the
+// 64-column chunks at or past ld are neither loaded nor multiplied.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int S, int H, int KVH,
+                            int ld, float scale_log2) {
+  constexpr int NS = BKV / 2;   // score fragment floats per thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t sk = base + K_OFF;
+  const uint32_t sv = base + V_OFF;
+  const uint32_t full = base + BAR_OFF;     // full[s] = full + 8 s
+  const uint32_t empty = full + 8 * STAGES;  // empty[s] = empty + 8 s
+  const uint32_t qbar = empty + 8 * STAGES;
+
+  const int3 blk = longest_first();
+  const int nq = (S + ROWS - 1) / ROWS;
+  const int qt = nq - 1 - blk.x;
+  const int h = blk.y / SLICES;
+  const int sl = blk.y % SLICES;
+  const int b = blk.z;
+  const int kh = h / (H / KVH);
+  const int q0 = qt * ROWS;
+  const int n_kv = (min(q0 + ROWS, S) + BKV - 1) / BKV;
+  // the chunks holding any of the first ld columns: of q and k, and of
+  // the slice's v
+  const int nch = (ld + CHUNK - 1) / CHUNK;
+  const int vch = min(SW / CHUNK, max(0, nch - sl * (SW / CHUNK)));
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, CONSUMERS / 32);   // one arrival per warp
+    }
+    bar_init(qbar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer: the q tile once, then the (k, v) ring
+    if (tid == CONSUMERS) {
+      bar_expect_tx(qbar, nch * ROWS * ROW);
+      for (int c = 0; c < nch; ++c)
+        tma_load_4d(sq + c * ROWS * ROW, &qmap, qbar, c * CHUNK, h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % STAGES;
+        bar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        const uint32_t fb = full + 8 * s;
+        bar_expect_tx(fb, (nch + vch) * BKV * ROW);
+        for (int c = 0; c < nch; ++c)
+          tma_load_4d(sk + s * K_BYTES + c * BKV * ROW, &kmap, fb,
+                      c * CHUNK, kh, j * BKV, b);
+        for (int c = 0; c < vch; ++c)
+          tma_load_4d(sv + s * V_BYTES + c * BKV * ROW, &vmap, fb,
+                      (sl * (SW / CHUNK) + c) * CHUNK, kh, j * BKV, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: both warpgroups own the block's 64 rows; warpgroup wg
+  // holds o's columns col0 .. col0 + OD - 1
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int col0 = sl * SW + wg * OD;
+  const bool live = col0 < ld;                 // any column to store
+  const int r0 = q0 + 16 * warp + lane / 4;    // this thread's rows r0, r1
+  const int r1 = r0 + 8;
+
+  float acc[OD / 2];
+#pragma unroll
+  for (int i = 0; i < OD / 2; ++i) acc[i] = 0.f;
+  float m0 = NEG, m1 = NEG;   // running max of the scaled scores (log2 units)
+  float l0 = 0.f, l1 = 0.f;   // this thread's share of the running sums
+  float sc[NS];               // S of a tile
+#pragma unroll
+  for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+  uint32_t ph[NS / 2], pl[NS / 2];   // bf16 hi and lo A fragments of p
+
+  // S = Q.K^T over the live chunks, 4 k16 steps a chunk
+  auto issue_s = [&](int j) {
+    const uint32_t kt = sk + (j % STAGES) * K_BYTES;
+    for (int c = 0; c < nch; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_ss_n32(sc, desc(sq + c * ROWS * ROW + kk * 32, 16, 1024),
+                   desc(kt + c * BKV * ROW + kk * 32, 16, 1024),
+                   c > 0 || kk > 0);
+    }
+  };
+  // the warpgroup's columns of V start at chunk wg OD / CHUNK of the
+  // slice's tile
+  auto issue_pv = [&](int j) {
+    const uint32_t vt = sv + (j % STAGES) * V_BYTES +
+                        wg * (OD / CHUNK) * BKV * ROW;
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      mma_rs_n128(acc, ph + 4 * kk, desc(vt + kk * 16 * ROW, BKV * ROW, 1024));
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      mma_rs_n128(acc, pl + 4 * kk, desc(vt + kk * 16 * ROW, BKV * ROW, 1024));
+  };
+  auto settle = [&]() {
+#pragma unroll
+    for (int i = 0; i < OD / 2; ++i) pin(acc[i]);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) pin(sc[i]);
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      pin(ph[i]);
+      pin(pl[i]);
+    }
+  };
+  // the online softmax of tile j, as namespace tc's
+  auto softmax = [&](int j) {
+    const int k0 = j * BKV;
+    if (k0 + BKV - 1 > q0 || k0 + BKV > S) {   // the diagonal, or past S
+#pragma unroll
+      for (int c = 0; c < BKV / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * c + 2 * (lane % 4) + e;
+          if (kpos > r0 || kpos >= S) sc[4 * c + e] = NEG;
+          if (kpos > r1 || kpos >= S) sc[4 * c + 2 + e] = NEG;
+        }
+      }
+    }
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int c = 0; c < BKV / 8; ++c) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * c], sc[4 * c + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * c + 2], sc[4 * c + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = fmaxf(m0, mx0 * scale_log2);
+    mx1 = fmaxf(m1, mx1 * scale_log2);
+    const float a0 = exp2_ftz(m0 - mx0);
+    const float a1 = exp2_ftz(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < BKV / 8; ++c) {
+      const float p00 = exp2_ftz(fmaf(sc[4 * c], scale_log2, -m0));
+      const float p01 = exp2_ftz(fmaf(sc[4 * c + 1], scale_log2, -m0));
+      const float p10 = exp2_ftz(fmaf(sc[4 * c + 2], scale_log2, -m1));
+      const float p11 = exp2_ftz(fmaf(sc[4 * c + 3], scale_log2, -m1));
+      rs0 += p00 + p01;
+      rs1 += p10 + p11;
+      const uint32_t h0 = bf16x2(p00, p01);
+      const uint32_t h1 = bf16x2(p10, p11);
+      ph[2 * c] = h0;
+      ph[2 * c + 1] = h1;
+      pl[2 * c] = bf16x2(p00 - bf16_lo(h0), p01 - bf16_hi(h0));
+      pl[2 * c + 1] = bf16x2(p10 - bf16_lo(h1), p11 - bf16_hi(h1));
+    }
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+    if (__any_sync(0xffffffffu, a0 != 1.f || a1 != 1.f)) {
+#pragma unroll
+      for (int c = 0; c < OD / 8; ++c) {
+        acc[4 * c] *= a0;
+        acc[4 * c + 1] *= a0;
+        acc[4 * c + 2] *= a1;
+        acc[4 * c + 3] *= a1;
+      }
+    }
+  };
+
+  bar_wait(qbar, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    bar_wait(full + 8 * (j % STAGES), (j / STAGES) & 1);
+    wg_fence();
+    issue_s(j);
+    wg_commit();
+    wg_wait();
+    settle();
+    softmax(j);
+    if (live) {
+      wg_fence();
+      issue_pv(j);
+      wg_commit();
+      wg_wait();
+      settle();
+    }
+    if (lane == 0) bar_arrive(empty + 8 * (j % STAGES));
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // every block of the row tile holds the same rows: slice 0's first
+  // warpgroup writes the log-sum-exp
+  if (lse != nullptr && lane % 4 == 0 && sl == 0 && wg == 0) {
+    constexpr float LN2 = 0.6931471805599453f;
+    float* lrow = lse + ((size_t)b * H + h) * S;
+    if (r0 < S) lrow[r0] = (m0 + log2f(l0)) * LN2;
+    if (r1 < S) lrow[r1] = (m1 + log2f(l1)) * LN2;
+  }
+  if (!live) return;
+  const float d0 = 1.f / fmaxf(l0, 1e-30f);
+  const float d1 = 1.f / fmaxf(l1, 1e-30f);
+  const size_t row_stride = (size_t)H * ld;
+  __nv_bfloat16* o0 =
+      o + ((size_t)b * S + r0) * row_stride + (size_t)h * ld + col0;
+  __nv_bfloat16* o1 = o0 + 8 * row_stride;
+#pragma unroll
+  for (int c = 0; c < OD / 8; ++c) {
+    const int col = 8 * c + 2 * (lane % 4);
+    if (col0 + col >= ld) continue;
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
+          __floats2bfloat162_rn(acc[4 * c] * d0, acc[4 * c + 1] * d0);
+    if (r1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
+          __floats2bfloat162_rn(acc[4 * c + 2] * d1, acc[4 * c + 3] * d1);
+  }
+}
+
+// hd in 257 .. 512: the maps' extent and the scale's; ld its row stride
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int S, int H, int KVH, int hd, int ld,
+           cudaStream_t stream) {
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  if (tc::width(hd) != W) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, B, S, H, hd, ld, ROWS) ||
+      !make_map(&km, k, B, S, KVH, hd, ld, BKV) ||
+      !make_map(&vm, v, B, S, KVH, hd, ld, BKV))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + ROWS - 1) / ROWS, H * SLICES, B);
+  const float scale_log2 =
+      (float)(std::pow((double)hd, -0.5) * 1.4426950408889634);
+  flash_attention_wide_kernel<<<grid, THREADS, BYTES, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S,
+      H, KVH, ld, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide
+
+// a bf16 head dim -> the tensor-core instance of its width
+int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int B, int S, int H, int KVH, int hd, int ld,
+                  cudaStream_t st) {
+  if (ld % 8 != 0 || ld < hd || ld >= hd + 8) return (int)cudaErrorInvalidValue;
+  switch (tc::width(hd)) {
+#define TC_CASE(W) \
+  case W:          \
+    return tc::launch<W>(q, k, v, o, lse, B, S, H, KVH, hd, ld, st);
+    TC_CASE(64) TC_CASE(128) TC_CASE(192) TC_CASE(256)
+#undef TC_CASE
+    case wide::W:
+      return wide::launch(q, k, v, o, lse, B, S, H, KVH, hd, ld, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 int prologue(int B, int S, int H, int KVH, int device) {
   cudaError_t err = cudaSetDevice(device);
@@ -814,19 +1114,37 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                (cudaStream_t)stream);
 }
 
-// bf16: the tensor cores where the head dim has an instance there (a
-// multiple of 8 up to 256), else the CUDA cores
+// bf16: the tensor cores at every head dim 1 to 512. stage: NULL where hd
+// is a multiple of 8, else bf16 scratch for q, k, v and o staged ld =
+// ceil8(hd) columns wide, (2 B S H + 2 B S KVH) ld elements
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, void* lse, int B,
-                                    int S, int H, int KVH, int hd, int device,
+                                    const void* v, void* o, void* lse,
+                                    void* stage, int B, int S, int H,
+                                    int KVH, int hd, int device,
                                     void* stream) {
-  const int err = prologue(B, S, H, KVH, device);
+  int err = prologue(B, S, H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
-  if (tc::width(hd) != 0)
-    return tc::dispatch(q, k, v, o, lse, B, S, H, KVH, hd,
-                        (cudaStream_t)stream);
-  return simt::dispatch<__nv_bfloat16>(q, k, v, o, lse, B, S, H, KVH, hd,
-                                       (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int ld = (hd + 7) / 8 * 8;
+  if (ld == hd)
+    return dispatch_bf16(q, k, v, o, lse, B, S, H, KVH, hd, hd, st);
+  if (stage == nullptr) return (int)cudaErrorInvalidValue;
+  const long long nq = (long long)B * S * H, nk = (long long)B * S * KVH;
+  uint16_t* w = static_cast<uint16_t*>(stage);
+  uint16_t* qs = w;
+  uint16_t* ks = qs + nq * ld;
+  uint16_t* vs = ks + nk * ld;
+  uint16_t* os = vs + nk * ld;
+  const void* in[3] = {q, k, v};
+  void* staged[3] = {qs, ks, vs};
+  const long long rows[3] = {nq, nk, nk};
+  if ((err = restride::copy(3, in, staged, rows, hd, ld, st)) != 0 ||
+      (err = dispatch_bf16(qs, ks, vs, os, lse, B, S, H, KVH, hd, ld, st)) !=
+          0)
+    return err;
+  const void* out[1] = {os};
+  void* narrowed[1] = {o};
+  return restride::copy(1, out, narrowed, rows, ld, hd, st);
 }
 
 // the launch a head dim gets, for kernels/flash_attention.geometry to be
@@ -834,10 +1152,16 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 // instance's width, query rows a block, shared memory a block}; bf16 is 0
 // for f32, 1 for bf16. cudaErrorInvalidValue past the domain (1 to 512).
 extern "C" int flash_attention_geometry(int bf16, int hd, int* out) {
-  if (bf16 && tc::geometry(hd, out + 1)) {
-    out[0] = 1;
+  if (!bf16) {
+    out[0] = 0;
+    return simt::geometry(hd, out + 1) ? 0 : (int)cudaErrorInvalidValue;
+  }
+  out[0] = 1;
+  if (tc::width(hd) == wide::W) {
+    out[1] = wide::W;
+    out[2] = wide::ROWS;
+    out[3] = wide::BYTES;
     return 0;
   }
-  out[0] = 0;
-  return simt::geometry(hd, out + 1) ? 0 : (int)cudaErrorInvalidValue;
+  return tc::geometry(hd, out + 1) ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -23,19 +23,21 @@
 // (Q.K^T again, dO.V^T, P^T.dO, dS^T.Q, dS.K): 5 * 2 * B*H*hd*S^2/2 FLOPs
 // against (4 B S H + 4 B S KVH) hd elements and the lse moved.
 //
-// Three kernels a call (four at hd 256 with a head split), no atomics, so
+// Three kernels a call (four with a head split), no atomics, so
 // the gradients are the same bits on every run: delta_kernel (one warp per
 // (b, row, head), Delta = dO . o summed by a shuffle tree), then a dQ
 // kernel, then a dK/dV kernel, both of which read Delta. Dispatch by input
-// type and head dim (not a fallback): bf16 on the tensor cores (namespace
-// tc) at every multiple of 8 up to 256 but 129 to 192, each on the
-// instance of its width (64, 128 or 256, as the forward's: the TMA's
-// zeros past the head dim add nothing to any product, and the stores skip
-// those columns; a multiple of 8 keeps the tensor maps' strides and the
-// paired bf16 stores aligned), every other bf16 head dim (129 to 192, not
-// a multiple of 8, above 256) and f32 at every head dim 1 to 512 on the
-// CUDA cores (namespace simt). No config of either package has a head dim
-// in 129 to 192, and the tensor cores have no instance of width 192.
+// type and head dim (not a fallback): bf16 on the tensor cores at every
+// head dim 1 to 512, each on the instance of its width (64, 128 or 256,
+// namespace tc, or 512, namespace wide; 129 to 192 on the width-256 one:
+// the TMA's zeros past the head dim add nothing to any product, and the
+// stores skip those columns), f32 at every head dim on the CUDA cores
+// (namespace simt). The tensor maps' row stride ld is a multiple of 8
+// (the TMA's 16-byte strides, the paired bf16 stores' alignment): at any
+// other head dim the entry stages q, k, v, o and dO in buffers ld =
+// ceil8(hd) columns wide, zeros past hd (restride.cuh, in a scratch the
+// wrapper allocates), and narrows dQ, dK and dV, which the kernels write
+// ld wide; the maps' extent and the scale come from hd.
 //
 // Precision contract of the tensor-core kernels:
 //   - Exact products. Q, K, V and dO enter wgmma as the bf16 values they
@@ -93,7 +95,8 @@
 // on the card (PERF.md §6). The dQ kernel fits in 168 registers
 // and gained nothing from the same change.
 //
-// tc at hd 256 (Gemma 2B; DqLayout::SPLIT and KvLayout::SPLIT), the
+// tc at hd 256 (Gemma 2B, and 129 to 255; DqLayout::SPLIT and
+// KvLayout::SPLIT), the
 // forward's answer to the same wall: a warpgroup's hd-wide f32
 // accumulators (128 registers a thread for dQ, 256 for dK and dV) do not
 // fit beside the score fragments. So a block takes SPLIT_ROWS = 64 rows,
@@ -141,22 +144,40 @@
 // turn; the other warpgroup's products overlap that work. This is the
 // simple tensor-core design.
 //
+// wide, hd 257 to 512 (one instance of width 512, the hd-256 design taken
+// further): the q and dO tiles of a dQ block, or the k and v tiles of a
+// dK/dV block, 64 rows x 512 each, stay in shared memory (128 KB), since S
+// and dP run over every column. A warpgroup's registers hold 64 x 128
+// f32 of a gradient beside the score fragments, so each gradient's 512
+// columns split over a grid axis of SLICES = 2 column slices and, inside
+// a slice, over the two warpgroups, which both compute the block's S and
+// dP (the same bits) and each hold 128 columns (dK's and dV's: 128 + 128
+// accumulator registers, as at hd 256). Each slice recomputes S and dP.
+// The ring's tiles are TILE = 16 rows at every column (keys for the dQ
+// pass, queries for the dK/dV pass): 32 KB a stage, 3 stages, 230,456
+// bytes. S and dP (S^T and dP^T) are n16 wgmma over the 64-column chunks
+// that hold any of the first ld columns; the others are neither loaded
+// nor multiplied, and a warpgroup whose columns all lie past ld issues no
+// gradient product. The dK/dV pass splits the group's query heads as at
+// hd 256 (bwd_splits, the workspace, sum_splits_kernel). The products'
+// count: S and dP 4x each (two slices, two warpgroups), the hi/lo pairs
+// of the other three 2x: 14 where the bound counts 5, as at hd 256, on
+// 16-row tiles.
+//
 // simt (CUDA cores, f32 FMAs): dq_kernel, one block per (query tile, head,
 // batch), and dkdv_kernel, one block per (key tile, kv head, batch), the
 // group's query heads walked in order; 256 threads as 16 x 16. The
 // instances are the forward's (SIMT_WIDTHS, SIMT_MASKED_WIDTHS): a multiple
 // of 16 up to 256, or of 64 above, runs an EXACT pair of kernels of its own
-// width, its masks and strides fixed at compile time (built for f32, and for
-// bf16 at 144 to 192 and past 256, where such a head dim reaches the CUDA
-// cores); any other head dim the masked pair of the least of 32, 64, 128,
-// 256, 384 and 512 at or above it, the tiles' columns past hd zero. The
+// width, its masks and strides fixed at compile time; any other head dim
+// the masked pair of the least of 32, 64, 128, 256, 384 and 512 at or
+// above it, the tiles' columns past hd zero. The
 // stores are one element each (a row may start anywhere), the scale from
 // the true hd. Tiles of 64 rows up to width 128, 32 up to
 // 384 and 16 above, so that the four [rows][W + 1] f32 tiles fit a block's
 // shared memory (133,632 bytes a dK/dV block at 512, 205,824 at 384); the
 // score tile is split 4 x 4, 2 x 2 or 1 x 1 a thread. P and dS go through
-// shared memory. Every product and sum is f32; a bf16 input is widened at
-// load and a bf16 result is rounded once, at its store. Keys and queries at
+// shared memory. Every product and sum is f32. Keys and queries at
 // or past S load as zeros and are masked; a tile wholly above the diagonal
 // is never visited.
 #include <cuda_bf16.h>
@@ -164,9 +185,9 @@
 
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 #include "hopper.cuh"
+#include "restride.cuh"
 
 namespace {
 
@@ -180,9 +201,6 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // the instance a head dim runs (simt_width in kernels/flash_attention.py):
 // its own width where it is a multiple of 16 up to 256 or of 64 above (the
@@ -219,7 +237,8 @@ struct Tile {
 };
 
 // Delta[b, h, i] = dO[b, i, h] . o[b, i, h]: one warp a row, rows in the
-// [B, S, H] order of o
+// [B, S, H] order of o, hd their stride (f32, and bf16 for the tensor-core
+// kernels, at their ld: the zeros past the head dim add nothing)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -554,20 +573,16 @@ int launch_kernels(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// a head dim of the width itself runs the EXACT kernels, built where such
-// a head dim reaches the CUDA cores (f32; bf16 at 144 to 192, which the
-// tensor cores lack, and past 256); any other the masked kernels of a
-// masked width
+// a head dim of the width itself runs the EXACT kernels; any other the
+// masked kernels of a masked width
 template <typename T, int W>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* lse, const void* dout, void* dq, void* dk, void* dv,
            void* delta, int B, int S, int H, int KVH, int hd,
            cudaStream_t st) {
   if (hd == W) {
-    if constexpr (std::is_same<T, float>::value || (W > 128 && W <= 192) ||
-                  W > 256)
-      return launch_kernels<T, W, true>(q, k, v, o, lse, dout, dq, dk, dv,
-                                        delta, B, S, H, KVH, hd, st);
+    return launch_kernels<T, W, true>(q, k, v, o, lse, dout, dq, dk, dv,
+                                      delta, B, S, H, KVH, hd, st);
   } else if constexpr (masked(W)) {
     return launch_kernels<T, W, false>(q, k, v, o, lse, dout, dq, dk, dv,
                                        delta, B, S, H, KVH, hd, st);
@@ -688,19 +703,6 @@ struct KvLayout {
   static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
   static_assert(BYTES <= 232448, "over the block's shared memory");
 };
-
-// (tile, y, z) of this block of a (tiles, y, z) grid, numbered longest
-// first: the linear block index walks every (y, z) of tile 0 before any of
-// tile 1, so that the blocks with the most work start first (blocks start
-// in about the order of their linear index). The SPLIT kernels' order.
-__device__ __forceinline__ int3 longest_first() {
-  const unsigned yz = gridDim.y * gridDim.z;
-  const unsigned lin =
-      (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  const unsigned r = lin % yz;
-  return make_int3((int)(lin / yz), (int)(r % gridDim.y),
-                   (int)(r / gridDim.y));
-}
 
 // D (+)= A.B^T, both K-major in shared memory, N columns
 template <int N>
@@ -1201,25 +1203,27 @@ sum_splits_kernel(const float* __restrict__ work,
 }
 
 // the instance a bf16 head dim runs on the tensor cores (BWD_TC_WIDTHS and
-// tc_width in kernels/flash_attention.py): a multiple of 8 up to 128 or in
-// 193 to 256 runs the least width at or above it; 0 for any other head dim
-// (route: the CUDA cores; no tensor-core instance of width 192)
+// tc_width in kernels/flash_attention.py): the least width at or above it
+// (no instance of width 192: 129 to 192 run 256), 512 (namespace wide)
+// past 256; 0 outside 1 to 512
 __host__ __device__ constexpr int width(int hd) {
-  return hd < 1 || hd % 8 != 0 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128
-       : hd <= 192 ? 0 : hd <= 256 ? 256 : 0;
+  return hd < 1 || hd > 512 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128
+       : hd <= 256 ? 256 : 512;
 }
 
-// HD: the instance's width (TC_WIDTHS in kernels/flash_attention.py), hd
-// the head dim, a multiple of 8 in (HD - 64, HD]: the maps' extent, so
-// that the TMA fills the tiles' columns past hd with zeros, which add
-// nothing to any product. nsplit: the query-head splits of the dK/dV
-// pass, 1 up to width 128; above, a divisor of the group, with work its
-// [2][nsplit][B, S, KVH, hd] f32 workspace where nsplit > 1
+// HD: the instance's width (BWD_TC_WIDTHS in kernels/flash_attention.py),
+// hd the head dim: the maps' extent, so that the TMA fills the tiles'
+// columns past hd with zeros, which add nothing to any product, and the
+// scale's; ld: the operands' and gradients' row stride, hd rounded up to
+// a multiple of 8 (the kernels' own hd: they store columns up to ld).
+// nsplit: the query-head splits of the dK/dV pass, 1 up to width 128;
+// above, a divisor of the group, with work its [2][nsplit][B, S, KVH, ld]
+// f32 workspace where nsplit > 1
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* lse, const void* dout, void* dq, void* dk, void* dv,
            void* delta, void* work, int B, int S, int H, int KVH, int hd,
-           int nsplit, cudaStream_t st) {
+           int ld, int nsplit, cudaStream_t st) {
   using D = DqLayout<HD>;
   using K = KvLayout<HD>;
   if (nsplit < 1 || (H / KVH) % nsplit != 0 || (!K::SPLIT && nsplit != 1) ||
@@ -1227,14 +1231,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     return (int)cudaErrorInvalidValue;
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap qd, od, kd, vd, qk, ok, kk, vk;
-  if (!make_map(&qd, q, B, S, H, hd, D::BQ) ||
-      !make_map(&od, dout, B, S, H, hd, D::BQ) ||
-      !make_map(&kd, k, B, S, KVH, hd, D::BKV) ||
-      !make_map(&vd, v, B, S, KVH, hd, D::BKV) ||
-      !make_map(&qk, q, B, S, H, hd, K::BQ) ||
-      !make_map(&ok, dout, B, S, H, hd, K::BQ) ||
-      !make_map(&kk, k, B, S, KVH, hd, K::BK) ||
-      !make_map(&vk, v, B, S, KVH, hd, K::BK))
+  if (!make_map(&qd, q, B, S, H, hd, ld, D::BQ) ||
+      !make_map(&od, dout, B, S, H, hd, ld, D::BQ) ||
+      !make_map(&kd, k, B, S, KVH, hd, ld, D::BKV) ||
+      !make_map(&vd, v, B, S, KVH, hd, ld, D::BKV) ||
+      !make_map(&qk, q, B, S, H, hd, ld, K::BQ) ||
+      !make_map(&ok, dout, B, S, H, hd, ld, K::BQ) ||
+      !make_map(&kk, k, B, S, KVH, hd, ld, K::BK) ||
+      !make_map(&vk, v, B, S, KVH, hd, ld, K::BK))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       dq_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1247,14 +1251,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const float* lp = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if ((err = (cudaError_t)simt::launch_delta<__nv_bfloat16>(
-           o, dout, dl, B, S, H, hd, st)) != cudaSuccess)
+           o, dout, dl, B, S, H, ld, st)) != cudaSuccess)
     return (int)err;
   const double scale = std::pow((double)hd, -0.5);
   const float sc = (float)scale, sc_log2 = (float)(scale * 1.4426950408889634);
   dq_tc_kernel<HD><<<dim3((S + D::BQ - 1) / D::BQ, H, B), D::NTHREADS,
                      D::BYTES, st>>>(qd, od, kd, vd, lp, dl,
                                      static_cast<__nv_bfloat16*>(dq), S, H,
-                                     KVH, hd, sc, sc_log2);
+                                     KVH, ld, sc, sc_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(dk);
@@ -1262,11 +1266,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   float* wp = static_cast<float*>(work);
   dkdv_tc_kernel<HD><<<dim3((S + K::BK - 1) / K::BK, KVH * nsplit, B),
                        KV_THREADS, K::BYTES, st>>>(
-      qk, ok, kk, vk, lp, dl, dkp, dvp, wp, S, H, KVH, nsplit, hd, sc,
+      qk, ok, kk, vk, lp, dl, dkp, dvp, wp, S, H, KVH, nsplit, ld, sc,
       sc_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
-  const long long n4 = (long long)B * S * KVH * hd / 4;
+  const long long n4 = (long long)B * S * KVH * ld / 4;
   sum_splits_kernel<<<dim3((unsigned)((n4 + 255) / 256), 2), 256, 0, st>>>(
       wp, dkp, dvp, n4, nsplit);
   return (int)cudaGetLastError();
@@ -1289,6 +1293,517 @@ inline int geometry(int hd, int* out) {
 }
 
 }  // namespace tc
+
+// ------------------------------------------------ bf16 past hd 256 ----
+
+namespace wide {
+
+using namespace hopper;
+using tc::CHUNK;
+using tc::CONSUMER_REGS;
+using tc::CONSUMERS;
+using tc::KV_THREADS;
+using tc::LOG2E;
+using tc::PRODUCER_REGS;
+using tc::ROW;
+
+constexpr int W = 512;                // the instance's width
+constexpr int ROWS = 64;              // a dQ block's query rows, a dK/dV
+                                      // block's key rows: both warpgroups'
+constexpr int TILE = 16;              // rows a ring tile: keys (dQ pass),
+                                      // queries (dK/dV pass)
+constexpr int SLICES = 2;             // the gradients' column slices
+constexpr int SW = W / SLICES;        // columns a slice
+constexpr int GD = SW / 2;            // gradient columns a warpgroup
+constexpr int STAGES = 3;             // ring tiles in flight
+constexpr int RES_BYTES = ROWS * W * 2;   // a resident tile, every column
+constexpr int T_BYTES = TILE * W * 2;     // a ring tile, every column
+constexpr int B_OFF = RES_BYTES;          // the second resident tile
+constexpr int R0_OFF = 2 * RES_BYTES;     // the ring's first tiles
+constexpr int R1_OFF = R0_OFF + STAGES * T_BYTES;  // and its second
+constexpr int BAR_OFF = R1_OFF + STAGES * T_BYTES;
+// full[STAGES], empty[STAGES], the resident tiles' barrier; alignment
+// slack
+constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+static_assert(BYTES <= 232448, "over the block's shared memory");
+
+// D = X.Y^T over the first nch 64-column chunks: X the 64 rows at a (a
+// chunk of ROWS rows a chunk), Y the TILE rows at b; the first step
+// overwrites D
+__device__ __forceinline__ void mma_chunks(float (&d)[TILE / 2], uint32_t a,
+                                           uint32_t b, int nch) {
+  for (int c = 0; c < nch; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_ss_n16(d, desc(a + c * ROWS * ROW + kk * 32, 16, 1024),
+                 desc(b + c * TILE * ROW + kk * 32, 16, 1024),
+                 c > 0 || kk > 0);
+  }
+}
+
+// One block per (64 query rows, head x slice, batch), numbered longest
+// first; warpgroup wg holds dQ's columns sl SW + wg GD .. + GD - 1. ld: the
+// row stride (a multiple of 8).
+__global__ void __launch_bounds__(KV_THREADS, 1)
+dq_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap omap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dq, int S, int H, int KVH, int ld,
+               float scale, float scale_log2) {
+  constexpr int NS = TILE / 2;   // score fragment floats per thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t sdo = base + B_OFF;
+  const uint32_t sk = base + R0_OFF;
+  const uint32_t sv = base + R1_OFF;
+  const uint32_t full = base + BAR_OFF;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t qbar = empty + 8 * STAGES;
+
+  const int3 blk = longest_first();
+  const int nq = (S + ROWS - 1) / ROWS;
+  const int qt = nq - 1 - blk.x;
+  const int h = blk.y / SLICES;
+  const int sl = blk.y % SLICES;
+  const int b = blk.z;
+  const int kh = h / (H / KVH);
+  const int q0 = qt * ROWS;
+  const int n_kv = (min(q0 + ROWS, S) + TILE - 1) / TILE;
+  const int nch = (ld + CHUNK - 1) / CHUNK;   // chunks holding columns < ld
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, CONSUMERS / 32);   // one arrival per warp
+    }
+    bar_init(qbar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer: the q and dO tiles once, then the (k, v) ring
+    regs_dec<PRODUCER_REGS>();
+    if (tid == CONSUMERS) {
+      bar_expect_tx(qbar, 2 * nch * ROWS * ROW);
+      for (int c = 0; c < nch; ++c) {
+        tma_load_4d(sq + c * ROWS * ROW, &qmap, qbar, c * CHUNK, h, q0, b);
+        tma_load_4d(sdo + c * ROWS * ROW, &omap, qbar, c * CHUNK, h, q0, b);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % STAGES;
+        bar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        const uint32_t fb = full + 8 * s;
+        bar_expect_tx(fb, 2 * nch * TILE * ROW);
+        for (int c = 0; c < nch; ++c) {
+          const uint32_t off = s * T_BYTES + c * TILE * ROW;
+          tma_load_4d(sk + off, &kmap, fb, c * CHUNK, kh, j * TILE, b);
+          tma_load_4d(sv + off, &vmap, fb, c * CHUNK, kh, j * TILE, b);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<CONSUMER_REGS>();
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int col0 = sl * SW + wg * GD;
+  const bool live = col0 < ld;                 // any column to store
+  const int r0 = q0 + 16 * warp + lane / 4;
+  const int r1 = r0 + 8;
+  const float* lrow = lse + ((size_t)b * H + h) * S;
+  const float* drow = delta + ((size_t)b * H + h) * S;
+  const float l0 = r0 < S ? lrow[r0] * LOG2E : 0.f;
+  const float l1 = r1 < S ? lrow[r1] * LOG2E : 0.f;
+  const float e0 = r0 < S ? drow[r0] : 0.f;
+  const float e1 = r1 < S ? drow[r1] : 0.f;
+
+  float acc[GD / 2];
+#pragma unroll
+  for (int i = 0; i < GD / 2; ++i) acc[i] = 0.f;
+  float sc[NS], dp[NS];
+  uint32_t dh[NS / 2], dl[NS / 2];   // dS as bf16 hi and lo A fragments
+  auto settle_s = [&]() {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      pin(sc[i]);
+      pin(dp[i]);
+    }
+  };
+  auto settle_dq = [&]() {
+#pragma unroll
+    for (int i = 0; i < GD / 2; ++i) pin(acc[i]);
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      pin(dh[i]);
+      pin(dl[i]);
+    }
+  };
+
+  bar_wait(qbar, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    bar_wait(full + 8 * (j % STAGES), (j / STAGES) & 1);
+    const uint32_t kt = sk + (j % STAGES) * T_BYTES;
+    const uint32_t vt = sv + (j % STAGES) * T_BYTES;
+    wg_fence();
+    mma_chunks(sc, sq, kt, nch);
+    mma_chunks(dp, sdo, vt, nch);
+    wg_commit();
+    wg_wait();
+    settle_s();
+    const int k0 = j * TILE;
+    const bool edge = k0 + TILE - 1 > q0 || k0 + TILE > S;
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool top = e < 2;
+        float p = exp2_ftz(fmaf(sc[4 * c + e], scale_log2, top ? -l0 : -l1));
+        if (edge) {
+          const int kpos = k0 + 8 * c + 2 * (lane % 4) + (e & 1);
+          if (kpos > (top ? r0 : r1) || kpos >= S) p = 0.f;
+        }
+        ds[e] = p * (dp[4 * c + e] - (top ? e0 : e1));
+      }
+      tc::split(ds[0], ds[1], dh[2 * c], dl[2 * c]);
+      tc::split(ds[2], ds[3], dh[2 * c + 1], dl[2 * c + 1]);
+    }
+    if (live) {
+      wg_fence();
+      tc::mma_split<GD, TILE>(acc, dh, dl, kt + (col0 / CHUNK) * TILE * ROW);
+      wg_commit();
+      wg_wait();
+      settle_dq();
+    }
+    if (lane == 0) bar_arrive(empty + 8 * (j % STAGES));
+  }
+
+  if (!live) return;
+  const size_t row_stride = (size_t)H * ld;
+  __nv_bfloat16* o0 =
+      dq + ((size_t)b * S + r0) * row_stride + (size_t)h * ld + col0;
+  __nv_bfloat16* o1 = o0 + 8 * row_stride;
+#pragma unroll
+  for (int c = 0; c < GD / 8; ++c) {
+    const int col = 8 * c + 2 * (lane % 4);
+    if (col0 + col >= ld) continue;
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
+          __floats2bfloat162_rn(acc[4 * c] * scale, acc[4 * c + 1] * scale);
+    if (r1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + col) = __floats2bfloat162_rn(
+          acc[4 * c + 2] * scale, acc[4 * c + 3] * scale);
+  }
+}
+
+// One block per (64 key rows, kv head x slice x split, batch), numbered
+// longest first (key tile 0, which sees the most queries, first); grid y
+// is (kv head SLICES + slice) nsplit + split. work as in tc.
+__global__ void __launch_bounds__(KV_THREADS, 1)
+dkdv_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap omap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, float* __restrict__ work,
+                 int S, int H, int KVH, int nsplit, int ld, float scale,
+                 float scale_log2) {
+  constexpr int NS = TILE / 2;   // S^T fragment floats per thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = base;
+  const uint32_t sv = base + B_OFF;
+  const uint32_t sq = base + R0_OFF;
+  const uint32_t sdo = base + R1_OFF;
+  const uint32_t full = base + BAR_OFF;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t kbar = empty + 8 * STAGES;
+
+  const int3 blk = longest_first();
+  const int kt = blk.x;
+  const int part = blk.y % nsplit;
+  const int sl = (blk.y / nsplit) % SLICES;
+  const int kh = blk.y / (nsplit * SLICES);
+  const int b = blk.z;
+  const int G = H / KVH;
+  const int GS = G / nsplit;
+  const int h0 = kh * G + part * GS;   // the block's first query head
+  const int k0 = kt * ROWS;
+  const int nq = (S + TILE - 1) / TILE;
+  const int qt0 = k0 / TILE;     // the first query tile with a row >= k0
+  const int ntq = nq - qt0;      // query tiles a head
+  const int n_tiles = GS * ntq;
+  const int nch = (ld + CHUNK - 1) / CHUNK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, CONSUMERS / 32);
+    }
+    bar_init(kbar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer: the k and v tiles once, then the (q, dO) ring, the block's
+    // heads in order and each head's query tiles from the diagonal on
+    regs_dec<PRODUCER_REGS>();
+    if (tid == CONSUMERS) {
+      bar_expect_tx(kbar, 2 * nch * ROWS * ROW);
+      for (int c = 0; c < nch; ++c) {
+        tma_load_4d(sk + c * ROWS * ROW, &kmap, kbar, c * CHUNK, kh, k0, b);
+        tma_load_4d(sv + c * ROWS * ROW, &vmap, kbar, c * CHUNK, kh, k0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int h = h0 + j / ntq;
+        const int q0 = (qt0 + j % ntq) * TILE;
+        const int s = j % STAGES;
+        bar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        const uint32_t fb = full + 8 * s;
+        bar_expect_tx(fb, 2 * nch * TILE * ROW);
+        for (int c = 0; c < nch; ++c) {
+          const uint32_t off = s * T_BYTES + c * TILE * ROW;
+          tma_load_4d(sq + off, &qmap, fb, c * CHUNK, h, q0, b);
+          tma_load_4d(sdo + off, &omap, fb, c * CHUNK, h, q0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<CONSUMER_REGS>();
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int col0 = sl * SW + wg * GD;
+  const bool live = col0 < ld;
+  const int r0 = k0 + 16 * warp + lane / 4;
+  const int r1 = r0 + 8;
+  // dO's and Q's columns col0 .. col0 + GD - 1 in a ring tile
+  const uint32_t cols = (col0 / CHUNK) * TILE * ROW;
+
+  float accK[GD / 2], accV[GD / 2];
+#pragma unroll
+  for (int i = 0; i < GD / 2; ++i) {
+    accK[i] = 0.f;
+    accV[i] = 0.f;
+  }
+  float st[NS], dpt[NS];             // S^T and dP^T of a tile
+  uint32_t ph[NS / 2], pl[NS / 2];   // P^T as bf16 hi and lo A fragments
+  uint32_t dh[NS / 2], dl[NS / 2];   // dS^T likewise
+  auto settle_s = [&]() {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      pin(st[i]);
+      pin(dpt[i]);
+    }
+  };
+  auto settle_kv = [&]() {
+#pragma unroll
+    for (int i = 0; i < GD / 2; ++i) {
+      pin(accK[i]);
+      pin(accV[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) {
+      pin(ph[i]);
+      pin(pl[i]);
+      pin(dh[i]);
+      pin(dl[i]);
+    }
+  };
+
+  bar_wait(kbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int h = h0 + j / ntq;
+    const int q0 = (qt0 + j % ntq) * TILE;
+    const int s = j % STAGES;
+    bar_wait(full + 8 * s, (j / STAGES) & 1);
+    const uint32_t qs = sq + s * T_BYTES;
+    const uint32_t os = sdo + s * T_BYTES;
+    const float* lrow = lse + ((size_t)b * H + h) * S;
+    const float* drow = delta + ((size_t)b * H + h) * S;
+    float lc[NS / 2], ec[NS / 2];
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qpos = q0 + 8 * c + 2 * (lane % 4) + e;
+        lc[2 * c + e] = qpos < S ? lrow[qpos] * LOG2E : 0.f;
+        ec[2 * c + e] = qpos < S ? drow[qpos] : 0.f;
+      }
+    wg_fence();
+    mma_chunks(st, sk, qs, nch);
+    mma_chunks(dpt, sv, os, nch);
+    wg_commit();
+    wg_wait();
+    settle_s();
+    const bool edge = k0 + ROWS - 1 > q0 || q0 + TILE > S;
+#pragma unroll
+    for (int c = 0; c < TILE / 8; ++c) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 2 * c + (e & 1);
+        p[e] = exp2_ftz(fmaf(st[4 * c + e], scale_log2, -lc[col]));
+        if (edge) {
+          const int qpos = q0 + 8 * c + 2 * (lane % 4) + (e & 1);
+          if ((e < 2 ? r0 : r1) > qpos || qpos >= S) p[e] = 0.f;
+        }
+        ds[e] = p[e] * (dpt[4 * c + e] - ec[col]);
+      }
+      tc::split(p[0], p[1], ph[2 * c], pl[2 * c]);
+      tc::split(p[2], p[3], ph[2 * c + 1], pl[2 * c + 1]);
+      tc::split(ds[0], ds[1], dh[2 * c], dl[2 * c]);
+      tc::split(ds[2], ds[3], dh[2 * c + 1], dl[2 * c + 1]);
+    }
+    if (live) {
+      wg_fence();
+      tc::mma_split<GD, TILE>(accV, ph, pl, os + cols);
+      tc::mma_split<GD, TILE>(accK, dh, dl, qs + cols);
+      wg_commit();
+      wg_wait();
+      settle_kv();
+    }
+    if (lane == 0) bar_arrive(empty + 8 * s);
+  }
+
+  if (!live) return;
+  const size_t row_stride = (size_t)KVH * ld;
+  const size_t at0 =
+      ((size_t)b * S + r0) * row_stride + (size_t)kh * ld + col0;
+  const size_t at1 = at0 + 8 * row_stride;
+  if (nsplit > 1) {
+    // the block's partial sums, f32, at split `part` of the workspace
+    const size_t slab = (size_t)gridDim.z * S * row_stride;
+    float* pk = work + (size_t)part * slab;
+    float* pv = pk + (size_t)nsplit * slab;
+#pragma unroll
+    for (int c = 0; c < GD / 8; ++c) {
+      const int col = 8 * c + 2 * (lane % 4);
+      if (col0 + col >= ld) continue;
+      if (r0 < S) {
+        *reinterpret_cast<float2*>(pk + at0 + col) =
+            make_float2(accK[4 * c] * scale, accK[4 * c + 1] * scale);
+        *reinterpret_cast<float2*>(pv + at0 + col) =
+            make_float2(accV[4 * c], accV[4 * c + 1]);
+      }
+      if (r1 < S) {
+        *reinterpret_cast<float2*>(pk + at1 + col) =
+            make_float2(accK[4 * c + 2] * scale, accK[4 * c + 3] * scale);
+        *reinterpret_cast<float2*>(pv + at1 + col) =
+            make_float2(accV[4 * c + 2], accV[4 * c + 3]);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < GD / 8; ++c) {
+    const int col = 8 * c + 2 * (lane % 4);
+    if (col0 + col >= ld) continue;
+    if (r0 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at0 + col) =
+          __floats2bfloat162_rn(accK[4 * c] * scale, accK[4 * c + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at0 + col) =
+          __floats2bfloat162_rn(accV[4 * c], accV[4 * c + 1]);
+    }
+    if (r1 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at1 + col) =
+          __floats2bfloat162_rn(accK[4 * c + 2] * scale,
+                                accK[4 * c + 3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at1 + col) =
+          __floats2bfloat162_rn(accV[4 * c + 2], accV[4 * c + 3]);
+    }
+  }
+}
+
+// hd in 257 .. 512 and ld as tc::launch's; nsplit likewise (a divisor of
+// the group, with its workspace where above 1)
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* lse, const void* dout, void* dq, void* dk, void* dv,
+           void* delta, void* work, int B, int S, int H, int KVH, int hd,
+           int ld, int nsplit, cudaStream_t st) {
+  if (nsplit < 1 || (H / KVH) % nsplit != 0 ||
+      (nsplit > 1 && work == nullptr) || tc::width(hd) != W)
+    return (int)cudaErrorInvalidValue;
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap qd, od, kd, vd, qk, ok, kk, vk;
+  if (!make_map(&qd, q, B, S, H, hd, ld, ROWS) ||
+      !make_map(&od, dout, B, S, H, hd, ld, ROWS) ||
+      !make_map(&kd, k, B, S, KVH, hd, ld, TILE) ||
+      !make_map(&vd, v, B, S, KVH, hd, ld, TILE) ||
+      !make_map(&qk, q, B, S, H, hd, ld, TILE) ||
+      !make_map(&ok, dout, B, S, H, hd, ld, TILE) ||
+      !make_map(&kk, k, B, S, KVH, hd, ld, ROWS) ||
+      !make_map(&vk, v, B, S, KVH, hd, ld, ROWS))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dkdv_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const float* lp = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if ((err = (cudaError_t)simt::launch_delta<__nv_bfloat16>(
+           o, dout, dl, B, S, H, ld, st)) != cudaSuccess)
+    return (int)err;
+  const double scale = std::pow((double)hd, -0.5);
+  const float sc = (float)scale, sc_log2 = (float)(scale * 1.4426950408889634);
+  const unsigned tiles = (unsigned)((S + ROWS - 1) / ROWS);
+  dq_wide_kernel<<<dim3(tiles, H * SLICES, B), KV_THREADS, BYTES, st>>>(
+      qd, od, kd, vd, lp, dl, static_cast<__nv_bfloat16*>(dq), S, H, KVH, ld,
+      sc, sc_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(dk);
+  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(dv);
+  float* wp = static_cast<float*>(work);
+  dkdv_wide_kernel<<<dim3(tiles, KVH * SLICES * nsplit, B), KV_THREADS,
+                     BYTES, st>>>(qk, ok, kk, vk, lp, dl, dkp, dvp, wp, S, H,
+                                  KVH, nsplit, ld, sc, sc_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return (int)err;
+  const long long n4 = (long long)B * S * KVH * ld / 4;
+  tc::sum_splits_kernel<<<dim3((unsigned)((n4 + 255) / 256), 2), 256, 0,
+                          st>>>(wp, dkp, dvp, n4, nsplit);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide
+
+// a bf16 head dim -> the tensor-core instance of its width (tc::width),
+// on operands and gradients of row stride ld
+int dispatch_bf16(const void* q, const void* k, const void* v, const void* o,
+                  const void* lse, const void* dout, void* dq, void* dk,
+                  void* dv, void* delta, void* work, int B, int S, int H,
+                  int KVH, int hd, int ld, int nsplit, cudaStream_t st) {
+  switch (tc::width(hd)) {
+#define BWD_TC_CASE(W)                                                      \
+  case W:                                                                   \
+    return tc::launch<W>(q, k, v, o, lse, dout, dq, dk, dv, delta, work, B, \
+                         S, H, KVH, hd, ld, nsplit, st);
+    BWD_TC_CASE(64) BWD_TC_CASE(128) BWD_TC_CASE(256)
+#undef BWD_TC_CASE
+    case wide::W:
+      return wide::launch(q, k, v, o, lse, dout, dq, dk, dv, delta, work, B,
+                          S, H, KVH, hd, ld, nsplit, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 int prologue(int H, int KVH, int device) {
   cudaError_t err = cudaSetDevice(device);
@@ -1314,34 +1829,48 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                S, H, KVH, hd, (cudaStream_t)stream);
 }
 
-// the f32 entry's arguments, and work, the dK/dV pass's f32 workspace
-// (NULL where nsplit is 1), and nsplit, its query-head splits (1 but on
-// the tensor cores at width 256: a divisor of H / KVH there, tc::launch)
+// the f32 entry's arguments, then work, the dK/dV pass's f32 workspace
+// [2][nsplit][B, S, KVH, ld] (NULL where nsplit is 1), and stage: NULL
+// where hd is a multiple of 8, else bf16 scratch for q, o, dO, dQ, k, v,
+// dK and dV staged ld = ceil8(hd) columns wide, (4 B S H + 4 B S KVH) ld
+// elements; nsplit after hd, the query-head splits (1 but at widths 256
+// and 512: a divisor of H / KVH there)
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* lse, const void* dout,
                                         void* dq, void* dk, void* dv,
-                                        void* delta, void* work, int B,
-                                        int S, int H, int KVH, int hd,
+                                        void* delta, void* work, void* stage,
+                                        int B, int S, int H, int KVH, int hd,
                                         int nsplit, int device,
                                         void* stream) {
-  const int err = prologue(H, KVH, device);
+  int err = prologue(H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
   const cudaStream_t st = (cudaStream_t)stream;
-  // the tensor-core instance of the head dim's width (tc::width), or the
-  // CUDA-core kernel (bwd_scope in kernels/flash_attention.py)
-  switch (tc::width(hd)) {
-#define BWD_TC_CASE(W)                                                      \
-  case W:                                                                   \
-    return tc::launch<W>(q, k, v, o, lse, dout, dq, dk, dv, delta, work, B, \
-                         S, H, KVH, hd, nsplit, st);
-    BWD_TC_CASE(64) BWD_TC_CASE(128) BWD_TC_CASE(256)
-#undef BWD_TC_CASE
-    default:
-      if (nsplit != 1) return (int)cudaErrorInvalidValue;
-      return simt::dispatch<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv,
-                                           delta, B, S, H, KVH, hd, st);
-  }
+  const int ld = (hd + 7) / 8 * 8;
+  if (ld == hd)
+    return dispatch_bf16(q, k, v, o, lse, dout, dq, dk, dv, delta, work, B,
+                         S, H, KVH, hd, hd, nsplit, st);
+  if (stage == nullptr) return (int)cudaErrorInvalidValue;
+  const long long nq = (long long)B * S * H, nk = (long long)B * S * KVH;
+  uint16_t* qs = static_cast<uint16_t*>(stage);
+  uint16_t* os = qs + nq * ld;
+  uint16_t* dos = os + nq * ld;
+  uint16_t* dqs = dos + nq * ld;
+  uint16_t* ks = dqs + nq * ld;
+  uint16_t* vs = ks + nk * ld;
+  uint16_t* dks = vs + nk * ld;
+  uint16_t* dvs = dks + nk * ld;
+  const void* in[5] = {q, o, dout, k, v};
+  void* staged[5] = {qs, os, dos, ks, vs};
+  const long long rows[5] = {nq, nq, nq, nk, nk};
+  if ((err = restride::copy(5, in, staged, rows, hd, ld, st)) != 0 ||
+      (err = dispatch_bf16(qs, ks, vs, os, lse, dos, dqs, dks, dvs, delta,
+                           work, B, S, H, KVH, hd, ld, nsplit, st)) != 0)
+    return err;
+  const void* out[3] = {dqs, dks, dvs};
+  void* narrowed[3] = {dq, dk, dv};
+  const long long out_rows[3] = {nq, nk, nk};
+  return restride::copy(3, out, narrowed, out_rows, ld, hd, st);
 }
 
 // the dK/dV launch a head dim gets, for kernels/flash_attention.bwd_geometry
@@ -1349,10 +1878,16 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
 // the instance's width, key rows a block, shared memory a block}; bf16 is
 // 0 for f32, 1 for bf16. cudaErrorInvalidValue past the domain (1 to 512).
 extern "C" int flash_attention_bwd_geometry(int bf16, int hd, int* out) {
-  if (bf16 && tc::geometry(hd, out + 1)) {
-    out[0] = 1;
+  if (!bf16) {
+    out[0] = 0;
+    return simt::geometry(hd, out + 1) ? 0 : (int)cudaErrorInvalidValue;
+  }
+  out[0] = 1;
+  if (tc::width(hd) == wide::W) {
+    out[1] = wide::W;
+    out[2] = wide::ROWS;
+    out[3] = wide::BYTES;
     return 0;
   }
-  out[0] = 0;
-  return simt::geometry(hd, out + 1) ? 0 : (int)cudaErrorInvalidValue;
+  return tc::geometry(hd, out + 1) ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -145,16 +145,18 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// [B, S, heads, hd] bf16 as a 4-d map (hd innermost), boxes of 64 hd
-// columns x `rows` rows of one (head, batch), 128-byte swizzle;
-// out-of-range rows read 0. The attention kernels' q, k, v and dO tiles.
+// [B, S, heads, ld] bf16 as a 4-d map (the row innermost) of extent hd
+// <= ld, boxes of 64 columns x `rows` rows of one (head, batch), 128-byte
+// swizzle; columns at or past hd and rows past S read 0. ld is the row
+// stride in elements, a multiple of 8 (the TMA's strides are multiples of
+// 16 bytes). The attention kernels' q, k, v and dO tiles.
 inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S,
-                     int heads, int hd, int rows) {
+                     int heads, int hd, int ld, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
-                                 (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)ld * 2,
+                                 (cuuint64_t)heads * ld * 2,
+                                 (cuuint64_t)S * heads * ld * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
@@ -162,6 +164,20 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (tile, y, z) of this block of a (tiles, y, z) grid, numbered longest
+// first: the linear block index walks every (y, z) of tile 0 before any of
+// tile 1, so that the blocks with the most work start first (blocks start
+// in about the order of their linear index). The attention kernels' order
+// at hd 256 and above.
+__device__ __forceinline__ int3 longest_first() {
+  const unsigned yz = gridDim.y * gridDim.z;
+  const unsigned lin =
+      (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  const unsigned r = lin % yz;
+  return make_int3((int)(lin / yz), (int)(r % gridDim.y),
+                   (int)(r / gridDim.y));
 }
 
 // ---------------------------------------------------------------- wgmma ----
@@ -245,6 +261,19 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void mma_ss_n16(float (&d)[8], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // D[64 x 32] (+)= A[64 x 16] B[32 x 16]^T, A and B K-major in shared memory

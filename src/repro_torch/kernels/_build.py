@@ -54,8 +54,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # q, k, v, o, lse (or NULL), B, S, H, KVH, hd, device, stream
         "flash_attention_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
                                 INT, INT, PTR),
-        "flash_attention_bf16": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
-                                 INT, INT, PTR),
+        # the same with the staging scratch (or NULL) after lse
+        "flash_attention_bf16": (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+                                 INT, INT, INT, PTR),
         # bf16?, head dim, out[4]: route, width, query rows, shared memory
         "flash_attention_geometry": (INT, INT, PTR),
     },
@@ -65,11 +66,11 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "flash_attention_bwd_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                                     PTR, PTR, INT, INT, INT, INT, INT, INT,
                                     PTR),
-        # the same with the dK/dV workspace (or NULL) after the delta
-        # scratch and the splits after hd
+        # the same with the dK/dV workspace and the staging scratch (or
+        # NULL) after the delta scratch and the splits after hd
         "flash_attention_bwd_bf16": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                                     PTR, PTR, PTR, INT, INT, INT, INT, INT,
-                                     INT, INT, PTR),
+                                     PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+                                     INT, INT, INT, PTR),
         # bf16?, head dim, out[4]: route, width, key rows of a dK/dV block,
         # its shared memory
         "flash_attention_bwd_geometry": (INT, INT, PTR),

@@ -3,23 +3,28 @@
 The forward launches ``csrc/flash_attention.cu`` (which says what it
 replaces, what bounds it and how it is laid out): bf16 on the tensor
 cores (``wgmma``, with p split into bf16 hi and lo parts so that P.V
-keeps p's f32 precision), f32 and the bf16 head dims the tensor cores
-lack on the CUDA cores. With ``lse=True`` it also returns each row's
-log-sum-exp [B, H, S] f32, which the backward
+keeps p's f32 precision), f32 on the CUDA cores. With ``lse=True`` it
+also returns each row's log-sum-exp [B, H, S] f32, which the backward
 (``csrc/flash_attention_bwd.cu``) recomputes the probabilities from: bf16
 on the tensor cores (P and dS split into bf16 hi and lo parts for their
 products; above hd 128 each gradient's columns split over two
 warpgroups and the dK/dV pass's query heads over ``bwd_splits``
-blocks), the rest on the CUDA cores. Every head dim from 1 to 512
+blocks), f32 on the CUDA cores. Every head dim from 1 to 512
 (``HEAD_DIMS``) runs in both types, forward and backward (``route`` and
-``bwd_scope`` name the kernel): a bf16 head dim that is a multiple of 8
-up to 256 runs the tensor-core instance of its width ``tc_width`` (64,
-128, 192 or 256; the backward's 129 to 192 the CUDA cores), its columns
-past hd zero (the TMA fills them) and never stored; every other head dim
-runs the CUDA-core instance of its width ``simt_width`` (its own at a
-multiple of 16 up to 256 or of 64 above, else a masked one of 32 to 512
-whose columns past hd are zero). Past 512 the wrappers raise. The kernels mask
-ragged S themselves, so any S is exact.
+``bwd_scope`` name the kernel): bf16 runs the tensor-core instance of
+its width ``tc_width`` (64, 128, 192, 256 or 512 forward; 64, 128, 256
+or 512 backward), its columns past hd zero (the TMA fills them) and
+never stored. The tensor maps' row stride must be a multiple of 8, so a
+bf16 head dim that is not one is staged (``staged``): the C entry copies
+q, k, v (and o and dO for the backward) into buffers ``ld(hd)`` columns
+wide, zeros past hd (``csrc/restride.cuh``; ``stage`` is its plain
+version), in a scratch allocated here, and copies the outputs, written
+that wide, back hd wide; the scale is always hd^-1/2 of the true head
+dim. f32 runs the CUDA-core
+instance of its width ``simt_width`` (its own at a multiple of 16 up to
+256 or of 64 above, else a masked one of 32 to 512 whose columns past
+hd are zero). Past 512 the wrappers raise. The kernels mask ragged S
+themselves, so any S is exact.
 ``ops.flash_attention`` dispatches here for CUDA tensors (through an
 autograd function when a gradient is wanted) and to
 ``ref.flash_attention`` for CPU tensors. ``backward_blocks`` is the
@@ -30,6 +35,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
@@ -40,14 +46,13 @@ KERNELS = {
 }
 # the domain: every head dim runs in both types, forward and backward
 HEAD_DIMS = tuple(range(1, 513))
-# the bf16 head dims on the tensor cores, forward (csrc: tc::width, the
-# instance of tc_width(hd)): a multiple of 8 makes every global stride of
-# the TMA's tensor maps a multiple of 16 bytes
-TC_HEAD_DIMS = tuple(range(8, 257, 8))
-# the widths of the tensor-core instances: a head dim runs the least one
-# at or above it
-TC_WIDTHS = (64, 128, 192, 256)
-# the widths of the CUDA-core instances (csrc: SIMT_WIDTH_LIST and
+# the widths of the tensor-core instances, forward (csrc: tc::width, the
+# instance of tc_width(hd); 512 is namespace wide) and backward (no
+# instance of width 192: 129 to 192 run 256): a bf16 head dim runs the
+# least one at or above it
+TC_WIDTHS = (64, 128, 192, 256, 512)
+BWD_TC_WIDTHS = (64, 128, 256, 512)
+# the widths of the CUDA-core instances, f32 (csrc: SIMT_WIDTH_LIST and
 # simt::width, forward and backward): a head dim that is a multiple of 16
 # up to 256, or of 64 above, runs the EXACT kernel of its own width, its
 # loops fixed at compile time; any other the masked kernel of the least of
@@ -60,26 +65,31 @@ SIMT_MASKED_WIDTHS = (32, 64, 128, 256, 384, 512)
 BQ = {torch.float32: 64, torch.bfloat16: 128}
 THREADS = {"simt": 256, "tc": 288}
 TC_STAGES = 3
+# the width-512 instances (namespace wide of both sources): the forward's
+# (k, v) tiles of WIDE_BKV keys, the backward's ring tiles of WIDE_TILE
+# rows, WIDE_STAGES of either in flight, and each output's columns split
+# over WIDE_SLICES blocks (a grid axis), two warpgroups' each
+WIDE_BKV = 32
+WIDE_TILE = 16
+WIDE_STAGES = 3
+WIDE_SLICES = 2
 # log2(e): the kernels' exponentials are exp2 of log2-scaled scores
 LOG2E = 1.4426950408889634
-# csrc/flash_attention_bwd.cu: the bf16 head dims on the tensor cores
-# (namespace tc, the instance of tc_width(hd); 129 to 192 run namespace
-# simt: no tensor-core instance of width 192), threads a dK/dV block by
-# namespace (tc: two consumer warpgroups and a producer warpgroup) and
-# the tensor-core kernels' tiles in flight
-BWD_TC_HEAD_DIMS = tuple(d for d in TC_HEAD_DIMS if not 128 < d <= 192)
+# csrc/flash_attention_bwd.cu: threads a dK/dV block by namespace (tc:
+# two consumer warpgroups and a producer warpgroup) and the tensor-core
+# kernels' tiles in flight up to width 256
 BWD_THREADS = {"tc": 384, "simt": 256}
 BWD_TC_STAGES = 4
-# the tensor-core kernels at hd 256 (tc::SPLIT_ROWS): rows a dQ or dK/dV
-# block, shared by its two warpgroups
+# the tensor-core kernels above hd 128 (tc::SPLIT_ROWS, wide::ROWS): rows
+# a dQ or dK/dV block, shared by its two warpgroups
 BWD_SPLIT_ROWS = 64
-# the hd-256 dK/dV pass's split over a group's query heads (bwd_splits):
-# at most BWD_SPLITS blocks a (key tile, kv head, batch row), each writing
-# f32 partial sums that a fourth kernel adds in split order, and no more
-# than it takes to reach BWD_SPLIT_BLOCKS blocks (about two an SM).
-# chip_smoke.py's sweep of 1, 2, 4 and 8 at Gemma 2B's S = 4096, H = 8,
-# KVH = 1 (64 key tiles a batch row; H100 80GB HBM3, 700 W, PERF.md §6):
-# at B = 1, 2.391, 1.392, 0.946, 0.955 ms (the grid's 64 blocks leave
+# the dK/dV pass's split over a group's query heads (bwd_splits) above hd
+# 128: at most BWD_SPLITS blocks a (key tile, kv head, slice, batch row),
+# each writing f32 partial sums that a fourth kernel adds in split order,
+# and no more than it takes to reach BWD_SPLIT_BLOCKS blocks (about two an
+# SM). chip_smoke.py's sweep of 1, 2, 4 and 8 at Gemma 2B's S = 4096, H =
+# 8, KVH = 1 (64 key tiles a batch row; H100 80GB HBM3, 700 W, PERF.md
+# §6): at B = 1, 2.391, 1.392, 0.946, 0.955 ms (the grid's 64 blocks leave
 # most SMs idle); at B = 4, 3.529, 3.558, 3.651, 4.019 ms (256 blocks
 # fill the card, and a split only adds the workspace's traffic). So 4 at
 # B = 1 and 1 at B = 4, Gemma's training micro-batch.
@@ -94,38 +104,53 @@ def _in_domain(hd: int, name: str = "flash_attention") -> None:
 
 
 # the launch counts' forms (``form``)
-FORMS = ("tc", "tc8", "simt", "simt_bf16", "wide")
+FORMS = ("tc", "tc8", "staged", "wide", "simt")
 
 
-def form(dtype: torch.dtype, hd: int, backward: bool = False) -> str:
-    """A launch's form, by which ``by_form`` counts it: "wide" past hd 256
-    (the CUDA-core instances of width 320 to 512, 32-row tiles, 16 in the
-    backward above 384); below, on the tensor cores "tc" at a multiple of 16
-    and "tc8" at one of 8 only; on the CUDA cores "simt_bf16" for bf16
-    inputs and "simt" for f32."""
-    if hd > 256:
-        _in_domain(hd)
-        return "wide"
-    scope = bwd_scope(dtype, hd) if backward else route(dtype, hd)
-    if scope == "tc":
-        return "tc8" if hd % 16 else "tc"
-    return "simt_bf16" if dtype == torch.bfloat16 else "simt"
+def form(dtype: torch.dtype, hd: int) -> str:
+    """A launch's form, forward or backward, by which ``by_form`` counts
+    it: f32 "simt" (the CUDA cores); bf16 "wide" past hd 256 (the
+    width-512 instances), below "staged" at a head dim that is not a
+    multiple of 8 (its operands copied ``ld(hd)`` wide), "tc8" at a
+    multiple of 8 only and "tc" at one of 16."""
+    _in_domain(hd)
+    if dtype != torch.bfloat16:
+        return "simt"
+    return ("wide" if hd > 256 else "staged" if hd % 8 else
+            "tc8" if hd % 16 else "tc")
 
 
-def tc_width(hd: int) -> int:
+def ld(hd: int) -> int:
+    """The row stride of a bf16 launch's operands and outputs: hd rounded
+    up to a multiple of 8, which makes every global stride of the TMA's
+    tensor maps a multiple of 16 bytes."""
+    return -(-hd // 8) * 8
+
+
+def staged(dtype: torch.dtype, hd: int) -> bool:
+    """Whether a launch copies its operands into buffers ``ld(hd)``
+    columns wide (bf16 at a head dim that is not a multiple of 8)."""
+    return dtype == torch.bfloat16 and ld(hd) != hd
+
+
+def tc_width(hd: int, backward: bool = False) -> int:
     """The width of the tensor-core instance a bf16 head dim runs (the
-    template argument of ``tc::launch`` in both sources): the least of
-    TC_WIDTHS at or above hd. Its q, k, v and dO tiles are that wide; the
-    columns past hd arrive as zeros from the TMA (the maps' extent is hd),
-    add nothing to the products and are not stored."""
-    return next(w for w in TC_WIDTHS if w >= hd)
+    template argument of ``tc::launch``, or 512 for namespace ``wide``):
+    the least of TC_WIDTHS (BWD_TC_WIDTHS for the backward) at or above
+    hd. Its tiles are that wide; the columns past hd arrive as zeros from
+    the TMA (the maps' extent is hd), add nothing to the products and are
+    not stored."""
+    _in_domain(hd)
+    return next(w for w in (BWD_TC_WIDTHS if backward else TC_WIDTHS)
+                if w >= hd)
 
 
 def simt_width(hd: int) -> int:
-    """The width of the CUDA-core instance a head dim runs (``simt::width``
-    in both sources): hd itself where it is one of SIMT_WIDTHS (the EXACT
-    kernel), else the least of SIMT_MASKED_WIDTHS at or above hd, whose
-    tiles' columns past hd load as zeros and are not stored."""
+    """The width of the CUDA-core instance an f32 head dim runs
+    (``simt::width`` in both sources): hd itself where it is one of
+    SIMT_WIDTHS (the EXACT kernel), else the least of SIMT_MASKED_WIDTHS at
+    or above hd, whose tiles' columns past hd load as zeros and are not
+    stored."""
     _in_domain(hd)
     if hd in SIMT_WIDTHS:
         return hd
@@ -133,19 +158,19 @@ def simt_width(hd: int) -> int:
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
-    """The namespace of csrc/flash_attention.cu that a forward runs: "tc"
-    (wgmma) for bf16 at TC_HEAD_DIMS, else "simt" (the CUDA cores: f32 at
-    every head dim, bf16 at the rest). Raises past the domain."""
+    """The kernel family of csrc/flash_attention.cu that a forward runs:
+    "tc" (wgmma, namespaces tc and wide) for bf16, "simt" (the CUDA
+    cores) for f32. Raises past the domain."""
     _in_domain(hd)
-    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "simt"
+    return "tc" if dtype == torch.bfloat16 else "simt"
 
 
 def tc_rows(hd: int) -> int:
     """Query rows a block of the tensor-core forward (``tc::Layout::BQ``):
-    128 (one 64-row slice for each consumer warpgroup), and 64 at hd 256,
-    where the two warpgroups share the block's rows and each holds half of
-    the output's columns (a 64 x 256 f32 accumulator would not fit one
-    warpgroup's registers beside S and p)."""
+    128 (one 64-row slice for each consumer warpgroup), and 64 above hd
+    192, where the two warpgroups share the block's rows and each holds a
+    share of the output's columns (a 64 x 256 f32 accumulator would not
+    fit one warpgroup's registers beside S and p)."""
     return BQ[torch.bfloat16] // 2 if hd > 192 else BQ[torch.bfloat16]
 
 
@@ -162,26 +187,36 @@ def q_rows(dtype: torch.dtype, hd: int) -> int:
 
 
 def kv_rows(dtype: torch.dtype, hd: int) -> int:
-    """Key rows a (k, v) tile: on the tensor cores 128 up to hd 128, else
-    64 (``Layout::BKV``); on the CUDA cores ``simt_rows``."""
+    """Key rows a (k, v) tile: on the tensor cores 128 up to hd 128, 64 up
+    to 256 (``Layout::BKV``), WIDE_BKV above; on the CUDA cores
+    ``simt_rows``."""
     if route(dtype, hd) == "tc":
-        return 128 if hd <= 128 else 64
+        return 128 if hd <= 128 else 64 if hd <= 256 else WIDE_BKV
     return simt_rows(hd)
+
+
+def slices(dtype: torch.dtype, hd: int) -> int:
+    """Blocks a row tile's output columns split over (a grid axis):
+    WIDE_SLICES on the width-512 instances, else 1."""
+    return WIDE_SLICES if route(dtype, hd) == "tc" and hd > 256 else 1
 
 
 def smem_bytes(dtype: torch.dtype, hd: int) -> int:
     """Shared memory of a forward block: on the CUDA cores
     (``simt::smem_bytes``) the q and k tiles [R][W + 1], the v tile [R][W]
     and p [R][R + 1], f32 (W = simt_width(hd), R = simt_rows(hd)); on the
-    tensor cores (``tc::Layout::BYTES``) the q tile of ``tc_rows(hd)``
-    rows, the ring of ``TC_STAGES`` k and v tiles, the mbarriers and 1024
-    bytes of alignment slack (230,456 bytes at hd 256)."""
+    tensor cores (``tc::Layout::BYTES``, ``wide::BYTES``) the q tile of
+    ``tc_rows(hd)`` rows, the ring of ``TC_STAGES`` k tiles and v tiles
+    (the v tile the slice's columns only on the width-512 instance), the
+    mbarriers and 1024 bytes of alignment slack (230,456 bytes at hd 256,
+    214,072 above)."""
     if route(dtype, hd) == "simt":
         w, r = simt_width(hd), simt_rows(hd)
         return 4 * (2 * r * (w + 1) + r * w + r * (r + 1))
     w = tc_width(hd)
-    return (tc_rows(hd) * w * 2 + 2 * TC_STAGES * kv_rows(dtype, hd) * w * 2
-            + (2 * TC_STAGES + 1) * 8 + 1024)
+    return (tc_rows(hd) * w * 2 + TC_STAGES * kv_rows(dtype, hd)
+            * (w + w // slices(dtype, hd)) * 2 + (2 * TC_STAGES + 1) * 8
+            + 1024)
 
 
 def geometry(dtype: torch.dtype, hd: int) -> tuple:
@@ -194,25 +229,25 @@ def geometry(dtype: torch.dtype, hd: int) -> tuple:
 
 
 def bwd_scope(dtype: torch.dtype, hd: int) -> str:
-    """The namespace of csrc/flash_attention_bwd.cu that a call runs:
-    "tc" (wgmma) for bf16 at BWD_TC_HEAD_DIMS, else "simt" (bf16 at the
-    rest, f32 at every head dim). Raises past the domain."""
+    """The kernel family of csrc/flash_attention_bwd.cu that a call runs:
+    "tc" (wgmma, namespaces tc and wide) for bf16, "simt" (the CUDA cores)
+    for f32. Raises past the domain."""
     _in_domain(hd, "flash_attention_bwd")
-    return ("tc" if dtype == torch.bfloat16 and hd in BWD_TC_HEAD_DIMS
-            else "simt")
+    return "tc" if dtype == torch.bfloat16 else "simt"
 
 
 def bwd_splits(dtype: torch.dtype, B: int, S: int, H: int, KVH: int,
                hd: int) -> int:
     """Blocks the dK/dV pass splits a group of G = H / KVH query heads
-    over, each block walking G / splits of them: on the tensor cores at
-    width 256 (``tc::KvLayout::SPLIT``) the smallest divisor of G up to
-    BWD_SPLITS that brings the grid to BWD_SPLIT_BLOCKS blocks, or the
-    largest if none does; 1 elsewhere (a block walks the whole group)."""
+    over, each block walking G / splits of them: on the tensor cores above
+    hd 128 (``tc::KvLayout::SPLIT``, namespace wide) the smallest divisor
+    of G up to BWD_SPLITS that brings the grid (key tiles x kv heads x
+    ``slices`` x batch rows) to BWD_SPLIT_BLOCKS blocks, or the largest if
+    none does; 1 elsewhere (a block walks the whole group)."""
     if bwd_scope(dtype, hd) != "tc" or hd <= 128:
         return 1
     G = H // KVH
-    blocks = -(-S // BWD_SPLIT_ROWS) * KVH * B
+    blocks = -(-S // BWD_SPLIT_ROWS) * KVH * B * slices(dtype, hd)
     fits = [n for n in range(1, min(G, BWD_SPLITS) + 1) if G % n == 0]
     return next((n for n in fits if blocks * n >= BWD_SPLIT_BLOCKS),
                 fits[-1])
@@ -221,9 +256,9 @@ def bwd_splits(dtype: torch.dtype, B: int, S: int, H: int, KVH: int,
 def bwd_rows(dtype: torch.dtype, hd: int) -> int:
     """Key rows of a dK/dV block (and, on the CUDA cores, rows of every
     tile of both passes): on the tensor cores (``tc::KvLayout::BK``) 128,
-    two warpgroups of 64, and BWD_SPLIT_ROWS at hd 256, both warpgroups'
-    with half of the columns each; on the CUDA cores (``simt::Tile::BR``)
-    64 up to width 128, 32 up to 384, 16 above."""
+    two warpgroups of 64, and BWD_SPLIT_ROWS above hd 128, both
+    warpgroups' with a share of the columns each; on the CUDA cores
+    (``simt::Tile::BR``) 64 up to width 128, 32 up to 384, 16 above."""
     if bwd_scope(dtype, hd) == "tc":
         return BWD_SPLIT_ROWS if hd > 128 else 128
     w = simt_width(hd)
@@ -232,26 +267,28 @@ def bwd_rows(dtype: torch.dtype, hd: int) -> int:
 
 def bwd_query_rows(hd: int) -> int:
     """Query rows of a (q, dO) tile of the tensor-core dK/dV kernel
-    (``tc::KvLayout::BQ`` of ``tc_width(hd)``): 64 up to hd 64, 32 above
-    (hd 128 and 256 among them), so that
-    S^T, dP^T and their fragments fit beside the accumulators (dK's and
-    dV's columns, half of them at hd 256: 128 f32 registers a thread at
-    hd 128 and 256)."""
-    return 64 if hd <= 64 else 32
+    (``tc::KvLayout::BQ`` of ``tc_width(hd, True)``, ``wide::TILE``): 64 up
+    to hd 64, 32 up to 256, WIDE_TILE above, so that S^T, dP^T and their
+    fragments fit beside the accumulators (dK's and dV's columns, 128 each
+    above hd 128: 128 f32 registers a thread at hd 128 and above) and the
+    ring beside the k and v tiles."""
+    return 64 if hd <= 64 else 32 if hd <= 256 else WIDE_TILE
 
 
 def bwd_smem_bytes(dtype: torch.dtype, hd: int) -> int:
-    """Shared memory of a dK/dV block. Tensor cores (``tc::KvLayout``):
-    the k and v tiles of ``bwd_rows`` rows, the ring of (q, dO) tiles,
-    the mbarriers and 1024 bytes of alignment slack, bf16 (197,704 bytes
-    at hd 256). CUDA cores (``simt::Tile``): the k, v, q and dO tiles
-    [rows][W + 1], P and dS [rows][rows + 1], the rows' lse and Delta,
-    all f32 (W = simt_width(hd))."""
+    """Shared memory of a dK/dV block. Tensor cores (``tc::KvLayout``,
+    ``wide::BYTES``): the k and v tiles of ``bwd_rows`` rows, the ring of
+    (q, dO) tiles (BWD_TC_STAGES of them, WIDE_STAGES at width 512), the
+    mbarriers and 1024 bytes of alignment slack, bf16 (197,704 bytes at
+    hd 256, 230,456 at 512). CUDA cores (``simt::Tile``): the k, v, q and
+    dO tiles [rows][W + 1], P and dS [rows][rows + 1], the rows' lse and
+    Delta, all f32 (W = simt_width(hd))."""
     br = bwd_rows(dtype, hd)
     if bwd_scope(dtype, hd) == "tc":
-        w = tc_width(hd)
-        return (2 * br * w * 2 + 2 * BWD_TC_STAGES * bwd_query_rows(hd)
-                * w * 2 + (2 * BWD_TC_STAGES + 1) * 8 + 1024)
+        w = tc_width(hd, backward=True)
+        stages = WIDE_STAGES if hd > 256 else BWD_TC_STAGES
+        return (2 * br * w * 2 + 2 * stages * bwd_query_rows(hd) * w * 2
+                + (2 * stages + 1) * 8 + 1024)
     return 4 * (4 * br * (simt_width(hd) + 1) + 2 * br * (br + 1) + 2 * br)
 
 
@@ -261,7 +298,7 @@ def bwd_geometry(dtype: torch.dtype, hd: int) -> tuple:
     ``flash_attention_bwd_geometry`` of csrc/flash_attention_bwd.cu
     gives."""
     tc = bwd_scope(dtype, hd) == "tc"
-    return (int(tc), tc_width(hd) if tc else simt_width(hd),
+    return (int(tc), tc_width(hd, backward=True) if tc else simt_width(hd),
             bwd_rows(dtype, hd), bwd_smem_bytes(dtype, hd))
 
 
@@ -278,8 +315,9 @@ def kernel_geometry(dtype: torch.dtype, hd: int, backward: bool = False):
 
 def longest_first(i: int, j: int, z: int, grid) -> tuple:
     """The (tile, y, z) that block (i, j, z) of a (tiles, y, z) ``grid``
-    takes in the hd-256 tensor-core kernels (``tc::longest_first``): the
-    linear block index walks every (y, z) of tile 0 before any of tile 1."""
+    takes in the tensor-core kernels above hd 128 (``longest_first`` in
+    csrc/hopper.cuh): the linear block index walks every (y, z) of tile 0
+    before any of tile 1."""
     X, Y, Z = grid
     lin = (z * Y + j) * X + i
     r = lin % (Y * Z)
@@ -298,25 +336,54 @@ def _check_operands(name, q, k, v):
     _in_domain(hd, name)
 
 
+def stage(x, width: int):
+    """x [..., hd] ``width`` columns wide, zeros past hd (or cut to
+    ``width``), x itself where it is that wide already: the staging copy
+    of ``csrc/restride.cuh`` in plain torch."""
+    hd = x.shape[-1]
+    return x if hd == width else F.pad(x, (0, width - hd))
+
+
+def stage_elems(B: int, S: int, H: int, KVH: int, hd: int,
+                backward: bool = False) -> int:
+    """bf16 elements of a staged launch's scratch: q, k, v and o ``ld``
+    wide (the backward: q, o, dO, dQ, k, v, dK and dV)."""
+    n = 2 if backward else 1
+    return 2 * n * B * S * (H + KVH) * ld(hd)
+
+
 def flash_attention(q, k, v, lse: bool = False):
     """q: [B, S, H, hd]; k, v: [B, S, KVH, hd], one dtype (float32 or
     bfloat16), contiguous on one CUDA device; H a multiple of KVH; hd in
     HEAD_DIMS (1 to 512) -> o [B, S, H, hd] in q's dtype, and with ``lse``
     also the rows' log-sum-exp [B, H, S] f32. Scores stay f32 inside, and
     p keeps f32 precision (on the tensor cores as a bf16 hi and lo pair).
-    Launches are counted in ``launches`` and by form in ``by_form``."""
+    A bf16 head dim that is not a multiple of 8 is staged: the entry copies
+    q, k and v ``ld(hd)`` wide (zeros past hd) into a scratch allocated
+    here and o, written that wide, back. Launches are counted in
+    ``launches`` and by form in ``by_form``."""
     _check_operands("flash_attention", q, k, v)
     _build.require_cuda("flash_attention", q, k, v)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: operands must be 16-byte aligned")
     B, S, H, hd = q.shape
+    KVH = k.shape[2]
     o = torch.empty_like(q)
     out_lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
                if lse else None)
-    err = getattr(_build.load("flash_attention"), KERNELS[q.dtype][0])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if out_lse is None else out_lse.data_ptr(), B, S, H,
-        k.shape[2], hd, *_build.launch_args(q))
+    lib = _build.load("flash_attention")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if out_lse is None else out_lse.data_ptr())
+    if q.dtype == torch.float32:
+        err = lib.flash_attention_f32(*ptrs, B, S, H, KVH, hd,
+                                      *_build.launch_args(q))
+    else:
+        scratch = (torch.empty(stage_elems(B, S, H, KVH, hd),
+                               dtype=q.dtype, device=q.device)
+                   if staged(q.dtype, hd) else None)
+        err = lib.flash_attention_bf16(
+            *ptrs, None if scratch is None else scratch.data_ptr(), B, S, H,
+            KVH, hd, *_build.launch_args(q))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.by_form[form(q.dtype, hd)] += 1
@@ -328,16 +395,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
     output, lse its [B, H, S] f32 log-sum-exps, do the output's gradient
     (q's shape and dtype), all contiguous on one CUDA device -> (dq, dk,
     dv) in q's dtype. Takes the head dims the forward takes; no atomics,
-    so the same bits every run. bf16 at BWD_TC_HEAD_DIMS runs on the
-    tensor cores with P and dS as bf16 hi/lo pairs (the .cu header states
-    the precision contract); above hd 192 the dK/dV pass splits the group's
+    so the same bits every run. bf16 runs on the tensor cores with P and
+    dS as bf16 hi/lo pairs (the .cu header states the precision contract),
+    staged as the forward is (q, k, v, o and dO copied ``ld(hd)`` wide into
+    a scratch allocated here, the gradients copied back); above hd 128
+    the dK/dV pass splits the group's
     query heads over ``bwd_splits`` blocks, which write f32 partial sums
-    to a workspace allocated here, [2, splits, B, S, KVH, hd] (none for 1;
-    32 MiB a split at Gemma 2B's B = 1, S = 4096), added in split order by
-    a fourth kernel. ``_splits`` overrides ``bwd_splits`` for
-    chip_smoke.py's sweep (a divisor of H / KVH; 1 at other head
-    dims). Launches are counted in ``launches`` and by form in
-    ``by_form``."""
+    to a workspace allocated here, [2, splits, B, S, KVH, ld(hd)] (none
+    for 1; 32 MiB a split at Gemma 2B's B = 1, S = 4096), added in split
+    order by a fourth kernel. ``_splits`` overrides ``bwd_splits`` for
+    chip_smoke.py's sweep (a divisor of H / KVH; 1 at other head dims).
+    Launches are counted in ``launches`` and by form in ``by_form``."""
     _check_operands("flash_attention_bwd", q, k, v)
     B, S, H, hd = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, S):
@@ -369,14 +437,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
         err = lib.flash_attention_bwd_f32(*args, B, S, H, KVH, hd,
                                           *_build.launch_args(q))
     else:
-        work = (torch.empty((2, splits, B, S, KVH, hd), dtype=torch.float32,
-                            device=q.device) if splits > 1 else None)
+        work = (torch.empty((2, splits, B, S, KVH, ld(hd)),
+                            dtype=torch.float32, device=q.device)
+                if splits > 1 else None)
+        scratch = (torch.empty(stage_elems(B, S, H, KVH, hd, backward=True),
+                               dtype=q.dtype, device=q.device)
+                   if staged(q.dtype, hd) else None)
         err = lib.flash_attention_bwd_bf16(
-            *args, None if work is None else work.data_ptr(), B, S, H, KVH,
+            *args, None if work is None else work.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, S, H, KVH,
             hd, splits, *_build.launch_args(q))
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.by_form[form(q.dtype, hd, backward=True)] += 1
+    flash_attention_bwd.by_form[form(q.dtype, hd)] += 1
     return dq, dk, dv
 
 

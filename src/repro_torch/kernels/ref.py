@@ -213,18 +213,21 @@ def unpack_symmetric(Mp, R: int):
     return Mp[..., idx].reshape(Mp.shape[:-1] + (R, R))
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, scale=None):
     """Plain attention with the scores materialised, in f32.
 
     q: [B, S, H, hd]; k, v: [B, S, KVH, hd], query head h reading kv head
     h // (H // KVH). Masked scores are -1e30, as in the kernels. The
-    result is in q's dtype.
+    result is in q's dtype. ``scale`` multiplies the scores: hd^-1/2
+    unless given (operands staged wider than their head dim, as the bf16
+    kernels take them, pass the true head dim's).
     """
     B, S, H, hd = q.shape
     KVH = k.shape[2]
     G = H // KVH
     qr = q.to(f32).reshape(B, S, KVH, G, hd)
-    s = torch.einsum("bqkgh,bskh->bqkgs", qr, k.to(f32)) * hd ** -0.5
+    s = torch.einsum("bqkgh,bskh->bqkgs", qr, k.to(f32)) * (
+        hd ** -0.5 if scale is None else scale)
     if causal:
         pos = torch.arange(S, device=q.device)
         mask = pos[:, None] >= pos[None, :]

@@ -424,22 +424,36 @@ def _bw_stats_moved(cfg: dict) -> float:
 
 
 def _flash_instance(cfg: dict) -> KernelInstance:
+    """One block per (query tile, head, batch row); past hd 256 (bf16, the
+    width-512 instance, namespace wide) one per (query tile, head x
+    column slice, batch row), numbered ``longest_first``, each writing its
+    slice of o's columns."""
     import torch
     B, S, H, hd = cfg["B"], cfg["S"], cfg["H"], cfg["hd"]
     dt = torch.bfloat16 if cfg.get("dtype") == "bfloat16" else torch.float32
     bq = _fa.q_rows(dt, hd)
     route = _fa.route(dt, hd)
-    tc = route == "tc"
+    sl = _fa.slices(dt, hd)
+    grid = (_cdiv(S, bq), H * sl, B)
+    if sl > 1:
+        def tile(i, j, b):
+            """(batch row, query tile, head, column slice) of a block."""
+            qt, y, bb = _fa.longest_first(i, j, b, grid)
+            return bb, qt, y // sl, y % sl
+        scope, stages = "wide", _fa.WIDE_STAGES
+    else:
+        def tile(i, h, b):
+            return b, i, h, 0
+        scope, stages = route, _fa.TC_STAGES
     return KernelInstance(
-        grid=(_cdiv(S, bq), H, B), threads=_fa.THREADS[route],
+        grid=grid, threads=_fa.THREADS[route],
         smem_bytes=_fa.smem_bytes(dt, hd),
-        axes=(Axis("queries", S, bq), Axis("heads", H, 1),
+        axes=(Axis("queries", S, bq), Axis("heads x slices", H * sl, 1),
               Axis("batch", B, 1)),
-        outputs=(BlockMap("o", (B, S, H, hd), (1, bq, 1, hd),
-                          lambda i, h, b: (b, i, h, 0),
-                          dtype=cfg.get("dtype", "float32")),),
-        rings=(Ring("tma", _fa.TC_STAGES, "tc"),) if tc else (),
-        scope=route)
+        outputs=(BlockMap("o", (B, S, H, hd), (1, bq, 1, -(-hd // sl)),
+                          tile, dtype=cfg.get("dtype", "float32")),),
+        rings=(Ring("tma", stages, scope),) if route == "tc" else (),
+        scope=scope)
 
 
 def _flash_work(cfg: dict):
@@ -460,10 +474,12 @@ def _flash_work(cfg: dict):
 
 def _flash_bwd_instance(cfg: dict) -> KernelInstance:
     """The dK/dV launch: one block per (key tile, kv head, batch row); on
-    the tensor cores (bf16 at hd 64, 128 and 256) with its TMA ring of (q,
-    dO) tiles. At hd 256 one block per (key tile, kv head x split, batch
-    row), numbered ``longest_first``, each writing its split's f32 partial
-    dK and dV (``bwd_splits`` > 1; the fourth kernel adds them)."""
+    the tensor cores (bf16) with its TMA ring of (q, dO) tiles. Above hd
+    128 one block per (key tile, kv head x split, batch row), and past 256
+    (the width-512 instance, namespace wide) per (key tile, (kv head x
+    column slice) x split, batch row), numbered ``longest_first``, each
+    writing its slice of the columns, as its split's f32 partial dK and dV
+    where ``bwd_splits`` > 1 (the fourth kernel adds them)."""
     import torch
     B, S, H, KVH, hd = cfg["B"], cfg["S"], cfg["H"], cfg["KVH"], cfg["hd"]
     dt = cfg.get("dtype", "float32")
@@ -471,34 +487,39 @@ def _flash_bwd_instance(cfg: dict) -> KernelInstance:
     scope = _fa.bwd_scope(tdt, hd)
     br = _fa.bwd_rows(tdt, hd)
     splits = _fa.bwd_splits(tdt, B, S, H, KVH, hd)
-    grid = (_cdiv(S, br), KVH * splits, B)
+    sl = _fa.slices(tdt, hd)
+    cols = -(-hd // sl)
+    grid = (_cdiv(S, br), KVH * sl * splits, B)
     if scope == "tc" and hd > 128:
         def tile(i, j, b):
-            """(split, batch row, key tile, kv head) of block (i, j, b)."""
+            """(split, batch row, key tile, kv head, column slice) of block
+            (i, j, b)."""
             kt, y, bb = _fa.longest_first(i, j, b, grid)
-            return y % splits, bb, kt, y // splits
+            return y % splits, bb, kt, y // (splits * sl), (y // splits) % sl
         if splits > 1:
             outs = tuple(BlockMap(n, (splits, B, S, KVH, hd),
-                                  (1, 1, br, 1, hd),
-                                  lambda i, j, b: (*tile(i, j, b), 0))
+                                  (1, 1, br, 1, cols), tile)
                          for n in ("dk_part", "dv_part"))
         else:
-            outs = tuple(BlockMap(n, (B, S, KVH, hd), (1, br, 1, hd),
-                                  lambda i, j, b: (*tile(i, j, b)[1:], 0),
+            outs = tuple(BlockMap(n, (B, S, KVH, hd), (1, br, 1, cols),
+                                  lambda i, j, b: tile(i, j, b)[1:],
                                   dtype=dt) for n in ("dk", "dv"))
     else:
         outs = tuple(BlockMap(n, (B, S, KVH, hd), (1, br, 1, hd),
                               lambda i, kh, b: (b, i, kh, 0), dtype=dt)
                      for n in ("dk", "dv"))
+    wide = scope == "tc" and hd > 256
     return KernelInstance(
         grid=grid, threads=_fa.BWD_THREADS[scope],
         smem_bytes=_fa.bwd_smem_bytes(tdt, hd),
-        axes=(Axis("keys", S, br), Axis("kv_heads x splits", KVH * splits, 1),
+        axes=(Axis("keys", S, br),
+              Axis("kv_heads x slices x splits", KVH * sl * splits, 1),
               Axis("batch", B, 1)),
         outputs=outs,
-        rings=((Ring("tma", _fa.BWD_TC_STAGES, "tc"),) if scope == "tc"
+        rings=((Ring("tma", _fa.WIDE_STAGES, "wide") if wide else
+                Ring("tma", _fa.BWD_TC_STAGES, "tc"),) if scope == "tc"
                else ()),
-        scope=scope)
+        scope="wide" if wide else scope)
 
 
 def _flash_bwd_work(cfg: dict):

@@ -190,6 +190,9 @@ def test_wrapper_constants_are_the_cuda_ones():
     assert tfa.BQ[torch.bfloat16] == _cu_int("flash_attention.cu", "BQ",
                                              "tc")
     assert tfa.TC_STAGES == _cu_int("flash_attention.cu", "STAGES", "tc")
+    assert (tfa.WIDE_STAGES, tfa.WIDE_BKV, tfa.WIDE_SLICES) == tuple(
+        _cu_int("flash_attention.cu", n, "wide")
+        for n in ("STAGES", "BKV", "SLICES"))
 
 
 def test_backward_constants_are_the_cuda_ones():
@@ -220,9 +223,28 @@ def test_backward_constants_are_the_cuda_ones():
     assert inst.grid == (256 // tfa.BWD_SPLIT_ROWS, 2 * 2, 1)
     assert inst.threads == 128 + _cu_int("flash_attention_bwd.cu",
                                          "CONSUMERS", "tc")
+    # bf16 hd 192 runs the width-256 instance; f32 the CUDA cores
     inst = registry.get("flash_attention_bwd").instance(
         {"hd": 192, "dtype": "bfloat16"})
+    assert (inst.scope, inst.rings[0].stages, inst.threads) == ("tc", 4, 384)
+    assert inst.smem_bytes == tfa.bwd_smem_bytes(torch.bfloat16, 256)
+    inst = registry.get("flash_attention_bwd").instance(
+        {"hd": 192, "dtype": "float32"})
     assert (inst.scope, inst.rings, inst.threads) == ("simt", (), 256)
+    # past hd 256 the width-512 instance (namespace wide): its ring, and
+    # the dK/dV blocks over (kv head x column slice) x split
+    assert tfa.WIDE_STAGES == _cu_int("flash_attention_bwd.cu", "STAGES",
+                                      "wide")
+    assert (tfa.WIDE_TILE, tfa.WIDE_SLICES) == (
+        _cu_int("flash_attention_bwd.cu", "TILE", "wide"),
+        _cu_int("flash_attention_bwd.cu", "SLICES", "wide"))
+    inst = registry.get("flash_attention_bwd").instance(
+        {"hd": 320, "dtype": "bfloat16"})
+    assert (inst.scope, inst.rings[0].stages) == ("wide", tfa.WIDE_STAGES)
+    assert inst.grid == (256 // tfa.BWD_SPLIT_ROWS, 2 * tfa.WIDE_SLICES
+                         * tfa.bwd_splits(torch.bfloat16, 1, 256, 4, 2, 320),
+                         1)
+    assert inst.smem_bytes == tfa.bwd_smem_bytes(torch.bfloat16, 320)
     inst = registry.get("selective_scan_bwd").instance(
         {"B": 1, "T": 4096, "di": 8192, "ds": 16})
     assert inst.grid == (128, tss.n_segments(4096), 1)

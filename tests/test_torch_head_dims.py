@@ -2,9 +2,10 @@
 package, on the CPU.
 
 The kernels take any head dim from 1 to 512 in f32 and bf16, forward and
-backward (``kernels/flash_attention.py``: a bf16 head dim that is a
-multiple of 8 up to 256 on the tensor-core instance of its width, every
-other on the CUDA-core instance of its width, its columns past hd zero).
+backward (``kernels/flash_attention.py``: bf16 on the tensor-core
+instance of its width, staged ``ld(hd)`` columns wide where hd is not a
+multiple of 8; f32 on the CUDA-core instance of its width; the columns
+past hd zero).
 On the CPU the port runs the plain version (``ref.flash_attention``) and
 the backward kernels' algorithm (``backward_blocks``, at the kernels'
 tile rows of the head dim); here they are held against the Pallas kernel
@@ -49,7 +50,7 @@ TOL = 1e-5
 BF16_TOL = 2.0 ** -7
 MODEL_TOL = 2e-4
 GRAD_TOL = 1e-4
-HEAD_DIMS = (1, 8, 33, 40, 72, 100, 257, 320, 512)
+HEAD_DIMS = (1, 8, 33, 40, 72, 100, 160, 257, 320, 512)
 SMEM = 232448
 bf16 = torch.bfloat16
 
@@ -106,7 +107,9 @@ def test_attention_matches_pallas_and_blockwise(hd, dtype):
 def test_backward_blocks_match_jax_grad(hd, dtype):
     """``backward_blocks`` at the kernels' tile rows of the head dim
     (``bwd_rows``: on the CUDA cores 64 up to 128, 32 up to 384, 16
-    above; 128 or 64 on the tensor cores), with ``lse_blocks`` at the forward's, against ``jax.grad`` of
+    above; 128 up to 128 on the tensor cores, 64 above), with
+    ``lse_blocks`` at the forward's (``kv_rows``: 32 on the width-512
+    instance), against ``jax.grad`` of
     the JAX package's reference attention (``repro.kernels.ref``) in f32
     on the same values: TOL in f32,
     BF16_TOL on bf16 inputs (P and dS as bf16 hi + lo where the tensor
@@ -160,38 +163,91 @@ def _width_fn(scope: str, src: str):
 
 def test_geometry_fits_and_routes_as_the_dispatch():
     """At every head dim from 1 to 512 in both types, forward and backward:
-    the block's shared memory fits the card's 232,448 bytes, and the route
-    and width are those the .cu sources' dispatch takes (bf16 on the
-    tensor cores where ``tc::width`` is not 0, else the CUDA-core instance
-    of ``simt::width``); the rows and shared memory follow the CUDA-side
-    formulas of the instance."""
+    bf16 goes to the tensor cores, on the instance of ``tc::width`` of its
+    .cu source (never 0 in the domain), and f32 to the CUDA cores, on the
+    instance of ``simt::width``; every instance's block fits the card's
+    232,448 bytes of shared memory; the rows and shared memory follow the
+    CUDA-side formulas of the instance (namespace wide past 256)."""
     fsrc = (_build.CSRC / "flash_attention.cu").read_text()
     bsrc = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     f_tc, f_simt = _width_fn("tc", fsrc), _width_fn("simt", fsrc)
     b_tc, b_simt = _width_fn("tc", bsrc), _width_fn("simt", bsrc)
     for hd in tfa.HEAD_DIMS:
+        assert tfa.route(bf16, hd) == tfa.bwd_scope(bf16, hd) == "tc"
+        assert tfa.route(torch.float32, hd) == "simt"
+        assert tfa.bwd_scope(torch.float32, hd) == "simt"
+        assert tfa.staged(bf16, hd) == (hd % 8 != 0)
+        assert not tfa.staged(torch.float32, hd)
         for dt in (torch.float32, bf16):
-            tc = dt == bf16 and f_tc(hd) != 0
+            tc = dt == bf16
             route, width, rows, smem = tfa.geometry(dt, hd)
             assert (route, width) == ((1, f_tc(hd)) if tc
                                       else (0, f_simt(hd)))
-            assert rows == (tfa.tc_rows(hd) if tc
-                            else 64 if width <= 256 else 32)
-            if not tc:
+            assert width >= tfa.ld(hd) if tc else width >= hd
+            if tc:
+                assert rows == (128 if width <= 192 else 64)
+                kv = 128 if width <= 128 else 64 if width <= 256 else 32
+                vw = width // 2 if width == 512 else width
+                assert smem == (rows * width * 2 + tfa.TC_STAGES * kv
+                                * (width + vw) * 2
+                                + (2 * tfa.TC_STAGES + 1) * 8 + 1024)
+            else:
+                assert rows == (64 if width <= 256 else 32)
                 assert smem == 4 * (2 * rows * (width + 1) + rows * width
                                     + rows * (rows + 1))
             assert 0 < smem <= SMEM
-            tc = dt == bf16 and b_tc(hd) != 0
             route, width, rows, smem = tfa.bwd_geometry(dt, hd)
             assert (route, width) == ((1, b_tc(hd)) if tc
                                       else (0, b_simt(hd)))
-            if not tc:
+            if tc:
+                assert width != 192 and width >= tfa.ld(hd)
+                assert rows == (128 if width <= 128 else 64)
+                bq = 64 if width <= 64 else 32 if width <= 256 else 16
+                st = 4 if width <= 256 else 3
+                assert smem == (2 * rows * width * 2 + 2 * st * bq * width
+                                * 2 + (2 * st + 1) * 8 + 1024)
+            else:
                 assert rows == (64 if width <= 128 else 32 if width <= 384
                                 else 16)
                 assert smem == 4 * (4 * rows * (width + 1)
                                     + 2 * rows * (rows + 1) + 2 * rows)
             assert 0 < smem <= SMEM
     assert f_tc(513) == f_simt(513) == b_tc(513) == b_simt(513) == 0
+    assert f_tc(0) == b_tc(0) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [1, 33, 100, 257, 300])
+def test_staged_operands_give_the_unstaged_attention(hd, dtype):
+    """The staging of a bf16 launch, on the plain version: q, k and v
+    copied ``ld(hd)`` columns wide (zeros past hd, ``stage``) through
+    ``ref.flash_attention`` with the true head dim's scale, then narrowed,
+    equal the unstaged attention to TOL (the zeros add nothing to any
+    product; only the sums' order may move), forward and, through
+    autograd of the staging and the narrowing, the gradients of q, k and
+    v. Without the true scale the staged result is another function."""
+    S = 40
+    q, k, v, do = _qkv(hd, S, dtype, seed=hd + 7, do=True)
+    tt = getattr(torch, dtype)
+    w = tfa.ld(hd)
+    ins = [torch.as_tensor(a).to(tt).requires_grad_() for a in (q, k, v)]
+    want = tref.flash_attention(*ins)
+    staged = tref.flash_attention(*(tfa.stage(t, w) for t in ins),
+                                  scale=hd ** -0.5)
+    assert staged.shape[-1] == w
+    got = staged[..., :hd]
+    assert _rel(got.float(), want.float().detach().numpy()) <= TOL
+    dout = torch.as_tensor(do).to(tt)
+    gw = torch.autograd.grad(want, ins, dout)
+    gg = torch.autograd.grad(got, ins, dout)
+    for a, b in zip(gg, gw):
+        assert a.shape == b.shape
+        assert _rel(a.float(), b.float().numpy()) <= TOL
+    if w != hd:
+        assert tfa.stage(ins[0], w)[..., hd:].abs().max() == 0
+        wrong = tref.flash_attention(*(tfa.stage(t, w) for t in ins))
+        assert _rel(wrong[..., :hd].float(),
+                    want.float().detach().numpy()) > TOL
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, bf16])

@@ -131,21 +131,30 @@ def test_flash_attention_refuses_bf16_head_dims_without_instance(dtype, hd,
 
 
 def test_flash_attention_bf16_head_dims_are_the_cuda_instances():
-    """``TC_HEAD_DIMS`` are exactly the bf16 head dims the forward entry of
-    ``csrc/flash_attention.cu`` sends to its tensor-core instances (a
-    multiple of 8 up to 256, each on the instance of its width
-    ``tc_width``), and every head dim of the domain has a CUDA-core
-    instance of its width ``simt_width``: the dispatch switches list
-    TC_WIDTHS and SIMT_WIDTHS, the masked kernels' widths are
+    """Every bf16 head dim of the domain goes to a tensor-core instance of
+    the forward entry of ``csrc/flash_attention.cu`` (``dispatch_bf16``:
+    the instances of TC_WIDTHS, namespace tc up to 256 and wide's 512
+    above, each head dim on the least width at or above it, ``tc_width``),
+    no bf16 CUDA-core instance is dispatched, and every f32 head dim has a
+    CUDA-core instance of its width ``simt_width``: the dispatch switches
+    list TC_WIDTHS and SIMT_WIDTHS, the masked kernels' widths are
     SIMT_MASKED_WIDTHS, and the widths' functions are the wrapper's."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
+    body = src[src.index("int dispatch_bf16("):src.index("int prologue(")]
+    widths = tuple(int(w) for w in re.findall(r"TC_CASE\((\d+)\)", body))
+    assert "case wide::W:" in body and "simt" not in body
+    wide = int(re.search(r"constexpr int W = (\d+);",
+                         src[src.index("namespace wide {"):]).group(1))
+    assert widths + (wide,) == tfa.TC_WIDTHS
     tc = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
-    body = tc[tc.index("int dispatch("):]
-    assert tuple(int(w) for w in re.findall(r"TC_CASE\((\d+)\)", body)) \
-        == tfa.TC_WIDTHS
     expr = re.search(r"constexpr int width\(int hd\) \{\s+return ([^;]+);",
                      tc).group(1)
-    assert "hd % 8 != 0" in expr and "hd <= 256 ? 256 : 0" in expr
+    assert " ".join(expr.split()) == (
+        "hd < 1 || hd > 512 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= "
+        "192 ? 192 : hd <= 256 ? 256 : 512")
+    entry = src[src.index('extern "C" int flash_attention_bf16('):]
+    assert "__nv_bfloat16>" not in src and "simt::" not in entry[
+        :entry.index('extern "C" int flash_attention_geometry(')]
     simt = src[src.index("namespace simt {"):src.index("}  // namespace simt")]
     listed = simt[simt.index("#define SIMT_WIDTH_LIST(X)"):
                   simt.index("// head dim -> the instance of its width")]
@@ -163,14 +172,13 @@ def test_flash_attention_bf16_head_dims_are_the_cuda_instances():
                        simt).group(1)
     assert tuple(int(w) for w in re.findall(r"W == (\d+)", masked)) == \
         tfa.SIMT_MASKED_WIDTHS
-    assert tfa.TC_HEAD_DIMS == tuple(range(8, 257, 8))
     assert tfa.HEAD_DIMS == tuple(range(1, 513))
     for hd in tfa.HEAD_DIMS:
-        if hd in tfa.TC_HEAD_DIMS:
-            assert tfa.route(torch.bfloat16, hd) == "tc"
-            assert tfa.tc_width(hd) - 64 < hd <= tfa.tc_width(hd)
-        else:
-            assert tfa.route(torch.bfloat16, hd) == "simt"
+        assert tfa.route(torch.bfloat16, hd) == "tc"
+        w = tfa.tc_width(hd)
+        assert w in tfa.TC_WIDTHS and hd <= w and all(
+            v < hd for v in tfa.TC_WIDTHS if v < w)
+        assert tfa.ld(hd) % 8 == 0 and hd <= tfa.ld(hd) < hd + 8
         assert tfa.route(torch.float32, hd) == "simt"
         w = tfa.simt_width(hd)
         if hd in tfa.SIMT_WIDTHS:
@@ -795,17 +803,20 @@ def test_build_names_every_source(tmp_path, monkeypatch):
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith(f"lib{name}_") and path.suffix == ".so"
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
-    for name in ("flash_attention", "packed_matmul", "bw_stats",
-                 "gmm_loglik", "gmm_align", "gmm_rescore"):
+    for name in ("packed_matmul", "bw_stats", "gmm_loglik", "gmm_align",
+                 "gmm_rescore"):
         assert _build.includes(name) == ["hopper.cuh"]
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert _build.includes(name) == ["hopper.cuh", "restride.cuh"]
     for name in ("selective_scan", "selective_scan_bwd"):
         assert _build.includes(name) == ["hopper.cuh", "selective_scan.cuh"]
     for p in _build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    before = {n: _build.library_path(n) for n in sources}
-    with open(tmp_path / "hopper.cuh", "a") as fh:
-        fh.write("// edited\n")
-    after = {n: _build.library_path(n) for n in sources}
-    for n in sources:
-        assert (before[n] != after[n]) == ("hopper.cuh" in _build.includes(n))
+    for header in ("hopper.cuh", "restride.cuh"):
+        before = {n: _build.library_path(n) for n in sources}
+        with open(tmp_path / header, "a") as fh:
+            fh.write("// edited\n")
+        after = {n: _build.library_path(n) for n in sources}
+        for n in sources:
+            assert (before[n] != after[n]) == (header in _build.includes(n))

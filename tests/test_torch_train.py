@@ -933,17 +933,22 @@ def test_lm_backward_wrappers_refuse_cpu_tensors():
 def test_backward_instances_are_the_cuda_ones():
     """``HEAD_DIMS`` and ``BWD_D_STATES`` list exactly the cases the
     backward entry points of the ``.cu`` sources dispatch: every head dim
-    from 1 to 512, bf16 to a tensor-core instance of its width or to the
-    CUDA-core instance of its width, f32 to the CUDA-core one; every
-    d_state from 1 to 256 to the instance ``instance`` names, past 64 once
-    for each of its ``groups``."""
+    from 1 to 512, bf16 to the tensor-core instance of its width (tc's up
+    to 256, wide's 512 above; none on the CUDA cores), f32 to the
+    CUDA-core instance of its width; every d_state from 1 to 256 to the
+    instance ``instance`` names, past 64 once for each of its
+    ``groups``."""
     from repro_torch.kernels import _build
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    body = src[src.index('extern "C" int flash_attention_bwd_bf16('):]
+    body = src[src.index('extern "C" int flash_attention_bwd_bf16('):
+               src.index('extern "C" int flash_attention_bwd_geometry(')]
+    assert "dispatch_bf16(" in body and "simt::" not in body
+    body = src[src.index("int dispatch_bf16("):src.index("int prologue(")]
     tc = tuple(int(w) for w in re.findall(r"BWD_TC_CASE\((\d+)\)", body))
-    assert tc == tuple(sorted({TFA.tc_width(n)
-                               for n in TFA.BWD_TC_HEAD_DIMS}))
-    assert "simt::dispatch<__nv_bfloat16>" in body
+    assert "case wide::W:" in body and "simt::" not in body
+    assert tc + (512,) == tuple(sorted({TFA.tc_width(n, backward=True)
+                                        for n in TFA.HEAD_DIMS}))
+    assert TFA.BWD_TC_WIDTHS == tc + (512,)
     simt = src[src.index("namespace simt {"):src.index("}  // namespace simt")]
     listed = simt[simt.index("#define SIMT_WIDTH_LIST(X)"):
                   simt.index("// head dim -> the instance of its width")]
@@ -968,24 +973,26 @@ def test_backward_instances_are_the_cuda_ones():
 
 
 def test_backward_tensor_core_dispatch_is_the_cuda_one():
-    """``BWD_TC_HEAD_DIMS`` are the bf16 head dims the backward entry
-    point sends to its tensor-core kernels (namespace tc: ``tc::width`` a
-    multiple of 8 up to 128 or in 193 to 256); the rest of the domain goes
-    to the CUDA-core ones, as ``bwd_scope`` says."""
+    """Every bf16 head dim goes to the backward entry point's tensor-core
+    kernels (``tc::width``: 64, 128, 256 (129 to 192 among them: no
+    instance of width 192) and 512, never 0 in the domain), each on the
+    instance ``tc_width(hd, backward=True)`` names; f32 goes to the
+    CUDA-core ones, as ``bwd_scope`` says."""
     from repro_torch.kernels import _build
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     tc = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
     expr = re.search(r"constexpr int width\(int hd\) \{\s+return ([^;]+);",
                      tc).group(1)
     assert expr.replace("\n", " ").split() == (
-        "hd < 1 || hd % 8 != 0 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128 "
-        ": hd <= 192 ? 0 : hd <= 256 ? 256 : 0").split()
-    assert TFA.BWD_TC_HEAD_DIMS == tuple(
-        d for d in range(8, 257, 8) if not 128 < d <= 192)
+        "hd < 1 || hd > 512 ? 0 : hd <= 64 ? 64 : hd <= 128 ? 128 "
+        ": hd <= 256 ? 256 : 512").split()
     for hd in TFA.HEAD_DIMS:
-        assert TFA.bwd_scope(torch.bfloat16, hd) == (
-            "tc" if hd in TFA.BWD_TC_HEAD_DIMS else "simt")
+        assert TFA.bwd_scope(torch.bfloat16, hd) == "tc"
         assert TFA.bwd_scope(torch.float32, hd) == "simt"
+        w = TFA.tc_width(hd, backward=True)
+        assert w == (64 if hd <= 64 else 128 if hd <= 128 else 256
+                     if hd <= 256 else 512)
+        assert TFA.bwd_geometry(torch.bfloat16, hd)[:2] == (1, w)
 
 
 @pytest.mark.parametrize("arch", [STABLELM, JAMBA])

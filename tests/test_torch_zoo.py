@@ -486,7 +486,7 @@ def test_hd256_has_bf16_instances_that_fit():
     the query heads), each within a block's shared memory, and the
     registry describes both."""
     bf = torch.bfloat16
-    assert 256 in tfa.TC_HEAD_DIMS
+    assert tfa.route(bf, 256) == "tc" and tfa.tc_width(256) == 256
     assert tfa.smem_bytes(bf, 256) <= 232448
     assert tfa.tc_rows(256) == 64 and tfa.tc_rows(128) == 128
     assert tfa.bwd_scope(bf, 256) == "tc" and tfa.bwd_rows(bf, 256) == 64
