@@ -107,8 +107,9 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   on (2, 2) through ``moe_a2a``, each with an f32 step (its loss, grad
   norm, params and gradients) held to one rank, Jamba with experts (one
   period) prefilling on (2, 2) against one rank in f32 activations and,
-  at its first MoE layer, in bf16, StableLM-2 steps whose collectives by
-  op equal their lowering in a fake world, the elastic restore (4, 1) ->
+  at its first MoE layer, in bf16, StableLM-2 steps (4 layers on (2, 2),
+  2 on (1, 2)) whose collectives by op equal their lowering in a fake
+  world, the elastic restore (4, 1) ->
   (2, 2) and (2, 1), and one LM dry-run row per production mesh equal to
   ``tests/test_torch_mesh_lm.py``'s ``LM_PINS``;
 * lifts the i-vector side's refusals (phase 16): each wrapper's geometry
@@ -131,11 +132,15 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   timed beside SDPA and the bound; Jamba one period served at d_state
   256 and trained at 128, StableLM-2 8 layers served at head_dim 72 and
   320 and trained at 320, Whisper 2 + 2 layers at head_dim 81, all at
-  full width, and SMOKE configs at the new shapes card against CPU.
+  full width, and SMOKE configs at the new shapes card against CPU (f32
+  train steps on the CUDA-core kernels at head_dim 320 and 33 among
+  them).
   ``--phase 17`` runs it alone after the card and build steps.
 
 ``--rows SRC`` times only the LM kernels' existing rows (``ROWS``) with
 the package under SRC, for a parent against a change on one card.
+``--probe`` splits the f32 attention kernels' time into their parts
+(``PROBE_VARIANTS``) beside an f32 SGEMM.
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -975,8 +980,9 @@ IVEC_FORM_ROWS = {
 
 
 # the attention's forms with rows of their own (phase 17;
-# flash_attention.form): the row is "<wrapper>_<form>"
-ATTENTION_FORMS = ("tc8", "staged", "wide")
+# flash_attention.form): the row is "<wrapper>_<form>"; "simt" is f32 on
+# the CUDA cores at every head dim
+ATTENTION_FORMS = ("tc8", "staged", "wide", "simt")
 
 
 def reset_counts() -> None:
@@ -3966,6 +3972,10 @@ FIRST_BWD_MS = {"flash_attention_bwd StableLM": 10.982,
                "flash_attention_bwd Jamba": 26.996,
                "flash_attention_bwd Gemma": 29.100,
                "selective_scan_bwd": 6.699}
+# the f32 attention backward's times at these shapes (B = 1, S = 4096) on
+# the CUDA-core kernels of the design before the register-blocked one
+# (PERF.md §6; H100 80GB HBM3, 700 W)
+F32_FIRST_BWD_MS = {"StableLM": 10.880, "Jamba": 27.108}
 # segment lengths (chunks) the scan backward is swept over at Jamba's shape
 SCAN_SEGMENTS = (4, 8, 16, 32, 64, 256)
 # the hd-256 attention backward's query-head splits of the dK/dV pass
@@ -4111,10 +4121,13 @@ def check_attention_bwd(g, dev):
                                5))
         rec["tflops"] = flops / rec["ms"] / 1e9
         rec["bound_share"] = b_ms / rec["ms"]
-        before = FIRST_BWD_MS.get(f"flash_attention_bwd {label}") \
-            if dtype == torch.bfloat16 else None
-        was = (f" (first version: {before:.3f} ms, "
+        before = (FIRST_BWD_MS.get(f"flash_attention_bwd {label}")
+                  if dtype == torch.bfloat16 else F32_FIRST_BWD_MS[label])
+        which = ("first version" if dtype == torch.bfloat16
+                 else "the CUDA cores' design before")
+        was = (f" ({which}: {before:.3f} ms, "
                f"{before / rec['ms']:.2f}x)" if before else "")
+        rec["before_ms"] = before
         print(f"  flash_attention_bwd {rec['case']} ({rec['scope']}): "
               f"max|diff| / max|plain| {rel:.3e} (tolerance {tol:g}), "
               f"bitwise repeatable; kernel {rec['ms']:.3f} ms{was}, "
@@ -4863,7 +4876,7 @@ def lm_mesh_cfgs():
         "jamba_bf16": jamba.with_overrides(
             n_layers=jamba.attn_period,
             moe=dc.replace(jamba.moe, capacity_factor=64.0)),
-        "stablelm_bf16": slm.with_overrides(n_layers=8),
+        "stablelm_bf16": slm.with_overrides(n_layers=4),
         "stablelm_2l": slm.with_overrides(n_layers=2),
     }
 
@@ -7016,6 +7029,13 @@ def phase_16_alone(args, card: str, kind: str, build_s: float) -> int:
 P17_HEAD_DIMS = (1, 8, 24, 33, 40, 72, 100, 136, 144, 160, 176, 200, 257,
                  320, 384, 448, 512)
 P17_ATT = dict(B=2, S=1000, H=8, KVH=2)
+# phase 17's f32 main-path runs (smoke_train_vs_cpu): a train step card vs
+# CPU on the CUDA-core kernels past 256 (two gradient column slices) and
+# at a head dim staged 4 wide
+P17_F32_SMOKE = (
+    ("stablelm-1.6b f32 head_dim 320", "stablelm-1.6b", {"head_dim": 320}),
+    ("whisper-large-v3 f32 head_dim 33", "whisper-large-v3",
+     {"head_dim": 33}))
 # rows a tile of backward_blocks, the backward's plain version, on the card
 P17_PLAIN_BLOCK = 250
 P17_D_STATES = (65, 100, 128, 129, 200, 256)
@@ -7035,6 +7055,8 @@ P17_ROWS = {
     "flash_attention_bwd_tc8": ("bwd", "bfloat16", 72),
     "flash_attention_bwd_staged": ("bwd", "bfloat16", 100),
     "flash_attention_bwd_wide": ("bwd", "bfloat16", 320),
+    "flash_attention_simt": ("fwd", "float32", 320),
+    "flash_attention_bwd_simt": ("bwd", "float32", 320),
     "selective_scan_grouped": ("scan", "float32", P17_ROW_D_STATE),
     "selective_scan_grouped_bf16": ("scan", "bfloat16", P17_ROW_D_STATE),
     "selective_scan_grouped_f16": ("scan", "float16", P17_ROW_D_STATE),
@@ -7171,6 +7193,20 @@ def p17_attention(g, dev) -> list:
                     q, k, v, o, lse, do), 5),
                 bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=g_ms,
                 bwd_bound_by=g_by, bwd_library_ms=lib_bwd_ms)
+            if dtype == torch.float32 and hd > 256:
+                # o's columns split over two blocks a row tile, each
+                # recomputing S: the same bits, timed against the one
+                # block's recompute-free launch
+                split = FA.flash_attention(q, k, v, _slices=2)
+                if not torch.equal(split, FA.flash_attention(q, k, v)):
+                    fail(f"flash_attention {label}: two column slices "
+                         "differ from one")
+                rec["split_ms"] = cuda_ms(
+                    lambda: FA.flash_attention(q, k, v, _slices=2), 5)
+                print(f"  flash_attention {label}: o's columns over two "
+                      f"slices {rec['split_ms']:.4f} ms (S recomputed), "
+                      f"one {rec['ms']:.4f}; the same bits")
+                del split
             print(f"  flash_attention_bwd {label}: max|diff| / max|plain| "
                   f"{b_rel:.3e} against backward_blocks in f32 (tolerance "
                   f"{tol:g}), bitwise repeatable; forward {rec['ms']:.4f} "
@@ -7318,8 +7354,9 @@ def p17_runs(seed: int, dev):
     width, 2 + 2 layers, served at head_dim 81; then SMOKE card vs CPU:
     StableLM at head_dim 40 and Whisper at 33 in bf16 (prefill and a train
     step), Jamba at d_state 100, scan_dtype bf16, and 129, f16 (prefill,
-    decode and a train step: a last group of 36 and of 1 state). Returns
-    (record, launches by run)."""
+    decode and a train step: a last group of 36 and of 1 state), and f32
+    SMOKE train steps card vs CPU on the CUDA-core kernels
+    (P17_F32_SMOKE). Returns (record, launches by run)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as SV
@@ -7393,6 +7430,12 @@ def p17_runs(seed: int, dev):
          ("flash_attention_staged", "flash_attention_bwd_staged"))))
     paths.update(smoke_paths)
     lap("bf16_smoke")
+    rec["f32_smoke"] = smoke_train_vs_cpu(seed, dev, cases=P17_F32_SMOKE)
+    for key, _, _ in P17_F32_SMOKE:
+        paths[key] = rec["f32_smoke"][key]["launches"]
+        require_launches(key, paths[key], ("flash_attention_simt",
+                                           "flash_attention_bwd_simt"))
+    lap("f32_smoke")
     for sd, ds in (("bfloat16", 100), ("float16", 129)):
         key = f"jamba_smoke_ds{ds}_{SHORT[sd]}"
         rec[key], paths[key] = f16_scan_smoke_vs_cpu(
@@ -7499,9 +7542,10 @@ def phase_17_alone(args, card: str, kind: str, build_s: float,
 
 
 # --rows: the LM kernels' rows that a change to their sources must leave
-# where they were, by name -> (kernel, B, S or T, H or di, KVH or ds, hd,
-# dtype): Jamba's prefill and training shapes, Gemma 2B's and the f32
-# CUDA-core kernel
+# where they were (or, for the f32 CUDA-core kernels, move), by name ->
+# (kernel, B, S or T, H or di, KVH or ds, hd, dtype): Jamba's prefill and
+# training shapes, Gemma 2B's, and the f32 kernels at hd 64, Jamba's
+# training shape and past 256 (320, 512)
 ROWS = {
     "flash_attention bf16 hd128 B4 S2048 32/8": ("fa", 4, 2048, 32, 8, 128,
                                                  torch.bfloat16),
@@ -7515,6 +7559,18 @@ ROWS = {
                                               torch.float32),
     "flash_attention_bwd f32 hd64 B2 S1000 8/2": ("fa_bwd", 2, 1000, 8, 2, 64,
                                                   torch.float32),
+    "flash_attention f32 hd128 B1 S4096 32/8": ("fa", 1, 4096, 32, 8, 128,
+                                                torch.float32),
+    "flash_attention_bwd f32 hd128 B1 S4096 32/8": ("fa_bwd", 1, 4096, 32, 8,
+                                                    128, torch.float32),
+    "flash_attention f32 hd320 B2 S1000 8/2": ("fa", 2, 1000, 8, 2, 320,
+                                               torch.float32),
+    "flash_attention_bwd f32 hd320 B2 S1000 8/2": ("fa_bwd", 2, 1000, 8, 2,
+                                                   320, torch.float32),
+    "flash_attention f32 hd512 B2 S1000 8/2": ("fa", 2, 1000, 8, 2, 512,
+                                               torch.float32),
+    "flash_attention_bwd f32 hd512 B2 S1000 8/2": ("fa_bwd", 2, 1000, 8, 2,
+                                                   512, torch.float32),
     "selective_scan f32 ds16 B4 T2048 di8192": ("ss", 4, 2048, 8192, 16,
                                                 None, None),
     "selective_scan_bwd f32 ds16 B1 T4096 di8192": ("ss_bwd", 1, 4096, 8192,
@@ -7562,6 +7618,133 @@ def rows_alone(src: str, card: str, kind: str) -> int:
     return 0
 
 
+# --probe: the f32 CUDA-core attention at Jamba's and StableLM's training
+# shapes, its kernels' time split into their parts. Each variant is the
+# kernels' source with some statements switched off at run time (``if (S
+# < 0)`` before them, so that the code and its registers stay as built):
+# the score products, the apply products, or both, then the ring's copies
+# too. What is left of a kernel with both products off is the work beside
+# them (copies, barriers, softmax), whose time adds to the products'.
+PROBE_SHAPES = (("Jamba", 1, 4096, 32, 8, 128),
+                ("StableLM", 1, 4096, 32, 32, 64))
+PROBE_OFF = {"score": {"flash_attention.cu": "      score<DC, R,",
+                       "flash_attention_bwd.cu":
+                           "      score_slab<R, RES, SU>("},
+             "apply": dict.fromkeys(("flash_attention.cu",
+                                     "flash_attention_bwd.cu"),
+                                    "      apply<WC, R, KC"),
+             "copies": dict.fromkeys(("flash_attention.cu",
+                                      "flash_attention_bwd.cu"),
+                                     "    if (c < total) {")}
+PROBE_VARIANTS = {"whole": (), "no apply": ("apply",),
+                  "no score": ("score",), "no products": ("score", "apply"),
+                  "no products or copies": ("score", "apply", "copies")}
+
+
+def probe_sources(build: Path, cuts) -> Path:
+    """A copy of csrc/ under ``build`` with the statements of PROBE_OFF's
+    ``cuts`` switched off in both attention sources."""
+    import shutil
+    from repro_torch.kernels import _build
+    d = build / "_".join(("probe",) + tuple(cuts))
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(_build.CSRC, d)
+    for fn in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        text = (d / fn).read_text()
+        for cut in cuts:
+            line = PROBE_OFF[cut][fn]
+            if line not in text:
+                fail(f"--probe: {fn} has no {line.strip()!r}")
+            text = text.replace(line, "    if (c < total && S < 0) {"
+                                if cut == "copies"
+                                else "      if (S < 0)\n" + line)
+        (d / fn).write_text(text)
+    return d
+
+
+def kernel_ms(fn, names, n: int = 3) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel whose name holds
+    one of ``names`` (torch.profiler, ``n`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = getattr(e, "cuda_time_total", 0) if t is None else t
+        for name in names:
+            if name in e.key:
+                out[name] += t / n / 1e3
+    return out
+
+
+def probe_alone(card: str, kind: str) -> int:
+    """``--probe``: PROBE_VARIANTS of the f32 attention kernels, each
+    built from its own copy of the sources, at PROBE_SHAPES: the forward's
+    ms (CUDA events) and the dQ and dK/dV kernels' (profiler); and one
+    f32 SGEMM (``torch.mm``, 8192 cubed, TF32 off) as the CUDA cores'
+    yardstick. Prints the table and writes chiprun_out/chip_smoke_probe.
+    json."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = 8192
+    a, b = (torch.randn(n, n, device=dev) for _ in range(2))
+    sgemm = 2.0 * n ** 3 / cuda_ms(lambda: torch.mm(a, b), 5) / 1e9
+    print(f"  f32 SGEMM (torch.mm, {n}^3): {sgemm:.1f} TFLOP/s")
+    del a, b
+    build = ROOT / "build"
+    dirs = {v: probe_sources(build, cuts)
+            for v, cuts in PROBE_VARIANTS.items()}
+    t0 = time.perf_counter()
+    started, seen = [], set()
+    for d in dirs.values():
+        _build.CSRC = d
+        for name in ("flash_attention", "flash_attention_bwd"):
+            if _build.library_path(name) not in seen:
+                seen.add(_build.library_path(name))
+                started.append((d, name, _build._start(name)))
+    for d, name, st in started:
+        _build.CSRC = d
+        _build._finish(name, *st)
+    print(f"  {len(started)} probe libraries built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rec = {"card": card, "sgemm_tflops": sgemm, "rows": []}
+    for label, B, S, H, KVH, hd in PROBE_SHAPES:
+        q, k, v, do = (torch.randn(B, S, m, hd, generator=g, device=dev)
+                       for m in (H, KVH, KVH, H))
+        for variant, d in dirs.items():
+            _build.CSRC = d
+            _build._LIBS.clear()
+            o, lse = FA.flash_attention(q, k, v, lse=True)
+            row = dict(shape=label, variant=variant,
+                       fwd_ms=cuda_ms(lambda: FA.flash_attention(q, k, v), 5),
+                       **kernel_ms(lambda: FA.flash_attention_bwd(
+                           q, k, v, o, lse, do),
+                           ("dq_kernel", "dkdv_kernel")))
+            print(f"  {label} f32 B={B} S={S} {H}/{KVH} hd {hd}, {variant}: "
+                  f"forward {row['fwd_ms']:.4f} ms, dQ kernel "
+                  f"{row['dq_kernel']:.4f}, dK/dV kernel "
+                  f"{row['dkdv_kernel']:.4f}")
+            rec["rows"].append(row)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_probe.json").write_text(json.dumps(rec, indent=1))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7574,6 +7757,9 @@ def main() -> int:
     ap.add_argument("--rows", default=None, metavar="SRC",
                     help="time only the LM kernels' existing rows (ROWS) "
                     "with the repro_torch package under SRC")
+    ap.add_argument("--probe", action="store_true",
+                    help="split the f32 attention kernels' time into "
+                    "their parts (PROBE_VARIANTS)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7600,15 +7786,17 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s), {kind}")
     if args.rows is not None:
         return rows_alone(args.rows, card, kind)
+    if args.probe:
+        return probe_alone(card, kind)
 
     # 2. build, then what ptxas reported in the attention's two builds of
     # their head-dim-256 instances (the bf16 forward's and backward's
     # 64-row blocks on wgmma, the f32 kernels) and of the width-512
     # tensor-core kernels (namespace wide): a spill or a serialized wgmma
-    # (C7512) fails the run. Printed: the f32 CUDA-core instances past 256
-    # (320 to 512, forward and backward: ptxas), the scan's forms at every
-    # d_state instance (cuobjdump's registers and stack of the built
-    # libraries)
+    # (C7512) fails the run. Printed: every f32 CUDA-core instance
+    # (namespace simt: the forward's, the dQ and dK/dV kernels', the
+    # split sum; ptxas), the scan's forms at every d_state instance
+    # (cuobjdump's registers and stack of the built libraries)
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
@@ -7630,7 +7818,7 @@ def main() -> int:
         fail(f"hd-256 and width-512 kernels spill or serialize their "
              f"wgmma: {bad}")
     ptxas_new = {}
-    for key in ("Li320E", "Li384E", "Li448E", "Li512E"):
+    for key in ("Li320E", "Li384E", "Li448E", "Li512E", "4simt"):
         ptxas_new.update(ptxas_report(ptxas, key))
     ptxas_new.update(res_usage(("selective_scan", "selective_scan_bwd")))
     for k, v in sorted(ptxas_new.items()):

@@ -313,8 +313,9 @@ def gate_configs(name: str):
         # MQA prefill; bf16 at a head dim below its instance's width (16:
         # width 64), one the backward runs on the width-256 instance (176),
         # a multiple of 8 (40), one staged (33), and the widest (512: the
-        # width-512 instances' column slices; f32's 32-row tiles, 16 in
-        # the backward) in both types
+        # width-512 instances' column slices; in f32 the backward's two
+        # gradient column slices and its dK/dV pass split over the query
+        # heads) in both types
         return [None, {"dtype": "float32"},
                 {"B": 4, "S": 2048, "H": 8, "KVH": 1, "hd": 256,
                  "dtype": "bfloat16"},

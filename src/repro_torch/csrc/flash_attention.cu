@@ -93,26 +93,38 @@
 // columns all lie past ld issues no P.V: hd 320 pays for S over 320
 // columns, not 512. Blocks are numbered longest first (hopper.cuh).
 //
-// The CUDA cores (namespace simt): f32 at every head dim 1 to 512, f32
-// FMAs throughout. One block per (q tile, head, batch), 256
-// threads as 16 x 16; thread (ty, tx) owns query rows ty + 16i. A head dim
-// that is a multiple of 16 up to 256, or of 64 above (SIMT_WIDTHS), runs an
-// EXACT kernel of its own width, whose masks, strides and stores are fixed
-// at compile time, so that the configs' head dims pay nothing for the
-// others. Any other head dim runs the masked kernel of the
-// least of 32, 64, 128, 256, 384 and 512 at or above it (SIMT_MASKED_WIDTHS),
-// its tiles' columns past hd zero and never stored, the scale from the true
-// hd. A tile is 64 rows up to width 256 and 32
-// above, so that the q, k, v and p tiles fit a block's shared memory at 512
-// (201,088 bytes; 213,760 at 256). The q tile, then each k and v tile, are
-// staged in shared memory (above the 48 KB default, so the entry point
-// raises the block's dynamic shared memory limit). Each thread computes a
-// 4 x 4 (2 x 2) block of scores, the row max and row sum go across the 16
-// lanes of a row by warp shuffles, and the running max m, sum l and the
-// output accumulator (4 or 2 rows x W/16 columns) stay in registers across
-// kv tiles. Tiles wholly above the diagonal are skipped; the p tile goes
-// through shared memory for P.V. It stores one element at a time, so a row
-// may start on any element (an odd head dim).
+// The CUDA cores (namespace simt): f32 at every head dim 1 to 512.
+// Precision contract: every product a chain of exact f32 FMAs (no TF32),
+// the softmax in f32 with masked scores at -1e30, o = acc / max(l,
+// 1e-30), lse = m + log(l) in natural-log units. Bound by the CUDA
+// cores: 67 TFLOP/s of f32 FMAs on the H100 (an f32 SGEMM by torch.mm
+// reaches 51.9 on the same card; PERF.md). The design
+// (flash_attention_simt.cuh has the two products and their layouts):
+//   - A block is 256 threads and R query rows: 128 up to width 128, where
+//     a thread holds 8 x 8 scores and 8 x 8 outputs, 64 above (8 x 4
+//     scores, up to 8 x 16 outputs at 512). It walks the keys up to its
+//     diagonal in steps of 128: S = Q.K^T, the online softmax on those
+//     registers (row max and sum by shuffles, p to an [R][132] tile in
+//     shared memory), then o += P.V. m, l and o stay in registers.
+//   - The q tile stays resident in shared memory, [R][ceil32(ld) + 4].
+//     A ring of STAGES = 3 slabs of 18 KB streams k and v by 16-byte
+//     cp.async copies issued two slabs ahead: a step's k slabs (128 keys
+//     x DC = 32 head-dim columns, rows DC + 4 floats apart for
+//     conflict-free loads), then its v slabs (KC keys x the block's
+//     columns). Rows past S and columns past the head dim arrive as zeros
+//     through the copy's source size.
+//   - 16-byte copies need rows of a multiple of 4 floats, so at any other
+//     head dim the entry stages q, k and v ld = ceil4(hd) wide (zeros past
+//     hd; restride.cuh, in a scratch the wrapper allocates). o is written
+//     hd wide by the kernel itself, float4 stores where hd allows.
+//   - Instances of width 32, 64, .. 256 and 320, 384, 448, 512
+//     (SIMT_WIDTHS); a head dim runs the least one at or above it, its
+//     k slabs cut at the head dim, so only P.V pays for the width.
+//   - A launch may split o's columns over a grid axis of nslice slices,
+//     each block recomputing S for its slice (SLICES = 1 by default: the
+//     widest block's outputs fit its registers); the wrapper's _slices
+//     measures the split against that recompute.
+//   - Blocks are numbered longest first (hopper.cuh).
 //
 // All keep the [S, S] scores out of device memory, the property of the
 // TPU kernel worth keeping.
@@ -122,6 +134,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "flash_attention_simt.cuh"
 #include "hopper.cuh"
 #include "restride.cuh"
 
@@ -133,236 +146,261 @@ constexpr float NEG = -1e30f;
 
 namespace simt {
 
-constexpr int BQ = 64;          // query rows (and keys) a tile up to width 256
-constexpr int THREADS = 256;    // 16 x 16
+using namespace attn_simt;
+using hopper::cp_async16_zfill;
+using hopper::cp_commit;
+using hopper::cp_wait;
 
-// rows of a query or (k, v) tile at instance width W: BQ up to 256, half
-// above, so that the tiles fit a block's shared memory at width 512
-__host__ __device__ constexpr int rows(int W) { return W <= 256 ? BQ : BQ / 2; }
+constexpr int STAGES = 3;       // ring slabs in flight
+constexpr int DC = 32;          // head-dim columns of a k slab
+constexpr int SLD = DC + 4;     // its row stride
+constexpr int STAGE = TILE * SLD;   // floats a slab: k [TILE][SLD], v [KC][WC]
+constexpr int SLICES = 1;       // column slices a row tile, by default
 
 // the instance a head dim runs (simt_width in kernels/flash_attention.py):
-// its own width where it is a multiple of 16 up to 256 or of 64 above (the
-// EXACT kernel, SIMT_WIDTHS), else the least of the masked widths at or
-// above it (SIMT_MASKED_WIDTHS); 0 outside 1 to 512
+// the least of 32, 64, .. 256, 320, 384, 448, 512 at or above it; 0
+// outside 1 to 512
 __host__ __device__ constexpr int width(int hd) {
   return hd < 1 || hd > 512 ? 0
-       : hd % 16 == 0 && (hd <= 256 || hd % 64 == 0) ? hd
-       : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256
-       : hd <= 384 ? 384 : 512;
+       : hd <= 256 ? (hd + 31) / 32 * 32 : (hd + 63) / 64 * 64;
 }
 
-// the widths with a masked kernel, for the head dims between the EXACT
-// ones (SIMT_MASKED_WIDTHS)
-__host__ __device__ constexpr bool masked(int W) {
-  return W == 32 || W == 64 || W == 128 || W == 256 || W == 384 || W == 512;
+// query rows a block at instance width W (simt_rows in
+// kernels/flash_attention.py): 128 up to 128, where the registers hold
+// 8 x 8 scores and 8 x 8 outputs a thread, else 64
+__host__ __device__ constexpr int rows(int W) { return W <= 128 ? 128 : 64; }
+
+// the resident q tile's row stride for operands ld wide: whole slabs of
+// DC columns and 4 more (an odd number of 16-byte units)
+__host__ __device__ constexpr int q_ld(int ld) {
+  return (ld + DC - 1) / DC * DC + 4;
 }
 
-// the q and k tiles [R][W + 1], the v tile [R][W] and p [R][R + 1], f32
-template <int W>
-constexpr size_t smem_bytes() {
-  constexpr size_t R = rows(W);
-  return sizeof(float) * (2 * R * (W + 1) + R * W + R * (R + 1));
+// a block's shared memory at R rows: the ring, the P tile, a row's
+// rescale (then its l) and the resident q tile [R][q_ld]
+__host__ __device__ constexpr int smem_bytes(int R, int ld) {
+  return 4 * (STAGES * STAGE + R * PLD + R + R * q_ld(ld));
 }
+static_assert(smem_bytes(64, 512) <= 232448 && smem_bytes(128, 128) <=
+              232448, "over the block's shared memory");
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-
-// T: the input type (f32); W: the instance's width. The
-// tiles' columns hd .. W - 1 load as zeros and add nothing to the
-// products; the stores skip them. EXACT (hd = W): the kernel of that one
-// head dim, its masks and strides fixed at compile time.
-template <typename T, int W, bool EXACT>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
-                       float* __restrict__ lse, int S, int H, int KVH, int hd,
-                       float scale) {
-  if (EXACT) hd = W;
-  constexpr int R = rows(W);        // query rows a block, keys a tile
-  constexpr int RI = R / 16;        // rows (and keys) a thread
-  constexpr int LD = W + 1;         // q and k tile row stride
-  constexpr int PLD = R + 1;        // p tile row stride
-  constexpr int CPT = W / 16;       // output columns a thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [R][LD]
-  float* Ks = Qs + R * LD;          // [R][LD]
-  float* Vs = Ks + R * LD;          // [R][W]
-  float* Ps = Vs + R * W;           // [R][PLD]
-
-  const int nq = (S + R - 1) / R;
-  const int qt = nq - 1 - (int)blockIdx.x;   // longest rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / KVH);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = qt * R;
-
-  const size_t qrow = (size_t)H * hd;        // row strides, in elements
-  const size_t krow = (size_t)KVH * hd;
-  const T* qb = q + (size_t)b * S * qrow + (size_t)h * hd;
-  const T* kb = k + (size_t)b * S * krow + (size_t)kh * hd;
-  const T* vb = v + (size_t)b * S * krow + (size_t)kh * hd;
-  T* ob = o + (size_t)b * S * qrow + (size_t)h * hd;
-
-  for (int idx = tid; idx < R * W; idx += THREADS) {
-    const int r = idx / W, d = idx - (idx / W) * W;
-    const int s = q0 + r;
-    Qs[r * LD + d] =
-        s < S && (EXACT || d < hd) ? ld(qb + (size_t)s * qrow + d) : 0.f;
+// rows [0, R) x columns [0, 4 C4) of a slab into dst (row stride DLD):
+// row r from src + (row0 + r) stride + col0, zeros at rows past S and at
+// columns past ld (16-byte copies: ld and the strides are multiples of 4)
+template <int R, int C4, int DLD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          size_t stride, int row0, int S,
+                                          int col0, int ld) {
+  for (int p = threadIdx.x; p < R * C4; p += THREADS) {
+    const int r = p / C4, c = 4 * (p % C4);
+    const bool in = row0 + r < S && col0 + c < ld;
+    cp_async16_zfill(dst + r * DLD + c,
+                     in ? src + (size_t)(row0 + r) * stride + col0 + c : src,
+                     in ? 16 : 0);
   }
+}
 
-  float acc[RI][CPT];
-  float m[RI], l[RI];
+// WC: the block's columns of o (the instance's width; slice sl of nslice
+// holds columns sl WC ..). q, k, v rows ld floats a head (ld = hd rounded
+// up to 4, staged by the entry where that is not hd), o rows hd.
+template <int WC>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o,
+           float* __restrict__ lse, int S, int H, int KVH, int hd, int ld,
+           int nslice, float scale) {
+  constexpr int R = rows(WC);
+  using C = Cols<WC, R>;
+  using G = Rows<R>;
+  constexpr int KC = chunk_rows(WC, STAGE);   // v rows a slab
+  constexpr int NV = TILE / KC;
+  const int qld = q_ld(ld);
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                         // [STAGES][STAGE]
+  float* Ps = ring + STAGES * STAGE;          // [R][PLD]
+  float* Rs = Ps + R * PLD;                   // [R]
+  float* Qs = Rs + R;                         // [R][qld]
+
+  const int3 blk = hopper::longest_first();
+  const int nq = (S + R - 1) / R;
+  const int qt = nq - 1 - blk.x;              // longest rows first
+  const int h = blk.y / nslice, sl = blk.y % nslice;
+  const int b = blk.z;
+  const int kh = h / (H / KVH);
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int q0 = qt * R, c0 = sl * WC;
+  // the score layout: rows rs .. rs + 7, keys kl + LG j
+  const int rs = 8 * (G::RG * w + lane / G::LG), kl = lane % G::LG;
+  const size_t qs = (size_t)H * ld, ks = (size_t)KVH * ld;
+  const float* kb = k + (size_t)b * S * ks + (size_t)kh * ld;
+  const float* vb = v + (size_t)b * S * ks + (size_t)kh * ld;
+  const int nd = (ld + DC - 1) / DC;          // k slabs a step
+  const int per = nd + NV;
+  const int steps = (q0 + R - 1 < S ? q0 + R - 1 : S - 1) / TILE + 1;
+  const int total = steps * per;
+
+  // the q tile, resident, in the first group of copies
+  {
+    const float* qb = q + (size_t)b * S * qs + (size_t)h * ld;
+    const int c4s = qld / 4 - 1;
+    for (int p = tid; p < R * c4s; p += THREADS) {
+      const int r = p / c4s, c = 4 * (p % c4s);
+      const bool in = q0 + r < S && c < ld;
+      cp_async16_zfill(Qs + r * qld + c,
+                       in ? qb + (size_t)(q0 + r) * qs + c : qb, in ? 16 : 0);
+    }
+  }
+  // slab c of the block's sequence: a step's nd slabs of k columns, then
+  // its NV slabs of v rows
+  auto issue = [&](int c) {
+    if (c < total) {
+      float* dst = ring + (c % STAGES) * STAGE;
+      const int k0 = c / per * TILE, part = c % per;
+      if (part < nd)
+        load_rows<TILE, DC / 4, SLD>(dst, kb, ks, k0, S, part * DC, ld);
+      else
+        load_rows<KC, WC / 4, WC>(dst, vb, ks, k0 + (part - nd) * KC, S, c0,
+                                  ld);
+    }
+    cp_commit();
+  };
+  for (int c = 0; c < STAGES - 1; ++c) issue(c);
+
+  const int r0 = C::TM * (tid / C::CT), c4 = tid % C::CT;
+  float4 acc[C::TM][C::TN4];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::TN4; ++j) acc[i][j] = make_float4(0, 0, 0, 0);
+  float m[8], l[8];   // rows rs + i, the same in every lane of a group
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
     m[i] = NEG;
     l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * R;
-    __syncthreads();   // the last tile's readers are done; Qs is written
-    for (int idx = tid; idx < R * W; idx += THREADS) {
-      const int r = idx / W, d = idx - (idx / W) * W;
-      const int s = k0 + r;
-      const bool in = s < S && (EXACT || d < hd);
-      Ks[r * LD + d] = in ? ld(kb + (size_t)s * krow + d) : 0.f;
-      Vs[r * W + d] = in ? ld(vb + (size_t)s * krow + d) : 0.f;
+  int c = 0;
+  for (int t = 0; t < steps; ++t) {
+    const int k0 = t * TILE;
+    float sc[8][G::KJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < G::KJ; ++j) sc[i][j] = 0.f;
+    for (int part = 0; part < nd; ++part, ++c) {
+      cp_wait<STAGES - 2>();
+      __syncthreads();   // slab c landed; slab c - 1's readers are done
+      issue(c + STAGES - 1);
+      score<DC, R, R == 128 ? 2 : DC / 4>(Qs + rs * qld + part * DC, qld,
+                                          ring + (c % STAGES) * STAGE, sc,
+                                          kl);
     }
-    __syncthreads();
-
-    float sc[RI][RI];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RI; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < W; ++d) {
-      float qv[RI], kv[RI];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) qv[i] = Qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < RI; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < RI; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+    for (int i = 0; i < 8; ++i) {
+      const int qpos = q0 + rs + i;
       float mx = NEG;
 #pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const float s = kpos <= qpos ? sc[i][j] * scale : NEG;
+      for (int j = 0; j < G::KJ; ++j) {
+        const float s =
+            k0 + kl + G::LG * j <= qpos ? sc[i][j] * scale : NEG;
         sc[i][j] = s;
         mx = fmaxf(mx, s);
       }
-      // the 16 lanes of a row are one half of a warp
+      const float m_new = fmaxf(m[i], group_max<G::LG>(mx));
+      float sum = 0.f;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
+      for (int j = 0; j < G::KJ; ++j) {
         const float p = expf(sc[i][j] - m_new);
-        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = p;
-        rs += p;
+        Ps[(rs + i) * PLD + kl + G::LG * j] = p;
+        sum += p;
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
       const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + rs;
+      l[i] = l[i] * alpha + group_sum<G::LG>(sum);
       m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
+      if (kl == i) Rs[rs + i] = alpha;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < R; ++c) {
-      float pv[RI];
+    for (int part = 0; part < NV; ++part, ++c) {
+      cp_wait<STAGES - 2>();
+      __syncthreads();   // slab c landed; P and the rescale are written
+      issue(c + STAGES - 1);
+      if (part == 0) {
 #pragma unroll
-      for (int i = 0; i < RI; ++i) pv[i] = Ps[(ty + 16 * i) * PLD + c];
+        for (int i = 0; i < C::TM; ++i) {
+          const float a = Rs[r0 + i];
 #pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        const float vv = Vs[c * W + tx + 16 * cc];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) acc[i][cc] = fmaf(pv[i], vv, acc[i][cc]);
+          for (int j = 0; j < C::TN4; ++j) {
+            acc[i][j].x *= a;
+            acc[i][j].y *= a;
+            acc[i][j].z *= a;
+            acc[i][j].w *= a;
+          }
+        }
       }
+      apply<WC, R, KC, R == 128 ? 2 : KC / 4>(
+          Ps + part * KC, ring + (c % STAGES) * STAGE, acc, r0, c4);
     }
   }
 
+  __syncthreads();   // the last step's readers of Rs are done
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int qpos = q0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int qpos = q0 + rs + i;
+    if (kl == i) {
+      Rs[rs + i] = fmaxf(l[i], 1e-30f);
+      if (lse != nullptr && sl == 0 && qpos < S)
+        lse[((size_t)b * H + h) * S + qpos] = m[i] + logf(l[i]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int qpos = q0 + r0 + i;
     if (qpos >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = Rs[r0 + i];
+    float* row = o + ((size_t)b * S + qpos) * H * hd + (size_t)h * hd;
 #pragma unroll
-    for (int cc = 0; cc < CPT; ++cc)
-      if (EXACT || tx + 16 * cc < hd)
-        st(ob + (size_t)qpos * qrow + tx + 16 * cc, acc[i][cc] / denom);
-    // the 16 lanes of a row hold the same m and l
-    if (lse != nullptr && tx == 0)
-      lse[((size_t)b * H + h) * S + qpos] = m[i] + logf(l[i]);
+    for (int j = 0; j < C::TN4; ++j) {
+      const float4 a = acc[i][j];
+      store4(row, c0 + 4 * (c4 + C::CT * j), hd,
+             make_float4(a.x / denom, a.y / denom, a.z / denom,
+                         a.w / denom));
+    }
   }
 }
 
-template <typename T, int W, bool EXACT>
-int launch_kernel(const void* q, const void* k, const void* v, void* o,
-                  void* lse, int B, int S, int H, int KVH, int hd,
-                  cudaStream_t stream) {
-  const size_t smem = smem_bytes<W>();
-  static_assert(smem_bytes<W>() <= 232448, "over the block's shared memory");
+template <int WC>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int B, int S, int H, int KVH, int hd, int ld,
+           int nslice, cudaStream_t st) {
+  constexpr int R = rows(WC);
+  const int smem = smem_bytes(R, ld);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;   // a sliced ld
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, W, EXACT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fwd_kernel<WC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + rows(W) - 1) / rows(W), H, B);
+  const dim3 grid((S + R - 1) / R, H * nslice, B);
   const float scale = (float)std::pow((double)hd, -0.5);
-  flash_attention_kernel<T, W, EXACT><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, KVH, hd, scale);
+  fwd_kernel<WC><<<grid, THREADS, smem, st>>>(q, k, v, o, lse, S, H, KVH, hd,
+                                              ld, nslice, scale);
   return (int)cudaGetLastError();
-}
-
-// a head dim of the width itself runs the EXACT kernel; any other the
-// masked kernel of a masked width
-template <typename T, int W>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int S, int H, int KVH, int hd, cudaStream_t stream) {
-  if (hd == W) {
-    return launch_kernel<T, W, true>(q, k, v, o, lse, B, S, H, KVH, hd,
-                                     stream);
-  } else if constexpr (masked(W)) {
-    return launch_kernel<T, W, false>(q, k, v, o, lse, B, S, H, KVH, hd,
-                                      stream);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 // the instances, by width (SIMT_WIDTHS)
 #define SIMT_WIDTH_LIST(X)                                                  \
-  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176)    \
-  X(192) X(208) X(224) X(240) X(256) X(320) X(384) X(448) X(512)
+  X(32) X(64) X(96) X(128) X(160) X(192) X(224) X(256) X(320) X(384)      \
+  X(448) X(512)
 
-// head dim -> the instance of its width
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
-             int B, int S, int H, int KVH, int hd, cudaStream_t st) {
-  switch (width(hd)) {
+// a head dim's launch on operands ld wide: nslice column slices (0: the
+// default, SLICES) of the instance width(ceil(ld / nslice))
+inline int dispatch(const float* q, const float* k, const float* v,
+                    float* o, float* lse, int B, int S, int H, int KVH,
+                    int hd, int ld, int nslice, cudaStream_t st) {
+  if (nslice == 0) nslice = SLICES;
+  if (nslice < 1 || width(hd) == 0) return (int)cudaErrorInvalidValue;
+  switch (width((ld + nslice - 1) / nslice)) {
 #define SIMT_CASE(W) \
   case W:            \
-    return launch<T, W>(q, k, v, o, lse, B, S, H, KVH, hd, st);
+    return launch<W>(q, k, v, o, lse, B, S, H, KVH, hd, ld, nslice, st);
     SIMT_WIDTH_LIST(SIMT_CASE)
 #undef SIMT_CASE
     default:
@@ -370,24 +408,17 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
   }
 }
 
-// out = {width, query rows a block, shared memory} of a head dim's
-// instance, or 0 where it has none
-inline int geometry(int hd, int* out) {
-  switch (width(hd)) {
-#define SIMT_GEO(W)                 \
-  case W:                           \
-    out[0] = W;                     \
-    out[1] = rows(W);               \
-    out[2] = (int)smem_bytes<W>();  \
-    return 1;
-    SIMT_WIDTH_LIST(SIMT_GEO)
-#undef SIMT_GEO
-    default:
-      return 0;
-  }
-}
-
 #undef SIMT_WIDTH_LIST
+
+// out = {width, query rows a block, shared memory} of a head dim's
+// launch, or 0 where it has none
+inline int geometry(int hd, int* out) {
+  if (width(hd) == 0) return 0;
+  out[0] = width(hd);
+  out[1] = rows(width(hd));
+  out[2] = smem_bytes(rows(width(hd)), (hd + 3) / 4 * 4);
+  return 1;
+}
 
 }  // namespace simt
 
@@ -1103,15 +1134,42 @@ int prologue(int B, int S, int H, int KVH, int device) {
 
 }  // namespace
 
-// lse: null, or [B, H, S] f32 for the row log-sum-exps
+// lse: null, or [B, H, S] f32 for the row log-sum-exps; stage: NULL where
+// hd is a multiple of 4, else f32 scratch for q, k and v staged ld =
+// ceil4(hd) columns wide, (B S H + 2 B S KVH) ld elements; nslice: o's
+// column slices a row tile (0: simt::SLICES)
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int B,
-                                   int S, int H, int KVH, int hd, int device,
+                                   const void* v, void* o, void* lse,
+                                   void* stage, int B, int S, int H, int KVH,
+                                   int hd, int nslice, int device,
                                    void* stream) {
-  const int err = prologue(B, S, H, KVH, device);
+  int err = prologue(B, S, H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
-  return simt::dispatch<float>(q, k, v, o, lse, B, S, H, KVH, hd,
-                               (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int ld = (hd + 3) / 4 * 4;
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  if (ld != hd) {
+    if (stage == nullptr || simt::width(hd) == 0)
+      return (int)cudaErrorInvalidValue;
+    const long long nq = (long long)B * S * H, nk = (long long)B * S * KVH;
+    float* qs = static_cast<float*>(stage);
+    float* ks = qs + nq * ld;
+    float* vs = ks + nk * ld;
+    const void* in[3] = {q, k, v};
+    void* staged[3] = {qs, ks, vs};
+    const long long rows[3] = {nq, nk, nk};
+    if ((err = restride::copy<uint32_t>(3, in, staged, rows, hd, ld, st)) !=
+        0)
+      return err;
+    qp = qs;
+    kp = ks;
+    vp = vs;
+  }
+  return simt::dispatch(qp, kp, vp, static_cast<float*>(o),
+                        static_cast<float*>(lse), B, S, H, KVH, hd, ld,
+                        nslice, st);
 }
 
 // bf16: the tensor cores at every head dim 1 to 512. stage: NULL where hd

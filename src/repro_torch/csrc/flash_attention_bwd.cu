@@ -32,9 +32,9 @@
 // namespace tc, or 512, namespace wide; 129 to 192 on the width-256 one:
 // the TMA's zeros past the head dim add nothing to any product, and the
 // stores skip those columns), f32 at every head dim on the CUDA cores
-// (namespace simt). The tensor maps' row stride ld is a multiple of 8
-// (the TMA's 16-byte strides, the paired bf16 stores' alignment): at any
-// other head dim the entry stages q, k, v, o and dO in buffers ld =
+// (namespace simt, below). On the tensor cores the maps' row stride ld is
+// a multiple of 8 (the TMA's 16-byte strides, the paired bf16 stores'
+// alignment): at any other head dim the bf16 entry stages q, k, v, o and dO in buffers ld =
 // ceil8(hd) columns wide, zeros past hd (restride.cuh, in a scratch the
 // wrapper allocates), and narrows dQ, dK and dV, which the kernels write
 // ld wide; the maps' extent and the scale come from hd.
@@ -164,28 +164,60 @@
 // of the other three 2x: 14 where the bound counts 5, as at hd 256, on
 // 16-row tiles.
 //
-// simt (CUDA cores, f32 FMAs): dq_kernel, one block per (query tile, head,
-// batch), and dkdv_kernel, one block per (key tile, kv head, batch), the
-// group's query heads walked in order; 256 threads as 16 x 16. The
-// instances are the forward's (SIMT_WIDTHS, SIMT_MASKED_WIDTHS): a multiple
-// of 16 up to 256, or of 64 above, runs an EXACT pair of kernels of its own
-// width, its masks and strides fixed at compile time; any other head dim
-// the masked pair of the least of 32, 64, 128, 256, 384 and 512 at or
-// above it, the tiles' columns past hd zero. The
-// stores are one element each (a row may start anywhere), the scale from
-// the true hd. Tiles of 64 rows up to width 128, 32 up to
-// 384 and 16 above, so that the four [rows][W + 1] f32 tiles fit a block's
-// shared memory (133,632 bytes a dK/dV block at 512, 205,824 at 384); the
-// score tile is split 4 x 4, 2 x 2 or 1 x 1 a thread. P and dS go through
-// shared memory. Every product and sum is f32. Keys and queries at
-// or past S load as zeros and are masked; a tile wholly above the diagonal
-// is never visited.
+// simt (CUDA cores): f32 at every head dim 1 to 512. Precision contract:
+// every product is a chain of exact f32 FMAs (no TF32), P = exp(S s - lse)
+// with lse in natural-log units as the forward writes it, every sum in f32
+// in a fixed order, no atomics: the same bits on every run. Bound by the
+// CUDA cores' FMAs (67 TFLOP/s of f32 on the H100); the two kernels issue
+// 7 products where the bound counts 5 (each recomputes S and dP), 9 past
+// hd 256 (S and dP once for each of two column slices). The forward's
+// design (flash_attention_simt.cuh: the score and apply products):
+//   - dq_kernel: one block per (R query rows, head x column slice, batch
+//     row), longest rows first; R = 128 up to width 128 (8 x 8 scores and
+//     outputs a thread), else 64. Per step of 128 keys up to the diagonal:
+//     S = Q.K^T, P = exp(S s - lse) into an [R][132] tile, dP = dO.V^T,
+//     dS = P (dP - Delta) in place (each thread rereads what it wrote, so
+//     S and dP share their registers), then dQ += dS.K over the slice's
+//     columns.
+//   - dkdv_kernel: one block per (R key rows, (kv head x column slice) x
+//     split, batch row), key tile 0 (the most queries) first; R = 128 up
+//     to width 64, else 64 (dK and dV hold 2 x 8 x 4 a thread at 128
+//     wide). It walks its split's query heads of the group in order and,
+//     for each, the query tiles of 128 from its diagonal on: S^T = K.Q^T,
+//     P^T into a tile, dP^T = V.dO^T, dS^T into another, then dV +=
+//     P^T.dO and dK += dS^T.Q over the slice's columns. GQA's sum over the
+//     group is a fixed-order sum in the block.
+//   - A ring of STAGES = 3 slabs of 20 KB streams the operands by 16-byte
+//     cp.async copies, two slabs ahead: a step's score slabs for S, then
+//     for dP (the other side's 128 rows, DC = 32 head-dim columns; or, where
+//     the block's own rows are not resident, those rows first and DC2 =
+//     16 columns), then its apply slabs (KC rows of k, or of dO and q, the
+//     slice's columns). The block's own rows (q and dO, or k and v) stay
+//     resident on 64-row blocks where they fit: up to ld 256 in the dQ
+//     kernel, 192 in the dK/dV kernel. Rows past S and columns past the
+//     head dim arrive as zeros.
+//   - The gradients' columns: up to 256 in a block; past hd 256 two column
+//     slices on a grid axis, each recomputing S and dP. The instances
+//     (SIMT_BWD_WIDTHS) are 32, 64, .. 256; a head dim runs the least at
+//     or above it, past 256 the least at or above half of it.
+//   - Parallelism: where the dK/dV grid gives fewer than about two blocks
+//     an SM (MQA, or small B and S), the group's query heads split over
+//     bwd_splits blocks, as on the tensor cores: each writes its partial
+//     dK (scaled) and dV in f32 to a workspace [2][nsplit][B, S, KVH, hd],
+//     and sum_splits_kernel adds them in split order.
+//   - 16-byte copies need rows of a multiple of 4 floats: at any other
+//     head dim the entry stages q, dO, k and v ceil4(hd) wide (restride.cuh,
+//     in a scratch the wrapper allocates); Delta reads o and dO as they
+//     are, and the kernels write dQ, dK and dV hd wide themselves.
+// Keys and queries at or past S arrive as zeros and are masked; a tile
+// wholly above the diagonal is never visited.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "flash_attention_simt.cuh"
 #include "hopper.cuh"
 #include "restride.cuh"
 
@@ -193,48 +225,83 @@ namespace {
 
 namespace simt {
 
-constexpr int THREADS = 256;   // 16 x 16
+using namespace attn_simt;
+using hopper::cp_async16_zfill;
+using hopper::cp_commit;
+using hopper::cp_wait;
+
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int STAGES = 3;        // ring slabs in flight
+constexpr int DC = 32;           // head-dim columns of a score slab: B rows
+constexpr int DC2 = 16;          // .. of one that holds A rows too
+// floats a slab: a score slab [TILE][DC + 4] (B rows: k or v in the dQ
+// kernel, q or dO in the dK/dV kernel) or [R + TILE][DC2 + 4] (A rows
+// first: q or dO, k or v), an apply slab [KC][WC] (dQ: k) or [2 KC][WC]
+// (dK/dV: dO, then q)
+constexpr int STAGE = (128 + TILE) * (DC2 + 4);
+static_assert(TILE * (DC + 4) <= STAGE, "score slab");
+constexpr int MAX_SLICE = 256;   // most gradient columns a block
+constexpr int KV_RESIDENT = 192; // widest ld whose k and v tiles stay
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
 
-// the instance a head dim runs (simt_width in kernels/flash_attention.py):
-// its own width where it is a multiple of 16 up to 256 or of 64 above (the
-// EXACT kernels, SIMT_WIDTHS), else the least of the masked widths at or
-// above it (SIMT_MASKED_WIDTHS); 0 outside 1 to 512
+// the instance a head dim runs (simt_bwd_width in
+// kernels/flash_attention.py): the least of 32, 64, .. 256 at or above
+// it, and past 256 the one at or above half of it (slices(hd) = 2 column
+// slices); 0 outside 1 to 512
 __host__ __device__ constexpr int width(int hd) {
   return hd < 1 || hd > 512 ? 0
-       : hd % 16 == 0 && (hd <= 256 || hd % 64 == 0) ? hd
-       : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= 256 ? 256
-       : hd <= 384 ? 384 : 512;
+       : hd <= 256 ? (hd + 31) / 32 * 32 : (hd + 63) / 64 * 32;
 }
 
-// the widths with a masked pair of kernels, for the head dims between the
-// EXACT ones (SIMT_MASKED_WIDTHS)
-__host__ __device__ constexpr bool masked(int W) {
-  return W == 32 || W == 64 || W == 128 || W == 256 || W == 384 || W == 512;
+// column slices of the gradients a head dim's blocks split over
+__host__ __device__ constexpr int slices(int hd) {
+  return hd <= MAX_SLICE ? 1 : 2;
 }
 
-// rows of a query or key tile, by instance width W: 64 up to 128, 32 up to
-// 384, 16 above, so that the four [rows][W + 1] f32 tiles fit a block's
-// shared memory
-template <int W>
-struct Tile {
-  static constexpr int BR = W <= 128 ? 64 : W <= 384 ? 32 : 16;
-  static constexpr int RI = BR / 16;    // score rows (and columns) a thread
-  static constexpr int CPT = W / 16;    // columns a thread, at most
-  static constexpr int LD = W + 1;      // [rows][W] tile row stride
-  static constexpr int PLD = BR + 1;    // [rows][rows] tile row stride
-  // dq: q, dO, k, v tiles, dS, lse and Delta
-  static constexpr int DQ_FLOATS = 4 * BR * LD + BR * PLD + 2 * BR;
-  // dkdv: k, v, q, dO tiles, P and dS, lse and Delta
-  static constexpr int DKDV_FLOATS = 4 * BR * LD + 2 * BR * PLD + 2 * BR;
-  static_assert(DKDV_FLOATS * 4 <= 232448, "over the block's shared memory");
-};
+// rows a block at instance width W: the dQ kernel's query rows, 128 up
+// to 128 (8 x 8 scores and outputs a thread), else 64; the dK/dV kernel's
+// key rows, 128 up to 64 (its dK and dV hold 2 x 8 x 4 a thread), else 64
+__host__ __device__ constexpr int dq_rows(int W) {
+  return W <= 128 ? 128 : 64;
+}
+__host__ __device__ constexpr int kv_rows(int W) {
+  return W <= 64 ? 128 : 64;
+}
+
+// a resident tile's row stride for operands ld wide: whole slabs of DC
+// columns and 4 more (an odd number of 16-byte units)
+__host__ __device__ constexpr int tile_ld(int ld) {
+  return (ld + DC - 1) / DC * DC + 4;
+}
+
+// whether a block keeps its own rows' operands (q and dO in the dQ kernel,
+// k and v in the dK/dV kernel) resident, for operands ld wide on the
+// instance of width W: 64-row blocks only, the dQ kernel with one slice,
+// the dK/dV kernel up to KV_RESIDENT
+__host__ __device__ constexpr bool dq_resident(int W, int ld) {
+  return dq_rows(W) == 64 && ld <= MAX_SLICE;
+}
+__host__ __device__ constexpr bool kv_resident(int W, int ld) {
+  return kv_rows(W) == 64 && ld <= KV_RESIDENT;
+}
+
+// a block's shared memory: the ring, the dS tile (dQ) or the P and dS
+// tiles (dK/dV), the two resident tiles where they stay
+__host__ __device__ constexpr int dq_bytes(int W, int ld) {
+  return 4 * (STAGES * STAGE + dq_rows(W) * PLD +
+              (dq_resident(W, ld) ? 2 * 64 * tile_ld(ld) : 0));
+}
+__host__ __device__ constexpr int kv_bytes(int W, int ld) {
+  return 4 * (STAGES * STAGE + 2 * kv_rows(W) * PLD +
+              (kv_resident(W, ld) ? 2 * 64 * tile_ld(ld) : 0));
+}
+static_assert(dq_bytes(MAX_SLICE, MAX_SLICE) <= 232448 &&
+              kv_bytes(KV_RESIDENT, KV_RESIDENT) <= 232448 &&
+              kv_bytes(64, 64) <= 232448, "over the block's shared memory");
 
 // Delta[b, h, i] = dO[b, i, h] . o[b, i, h]: one warp a row, rows in the
 // [B, S, H] order of o, hd their stride (f32, and bf16 for the tensor-core
@@ -275,337 +342,466 @@ int launch_delta(const void* o, const void* dout, float* delta, int B, int S,
   return (int)cudaGetLastError();
 }
 
-// rows r0 .. r0 + BR - 1 of a [S, heads, hd] slab (row stride `stride`
-// elements) into a [BR][W + 1] f32 tile, zeros past S and past hd (EXACT:
-// hd is W)
-template <int W, int BR, bool EXACT, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          size_t stride, int r0, int S,
-                                          int hd) {
-  constexpr int LD = W + 1;
-  for (int idx = threadIdx.x; idx < BR * W; idx += THREADS) {
-    const int r = idx / W, d = idx - (idx / W) * W;
-    const int s = r0 + r;
-    dst[r * LD + d] = s < S && (EXACT || d < hd)
-                          ? ld(src + (size_t)s * stride + d)
-                          : 0.f;
+// rows [0, R) x columns [0, 4 c4s) into dst (row stride dld): row r from
+// src + (row0 + r) stride + col0, zeros at rows past S and at columns past
+// ld (16-byte copies: ld and the strides are multiples of 4)
+template <int R>
+__device__ __forceinline__ void load_rows(float* dst, int dld, int c4s,
+                                          const float* src, size_t stride,
+                                          int row0, int S, int col0,
+                                          int ld) {
+  for (int p = threadIdx.x; p < R * c4s; p += THREADS) {
+    const int r = p / c4s, c = 4 * (p % c4s);
+    const bool in = row0 + r < S && col0 + c < ld;
+    cp_async16_zfill(dst + r * dld + c,
+                     in ? src + (size_t)(row0 + r) * stride + col0 + c : src,
+                     in ? 16 : 0);
   }
 }
 
-// sc = Qt . Kt^T and dp = dOt . Vt^T for this thread's RI x RI scores (rows
-// ty + 16 i of the query tile, columns tx + 16 j of the key tile)
-template <int W, int RI>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       int ty, int tx, float (&sc)[RI][RI],
-                                       float (&dp)[RI][RI]) {
-  constexpr int LD = W + 1;
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < RI; ++j) {
-      sc[i][j] = 0.f;
-      dp[i][j] = 0.f;
-    }
-#pragma unroll 4
-  for (int d = 0; d < W; ++d) {
-    float qv[RI], ov[RI], kv[RI], vv[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      qv[i] = Qs[(ty + 16 * i) * LD + d];
-      ov[i] = dOs[(ty + 16 * i) * LD + d];
-      kv[i] = Ks[(tx + 16 * i) * LD + d];
-      vv[i] = Vs[(tx + 16 * i) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-      }
+// a score slab of head-dim columns d0 ..: the B rows (TILE from b0) and,
+// unless A is resident, the R A rows (from a0) before them
+template <int R, bool RES>
+__device__ __forceinline__ void load_score(float* dst, const float* a,
+                                           size_t as, int a0, const float* b,
+                                           size_t bs, int b0, int S, int d0,
+                                           int ld) {
+  if (RES) {
+    load_rows<TILE>(dst, DC + 4, DC / 4, b, bs, b0, S, d0, ld);
+  } else {
+    load_rows<R>(dst, DC2 + 4, DC2 / 4, a, as, a0, S, d0, ld);
+    load_rows<TILE>(dst + R * (DC2 + 4), DC2 + 4, DC2 / 4, b, bs, b0, S, d0,
+                    ld);
   }
 }
 
-// EXACT (hd = W): the kernel of that one head dim, its masks and strides
-// fixed at compile time
-template <typename T, int W, bool EXACT>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
+// acc += A . B^T over a score slab for the thread's rows rs ..: A resident
+// (At at the slab's columns, rows tld apart) or in the slab. U: the
+// column loop's unroll (the kernels' SU)
+template <int R, bool RES, int U>
+__device__ __forceinline__ void score_slab(const float* At, int tld,
+                                           const float* st,
+                                           float (&acc)[8][Rows<R>::KJ],
+                                           int rs, int kl) {
+  if (RES)
+    score<DC, R, U>(At + rs * tld, tld, st, acc, kl);
+  else
+    score<DC2, R, U>(st + rs * (DC2 + 4), DC2 + 4, st + R * (DC2 + 4), acc,
+                     kl);
+}
+
+// dQ: one block per (R query rows, head x column slice, batch row),
+// longest rows first. Per step of TILE keys up to the diagonal: S = Q.K^T
+// over its score slabs, P = exp(S scale - lse) into the tile, dP = dO.V^T
+// over its own slabs, dS = P (dP - Delta) over P in the tile (each thread
+// rereads what it wrote), then dQ[:, slice] += dS.K[:, slice] over slabs
+// of KC key rows. RES: q and dO resident. q, k, v, dO rows ld floats a
+// head, dq rows hd.
+template <int WC, bool RES>
+__global__ void __launch_bounds__(THREADS, 1)
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int S, int H, int KVH, int hd, float scale) {
-  if (EXACT) hd = W;
-  using L = Tile<W>;
-  constexpr int BR = L::BR, RI = L::RI, CPT = L::CPT, LD = L::LD,
-                PLD = L::PLD;
-  extern __shared__ float smem[];
-  float* Qs = smem;               // [BR][LD]
-  float* dOs = Qs + BR * LD;      // [BR][LD]
-  float* Ks = dOs + BR * LD;      // [BR][LD]
-  float* Vs = Ks + BR * LD;       // [BR][LD]
-  float* dSs = Vs + BR * LD;      // [BR][PLD]
-  float* Ls = dSs + BR * PLD;     // [BR]
-  float* Ds = Ls + BR;            // [BR]
+          float* __restrict__ dq, int S, int H, int KVH, int hd, int ld,
+          int nslice, float scale) {
+  constexpr int R = dq_rows(WC);
+  using C = Cols<WC, R>;
+  using G = Rows<R>;
+  constexpr int KC = chunk_rows(WC, STAGE);   // k rows a slab
+  constexpr int NV = TILE / KC;
+  constexpr int SC = RES ? DC : DC2;          // a score slab's columns
+  // the score loop's unroll: whole, but 1 on 128-row blocks and on the
+  // widest streamed ones, where ptxas would otherwise spill
+  constexpr int SU = R == 128 || (!RES && WC >= 224) ? 1 : SC / 4;
+  const int tld = tile_ld(ld);
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                         // [STAGES][STAGE]
+  float* dSs = ring + STAGES * STAGE;         // [R][PLD]: P, then dS
+  float* Qs = dSs + R * PLD;                  // RES: [R][tld] each
+  float* dOs = Qs + R * tld;
 
-  const int nq = (S + BR - 1) / BR;
-  const int qt = nq - 1 - (int)blockIdx.x;   // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int3 blk = hopper::longest_first();
+  const int nq = (S + R - 1) / R;
+  const int qt = nq - 1 - blk.x;
+  const int h = blk.y / nslice, sl = blk.y % nslice;
+  const int b = blk.z;
   const int kh = h / (H / KVH);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = qt * BR;
-  const size_t qrow = (size_t)H * hd, krow = (size_t)KVH * hd;
-  const size_t qoff = (size_t)b * S * qrow + (size_t)h * hd;
-  const size_t koff = (size_t)b * S * krow + (size_t)kh * hd;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int q0 = qt * R, c0 = sl * WC;
+  // the score layout: rows rs .. rs + 7, keys kl + LG j
+  const int rs = 8 * (G::RG * w + lane / G::LG), kl = lane % G::LG;
+  const size_t qs = (size_t)H * ld, ks = (size_t)KVH * ld;
+  const float* qb = q + (size_t)b * S * qs + (size_t)h * ld;
+  const float* ob = dout + (size_t)b * S * qs + (size_t)h * ld;
+  const float* kb = k + (size_t)b * S * ks + (size_t)kh * ld;
+  const float* vb = v + (size_t)b * S * ks + (size_t)kh * ld;
+  const int nd = (ld + SC - 1) / SC;
+  const int per = 2 * nd + NV;
+  const int steps = (q0 + R - 1 < S ? q0 + R - 1 : S - 1) / TILE + 1;
+  const int total = steps * per;
+
+  if (RES) {   // the resident tiles, in the first group of copies
+    load_rows<R>(Qs, tld, tld / 4 - 1, qb, qs, q0, S, 0, ld);
+    load_rows<R>(dOs, tld, tld / 4 - 1, ob, qs, q0, S, 0, ld);
+  }
+  // slab c of the block's sequence: a step's nd score slabs of S (k, and
+  // q), nd of dP (v, and dO), then NV slabs of k rows
+  auto issue = [&](int c) {
+    if (c < total) {
+      float* dst = ring + (c % STAGES) * STAGE;
+      const int k0 = c / per * TILE, part = c % per;
+      if (part < nd)
+        load_score<R, RES>(dst, qb, qs, q0, kb, ks, k0, S, part * SC, ld);
+      else if (part < 2 * nd)
+        load_score<R, RES>(dst, ob, qs, q0, vb, ks, k0, S, (part - nd) * SC,
+                           ld);
+      else
+        load_rows<KC>(dst, WC, WC / 4, kb, ks, k0 + (part - 2 * nd) * KC, S,
+                      c0, ld);
+    }
+    cp_commit();
+  };
+  for (int c = 0; c < STAGES - 1; ++c) issue(c);
+
+  float Lr[8], Dr[8];   // rows rs + i
   const float* lrow = lse + ((size_t)b * H + h) * S;
   const float* drow = delta + ((size_t)b * H + h) * S;
-
-  load_tile<W, BR, EXACT>(Qs, q + qoff, qrow, q0, S, hd);
-  load_tile<W, BR, EXACT>(dOs, dout + qoff, qrow, q0, S, hd);
-  for (int r = tid; r < BR; r += THREADS) {
-    const int s = q0 + r;
-    Ls[r] = s < S ? lrow[s] : 0.f;
-    Ds[r] = s < S ? drow[s] : 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qpos = q0 + rs + i;
+    Lr[i] = qpos < S ? lrow[qpos] : 0.f;
+    Dr[i] = qpos < S ? drow[qpos] : 0.f;
   }
+  const int r0 = C::TM * (tid / C::CT), c4 = tid % C::CT;
+  float4 acc[C::TM][C::TN4];
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::TN4; ++j) acc[i][j] = make_float4(0, 0, 0, 0);
 
-  float acc[RI][CPT];
+  int c = 0;
+  for (int t = 0; t < steps; ++t) {
+    const int k0 = t * TILE;
+    float sc[8][G::KJ];
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {   // key tiles up to the diagonal
-    const int k0 = kt * BR;
-    __syncthreads();   // the last tile's readers are done
-    load_tile<W, BR, EXACT>(Ks, k + koff, krow, k0, S, hd);
-    load_tile<W, BR, EXACT>(Vs, v + koff, krow, k0, S, hd);
-    __syncthreads();
-    float sc[RI][RI], dp[RI][RI];
-    scores<W, RI>(Qs, dOs, Ks, Vs, ty, tx, sc, dp);
+      for (int j = 0; j < G::KJ; ++j) sc[i][j] = 0.f;
+    for (int part = 0; part < nd; ++part, ++c) {
+      cp_wait<STAGES - 2>();
+      __syncthreads();   // slab c landed; slab c - 1's readers are done
+      issue(c + STAGES - 1);
+      score_slab<R, RES, SU>(Qs + part * SC, tld,
+                             ring + (c % STAGES) * STAGE, sc, rs, kl);
+    }
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = q0 + r;
+    for (int i = 0; i < 8; ++i) {
+      const int qpos = q0 + rs + i;
 #pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const float p = (kpos <= qpos && qpos < S)
-                            ? expf(fmaf(sc[i][j], scale, -Ls[r]))
-                            : 0.f;
-        dSs[r * PLD + tx + 16 * j] = p * (dp[i][j] - Ds[r]);
+      for (int j = 0; j < G::KJ; ++j) {
+        const int kpos = k0 + kl + G::LG * j;
+        dSs[(rs + i) * PLD + kl + G::LG * j] =
+            kpos <= qpos && qpos < S ? expf(fmaf(sc[i][j], scale, -Lr[i]))
+                                     : 0.f;
+        sc[i][j] = 0.f;
       }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < BR; ++c) {
-      float dsv[RI];
+    for (int part = 0; part < nd; ++part, ++c) {
+      cp_wait<STAGES - 2>();
+      __syncthreads();
+      issue(c + STAGES - 1);
+      score_slab<R, RES, SU>(dOs + part * SC, tld,
+                             ring + (c % STAGES) * STAGE, sc, rs, kl);
+    }
 #pragma unroll
-      for (int i = 0; i < RI; ++i) dsv[i] = dSs[(ty + 16 * i) * PLD + c];
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        const float kk = Ks[c * LD + tx + 16 * cc];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) acc[i][cc] = fmaf(dsv[i], kk, acc[i][cc]);
+      for (int j = 0; j < G::KJ; ++j) {
+        float* at = dSs + (rs + i) * PLD + kl + G::LG * j;
+        *at = *at * (sc[i][j] - Dr[i]);
       }
+    for (int part = 0; part < NV; ++part, ++c) {
+      cp_wait<STAGES - 2>();
+      __syncthreads();   // slab c landed; dS is written
+      issue(c + STAGES - 1);
+      apply<WC, R, KC>(dSs + part * KC, ring + (c % STAGES) * STAGE, acc, r0,
+                       c4);
     }
   }
 
-  T* dqb = dq + qoff;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int qpos = q0 + ty + 16 * i;
+  for (int i = 0; i < C::TM; ++i) {
+    const int qpos = q0 + r0 + i;
     if (qpos >= S) continue;
+    float* row = dq + ((size_t)b * S + qpos) * H * hd + (size_t)h * hd;
 #pragma unroll
-    for (int cc = 0; cc < CPT; ++cc)
-      if (EXACT || tx + 16 * cc < hd)
-        st(dqb + (size_t)qpos * qrow + tx + 16 * cc, acc[i][cc] * scale);
+    for (int j = 0; j < C::TN4; ++j) {
+      const float4 a = acc[i][j];
+      store4(row, c0 + 4 * (c4 + C::CT * j), hd,
+             make_float4(a.x * scale, a.y * scale, a.z * scale,
+                         a.w * scale));
+    }
   }
 }
 
-template <typename T, int W, bool EXACT>
-__global__ void __launch_bounds__(THREADS)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+// dK/dV: one block per (R key rows, (kv head x column slice) x split,
+// batch row), numbered longest first (key tile 0 sees the most queries).
+// The block walks its split's G / nsplit query heads of the group in
+// order and, for each, the query tiles of TILE from its diagonal on: S^T
+// = K.Q^T over its score slabs, P^T into its tile, dP^T = V.dO^T over its
+// own, dS^T = P^T (dP^T - Delta) into its tile, then dV[:, slice] +=
+// P^T.dO[:, slice] and dK[:, slice] += dS^T.Q[:, slice] over slabs of KC
+// query rows of both. RES: k and v resident. nsplit 1: dK (scaled) and dV
+// stored hd wide; else the split's partial sums to work [2][nsplit][B, S,
+// KVH, hd], which sum_splits_kernel adds in split order.
+template <int WC, bool RES>
+__global__ void __launch_bounds__(THREADS, 1)
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KVH,
-            int hd, float scale) {
-  if (EXACT) hd = W;
-  using L = Tile<W>;
-  constexpr int BR = L::BR, RI = L::RI, CPT = L::CPT, LD = L::LD,
-                PLD = L::PLD;
-  extern __shared__ float smem[];
-  float* Ks = smem;               // [BR][LD]
-  float* Vs = Ks + BR * LD;       // [BR][LD]
-  float* Qs = Vs + BR * LD;       // [BR][LD]
-  float* dOs = Qs + BR * LD;      // [BR][LD]
-  float* Ps = dOs + BR * LD;      // [BR][PLD]: [query][key]
-  float* dSs = Ps + BR * PLD;     // [BR][PLD]
-  float* Ls = dSs + BR * PLD;     // [BR]
-  float* Ds = Ls + BR;            // [BR]
+            float* __restrict__ dk, float* __restrict__ dv,
+            float* __restrict__ work, int S, int H, int KVH, int hd, int ld,
+            int nslice, int nsplit, float scale) {
+  constexpr int R = kv_rows(WC);
+  using C = Cols<WC, R>;
+  using G = Rows<R>;
+  constexpr int KC = chunk_rows(WC, STAGE / 2);   // dO and q rows a slab
+  constexpr int NV = TILE / KC;
+  constexpr int SC = RES ? DC : DC2;
+  constexpr int SU = R == 128 || (!RES && WC >= 224) ? 1 : SC / 4;
+  const int tld = tile_ld(ld);
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                         // [STAGES][STAGE]
+  float* Ps = ring + STAGES * STAGE;          // [R][PLD]: [key][query]
+  float* dSs = Ps + R * PLD;                  // [R][PLD]
+  float* Ks = dSs + R * PLD;                  // RES: [R][tld] each
+  float* Vs = Ks + R * tld;
 
-  const int nq = (S + BR - 1) / BR;
-  const int kt = blockIdx.x;      // key tile 0 sees the most queries: first
-  const int kh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KVH;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int k0 = kt * BR;
-  const size_t qrow = (size_t)H * hd, krow = (size_t)KVH * hd;
-  const size_t koff = (size_t)b * S * krow + (size_t)kh * hd;
+  const int3 blk = hopper::longest_first();
+  const int kt = blk.x;
+  const int part = blk.y % nsplit;
+  const int sl = (blk.y / nsplit) % nslice;
+  const int kh = blk.y / (nsplit * nslice);
+  const int b = blk.z;
+  const int G_ = H / KVH, GS = G_ / nsplit;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int k0 = kt * R, c0 = sl * WC;
+  // the score layout: key rows rs .. rs + 7, queries kl + LG j
+  const int rs = 8 * (G::RG * w + lane / G::LG), kl = lane % G::LG;
+  const size_t qs = (size_t)H * ld, ks = (size_t)KVH * ld;
+  const float* kb = k + (size_t)b * S * ks + (size_t)kh * ld;
+  const float* vb = v + (size_t)b * S * ks + (size_t)kh * ld;
+  const int nd = (ld + SC - 1) / SC;
+  const int per = 2 * nd + NV;
+  const int qt0 = k0 / TILE;                  // the diagonal's query tile
+  const int tps = (S + TILE - 1) / TILE - qt0;
+  const int total = GS * tps * per;
+  const int h0 = kh * G_ + part * GS;
 
-  load_tile<W, BR, EXACT>(Ks, k + koff, krow, k0, S, hd);
-  load_tile<W, BR, EXACT>(Vs, v + koff, krow, k0, S, hd);
-
-  // this thread's rows ty + 16 i of the key tile, columns tx + 16 cc
-  float accK[RI][CPT], accV[RI][CPT];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      accK[i][c] = 0.f;
-      accV[i][c] = 0.f;
+  if (RES) {   // the resident tiles, in the first group of copies
+    load_rows<R>(Ks, tld, tld / 4 - 1, kb, ks, k0, S, 0, ld);
+    load_rows<R>(Vs, tld, tld / 4 - 1, vb, ks, k0, S, 0, ld);
+  }
+  auto issue = [&](int c) {
+    if (c < total) {
+      float* dst = ring + (c % STAGES) * STAGE;
+      const int step = c / per, sp = c % per;
+      const int h = h0 + step / tps;
+      const int qa = (qt0 + step % tps) * TILE;
+      const size_t qoff = (size_t)b * S * qs + (size_t)h * ld;
+      if (sp < nd) {
+        load_score<R, RES>(dst, kb, ks, k0, q + qoff, qs, qa, S, sp * SC, ld);
+      } else if (sp < 2 * nd) {
+        load_score<R, RES>(dst, vb, ks, k0, dout + qoff, qs, qa, S,
+                           (sp - nd) * SC, ld);
+      } else {
+        const int r = qa + (sp - 2 * nd) * KC;
+        load_rows<KC>(dst, WC, WC / 4, dout + qoff, qs, r, S, c0, ld);
+        load_rows<KC>(dst + KC * WC, WC, WC / 4, q + qoff, qs, r, S, c0, ld);
+      }
     }
+    cp_commit();
+  };
+  for (int c = 0; c < STAGES - 1; ++c) issue(c);
 
-  for (int g = 0; g < G; ++g) {   // the group's query heads, in order
-    const int h = kh * G + g;
-    const size_t qoff = (size_t)b * S * qrow + (size_t)h * hd;
+  const int r0 = C::TM * (tid / C::CT), c4 = tid % C::CT;
+  float4 accK[C::TM][C::TN4], accV[C::TM][C::TN4];
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::TN4; ++j)
+      accK[i][j] = accV[i][j] = make_float4(0, 0, 0, 0);
+
+  int c = 0;
+  for (int step = 0; step < GS * tps; ++step) {
+    const int h = h0 + step / tps;
+    const int qa = (qt0 + step % tps) * TILE;
     const float* lrow = lse + ((size_t)b * H + h) * S;
     const float* drow = delta + ((size_t)b * H + h) * S;
-    for (int qt = kt; qt < nq; ++qt) {   // query tiles from the diagonal
-      const int q0 = qt * BR;
-      __syncthreads();   // the last tile's readers are done
-      load_tile<W, BR, EXACT>(Qs, q + qoff, qrow, q0, S, hd);
-      load_tile<W, BR, EXACT>(dOs, dout + qoff, qrow, q0, S, hd);
-      for (int r = tid; r < BR; r += THREADS) {
-        const int s = q0 + r;
-        Ls[r] = s < S ? lrow[s] : 0.f;
-        Ds[r] = s < S ? drow[s] : 0.f;
+    float sc[8][G::KJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < G::KJ; ++j) sc[i][j] = 0.f;
+    for (int sp = 0; sp < nd; ++sp, ++c) {
+      cp_wait<STAGES - 2>();
+      __syncthreads();   // slab c landed; slab c - 1's readers are done
+      issue(c + STAGES - 1);
+      score_slab<R, RES, SU>(Ks + sp * SC, tld, ring + (c % STAGES) * STAGE,
+                             sc, rs, kl);
+    }
+#pragma unroll
+    for (int j = 0; j < G::KJ; ++j) {
+      const int qpos = qa + kl + G::LG * j;
+      const float L = qpos < S ? lrow[qpos] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        Ps[(rs + i) * PLD + kl + G::LG * j] =
+            k0 + rs + i <= qpos && qpos < S ? expf(fmaf(sc[i][j], scale, -L))
+                                            : 0.f;
+        sc[i][j] = 0.f;
       }
+    }
+    for (int sp = 0; sp < nd; ++sp, ++c) {
+      cp_wait<STAGES - 2>();
       __syncthreads();
-      float sc[RI][RI], dp[RI][RI];
-      scores<W, RI>(Qs, dOs, Ks, Vs, ty, tx, sc, dp);
+      issue(c + STAGES - 1);
+      score_slab<R, RES, SU>(Vs + sp * SC, tld, ring + (c % STAGES) * STAGE,
+                             sc, rs, kl);
+    }
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int r = ty + 16 * i;
-        const int qpos = q0 + r;
+    for (int j = 0; j < G::KJ; ++j) {
+      const int qpos = qa + kl + G::LG * j;
+      const float D = qpos < S ? drow[qpos] : 0.f;
 #pragma unroll
-        for (int j = 0; j < RI; ++j) {
-          const int kpos = k0 + tx + 16 * j;
-          const float p = (kpos <= qpos && qpos < S)
-                              ? expf(fmaf(sc[i][j], scale, -Ls[r]))
-                              : 0.f;
-          Ps[r * PLD + tx + 16 * j] = p;
-          dSs[r * PLD + tx + 16 * j] = p * (dp[i][j] - Ds[r]);
-        }
+      for (int i = 0; i < 8; ++i) {
+        const int at = (rs + i) * PLD + kl + G::LG * j;
+        dSs[at] = Ps[at] * (sc[i][j] - D);
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < BR; ++r) {   // the tile's query rows, in order
-        float pv[RI], dsv[RI];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          pv[i] = Ps[r * PLD + ty + 16 * i];
-          dsv[i] = dSs[r * PLD + ty + 16 * i];
-        }
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) {
-          const float ov = dOs[r * LD + tx + 16 * cc];
-          const float qv = Qs[r * LD + tx + 16 * cc];
-#pragma unroll
-          for (int i = 0; i < RI; ++i) {
-            accV[i][cc] = fmaf(pv[i], ov, accV[i][cc]);
-            accK[i][cc] = fmaf(dsv[i], qv, accK[i][cc]);
-          }
-        }
-      }
+    }
+    for (int sp = 0; sp < NV; ++sp, ++c) {
+      cp_wait<STAGES - 2>();
+      __syncthreads();   // slab c landed; P and dS are written
+      issue(c + STAGES - 1);
+      const float* st = ring + (c % STAGES) * STAGE;
+      apply<WC, R, KC>(Ps + sp * KC, st, accV, r0, c4);
+      apply<WC, R, KC>(dSs + sp * KC, st + KC * WC, accK, r0, c4);
     }
   }
 
-  T* dkb = dk + koff;
-  T* dvb = dv + koff;
+  const size_t slab = (size_t)gridDim.z * S * KVH * hd;   // B S KVH hd
+  float* outk = nsplit > 1 ? work + (size_t)part * slab : dk;
+  float* outv = nsplit > 1 ? work + (size_t)(nsplit + part) * slab : dv;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int kpos = k0 + ty + 16 * i;
+  for (int i = 0; i < C::TM; ++i) {
+    const int kpos = k0 + r0 + i;
     if (kpos >= S) continue;
+    const size_t at = (((size_t)b * S + kpos) * KVH + kh) * hd;
 #pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) {
-      if (!EXACT && tx + 16 * cc >= hd) continue;
-      const size_t at = (size_t)kpos * krow + tx + 16 * cc;
-      st(dkb + at, accK[i][cc] * scale);
-      st(dvb + at, accV[i][cc]);
+    for (int j = 0; j < C::TN4; ++j) {
+      const int col = c0 + 4 * (c4 + C::CT * j);
+      const float4 a = accK[i][j];
+      store4(outk + at, col, hd,
+             make_float4(a.x * scale, a.y * scale, a.z * scale,
+                         a.w * scale));
+      store4(outv + at, col, hd, accV[i][j]);
     }
   }
 }
 
-template <typename T, int W, bool EXACT>
-int launch_kernels(const void* q, const void* k, const void* v,
-                   const void* o, const void* lse, const void* dout,
-                   void* dq, void* dk, void* dv, void* delta, int B, int S,
-                   int H, int KVH, int hd, cudaStream_t st) {
-  using L = Tile<W>;
-  const int dq_smem = L::DQ_FLOATS * (int)sizeof(float);
-  const int dkdv_smem = L::DKDV_FLOATS * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<T, W, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dq_smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dkdv_kernel<T, W, EXACT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkdv_smem);
-  if (err != cudaSuccess) return (int)err;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if ((err = (cudaError_t)launch_delta<T>(o, dout, dl, B, S, H, hd, st)) !=
-      cudaSuccess)
-    return (int)err;
+// dK and dV from the dK/dV kernel's partial sums, work [2][nsplit][n] f32
+// (n = B S KVH hd): each element's partials added in split order. One
+// thread an element; blockIdx.y 0 is dK, 1 dV.
+__global__ void __launch_bounds__(THREADS)
+sum_splits_kernel(const float* __restrict__ work, float* __restrict__ dk,
+                  float* __restrict__ dv, long long n, int nsplit) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const float* p = work + (size_t)blockIdx.y * nsplit * n + i;
+  float a = p[0];
+  for (int s = 1; s < nsplit; ++s) a += p[s * n];
+  (blockIdx.y == 0 ? dk : dv)[i] = a;
+}
+
+// a kernel at its shared memory: the attribute, then the launch's error
+template <typename K>
+cudaError_t allow(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// the dQ and dK/dV kernels of width WC, each with its operands resident
+// where they fit (dq_resident, kv_resident), then the split sum
+template <int WC>
+int launch(const float* q, const float* k, const float* v, const float* dout,
+           const float* lse, const float* delta, float* dq, float* dk,
+           float* dv, float* work, int B, int S, int H, int KVH, int hd,
+           int ld, int nslice, int nsplit, cudaStream_t st) {
+  constexpr int RQ = dq_rows(WC), RK = kv_rows(WC);
   const float scale = (float)std::pow((double)hd, -0.5);
-  const int nt = (S + L::BR - 1) / L::BR;
-  dq_kernel<T, W, EXACT><<<dim3(nt, H, B), THREADS, dq_smem, st>>>(
-      qp, kp, vp, dop, lp, dl, static_cast<T*>(dq), S, H, KVH, hd, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dkdv_kernel<T, W, EXACT><<<dim3(nt, KVH, B), THREADS, dkdv_smem, st>>>(
-      qp, kp, vp, dop, lp, dl, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
-      KVH, hd, scale);
+  const dim3 dq_grid((S + RQ - 1) / RQ, H * nslice, B);
+  const dim3 kv_grid((S + RK - 1) / RK, KVH * nslice * nsplit, B);
+  const int dqb = dq_bytes(WC, ld), kvb = kv_bytes(WC, ld);
+  cudaError_t err = cudaErrorInvalidValue;
+  if constexpr (RQ == 64) {
+    if (dq_resident(WC, ld) &&
+        (err = allow(dq_kernel<WC, true>, dqb)) == cudaSuccess)
+      dq_kernel<WC, true><<<dq_grid, THREADS, dqb, st>>>(
+          q, k, v, dout, lse, delta, dq, S, H, KVH, hd, ld, nslice, scale);
+  }
+  if (!dq_resident(WC, ld) &&
+      (err = allow(dq_kernel<WC, false>, dqb)) == cudaSuccess)
+    dq_kernel<WC, false><<<dq_grid, THREADS, dqb, st>>>(
+        q, k, v, dout, lse, delta, dq, S, H, KVH, hd, ld, nslice, scale);
+  if (err != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess)
+    return (int)err;
+  err = cudaErrorInvalidValue;
+  if constexpr (RK == 64 && WC <= KV_RESIDENT) {
+    if (kv_resident(WC, ld) &&
+        (err = allow(dkdv_kernel<WC, true>, kvb)) == cudaSuccess)
+      dkdv_kernel<WC, true><<<kv_grid, THREADS, kvb, st>>>(
+          q, k, v, dout, lse, delta, dk, dv, work, S, H, KVH, hd, ld, nslice,
+          nsplit, scale);
+  }
+  if constexpr (RK == 128 || WC >= 160) {
+    if (!kv_resident(WC, ld) &&
+        (err = allow(dkdv_kernel<WC, false>, kvb)) == cudaSuccess)
+      dkdv_kernel<WC, false><<<kv_grid, THREADS, kvb, st>>>(
+          q, k, v, dout, lse, delta, dk, dv, work, S, H, KVH, hd, ld, nslice,
+          nsplit, scale);
+  }
+  if (err != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess ||
+      nsplit == 1)
+    return (int)err;
+  const long long n = (long long)B * S * KVH * hd;
+  sum_splits_kernel<<<dim3((unsigned)((n + THREADS - 1) / THREADS), 2),
+                      THREADS, 0, st>>>(work, dk, dv, n, nsplit);
   return (int)cudaGetLastError();
 }
 
-// a head dim of the width itself runs the EXACT kernels; any other the
-// masked kernels of a masked width
-template <typename T, int W>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* lse, const void* dout, void* dq, void* dk, void* dv,
-           void* delta, int B, int S, int H, int KVH, int hd,
-           cudaStream_t st) {
-  if (hd == W) {
-    return launch_kernels<T, W, true>(q, k, v, o, lse, dout, dq, dk, dv,
-                                      delta, B, S, H, KVH, hd, st);
-  } else if constexpr (masked(W)) {
-    return launch_kernels<T, W, false>(q, k, v, o, lse, dout, dq, dk, dv,
-                                       delta, B, S, H, KVH, hd, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
+// the instances, by width (SIMT_BWD_WIDTHS)
+#define SIMT_WIDTH_LIST(X) \
+  X(32) X(64) X(96) X(128) X(160) X(192) X(224) X(256)
 
-// the instances, by width (SIMT_WIDTHS)
-#define SIMT_WIDTH_LIST(X)                                                  \
-  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176)    \
-  X(192) X(208) X(224) X(240) X(256) X(320) X(384) X(448) X(512)
-
-// head dim -> the instance of its width
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* o,
-             const void* lse, const void* dout, void* dq, void* dk, void* dv,
-             void* delta, int B, int S, int H, int KVH, int hd,
-             cudaStream_t st) {
+// Delta (from o and dO hd wide), then the dQ and dK/dV kernels (and the
+// split sum) of a head dim's instance, on q, k, v and dO ld wide
+inline int dispatch(const float* q, const float* k, const float* v,
+                    const float* dout, const void* o_hd, const void* dout_hd,
+                    const float* lse, float* dq, float* dk, float* dv,
+                    float* delta, float* work, int B, int S, int H, int KVH,
+                    int hd, int ld, int nsplit, cudaStream_t st) {
+  if (nsplit < 1 || (H / KVH) % nsplit != 0 ||
+      (nsplit > 1 && work == nullptr))
+    return (int)cudaErrorInvalidValue;
   switch (width(hd)) {
-#define BWD_SIMT_CASE(W)                                                     \
-  case W:                                                                    \
-    return launch<T, W>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, S, H,   \
-                        KVH, hd, st);
+#define BWD_SIMT_CASE(W)                                                   \
+  case W:                                                                  \
+    if (int err = launch_delta<float>(o_hd, dout_hd, delta, B, S, H, hd,   \
+                                      st))                                 \
+      return err;                                                          \
+    return launch<W>(q, k, v, dout, lse, delta, dq, dk, dv, work, B, S, H, \
+                     KVH, hd, ld, slices(hd), nsplit, st);
     SIMT_WIDTH_LIST(BWD_SIMT_CASE)
 #undef BWD_SIMT_CASE
     default:
@@ -613,24 +809,17 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
   }
 }
 
+#undef SIMT_WIDTH_LIST
+
 // out = {width, key rows a dK/dV block, its shared memory}, or 0 where the
 // head dim has no instance
 inline int geometry(int hd, int* out) {
-  switch (width(hd)) {
-#define BWD_SIMT_GEO(W)                                      \
-  case W:                                                    \
-    out[0] = W;                                              \
-    out[1] = Tile<W>::BR;                                    \
-    out[2] = Tile<W>::DKDV_FLOATS * (int)sizeof(float);      \
-    return 1;
-    SIMT_WIDTH_LIST(BWD_SIMT_GEO)
-#undef BWD_SIMT_GEO
-    default:
-      return 0;
-  }
+  if (width(hd) == 0) return 0;
+  out[0] = width(hd);
+  out[1] = kv_rows(width(hd));
+  out[2] = kv_bytes(width(hd), (hd + 3) / 4 * 4);
+  return 1;
 }
-
-#undef SIMT_WIDTH_LIST
 
 }  // namespace simt
 
@@ -1814,27 +2003,59 @@ int prologue(int H, int KVH, int device) {
 
 }  // namespace
 
-// q, k, v, o, lse (the forward's), dout, then dq, dk, dv and the [B, H, S]
-// f32 scratch for Delta; B, S, H, KVH, hd, device, stream
+// q, k, v, o, lse (the forward's), dout, then dq, dk, dv, the [B, H, S]
+// f32 scratch for Delta, work, the dK/dV pass's f32 workspace [2][nsplit]
+// [B, S, KVH, hd] (NULL where nsplit is 1), and stage: NULL where hd is a
+// multiple of 4, else f32 scratch for q, dO, k and v staged ld = ceil4(hd)
+// columns wide, (2 B S H + 2 B S KVH) ld elements; B, S, H, KVH, hd,
+// nsplit (a divisor of H / KVH), device, stream
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        const void* v, const void* o,
                                        const void* lse, const void* dout,
                                        void* dq, void* dk, void* dv,
-                                       void* delta, int B, int S, int H,
-                                       int KVH, int hd, int device,
-                                       void* stream) {
-  const int err = prologue(H, KVH, device);
+                                       void* delta, void* work, void* stage,
+                                       int B, int S, int H, int KVH, int hd,
+                                       int nsplit, int device, void* stream) {
+  int err = prologue(H, KVH, device);
   if (err != 0 || B == 0 || S == 0 || H == 0) return err;
-  return simt::dispatch<float>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
-                               S, H, KVH, hd, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int ld = (hd + 3) / 4 * 4;
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
+  if (ld != hd) {
+    if (stage == nullptr || simt::width(hd) == 0)
+      return (int)cudaErrorInvalidValue;
+    const long long nq = (long long)B * S * H, nk = (long long)B * S * KVH;
+    float* qs = static_cast<float*>(stage);
+    float* dos = qs + nq * ld;
+    float* ks = dos + nq * ld;
+    float* vs = ks + nk * ld;
+    const void* in[4] = {q, dout, k, v};
+    void* staged[4] = {qs, dos, ks, vs};
+    const long long rows[4] = {nq, nq, nk, nk};
+    if ((err = restride::copy<uint32_t>(4, in, staged, rows, hd, ld, st)) !=
+        0)
+      return err;
+    qp = qs;
+    dop = dos;
+    kp = ks;
+    vp = vs;
+  }
+  return simt::dispatch(qp, kp, vp, dop, o, dout,
+                        static_cast<const float*>(lse),
+                        static_cast<float*>(dq), static_cast<float*>(dk),
+                        static_cast<float*>(dv), static_cast<float*>(delta),
+                        static_cast<float*>(work), B, S, H, KVH, hd, ld,
+                        nsplit, st);
 }
 
-// the f32 entry's arguments, then work, the dK/dV pass's f32 workspace
-// [2][nsplit][B, S, KVH, ld] (NULL where nsplit is 1), and stage: NULL
-// where hd is a multiple of 8, else bf16 scratch for q, o, dO, dQ, k, v,
-// dK and dV staged ld = ceil8(hd) columns wide, (4 B S H + 4 B S KVH) ld
-// elements; nsplit after hd, the query-head splits (1 but at widths 256
-// and 512: a divisor of H / KVH there)
+// the f32 entry's arguments, but work is [2][nsplit][B, S, KVH, ld] and
+// stage NULL where hd is a multiple of 8, else bf16 scratch for q, o, dO,
+// dQ, k, v, dK and dV staged ld = ceil8(hd) columns wide, (4 B S H + 4 B S
+// KVH) ld elements; nsplit is 1 but at widths 256 and 512 (a divisor of H
+// / KVH there)
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* lse, const void* dout,

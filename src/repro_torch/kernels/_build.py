@@ -51,23 +51,24 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "bw_stats_geometry": (INT, PTR),
     },
     "flash_attention": {
-        # q, k, v, o, lse (or NULL), B, S, H, KVH, hd, device, stream
-        "flash_attention_f32": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
-                                INT, INT, PTR),
-        # the same with the staging scratch (or NULL) after lse
+        # q, k, v, o, lse (or NULL), the staging scratch (or NULL), B, S,
+        # H, KVH, hd, o's column slices (0: the default), device, stream
+        "flash_attention_f32": (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+                                INT, INT, INT, INT, PTR),
+        # the same without the slices
         "flash_attention_bf16": (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
                                  INT, INT, INT, PTR),
         # bf16?, head dim, out[4]: route, width, query rows, shared memory
         "flash_attention_geometry": (INT, INT, PTR),
     },
     "flash_attention_bwd": {
-        # q, k, v, o, lse, dout, dq, dk, dv, delta scratch, B, S, H, KVH,
-        # hd, device, stream
+        # q, k, v, o, lse, dout, dq, dk, dv, delta scratch, the dK/dV
+        # workspace and the staging scratch (or NULL), B, S, H, KVH, hd,
+        # the dK/dV pass's splits, device, stream
         "flash_attention_bwd_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
-                                    PTR, PTR, INT, INT, INT, INT, INT, INT,
-                                    PTR),
-        # the same with the dK/dV workspace and the staging scratch (or
-        # NULL) after the delta scratch and the splits after hd
+                                    PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+                                    INT, INT, INT, PTR),
+        # the same
         "flash_attention_bwd_bf16": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                                      PTR, PTR, PTR, PTR, INT, INT, INT, INT,
                                      INT, INT, INT, PTR),

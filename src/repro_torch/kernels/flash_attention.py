@@ -20,11 +20,15 @@ q, k, v (and o and dO for the backward) into buffers ``ld(hd)`` columns
 wide, zeros past hd (``csrc/restride.cuh``; ``stage`` is its plain
 version), in a scratch allocated here, and copies the outputs, written
 that wide, back hd wide; the scale is always hd^-1/2 of the true head
-dim. f32 runs the CUDA-core
-instance of its width ``simt_width`` (its own at a multiple of 16 up to
-256 or of 64 above, else a masked one of 32 to 512 whose columns past
-hd are zero). Past 512 the wrappers raise. The kernels mask ragged S
-themselves, so any S is exact.
+dim. f32 runs on the CUDA cores (exact f32 FMAs, register-blocked
+products fed by 16-byte shared loads from a ``cp.async`` ring; the .cu
+headers and ``csrc/flash_attention_simt.cuh`` say how): blocks of
+``simt_rows`` rows (128 or 64) walking the other side 128 rows a step, on
+the instance of ``simt_width`` (forward) or ``simt_bwd_width`` (backward;
+past hd 256 two column slices), the columns past hd zero from the
+copies; a head dim that is not a multiple of 4 is staged
+``ld(hd, float32)`` wide. Past 512 the wrappers raise. The kernels mask
+ragged S themselves, so any S is exact.
 ``ops.flash_attention`` dispatches here for CUDA tensors (through an
 autograd function when a gradient is wanted) and to
 ``ref.flash_attention`` for CPU tensors. ``backward_blocks`` is the
@@ -53,16 +57,40 @@ HEAD_DIMS = tuple(range(1, 513))
 TC_WIDTHS = (64, 128, 192, 256, 512)
 BWD_TC_WIDTHS = (64, 128, 256, 512)
 # the widths of the CUDA-core instances, f32 (csrc: SIMT_WIDTH_LIST and
-# simt::width, forward and backward): a head dim that is a multiple of 16
-# up to 256, or of 64 above, runs the EXACT kernel of its own width, its
-# loops fixed at compile time; any other the masked kernel of the least of
-# SIMT_MASKED_WIDTHS at or above it
-SIMT_WIDTHS = tuple(range(16, 257, 16)) + (320, 384, 448, 512)
-SIMT_MASKED_WIDTHS = (32, 64, 128, 256, 384, 512)
+# simt::width): the forward's (SIMT_WIDTHS) and the backward's
+# (SIMT_BWD_WIDTHS, the gradients' columns a block); a head dim runs the
+# least one at or above it (the backward past 256: at or above half of
+# it, in SIMT_BWD_SLICES column slices). Each width fixes the apply
+# product's thread layout and slab rows; the head-dim loop of the score
+# product is cut at the head dim
+SIMT_WIDTHS = tuple(range(32, 257, 32)) + (320, 384, 448, 512)
+SIMT_BWD_WIDTHS = tuple(range(32, 257, 32))
+SIMT_MAX_SLICE = 256
+SIMT_BWD_SLICES = 2
+# csrc/flash_attention_simt.cuh: a CUDA-core block's own rows (query rows,
+# or key rows in the dK/dV kernel: SIMT_ROWS, or SIMT_WIDE_ROWS up to a
+# kernel's SIMT_WIDE_UPTO width, where 8 x 8 microtiles fit the
+# registers), the other side's rows a step, the P and dS tiles' row
+# stride; csrc/flash_attention.cu and csrc/flash_attention_bwd.cu (simt):
+# the rings' slabs in flight, the head-dim columns of a score slab
+# (SIMT_DC; the backward's SIMT_DC2 where the slab holds the block's own
+# rows too), a slab's floats, and the widest ld whose k and v tiles the
+# dK/dV kernel keeps resident
+SIMT_ROWS = 64
+SIMT_WIDE_ROWS = 128
+SIMT_WIDE_UPTO = {"fwd": 128, "dq": 128, "dkdv": 64}
+SIMT_TILE = 128
+SIMT_PLD = SIMT_TILE + 4
+SIMT_STAGES = 3
+SIMT_DC = 32
+SIMT_DC2 = 16
+SIMT_STAGE = SIMT_TILE * (SIMT_DC + 4)
+SIMT_BWD_STAGE = (SIMT_WIDE_ROWS + SIMT_TILE) * (SIMT_DC2 + 4)
+SIMT_KV_RESIDENT = 192
 # csrc/flash_attention.cu: query rows a block (tensor cores: up to hd 192,
-# see tc_rows; CUDA cores: up to width 256, see simt_rows), threads a
-# block by namespace and (tensor cores) (k, v) tiles in flight
-BQ = {torch.float32: 64, torch.bfloat16: 128}
+# see tc_rows; CUDA cores: SIMT_ROWS), threads a block by namespace and
+# (tensor cores) (k, v) tiles in flight
+BQ = {torch.float32: SIMT_ROWS, torch.bfloat16: 128}
 THREADS = {"simt": 256, "tc": 288}
 TC_STAGES = 3
 # the width-512 instances (namespace wide of both sources): the forward's
@@ -84,7 +112,7 @@ BWD_TC_STAGES = 4
 # a dQ or dK/dV block, shared by its two warpgroups
 BWD_SPLIT_ROWS = 64
 # the dK/dV pass's split over a group's query heads (bwd_splits) above hd
-# 128: at most BWD_SPLITS blocks a (key tile, kv head, slice, batch row),
+# 128 in bf16 and at every f32 head dim: at most BWD_SPLITS blocks a (key tile, kv head, slice, batch row),
 # each writing f32 partial sums that a fourth kernel adds in split order,
 # and no more than it takes to reach BWD_SPLIT_BLOCKS blocks (about two an
 # SM). chip_smoke.py's sweep of 1, 2, 4 and 8 at Gemma 2B's S = 4096, H =
@@ -120,17 +148,20 @@ def form(dtype: torch.dtype, hd: int) -> str:
             "tc8" if hd % 16 else "tc")
 
 
-def ld(hd: int) -> int:
-    """The row stride of a bf16 launch's operands and outputs: hd rounded
-    up to a multiple of 8, which makes every global stride of the TMA's
-    tensor maps a multiple of 16 bytes."""
-    return -(-hd // 8) * 8
+def ld(hd: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The row stride of a launch's operands: for bf16 (and its outputs)
+    hd rounded up to a multiple of 8, which makes every global stride of
+    the TMA's tensor maps a multiple of 16 bytes; for f32 up to a multiple
+    of 4, whole 16-byte rows for the ``cp.async`` copies."""
+    m = 8 if dtype == torch.bfloat16 else 4
+    return -(-hd // m) * m
 
 
 def staged(dtype: torch.dtype, hd: int) -> bool:
-    """Whether a launch copies its operands into buffers ``ld(hd)``
-    columns wide (bf16 at a head dim that is not a multiple of 8)."""
-    return dtype == torch.bfloat16 and ld(hd) != hd
+    """Whether a launch copies its operands into buffers ``ld(hd, dtype)``
+    columns wide (a head dim that is not a multiple of 8 in bf16, of 4 in
+    f32)."""
+    return ld(hd, dtype) != hd
 
 
 def tc_width(hd: int, backward: bool = False) -> int:
@@ -146,15 +177,48 @@ def tc_width(hd: int, backward: bool = False) -> int:
 
 
 def simt_width(hd: int) -> int:
-    """The width of the CUDA-core instance an f32 head dim runs
-    (``simt::width`` in both sources): hd itself where it is one of
-    SIMT_WIDTHS (the EXACT kernel), else the least of SIMT_MASKED_WIDTHS at
-    or above hd, whose tiles' columns past hd load as zeros and are not
+    """The width of the CUDA-core forward instance an f32 head dim runs
+    (``simt::width`` of csrc/flash_attention.cu): the least of SIMT_WIDTHS
+    at or above hd; the columns past hd arrive as zeros and are not
     stored."""
     _in_domain(hd)
-    if hd in SIMT_WIDTHS:
-        return hd
-    return next(w for w in SIMT_MASKED_WIDTHS if w >= hd)
+    return next(w for w in SIMT_WIDTHS if w >= hd)
+
+
+def simt_tile_ld(hd: int) -> int:
+    """Row stride of a CUDA-core kernel's resident tile (the forward's q,
+    the dQ kernel's q and dO, the dK/dV kernel's k and v;
+    ``simt::q_ld``, ``simt::tile_ld``): ``ld(hd, float32)`` in whole
+    slabs of SIMT_DC columns, and 4 more."""
+    return -(-ld(hd, torch.float32) // SIMT_DC) * SIMT_DC + 4
+
+
+def simt_resident(hd: int, kernel: str) -> bool:
+    """Whether a CUDA-core backward kernel ("dq" or "dkdv") keeps its own
+    rows' operands resident (``simt::dq_resident``, ``kv_resident``): on
+    SIMT_ROWS-row blocks only, the dQ kernel's q and dO with one column
+    slice (ld up to SIMT_MAX_SLICE), the dK/dV kernel's k and v up to
+    SIMT_KV_RESIDENT; else they stream through the ring beside the other
+    side's rows."""
+    n = ld(hd, torch.float32)
+    return simt_rows(hd, kernel) == SIMT_ROWS and n <= (
+        SIMT_MAX_SLICE if kernel == "dq" else SIMT_KV_RESIDENT)
+
+
+def simt_bwd_slices(hd: int) -> int:
+    """Column slices of the f32 backward's gradients (``simt::slices``):
+    1 up to SIMT_MAX_SLICE, SIMT_BWD_SLICES above."""
+    _in_domain(hd, "flash_attention_bwd")
+    return 1 if hd <= SIMT_MAX_SLICE else SIMT_BWD_SLICES
+
+
+def simt_bwd_width(hd: int) -> int:
+    """The width of the CUDA-core backward instance an f32 head dim runs
+    (``simt::width`` of csrc/flash_attention_bwd.cu): the least of
+    SIMT_BWD_WIDTHS at or above the columns of one of its
+    ``simt_bwd_slices``."""
+    n = -(-ld(hd, torch.float32) // simt_bwd_slices(hd))
+    return next(w for w in SIMT_BWD_WIDTHS if w >= n)
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
@@ -174,11 +238,13 @@ def tc_rows(hd: int) -> int:
     return BQ[torch.bfloat16] // 2 if hd > 192 else BQ[torch.bfloat16]
 
 
-def simt_rows(hd: int) -> int:
-    """Query rows of a block, and keys of a (k, v) tile, of the CUDA-core
-    forward (``simt::rows``): 64 up to width 256, 32 above."""
-    return BQ[torch.float32] if simt_width(hd) <= 256 else BQ[
-        torch.float32] // 2
+def simt_rows(hd: int, kernel: str = "fwd") -> int:
+    """Rows of a block of a CUDA-core kernel (``simt::rows``,
+    ``dq_rows``, ``kv_rows``): query rows of the forward ("fwd") and the
+    dQ kernel ("dq"), key rows of the dK/dV kernel ("dkdv"); SIMT_WIDE_ROWS
+    on instances up to SIMT_WIDE_UPTO wide, else SIMT_ROWS."""
+    w = simt_width(hd) if kernel == "fwd" else simt_bwd_width(hd)
+    return SIMT_WIDE_ROWS if w <= SIMT_WIDE_UPTO[kernel] else SIMT_ROWS
 
 
 def q_rows(dtype: torch.dtype, hd: int) -> int:
@@ -188,31 +254,44 @@ def q_rows(dtype: torch.dtype, hd: int) -> int:
 
 def kv_rows(dtype: torch.dtype, hd: int) -> int:
     """Key rows a (k, v) tile: on the tensor cores 128 up to hd 128, 64 up
-    to 256 (``Layout::BKV``), WIDE_BKV above; on the CUDA cores
-    ``simt_rows``."""
+    to 256 (``Layout::BKV``), WIDE_BKV above; on the CUDA cores a step's
+    SIMT_TILE keys."""
     if route(dtype, hd) == "tc":
         return 128 if hd <= 128 else 64 if hd <= 256 else WIDE_BKV
-    return simt_rows(hd)
+    return SIMT_TILE
 
 
 def slices(dtype: torch.dtype, hd: int) -> int:
-    """Blocks a row tile's output columns split over (a grid axis):
-    WIDE_SLICES on the width-512 instances, else 1."""
+    """Blocks a row tile's output columns split over (a grid axis) in the
+    forward: WIDE_SLICES on the width-512 tensor-core instance, else 1
+    (the CUDA cores' default, ``simt::SLICES``)."""
     return WIDE_SLICES if route(dtype, hd) == "tc" and hd > 256 else 1
+
+
+def bwd_slices(dtype: torch.dtype, hd: int) -> int:
+    """Blocks a key (query) tile's gradient columns split over in the
+    backward: ``slices`` on the tensor cores, ``simt_bwd_slices`` on the
+    CUDA cores."""
+    if bwd_scope(dtype, hd) == "tc":
+        return slices(dtype, hd)
+    return simt_bwd_slices(hd)
 
 
 def smem_bytes(dtype: torch.dtype, hd: int) -> int:
     """Shared memory of a forward block: on the CUDA cores
-    (``simt::smem_bytes``) the q and k tiles [R][W + 1], the v tile [R][W]
-    and p [R][R + 1], f32 (W = simt_width(hd), R = simt_rows(hd)); on the
-    tensor cores (``tc::Layout::BYTES``, ``wide::BYTES``) the q tile of
+    (``simt::smem_bytes``) the ring of SIMT_STAGES slabs of SIMT_STAGE
+    floats, the P tile [rows][SIMT_PLD], a row's rescale and the
+    resident q tile [rows][``simt_tile_ld``], rows ``simt_rows(hd)``, f32
+    (190,976 bytes at hd 128, 221,440 at 512); on the tensor cores
+    (``tc::Layout::BYTES``, ``wide::BYTES``) the q tile of
     ``tc_rows(hd)`` rows, the ring of ``TC_STAGES`` k tiles and v tiles
     (the v tile the slice's columns only on the width-512 instance), the
     mbarriers and 1024 bytes of alignment slack (230,456 bytes at hd 256,
     214,072 above)."""
     if route(dtype, hd) == "simt":
-        w, r = simt_width(hd), simt_rows(hd)
-        return 4 * (2 * r * (w + 1) + r * w + r * (r + 1))
+        r = simt_rows(hd)
+        return 4 * (SIMT_STAGES * SIMT_STAGE + r * SIMT_PLD + r
+                    + r * simt_tile_ld(hd))
     w = tc_width(hd)
     return (tc_rows(hd) * w * 2 + TC_STAGES * kv_rows(dtype, hd)
             * (w + w // slices(dtype, hd)) * 2 + (2 * TC_STAGES + 1) * 8
@@ -240,14 +319,16 @@ def bwd_splits(dtype: torch.dtype, B: int, S: int, H: int, KVH: int,
                hd: int) -> int:
     """Blocks the dK/dV pass splits a group of G = H / KVH query heads
     over, each block walking G / splits of them: on the tensor cores above
-    hd 128 (``tc::KvLayout::SPLIT``, namespace wide) the smallest divisor
-    of G up to BWD_SPLITS that brings the grid (key tiles x kv heads x
-    ``slices`` x batch rows) to BWD_SPLIT_BLOCKS blocks, or the largest if
-    none does; 1 elsewhere (a block walks the whole group)."""
-    if bwd_scope(dtype, hd) != "tc" or hd <= 128:
+    hd 128 (``tc::KvLayout::SPLIT``, namespace wide) and on the CUDA cores
+    at every head dim, the smallest divisor of G up to BWD_SPLITS that
+    brings the grid (key tiles of ``bwd_rows`` x kv heads x ``bwd_slices``
+    x batch rows) to BWD_SPLIT_BLOCKS blocks, or the largest if none does;
+    1 elsewhere (a block walks the whole group)."""
+    if bwd_scope(dtype, hd) == "tc" and hd <= 128:
         return 1
     G = H // KVH
-    blocks = -(-S // BWD_SPLIT_ROWS) * KVH * B * slices(dtype, hd)
+    blocks = (-(-S // bwd_rows(dtype, hd)) * KVH * B
+              * bwd_slices(dtype, hd))
     fits = [n for n in range(1, min(G, BWD_SPLITS) + 1) if G % n == 0]
     return next((n for n in fits if blocks * n >= BWD_SPLIT_BLOCKS),
                 fits[-1])
@@ -257,12 +338,11 @@ def bwd_rows(dtype: torch.dtype, hd: int) -> int:
     """Key rows of a dK/dV block (and, on the CUDA cores, rows of every
     tile of both passes): on the tensor cores (``tc::KvLayout::BK``) 128,
     two warpgroups of 64, and BWD_SPLIT_ROWS above hd 128, both
-    warpgroups' with a share of the columns each; on the CUDA cores
-    (``simt::Tile::BR``) 64 up to width 128, 32 up to 384, 16 above."""
+    warpgroups' with a share of the columns each; on the CUDA cores the
+    dK/dV kernel's ``simt_rows(hd, "dkdv")``."""
     if bwd_scope(dtype, hd) == "tc":
         return BWD_SPLIT_ROWS if hd > 128 else 128
-    w = simt_width(hd)
-    return 64 if w <= 128 else 32 if w <= 384 else 16
+    return simt_rows(hd, "dkdv")
 
 
 def bwd_query_rows(hd: int) -> int:
@@ -280,16 +360,31 @@ def bwd_smem_bytes(dtype: torch.dtype, hd: int) -> int:
     ``wide::BYTES``): the k and v tiles of ``bwd_rows`` rows, the ring of
     (q, dO) tiles (BWD_TC_STAGES of them, WIDE_STAGES at width 512), the
     mbarriers and 1024 bytes of alignment slack, bf16 (197,704 bytes at
-    hd 256, 230,456 at 512). CUDA cores (``simt::Tile``): the k, v, q and
-    dO tiles [rows][W + 1], P and dS [rows][rows + 1], the rows' lse and
-    Delta, all f32 (W = simt_width(hd))."""
+    hd 256, 230,456 at 512). CUDA cores (``simt::kv_bytes``): the ring of
+    SIMT_STAGES slabs of SIMT_BWD_STAGE floats, the P and dS tiles
+    [rows][SIMT_PLD] and, where ``simt_resident``, the k and v tiles
+    [SIMT_ROWS][``simt_tile_ld``], f32 (196,608 bytes at hd 64, 197,632 at
+    128, 129,024 past 192; the dQ kernel's, ``dq_smem_bytes``, holds one
+    tile)."""
     br = bwd_rows(dtype, hd)
     if bwd_scope(dtype, hd) == "tc":
         w = tc_width(hd, backward=True)
         stages = WIDE_STAGES if hd > 256 else BWD_TC_STAGES
         return (2 * br * w * 2 + 2 * stages * bwd_query_rows(hd) * w * 2
                 + (2 * stages + 1) * 8 + 1024)
-    return 4 * (4 * br * (simt_width(hd) + 1) + 2 * br * (br + 1) + 2 * br)
+    res = simt_resident(hd, "dkdv")
+    return 4 * (SIMT_STAGES * SIMT_BWD_STAGE + 2 * br * SIMT_PLD
+                + (2 * SIMT_ROWS * simt_tile_ld(hd) if res else 0))
+
+
+def dq_smem_bytes(hd: int) -> int:
+    """Shared memory of a block of the CUDA-core dQ kernel
+    (``simt::dq_bytes``): the ring, the dS tile and, where
+    ``simt_resident``, the q and dO tiles, f32."""
+    res = simt_resident(hd, "dq")
+    return 4 * (SIMT_STAGES * SIMT_BWD_STAGE
+                + simt_rows(hd, "dq") * SIMT_PLD
+                + (2 * SIMT_ROWS * simt_tile_ld(hd) if res else 0))
 
 
 def bwd_geometry(dtype: torch.dtype, hd: int) -> tuple:
@@ -298,8 +393,9 @@ def bwd_geometry(dtype: torch.dtype, hd: int) -> tuple:
     ``flash_attention_bwd_geometry`` of csrc/flash_attention_bwd.cu
     gives."""
     tc = bwd_scope(dtype, hd) == "tc"
-    return (int(tc), tc_width(hd, backward=True) if tc else simt_width(hd),
-            bwd_rows(dtype, hd), bwd_smem_bytes(dtype, hd))
+    return (int(tc), tc_width(hd, backward=True) if tc
+            else simt_bwd_width(hd), bwd_rows(dtype, hd),
+            bwd_smem_bytes(dtype, hd))
 
 
 def kernel_geometry(dtype: torch.dtype, hd: int, backward: bool = False):
@@ -345,23 +441,32 @@ def stage(x, width: int):
 
 
 def stage_elems(B: int, S: int, H: int, KVH: int, hd: int,
-                backward: bool = False) -> int:
-    """bf16 elements of a staged launch's scratch: q, k, v and o ``ld``
-    wide (the backward: q, o, dO, dQ, k, v, dK and dV)."""
+                backward: bool = False,
+                dtype: torch.dtype = torch.bfloat16) -> int:
+    """Elements of a staged launch's scratch, ``ld(hd, dtype)`` wide: bf16
+    q, k, v and o (the backward: q, o, dO, dQ, k, v, dK and dV); f32 q, k
+    and v (the backward: q, dO, k and v; the f32 kernels write their
+    outputs hd wide themselves)."""
+    w = ld(hd, dtype)
+    if dtype == torch.float32:
+        return B * S * ((2 * H if backward else H) + 2 * KVH) * w
     n = 2 if backward else 1
-    return 2 * n * B * S * (H + KVH) * ld(hd)
+    return 2 * n * B * S * (H + KVH) * w
 
 
-def flash_attention(q, k, v, lse: bool = False):
+def flash_attention(q, k, v, lse: bool = False, _slices=None):
     """q: [B, S, H, hd]; k, v: [B, S, KVH, hd], one dtype (float32 or
     bfloat16), contiguous on one CUDA device; H a multiple of KVH; hd in
     HEAD_DIMS (1 to 512) -> o [B, S, H, hd] in q's dtype, and with ``lse``
     also the rows' log-sum-exp [B, H, S] f32. Scores stay f32 inside, and
     p keeps f32 precision (on the tensor cores as a bf16 hi and lo pair).
-    A bf16 head dim that is not a multiple of 8 is staged: the entry copies
-    q, k and v ``ld(hd)`` wide (zeros past hd) into a scratch allocated
-    here and o, written that wide, back. Launches are counted in
-    ``launches`` and by form in ``by_form``."""
+    A head dim that is not a multiple of 8 (bf16) or 4 (f32) is staged:
+    the entry copies q, k and v ``ld(hd, dtype)`` wide (zeros past hd)
+    into a scratch allocated here (bf16: and o, written that wide, back).
+    ``_slices`` splits an f32 launch's o columns over that many blocks a
+    row tile, each recomputing S (chip_smoke.py's measure of the split;
+    default 1). Launches are counted in ``launches`` and by form in
+    ``by_form``."""
     _check_operands("flash_attention", q, k, v)
     _build.require_cuda("flash_attention", q, k, v)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -374,13 +479,17 @@ def flash_attention(q, k, v, lse: bool = False):
     lib = _build.load("flash_attention")
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if out_lse is None else out_lse.data_ptr())
+    if _slices is not None and (q.dtype != torch.float32 or _slices < 1):
+        raise ValueError(f"flash_attention: {_slices} column slices at "
+                         f"{q.dtype}")
+    scratch = (torch.empty(stage_elems(B, S, H, KVH, hd, dtype=q.dtype),
+                           dtype=q.dtype, device=q.device)
+               if staged(q.dtype, hd) else None)
     if q.dtype == torch.float32:
-        err = lib.flash_attention_f32(*ptrs, B, S, H, KVH, hd,
-                                      *_build.launch_args(q))
+        err = lib.flash_attention_f32(
+            *ptrs, None if scratch is None else scratch.data_ptr(), B, S, H,
+            KVH, hd, _slices or 0, *_build.launch_args(q))
     else:
-        scratch = (torch.empty(stage_elems(B, S, H, KVH, hd),
-                               dtype=q.dtype, device=q.device)
-                   if staged(q.dtype, hd) else None)
         err = lib.flash_attention_bf16(
             *ptrs, None if scratch is None else scratch.data_ptr(), B, S, H,
             KVH, hd, *_build.launch_args(q))
@@ -398,13 +507,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
     so the same bits every run. bf16 runs on the tensor cores with P and
     dS as bf16 hi/lo pairs (the .cu header states the precision contract),
     staged as the forward is (q, k, v, o and dO copied ``ld(hd)`` wide into
-    a scratch allocated here, the gradients copied back); above hd 128
-    the dK/dV pass splits the group's
-    query heads over ``bwd_splits`` blocks, which write f32 partial sums
-    to a workspace allocated here, [2, splits, B, S, KVH, ld(hd)] (none
+    a scratch allocated here, the gradients copied back); f32 on the CUDA
+    cores in exact f32, q, dO, k and v staged ``ld(hd, float32)`` wide
+    where hd is not a multiple of 4. The dK/dV pass splits the group's
+    query heads over ``bwd_splits`` blocks (bf16 above hd 128, f32 at
+    every head dim), which write f32 partial sums to a workspace
+    allocated here, [2, splits, B, S, KVH, ld(hd)] (f32: hd wide; none
     for 1; 32 MiB a split at Gemma 2B's B = 1, S = 4096), added in split
     order by a fourth kernel. ``_splits`` overrides ``bwd_splits`` for
-    chip_smoke.py's sweep (a divisor of H / KVH; 1 at other head dims).
+    chip_smoke.py's sweep (a divisor of H / KVH; 1 at bf16 head dims up
+    to 128).
     Launches are counted in ``launches`` and by form in ``by_form``."""
     _check_operands("flash_attention_bwd", q, k, v)
     B, S, H, hd = q.shape
@@ -423,8 +535,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
     splits = (bwd_splits(q.dtype, B, S, H, KVH, hd) if _splits is None
               else _splits)
     scope = bwd_scope(q.dtype, hd)
-    if splits != 1 and (scope != "tc" or hd <= 128
-                          or (H // KVH) % splits):
+    if splits != 1 and ((scope == "tc" and hd <= 128) or splits < 1
+                        or (H // KVH) % splits):
         raise ValueError(f"flash_attention_bwd: {splits} splits of "
                          f"{H // KVH} query heads at {q.dtype} head_dim {hd}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -433,20 +545,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, _splits=None):
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr())
     lib = _build.load("flash_attention_bwd")
-    if q.dtype == torch.float32:
-        err = lib.flash_attention_bwd_f32(*args, B, S, H, KVH, hd,
-                                          *_build.launch_args(q))
-    else:
-        work = (torch.empty((2, splits, B, S, KVH, ld(hd)),
-                            dtype=torch.float32, device=q.device)
-                if splits > 1 else None)
-        scratch = (torch.empty(stage_elems(B, S, H, KVH, hd, backward=True),
-                               dtype=q.dtype, device=q.device)
-                   if staged(q.dtype, hd) else None)
-        err = lib.flash_attention_bwd_bf16(
-            *args, None if work is None else work.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), B, S, H, KVH,
-            hd, splits, *_build.launch_args(q))
+    work = (torch.empty((2, splits, B, S, KVH, ld(hd, q.dtype)
+                         if q.dtype == torch.bfloat16 else hd),
+                        dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    scratch = (torch.empty(stage_elems(B, S, H, KVH, hd, backward=True,
+                                       dtype=q.dtype),
+                           dtype=q.dtype, device=q.device)
+               if staged(q.dtype, hd) else None)
+    entry = (lib.flash_attention_bwd_f32 if q.dtype == torch.float32
+             else lib.flash_attention_bwd_bf16)
+    err = entry(*args, None if work is None else work.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), B, S, H,
+                KVH, hd, splits, *_build.launch_args(q))
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.by_form[form(q.dtype, hd)] += 1

@@ -427,7 +427,9 @@ def _flash_instance(cfg: dict) -> KernelInstance:
     """One block per (query tile, head, batch row); past hd 256 (bf16, the
     width-512 instance, namespace wide) one per (query tile, head x
     column slice, batch row), numbered ``longest_first``, each writing its
-    slice of o's columns."""
+    slice of o's columns. f32 (the CUDA cores): one per (``simt_rows``
+    query rows, head, batch row), the longest rows first
+    (``longest_first``, tile nq - 1 first), with its ``cp.async`` ring."""
     import torch
     B, S, H, hd = cfg["B"], cfg["S"], cfg["H"], cfg["hd"]
     dt = torch.bfloat16 if cfg.get("dtype") == "bfloat16" else torch.float32
@@ -435,16 +437,22 @@ def _flash_instance(cfg: dict) -> KernelInstance:
     route = _fa.route(dt, hd)
     sl = _fa.slices(dt, hd)
     grid = (_cdiv(S, bq), H * sl, B)
-    if sl > 1:
+    if route == "simt":
+        def tile(i, j, b):
+            """(batch row, query tile, head, column slice) of a block."""
+            x, y, bb = _fa.longest_first(i, j, b, grid)
+            return bb, grid[0] - 1 - x, y // sl, y % sl
+        scope, ring = "simt", Ring("cp.async", _fa.SIMT_STAGES, "simt")
+    elif sl > 1:
         def tile(i, j, b):
             """(batch row, query tile, head, column slice) of a block."""
             qt, y, bb = _fa.longest_first(i, j, b, grid)
             return bb, qt, y // sl, y % sl
-        scope, stages = "wide", _fa.WIDE_STAGES
+        scope, ring = "wide", Ring("tma", _fa.WIDE_STAGES, "wide")
     else:
         def tile(i, h, b):
             return b, i, h, 0
-        scope, stages = route, _fa.TC_STAGES
+        scope, ring = route, Ring("tma", _fa.TC_STAGES, route)
     return KernelInstance(
         grid=grid, threads=_fa.THREADS[route],
         smem_bytes=_fa.smem_bytes(dt, hd),
@@ -452,8 +460,7 @@ def _flash_instance(cfg: dict) -> KernelInstance:
               Axis("batch", B, 1)),
         outputs=(BlockMap("o", (B, S, H, hd), (1, bq, 1, -(-hd // sl)),
                           tile, dtype=cfg.get("dtype", "float32")),),
-        rings=(Ring("tma", stages, scope),) if route == "tc" else (),
-        scope=scope)
+        rings=(ring,), scope=scope)
 
 
 def _flash_work(cfg: dict):
@@ -479,18 +486,24 @@ def _flash_bwd_instance(cfg: dict) -> KernelInstance:
     (the width-512 instance, namespace wide) per (key tile, (kv head x
     column slice) x split, batch row), numbered ``longest_first``, each
     writing its slice of the columns, as its split's f32 partial dK and dV
-    where ``bwd_splits`` > 1 (the fourth kernel adds them)."""
+    where ``bwd_splits`` > 1 (the fourth kernel adds them). f32 (the CUDA
+    cores): one per (``bwd_rows`` key rows, (kv head x column slice) x
+    split, batch row) at every head dim, numbered ``longest_first``, with its
+    ``cp.async`` ring; ``simt_bwd_slices`` column slices past hd 256, the
+    split ``bwd_splits`` (or the config's ``splits``)."""
     import torch
     B, S, H, KVH, hd = cfg["B"], cfg["S"], cfg["H"], cfg["KVH"], cfg["hd"]
     dt = cfg.get("dtype", "float32")
     tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
     scope = _fa.bwd_scope(tdt, hd)
     br = _fa.bwd_rows(tdt, hd)
-    splits = _fa.bwd_splits(tdt, B, S, H, KVH, hd)
-    sl = _fa.slices(tdt, hd)
+    splits = cfg.get("splits") or _fa.bwd_splits(tdt, B, S, H, KVH, hd)
+    sl = _fa.bwd_slices(tdt, hd)
     cols = -(-hd // sl)
+    if scope == "simt" and sl > 1:
+        cols = _fa.simt_bwd_width(hd)
     grid = (_cdiv(S, br), KVH * sl * splits, B)
-    if scope == "tc" and hd > 128:
+    if scope == "simt" or hd > 128:
         def tile(i, j, b):
             """(split, batch row, key tile, kv head, column slice) of block
             (i, j, b)."""
@@ -518,7 +531,7 @@ def _flash_bwd_instance(cfg: dict) -> KernelInstance:
         outputs=outs,
         rings=((Ring("tma", _fa.WIDE_STAGES, "wide") if wide else
                 Ring("tma", _fa.BWD_TC_STAGES, "tc"),) if scope == "tc"
-               else ()),
+               else (Ring("cp.async", _fa.SIMT_STAGES, "simt"),)),
         scope="wide" if wide else scope)
 
 

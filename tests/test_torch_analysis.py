@@ -185,14 +185,106 @@ def test_wrapper_constants_are_the_cuda_ones():
                                            "sgemm")
     assert tte.THREADS["wgmma"] == 32 + _cu_int("packed_matmul.cu",
                                                 "CONSUMERS", "tc")
-    assert tfa.BQ[torch.float32] == _cu_int("flash_attention.cu", "BQ",
-                                            "simt")
+    # a CUDA-core block's rows by kernel and instance width: SIMT_WIDE_ROWS
+    # up to SIMT_WIDE_UPTO, else SIMT_ROWS (BQ's f32 entry)
+    assert tfa.BQ[torch.float32] == tfa.SIMT_ROWS
+    rows_fns = {"fwd": ("flash_attention.cu", "rows"),
+                "dq": ("flash_attention_bwd.cu", "dq_rows"),
+                "dkdv": ("flash_attention_bwd.cu", "kv_rows")}
+    for kernel, (src, fn) in rows_fns.items():
+        text = (registry.CSRC / src).read_text()
+        m = re.search(rf"constexpr int {fn}\(int W\) \{{\s+return W <= "
+                      rf"(\d+) \? (\d+) : (\d+);", text)
+        assert tuple(int(x) for x in m.groups()) == (
+            tfa.SIMT_WIDE_UPTO[kernel], tfa.SIMT_WIDE_ROWS, tfa.SIMT_ROWS)
+    assert (tfa.THREADS["simt"], tfa.SIMT_TILE) == tuple(
+        _cu_int("flash_attention_simt.cuh", n) for n in ("THREADS", "TILE"))
+    assert (tfa.SIMT_STAGES, tfa.SIMT_DC) == tuple(
+        _cu_int("flash_attention.cu", n, "simt") for n in ("STAGES", "DC"))
+    # a slab: TILE rows of a score slab's DC columns and 4 more, in both
+    # sources
+    fwd = (registry.CSRC / "flash_attention.cu").read_text()
+    bwd = (registry.CSRC / "flash_attention_bwd.cu").read_text()
+    assert "constexpr int STAGE = TILE * SLD;" in fwd
+    assert "constexpr int STAGE = (128 + TILE) * (DC2 + 4);" in bwd
+    assert tfa.SIMT_STAGE == tfa.SIMT_TILE * (tfa.SIMT_DC + 4)
+    assert tfa.SIMT_BWD_STAGE == (tfa.SIMT_WIDE_ROWS + tfa.SIMT_TILE) * (
+        tfa.SIMT_DC2 + 4)
     assert tfa.BQ[torch.bfloat16] == _cu_int("flash_attention.cu", "BQ",
                                              "tc")
     assert tfa.TC_STAGES == _cu_int("flash_attention.cu", "STAGES", "tc")
     assert (tfa.WIDE_STAGES, tfa.WIDE_BKV, tfa.WIDE_SLICES) == tuple(
         _cu_int("flash_attention.cu", n, "wide")
         for n in ("STAGES", "BKV", "SLICES"))
+
+
+@pytest.mark.parametrize("hd", [64, 257, 512])
+@pytest.mark.parametrize("splits", [1, 4])
+def test_f32_attention_instances_are_the_kernels(hd, splits):
+    """The registry's f32 attention instances are the CUDA-core launches
+    as built: 64-row blocks of 256 threads with their ``cp.async`` rings
+    and the sources' shared memory; the forward's grid (query tiles,
+    heads, batch rows) numbered longest first (the first H x B blocks in
+    launch order take the last query tile), the backward's (key tiles, (kv heads x
+    column slices) x splits, batch rows) with two column slices past hd
+    256 and, split, the partial dK and dV of each split; every output
+    tile written once, and the kernel pass finds nothing."""
+    from repro_torch.analysis.check import kernel_pass
+    B, S, H, KVH = 2, 200, 8, 2
+    cfg = dict(B=B, S=S, H=H, KVH=KVH, hd=hd, dtype="float32")
+    fwd = registry.get("flash_attention")
+    inst = fwd.instance(cfg)
+    rows = 128 if hd <= 128 else 64
+    nq = -(-S // rows)
+    assert inst.grid == (nq, H, B) and inst.threads == 256
+    # the ring, P, a row's rescale and the resident q tile
+    qld = -(-hd // 32) * 32 + 4
+    assert inst.smem_bytes == tfa.smem_bytes(torch.float32, hd) == 4 * (
+        3 * 4608 + rows * (132 + 1 + qld))
+    assert inst.rings == (registry.Ring("cp.async", tfa.SIMT_STAGES,
+                                        "simt"),)
+    o = inst.outputs[0]
+    assert o.block == (1, rows, 1, hd)
+    # the first H x B blocks in launch order take the last query tile,
+    # every (head, batch row) of it, before any block takes another
+    order = [np.unravel_index(n, (B, H, nq)) for n in range(nq * H * B)]
+    first = [o.index_map(i, j, b) for b, j, i in order[:H * B]]
+    assert {t[1] for t in first} == {nq - 1}
+    assert {(t[0], t[2]) for t in first} == {(b, h) for b in range(B)
+                                             for h in range(H)}
+    tiles = {o.index_map(i, j, b) for i in range(nq) for j in range(H)
+             for b in range(B)}
+    assert len(tiles) == nq * H * B
+    assert kernel_pass.check_kernel(fwd, cfg) == []
+    bwd = registry.get("flash_attention_bwd")
+    inst = bwd.instance(dict(cfg, splits=splits))
+    sl = 1 if hd <= 256 else 2
+    rows = 128 if hd <= 64 else 64
+    nk = -(-S // rows)
+    assert inst.grid == (nk, KVH * sl * splits, B) and inst.threads == 256
+    # the ring, P and dS; no resident k and v tiles on 128-row blocks or
+    # past ld 192
+    assert inst.smem_bytes == tfa.bwd_smem_bytes(torch.float32, hd) == 4 * (
+        3 * 5120 + 2 * rows * 132)
+    assert inst.rings == (registry.Ring("cp.async", tfa.SIMT_STAGES,
+                                        "simt"),)
+    names = [m.name for m in inst.outputs]
+    cols = hd if sl == 1 else tfa.simt_bwd_width(hd)
+    if splits > 1:
+        assert names == ["dk_part", "dv_part"]
+        assert inst.outputs[0].block == (1, 1, rows, 1, cols)
+    else:
+        assert names == ["dk", "dv"]
+        assert inst.outputs[0].block == (1, rows, 1, cols)
+    assert kernel_pass.check_kernel(bwd, dict(cfg, splits=splits)) == []
+    # the default split: the key tiles x 2 kv heads x 2 batch rows x the
+    # slices (8 to 32 blocks) reach no 256 blocks at any divisor of the
+    # group of 4, so the largest, 4; at S = 4096 and hd 128 the grid's 512
+    # blocks need none
+    want = 4
+    assert tfa.bwd_splits(torch.float32, B, 4096, H, KVH, 128) == 1
+    assert tfa.bwd_splits(torch.float32, B, S, H, KVH, hd) == want
+    assert bwd.instance(cfg).grid == (nk, KVH * sl * want, B)
 
 
 def test_backward_constants_are_the_cuda_ones():
@@ -204,8 +296,12 @@ def test_backward_constants_are_the_cuda_ones():
                                         "tc")
     assert tfa.BWD_THREADS["tc"] == 128 + _cu_int("flash_attention_bwd.cu",
                                                   "CONSUMERS", "tc")
-    assert tfa.BWD_THREADS["simt"] == _cu_int("flash_attention_bwd.cu",
-                                              "THREADS", "simt")
+    assert tfa.BWD_THREADS["simt"] == _cu_int("flash_attention_simt.cuh",
+                                              "THREADS")
+    assert (tfa.SIMT_STAGES, tfa.SIMT_DC, tfa.SIMT_DC2,
+            tfa.SIMT_MAX_SLICE, tfa.SIMT_KV_RESIDENT) == tuple(
+        _cu_int("flash_attention_bwd.cu", n, "simt")
+        for n in ("STAGES", "DC", "DC2", "MAX_SLICE", "KV_RESIDENT"))
     assert tss.STAGES == _cu_int("selective_scan_bwd.cu", "STAGES", "bwd")
     assert tss.BWD_STATES_PER_LANE == _cu_int("selective_scan_bwd.cu", "SL",
                                               "bwd")
@@ -230,7 +326,9 @@ def test_backward_constants_are_the_cuda_ones():
     assert inst.smem_bytes == tfa.bwd_smem_bytes(torch.bfloat16, 256)
     inst = registry.get("flash_attention_bwd").instance(
         {"hd": 192, "dtype": "float32"})
-    assert (inst.scope, inst.rings, inst.threads) == ("simt", (), 256)
+    assert (inst.scope, inst.rings, inst.threads) == (
+        "simt", (registry.Ring("cp.async", tfa.SIMT_STAGES, "simt"),),
+        256)
     # past hd 256 the width-512 instance (namespace wide): its ring, and
     # the dK/dV blocks over (kv head x column slice) x split
     assert tfa.WIDE_STAGES == _cu_int("flash_attention_bwd.cu", "STAGES",

@@ -177,7 +177,7 @@ def test_geometry_fits_and_routes_as_the_dispatch():
         assert tfa.route(torch.float32, hd) == "simt"
         assert tfa.bwd_scope(torch.float32, hd) == "simt"
         assert tfa.staged(bf16, hd) == (hd % 8 != 0)
-        assert not tfa.staged(torch.float32, hd)
+        assert tfa.staged(torch.float32, hd) == (hd % 4 != 0)
         for dt in (torch.float32, bf16):
             tc = dt == bf16
             route, width, rows, smem = tfa.geometry(dt, hd)
@@ -192,9 +192,15 @@ def test_geometry_fits_and_routes_as_the_dispatch():
                                 * (width + vw) * 2
                                 + (2 * tfa.TC_STAGES + 1) * 8 + 1024)
             else:
-                assert rows == (64 if width <= 256 else 32)
-                assert smem == 4 * (2 * rows * (width + 1) + rows * width
-                                    + rows * (rows + 1))
+                # 128-row blocks up to width 128, 64 above; the ring of 3
+                # slabs of [128][36] floats, P [rows][132], a row's
+                # rescale and the resident q tile, ld in whole 32-column
+                # slabs and 4 more
+                n4 = -(-hd // 4) * 4
+                qld = -(-n4 // 32) * 32 + 4
+                assert rows == (128 if width <= 128 else 64)
+                assert width % 32 == 0
+                assert smem == 4 * (3 * 128 * 36 + rows * (132 + 1 + qld))
             assert 0 < smem <= SMEM
             route, width, rows, smem = tfa.bwd_geometry(dt, hd)
             assert (route, width) == ((1, b_tc(hd)) if tc
@@ -207,10 +213,20 @@ def test_geometry_fits_and_routes_as_the_dispatch():
                 assert smem == (2 * rows * width * 2 + 2 * st * bq * width
                                 * 2 + (2 * st + 1) * 8 + 1024)
             else:
-                assert rows == (64 if width <= 128 else 32 if width <= 384
-                                else 16)
-                assert smem == 4 * (4 * rows * (width + 1)
-                                    + 2 * rows * (rows + 1) + 2 * rows)
+                # 128 key rows up to width 64, 64 above; the gradients'
+                # columns in one slice up to 256, two above; the ring of 3
+                # slabs of [256][20] floats, P and dS [rows][132], and on
+                # 64-row blocks up to ld 192 the resident k and v tiles
+                n = 1 if hd <= 256 else 2
+                n4 = -(-hd // 4) * 4
+                assert rows == (128 if width <= 64 else 64)
+                kv = (2 * 64 * (-(-n4 // 32) * 32 + 4)
+                      if n4 <= 192 and rows == 64 else 0)
+                assert width <= 256 and n * width >= hd
+                assert (n - 1) * 256 < n4
+                # the dQ kernel's block fits the card too
+                assert 0 < tfa.dq_smem_bytes(hd) <= SMEM
+                assert smem == 4 * (3 * 256 * 20 + 2 * rows * 132 + kv)
             assert 0 < smem <= SMEM
     assert f_tc(513) == f_simt(513) == b_tc(513) == b_simt(513) == 0
     assert f_tc(0) == b_tc(0) == 0
@@ -219,8 +235,9 @@ def test_geometry_fits_and_routes_as_the_dispatch():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [1, 33, 100, 257, 300])
 def test_staged_operands_give_the_unstaged_attention(hd, dtype):
-    """The staging of a bf16 launch, on the plain version: q, k and v
-    copied ``ld(hd)`` columns wide (zeros past hd, ``stage``) through
+    """The staging of a launch, on the plain version: q, k and v copied
+    ``ld(hd, dtype)`` columns wide (a multiple of 8 in bf16, of 4 in f32;
+    zeros past hd, ``stage``) through
     ``ref.flash_attention`` with the true head dim's scale, then narrowed,
     equal the unstaged attention to TOL (the zeros add nothing to any
     product; only the sums' order may move), forward and, through
@@ -229,7 +246,7 @@ def test_staged_operands_give_the_unstaged_attention(hd, dtype):
     S = 40
     q, k, v, do = _qkv(hd, S, dtype, seed=hd + 7, do=True)
     tt = getattr(torch, dtype)
-    w = tfa.ld(hd)
+    w = tfa.ld(hd, tt)
     ins = [torch.as_tensor(a).to(tt).requires_grad_() for a in (q, k, v)]
     want = tref.flash_attention(*ins)
     staged = tref.flash_attention(*(tfa.stage(t, w) for t in ins),

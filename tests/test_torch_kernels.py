@@ -136,9 +136,11 @@ def test_flash_attention_bf16_head_dims_are_the_cuda_instances():
     the instances of TC_WIDTHS, namespace tc up to 256 and wide's 512
     above, each head dim on the least width at or above it, ``tc_width``),
     no bf16 CUDA-core instance is dispatched, and every f32 head dim has a
-    CUDA-core instance of its width ``simt_width``: the dispatch switches
-    list TC_WIDTHS and SIMT_WIDTHS, the masked kernels' widths are
-    SIMT_MASKED_WIDTHS, and the widths' functions are the wrapper's."""
+    CUDA-core instance of its width ``simt_width``: the dispatch switch
+    lists SIMT_WIDTHS, the width function and the ring's constants (slabs
+    in flight, a slab's floats, a score slab's columns) are the
+    wrapper's, and the f32 entry stages the head dims that are not a
+    multiple of 4."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     body = src[src.index("int dispatch_bf16("):src.index("int prologue(")]
     widths = tuple(int(w) for w in re.findall(r"TC_CASE\((\d+)\)", body))
@@ -155,23 +157,26 @@ def test_flash_attention_bf16_head_dims_are_the_cuda_instances():
     entry = src[src.index('extern "C" int flash_attention_bf16('):]
     assert "__nv_bfloat16>" not in src and "simt::" not in entry[
         :entry.index('extern "C" int flash_attention_geometry(')]
+    f32 = src[src.index('extern "C" int flash_attention_f32('):
+              src.index('extern "C" int flash_attention_bf16(')]
+    assert "(hd + 3) / 4 * 4" in f32 and "restride::copy<uint32_t>(3," in f32
     simt = src[src.index("namespace simt {"):src.index("}  // namespace simt")]
     listed = simt[simt.index("#define SIMT_WIDTH_LIST(X)"):
-                  simt.index("// head dim -> the instance of its width")]
+                  simt.index("inline int dispatch(")]
     assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", listed)) == \
         tfa.SIMT_WIDTHS
-    body = simt[simt.index("int dispatch("):]
+    body = simt[simt.index("inline int dispatch("):]
     assert "SIMT_WIDTH_LIST(SIMT_CASE)" in body
     expr = re.search(r"constexpr int width\(int hd\) \{\s+return ([^;]+);",
                      simt).group(1)
     assert " ".join(expr.split()) == (
-        "hd < 1 || hd > 512 ? 0 : hd % 16 == 0 && (hd <= 256 || hd % 64 == "
-        "0) ? hd : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : hd <= "
-        "256 ? 256 : hd <= 384 ? 384 : 512")
-    masked = re.search(r"constexpr bool masked\(int W\) \{\s+return ([^;]+);",
-                       simt).group(1)
-    assert tuple(int(w) for w in re.findall(r"W == (\d+)", masked)) == \
-        tfa.SIMT_MASKED_WIDTHS
+        "hd < 1 || hd > 512 ? 0 : hd <= 256 ? (hd + 31) / 32 * 32 : (hd + "
+        "63) / 64 * 64")
+    consts = {n: int(re.search(rf"constexpr int {n} = (\d+);", simt).group(1))
+              for n in ("STAGES", "DC", "SLICES")}
+    assert consts == {"STAGES": tfa.SIMT_STAGES, "DC": tfa.SIMT_DC,
+                      "SLICES": 1}
+    assert "constexpr int STAGE = TILE * SLD;" in simt
     assert tfa.HEAD_DIMS == tuple(range(1, 513))
     for hd in tfa.HEAD_DIMS:
         assert tfa.route(torch.bfloat16, hd) == "tc"
@@ -180,12 +185,12 @@ def test_flash_attention_bf16_head_dims_are_the_cuda_instances():
             v < hd for v in tfa.TC_WIDTHS if v < w)
         assert tfa.ld(hd) % 8 == 0 and hd <= tfa.ld(hd) < hd + 8
         assert tfa.route(torch.float32, hd) == "simt"
+        n = tfa.ld(hd, torch.float32)
+        assert n % 4 == 0 and hd <= n < hd + 4
+        assert tfa.staged(torch.float32, hd) == (n != hd)
         w = tfa.simt_width(hd)
-        if hd in tfa.SIMT_WIDTHS:
-            assert w == hd
-        else:
-            assert hd < w and w in tfa.SIMT_MASKED_WIDTHS and all(
-                v < hd for v in tfa.SIMT_MASKED_WIDTHS if v < w)
+        assert w in tfa.SIMT_WIDTHS and hd <= w and all(
+            v < hd for v in tfa.SIMT_WIDTHS if v < w)
 
 
 @pytest.mark.parametrize("F,D,C,K,case", [
@@ -807,13 +812,15 @@ def test_build_names_every_source(tmp_path, monkeypatch):
                  "gmm_rescore"):
         assert _build.includes(name) == ["hopper.cuh"]
     for name in ("flash_attention", "flash_attention_bwd"):
-        assert _build.includes(name) == ["hopper.cuh", "restride.cuh"]
+        assert _build.includes(name) == ["flash_attention_simt.cuh",
+                                         "hopper.cuh", "restride.cuh"]
     for name in ("selective_scan", "selective_scan_bwd"):
         assert _build.includes(name) == ["hopper.cuh", "selective_scan.cuh"]
     for p in _build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    for header in ("hopper.cuh", "restride.cuh"):
+    for header in ("hopper.cuh", "restride.cuh",
+                   "flash_attention_simt.cuh"):
         before = {n: _build.library_path(n) for n in sources}
         with open(tmp_path / header, "a") as fh:
             fh.write("// edited\n")

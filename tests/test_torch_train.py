@@ -951,15 +951,28 @@ def test_backward_instances_are_the_cuda_ones():
     assert TFA.BWD_TC_WIDTHS == tc + (512,)
     simt = src[src.index("namespace simt {"):src.index("}  // namespace simt")]
     listed = simt[simt.index("#define SIMT_WIDTH_LIST(X)"):
-                  simt.index("// head dim -> the instance of its width")]
+                  simt.index("// Delta (from o and dO hd wide)")]
     assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", listed)) == \
-        TFA.SIMT_WIDTHS
-    disp = simt[simt.index("int dispatch("):]
+        TFA.SIMT_BWD_WIDTHS
+    disp = simt[simt.index("inline int dispatch("):]
     assert "SIMT_WIDTH_LIST(BWD_SIMT_CASE)" in disp
+    assert "slices(hd), nsplit" in disp
     body = src[src.index('extern "C" int flash_attention_bwd_f32('):
                src.index('extern "C" int flash_attention_bwd_bf16(')]
-    assert "simt::dispatch<float>" in body
+    assert "simt::dispatch(" in body
+    assert "restride::copy<uint32_t>(4," in body
     assert TFA.HEAD_DIMS == tuple(range(1, 513))
+    # the f32 instances: the gradients' columns of one slice, at most
+    # SIMT_MAX_SLICE; two slices past it
+    assert max(TFA.SIMT_BWD_WIDTHS) == TFA.SIMT_MAX_SLICE == int(re.search(
+        r"constexpr int MAX_SLICE = (\d+);", simt).group(1))
+    for hd in TFA.HEAD_DIMS:
+        n = TFA.simt_bwd_slices(hd)
+        w = TFA.simt_bwd_width(hd)
+        assert n == (1 if hd <= 256 else 2)
+        assert w in TFA.SIMT_BWD_WIDTHS and n * w >= hd
+        assert all(n * v < TFA.ld(hd, torch.float32)
+                   for v in TFA.SIMT_BWD_WIDTHS if v < w)
     src = (_build.CSRC / "selective_scan_bwd.cu").read_text()
     body = src[src.index('extern "C" int selective_scan_bwd_f32('):]
     assert tuple(int(n) for n in re.findall(r"SSB_CASE\((\d+)\)", body)) == \

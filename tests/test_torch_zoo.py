@@ -503,7 +503,10 @@ def test_hd256_has_bf16_instances_that_fit():
     assert tfa.bwd_splits(bf, 1, 4096, 8, 1, 256) == 4
     assert tfa.bwd_splits(bf, 1, 80, 8, 1, 256) == 8
     assert tfa.bwd_splits(bf, 1, 4096, 8, 1, 128) == 1
-    assert tfa.bwd_splits(torch.float32, 1, 4096, 8, 1, 256) == 1
+    # f32 (the CUDA cores) splits its dK/dV pass by the same rule: 64 key
+    # tiles of 64 rows at B = 1 need 4, Gemma's 4 x 4096 none
+    assert tfa.bwd_splits(torch.float32, 1, 4096, 8, 1, 256) == 4
+    assert tfa.bwd_splits(torch.float32, 4, 4096, 8, 1, 256) == 1
     inst = registry.get("flash_attention_bwd").instance(cfg)
     assert (inst.scope, inst.threads) == ("tc", 384)
     assert inst.grid == (2048 // 64, 2, 4)
