@@ -117,8 +117,10 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   limits against their plain versions (``gmm_align``'s spill form at C =
   6273, 8192 and 65,536 with K = 33, 64 and C, its wide phase B at D =
   235, 256, 512; ``gmm_rescore`` at D = 201, 256, 512 and C = 65,536;
-  ``gmm_loglik`` at D = 205 to 512; ``bw_stats`` at D = 255, 256, 512),
-  the sums over E2 or D^2 held to their formula in float64; the path at
+  ``gmm_loglik``'s rows form on the tensor cores at D = 205 to 512 and
+  its packing kernel; ``bw_stats``' pairs form at D = 255, 256, 512; each
+  twice, bitwise equal), the sums over E2 or D^2 held to their formula in
+  float64; the path at
   D = 256 (``train_ubm``, the rungs' statistics, the statistics pass, 2
   EM iterations repeated bitwise, extraction, 32 requests on every rung,
   card against CPU at C = 64) and ``train_ubm`` at C = 8192 with
@@ -137,10 +139,12 @@ synthetic, well-conditioned UBM and TVM made from ``--seed``:
   them).
   ``--phase 17`` runs it alone after the card and build steps.
 
-``--rows SRC`` times only the LM kernels' existing rows (``ROWS``) with
-the package under SRC, for a parent against a change on one card.
+``--rows SRC`` times only the kernels' existing rows (``ROWS``: the LM
+kernels' and the i-vector kernels') with the package under SRC, for a
+parent against a change on one card, and SDPA in f32 beside them.
 ``--probe`` splits the f32 attention kernels' time into their parts
-(``PROBE_VARIANTS``) beside an f32 SGEMM.
+(``PROBE_VARIANTS``) beside an f32 SGEMM; ``--probe-ivector SRC`` splits
+gmm_loglik's and bw_stats' wide forms' (``PROBE_IVEC_VARIANTS``).
 
 Every phase that fails exits non-zero. It takes a few minutes on an H100.
 
@@ -791,18 +795,19 @@ def check_bw_stats(ex, frames, K: int, g):
         touched_bound_ms=t_ms, splits=BW.splits(F, C, D, BW._n_sm(x.device)),
         shares=shares, times=times)
     del gamma, gT, x2, x2p, cases
-    # ragged F and C, with D = 72 (16-byte rows: zero-filled copies) and
-    # D = 70 (plain copies), compacted and not
-    for Dr in (72, 70):
+    # ragged F and C, with D = 72 (the rows form: 16-byte rows, zero-filled
+    # copies) and D = 70 (the pairs form), the latter also at a C that is
+    # not a multiple of 4 (Γ by 4-byte copies), compacted and not
+    for Dr, Cr in ((72, 2000), (70, 2000), (70, 1999)):
         xr = x[:1000, :Dr].contiguous()
-        gr = torch.rand(1000, 2000, generator=g2, device=x.device)
+        gr = torch.rand(1000, Cr, generator=g2, device=x.device)
         gr = gr * (gr > 0.9)
         gr[:, 128:256] = 0.0     # a component tile with no frames
         want = ref.bw_stats(gr, xr)
         for compact in (True, False):
             for name, a, w in zip(("n", "f", "S"),
                                   BW.bw_stats(gr, xr, compact=compact), want):
-                compare(f"bw_stats {name} ragged [1000x2000]ᵀ [1000x{Dr}]"
+                compare(f"bw_stats {name} ragged [1000x{Cr}]ᵀ [1000x{Dr}]"
                         f"{', compacted' if compact else ''}", a, w)
     torch.cuda.empty_cache()
     return row
@@ -973,6 +978,7 @@ SCAN_FORMS = (("", "float32"), ("_bf16", "bfloat16"), ("_f16", "float16"))
 # whose launches it sums
 IVEC_FORM_ROWS = {
     "gmm_loglik_wide": (("gmm_loglik", "wide"),),
+    "bw_stats_pairs": (("bw_stats", "pairs"),),
     "gmm_rescore_strips": (("gmm_rescore", "strips"),),
     "gmm_rescore_hist_global": (("gmm_rescore", "hist_global"),),
     "gmm_align_wide": (("gmm_align", "wide"), ("gmm_rescore_fused", "wide")),
@@ -3548,6 +3554,7 @@ def registry_on_card(cfg, rows):
     card's opt-in limit (read from the card, through torch where it has it
     and through the CUDA runtime), and against the CUDA side's geometry
     where it exports it; then each kernel row's time against its bound."""
+    from repro_torch.kernels import bw_stats as BW
     from repro_torch.kernels import gmm_align as GA
     from repro_torch.kernels import gmm_loglik as GL
     from repro_torch.kernels import gmm_rescore as GR
@@ -3578,8 +3585,15 @@ def registry_on_card(cfg, rows):
         elif name == "gmm_loglik":
             g = GL.kernel_geometry(c["D"])
             cuda = None if g is None else (
-                (-(-c["C"] // GL.BN), -(-c["F"] // g.bm)), g.smem)
-        if name in ("gmm_align", "gmm_rescore", "gmm_loglik") and \
+                (-(-c["C"] // GL.BN), -(-c["F"] // g[0].bm)), g[0].smem)
+        elif name == "bw_stats":
+            # the runs are the wrapper's splits, which the CUDA side takes
+            g = BW.kernel_geometry(c["D"])
+            cuda = None if g is None else (
+                (g.cols // (BW.PN if g.pairs else BW.BN),
+                 -(-c["C"] // g.tile), inst.grid[2]), g.smem)
+        if name in ("gmm_align", "gmm_rescore", "gmm_loglik", "bw_stats") \
+                and \
                 cuda != (inst.grid, inst.smem_bytes):
             fail(f"registry: {label} grid {inst.grid}, {inst.smem_bytes} "
                  f"bytes; the CUDA side's geometry: {cuda}")
@@ -6125,6 +6139,7 @@ REPLACES = {"gmm_loglik": "src/repro/kernels/gmm_loglik.py:49",
 # the kernels line's rows of the new forms -> the case whose shape each
 # takes; hist_global runs on no main path of this script (OFF_PATH)
 P16_ROWS = {"gmm_loglik_wide": "gmm_loglik D=256",
+            "bw_stats_pairs": "bw_stats D=256",
             "gmm_rescore_strips": "gmm_rescore D=256 C=2048",
             "gmm_rescore_hist_global": "gmm_rescore D=72 C=65536",
             "gmm_align_wide": "gmm_align D=256 C=2048 K=20",
@@ -6267,14 +6282,20 @@ def p16_geometry() -> dict:
                  f"in the kernel")
         return want is not None
 
+    def loglik(D):
+        g = GL.geometry(D)
+        return g, GL.rows_positions(D) if g.wide else 0
+
     n = {"gmm_loglik": 0, "bw_stats": 0, "gmm_rescore": 0, "gmm_align": 0}
     for D in range(1, 721):
-        n["gmm_loglik"] += held("gmm_loglik", GL.geometry,
-                                GL.kernel_geometry, (D,))
-        n["bw_stats"] += held(
-            "bw_stats", lambda d: BW.smem_bytes(d)
-            if BW.smem_bytes(d) <= BW.MAX_SMEM else None,
-            BW.kernel_smem, (D,))
+        n["gmm_loglik"] += held("gmm_loglik", loglik, GL.kernel_geometry,
+                                (D,))
+        n["bw_stats"] += held("bw_stats", BW.geometry, BW.kernel_geometry,
+                              (D,))
+    blocks = {BW.geometry(D).blocks for D in range(1, 513)}
+    if blocks != {2}:
+        fail(f"bw_stats: {sorted(blocks)} blocks an SM at D = 1..512, not "
+             f"two at every D")
     for D in range(1, 513):
         for shape in ((1000, 20, 2048, D), (1000, 20, 58113, D),
                       (1000, 64, 65536, D)):
@@ -6288,16 +6309,39 @@ def p16_geometry() -> dict:
     held("gmm_rescore", GR.geometry, GR.kernel_geometry,
          (2 ** 31 // 20 + 1, 20, 2048, 72))
     print(f"  geometry equal on both sides: gmm_loglik and bw_stats at D = "
-          f"1..720 ({n['gmm_loglik']} and {n['bw_stats']} fit), "
+          f"1..720 ({n['gmm_loglik']} and {n['bw_stats']} fit; bw_stats "
+          f"two blocks an SM at every D up to 512, by the CUDA occupancy "
+          f"calculator), "
           f"gmm_rescore {n['gmm_rescore']} and gmm_align {n['gmm_align']} "
           f"shapes at D = 1..512; gmm_rescore refuses F*K >= 2**31 on both")
     return n
 
 
+def p16_rows_launch(x, const, lin, Pf):
+    """A call of gmm_loglik's rows kernel alone on an operand packed once
+    (the C entry, as the wrapper calls it), for its time apart from the
+    packing; it does not count as a launch of the wrapper."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gmm_loglik as GL
+    F, D = x.shape
+    C = const.shape[0]
+    W, cst = GL.pack_rows(const, lin, Pf), const.contiguous()
+    out = torch.empty((F, C), device=x.device)
+    lib = _build.load("gmm_loglik")
+
+    def run():
+        _build.check(lib.gmm_loglik_f32(
+            x.data_ptr(), W.data_ptr(), cst.data_ptr(), out.data_ptr(), F,
+            C, D, W.shape[1], W.shape[0], *_build.launch_args(x)),
+            "gmm_loglik")
+    return run
+
+
 def p16_loglik(g, dev) -> list:
-    """gmm_loglik at D = 205 .. 512 (the 64-frame form) against its plain
-    version, with torch.addmm over the packed expansion as its library
-    call; and D = 204, the last narrow D, once."""
+    """gmm_loglik at D = 205 .. 512 (the rows form, 3xTF32 on the tensor
+    cores) against its plain version and the float64 value, two calls
+    bitwise equal, with torch.addmm over the packed expansion as its
+    library call; and D = 204, the last narrow D, once."""
     from repro_torch.kernels import gmm_loglik as GL
     from repro_torch.kernels import ref
     recs = []
@@ -6307,21 +6351,39 @@ def p16_loglik(g, dev) -> list:
         x = torch.randn(F, D, generator=g, device=dev)
         geo = GL.geometry(D)
         label = f"gmm_loglik D={D}"
+        got = GL.gmm_loglik(x, const, lin, Pf)
         err = held_exact(f"{label} [{F}x{D}] x C={C} ({geo.bm}-frame blocks"
-                         f"{', the table in device memory' if geo.wide else ''}"
-                         f")", GL.gmm_loglik(x, const, lin, Pf),
-                         ref.gmm_loglik(x, const, lin, Pf),
+                         f"{', rows form' if geo.wide else ''}"
+                         f")", got, ref.gmm_loglik(x, const, lin, Pf),
                          exact_loglik(x, const, lin, Pf))
+        if not torch.equal(got, GL.gmm_loglik(x, const, lin, Pf)):
+            fail(f"{label}: two calls are not bitwise equal")
+        del got
         if D == 204:
             continue
         E2 = 1 + D + D * (D + 1) // 2
         xp = ref.expand_quadratic(x)[:, 1:].contiguous()
         wp = GL.packed_weights(const, lin, Pf)[1:E2, :C].contiguous()
-        recs.append(p16_record(
+        rec = p16_record(
             label, "gmm_loglik", dict(F=F, C=C, D=D), err,
             lambda: GL.gmm_loglik(x, const, lin, Pf),
             lambda: ref.gmm_loglik(x, const, lin, Pf),
-            lambda: torch.addmm(const, xp, wp)))
+            lambda: torch.addmm(const, xp, wp))
+        # the packing kernel against its plain version (bitwise); of the
+        # wrapper's time, packing the row runs and the kernel alone
+        if not torch.equal(GL.pack_rows(const, lin, Pf),
+                           GL.row_weights(const, lin, Pf)):
+            fail(f"{label}: the packing kernel's operand is not its plain "
+                 f"version's")
+        rec["pack_ms"] = cuda_ms(lambda: GL.pack_rows(const, lin, Pf), 3)
+        rec["plain_pack_ms"] = cuda_ms(
+            lambda: GL.row_weights(const, lin, Pf), 3)
+        rec["kernel_only_ms"] = cuda_ms(p16_rows_launch(x, const, lin, Pf),
+                                        3)
+        print(f"  {label}: of it, packing {rec['pack_ms']:.4f} ms (plain "
+              f"row_weights {rec['plain_pack_ms']:.4f}, the same bits), the "
+              f"rows kernel alone {rec['kernel_only_ms']:.4f} ms")
+        recs.append(rec)
         del const, lin, Pf, xp, wp
         torch.cuda.empty_cache()
     return recs
@@ -6338,9 +6400,10 @@ def p16_gamma(F: int, C: int, K: int, g, dev):
 
 
 def p16_bw(g, dev) -> list:
-    """bw_stats at D = 255, 256 and 512 (16-bit codes) against its plain
-    version on a top-20-like Γ, with torch.matmul(Γᵀ, X₂) over the packed
-    width as its library call."""
+    """bw_stats at D = 255, 256 and 512 (the pairs form) against its plain
+    version on a top-20-like Γ, two calls bitwise equal, with
+    torch.matmul(Γᵀ, X₂) over the packed width as its library call; the
+    touched bound over the form's component tiles."""
     from repro_torch.kernels import bw_stats as BW
     from repro_torch.kernels import ref
     recs = []
@@ -6349,21 +6412,33 @@ def p16_bw(g, dev) -> list:
         x = torch.randn(F, D, generator=g, device=dev)
         gamma = p16_gamma(F, C, 20, g, dev)
         label = f"bw_stats D={D}"
-        err = max(compare(f"{label} {nm} [{F}x{C}]ᵀ [{F}x{D}]", a, w)
-                  for nm, a, w in zip("nfS", BW.bw_stats(gamma, x),
-                                      ref.bw_stats(gamma, x)))
-        touched = (gamma != 0).reshape(F, C // 128, 128).any(2).float() \
-            .mean().item()
+        geo = BW.geometry(D)
+        got = BW.bw_stats(gamma, x)
+        err = max(compare(f"{label} {nm} [{F}x{C}]ᵀ [{F}x{D}] "
+                          f"({'pairs' if geo.pairs else 'rows'} form)", a, w)
+                  for nm, a, w in zip("nfS", got, ref.bw_stats(gamma, x)))
+        if not all(torch.equal(a, b)
+                   for a, b in zip(got, BW.bw_stats(gamma, x))):
+            fail(f"{label}: two calls are not bitwise equal")
+        del got
+        touched = (gamma != 0).reshape(F, C // geo.tile, geo.tile).any(2) \
+            .float().mean().item()
         i0, i1, _ = ref._quad_pairs(D, dev)
         x2p = torch.cat([x[:, i0] * x[:, i1], x, torch.ones_like(x[:, :1])],
                         1)
         gT = gamma.T
-        rec = p16_record(label, "bw_stats", dict(F=F, C=C, D=D), err,
+        # the bound and the bytes over the (frame, tile) pairs this Γ
+        # touches, the work the kernel's frame lists leave it
+        rec = p16_record(label, "bw_stats",
+                         dict(F=F, C=C, D=D, touched=touched), err,
                          lambda: BW.bw_stats(gamma, x),
                          lambda: ref.bw_stats(gamma, x),
                          lambda: torch.matmul(gT, x2p))
-        rec["touched_bound_ms"] = bound("bw_stats", F=F, C=C, D=D,
-                                        touched=touched)[0]
+        rec["touched"] = touched
+        rec["dense_bound_ms"] = bound("bw_stats", F=F, C=C, D=D)[0]
+        print(f"  {label}: (frame, {geo.tile}-component tile) pairs touched "
+              f"{touched:.4f}; the dense work's bound "
+              f"{rec['dense_bound_ms']:.4f} ms; bitwise repeatable")
         recs.append(rec)
         del x2p, gT, gamma
         torch.cuda.empty_cache()
@@ -6820,7 +6895,7 @@ def p16_path(seed: int, dev):
     paths["d256_train_ubm"] = read_counts()
     check_finite("D=256 train_ubm", ubm_t.weights, ubm_t.means, ubm_t.covs)
     require_launches("D=256 train_ubm", paths["d256_train_ubm"],
-                     ("gmm_loglik_wide", "bw_stats"))
+                     ("gmm_loglik_wide", "bw_stats", "bw_stats_pairs"))
     del ubm_t
     print(f"  train_ubm (1 diag + 1 full iteration, top-20, dense rung): "
           f"{rec['train_ubm_s']:.2f} s")
@@ -6831,8 +6906,10 @@ def p16_path(seed: int, dev):
     require_launches("D=256 rungs", {
         k: sum(c[k] for c in rung_paths.values()) for k in
         ("gmm_loglik_wide", "gmm_rescore_strips", "gmm_align_wide",
-         "bw_stats")}, ("gmm_loglik_wide", "gmm_rescore_strips",
-                        "gmm_align_wide", "bw_stats"))
+         "bw_stats", "bw_stats_pairs")}, ("gmm_loglik_wide",
+                                          "gmm_rescore_strips",
+                                          "gmm_align_wide", "bw_stats",
+                                          "bw_stats_pairs"))
 
     reset_counts()
     t0 = time.perf_counter()
@@ -6844,7 +6921,7 @@ def p16_path(seed: int, dev):
     state, secs, diags, paths["d256_train"] = timed_train(cfg, ubm, feats, 2,
                                                           seed, dev)
     require_launches("D=256 train", paths["d256_train"],
-                     ("gmm_rescore_strips", "bw_stats",
+                     ("gmm_rescore_strips", "bw_stats", "bw_stats_pairs",
                       "tvm_estep_l_train", "tvm_estep_a"))
     again = TR.train(cfg, ubm, feats, n_iters=2,
                      generator=torch.Generator().manual_seed(seed),
@@ -7541,11 +7618,14 @@ def phase_17_alone(args, card: str, kind: str, build_s: float,
     return 0
 
 
-# --rows: the LM kernels' rows that a change to their sources must leave
-# where they were (or, for the f32 CUDA-core kernels, move), by name ->
-# (kernel, B, S or T, H or di, KVH or ds, hd, dtype): Jamba's prefill and
-# training shapes, Gemma 2B's, and the f32 kernels at hd 64, Jamba's
-# training shape and past 256 (320, 512)
+# --rows: the kernels' rows that a change to their sources must leave where
+# they were, or move, by name -> (kernel, B, S or T, H or di, KVH or ds,
+# hd, dtype): Jamba's prefill and training shapes, Gemma 2B's, and the f32
+# kernels at hd 64, Jamba's training shape and past 256 (320, 512); then
+# the i-vector kernels (kernel, F, C, D): gmm_loglik at the paper's D = 72
+# and bw_stats at the main shape, then the forms past them (gmm_loglik's
+# rows form, bw_stats' pairs form), after the D = 72 rows so that what
+# runs before those is the same on both trees
 ROWS = {
     "flash_attention bf16 hd128 B4 S2048 32/8": ("fa", 4, 2048, 32, 8, 128,
                                                  torch.bfloat16),
@@ -7575,7 +7655,23 @@ ROWS = {
                                                 None, None),
     "selective_scan_bwd f32 ds16 B1 T4096 di8192": ("ss_bwd", 1, 4096, 8192,
                                                     16, None, None),
+    # the i-vector kernels: gmm_loglik (F, C, D) on SPD precisions, bw_stats
+    # (F, C, D) on a random top-20 Γ
+    "gmm_loglik F4096 C2048 D72": ("gl", 4096, 2048, 72, None, None, None),
+    "bw_stats F32768 C2048 D72": ("bw", 32768, 2048, 72, None, None, None),
+    "gmm_loglik F4096 C2048 D205": ("gl", 4096, 2048, 205, None, None, None),
+    "gmm_loglik F4096 C2048 D256": ("gl", 4096, 2048, 256, None, None, None),
+    "gmm_loglik F4096 C2048 D512": ("gl", 4096, 2048, 512, None, None, None),
+    "bw_stats F8192 C2048 D255": ("bw", 8192, 2048, 255, None, None, None),
+    "bw_stats F8192 C2048 D256": ("bw", 8192, 2048, 256, None, None, None),
 }
+
+
+# --rows also times PyTorch's SDPA, forward and backward, in f32 at these
+# (label, B, S, H, KVH, hd): the yardstick of the f32 attention rows of
+# PERF.md that had none; the port never calls it
+SDPA_SHAPES = (("f32 hd128 B1 S4096 32/8", 1, 4096, 32, 8, 128),
+               ("f32 hd64 B2 S1000 8/2", 2, 1000, 8, 2, 64))
 
 
 def rows_alone(src: str, card: str, kind: str) -> int:
@@ -7583,16 +7679,32 @@ def rows_alone(src: str, card: str, kind: str) -> int:
     (this tree's ``src``, or another tree's, such as the parent's unpacked
     by ``git archive`` into the ignored ``build/``), so that two trees can
     be compared in turns on one card (parent, change, parent, change ..);
-    each row the median of 5 means of 10 launches (CUDA events), inputs
-    drawn on the card from seed 0. Prints ``ROWS SRC {json}``, the card
-    and the contract line."""
+    each row the median of 5 means of 10 launches (CUDA events; 3 for the
+    i-vector rows), inputs drawn on the card from seed 0; then SDPA at
+    SDPA_SHAPES (``sdpa_times``). Prints ``ROWS SRC {json}``, ``SDPA
+    {json}``, the card and the contract line."""
+    from repro_torch.kernels import bw_stats as BW
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gmm_loglik as GL
     from repro_torch.kernels import selective_scan as SS
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for name, (k, B, S, H, KVH, hd, dt) in ROWS.items():
-        if k.startswith("fa"):
+        n = 10
+        if k == "gl":
+            F, C, D = B, S, H
+            const, lin, Pf = p16_precisions(C, D, g, dev)
+            x = torch.randn(F, D, generator=g, device=dev)
+            fn = lambda: GL.gmm_loglik(x, const, lin, Pf)   # noqa: E731
+            n = 3
+        elif k == "bw":
+            F, C, D = B, S, H
+            x = torch.randn(F, D, generator=g, device=dev)
+            gamma = p16_gamma(F, C, 20, g, dev)
+            fn = lambda: BW.bw_stats(gamma, x)   # noqa: E731
+            n = 3
+        elif k.startswith("fa"):
             q, kk, v, do = (torch.randn(B, S, n, hd, generator=g, device=dev)
                             .to(dt) for n in (H, KVH, KVH, H))
             o, lse = FA.flash_attention(q, kk, v, lse=True)
@@ -7606,11 +7718,21 @@ def rows_alone(src: str, card: str, kind: str) -> int:
                 hs = SS.selective_scan(*ins, save_states=True)[2]
                 dy = torch.randn(B, S, H, generator=g, device=dev)
                 fn = lambda: SS.selective_scan_bwd(*ins, hs, dy)  # noqa: E731
-        times = sorted(cuda_ms(fn, 10) for _ in range(5))
+        times = sorted(cuda_ms(fn, n) for _ in range(5))
         out[name] = times[2]
         del fn
         torch.cuda.empty_cache()
     print("ROWS", src, json.dumps(out))
+    lib = {}
+    for label, B, S, H, KVH, hd in SDPA_SHAPES:
+        q, kk, v, do = (torch.randn(B, n, S, hd, generator=g, device=dev)
+                        for n in (H, KVH, KVH, H))
+        q, kk, v = (t.requires_grad_() for t in (q, kk, v))
+        backend, fwd, bwd = sdpa_times(q, kk, v, do)
+        lib[label] = dict(backend=backend, fwd_ms=fwd, bwd_ms=bwd)
+        del q, kk, v, do
+        torch.cuda.empty_cache()
+    print("SDPA", json.dumps(lib))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -7745,6 +7867,156 @@ def probe_alone(card: str, kind: str) -> int:
     return 0
 
 
+# --probe-ivector SRC: gmm_loglik's and bw_stats' wide forms, their time
+# split into parts as ``--probe`` splits the attention's: each variant is
+# the sources under SRC with some statements switched off at run time (a
+# condition on F, which is never negative, so that the code stays as
+# built). A part's statements are those of its lines that the source has:
+# the lines of the forms before the rows and pairs forms (the 64-frame
+# wide form, the 128-column tiles at every D) are here too, so one script
+# probes either tree.
+PROBE_IVEC_SHAPES = (("gmm_loglik", 4096, 2048, 256),
+                     ("gmm_loglik", 4096, 2048, 205),
+                     ("bw_stats", 8192, 2048, 256),
+                     ("bw_stats", 8192, 2048, 255))
+PROBE_IVEC_OFF = {
+    # the products: each k step's loop body left at its first statement
+    "products": {
+        "gmm_loglik.cu": (("      float a[TM];",
+                           "      if (F >= 0) break;\n      float a[TM];"),
+                          ("      float2 bv[NT];",
+                           "      if (F >= 0) break;\n      float2 bv[NT];")),
+        "bw_stats.cu": (("      const float4 a0 = *reinterpret_cast<const "
+                         "float4*>(&a_s[k * BM + ty * 4]);",
+                         "      if (F >= 0) break;\n      const float4 a0 = "
+                         "*reinterpret_cast<const float4*>(&a_s[k * BM + ty "
+                         "* 4]);"),
+                        ("      const float4 a0 = *reinterpret_cast<const "
+                         "float4*>(&a_s[k * PM + ty * 4]);",
+                         "      if (F >= 0) break;\n      const float4 a0 = "
+                         "*reinterpret_cast<const float4*>(&a_s[k * PM + ty "
+                         "* 4]);"))},
+    # forming the expansion's slabs (gmm_loglik's A, bw_stats' X2)
+    "formation": {
+        "gmm_loglik.cu": (("    if (s + 1 < nslab) form_a(s + 1, (s + 1) "
+                           "& 1);", "    if (s + 1 < nslab && F < 0) "
+                           "form_a(s + 1, (s + 1) & 1);"),),
+        "bw_stats.cu": (("    if (s + 1 < nslab) form_x2(s + 1, (s + 1) & "
+                         "1);", "    if (s + 1 < nslab && F < 0) form_x2(s "
+                         "+ 1, (s + 1) & 1);"),
+                        ("    if (s + 1 < nslab) form_pairs(s + 1, (s + 1) "
+                         "& 1);", "    if (s + 1 < nslab && F < 0) "
+                         "form_pairs(s + 1, (s + 1) & 1);"))},
+    # the copies of the streamed operand (W; Γ and x)
+    "copies": {
+        "gmm_loglik.cu": (("    if (nx < nslab) load_w(nx, nx % STAGES);",
+                           "    if (nx < nslab && F < 0) load_w(nx, nx % "
+                           "STAGES);"),),
+        "bw_stats.cu": (("    if (nx < nslab) load(nx, nx % STAGES);",
+                         "    if (nx < nslab && F < 0) load(nx, nx % "
+                         "STAGES);"),
+                        ("    if (nx < nslab) load_pairs(nx, nx % STAGES);",
+                         "    if (nx < nslab && F < 0) load_pairs(nx, nx % "
+                         "STAGES);"))}}
+PROBE_IVEC_VARIANTS = {"whole": (), "no products": ("products",),
+                       "no formation": ("formation",),
+                       "no copies": ("copies",),
+                       "none of them": ("products", "formation", "copies")}
+
+
+def probe_ivec_sources(build: Path, cuts) -> Path:
+    """A copy of csrc/ under ``build`` with PROBE_IVEC_OFF's ``cuts``
+    switched off: each of a part's lines the source has; fails where it
+    has none of them."""
+    import shutil
+    from repro_torch.kernels import _build
+    d = build / "_".join(("probe_ivec",) + tuple(c[:4] for c in cuts))
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(_build.CSRC, d)
+    for fn in ("gmm_loglik.cu", "bw_stats.cu"):
+        text = (d / fn).read_text()
+        for cut in cuts:
+            lines = [(a, b) for a, b in PROBE_IVEC_OFF[cut][fn] if a in text]
+            if not lines:
+                fail(f"--probe-ivector: {fn} has no line of {cut!r}")
+            for a, b in lines:
+                text = text.replace(a, b)
+        (d / fn).write_text(text)
+    return d
+
+
+def probe_ivec_alone(src: str, card: str, kind: str) -> int:
+    """``--probe-ivector SRC``: PROBE_IVEC_VARIANTS of the ``repro_torch``
+    under SRC at PROBE_IVEC_SHAPES, each kernel's device ms by name
+    (profiler) and the library call's (``torch.addmm`` over the packed
+    expansion, ``torch.matmul(Γᵀ, X₂)``) beside them. Writes
+    chiprun_out/chip_smoke_probe_ivec.json."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bw_stats as BW
+    from repro_torch.kernels import gmm_loglik as GL
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build = ROOT / "build"
+    dirs = {v: probe_ivec_sources(build, cuts)
+            for v, cuts in PROBE_IVEC_VARIANTS.items()}
+    t0 = time.perf_counter()
+    started = []
+    for d in dirs.values():
+        _build.CSRC = d
+        for name in ("gmm_loglik", "bw_stats"):
+            started.append((d, name, _build._start(name)))
+    for d, name, st in started:
+        _build.CSRC = d
+        _build._finish(name, *st)
+    print(f"  {len(started)} probe libraries built in "
+          f"{time.perf_counter() - t0:.1f} s (sources under {src})")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rec = {"card": card, "src": src, "rows": []}
+    names = ("gmm_loglik_kernel", "gmm_loglik_rows", "bw_stats_kernel",
+             "bw_pairs_kernel", "bw_stats_finish", "bw_tile")
+    for kernel, F, C, D in PROBE_IVEC_SHAPES:
+        x = torch.randn(F, D, generator=g, device=dev)
+        if kernel == "gmm_loglik":
+            const, lin, Pf = p16_precisions(C, D, g, dev)
+            E2 = 1 + D + D * (D + 1) // 2
+            xp = ref.expand_quadratic(x)[:, 1:].contiguous()
+            wp = GL.packed_weights(const, lin, Pf)[1:E2, :C].contiguous()
+            lib = cuda_ms(lambda: torch.addmm(const, xp, wp), 3)
+            del xp, wp
+            fn = lambda: GL.gmm_loglik(x, const, lin, Pf)   # noqa: E731
+        else:
+            gamma = p16_gamma(F, C, 20, g, dev)
+            i0, i1, _ = ref._quad_pairs(D, dev)
+            x2p = torch.cat([x[:, i0] * x[:, i1], x,
+                             torch.ones_like(x[:, :1])], 1)
+            gT = gamma.T
+            lib = cuda_ms(lambda: torch.matmul(gT, x2p), 3)
+            del x2p, gT
+            fn = lambda: BW.bw_stats(gamma, x)   # noqa: E731
+        print(f"  {kernel} F={F} C={C} D={D}: library {lib:.4f} ms")
+        for variant, d in dirs.items():
+            _build.CSRC = d
+            _build._LIBS.clear()
+            ms = kernel_ms(fn, names)
+            row = dict(kernel=kernel, F=F, C=C, D=D, variant=variant,
+                       library_ms=lib, **ms)
+            print(f"  {kernel} D={D}, {variant}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in ms.items() if v))
+            rec["rows"].append(row)
+        del x, fn
+        torch.cuda.empty_cache()
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_probe_ivec.json").write_text(json.dumps(rec,
+                                                               indent=1))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7760,13 +8032,17 @@ def main() -> int:
     ap.add_argument("--probe", action="store_true",
                     help="split the f32 attention kernels' time into "
                     "their parts (PROBE_VARIANTS)")
+    ap.add_argument("--probe-ivector", default=None, metavar="SRC",
+                    help="split gmm_loglik's and bw_stats' wide forms' "
+                    "time into their parts (PROBE_IVEC_VARIANTS) with the "
+                    "repro_torch package under SRC")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if args.serve_child is not None:
         return serve_child(Path(args.serve_child))
-    sys.path.insert(0, args.rows or str(ROOT / "src"))
+    sys.path.insert(0, args.rows or args.probe_ivector or str(ROOT / "src"))
     from repro_torch.configs.ivector_tvm import CONFIG
     from repro_torch.kernels import _build
     from repro_torch.serving import IVectorExtractor, ServingConfig
@@ -7788,6 +8064,8 @@ def main() -> int:
         return rows_alone(args.rows, card, kind)
     if args.probe:
         return probe_alone(card, kind)
+    if args.probe_ivector is not None:
+        return probe_ivec_alone(args.probe_ivector, card, kind)
 
     # 2. build, then what ptxas reported in the attention's two builds of
     # their head-dim-256 instances (the bf16 forward's and backward's

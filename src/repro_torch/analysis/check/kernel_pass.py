@@ -336,4 +336,10 @@ def gate_configs(name: str):
         return [None, {"ds": 64}, {"ds": 129}]
     if name == "gmm_align":
         return [None, {"K": 40}, {"rescore_only": True}]
+    if name == "gmm_loglik":
+        # the rows form at each tile height (128, 64, 32 frames)
+        return [None, {"D": 256}, {"D": 520}, {"D": 700}]
+    if name == "bw_stats":
+        # the pairs form: past 252, and a D that is not a multiple of 4
+        return [None, {"D": 256}, {"D": 13}]
     return [None]

@@ -44,18 +44,20 @@ class Hardware:
 
 
 # NVIDIA's H100 SXM data sheet, dense: 67 TFLOP/s f32 on the CUDA cores,
-# 989 bf16 (and fp16) on the tensor cores; 80 GB of HBM3 at 3.35 TB/s;
-# NVLink 4, 900 GB/s to the other cards, 450 each way. All at 700 W.
+# 989 bf16 (and fp16) and 495 TF32 on the tensor cores; 80 GB of HBM3 at
+# 3.35 TB/s; NVLink 4, 900 GB/s to the other cards, 450 each way. All at
+# 700 W.
 H100 = Hardware(name="h100-sxm",
                 peaks={"float32": 67e12, "bfloat16": 989e12,
-                       "float16": 989e12},
+                       "float16": 989e12, "tfloat32": 495e12},
                 hbm_bw=3.35e12, link_bw=450e9, hbm_bytes=80e9)
 HW = H100
 
 # the reference's CPU profile for the same cost model (one core: GEMMs at
 # ~8e10 FLOP/s f32, streaming ~2e10 B/s)
 CPU_HW = Hardware(name="cpu",
-                  peaks={"float32": 8e10, "bfloat16": 8e10, "float16": 8e10},
+                  peaks={"float32": 8e10, "bfloat16": 8e10, "float16": 8e10,
+                         "tfloat32": 8e10},
                   hbm_bw=2e10, link_bw=1e9, hbm_bytes=4e9)
 
 

@@ -47,7 +47,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # nsplit, device, stream
         "bw_stats_f32": (PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                          INT, INT, INT, INT, INT, INT, INT, PTR),
-        # D, out[1]: a block's shared-memory bytes
+        # D, out[5]: pairs form?, a block's shared-memory bytes, its
+        # components, the columns, blocks an SM
         "bw_stats_geometry": (INT, PTR),
     },
     "flash_attention": {
@@ -92,13 +93,18 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "device_smem_optin": (INT, PTR),
     },
     "gmm_loglik": {
-        # x, W (gmm_loglik.packed_weights), pair table (gmm_loglik.pair_table,
-        # or NULL for the narrow form), out, F, C, D, E2, E2p, Cp, device,
-        # stream
+        # x, W (gmm_loglik.packed_weights, or row_weights for the rows
+        # form), const (the rows form's; NULL for the narrow form), out, F,
+        # C, D, W's positions, Cp, device, stream
         "gmm_loglik_f32": (PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
-                           INT, PTR),
-        # D, out[3]: frames a block, wide form?, shared-memory bytes
+                           PTR),
+        # D, out[4]: frames a block, rows form?, shared-memory bytes, the
+        # rows form's W positions
         "gmm_loglik_geometry": (INT, PTR),
+        # P_flat, lin, the position tables (first, second, factor), Wr, C,
+        # Cp, D, K, device, stream
+        "gmm_loglik_pack_f32": (PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+                                INT, INT, PTR),
     },
     "gmm_rescore": {
         # x, sel, A, out, scratch, F, K, C, D, E, then the geometry

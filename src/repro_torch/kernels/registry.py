@@ -161,37 +161,50 @@ def all_specs():
 
 def _gmm_loglik_instance(cfg: dict) -> KernelInstance:
     """The form ``geometry`` picks for D: 128-frame blocks (the narrow
-    form) or 64-frame blocks (the wide one, D >= 205)."""
+    form) or the rows form's 32, 64 or 128 frames (D >= 205), 128
+    components a block either way."""
     F, C, D = cfg["F"], cfg["C"], cfg["D"]
     g = _gl.geometry(D)
-    Cp = _cdiv(C, _gl.BN) * _gl.BN
-    grid = (Cp // _gl.BN, _cdiv(F, g.bm))
+    bn = _gl.RBN if g.wide else _gl.BN
+    Cp = _cdiv(C, bn) * bn
+    grid = (Cp // bn, _cdiv(F, g.bm))
     return KernelInstance(
         grid=grid, threads=_gl.THREADS, smem_bytes=g.smem,
-        axes=(Axis("components", C, _gl.BN), Axis("frames", F, g.bm)),
-        outputs=(BlockMap("out", (F, C), (g.bm, _gl.BN),
+        axes=(Axis("components", C, bn), Axis("frames", F, g.bm)),
+        outputs=(BlockMap("out", (F, C), (g.bm, bn),
                           lambda j, i: (i, j)),),
-        rings=(Ring("cp.async", _gl.STAGES),))
+        rings=(Ring("cp.async", _gl.RING, scope="rows") if g.wide
+               else Ring("cp.async", _gl.STAGES),),
+        scope="rows" if g.wide else None)
 
 
 def _gmm_loglik_work(cfg: dict):
+    """E2 products per (frame, component), the packed form's need; the
+    rows form (D >= 205) issues each as three TF32 products (3xTF32) on
+    the tensor cores, counted at the TF32 rate, so that its bound is what
+    its arithmetic could reach."""
     F, C, D = cfg["F"], cfg["C"], cfg["D"]
     E2 = 1 + D + D * (D + 1) // 2
-    # the packed form needs E2 products per (frame, component)
-    return (2.0 * F * C * E2,
-            4.0 * (F * D + C + D * C + C * D * D + F * C), "float32")
+    nbytes = 4.0 * (F * D + C + D * C + C * D * D + F * C)
+    if _gl.geometry(D).wide:
+        return 3 * 2.0 * F * C * E2, nbytes, "tfloat32"
+    return 2.0 * F * C * E2, nbytes, "float32"
 
 
 def _gmm_loglik_moved(cfg: dict) -> float:
-    """x read once a component block, the packed W [E2p, Cp] once a frame
-    block (and, wide, the pair table with it), out written once."""
+    """x read once a component block, the packed W (narrow: [E2p, Cp];
+    rows: [Cp, K], which its packing pass writes from one read of P) once
+    a frame block (and const with it, rows), out written once."""
     F, C, D = cfg["F"], cfg["C"], cfg["D"]
     g = _gl.geometry(D)
-    E2p = _cdiv(1 + D + D * (D + 1) // 2, _gl.BK) * _gl.BK
     Cp = _cdiv(C, _gl.BN) * _gl.BN
     fb = _cdiv(F, g.bm)
-    return 4.0 * (F * D * (Cp // _gl.BN) + E2p * Cp * fb + F * C
-                  + (E2p * (Cp // _gl.BN) * fb if g.wide else 0))
+    if g.wide:
+        K = _gl.rows_positions(D)
+        return 4.0 * (F * D * (Cp // _gl.RBN) + (K + 1) * Cp * fb + F * C
+                      + C * D * D + Cp * K)
+    E2p = _cdiv(1 + D + D * (D + 1) // 2, _gl.BK) * _gl.BK
+    return 4.0 * (F * D * (Cp // _gl.BN) + E2p * Cp * fb + F * C)
 
 
 # ---------------------------------------------------------------------------
@@ -376,27 +389,33 @@ def _tvm_estep_work(cfg: dict):
 
 
 def _bw_stats_instance(cfg: dict) -> KernelInstance:
+    """The form ``geometry`` picks for D: rows (128 components x 128
+    columns a block) or pairs (64 components x one (I, J) tile of 256)."""
     F, C, D = cfg["F"], cfg["C"], cfg["D"]
-    Ep = _cdiv(_bw.n_columns(D), _bw.BN) * _bw.BN
+    g = _bw.geometry(D)
+    width = _bw.PN if g.pairs else _bw.BN
     nsplit = cfg.get("nsplit") or _bw.splits(F, C, D, cfg.get("n_sm", 132))
-    T = _cdiv(C, _bw.BM)
+    T = _cdiv(C, g.tile)
     run = _bw.split_len(F, nsplit)
     return KernelInstance(
-        grid=(Ep // _bw.BN, T, nsplit), threads=_bw.THREADS,
-        smem_bytes=_bw.smem_bytes(D),
-        axes=(Axis("columns", Ep, _bw.BN), Axis("components", C, _bw.BM),
+        grid=(g.cols // width, T, nsplit), threads=_bw.THREADS,
+        smem_bytes=g.smem,
+        axes=(Axis("columns", g.cols, width), Axis("components", C, g.tile),
               Axis("frames", F, run)),
         # each frame run writes its own partial sums; the finishing pass
         # adds them in run order
-        outputs=(BlockMap("part", (nsplit, C, Ep), (1, _bw.BM, _bw.BN),
+        outputs=(BlockMap("part", (nsplit, C, g.cols), (1, g.tile, width),
                           lambda e, t, z: (z, t, e)),),
-        rings=(Ring("cp.async", _bw.STAGES),))
+        rings=(Ring("cp.async", _bw.PSTAGES, scope="pairs") if g.pairs
+               else Ring("cp.async", _bw.STAGES),),
+        scope="pairs" if g.pairs else None)
 
 
 def _bw_stats_work(cfg: dict):
     """S_c is symmetric: D(D+1)/2 products per (frame, component) for S,
     D for f and 1 for n (times ``touched``, the share of (frame, tile)
-    pairs with a non-zero Γ, where given); all of S is written."""
+    pairs with a non-zero Γ over the form's component tiles, where
+    given); all of S is written."""
     F, C, D = cfg["F"], cfg["C"], cfg["D"]
     E = _bw.n_columns(D)
     return (2.0 * F * C * E * cfg.get("touched", 1.0),
@@ -404,18 +423,20 @@ def _bw_stats_work(cfg: dict):
 
 
 def _bw_stats_moved(cfg: dict) -> float:
-    """Γ once a column tile (its compaction pass reads it once more), x
-    once a (column tile, component tile), the partial sums written and
-    read by the finishing pass, n, f and S written."""
+    """Γ once a column tile (its compaction pass reads it once more), x's
+    columns a block reads (rows: all D; pairs: its 2 x 16 indices) once a
+    (column tile, component tile), the partial sums written and read by
+    the finishing pass, n, f and S written; ``touched`` over the form's
+    component tiles."""
     F, C, D = cfg["F"], cfg["C"], cfg["D"]
-    E = _bw.n_columns(D)
-    Ep = _cdiv(E, _bw.BN) * _bw.BN
+    g = _bw.geometry(D)
     nsplit = cfg.get("nsplit") or _bw.splits(F, C, D, cfg.get("n_sm", 132))
-    ct = Ep // _bw.BN
+    ct = g.cols // (_bw.PN if g.pairs else _bw.BN)
+    xcols = 2 * _bw.PB if g.pairs else D
     touched = cfg.get("touched", 1.0)
     return (4.0 * F * C * (ct * touched + 1)
-            + 4.0 * F * D * ct * _cdiv(C, _bw.BM) * touched
-            + 8.0 * nsplit * C * Ep + 4.0 * C * (D * D + D + 1))
+            + 4.0 * F * xcols * ct * _cdiv(C, g.tile) * touched
+            + 8.0 * nsplit * C * g.cols + 4.0 * C * (D * D + D + 1))
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,11 @@ arithmetic is held in plain tensor code: the spill form's top-K select
 (its keys, radix passes and tie rule) against ``ref.argmax_topk``, the
 plain top-K and ``lax.top_k``; the wide pair codes against
 ``ref.expand_quadratic``; the rescore's strip sums and the moments with
-16-bit codes against the plain versions and the JAX package. Then the
-i-vector path at D = 256 (C = 16) and at K = C against the JAX package.
+16-bit codes against the plain versions and the JAX package; gmm_loglik's
+rows form (the sum by rows of the triangle, 3xTF32) and bw_stats' pairs
+form (S's triangle in (I, J) tiles of 64 components) in their own order
+against both. Then the i-vector path at D = 256 (C = 16) and at K = C
+against the JAX package.
 
 Inputs are made with numpy from a seed and fed to both packages; the port
 runs on the CPU (its plain versions). Tolerances: selections exact; the
@@ -66,10 +69,18 @@ def _close_rel(got, want, tol):
         np.abs(got - want).max(), tol * scale)
 
 
-def _cu_consts(name):
-    src = (_build.CSRC / f"{name}.cu").read_text()
-    return {k: int(v, 0) for k, v in re.findall(
-        r"constexpr (?:int|unsigned) (\w+) = (0x[0-9a-fA-F]+|\d+)u?;", src)}
+def _cu_consts(name, scope=None):
+    """The integer constants of csrc/<name>.cu: the file's own (each name's
+    first definition; the nested namespaces come after them) or those of
+    namespace ``scope``."""
+    from repro_torch.analysis.check import kernel_pass
+    src = kernel_pass._scope((_build.CSRC / f"{name}.cu").read_text(), scope)
+    out = {}
+    for k, v in re.findall(
+            r"constexpr (?:int|unsigned) (\w+) = (0x[0-9a-fA-F]+|\d+)u?;",
+            src):
+        out.setdefault(k, int(v, 0))
+    return out
 
 
 # -- every shape has a form -------------------------------------------------
@@ -109,30 +120,46 @@ def test_gmm_rescore_takes_every_shape():
 
 
 def test_gmm_loglik_takes_every_d():
-    """Every D up to 512: 128-frame blocks with the pair table in shared
-    memory up to D = 204, 64-frame blocks reading it from device memory
-    past it; each block fits."""
-    for D in DS:
+    """Every D up to 720: 128-frame blocks with the pair table in shared
+    memory up to D = 204, the rows form past it with 128 frames a block up
+    to D = 328, 64 up to 648, 32 beyond; each block fits, and the rows
+    form's W positions are whole slabs of its rows' chunks."""
+    for D in range(1, 721):
         g = tgl.geometry(D)
-        assert g.smem <= MAX_SMEM and g.smem == tgl.smem_bytes(D, g.wide)
-        assert (g.bm, g.wide) == ((128, False) if D <= 204 else (64, True))
+        assert g.smem <= MAX_SMEM
+        assert g.smem == tgl.smem_bytes(D, g.wide, g.bm // 32)
+        want = ((128, False) if D <= 204 else (128, True) if D <= 328
+                else (64, True) if D <= 648 else (32, True))
+        assert (g.bm, g.wide) == want, D
+        if g.wide:
+            K = tgl.rows_positions(D)
+            chunks = sum(n for _, n in tgl.row_schedule(D))
+            assert K % tgl.KS == 0 and 0 <= K - 8 * chunks < tgl.KS
     assert tgl.smem_bytes(205) > MAX_SMEM
+    tgl.geometry(1320)
     with pytest.raises(ValueError, match="shared memory"):
-        tgl.geometry(768)
+        tgl.geometry(1321)
 
 
 def test_bw_stats_takes_every_d():
-    """Every D up to 512 codes its columns in 16-bit fields and fits (up
-    to D = 710)."""
-    for D in DS:
-        assert tbw.smem_bytes(D) <= MAX_SMEM
-    assert tbw.smem_bytes(710) <= MAX_SMEM < tbw.smem_bytes(711)
-    assert tbw.smem_bytes(512) == 182016
+    """Every D up to 720 has a form that fits, two blocks an SM: the rows
+    form at the multiples of 4 up to 252, the pairs form at every other D
+    (its shared memory the same at every D); the tables hold the form's
+    columns in 16-bit codes; D past MAX_D is refused."""
+    for D in range(1, 721):
+        g = tbw.geometry(D)
+        assert g.smem == tbw.smem_bytes(D) <= MAX_SMEM and g.blocks == 2
+        assert g.pairs == (D % 4 != 0 or D > 252), D
+        assert g.tile == (tbw.PM if g.pairs else tbw.BM)
+        if D in (1, 5, 72, 252, 253, 255, 256, 512, 720):
+            assert tbw.table(D).shape[0] == g.cols
+    assert tbw.smem_bytes(252) == 115456 and tbw.smem_bytes(255) == 82944
     for D in (255, 512):
-        t = tbw.pair_table(D)
+        t = tbw.table(D)
         assert D <= int((t & 0xFFFF).max()) == int((t >> 16).max()) <= D + 1
-    with pytest.raises(ValueError, match="shared memory"):
-        tbw.pair_table(711)
+    tbw.geometry(tbw.MAX_D)
+    with pytest.raises(ValueError, match="16-bit"):
+        tbw.geometry(tbw.MAX_D + 1)
 
 
 def test_paper_shapes_keep_their_forms():
@@ -152,12 +179,18 @@ def test_new_constants_are_the_cuda_ones():
     """The wrappers' constants for the new forms are those of the .cu
     files."""
     gl = _cu_consts("gmm_loglik")
-    for name in ("BM", "BM_WIDE", "BN", "BK", "STAGES", "THREADS",
-                 "MAX_SMEM"):
-        assert gl[name] == getattr(tgl, name), name
-    bw = _cu_consts("bw_stats")
     for name in ("BM", "BN", "BK", "STAGES", "THREADS", "MAX_SMEM"):
+        assert gl[name] == getattr(tgl, name), name
+    rows = _cu_consts("gmm_loglik", "rows")
+    assert (rows["BN"], rows["KS"], rows["STAGES"]) == (tgl.RBN, tgl.KS,
+                                                       tgl.RING)
+    bw = _cu_consts("bw_stats")
+    for name in ("BM", "BN", "BK", "STAGES", "THREADS", "MAX_SMEM",
+                 "MAX_D"):
         assert bw[name] == getattr(tbw, name), name
+    pairs = _cu_consts("bw_stats", "pairs")
+    assert (pairs["PM"], pairs["PB"], pairs["STAGES"]) == (tbw.PM, tbw.PB,
+                                                          tbw.PSTAGES)
     ga = _cu_consts("gmm_align")
     for name in ("SEL_THREADS", "KEY_NINF", "SLOT_SPLIT", "THREADS", "NC"):
         assert ga[name] == getattr(tga, name), name
@@ -289,19 +322,136 @@ def test_strip_scores_match_plain_and_jax(D, strip):
 
 @pytest.mark.parametrize("compact", [False, True])
 def test_bw_moments_with_wide_codes_match_jax(compact):
-    """The kernel's arithmetic with 16-bit codes at D = 256 (runs cut and
-    compacted as on the card) against both packages' plain moments."""
+    """The kernel's arithmetic with 16-bit codes at D = 256 (its form's
+    table and component tiles, runs cut and compacted as on the card)
+    against both packages' plain moments."""
     rng = np.random.default_rng(256)
     F, C, D = 96, 140, 256
     x = rng.standard_normal((F, D)).astype(np.float32)
     gamma = rng.dirichlet(np.ones(C), size=F).astype(np.float32)
     gamma[rng.uniform(size=(F, C)) < 0.7] = 0.0
-    got = tbw.moments(_t(gamma), _t(x), tbw.pair_table(D), 3, compact)
+    got = tbw.moments(_t(gamma), _t(x), tbw.table(D), 3, compact,
+                      tbw.geometry(D).tile)
     want = jref.bw_stats(jnp.asarray(gamma), jnp.asarray(x))
     plain = tref.bw_stats(_t(gamma), _t(x))
     for g, w, p in zip(got, want, plain):
         _close_rel(g, w, 2e-5)
         _close_rel(g, p, 2e-5)
+
+
+def _loglik_inputs(rng, F, C, D):
+    """x, const, lin and a P_flat with an antisymmetric part (the kernels
+    use its symmetric part, as x'Px does)."""
+    x = rng.standard_normal((F, D)).astype(np.float32)
+    const = rng.standard_normal(C).astype(np.float32)
+    lin = rng.standard_normal((D, C)).astype(np.float32)
+    a = rng.standard_normal((C, D, D)).astype(np.float32)
+    P = (0.3 * a @ a.transpose(0, 2, 1) / D + np.eye(D, dtype=np.float32)
+         + 0.01 * rng.standard_normal((C, D, D)).astype(np.float32))
+    return x, const, lin, P.reshape(C, D * D).astype(np.float32)
+
+
+@pytest.mark.parametrize("D", [205, 255, 256, 257])
+def test_rows_form_sums_match_plain_and_jax(D):
+    """gmm_loglik's rows form in plain tensor code (``row_sums``: each
+    row's inner sum as the kernel's three TF32 products over its 8-wide
+    chunks, times x_i, added in row order, const last) against the port's
+    plain version and the JAX package's, 2e-5 of the largest |value|."""
+    rng = np.random.default_rng(D)
+    F, C = 24, 40
+    x, const, lin, P = _loglik_inputs(rng, F, C, D)
+    Wr = tgl.row_weights(_t(const), _t(lin), _t(P))
+    assert Wr.shape == (tgl.RBN, tgl.rows_positions(D))
+    got = tgl.row_sums(_t(x), _t(const), Wr)
+    _close_rel(got, tref.gmm_loglik(_t(x), _t(const), _t(lin), _t(P)), 2e-5)
+    _close_rel(got, jref.gmm_loglik(jnp.asarray(x), jnp.asarray(const),
+                                    jnp.asarray(lin), jnp.asarray(P)), 2e-5)
+
+
+@pytest.mark.parametrize("D", [7, 205, 256])
+def test_row_weights_are_the_packed_weights(D):
+    """Each of the rows form's positions holds the packed operand's value
+    for its pair times the pair's weight (2 off the diagonal), bitwise;
+    the linear row holds lin; every other position is zero."""
+    rng = np.random.default_rng(D + 1)
+    C = 5
+    _, const, lin, P = _loglik_inputs(rng, 1, C, D)
+    W = tgl.packed_weights(_t(const), _t(lin), _t(P))
+    Wr = tgl.row_weights(_t(const), _t(lin), _t(P))
+    assert (Wr[C:] == 0).all()
+    want = torch.zeros_like(Wr[:C])
+    pos = 0
+    for r, (j0, n) in enumerate(tgl.row_schedule(D)):
+        for k in range(8 * n):
+            j = j0 + k
+            if j >= D:
+                continue
+            if r == 0:
+                want[:, pos + k] = _t(lin)[j]
+            elif j >= r - 1:
+                i = r - 1
+                e = 1 + D + i * D - i * (i - 1) // 2 + (j - i)
+                want[:, pos + k] = W[e, :C] * (1 if i == j else 2)
+        pos += 8 * n
+    assert torch.equal(Wr[:C], want)
+
+
+def test_tf32_split_rounds_to_nearest_away():
+    """hi is v rounded to 10 mantissa bits, ties away from zero; lo is v -
+    hi truncated to 10 mantissa bits (as the tensor cores read it); v - hi
+    - lo is below 2^-20 |v|."""
+    v = torch.tensor([1.0, 1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -12,
+                      3.14159265, -2.71828, 1e-20, 0.0], dtype=torch.float32)
+    hi, lo = tgl.tf32_split(v)
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all()
+    assert (lo.view(torch.int32) & 0x1FFF == 0).all()
+    assert hi[1].item() == 1 + 2 ** -10 and hi[2].item() == -(1 + 2 ** -10)
+    assert hi[3].item() == 1 + 2 ** -10
+    rest = (v.double() - hi.double() - lo.double()).abs()
+    assert (rest <= 2 ** -20 * v.double().abs()).all()
+
+
+@pytest.mark.parametrize("D", [205, 255, 256, 257])
+@pytest.mark.parametrize("compact", [False, True])
+def test_pairs_form_moments_match_plain_and_jax(D, compact):
+    """bw_stats' pairs form in plain tensor code (``moments`` over
+    ``pairs_table``'s (I, J) tiles and 64-component tiles, runs cut and
+    compacted as on the card) against the port's plain version and the JAX
+    package's, 2e-5 relative."""
+    rng = np.random.default_rng(D + 7)
+    F, C = 50, 150
+    x = rng.standard_normal((F, D)).astype(np.float32)
+    gamma = rng.dirichlet(np.ones(C), size=F).astype(np.float32)
+    gamma[rng.uniform(size=(F, C)) < 0.8] = 0.0
+    got = tbw.moments(_t(gamma), _t(x), tbw.pairs_table(D), 2, compact,
+                      tbw.PM)
+    want = jref.bw_stats(jnp.asarray(gamma), jnp.asarray(x))
+    plain = tref.bw_stats(_t(gamma), _t(x))
+    for g, w, p in zip(got, want, plain):
+        _close_rel(g, w, 2e-5)
+        _close_rel(g, p, 2e-5)
+
+
+@pytest.mark.parametrize("D", [1, 5, 16, 17, 253, 256, 257, 512])
+def test_pairs_table_covers_the_triangle(D):
+    """Every pair i <= j < D, every f column (d, D) and n's (D, D) exactly
+    once; a tile's first column is its blocks' first indices, and each
+    used column's indices lie in its tile's blocks (or are D)."""
+    t = tbw.pairs_table(D)
+    assert t.shape[0] == tbw.pairs_columns(D) and t.dtype == torch.int32
+    i, j = (t & 0xFFFF).long(), (t >> 16).long()
+    used = i <= D
+    assert ((i == D + 1) & (j == D + 1))[~used].all()
+    got = sorted(zip(i[used].tolist(), j[used].tolist()))
+    want = sorted([(a, b) for a in range(D) for b in range(a, D)]
+                  + [(d, D) for d in range(D)] + [(D, D)])
+    assert got == want
+    tile = torch.arange(t.shape[0]) // tbw.PN
+    ib, jb = i[::tbw.PN][tile], j[::tbw.PN][tile]
+    assert (ib % tbw.PB == 0).all() and (ib <= jb).all()
+    inside = (((i == D) | ((i >= ib) & (i < ib + tbw.PB)))
+              & ((j == D) | ((j >= jb) & (j < jb + tbw.PB))))
+    assert inside[used].all()
 
 
 # -- the i-vector path at D = 256 and at K = C ------------------------------

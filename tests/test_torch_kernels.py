@@ -682,15 +682,17 @@ def _gamma(rng, F, C, kind):
     (301, 4, 300, "hole"),      # ragged F; tile 1 has no frames
     (77, 3, 129, "sparse"),     # ragged F and C (a 1-component tile)
 ])
-def test_bw_stats_frame_lists_match_numpy(F, D, C, kind):
-    """The compaction's plain version: each 128-component tile's frames
-    with a non-zero Γ, in frame order, against numpy."""
+@pytest.mark.parametrize("tile", [128, 64])
+def test_bw_stats_frame_lists_match_numpy(F, D, C, kind, tile):
+    """The compaction's plain version: each component tile's frames (128
+    wide in the rows form, 64 in the pairs form) with a non-zero Γ, in
+    frame order, against numpy."""
     rng = np.random.default_rng(F + C)
     gamma = _gamma(rng, F, C, kind)
-    lists = tbw.frame_lists(_t(gamma))
-    assert len(lists) == -(-C // 128)
+    lists = tbw.frame_lists(_t(gamma), tile)
+    assert len(lists) == -(-C // tile)
     for t, got in enumerate(lists):
-        want = np.flatnonzero((gamma[:, 128 * t:128 * (t + 1)] != 0)
+        want = np.flatnonzero((gamma[:, tile * t:tile * (t + 1)] != 0)
                               .any(axis=1))
         np.testing.assert_array_equal(got.numpy(), want)
     if kind == "dense":
@@ -698,7 +700,8 @@ def test_bw_stats_frame_lists_match_numpy(F, D, C, kind):
     if kind == "zero":
         assert all(len(li) == 0 for li in lists)
     if kind == "hole":
-        assert len(lists[1]) == 0 and len(lists[0]) > 0
+        hole = 1 if tile == 128 else 2
+        assert len(lists[hole]) == 0 and len(lists[0]) > 0
 
 
 @pytest.mark.parametrize("F,D,C,kind,nsplit", [
@@ -709,19 +712,28 @@ def test_bw_stats_frame_lists_match_numpy(F, D, C, kind):
     (40, 3, 9, "sparse", 4),      # runs with no frames
 ])
 @pytest.mark.parametrize("compact", [False, True])
-def test_bw_stats_table_moments_match_pallas(F, D, C, kind, nsplit, compact):
+@pytest.mark.parametrize("form", ["rows", "pairs"])
+def test_bw_stats_table_moments_match_pallas(F, D, C, kind, nsplit, compact,
+                                             form):
     """The kernel's arithmetic in plain tensor code: for each component
     tile, its frames (all, or its compacted list) in ``nsplit`` runs; Γᵀ X₂
     over the coded columns per run, added in run order, scattered by code;
-    against the Pallas kernel in interpret mode and the port's plain
-    version. S comes out exactly symmetric."""
+    in either form's table and tiles (rows: ``pair_table``, 128
+    components; pairs: ``pairs_table``, 64); against the Pallas kernel in
+    interpret mode and the port's plain version. S comes out exactly
+    symmetric."""
     rng = np.random.default_rng(F + D + C)
     x = rng.standard_normal((F, D)).astype(np.float32)
     gamma = _gamma(rng, F, C, kind)
     with jops.use_pallas(True):
         want = jops.bw_stats(jnp.asarray(gamma), jnp.asarray(x),
                              block_f=F, block_c=C)
-    got = tbw.moments(_t(gamma), _t(x), tbw.pair_table(D), nsplit, compact)
+    if form == "rows":
+        got = tbw.moments(_t(gamma), _t(x), tbw.pair_table(D), nsplit,
+                          compact)
+    else:
+        got = tbw.moments(_t(gamma), _t(x), tbw.pairs_table(D), nsplit,
+                          compact, tbw.PM)
     plain = tref.bw_stats(_t(gamma), _t(x))
     for g, w, p in zip(got, want, plain):
         _close(g, w)
